@@ -1,0 +1,228 @@
+"""Configuration and tiling math for the PyTorch / Hopper port.
+
+Counterpart of ``gemm_hls_tpu/config.py`` with the same ``GemmConfig`` field
+names, the same tiling and communication-avoiding I/O law (``grid``,
+``padded_shape``, ``io_volume_*``, ``flops``), and Hopper limits in place of
+the TPU's lane/sublane/VMEM checks.
+
+The blocks describe one CUDA thread block's C tile (``block_m x block_n``)
+and its K step (``block_k``).  The kernels in ``csrc/`` are compiled for
+fixed tiles (``KERNEL_TILES``); ``validate`` checks that a config names the
+tile of the kernel that will run, so the I/O law below describes that
+kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+# Hopper: shared memory one thread block may use (227 KB of the SM's 256 KB;
+# NVIDIA Hopper tuning guide).
+SMEM_LIMIT_BYTES = 232_448
+
+# C tiles the kernels in csrc/ are compiled for, keyed by route:
+#   "tc"   — csrc/mxu_gemm.cu, tensor-core tile (bf16 / fp16 / int8 inputs);
+#   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 / int32 plus_times in
+#            mxu_gemm.cu, and every semiring in semiring_gemm.cu).
+KERNEL_TILES = {"tc": (128, 128, 32), "simt": (128, 128, 16)}
+
+# Padded row length, in elements, of one 16-deep K plane of the tensor-core
+# kernel's shared-memory tiles (``TcTraits::LDP`` in csrc/mxu_gemm.cu).
+_TC_PLANE_LD = {2: 24, 1: 32}
+_TC_WARPS = 8
+
+_TENSOR_CORE_DTYPES = ("bfloat16", "float16", "int8")
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``torch.dtype`` for a dtype name ("bfloat16", "int32", ...) or dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    d = getattr(torch, str(name), None)
+    if not isinstance(d, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return d
+
+
+def dtype_name(d) -> str:
+    """Canonical name of a torch dtype (``torch.bfloat16`` -> "bfloat16")."""
+    return str(torch_dtype(d)).removeprefix("torch.")
+
+
+def itemsize(d) -> int:
+    return torch_dtype(d).itemsize
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return cdiv(x, m) * m
+
+
+def accumulator_for(dtype) -> str:
+    """fp32 for floating inputs (fp64 for fp64), int32 for integers."""
+    d = torch_dtype(dtype)
+    if d == torch.float64:
+        return "float64"
+    if d.is_floating_point:
+        return "float32"
+    if d == torch.bool:
+        return "bool"
+    return "int32"
+
+
+def kernel_route(dtype, semiring: str = "plus_times") -> str:
+    """Which compiled tile runs this (dtype, semiring): "tc" or "simt"."""
+    if semiring == "plus_times" and dtype_name(dtype) in _TENSOR_CORE_DTYPES:
+        return "tc"
+    return "simt"
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmConfig:
+    """One GEMM specialization, field for field the JAX ``GemmConfig``
+    minus its three TPU-only fields (``interpret``, ``vmem_limit_bytes``,
+    ``debug``), which :meth:`from_reference` drops.
+
+    ``precision`` applies to float32 plus_times: "high" and "highest" run
+    IEEE fp32 FMA on CUDA cores.  "default" (the TPU's bf16 multi-pass) has
+    no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP A, slice 2:
+    the TF32 decision).  The "i8x*" tiers are not ported yet.
+    """
+
+    dtype: str = "float32"
+    out_dtype: Optional[str] = None
+    acc_dtype: Optional[str] = None
+    block_m: int = 128
+    block_n: int = 128
+    block_k: int = 16
+    semiring: str = "plus_times"
+    transpose_a: bool = False
+    transpose_b: bool = False
+    pad_policy: str = "pad"
+    precision: str = "high"
+
+    _TPU_ONLY = ("interpret", "vmem_limit_bytes", "debug")
+
+    @classmethod
+    def from_reference(cls, fields: dict) -> "GemmConfig":
+        """Build from ``dataclasses.asdict`` of a ``gemm_hls_tpu`` config."""
+        return cls(**{k: v for k, v in fields.items()
+                      if k not in cls._TPU_ONLY})
+
+    # ---- resolved dtypes -------------------------------------------------
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def tout_dtype(self) -> torch.dtype:
+        return torch_dtype(self.out_dtype if self.out_dtype is not None
+                           else self.dtype)
+
+    @property
+    def tacc_dtype(self) -> torch.dtype:
+        return torch_dtype(self.acc_dtype if self.acc_dtype is not None
+                           else accumulator_for(self.dtype))
+
+    # ---- validation ------------------------------------------------------
+
+    def validate(self, strict_alignment: bool = False,
+                 route: Optional[str] = None) -> "GemmConfig":
+        """Eager checks.  ``strict_alignment`` (set when a kernel will run)
+        adds the Hopper ones: the tile is the one the kernel of ``route``
+        ("tc" / "simt"; default: :func:`kernel_route`) was compiled for,
+        its shared memory fits a block, and tile rows are whole 16-byte
+        vectors."""
+        if self.pad_policy not in ("pad", "strict"):
+            raise ValueError(
+                f"pad_policy must be 'pad' or 'strict', got {self.pad_policy!r}")
+        if self.precision not in ("default", "high", "highest",
+                                  "i8x2", "i8x3", "i8x4"):
+            raise ValueError(
+                f"precision must be one of 'default', 'high', 'highest', "
+                f"'i8x2', 'i8x3', 'i8x4', got {self.precision!r}")
+        for name in ("block_m", "block_n", "block_k"):
+            v = getattr(self, name)
+            if not (isinstance(v, int) and v > 0):
+                raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if strict_alignment:
+            route = route or kernel_route(self.dtype, self.semiring)
+            tile = (self.block_m, self.block_n, self.block_k)
+            if tile != KERNEL_TILES[route]:
+                raise ValueError(
+                    f"blocks {tile} are not the {route!r} kernel's compiled "
+                    f"tile {KERNEL_TILES[route]} (Hopper tiling constraint)")
+            in_b = itemsize(self.dtype)
+            for name in ("block_n", "block_k"):
+                if getattr(self, name) * in_b % 16:
+                    raise ValueError(
+                        f"{name}={getattr(self, name)} rows of {self.dtype} "
+                        f"are not whole 16-byte vectors")
+            need = self.smem_bytes(route)
+            if need > SMEM_LIMIT_BYTES:
+                raise ValueError(
+                    f"tile config needs {need} B of shared memory "
+                    f"(> {SMEM_LIMIT_BYTES} B per block)")
+        return self
+
+    # ---- derived tiling math (same law as the JAX package) ---------------
+
+    def smem_bytes(self, route: Optional[str] = None) -> int:
+        """Shared memory of one thread block, as the kernels lay it out."""
+        acc_b = itemsize(self.tacc_dtype)
+        if (route or kernel_route(self.dtype, self.semiring)) == "tc":
+            in_b = itemsize(self.dtype)
+            planes = cdiv(self.block_k, 16)
+            ld = _TC_PLANE_LD[in_b]
+            return ((self.block_m + self.block_n) * planes * ld * in_b
+                    + _TC_WARPS * 16 * 16 * acc_b)
+        return self.block_k * (self.block_m + self.block_n + 2) * acc_b
+
+    def grid(self, m: int, n: int, k: int) -> Tuple[int, int, int]:
+        return (cdiv(m, self.block_m), cdiv(n, self.block_n),
+                cdiv(k, self.block_k))
+
+    def padded_shape(self, m: int, n: int, k: int) -> Tuple[int, int, int]:
+        gm, gn, gk = self.grid(m, n, k)
+        return (gm * self.block_m, gn * self.block_n, gk * self.block_k)
+
+    def io_volume_words(self, m: int, n: int, k: int) -> int:
+        """``M*N*(1 + K/block_n + K/block_m)`` words: each C tile streams an
+        A slab and a B slab once (reference ``PrintSpecifications.cpp:72-75``)."""
+        gm, gn, _ = self.grid(m, n, k)
+        return self.block_m * k * gm * gn + k * self.block_n * gm * gn + m * n
+
+    def io_volume_bytes(self, m: int, n: int, k: int) -> int:
+        in_b = itemsize(self.dtype)
+        out_b = itemsize(self.tout_dtype)
+        gm, gn, _ = self.grid(m, n, k)
+        return ((self.block_m * k * gm * gn + k * self.block_n * gm * gn)
+                * in_b + m * n * out_b)
+
+    def flops(self, m: int, n: int, k: int) -> int:
+        """2*M*N*K, the reference's GOp/s accounting."""
+        return 2 * m * n * k
+
+    def arithmetic_intensity(self, m: int, n: int, k: int) -> float:
+        return self.flops(m, n, k) / self.io_volume_bytes(m, n, k)
+
+    def replace(self, **kw) -> "GemmConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def default_config(dtype="float32", **kw) -> GemmConfig:
+    """The compiled CTA tile of the kernel that runs ``dtype`` under
+    ``kw['semiring']`` (plus_times by default)."""
+    name = dtype_name(dtype)
+    bm, bn, bk = KERNEL_TILES[kernel_route(name, kw.get("semiring",
+                                                        "plus_times"))]
+    base = dict(block_m=bm, block_n=bn, block_k=bk)
+    base.update(kw)
+    return GemmConfig(dtype=name, **base)

@@ -1,0 +1,268 @@
+// Kernel B1: dense plus_times GEMM, C[M,N] = op(A) . op(B).
+//
+// Replaces the TPU kernel gemm_hls_tpu/ops/pallas_mxu.py::_kernel (entry
+// mxu_matmul), without its fused epilogue.  Same communication-avoiding
+// schedule: one C tile stays in fast memory (here: registers) while K
+// streams through.  On Hopper each 256-thread block owns one 128x128 C tile
+// and loops over K itself; blocks carry nothing between them, so the TPU
+// kernel's sequential K grid axis and its acc_ref scratch become this loop.
+//
+// Routes by input dtype:
+//   bf16, fp16 -> tensor cores (WMMA 16x16x16), fp32 accumulator;
+//   int8       -> tensor cores (WMMA 16x16x16), int32 accumulator;
+//   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
+//                  (csrc/simt_gemm.cuh with the plus_times functor); this
+//                  meets the reference's "high"/"highest" precision.
+// The accumulator is cast to the output dtype at the store.
+//
+// Layouts: A is (M, K) or, with ta, (K, M); B is (K, N) or, with tb,
+// (N, K).  Each operand is read along its own contiguous axis, in 16-byte
+// vectors where the row pitch and base allow it, and written into shared
+// memory as 16-deep K planes: element (o, k) of an operand tile sits at
+// ((k / 16) * 128 + o) * LDP + k % 16.  A plane is a row-major matrix_a /
+// column-major matrix_b for WMMA whatever the global layout, so no
+// transpose is ever materialised, and every fragment pointer is 32-byte
+// aligned (WMMA requires it; a flat int8 tile would put odd 16-column
+// fragments at 16-byte offsets).  One exception, the main path's: a
+// row-major 16-bit B keeps its natural [k][n] tile (see B_ROW).
+//
+// Ragged edges: the K tail of BOTH operands is zero-filled in shared memory,
+// never loaded (0 * NaN garbage must not reach the sum; see
+// pallas_mxu.py::_mask_k_tail); rows past M/N are zero-filled too and the
+// store masks them.
+//
+// What bounds it on an H100 at 8192^3 bf16: the tensor-core rate.  1.1e12
+// FLOP at 989e12 FLOP/s is 1.11 ms.  The io_volume law of a 128x128 tile
+// reads M*N*K*(1/128 + 1/128) elements, 17.2 GB of bf16, 5.1 ms at
+// 3.35 TB/s if nothing were reused, so the kernel leans on the 50 MB L2
+// (the 132 tiles in flight share their A rows and B columns).
+// Measured (H100 80GB HBM3, 700 W): 5.86 ms at 8192^3 bf16, 188 TFLOP/s,
+// against torch.matmul's 1.32 ms.  Left on the table by this simple design:
+// WMMA issues mma.sync, a quarter of wgmma's rate; no TMA, no multi-stage
+// cp.async ring (one shared buffer, two barriers per K step, next tile
+// prefetched into registers); C is staged through shared memory one 16x16
+// fragment at a time; no persistent blocks or L2-aware rasterisation.
+#include <mma.h>
+
+#include <type_traits>
+
+#include "simt_gemm.cuh"
+
+namespace gemm_hls {
+
+using namespace nvcuda;
+
+constexpr int TBM = 128, TBN = 128, TBK = 32, TTHREADS = 256, TWARPS = 8;
+
+template <typename T> struct TcTraits;
+template <> struct TcTraits<__nv_bfloat16> {
+  using Acc = float;
+  using Raw = uint16_t;
+  static constexpr int VEC = 8, LDP = 24;
+};
+template <> struct TcTraits<__half> {
+  using Acc = float;
+  using Raw = uint16_t;
+  static constexpr int VEC = 8, LDP = 24;
+};
+template <> struct TcTraits<signed char> {
+  using Acc = int;
+  using Raw = signed char;
+  static constexpr int VEC = 16, LDP = 32;
+};
+
+// Padded row, in elements, of a B tile kept in its natural [k][n] layout.
+constexpr int ROW_LD = TBN + 8;
+
+// Chunk ``ch`` of an operand K-slice -> (row r, first column col) in the
+// operand's global orientation (columns = its contiguous axis).  With K
+// contiguous, or with ROW (the tile keeps its natural layout), consecutive
+// chunks run along a row.  With K strided into K planes, each chunk's VEC
+// elements land in VEC different plane rows of shared memory; running
+// consecutive chunks along a row would put a warp's stores in one bank
+// (16-way conflicts), so a warp instead takes 16 K rows x 2 neighbouring
+// chunks: full 32-byte sectors on the load, 2-way conflicts on the store.
+template <int R, int VEC, bool ROW>
+__device__ __forceinline__ void chunk_coords(int ch, bool k_contig, int& r, int& col) {
+  if (k_contig || ROW) {
+    const int cpr = (k_contig ? TBK : R) / VEC;
+    r = ch / cpr;
+    col = (ch % cpr) * VEC;
+  } else {
+    r = (ch / 2) % TBK;
+    col = ((ch / (2 * TBK)) * 2 + ch % 2) * VEC;
+  }
+}
+
+// One operand K-slice of R rows ("o": m for A, n for B) by TBK, read in
+// VEC-element chunks along the operand's contiguous axis.
+template <typename Tr, int R, bool ROW>
+__device__ __forceinline__ void tc_load(uint4 (&reg)[R * TBK / Tr::VEC / TTHREADS],
+                                        const typename Tr::Raw* __restrict__ g, int64_t ld,
+                                        bool k_contig, int o0, int k0, int O, int K, bool vec_ok) {
+  using Raw = typename Tr::Raw;
+  constexpr int VEC = Tr::VEC, CH = R * TBK / VEC / TTHREADS;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    int r, col;
+    chunk_coords<R, VEC, ROW>(threadIdx.x + c * TTHREADS, k_contig, r, col);
+    const int64_t gr = (k_contig ? o0 : k0) + r;
+    const int64_t gc = (k_contig ? k0 : o0) + col;
+    const int64_t rlim = k_contig ? O : K, clim = k_contig ? K : O;
+    if (vec_ok && gr < rlim && gc + VEC <= clim) {
+      reg[c] = __ldg(reinterpret_cast<const uint4*>(g + gr * ld + gc));
+    } else {
+      Raw* e = reinterpret_cast<Raw*>(&reg[c]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) e[i] = (gr < rlim && gc + i < clim) ? g[gr * ld + gc + i] : Raw(0);
+    }
+  }
+}
+
+template <typename Tr, int R, bool ROW>
+__device__ __forceinline__ void tc_store(typename Tr::Raw* s,
+                                         const uint4 (&reg)[R * TBK / Tr::VEC / TTHREADS],
+                                         bool k_contig) {
+  using Raw = typename Tr::Raw;
+  constexpr int VEC = Tr::VEC, LDP = Tr::LDP, CH = R * TBK / VEC / TTHREADS;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    int r, col;
+    chunk_coords<R, VEC, ROW>(threadIdx.x + c * TTHREADS, k_contig, r, col);
+    if (k_contig) {  // o = r, k = col .. col + VEC - 1, inside one K plane
+      *reinterpret_cast<uint4*>(s + ((col >> 4) * R + r) * LDP + (col & 15)) = reg[c];
+    } else if (ROW) {  // natural layout: k = r, o = col .. col + VEC - 1
+      *reinterpret_cast<uint4*>(s + r * ROW_LD + col) = reg[c];
+    } else {  // k = r, o = col + i
+      const Raw* e = reinterpret_cast<const Raw*>(&reg[c]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s[((r >> 4) * R + col + i) * LDP + (r & 15)] = e[i];
+    }
+  }
+}
+
+// Two blocks per SM (registers capped at 128, a few bytes spilled): 8.16 ->
+// 7.33 ms at 8192^3 bf16 on an H100 80GB HBM3 at 700 W, against 162
+// registers and one block per SM.
+// B_ROW: B is row-major (K, N) and 16-bit, so its tile keeps the natural
+// [k][n] layout (16-byte stores) and feeds a row-major matrix_b; otherwise
+// it takes the K-plane layout.  (int8 cannot: its 16-column fragments would
+// sit at 16-byte offsets of a row.)
+template <typename T, bool B_ROW>
+__global__ void __launch_bounds__(TTHREADS, 2)
+mxu_tc_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ C, int M,
+              int N, int K, int64_t lda, int64_t ldb, int ta, int tb, int a_vec, int b_vec,
+              int out_code) {
+  using Tr = TcTraits<T>;
+  using Acc = typename Tr::Acc;
+  using Raw = typename Tr::Raw;
+  constexpr int LDP = Tr::LDP, KP = TBK / 16;
+  constexpr int CHA = TBM * TBK / Tr::VEC / TTHREADS, CHB = TBN * TBK / Tr::VEC / TTHREADS;
+  __shared__ __align__(128) Raw As[KP * TBM * LDP];
+  static_assert(TBK * ROW_LD <= KP * TBN * LDP, "natural B tile must fit");
+  __shared__ __align__(128) Raw Bs[KP * TBN * LDP];
+  __shared__ __align__(128) Acc Cs[TWARPS][16 * 16];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;  // each warp: 64 x 32 of C
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
+  const bool a_kc = !ta, b_kc = tb;
+  const Raw* Ag = reinterpret_cast<const Raw*>(A);
+  const Raw* Bg = reinterpret_cast<const Raw*>(B);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
+
+  uint4 ra[CHA], rb[CHB];
+  tc_load<Tr, TBM, false>(ra, Ag, lda, a_kc, m0, 0, M, K, a_vec);
+  tc_load<Tr, TBN, B_ROW>(rb, Bg, ldb, b_kc, n0, 0, N, K, b_vec);
+  for (int k0 = 0; k0 < K; k0 += TBK) {
+    tc_store<Tr, TBM, false>(As, ra, a_kc);
+    tc_store<Tr, TBN, B_ROW>(Bs, rb, b_kc);
+    __syncthreads();
+    if (k0 + TBK < K) {
+      tc_load<Tr, TBM, false>(ra, Ag, lda, a_kc, m0, k0 + TBK, M, K, a_vec);
+      tc_load<Tr, TBN, B_ROW>(rb, Bg, ldb, b_kc, n0, k0 + TBK, N, K, b_vec);
+    }
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[4];
+      using BLayout = typename std::conditional<B_ROW, wmma::row_major, wmma::col_major>::type;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> fb[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(fa[i], reinterpret_cast<const T*>(As) + (kp * TBM + wm * 64 + i * 16) * LDP, LDP);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if constexpr (B_ROW)
+          wmma::load_matrix_sync(fb[j], reinterpret_cast<const T*>(Bs) + kp * 16 * ROW_LD + wn * 32 + j * 16, ROW_LD);
+        else
+          wmma::load_matrix_sync(fb[j], reinterpret_cast<const T*>(Bs) + (kp * TBN + wn * 32 + j * 16) * LDP, LDP);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  Acc* cs = Cs[warp];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int gm = m0 + wm * 64 + i * 16 + e / 16;
+        const int gn = n0 + wn * 32 + j * 16 + e % 16;
+        if (gm < M && gn < N) store_out(C, static_cast<int64_t>(gm) * N + gn, cs[e], out_code);
+      }
+      __syncwarp();
+    }
+}
+
+template <typename T>
+int launch_tc(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
+              int64_t ldb, int ta, int tb, int a_vec, int b_vec, int out_code,
+              cudaStream_t stream) {
+  const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+  const T* A = static_cast<const T*>(a);
+  const T* B = static_cast<const T*>(b);
+  if constexpr (sizeof(T) == 2) {
+    if (!tb) {
+      mxu_tc_kernel<T, true><<<grid, TTHREADS, 0, stream>>>(A, B, c, M, N, K, lda, ldb, ta, tb,
+                                                            a_vec, b_vec, out_code);
+      return last_error();
+    }
+  }
+  mxu_tc_kernel<T, false><<<grid, TTHREADS, 0, stream>>>(A, B, c, M, N, K, lda, ldb, ta, tb,
+                                                         a_vec, b_vec, out_code);
+  return last_error();
+}
+
+}  // namespace gemm_hls
+
+using namespace gemm_hls;
+
+// C (M, N) row-major, written in ``out_code``'s dtype.  a_vec / b_vec: the
+// operand's base is 16-byte aligned and its row pitch a whole number of
+// 16-byte vectors (the tensor-core route then loads 16 bytes at a time).
+// Returns 0, a CUDA error code from the launch, or -1 for an input dtype
+// not built.
+extern "C" int mxu_gemm(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
+                        int64_t ldb, int ta, int tb, int a_vec, int b_vec, int in_code,
+                        int out_code, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_code) {
+    case kBF16: return launch_tc<__nv_bfloat16>(a, b, c, M, N, K, lda, ldb, ta, tb, a_vec, b_vec, out_code, s);
+    case kF16: return launch_tc<__half>(a, b, c, M, N, K, lda, ldb, ta, tb, a_vec, b_vec, out_code, s);
+    case kI8: return launch_tc<signed char>(a, b, c, M, N, K, lda, ldb, ta, tb, a_vec, b_vec, out_code, s);
+    case kF32: return launch_simt<float, float, PlusTimes<float>>(a, b, c, M, N, K, lda, ldb, ta, tb, out_code, s);
+    case kI32: return launch_simt<int, int, PlusTimes<int>>(a, b, c, M, N, K, lda, ldb, ta, tb, out_code, s);
+    default: return kUnsupported;
+  }
+}

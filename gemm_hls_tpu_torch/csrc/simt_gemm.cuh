@@ -1,0 +1,189 @@
+// CUDA-core tiled GEMM over a (map, reduce) functor: the tile shared by
+// kernel B3 (csrc/semiring_gemm.cu, every semiring) and by kernel B1's
+// fp32 / int32 route (csrc/mxu_gemm.cu, plus_times without tensor cores).
+//
+// One 256-thread block owns a 128x128 C tile and walks all of K in steps
+// of 16 (the TPU kernel's sequential K grid axis becomes this loop: Hopper
+// blocks carry nothing from one to the next).  Each thread keeps an 8x8
+// accumulator in registers, initialised to the reduce identity.  A and B
+// K-slices are staged K-major in shared memory, converted to the
+// accumulator type on the way in; the next slice is prefetched into
+// registers while the current one is reduced.
+//
+// Masking instead of padding: operands are read whole and unpadded.  Rows
+// and columns past M/N are loaded as 0 and never stored; the K tail is
+// excluded by the loop bound of the last step, which is exactly "masked to
+// the reduce identity" and keeps INT_MAX + x from ever being formed.
+//
+// Operand layouts are read through their leading dimension: A is (M, K)
+// or, with ta, (K, M); B is (K, N) or, with tb, (N, K).  Each load walks
+// the operand's contiguous axis so a warp's reads coalesce.
+#pragma once
+
+#include <climits>
+#include <cmath>
+
+#include "common.cuh"
+
+namespace gemm_hls {
+
+constexpr int SBM = 128, SBN = 128, SBK = 16, STHREADS = 256;
+constexpr int SLOADS = SBM * SBK / STHREADS;  // elements per thread per operand
+
+// ---- arithmetic of the functors ------------------------------------------
+// NaN-propagating min/max: fminf/fmaxf drop a NaN operand, while the
+// reference's jnp.minimum and torch.minimum return NaN.  PTX min.NaN
+// (sm_80+) propagates it in one instruction.
+__device__ __forceinline__ float dmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float dmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ int dmin(int a, int b) { return min(a, b); }
+__device__ __forceinline__ int dmax(int a, int b) { return max(a, b); }
+
+// int32 arithmetic wraps modulo 2^32, as in the reference (done unsigned,
+// where wrapping is defined).
+__device__ __forceinline__ float dadd(float a, float b) { return a + b; }
+__device__ __forceinline__ int dadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float dsub(float a, float b) { return a - b; }
+__device__ __forceinline__ int dsub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float dmul(float a, float b) { return a * b; }
+__device__ __forceinline__ int dmul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float dfma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ int dfma(int a, int b, int c) { return dadd(dmul(a, b), c); }
+
+template <typename Acc> struct Lim;
+template <> struct Lim<float> {
+  static __device__ __forceinline__ float hi() { return INFINITY; }
+  static __device__ __forceinline__ float lo() { return -INFINITY; }
+};
+template <> struct Lim<int> {
+  static __device__ __forceinline__ int hi() { return INT_MAX; }
+  static __device__ __forceinline__ int lo() { return INT_MIN; }
+};
+
+// A functor supplies identity() and step(acc, a, b) = reduce(acc, map(a, b)).
+template <typename Acc> struct PlusTimes {
+  static __device__ __forceinline__ Acc identity() { return Acc(0); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return dfma(a, b, acc); }
+};
+
+// ---- staging -------------------------------------------------------------
+// One operand K-slice: R=128 rows of the non-contracted axis ("o") by SBK.
+// k_contig: the operand's contiguous axis is K (A without ta, B with tb).
+template <typename TIn, typename Acc>
+__device__ __forceinline__ void simt_load(Acc (&r)[SLOADS], const TIn* __restrict__ g,
+                                          int64_t ld, bool k_contig, int o0, int k0,
+                                          int O, int K) {
+#pragma unroll
+  for (int i = 0; i < SLOADS; ++i) {
+    const int idx = threadIdx.x + i * STHREADS;
+    const int kk = k_contig ? idx % SBK : idx / SBM;
+    const int oo = k_contig ? idx / SBK : idx % SBM;
+    const int go = o0 + oo, gk = k0 + kk;
+    r[i] = Acc(0);
+    if (go < O && gk < K) {
+      const int64_t off = k_contig ? static_cast<int64_t>(go) * ld + gk
+                                   : static_cast<int64_t>(gk) * ld + go;
+      r[i] = to_acc(g[off], Acc(0));
+    }
+  }
+}
+
+template <typename Acc>
+__device__ __forceinline__ void simt_store(Acc (*s)[SBM + 1], const Acc (&r)[SLOADS],
+                                           bool k_contig) {
+#pragma unroll
+  for (int i = 0; i < SLOADS; ++i) {
+    const int idx = threadIdx.x + i * STHREADS;
+    const int kk = k_contig ? idx % SBK : idx / SBM;
+    const int oo = k_contig ? idx / SBK : idx % SBM;
+    s[kk][oo] = r[i];
+  }
+}
+
+template <typename Acc, typename Op>
+__device__ __forceinline__ void simt_step(Acc (&acc)[8][8], Acc (*As)[SBM + 1],
+                                          Acc (*Bs)[SBN + 1], int kk, int tx, int ty) {
+  Acc a[8], b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = Op::step(acc[i][j], a[i], b[j]);
+}
+
+template <typename TIn, typename Acc, typename Op>
+__global__ void __launch_bounds__(STHREADS)
+simt_gemm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, void* __restrict__ C,
+                 int M, int N, int K, int64_t lda, int64_t ldb, int ta, int tb, int out_code) {
+  __shared__ Acc As[SBK][SBM + 1];
+  __shared__ Acc Bs[SBK][SBN + 1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
+  const bool a_kc = !ta, b_kc = tb;
+
+  Acc acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = Op::identity();
+
+  Acc ra[SLOADS], rb[SLOADS];
+  simt_load(ra, A, lda, a_kc, m0, 0, M, K);
+  simt_load(rb, B, ldb, b_kc, n0, 0, N, K);
+  for (int k0 = 0; k0 < K; k0 += SBK) {
+    simt_store(As, ra, a_kc);
+    simt_store(Bs, rb, b_kc);
+    __syncthreads();
+    if (k0 + SBK < K) {
+      simt_load(ra, A, lda, a_kc, m0, k0 + SBK, M, K);
+      simt_load(rb, B, ldb, b_kc, n0, k0 + SBK, N, K);
+    }
+    const int kl = min(SBK, K - k0);
+    if (kl == SBK) {
+#pragma unroll
+      for (int kk = 0; kk < SBK; ++kk) simt_step<Acc, Op>(acc, As, Bs, kk, tx, ty);
+    } else {
+      for (int kk = 0; kk < kl; ++kk) simt_step<Acc, Op>(acc, As, Bs, kk, tx, ty);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gm < M && gn < N) store_out(C, static_cast<int64_t>(gm) * N + gn, acc[i][j], out_code);
+    }
+  }
+}
+
+template <typename TIn, typename Acc, typename Op>
+int launch_simt(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
+                int64_t ldb, int ta, int tb, int out_code, cudaStream_t stream) {
+  const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
+  simt_gemm_kernel<TIn, Acc, Op><<<grid, STHREADS, 0, stream>>>(
+      static_cast<const TIn*>(a), static_cast<const TIn*>(b), c, M, N, K, lda, ldb, ta, tb,
+      out_code);
+  return last_error();
+}
+
+}  // namespace gemm_hls

@@ -1,0 +1,122 @@
+"""Kernel B1's module (``gemm_hls_tpu_torch/ops/mxu.py``) against the JAX
+package's ``pallas_mxu.mxu_matmul``.
+
+Each case feeds the same numpy arrays to both.  The JAX side runs its
+Pallas kernel in interpret mode with the small blocks its own tests use;
+the port's side runs the plain version, as a CPU tensor does.  The CUDA
+kernel itself is checked on the card by ``tests/test_torch_kernels.py``
+and ``chip_smoke.py``.
+
+Tolerances: exact for integer outputs; relative 1e-5 for fp32 sums (the
+two sum in different orders); bf16 inputs are rounded identically on both
+sides and compared in fp32 at relative 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gemm_hls_tpu import GemmConfig as JaxConfig
+from gemm_hls_tpu.ops import pallas_mxu
+
+from gemm_hls_tpu_torch.config import default_config
+from gemm_hls_tpu_torch.ops import mxu
+from gemm_hls_tpu_torch.utils import make_operands, reference_matmul, verify_matmul
+
+torch.set_num_threads(1)
+
+# (input dtype, output dtype, relative tolerance)
+DTYPES = [("float32", "float32", 1e-5), ("bfloat16", "float32", 1e-5),
+          ("int8", "int32", 0.0), ("int32", "int32", 0.0)]
+
+
+def _inputs(m, n, k, dtype, ta, tb, seed=5):
+    draw = "int32" if dtype.startswith("int") else "float32"
+    return make_operands(m, n, k, draw, seed=seed, transpose_a=ta,
+                         transpose_b=tb)
+
+
+def _jax(a, b, dtype, out, ta, tb):
+    cfg = JaxConfig(dtype=dtype, out_dtype=out, block_m=16, block_n=128,
+                    block_k=64, interpret=True)
+    return np.asarray(pallas_mxu.mxu_matmul(
+        jnp.asarray(a, dtype), jnp.asarray(b, dtype), cfg=cfg,
+        transpose_a=ta, transpose_b=tb, interpret=True)).astype(
+            np.float32 if out.startswith("float") else np.int64)
+
+
+def _port(a, b, dtype, out, ta, tb):
+    dt = getattr(torch, dtype)
+    cfg = default_config(dtype, out_dtype=out)
+    got = mxu.mxu_matmul(torch.from_numpy(a).to(dt),
+                         torch.from_numpy(b).to(dt), cfg=cfg,
+                         transpose_a=ta, transpose_b=tb)
+    assert got.dtype == getattr(torch, out)
+    return got.cpu().numpy()
+
+
+def _agree(got, exp, rtol):
+    if rtol == 0.0:
+        np.testing.assert_array_equal(got, exp)
+    else:
+        np.testing.assert_allclose(got, exp, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype,out,rtol", DTYPES)
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+def test_layouts_unaligned(dtype, out, rtol, ta, tb):
+    a, b = _inputs(65, 140, 131, dtype, ta, tb)
+    got = _port(a, b, dtype, out, ta, tb)
+    _agree(got, _jax(a, b, dtype, out, ta, tb), rtol)
+    # The repo's own contract against the float64 / int64 oracle.
+    if out == "float32":
+        rounded = torch.from_numpy(a).to(getattr(torch, dtype)).float().numpy()
+        rounded_b = torch.from_numpy(b).to(getattr(torch, dtype)).float().numpy()
+        verify_matmul(got, reference_matmul(rounded, rounded_b,
+                                            transpose_a=ta, transpose_b=tb))
+
+
+@pytest.mark.parametrize("dtype,out,rtol", DTYPES)
+@pytest.mark.parametrize("m,n,k", [(1, 1, 1), (7, 13, 5), (33, 129, 130)])
+def test_tiny_and_odd(dtype, out, rtol, m, n, k):
+    a, b = _inputs(m, n, k, dtype, False, False, seed=9)
+    _agree(_port(a, b, dtype, out, False, False),
+           _jax(a, b, dtype, out, False, False), rtol)
+
+
+def test_int8_output_wraps_like_reference():
+    # int8 -> int8 output: the int32 sum is truncated at the store on both
+    # sides (two's complement), as astype does.
+    a, b = _inputs(9, 20, 40, "int8", False, False)
+    np.testing.assert_array_equal(_port(a, b, "int8", "int8", False, False),
+                                  _jax(a, b, "int8", "int8", False, False))
+
+
+def test_transposed_operands_match_copies():
+    # Transposed operands arrive as given; the result matches the copy.
+    a, b = _inputs(40, 50, 60, "float32", True, True)
+    cfg = default_config("float32")
+    ta = torch.from_numpy(a)
+    tb = torch.from_numpy(b)
+    got = mxu.mxu_matmul(ta, tb, cfg=cfg, transpose_a=True, transpose_b=True)
+    ref = mxu.mxu_matmul(ta.T.contiguous(), tb.T.contiguous(), cfg=cfg)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6)
+
+
+def test_launch_counter_ignores_plain_calls():
+    before = mxu.mxu_matmul.launches
+    a, b = _inputs(8, 8, 8, "float32", False, False)
+    mxu.mxu_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                   cfg=default_config("float32"))
+    assert mxu.mxu_matmul.launches == before
+
+
+@pytest.mark.parametrize("bad", ["shape", "mixed"])
+def test_wrapper_rejects_bad_operands(bad):
+    cfg = default_config("float32")
+    a = torch.ones(4, 5)
+    b = torch.ones(6, 3) if bad == "shape" else torch.ones(5, 3, device="meta")
+    with pytest.raises(ValueError):
+        mxu.mxu_matmul(a, b, cfg=cfg)
