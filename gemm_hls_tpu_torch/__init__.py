@@ -1,15 +1,20 @@
 """gemm_hls_tpu_torch — the PyTorch / CUDA port of gemm_hls_tpu for one
 NVIDIA H100.
 
-Same public surface as the JAX package for this slice: the semiring GEMM
-front door ``matmul``, ``GemmConfig`` / ``default_config`` and the semiring
-registry.  The dense plus_times GEMM runs on a hand-written tensor-core
-kernel (``csrc/mxu_gemm.cu``), every other semiring on a CUDA-core kernel
-(``csrc/semiring_gemm.cu``); both build with nvcc at first use.  This
-package imports neither jax nor ``gemm_hls_tpu``.
+Same public surface as the JAX package for the slices ported so far: the
+semiring GEMM front door ``matmul`` (2-D, batched and N-D, with fused
+epilogues), ``GemmConfig`` / ``default_config``, the semiring registry,
+``fused_linear``, fused-scores ``attention`` / ``attention_scores``, and
+the MLP trainer in ``models.mlp``.  The dense plus_times GEMM runs on
+hand-written tensor-core kernels (``csrc/mxu_gemm.cu``: B1 and the batched
+B2; ``csrc/row_softmax.cu``: B2's row-softmax variant), every other
+semiring on a CUDA-core kernel (``csrc/semiring_gemm.cu``); all build with
+nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
 """
 
 from gemm_hls_tpu_torch.config import GemmConfig, default_config
+from gemm_hls_tpu_torch.ops.attention import attention, attention_scores
+from gemm_hls_tpu_torch.ops.fused_linear import fused_linear
 from gemm_hls_tpu_torch.ops.matmul import matmul
 from gemm_hls_tpu_torch.ops.semiring import (
     Semiring,
@@ -28,4 +33,7 @@ __all__ = [
     "register_semiring",
     "available_semirings",
     "matmul",
+    "fused_linear",
+    "attention",
+    "attention_scores",
 ]

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``gemm_hls_tpu_torch/build/``
-and named by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one is reused.  The library is loaded with ctypes; every
+``csrc/*.cu`` is compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc -c`` per source, all started together, then linked into one shared
+library with a plain C interface, under ``gemm_hls_tpu_torch/build/`` and
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one is reused.  The library is loaded with ctypes; every
 pointer and the stream are passed as ``c_void_p`` (a plain int argument
 would be cut to 32 bits).  Importing this module builds nothing.
 """
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -24,7 +26,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Must match ``enum DType`` in csrc/common.cuh.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -64,32 +66,67 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the hashed library exists; the ptxas
-    report (registers, shared memory, spills) goes to a ``.log`` beside it."""
+    """Compile ``csrc/*.cu`` unless the hashed library exists: one ``nvcc -c``
+    process per source, all running at once, then one link.  The log
+    beside the library holds each source's compile seconds and the ptxas
+    report (registers, shared memory, spills)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    jobs = []  # (source, object, log, process)
+    t0 = time.perf_counter()
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj, log = (tag.with_name(f"{tag.name}.{src.stem}{ext}")
+                    for ext in (".o", ".log"))
+        with open(log, "w") as f:
+            jobs.append((src, obj, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=f, stderr=subprocess.STDOUT)))
+    seconds = {}
+    while len(seconds) < len(jobs):
+        for src, _, _, proc in jobs:
+            if src not in seconds and proc.poll() is not None:
+                seconds[src] = time.perf_counter() - t0
+        time.sleep(0.1)
+    report, failed = [], []
+    for src, obj, log, proc in jobs:
+        text = log.read_text()
+        log.unlink()
+        report.append(f"== {src.name}: {seconds[src]:.1f} s, rc "
+                      f"{proc.returncode}\n{text}")
+        if proc.returncode:
+            failed.append(f"{src.name}: {text[-4000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(j[1]) for j in jobs)],
+            capture_output=True, text=True)
+        report.append(f"== link: rc {link.returncode}\n{link.stdout}"
+                      f"{link.stderr}")
+        if link.returncode:
+            failed.append(f"link: {link.stderr[-4000:]}")
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(report))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
 
 def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # (a, b, c, batch, M, N, K, lda, ldb, sa, sb, ta, tb, ...)
+    gemm = [vp, vp, vp, i64, i32, i32, i32, i64, i64, i64, i64, i32, i32]
     lib.mxu_gemm.restype = i32
-    lib.mxu_gemm.argtypes = [vp, vp, vp, i32, i32, i32, i64, i64,
-                             i32, i32, i32, i32, i32, i32, vp]
+    lib.mxu_gemm.argtypes = gemm + [i32, i32, i32, i32, i32, vp, vp, i32, vp]
+    lib.mxu_gemm_row_softmax.restype = i32
+    lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     lib.semiring_gemm.restype = i32
-    lib.semiring_gemm.argtypes = [vp, vp, vp, i32, i32, i32, i64, i64,
-                                  i32, i32, i32, i32, i32, vp]
+    lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, vp]
     return lib
 
 

@@ -83,6 +83,42 @@ def kernel_route(dtype, semiring: str = "plus_times") -> str:
     return "simt"
 
 
+# Kernel B2's row-softmax variant (csrc/row_softmax.cu): a block owns a strip
+# of ROW_SOFTMAX_ROWS rows and every column, its fp32 scores in shared memory
+# with a row pitch of whole 128-column tiles plus 4, beside the operand
+# staging.  The strip must fit one block's shared memory, which bounds N.
+ROW_SOFTMAX_ROWS = 16
+ROW_SOFTMAX_TILE_N = 128
+ROW_SOFTMAX_STAGE_BYTES = 19456
+ROW_SOFTMAX_DTYPES = ("bfloat16", "float16", "float32")
+
+
+def row_softmax_smem_bytes(n: int) -> int:
+    """Shared memory of one row-softmax block for N columns."""
+    pitch = cdiv(n, ROW_SOFTMAX_TILE_N) * ROW_SOFTMAX_TILE_N + 4
+    return ROW_SOFTMAX_ROWS * pitch * 4 + ROW_SOFTMAX_STAGE_BYTES
+
+
+def _row_softmax_max_n() -> int:
+    n = ROW_SOFTMAX_TILE_N
+    while row_softmax_smem_bytes(n + ROW_SOFTMAX_TILE_N) <= SMEM_LIMIT_BYTES:
+        n += ROW_SOFTMAX_TILE_N
+    return n
+
+
+# Longest row the fused row softmax takes: 3200 columns.  The port's
+# counterpart of the JAX package's VMEM rule ``_batched_fast_path_ok``
+# (gemm_hls_tpu/ops/matmul.py:174-203); past it, attention takes the
+# unfused branch.
+ROW_SOFTMAX_MAX_N = _row_softmax_max_n()
+
+
+def row_softmax_fusable(dtype, n: int) -> bool:
+    """Whether kernel B2's row-softmax variant takes rows of ``n`` columns
+    of ``dtype`` inputs."""
+    return dtype_name(dtype) in ROW_SOFTMAX_DTYPES and 1 <= n <= ROW_SOFTMAX_MAX_N
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmConfig:
     """One GEMM specialization, field for field the JAX ``GemmConfig``

@@ -1,11 +1,25 @@
-// Kernel B1: dense plus_times GEMM, C[M,N] = op(A) . op(B).
+// Kernels B1 and B2: dense plus_times GEMM on the tensor cores,
+// C[z] (M, N) = epilogue(op(A[z]) . op(B[z])) for every batch entry z.
 //
-// Replaces the TPU kernel gemm_hls_tpu/ops/pallas_mxu.py::_kernel (entry
-// mxu_matmul), without its fused epilogue.  Same communication-avoiding
-// schedule: one C tile stays in fast memory (here: registers) while K
-// streams through.  On Hopper each 256-thread block owns one 128x128 C tile
-// and loops over K itself; blocks carry nothing between them, so the TPU
-// kernel's sequential K grid axis and its acc_ref scratch become this loop.
+// Replaces two TPU kernels of gemm_hls_tpu/ops/pallas_mxu.py with one
+// kernel family:
+//   * _kernel (entry mxu_matmul, B1): the 2-D GEMM with its optional fused
+//     per-column epilogue at the store (pallas_mxu.py:103-106); here
+//     batch = 1.
+//   * _batched_kernel (entry mxu_matmul_batched, B2), plain and epilogue
+//     variants: (B, M, K) x (B, K, N) with whole examples per grid step.
+//     Here the batch is a grid axis (blockIdx.z, chunked past gridDim.z's
+//     65535) and each operand carries a batch stride, 0 for a 2-D operand
+//     broadcast over the batch, so no example is copied.  The TPU kernel
+//     batched examples to amortise a per-grid-step latch; Hopper has none,
+//     so one 128x128 C tile of one example per block is the whole design.
+//     The row-wise (softmax) epilogue variant, which needs whole rows in a
+//     block, is csrc/row_softmax.cu.
+// Same communication-avoiding schedule as the TPU kernels: one C tile stays
+// in fast memory (here: registers) while K streams through.  On Hopper each
+// 256-thread block owns one 128x128 C tile and loops over K itself; blocks
+// carry nothing between them, so the TPU kernel's sequential K grid axis
+// and its acc_ref scratch become this loop.
 //
 // Routes by input dtype:
 //   bf16, fp16 -> tensor cores (WMMA 16x16x16), fp32 accumulator;
@@ -13,15 +27,16 @@
 //   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
 //                  (csrc/simt_gemm.cuh with the plus_times functor); this
 //                  meets the reference's "high"/"highest" precision.
-// The accumulator is cast to the output dtype at the store.
+// The epilogue (common.cuh) sees the fp32 accumulator before the output
+// cast; an int32 accumulator is widened to fp32 for it.
 //
 // Layouts: A is (M, K) or, with ta, (K, M); B is (K, N) or, with tb,
 // (N, K).  Each operand is read along its own contiguous axis, in 16-byte
-// vectors where the row pitch and base allow it, and written into shared
-// memory as 16-deep K planes: element (o, k) of an operand tile sits at
-// ((k / 16) * 128 + o) * LDP + k % 16.  A plane is a row-major matrix_a /
-// column-major matrix_b for WMMA whatever the global layout, so no
-// transpose is ever materialised, and every fragment pointer is 32-byte
+// vectors where the row pitch, batch stride and base allow it, and written
+// into shared memory as 16-deep K planes: element (o, k) of an operand tile
+// sits at ((k / 16) * 128 + o) * LDP + k % 16.  A plane is a row-major
+// matrix_a / column-major matrix_b for WMMA whatever the global layout, so
+// no transpose is ever materialised, and every fragment pointer is 32-byte
 // aligned (WMMA requires it; a flat int8 tile would put odd 16-column
 // fragments at 16-byte offsets).  One exception, the main path's: a
 // row-major 16-bit B keeps its natural [k][n] tile (see B_ROW).
@@ -150,9 +165,7 @@ __device__ __forceinline__ void tc_store(typename Tr::Raw* s,
 // sit at 16-byte offsets of a row.)
 template <typename T, bool B_ROW>
 __global__ void __launch_bounds__(TTHREADS, 2)
-mxu_tc_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ C, int M,
-              int N, int K, int64_t lda, int64_t ldb, int ta, int tb, int a_vec, int b_vec,
-              int out_code) {
+mxu_tc_kernel(const Gemm g, const int64_t z0) {
   using Tr = TcTraits<T>;
   using Acc = typename Tr::Acc;
   using Raw = typename Tr::Raw;
@@ -166,9 +179,12 @@ mxu_tc_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;  // each warp: 64 x 32 of C
   const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const bool a_kc = !ta, b_kc = tb;
-  const Raw* Ag = reinterpret_cast<const Raw*>(A);
-  const Raw* Bg = reinterpret_cast<const Raw*>(B);
+  const int M = g.M, N = g.N, K = g.K;
+  const int64_t lda = g.lda, ldb = g.ldb;
+  const bool a_kc = !g.ta, b_kc = g.tb, a_vec = g.a_vec, b_vec = g.b_vec;
+  const int64_t z = z0 + blockIdx.z;
+  const Raw* Ag = static_cast<const Raw*>(g.a) + z * g.sa;
+  const Raw* Bg = static_cast<const Raw*>(g.b) + z * g.sb;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[4][2];
 #pragma unroll
@@ -209,6 +225,7 @@ mxu_tc_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict
     __syncthreads();
   }
 
+  const int64_t c0 = z * M * N;
   Acc* cs = Cs[warp];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -219,50 +236,51 @@ mxu_tc_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict
       for (int e = lane; e < 256; e += 32) {
         const int gm = m0 + wm * 64 + i * 16 + e / 16;
         const int gn = n0 + wn * 32 + j * 16 + e % 16;
-        if (gm < M && gn < N) store_out(C, static_cast<int64_t>(gm) * N + gn, cs[e], out_code);
+        if (gm < M && gn < N)
+          store_ep(g.c, c0 + static_cast<int64_t>(gm) * N + gn, cs[e], g.ep, gn, g.out_code);
       }
       __syncwarp();
     }
 }
 
+// Launch for input type T; both B layouts for 16-bit types.
 template <typename T>
-int launch_tc(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
-              int64_t ldb, int ta, int tb, int a_vec, int b_vec, int out_code,
-              cudaStream_t stream) {
-  const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  if constexpr (sizeof(T) == 2) {
-    if (!tb) {
-      mxu_tc_kernel<T, true><<<grid, TTHREADS, 0, stream>>>(A, B, c, M, N, K, lda, ldb, ta, tb,
-                                                            a_vec, b_vec, out_code);
-      return last_error();
-    }
-  }
-  mxu_tc_kernel<T, false><<<grid, TTHREADS, 0, stream>>>(A, B, c, M, N, K, lda, ldb, ta, tb,
-                                                         a_vec, b_vec, out_code);
-  return last_error();
+int launch_tc(const Gemm& g, int64_t batch, cudaStream_t stream) {
+  const bool b_row = sizeof(T) == 2 && !g.tb;
+  return for_batch_chunks(batch, [&](int64_t z0, unsigned nz) {
+    const dim3 grid((g.N + TBN - 1) / TBN, (g.M + TBM - 1) / TBM, nz);
+    if (b_row)
+      mxu_tc_kernel<T, sizeof(T) == 2><<<grid, TTHREADS, 0, stream>>>(g, z0);
+    else
+      mxu_tc_kernel<T, false><<<grid, TTHREADS, 0, stream>>>(g, z0);
+  });
 }
 
 }  // namespace gemm_hls
 
 using namespace gemm_hls;
 
-// C (M, N) row-major, written in ``out_code``'s dtype.  a_vec / b_vec: the
-// operand's base is 16-byte aligned and its row pitch a whole number of
-// 16-byte vectors (the tensor-core route then loads 16 bytes at a time).
-// Returns 0, a CUDA error code from the launch, or -1 for an input dtype
-// not built.
-extern "C" int mxu_gemm(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
-                        int64_t ldb, int ta, int tb, int a_vec, int b_vec, int in_code,
-                        int out_code, void* stream) {
+// C (batch, M, N) row-major, written in ``out_code``'s dtype.  lda / ldb:
+// the operands' row pitch; sa / sb: their batch stride (0 broadcasts a 2-D
+// operand).  a_vec / b_vec: the operand's base is 16-byte aligned and its
+// row pitch and batch stride whole 16-byte vectors (the tensor-core route
+// then loads 16 bytes at a time).  ep: an EpKind (common.cuh) reading the
+// (N,) operands e0 / e1 of dtype ep_code.  Returns 0, a CUDA error code
+// from a launch, or -1 for an input dtype or epilogue not built.
+extern "C" int mxu_gemm(const void* a, const void* b, void* c, int64_t batch, int M, int N, int K,
+                        int64_t lda, int64_t ldb, int64_t sa, int64_t sb, int ta, int tb, int a_vec,
+                        int b_vec, int in_code, int out_code, int ep, const void* e0,
+                        const void* e1, int ep_code, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ep < 0 || ep >= kEpKinds) return kUnsupported;
+  const Gemm g{a, b, c, M, N, K, lda, ldb, sa, sb, ta, tb, a_vec, b_vec, out_code,
+               EpArgs{e0, e1, ep_code, ep}};
   switch (in_code) {
-    case kBF16: return launch_tc<__nv_bfloat16>(a, b, c, M, N, K, lda, ldb, ta, tb, a_vec, b_vec, out_code, s);
-    case kF16: return launch_tc<__half>(a, b, c, M, N, K, lda, ldb, ta, tb, a_vec, b_vec, out_code, s);
-    case kI8: return launch_tc<signed char>(a, b, c, M, N, K, lda, ldb, ta, tb, a_vec, b_vec, out_code, s);
-    case kF32: return launch_simt<float, float, PlusTimes<float>>(a, b, c, M, N, K, lda, ldb, ta, tb, out_code, s);
-    case kI32: return launch_simt<int, int, PlusTimes<int>>(a, b, c, M, N, K, lda, ldb, ta, tb, out_code, s);
+    case kBF16: return launch_tc<__nv_bfloat16>(g, batch, s);
+    case kF16: return launch_tc<__half>(g, batch, s);
+    case kI8: return launch_tc<signed char>(g, batch, s);
+    case kF32: return launch_simt<float, float, PlusTimes<float>, true>(g, batch, s);
+    case kI32: return launch_simt<int, int, PlusTimes<int>, true>(g, batch, s);
     default: return kUnsupported;
   }
 }

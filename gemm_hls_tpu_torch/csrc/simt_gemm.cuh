@@ -1,27 +1,26 @@
 // CUDA-core tiled GEMM over a (map, reduce) functor: the tile shared by
-// kernel B3 (csrc/semiring_gemm.cu, every semiring) and by kernel B1's
+// kernel B3 (csrc/semiring_gemm.cu, every semiring) and by kernels B1 / B2's
 // fp32 / int32 route (csrc/mxu_gemm.cu, plus_times without tensor cores).
 //
-// One 256-thread block owns a 128x128 C tile and walks all of K in steps
-// of 16 (the TPU kernel's sequential K grid axis becomes this loop: Hopper
-// blocks carry nothing from one to the next).  Each thread keeps an 8x8
-// accumulator in registers, initialised to the reduce identity.  A and B
-// K-slices are staged K-major in shared memory, converted to the
-// accumulator type on the way in; the next slice is prefetched into
-// registers while the current one is reduced.
+// One 256-thread block owns a 128x128 C tile of one batch entry
+// (blockIdx.z) and walks all of K in steps of 16 (the TPU kernel's
+// sequential K grid axis becomes this loop: Hopper blocks carry nothing
+// from one to the next).  Each thread keeps an 8x8 accumulator in
+// registers, initialised to the reduce identity.  A and B K-slices are
+// staged K-major in shared memory, converted to the accumulator type on
+// the way in; the next slice is prefetched into registers while the
+// current one is reduced.  The epilogue (common.cuh) transforms each
+// accumulator at the store.
 //
 // Masking instead of padding: operands are read whole and unpadded.  Rows
 // and columns past M/N are loaded as 0 and never stored; the K tail is
 // excluded by the loop bound of the last step, which is exactly "masked to
 // the reduce identity" and keeps INT_MAX + x from ever being formed.
 //
-// Operand layouts are read through their leading dimension: A is (M, K)
-// or, with ta, (K, M); B is (K, N) or, with tb, (N, K).  Each load walks
-// the operand's contiguous axis so a warp's reads coalesce.
+// Operand layouts are read through their leading dimension and batch
+// stride (common.cuh::Gemm).  Each load walks the operand's contiguous axis
+// so a warp's reads coalesce.
 #pragma once
-
-#include <climits>
-#include <cmath>
 
 #include "common.cuh"
 
@@ -31,22 +30,6 @@ constexpr int SBM = 128, SBN = 128, SBK = 16, STHREADS = 256;
 constexpr int SLOADS = SBM * SBK / STHREADS;  // elements per thread per operand
 
 // ---- arithmetic of the functors ------------------------------------------
-// NaN-propagating min/max: fminf/fmaxf drop a NaN operand, while the
-// reference's jnp.minimum and torch.minimum return NaN.  PTX min.NaN
-// (sm_80+) propagates it in one instruction.
-__device__ __forceinline__ float dmin(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float dmax(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ int dmin(int a, int b) { return min(a, b); }
-__device__ __forceinline__ int dmax(int a, int b) { return max(a, b); }
-
 // int32 arithmetic wraps modulo 2^32, as in the reference (done unsigned,
 // where wrapping is defined).
 __device__ __forceinline__ float dadd(float a, float b) { return a + b; }
@@ -128,15 +111,19 @@ __device__ __forceinline__ void simt_step(Acc (&acc)[8][8], Acc (*As)[SBM + 1],
     for (int j = 0; j < 8; ++j) acc[i][j] = Op::step(acc[i][j], a[i], b[j]);
 }
 
-template <typename TIn, typename Acc, typename Op>
-__global__ void __launch_bounds__(STHREADS)
-simt_gemm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, void* __restrict__ C,
-                 int M, int N, int K, int64_t lda, int64_t ldb, int ta, int tb, int out_code) {
+// kEpilogue: the store applies g.ep (the plus_times routes of B1 / B2);
+// the semiring functors of B3 take none, and skip its code.
+template <typename TIn, typename Acc, typename Op, bool kEpilogue>
+__global__ void __launch_bounds__(STHREADS) simt_gemm_kernel(const Gemm g, const int64_t z0) {
   __shared__ Acc As[SBK][SBM + 1];
   __shared__ Acc Bs[SBK][SBN + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
-  const bool a_kc = !ta, b_kc = tb;
+  const int M = g.M, N = g.N, K = g.K;
+  const bool a_kc = !g.ta, b_kc = g.tb;
+  const int64_t z = z0 + blockIdx.z;
+  const TIn* A = static_cast<const TIn*>(g.a) + z * g.sa;
+  const TIn* B = static_cast<const TIn*>(g.b) + z * g.sb;
 
   Acc acc[8][8];
 #pragma unroll
@@ -145,15 +132,15 @@ simt_gemm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, void* __r
     for (int j = 0; j < 8; ++j) acc[i][j] = Op::identity();
 
   Acc ra[SLOADS], rb[SLOADS];
-  simt_load(ra, A, lda, a_kc, m0, 0, M, K);
-  simt_load(rb, B, ldb, b_kc, n0, 0, N, K);
+  simt_load(ra, A, g.lda, a_kc, m0, 0, M, K);
+  simt_load(rb, B, g.ldb, b_kc, n0, 0, N, K);
   for (int k0 = 0; k0 < K; k0 += SBK) {
     simt_store(As, ra, a_kc);
     simt_store(Bs, rb, b_kc);
     __syncthreads();
     if (k0 + SBK < K) {
-      simt_load(ra, A, lda, a_kc, m0, k0 + SBK, M, K);
-      simt_load(rb, B, ldb, b_kc, n0, k0 + SBK, N, K);
+      simt_load(ra, A, g.lda, a_kc, m0, k0 + SBK, M, K);
+      simt_load(rb, B, g.ldb, b_kc, n0, k0 + SBK, N, K);
     }
     const int kl = min(SBK, K - k0);
     if (kl == SBK) {
@@ -165,25 +152,30 @@ simt_gemm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, void* __r
     __syncthreads();
   }
 
+  const int64_t c0 = z * M * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int gm = m0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) store_out(C, static_cast<int64_t>(gm) * N + gn, acc[i][j], out_code);
+      if (gm < M && gn < N) {
+        const int64_t idx = c0 + static_cast<int64_t>(gm) * N + gn;
+        if constexpr (kEpilogue)
+          store_ep(g.c, idx, acc[i][j], g.ep, gn, g.out_code);
+        else
+          store_out(g.c, idx, acc[i][j], g.out_code);
+      }
     }
   }
 }
 
-template <typename TIn, typename Acc, typename Op>
-int launch_simt(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
-                int64_t ldb, int ta, int tb, int out_code, cudaStream_t stream) {
-  const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
-  simt_gemm_kernel<TIn, Acc, Op><<<grid, STHREADS, 0, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b), c, M, N, K, lda, ldb, ta, tb,
-      out_code);
-  return last_error();
+template <typename TIn, typename Acc, typename Op, bool kEpilogue = false>
+int launch_simt(const Gemm& g, int64_t batch, cudaStream_t stream) {
+  return for_batch_chunks(batch, [&](int64_t z0, unsigned nz) {
+    const dim3 grid((g.N + SBN - 1) / SBN, (g.M + SBM - 1) / SBM, nz);
+    simt_gemm_kernel<TIn, Acc, Op, kEpilogue><<<grid, STHREADS, 0, stream>>>(g, z0);
+  });
 }
 
 }  // namespace gemm_hls

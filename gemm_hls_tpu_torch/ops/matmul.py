@@ -1,15 +1,22 @@
 """Public matmul API: dispatch, shape policy and autodiff, in PyTorch.
 
-Counterpart of ``gemm_hls_tpu/ops/matmul.py`` for 2-D operands.  Dispatch:
+Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
 
-* ``plus_times``                 -> kernel B1 (``ops/mxu.py``), differentiable
-  through :class:`_MxuPadded`, whose backward is B1 again.
-* bool ``or_and``                -> B1 on int8 -> int32 counts.
-* any other semiring             -> kernel B3 (``ops/vpu.py``).
+* ``plus_times``                 -> kernel B1 (2-D) or B2 (batched)
+  (``ops/mxu.py``), differentiable through :class:`_MxuPadded` /
+  :class:`_MxuBatched`, whose backward is B1 / B2 again; with a fused
+  ``epilogue``, through :class:`_MxuEpilogue`.
+* bool ``or_and``                -> B1 / B2 on int8 -> int32 counts.
+* any other semiring             -> kernel B3 (``ops/vpu.py``), 2-D or batched.
 * ``backend="vpu"``              -> B3 for every semiring, bool ``or_and``
   bit-packed (the JAX package's ``backend="pallas-vpu"``).
 * ``backend="torch"``            -> the plain PyTorch versions (the JAX
   package's ``backend="xla"``), on any device.
+
+Batching follows the JAX front door: N-D operands flatten their identical
+leading dims (or one operand is 2-D and broadcast); a 3-D call runs one
+batched launch where the JAX package ran its batched kernel or a
+``jax.vmap`` of the 2-D one.
 
 CPU tensors run the plain versions on every backend; CUDA tensors launch
 a kernel or raise.  Requests no kernel takes yet raise NotImplementedError
@@ -24,17 +31,22 @@ import torch
 
 from gemm_hls_tpu_torch.config import (
     KERNEL_TILES, GemmConfig, default_config, dtype_name, kernel_route,
-    round_up,
+    round_up, torch_dtype,
 )
 from gemm_hls_tpu_torch.ops import mxu, vpu
+from gemm_hls_tpu_torch.ops.epilogue import get_epilogue, kernel_code
 from gemm_hls_tpu_torch.ops.semiring import Semiring, get_semiring
 
 _BACKENDS = ("cuda", "vpu", "torch")
+_I8X = ("i8x2", "i8x3", "i8x4")
 
 
 # ---------------------------------------------------------------------------
-# plus_times with autograd: dA = g . op(B)^T, dB = op(A)^T . g as two more B1
-# calls with flipped transpose flags (no materialised transposes).
+# plus_times with autograd: dA = g . op(B)^T, dB = op(A)^T . g as two more
+# GEMM calls with flipped transpose flags (no materialised transposes).  The
+# batched backward is the same flag algebra on B2; the gradient of a 2-D
+# operand broadcast over the batch is the sum over the batch, as the
+# transpose of ``jax.vmap`` gives.
 # ---------------------------------------------------------------------------
 
 class _MxuPadded(torch.autograd.Function):
@@ -51,33 +63,166 @@ class _MxuPadded(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        da, db = _mxu_bwd(ctx.cfg, (a, b), g)
+        da, db = _mxu_bwd(ctx.cfg, (a, b), g, ctx.needs_input_grad[:2])
         return da, db, None
 
 
-def _mxu_bwd(cfg: GemmConfig, res, g):
+class _MxuBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, cfg: GemmConfig):
+        ctx.save_for_backward(a, b)
+        ctx.cfg = cfg
+        out = mxu.mxu_matmul_batched(a, b, cfg=cfg,
+                                     transpose_a=cfg.transpose_a,
+                                     transpose_b=cfg.transpose_b)
+        if not out.is_floating_point():
+            ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da, db = _mxu_bwd(ctx.cfg, (a, b), g, ctx.needs_input_grad[:2])
+        return da, db, None
+
+
+def _flattens(a, b, cfg: GemmConfig) -> bool:
+    """A 3-D ``a`` (untransposed) against a 2-D ``b`` is one 2-D GEMM over
+    B*M rows: the same numbers as the reference's vmap, and one B1 launch
+    instead of a B2 one.  Epilogues are row-local, so they flatten too."""
+    return (a.ndim == 3 and b.ndim == 2 and not cfg.transpose_a
+            and a.shape[0] * a.shape[1] <= mxu._MAX_M)
+
+
+def _plus_times(a, b, cfg: GemmConfig):
+    """Differentiable plus_times on B1 (2-D) or B2 (batched)."""
+    if a.ndim == 2 and b.ndim == 2:
+        return _MxuPadded.apply(a, b, cfg)
+    if _flattens(a, b, cfg):
+        bsz, m, k = a.shape
+        return _MxuPadded.apply(a.reshape(bsz * m, k), b, cfg).reshape(
+            bsz, m, -1)
+    return _MxuBatched.apply(a, b, cfg)
+
+
+def _mxu_bwd(cfg: GemmConfig, res, g, need=(True, True)):
+    """(dA, dB) for the cotangent ``g``; None where ``need`` says no
+    gradient is wanted (no GEMM is run for it)."""
     a, b = res
     ta, tb = cfg.transpose_a, cfg.transpose_b
     g = g.to(cfg.tacc_dtype)
 
-    def run(x, y, tx, ty, out_dtype):
+    def run(x, y, tx, ty, like):
         # The cotangent is fp32 while a bf16 operand stays bf16: promote the
         # pair, as the reference's dot does.
         dt = torch.promote_types(x.dtype, y.dtype)
         c = default_config(dt).replace(
-            transpose_a=tx, transpose_b=ty, out_dtype=dtype_name(out_dtype),
+            transpose_a=tx, transpose_b=ty, out_dtype=dtype_name(like.dtype),
             precision=cfg.precision)
-        return _MxuPadded.apply(x.to(dt), y.to(dt), c)
+        out = _plus_times(x.to(dt), y.to(dt), c)
+        if out.ndim > like.ndim:  # a broadcast 2-D operand: sum the batch
+            out = out.sum(0)
+        return out.to(like.dtype)
 
-    if not ta:
-        da = run(g, b, False, not tb, a.dtype)      # g . op(B)^T
-    else:
-        da = run(b, g, tb, True, a.dtype)           # op(B) . g^T
-    if not tb:
-        db = run(a, g, not ta, False, b.dtype)      # op(A)^T . g
-    else:
-        db = run(g, a, True, ta, b.dtype)           # g^T . op(A)
-    return da.to(a.dtype), db.to(b.dtype)
+    da = db = None
+    if need[0]:
+        if not ta:
+            da = run(g, b, False, not tb, a)      # g . op(B)^T
+        else:
+            da = run(b, g, tb, True, a)           # op(B) . g^T
+    if need[1]:
+        if not tb:
+            db = run(a, g, not ta, False, b)      # op(A)^T . g
+        else:
+            db = run(g, a, True, ta, b)           # g^T . op(A)
+    return da, db
+
+
+# ---------------------------------------------------------------------------
+# Differentiable fused-epilogue path (reference matmul.py:206-312).  The
+# forward fuses the epilogue into the kernel's store; the backward recovers
+# the accumulator cotangent dacc from the output cotangent g, then reuses
+# the plain paths' flag algebra for da / db.  Two ways to get dacc:
+#
+#   * ``epilogue_bwd(y, g, *eps) -> (dacc, *deps)``, from the saved output
+#     y (no recompute; ``ops/fused_linear.py`` passes the registry's
+#     output-form derivatives);
+#   * default: recompute the fp32 accumulator with one unfused GEMM on
+#     B1 / B2 and pull g back through ``torch.func.vjp`` of the epilogue's
+#     torch function.
+# ---------------------------------------------------------------------------
+
+def _epilogue_cotangents(ep, epilogue_bwd, y, g, eps, recompute_acc):
+    if epilogue_bwd is not None:
+        out = epilogue_bwd(y, g, *eps)
+        return out[0], tuple(out[1:])
+    yv, pull = torch.func.vjp(ep.fn, recompute_acc(), *eps)
+    dacc, *deps = pull(g.to(yv.dtype))
+    return dacc, tuple(deps)
+
+
+class _MxuEpilogue(torch.autograd.Function):
+    """Fused epilogue on B1 (2-D operands) or B2 (batched ones)."""
+
+    @staticmethod
+    def forward(ctx, a, b, cfg: GemmConfig, ep, epilogue_bwd, *eps):
+        gemm = (mxu.mxu_matmul if a.ndim == 2 and b.ndim == 2
+                else mxu.mxu_matmul_batched)
+        y = gemm(a, b, *eps, cfg=cfg, transpose_a=cfg.transpose_a,
+                 transpose_b=cfg.transpose_b, epilogue=ep)
+        ctx.save_for_backward(a, b, y, *eps)
+        ctx.cfg, ctx.ep, ctx.epilogue_bwd, ctx.gemm = cfg, ep, epilogue_bwd, gemm
+        if not y.is_floating_point():
+            ctx.mark_non_differentiable(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, y, *eps = ctx.saved_tensors
+        cfg = ctx.cfg
+
+        def recompute_acc():
+            return ctx.gemm(a, b, cfg=cfg.replace(out_dtype=dtype_name(
+                cfg.tacc_dtype)), transpose_a=cfg.transpose_a,
+                transpose_b=cfg.transpose_b)
+
+        dacc, deps = _epilogue_cotangents(ctx.ep, ctx.epilogue_bwd, y, g,
+                                          eps, recompute_acc)
+        da, db = _mxu_bwd(cfg, (a, b), dacc, ctx.needs_input_grad[:2])
+        return (da, db, None, None, None,
+                *(d.to(e.dtype) for d, e in zip(deps, eps)))
+
+
+def _check_ep_operands(b, cfg: GemmConfig, ep_operands):
+    n = b.shape[-2] if cfg.transpose_b else b.shape[-1]
+    eps = []
+    for ep in ep_operands:
+        if ep.ndim != 1 or ep.shape[0] != n:
+            raise ValueError(f"epilogue operands must be (N,)=({n},), "
+                             f"got {tuple(ep.shape)}")
+        eps.append(ep.reshape(1, n))
+    return tuple(eps)
+
+
+def _mxu_with_epilogue(a, b, cfg: GemmConfig, epilogue, ep_operands,
+                       epilogue_bwd=None):
+    """Differentiable plus_times with a fused output epilogue."""
+    if cfg.precision in _I8X:
+        raise ValueError("epilogue fusion is not supported with the "
+                         "int8-slice precision tiers")
+    ep = get_epilogue(epilogue)
+    if not (a.device.type == "cpu" and b.device.type == "cpu"):
+        kernel_code(ep)  # a callable is refused off the CPU, never unfused
+    eps = _check_ep_operands(b, cfg, ep_operands)
+    if (ep.code is not None or ep.rows) and len(eps) != ep.n_operands:
+        raise ValueError(f"epilogue {ep.name!r} takes {ep.n_operands} "
+                         f"operands, got {len(eps)}")
+    if _flattens(a, b, cfg):
+        bsz, m, k = a.shape
+        out = _MxuEpilogue.apply(a.reshape(bsz * m, k), b, cfg, ep,
+                                 epilogue_bwd, *eps)
+        return out.reshape(bsz, m, -1)
+    return _MxuEpilogue.apply(a, b, cfg, ep, epilogue_bwd, *eps)
 
 
 # ---------------------------------------------------------------------------
@@ -94,29 +239,30 @@ def _torch_matmul(a, b, cfg: GemmConfig, sr: Semiring):
 
 
 # ---------------------------------------------------------------------------
-# Semiring paths
+# Semiring paths (2-D or batched: leading dims pass through)
 # ---------------------------------------------------------------------------
 
 def _pack_bits_rows(x):
-    """(M, K) bool -> (M, ceil(K/32)) int32, bit j of word w = x[:, 32w + j];
-    the K tail pads with False, absorbing for the AND map."""
-    m, k = x.shape
+    """(..., M, K) bool -> (..., M, ceil(K/32)) int32, bit j of word w =
+    x[..., 32w + j]; the K tail pads with False, absorbing for the AND map."""
+    *lead, m, k = x.shape
     kp = round_up(k, 32)
-    w = torch.zeros((m, kp), dtype=torch.int64, device=x.device)
-    w[:, :k] = x
+    w = torch.zeros((*lead, m, kp), dtype=torch.int64, device=x.device)
+    w[..., :k] = x
     shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    words = (w.reshape(m, kp // 32, 32) << shifts).sum(dim=-1)
+    words = (w.reshape(*lead, m, kp // 32, 32) << shifts).sum(dim=-1)
     return _as_int32(words)
 
 
 def _pack_bits_cols(x):
-    """(K, N) bool -> (ceil(K/32), N) int32, packed along K, same bit order."""
-    k, n = x.shape
+    """(..., K, N) bool -> (..., ceil(K/32), N) int32, packed along K, same
+    bit order."""
+    *lead, k, n = x.shape
     kp = round_up(k, 32)
-    w = torch.zeros((kp, n), dtype=torch.int64, device=x.device)
-    w[:k] = x
+    w = torch.zeros((*lead, kp, n), dtype=torch.int64, device=x.device)
+    w[..., :k, :] = x
     shifts = torch.arange(32, dtype=torch.int64, device=x.device)[:, None]
-    words = (w.reshape(kp // 32, 32, n) << shifts).sum(dim=1)
+    words = (w.reshape(*lead, kp // 32, 32, n) << shifts).sum(dim=-2)
     return _as_int32(words)
 
 
@@ -138,23 +284,24 @@ _OR_AND_BITS = Semiring(
 
 def _or_and_mxu(a, b, cfg: GemmConfig):
     """Bool reachability on the tensor cores: 0/1 operands as int8, counted
-    by B1 into int32 (exact: a count is at most K < 2^31), then != 0.  The
-    counts stay int32; the reference casts them to int8, so a count that is
-    a multiple of 256 reads as False there (ROADMAP C2)."""
+    by B1 / B2 into int32 (exact: a count is at most K < 2^31), then != 0.
+    The counts stay int32; the reference casts them to int8, so a count
+    that is a multiple of 256 reads as False there (ROADMAP C2)."""
     cfg8 = default_config("int8", out_dtype="int32",
                           transpose_a=cfg.transpose_a,
                           transpose_b=cfg.transpose_b)
-    counts = mxu.mxu_matmul(a.to(torch.int8), b.to(torch.int8), cfg=cfg8,
-                            transpose_a=cfg.transpose_a,
-                            transpose_b=cfg.transpose_b)
+    gemm = (mxu.mxu_matmul if a.ndim == 2 and b.ndim == 2
+            else mxu.mxu_matmul_batched)
+    counts = gemm(a.to(torch.int8), b.to(torch.int8), cfg=cfg8,
+                  transpose_a=cfg.transpose_a, transpose_b=cfg.transpose_b)
     return counts != 0
 
 
 def _vpu_dispatch(a, b, cfg: GemmConfig, sr: Semiring):
     if a.dtype == torch.bool:
         # Bit-packed: 32 contraction steps per int32 word op.
-        a_l = a.T if cfg.transpose_a else a
-        b_l = b.T if cfg.transpose_b else b
+        a_l = a.transpose(-1, -2) if cfg.transpose_a else a
+        b_l = b.transpose(-1, -2) if cfg.transpose_b else b
         cfg32 = default_config("int32", semiring=_OR_AND_BITS.name)
         out = vpu.vpu_matmul(_pack_bits_rows(a_l), _pack_bits_cols(b_l),
                              cfg=cfg32, sr=_OR_AND_BITS)
@@ -186,36 +333,67 @@ def matmul(
     """Communication-avoiding semiring matmul: C = reduce_k map(op(A), op(B)).
 
     Args:
-      a: (M, K) tensor, or (K, M) with ``transpose_a``.
-      b: (K, N) tensor, or (N, K) with ``transpose_b``.
+      a: (M, K) tensor, or (K, M) with ``transpose_a``; or batched:
+        (..., M, K).
+      b: (K, N) tensor, or (N, K) with ``transpose_b``; or batched.  N-D
+        operands must carry identical leading dims, or one operand may be
+        2-D (broadcast over the other's batch).
       semiring: registry name or :class:`Semiring`.
       config: a :class:`GemmConfig`; defaults to :func:`default_config`.
-      backend: "cuda" (default: kernel B1 / B3 by semiring), "vpu" (B3 for
-        every semiring) or "torch" (the plain versions).
+      backend: "cuda" (default: kernel B1 / B2 / B3 by semiring), "vpu" (B3
+        for every semiring) or "torch" (the plain versions).
       interpret: accepted for the reference's signature; there is no
         interpreter on CUDA, so only None / False are taken.
       precision: float32 plus_times precision ("default"|"high"|"highest").
-      epilogue, epilogue_operands, epilogue_bwd: not ported yet.
+      epilogue: fused output transform (plus_times, default backend): a
+        registry name of ``ops/epilogue.py`` ("bias", "bias_relu",
+        "bias_sigmoid", "bias_tanh", "col_scale", "scale_bias", "softmax"),
+        an :class:`~gemm_hls_tpu_torch.ops.epilogue.Epilogue`, or a callable
+        ``f(acc_f32, *operands)``.  A callable runs on CPU tensors only: on
+        CUDA it raises NotImplementedError (no compiled functor).
+        Differentiable: the backward recomputes the accumulator and pulls
+        the cotangent back through ``torch.func.vjp`` of the epilogue, or
+        uses ``epilogue_bwd``.
+      epilogue_operands: per-output-column (N,) tensors, seen by the
+        epilogue as (1, N).
+      epilogue_bwd: optional ``(y, g, *eps) -> (dacc, *deps)`` from the
+        saved output (skips the recompute GEMM); ``eps`` are (1, N).
 
-    Returns (M, N) in ``config.out_dtype``.
+    Returns (..., M, N) in ``config.out_dtype``.
     """
     sr = get_semiring(semiring)
-    if epilogue is not None or epilogue_operands or epilogue_bwd is not None:
-        raise NotImplementedError(
-            "fused epilogues are not ported yet (ROADMAP A, slice 2: "
-            "epilogue + fused_linear)")
     if interpret:
         raise NotImplementedError(
             "CUDA has no interpreter mode; pass backend='torch' for the "
             "plain PyTorch version")
-    if a.ndim > 2 or b.ndim > 2:
-        raise NotImplementedError(
-            "3-D/N-D batching is not ported yet (ROADMAP A, slice 2: "
-            "batching, kernel B2)")
-    if a.ndim != 2 or b.ndim != 2:
+    kw = dict(semiring=semiring, config=config, transpose_a=transpose_a,
+              transpose_b=transpose_b, out_dtype=out_dtype, backend=backend,
+              precision=precision, epilogue=epilogue,
+              epilogue_operands=epilogue_operands, epilogue_bwd=epilogue_bwd)
+    if a.ndim > 3 or b.ndim > 3:
+        # N-D batching (reference matmul.py:542-563): identical leading dims
+        # (no broadcasting of unequal ones), or one operand 2-D.  Flatten
+        # them to one axis, run the 3-D path, restore the shape.
+        lead_a = tuple(a.shape[:-2]) if a.ndim > 2 else ()
+        lead_b = tuple(b.shape[:-2]) if b.ndim > 2 else ()
+        if lead_a and lead_b and lead_a != lead_b:
+            raise ValueError(
+                f"batch dims must match (or one operand be 2-D): "
+                f"{tuple(a.shape)} x {tuple(b.shape)}")
+        lead = lead_a or lead_b
+        a3 = a.reshape((-1,) + tuple(a.shape[-2:])) if lead_a else a
+        b3 = b.reshape((-1,) + tuple(b.shape[-2:])) if lead_b else b
+        out = matmul(a3, b3, **kw)
+        return out.reshape(lead + tuple(out.shape[-2:]))
+    if a.ndim < 2 or b.ndim < 2:
         raise ValueError(
             f"matmul expects operands of ndim >= 2, got {tuple(a.shape)}, "
             f"{tuple(b.shape)}")
+    batched = a.ndim == 3 or b.ndim == 3
+    if a.ndim == b.ndim == 3 and a.shape[0] != b.shape[0]:
+        raise ValueError(f"batch dims must match: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    lead = ((a.shape[0] if a.ndim == 3 else b.shape[0]),) if batched else ()
     if backend is None:
         backend = "cuda"
     if backend not in _BACKENDS:
@@ -242,18 +420,33 @@ def matmul(
     if overrides:
         config = config.replace(**overrides)
 
-    ka = a.shape[0] if config.transpose_a else a.shape[1]
-    kb = b.shape[1] if config.transpose_b else b.shape[0]
+    a2, b2 = a.shape[-2:], b.shape[-2:]
+    ka = a2[0] if config.transpose_a else a2[1]
+    kb = b2[1] if config.transpose_b else b2[0]
+    m_out = a2[1] if config.transpose_a else a2[0]
+    n_out = b2[0] if config.transpose_b else b2[1]
+    if lead == (0,):
+        # Empty batch (reference matmul.py:564-591): the same error surface
+        # as a non-empty one, then the empty result.
+        if a.dtype != b.dtype:
+            raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
+        if not sr.supports_dtype(a.dtype):
+            raise ValueError(
+                f"semiring {sr.name} does not support dtype {a.dtype}")
+        if ka != kb:
+            raise ValueError(f"contraction mismatch: {tuple(a.shape)} x "
+                             f"{tuple(b.shape)}")
+        od = torch_dtype(out_dtype) if out_dtype is not None else (
+            config.tout_dtype)
+        return torch.zeros((0, m_out, n_out), dtype=od, device=a.device)
     if ka != kb:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
-    m_out = a.shape[1] if config.transpose_a else a.shape[0]
-    n_out = b.shape[0] if config.transpose_b else b.shape[1]
     if m_out == 0 or n_out == 0 or ka == 0:
         # Degenerate shapes: empty result / pure-identity fill.
         ident = sr.identity_for(config.tacc_dtype) if ka == 0 else 0
-        return torch.full((m_out, n_out), ident, dtype=config.tout_dtype,
-                          device=a.device)
+        return torch.full(lead + (m_out, n_out), ident,
+                          dtype=config.tout_dtype, device=a.device)
     if a.dtype != b.dtype:
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if not sr.supports_dtype(a.dtype):
@@ -273,9 +466,15 @@ def matmul(
                 f"divisible by blocks ({config.block_m},{config.block_n},"
                 f"{config.block_k})")
 
+    if epilogue is not None:
+        if backend != "cuda" or not sr.is_mxu:
+            raise ValueError("epilogue fusion requires the plus_times "
+                             "semiring on the cuda backend")
+        return _mxu_with_epilogue(a, b, config, epilogue,
+                                  tuple(epilogue_operands), epilogue_bwd)
     if backend == "torch":
         return _torch_matmul(a, b, config, sr)
-    if sr.is_mxu and config.precision in ("i8x2", "i8x3", "i8x4"):
+    if sr.is_mxu and config.precision in _I8X:
         raise NotImplementedError(
             "precision='i8x*' is not ported yet (ROADMAP A, slice 2: i8x*, "
             "kernel B4)")
@@ -284,10 +483,9 @@ def matmul(
     if sr.name == "or_and" and a.dtype == torch.bool:
         return _or_and_mxu(a, b, config)
     if sr.is_mxu:
-        return _MxuPadded.apply(a, b, config)
+        return _plus_times(a, b, config)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise NotImplementedError(
             f"gradients of {sr.name} are not ported yet (ROADMAP A, slice 2: "
             f"tropical gradients)")
     return _vpu_dispatch(a, b, config, sr)
-

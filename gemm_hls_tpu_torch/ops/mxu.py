@@ -1,74 +1,131 @@
-"""Dense plus_times GEMM: the wrapper of kernel B1 (``csrc/mxu_gemm.cu``)
-and its plain PyTorch version.
+"""Dense plus_times GEMM: the wrappers of kernels B1 and B2
+(``csrc/mxu_gemm.cu``, ``csrc/row_softmax.cu``) and their plain PyTorch
+version.
 
-Counterpart of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, no
-epilogue).  A CUDA tensor launches the kernel or raises; a CPU tensor runs
-:func:`mxu_matmul_plain`.  Operands are passed in their physical layout
-with the transpose flags: no transpose is materialised.
+Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
+and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
+epilogue (``ops/epilogue.py``).  A CUDA tensor launches a kernel or raises;
+a CPU tensor runs :func:`mxu_matmul_plain`.  Operands are passed in their
+physical layout with the transpose flags and, batched, with their batch
+stride: no transpose is materialised and a 2-D operand broadcast over the
+batch is never copied.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from gemm_hls_tpu_torch import _build
-from gemm_hls_tpu_torch.config import GemmConfig, dtype_name
+from gemm_hls_tpu_torch.config import (
+    ROW_SOFTMAX_MAX_N, GemmConfig, dtype_name, row_softmax_fusable,
+)
+from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
 
-# Largest M the kernel's grid takes (gridDim.y <= 65535 blocks of 128 rows).
+# Largest M the kernels' grid takes (gridDim.y <= 65535 blocks of 128 rows).
 _MAX_M = 65535 * 128
 _INT_MAX = 2**31 - 1
+
+_EP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _dims(a, b, transpose_a, transpose_b):
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"expected 2-D operands, got {a.shape} x {b.shape}")
-    k, m = a.shape if transpose_a else a.shape[::-1]
-    n, kb = b.shape if transpose_b else b.shape[::-1]
+    return _mnk(a, b, transpose_a, transpose_b)
+
+
+def _mnk(a, b, transpose_a, transpose_b):
+    k, m = a.shape[-2:] if transpose_a else a.shape[-2:][::-1]
+    n, kb = b.shape[-2:] if transpose_b else b.shape[-2:][::-1]
     if kb != k:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
     return m, n, k
 
 
+def batched_dims(a, b, transpose_a, transpose_b):
+    """(batch, M, N, K) of a batched call: both operands 3-D with one batch
+    size, or one of them 2-D (broadcast over the other's batch)."""
+    if {a.ndim, b.ndim} not in ({3}, {2, 3}):
+        raise ValueError(f"expected 3-D operands (one may be 2-D), got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    if a.ndim == b.ndim == 3 and a.shape[0] != b.shape[0]:
+        raise ValueError(f"batch dims must match: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    bsz = a.shape[0] if a.ndim == 3 else b.shape[0]
+    return (bsz, *_mnk(a, b, transpose_a, transpose_b))
+
+
 def _row_major(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with unit stride on its last axis (a copy only if it has none;
-    the transpose flags, not a copy, express transposition)."""
-    return x if x.stride(-1) == 1 and x.stride(0) >= x.shape[1] else x.contiguous()
+    """``x`` with unit stride on its last axis and whole rows (a copy only
+    if it has neither; transpose flags and batch strides, not a copy,
+    express transposition and broadcasting)."""
+    if x.stride(-1) == 1 and x.stride(-2) >= x.shape[-1]:
+        return x
+    return x.contiguous()
 
 
-def mxu_matmul_plain(a, b, *, cfg: GemmConfig, transpose_a=False,
-                     transpose_b=False):
-    """Plain version: ``torch.matmul`` accumulating in the accumulator type
-    (bf16 / fp16 to the same type: ``torch.matmul`` as is).  Integer
-    inputs go through float64 (CUDA's matmul takes no integers), exact
-    while |sum| < 2^53, then wrap to int32 like the reference's int32 sum."""
-    _dims(a, b, transpose_a, transpose_b)
-    a_l = a.T if transpose_a else a
-    b_l = b.T if transpose_b else b
+def _strides(x):
+    """(row pitch, batch stride) in elements; a 2-D operand's batch stride
+    is 0 (broadcast)."""
+    return x.stride(-2), (x.stride(0) if x.ndim == 3 else 0)
+
+
+def _vec_ok(x) -> int:
+    """16-byte loads are legal: aligned base, row pitch and batch stride."""
+    vec = 16 // x.element_size()
+    return int(x.data_ptr() % 16 == 0
+               and all(s % vec == 0 for s in _strides(x)))
+
+
+def _ep_operands(eps, n, device):
+    """The (N,) epilogue operands as contiguous tensors of one dtype the
+    kernel reads (f32, bf16 or f16; anything else is widened to f32)."""
+    flat = []
+    for e in eps:
+        if e.numel() != n or e.shape[-1] != n:
+            raise ValueError(f"epilogue operands must be (N,)=({n},), got "
+                             f"{tuple(e.shape)}")
+        if e.device != device:
+            raise ValueError(f"epilogue operand on {e.device}, operands on "
+                             f"{device}")
+        flat.append(e.reshape(n))
+    dt = flat[0].dtype if flat else torch.float32
+    if dt not in _EP_DTYPES or any(e.dtype != dt for e in flat):
+        dt = torch.float32
+    return [e.to(dt).contiguous() for e in flat], dt
+
+
+def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
+                     transpose_b=False, epilogue: Optional[Epilogue] = None):
+    """Plain version of B1 and B2: ``torch.matmul`` (2-D, or batched with
+    broadcasting) in the accumulator dtype, then the epilogue's torch
+    function, then the cast.  bf16 / fp16 to the same type without an
+    epilogue: ``torch.matmul`` as is (fp32 accumulation inside, one
+    rounding).  Integer inputs go through float64 (CUDA's matmul takes no
+    integers), exact while |sum| < 2^53, then wrap to int32 like the
+    reference's int32 sum."""
+    _mnk(a, b, transpose_a, transpose_b)
+    a_l = a.transpose(-1, -2) if transpose_a else a
+    b_l = b.transpose(-1, -2) if transpose_b else b
     acc = cfg.tacc_dtype
-    if a.dtype in (torch.bfloat16, torch.float16) and cfg.tout_dtype == a.dtype:
-        # The platform's own half-precision GEMM: fp32 accumulation inside,
-        # one rounding to the output type.
+    if (epilogue is None and a.dtype in (torch.bfloat16, torch.float16)
+            and cfg.tout_dtype == a.dtype):
         out = torch.matmul(a_l, b_l)
     elif acc.is_floating_point:
         out = torch.matmul(a_l.to(acc), b_l.to(acc))
     else:
         wide = torch.matmul(a_l.to(torch.float64), b_l.to(torch.float64))
         out = wide.to(torch.int64).to(acc)
+    if epilogue is not None:
+        out = epilogue.fn(out, *ep_operands)
     return out.to(cfg.tout_dtype)
 
 
-def mxu_matmul(a, b, *, cfg: GemmConfig, transpose_a=False, transpose_b=False):
-    """C (M, N) = op(A) . op(B) in ``cfg.out_dtype``.
-
-    a: (M, K), or (K, M) with ``transpose_a``; b: (K, N), or (N, K) with
-    ``transpose_b``.  Shapes need not be tile-aligned: the kernel masks
-    every edge itself.
-    """
-    m, n, k = _dims(a, b, transpose_a, transpose_b)
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return mxu_matmul_plain(a, b, cfg=cfg, transpose_a=transpose_a,
-                                transpose_b=transpose_b)
+def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what):
+    """Launch B1 / B2 on CUDA operands; returns (bsz, M, N)."""
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype != b.dtype:
@@ -82,28 +139,104 @@ def mxu_matmul(a, b, *, cfg: GemmConfig, transpose_a=False, transpose_b=False):
         raise NotImplementedError(
             f"{dtype_name(a.dtype)} -> {dtype_name(out_dtype)} output cast")
     if min(m, n, k) < 1 or m > _MAX_M or max(n, k) > _INT_MAX:
-        raise ValueError(f"kernel B1 takes 1 <= M <= {_MAX_M} and "
+        raise ValueError(f"{what} takes 1 <= M <= {_MAX_M} and "
                          f"1 <= N, K < 2^31, got ({m}, {n}, {k})")
+    code = 0 if epilogue is None else kernel_code(epilogue)
+    if epilogue is not None and epilogue.n_operands != len(eps):
+        raise ValueError(f"epilogue {epilogue.name!r} takes "
+                         f"{epilogue.n_operands} operands, got {len(eps)}")
+    if code and not a.dtype.is_floating_point and any(
+            e.dtype != torch.float32 for e in eps):
+        # The kernel widens the int32 accumulator to fp32 for the epilogue:
+        # the plain version's int32 + fp32 promotes the same way, while an
+        # int32 or 16-bit operand would keep the sum in that type.
+        raise ValueError(f"{what}: an epilogue on {dtype_name(a.dtype)} "
+                         f"inputs takes float32 operands, got "
+                         f"{[dtype_name(e.dtype) for e in eps]}")
+    rows = epilogue is not None and epilogue.rows
+    if rows and not row_softmax_fusable(a.dtype, n):
+        raise ValueError(
+            f"{what}: the row-softmax kernel takes bf16 / fp16 / fp32 rows of "
+            f"at most {ROW_SOFTMAX_MAX_N} columns, got {dtype_name(a.dtype)} "
+            f"N={n}; softmax the fp32 scores instead")
     a, b = _row_major(a), _row_major(b)
-    in_code = _build.dtype_code(a.dtype)
-    out_code = _build.dtype_code(out_dtype)
-    vec = 16 // a.element_size()
-
-    def vec_ok(x):
-        return int(x.data_ptr() % 16 == 0 and x.stride(0) % vec == 0)
-
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    (lda, sa), (ldb, sb) = _strides(a), _strides(b)
+    out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
+    ops, ep_dt = _ep_operands(eps, n, a.device)
+    ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
     lib = _build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mxu_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                          a.stride(0), b.stride(0), int(transpose_a),
-                          int(transpose_b), vec_ok(a), vec_ok(b), in_code,
-                          out_code, stream)
-    _build.check(rc, "mxu_gemm")
-    mxu_matmul.launches += 1
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, n, k,
+                lda, ldb, sa, sb, int(ta), int(tb), _vec_ok(a), _vec_ok(b),
+                _build.dtype_code(a.dtype), _build.dtype_code(out_dtype))
+        if rows:
+            rc = lib.mxu_gemm_row_softmax(*args, stream)
+        else:
+            rc = lib.mxu_gemm(*args, code, *ptrs, _build.dtype_code(ep_dt),
+                              stream)
+    _build.check(rc, what)
     return out
 
 
-# Kernel launches since the count was last reset (plain calls not counted).
+def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
+               transpose_b=False, epilogue: Optional[Epilogue] = None):
+    """C (M, N) = epilogue(op(A) . op(B)) in ``cfg.out_dtype`` (kernel B1).
+
+    a: (M, K), or (K, M) with ``transpose_a``; b: (K, N), or (N, K) with
+    ``transpose_b``; ``ep_operands``: the epilogue's (N,) operands.  Shapes
+    need not be tile-aligned: the kernel masks every edge itself.  A
+    whole-row epilogue (the row softmax) cannot run on B1's tiles, which
+    split rows; it runs on B2's row-softmax variant with a batch of one.
+    """
+    m, n, k = _dims(a, b, transpose_a, transpose_b)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mxu_matmul_plain(a, b, *ep_operands, cfg=cfg,
+                                transpose_a=transpose_a,
+                                transpose_b=transpose_b, epilogue=epilogue)
+    if epilogue is not None and epilogue.rows:
+        return mxu_matmul_batched(a[None], b, *ep_operands, cfg=cfg,
+                                  transpose_a=transpose_a,
+                                  transpose_b=transpose_b,
+                                  epilogue=epilogue)[0]
+    out = _launch(a, b, ep_operands, 1, m, n, k, cfg, transpose_a,
+                  transpose_b, epilogue, "kernel B1")[0]
+    if epilogue is None:
+        mxu_matmul.launches += 1
+    else:
+        mxu_matmul.epilogue_launches += 1
+    return out
+
+
+def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
+                       transpose_b=False, epilogue: Optional[Epilogue] = None):
+    """C (B, M, N) = epilogue(op(A[z]) . op(B[z])) in ``cfg.out_dtype``
+    (kernel B2).
+
+    a: (B, M, K), or (B, K, M) with ``transpose_a``; b: (B, K, N), or
+    (B, N, K) with ``transpose_b``.  One of them may be 2-D: it is read
+    through a batch stride of 0, never copied per example.  A per-column
+    epilogue runs at the store of the tile kernel; the row softmax runs on
+    B2's row-softmax variant (rows of at most ``ROW_SOFTMAX_MAX_N``).
+    """
+    bsz, m, n, k = batched_dims(a, b, transpose_a, transpose_b)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mxu_matmul_plain(a, b, *ep_operands, cfg=cfg,
+                                transpose_a=transpose_a,
+                                transpose_b=transpose_b, epilogue=epilogue)
+    out = _launch(a, b, ep_operands, bsz, m, n, k, cfg, transpose_a,
+                  transpose_b, epilogue, "kernel B2")
+    if epilogue is not None and epilogue.rows:
+        mxu_matmul_batched.row_softmax_launches += 1
+    else:
+        mxu_matmul_batched.launches += 1
+    return out
+
+
+# Kernel launches since the counts were last reset (plain calls not
+# counted): B1 without / with a per-column epilogue; B2 plain or with a
+# per-column epilogue; B2's row-softmax variant.
 mxu_matmul.launches = 0
+mxu_matmul.epilogue_launches = 0
+mxu_matmul_batched.launches = 0
+mxu_matmul_batched.row_softmax_launches = 0

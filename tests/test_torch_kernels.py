@@ -1,4 +1,7 @@
-"""Kernels B1 and B3 on the card, each against its plain PyTorch version.
+"""Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
+row-softmax variants) and B3 (2-D and batched) on the card, each against
+its plain PyTorch version; and the gradients of the batched, epilogue,
+``fused_linear`` and ``attention`` paths against plain autograd.
 
 Every test here needs a CUDA device and skips without one (the kernels
 have no CPU mode).  This file imports neither jax nor ``gemm_hls_tpu``, so
@@ -9,16 +12,19 @@ it also runs on a machine without jax:
 Tolerances (same inputs on both sides): exact for integer, bool and
 tropical results; relative 1e-4 for fp32 sums, which the kernel and the
 platform's matmul take in different orders; relative 1e-2 where the output
-is rounded to bf16.
+is rounded to bf16.  Epilogue and softmax outputs of mixed-sign operands can
+cancel to near zero, so they are held to the same relative tolerance
+scaled by the largest reference magnitude (``_close``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gemm_hls_tpu_torch import matmul
-from gemm_hls_tpu_torch.config import default_config
+from gemm_hls_tpu_torch import attention, fused_linear, matmul
+from gemm_hls_tpu_torch.config import ROW_SOFTMAX_MAX_N, default_config
 from gemm_hls_tpu_torch.ops import mxu, vpu
+from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
 from gemm_hls_tpu_torch.ops.semiring import Semiring, get_semiring
 from gemm_hls_tpu_torch.utils import make_operands
 
@@ -163,12 +169,301 @@ def test_unported_requests_raise(cuda, request_):
                                   reduce_op=torch.minimum, identity=float("inf"),
                                   np_map=np.add, np_reduce=np.minimum)
     elif request_ == "epilogue":
+        # A Python callable has no compiled functor: refused, never unfused.
         kw["epilogue"] = lambda acc: acc
     elif request_ == "3d":
-        a = a[None]
+        a = a[None].requires_grad_()  # batched tropical gradients
+        kw["semiring"] = "min_plus"
     elif request_ == "i8x2":
         kw["precision"] = "i8x2"
     else:
         kw["interpret"] = True
-    with pytest.raises(NotImplementedError):
-        matmul(a, a if request_ != "3d" else a, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
+        matmul(a, a.detach() if request_ == "3d" else a, **kw)
+
+
+# ---- B1's epilogue and B2 --------------------------------------------------
+
+EPILOGUES = ["bias", "bias_relu", "bias_sigmoid", "bias_tanh", "col_scale",
+             "scale_bias"]
+FLOAT_CASES = [(torch.bfloat16, torch.bfloat16, 1e-2),
+               (torch.bfloat16, torch.float32, 1e-4),
+               (torch.float16, torch.float32, 1e-4),
+               (torch.float32, torch.float32, 1e-4)]
+
+
+def _close(got, ref, rtol):
+    """|got - ref| <= rtol * (|ref| + max |ref|), NaN-free, same dtype."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    g, r = got.double(), ref.double()
+    assert torch.isfinite(g).all() and torch.isfinite(r).all()
+    bound = rtol * (r.abs() + r.abs().max())
+    assert bool(((g - r).abs() <= bound).all()), float((g - r).abs().max())
+
+
+def _signed(shape, dtype, device, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.rand(shape, generator=gen) * 2 - 1).to(device, dtype)
+
+
+def _ep_operands(name, n, device, dtype=torch.float32):
+    ep = get_epilogue(name)
+    return ep, [_signed((n,), dtype, device, 20 + i) for i in range(ep.n_operands)]
+
+
+@pytest.mark.parametrize("dtype,out,rtol", FLOAT_CASES)
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("name", EPILOGUES)
+def test_b1_epilogue_matches_plain(cuda, dtype, out, rtol, ta, tb, name):
+    m, n, k = 65, 140, 131  # N, K not multiples of the tile
+    a = _signed((k, m) if ta else (m, k), dtype, cuda, 1)
+    b = _signed((n, k) if tb else (k, n), dtype, cuda, 2)
+    ep, eps = _ep_operands(name, n, cuda, torch.bfloat16 if dtype == torch.bfloat16
+                           else torch.float32)
+    cfg = default_config(dtype, out_dtype=str(out).removeprefix("torch."))
+    before = mxu.mxu_matmul.epilogue_launches
+    got = mxu.mxu_matmul(a, b, *eps, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                         epilogue=ep)
+    assert mxu.mxu_matmul.epilogue_launches == before + 1
+    ref = mxu.mxu_matmul_plain(a, b, *eps, cfg=cfg, transpose_a=ta,
+                               transpose_b=tb, epilogue=ep)
+    _close(got, ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,out,name", [
+    (dtype, out, name)
+    for dtype, out in ((torch.int8, torch.int32), (torch.int8, torch.float32),
+                       (torch.int32, torch.float32))
+    for name in EPILOGUES
+    # sigmoid / tanh truncated to int32 would flip on a one-ulp difference
+    # of values next to 1: the exact epilogues only for an int32 output.
+    if not (out == torch.int32 and name in ("bias_sigmoid", "bias_tanh"))])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+def test_b1_epilogue_on_integer_inputs(cuda, dtype, out, name, ta, tb):
+    # The int32 accumulator meets the epilogue widened to fp32, as the plain
+    # version's int32 + fp32 promotes; the sum itself is exact.
+    a, b = _operands(65, 140, 131, dtype, ta, tb, device=cuda)
+    ep, eps = _ep_operands(name, 140, cuda)
+    eps = [e * 4000 for e in eps]  # the sums are 131..13100: relu clips some
+    cfg = default_config(dtype, out_dtype=str(out).removeprefix("torch."))
+    got = mxu.mxu_matmul(a, b, *eps, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                         epilogue=ep)
+    ref = mxu.mxu_matmul_plain(a, b, *eps, cfg=cfg, transpose_a=ta,
+                               transpose_b=tb, epilogue=ep)
+    if out == torch.int32:
+        _agree(got, ref, 0.0)
+    else:
+        _close(got, ref, 1e-5)
+
+
+def test_integer_epilogue_takes_fp32_operands(cuda):
+    a = torch.ones(8, 8, dtype=torch.int8, device=cuda)
+    bias = torch.ones(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32 operands"):
+        mxu.mxu_matmul(a, a, bias, cfg=default_config("int8", out_dtype="int32"),
+                       epilogue=get_epilogue("bias"))
+
+
+BATCHED = [(7, 33, 65, 17), (3, 130, 257, 77), (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype,out,rtol", FLOAT_CASES + [
+    (torch.int8, torch.int32, 0.0)])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("shape", BATCHED)
+def test_b2_matches_plain(cuda, dtype, out, rtol, ta, tb, shape):
+    bsz, m, n, k = shape
+    a, b = _operands(m, n, k, dtype, ta, tb, device=cuda)
+    a = torch.stack([a * (i + 1) for i in range(bsz)]) if dtype != torch.int8 else (
+        torch.stack([a] * bsz))
+    b = torch.stack([b] * bsz)
+    cfg = default_config(dtype, out_dtype=str(out).removeprefix("torch."))
+    before = mxu.mxu_matmul_batched.launches
+    got = mxu.mxu_matmul_batched(a, b, cfg=cfg, transpose_a=ta, transpose_b=tb)
+    assert mxu.mxu_matmul_batched.launches == before + 1
+    ref = mxu.mxu_matmul_plain(a, b, cfg=cfg, transpose_a=ta, transpose_b=tb)
+    _agree(got, ref, rtol)
+
+
+@pytest.mark.parametrize("which", ["a", "b"])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+def test_b2_broadcasts_a_2d_operand(cuda, which, ta, tb):
+    bsz, m, n, k = 5, 40, 70, 33
+    a = _signed((bsz,) + ((k, m) if ta else (m, k)), torch.bfloat16, cuda, 3)
+    b = _signed((bsz,) + ((n, k) if tb else (k, n)), torch.bfloat16, cuda, 4)
+    if which == "a":
+        a = a[0]
+    else:
+        b = b[0]
+    cfg = default_config("bfloat16", out_dtype="float32")
+    got = mxu.mxu_matmul_batched(a, b, cfg=cfg, transpose_a=ta, transpose_b=tb)
+    ref = mxu.mxu_matmul_plain(a, b, cfg=cfg, transpose_a=ta, transpose_b=tb)
+    _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("name", EPILOGUES)
+def test_b2_epilogue_matches_plain(cuda, name):
+    bsz, m, n, k = 4, 50, 200, 64
+    a = _signed((bsz, m, k), torch.bfloat16, cuda, 5)
+    b = _signed((bsz, n, k), torch.bfloat16, cuda, 6)
+    ep, eps = _ep_operands(name, n, cuda)
+    cfg = default_config("bfloat16", out_dtype="float32")
+    got = mxu.mxu_matmul_batched(a, b, *eps, cfg=cfg, transpose_b=True,
+                                 epilogue=ep)
+    ref = mxu.mxu_matmul_plain(a, b, *eps, cfg=cfg, transpose_b=True,
+                               epilogue=ep)
+    _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("dtype,out,rtol", [
+    (torch.bfloat16, torch.bfloat16, 1e-2), (torch.bfloat16, torch.float32, 1e-4),
+    (torch.float16, torch.float16, 1e-2), (torch.float32, torch.float32, 1e-4)])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("shape", [(3, 33, 129, 40), (2, 17, ROW_SOFTMAX_MAX_N, 64),
+                                   (1, 1, 1, 1)])
+def test_b2_row_softmax_matches_plain(cuda, dtype, out, rtol, ta, tb, shape):
+    bsz, m, n, k = shape
+    a = _signed((bsz,) + ((k, m) if ta else (m, k)), dtype, cuda, 7) * 3
+    b = _signed((bsz,) + ((n, k) if tb else (k, n)), dtype, cuda, 8)
+    cfg = default_config(dtype, out_dtype=str(out).removeprefix("torch."))
+    ep = get_epilogue("softmax")
+    before = mxu.mxu_matmul_batched.row_softmax_launches
+    got = mxu.mxu_matmul_batched(a, b, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                                 epilogue=ep)
+    assert mxu.mxu_matmul_batched.row_softmax_launches == before + 1
+    ref = mxu.mxu_matmul_plain(a, b, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                               epilogue=ep)
+    _close(got, ref, rtol)
+    assert torch.allclose(got.double().sum(-1), torch.ones((), device=cuda,
+                          dtype=torch.float64), rtol=rtol * 4)
+
+
+def test_b2_row_softmax_refuses_rows_past_its_bound(cuda):
+    a = torch.ones(1, 4, 8, device=cuda)
+    b = torch.ones(1, ROW_SOFTMAX_MAX_N + 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        mxu.mxu_matmul_batched(a, b, cfg=default_config("float32"),
+                               transpose_b=True, epilogue=get_epilogue("softmax"))
+
+
+def test_batch_above_the_grid_limit(cuda):
+    # gridDim.z <= 65535: a bigger batch is launched in chunks.
+    bsz = 70_000
+    a = _signed((bsz, 3, 5), torch.float32, cuda, 9)
+    b = _signed((bsz, 5, 4), torch.float32, cuda, 10)
+    cfg = default_config("float32")
+    _close(mxu.mxu_matmul_batched(a, b, cfg=cfg),
+           mxu.mxu_matmul_plain(a, b, cfg=cfg), 1e-5)
+    ep = get_epilogue("softmax")
+    _close(mxu.mxu_matmul_batched(a, b, cfg=cfg, epilogue=ep),
+           mxu.mxu_matmul_plain(a, b, cfg=cfg, epilogue=ep), 1e-5)
+    sr = get_semiring("min_plus")
+    scfg = default_config("float32", semiring="min_plus")
+    assert torch.equal(vpu.vpu_matmul(a, b, cfg=scfg, sr=sr),
+                       vpu.vpu_matmul_plain(a, b, cfg=scfg, sr=sr))
+
+
+def test_wrappers_take_an_empty_batch(cuda):
+    # No block is launched and nothing is written for a batch of 0.
+    a = torch.ones(0, 3, 5, device=cuda)
+    b = torch.ones(0, 5, 4, device=cuda)
+    cfg = default_config("float32")
+    assert mxu.mxu_matmul_batched(a, b, cfg=cfg).shape == (0, 3, 4)
+    assert mxu.mxu_matmul_batched(a, b, cfg=cfg, epilogue=get_epilogue(
+        "softmax")).shape == (0, 3, 4)
+    scfg = default_config("float32", semiring="min_plus")
+    assert vpu.vpu_matmul(a, b, cfg=scfg, sr=get_semiring("min_plus")).shape == (
+        0, 3, 4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name,dtype", [("min_plus", torch.float32),
+                                        ("max_plus", torch.int32),
+                                        ("log_plus", torch.bfloat16)])
+@pytest.mark.parametrize("broadcast", [None, "a", "b"])
+def test_b3_batched_matches_plain(cuda, name, dtype, broadcast):
+    sr = get_semiring(name)
+    cfg = default_config(dtype, semiring=name)
+    a, b = _operands(70, 130, 45, dtype, device=cuda)
+    a = torch.stack([a, a + 1, a + 2])
+    b = torch.stack([b, b, b + 3])
+    if broadcast == "a":
+        a = a[1]
+    elif broadcast == "b":
+        b = b[2]
+    before = vpu.vpu_matmul.launches
+    got = vpu.vpu_matmul(a, b, cfg=cfg, sr=sr)
+    assert vpu.vpu_matmul.launches == before + 1
+    ref = vpu.vpu_matmul_plain(a, b, cfg=cfg, sr=sr)
+    _agree(got, ref, 1e-2 if dtype == torch.bfloat16 else (
+        1e-4 if name == "log_plus" else 0.0))
+
+
+# ---- gradients against plain autograd ---------------------------------------
+
+def _grads(fn, *xs):
+    xs = [x.detach().clone().requires_grad_() for x in xs]
+    out = fn(*xs)
+    g = _signed(out.shape, out.dtype, out.device, 99)
+    torch.autograd.backward(out, g)
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("broadcast", [None, "a", "b"])
+def test_batched_gradients_match_plain_autograd(cuda, ta, tb, broadcast):
+    bsz, m, n, k = 3, 70, 90, 50
+    a = _signed((bsz,) + ((k, m) if ta else (m, k)), torch.float32, cuda, 11)
+    b = _signed((bsz,) + ((n, k) if tb else (k, n)), torch.float32, cuda, 12)
+    a = a[0] if broadcast == "a" else a
+    b = b[0] if broadcast == "b" else b
+    got = _grads(lambda x, y: matmul(x, y, transpose_a=ta, transpose_b=tb), a, b)
+    ref = _grads(lambda x, y: matmul(x, y, transpose_a=ta, transpose_b=tb,
+                                     backend="torch"), a, b)
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-4)
+
+
+@pytest.mark.parametrize("act", ["identity", "relu", "sigmoid", "tanh"])
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_fused_linear_gradients_match_plain_autograd(cuda, act, lead):
+    x = _signed(lead + (64, 96), torch.float32, cuda, 13)
+    w = _signed((96, 130), torch.float32, cuda, 14)
+    b = _signed((130,), torch.float32, cuda, 15)
+    f = {"identity": lambda p: p, "relu": torch.relu, "sigmoid": torch.sigmoid,
+         "tanh": torch.tanh}[act]
+    before = mxu.mxu_matmul.epilogue_launches
+    got = _grads(lambda *t: fused_linear(*t, act), x, w, b)
+    assert mxu.mxu_matmul.epilogue_launches == before + 1
+    ref = _grads(lambda x_, w_, b_: f(x_ @ w_ + b_), x, w, b)
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-4)
+
+
+def test_epilogue_gradient_via_recompute_matches_plain_autograd(cuda):
+    a = _signed((3, 40, 64), torch.float32, cuda, 16)
+    b = _signed((3, 64, 130), torch.float32, cuda, 17)
+    bias = _signed((130,), torch.float32, cuda, 18)
+    got = _grads(lambda x, y, z: matmul(x, y, epilogue="bias_tanh",
+                                        epilogue_operands=(z,)), a, b, bias)
+    ref = _grads(lambda x, y, z: torch.tanh(x @ y + z), a, b, bias)
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-4)
+
+
+@pytest.mark.parametrize("s_k", [96, ROW_SOFTMAX_MAX_N + 128])
+def test_attention_and_gradient_match_plain(cuda, s_k):
+    q = _signed((4, 64, 32), torch.float32, cuda, 19)
+    k = _signed((4, s_k, 32), torch.float32, cuda, 20)
+    v = _signed((4, s_k, 32), torch.float32, cuda, 21)
+
+    def plain(q_, k_, v_):
+        s = q_ @ k_.transpose(1, 2) / 32 ** 0.5
+        return torch.softmax(s, -1) @ v_
+
+    before = mxu.mxu_matmul_batched.row_softmax_launches
+    _close(attention(q, k, v), plain(q, k, v), 1e-4)
+    fused = mxu.mxu_matmul_batched.row_softmax_launches - before
+    assert fused == (1 if s_k <= ROW_SOFTMAX_MAX_N else 0)
+    for g, r in zip(_grads(attention, q, k, v), _grads(plain, q, k, v)):
+        _close(g, r, 1e-4)

@@ -173,10 +173,15 @@ def test_unported_requests_name_roadmap(request_):
     a = torch.ones(8, 8)
     kw = {}
     if request_ == "epilogue":
+        # A callable epilogue off the CPU (here on the meta device; on CUDA
+        # alike) has no compiled functor.
+        a = a.to("meta")
         kw = dict(epilogue=lambda acc, bias: acc + bias,
-                  epilogue_operands=(torch.ones(8),))
+                  epilogue_operands=(torch.ones(8, device="meta"),))
     elif request_ == "3d":
-        a = a[None]
+        # Batched calls are ported; batched tropical gradients are not.
+        a = a[None].requires_grad_()
+        kw = dict(semiring="min_plus")
     elif request_ == "i8x3":
         kw = dict(precision="i8x3")
     elif request_ == "interpret":
@@ -185,7 +190,7 @@ def test_unported_requests_name_roadmap(request_):
         a = a.requires_grad_()
         kw = dict(semiring="min_plus")
     with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
-        matmul(a, torch.ones(8, 8), **kw)
+        matmul(a, torch.ones(8, 8, device=a.device), **kw)
 
 
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
