@@ -34,7 +34,31 @@ Phases, each printed as it ends:
   9. times of B1's epilogue, B2 and B2's row softmax beside their plain
      versions at the main path's shapes, and of phase 8's batched calls
      beside the torch call that computes the same (not counted as
-     launches).
+     launches);
+ 10. kernels B4 (diagonal) and B5 (hi/lo) against their plain versions:
+     2, 3, 4 and 8 slices, stacked and split operands, scaled and
+     unscaled, unaligned M, N and K, both flush periods of B5; the int32
+     bounds refuse on the card;
+ 11. slice 3's main path at full width, launch counts set to 0 before it
+     and read after: ``matmul(precision="i8x2"|"i8x3"|"i8x4")`` at fp32
+     8192^3 (B4), K = 44000 and 2^17 + 128 (B5), the i8x3 gradient at
+     4096^3; ``ozaki_matmul_int8`` at f64 2048^3 and 8192^3 (B5) and
+     ``ozaki_matmul`` at 2048^3 (B1); ``all_pairs_shortest_paths`` and
+     ``widest_paths`` at n = 4096 (B3), ``transitive_closure`` at 8192 (B1
+     int8 and bit-packed B3), ``pagerank`` at 8192 (B1); the five semiring
+     gradients at 1024^3;
+ 12. times of B4 (i8x2/3/4 at 8192^3) and B5 (8 slices at 2048^3 and
+     8192^3) beside their plain versions and the library product
+     (``torch.matmul`` fp32 / float64), and of the end-to-end calls.
+
+Slice 3's checks: B4 equal to its plain version exactly (every int32
+diagonal is exact and the fp32 combine runs in the same order), B5's
+hi + lo within 1e-15 of the largest plain output; the tiers' normwise error
+|C - AB| / (|a_i| |b_j|) against float64 ``torch.matmul`` on the card below
+the JAX tests' bounds (i8x2 3e-4, i8x3 2e-6, i8x4 below i8x3 and under
+2^-22 Frobenius), Ozaki below 1e-13 (int8) and 1e-14 (bf16); graph results
+equal to plain Floyd-Warshall exactly (integer weights: every sum exact),
+PageRank within 1e-5; gradients within 1e-5 (scaled) of plain autograd.
 
 Tolerances (kernel vs plain version on the same inputs, on the card):
   exact for integer, bool and tropical results (min/max of identically
@@ -49,7 +73,9 @@ Tolerances (kernel vs plain version on the same inputs, on the card):
 
 Any mismatch or exception ends the run with a non-zero exit.  The last
 three lines are the card's name and power limit, one JSON line on the
-kernels, and ``{"ok": true, "device": {...}}``.
+kernels (each with its launches on its slice's main path, its time, its
+plain version's and the library call's where one exists, and its bound
+from ``models/perf_model.py``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -322,21 +348,28 @@ def signed(torch, shape, dtype, gen):
     return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1).to(dtype)
 
 
+SLICE2_KERNELS = ("B1", "B1 epilogue", "B2", "B2 row-softmax", "B3")
+
+
 def counters():
-    from gemm_hls_tpu_torch.ops import mxu, vpu
+    from gemm_hls_tpu_torch.ops import mxu, slice_kernels, vpu
     return {"B1": mxu.mxu_matmul.launches,
             "B1 epilogue": mxu.mxu_matmul.epilogue_launches,
             "B2": mxu.mxu_matmul_batched.launches,
             "B2 row-softmax": mxu.mxu_matmul_batched.row_softmax_launches,
-            "B3": vpu.vpu_matmul.launches}
+            "B3": vpu.vpu_matmul.launches,
+            "B4": slice_kernels.fused_int8_fp32.launches,
+            "B5": slice_kernels.fused_ozaki_int8.launches}
 
 
 def reset_counters():
-    from gemm_hls_tpu_torch.ops import mxu, vpu
+    from gemm_hls_tpu_torch.ops import mxu, slice_kernels, vpu
     mxu.mxu_matmul.launches = mxu.mxu_matmul.epilogue_launches = 0
     mxu.mxu_matmul_batched.launches = 0
     mxu.mxu_matmul_batched.row_softmax_launches = 0
     vpu.vpu_matmul.launches = 0
+    slice_kernels.fused_int8_fp32.launches = 0
+    slice_kernels.fused_ozaki_int8.launches = 0
 
 
 def phase_b2(torch):
@@ -734,7 +767,7 @@ def phase_slice2(torch):
     log(f"phase 8f: batched matmul vs plain, {n_cases} cases (64x512^3 and "
         f"256x128^3 bf16 four layouts, int8, fp32, broadcast, 4-D, min_plus): ok")
 
-    launches = counters()
+    launches = {k: v for k, v in counters().items() if k in SLICE2_KERNELS}
     log(f"phase 8: main-path launch counts {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -852,6 +885,416 @@ def phase_times(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the integer-slice kernels B4 / B5, the precision tiers, Ozaki,
+# the graph applications and the semiring gradients
+# ---------------------------------------------------------------------------
+
+def int8_slices(torch, n, rows, cols, gen):
+    return torch.randint(-127, 128, (n, rows, cols), generator=gen,
+                         device="cuda", dtype=torch.int8)
+
+
+def phase_b45(torch):
+    """Kernels B4 and B5 against their plain versions on the card."""
+    from gemm_hls_tpu_torch.ops import slice_kernels as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    shapes = [(1, 1, 1), (65, 140, 131), (33, 129, 4097), (257, 130, 1000),
+              (1024, 1024, 2048)]
+    n4 = n5 = exact5 = 0
+    worst5 = 0.0
+    for ns in (2, 3, 4, 8):
+        for m, n, k in shapes:
+            sa, sb = int8_slices(torch, ns, m, k, gen), int8_slices(torch, ns, k, n, gen)
+            ua = torch.exp2(torch.randint(-9, 3, (m, 1), generator=gen,
+                                          device="cuda").float())
+            ub = torch.exp2(torch.randint(-9, 3, (1, n), generator=gen,
+                                          device="cuda").float())
+            # "kmajor": B's slices as (K, N) views of (N, K) storage, the
+            # layout fp32_matmul_int8 hands the kernels (no transposed copy).
+            sb_k = sb.transpose(1, 2).contiguous().transpose(1, 2)
+            lists = (list(sa.unbind(0)), list(sb.unbind(0)))
+            for form in ("stacked", "split", "kmajor"):
+                xa, xb = {"stacked": (sa, sb), "split": (tuple(sa), tuple(sb)),
+                          "kmajor": (tuple(sa), tuple(sb_k))}[form]
+                for ulps in ((), (ua, ub)):
+                    got = sk.fused_int8_fp32(xa, xb, *ulps)
+                    ref = sk.fused_int8_fp32_plain(*lists, *ulps)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"B4 {ns} slices {form} scaled={bool(ulps)} "
+                            f"{(m, n, k)}: {int((got != ref).sum())} elements "
+                            f"differ from the plain version")
+                    n4 += 1
+                for n_diags in (ns, ns + 1):
+                    for block_k in (64, 2048):
+                        hi, lo = sk.fused_ozaki_int8(xa, xb, block_k=block_k,
+                                                     n_diags=n_diags)
+                        rhi, rlo = sk.fused_ozaki_int8_plain(
+                            *lists, block_k=block_k, n_diags=n_diags)
+                        got = hi.double() + lo.double()
+                        ref = rhi.double() + rlo.double()
+                        scale = float(ref.abs().max()) or 1.0
+                        err = float((got - ref).abs().max()) / scale
+                        worst5 = max(worst5, err)
+                        if err > 1e-15:
+                            raise AssertionError(
+                                f"B5 {ns} slices {form} n_diags={n_diags} "
+                                f"block_k={block_k} {(m, n, k)}: hi + lo off "
+                                f"by {err:.3e} of the largest output")
+                        exact5 += int(torch.equal(hi, rhi) and torch.equal(lo, rlo))
+                        n5 += 1
+    log(f"phase 10a: B4 vs plain, {n4} cases (2, 3, 4, 8 slices; stacked, "
+        f"split and K-major B; scaled and unscaled; unaligned M, N, K): all "
+        f"exact")
+    log(f"phase 10b: B5 vs plain, {n5} cases: worst |hi + lo - plain| "
+        f"{worst5:.3e} of the largest output; hi and lo bit-identical in "
+        f"{exact5} of {n5}")
+    for call, match in (
+            (lambda: sk.fused_int8_fp32(int8_slices(torch, 3, 8, 44400, gen),
+                                        int8_slices(torch, 3, 44400, 16, gen)),
+             "whole-K"),
+            (lambda: sk.fused_ozaki_int8(int8_slices(torch, 3, 8, 64, gen),
+                                         int8_slices(torch, 3, 64, 16, gen),
+                                         block_k=45056), "too large")):
+        try:
+            call()
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"the {match!r} bound was not enforced")
+    log("phase 10c: B4's whole-K and B5's block_k int32 bounds refuse on the card")
+
+
+def normwise(torch, got, a, b):
+    """(max normwise error |C - AB| / (|a_i| |b_j|), Frobenius relative
+    error) of ``got`` against the float64 product on the card."""
+    a64, b64 = a.double(), b.double()
+    exp = a64 @ b64
+    diff = got.double() - exp
+    scale = torch.outer(a64.norm(dim=1), b64.norm(dim=0))
+    out = (float((diff.abs() / scale).max()),
+           float(diff.norm() / exp.norm()))
+    del a64, b64, exp, diff, scale
+    return out
+
+
+def floyd_warshall(torch, d, plus, reduce):
+    """n rank-1 relaxations d = reduce(d, plus(d[:, k], d[k, :])) in place."""
+    for k in range(d.shape[0]):
+        reduce(d, plus(d[:, k:k + 1], d[k:k + 1, :]), out=d)
+    return d
+
+
+def dense_semiring(torch, name, x, y):
+    """A semiring as plain torch ops, for plain autograd: amin / amax share
+    a tied cotangent equally, minimum / maximum split a tie 0.5 / 0.5,
+    logsumexp gives the softmax weights."""
+    x3, y3 = x[:, :, None], y[None, :, :]
+    if name == "log_plus":
+        return torch.logsumexp(x3 + y3, dim=1)
+    if name == "max_min":
+        return torch.minimum(x3, y3).amax(1)
+    if name == "min_max":
+        return torch.maximum(x3, y3).amin(1)
+    return (x3 + y3).amin(1) if name == "min_plus" else (x3 + y3).amax(1)
+
+
+TROPICAL_GRADS = ("min_plus", "max_plus", "log_plus", "max_min", "min_max")
+
+
+def phase_slice3(torch):
+    """Slice 3's main path at full width, launch counts set to 0 before it
+    and read after."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.models import graph
+    from gemm_hls_tpu_torch.ops import ozaki, slice_kernels as sk
+    from gemm_hls_tpu_torch.ops.int8_slices import fp32_matmul_int8
+
+    def b45():
+        return sk.fused_int8_fp32.launches, sk.fused_ozaki_int8.launches
+
+    reset_counters()
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    res = {}
+
+    # 11a: the fp32 tiers at bench.py's fp32 headline shape.
+    n = 8192
+    a = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
+    b = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
+    errs = {}
+    for p, bound in (("i8x2", 3e-4), ("i8x3", 2e-6), ("i8x4", 2e-6)):
+        before = b45()
+        out = matmul(a, b, precision=p)
+        torch.cuda.synchronize()
+        if b45() != (before[0] + 1, before[1]):
+            raise AssertionError(f"{p} {n}^3: launches B4/B5 {before} -> {b45()}")
+        if out.shape != (n, n) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{p}: bad output")
+        errs[p] = normwise(torch, out, a, b)
+        del out
+        if errs[p][0] >= bound:
+            raise AssertionError(f"{p} {n}^3: normwise {errs[p][0]:.3e} >= {bound:g}")
+        log(f"phase 11a: matmul precision={p} fp32 {n}^3 on B4: normwise "
+            f"{errs[p][0]:.3e} (bound {bound:g}), Frobenius rel {errs[p][1]:.3e}")
+    if not (errs["i8x4"][0] < errs["i8x3"][0] and errs["i8x4"][1] < 2 ** -22):
+        raise AssertionError(f"i8x4 not at the fp32 output floor: {errs}")
+    res["i8x"] = errs
+
+    # 11b: past B4's whole-K bound, the hi/lo kernel B5.
+    for m, nn, k in ((16, 128, 44000), (8, 8, (1 << 17) + 128)):
+        x = torch.rand((m, k), generator=gen, device="cuda") * 2 - 1
+        y = torch.rand((k, nn), generator=gen, device="cuda") * 2 - 1
+        before = b45()
+        out = matmul(x, y, precision="i8x3")
+        torch.cuda.synchronize()
+        if b45() != (before[0], before[1] + 1):
+            raise AssertionError(f"i8x3 K={k}: launches B4/B5 {before} -> {b45()}")
+        err = normwise(torch, out, x, y)[0]
+        if err >= 2e-6:
+            raise AssertionError(f"i8x3 K={k}: normwise {err:.3e}")
+        log(f"phase 11b: matmul precision=i8x3 ({m}, {nn}, K={k}) on B5: "
+            f"normwise {err:.3e}")
+
+    # 11c: the gradient of fp32_matmul_int8 at i8x3, against fp32 autograd.
+    n = 4096
+    x = (torch.rand((n, n), generator=gen, device="cuda") * 10 - 5).requires_grad_()
+    y = (torch.rand((n, n), generator=gen, device="cuda") * 10 - 5).requires_grad_()
+    g = torch.rand((n, n), generator=gen, device="cuda") * 2 - 1
+    before = b45()
+    fp32_matmul_int8(x, y, n_slices=3).backward(g)
+    dx, dy = x.grad, y.grad
+    if b45()[0] != before[0] + 3:
+        raise AssertionError(f"i8x3 gradient: B4 launches {before} -> {b45()}")
+    x2, y2 = x.detach().clone().requires_grad_(), y.detach().clone().requires_grad_()
+    (x2 @ y2).backward(g)
+    for name, got, ref, ops in (("dA", dx, x2.grad, (g, y.detach().T)),
+                                ("dB", dy, y2.grad, (x.detach().T, g))):
+        exact = normwise(torch, got, *ops)[0]
+        _, rel = compare(torch, got, ref, 1e-4, f"i8x3 gradient {name}", scaled=True)
+        if exact >= 2e-6:
+            raise AssertionError(f"i8x3 gradient {name}: normwise {exact:.3e}")
+        log(f"phase 11c: fp32_matmul_int8 i8x3 {n}^3 gradient {name}: normwise "
+            f"{exact:.3e} vs the float64 product; scaled rel {rel:.3e} vs fp32 "
+            f"autograd")
+    del x, y, g, dx, dy, x2, y2
+
+    # 11d: the f64-class GEMMs (numpy in, numpy out).
+    rng = np.random.default_rng(91)
+    res["ozaki"] = {}
+    for fn, n, bound in (("ozaki_matmul_int8", 2048, 1e-13),
+                         ("ozaki_matmul_int8", 8192, 1e-13),
+                         ("ozaki_matmul", 2048, 1e-14)):
+        A = rng.uniform(-5, 5, (n, n))
+        B = rng.uniform(-5, 5, (n, n))
+        before, b1 = b45(), counters()["B1"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C = getattr(ozaki, fn)(A, B)
+        secs = time.perf_counter() - t0
+        launched = (b45()[1] - before[1] if fn == "ozaki_matmul_int8"
+                    else counters()["B1"] - b1)
+        if launched <= 0:
+            raise AssertionError(f"{fn} {n}^3 launched no kernel")
+        At, Bt = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+        err = normwise(torch, torch.from_numpy(C).cuda(), At, Bt)[0]
+        del At, Bt
+        if C.shape != (n, n) or err >= bound:
+            raise AssertionError(f"{fn} {n}^3: normwise {err:.3e} >= {bound:g}")
+        res["ozaki"][f"{fn} {n}^3"] = dict(seconds=secs, normwise=err)
+        log(f"phase 11d: {fn} f64 {n}^3 ({launched} "
+            f"{'B5' if fn == 'ozaki_matmul_int8' else 'B1'} launches): normwise "
+            f"{err:.3e} (bound {bound:g}); call {secs * 1e3:.1f} ms, numpy in "
+            f"and out")
+
+    # 11e: the graph applications, integer-valued weights: every sum exact.
+    inf = float("inf")
+    n = 4096
+    w = torch.randint(1, 10, (n, n), generator=gen, device="cuda").float()
+    keep = torch.rand((n, n), generator=gen, device="cuda") < 4.0 / n
+    adj = torch.where(keep, w, inf)
+    b3 = counters()["B3"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = graph.all_pairs_shortest_paths(adj)
+    torch.cuda.synchronize()
+    res["apsp_s"] = time.perf_counter() - t0
+    squarings = counters()["B3"] - b3
+    d = adj.clone()
+    d.fill_diagonal_(0.0)
+    ref = floyd_warshall(torch, d, torch.add, torch.minimum)
+    compare(torch, dist, ref, 0.0, "APSP 4096 vs Floyd-Warshall")
+    log(f"phase 11e: all_pairs_shortest_paths n={n} ({squarings} min_plus B3 "
+        f"launches, {res['apsp_s'] * 1e3:.1f} ms): equals Floyd-Warshall exactly "
+        f"({int(torch.isfinite(dist).sum())} finite distances, longest "
+        f"{float(dist[torch.isfinite(dist)].max()):.0f})")
+    del dist, ref, d
+    cap = torch.where(keep, w, 0.0)
+    wide = graph.widest_paths(cap)
+    d = cap.clone()
+    d.fill_diagonal_(inf)
+    compare(torch, wide, floyd_warshall(torch, d, torch.minimum, torch.maximum),
+            0.0, "widest paths 4096 vs Floyd-Warshall")
+    log(f"phase 11e: widest_paths n={n} (max_min on B3): equals the (max, min) "
+        f"Floyd-Warshall exactly")
+    del wide, d, cap, adj, w, keep
+
+    n = 8192
+    w = torch.randint(1, 10, (n, n), generator=gen, device="cuda").float()
+    keep = torch.rand((n, n), generator=gen, device="cuda") < 1.5 / n
+    d = torch.where(keep, w, inf)
+    d.fill_diagonal_(0.0)
+    reach = torch.isfinite(floyd_warshall(torch, d, torch.add, torch.minimum))
+    del d, w
+    for route, hook in (("B1 int8 counts", None),
+                        ("bit-packed B3", lambda x, y: matmul(
+                            x, y, semiring="or_and", backend="vpu"))):
+        closure = graph.transitive_closure(keep, matmul_fn=hook)
+        compare(torch, closure, reach, 0.0, f"closure 8192 ({route})")
+        del closure
+    log(f"phase 11e: transitive_closure n={n} bool, B1 int8 route and "
+        f"bit-packed B3: equal isfinite(Floyd-Warshall) "
+        f"({int(reach.sum())} of {n * n} pairs reachable)")
+    del reach
+
+    edges = keep | (torch.rand((n, n), generator=gen, device="cuda") < 0.001)
+    edges[7] = False  # a dangling node
+    rank = graph.pagerank(edges.float(), iters=50)
+    out_deg = edges.sum(1, keepdim=True).clamp(min=1)
+    tt = torch.where(edges, 1.0 / out_deg, 0.0).T.contiguous()
+    dangling = (edges.sum(1) == 0).float()
+    r = torch.full((n,), 1.0 / n, device="cuda")
+    for _ in range(50):
+        r = 0.85 * (tt @ r + (dangling * r).sum() / n) + 0.15 / n
+    compare(torch, rank, r, 1e-5, "pagerank 8192")
+    log(f"phase 11e: pagerank n={n}, 50 iterations (fp32 on B1): within 1e-5 "
+        f"of a plain power iteration; sum {float(rank.sum()):.6f}")
+    del edges, tt, keep
+
+    # 11f: the semiring gradients at 1024^3 against plain autograd through
+    # the dense form, 64 rows at a time (full K per row: ties share alike).
+    n = 1024
+    res["tropical_bwd_ms"] = {}
+    for name in TROPICAL_GRADS:
+        lo, hi = (-2.0, 2.0) if name == "log_plus" else (0.0, 100.0)
+        a = torch.rand((n, n), generator=gen, device="cuda") * (hi - lo) + lo
+        b = torch.rand((n, n), generator=gen, device="cuda") * (hi - lo) + lo
+        g = torch.rand((n, n), generator=gen, device="cuda") * 2 - 1
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = matmul(x, y, semiring=name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.backward(g)
+        torch.cuda.synchronize()
+        res["tropical_bwd_ms"][name] = (time.perf_counter() - t0) * 1e3
+        x2, y2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        for r0 in range(0, n, 64):
+            (dense_semiring(torch, name, x2[r0:r0 + 64], y2)
+             * g[r0:r0 + 64]).sum().backward()
+        for which, got, ref in (("dA", x.grad, x2.grad), ("dB", y.grad, y2.grad)):
+            compare(torch, got, ref, 1e-5, f"{name} gradient {which}", scaled=True)
+        log(f"phase 11f: {name} {n}^3 gradients (backward "
+            f"{res['tropical_bwd_ms'][name]:.1f} ms) match plain autograd")
+        del a, b, g, x, y, x2, y2, out
+
+    launches = counters()
+    log(f"phase 11: main-path launch counts {launches}")
+    for name in ("B1", "B3", "B4", "B5"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the slice 3 "
+                                 f"main path")
+    return launches, res
+
+
+def phase_times3(torch):
+    """Times of B4 and B5 beside their plain versions and the library call
+    computing the same product, and of slice 3's end-to-end calls (launches
+    here are comparisons, not the main path's)."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.ops import ozaki, slice_kernels as sk
+    from gemm_hls_tpu_torch.ops.int8_slices import _quantize_slices
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    out = {}
+    n = 8192
+    a = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
+    b = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
+    lib = time_fn(torch.matmul, (a, b), iters=5) * 1e3
+    for p in ("i8x2", "i8x3", "i8x4"):
+        ns = int(p[-1])
+        # B's slices K-contiguous, as fp32_matmul_int8 makes them.
+        sa, ua = _quantize_slices(a, axis=1, n_slices=ns, stacked=False)
+        sbt, ubt = _quantize_slices(b.T.contiguous(), axis=1, n_slices=ns,
+                                    stacked=False)
+        sb, ub = [s.T for s in sbt], ubt.T
+        args = (tuple(sa), tuple(sb), ua, ub)
+        got = sk.fused_int8_fp32(*args)
+        ref = sk.fused_int8_fp32_plain(sa, sb, ua, ub)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"B4 {p} {n}^3 differs from its plain version")
+        del got, ref
+        ms = time_fn(sk.fused_int8_fp32, args, iters=5) * 1e3
+        plain_ms = time_fn(lambda *t: sk.fused_int8_fp32_plain(sa, sb, ua, ub), (),
+                           iters=1, warmup=0, repeats=1) * 1e3
+        e2e = time_fn(lambda x, y: matmul(x, y, precision=p), (a, b), iters=5) * 1e3
+        out[f"B4 {p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                              max_abs_err=0.0, matmul_ms=e2e, n_slices=ns)
+        log(f"phase 12: B4 {p} fp32 {n}^3: {ms:.3f} ms vs plain {plain_ms:.3f} "
+            f"ms (torch.matmul fp32 {lib:.3f} ms); matmul(precision={p!r}) "
+            f"end to end {e2e:.3f} ms")
+        del sa, sb, sbt, args
+    high = time_fn(lambda x, y: matmul(x, y, precision="high"), (a, b), iters=2) * 1e3
+    out["matmul high 8192"] = high
+    log(f"phase 12: matmul(precision='high') fp32 {n}^3 (B1, CUDA cores): "
+        f"{high:.3f} ms")
+    del a, b
+
+    for n in (2048, 8192):
+        sa = int8_slices(torch, 8, n, n, gen)
+        sb = int8_slices(torch, 8, n, n, gen).transpose(1, 2)  # K-major B
+        kw = dict(block_k=2048, n_diags=8)
+        ms = time_fn(lambda x, y: sk.fused_ozaki_int8(x, y, **kw), (sa, sb),
+                     iters=5 if n == 2048 else 2) * 1e3
+        A = torch.rand((n, n), generator=gen, device="cuda", dtype=torch.float64)
+        lib = time_fn(torch.matmul, (A, A), iters=5) * 1e3
+        entry = dict(ms=ms, library_ms=lib)
+        if n == 2048:
+            hi, lo = sk.fused_ozaki_int8(sa, sb, **kw)
+            rhi, rlo = sk.fused_ozaki_int8_plain(list(sa), list(sb), **kw)
+            ref = rhi.double() + rlo.double()
+            entry["max_abs_err"] = float((hi.double() + lo.double() - ref).abs().max())
+            entry["plain_ms"] = time_fn(
+                lambda: sk.fused_ozaki_int8_plain(list(sa), list(sb), **kw), (),
+                iters=1, warmup=0, repeats=1) * 1e3
+            del hi, lo, rhi, rlo, ref
+        out[f"B5 {n}"] = entry
+        log(f"phase 12: B5 8 slices, 36 products, {n}^3: {ms:.3f} ms"
+            + (f" vs plain {entry['plain_ms']:.3f} ms" if "plain_ms" in entry else "")
+            + f" (torch.matmul float64 {lib:.3f} ms)")
+        del sa, sb, A
+
+    rng = np.random.default_rng(103)
+    A, B = rng.uniform(-5, 5, (2048, 2048)), rng.uniform(-5, 5, (2048, 2048))
+    for fn in ("ozaki_matmul_int8", "ozaki_matmul"):
+        secs = []
+        for _ in range(3 if fn == "ozaki_matmul_int8" else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(ozaki, fn)(A, B)
+            secs.append(time.perf_counter() - t0)
+        out[f"{fn} 2048"] = statistics.median(secs) * 1e3
+        log(f"phase 12: {fn} 2048^3 call, numpy in and out: "
+            f"{out[f'{fn} 2048']:.1f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -889,35 +1332,69 @@ def main() -> int:
     phase_grads(torch)
     launches2 = phase_slice2(torch)
     times = phase_times(torch)
+    phase_b45(torch)
+    launches3, res3 = phase_slice3(torch)
+    times3 = phase_times3(torch)
 
-    def kernel(name, source, replaces, n, t):
+    from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
+
+    def kernel(name, source, replaces, n, t, bound, library_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                "plain_ms": t["plain_ms"]}
+                "plain_ms": t["plain_ms"], "bound_ms": bound[0] * 1e3,
+                "bound_by": bound[1], "library_ms": library_ms}
 
     slice1 = {key: {"max_abs_err": r["max_abs_err"], "ms": r["seconds"] * 1e3,
                     "plain_ms": r["plain_seconds"] * 1e3}
               for key, r in results.items()}
+    bf16, n8 = 2, 8192
+    bounds = {
+        # Inputs read once, outputs written once, at each kernel's timed shape.
+        "B1": H100.bound(2.0 * n8 ** 3, H100.peak_for("bfloat16"), 3 * n8 * n8 * bf16),
+        "B1 epilogue": H100.bound(2.0 * 8192 * 16384 * 4096, H100.peak_for("bfloat16"),
+                                  (8192 * 4096 + 4096 * 16384 + 8192 * 16384
+                                   + 16384) * bf16),
+        "B2": H100.bound(2.0 * 64 * 512 ** 3, H100.peak_for("bfloat16"),
+                         3 * 64 * 512 * 512 * bf16),
+        "B2 row-softmax": H100.bound(2.0 * 32 * 1024 * 1024 * 128,
+                                     H100.peak_for("bfloat16"),
+                                     (2 * 32 * 1024 * 128 + 32 * 1024 * 1024) * bf16),
+        "B3": H100.bound(2.0 * 4096 ** 3, H100.vpu_ops, 3 * 4096 * 4096 * 4),
+        "B4": slice_gemm_bound(H100, n8, n8, n8, 3, 3),
+        "B5": slice_gemm_bound(H100, 2048, 2048, 2048, 8, 8, n_outputs=2),
+    }
+    b4, b5 = times3["B4 i8x3"], times3["B5 2048"]
     kernels = [
         kernel("mxu_gemm (B1, dense plus_times)",
                "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
-               "gemm_hls_tpu/ops/pallas_mxu.py:69", launches["B1"], slice1["B1"]),
+               "gemm_hls_tpu/ops/pallas_mxu.py:69", launches["B1"], slice1["B1"],
+               bounds["B1"], slice1["B1"]["plain_ms"]),  # the plain version is torch.matmul
         kernel("mxu_gemm with epilogue (B1 fused bias + activation)",
                "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
                "gemm_hls_tpu/ops/pallas_mxu.py:103", launches2["B1 epilogue"],
-               times["B1 epilogue"]),
+               times["B1 epilogue"], bounds["B1 epilogue"], None),
         kernel("mxu_gemm batched (B2, plain and per-column epilogue)",
                "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
                "gemm_hls_tpu/ops/pallas_mxu.py:143", launches2["B2"],
-               times["B2 64x512^3"]),
+               times["B2 64x512^3"], bounds["B2"],
+               times["B2 64x512^3"]["plain_ms"]),  # the plain version is torch.bmm
         kernel("mxu_gemm_row_softmax (B2, row-softmax epilogue)",
                "gemm_hls_tpu_torch/csrc/row_softmax.cu",
                "gemm_hls_tpu/ops/pallas_mxu.py:176", launches2["B2 row-softmax"],
-               times["B2 row-softmax"]),
+               times["B2 row-softmax"], bounds["B2 row-softmax"], None),
         kernel("semiring_gemm (B3, generic semiring)",
                "gemm_hls_tpu_torch/csrc/semiring_gemm.cu",
-               "gemm_hls_tpu/ops/pallas_vpu.py:56", launches["B3"], slice1["B3"]),
+               "gemm_hls_tpu/ops/pallas_vpu.py:56", launches["B3"], slice1["B3"],
+               bounds["B3"], None),
+        kernel("slice_gemm diagonal (B4, fp32 via int8 slices, i8x3 8192^3)",
+               "gemm_hls_tpu_torch/csrc/int8_slices.cu",
+               "gemm_hls_tpu/ops/pallas_ozaki.py:77", launches3["B4"], b4,
+               bounds["B4"], b4["library_ms"]),
+        kernel("slice_gemm hi/lo (B5, f64-class Ozaki, 8 slices 2048^3)",
+               "gemm_hls_tpu_torch/csrc/int8_slices.cu",
+               "gemm_hls_tpu/ops/pallas_ozaki.py:37", launches3["B5"], b5,
+               bounds["B5"], b5["library_ms"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -127,6 +127,12 @@ def _declare(lib):
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     lib.semiring_gemm.restype = i32
     lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, vp]
+    # (a slices, b^T slices, n_used, c, c2, ua, ub, M, N, K, lda, ldb,
+    #  n_diags, flush_steps, vec, stream)
+    ptrs = ctypes.POINTER(vp)
+    lib.slice_gemm.restype = i32
+    lib.slice_gemm.argtypes = [ptrs, ptrs, i32, vp, vp, vp, vp, i32, i32, i32,
+                               i64, i64, i32, i32, i32, vp]
     return lib
 
 

@@ -29,6 +29,38 @@ SMEM_LIMIT_BYTES = 232_448
 #            mxu_gemm.cu, and every semiring in semiring_gemm.cu).
 KERNEL_TILES = {"tc": (128, 128, 32), "simt": (128, 128, 16)}
 
+# Kernels B4 / B5 (csrc/int8_slices.cu), keyed by the most diagonals an
+# instantiation keeps in registers: (block_m, block_n, K step).  Each
+# diagonal is a live int32 accumulator tile, so 2 to 4 diagonals (the
+# i8x2..4 tiers) take a 128 x 64 block tile and up to 9 (the 8-slice Ozaki
+# GEMM, and every B5 launch, which adds its fp32 (hi, lo) pair) a 64 x 32
+# one.
+SLICE_TILES = {2: (128, 64, 64), 3: (128, 64, 64), 4: (128, 64, 64),
+               9: (64, 32, 64)}
+# Row pitch, in bytes, of a K step of the kernel's [row][k] shared-memory
+# slice tiles, and the number of K steps in flight (the cp.async ring).
+SLICE_ROW_PITCH = 80
+SLICE_STAGES = 3
+
+
+def slice_route(n_diags: int, flush: bool = False) -> int:
+    """The ``SLICE_TILES`` key of the instantiation that runs ``n_diags``
+    diagonals: B5 (``flush``) always runs the 9-diagonal one."""
+    if flush:
+        return max(SLICE_TILES)
+    for d in sorted(SLICE_TILES):
+        if n_diags <= d:
+            return d
+    raise ValueError(f"no slice kernel keeps {n_diags} diagonals "
+                     f"(at most {max(SLICE_TILES)})")
+
+
+def slice_smem_bytes(n_used: int, max_diags: int) -> int:
+    """Dynamic shared memory of one B4 / B5 block: the ring of K steps of
+    every used slice's A tile and B^T tile."""
+    bm, bn, _ = SLICE_TILES[max_diags]
+    return SLICE_STAGES * n_used * (bm + bn) * SLICE_ROW_PITCH
+
 # Padded row length, in elements, of one 16-deep K plane of the tensor-core
 # kernel's shared-memory tiles (``TcTraits::LDP`` in csrc/mxu_gemm.cu).
 _TC_PLANE_LD = {2: 24, 1: 32}
@@ -127,8 +159,11 @@ class GemmConfig:
 
     ``precision`` applies to float32 plus_times: "high" and "highest" run
     IEEE fp32 FMA on CUDA cores.  "default" (the TPU's bf16 multi-pass) has
-    no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP A, slice 2:
-    the TF32 decision).  The "i8x*" tiers are not ported yet.
+    no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP A, deferred
+    7: the TF32 decision).  "i8x2" / "i8x3" / "i8x4" run fp32 through 2 / 3
+    / 4 int8 slices per operand on the int8 tensor cores
+    (``ops/int8_slices.py``, kernels B4 / B5): 3 / 6 / 10 int8 products,
+    about 2^-14 / 2^-21 normwise and the fp32 output floor.
     """
 
     dtype: str = "float32"

@@ -27,24 +27,53 @@ class ChipSpec:
     name: str
     peak_flops: Dict[str, float]
     vpu_ops: float                # non-tensor fp32 ops/s
+    hbm_bytes_per_s: float        # device-memory bandwidth
 
     def peak_for(self, dtype) -> float:
         d = str(dtype).removeprefix("torch.")
         return self.peak_flops.get(d, self.peak_flops["float32"])
 
+    def bound(self, ops: float, peak: float, bytes_moved: float):
+        """(seconds, "operations" | "bytes"): the least time the card could
+        take for ``ops`` operations at ``peak`` per second that must move
+        ``bytes_moved`` bytes (each input read once, each output written
+        once), and which of the two sets it."""
+        t_ops, t_bytes = ops / peak, bytes_moved / self.hbm_bytes_per_s
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
 
 H100 = ChipSpec(
     name="h100",
-    # bf16/fp16 989 TFLOP/s, int8 1979 TOP/s, tf32 495 TFLOP/s dense; fp32
-    # outside the tensor cores 67 TFLOP/s (NVIDIA H100 SXM data sheet).
+    # bf16/fp16 989 TFLOP/s, int8 1979 TOP/s, tf32 495 TFLOP/s dense; fp64
+    # on the tensor cores and fp32 outside them 67 TFLOP/s (NVIDIA H100 SXM
+    # data sheet).
     peak_flops={"bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
-                "tfloat32": 495e12, "float32": 67e12},
+                "tfloat32": 495e12, "float32": 67e12, "float64": 67e12},
     # 67e12 counts an FMA as 2 ops: 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz
     # (H100 SXM boost clock).  A (map, reduce) pair costs two instructions
     # without fusion, so the generic-semiring ceiling in 2*M*N*K ops is the
     # same figure.
     vpu_ops=67e12,
+    hbm_bytes_per_s=3.35e12,
 )
+
+
+def slice_passes(n_slices: int, n_diags: int) -> int:
+    """int8 products per output element of the integer-slice schemes: the
+    slice pairs (i, j), i, j < n_slices, on the diagonals i + j < n_diags
+    (bench.py:269-272): 3 / 6 / 10 for i8x2 / i8x3 / i8x4 (n_diags =
+    n_slices), 36 for the 8-slice Ozaki GEMM (8 diagonals)."""
+    return sum(1 for i in range(n_slices) for j in range(n_slices)
+               if i + j < n_diags)
+
+
+def slice_gemm_bound(chip: ChipSpec, m: int, n: int, k: int, n_slices: int,
+                     n_diags: int, n_outputs: int = 1):
+    """Bound of kernels B4 (one fp32 output) and B5 (``n_outputs`` = 2: hi,
+    lo): every slice pair on the int8 tensor cores, the slices read once."""
+    ops = slice_passes(n_slices, n_diags) * 2.0 * m * n * k
+    bytes_moved = n_slices * (m * k + k * n) + 4 * n_outputs * m * n
+    return chip.bound(ops, chip.peak_for("int8"), bytes_moved)
 
 
 def detect_chip() -> ChipSpec:

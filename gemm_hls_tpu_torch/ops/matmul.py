@@ -12,6 +12,11 @@ Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
   bit-packed (the JAX package's ``backend="pallas-vpu"``).
 * ``backend="torch"``            -> the plain PyTorch versions (the JAX
   package's ``backend="xla"``), on any device.
+* ``precision="i8x2"|"i8x3"|"i8x4"`` (float32 plus_times) -> the int8
+  slices (``ops/int8_slices.py``): kernel B4, or B5 past the whole-K bound.
+* min_plus, max_plus, log_plus, max_min, min_max (untransposed) ->
+  :func:`~gemm_hls_tpu_torch.ops.tropical_grad.tropical_matmul`: B3 with
+  subgradients.
 
 Batching follows the JAX front door: N-D operands flatten their identical
 leading dims (or one operand is 2-D and broadcast); a 3-D call runs one
@@ -33,7 +38,7 @@ from gemm_hls_tpu_torch.config import (
     KERNEL_TILES, GemmConfig, default_config, dtype_name, kernel_route,
     round_up, torch_dtype,
 )
-from gemm_hls_tpu_torch.ops import mxu, vpu
+from gemm_hls_tpu_torch.ops import int8_slices, mxu, tropical_grad, vpu
 from gemm_hls_tpu_torch.ops.epilogue import get_epilogue, kernel_code
 from gemm_hls_tpu_torch.ops.semiring import Semiring, get_semiring
 
@@ -225,6 +230,25 @@ def _mxu_with_epilogue(a, b, cfg: GemmConfig, epilogue, ep_operands,
     return _MxuEpilogue.apply(a, b, cfg, ep, epilogue_bwd, *eps)
 
 
+def _i8x(a, b, n_slices: int):
+    """The int8-slice tiers (``ops/int8_slices.py``; kernel B4, or B5 past
+    the whole-K bound).  Batched operands give what the JAX front door's
+    vmap of the 2-D route gives: ulps per row of each example and per
+    column of each example's B.  A 3-D ``a`` against a 2-D ``b`` is one
+    call over B*M rows (per-row ulps are unchanged by the flattening)."""
+    def run(x, y):
+        return int8_slices.fp32_matmul_int8(x, y, block_m=512, block_n=1024,
+                                            block_k=8192, n_slices=n_slices)
+
+    if a.ndim == 2 and b.ndim == 2:
+        return run(a, b)
+    if b.ndim == 2:
+        bsz, m, k = a.shape
+        return run(a.reshape(bsz * m, k), b).reshape(bsz, m, -1)
+    return torch.stack([run(a[z] if a.ndim == 3 else a, b[z])
+                        for z in range(b.shape[0])])
+
+
 # ---------------------------------------------------------------------------
 # Plain backend (backend="torch")
 # ---------------------------------------------------------------------------
@@ -344,7 +368,9 @@ def matmul(
         for every semiring) or "torch" (the plain versions).
       interpret: accepted for the reference's signature; there is no
         interpreter on CUDA, so only None / False are taken.
-      precision: float32 plus_times precision ("default"|"high"|"highest").
+      precision: float32 plus_times precision ("default"|"high"|"highest",
+        or the int8-slice tiers "i8x2"|"i8x3"|"i8x4": float32 operands
+        without transpose flags).
       epilogue: fused output transform (plus_times, default backend): a
         registry name of ``ops/epilogue.py`` ("bias", "bias_relu",
         "bias_sigmoid", "bias_tanh", "col_scale", "scale_bias", "softmax"),
@@ -474,18 +500,26 @@ def matmul(
                                   tuple(epilogue_operands), epilogue_bwd)
     if backend == "torch":
         return _torch_matmul(a, b, config, sr)
-    if sr.is_mxu and config.precision in _I8X:
-        raise NotImplementedError(
-            "precision='i8x*' is not ported yet (ROADMAP A, slice 2: i8x*, "
-            "kernel B4)")
     if backend == "vpu":
         return _vpu_dispatch(a, b, config, sr)
     if sr.name == "or_and" and a.dtype == torch.bool:
         return _or_and_mxu(a, b, config)
+    if sr.is_mxu and config.precision in _I8X:
+        if (config.transpose_a or config.transpose_b
+                or config.dtype != "float32"):
+            raise ValueError("precision='i8x*' requires float32 operands "
+                             "without transpose flags")
+        return _i8x(a, b, int(config.precision[-1])).to(config.tout_dtype)
     if sr.is_mxu:
         return _plus_times(a, b, config)
+    if (sr.name in tropical_grad._SUPPORTED and not config.transpose_a
+            and not config.transpose_b):
+        # Differentiable additive-map path: argmin / argmax subgradients,
+        # or softmax weights for log_plus; the forward is the same B3 launch.
+        return tropical_grad.tropical_matmul(a, b, sr.name, config)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise NotImplementedError(
-            f"gradients of {sr.name} are not ported yet (ROADMAP A, slice 2: "
-            f"tropical gradients)")
+            f"no gradient for semiring {sr.name!r} with these flags, as in the "
+            f"JAX package: gradients run for plus_times and for untransposed "
+            f"{', '.join(tropical_grad._SUPPORTED)}")
     return _vpu_dispatch(a, b, config, sr)

@@ -1,7 +1,9 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
-row-softmax variants) and B3 (2-D and batched) on the card, each against
-its plain PyTorch version; and the gradients of the batched, epilogue,
-``fused_linear`` and ``attention`` paths against plain autograd.
+row-softmax variants), B3 (2-D and batched), B4 and B5 (the integer-slice
+GEMMs) on the card, each against its plain PyTorch version; the gradients
+of the batched, epilogue, ``fused_linear``, ``attention``, i8x and semiring
+paths against plain autograd; the i8x tiers, the Ozaki GEMMs and the graph
+applications against float64 and Floyd-Warshall references.
 
 Every test here needs a CUDA device and skips without one (the kernels
 have no CPU mode).  This file imports neither jax nor ``gemm_hls_tpu``, so
@@ -14,7 +16,9 @@ tropical results; relative 1e-4 for fp32 sums, which the kernel and the
 platform's matmul take in different orders; relative 1e-2 where the output
 is rounded to bf16.  Epilogue and softmax outputs of mixed-sign operands can
 cancel to near zero, so they are held to the same relative tolerance
-scaled by the largest reference magnitude (``_close``).
+scaled by the largest reference magnitude (``_close``).  B4 equals its
+plain version exactly; B5's hi + lo is held to 1e-15 of the largest
+output; the i8x tiers and Ozaki to the JAX tests' normwise bounds.
 """
 
 import numpy as np
@@ -23,7 +27,10 @@ import torch
 
 from gemm_hls_tpu_torch import attention, fused_linear, matmul
 from gemm_hls_tpu_torch.config import ROW_SOFTMAX_MAX_N, default_config
-from gemm_hls_tpu_torch.ops import mxu, vpu
+from gemm_hls_tpu_torch.models import graph
+from gemm_hls_tpu_torch.ops import mxu, ozaki, slice_kernels, vpu
+from gemm_hls_tpu_torch.ops import attention as attention_ops
+from gemm_hls_tpu_torch.ops.int8_slices import fp32_matmul_int8
 from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
 from gemm_hls_tpu_torch.ops.semiring import Semiring, get_semiring
 from gemm_hls_tpu_torch.utils import make_operands
@@ -157,9 +164,11 @@ def test_bool_or_and_routes(cuda, backend):
     assert matmul(ones, ones.T, semiring="or_and", backend=backend).all()
 
 
-@pytest.mark.parametrize("request_", ["float64", "custom", "epilogue", "3d",
-                                      "i8x2", "interpret"])
+@pytest.mark.parametrize("request_", ["float64", "custom", "epilogue",
+                                      "interpret", "flash", "ozaki_distributed"])
 def test_unported_requests_raise(cuda, request_):
+    # The i8x tiers and batched tropical gradients, refused until slice 3,
+    # run below (test_i8x_tiers_on_the_card, test_semiring_gradients_*).
     a = torch.ones(8, 8, device=cuda)
     kw = {}
     if request_ == "float64":
@@ -171,15 +180,15 @@ def test_unported_requests_raise(cuda, request_):
     elif request_ == "epilogue":
         # A Python callable has no compiled functor: refused, never unfused.
         kw["epilogue"] = lambda acc: acc
-    elif request_ == "3d":
-        a = a[None].requires_grad_()  # batched tropical gradients
-        kw["semiring"] = "min_plus"
-    elif request_ == "i8x2":
-        kw["precision"] = "i8x2"
-    else:
+    elif request_ == "interpret":
         kw["interpret"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
-        matmul(a, a.detach() if request_ == "3d" else a, **kw)
+        if request_ == "flash":
+            attention_ops.flash_attention(a[None], a[None], a[None])
+        elif request_ == "ozaki_distributed":
+            ozaki.ozaki_matmul_int8_distributed(np.ones((8, 8)), np.ones((8, 8)), None)
+        else:
+            matmul(a, a, **kw)
 
 
 # ---- B1's epilogue and B2 --------------------------------------------------
@@ -467,3 +476,222 @@ def test_attention_and_gradient_match_plain(cuda, s_k):
     assert fused == (1 if s_k <= ROW_SOFTMAX_MAX_N else 0)
     for g, r in zip(_grads(attention, q, k, v), _grads(plain, q, k, v)):
         _close(g, r, 1e-4)
+
+
+# ---- B4 / B5: the integer-slice kernels (slice 3) --------------------------
+
+SLICE_SHAPES = [(1, 1, 1), (65, 140, 131), (33, 129, 4097)]
+
+
+def _int8_slices(n, rows, cols, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-127, 128, (n, rows, cols), generator=gen,
+                         device=device, dtype=torch.int8)
+
+
+def _ulp_pair(m, n, device):
+    gen = torch.Generator(device=device).manual_seed(9)
+    return (torch.exp2(torch.randint(-9, 3, (m, 1), generator=gen, device=device).float()),
+            torch.exp2(torch.randint(-9, 3, (1, n), generator=gen, device=device).float()))
+
+
+@pytest.mark.parametrize("n_slices", [2, 3, 4, 8])
+@pytest.mark.parametrize("form", ["stacked", "split", "kmajor"])
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("mnk", SLICE_SHAPES)
+def test_b4_equals_plain(cuda, n_slices, form, scaled, mnk):
+    # Every int32 diagonal is exact and the fp32 combine runs in the plain
+    # version's order, so the kernel's output is bit-identical.  "kmajor":
+    # B's slices as views of (N, K) storage, read without a copy.
+    m, n, k = mnk
+    sa, sb = _int8_slices(n_slices, m, k, cuda, 1), _int8_slices(n_slices, k, n, cuda, 2)
+    ulps = _ulp_pair(m, n, cuda) if scaled else ()
+    xa, xb = {"stacked": (sa, sb), "split": (tuple(sa), tuple(sb)),
+              "kmajor": (tuple(sa), tuple(sb.transpose(1, 2).contiguous().transpose(1, 2)))}[form]
+    before = slice_kernels.fused_int8_fp32.launches
+    got = slice_kernels.fused_int8_fp32(xa, xb, *ulps)
+    assert slice_kernels.fused_int8_fp32.launches == before + 1
+    ref = slice_kernels.fused_int8_fp32_plain(list(sa), list(sb), *ulps)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n_slices", [2, 3, 4, 8])
+@pytest.mark.parametrize("extra_diag", [0, 1])
+@pytest.mark.parametrize("block_k", [64, 2048])
+@pytest.mark.parametrize("mnk", SLICE_SHAPES)
+def test_b5_matches_plain(cuda, n_slices, extra_diag, block_k, mnk):
+    m, n, k = mnk
+    sa, sb = _int8_slices(n_slices, m, k, cuda, 3), _int8_slices(n_slices, k, n, cuda, 4)
+    kw = dict(block_k=block_k, n_diags=n_slices + extra_diag)
+    before = slice_kernels.fused_ozaki_int8.launches
+    hi, lo = slice_kernels.fused_ozaki_int8(tuple(sa), tuple(sb), **kw)
+    assert slice_kernels.fused_ozaki_int8.launches == before + 1
+    rhi, rlo = slice_kernels.fused_ozaki_int8_plain(list(sa), list(sb), **kw)
+    got, ref = hi.double() + lo.double(), rhi.double() + rlo.double()
+    assert float((got - ref).abs().max()) <= 1e-15 * max(float(ref.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("case", ["whole_k", "block_k", "diagonals", "devices"])
+def test_slice_kernel_refusals_on_the_card(cuda, case):
+    sa, sb = _int8_slices(3, 8, 64, cuda, 5), _int8_slices(3, 64, 16, cuda, 6)
+    calls = {
+        "whole_k": (lambda: slice_kernels.fused_int8_fp32(
+            _int8_slices(3, 8, 44400, cuda, 7), _int8_slices(3, 44400, 16, cuda, 8)),
+            ValueError, "whole-K"),
+        "block_k": (lambda: slice_kernels.fused_ozaki_int8(sa, sb, block_k=45056),
+                    ValueError, "too large"),
+        "diagonals": (lambda: slice_kernels.fused_ozaki_int8(
+            _int8_slices(9, 8, 64, cuda, 7), _int8_slices(9, 64, 16, cuda, 8),
+            n_diags=10), NotImplementedError, "at most"),
+        "devices": (lambda: slice_kernels.fused_int8_fp32(sa, sb.cpu()),
+                    ValueError, "on"),
+    }
+    fn, exc, match = calls[case]
+    with pytest.raises(exc, match=match):
+        fn()
+
+
+def _normwise(got, a, b):
+    a64, b64 = a.double(), b.double()
+    scale = torch.outer(a64.norm(dim=1), b64.norm(dim=0))
+    return float(((got.double() - a64 @ b64).abs() / scale).max())
+
+
+@pytest.mark.parametrize("precision,bound", [("i8x2", 3e-4), ("i8x3", 2e-6),
+                                             ("i8x4", 2e-7)])
+@pytest.mark.parametrize("mnk,route", [((1024, 1000, 1100), "B4"),
+                                       ((16, 128, 44000), "B5")])
+def test_i8x_tiers_on_the_card(cuda, precision, bound, mnk, route):
+    m, n, k = mnk
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.rand((m, k), generator=gen, device=cuda) * 10 - 5
+    b = torch.rand((k, n), generator=gen, device=cuda) * 10 - 5
+    b4, b5 = (slice_kernels.fused_int8_fp32.launches,
+              slice_kernels.fused_ozaki_int8.launches)
+    out = matmul(a, b, precision=precision)
+    # The whole-K bound depends on the slice count: 2 slices keep B4 at
+    # K = 44000.
+    b5_route = route == "B5" and precision != "i8x2"
+    assert slice_kernels.fused_int8_fp32.launches == b4 + (0 if b5_route else 1)
+    assert slice_kernels.fused_ozaki_int8.launches == b5 + (1 if b5_route else 0)
+    assert _normwise(out, a, b) < bound
+
+
+def test_i8x_gradient_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = (torch.rand((300, 500), generator=gen, device=cuda) * 4 - 2).requires_grad_()
+    y = (torch.rand((500, 200), generator=gen, device=cuda) * 4 - 2).requires_grad_()
+    g = torch.rand((300, 200), generator=gen, device=cuda) * 2 - 1
+    fp32_matmul_int8(x, y, n_slices=3).backward(g)
+    assert _normwise(x.grad, g, y.detach().T) < 2e-6
+    assert _normwise(y.grad, x.detach().T, g) < 2e-6
+
+
+@pytest.mark.parametrize("split", ["auto", "host", "device"])
+def test_ozaki_int8_on_the_card(cuda, split):
+    rng = np.random.default_rng(13)
+    a, b = rng.uniform(-5, 5, (300, 700)), rng.uniform(-5, 5, (700, 200))
+    before = slice_kernels.fused_ozaki_int8.launches
+    got = ozaki.ozaki_matmul_int8(a, b, split=split)
+    assert slice_kernels.fused_ozaki_int8.launches == before + 1
+    err = _normwise(torch.from_numpy(got), torch.from_numpy(a), torch.from_numpy(b))
+    assert err < (1e-12 if split == "device" else 1e-13)
+
+
+def test_ozaki_auto_split_equals_host_on_the_card(cuda):
+    # On CUDA, split="auto" runs the float64 split on the card: the same
+    # slices as the host's numpy split, so the same result.
+    rng = np.random.default_rng(14)
+    a, b = rng.uniform(-5, 5, (64, 300)), rng.uniform(-5, 5, (300, 48))
+    assert np.array_equal(ozaki.ozaki_matmul_int8(a, b, split="auto"),
+                          ozaki.ozaki_matmul_int8(a, b, split="host"))
+
+
+def test_ozaki_bf16_on_the_card(cuda):
+    rng = np.random.default_rng(15)
+    a, b = rng.uniform(-5, 5, (128, 256)), rng.uniform(-5, 5, (256, 96))
+    before = mxu.mxu_matmul.launches
+    got = ozaki.ozaki_matmul(a, b)  # float64 sums on the card
+    assert mxu.mxu_matmul.launches > before
+    assert _normwise(torch.from_numpy(got), torch.from_numpy(a),
+                     torch.from_numpy(b)) < 1e-15
+    # The JAX package's float-float sum: B1's partials are exact and the
+    # TwoSums run as separate IEEE ops, so the card equals the CPU bit for bit.
+    bits, n = ozaki.slice_plan(256)
+    cfg = default_config("bfloat16", out_dtype="float32")
+    sums = []
+    for dev in (cuda, "cpu"):
+        sa = ozaki.device_split_f64(torch.from_numpy(a).to(dev), bits, n, 1)
+        sb = ozaki.device_split_f64(torch.from_numpy(b).to(dev), bits, n, 0)
+        hi, lo = ozaki.device_accumulate(sa.bfloat16(), sb.bfloat16(), config=cfg)
+        sums.append((hi.cpu(), lo.cpu()))
+    assert all(torch.equal(x, y) for x, y in zip(*sums))
+
+
+def _dense_semiring(name, x, y):
+    x3, y3 = x[:, :, None], y[None, :, :]
+    if name == "log_plus":
+        return torch.logsumexp(x3 + y3, dim=1)
+    if name == "max_min":
+        return torch.minimum(x3, y3).amax(1)
+    if name == "min_max":
+        return torch.maximum(x3, y3).amin(1)
+    return (x3 + y3).amin(1) if name == "min_plus" else (x3 + y3).amax(1)
+
+
+@pytest.mark.parametrize("name", ["min_plus", "max_plus", "log_plus", "max_min",
+                                  "min_max"])
+@pytest.mark.parametrize("data", ["continuous", "integer_ties"])
+def test_semiring_gradients_match_plain_autograd(cuda, name, data):
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    if data == "continuous":
+        a = torch.rand((130, 257), generator=gen, device=cuda) * 4 - 2
+        b = torch.rand((257, 77), generator=gen, device=cuda) * 4 - 2
+    else:
+        a = torch.randint(0, 5, (130, 257), generator=gen, device=cuda).float()
+        b = torch.randint(0, 5, (257, 77), generator=gen, device=cuda).float()
+    g = torch.rand((130, 77), generator=gen, device=cuda) * 2 - 1
+    got = _grads(lambda x, y: matmul(x, y, semiring=name) * g, a, b)
+    ref = _grads(lambda x, y: _dense_semiring(name, x, y) * g, a, b)
+    for u, r in zip(got, ref):
+        _close(u, r, 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["3d_x_3d", "3d_x_2d", "2d_x_3d"])
+def test_batched_semiring_gradients_on_the_card(cuda, layout):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    a = torch.randint(0, 6, (3, 40, 70), generator=gen, device=cuda).float()
+    b = torch.randint(0, 6, (3, 70, 50), generator=gen, device=cuda).float()
+    a = a[0] if layout == "2d_x_3d" else a
+    b = b[0] if layout == "3d_x_2d" else b
+
+    def plain(x, y):
+        x3 = x if x.ndim == 3 else x.expand(3, -1, -1)
+        y3 = y if y.ndim == 3 else y.expand(3, -1, -1)
+        return torch.stack([_dense_semiring("min_plus", u, v) for u, v in zip(x3, y3)])
+
+    for u, r in zip(_grads(lambda x, y: matmul(x, y, semiring="min_plus"), a, b),
+                    _grads(plain, a, b)):
+        _close(u, r, 1e-5)
+
+
+def test_graph_applications_on_the_card(cuda):
+    n = 300
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    w = torch.randint(1, 10, (n, n), generator=gen, device=cuda).float()
+    keep = torch.rand((n, n), generator=gen, device=cuda) < 4.0 / n
+    adj = torch.where(keep, w, float("inf"))
+    d = adj.clone()
+    d.fill_diagonal_(0.0)
+    for k in range(n):
+        d = torch.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+    assert torch.equal(graph.all_pairs_shortest_paths(adj), d)
+    assert torch.equal(graph.transitive_closure(keep), torch.isfinite(d))
+    cap = torch.where(keep, w, 0.0)
+    c = cap.clone()
+    c.fill_diagonal_(float("inf"))
+    for k in range(n):
+        c = torch.maximum(c, torch.minimum(c[:, k:k + 1], c[k:k + 1, :]))
+    assert torch.equal(graph.widest_paths(cap), c)
+    rank = graph.pagerank(keep.float(), iters=30)
+    assert torch.isclose(rank.sum(), torch.tensor(1.0, device=cuda), rtol=1e-5)

@@ -167,30 +167,31 @@ def test_errors_match_reference(case, match):
         jax_matmul(jnp.asarray(a), jnp.asarray(b), **kw)
 
 
-@pytest.mark.parametrize("request_", ["epilogue", "3d", "i8x3", "interpret",
-                                      "tropical_grad"])
+@pytest.mark.parametrize("request_", ["epilogue", "interpret", "flash",
+                                      "ozaki_distributed"])
 def test_unported_requests_name_roadmap(request_):
+    # The i8x tiers and the (batched) tropical gradients, refused here until
+    # slice 3, are held against the JAX package in test_torch_int8_slices.py
+    # and test_torch_graph.py.
+    from gemm_hls_tpu_torch.ops import attention, ozaki
+
     a = torch.ones(8, 8)
-    kw = {}
     if request_ == "epilogue":
         # A callable epilogue off the CPU (here on the meta device; on CUDA
         # alike) has no compiled functor.
         a = a.to("meta")
-        kw = dict(epilogue=lambda acc, bias: acc + bias,
-                  epilogue_operands=(torch.ones(8, device="meta"),))
-    elif request_ == "3d":
-        # Batched calls are ported; batched tropical gradients are not.
-        a = a[None].requires_grad_()
-        kw = dict(semiring="min_plus")
-    elif request_ == "i8x3":
-        kw = dict(precision="i8x3")
+        call = lambda: matmul(a, torch.ones(8, 8, device="meta"),  # noqa: E731
+                              epilogue=lambda acc, bias: acc + bias,
+                              epilogue_operands=(torch.ones(8, device="meta"),))
     elif request_ == "interpret":
-        kw = dict(interpret=True)
+        call = lambda: matmul(a, a, interpret=True)  # noqa: E731
+    elif request_ == "flash":
+        call = lambda: attention.flash_attention(a[None], a[None], a[None])  # noqa: E731
     else:
-        a = a.requires_grad_()
-        kw = dict(semiring="min_plus")
+        call = lambda: ozaki.ozaki_matmul_int8_distributed(a.numpy(), a.numpy(),  # noqa: E731
+                                                           None)
     with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
-        matmul(a, torch.ones(8, 8, device=a.device), **kw)
+        call()
 
 
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
