@@ -49,7 +49,29 @@ Phases, each printed as it ends:
      gradients at 1024^3;
  12. times of B4 (i8x2/3/4 at 8192^3) and B5 (8 slices at 2048^3 and
      8192^3) beside their plain versions and the library product
-     (``torch.matmul`` fp32 / float64), and of the end-to-end calls.
+     (``torch.matmul`` fp32 / float64), and of the end-to-end calls;
+ 13. the flash kernels (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``:
+     TPU kernels B6-B12) against their plain versions: bf16, fp16, fp32; D
+     16, 36, 40, 64, 128; unaligned S_q and S_kv, S_q = 1; full, causal,
+     causal + window, the soft cap; kv_lengths (3-D and 4-D, staggered;
+     with the cache slots past each length NaN in K and +inf in V), segment
+     ids (packed, 4-D GQA), offsets (and a fully-future shard); GQA groups
+     1, 4 and 8; 70000 heads (launched in chunks); lse; dq, dk, dv against
+     the plain backward; fp32 gradients against float64 autograd of a
+     dense reference; refusals;
+ 14. slice 4's main path at full width, launch counts set to 0 before it
+     and read after: ``flash_attention`` at (32, 1024, 128) bf16 full and
+     causal and causal (8, 8192, 128); GQA causal prefill at the serving
+     configuration (B 4, S 1024, H_q 16, H_kv 4, D 128, 4-D layout);
+     padded-cache decode, 64 sequences x 4096 slots, 8 steps each writing
+     K / V at the sequence ends, through the 4-D decode fast path; one
+     training step's gradient through ``flash_attention(causal=True)`` at
+     (32, 1024, 128) bf16;
+ 15. times of the three flash kernels beside their plain versions, their
+     bounds and ``scaled_dot_product_attention`` (its forward beside
+     flash_fwd; its backward, which yields dq, dk and dv in one call, beside
+     the sum of flash_bwd_dq and flash_bwd_dkv, on flash_bwd_dkv's entry of
+     the kernels line), and of phase 14's end-to-end calls.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -70,6 +92,13 @@ Tolerances (kernel vs plain version on the same inputs, on the card):
   relative error is taken against |ref| + max|ref| ("scaled").  The
   trainers' losses: relative 1e-2 per step in bf16, 1e-3 in fp32.  The
   plain fp32 matmul runs without TF32.
+
+Slice 4's checks: each flash kernel against its plain version on the same
+card operands (relative 1e-2 scaled for bf16 / fp16 outputs, 1e-4 for
+fp32; lse 1e-4, -inf on the same rows; outputs finite where stale cache
+slots hold NaN / inf); the 4-D front door against the plain version on CPU
+copies; fp32 gradients within 1e-4 (scaled) of float64 autograd.  The case
+tables of phase 13 are also the card tests' (``tests/test_torch_kernels.py``).
 
 Any mismatch or exception ends the run with a non-zero exit.  The last
 three lines are the card's name and power limit, one JSON line on the
@@ -1295,6 +1324,497 @@ def phase_times3(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: flash attention, kernels flash_fwd, flash_bwd_dq, flash_bwd_dkv
+# (TPU kernels B6-B12)
+# ---------------------------------------------------------------------------
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def flash_counters():
+    from gemm_hls_tpu_torch.ops import flash
+    return {"flash_fwd": flash.flash_mha.launches,
+            "flash_bwd_dq": flash.flash_mha_bwd_dq.launches,
+            "flash_bwd_dkv": flash.flash_mha_bwd_dkv.launches}
+
+
+def reset_flash_counters():
+    from gemm_hls_tpu_torch.ops import flash
+    flash.flash_mha.launches = 0
+    flash.flash_mha_bwd_dq.launches = 0
+    flash.flash_mha_bwd_dkv.launches = 0
+
+
+def flash_rtol(torch, dtype):
+    return F32_RTOL if dtype == torch.float32 else BF16_RTOL
+
+
+def flash_plain_fwd(torch, q, k, v, **kw):
+    """The plain forward on the card, for 3-D or 4-D operands; (o in q's
+    layout, lse (B, S_q))."""
+    from gemm_hls_tpu_torch.ops import flash
+    o, lse = flash.flash_fwd_plain(flash._pack(q), flash._pack(k),
+                                   flash._pack(v), **kw)
+    return flash._unpack(o, q), lse
+
+
+# Phase 13's case tables, which tests/test_torch_kernels.py parametrises
+# too (one table, two runners).  A kernel case is (dtype, heads, kv heads,
+# S_q, S_kv, D, options); integer options are lists.  "nan_pad" fills the
+# kv slots at or past each length with NaN (K) and +inf (V): a padded
+# cache's stale slots, which no output may see.
+_SEG = [0] * 90 + [1] * 120 + [2] * 90  # three packed segments of 300 rows
+_DT = ("bfloat16", "float16", "float32")
+FLASH_CASES = (
+    # dtypes x head dims, full attention, unaligned S_q and S_kv (D = 36:
+    # rows not 16-byte aligned, the element loader instead of cp.async).
+    [(dt, 4, 4, 200, 333, d, {}) for dt in _DT for d in (16, 36, 40, 64, 128)]
+    # causal, causal + window, the soft cap, S_q = 1, S_q < S_kv
+    + [(dt, bh, bh, s_q, s_kv, d, kw)
+       for dt, d in zip(_DT, (128, 64, 40))
+       for bh, s_q, s_kv, kw in (
+           (3, 333, 333, {"causal": True}),
+           (3, 333, 333, {"causal": True, "window": 100}),
+           (2, 150, 150, {"logit_cap": 5.0, "scale": 0.5}),
+           (2, 150, 200, {"causal": True, "window": 70, "logit_cap": 3.0}),
+           (6, 1, 517, {}),
+           (2, 77, 300, {"causal": True}))]
+    # More heads than the grid's 65535: every kernel launches in chunks.
+    + [("bfloat16", 70000, 70000, 3, 5, 16, {})]
+    # GQA groups 1, 4, 8 (MQA), causal, with the backward's group fold
+    + [(dt, 8, bh_kv, s, s, d, {"causal": True}) for bh_kv in (8, 2, 1)
+       for dt, s, d in (("bfloat16", 256, 128), ("float32", 96, 64))]
+    # kv_lengths (3-D, staggered), plain and decode-anchored causal, with
+    # and without stale slots
+    + [(dt, 8, 4, 3, 700, d, {"kv_lengths": [700, 1, 333, 64],
+                               "causal": causal, "nan_pad": pad})
+       for dt, d in (("bfloat16", 128), ("float32", 64))
+       for causal in (False, True) for pad in (False, True)]
+    # segment ids, packed (causal training) and per GQA head
+    + [case for dt in ("bfloat16", "float32") for case in (
+        (dt, 2, 2, 300, 300, 64, {"causal": True, "q_seg": [_SEG] * 2,
+                                  "kv_seg": [_SEG] * 2}),
+        (dt, 4, 2, 300, 300, 128, {"q_seg": [_SEG] * 4, "kv_seg": [_SEG] * 2}))]
+    # offsets: a later q shard against an earlier kv shard, with a window
+    + [(dt, 2, 2, 200, 200, 64, {"causal": True, "window": 250,
+                                 "offsets": [200, 0]})
+       for dt in ("bfloat16", "float32")]
+)
+# The front door's 4-D layouts, each in bf16 and fp32 (read in place):
+# GQA prefill, kv lengths per batch element (with stale slots), segment ids
+# over GQA heads, the decode fast path.  shape: (batch, S_q, H_q, H_kv, D).
+FLASH_4D = [
+    {"shape": (2, 130, 8, 2, 64), "causal": True},
+    {"shape": (3, 5, 4, 2, 128), "causal": True, "kv_lengths": [300, 17, 150],
+     "s_kv": 300},
+    {"shape": (3, 5, 4, 2, 64), "kv_lengths": [300, 17, 150], "s_kv": 300,
+     "nan_pad": True},
+    {"shape": (2, 120, 4, 2, 64), "seg": True},
+    {"shape": (4, 1, 16, 4, 128), "causal": True,
+     "kv_lengths": [1000, 1, 513, 999], "s_kv": 1000},
+    {"shape": (4, 1, 16, 4, 128), "causal": True,
+     "kv_lengths": [1000, 1, 513, 999], "s_kv": 1000, "nan_pad": True},
+    {"shape": (2, 1, 8, 1, 64), "s_kv": 257},
+]
+# fp32 kernel gradients against float64 autograd: (heads, S, D, causal).
+FLASH_GRAD_CASES = [(2, 70, 40, False), (3, 129, 64, True)]
+FLASH_REFUSALS = ("head_dim", "interpret")
+
+
+def stale_slots(k, v, lens):
+    """Fill the kv slots at or past each sequence's length with NaN (K) and
+    +inf (V); sequence i is k[i] of a 3-D (B_kv, S, D) or a 4-D (batch, S,
+    H, D) cache."""
+    for i, n in enumerate(lens):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("inf")
+
+
+def flash_case(torch, gen, case):
+    """One kernel case of FLASH_CASES against the plain versions on the
+    card: o and lse of flash_fwd, then (unless kv lengths are given) dq of
+    flash_bwd_dq and dk, dv of flash_bwd_dkv on the plain forward's o, lse
+    and delta.  Returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    dt, bh, bh_kv, s_q, s_kv, d, kw = case
+    dtype, kw = getattr(torch, dt), dict(kw)
+    q = signed(torch, (bh, s_q, d), dtype, gen)
+    k = signed(torch, (bh_kv, s_kv, d), dtype, gen)
+    v = signed(torch, (bh_kv, s_kv, d), dtype, gen)
+    if kw.pop("nan_pad", False):
+        stale_slots(k, v, kw["kv_lengths"])
+    scale = kw.pop("scale", d ** -0.5)
+    ints = [flash._ints(kw.pop(n, None), q.device)
+            for n in ("kv_lengths", "q_seg", "kv_seg", "offsets")]
+    rtol, what = flash_rtol(torch, dtype), f"flash {case}"
+    o, lse = flash._forward(q, k, v, *ints, kw.get("causal", False),
+                            kw.get("window"), kw.get("logit_cap"), scale, 512)
+    ro, rlse = flash.flash_fwd_plain(q, k, v, *ints, scale=scale, **kw)
+    err = compare(torch, o, ro, rtol, what + " o", scaled=True)[0]
+    if not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    compare(torch, lse, rlse, F32_RTOL, what + " lse", scaled=True)
+    if ints[0] is not None:
+        return err
+    do = signed(torch, (bh, s_q, d), dtype, gen)
+    delta = (do.float() * ro.float()).sum(-1)
+    bargs = (q, k, v, do, rlse, delta, *ints[1:])
+    bkw = dict(causal=kw.get("causal", False), window=kw.get("window"),
+               logit_cap=kw.get("logit_cap"), scale=scale)
+    dq = flash._backward(*bargs, block_q=512, which="dq", **bkw)
+    dk, dv = flash._backward(*bargs, block_q=512, which="dkv", **bkw)
+    rdq = flash.flash_bwd_dq_plain(*bargs, **bkw)
+    rdk, rdv = flash.flash_bwd_dkv_plain(*bargs, **bkw)
+    for name, g, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        err = max(err, compare(torch, g, r, rtol, f"{what} {name}", scaled=True)[0])
+    return err
+
+
+def flash_4d_case(torch, gen, case, dt):
+    """One FLASH_4D case in dtype ``dt``: the front door on the card (one
+    flash_fwd launch) against the plain version on CPU copies."""
+    from gemm_hls_tpu_torch import flash_attention
+    from gemm_hls_tpu_torch.ops import flash
+
+    dtype = getattr(torch, dt)
+    nb, s_q, hq, hkv, d = case["shape"]
+    s_kv = case.get("s_kv", s_q)
+    q = signed(torch, (nb, s_q, hq, d), dtype, gen)
+    k = signed(torch, (nb, s_kv, hkv, d), dtype, gen)
+    v = signed(torch, (nb, s_kv, hkv, d), dtype, gen)
+    if case.get("nan_pad"):
+        stale_slots(k, v, case["kv_lengths"])
+    kw = {x: case[x] for x in ("causal", "kv_lengths") if x in case}
+    if case.get("seg"):
+        sg = torch.zeros((nb, s_q), dtype=torch.int32)
+        sg[:, s_q // 3:] = 1
+        kw.update(q_segment_ids=sg, kv_segment_ids=sg)
+    before = flash.flash_mha.launches
+    got = flash_attention(q, k, v, **kw)
+    if flash.flash_mha.launches != before + 1:
+        raise AssertionError(f"4-D flash_attention {case}: no flash_fwd launch")
+    ref = flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"4-D flash_attention {case} {dt}: non-finite output")
+    return compare(torch, got.cpu(), ref, flash_rtol(torch, dtype),
+                   f"4-D flash_attention {case} {dt}", scaled=True)[0]
+
+
+def flash_future_shard(torch, gen, dt):
+    """Offsets that put every kv row in the q shard's future: o = 0 and
+    lse = -inf on every row."""
+    from gemm_hls_tpu_torch.ops import flash
+    q = signed(torch, (2, 100, 64), getattr(torch, dt), gen)
+    o, lse = flash.flash_mha(q, q, q, offsets=[0, 100], causal=True,
+                             save_lse=True)
+    if bool(o.float().abs().max() != 0) or not bool(torch.isneginf(lse).all()):
+        raise AssertionError(f"fully-future shard {dt}: o != 0 or lse != -inf")
+
+
+def flash_grad_case(torch, gen, case):
+    """fp32 kernel gradients (one dq and one dkv launch) against float64
+    autograd of an independent dense reference."""
+    from gemm_hls_tpu_torch import flash_attention
+    from gemm_hls_tpu_torch.ops import flash
+
+    bh, s, d, causal = case
+    qkv = [signed(torch, (bh, s, d), torch.float32, gen) for _ in range(3)]
+    before = (flash.flash_mha_bwd_dq.launches, flash.flash_mha_bwd_dkv.launches)
+    got = grads(torch, lambda a, b, c: flash_attention(a, b, c, causal=causal),
+                qkv, torch.Generator(device="cuda").manual_seed(9))
+    if (flash.flash_mha_bwd_dq.launches,
+            flash.flash_mha_bwd_dkv.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"fp32 gradient {case}: backward kernels not launched")
+    ref = grads(torch, lambda a, b, c: dense_attention(
+                    torch, a, b, c, d ** -0.5, causal).float(),
+                qkv, torch.Generator(device="cuda").manual_seed(9))
+    for name, g, r in zip("qkv", got, ref):
+        compare(torch, g, r, F32_RTOL, f"fp32 d{name} {case} vs float64 autograd",
+                scaled=True)
+
+
+def flash_refusal(torch, what):
+    """What no kernel takes is refused on the card, never run another way."""
+    from gemm_hls_tpu_torch import flash_attention
+    x = torch.zeros((2, 16, 160 if what == "head_dim" else 64), device="cuda",
+                    dtype=torch.bfloat16)
+    try:
+        flash_attention(x, x, x, interpret=what == "interpret")
+    except NotImplementedError:
+        return
+    raise AssertionError(f"flash_attention took {what} on the card")
+
+
+def dense_attention(torch, q, k, v, scale, causal=False):
+    """Independent float64 reference for the gradcheck-style cases."""
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                     device=s.device).triu(1), float("-inf"))
+    return torch.softmax(s, -1) @ v.double()
+
+
+def phase_flash_kernels(torch):
+    """Phase 13: each flash kernel against its plain version on the card,
+    over the case tables above."""
+    gen = torch.Generator(device="cuda").manual_seed(131)
+    for case in FLASH_CASES:
+        flash_case(torch, gen, case)
+    for case in FLASH_4D:
+        for dt in ("bfloat16", "float32"):
+            flash_4d_case(torch, gen, case, dt)
+    for dt in ("bfloat16", "float32"):
+        flash_future_shard(torch, gen, dt)
+    for case in FLASH_GRAD_CASES:
+        flash_grad_case(torch, gen, case)
+    for what in FLASH_REFUSALS:
+        flash_refusal(torch, what)
+    torch.cuda.synchronize()
+    n = (len(FLASH_CASES) + 2 * len(FLASH_4D) + 2 + len(FLASH_GRAD_CASES)
+         + len(FLASH_REFUSALS))
+    log(f"phase 13: flash kernels vs plain, {n} cases (bf16 / fp16 / fp32, D "
+        f"16-128, unaligned, S_q = 1, causal, window, cap, kv_lengths with and "
+        f"without stale NaN / inf slots, segment ids, offsets, GQA 1/4/8, 4-D "
+        f"layouts, decode fast path, fp32 grads vs float64 autograd, "
+        f"refusals): ok")
+
+
+def decode_cache(torch, gen, nb=64, slots=4096, hkv=4, d=128, steps=8):
+    """The padded decode cache of experiments/serving_bench.py: (nb, slots,
+    H_kv, D) bf16 K and V, per-sequence lengths drawn from
+    [slots / 2, slots - steps - 1); the slots past each length are stale
+    (NaN in K, +inf in V, as an unwritten cache may hold)."""
+    import numpy as np
+    kc = (torch.randn((nb, slots, hkv, d), generator=gen, device="cuda")
+          * 0.3).to(torch.bfloat16)
+    vc = (torch.randn((nb, slots, hkv, d), generator=gen, device="cuda")
+          * 0.3).to(torch.bfloat16)
+    rng = np.random.default_rng(161)
+    lens = rng.integers(slots // 2, slots - steps - 1, nb)
+    stale_slots(kc, vc, lens)
+    return kc, vc, torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def decode_step(torch, q, kn, vn, kc, vc, lens):
+    """One decode step: write the new K / V at each sequence's end, then
+    attend through the front door's decode fast path."""
+    from gemm_hls_tpu_torch import flash_attention
+    rows = torch.arange(kc.shape[0], device="cuda")
+    kc[rows, lens.long()] = kn[:, 0]
+    vc[rows, lens.long()] = vn[:, 0]
+    lens += 1
+    return flash_attention(q, kc, vc, causal=True, kv_lengths=lens)
+
+
+def phase_slice4(torch):
+    """Phase 14: slice 4's main path at full width, counts zeroed before."""
+    from gemm_hls_tpu_torch import flash_attention
+    from gemm_hls_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(141)
+    bf16 = torch.bfloat16
+    reset_flash_counters()
+    res = {}
+    # (32, 1024, 128) full and causal (bench.py:313), causal (8, 8192, 128)
+    for key, (bh, s, d), causal in (("full 32x1024", (32, 1024, 128), False),
+                                    ("causal 32x1024", (32, 1024, 128), True),
+                                    ("causal 8x8192", (8, 8192, 128), True)):
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda",
+                               dtype=bf16) for _ in range(3))
+        out = flash_attention(q, k, v, causal=causal)
+        ref = flash_plain_fwd(torch, q, k, v, causal=causal, scale=d ** -0.5)[0]
+        err = compare(torch, out, ref, BF16_RTOL, key, scaled=True)
+        res[key] = err[0]
+        log(f"phase 14a: flash_attention {key} ({bh}, {s}, {d}) bf16 "
+            f"{'causal' if causal else 'full'}: max abs err {err[0]:.3e}, "
+            f"scaled rel {err[1]:.3e}")
+        del q, k, v, out, ref
+    # GQA causal prefill at the serving configuration
+    # (experiments/serving_bench.py:29-31), 4-D layout read in place.
+    nb, s, hq, hkv, d = 4, 1024, 16, 4, 128
+    q = torch.randn((nb, s, hq, d), generator=gen, device="cuda", dtype=bf16)
+    k, v = (torch.randn((nb, s, hkv, d), generator=gen, device="cuda",
+                        dtype=bf16) for _ in range(2))
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_plain_fwd(torch, q, k, v, causal=True, scale=d ** -0.5)[0]
+    err = compare(torch, out, ref, BF16_RTOL, "GQA prefill", scaled=True)
+    res["gqa prefill"] = err[0]
+    log(f"phase 14b: GQA causal prefill (B={nb}, S={s}, H_q={hq}, H_kv={hkv}, "
+        f"D={d}) bf16: max abs err {err[0]:.3e}, scaled rel {err[1]:.3e}")
+    del q, k, v, out, ref
+    # Padded-cache decode, 8 steps (experiments/serving_bench.py:150-161).
+    kc, vc, lens = decode_cache(torch, gen)
+    worst = 0.0
+    for step in range(8):
+        qd = torch.randn((64, 1, 16, 128), generator=gen, device="cuda", dtype=bf16)
+        kn, vn = (torch.randn((64, 1, 4, 128), generator=gen, device="cuda",
+                              dtype=bf16) for _ in range(2))
+        out = decode_step(torch, qd, kn, vn, kc, vc, lens)
+        if out.shape != qd.shape:
+            raise AssertionError(f"decode step {step}: shape {out.shape}")
+        ref = flash.flash_fwd_plain(
+            qd.reshape(64 * 4, 4, 128), flash._pack(kc), flash._pack(vc),
+            lens.repeat_interleave(4), scale=128 ** -0.5)[0]
+        worst = max(worst, compare(torch, out.reshape(256, 4, 128), ref,
+                                   BF16_RTOL, f"decode step {step}",
+                                   scaled=True)[0])
+    res["decode"] = worst
+    log(f"phase 14c: padded-cache decode, 64 sequences x 4096 slots, H_q 16, "
+        f"H_kv 4, D 128, 8 steps through the 4-D decode fast path: lengths now "
+        f"{int(lens.min())}-{int(lens.max())}, max abs err {worst:.3e}")
+    del kc, vc
+    # One training step's gradient through flash_attention(causal=True).
+    bh, s, d = 32, 1024, 128
+    xs = [torch.randn((bh, s, d), generator=gen, device="cuda", dtype=bf16)
+          .requires_grad_() for _ in range(3)]
+    w = torch.randn((bh, s, d), generator=gen, device="cuda", dtype=bf16)
+    (flash_attention(*xs, causal=True).float() * w.float()).sum().backward()
+    q, k, v = (x.detach() for x in xs)
+    ro, rlse = flash.flash_fwd_plain(q, k, v, causal=True, scale=d ** -0.5)
+    delta = (w.float() * ro.float()).sum(-1)
+    kw = dict(causal=True, scale=d ** -0.5)
+    refs = (flash.flash_bwd_dq_plain(q, k, v, w, rlse, delta, **kw),
+            *flash.flash_bwd_dkv_plain(q, k, v, w, rlse, delta, **kw))
+    worst = 0.0
+    for name, x, r in zip(("dq", "dk", "dv"), xs, refs):
+        worst = max(worst, compare(torch, x.grad, r, BF16_RTOL,
+                                   f"training d{name}", scaled=True)[0])
+    res["train grad"] = worst
+    log(f"phase 14d: training gradient through flash_attention(causal=True) "
+        f"at ({bh}, {s}, {d}) bf16: dq, dk, dv max abs err {worst:.3e}")
+    launches = flash_counters()
+    log(f"phase 14: main-path launch counts {launches}")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the slice 4 "
+                                 f"main path")
+    return launches, res
+
+
+def phase_times4(torch):
+    """Phase 15: flash kernel times beside their plain versions, their
+    bounds and scaled_dot_product_attention, and the end-to-end calls of
+    phase 14 (launches here are comparisons, not the main path's)."""
+    import torch.nn.functional as F
+
+    from gemm_hls_tpu_torch import flash_attention
+    from gemm_hls_tpu_torch.models.perf_model import H100, flash_bound
+    from gemm_hls_tpu_torch.ops import flash
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def sdpa(q, k, v, causal):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=causal)[0]
+
+    for bh, s, d, causal in ((32, 1024, 128, True), (32, 1024, 128, False)):
+        tag = "causal" if causal else "full"
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda",
+                                   dtype=bf16) for _ in range(4))
+        sc = d ** -0.5
+        fwd = lambda a, b, c: flash._forward(a, b, c, None, None, None, None,  # noqa: E731
+                                             causal, None, None, sc, 512)[0]
+        pfwd = lambda a, b, c: flash.flash_fwd_plain(a, b, c, causal=causal,  # noqa: E731
+                                                     scale=sc)[0]
+        ro, rlse = flash.flash_fwd_plain(q, k, v, causal=causal, scale=sc)
+        err = compare(torch, fwd(q, k, v), ro, BF16_RTOL, "timed fwd", scaled=True)[0]
+        delta = (do.float() * ro.float()).sum(-1)
+        bargs = (q, k, v, do, rlse, delta, None, None, None, causal, None, None, sc, 512)
+        pkw = dict(causal=causal, scale=sc)
+        entries = {
+            "flash_fwd": (fwd, pfwd, (q, k, v), "fwd", err),
+            "flash_bwd_dq": (lambda: flash._backward(*bargs, which="dq"),
+                             lambda: flash.flash_bwd_dq_plain(
+                                 q, k, v, do, rlse, delta, **pkw), (), "dq", None),
+            "flash_bwd_dkv": (lambda: flash._backward(*bargs, which="dkv"),
+                              lambda: flash.flash_bwd_dkv_plain(
+                                  q, k, v, do, rlse, delta, **pkw), (), "dkv", None),
+        }
+        # The library yardstick: SDPA's forward, and its backward (dq, dk,
+        # dv in one autograd call) for the dq / dkv pair.
+        lib_f = time_fn(lambda a, b, c: sdpa(a, b, c, causal), (q, k, v), iters=20) * 1e3
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        og = sdpa(qg, kg, vg, causal)
+        lib_b = time_fn(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                                    retain_graph=True), (),
+                        iters=20) * 1e3
+        for name, (fn, plain, args, which, e) in entries.items():
+            if e is None:
+                got, ref = fn(), plain()
+                got, ref = (got, ref) if which == "dq" else (got[0], ref[0])
+                e = compare(torch, got, ref, BF16_RTOL, f"timed {name}", scaled=True)[0]
+            ms = time_fn(fn, args, iters=20) * 1e3
+            plain_ms = time_fn(plain, args, iters=3, warmup=1) * 1e3
+            bound = flash_bound(H100, bh, s, s, d, bf16, causal, which)
+            out[f"{name} {tag}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=e,
+                                        bound=bound, library_ms=lib_f if which == "fwd" else None)
+            log(f"phase 15: {name} ({bh}, {s}, {d}) bf16 {tag}: {ms:.4f} ms vs "
+                f"plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms "
+                f"({bound[1]}); max abs err {e:.3e}"
+                + (f"; SDPA forward {lib_f:.4f} ms" if which == "fwd" else ""))
+        # SDPA's backward yields dq, dk and dv in one call: it stands beside
+        # the pair of kernels, on flash_bwd_dkv's entry, never beside dq alone.
+        pair = out[f"flash_bwd_dq {tag}"]["ms"] + out[f"flash_bwd_dkv {tag}"]["ms"]
+        out[f"flash_bwd_dkv {tag}"].update(library_ms=lib_b, pair_ms=pair)
+        log(f"phase 15: flash_bwd_dq + flash_bwd_dkv ({bh}, {s}, {d}) bf16 {tag}: "
+            f"{pair:.4f} ms vs SDPA backward (dq, dk, dv) {lib_b:.4f} ms")
+        del q, k, v, do, qg, kg, vg, og
+
+    # End-to-end calls of phase 14 (front door, host clock after a sync is
+    # the same as CUDA events here: each timed window ends in a sync).
+    def e2e(key, fn, args, iters=10):
+        out[key] = time_fn(fn, args, iters=iters) * 1e3
+        log(f"phase 15: end to end {key}: {out[key]:.4f} ms")
+
+    for key, (bh, s, d), causal in (("full 32x1024", (32, 1024, 128), False),
+                                    ("causal 32x1024", (32, 1024, 128), True),
+                                    ("causal 8x8192", (8, 8192, 128), True)):
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda",
+                               dtype=bf16) for _ in range(3))
+        e2e(f"flash_attention {key}",
+            lambda a, b, c, causal=causal: flash_attention(a, b, c, causal=causal),
+            (q, k, v))
+        if key == "causal 8x8192":
+            lib = time_fn(lambda a, b, c: sdpa(a, b, c, True), (q, k, v), iters=10) * 1e3
+            out["sdpa causal 8x8192"] = lib
+            bound = flash_bound(H100, bh, s, s, d, bf16, True, "fwd")
+            out["bound causal 8x8192"] = bound[0] * 1e3
+            log(f"phase 15: SDPA causal 8x8192 {lib:.4f} ms; flash_fwd bound "
+                f"{bound[0] * 1e3:.4f} ms ({bound[1]})")
+        del q, k, v
+    q = torch.randn((4, 1024, 16, 128), generator=gen, device="cuda", dtype=bf16)
+    k, v = (torch.randn((4, 1024, 4, 128), generator=gen, device="cuda",
+                        dtype=bf16) for _ in range(2))
+    e2e("GQA prefill 4x1024 H16/4", lambda a, b, c: flash_attention(a, b, c, causal=True),
+        (q, k, v))
+    del q, k, v
+    kc, vc, lens = decode_cache(torch, gen)
+    qd = torch.randn((64, 1, 16, 128), generator=gen, device="cuda", dtype=bf16)
+    e2e("decode attention 64x4096 H16/4",
+        lambda a: flash_attention(a, kc, vc, causal=True, kv_lengths=lens), (qd,),
+        iters=20)
+    mean_len = float(lens.float().mean())
+    bound = flash_bound(H100, 256, 4, int(mean_len), 128, bf16, False, "fwd")
+    out["bound decode"] = bound[0] * 1e3
+    log(f"phase 15: decode attention bound at mean length {mean_len:.0f}: "
+        f"{bound[0] * 1e3:.4f} ms ({bound[1]})")
+    del kc, vc
+    xs = [torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
+          .requires_grad_() for _ in range(3)]
+    w = torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
+
+    def train_grad(a, b, c):
+        return torch.autograd.grad((flash_attention(a, b, c, causal=True) * w).sum(),
+                                   (a, b, c))
+    e2e("training gradient causal 32x1024", train_grad, xs)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1319,11 +1839,16 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    spills = [ln.strip() for ln in lib_path.with_suffix(".log").read_text()
-              .splitlines() if "spill" in ln and not ln.strip().endswith(
-                  "0 bytes spill stores, 0 bytes spill loads")]
+    spills, entry = [], ""
+    for ln in lib_path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln and not ln.strip().endswith(
+                "0 bytes spill stores, 0 bytes spill loads"):
+            spills.append(f"{entry}: {ln.strip()}")
     log(f"phase 2: built and loaded {lib_path.name} in "
-        f"{time.perf_counter() - t0:.1f} s; kernels with spills: {len(spills)}")
+        f"{time.perf_counter() - t0:.1f} s; kernels with spills: {len(spills)}"
+        + "".join(f"\n  {x}" for x in spills))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -1335,6 +1860,9 @@ def main() -> int:
     phase_b45(torch)
     launches3, res3 = phase_slice3(torch)
     times3 = phase_times3(torch)
+    phase_flash_kernels(torch)
+    launches4, _ = phase_slice4(torch)
+    times4 = phase_times4(torch)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -1396,6 +1924,25 @@ def main() -> int:
                "gemm_hls_tpu/ops/pallas_ozaki.py:37", launches3["B5"], b5,
                bounds["B5"], b5["library_ms"]),
     ]
+    # Slice 4 at the causal training shape, (32, 1024, 128) bf16.
+    for name, replaces in (
+            ("flash_fwd", "gemm_hls_tpu/ops/pallas_flash.py:62,322,467"),
+            ("flash_bwd_dq", "gemm_hls_tpu/ops/pallas_flash.py:1018,1166"),
+            ("flash_bwd_dkv", "gemm_hls_tpu/ops/pallas_flash.py:1079,1229")):
+        t = times4[f"{name} causal"]
+        kernels.append(kernel(
+            f"{name} (B6-B12 flash attention, causal 32x1024x128 bf16)",
+            f"gemm_hls_tpu_torch/csrc/{name}.cu",
+            replaces, launches4[name], t, t["bound"], t["library_ms"]))
+        if name == "flash_bwd_dq":
+            kernels[-1]["library_note"] = ("SDPA's backward yields dq, dk and dv in one "
+                                           "call: its time is on flash_bwd_dkv, beside "
+                                           "the pair")
+        elif name == "flash_bwd_dkv":
+            kernels[-1]["pair_ms"] = t["pair_ms"]
+            kernels[-1]["library_note"] = ("library_ms is SDPA's backward (dq, dk and dv "
+                                           "in one call), beside pair_ms = flash_bwd_dq "
+                                           "+ flash_bwd_dkv")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,19 +5,25 @@ Same public surface as the JAX package for the slices ported so far: the
 semiring GEMM front door ``matmul`` (2-D, batched and N-D, with fused
 epilogues, the int8-slice precision tiers and semiring gradients),
 ``GemmConfig`` / ``default_config``, the semiring registry,
-``fused_linear``, fused-scores ``attention`` / ``attention_scores``, the
+``fused_linear``, fused-scores ``attention`` / ``attention_scores``,
+``flash_attention`` (forward, backward, GQA, padded-cache decode), the
 Ozaki f64-class GEMMs in ``ops.ozaki``, the graph applications in
 ``models.graph`` and the MLP trainer in ``models.mlp``.  The dense
 plus_times GEMM runs on hand-written tensor-core kernels
 (``csrc/mxu_gemm.cu``: B1 and the batched B2; ``csrc/row_softmax.cu``: B2's
 row-softmax variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
 (B4, B5), every other semiring on a CUDA-core kernel
-(``csrc/semiring_gemm.cu``); all build with nvcc at first use.  This
-package imports neither jax nor ``gemm_hls_tpu``.
+(``csrc/semiring_gemm.cu``), flash attention on ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (B6-B12); all build
+with nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
 """
 
 from gemm_hls_tpu_torch.config import GemmConfig, default_config
-from gemm_hls_tpu_torch.ops.attention import attention, attention_scores
+from gemm_hls_tpu_torch.ops.attention import (
+    attention,
+    attention_scores,
+    flash_attention,
+)
 from gemm_hls_tpu_torch.ops.fused_linear import fused_linear
 from gemm_hls_tpu_torch.ops.matmul import matmul
 from gemm_hls_tpu_torch.ops.semiring import (
@@ -40,4 +46,5 @@ __all__ = [
     "fused_linear",
     "attention",
     "attention_scores",
+    "flash_attention",
 ]

@@ -133,6 +133,14 @@ def _declare(lib):
     lib.slice_gemm.restype = i32
     lib.slice_gemm.argtypes = [ptrs, ptrs, i32, vp, vp, vp, vp, i32, i32, i32,
                                i64, i64, i32, i32, i32, vp]
+    # Flash attention: (seqs, lse, kv_len | delta, q_seg, kv_seg, offs, dims,
+    # cap, scale, dtype, stream); seqs holds (pointer, heads, sb, sh, ss)
+    # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec).
+    i64p, i32p, f32 = ctypes.POINTER(i64), ctypes.POINTER(i32), ctypes.c_float
+    flash = [i64p, vp, vp, vp, vp, vp, i32p, f32, f32, i32, vp]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = flash
     return lib
 
 

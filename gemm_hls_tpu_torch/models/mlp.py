@@ -48,9 +48,10 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(x.copy()).to(device)
 
 
-def params_from_reference(params, device=None) -> Params:
+def params_from_reference(params, device="cuda") -> Params:
     """The JAX package's ``[(W, b), ...]`` (jax or numpy arrays, each
-    converted with ``np.asarray``) as the port's parameters."""
+    converted with ``np.asarray``) as the port's parameters, on ``device``
+    (the card unless the caller names another)."""
     return [(_tensor(w, device), _tensor(b, device)) for w, b in params]
 
 

@@ -83,3 +83,26 @@ def detect_chip() -> ChipSpec:
     if "H100" in name:
         return H100
     raise NotImplementedError(f"no roofline constants for {name!r}")
+
+
+def flash_bound(chip: ChipSpec, bh: int, s_q: int, s_kv: int, d: int,
+                dtype: torch.dtype, causal: bool, which: str = "fwd"):
+    """Bound of the flash kernels on ``bh`` heads of (S_q, S_kv, D):
+    ``which`` = "fwd" (4 B S_q S_kv D operations: q k^T and p v), "dq" (6:
+    q k^T, dO v^T, ds k) or "dkv" (8: q k^T, dO v^T, p^T dO, ds^T q),
+    halved under causal at S_q = S_kv (the live half).  Bytes: q, k, v
+    (and for the backward dO, lse and delta) read once, the outputs (o and
+    lse; dq; dk and dv) written once.  Rate: the tensor cores' for bf16 /
+    fp16, the CUDA cores' 67 TFLOP/s for fp32."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    per = {"fwd": 4.0, "dq": 6.0, "dkv": 8.0}[which]
+    ops = per * bh * s_q * s_kv * d * (0.5 if causal else 1.0)
+    q_elems, kv_elems = bh * s_q * d, bh * s_kv * d
+    rows = bh * s_q * 4                      # one fp32 per q row
+    if which == "fwd":
+        moved = esize * (2 * q_elems + 2 * kv_elems) + rows
+    elif which == "dq":
+        moved = esize * (3 * q_elems + 2 * kv_elems) + 2 * rows
+    else:
+        moved = esize * (2 * q_elems + 4 * kv_elems) + 2 * rows
+    return chip.bound(ops, chip.peak_for(dtype), moved)

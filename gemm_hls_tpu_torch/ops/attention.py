@@ -14,8 +14,9 @@ Numerics: scores accumulate in fp32; the softmax runs in fp32; only the
 probabilities are cast to the storage dtype.  The max subtraction makes
 the exp overflow-safe for any score magnitude.
 
-The flash kernels (``flash_attention``, ``flash_mha_diff``; TPU kernels
-B6-B12) are slice 3 of the port.
+``flash_attention`` is the flash path (``ops/flash.py``, kernels
+``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``: TPU kernels B6-B12):
+the probabilities never reach device memory.
 """
 
 from __future__ import annotations
@@ -92,14 +93,104 @@ def attention(q, k, v, *, scale: Optional[float] = None,
     return matmul(p, v, config=config, interpret=interpret)
 
 
-def flash_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "flash_attention is not ported yet (ROADMAP A, slice 3: flash "
-        "attention, kernels B6-B12); use attention() for fused-scores "
-        "attention")
+def flash_attention(q, k, v, *, scale: Optional[float] = None,
+                    causal: bool = False,
+                    window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    kv_lengths=None,
+                    q_segment_ids=None, kv_segment_ids=None,
+                    config: Optional[GemmConfig] = None,
+                    block_q: Optional[int] = None,
+                    block_kv: Optional[int] = None,
+                    block_kv_compute: Optional[int] = None,
+                    block_q_compute: Optional[int] = None,
+                    bwd_block_q: Optional[int] = None,
+                    bwd_block_kv: Optional[int] = None,
+                    interpret: Optional[bool] = None):
+    """Per-head attention in one kernel, softmax(q k^T scale) v with the
+    probabilities never in device memory (``ops/flash.py``: kernels
+    ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``).
 
+    Args:
+      q: (B, S_q, D), or (batch, S_q, H, D) (auto-detected; the result
+        comes back in the same layout, read and written in place).
+      k, v: (B_kv, S_kv, D) / (batch, S_kv, H_kv, D); H_kv may divide H
+        (GQA / MQA: each group of q heads reads its shared kv head, and the
+        backward sums the group's dk / dv onto it).
+      scale: score scale, default 1/sqrt(D); a Python number is applied to
+        the fp32 scores in the kernel, a tensor is folded into q.
+      window: sliding window (requires ``causal``): q attends
+        (q_pos - window, q_pos].
+      logit_cap: soft cap, scores squashed to cap tanh(s / cap).
+      kv_lengths: per kv head (3-D) or per batch element (4-D) logical
+        lengths for padded-cache decode; with ``causal`` the queries sit at
+        the cache end.  Inference only (no gradient on this path).
+      q_segment_ids / kv_segment_ids: (B, S) or (batch, S) int packed-
+        sequence ids, broadcast over heads in the 4-D layout.
+      config: accepted for the JAX signature (unused).
+      block_q / bwd_block_q: the plain versions' q tiles; the other
+        ``block_*`` arguments are accepted for the JAX signature.  The
+        CUDA kernels' tiles are their own (csrc/flash_*.cu).  The JAX
+        package's autotuned block table is not ported.
+      interpret: CUDA has no interpreter mode; True on a CUDA tensor
+        raises.
 
-def flash_mha_diff(*args, **kwargs):
-    raise NotImplementedError(
-        "flash_mha_diff is not ported yet (ROADMAP A, slice 3: flash "
-        "attention, kernels B6-B12)")
+    Returns the attention output in q's layout and dtype.
+    """
+    from gemm_hls_tpu_torch.ops.flash import flash_mha, flash_mha_diff
+
+    del config, block_kv_compute, block_q_compute, bwd_block_kv
+    four_d = q.ndim == 4
+    decode_fast = False
+    if four_d:
+        if k.ndim != 4 or v.ndim != 4:
+            raise ValueError(f"mixed layouts: {tuple(q.shape)} x "
+                             f"{tuple(k.shape)}")
+        nb, hq, hkv = q.shape[0], q.shape[2], k.shape[2]
+        # Single-token decode: each kv head's group of q heads becomes the
+        # q rows of one (batch * H_kv) head against the cache, read in
+        # place; at S_q = 1 with decode anchoring, causal attends every
+        # valid position, so it is dropped (attention.py:170-186).
+        decode_fast = (q.shape[1] == 1 and hq % hkv == 0
+                       and window is None and q_segment_ids is None
+                       and logit_cap is None
+                       and (kv_lengths is not None or not causal))
+        if kv_lengths is not None:
+            # One length per batch element -> one per kv head.
+            kv_lengths = torch.as_tensor(
+                kv_lengths, device=q.device).repeat_interleave(hkv)
+        if decode_fast:
+            # q head h reads kv head h // group: (kv head, within group)
+            # keeps head identity.
+            q = q.reshape(nb * hkv, hq // hkv, q.shape[3])
+            causal = False
+        elif q_segment_ids is not None:
+            q_segment_ids = torch.as_tensor(
+                q_segment_ids, device=q.device).repeat_interleave(hq, 0)
+            kv_segment_ids = torch.as_tensor(
+                kv_segment_ids, device=q.device).repeat_interleave(hkv, 0)
+    elif q.ndim != 3:
+        raise ValueError(f"flash_attention expects (B, S, D) or "
+                         f"(batch, S, H, D), got {tuple(q.shape)}")
+    block_q = block_q or 512
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if isinstance(scale, (int, float)):
+        qs, kscale = q, float(scale)
+    else:
+        qs = (q * torch.as_tensor(scale, dtype=q.dtype)).to(q.dtype)
+        kscale = 1.0
+    if kv_lengths is not None:
+        out = flash_mha(qs, k, v, kv_lengths, q_segment_ids, kv_segment_ids,
+                        causal=causal, block_q=block_q, interpret=interpret,
+                        window=window, logit_cap=logit_cap, scale=kscale)
+    else:
+        out = flash_mha_diff(qs, k, v, q_segment_ids, kv_segment_ids,
+                             causal=causal, block_q=block_q,
+                             interpret=interpret, window=window,
+                             logit_cap=logit_cap, bwd_block_q=bwd_block_q,
+                             scale=kscale)
+    if decode_fast:
+        # The (batch * H_kv, group, D) rows are the q heads of one token.
+        out = out.reshape(nb, 1, hq, out.shape[-1])
+    return out

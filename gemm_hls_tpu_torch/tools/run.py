@@ -3,14 +3,16 @@
 
     python -m gemm_hls_tpu_torch.tools.run M N K [--dtype DT] [--semiring SR]
         [--verify {on,off}] [--iters I] [--backend cuda|vpu|torch] [--baseline]
+        [--device {cuda,cpu}]
 
 Seed-5 U(1,10) operands, kernel launch and timing on CUDA events,
 GOp/s = 1e-9 * 2*M*N*K / t, and element-wise verification against the
 float64 BLAS / semiring oracle (relative 1e-3 for float32, exact for
 integers).  ``--baseline`` also times the plain PyTorch version on the same
 operands (``torch.matmul`` for plus_times) and compares the two outputs.
-Without a CUDA device the run goes through the plain versions on the CPU
-and reports no device time.
+The run needs a CUDA device: without one it says so on stderr and exits
+non-zero.  ``--device cpu`` runs the plain versions on the CPU instead and
+reports no device time.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ def _parser():
     p.add_argument("--block-m", type=int, default=None)
     p.add_argument("--block-n", type=int, default=None)
     p.add_argument("--block-k", type=int, default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the GEMM runs (cpu: the plain versions)")
     return p
 
 
@@ -64,7 +68,11 @@ def run(argv=None) -> dict:
     output tensor under "out"."""
     args = _parser().parse_args(argv)
     sr = get_semiring(args.semiring)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("run: no CUDA device; pass --device cpu to run the plain "
+              "versions on the CPU", file=sys.stderr)
+        return {"ok": False, "device": None}
+    device = torch.device(args.device)
     backend = args.backend
     cfg = None
     overrides = {}

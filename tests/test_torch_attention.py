@@ -21,7 +21,6 @@ from gemm_hls_tpu.ops.attention import attention_scores as jax_scores
 from gemm_hls_tpu_torch import attention, attention_scores
 from gemm_hls_tpu_torch.config import ROW_SOFTMAX_MAX_N, GemmConfig
 from gemm_hls_tpu_torch.ops import attention as attn_mod
-from gemm_hls_tpu_torch.ops.attention import flash_attention, flash_mha_diff
 
 torch.set_num_threads(1)
 
@@ -149,9 +148,3 @@ def test_scores_rejects_2d():
         attention_scores(torch.zeros(8, 4), torch.zeros(8, 4))
     with pytest.raises(ValueError, match="expects"):
         jax_scores(jnp.zeros((8, 4)), jnp.zeros((8, 4)))
-
-
-@pytest.mark.parametrize("fn", [flash_attention, flash_mha_diff])
-def test_flash_is_slice_3(fn):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        fn(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))

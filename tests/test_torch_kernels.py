@@ -1,6 +1,7 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
 row-softmax variants), B3 (2-D and batched), B4 and B5 (the integer-slice
-GEMMs) on the card, each against its plain PyTorch version; the gradients
+GEMMs) and the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
+case tables) on the card, each against its plain PyTorch version; the gradients
 of the batched, epilogue, ``fused_linear``, ``attention``, i8x and semiring
 paths against plain autograd; the i8x tiers, the Ozaki GEMMs and the graph
 applications against float64 and Floyd-Warshall references.
@@ -25,11 +26,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gemm_hls_tpu_torch import attention, fused_linear, matmul
 from gemm_hls_tpu_torch.config import ROW_SOFTMAX_MAX_N, default_config
 from gemm_hls_tpu_torch.models import graph
 from gemm_hls_tpu_torch.ops import mxu, ozaki, slice_kernels, vpu
-from gemm_hls_tpu_torch.ops import attention as attention_ops
 from gemm_hls_tpu_torch.ops.int8_slices import fp32_matmul_int8
 from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
 from gemm_hls_tpu_torch.ops.semiring import Semiring, get_semiring
@@ -165,7 +166,7 @@ def test_bool_or_and_routes(cuda, backend):
 
 
 @pytest.mark.parametrize("request_", ["float64", "custom", "epilogue",
-                                      "interpret", "flash", "ozaki_distributed"])
+                                      "interpret", "ozaki_distributed"])
 def test_unported_requests_raise(cuda, request_):
     # The i8x tiers and batched tropical gradients, refused until slice 3,
     # run below (test_i8x_tiers_on_the_card, test_semiring_gradients_*).
@@ -183,9 +184,7 @@ def test_unported_requests_raise(cuda, request_):
     elif request_ == "interpret":
         kw["interpret"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
-        if request_ == "flash":
-            attention_ops.flash_attention(a[None], a[None], a[None])
-        elif request_ == "ozaki_distributed":
+        if request_ == "ozaki_distributed":
             ozaki.ozaki_matmul_int8_distributed(np.ones((8, 8)), np.ones((8, 8)), None)
         else:
             matmul(a, a, **kw)
@@ -695,3 +694,46 @@ def test_graph_applications_on_the_card(cuda):
     assert torch.equal(graph.widest_paths(cap), c)
     rank = graph.pagerank(keep.float(), iters=30)
     assert torch.isclose(rank.sum(), torch.tensor(1.0, device=cuda), rtol=1e-5)
+
+
+# ---- flash attention: flash_fwd, flash_bwd_dq, flash_bwd_dkv --------------
+# One case table and one runner per kind of case, shared with
+# ``chip_smoke.py``'s phase 13 (its tolerances: relative 1e-2 scaled for
+# bf16 / fp16 outputs, 1e-4 for fp32 and lse).
+
+
+def _flash_id(case):
+    dt, bh, bh_kv, s_q, s_kv, d, kw = case
+    opts = [k if isinstance(x, list) else f"{k}={x}" for k, x in kw.items()]
+    return "-".join([dt, f"{bh}x{bh_kv}", f"{s_q}x{s_kv}", f"d{d}", *opts])
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES,
+                         ids=[_flash_id(c) for c in chip_smoke.FLASH_CASES])
+def test_flash_kernels_vs_plain(cuda, case):
+    chip_smoke.flash_case(torch, _gen(131), case)
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", range(len(chip_smoke.FLASH_4D)))
+def test_flash_attention_4d_layouts(cuda, dt, case):
+    chip_smoke.flash_4d_case(torch, _gen(23), chip_smoke.FLASH_4D[case], dt)
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_flash_offsets_fully_future_shard(cuda, dt):
+    chip_smoke.flash_future_shard(torch, _gen(20), dt)
+
+
+@pytest.mark.parametrize("case", chip_smoke.FLASH_GRAD_CASES)
+def test_flash_fp32_gradients_vs_float64(cuda, case):
+    chip_smoke.flash_grad_case(torch, _gen(29), case)
+
+
+@pytest.mark.parametrize("what", chip_smoke.FLASH_REFUSALS)
+def test_flash_refuses_what_no_kernel_takes(cuda, what):
+    chip_smoke.flash_refusal(torch, what)

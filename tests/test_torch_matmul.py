@@ -167,13 +167,13 @@ def test_errors_match_reference(case, match):
         jax_matmul(jnp.asarray(a), jnp.asarray(b), **kw)
 
 
-@pytest.mark.parametrize("request_", ["epilogue", "interpret", "flash",
+@pytest.mark.parametrize("request_", ["epilogue", "interpret",
                                       "ozaki_distributed"])
 def test_unported_requests_name_roadmap(request_):
     # The i8x tiers and the (batched) tropical gradients, refused here until
     # slice 3, are held against the JAX package in test_torch_int8_slices.py
     # and test_torch_graph.py.
-    from gemm_hls_tpu_torch.ops import attention, ozaki
+    from gemm_hls_tpu_torch.ops import ozaki
 
     a = torch.ones(8, 8)
     if request_ == "epilogue":
@@ -185,8 +185,6 @@ def test_unported_requests_name_roadmap(request_):
                               epilogue_operands=(torch.ones(8, device="meta"),))
     elif request_ == "interpret":
         call = lambda: matmul(a, a, interpret=True)  # noqa: E731
-    elif request_ == "flash":
-        call = lambda: attention.flash_attention(a[None], a[None], a[None])  # noqa: E731
     else:
         call = lambda: ozaki.ozaki_matmul_int8_distributed(a.numpy(), a.numpy(),  # noqa: E731
                                                            None)
@@ -228,16 +226,27 @@ def test_bf16_gradients_keep_operand_dtypes():
 
 
 @pytest.mark.parametrize("argv", [
-    ["64", "96", "80"],
-    ["64", "96", "80", "--dtype", "bfloat16"],
-    ["33", "70", "45", "--dtype", "int32"],
-    ["40", "50", "60", "--semiring", "min_plus"],
-    ["40", "50", "60", "--semiring", "log_plus", "--backend", "torch"],
+    ["64", "96", "80", "--device", "cpu"],
+    ["64", "96", "80", "--dtype", "bfloat16", "--device", "cpu"],
+    ["33", "70", "45", "--dtype", "int32", "--device", "cpu"],
+    ["40", "50", "60", "--semiring", "min_plus", "--device", "cpu"],
+    ["40", "50", "60", "--semiring", "log_plus", "--backend", "torch",
+     "--device", "cpu"],
     ["33", "40", "70", "--dtype", "bool", "--semiring", "or_and",
-     "--backend", "vpu"],
+     "--backend", "vpu", "--device", "cpu"],
 ])
 def test_tools_run_main(argv, capsys):
     assert run.main(argv) == 0
     out = capsys.readouterr().out
     assert "Results verified" in out
     assert "not measured" in out  # no device time from a CPU run
+
+
+def test_tools_run_refuses_without_a_card(capsys, monkeypatch):
+    # The default device is the card: with none, the run says why and
+    # fails instead of dropping to the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert run.main(["64", "96", "80"]) != 0
+    captured = capsys.readouterr()
+    assert "no CUDA device" in captured.err and "--device cpu" in captured.err
+    assert "Executing" not in captured.out

@@ -53,7 +53,7 @@ def _jax_step(params, batch, fused):
 
 def test_params_from_reference():
     ref = jmlp.init_params(jax.random.PRNGKey(0), DIMS)
-    params = mlp.params_from_reference(ref)
+    params = mlp.params_from_reference(ref, device="cpu")
     assert len(params) == len(ref)
     for (w, b), (jw, jb) in zip(params, ref):
         assert w.dtype == b.dtype == torch.float32
@@ -61,9 +61,21 @@ def test_params_from_reference():
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
 
 
+def test_params_from_reference_defaults_to_the_card():
+    # Without a device the weights go to the card; with no card that
+    # fails instead of silently staying on the CPU.
+    ref = jmlp.init_params(jax.random.PRNGKey(0), DIMS)
+    if torch.cuda.is_available():
+        (w, _), _ = mlp.params_from_reference(ref)
+        assert w.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            mlp.params_from_reference(ref)
+
+
 def test_params_from_reference_bf16():
     ref = jmlp.init_params(jax.random.PRNGKey(0), DIMS, "bfloat16")
-    (w, b), _ = mlp.params_from_reference(ref)
+    (w, b), _ = mlp.params_from_reference(ref, device="cpu")
     assert w.dtype == torch.bfloat16
     np.testing.assert_array_equal(w.float().numpy(),
                                   np.asarray(ref[0][0], np.float32))
@@ -73,8 +85,8 @@ def test_params_from_reference_bf16():
 def test_forward_matches_jax(fused):
     ref = jmlp.init_params(jax.random.PRNGKey(0), DIMS)
     x = _batch(16, 3)[0]
-    got = mlp.mlp_forward(mlp.params_from_reference(ref), torch.from_numpy(x),
-                          fused=fused)
+    got = mlp.mlp_forward(mlp.params_from_reference(ref, device="cpu"),
+                          torch.from_numpy(x), fused=fused)
     exp = jmlp.mlp_forward(ref, jnp.asarray(x), config=JCFG, fused=fused)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(exp),
                                rtol=1e-3, atol=1e-6)
@@ -83,7 +95,7 @@ def test_forward_matches_jax(fused):
 @pytest.mark.parametrize("fused", [False, True])
 def test_train_steps_match_jax(fused):
     ref = jmlp.init_params(jax.random.PRNGKey(0), DIMS)
-    params = mlp.params_from_reference(ref)
+    params = mlp.params_from_reference(ref, device="cpu")
     xb, yb = _batch()
     jbatch = (jnp.asarray(xb), jnp.asarray(yb))
     batch = (torch.from_numpy(xb), torch.from_numpy(yb))
@@ -169,7 +181,8 @@ def test_checkpoint_reads_a_reference_checkpoint(tmp_path):
 
     ref = jmlp.init_params(jax.random.PRNGKey(1), DIMS)
     path = jax_save(str(tmp_path / "ref.npz"), ref)
-    restored = load_checkpoint(path, like=mlp.params_from_reference(ref))
+    restored = load_checkpoint(
+        path, like=mlp.params_from_reference(ref, device="cpu"))
     for (w, b), (jw, jb) in zip(restored, ref):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
