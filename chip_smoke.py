@@ -71,7 +71,26 @@ Phases, each printed as it ends:
      bounds and ``scaled_dot_product_attention`` (its forward beside
      flash_fwd; its backward, which yields dq, dk and dv in one call, beside
      the sum of flash_bwd_dq and flash_bwd_dkv, on flash_bwd_dkv's entry of
-     the kernels line), and of phase 14's end-to-end calls.
+     the kernels line), and of phase 14's end-to-end calls;
+ 16. the quantized and grouped kernels against their plain versions:
+     ``dequant_gemm`` (B13: int8 / int4, per-channel / group-wise, M 1, 64,
+     130, ragged N), ``w8a8_gemm`` (B14 / B15: both routes as the JAX rule
+     picks them, int_acc on and off, zero rows, the int8 activations equal
+     to the plain quantize's), ``grouped_gemm`` (B16: tests/test_grouped.py's
+     matrix, transpose_rhs, bf16 / fp16 / fp32, the zero tail exact);
+ 17. slice 5's main path, launch counts set to 0 before it and read after:
+     the serving decoder block (examples/15_serving_decoder.py) at
+     experiments/serving_bench.py's width, every port call under
+     ``torch.cuda.set_sync_debug_mode("error")``: prefill B 4 x S 1024
+     (W8A8 projections, causal GQA flash, the MoE on B16) against the plain
+     bf16 block with un-quantized weights at the example's quantization
+     budget, once on B14 and once on B15; 8 decode steps at 64 sequences x
+     4096 slots (int4 g128 projections on B13, padded-cache flash, the MoE)
+     against the plain step with the same int4 weights;
+ 18. times of B13, B14, B15 and B16 at their serving shapes beside their
+     bounds, plain versions and library calls (bf16 ``torch.matmul`` on the
+     dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``), and the
+     serving prefill and decode step beside the plain composition.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -1815,6 +1834,645 @@ def phase_times4(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: the serving path -- the quantized GEMMs (B13-B15), the grouped
+# GEMM (B16), the MoE FFN and the serving decoder block
+# ---------------------------------------------------------------------------
+
+def quant_counters():
+    from gemm_hls_tpu_torch.ops import dequant, gmm
+    return {"B13": dequant.dequant_matmul.launches,
+            "B14": dequant.w8a8_matmul.fused_launches,
+            "B15": dequant.w8a8_matmul.launches,
+            "B16": gmm.grouped_mxu.launches}
+
+
+def reset_quant_counters():
+    from gemm_hls_tpu_torch.ops import dequant, gmm
+    dequant.dequant_matmul.launches = 0
+    dequant.w8a8_matmul.fused_launches = dequant.w8a8_matmul.launches = 0
+    gmm.grouped_mxu.launches = 0
+
+
+# Phase 16's case tables, which tests/test_torch_kernels.py parametrises
+# too.  B13: (x dtype, bits, group (None: per-channel), M, N, K, block_k
+# (None: the front door's)).  M 1, 64 (decode) and 130; N 1001 and 520
+# (ragged: the byte-wise weight loads); one and several groups per K-block.
+DEQUANT_CASES = (
+    [(dt, bits, g, m, n, k, bk)
+     for dt in ("bfloat16", "float32")
+     for bits, g, bk in ((8, None, None), (8, 64, None), (4, 128, None),
+                         (4, None, None), (8, 128, 128), (4, 64, 64))
+     for m, n, k in ((1, 1001, 256), (64, 2048, 2048), (130, 520, 1024))]
+    + [("float16", 4, 128, 64, 2048, 2048, None),
+       ("float16", 8, None, 130, 1001, 512, None)]
+)
+# B14 / B15: (x dtype, group, M, N, K, fuse_quant asked, zero rows, out
+# dtype, route the JAX rule gives).
+W8A8_CASES = [
+    ("bfloat16", None, 256, 512, 1024, True, False, "bfloat16", "B14"),
+    ("bfloat16", 128, 200, 384, 512, True, True, "float32", "B14"),
+    ("float32", None, 96, 256, 8192, True, True, "float32", "B14"),  # 2 K-blocks
+    ("float16", None, 64, 256, 2048, True, False, "float16", "B14"),
+    # a 1000-wide N tile is not a multiple of 128: the two-pass route
+    ("float32", None, 130, 1000, 640, True, True, "float32", "B15"),
+    ("bfloat16", None, 333, 256, 2048, False, True, "bfloat16", "B15"),  # int_acc
+    ("float32", 64, 64, 200, 512, False, False, "float32", "B15"),  # per block
+    # 127^2 K >= 2^31: per-block fp32 scaling, N ragged
+    ("float32", None, 8, 130, 135168, False, False, "float32", "B15"),
+]
+# B16: tests/test_grouped.py:40-48's (M, K, N, group sizes), each with and
+# without transpose_rhs, in bf16, fp16 and fp32.
+_GROUPED_SHAPES = [
+    (64, 32, 48, [16, 16, 16, 16]), (100, 33, 48, [10, 0, 55, 35]),
+    (100, 33, 48, [10, 7, 55, 8]), (7, 130, 129, [3, 3, 1]),
+    (256, 64, 64, [256]), (50, 16, 16, [0, 0, 0, 0, 0]),
+    (96, 24, 40, [1, 1, 1, 93]),
+]
+GROUPED_CASES = [(dt, m, k, n, gs, trb) for dt in _DT
+                 for m, k, n, gs in _GROUPED_SHAPES for trb in (False, True)]
+
+
+def quant_rtol(torch, dtype):
+    return F32_RTOL if dtype == torch.float32 else BF16_RTOL
+
+
+def _host(torch, t):
+    return t.float().cpu().numpy()
+
+
+def dequant_case(torch, gen, case):
+    """One DEQUANT_CASES case: the front door on the card (one B13 launch)
+    against the plain version on the same card operands.  Returns the
+    largest abs error."""
+    from gemm_hls_tpu_torch import GemmConfig, matmul_quantized, quantize_weights
+    from gemm_hls_tpu_torch.ops import dequant
+
+    dt, bits, g, m, n, k, bk = case
+    dtype = getattr(torch, dt)
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    wq, s = (torch.from_numpy(a).cuda()
+             for a in quantize_weights(_host(torch, w), bits=bits, group_size=g))
+    x = signed(torch, (m, k), dtype, gen)
+    cfg = GemmConfig(block_k=bk) if bk else None
+    before = dequant.dequant_matmul.launches
+    got = matmul_quantized(x, wq, s, bits=bits, group_size=g, config=cfg)
+    if dequant.dequant_matmul.launches != before + 1:
+        raise AssertionError(f"B13 {case}: no launch")
+    ref = dequant.dequant_matmul_plain(x, wq, s, bits=bits, group_size=g)
+    return compare(torch, got, ref, quant_rtol(torch, dtype), f"B13 {case}",
+                   scaled=True)[0]
+
+
+def w8a8_case(torch, gen, case):
+    """One W8A8_CASES case: the route the JAX rule gives (checked by the
+    launch counters), its int8 activations equal to the plain quantize's,
+    and its output against the plain version on the same card operands
+    (the int32 products are exact on both sides; the fp32 scaling runs in
+    the same order)."""
+    from gemm_hls_tpu_torch import quantize_weights
+    from gemm_hls_tpu_torch.ops import dequant, quant
+
+    dt, g, m, n, k, fuse, zero_rows, out, route = case
+    dtype, out_dtype = getattr(torch, dt), getattr(torch, out)
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    wq, s = (torch.from_numpy(a).cuda()
+             for a in quantize_weights(_host(torch, w), bits=8, group_size=g))
+    x = signed(torch, (m, k), dtype, gen) * 4
+    x[:, : k // 2] *= 20
+    if zero_rows:
+        x[3] = 0
+        x[m - 1] = 0
+    cfg = quant.w8a8_resolve(m, n, k, g, out_dtype)
+    before = dict(quant_counters())
+    got = dequant.w8a8_matmul(x, wq, s, cfg=cfg, group_size=g, fuse_quant=fuse)
+    after = quant_counters()
+    ran = [key for key in ("B14", "B15") if after[key] == before[key] + 1]
+    if ran != [route]:
+        raise AssertionError(f"W8A8 {case}: launched {ran}, expected {route}")
+    bk = min(cfg.block_k, k)
+    fused = route == "B14"
+    xq, _ = dequant._quantize_kernel(x, bk if fused else k, fused)
+    if not torch.equal(xq, dequant._quantize_plain(x, bk if fused else k, fused)[0]):
+        raise AssertionError(f"W8A8 {case}: int8 activations differ from plain")
+    ref = dequant.w8a8_plain(x, wq, s, bk=bk, fused=fused, out_dtype=out_dtype)
+    err = compare(torch, got, ref, quant_rtol(torch, out_dtype), f"W8A8 {case}",
+                  scaled=True)[0]
+    if zero_rows and bool(got[3].any()):
+        raise AssertionError(f"W8A8 {case}: a zero row gave a non-zero output")
+    return err
+
+
+def grouped_case(torch, gen, case):
+    """One GROUPED_CASES case: ``grouped_matmul`` on the card (one B16
+    launch) against the plain version; the rows past sum(group_sizes)
+    exactly zero."""
+    from gemm_hls_tpu_torch import grouped_matmul
+    from gemm_hls_tpu_torch.ops import gmm
+
+    dt, m, k, n, gs, trb = case
+    dtype = getattr(torch, dt)
+    lhs = signed(torch, (m, k), dtype, gen)
+    rhs = signed(torch, (len(gs), n, k) if trb else (len(gs), k, n), dtype, gen)
+    sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    before = gmm.grouped_mxu.launches
+    got = grouped_matmul(lhs, rhs, sizes, transpose_rhs=trb)
+    if gmm.grouped_mxu.launches != before + 1:
+        raise AssertionError(f"B16 {case}: no launch")
+    ref = gmm.grouped_mxu_plain(lhs, rhs, sizes, transpose_rhs=trb)
+    err = compare(torch, got, ref, quant_rtol(torch, dtype), f"B16 {case}",
+                  scaled=True)[0]
+    if bool(got[sum(gs):].any()):
+        raise AssertionError(f"B16 {case}: rows past the groups are not zero")
+    return err
+
+
+def phase_quant_kernels(torch):
+    """Phase 16: B13, B14 / B15 and B16 against their plain versions on the
+    card, over the case tables above.  Tolerances: relative 1e-4 (scaled by
+    the largest output) for fp32 outputs, 1e-2 for bf16 / fp16 outputs
+    (one ulp is 2^-8); the W8A8 int8 activations exactly; B16's zero tail
+    exactly."""
+    gen = torch.Generator(device="cuda").manual_seed(161)
+    worst = {}
+    for name, cases, fn in (("B13", DEQUANT_CASES, dequant_case),
+                            ("B14/B15", W8A8_CASES, w8a8_case),
+                            ("B16", GROUPED_CASES, grouped_case)):
+        worst[name] = max(fn(torch, gen, c) for c in cases)
+    torch.cuda.synchronize()
+    log(f"phase 16: quantized and grouped kernels vs plain: B13 "
+        f"{len(DEQUANT_CASES)} cases (int8 / int4, per-channel / group-wise, "
+        f"M 1 / 64 / 130, ragged N), B14 / B15 {len(W8A8_CASES)} (routes, "
+        f"int_acc on and off, zero rows), B16 {len(GROUPED_CASES)} "
+        f"(tests/test_grouped.py's matrix, transpose_rhs, bf16 / fp16 / fp32): "
+        f"ok (max abs err {', '.join(f'{k} {v:.3e}' for k, v in worst.items())})")
+
+
+# The serving decoder block of examples/15_serving_decoder.py at
+# experiments/serving_bench.py:28-31's width: d_model 2048, GQA 16 / 4
+# heads of 128, MoE 8 experts top-2 with d_ff 4096, bf16; prefill B 4 x S
+# 1024; decode 64 sequences over a 4096-slot padded cache, 8 steps.
+SERVING = dict(batch=4, seq=1024, d_model=2048, h_q=16, h_kv=4, d_head=128,
+               d_ff=4096, experts=8, top_k=2, dec_batch=64, slots=4096,
+               steps=8, group=128)
+
+
+def _w8a8_proj(a, wq, sc, out_dtype, fuse_quant):
+    """A prefill projection: ``matmul_w8a8`` (its fused route, B14, where
+    the JAX rule allows), or the same resolution through the two-pass
+    route (B15)."""
+    from gemm_hls_tpu_torch import matmul_w8a8
+    from gemm_hls_tpu_torch.ops import dequant, quant
+    if fuse_quant:
+        return matmul_w8a8(a, wq, sc, out_dtype=out_dtype)
+    cfg = quant.w8a8_resolve(a.shape[0], wq.shape[1], a.shape[1], None, out_dtype)
+    return dequant.w8a8_matmul(a, wq, sc, cfg=cfg, fuse_quant=False)
+
+
+def serving_prefill(x, quant, moe, moe_cfg, *, h_q, h_kv, d_head,
+                    fuse_quant=True):
+    """Prefill (examples/15_serving_decoder.py::block_prefill): W8A8
+    projections over the B S rows, causal GQA flash attention on the 4-D
+    (B, S, H, D) layout read in place, the residual, the MoE FFN.  Every
+    intermediate is in x's type.  Returns (block output, attention
+    sublayer output y, k, v), k and v (B, S, H_kv, D)."""
+    from gemm_hls_tpu_torch import flash_attention
+    from gemm_hls_tpu_torch.models.moe import moe_forward
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    proj = {name: _w8a8_proj(flat, *quant[name], x.dtype, fuse_quant)
+            for name in ("wq", "wk", "wv")}
+    q = proj["wq"].reshape(b, s, h_q, d_head)
+    k = proj["wk"].reshape(b, s, h_kv, d_head)
+    v = proj["wv"].reshape(b, s, h_kv, d_head)
+    att = flash_attention(q, k, v, causal=True, block_q=32, block_kv=32)
+    out = _w8a8_proj(att.reshape(b * s, -1), *quant["wo"], x.dtype, fuse_quant)
+    y = x + out.reshape(b, s, d)
+    ffn = moe_forward(moe, y.reshape(b * s, d), moe_cfg)
+    return y + ffn.reshape(b, s, d), y, k, v
+
+
+def serving_decode(x_tok, cache_k, cache_v, lengths, quant4, moe, moe_cfg, *,
+                   h_q, h_kv, d_head, group_size):
+    """One-token decode (examples/15_serving_decoder.py::block_decode):
+    int4 projections (B13) over the B rows, the new K / V written at each
+    sequence's logical end in place (``index_put_`` on the (B, S_max,
+    H_kv, D) caches: the JAX example's functional ``.at[].set`` copies),
+    padded-cache flash attention with per-sequence lengths, the MoE FFN.
+    Returns (output, cache_k, cache_v, lengths + 1)."""
+    import torch
+
+    from gemm_hls_tpu_torch import flash_attention, matmul_quantized
+    from gemm_hls_tpu_torch.models.moe import moe_forward
+    b = x_tok.shape[0]
+
+    def mq(a, name):
+        return matmul_quantized(a, *quant4[name], bits=4, group_size=group_size)
+
+    q = mq(x_tok, "wq").reshape(b, 1, h_q, d_head)
+    k_new = mq(x_tok, "wk").reshape(b, 1, h_kv, d_head)
+    v_new = mq(x_tok, "wv").reshape(b, 1, h_kv, d_head)
+    at = (torch.arange(b, device=x_tok.device), lengths.long())
+    cache_k.index_put_(at, k_new[:, 0])
+    cache_v.index_put_(at, v_new[:, 0])
+    lengths = lengths + 1
+    att = flash_attention(q, cache_k, cache_v, causal=True, kv_lengths=lengths,
+                          block_q=32, block_kv=32)
+    y = x_tok + mq(att.reshape(b, h_q * d_head), "wo")
+    return y + moe_forward(moe, y, moe_cfg), cache_k, cache_v, lengths
+
+
+def moe_plain(torch, params, x, cfg):
+    """The MoE FFN as a plain per-expert loop: each expert's routed tokens
+    gathered (their count read on the host), two torch.matmul, the tanh
+    GELU, the mix; torch.topk routing."""
+    from gemm_hls_tpu_torch.models.moe import gelu_tanh
+    logits = x.float() @ params["router"]
+    top, ids = torch.topk(logits, cfg.top_k, dim=-1)
+    mix = torch.softmax(top, dim=-1)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        tok, slot = torch.nonzero(ids == e, as_tuple=True)
+        if tok.numel():
+            h = gelu_tanh(x[tok] @ params["w1"][e]).to(params["w2"].dtype)
+            y.index_add_(0, tok, (h @ params["w2"][e]).float() * mix[tok, slot, None])
+    return y.to(x.dtype)
+
+
+def attention_plain(torch, q, k, v, causal, lens=None):
+    """GQA attention on (B, S, H, D) by scaled_dot_product_attention (kv
+    heads repeated); ``lens`` masks the cache slots at or past each
+    sequence's length (the query at the cache end)."""
+    import torch.nn.functional as F
+    rep = q.shape[2] // k.shape[2]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    kh, vh = kh.repeat_interleave(rep, 1), vh.repeat_interleave(rep, 1)
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(k.shape[1], device=k.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+    o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                       is_causal=causal and lens is None)
+    return o.transpose(1, 2)
+
+
+def serving_prefill_plain(torch, x, dense, moe, moe_cfg, *, h_q, h_kv, d_head):
+    """The same prefill block in plain PyTorch with the un-quantized
+    weights: bf16 torch.matmul, SDPA, the per-expert loop.  Returns
+    (block output, attention sublayer output)."""
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    q, k, v = (flat @ dense[n] for n in ("wq", "wk", "wv"))
+    att = attention_plain(torch, q.reshape(b, s, h_q, d_head),
+                          k.reshape(b, s, h_kv, d_head),
+                          v.reshape(b, s, h_kv, d_head), True)
+    y = x + (att.reshape(b * s, -1) @ dense["wo"]).reshape(b, s, d)
+    return y + moe_plain(torch, moe, y.reshape(b * s, d), moe_cfg).reshape(b, s, d), y
+
+
+def serving_decode_plain(torch, x_tok, cache_k, cache_v, lengths, dense4, moe,
+                         moe_cfg, *, h_q, h_kv, d_head):
+    """The decode step in plain PyTorch with the int4 weights dequantized
+    as the kernel expands them (``dense4``: bf16(q s)): bf16 torch.matmul,
+    the new token written in place, SDPA over each sequence's live slots
+    (the caller's cache holds zeros past the lengths), the per-expert loop.
+    Returns (output, lengths + 1)."""
+    b = x_tok.shape[0]
+    q = (x_tok @ dense4["wq"]).reshape(b, 1, h_q, d_head)
+    at = (torch.arange(b, device=x_tok.device), lengths.long())
+    cache_k.index_put_(at, (x_tok @ dense4["wk"]).reshape(b, h_kv, d_head))
+    cache_v.index_put_(at, (x_tok @ dense4["wv"]).reshape(b, h_kv, d_head))
+    lengths = lengths + 1
+    att = attention_plain(torch, q, cache_k, cache_v, True, lengths)
+    y = x_tok + att.reshape(b, h_q * d_head) @ dense4["wo"]
+    return y + moe_plain(torch, moe, y, moe_cfg), lengths
+
+
+def serving_setup(torch, seed=5):
+    """The block's weights at SERVING's width, seeded as
+    experiments/serving_bench.py draws them: dense f32 (K, N) projections,
+    int8 per-channel (prefill) and int4 g128 (decode) copies on the card,
+    bf16 copies of the dense and the dequantized int4 weights, and bf16
+    MoE parameters from a torch.Generator."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch import quantize_weights
+    from gemm_hls_tpu_torch.models.moe import MoEConfig, init_moe_params
+    from gemm_hls_tpu_torch.ops.dequant import dequant_matmul_plain
+    c = SERVING
+    rng = np.random.default_rng(seed)
+    d, hd = c["d_model"], c["d_head"]
+    shapes = {"wq": (d, c["h_q"] * hd), "wk": (d, c["h_kv"] * hd),
+              "wv": (d, c["h_kv"] * hd), "wo": (c["h_q"] * hd, d)}
+    dense = {n: (rng.standard_normal(sh) / np.sqrt(sh[0])).astype(np.float32)
+             for n, sh in shapes.items()}
+
+    def cuda(pair):
+        return tuple(torch.from_numpy(a).cuda() for a in pair)
+
+    q8 = {n: cuda(quantize_weights(w, bits=8)) for n, w in dense.items()}
+    q4 = {n: cuda(quantize_weights(w, bits=4, group_size=c["group"]))
+          for n, w in dense.items()}
+    eye = {n: torch.eye(sh[0], device="cuda", dtype=torch.bfloat16)
+           for n, sh in shapes.items()}
+    dense4 = {n: dequant_matmul_plain(eye[n], *q4[n], bits=4, group_size=c["group"])
+              for n in shapes}
+    dense = {n: torch.from_numpy(w).cuda().to(torch.bfloat16) for n, w in dense.items()}
+    cfg = MoEConfig(d_model=d, d_ff=c["d_ff"], num_experts=c["experts"],
+                    top_k=c["top_k"], dtype="bfloat16")
+    moe = init_moe_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    return dense, q8, q4, dense4, moe, cfg
+
+
+def token_errors(torch, got, want):
+    """Per-token max |got - want| over the largest |want|."""
+    g, w = got.float().reshape(-1, got.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    return (g - w).abs().amax(-1) / w.abs().max()
+
+
+def phase_slice5(torch):
+    """Phase 17: the serving decoder block at full width, launch counts
+    zeroed before it, every port call of the block under
+    torch.cuda.set_sync_debug_mode("error") (a host synchronisation fails
+    the run).
+
+    Prefill against the plain bf16 block with the un-quantized weights at
+    examples/15_serving_decoder.py's quantization budget: attention
+    sublayer relative error < 0.05, median token error < 0.05, under 10% of
+    tokens above 0.1 (routing flipped by the quantization), once through
+    the fused W8A8 route (B14) and once through the two-pass route (B15).
+    Decode against the plain step with the same int4 weights dequantized
+    (bf16(q s), as the kernel expands them): per step, median token error
+    < 1e-2 (2.5 bf16 ulps of the largest output: the two sides round their
+    bf16 intermediates in other places) and under 5% of tokens above 2e-2 (bf16 rounding can flip a
+    near-tie routing), every output finite, with the cache slots past each
+    length NaN (K) / +inf (V) in the port's cache."""
+    from gemm_hls_tpu_torch.ops import flash
+    c = SERVING
+    dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
+    dense, q8, q4, dense4, moe, cfg = serving_setup(torch)
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    x = (torch.randn((c["batch"], c["seq"], c["d_model"]), generator=gen,
+                     device="cuda") * 0.5).to(torch.bfloat16)
+    reset_quant_counters()
+    reset_flash_counters()
+    res = {}
+    want, want_attn = serving_prefill_plain(torch, x, dense, moe, cfg, **dims)
+    for route, fuse in (("B14", True), ("B15", False)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, y_attn, _, _ = serving_prefill(x, q8, moe, cfg, fuse_quant=fuse, **dims)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rel_attn = float((y_attn.float() - want_attn.float()).abs().max()
+                         / want_attn.float().abs().max())
+        tok = token_errors(torch, y, want)
+        med, flipped = float(tok.median()), float((tok > 0.1).float().mean())
+        finite = bool(torch.isfinite(y.float()).all())
+        log(f"phase 17a: prefill B={c['batch']} S={c['seq']} d={c['d_model']} "
+            f"({route} projections, causal GQA flash, MoE on B16): attention "
+            f"sublayer rel err {rel_attn:.4f}, median token err {med:.4f}, "
+            f"{flipped:.1%} tokens routing-flipped")
+        if not (finite and rel_attn < 0.05 and med < 0.05 and flipped < 0.1):
+            raise AssertionError(f"prefill {route}: outside the quantization budget")
+        res[f"prefill {route}"] = dict(rel_attn=rel_attn, median=med, flipped=flipped)
+        del y, y_attn
+    del want, want_attn
+
+    kc, vc, lens = decode_cache(torch, gen, nb=c["dec_batch"], slots=c["slots"],
+                                hkv=c["h_kv"], d=c["d_head"], steps=c["steps"])
+    live = (torch.arange(c["slots"], device="cuda")[None, :] < lens[:, None].long())
+    rk, rv = (torch.where(live[..., None, None], t, 0) for t in (kc, vc))
+    rlens = lens.clone()
+    x_tok = (torch.randn((c["dec_batch"], c["d_model"]), generator=gen,
+                         device="cuda") * 0.5).to(torch.bfloat16)
+    worst_med, worst_flip = 0.0, 0.0
+    for step in range(c["steps"]):
+        want, rlens = serving_decode_plain(torch, x_tok, rk, rv, rlens, dense4, moe,
+                                           cfg, **dims)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, kc, vc, lens = serving_decode(x_tok, kc, vc, lens, q4, moe, cfg,
+                                             group_size=c["group"], **dims)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not bool(torch.isfinite(y.float()).all()):
+            raise AssertionError(f"decode step {step}: non-finite output")
+        tok = token_errors(torch, y, want)
+        med, flipped = float(tok.median()), float((tok > 2e-2).float().mean())
+        worst_med, worst_flip = max(worst_med, med), max(worst_flip, flipped)
+        if not (med < 1e-2 and flipped < 0.05):
+            raise AssertionError(f"decode step {step}: median token err {med:.2e}, "
+                                 f"{flipped:.1%} tokens above 2e-2")
+        x_tok = y
+    if not torch.equal(lens, rlens):
+        raise AssertionError("decode: lengths differ from the plain step's")
+    res["decode"] = dict(median=worst_med, flipped=worst_flip)
+    log(f"phase 17b: decode {c['steps']} steps, {c['dec_batch']} sequences x "
+        f"{c['slots']} slots (int4 g{c['group']} projections on B13, padded-cache "
+        f"flash, MoE on B16), stale slots NaN / inf: worst median token err "
+        f"{worst_med:.2e}, worst {worst_flip:.1%} tokens above 2e-2; lengths now "
+        f"{int(lens.min())}-{int(lens.max())}")
+    launches = dict(quant_counters(), flash_fwd=flash.flash_mha.launches)
+    log(f"phase 17: main-path launch counts {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the slice 5 "
+                                 f"main path")
+    return launches, res
+
+
+def device_profile(torch, fn, iters):
+    """torch.profiler over ``iters`` synchronised calls of ``fn`` after a
+    warm-up: (device busy share of the host-clock window, [(kernel, device
+    us per call), ...] largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = []
+    for e in prof.key_averages():
+        # Device-side events only: a CPU op (an autograd Function, a copy)
+        # can carry its kernel's time too.
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            kernels.append((e.key, dev / iters))
+    kernels.sort(key=lambda kv: -kv[1])
+    return sum(us for _, us in kernels) * iters / wall_us, kernels
+
+
+def phase_times5(torch):
+    """Phase 18: the new kernels at their serving shapes beside their
+    bounds, plain versions and library yardsticks (timed here, never called
+    by the port), and the serving block end to end beside the plain
+    composition (launches here are comparisons, not the main path's)."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch import quantize_weights
+    from gemm_hls_tpu_torch.models.perf_model import (H100, dequant_bound, flash_bound,
+                                                      grouped_bound, w8a8_bound)
+    from gemm_hls_tpu_torch.ops import dequant, gmm, quant
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    c = SERVING
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    rng = np.random.default_rng(181)
+    out = {}
+
+    def entry(key, fn, plain, library, bound, tol, plain_iters=3):
+        got, ref = fn(), plain()
+        err = compare(torch, got, ref, tol, f"timed {key}", scaled=True)[0]
+        ms = time_fn(fn, (), iters=20) * 1e3
+        plain_ms = time_fn(plain, (), iters=plain_iters, warmup=1) * 1e3
+        lib_ms = time_fn(library, (), iters=20) * 1e3 if library else None
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                        bound=bound)
+        log(f"phase 18: {key}: {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+            f"{bound[0] * 1e3:.4f} ms ({bound[1]}), library "
+            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+            + f"; max abs err {err:.3e}")
+
+    d = c["d_model"]
+    # B13: the decode q projection, (64, 2048) x (2048, 2048) int4 g128 bf16.
+    w = rng.standard_normal((d, d)).astype(np.float32) / np.sqrt(d)
+    wq4, s4 = (torch.from_numpy(a).cuda() for a in
+               quantize_weights(w, bits=4, group_size=c["group"]))
+    xd = (torch.randn((c["dec_batch"], d), generator=gen, device="cuda") * 0.5).to(bf16)
+    dcfg = quant.dequant_config(c["dec_batch"], d, d, bf16)
+    w_deq = dequant.dequant_matmul_plain(torch.eye(d, device="cuda", dtype=bf16),
+                                         wq4, s4, bits=4, group_size=c["group"])
+    entry("B13 decode 64x2048x2048 int4 g128",
+          lambda: dequant.dequant_matmul(xd, wq4, s4, cfg=dcfg, bits=4,
+                                         group_size=c["group"]),
+          lambda: dequant.dequant_matmul_plain(xd, wq4, s4, bits=4, group_size=c["group"]),
+          lambda: xd @ w_deq,
+          dequant_bound(H100, c["dec_batch"], d, d, 4, c["group"], bf16, bf16), BF16_RTOL,
+          plain_iters=10)
+    # B14 / B15: a prefill projection, (4096, 2048) x (2048, 2048), bf16 out.
+    m = c["batch"] * c["seq"]
+    wq8, s8 = (torch.from_numpy(a).cuda() for a in quantize_weights(w, bits=8))
+    xp = (torch.randn((m, d), generator=gen, device="cuda") * 0.5).to(bf16)
+    wcfg = quant.w8a8_resolve(m, d, d, None, bf16)
+    xq_pre = dequant.quantize_activations(xp)[0]
+    for key, fuse, bk in (("B14 prefill 4096x2048x2048 fused", True, d),
+                          ("B15 prefill 4096x2048x2048 two-pass", False, d)):
+        entry(key,
+              lambda fuse=fuse: dequant.w8a8_matmul(xp, wq8, s8, cfg=wcfg,
+                                                    fuse_quant=fuse),
+              lambda fuse=fuse, bk=bk: dequant.w8a8_plain(xp, wq8, s8, bk=bk, fused=fuse,
+                                                          out_dtype=bf16),
+              lambda: torch._int_mm(xq_pre, wq8),
+              w8a8_bound(H100, m, d, d, None, bf16, bf16), BF16_RTOL)
+    # B16: the MoE w1 at 8192 routed slots (prefill) and 128 (decode).
+    w1 = (torch.randn((c["experts"], d, c["d_ff"]), generator=gen, device="cuda")
+          * d ** -0.5).to(bf16)
+    for key, slots in (("B16 w1 prefill 8192 slots", m * c["top_k"]),
+                       ("B16 w1 decode 128 slots", c["dec_batch"] * c["top_k"])):
+        ids = torch.randint(0, c["experts"], (slots,), generator=gen, device="cuda")
+        sizes = torch.bincount(ids, minlength=c["experts"]).to(torch.int32)
+        lhs = (torch.randn((slots, d), generator=gen, device="cuda") * 0.5).to(bf16)
+        ends = torch.cumsum(sizes, 0).to(torch.int32)
+        library = None
+        if hasattr(torch, "_grouped_mm"):
+            try:
+                torch._grouped_mm(lhs, w1, offs=ends, out_dtype=bf16)
+                library = (lambda lhs=lhs, ends=ends:
+                           torch._grouped_mm(lhs, w1, offs=ends, out_dtype=bf16))
+            except Exception as exc:  # the yardstick only: the port never calls it
+                log(f"phase 18: torch._grouped_mm refused ({type(exc).__name__}: {exc})")
+        live = int((sizes > 0).sum())
+        entry(key,
+              lambda lhs=lhs, sizes=sizes: gmm.grouped_mxu(lhs, w1, sizes),
+              lambda lhs=lhs, sizes=sizes: gmm.grouped_mxu_plain(lhs, w1, sizes),
+              library,
+              grouped_bound(H100, slots, d, c["d_ff"], slots, live, bf16), BF16_RTOL)
+    del w1, xp, xq_pre
+
+    # The serving block end to end (host clock around synchronised work is
+    # the same as CUDA events here: each timed window ends in a sync).
+    dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
+    dense, q8, q4, dense4, moe, cfg = serving_setup(torch)
+    x = (torch.randn((c["batch"], c["seq"], d), generator=gen, device="cuda")
+         * 0.5).to(bf16)
+    out["prefill ms"] = time_fn(lambda: serving_prefill(x, q8, moe, cfg, **dims)[0],
+                                (), iters=5) * 1e3
+    out["prefill plain ms"] = time_fn(
+        lambda: serving_prefill_plain(torch, x, dense, moe, cfg, **dims)[0], (),
+        iters=5) * 1e3
+    n_tok = c["batch"] * c["seq"]
+    hd = c["h_q"] * c["d_head"]
+    pbound = sum(b[0] for b in (
+        w8a8_bound(H100, n_tok, hd, d, None, bf16, bf16),
+        w8a8_bound(H100, n_tok, c["h_kv"] * c["d_head"], d, None, bf16, bf16),
+        w8a8_bound(H100, n_tok, c["h_kv"] * c["d_head"], d, None, bf16, bf16),
+        w8a8_bound(H100, n_tok, d, hd, None, bf16, bf16),
+        flash_bound(H100, c["batch"] * c["h_q"], c["seq"], c["seq"], c["d_head"],
+                    bf16, True),
+        grouped_bound(H100, 2 * n_tok, d, c["d_ff"], 2 * n_tok, c["experts"], bf16),
+        grouped_bound(H100, 2 * n_tok, c["d_ff"], d, 2 * n_tok, c["experts"], bf16)))
+    out["prefill bound ms"] = pbound * 1e3
+    log(f"phase 18: serving prefill B={c['batch']} S={c['seq']}: {out['prefill ms']:.3f} "
+        f"ms vs plain composition (bf16 torch.matmul, SDPA, per-expert loop) "
+        f"{out['prefill plain ms']:.3f} ms; bound {pbound * 1e3:.4f} ms")
+    del x
+    kc, vc, lens = decode_cache(torch, gen, nb=c["dec_batch"], slots=c["slots"],
+                                hkv=c["h_kv"], d=c["d_head"], steps=c["steps"])
+    live = (torch.arange(c["slots"], device="cuda")[None, :] < lens[:, None].long())
+    rk, rv = (torch.where(live[..., None, None], t, 0) for t in (kc, vc))
+    xt = (torch.randn((c["dec_batch"], d), generator=gen, device="cuda") * 0.5).to(bf16)
+    out["decode us"] = time_fn(
+        lambda: serving_decode(xt, kc, vc, lens, q4, moe, cfg, group_size=c["group"],
+                               **dims)[0], (), iters=20) * 1e6
+    out["decode plain us"] = time_fn(
+        lambda: serving_decode_plain(torch, xt, rk, rv, lens, dense4, moe, cfg,
+                                     **dims)[0], (), iters=20) * 1e6
+    mean_len = float(lens.float().mean())
+    kvh = c["h_kv"] * c["d_head"]
+    dbound = sum(b[0] for b in (
+        flash_bound(H100, c["dec_batch"] * c["h_kv"], c["h_q"] // c["h_kv"],
+                    int(mean_len), c["d_head"], bf16, False),
+        dequant_bound(H100, c["dec_batch"], hd, d, 4, c["group"], bf16, bf16),
+        dequant_bound(H100, c["dec_batch"], kvh, d, 4, c["group"], bf16, bf16),
+        dequant_bound(H100, c["dec_batch"], kvh, d, 4, c["group"], bf16, bf16),
+        dequant_bound(H100, c["dec_batch"], d, hd, 4, c["group"], bf16, bf16),
+        grouped_bound(H100, 2 * c["dec_batch"], d, c["d_ff"], 2 * c["dec_batch"],
+                      c["experts"], bf16),
+        grouped_bound(H100, 2 * c["dec_batch"], c["d_ff"], d, 2 * c["dec_batch"],
+                      c["experts"], bf16)))
+    out["decode bound us"] = dbound * 1e6
+    log(f"phase 18: serving decode step, {c['dec_batch']} sequences x {c['slots']} "
+        f"slots: {out['decode us']:.1f} us vs plain composition "
+        f"{out['decode plain us']:.1f} us; bound {dbound * 1e6:.1f} us (mean length "
+        f"{mean_len:.0f})")
+    # Where the block's time goes: device busy share and kernels by device
+    # time (torch.profiler over synchronised calls).
+    x = (torch.randn((c["batch"], c["seq"], d), generator=gen, device="cuda")
+         * 0.5).to(bf16)
+    for key, fn, iters in (
+            ("decode step", lambda: serving_decode(xt, kc, vc, lens, q4, moe, cfg,
+                                                   group_size=c["group"], **dims), 10),
+            ("prefill", lambda: serving_prefill(x, q8, moe, cfg, **dims), 3)):
+        busy, kernels = device_profile(torch, fn, iters)
+        out[f"{key} busy"] = busy
+        log(f"phase 18: profile {key}: device busy {busy:.1%} of the window; per call "
+            + "; ".join(f"{name[:48]} {us:.1f} us" for name, us in kernels[:8]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1863,6 +2521,9 @@ def main() -> int:
     phase_flash_kernels(torch)
     launches4, _ = phase_slice4(torch)
     times4 = phase_times4(torch)
+    phase_quant_kernels(torch)
+    launches5, _ = phase_slice5(torch)
+    times5 = phase_times5(torch)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -1943,6 +2604,24 @@ def main() -> int:
             kernels[-1]["library_note"] = ("library_ms is SDPA's backward (dq, dk and dv "
                                            "in one call), beside pair_ms = flash_bwd_dq "
                                            "+ flash_bwd_dkv")
+    # Slice 5 at the serving shapes.
+    for key, name, source, replaces in (
+            ("B13 decode 64x2048x2048 int4 g128",
+             "dequant_gemm (B13, int4 g128 decode projection 64x2048x2048 bf16)",
+             "dequant_gemm.cu", "pallas_dequant.py:36"),
+            ("B14 prefill 4096x2048x2048 fused",
+             "w8a8_gemm fused (B14, prefill projection 4096x2048x2048 bf16)",
+             "w8a8_gemm.cu", "pallas_dequant.py:260"),
+            ("B15 prefill 4096x2048x2048 two-pass",
+             "w8a8_gemm two-pass (B15, prefill projection 4096x2048x2048 bf16)",
+             "w8a8_gemm.cu", "pallas_dequant.py:224"),
+            ("B16 w1 prefill 8192 slots",
+             "grouped_gemm (B16, MoE w1 8192 slots x 2048 -> 4096, 8 experts bf16)",
+             "grouped_gemm.cu", "pallas_grouped.py:151")):
+        t = times5[key]
+        kernels.append(kernel(name, f"gemm_hls_tpu_torch/csrc/{source}",
+                              f"gemm_hls_tpu/ops/{replaces}", launches5[key[:3]], t,
+                              t["bound"], t["library_ms"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

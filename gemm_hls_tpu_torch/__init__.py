@@ -14,8 +14,11 @@ plus_times GEMM runs on hand-written tensor-core kernels
 row-softmax variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
 (B4, B5), every other semiring on a CUDA-core kernel
 (``csrc/semiring_gemm.cu``), flash attention on ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (B6-B12); all build
-with nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (B6-B12), the
+quantized GEMMs ``matmul_quantized`` / ``matmul_w8a8`` on
+``csrc/dequant_gemm.cu`` (B13) and ``csrc/w8a8_gemm.cu`` (B14, B15), and
+``grouped_matmul`` (the MoE expert GEMM of ``models.moe``, forward) on
+``csrc/grouped_gemm.cu`` (B16); all build with nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
 """
 
 from gemm_hls_tpu_torch.config import GemmConfig, default_config
@@ -25,7 +28,14 @@ from gemm_hls_tpu_torch.ops.attention import (
     flash_attention,
 )
 from gemm_hls_tpu_torch.ops.fused_linear import fused_linear
+from gemm_hls_tpu_torch.ops.grouped import grouped_matmul
 from gemm_hls_tpu_torch.ops.matmul import matmul
+from gemm_hls_tpu_torch.ops.quant import (
+    dequantize_weights,
+    matmul_quantized,
+    matmul_w8a8,
+    quantize_weights,
+)
 from gemm_hls_tpu_torch.ops.semiring import (
     Semiring,
     available_semirings,
@@ -47,4 +57,9 @@ __all__ = [
     "attention",
     "attention_scores",
     "flash_attention",
+    "grouped_matmul",
+    "quantize_weights",
+    "dequantize_weights",
+    "matmul_quantized",
+    "matmul_w8a8",
 ]

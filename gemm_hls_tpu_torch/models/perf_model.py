@@ -85,6 +85,10 @@ def detect_chip() -> ChipSpec:
     raise NotImplementedError(f"no roofline constants for {name!r}")
 
 
+def _esize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def flash_bound(chip: ChipSpec, bh: int, s_q: int, s_kv: int, d: int,
                 dtype: torch.dtype, causal: bool, which: str = "fwd"):
     """Bound of the flash kernels on ``bh`` heads of (S_q, S_kv, D):
@@ -94,7 +98,7 @@ def flash_bound(chip: ChipSpec, bh: int, s_q: int, s_kv: int, d: int,
     (and for the backward dO, lse and delta) read once, the outputs (o and
     lse; dq; dk and dv) written once.  Rate: the tensor cores' for bf16 /
     fp16, the CUDA cores' 67 TFLOP/s for fp32."""
-    esize = torch.empty((), dtype=dtype).element_size()
+    esize = _esize(dtype)
     per = {"fwd": 4.0, "dq": 6.0, "dkv": 8.0}[which]
     ops = per * bh * s_q * s_kv * d * (0.5 if causal else 1.0)
     q_elems, kv_elems = bh * s_q * d, bh * s_kv * d
@@ -106,3 +110,38 @@ def flash_bound(chip: ChipSpec, bh: int, s_q: int, s_kv: int, d: int,
     else:
         moved = esize * (2 * q_elems + 4 * kv_elems) + 2 * rows
     return chip.bound(ops, chip.peak_for(dtype), moved)
+
+
+def dequant_bound(chip: ChipSpec, m: int, n: int, k: int, bits: int,
+                  group_size, x_dtype: torch.dtype, out_dtype: torch.dtype):
+    """Bound of kernel B13 on (M, K) x (K, N): 2 M N K operations at x's
+    tensor-core rate (the CUDA cores' for fp32); bytes: x, the packed
+    weights (``bits`` per element), the fp32 scales (K / group_size rows,
+    one for per-channel) and y, each once."""
+    groups = k // (group_size or k)
+    moved = (m * k * _esize(x_dtype) + k * n * bits // 8 + 4 * groups * n
+             + m * n * _esize(out_dtype))
+    return chip.bound(2.0 * m * n * k, chip.peak_for(x_dtype), moved)
+
+
+def w8a8_bound(chip: ChipSpec, m: int, n: int, k: int, group_size,
+               x_dtype: torch.dtype, out_dtype: torch.dtype):
+    """Bound of kernels B14 / B15 on (M, K) x (K, N): 2 M N K operations at
+    the int8 tensor-core rate; bytes: x in its own type (the function
+    quantizes it), the int8 weights, their fp32 scales and y, each once."""
+    groups = k // (group_size or k)
+    moved = (m * k * _esize(x_dtype) + k * n + 4 * groups * n
+             + m * n * _esize(out_dtype))
+    return chip.bound(2.0 * m * n * k, chip.peak_for("int8"), moved)
+
+
+def grouped_bound(chip: ChipSpec, m: int, k: int, n: int, rows: int,
+                  live_groups: int, dtype: torch.dtype, out_dtype=None):
+    """Bound of kernel B16 on an (M, K) lhs and G experts of (K, N): 2 rows
+    K N operations for the ``rows`` routed rows (sum of the group sizes,
+    at most M); bytes: lhs, the weights of the ``live_groups`` experts
+    that received rows, and the (M, N) output (zero tail included), each
+    once."""
+    moved = ((m * k + live_groups * k * n) * _esize(dtype)
+             + m * n * _esize(out_dtype or dtype))
+    return chip.bound(2.0 * rows * k * n, chip.peak_for(dtype), moved)

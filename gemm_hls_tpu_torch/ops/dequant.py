@@ -1,0 +1,348 @@
+"""Quantized GEMMs: the wrappers of the Hopper kernels that replace TPU
+kernels B13-B15, their plain PyTorch versions, and
+:func:`quantize_activations`.
+
+Counterpart of ``gemm_hls_tpu/ops/pallas_dequant.py``:
+
+* :func:`dequant_matmul` -> ``csrc/dequant_gemm.cu`` (B13
+  ``_dequant_kernel``): y = x . dequant(w_q, s), int8 or planar int4
+  weights expanded in the kernel.  Group-wise scales are folded into the
+  weights in the compute type (one rounding of q * s, none for fp32
+  inputs); per-channel scales multiply the fp32 accumulator at the store.
+* :func:`w8a8_matmul` -> ``csrc/w8a8_gemm.cu``: with ``fuse_quant`` (B14
+  ``_w8a8_fused_kernel``) x is quantized per (row, K-block) by a small
+  kernel, then multiplied on the int8 tensor cores with both scales folded
+  into each block's fp32 contribution; otherwise (B15 ``_w8a8_kernel``)
+  x is quantized per row (:func:`quantize_activations`) and the int32 sum
+  runs over all of K when the scales are per-channel and ``127^2 K <
+  2^31`` (``int_acc``), else it is scaled per K-block.  The JAX routing
+  rule between the two (``pallas_dequant.py:380-382``) is kept as it is:
+  it decides the numerics (ROADMAP C2).
+
+The quantization formulas differ by route, and each is copied: the fused
+route takes r = 127 / ax and round(x r), a zero block getting scale 0; the
+two-pass route takes sx = ax / 127 and round(x / sx), a zero row getting
+scale 1.  Both round half to even.  The int8 values and int32 products
+are then bit-identical to the JAX package's.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+version, which repeats the kernel's arithmetic (int32 products exactly,
+through float64 matmuls; fp32 scaling in the kernel's order).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gemm_hls_tpu_torch import _build
+from gemm_hls_tpu_torch.config import GemmConfig, cdiv, round_up
+
+# The JAX fused route's VMEM bound on the quantized (block_m, K) strip,
+# kept as a routing rule (it decides the activation-scale grid).
+_FUSED_STRIP_ELEMS = 8 * 1024 * 1024
+_KERNEL_X_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# The kernels' K step, in elements: B13 splits K into chunks of whole
+# steps; B14 / B15 fold their int32 partial into fp32 at the end of a step,
+# so their scale blocks are whole steps.
+KERNEL_K_STEP = 64
+
+
+def _out_dtype(cfg: GemmConfig, default: torch.dtype) -> torch.dtype:
+    return cfg.tout_dtype if cfg.out_dtype is not None else default
+
+
+def _refuse_interpret(interpret, what):
+    if interpret:
+        raise NotImplementedError(
+            f"{what}: CUDA has no interpreter mode; pass CPU tensors for the "
+            f"plain version")
+
+
+def _same_device(x, *ts):
+    for t in ts:
+        if t.device != x.device:
+            raise ValueError(f"operands on {x.device} and {t.device}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels read
+    weights and scales in 4- to 16-byte vectors); a copy only if needed."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# ---------------------------------------------------------------------------
+# B13: weight-only dequant GEMM
+# ---------------------------------------------------------------------------
+
+def unpack_weights(w_q: torch.Tensor, bits: int, group: int) -> torch.Tensor:
+    """int8 / planar int4 ``w_q`` as int8 values (K, N), sign-extended."""
+    if bits == 8:
+        return w_q
+    kh, n = w_q.shape
+    k = 2 * kh
+    packed = w_q.reshape(k // group, group // 2, n)
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(packed, 4), 4)
+    hi = torch.bitwise_right_shift(packed, 4)
+    return torch.cat([lo, hi], dim=1).reshape(k, n)
+
+
+def dequant_matmul_plain(x, w_q, scales, *, bits=8, group_size=None,
+                         out_dtype=None):
+    """Plain version of ``dequant_matmul``: the weights expanded as the
+    kernel expands them (group-wise: (q * s) rounded to x's type;
+    per-channel: q in x's type), an fp32 product, per-channel scales on
+    the fp32 result."""
+    k = x.shape[1]
+    g = group_size or k
+    q = unpack_weights(w_q, bits, g).float()
+    if scales.shape[0] > 1:
+        w = (q.reshape(k // g, g, -1) * scales[:, None, :]).reshape(k, -1)
+        y = x.float() @ w.to(x.dtype).float()
+    else:
+        y = (x.float() @ q.to(x.dtype).float()) * scales[0]
+    return y.to(out_dtype or x.dtype)
+
+
+def _dequant_splits(m: int, n: int, k: int, sms: int) -> int:
+    """K splits of one B13 launch: enough (m, n) tiles x splits for two
+    blocks on each of the card's ``sms`` SMs, each split a whole number of
+    K steps (at most 16 splits)."""
+    tiles = cdiv(m, 64) * cdiv(n, 64)
+    steps = cdiv(k, KERNEL_K_STEP)
+    if tiles >= 2 * sms:
+        return 1
+    per = cdiv(steps, min(steps, cdiv(2 * sms, tiles), 16))
+    return cdiv(steps, per)
+
+
+def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
+                   group_size=None, interpret=None):
+    """y[M, N] = x[M, K] . dequant(w_q, scales) (kernel B13).
+
+    Args:
+      x: (M, K) activations (bf16 / fp16 / fp32: the compute type).
+      w_q: int8 weights from ``quantize_weights``: (K, N) for bits=8,
+        (K//2, N) planar-packed for bits=4.
+      scales: f32 (K/group_size, N); (1, N) for per-channel.
+      cfg: its ``block_k`` is semantic (see ``ops/quant.py``); the output
+        type is ``cfg.out_dtype`` (default x's).
+
+    The JAX wrapper's checks: K a multiple of block_k; group-wise scales
+    need block_k a whole multiple of group_size; the packed row count.
+    """
+    m, k = x.shape
+    n = w_q.shape[1]
+    bk = min(cfg.block_k, k)
+    if w_q.dtype != torch.int8:
+        raise ValueError(f"w_q must be int8, got {w_q.dtype}")
+    if k % bk:
+        raise ValueError(f"K={k} must be a multiple of block_k={bk} "
+                         "on the quantized path")
+    n_groups = scales.shape[0]
+    g = group_size or k
+    if n_groups != k // g or scales.shape[1] != n:
+        raise ValueError(f"scales shape {tuple(scales.shape)} inconsistent "
+                         f"with K={k}, group_size={g}, N={n}")
+    if n_groups > 1 and (g > bk or bk % g):
+        raise ValueError(
+            f"block_k {bk} must be a whole multiple of group_size {g} "
+            "(scales cannot straddle K-blocks; matmul_quantized aligns "
+            "this automatically)")
+    packed_rows = k // 2 if bits == 4 else k
+    if w_q.shape[0] != packed_rows:
+        raise ValueError(f"w_q rows {w_q.shape[0]} != expected "
+                         f"{packed_rows} for bits={bits}")
+    out_dtype = _out_dtype(cfg, x.dtype)
+    if x.device.type == "cpu":
+        return dequant_matmul_plain(x, w_q, scales, bits=bits,
+                                    group_size=group_size, out_dtype=out_dtype)
+    _same_device(x, w_q, scales)
+    _refuse_interpret(interpret, "dequant_matmul")
+    if x.dtype not in _KERNEL_X_DTYPES:
+        raise NotImplementedError(
+            f"dequant_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32)")
+    x, w_q, scales = x.contiguous(), _aligned(w_q), _aligned(scales.float())
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    splits = _dequant_splits(
+        m, n, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.dequant_gemm(
+            x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k, bits, g, n_groups,
+            splits, _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
+            int(x.data_ptr() % 16 == 0 and k % 8 == 0),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "dequant_matmul")
+    dequant_matmul.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B14 / B15: W8A8
+# ---------------------------------------------------------------------------
+
+_FUSED, _INT_ACC, _PER_BLOCK = 0, 1, 2  # csrc/w8a8_gemm.cu's modes
+
+
+def quantize_activations(x):
+    """Per-row symmetric dynamic int8 quantization: (x_q, sx) with
+    x ~ x_q . sx, sx (M, 1) f32; a zero row gets sx = 1.  On the card the
+    quantize kernel of ``csrc/w8a8_gemm.cu``, else plain torch."""
+    if x.device.type == "cpu":
+        return _quantize_plain(x, x.shape[1], fused=False)
+    xq, sx = _quantize_kernel(x, x.shape[1], fused=False)
+    return xq, sx.reshape(-1, 1)
+
+
+def _quantize_plain(x, bk: int, fused: bool):
+    """(x_q int8 (M, K), scales): fused -> per (row, K-block) scales
+    (n_kb, M), r = 127 / ax, zero block scale 0; otherwise per-row (M, 1),
+    sx = ax / 127, zero row scale 1."""
+    xf = x.float()
+    if not fused:
+        ax = xf.abs().amax(dim=1, keepdim=True)
+        # Tensor / tensor: a true division on the card too (torch divides
+        # a CUDA tensor by a Python scalar through its reciprocal).
+        sx = torch.where(ax == 0, 1.0, ax / torch.full_like(ax, 127.0))
+        return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+    m, k = x.shape
+    xb = xf.reshape(m, k // bk, bk)
+    ax = xb.abs().amax(dim=2, keepdim=True)
+    r = torch.where(ax == 0, 0.0, torch.full_like(ax, 127.0) / ax)
+    xq = torch.clamp(torch.round(xb * r), -127, 127).to(torch.int8)
+    sxb = ax * (1.0 / 127.0)
+    return xq.reshape(m, k), sxb[..., 0].T.contiguous()
+
+
+def _int_dot(a, b):
+    """Exact int32 product of int8 matrices (a float64 matmul: every
+    partial sum below 2^53)."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def w8a8_plain(x, w_q, scales, *, bk: int, fused: bool, out_dtype):
+    """Plain version of ``w8a8_matmul`` on the route and block the wrapper
+    chose: B14 (``fused``) or B15 (``int_acc`` when the scales are
+    per-channel and 127^2 K < 2^31)."""
+    m, k = x.shape
+    n_groups = scales.shape[0]
+    n_kb = k // bk
+    xq, sx = _quantize_plain(x, bk, fused)
+    acc = torch.zeros((m, w_q.shape[1]), dtype=torch.float32, device=x.device)
+    if fused:
+        for b in range(n_kb):
+            sl = slice(b * bk, (b + 1) * bk)
+            c = _int_dot(xq[:, sl], w_q[sl]).float() * sx[b][:, None]
+            if n_groups > 1:
+                c = c * scales[b]
+            acc = acc + c
+        if n_groups == 1:
+            acc = acc * scales[0]
+        return acc.to(out_dtype)
+    if n_groups == 1 and 16129 * k < 2 ** 31:
+        return ((_int_dot(xq, w_q).float() * scales[0]) * sx).to(out_dtype)
+    for b in range(n_kb):
+        sl = slice(b * bk, (b + 1) * bk)
+        acc = acc + _int_dot(xq[:, sl], w_q[sl]).float() * scales[
+            b if n_groups > 1 else 0]
+    return (acc * sx).to(out_dtype)
+
+
+def _quantize_kernel(x, bk: int, fused: bool):
+    """The quantize kernel: (x_q (M, K) int8, scales (n_kb, M) f32)."""
+    m, k = x.shape
+    x = x.contiguous()
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((cdiv(k, bk), m), dtype=torch.float32, device=x.device)
+    if m and k:
+        lib = _build.library()
+        with torch.cuda.device(x.device):
+            rc = lib.w8a8_quantize(
+                x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, bk,
+                int(fused), _build.dtype_code(x.dtype),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "w8a8 quantize")
+    return xq, sx
+
+
+def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
+                interpret=None, fuse_quant: bool = True):
+    """y = (x quantized) . dequant(w_q, scales) on the int8 tensor cores.
+
+    ``fuse_quant=True`` (default) quantizes x per (row, K-block of
+    ``block_k``) and folds both scales into each block (kernel B14);
+    ``fuse_quant=False`` runs the two-pass schedule (per-row
+    :func:`quantize_activations`, kernel B15).  The JAX rule that sends a
+    fused request to the two-pass route (a (block_m, K) strip over 8 Mi
+    elements, or K, block_k or the n tile not a multiple of 128) is kept.
+    Output type ``cfg.out_dtype`` (default float32).
+    """
+    m, k = x.shape
+    n = w_q.shape[1]
+    bm = min(cfg.block_m, round_up(m, 32))
+    bn, bk = min(cfg.block_n, n), min(cfg.block_k, k)
+    if w_q.dtype != torch.int8:
+        raise ValueError(f"w_q must be int8, got {w_q.dtype}")
+    if k % bk:
+        raise ValueError(f"K={k} must be a multiple of block_k={bk}")
+    n_groups = scales.shape[0]
+    g = group_size or k
+    if n_groups != k // g or scales.shape[1] != n:
+        raise ValueError(f"scales shape {tuple(scales.shape)} inconsistent "
+                         f"with K={k}, group_size={g}, N={n}")
+    if n_groups > 1 and g != bk:
+        raise ValueError(f"W8A8 group-wise scales need group_size == "
+                         f"block_k ({g} != {bk}): int32 contributions "
+                         "are per-block")
+    if fuse_quant and (bm * k > _FUSED_STRIP_ELEMS or k % 128 or bk % 128
+                       or bn % 128):
+        fuse_quant = False
+    out_dtype = _out_dtype(cfg, torch.float32)
+    if x.device.type == "cpu":
+        return w8a8_plain(x, w_q, scales.float(), bk=bk, fused=fuse_quant,
+                          out_dtype=out_dtype)
+    _same_device(x, w_q, scales)
+    _refuse_interpret(interpret, "w8a8_matmul")
+    if x.dtype not in _KERNEL_X_DTYPES:
+        raise NotImplementedError(
+            f"w8a8_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32)")
+    int_acc = n_groups == 1 and 16129 * k < 2 ** 31
+    mode = _FUSED if fuse_quant else (_INT_ACC if int_acc else _PER_BLOCK)
+    if mode != _INT_ACC and bk % KERNEL_K_STEP:
+        raise NotImplementedError(
+            f"w8a8_matmul: block_k {bk} is not a multiple of the kernel's "
+            f"{KERNEL_K_STEP}-deep K step, where its scales change")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    if fuse_quant:
+        xq, sx = _quantize_kernel(x, bk, fused=True)
+    else:
+        xq, sx = _quantize_kernel(x, k, fused=False)
+    w_q, scales = _aligned(w_q), scales.float().contiguous()
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.w8a8_gemm(
+            xq.data_ptr(), w_q.data_ptr(), scales.data_ptr(), sx.data_ptr(),
+            out.data_ptr(), m, n, k, bk, n_groups, mode,
+            _build.dtype_code(out_dtype), int(k % 16 == 0),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "w8a8_matmul")
+    if fuse_quant:
+        w8a8_matmul.fused_launches += 1
+    else:
+        w8a8_matmul.launches += 1
+    return out
+
+
+# Kernel launches since the counts were last reset (plain calls not
+# counted): B13; B14 (quantize + GEMM, counted once a call); B15.
+dequant_matmul.launches = 0
+w8a8_matmul.fused_launches = 0
+w8a8_matmul.launches = 0

@@ -1,7 +1,8 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
 row-softmax variants), B3 (2-D and batched), B4 and B5 (the integer-slice
-GEMMs) and the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
-case tables) on the card, each against its plain PyTorch version; the gradients
+GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
+case tables) and the quantized and grouped GEMMs (B13-B16, over its
+phase-16 tables) on the card, each against its plain PyTorch version; the gradients
 of the batched, epilogue, ``fused_linear``, ``attention``, i8x and semiring
 paths against plain autograd; the i8x tiers, the Ozaki GEMMs and the graph
 applications against float64 and Floyd-Warshall references.
@@ -27,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from gemm_hls_tpu_torch import attention, fused_linear, matmul
+from gemm_hls_tpu_torch import attention, fused_linear, grouped_matmul, matmul
 from gemm_hls_tpu_torch.config import ROW_SOFTMAX_MAX_N, default_config
 from gemm_hls_tpu_torch.models import graph
 from gemm_hls_tpu_torch.ops import mxu, ozaki, slice_kernels, vpu
@@ -737,3 +738,70 @@ def test_flash_fp32_gradients_vs_float64(cuda, case):
 @pytest.mark.parametrize("what", chip_smoke.FLASH_REFUSALS)
 def test_flash_refuses_what_no_kernel_takes(cuda, what):
     chip_smoke.flash_refusal(torch, what)
+
+
+# ---- slice 5: dequant (B13), W8A8 (B14 / B15), grouped (B16) ---------------
+# chip_smoke.py's phase-16 case tables, one runner each (its tolerances:
+# relative 1e-4 scaled for fp32 outputs, 1e-2 for bf16 / fp16; the W8A8
+# int8 activations and B16's zero tail exactly).
+
+
+@pytest.mark.parametrize("case", chip_smoke.DEQUANT_CASES, ids=str)
+def test_dequant_kernel_vs_plain(cuda, case):
+    chip_smoke.dequant_case(torch, _gen(37), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.W8A8_CASES, ids=str)
+def test_w8a8_kernels_vs_plain(cuda, case):
+    chip_smoke.w8a8_case(torch, _gen(41), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.GROUPED_CASES, ids=str)
+def test_grouped_kernel_vs_plain(cuda, case):
+    chip_smoke.grouped_case(torch, _gen(43), case)
+
+
+def test_moe_forward_has_no_host_sync(cuda):
+    # The routing never reaches the host: a sync under this mode raises.
+    from gemm_hls_tpu_torch.models import moe
+    cfg = moe.MoEConfig(d_model=64, d_ff=128, num_experts=8, top_k=2,
+                        dtype="bfloat16")
+    params = moe.init_moe_params(_gen(47), cfg)
+    x = torch.randn((100, 64), generator=_gen(48), device=cuda).to(torch.bfloat16)
+    ref = moe.moe_forward({k: v.cpu() for k, v in params.items()}, x.cpu(), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe.moe_forward(params, x, cfg)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _close(y.float().cpu(), ref.float(), 2e-2)
+
+
+def test_grouped_refuses_a_gradient_on_the_card(cuda):
+    lhs = torch.ones(8, 4, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="B17"):
+        grouped_matmul(lhs, torch.ones(2, 4, 4, device=cuda),
+                       torch.tensor([4, 4], device=cuda))
+
+
+@pytest.mark.parametrize("which", ["dequant", "w8a8"])
+def test_quantized_weights_at_an_odd_address(cuda, which):
+    # Weights viewed one byte into a buffer: the kernels' vector loads need
+    # aligned rows, so the wrapper copies such a view once.
+    from gemm_hls_tpu_torch import matmul_quantized, matmul_w8a8, quantize_weights
+    from gemm_hls_tpu_torch.ops import dequant
+    w = torch.randn((256, 128), generator=_gen(53), device=cuda)
+    wq, s = (torch.from_numpy(a).to(cuda) for a in quantize_weights(w.cpu().numpy()))
+    odd = torch.empty(wq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(wq.shape)
+    odd.copy_(wq)
+    x = torch.randn((64, 256), generator=_gen(54), device=cuda).to(torch.bfloat16)
+    if which == "dequant":
+        got = matmul_quantized(x, odd, s)
+        ref = dequant.dequant_matmul_plain(x, wq, s)
+    else:
+        got = matmul_w8a8(x, odd, s)
+        ref = matmul_w8a8(x, wq, s)
+    torch.cuda.synchronize()
+    _close(got.float(), ref.float(), 1e-2)
