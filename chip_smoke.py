@@ -90,7 +90,27 @@ Phases, each printed as it ends:
  18. times of B13, B14, B15 and B16 at their serving shapes beside their
      bounds, plain versions and library calls (bf16 ``torch.matmul`` on the
      dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``), and the
-     serving prefill and decode step beside the plain composition.
+     serving prefill and decode step beside the plain composition;
+ 19. ``grouped_update`` (B17, the grouped GEMM's weight gradient) against
+     its plain version: tests/test_grouped.py's matrix in bf16 / fp16 /
+     fp32, NaN rows past the groups, routing past M, K and N off the
+     tiles, empty groups exactly zero, two launches bitwise equal; then
+     ``grouped_matmul``'s gradients (B16 and B17) against plain autograd,
+     both ``transpose_rhs``, bf16 / fp32 and bf16 operands with an fp32
+     config;
+ 20. slice 6's main path, launch counts set to 0 before it and read after:
+     MoE training (``models.moe.moe_train_step``) at
+     experiments/serving_bench.py's MoE width (d 2048, d_ff 4096, 8 experts
+     top-2, bf16, 4096 tokens), every port call under
+     ``set_sync_debug_mode("error")``: the gradient against the plain
+     per-expert autograd step, 5 steps with 3 B16 and 2 B17 launches each
+     and each loss against the plain loss, a step with the aux loss and one
+     with an explicit GemmConfig, an fp32 run at d 512 against the plain
+     fp32 step;
+ 21. times of B17 at the step's two weight-gradient shapes beside its
+     bound, plain version and ``torch._grouped_mm`` (or a per-expert
+     ``torch.matmul`` loop), the training step beside the plain step and
+     its bound, and a torch.profiler breakdown of one step.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -1866,6 +1886,10 @@ DEQUANT_CASES = (
      for m, n, k in ((1, 1001, 256), (64, 2048, 2048), (130, 520, 1024))]
     + [("float16", 4, 128, 64, 2048, 2048, None),
        ("float16", 8, None, 130, 1001, 512, None)]
+    # Groups of 32, under the kernel's 64-deep K step: the int4 g32 decode
+    # projections of examples/15_serving_decoder.py:53, and int8.
+    + [("bfloat16", bits, 32, m, n, k, None)
+       for bits in (4, 8) for m, n, k in ((1, 1001, 256), (64, 2048, 2048))]
 )
 # B14 / B15: (x dtype, group, M, N, K, fuse_quant asked, zero rows, out
 # dtype, route the JAX rule gives).
@@ -1891,6 +1915,30 @@ _GROUPED_SHAPES = [
 ]
 GROUPED_CASES = [(dt, m, k, n, gs, trb) for dt in _DT
                  for m, k, n, gs in _GROUPED_SHAPES for trb in (False, True)]
+# Phase 19's B17 table, which tests/test_torch_kernels.py parametrises too:
+# (dtype, M, K, N, group sizes, output dtype (None: the input's), rows past
+# the groups NaN in both operands).  _GROUPED_SHAPES in bf16 / fp16 / fp32
+# (all groups empty included), then NaN rows past the groups, routing past
+# M (clamped), K and N off the tiles (130 x 129 element loads; 136 x 200
+# vector loads), long groups over several row chunks and tiles, an fp32
+# output of bf16 operands.
+GROUPED_UPDATE_CASES = (
+    [(dt, m, k, n, gs, None, False) for dt in _DT for m, k, n, gs in _GROUPED_SHAPES]
+    + [(dt, 96, 24, 40, [30, 0, 41], None, True) for dt in _DT]
+    + [(dt, 100, 64, 72, [60, 70, 20], None, False) for dt in ("bfloat16", "float32")]
+    + [(dt, 300, 130, 129, [100, 0, 150, 30], None, True) for dt in _DT]
+    + [(dt, 300, 136, 200, [7, 250, 0, 40], None, False) for dt in ("bfloat16", "float32")]
+    + [("bfloat16", 1000, 256, 384, [700, 300], None, False),
+       ("float32", 1000, 256, 384, [1, 0, 999], None, False),
+       ("bfloat16", 2048, 512, 1024, [512, 0, 300, 700, 1, 35, 200, 300], "float32",
+        False)]
+)
+# grouped_matmul's gradients on the card: (dtype, transpose_rhs, explicit
+# GemmConfig()), the last two the mixed case (bf16 operands, fp32 output
+# and cotangent).
+GROUPED_GRAD_CASES = [(dt, trb, False) for dt in ("bfloat16", "float32")
+                      for trb in (False, True)] + [
+                          ("bfloat16", trb, True) for trb in (False, True)]
 
 
 def quant_rtol(torch, dtype):
@@ -2473,6 +2521,383 @@ def phase_times5(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: MoE training -- the grouped GEMM's weight gradient (B17),
+# grouped_matmul's backward and moe_train_step
+# ---------------------------------------------------------------------------
+
+def grouped_update_case(torch, gen, case):
+    """One GROUPED_UPDATE_CASES case: ``grouped_update_mxu`` on the card (one
+    B17 launch) against the plain version; the blocks of groups with no
+    rows exactly zero.  Returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import gmm
+
+    dt, m, k, n, gs, out, nan_tail = case
+    dtype = getattr(torch, dt)
+    out_dtype = getattr(torch, out) if out else None
+    lhs, g = signed(torch, (m, k), dtype, gen), signed(torch, (m, n), dtype, gen)
+    if nan_tail:  # stale rows past the groups: no output may see them
+        lhs[sum(gs):] = float("nan")
+        g[sum(gs):] = float("nan")
+    sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    before = gmm.grouped_update_mxu.launches
+    got = gmm.grouped_update_mxu(lhs, g, sizes, num_groups=len(gs), out_dtype=out_dtype)
+    if gmm.grouped_update_mxu.launches != before + 1:
+        raise AssertionError(f"B17 {case}: no launch")
+    ref = gmm.grouped_update_mxu_plain(lhs, g, sizes, num_groups=len(gs),
+                                       out_dtype=out_dtype)
+    err = compare(torch, got, ref, quant_rtol(torch, got.dtype), f"B17 {case}",
+                  scaled=True)[0]
+    ends = gmm.group_ends(sizes, m).tolist()
+    for grp, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)):
+        if hi == lo and bool(got[grp].any()):
+            raise AssertionError(f"B17 {case}: empty group {grp}'s block is not zero")
+    return err
+
+
+def grouped_update_repeats(torch, gen):
+    """Two launches on the same operands give the same bits (no atomics)."""
+    from gemm_hls_tpu_torch.ops import gmm
+    lhs = signed(torch, (2048, 512), torch.bfloat16, gen)
+    g = signed(torch, (2048, 1024), torch.bfloat16, gen)
+    sizes = torch.tensor([900, 0, 1100, 48], dtype=torch.int32, device="cuda")
+    first = gmm.grouped_update_mxu(lhs, g, sizes, num_groups=4)
+    if not torch.equal(first, gmm.grouped_update_mxu(lhs, g, sizes, num_groups=4)):
+        raise AssertionError("B17: two launches differ")
+
+
+def grouped_grad_case(torch, gen, case):
+    """One GROUPED_GRAD_CASES case: ``grouped_matmul``'s gradients on the
+    card (B16 forward, B16 for dlhs, B17 for drhs) against plain autograd
+    through ``grouped_mxu_plain`` with the same cotangent.  Returns the
+    largest abs error."""
+    from gemm_hls_tpu_torch import GemmConfig, grouped_matmul
+    from gemm_hls_tpu_torch.ops import gmm
+
+    dt, trb, mixed = case
+    dtype = getattr(torch, dt)
+    m, k, n, gs = 300, 72, 136, [100, 0, 150, 30]
+    lhs = signed(torch, (m, k), dtype, gen).requires_grad_()
+    rhs = signed(torch, (len(gs), n, k) if trb else (len(gs), k, n), dtype,
+                 gen).requires_grad_()
+    sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    before = quant_counters()["B16"], gmm.grouped_update_mxu.launches
+    out = grouped_matmul(lhs, rhs, sizes, GemmConfig() if mixed else None,
+                         transpose_rhs=trb)
+    cot = signed(torch, out.shape, out.dtype, gen)
+    dl, dr = torch.autograd.grad(out, (lhs, rhs), cot)
+    after = quant_counters()["B16"], gmm.grouped_update_mxu.launches
+    if (after[0] - before[0], after[1] - before[1]) != (2, 1):
+        raise AssertionError(f"grouped_matmul gradient {case}: launches "
+                             f"B16 {after[0] - before[0]}, B17 {after[1] - before[1]}")
+    pl, pr = (t.detach().clone().requires_grad_() for t in (lhs, rhs))
+    pout = gmm.grouped_mxu_plain(pl, pr, sizes, transpose_rhs=trb, out_dtype=out.dtype)
+    pdl, pdr = torch.autograd.grad(pout, (pl, pr), cot)
+    errs = [compare(torch, got, ref, quant_rtol(torch, got.dtype),
+                    f"grouped_matmul {name} {case}", scaled=True)[0]
+            for name, got, ref in (("out", out.detach(), pout.detach()), ("dlhs", dl, pdl),
+                                   ("drhs", dr, pdr))]
+    if bool(dr[1].any()):
+        raise AssertionError(f"grouped_matmul gradient {case}: the empty group's "
+                             f"weight gradient is not zero")
+    return max(errs)
+
+
+def phase_grouped_update(torch):
+    """Phase 19: B17 against its plain version on the card over
+    GROUPED_UPDATE_CASES, two launches bitwise equal, and grouped_matmul's
+    gradients against plain autograd over GROUPED_GRAD_CASES.  Tolerances:
+    phase 16's (relative 1e-4 scaled by the largest output for fp32
+    outputs, 1e-2 for bf16 / fp16)."""
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    worst = max(grouped_update_case(torch, gen, c) for c in GROUPED_UPDATE_CASES)
+    grouped_update_repeats(torch, gen)
+    worst_grad = max(grouped_grad_case(torch, gen, c) for c in GROUPED_GRAD_CASES)
+    torch.cuda.synchronize()
+    log(f"phase 19: B17 vs plain, {len(GROUPED_UPDATE_CASES)} cases (tests/"
+        f"test_grouped.py's matrix in bf16 / fp16 / fp32, NaN rows past the "
+        f"groups, routing past M, K x N off the tiles, empty groups exactly zero): "
+        f"ok (max abs err {worst:.3e}); two launches bitwise equal; "
+        f"grouped_matmul gradients vs plain autograd, {len(GROUPED_GRAD_CASES)} cases "
+        f"(transpose_rhs, bf16 / fp32, bf16 operands with an fp32 config): ok "
+        f"(max abs err {worst_grad:.3e})")
+
+
+# Phase 20's training run at SERVING's MoE width: 4096 tokens (B 4 x S
+# 1024, 8192 routed slots), a seeded target, 5 SGD steps.  lr 10 with the
+# mean-square loss: at d_model 2048 (plain versions, d_ff 256) lr 1 rounds
+# most bf16 weight updates away and lr 1000 diverges within 5 steps.  The
+# fp32 run at a reduced width holds the kernels' fp32 routes to 1e-4.
+TRAIN = dict(tokens=4096, steps=5, lr=10.0, aux_weight=0.01,
+             fp32=dict(d_model=512, d_ff=1024, experts=8, tokens=2048))
+
+
+def train_setup(torch, cfg, tokens, seed):
+    """Seeded bf16 / fp32 MoE parameters on the card (a torch.Generator)
+    and a batch: x ~ N(0, 1/4), target tanh(x . W_t), W_t ~ N(0, 1/d)."""
+    from gemm_hls_tpu_torch.models.moe import init_moe_params
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_moe_params(gen, cfg)
+    dt = getattr(torch, cfg.dtype)
+    x = (torch.randn((tokens, cfg.d_model), generator=gen, device="cuda") * 0.5).to(dt)
+    w_t = torch.randn((cfg.d_model, cfg.d_model), generator=gen,
+                      device="cuda") * cfg.d_model ** -0.5
+    return params, (x, torch.tanh(x.float() @ w_t).to(dt))
+
+
+def moe_plain_loss(torch, params, batch, cfg, aux_weight=0.0):
+    """The MoE loss in plain PyTorch: ``moe_plain`` (per-expert loop,
+    torch.topk routing) and, with ``aux_weight``, the Switch aux loss from
+    its own softmax and routing counts."""
+    x, y = batch
+    loss = torch.mean((moe_plain(torch, params, x, cfg).float() - y.float()) ** 2)
+    if aux_weight:
+        logits = x.float() @ params["router"]
+        ids = torch.topk(logits, cfg.top_k, dim=-1)[1]
+        f = torch.bincount(ids.reshape(-1), minlength=cfg.num_experts).float()
+        f = f / (x.shape[0] * cfg.top_k)
+        loss = loss + aux_weight * cfg.num_experts * torch.sum(
+            f * torch.softmax(logits, dim=-1).mean(0))
+    return loss
+
+
+def plain_grads(torch, params, batch, cfg, aux_weight=0.0):
+    """(loss, {name: gradient}) of ``moe_plain_loss`` under plain autograd."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = moe_plain_loss(torch, leaves, batch, cfg, aux_weight)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def port_grads(torch, params, batch, cfg, aux_weight=0.0):
+    """(loss, {name: gradient}): ``moe_loss`` through the kernels' autograd,
+    the same composition ``moe_train_step`` runs."""
+    from gemm_hls_tpu_torch.models.moe import moe_loss
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = moe_loss(leaves, batch, cfg, aux_weight)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def no_sync(torch, fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation inside it fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out
+
+
+def grad_errors(torch, got, want):
+    """max |got - want| / max |want| for each gradient."""
+    return {k: float((got[k].float() - want[k].float()).abs().max()
+                     / want[k].float().abs().max()) for k in want}
+
+
+def phase_slice6(torch):
+    """Phase 20: slice 6's main path, MoE training at SERVING's width
+    (d_model 2048, d_ff 4096, 8 experts top-2, bf16, 4096 tokens), every
+    port call under set_sync_debug_mode("error").
+
+    (a) One gradient through ``moe_loss`` against the plain per-expert
+    step's autograd from the same params: loss relative error < 1e-2, each
+    gradient max |err| / max |ref| < 2e-2 (bf16 intermediates rounded in
+    other places).  (b) Launch counts zeroed, then 5 ``moe_train_step``
+    steps: exactly 3 B16 launches (two forward, w2's dlhs; w1's dlhs has no
+    input that needs it) and 2 B17 launches (w1's and w2's drhs) each; each
+    step's loss within 1e-2 of the plain loss on the same params; every
+    parameter finite; the loss falls.  (c) One step with aux_weight 0.01
+    and one with an explicit ``MoEConfig(gemm=GemmConfig())`` (fp32 hidden
+    layers, both kernels' fp32 routes), each within 1e-2 of the plain loss.
+    (d) An fp32 run at d 512, d_ff 1024, 2048 tokens: loss and gradients
+    within 1e-4 of the plain fp32 step (IEEE fp32 on both sides, TF32 off).
+    """
+    import dataclasses
+
+    from gemm_hls_tpu_torch import GemmConfig
+    from gemm_hls_tpu_torch.models.moe import MoEConfig, moe_train_step
+    from gemm_hls_tpu_torch.ops import gmm
+
+    c, t = SERVING, TRAIN
+    cfg = MoEConfig(d_model=c["d_model"], d_ff=c["d_ff"], num_experts=c["experts"],
+                    top_k=c["top_k"], dtype="bfloat16")
+    params, batch = train_setup(torch, cfg, t["tokens"], seed=201)
+
+    def counts():
+        return quant_counters()["B16"], gmm.grouped_update_mxu.launches
+
+    # (a) gradients against the plain step.
+    want_loss, want = plain_grads(torch, params, batch, cfg)
+    loss, got = no_sync(torch, lambda: port_grads(torch, params, batch, cfg))
+    rel_loss = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    errs = grad_errors(torch, got, want)
+    log(f"phase 20a: MoE gradient d={cfg.d_model} d_ff={cfg.d_ff} {cfg.num_experts} "
+        f"experts top-{cfg.top_k} bf16, {t['tokens']} tokens, vs the plain per-expert "
+        f"autograd step: loss rel err {rel_loss:.2e}, gradient max err / max ref "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not (rel_loss < 1e-2 and all(v < 2e-2 for v in errs.values())):
+        raise AssertionError("MoE gradient outside its tolerance against the plain step")
+    del got, want
+
+    # (b) the main path: 5 training steps, launch counts zeroed first.
+    reset_quant_counters()
+    gmm.grouped_update_mxu.launches = 0
+    losses, worst = [], 0.0
+    for step in range(t["steps"]):
+        plain_loss = float(moe_plain_loss(torch, params, batch, cfg))
+        before = counts()
+        params, loss = no_sync(torch, lambda p=params: moe_train_step(
+            p, batch, cfg, lr=t["lr"]))
+        after = counts()
+        if (after[0] - before[0], after[1] - before[1]) != (3, 2):
+            raise AssertionError(f"train step {step}: B16 {after[0] - before[0]}, "
+                                 f"B17 {after[1] - before[1]} launches (want 3, 2)")
+        losses.append(float(loss))
+        worst = max(worst, abs(losses[-1] - plain_loss) / abs(plain_loss))
+        if not all(bool(torch.isfinite(p.float()).all()) for p in params.values()):
+            raise AssertionError(f"train step {step}: a parameter is not finite")
+    launches = {"B16": counts()[0], "B17": counts()[1]}
+    log(f"phase 20b: {t['steps']} moe_train_step steps (lr {t['lr']}): losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + f"; worst rel err against the plain loss on the same params {worst:.2e}; "
+        f"launch counts {launches} (3 B16 + 2 B17 a step)")
+    if not (worst < 1e-2 and losses[-1] < losses[0]):
+        raise AssertionError("MoE training: loss off the plain step's or not falling")
+
+    # (c) the Switch aux loss; an explicit GemmConfig (fp32 hidden layers).
+    res = {}
+    for key, step_cfg, aux in (
+            ("aux_weight 0.01", cfg, t["aux_weight"]),
+            ("gemm=GemmConfig()", dataclasses.replace(cfg, gemm=GemmConfig()), 0.0)):
+        plain_loss = float(moe_plain_loss(torch, params, batch, cfg, aux))
+        before = counts()
+        new, loss = no_sync(torch, lambda c_=step_cfg, a=aux: moe_train_step(
+            params, batch, c_, lr=t["lr"], aux_weight=a))
+        after = counts()
+        rel = abs(float(loss) - plain_loss) / abs(plain_loss)
+        res[key] = rel
+        if ((after[0] - before[0], after[1] - before[1]) != (3, 2) or rel >= 1e-2
+                or not all(bool(torch.isfinite(p.float()).all()) for p in new.values())):
+            raise AssertionError(f"train step with {key}: loss rel err {rel:.2e}, "
+                                 f"launches {after[0] - before[0]} / {after[1] - before[1]}")
+    log("phase 20c: one step each with " + ", ".join(
+        f"{k} (loss rel err {v:.2e})" for k, v in res.items()) + ": ok")
+    del params, batch, new
+
+    # (d) fp32 at a reduced width against the plain fp32 step.
+    f = t["fp32"]
+    cfg32 = MoEConfig(d_model=f["d_model"], d_ff=f["d_ff"], num_experts=f["experts"],
+                      top_k=c["top_k"], dtype="float32")
+    p32, b32 = train_setup(torch, cfg32, f["tokens"], seed=203)
+    want_loss, want = plain_grads(torch, p32, b32, cfg32)
+    loss, got = no_sync(torch, lambda: port_grads(torch, p32, b32, cfg32))
+    rel_loss = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    errs = grad_errors(torch, got, want)
+    new, _ = no_sync(torch, lambda: moe_train_step(p32, b32, cfg32, lr=t["lr"]))
+    log(f"phase 20d: fp32 MoE gradient d={f['d_model']} d_ff={f['d_ff']} "
+        f"{f['tokens']} tokens vs the plain fp32 step: loss rel err {rel_loss:.2e}, "
+        "gradient max err / max ref " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not (rel_loss < 1e-4 and all(v < 1e-4 for v in errs.values())
+            and all(bool(torch.isfinite(p).all()) for p in new.values())):
+        raise AssertionError("fp32 MoE gradient outside 1e-4 of the plain step")
+    log(f"phase 20: main-path launch counts {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the slice 6 main path")
+    return launches, dict(losses=losses)
+
+
+def phase_times6(torch):
+    """Phase 21: B17 at the training step's two weight-gradient shapes
+    beside its bound, its plain version and a library yardstick
+    (``torch._grouped_mm``'s 2-D x 2-D form with offsets if this PyTorch
+    takes it, else a per-expert ``torch.matmul`` loop; timed here, never
+    called by the port); the MoE training step beside the plain per-expert
+    autograd step and its bound; a torch.profiler breakdown of one step
+    (launches here are comparisons, not the main path's)."""
+    from gemm_hls_tpu_torch.models.moe import MoEConfig, moe_train_step
+    from gemm_hls_tpu_torch.models.perf_model import H100, grouped_bound, grouped_update_bound
+    from gemm_hls_tpu_torch.ops import gmm
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    c, t = SERVING, TRAIN
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(211)
+    slots, d, ff, e = t["tokens"] * c["top_k"], c["d_model"], c["d_ff"], c["experts"]
+    ids = torch.randint(0, e, (slots,), generator=gen, device="cuda")
+    sizes = torch.bincount(ids, minlength=e).to(torch.int32)
+    ends = torch.cumsum(sizes, 0).to(torch.int32)
+    host_ends = [0] + ends.tolist()
+    out = {}
+    for key, k, n in (("B17 w1 grad 8192 slots", d, ff), ("B17 w2 grad 8192 slots", ff, d)):
+        lhs = (torch.randn((slots, k), generator=gen, device="cuda") * 0.5).to(bf16)
+        g = (torch.randn((slots, n), generator=gen, device="cuda") * 1e-3).to(bf16)
+        fn = lambda lhs=lhs, g=g: gmm.grouped_update_mxu(lhs, g, sizes, num_groups=e)  # noqa: E731
+        plain = lambda lhs=lhs, g=g: gmm.grouped_update_mxu_plain(  # noqa: E731
+            lhs, g, sizes, num_groups=e)
+        lib_name, library = "per-expert torch.matmul loop", (
+            lambda lhs=lhs, g=g: torch.stack([lhs[a:b].T @ g[a:b] for a, b in
+                                              zip(host_ends[:-1], host_ends[1:])]))
+        if hasattr(torch, "_grouped_mm"):
+            try:
+                lib_out = torch._grouped_mm(lhs.t(), g, offs=ends, out_dtype=bf16)
+                if tuple(lib_out.shape) != (e, k, n):
+                    raise ValueError(f"shape {tuple(lib_out.shape)}")
+                lib_name, library = "torch._grouped_mm", (
+                    lambda lhs=lhs, g=g: torch._grouped_mm(lhs.t(), g, offs=ends,
+                                                           out_dtype=bf16))
+            except Exception as exc:  # the yardstick only: the port never calls it
+                log(f"phase 21: torch._grouped_mm refused ({type(exc).__name__}: {exc})")
+        got, ref = fn(), plain()
+        err = compare(torch, got, ref, BF16_RTOL, f"timed {key}", scaled=True)[0]
+        compare(torch, library(), ref, BF16_RTOL, f"{key} {lib_name}", scaled=True)
+        ms = time_fn(fn, (), iters=20) * 1e3
+        plain_ms = time_fn(plain, (), iters=3, warmup=1) * 1e3
+        lib_ms = time_fn(library, (), iters=20) * 1e3
+        bound = grouped_update_bound(H100, k, n, slots, e, bf16)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
+                        max_abs_err=err, bound=bound)
+        log(f"phase 21: {key} ({slots} x {k}) x ({slots} x {n}) -> ({e}, {k}, {n}) bf16: "
+            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms "
+            f"({bound[1]}), {lib_name} {lib_ms:.4f} ms; max abs err {err:.3e}")
+        del lhs, g, got, ref
+
+    # The training step end to end (each timed window ends in a sync).
+    cfg = MoEConfig(d_model=d, d_ff=ff, num_experts=e, top_k=c["top_k"], dtype="bfloat16")
+    params, batch = train_setup(torch, cfg, t["tokens"], seed=213)
+
+    def plain_step():
+        loss, grads = plain_grads(torch, params, batch, cfg)
+        with torch.no_grad():
+            new = {k: (p - t["lr"] * grads[k].float()).to(p.dtype) for k, p in params.items()}
+        return loss, *new.values()
+
+    out["step ms"] = time_fn(lambda: moe_train_step(params, batch, cfg, lr=t["lr"])[1],
+                             (), iters=5) * 1e3
+    out["step plain ms"] = time_fn(plain_step, (), iters=3, warmup=1) * 1e3
+    router = H100.bound(2 * 2.0 * t["tokens"] * d * e, H100.peak_for("float32"),
+                        2 * t["tokens"] * d * 2)
+    out["step bound ms"] = 1e3 * (
+        router[0]
+        + grouped_bound(H100, slots, d, ff, slots, e, bf16)[0]
+        + grouped_bound(H100, slots, ff, d, slots, e, bf16)[0]
+        + grouped_bound(H100, slots, d, ff, slots, e, bf16)[0]      # w2's dlhs
+        + grouped_update_bound(H100, d, ff, slots, e, bf16)[0]
+        + grouped_update_bound(H100, ff, d, slots, e, bf16)[0])
+    log(f"phase 21: moe_train_step d={d} d_ff={ff} {e} experts top-{c['top_k']} bf16, "
+        f"{t['tokens']} tokens: {out['step ms']:.3f} ms vs plain per-expert autograd "
+        f"step {out['step plain ms']:.3f} ms; bound {out['step bound ms']:.4f} ms "
+        f"(five grouped GEMMs and the router)")
+    busy, kernels = device_profile(
+        torch, lambda: moe_train_step(params, batch, cfg, lr=t["lr"]), 3)
+    out["step busy"] = busy
+    log(f"phase 21: profile train step: device busy {busy:.1%} of the window; per step "
+        + "; ".join(f"{name[:48]} {us:.1f} us" for name, us in kernels[:10]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2524,6 +2949,9 @@ def main() -> int:
     phase_quant_kernels(torch)
     launches5, _ = phase_slice5(torch)
     times5 = phase_times5(torch)
+    phase_grouped_update(torch)
+    launches6, _ = phase_slice6(torch)
+    times6 = phase_times6(torch)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -2622,6 +3050,14 @@ def main() -> int:
         kernels.append(kernel(name, f"gemm_hls_tpu_torch/csrc/{source}",
                               f"gemm_hls_tpu/ops/{replaces}", launches5[key[:3]], t,
                               t["bound"], t["library_ms"]))
+    # Slice 6 at the training step's w1 gradient shape.
+    t = times6["B17 w1 grad 8192 slots"]
+    kernels.append(kernel(
+        "grouped_update (B17, MoE w1 weight gradient 8192 slots x 2048 x 4096, "
+        "8 experts bf16)", "gemm_hls_tpu_torch/csrc/grouped_update.cu",
+        "gemm_hls_tpu/ops/pallas_grouped.py:300", launches6["B17"], t, t["bound"],
+        t["library_ms"]))
+    kernels[-1]["library_note"] = f"library_ms is {t['library']}"
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

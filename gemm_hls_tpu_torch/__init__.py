@@ -17,8 +17,10 @@ row-softmax variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
 ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (B6-B12), the
 quantized GEMMs ``matmul_quantized`` / ``matmul_w8a8`` on
 ``csrc/dequant_gemm.cu`` (B13) and ``csrc/w8a8_gemm.cu`` (B14, B15), and
-``grouped_matmul`` (the MoE expert GEMM of ``models.moe``, forward) on
-``csrc/grouped_gemm.cu`` (B16); all build with nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
+``grouped_matmul`` (the MoE expert GEMM of ``models.moe``, differentiable:
+``moe_train_step`` trains through it) on ``csrc/grouped_gemm.cu`` (B16) and
+its weight gradient on ``csrc/grouped_update.cu`` (B17); all build with
+nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
 """
 
 from gemm_hls_tpu_torch.config import GemmConfig, default_config

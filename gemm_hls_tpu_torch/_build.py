@@ -144,7 +144,8 @@ def _declare(lib):
     # Quantized and grouped GEMMs: pointers, then int sizes and codes, then
     # the stream.
     for name, n_ptr, n_int in (("dequant_gemm", 5, 10), ("w8a8_quantize", 3, 5),
-                               ("w8a8_gemm", 5, 8), ("grouped_gemm", 4, 9)):
+                               ("w8a8_gemm", 5, 8), ("grouped_gemm", 4, 9),
+                               ("grouped_update", 4, 8)):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]
     return lib

@@ -1,9 +1,10 @@
 // Shared tile pieces of the dequant GEMM (csrc/dequant_gemm.cu, kernel B13)
-// and the grouped GEMM (csrc/grouped_gemm.cu, kernel B16): a masked tile
-// loader for 16-bit operands (cp.async where rows are 16-byte aligned), one
-// 16-deep tensor-core step of a warp tile (mma.sync m16n8k16, fp32
-// accumulators, B read from a [k][n] or an [n][k] shared tile), and the
-// CUDA-core pieces of their fp32 routes.  The mma / ldmatrix / cp.async
+// and the grouped GEMM and its weight gradient (csrc/grouped_gemm.cu,
+// csrc/grouped_update.cu, kernels B16 / B17): a masked tile loader for
+// 16-bit operands (cp.async where rows are 16-byte aligned), one 16-deep
+// tensor-core step of a warp tile (mma.sync m16n8k16, fp32 accumulators, A
+// read from an [m][k] or a [k][m] shared tile, B from a [k][n] or an [n][k]
+// one), and the CUDA-core pieces of their fp32 routes.  The mma / ldmatrix / cp.async
 // helpers are flash_common.cuh's.
 #pragma once
 
@@ -41,9 +42,10 @@ __device__ __forceinline__ void load16(uint16_t* tile, const uint16_t* src, int6
 }
 
 // acc[MT][NT] (m16 x n8 tiles of the warp tile at rows wm0, columns wn0)
-// += A . B over the 16 K columns at kk of the shared tiles.  A is [m][k]
-// at pitch PA; B is [n][k] (TRB) or [k][n] at pitch PB.
-template <typename T, int MT, int NT, bool TRB, int PA, int PB>
+// += A . B over the 16 K columns at kk of the shared tiles.  A is [k][m]
+// (TRA, read through ldmatrix.trans) or [m][k] at pitch PA; B is [n][k]
+// (TRB) or [k][n] at pitch PB.
+template <typename T, int MT, int NT, bool TRB, int PA, int PB, bool TRA = false>
 __device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4], const uint16_t* As,
                                          const uint16_t* Bs, int wm0, int wn0, int kk) {
   static_assert(NT % 2 == 0, "B fragments come two n8 tiles at a time");
@@ -52,7 +54,14 @@ __device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4], const uint16_t
   const int b_row = (lane % 8) + 8 * (lane / 16), b_col = 8 * ((lane / 8) & 1);
   uint32_t af[MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) ldsm_x4(af[mt], As + (wm0 + mt * 16 + a_row) * PA + kk + a_col);
+  for (int mt = 0; mt < MT; ++mt) {
+    // The four 8 x 8 matrices of A's fragment, (m, k) blocks (0, 0), (8,
+    // 0), (0, 8), (8, 8): from a [k][m] tile each is read transposed.
+    if constexpr (TRA)
+      ldsm_x4_t(af[mt], As + (kk + b_row) * PA + wm0 + mt * 16 + b_col);
+    else
+      ldsm_x4(af[mt], As + (wm0 + mt * 16 + a_row) * PA + kk + a_col);
+  }
 #pragma unroll
   for (int np = 0; np < NT / 2; ++np) {
     uint32_t bf[4];

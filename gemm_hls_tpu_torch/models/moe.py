@@ -19,10 +19,12 @@ index first on ties, as ``jax.lax.top_k`` does (a stable descending sort;
 ``torch.topk`` promises no tie order).  ``activation`` defaults to the
 tanh GELU, ``jax.nn.gelu``'s default (torch's default is the erf form).
 
-Forward only on the card for now: ``moe_train_step`` needs the weight
-gradient of the grouped GEMM (kernel B17, ROADMAP A item 13), and the
+Training (``moe_train_step``) runs through ``grouped_matmul``'s autograd:
+B16 for the activations' gradient, the weight-gradient kernel B17 for the
+experts', and the routing's gradient (through the mix weights) in plain
+torch; the backward needs no host synchronisation either.  The
 expert-parallel forms (``moe_forward_ep``, ``moe_forward_ep_a2a``) belong
-to the multi-GPU slice 5; each raises ``NotImplementedError``.
+to the multi-GPU slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -102,8 +104,8 @@ def route(x, router_w, num_experts: int, top_k: int, *,
 
 def _balance_from(probs, expert_ids, num_experts: int, top_k: int):
     """Switch aux loss from an existing routing pass (see ``route``)."""
-    hard = F.one_hot(expert_ids, num_experts).sum(1).float()   # (tokens, E)
-    f = hard.mean(0) / top_k
+    f = (_counts(expert_ids.reshape(-1), num_experts).float()
+         / expert_ids.shape[0] / top_k)
     p = probs.mean(0)
     return num_experts * torch.sum(f * p)
 
@@ -216,10 +218,18 @@ def moe_loss(params, batch, cfg: MoEConfig, aux_weight: float = 0.0):
 
 def moe_train_step(params, batch, cfg: MoEConfig, lr=1e-2,
                    aux_weight: float = 0.0):
-    """One SGD step: not on the card yet."""
-    raise NotImplementedError(
-        "moe_train_step needs the grouped GEMM's weight gradient, kernel B17 "
-        "(ROADMAP A, item 13: the next slice)")
+    """One SGD step, ``(p - lr * g.float()).to(p.dtype)`` for every
+    parameter; gradients through the kernels' autograd.  ``lr`` is a float
+    or a 0-d tensor (on the card, it is never read on the host);
+    ``aux_weight`` gates the Switch load-balancing loss.  Returns (new
+    params, loss); the given params are left as they were."""
+    leaves = {name: p.detach().requires_grad_() for name, p in params.items()}
+    loss = moe_loss(leaves, batch, cfg, aux_weight)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    with torch.no_grad():
+        new = {name: (p - lr * g.float()).to(p.dtype)
+               for (name, p), g in zip(leaves.items(), grads)}
+    return new, loss.detach()
 
 
 def moe_forward_ep(params, x, cfg: MoEConfig, mesh=None, **kw):

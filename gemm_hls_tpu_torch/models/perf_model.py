@@ -145,3 +145,14 @@ def grouped_bound(chip: ChipSpec, m: int, k: int, n: int, rows: int,
     moved = ((m * k + live_groups * k * n) * _esize(dtype)
              + m * n * _esize(out_dtype or dtype))
     return chip.bound(2.0 * rows * k * n, chip.peak_for(dtype), moved)
+
+
+def grouped_update_bound(chip: ChipSpec, k: int, n: int, rows: int,
+                         num_groups: int, dtype: torch.dtype, out_dtype=None):
+    """Bound of kernel B17, (M, K) and (M, N) -> (G, K, N): 2 rows K N
+    operations for the ``rows`` routed rows (sum of the group sizes, at
+    most M); bytes: those rows of lhs and of the cotangent, read once, and
+    the G (K, N) blocks (empty groups' zeros included), written once."""
+    moved = (rows * (k + n) * _esize(dtype)
+             + num_groups * k * n * _esize(out_dtype or dtype))
+    return chip.bound(2.0 * rows * k * n, chip.peak_for(dtype), moved)

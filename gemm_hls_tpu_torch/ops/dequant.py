@@ -47,10 +47,6 @@ _KERNEL_X_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 KERNEL_K_STEP = 64
 
 
-def _out_dtype(cfg: GemmConfig, default: torch.dtype) -> torch.dtype:
-    return cfg.tout_dtype if cfg.out_dtype is not None else default
-
-
 def _refuse_interpret(interpret, what):
     if interpret:
         raise NotImplementedError(
@@ -126,7 +122,8 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
         (K//2, N) planar-packed for bits=4.
       scales: f32 (K/group_size, N); (1, N) for per-channel.
       cfg: its ``block_k`` is semantic (see ``ops/quant.py``); the output
-        type is ``cfg.out_dtype`` (default x's).
+        type is ``cfg.out_dtype``, else ``cfg.dtype`` (the JAX rule:
+        ``matmul_quantized`` sets ``dtype`` to x's).
 
     The JAX wrapper's checks: K a multiple of block_k; group-wise scales
     need block_k a whole multiple of group_size; the packed row count.
@@ -153,7 +150,7 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
     if w_q.shape[0] != packed_rows:
         raise ValueError(f"w_q rows {w_q.shape[0]} != expected "
                          f"{packed_rows} for bits={bits}")
-    out_dtype = _out_dtype(cfg, x.dtype)
+    out_dtype = cfg.tout_dtype
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, w_q, scales, bits=bits,
                                     group_size=group_size, out_dtype=out_dtype)
@@ -303,7 +300,7 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
     if fuse_quant and (bm * k > _FUSED_STRIP_ELEMS or k % 128 or bk % 128
                        or bn % 128):
         fuse_quant = False
-    out_dtype = _out_dtype(cfg, torch.float32)
+    out_dtype = cfg.tout_dtype if cfg.out_dtype is not None else torch.float32
     if x.device.type == "cpu":
         return w8a8_plain(x, w_q, scales.float(), bk=bk, fused=fuse_quant,
                           out_dtype=out_dtype)

@@ -1,5 +1,6 @@
-"""The grouped (ragged) GEMM: the wrapper of the Hopper kernel that
-replaces TPU kernel B16, and its plain PyTorch version.
+"""The grouped (ragged) GEMM and its weight gradient: the wrappers of the
+Hopper kernels that replace TPU kernels B16 and B17, and their plain
+PyTorch versions.
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_grouped.py::grouped_mxu``:
 out[rows(g)] = lhs[rows(g)] . rhs[g] over a contiguous row partition
@@ -10,7 +11,13 @@ min(S_{g+1}, M)) with S the exclusive cumulative sizes: routing past M
 drops the trailing rows (the documented semantics of ``grouped_matmul``;
 ROADMAP C2 notes where the JAX schedule departs from it).
 
-The kernel reads the group ends on the card: the wrapper never moves the
+Counterpart of ``pallas_grouped.py::grouped_update_mxu`` (B17, the
+gradient of the experts): out[g] = lhs[rows(g)]^T . gbar[rows(g)], (M, K)
+and (M, N) in, (G, K, N) out, over the same clamped row spans; a group
+with no rows gets a zero block, and rows outside every span are never
+read (``csrc/grouped_update.cu``).
+
+The kernels read the group ends on the card: the wrappers never move the
 routing to the host (no ``.item()``, no ``.tolist()``), so a MoE step
 runs without a host synchronisation.  A CUDA tensor launches the kernel
 or raises; a CPU tensor runs the plain version, which multiplies each
@@ -38,6 +45,30 @@ def _check(lhs, rhs, group_sizes, transpose_rhs):
         raise ValueError(f"contraction mismatch: {tuple(lhs.shape)} x "
                          f"{tuple(rhs.shape)}")
     return m, k, n, num_groups
+
+
+def _kernel_operands(what, a, b, group_sizes, interpret):
+    """The card-side checks of both wrappers (no interpreter, one device, a
+    type some kernel takes); returns (a, b) promoted, exactly, to that
+    type and contiguous."""
+    if interpret:
+        raise NotImplementedError(
+            f"{what}: CUDA has no interpreter mode; pass CPU tensors for "
+            "the plain version")
+    for t in (b, group_sizes):
+        if t.device != a.device:
+            raise ValueError(f"operands on {a.device} and {t.device}")
+    in_dtype = torch.promote_types(a.dtype, b.dtype)
+    if in_dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"{what}: no kernel takes {in_dtype} (bf16, fp16, fp32)")
+    return a.to(in_dtype).contiguous(), b.to(in_dtype).contiguous()
+
+
+def _vec(t: torch.Tensor, row: int) -> int:
+    """1 if ``t``'s rows of ``row`` elements are whole 16-byte vectors at a
+    16-byte aligned base (the tensor-core routes' cp.async loads)."""
+    return int(t.data_ptr() % 16 == 0 and row * t.element_size() % 16 == 0)
 
 
 def group_ends(group_sizes, m: int) -> torch.Tensor:
@@ -78,38 +109,85 @@ def grouped_mxu(lhs, rhs, group_sizes, *, transpose_rhs=False, out_dtype=None,
         return grouped_mxu_plain(lhs, rhs, group_sizes,
                                  transpose_rhs=transpose_rhs,
                                  out_dtype=out_dtype)
-    if interpret:
-        raise NotImplementedError(
-            "grouped_mxu: CUDA has no interpreter mode; pass CPU tensors for "
-            "the plain version")
-    for t in (rhs, group_sizes):
-        if t.device != lhs.device:
-            raise ValueError(f"operands on {lhs.device} and {t.device}")
-    in_dtype = torch.promote_types(lhs.dtype, rhs.dtype)
-    if in_dtype not in _KERNEL_DTYPES:
-        raise NotImplementedError(
-            f"grouped_mxu: no kernel takes {in_dtype} (bf16, fp16, fp32)")
-    lhs = lhs.to(in_dtype).contiguous()
-    rhs = rhs.to(in_dtype).contiguous()
+    lhs, rhs = _kernel_operands("grouped_mxu", lhs, rhs, group_sizes, interpret)
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
     if m == 0 or n == 0:
         return out
     ends = group_ends(group_sizes, m)
-    step = 16 // lhs.element_size()
     lib = _build.library()
     with torch.cuda.device(lhs.device):
         rc = lib.grouped_gemm(
             lhs.data_ptr(), rhs.data_ptr(), ends.data_ptr(), out.data_ptr(),
             m, n, k, num_groups, int(bool(transpose_rhs)),
-            _build.dtype_code(in_dtype), _build.dtype_code(out_dtype),
-            int(lhs.data_ptr() % 16 == 0 and k % step == 0),
-            int(rhs.data_ptr() % 16 == 0
-                and (k if transpose_rhs else n) % step == 0),
+            _build.dtype_code(lhs.dtype), _build.dtype_code(out_dtype),
+            _vec(lhs, k), _vec(rhs, k if transpose_rhs else n),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "grouped_mxu")
     grouped_mxu.launches += 1
     return out
 
 
-# Kernel launches since the count was last reset (plain calls not counted).
+def _check_update(lhs, g, group_sizes, num_groups):
+    """The JAX kernel's checks; returns (M, K, N)."""
+    m, k = lhs.shape
+    if g.ndim != 2 or g.shape[0] != m:
+        raise ValueError(f"row mismatch: {tuple(lhs.shape)} x {tuple(g.shape)}")
+    if tuple(group_sizes.shape) != (num_groups,):
+        raise ValueError(
+            f"group_sizes {tuple(group_sizes.shape)} != ({num_groups},)")
+    return m, k, g.shape[1]
+
+
+def grouped_update_mxu_plain(lhs, g, group_sizes, *, num_groups: int,
+                             out_dtype=None):
+    """Plain version of ``grouped_update_mxu``: each group's
+    ``lhs[rows].T @ g[rows]`` in fp32, empty groups zero, rows clamped to
+    [0, M)."""
+    m, k, n = _check_update(lhs, g, group_sizes, num_groups)
+    out = torch.zeros((num_groups, k, n), dtype=torch.float32, device=lhs.device)
+    start = 0
+    for grp, end in enumerate(group_ends(group_sizes, m).tolist()):
+        if end > start:
+            out[grp] = lhs[start:end].float().T @ g[start:end].float()
+        start = max(start, end)
+    return out.to(out_dtype or torch.promote_types(lhs.dtype, g.dtype))
+
+
+def grouped_update_mxu(lhs, g, group_sizes, *, num_groups: int,
+                       out_dtype=None, interpret=None):
+    """Per-group outer-product GEMM (kernel B17): out[gg] =
+    lhs[rows(gg)].T @ g[rows(gg)], (M, K) x (M, N) -> (G, K, N).
+
+    The gradient of ``grouped_mxu``'s rhs.  ``group_sizes`` (G,) int
+    partitions the rows as in ``grouped_mxu``; groups with no rows get
+    zero blocks, and rows outside every group are never read (a NaN there
+    reaches no output).  The output type is ``out_dtype`` (default: the
+    promoted input type); a mixed pair is promoted (exactly) first.
+    """
+    m, k, n = _check_update(lhs, g, group_sizes, num_groups)
+    out_dtype = out_dtype or torch.promote_types(lhs.dtype, g.dtype)
+    if lhs.device.type == "cpu":
+        return grouped_update_mxu_plain(lhs, g, group_sizes,
+                                        num_groups=num_groups,
+                                        out_dtype=out_dtype)
+    lhs, g = _kernel_operands("grouped_update_mxu", lhs, g, group_sizes,
+                              interpret)
+    out = torch.empty((num_groups, k, n), dtype=out_dtype, device=lhs.device)
+    if out.numel() == 0:
+        return out
+    ends = group_ends(group_sizes, m)
+    lib = _build.library()
+    with torch.cuda.device(lhs.device):
+        rc = lib.grouped_update(
+            lhs.data_ptr(), g.data_ptr(), ends.data_ptr(), out.data_ptr(),
+            m, k, n, num_groups, _build.dtype_code(lhs.dtype),
+            _build.dtype_code(out_dtype), _vec(lhs, k), _vec(g, n),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "grouped_update_mxu")
+    grouped_update_mxu.launches += 1
+    return out
+
+
+# Kernel launches since the counts were last reset (plain calls not counted).
 grouped_mxu.launches = 0
+grouped_update_mxu.launches = 0

@@ -1,11 +1,13 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
 row-softmax variants), B3 (2-D and batched), B4 and B5 (the integer-slice
 GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
-case tables) and the quantized and grouped GEMMs (B13-B16, over its
-phase-16 tables) on the card, each against its plain PyTorch version; the gradients
-of the batched, epilogue, ``fused_linear``, ``attention``, i8x and semiring
-paths against plain autograd; the i8x tiers, the Ozaki GEMMs and the graph
-applications against float64 and Floyd-Warshall references.
+case tables), the quantized and grouped GEMMs (B13-B16, over its
+phase-16 tables) and the grouped GEMM's weight gradient (B17, over its
+phase-19 tables) on the card, each against its plain PyTorch version; the
+gradients of the batched, epilogue, ``fused_linear``, ``attention``, i8x,
+semiring and grouped paths against plain autograd; the i8x tiers, the
+Ozaki GEMMs and the graph applications against float64 and
+Floyd-Warshall references.
 
 Every test here needs a CUDA device and skips without one (the kernels
 have no CPU mode).  This file imports neither jax nor ``gemm_hls_tpu``, so
@@ -28,7 +30,7 @@ import pytest
 import torch
 
 import chip_smoke
-from gemm_hls_tpu_torch import attention, fused_linear, grouped_matmul, matmul
+from gemm_hls_tpu_torch import attention, fused_linear, matmul
 from gemm_hls_tpu_torch.config import ROW_SOFTMAX_MAX_N, default_config
 from gemm_hls_tpu_torch.models import graph
 from gemm_hls_tpu_torch.ops import mxu, ozaki, slice_kernels, vpu
@@ -779,11 +781,42 @@ def test_moe_forward_has_no_host_sync(cuda):
     _close(y.float().cpu(), ref.float(), 2e-2)
 
 
-def test_grouped_refuses_a_gradient_on_the_card(cuda):
-    lhs = torch.ones(8, 4, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B17"):
-        grouped_matmul(lhs, torch.ones(2, 4, 4, device=cuda),
-                       torch.tensor([4, 4], device=cuda))
+# ---- slice 6: the grouped GEMM's weight gradient (B17) ---------------------
+# chip_smoke.py's phase-19 tables and runners (phase 16's tolerances; the
+# empty groups' blocks exactly zero).
+
+
+@pytest.mark.parametrize("case", chip_smoke.GROUPED_UPDATE_CASES, ids=str)
+def test_grouped_update_kernel_vs_plain(cuda, case):
+    chip_smoke.grouped_update_case(torch, _gen(59), case)
+
+
+def test_grouped_update_launches_repeat_bitwise(cuda):
+    chip_smoke.grouped_update_repeats(torch, _gen(61))
+
+
+@pytest.mark.parametrize("case", chip_smoke.GROUPED_GRAD_CASES, ids=str)
+def test_grouped_matmul_gradients_vs_plain_autograd(cuda, case):
+    chip_smoke.grouped_grad_case(torch, _gen(67), case)
+
+
+def test_moe_train_step_has_no_host_sync(cuda):
+    # The backward reads no routing on the host either; one step against
+    # the same step on CPU copies (the plain versions).
+    from gemm_hls_tpu_torch.models import moe
+    cfg = moe.MoEConfig(d_model=64, d_ff=128, num_experts=8, top_k=2,
+                        dtype="bfloat16")
+    params = moe.init_moe_params(_gen(71), cfg)
+    x = torch.randn((100, 64), generator=_gen(72), device=cuda).to(torch.bfloat16)
+    y = torch.randn((100, 64), generator=_gen(73), device=cuda).to(torch.bfloat16)
+    want, wloss = moe.moe_train_step({k: v.cpu() for k, v in params.items()},
+                                     (x.cpu(), y.cpu()), cfg, lr=1.0, aux_weight=0.01)
+    lr = torch.tensor(1.0, device=cuda)  # the copy to the card syncs: made before
+    new, loss = chip_smoke.no_sync(torch, lambda: moe.moe_train_step(
+        params, (x, y), cfg, lr=lr, aux_weight=0.01))
+    assert abs(float(loss) - float(wloss)) <= 1e-2 * abs(float(wloss))
+    for k in want:
+        _close(new[k].float().cpu(), want[k].float(), 2e-2)
 
 
 @pytest.mark.parametrize("which", ["dequant", "w8a8"])

@@ -141,11 +141,117 @@ def test_init_moe_params_shapes():
     assert p["w2"].shape == (4, 24, 16)
 
 
-@pytest.mark.parametrize("fn,match", [("moe_train_step", "B17.*item 13"),
-                                      ("moe_forward_ep", "slice 5"),
+@pytest.mark.parametrize("fn,match", [("moe_forward_ep", "slice 5"),
                                       ("moe_forward_ep_a2a", "slice 5")])
 def test_unported_entry_points_raise(fn, match):
     _, cfg, _, p, x = _setup(2)
     with pytest.raises(NotImplementedError, match=match):
-        getattr(moe, fn)(p, (torch.from_numpy(x), torch.from_numpy(x))
-                         if fn == "moe_train_step" else torch.from_numpy(x), cfg)
+        getattr(moe, fn)(p, torch.from_numpy(x), cfg)
+
+
+# ---- moe_train_step: B16 and B17 through grouped_matmul's autograd --------
+
+def _batch(x, seed=4):
+    y = np.tanh(x @ np.random.default_rng(seed).standard_normal(
+        (x.shape[1], x.shape[1])).astype(np.float32) / 4).astype(np.float32)
+    return x, y
+
+
+def _torch_batch(batch, dtype=torch.float32):
+    return tuple(torch.from_numpy(a).to(dtype) for a in batch)
+
+
+@pytest.mark.parametrize("aux_weight", [0.0, 0.01])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_train_step_vs_jax(top_k, aux_weight):
+    jcfg, cfg, jp, p, x = _setup(top_k, seed=40 + top_k)
+    # No token sits near a routing tie, so both sides route alike and the
+    # whole step is compared.
+    assert not _near_ties(x, jp["router"], top_k).any()
+    batch = _batch(x)
+    jnew, jloss = jmoe.moe_train_step(jp, tuple(map(jnp.asarray, batch)), jcfg,
+                                      lr=0.05, aux_weight=aux_weight)
+    new, loss = moe.moe_train_step(p, _torch_batch(batch), cfg, lr=0.05,
+                                   aux_weight=aux_weight)
+    assert abs(float(loss) - float(jloss)) <= TOL * abs(float(jloss))
+    for name in ("router", "w1", "w2"):
+        assert new[name].dtype == p[name].dtype
+        assert _rel(new[name].numpy(), jnew[name]) < TOL
+        # The update itself, lr * grad, against JAX's.
+        step = p[name].numpy() - new[name].numpy()
+        assert _rel(step, np.asarray(jp[name]) - np.asarray(jnew[name])) < 1e-3
+
+
+def test_train_step_reduces_loss_and_moves_router():
+    # tests/test_moe.py:65, on the port's own init and GemmConfig.
+    from gemm_hls_tpu_torch import GemmConfig
+    cfg = moe.MoEConfig(d_model=32, d_ff=48, num_experts=4, top_k=2,
+                        gemm=GemmConfig(block_m=16, block_n=16, block_k=16))
+    params0 = moe.init_moe_params(torch.Generator().manual_seed(4), cfg)
+    before = {k: v.clone() for k, v in params0.items()}
+    x = np.random.default_rng(5).standard_normal((128, 32)).astype(np.float32)
+    batch = _torch_batch(_batch(x, seed=6))
+    params, losses = params0, []
+    for _ in range(5):
+        params, loss = moe.moe_train_step(params, batch, cfg, lr=0.05)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0] and all(np.isfinite(losses))
+    # The router receives gradient through the mix weights.
+    assert float((params["router"] - params0["router"]).abs().max()) > 0
+    # The given params are left as they were.
+    assert all(torch.equal(params0[k], before[k]) for k in before)
+
+
+def test_train_step_bf16_vs_jax():
+    jcfg = jmoe.MoEConfig(d_model=32, d_ff=64, num_experts=8, top_k=2,
+                          dtype="bfloat16")
+    cfg = moe.MoEConfig(d_model=32, d_ff=64, num_experts=8, top_k=2,
+                        dtype="bfloat16")
+    jp = jmoe.init_moe_params(jax.random.key(50), jcfg)
+    p = moe.params_from_reference(jp, device="cpu")
+    x = np.random.default_rng(51).standard_normal((64, 32)).astype(np.float32)
+    assert not _near_ties(x, jp["router"], 2).any()
+    batch = _batch(x)
+    jnew, jloss = jmoe.moe_train_step(jp, tuple(map(jnp.asarray, batch)), jcfg,
+                                      lr=0.05)
+    new, loss = moe.moe_train_step(p, _torch_batch(batch), cfg, lr=0.05)
+    assert abs(float(loss) - float(jloss)) <= 1e-2 * abs(float(jloss))
+    for name in ("router", "w1", "w2"):
+        assert new[name].dtype == p[name].dtype
+        assert _rel(new[name].float().numpy(), np.asarray(jnew[name], np.float32)) < 1e-2
+        assert not torch.equal(new[name], p[name])
+
+
+def test_train_step_with_gemm_config_vs_jax():
+    # An explicit GemmConfig (dtype float32): the grouped GEMMs output fp32,
+    # so the hidden layer stays fp32 through the GELU, as in JAX, and the
+    # backward meets fp32 cotangents with bf16 weights.
+    from gemm_hls_tpu.config import GemmConfig as JaxConfig
+    from gemm_hls_tpu_torch import GemmConfig
+    blocks = dict(block_m=16, block_n=16, block_k=16)
+    jcfg = jmoe.MoEConfig(d_model=32, d_ff=64, num_experts=8, top_k=2,
+                          dtype="bfloat16", gemm=JaxConfig(**blocks, interpret=True))
+    cfg = moe.MoEConfig(d_model=32, d_ff=64, num_experts=8, top_k=2,
+                        dtype="bfloat16", gemm=GemmConfig(**blocks))
+    jp = jmoe.init_moe_params(jax.random.key(55), jcfg)
+    p = moe.params_from_reference(jp, device="cpu")
+    x = np.random.default_rng(56).standard_normal((64, 32)).astype(np.float32)
+    x = np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)  # exact in bf16
+    assert not _near_ties(x, jp["router"], 2).any()
+    batch = _batch(x)
+    jb = (jnp.asarray(batch[0], jnp.bfloat16), jnp.asarray(batch[1]))
+    tb = (_torch_batch(batch)[0].bfloat16(), _torch_batch(batch)[1])
+    jnew, jloss = jmoe.moe_train_step(jp, jb, jcfg, lr=0.05)
+    new, loss = moe.moe_train_step(p, tb, cfg, lr=0.05)
+    assert abs(float(loss) - float(jloss)) <= 1e-3 * abs(float(jloss))
+    for name in ("router", "w1", "w2"):
+        assert _rel(new[name].float().numpy(), np.asarray(jnew[name], np.float32)) < 1e-2
+
+
+def test_train_step_takes_lr_as_a_tensor():
+    _, cfg, _, p, x = _setup(2, seed=60)
+    batch = _torch_batch(_batch(x))
+    want, wloss = moe.moe_train_step(p, batch, cfg, lr=0.05)
+    got, loss = moe.moe_train_step(p, batch, cfg, lr=torch.tensor(0.05))
+    assert torch.equal(loss, wloss)
+    assert all(torch.equal(got[k], want[k]) for k in want)
