@@ -110,7 +110,20 @@ Phases, each printed as it ends:
  21. times of B17 at the step's two weight-gradient shapes beside its
      bound, plain version and ``torch._grouped_mm`` (or a per-expert
      ``torch.matmul`` loop), the training step beside the plain step and
-     its bound, and a torch.profiler breakdown of one step.
+     its bound, and a torch.profiler breakdown of one step;
+ 22. ``ring_gemm`` (B18, the fused ring, both TPU bodies) against its plain
+     schedule over RING_CASES: rings of 1-8 ranks living on the card, fp32
+     / bf16 / int8, block_k None / 64 / 128 and odd ones, tiles off the
+     edges, a permuted rank-to-slot table, capped blocks per rank, ring
+     buffers poisoned (NaN, 0x5A bytes); one case launched 20 times and
+     with block_k 64 and 320, the same bits each time;
+ 23. ``cannon_gemm`` (B19, fused Cannon) against its plain schedule over
+     CANNON_CASES: p = 1-4, the three types, the identity-skew case;
+ 24. slice 7's main path, launch counts set to 0 before it and read after:
+     ``ring_matmul`` at bf16 8192^3 over 4 ranks on the card (block_k None
+     and 512) and ``cannon_matmul_fused`` at p = 2 against fp32
+     ``torch.matmul``; then B18 (4 and 8 ranks) and B19 times beside their
+     bounds, plain schedules and bf16 ``torch.matmul`` of the product.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -2898,6 +2911,289 @@ def phase_times6(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the fused distributed GEMMs -- the ring (B18) and Cannon (B19)
+# as in-kernel signal / wait protocols, their ranks on one card
+# ---------------------------------------------------------------------------
+
+_DT7 = ("float32", "bfloat16", "int8")
+# Phase 22's table, which tests/test_torch_kernels.py parametrises too:
+# (ranks, dtype, M/n, N/n, K, block_k, permuted rank-to-slot table, blocks
+# per rank cap (0: the occupancy's), output dtype).  Every ring size in the
+# three types with M/n and N/n off the tiles; block_k 64 and 128 (the TPU's
+# tiled body) and block_ks no K step of the kernel divides; K rows that are not
+# 16-byte vectors (element loads); odd ring sizes; permuted slots; three
+# blocks a rank (one sender, two compute blocks walking many tiles each); a
+# bf16 output.
+RING_CASES = (
+    [(n, dt, 70, 136, 192, None, False, 0, "float32") for n in (1, 2, 4, 8) for dt in _DT7]
+    + [(4, dt, 64, 128, 256, bk, False, 0, "float32") for dt in _DT7 for bk in (64, 128)]
+    + [(2, "float32", 33, 40, 90, 30, False, 0, "float32"),
+       (4, "bfloat16", 50, 72, 100, None, False, 0, "float32"),
+       (3, "int8", 40, 50, 72, 24, False, 0, "float32"),
+       (4, "bfloat16", 96, 160, 320, 64, True, 0, "float32"),
+       (8, "float32", 40, 72, 128, None, True, 0, "float32"),
+       (8, "int8", 64, 256, 128, 64, True, 0, "float32"),
+       (8, "bfloat16", 200, 300, 320, None, False, 3, "float32"),
+       (5, "float32", 130, 140, 96, 32, False, 3, "float32"),
+       (4, "bfloat16", 128, 256, 512, None, False, 0, "bfloat16")]
+)
+# The race check: one case launched RING_REPEATS times, the same bits each,
+# and again with each of RING_SAME_BITS_BLOCK_K (one kernel serves both TPU
+# bodies: block_k must not change a bit).
+RING_REPEAT_CASE = (8, "bfloat16", 200, 300, 320, None, True, 0, "float32")
+RING_REPEATS = 20
+RING_SAME_BITS_BLOCK_K = (64, 320)
+# Phase 23's table: (p, dtype, M, N, K, "random" | "identity", blocks per
+# rank cap).  p = 1, 2, 3 in the three types with local blocks off the
+# tiles (K/p of 33: element loads); tests/test_pallas_cannon.py's
+# identity-skew case (A of constant blocks times I must come back exactly,
+# so a block landing at the wrong rank shows) at p = 2 and 3; a capped
+# grid; p = 4, the largest rank table.
+CANNON_CASES = (
+    [(p, dt, m, n, k, "random", 0)
+     for p, (m, n, k) in ((1, (70, 136, 96)), (2, (140, 272, 200)), (3, (201, 390, 99)))
+     for dt in _DT7]
+    + [(2, "float32", 16, 16, 16, "identity", 0), (3, "float32", 24, 24, 24, "identity", 0),
+       (3, "bfloat16", 384, 510, 384, "random", 3), (4, "int8", 256, 256, 256, "random", 0)]
+)
+
+
+def dist_operands(torch, gen, shape_a, shape_b, dtype):
+    """Seeded card operands: U(-1, 1) floats, int8 in [-100, 100]."""
+    if dtype == torch.int8:
+        return tuple(torch.randint(-100, 101, s, generator=gen, device="cuda",
+                                   dtype=torch.int32).to(torch.int8) for s in (shape_a, shape_b))
+    return signed(torch, shape_a, dtype, gen), signed(torch, shape_b, dtype, gen)
+
+
+def poison(torch, t):
+    """Fill a buffer the kernel must write before it reads: NaN for floats,
+    0x5A bytes for integers (a read before the data arrives shows)."""
+    return t.fill_(float("nan") if t.is_floating_point() else
+                   (0x5A if t.element_size() == 1 else 0x5A5A5A5A))
+
+
+def dist_rtol(torch, out_dtype, in_dtype):
+    """Exact for int8 (int32 sums on both sides), else phase 16's."""
+    return 0.0 if in_dtype == torch.int8 else quant_rtol(torch, out_dtype)
+
+
+def ring_setup(torch, gen, case):
+    """A RING_CASES case on the card: (A shards, B shards, scratch), rank r's
+    blocks and buffers at slot slots[r] of stacked tensors, the ring
+    buffers poisoned."""
+    import random
+
+    from gemm_hls_tpu_torch.ops import ring
+    n, dt, ml, nl, k, bk, perm, _, _ = case
+    dtype = getattr(torch, dt)
+    a, b = dist_operands(torch, gen, (n * ml, k), (k, n * nl), dtype)
+    slots = random.Random(n).sample(range(n), n) if perm else list(range(n))
+    a_st = torch.empty((n, ml, k), dtype=dtype, device="cuda")
+    b_st = torch.empty((n, k, nl), dtype=dtype, device="cuda")
+    for r, s in enumerate(slots):
+        a_st[s] = a[r * ml:(r + 1) * ml]
+        b_st[s] = b[:, r * nl:(r + 1) * nl]
+    one = ring.ring_scratch(1, k, nl, dtype, "cuda")
+    comm = poison(torch, torch.empty((n, *one.comm[0].shape), dtype=dtype, device="cuda"))
+    flags = torch.empty((n, one.flags[0].numel()), dtype=torch.int32, device="cuda")
+    scratch = ring.RingScratch([comm[s] for s in slots], [flags[s] for s in slots])
+    return [a_st[s] for s in slots], [b_st[s] for s in slots], scratch
+
+
+def ring_case(torch, gen, case):
+    """One RING_CASES case: ``ring_gemm`` (one B18 launch) against
+    ``ring_gemm_plain`` on the same shards.  Returns the largest abs
+    error."""
+    from gemm_hls_tpu_torch.ops import ring
+    n, dt, ml, nl, k, bk, perm, cap, out = case
+    a_sh, b_sh, scratch = ring_setup(torch, gen, case)
+    out_dtype = getattr(torch, out)
+    before = ring.ring_gemm.launches
+    got = ring.ring_gemm(a_sh, b_sh, out_dtype=out_dtype, block_k=bk, scratch=scratch,
+                         max_blocks_per_rank=cap)
+    if ring.ring_gemm.launches != before + 1:
+        raise AssertionError(f"B18 {case}: no launch")
+    ref = ring.ring_gemm_plain(a_sh, b_sh, out_dtype=out_dtype)
+    return compare(torch, torch.cat(got), torch.cat(ref),
+                   dist_rtol(torch, out_dtype, a_sh[0].dtype), f"B18 {case}", scaled=True)[0]
+
+
+def ring_repeats(torch, gen):
+    """RING_REPEAT_CASE launched RING_REPEATS times on the same shards and
+    scratch, then once with each RING_SAME_BITS_BLOCK_K: every launch gives
+    the first one's bits."""
+    from gemm_hls_tpu_torch.ops import ring
+    a_sh, b_sh, scratch = ring_setup(torch, gen, RING_REPEAT_CASE)
+    first = torch.cat(ring.ring_gemm(a_sh, b_sh, scratch=scratch))
+    for i in range(RING_REPEATS - 1):
+        if not torch.equal(first, torch.cat(ring.ring_gemm(a_sh, b_sh, scratch=scratch))):
+            raise AssertionError(f"B18: launch {i + 2} of {RING_REPEAT_CASE} differs "
+                                 f"from the first")
+    for bk in RING_SAME_BITS_BLOCK_K:
+        got = torch.cat(ring.ring_gemm(a_sh, b_sh, block_k=bk, scratch=scratch))
+        if not torch.equal(first, got):
+            raise AssertionError(f"B18: block_k={bk} changes the bits of {RING_REPEAT_CASE}")
+
+
+def cannon_case(torch, gen, case):
+    """One CANNON_CASES case: ``cannon_gemm`` (one B19 launch) against
+    ``cannon_gemm_plain``, buffers and sums poisoned; the identity-skew
+    case must return A exactly.  Returns the largest abs error."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch.ops import cannon
+    p, dt, m, n, k, kind, cap = case
+    dtype = getattr(torch, dt)
+    if kind == "identity":
+        ml = m // p
+        a = torch.from_numpy(np.kron(np.arange(1, p * p + 1).reshape(p, p),
+                                     np.ones((ml, ml)))).to("cuda", dtype)
+        b = torch.eye(m, dtype=dtype, device="cuda")
+    else:
+        a, b = dist_operands(torch, gen, (m, k), (k, n), dtype)
+    ab, bb = cannon.cannon_blocks(a, b, p)
+    scratch = cannon.cannon_scratch(p, m // p, n // p, k // p, dtype, "cuda")
+    for t in (*scratch.comm_a, *scratch.comm_b, *scratch.sums):
+        poison(torch, t)
+    before = cannon.cannon_gemm.launches
+    got = cannon.cannon_gemm(ab, bb, p, scratch=scratch, max_blocks_per_rank=cap)
+    if cannon.cannon_gemm.launches != before + 1:
+        raise AssertionError(f"B19 {case}: no launch")
+    ref = cannon.cannon_gemm_plain(ab, bb, p)
+    err = compare(torch, torch.stack(got), torch.stack(ref), dist_rtol(torch, got[0].dtype, dtype),
+                  f"B19 {case}", scaled=True)[0]
+    if kind == "identity" and not torch.equal(cannon.assemble(got, p), a.float()):
+        raise AssertionError(f"B19 {case}: A . I is not A (a block landed at the wrong rank)")
+    return err
+
+
+def phase_dist_kernels(torch):
+    """Phases 22 and 23: B18 against its plain version over RING_CASES and
+    the RING_REPEATS same-bits check; B19 against its plain version over
+    CANNON_CASES.  Tolerances: exact for int8, phase 16's (relative 1e-4
+    scaled by the largest output for fp32 outputs, 1e-2 for bf16) else."""
+    from gemm_hls_tpu_torch.ops import ring
+    gen = torch.Generator(device="cuda").manual_seed(221)
+    worst = max(ring_case(torch, gen, c) for c in RING_CASES)
+    ring_repeats(torch, gen)
+    torch.cuda.synchronize()
+    log(f"phase 22: B18 vs plain, {len(RING_CASES)} cases (rings of 1-8 ranks on one "
+        f"card, fp32 / bf16 / int8, block_k None / 64 / 128 / 30 / 24, tiles off the "
+        f"edges, permuted slots, capped blocks, ring buffers poisoned): ok (max abs err "
+        f"{worst:.3e}); {RING_REPEATS} launches of {RING_REPEAT_CASE} and block_k "
+        f"{RING_SAME_BITS_BLOCK_K} bitwise equal; "
+        f"blocks per rank of the last launch (senders, compute) {ring.ring_gemm.last_split}")
+    worst = max(cannon_case(torch, gen, c) for c in CANNON_CASES)
+    torch.cuda.synchronize()
+    log(f"phase 23: B19 vs plain, {len(CANNON_CASES)} cases (p = 1-4, fp32 / bf16 / int8, "
+        f"identity skew at p = 2 and 3, buffers and sums poisoned): ok (max abs err "
+        f"{worst:.3e})")
+
+
+# Phase 24: the headline size of the repo (bench.py's bf16 8192^3).
+DIST = dict(size=8192, ring_ranks=4, block_ks=(None, 512), cannon_p=2, time_ranks=(4, 8))
+
+
+def phase_slice7(torch):
+    """Phase 24 (main path): ``ring_matmul`` at bf16 8192^3 over 4 ranks on
+    the card with block_k None and 512, ``cannon_matmul_fused`` at p = 2,
+    launch counts set to 0 just before and read just after; each product's
+    max |C - ref| / max |ref| against fp32 ``torch.matmul`` of the whole
+    product (TF32 off) below 1e-4 (both sum exact bf16 products in fp32)."""
+    from gemm_hls_tpu_torch.ops import cannon, ring
+    from gemm_hls_tpu_torch.parallel import cannon_matmul_fused, make_mesh, ring_matmul
+
+    s, n = DIST["size"], DIST["ring_ranks"]
+    gen = torch.Generator(device="cuda").manual_seed(241)
+    a, b = dist_operands(torch, gen, (s, s), (s, s), torch.bfloat16)
+    ref = torch.matmul(a.float(), b.float())
+    top = ref.abs().max()
+    mesh = make_mesh((n,), ("x",), devices=[torch.device("cuda")] * n)
+    errs = {}
+
+    def check(key, c):
+        if c.shape != (s, s) or not bool(torch.isfinite(c).all()):
+            raise AssertionError(f"{key}: shape {tuple(c.shape)} or values not finite")
+        errs[key] = float((c - ref).abs().max() / top)
+
+    ring.ring_gemm.launches = cannon.cannon_gemm.launches = 0
+    for bk in DIST["block_ks"]:
+        check(f"ring_matmul {n} ranks block_k={bk}",
+              torch.cat(ring_matmul(a, b, mesh, block_k=bk)))
+    p = DIST["cannon_p"]
+    check(f"cannon_matmul_fused p={p}", cannon_matmul_fused(a, b, p))
+    torch.cuda.synchronize()
+    launches = {"B18": ring.ring_gemm.launches, "B19": cannon.cannon_gemm.launches}
+    log(f"phase 24: bf16 {s}^3 through the front doors, rel err against fp32 torch.matmul: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f"; launch counts {launches}")
+    if not all(v < F32_RTOL for v in errs.values()):
+        raise AssertionError("slice 7 main path outside 1e-4 of torch.matmul")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the slice 7 main path")
+    return launches
+
+
+def phase_times7(torch):
+    """Phase 24, times: B18 at bf16 8192^3 over 4 and 8 ranks (block_k None
+    and, at 4 ranks, 512) and B19 at p = 2, each beside its bound
+    (``ring_bound`` / ``cannon_bound``), its plain schedule and bf16
+    ``torch.matmul`` of the whole product (the library call that computes
+    the same function; timed here, never called by the port); the
+    protocol's cost is the ring's time over torch.matmul's (launches here
+    are comparisons, not the main path's)."""
+    from gemm_hls_tpu_torch.models.perf_model import H100, cannon_bound, ring_bound
+    from gemm_hls_tpu_torch.ops import cannon, ring
+    from gemm_hls_tpu_torch.parallel import make_mesh
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    s, bf16 = DIST["size"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(243)
+    a, b = dist_operands(torch, gen, (s, s), (s, s), bf16)
+    lib_ms = time_fn(lambda: torch.matmul(a, b), (), iters=20) * 1e3
+    out = {"torch.matmul ms": lib_ms}
+    runs = [(n, None) for n in DIST["time_ranks"]] + [(DIST["ring_ranks"], 512)]
+    for n, bk in runs:
+        mesh = make_mesh((n,), ("x",), devices=[torch.device("cuda")] * n)
+        a_s, b_s = ring.shard_operands_ring(a, b, mesh)
+        scratch = ring.ring_scratch(n, s, s // n, bf16, "cuda")
+        fn = lambda a_s=a_s, b_s=b_s, sc=scratch, bk=bk: ring.ring_gemm(  # noqa: E731
+            a_s, b_s, block_k=bk, scratch=sc)
+        plain = lambda a_s=a_s, b_s=b_s: ring.ring_gemm_plain(a_s, b_s)  # noqa: E731
+        err = compare(torch, torch.cat(fn()), torch.cat(plain()), F32_RTOL,
+                      f"B18 {n} ranks block_k={bk}", scaled=True)[0]
+        ms = time_fn(fn, (), iters=5) * 1e3
+        plain_ms = time_fn(plain, (), iters=2, warmup=1) * 1e3
+        bound = ring_bound(H100, s, s, s, n, bf16)
+        key = f"B18 {n} ranks" + (f" block_k={bk}" if bk else "")
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                        bound=bound, split=ring.ring_gemm.last_split)
+        log(f"phase 24: {key} bf16 {s}^3: {ms:.3f} ms ({ms / lib_ms:.2f}x torch.matmul's "
+            f"{lib_ms:.3f} ms) vs plain schedule {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} "
+            f"ms ({bound[1]}); blocks per rank {ring.ring_gemm.last_split}; max abs err "
+            f"{err:.3e}")
+        del a_s, b_s, scratch
+    p = DIST["cannon_p"]
+    ab, bb = cannon.cannon_blocks(a, b, p)
+    ab, bb = [t.contiguous() for t in ab], [t.contiguous() for t in bb]
+    scratch = cannon.cannon_scratch(p, s // p, s // p, s // p, bf16, "cuda")
+    fn = lambda: cannon.cannon_gemm(ab, bb, p, scratch=scratch)  # noqa: E731
+    plain = lambda: cannon.cannon_gemm_plain(ab, bb, p)  # noqa: E731
+    err = compare(torch, torch.stack(fn()), torch.stack(plain()), F32_RTOL,
+                  f"B19 p={p}", scaled=True)[0]
+    ms = time_fn(fn, (), iters=5) * 1e3
+    plain_ms = time_fn(plain, (), iters=2, warmup=1) * 1e3
+    bound = cannon_bound(H100, s, s, s, p, bf16)
+    out[f"B19 p={p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                             bound=bound, split=cannon.cannon_gemm.last_split)
+    log(f"phase 24: B19 p={p} bf16 {s}^3: {ms:.3f} ms ({ms / lib_ms:.2f}x torch.matmul's) "
+        f"vs plain schedule {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms ({bound[1]}); "
+        f"blocks per rank {cannon.cannon_gemm.last_split}; max abs err {err:.3e}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2952,6 +3248,9 @@ def main() -> int:
     phase_grouped_update(torch)
     launches6, _ = phase_slice6(torch)
     times6 = phase_times6(torch)
+    phase_dist_kernels(torch)
+    launches7 = phase_slice7(torch)
+    times7 = phase_times7(torch)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -3058,6 +3357,19 @@ def main() -> int:
         "gemm_hls_tpu/ops/pallas_grouped.py:300", launches6["B17"], t, t["bound"],
         t["library_ms"]))
     kernels[-1]["library_note"] = f"library_ms is {t['library']}"
+    # Slice 7 at bf16 8192^3, the ranks on one card.
+    for key, name, source, replaces in (
+            (f"B18 {DIST['ring_ranks']} ranks",
+             f"ring_gemm (B18 ring, both bodies, bf16 8192^3 over {DIST['ring_ranks']} ranks "
+             "on one card)", "ring_gemm.cu", "pallas_ring.py:48,120"),
+            (f"B19 p={DIST['cannon_p']}",
+             f"cannon_gemm (B19 fused Cannon, bf16 8192^3 on a {DIST['cannon_p']}x"
+             f"{DIST['cannon_p']} grid on one card)", "cannon_gemm.cu", "pallas_cannon.py:31")):
+        t = times7[key]
+        kernels.append(kernel(name, f"gemm_hls_tpu_torch/csrc/{source}",
+                              f"gemm_hls_tpu/ops/{replaces}", launches7[key[:3]], t,
+                              t["bound"], t["library_ms"]))
+        kernels[-1]["library_note"] = "library_ms is bf16 torch.matmul of the whole product"
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

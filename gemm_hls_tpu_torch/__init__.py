@@ -19,8 +19,12 @@ quantized GEMMs ``matmul_quantized`` / ``matmul_w8a8`` on
 ``csrc/dequant_gemm.cu`` (B13) and ``csrc/w8a8_gemm.cu`` (B14, B15), and
 ``grouped_matmul`` (the MoE expert GEMM of ``models.moe``, differentiable:
 ``moe_train_step`` trains through it) on ``csrc/grouped_gemm.cu`` (B16) and
-its weight gradient on ``csrc/grouped_update.cu`` (B17); all build with
-nvcc at first use.  This package imports neither jax nor ``gemm_hls_tpu``.
+its weight gradient on ``csrc/grouped_update.cu`` (B17), and the fused
+distributed GEMMs of ``parallel`` -- ``ring_matmul`` on
+``csrc/ring_gemm.cu`` (B18) and ``cannon_matmul_fused`` on
+``csrc/cannon_gemm.cu`` (B19), whose ranks run concurrently on one card
+and exchange blocks under in-kernel signal / wait; all build with nvcc at
+first use.  This package imports neither jax nor ``gemm_hls_tpu``.
 """
 
 from gemm_hls_tpu_torch.config import GemmConfig, default_config

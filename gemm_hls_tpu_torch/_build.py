@@ -148,6 +148,11 @@ def _declare(lib):
                                ("grouped_update", 4, 8)):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]
+    # The fused distributed GEMMs: (rank table of int64 pointers, int dims,
+    # int[2] blocks per rank out, stream).
+    for name in ("ring_gemm", "cannon_gemm"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = [i64p, i32p, i32p, vp]
     return lib
 
 

@@ -52,7 +52,7 @@
 // 0.3 ms at 3.35 TB/s.  8-slice Ozaki at 2048^3: 36 products of 17.2 GOP,
 // 0.31 ms.  Left on the table: wgmma (mma.sync issues from registers that
 // ldmatrix fills), TMA, warp specialisation.
-#include "common.cuh"
+#include "tile_mma.cuh"
 
 namespace gemm_hls {
 
@@ -87,36 +87,6 @@ struct SliceTile {
   static_assert(SK_BK == 64 && SK_THREADS == 256, "a stage row is 4 copies, 64 rows a pass");
   static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // This thread's share of a stage: rows tid / 4 + 64 t (t < ROW_PASSES) of
 // every used slice's A and B^T tiles, 16 bytes at column (tid % 4) * 16.
@@ -158,7 +128,7 @@ __device__ __forceinline__ void sk_load(signed char* st, const SliceGemm& g,
       signed char* dst = st + (s * P::ROWS + row) * SK_PITCH + col;
       const int bytes = plan.live[t] && tail > 0 ? tail : 0;
       if (g.vec) {
-        cp_async16(dst, bytes ? src : g.a[0], bytes);
+        cp16(dst, bytes ? src : g.a[0], bytes);
       } else {
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         signed char* e = reinterpret_cast<signed char*>(&v);
@@ -215,7 +185,7 @@ __global__ void __launch_bounds__(SK_THREADS) slice_gemm_kernel(const SliceGemm 
 #pragma unroll
   for (int s = 0; s < SK_STAGES - 1; ++s) {
     if (s < ksteps) sk_load<MAXD, BM, BN>(smem + s * stage_bytes, g, plan, s * SK_BK);
-    cp_async_commit();
+    cp_commit();
   }
 
   // ldmatrix row addresses of this lane: A matrices (rows 0-7 | 8-15) x
@@ -224,12 +194,12 @@ __global__ void __launch_bounds__(SK_THREADS) slice_gemm_kernel(const SliceGemm 
   const int b_row = BM + wn * T::WTN + (lane % 8) + 8 * (lane / 16), b_col = 16 * ((lane / 8) & 1);
 
   for (int kt = 0; kt < ksteps; ++kt) {
-    cp_async_wait<SK_STAGES - 2>();
+    cp_wait<SK_STAGES - 2>();
     __syncthreads();
     {
       const int nk = kt + SK_STAGES - 1;
       if (nk < ksteps) sk_load<MAXD, BM, BN>(smem + (nk % SK_STAGES) * stage_bytes, g, plan, nk * SK_BK);
-      cp_async_commit();
+      cp_commit();
     }
     const signed char* st = smem + (kt % SK_STAGES) * stage_bytes;
 #pragma unroll
@@ -240,19 +210,19 @@ __global__ void __launch_bounds__(SK_THREADS) slice_gemm_kernel(const SliceGemm 
         if (j < g.n_used)
 #pragma unroll
           for (int np = 0; np < T::NT / 2; ++np)
-            ldmatrix_x4(bf[j][np], st + (j * T::ROWS + b_row + np * 16) * SK_PITCH + kk + b_col);
+            ldsm_x4(bf[j][np], st + (j * T::ROWS + b_row + np * 16) * SK_PITCH + kk + b_col);
       // A_i's fragments are loaded while A_{i-1}'s MMAs issue.
       uint32_t af[2][T::MT][4];
 #pragma unroll
       for (int mt = 0; mt < T::MT; ++mt)
-        ldmatrix_x4(af[0][mt], st + (a_row + mt * 16) * SK_PITCH + kk + a_col);
+        ldsm_x4(af[0][mt], st + (a_row + mt * 16) * SK_PITCH + kk + a_col);
 #pragma unroll
       for (int i = 0; i < MAXD; ++i) {
         if (i < g.n_used) {
           if (i + 1 < MAXD && i + 1 < g.n_used) {
 #pragma unroll
             for (int mt = 0; mt < T::MT; ++mt)
-              ldmatrix_x4(af[(i + 1) & 1][mt],
+              ldsm_x4(af[(i + 1) & 1][mt],
                           st + ((i + 1) * T::ROWS + a_row + mt * 16) * SK_PITCH + kk + a_col);
           }
 #pragma unroll
@@ -299,7 +269,7 @@ __global__ void __launch_bounds__(SK_THREADS) slice_gemm_kernel(const SliceGemm 
       }
     }
   }
-  cp_async_wait<0>();
+  cp_wait<0>();
 
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)

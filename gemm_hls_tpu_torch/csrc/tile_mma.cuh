@@ -1,11 +1,16 @@
-// Shared tile pieces of the dequant GEMM (csrc/dequant_gemm.cu, kernel B13)
-// and the grouped GEMM and its weight gradient (csrc/grouped_gemm.cu,
-// csrc/grouped_update.cu, kernels B16 / B17): a masked tile loader for
-// 16-bit operands (cp.async where rows are 16-byte aligned), one 16-deep
-// tensor-core step of a warp tile (mma.sync m16n8k16, fp32 accumulators, A
-// read from an [m][k] or a [k][m] shared tile, B from a [k][n] or an [n][k]
-// one), and the CUDA-core pieces of their fp32 routes.  The mma / ldmatrix / cp.async
-// helpers are flash_common.cuh's.
+// Shared tile pieces of the dequant GEMM (csrc/dequant_gemm.cu, kernel B13),
+// the grouped GEMM and its weight gradient (csrc/grouped_gemm.cu,
+// csrc/grouped_update.cu, kernels B16 / B17), the int8 GEMMs
+// (csrc/int8_slices.cu, csrc/w8a8_gemm.cu: B4 / B5, B14 / B15) and the
+// fused distributed GEMMs (csrc/dist_tile.cuh: B18 / B19): masked tile
+// loaders for 16-bit and 8-bit operands (cp.async where rows are 16-byte
+// aligned), one 16-deep tensor-core step of a warp tile (mma.sync m16n8k16,
+// fp32 accumulators, A read from an [m][k] or a [k][m] shared tile, B from a
+// [k][n] or an [n][k] one), the int8 mma.sync m16n8k32, and the CUDA-core
+// pieces of the fp32 routes.  The mma / ldmatrix / cp.async helpers are
+// flash_common.cuh's.  Every global load here goes through the L2
+// (cp.async.cg, ld.global.cg), so a buffer that another block of the same
+// launch writes is never read from a stale L1 line (rank_sync.cuh).
 #pragma once
 
 #include "flash_common.cuh"
@@ -16,7 +21,7 @@ namespace gemm_hls {
 // [r_lo, r_hi) and c0 + c < c_lim, else 0; ROWS x COLS 16-bit elements,
 // by all NT threads.  ``vec``: the base is 16-byte aligned and ld and c0 are
 // multiples of 8, so each 8-element chunk is one cp.async (zero-filled past
-// c_lim); the caller commits and waits.  Otherwise element copies.
+// c_lim); the caller commits and waits.  Otherwise element loads.
 template <int ROWS, int COLS, int P, int NT>
 __device__ __forceinline__ void load16(uint16_t* tile, const uint16_t* src, int64_t ld, int r0,
                                        int r_lo, int r_hi, int c0, int c_lim, int vec) {
@@ -34,11 +39,46 @@ __device__ __forceinline__ void load16(uint16_t* tile, const uint16_t* src, int6
       uint16_t* e = reinterpret_cast<uint16_t*>(&z);
       if (live) {
         const uint16_t* s = src + gr * ld + gc;
-        for (int i = 0; i < 8 && gc + i < c_lim; ++i) e[i] = s[i];
+        for (int i = 0; i < 8 && gc + i < c_lim; ++i) e[i] = __ldcg(s + i);
       }
       *reinterpret_cast<uint4*>(dst) = z;
     }
   }
+}
+
+// The same for 8-bit elements: ROWS x COLS bytes in 16-byte chunks (``vec``:
+// the base is 16-byte aligned and ld and c0 are multiples of 16).
+template <int ROWS, int COLS, int P, int NT>
+__device__ __forceinline__ void load8(signed char* tile, const signed char* src, int64_t ld, int r0,
+                                      int r_lo, int r_hi, int c0, int c_lim, int vec) {
+  constexpr int CPR = COLS / 16;
+#pragma unroll
+  for (int ch = threadIdx.x; ch < ROWS * CPR; ch += NT) {
+    const int r = ch / CPR, c = (ch % CPR) * 16, gr = r0 + r, gc = c0 + c;
+    signed char* dst = tile + r * P + c;
+    const bool live = gr >= r_lo && gr < r_hi && gc < c_lim;
+    if (vec) {
+      cp16(dst, live ? src + gr * ld + gc : src, live ? min(16, c_lim - gc) : 0);
+    } else {
+      uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      signed char* e = reinterpret_cast<signed char*>(&z);
+      if (live) {
+        const signed char* s = src + gr * ld + gc;
+        for (int i = 0; i < 16 && gc + i < c_lim; ++i) e[i] = __ldcg(s + i);
+      }
+      *reinterpret_cast<uint4*>(dst) = z;
+    }
+  }
+}
+
+// c += A (16 x 32, row) . B (32 x 8, col), int8 in, int32 sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // acc[MT][NT] (m16 x n8 tiles of the warp tile at rows wm0, columns wn0)
@@ -103,7 +143,8 @@ __device__ __forceinline__ void load32(float* tile, const float* src, int64_t ld
     const int o = k_contig ? i / BK : i % SIMT_B, k = k_contig ? i % BK : i / SIMT_B;
     const int go = o0 + o, gk = k0 + k;
     float v = 0.f;
-    if (go >= o_lo && go < o_hi && gk < k_lim) v = src[k_contig ? go * ld + gk : gk * ld + go];
+    if (go >= o_lo && go < o_hi && gk < k_lim)
+      v = __ldcg(src + (k_contig ? go * ld + gk : gk * ld + go));
     tile[k * SIMT_P + o] = v;
   }
 }

@@ -36,7 +36,7 @@
 // TOP/s; the bytes (16 MB of bf16 x, 4 MB of weights, 16 MB of bf16 y) take
 // 11 us at 3.35 TB/s.  Left on the table: wgmma, TMA, quantizing x in the
 // GEMM's own load stage, a persistent schedule.
-#include "common.cuh"
+#include "tile_mma.cuh"
 
 namespace gemm_hls {
 
@@ -51,30 +51,6 @@ struct W8a8 {
   void* out;              // (M, N), out_code
   int M, N, K, bk, n_groups, mode, out_code, vec;
 };
-
-__device__ __forceinline__ uint32_t w_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void w_cp16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(w_smem(dst)), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void w_ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(w_smem(p)));
-}
-
-__device__ __forceinline__ void w_mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // ---- quantize --------------------------------------------------------------
 
@@ -127,7 +103,7 @@ __device__ __forceinline__ void load_x_tile(signed char* as, const W8a8& g, int 
     signed char* dst = as + r * WPITCH + c;
     const signed char* src = g.xq + static_cast<int64_t>(gm) * g.K + gk;
     if (g.vec) {
-      w_cp16(dst, live ? src : g.xq, live ? min(16, g.K - gk) : 0);
+      cp16(dst, live ? src : g.xq, live ? min(16, g.K - gk) : 0);
     } else {
       uint4 z = make_uint4(0u, 0u, 0u, 0u);
       signed char* e = reinterpret_cast<signed char*>(&z);
@@ -224,8 +200,8 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
     fetch_w(w, g, n0, 0);
     store_w(Bt[0], w);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
 
   const int a_row = wm * 32 + (lane % 8) + 8 * ((lane / 8) & 1), a_col = 16 * (lane / 16);
@@ -238,21 +214,21 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
       load_x_tile(As[cur ^ 1], g, m0, k0 + WBK);
       fetch_w(w, g, n0, k0 + WBK);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_commit();
 #pragma unroll
     for (int kk = 0; kk < WBK; kk += 32) {
       uint32_t af[2][4], bf[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
-        w_ldsm_x4(af[mt], As[cur] + (a_row + mt * 16) * WPITCH + kk + a_col);
+        ldsm_x4(af[mt], As[cur] + (a_row + mt * 16) * WPITCH + kk + a_col);
 #pragma unroll
       for (int np = 0; np < 2; ++np)
-        w_ldsm_x4(bf[np], Bt[cur] + (b_row + np * 16) * WPITCH + kk + b_col);
+        ldsm_x4(bf[np], Bt[cur] + (b_row + np * 16) * WPITCH + kk + b_col);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
-          w_mma_s8(part[mt][nt], af[mt], bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
+          mma_s8(part[mt][nt], af[mt], bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
     }
     // A scale block ends with this K step: fold its int32 partial into acc,
     // (f32(P) s_x) s_w with the scales that do not apply set to 1 (exact).
@@ -289,7 +265,7 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
           }
     }
     if (more) store_w(Bt[cur ^ 1], w);
-    asm volatile("cp.async.wait_group 0;\n" ::);
+    cp_wait<0>();
     __syncthreads();
   }
 

@@ -156,3 +156,37 @@ def grouped_update_bound(chip: ChipSpec, k: int, n: int, rows: int,
     moved = (rows * (k + n) * _esize(dtype)
              + num_groups * k * n * _esize(out_dtype or dtype))
     return chip.bound(2.0 * rows * k * n, chip.peak_for(dtype), moved)
+
+
+def ring_bound(chip: ChipSpec, m: int, n: int, k: int, n_dev: int, dtype: torch.dtype,
+               out_dtype: torch.dtype = torch.float32):
+    """Bound of kernel B18, the ring GEMM of ``n_dev`` ranks on one card: 2
+    M N K operations at the input type's rate (int8: the int8 tensor
+    cores, fp32: the CUDA cores); bytes: A, B and C once, plus the ring's
+    (n_dev - 1) copies of |B|, each read once and written once.
+
+    Over ``n_dev`` cards (not used yet: ROADMAP A5) each card does 2 M N K
+    / n_dev operations while (n_dev - 1) |B| / n_dev crosses its NVLink at
+    450 GB/s each way; the ring hides the transfer when that time is below
+    the card's compute time.
+    """
+    es = _esize(dtype)
+    moved = (m * k + k * n) * es + m * n * _esize(out_dtype) + 2 * (n_dev - 1) * k * n * es
+    return chip.bound(2.0 * m * n * k, chip.peak_for(dtype), moved)
+
+
+def cannon_bound(chip: ChipSpec, m: int, n: int, k: int, p: int, dtype: torch.dtype,
+                 out_dtype: torch.dtype = torch.float32):
+    """Bound of kernel B19, Cannon on a p x p grid on one card: 2 M N K
+    operations; bytes: A, B and C once, the skew (|A| + |B| read and
+    written) and (p - 1) shifts of |A| / p and |B| / p per grid row and
+    column (|A| + |B| a step, read and written).
+
+    Over p^2 cards (not used yet: ROADMAP A5) each card does 2 M N K / p^3
+    operations a step while it sends |A| / p^2 and |B| / p^2 over NVLink at
+    450 GB/s each way.
+    """
+    es = _esize(dtype)
+    ab = (m * k + k * n) * es
+    moved = ab + m * n * _esize(out_dtype) + 2 * ab + 2 * (p - 1) * ab
+    return chip.bound(2.0 * m * n * k, chip.peak_for(dtype), moved)

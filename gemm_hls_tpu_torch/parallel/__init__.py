@@ -1,0 +1,23 @@
+"""Distributed GEMMs of the port: the counterpart of ``gemm_hls_tpu.parallel``
+for the parts ported so far.
+
+``make_mesh`` / ``mesh_25d`` build meshes of torch devices; ``ring_matmul``
+(kernel B18) and ``cannon_matmul_fused`` (kernel B19) run their ranks
+concurrently on one card, or their plain schedules on the CPU.  The rest
+of the JAX package's ``parallel`` (SUMMA, Cannon on collectives, 2.5D,
+``distributed_matmul``, staging, ring attention, the pipeline) waits for
+the multi-card transport, ROADMAP A5.
+"""
+
+from gemm_hls_tpu_torch.ops.cannon import cannon_matmul_fused
+from gemm_hls_tpu_torch.ops.ring import ring_matmul, shard_operands_ring
+from gemm_hls_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_25d
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "mesh_25d",
+    "ring_matmul",
+    "shard_operands_ring",
+    "cannon_matmul_fused",
+]

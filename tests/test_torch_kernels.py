@@ -3,7 +3,9 @@ row-softmax variants), B3 (2-D and batched), B4 and B5 (the integer-slice
 GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
 case tables), the quantized and grouped GEMMs (B13-B16, over its
 phase-16 tables) and the grouped GEMM's weight gradient (B17, over its
-phase-19 tables) on the card, each against its plain PyTorch version; the
+phase-19 tables), the fused ring and Cannon (B18, B19, over its
+phase-22 / 23 tables, ranks living on the card) on the card, each against
+its plain PyTorch version; the
 gradients of the batched, epilogue, ``fused_linear``, ``attention``, i8x,
 semiring and grouped paths against plain autograd; the i8x tiers, the
 Ozaki GEMMs and the graph applications against float64 and
@@ -838,3 +840,32 @@ def test_quantized_weights_at_an_odd_address(cuda, which):
         ref = matmul_w8a8(x, wq, s)
     torch.cuda.synchronize()
     _close(got.float(), ref.float(), 1e-2)
+
+
+# ---- the fused distributed GEMMs: ring_gemm (B18), cannon_gemm (B19) -------
+# chip_smoke.py's phase-22 / 23 tables and runners (exact for int8, phase
+# 16's tolerances otherwise), ranks living on the one card.
+
+
+@pytest.mark.parametrize("case", chip_smoke.RING_CASES, ids=str)
+def test_ring_kernel_vs_plain(cuda, case):
+    chip_smoke.ring_case(torch, _gen(221), case)
+
+
+def test_ring_kernel_launches_repeat_bitwise(cuda):
+    chip_smoke.ring_repeats(torch, _gen(222))
+
+
+@pytest.mark.parametrize("case", chip_smoke.CANNON_CASES, ids=str)
+def test_cannon_kernel_vs_plain(cuda, case):
+    chip_smoke.cannon_case(torch, _gen(223), case)
+
+
+def test_ring_matmul_front_door_on_the_card(cuda):
+    # Four ranks on the card through the front door, against the plain
+    # schedule on CPU copies.
+    from gemm_hls_tpu_torch.parallel import make_mesh, ring_matmul
+    a, b = _operands(96, 160, 192, torch.bfloat16, device=cuda)
+    got = ring_matmul(a, b, make_mesh((4,), ("x",), devices=[cuda] * 4))
+    want = ring_matmul(a.cpu(), b.cpu(), make_mesh((4,), ("x",), devices=["cpu"] * 4))
+    _agree(torch.cat(got).cpu(), torch.cat(want), 1e-4)
