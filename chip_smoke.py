@@ -113,17 +113,21 @@ Phases, each printed as it ends:
      its bound, and a torch.profiler breakdown of one step;
  22. ``ring_gemm`` (B18, the fused ring, both TPU bodies) against its plain
      schedule over RING_CASES: rings of 1-8 ranks living on the card, fp32
-     / bf16 / int8, block_k None / 64 / 128 and odd ones, tiles off the
-     edges, a permuted rank-to-slot table, capped blocks per rank, ring
-     buffers poisoned (NaN, 0x5A bytes); one case launched 20 times and
-     with block_k 64 and 320, the same bits each time;
+     / bf16 / int8 on each route (the wgmma engine, mma.sync, the CUDA
+     cores; the route checked), block_k None / 64 / 128 and odd ones, tiles
+     off the edges, a permuted rank-to-slot table, capped blocks per rank,
+     ring buffers poisoned (NaN, 0x5A bytes); one engine case launched 20
+     times and with block_k 64 and 320, the same bits each time;
  23. ``cannon_gemm`` (B19, fused Cannon) against its plain schedule over
-     CANNON_CASES: p = 1-4, the three types, the identity-skew case;
+     CANNON_CASES: p = 1-4, the three types on each route, the
+     identity-skew case, bf16 outputs rounded per step;
  24. slice 7's main path, launch counts set to 0 before it and read after:
      ``ring_matmul`` at bf16 8192^3 over 4 ranks on the card (block_k None
      and 512) and ``cannon_matmul_fused`` at p = 2 against fp32
-     ``torch.matmul``; then B18 (4 and 8 ranks) and B19 times beside their
-     bounds, plain schedules and bf16 ``torch.matmul`` of the product.
+     ``torch.matmul``; then B18 (1, 4 and 8 ranks) and B19 times beside
+     their bounds, plain schedules and bf16 ``torch.matmul`` of the
+     product, and each launch's time stamps: the prologue, each step, when
+     its sends were done, the longest flag wait.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -2921,10 +2925,13 @@ _DT7 = ("float32", "bfloat16", "int8")
 # (ranks, dtype, M/n, N/n, K, block_k, permuted rank-to-slot table, blocks
 # per rank cap (0: the occupancy's), output dtype).  Every ring size in the
 # three types with M/n and N/n off the tiles; block_k 64 and 128 (the TPU's
-# tiled body) and block_ks no K step of the kernel divides; K rows that are not
-# 16-byte vectors (element loads); odd ring sizes; permuted slots; three
-# blocks a rank (one sender, two compute blocks walking many tiles each); a
-# bf16 output.
+# tiled body) and block_ks no K step of the kernel divides; odd ring sizes;
+# permuted slots; three blocks a rank (one sender, two compute blocks
+# walking many (step, tile) pairs each); bf16 and int32 outputs.  Routes
+# (``ops.ring.ring_route``): bf16 and int8 with K bytes a multiple of 16 run
+# the wgmma engine (most rows; ragged M and N off its 128 x 256 tile, K =
+# 2048 for a long stage ring), bf16 K = 100 and int8 K = 72 the mma.sync
+# tiles, fp32 the CUDA cores.
 RING_CASES = (
     [(n, dt, 70, 136, 192, None, False, 0, "float32") for n in (1, 2, 4, 8) for dt in _DT7]
     + [(4, dt, 64, 128, 256, bk, False, 0, "float32") for dt in _DT7 for bk in (64, 128)]
@@ -2936,26 +2943,41 @@ RING_CASES = (
        (8, "int8", 64, 256, 128, 64, True, 0, "float32"),
        (8, "bfloat16", 200, 300, 320, None, False, 3, "float32"),
        (5, "float32", 130, 140, 96, 32, False, 3, "float32"),
-       (4, "bfloat16", 128, 256, 512, None, False, 0, "bfloat16")]
+       (4, "bfloat16", 128, 256, 512, None, False, 0, "bfloat16"),
+       (2, "bfloat16", 256, 512, 2048, None, False, 0, "float32"),
+       (3, "bfloat16", 129, 257, 136, None, True, 0, "bfloat16"),
+       (4, "int8", 200, 520, 384, 128, False, 0, "float32"),
+       (6, "int8", 130, 300, 256, None, False, 3, "int32"),
+       (3, "int8", 40, 50, 72, None, False, 3, "int32")]
 )
-# The race check: one case launched RING_REPEATS times, the same bits each,
-# and again with each of RING_SAME_BITS_BLOCK_K (one kernel serves both TPU
-# bodies: block_k must not change a bit).
+# The race check: one case (on the wgmma route) launched RING_REPEATS
+# times, the same bits each, and again with each of RING_SAME_BITS_BLOCK_K
+# (one kernel serves both TPU bodies: block_k must not change a bit).
 RING_REPEAT_CASE = (8, "bfloat16", 200, 300, 320, None, True, 0, "float32")
 RING_REPEATS = 20
 RING_SAME_BITS_BLOCK_K = (64, 320)
 # Phase 23's table: (p, dtype, M, N, K, "random" | "identity", blocks per
-# rank cap).  p = 1, 2, 3 in the three types with local blocks off the
-# tiles (K/p of 33: element loads); tests/test_pallas_cannon.py's
-# identity-skew case (A of constant blocks times I must come back exactly,
-# so a block landing at the wrong rank shows) at p = 2 and 3; a capped
-# grid; p = 4, the largest rank table.
+# rank cap, output dtype).  p = 1, 2, 3 in the three types with local
+# blocks off the tiles (K/p of 33 and 100: the mma.sync tiles; 96 and 128:
+# the wgmma engine); tests/test_pallas_cannon.py's identity-skew case (A
+# of constant blocks times I must come back exactly, so a block landing at
+# the wrong rank shows) at p = 2 and 3; capped grids (many (step, tile)
+# pairs a block); p = 4, the largest rank table; bf16 outputs on every
+# route at p = 2 and 3, where the running sum is rounded per step.
 CANNON_CASES = (
-    [(p, dt, m, n, k, "random", 0)
+    [(p, dt, m, n, k, "random", 0, "float32")
      for p, (m, n, k) in ((1, (70, 136, 96)), (2, (140, 272, 200)), (3, (201, 390, 99)))
      for dt in _DT7]
-    + [(2, "float32", 16, 16, 16, "identity", 0), (3, "float32", 24, 24, 24, "identity", 0),
-       (3, "bfloat16", 384, 510, 384, "random", 3), (4, "int8", 256, 256, 256, "random", 0)]
+    + [(2, "float32", 16, 16, 16, "identity", 0, "float32"),
+       (3, "float32", 24, 24, 24, "identity", 0, "float32"),
+       (3, "bfloat16", 384, 510, 384, "random", 3, "float32"),
+       (4, "int8", 256, 256, 256, "random", 0, "float32"),
+       (2, "int8", 260, 520, 512, "random", 3, "int32"),
+       (2, "bfloat16", 256, 1024, 512, "random", 0, "bfloat16"),
+       (3, "bfloat16", 390, 780, 384, "random", 0, "bfloat16"),
+       (2, "bfloat16", 140, 272, 200, "random", 3, "bfloat16"),
+       (3, "float32", 201, 390, 99, "random", 0, "bfloat16"),
+       (2, "int8", 256, 520, 256, "random", 0, "bfloat16")]
 )
 
 
@@ -3015,6 +3037,8 @@ def ring_case(torch, gen, case):
                          max_blocks_per_rank=cap)
     if ring.ring_gemm.launches != before + 1:
         raise AssertionError(f"B18 {case}: no launch")
+    if ring.ring_gemm.last_route != ring.ring_route(a_sh[0].dtype, k):
+        raise AssertionError(f"B18 {case}: route {ring.ring_gemm.last_route}")
     ref = ring.ring_gemm_plain(a_sh, b_sh, out_dtype=out_dtype)
     return compare(torch, torch.cat(got), torch.cat(ref),
                    dist_rtol(torch, out_dtype, a_sh[0].dtype), f"B18 {case}", scaled=True)[0]
@@ -3027,6 +3051,8 @@ def ring_repeats(torch, gen):
     from gemm_hls_tpu_torch.ops import ring
     a_sh, b_sh, scratch = ring_setup(torch, gen, RING_REPEAT_CASE)
     first = torch.cat(ring.ring_gemm(a_sh, b_sh, scratch=scratch))
+    if ring.ring_gemm.last_route != "wgmma":
+        raise AssertionError(f"B18 {RING_REPEAT_CASE}: route {ring.ring_gemm.last_route}")
     for i in range(RING_REPEATS - 1):
         if not torch.equal(first, torch.cat(ring.ring_gemm(a_sh, b_sh, scratch=scratch))):
             raise AssertionError(f"B18: launch {i + 2} of {RING_REPEAT_CASE} differs "
@@ -3043,9 +3069,9 @@ def cannon_case(torch, gen, case):
     case must return A exactly.  Returns the largest abs error."""
     import numpy as np
 
-    from gemm_hls_tpu_torch.ops import cannon
-    p, dt, m, n, k, kind, cap = case
-    dtype = getattr(torch, dt)
+    from gemm_hls_tpu_torch.ops import cannon, ring
+    p, dt, m, n, k, kind, cap, out = case
+    dtype, out_dtype = getattr(torch, dt), getattr(torch, out)
     if kind == "identity":
         ml = m // p
         a = torch.from_numpy(np.kron(np.arange(1, p * p + 1).reshape(p, p),
@@ -3054,15 +3080,18 @@ def cannon_case(torch, gen, case):
     else:
         a, b = dist_operands(torch, gen, (m, k), (k, n), dtype)
     ab, bb = cannon.cannon_blocks(a, b, p)
-    scratch = cannon.cannon_scratch(p, m // p, n // p, k // p, dtype, "cuda")
+    scratch = cannon.cannon_scratch(p, m // p, n // p, k // p, dtype, "cuda", out_dtype)
     for t in (*scratch.comm_a, *scratch.comm_b, *scratch.sums):
         poison(torch, t)
     before = cannon.cannon_gemm.launches
-    got = cannon.cannon_gemm(ab, bb, p, scratch=scratch, max_blocks_per_rank=cap)
+    got = cannon.cannon_gemm(ab, bb, p, out_dtype=out_dtype, scratch=scratch,
+                             max_blocks_per_rank=cap)
     if cannon.cannon_gemm.launches != before + 1:
         raise AssertionError(f"B19 {case}: no launch")
-    ref = cannon.cannon_gemm_plain(ab, bb, p)
-    err = compare(torch, torch.stack(got), torch.stack(ref), dist_rtol(torch, got[0].dtype, dtype),
+    if cannon.cannon_gemm.last_route != ring.ring_route(dtype, k // p):
+        raise AssertionError(f"B19 {case}: route {cannon.cannon_gemm.last_route}")
+    ref = cannon.cannon_gemm_plain(ab, bb, p, out_dtype=out_dtype)
+    err = compare(torch, torch.stack(got), torch.stack(ref), dist_rtol(torch, out_dtype, dtype),
                   f"B19 {case}", scaled=True)[0]
     if kind == "identity" and not torch.equal(cannon.assemble(got, p), a.float()):
         raise AssertionError(f"B19 {case}: A . I is not A (a block landed at the wrong rank)")
@@ -3080,20 +3109,22 @@ def phase_dist_kernels(torch):
     ring_repeats(torch, gen)
     torch.cuda.synchronize()
     log(f"phase 22: B18 vs plain, {len(RING_CASES)} cases (rings of 1-8 ranks on one "
-        f"card, fp32 / bf16 / int8, block_k None / 64 / 128 / 30 / 24, tiles off the "
-        f"edges, permuted slots, capped blocks, ring buffers poisoned): ok (max abs err "
+        f"card, fp32 / bf16 / int8, wgmma / mma.sync / CUDA-core routes, block_k None / 64 / "
+        f"128 / 30 / 24, tiles off the edges, permuted slots, capped blocks, ring buffers "
+        f"poisoned): ok (max abs err "
         f"{worst:.3e}); {RING_REPEATS} launches of {RING_REPEAT_CASE} and block_k "
         f"{RING_SAME_BITS_BLOCK_K} bitwise equal; "
         f"blocks per rank of the last launch (senders, compute) {ring.ring_gemm.last_split}")
     worst = max(cannon_case(torch, gen, c) for c in CANNON_CASES)
     torch.cuda.synchronize()
     log(f"phase 23: B19 vs plain, {len(CANNON_CASES)} cases (p = 1-4, fp32 / bf16 / int8, "
-        f"identity skew at p = 2 and 3, buffers and sums poisoned): ok (max abs err "
+        f"all three routes, identity skew at p = 2 and 3, bf16 outputs rounded per step, "
+        f"buffers and sums poisoned): ok (max abs err "
         f"{worst:.3e})")
 
 
 # Phase 24: the headline size of the repo (bench.py's bf16 8192^3).
-DIST = dict(size=8192, ring_ranks=4, block_ks=(None, 512), cannon_p=2, time_ranks=(4, 8))
+DIST = dict(size=8192, ring_ranks=4, block_ks=(None, 512), cannon_p=2, time_ranks=(1, 4, 8))
 
 
 def phase_slice7(torch):
@@ -3136,14 +3167,41 @@ def phase_slice7(torch):
     return launches
 
 
+def stamp_report(torch, stamps, ranks, steps):
+    """Phase 24's breakdown of one stamped launch (``csrc/dist_tile.cuh``'s
+    stamps): the prologue (launch start to staging / skew done, as each
+    rank's compute block 0 saw it; the longest over the ranks), the mean
+    step of rank 0's compute block 0, each step's sends' end after its
+    compute start, and the longest time any compute block waited on a
+    flag, all in ms."""
+    from gemm_hls_tpu_torch.ops.ring import stamp_words
+    st = stamps.view(ranks, stamp_words(steps)).cpu().tolist()
+    head, begin, end, sent = 4, [], [], []
+    r0 = st[0]
+    for s in range(steps):
+        begin.append(r0[head + s])
+        end.append(r0[head + steps + s])
+        if s + 1 < steps:
+            sent.append((r0[head + 2 * steps + s] - r0[head + s]) / 1e6)
+    out = {"prologue ms": max((r[1] - r[0]) / 1e6 for r in st),
+           "mean step ms": sum(e - b for b, e in zip(begin, end)) / steps / 1e6,
+           "steps ms": [(e - b) / 1e6 for b, e in zip(begin, end)],
+           "sends done after step start ms": sent,
+           "longest wait ms": max(r[2] for r in st) / 1e6,
+           "launch to last step end ms": (end[-1] - r0[0]) / 1e6}
+    return out
+
+
 def phase_times7(torch):
-    """Phase 24, times: B18 at bf16 8192^3 over 4 and 8 ranks (block_k None
-    and, at 4 ranks, 512) and B19 at p = 2, each beside its bound
-    (``ring_bound`` / ``cannon_bound``), its plain schedule and bf16
-    ``torch.matmul`` of the whole product (the library call that computes
-    the same function; timed here, never called by the port); the
-    protocol's cost is the ring's time over torch.matmul's (launches here
-    are comparisons, not the main path's)."""
+    """Phase 24, times: B18 at bf16 8192^3 over 1 (the tile engine on the
+    whole card, no ring), 4 and 8 ranks (block_k None and, at 4 ranks, 512)
+    and B19 at p = 2, each beside its bound (``ring_bound`` /
+    ``cannon_bound``), its plain schedule and bf16 ``torch.matmul`` of the
+    whole product (the library call that computes the same function; timed
+    here, never called by the port); the protocol's cost is the ring's time
+    over torch.matmul's.  Then one stamped launch of the 4-rank ring and of
+    Cannon: where the time goes (``stamp_report``).  Launches here are
+    comparisons, not the main path's."""
     from gemm_hls_tpu_torch.models.perf_model import H100, cannon_bound, ring_bound
     from gemm_hls_tpu_torch.ops import cannon, ring
     from gemm_hls_tpu_torch.parallel import make_mesh
@@ -3169,11 +3227,17 @@ def phase_times7(torch):
         bound = ring_bound(H100, s, s, s, n, bf16)
         key = f"B18 {n} ranks" + (f" block_k={bk}" if bk else "")
         out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-                        bound=bound, split=ring.ring_gemm.last_split)
+                        bound=bound, split=ring.ring_gemm.last_split,
+                        route=ring.ring_gemm.last_route)
         log(f"phase 24: {key} bf16 {s}^3: {ms:.3f} ms ({ms / lib_ms:.2f}x torch.matmul's "
             f"{lib_ms:.3f} ms) vs plain schedule {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} "
-            f"ms ({bound[1]}); blocks per rank {ring.ring_gemm.last_split}; max abs err "
-            f"{err:.3e}")
+            f"ms ({bound[1]}); route {ring.ring_gemm.last_route}, blocks per rank "
+            f"{ring.ring_gemm.last_split}; max abs err {err:.3e}")
+        if bk is None:
+            stamps = torch.zeros(n * ring.stamp_words(n), dtype=torch.int64, device="cuda")
+            ring.ring_gemm(a_s, b_s, scratch=scratch, stamps=stamps)
+            out[key]["stamps"] = stamp_report(torch, stamps, n, n)
+            log(f"phase 24: {key} stamps: {json.dumps(out[key]['stamps'])}")
         del a_s, b_s, scratch
     p = DIST["cannon_p"]
     ab, bb = cannon.cannon_blocks(a, b, p)
@@ -3186,11 +3250,18 @@ def phase_times7(torch):
     ms = time_fn(fn, (), iters=5) * 1e3
     plain_ms = time_fn(plain, (), iters=2, warmup=1) * 1e3
     bound = cannon_bound(H100, s, s, s, p, bf16)
-    out[f"B19 p={p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-                             bound=bound, split=cannon.cannon_gemm.last_split)
-    log(f"phase 24: B19 p={p} bf16 {s}^3: {ms:.3f} ms ({ms / lib_ms:.2f}x torch.matmul's) "
+    key = f"B19 p={p}"
+    out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                    bound=bound, split=cannon.cannon_gemm.last_split,
+                    route=cannon.cannon_gemm.last_route)
+    log(f"phase 24: {key} bf16 {s}^3: {ms:.3f} ms ({ms / lib_ms:.2f}x torch.matmul's) "
         f"vs plain schedule {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms ({bound[1]}); "
-        f"blocks per rank {cannon.cannon_gemm.last_split}; max abs err {err:.3e}")
+        f"route {cannon.cannon_gemm.last_route}, blocks per rank "
+        f"{cannon.cannon_gemm.last_split}; max abs err {err:.3e}")
+    stamps = torch.zeros(p * p * ring.stamp_words(p), dtype=torch.int64, device="cuda")
+    cannon.cannon_gemm(ab, bb, p, scratch=scratch, stamps=stamps)
+    out[key]["stamps"] = stamp_report(torch, stamps, p * p, p)
+    log(f"phase 24: {key} stamps: {json.dumps(out[key]['stamps'])}")
     return out
 
 

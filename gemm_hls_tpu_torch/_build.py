@@ -149,10 +149,10 @@ def _declare(lib):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]
     # The fused distributed GEMMs: (rank table of int64 pointers, int dims,
-    # int[2] blocks per rank out, stream).
+    # int[2] blocks per rank out, tensor maps, stamps, stream).
     for name in ("ring_gemm", "cannon_gemm"):
         getattr(lib, name).restype = i32
-        getattr(lib, name).argtypes = [i64p, i32p, i32p, vp]
+        getattr(lib, name).argtypes = [i64p, i32p, i32p, vp, vp, vp]
     return lib
 
 
@@ -169,5 +169,7 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero return of a launch wrapper."""
     if rc == -1:
         raise NotImplementedError(f"{what}: no kernel built for this dtype/op")
+    if rc == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA tensor map")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -41,20 +41,72 @@ def one_device(devices) -> torch.device:
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
+# The Hopper tile engine's tile (csrc/wgmma_tile.cuh: kWgBM x kWgBN).
+WG_TILE = (128, 256)
+
+
+def ring_route(dtype, k: int) -> str:
+    """The compute route a B18 / B19 launch takes for input ``dtype`` and a
+    K (K/p for Cannon) of ``k``: ``"wgmma"`` (the Hopper tile engine: TMA,
+    warp-specialised wgmma) for bf16 and int8 whose K rows are whole
+    16-byte units, which a TMA map needs; ``"mma.sync"`` for bf16 and int8
+    with other K; ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  A
+    route is chosen here by shape, never as a fallback: a kernel that
+    fails to build or launch raises."""
+    if dtype == torch.float32:
+        return "simt"
+    esize = torch.empty((), dtype=dtype).element_size()
+    return "wgmma" if (k * esize) % 16 == 0 else "mma.sync"
+
+
+# Rates behind ``send_blocks``, per SM of an H100, from phase 24's stamps
+# and shaded toward what a ring needs: the bytes a second one sender block
+# forwards with bulk copies beside a busy card (16.7 MB in ~0.44 ms, 38
+# GB/s), and the operations a second one engine block does (bf16: 5.5
+# TFLOP/s an SM).  They give 2 sender blocks a rank at 4 and 8 ranks of
+# bf16 8192^3 and in Cannon at p = 2; a third was no faster at either ring
+# size in an A/B on the card.
+_SEND_RATE = 3.5e10
+_SM_RATE = {torch.bfloat16: 4.5e12, torch.int8: 9e12}
+
+
+def send_blocks(per_rank: int, step_ops: float, step_bytes: float, dtype) -> int:
+    """Sender blocks a rank of ``per_rank`` blocks gives the forwarding on
+    the wgmma route: the share of its blocks that makes a step's
+    ``step_bytes`` of forwarding take no longer than its ``step_ops``
+    operations on the rest (rates ``_SEND_RATE`` / ``_SM_RATE``), at least
+    one and at most ``per_rank - 1``; none when nothing is forwarded (one
+    rank)."""
+    if step_bytes <= 0:
+        return 0
+    t_send = step_bytes / _SEND_RATE
+    t_comp = step_ops / _SM_RATE[dtype]
+    want = -(-per_rank * t_send // (t_send + t_comp))
+    return int(min(max(want, 1), per_rank - 1))
+
+
+def blocks_per_rank(dev, ranks: int, cap: int = 0) -> int:
+    """Blocks of each rank on the wgmma route, which runs one block a SM:
+    the card's SMs shared among the ranks, capped by ``cap`` > 0."""
+    per_rank = torch.cuda.get_device_properties(dev).multi_processor_count // ranks
+    return min(per_rank, cap) if cap > 0 else per_rank
+
 # Flag words per rank: one ack, then recv[n] and done[n] from word 8
 # (csrc/ring_gemm.cu), padded to whole 128-byte lines.
 _FLAG_BASE = 8
 
 
-def flag_words(n_steps: int, per_step: int) -> int:
+def flag_words(n_steps: int, per_step: int, extra: int = 0) -> int:
     """Int32 flag words of one rank: 8 single flags, then ``per_step``
-    counters per step, padded to 32 words."""
-    return -(-(_FLAG_BASE + per_step * n_steps) // 32) * 32
+    counters per step and ``extra`` more (Cannon's per-tile flags), padded
+    to 32 words."""
+    return -(-(_FLAG_BASE + per_step * n_steps + extra) // 32) * 32
 
 
 def slot_elems(rows: int, cols: int, esize: int) -> int:
     """Elements of one ring-buffer slot of (rows, cols): padded so that
-    each slot starts 256-byte aligned (the kernels' 16-byte vectors)."""
+    each slot starts 256-byte aligned (the kernels' 16-byte vectors, the
+    bulk copies' and TMA maps' 16-byte bases)."""
     return -(-(rows * cols * esize) // 256) * 256 // esize
 
 
@@ -148,6 +200,35 @@ def ring_scratch(n: int, k: int, nl: int, dtype, device) -> RingScratch:
                for _ in range(n)])
 
 
+def stamp_words(steps: int) -> int:
+    """Int64 time stamps per rank of a launch of ``steps`` steps
+    (``csrc/dist_tile.cuh::stamp_words``): launch start, staging done, the
+    longest flag wait, a spare word, then each step's compute start,
+    compute end and sends' end."""
+    return 4 + 3 * steps
+
+
+def check_stamps(stamps, ranks: int, steps: int, dev):
+    """The stamps tensor's pointer (0 for None), zeroed on the stream."""
+    if stamps is None:
+        return 0
+    if (stamps.dtype != torch.int64 or stamps.device.type != dev.type
+            or not stamps.is_contiguous()
+            or stamps.numel() < ranks * stamp_words(steps)):
+        raise ValueError(f"stamps: {ranks * stamp_words(steps)} contiguous int64 on {dev} needed")
+    stamps.zero_()
+    return stamps.data_ptr()
+
+
+def tensor_maps(ranks: int, route: str, dev):
+    """The device buffer of the wgmma route's tensor maps (4 of 128 bytes a
+    rank, written by the launch before the kernel; freed after the call,
+    which the caching allocator orders after the kernel on its stream)."""
+    if route != "wgmma":
+        return None
+    return torch.empty(ranks * 4 * 128, dtype=torch.uint8, device=dev)
+
+
 def _vec(t: torch.Tensor, k: int) -> int:
     """1 if the K-contiguous rows of ``t`` start at 16-byte boundaries
     (the kernels' cp.async tile loads)."""
@@ -160,7 +241,8 @@ def _dims_ptr(values):
 
 def ring_gemm(a_shards: Sequence[torch.Tensor], b_shards: Sequence[torch.Tensor], *,
               out_dtype=torch.float32, block_k: Optional[int] = None,
-              scratch: Optional[RingScratch] = None, max_blocks_per_rank: int = 0):
+              scratch: Optional[RingScratch] = None, max_blocks_per_rank: int = 0,
+              stamps: Optional[torch.Tensor] = None):
     """Kernel B18 on one card: the ring GEMM of n ranks in one launch.
 
     ``a_shards[r]`` (M/n, K) and ``b_shards[r]`` (K, N/n), rank order, on
@@ -169,11 +251,14 @@ def ring_gemm(a_shards: Sequence[torch.Tensor], b_shards: Sequence[torch.Tensor]
     int8 sums in int32, cast at the store).  Returns the n row shards (M/n,
     N) of ``out_dtype``.  ``block_k`` (None or a divisor of K) picks the
     TPU's body (VMEM or K streamed in block_k chunks) and is only checked
-    here: the kernel streams K through shared memory in steps of its own
-    (32 or 64 deep), so every block_k gives the same bits.  ``scratch``
+    here: the kernel streams K through shared memory in steps of its own,
+    so every block_k gives the same bits.  The compute route is
+    ``ring_route``'s, recorded as ``ring_gemm.last_route``.  ``scratch``
     (default: fresh) holds the ring buffers and flags;
-    ``max_blocks_per_rank`` > 0 caps the blocks of a rank (tests).
-    Raises on a refused launch: no path falls back.
+    ``max_blocks_per_rank`` > 0 caps the blocks of a rank (tests);
+    ``stamps`` (int64, n * ``stamp_words(n)``, zeroed here) receives the
+    launch's time stamps (``csrc/dist_tile.cuh``).  Raises on a refused
+    launch: no path falls back.
     """
     n = len(a_shards)
     if n != len(b_shards) or n < 1:
@@ -219,16 +304,26 @@ def ring_gemm(a_shards: Sequence[torch.Tensor], b_shards: Sequence[torch.Tensor]
     vec_a = min(_vec(a, k) for a in a_shards)
     vec_b = int((k * esize) % 16 == 0)
     spin = ring_spin_ms(n, ml, nl, k, dt)
+    route = ring_route(dt, k)
+    n_send = -1
+    if route == "wgmma":
+        n_send = send_blocks(blocks_per_rank(dev, n, max_blocks_per_rank),
+                             2.0 * ml * nl * k, float(nl * k * esize) if n > 1 else 0.0, dt)
     dims = _dims_ptr([n, ml, nl, k, _build.dtype_code(dt), _build.dtype_code(out_dtype),
-                      vec_a, vec_b, int(max_blocks_per_rank), spin])
+                      vec_a, vec_b, int(max_blocks_per_rank), spin, int(route == "wgmma"),
+                      n_send])
+    maps = tensor_maps(n, route, dev)
     split = (ctypes.c_int * 2)()
     lib = _build.library()
     with torch.cuda.device(dev):
+        stamps_ptr = check_stamps(stamps, n, n, dev)
         rc = lib.ring_gemm((ctypes.c_int64 * len(table))(*table), dims, split,
+                           0 if maps is None else maps.data_ptr(), stamps_ptr,
                            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "ring_gemm")
     ring_gemm.launches += 1
     ring_gemm.last_split = (split[0], split[1])
+    ring_gemm.last_route = route
     return out
 
 
@@ -305,6 +400,7 @@ def ring_matmul(a, b, mesh: Mesh, *, axis: str = "x", config=None, interpret=Non
 
 
 # Kernel launches since the counts were last reset (plain calls not counted),
-# and the (sender, compute) blocks per rank of the last launch.
+# and the (sender, compute) blocks per rank and the route of the last launch.
 ring_gemm.launches = 0
 ring_gemm.last_split = None
+ring_gemm.last_route = None

@@ -6,9 +6,11 @@ on the same numpy inputs.
 p = 2 is the largest grid the 8-device mesh holds; p = 3 (9 ranks) runs
 against the numpy float64 oracle only.  Tolerances as in
 ``test_torch_ring.py``: int8 exact, float32 relative 1e-5, bfloat16
-inputs 1e-3.  A bfloat16 output is held to 2p roundings of bfloat16
-(relative 2p * 2^-8 of these positive products): the port rounds its fp32
-sum once where JAX rounds each step's product and sum (ROADMAP C1).
+inputs 1e-3.  A bfloat16 output is held to one rounding of bfloat16
+(relative 2^-8): both sides keep the running sum in bfloat16, rounding
+each step's product and partial sum, so only a step product that the
+dot's summation order puts on the other side of a rounding boundary can
+differ.
 """
 
 import jax
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from gemm_hls_tpu.ops.pallas_cannon import cannon_matmul_fused as jax_cannon
-from gemm_hls_tpu_torch.ops.cannon import cannon_gemm_plain
+from gemm_hls_tpu_torch.ops.cannon import assemble, cannon_blocks, cannon_gemm_plain
 from gemm_hls_tpu_torch.parallel import cannon_matmul_fused
 
 from test_torch_ring import RTOL, agree, operands
@@ -51,7 +53,7 @@ def test_cannon_fused_vs_jax(dtype, m, n, k, permute, out_dtype):
     if out_dtype == "float32":
         agree(got, want, dtype)
     else:
-        np.testing.assert_allclose(got, want.astype(np.float32), rtol=2 * 2 * 2.0 ** -8, atol=0)
+        np.testing.assert_allclose(got, want.astype(np.float32), rtol=2.0 ** -8, atol=0)
 
 
 @pytest.mark.parametrize("p", [2, 3])
@@ -119,3 +121,45 @@ def test_interpret_and_precision_are_accepted():
     got = cannon_matmul_fused(torch.from_numpy(a), torch.from_numpy(b), 2,
                               devices=["cpu"] * 4, interpret=True, precision="highest")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("in_dtype", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("p", [2, 3])
+def test_plain_schedule_rounds_per_step(in_dtype, p):
+    # A bfloat16 output keeps the running sum in bfloat16 (ROADMAP C1f,
+    # pallas_cannon.py's acc of out_dtype): each step's product rounded,
+    # then each partial sum; the kernels do the same on the card.
+    a, b = operands(8 * p, 8 * p, 16 * p, in_dtype, seed=40 + p)
+    dt = getattr(torch, in_dtype)
+    a, b = torch.from_numpy(a).to(dt), torch.from_numpy(b).to(dt)
+    ab, bb = cannon_blocks(a, b, p)
+    got = cannon_gemm_plain(ab, bb, p, out_dtype=torch.bfloat16)
+    for i in range(p):
+        for j in range(p):
+            acc = None
+            for s in range(p):
+                l_ = (i + j + s) % p  # the A / B block pair rank (i, j) holds at step s
+                x, y = ab[i * p + l_].double(), bb[l_ * p + j].double()
+                part = (x @ y).to(torch.bfloat16)
+                acc = part if acc is None else (acc.float() + part.float()).to(torch.bfloat16)
+            assert torch.equal(got[i * p + j], acc)
+    # float32 outputs still sum in fp32 and round once.
+    once = cannon_gemm_plain(ab, bb, p, out_dtype=torch.float32)
+    full = (a.double() @ b.double()).float()
+    torch.testing.assert_close(assemble(once, p), full, rtol=1e-5 if dt.is_floating_point else 0,
+                               atol=0 if not dt.is_floating_point else 1e-5)
+
+
+def test_running_sum_buffers():
+    # The kernel's running-sum buffer: fp32, or int32 for int8 summed
+    # exactly; fp32 for any narrow float output (it holds the rounded sums).
+    from gemm_hls_tpu_torch.ops.cannon import cannon_scratch, sum_dtype, tile_flags
+    from gemm_hls_tpu_torch.ops.ring import flag_words
+    assert sum_dtype(torch.int8, torch.float32) == torch.int32
+    assert sum_dtype(torch.int8, torch.bfloat16) == torch.float32
+    assert sum_dtype(torch.bfloat16, torch.float16) == torch.float32
+    assert tile_flags(4096, 4096) == 32 * 16 and tile_flags(130, 260) == 4
+    sc = cannon_scratch(2, 130, 260, 64, torch.int8, "cpu", torch.bfloat16)
+    assert sc.sums[0].dtype == torch.float32
+    assert sc.flags[0].numel() == flag_words(2, 3, 4) == 32
+    assert flag_words(2, 3, 512) == 544

@@ -215,3 +215,83 @@ def test_spin_budget_outlasts_a_long_step():
     budget_s = ring_spin_ms(3, m // 3, m // 3, m, torch.float32) / 1e3
     assert budget_s > 2 * m ** 3 / 6.7e12
     assert budget_s > ring_spin_ms(3, 1024, 1024, 3072, torch.float32) / 1e3 > 4
+
+
+# ---- the wrapper's pure-Python choices (the card runs what they decide) ----
+
+@pytest.mark.parametrize("dtype,k,route", [
+    ("float32", 64, "simt"), ("float32", 90, "simt"),
+    ("bfloat16", 96, "wgmma"), ("bfloat16", 8, "wgmma"), ("bfloat16", 8192, "wgmma"),
+    ("bfloat16", 100, "mma.sync"), ("bfloat16", 33, "mma.sync"),
+    ("int8", 64, "wgmma"), ("int8", 16, "wgmma"), ("int8", 72, "mma.sync"),
+    ("int8", 200, "mma.sync")])
+def test_route_by_shape(dtype, k, route):
+    # The Hopper tile engine's TMA maps need K rows of whole 16-byte units.
+    from gemm_hls_tpu_torch.ops.ring import ring_route
+    assert ring_route(getattr(torch, dtype), k) == route
+
+
+def test_card_tables_reach_both_routes():
+    # chip_smoke's tables (also the card tests' parameters) put bf16 and
+    # int8 on both routes, the engine with M and N off its 128 x 256 tile,
+    # capped blocks on the engine, and the same-bits repeat on the engine.
+    import chip_smoke
+    from gemm_hls_tpu_torch.ops.ring import WG_TILE, ring_route
+
+    def route(case):
+        return ring_route(getattr(torch, case[1]), case[4])
+
+    for dt in ("bfloat16", "int8"):
+        rows = [c for c in chip_smoke.RING_CASES if c[1] == dt]
+        assert any(route(c) == "mma.sync" for c in rows)
+        assert any(route(c) == "wgmma" and c[2] % WG_TILE[0] and c[3] % WG_TILE[1]
+                   for c in rows)
+        assert any(route(c) == "wgmma" and c[7] == 3 for c in rows)
+    assert route(chip_smoke.RING_REPEAT_CASE) == "wgmma"
+    cannon_routes = {(c[1], ring_route(getattr(torch, c[1]), c[4] // c[0]))
+                     for c in chip_smoke.CANNON_CASES}
+    assert {("bfloat16", "wgmma"), ("bfloat16", "mma.sync"), ("int8", "wgmma"),
+            ("int8", "mma.sync")} <= cannon_routes
+    assert {(c[0], c[7]) for c in chip_smoke.CANNON_CASES} >= {(2, "bfloat16"),
+                                                               (3, "bfloat16")}
+
+
+@pytest.mark.parametrize("rows,cols,esize", [(2048, 8192, 2), (300, 320, 2), (1, 1, 1),
+                                             (50, 100, 2), (33, 90, 4), (130, 256, 1)])
+def test_slot_starts_are_aligned(rows, cols, esize):
+    # Each ring-buffer slot starts on 256 bytes (the bulk copies' and TMA
+    # maps' 16-byte bases) and holds the whole block.
+    from gemm_hls_tpu_torch.ops.ring import slot_elems
+    slot = slot_elems(rows, cols, esize)
+    assert slot * esize % 256 == 0
+    assert 0 <= slot - rows * cols < 256 // esize
+
+
+def test_send_blocks_sizing():
+    # The sender blocks of a rank: the share that forwards a step's bytes
+    # in the time the rest take for its operations; none for one rank.
+    from gemm_hls_tpu_torch.ops.ring import send_blocks
+    bf16, s = torch.bfloat16, 8192
+    assert send_blocks(132, 2.0 * s ** 3, 0.0, bf16) == 0
+    # The headline ring (bf16 8192^3) at 4 and 8 ranks, Cannon at p = 2.
+    assert send_blocks(33, 2.0 * 2048 * 2048 * s, 2048 * s * 2.0, bf16) == 2
+    assert send_blocks(16, 2.0 * 1024 * 1024 * s, 1024 * s * 2.0, bf16) == 2
+    assert send_blocks(33, 2.0 * 4096 ** 3, 2 * 4096 * 4096 * 2.0, bf16) == 2
+    # Small blocks are mostly bytes: most blocks forward.
+    assert 16 < send_blocks(33, 2.0 * 64 * 64 * 256, 64 * 256 * 2.0, bf16) < 33
+    # At least one, at most all but one, and more bytes never fewer blocks.
+    counts = [send_blocks(16, 1e10, b, torch.int8) for b in (1e3, 1e6, 1e8, 1e10, 1e12)]
+    assert counts == sorted(counts) and counts[0] == 1 and counts[-1] == 15
+
+
+def test_stamp_words_and_buffer_checks():
+    from gemm_hls_tpu_torch.ops.ring import check_stamps, stamp_words
+    assert stamp_words(4) == 16 and stamp_words(1) == 7
+    dev = torch.device("cpu")
+    assert check_stamps(None, 4, 4, dev) == 0
+    st = torch.full((4 * stamp_words(4),), 7, dtype=torch.int64)
+    assert check_stamps(st, 4, 4, dev) == st.data_ptr() and not st.any()
+    with pytest.raises(ValueError, match="int64"):
+        check_stamps(torch.zeros(10, dtype=torch.int64), 4, 4, dev)
+    with pytest.raises(ValueError, match="int64"):
+        check_stamps(torch.zeros(64, dtype=torch.int32), 4, 4, dev)
