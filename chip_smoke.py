@@ -236,6 +236,108 @@ def operands(torch, m, n, k, dtype, ta=False, tb=False, seed=5):
             torch.from_numpy(b).to("cuda", dtype))
 
 
+# B1's two tensor-core routes (``ops.mxu.mxu_route``), case tables of
+# phases 3a and 6a that tests/test_torch_kernels.py parametrises too:
+# (dtype, out dtype, ta, tb, M, N, K, pitched, epilogue, route).  pitched:
+# each operand a view into rows of whole 16-byte units plus one unit, so
+# M, N and K off every tile still reach the engine.  bf16 and fp16 in the
+# four layouts (ragged through pitched views, and aligned contiguous),
+# every output type, tiny shapes; int8 on the engine where both operands
+# are K-major and on WMMA in the other layouts; rows whose pitch is not a
+# whole 16-byte unit on WMMA.
+B1_ROUTE_CASES = (
+    [(dt, dt, ta, tb, 1000, 1030, 1100, True, None, "wgmma")
+     for dt in ("bfloat16", "float16") for ta, tb in LAYOUTS]
+    + [(dt, "float32", ta, tb, 264, 384, 512, False, None, "wgmma")
+       for dt in ("bfloat16", "float16") for ta, tb in LAYOUTS]
+    + [("bfloat16", "float16", False, False, 304, 520, 264, False, None, "wgmma"),
+       ("float16", "bfloat16", True, True, 304, 520, 264, False, None, "wgmma"),
+       ("bfloat16", "bfloat16", False, True, 1, 1, 1, True, None, "wgmma"),
+       ("float16", "float32", True, False, 7, 13, 5, True, None, "wgmma"),
+       ("int8", "int32", False, True, 1000, 1030, 1100, True, None, "wgmma"),
+       ("int8", "int32", False, True, 257, 384, 512, False, None, "wgmma"),
+       ("int8", "int32", True, True, 257, 384, 512, False, None, "wmma")]
+    + [("int8", out, False, True, 300, 520, 272, False, None, "wgmma")
+       for out in ("int8", "float32", "bfloat16", "float16")]
+    + [("int8", "int32", ta, tb, 272, 384, 512, False, None, "wmma")
+       for ta, tb in LAYOUTS if (ta, tb) != (False, True)]
+    + [("bfloat16", "bfloat16", False, False, 64, 72, 100, False, None, "wmma"),
+       ("float16", "float32", False, True, 65, 140, 131, False, None, "wmma"),
+       ("bfloat16", "float32", False, False, 64, 130, 128, False, None, "wmma")]
+)
+# Each epilogue on the engine route: bf16 (bf16 operands) and fp16 (fp16
+# operands) outputs, int8 inputs to fp32 (every kind) and to int32 (the
+# exact kinds: sigmoid / tanh would flip a truncated int on a one-ulp
+# difference next to 1).
+B1_EPILOGUE_ROUTE_CASES = (
+    [("bfloat16", "bfloat16", False, False, 1000, 1030, 1100, True, ep, "wgmma")
+     for ep in EPILOGUES]
+    + [("float16", "float16", True, True, 304, 520, 264, False, ep, "wgmma") for ep in EPILOGUES]
+    + [("int8", "float32", False, True, 300, 520, 272, False, ep, "wgmma") for ep in EPILOGUES]
+    + [("int8", "int32", False, True, 300, 520, 272, False, ep, "wgmma")
+       for ep in EPILOGUES if ep not in ("bias_sigmoid", "bias_tanh")]
+)
+# The race check of the engine route: B1_REPEAT_CASE launched B1_REPEATS
+# times, the same bits each.
+B1_REPEAT_CASE = ("bfloat16", "float32", False, False, 1000, 1030, 1100, True, None, "wgmma")
+B1_REPEATS = 20
+
+
+def pitched(torch, gen, rows, cols, dtype, pitch):
+    """(rows, cols) on the card, U(-1, 1) or int8 in [-3, 3]; with
+    ``pitch``, a view into rows of whole 16-byte units plus one unit."""
+    per = 16 // dtype.itemsize
+    width = (cols + per - 1) // per * per + per if pitch else cols
+    if dtype == torch.int8:
+        x = torch.randint(-3, 4, (rows, width), generator=gen, device="cuda").to(dtype)
+    else:
+        x = signed(torch, (rows, width), dtype, gen)
+    return x[:, :cols]
+
+
+def b1_route_case(torch, gen, case):
+    """One B1_ROUTE_CASES / B1_EPILOGUE_ROUTE_CASES case against the plain
+    version, the route checked; returns the largest abs error."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import mxu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    dt, out, ta, tb, m, n, k, pitch, ep_name, route = case
+    dtype, out_dtype = getattr(torch, dt), getattr(torch, out)
+    a = pitched(torch, gen, *((k, m) if ta else (m, k)), dtype, pitch)
+    b = pitched(torch, gen, *((n, k) if tb else (k, n)), dtype, pitch)
+    ep = get_epilogue(ep_name) if ep_name else None
+    floats = dtype.is_floating_point
+    eps = [signed(torch, (n,), dtype if floats else torch.float32, gen) * (1 if floats else 20)
+           for _ in range(ep.n_operands if ep else 0)]
+    kw = dict(cfg=default_config(dtype, out_dtype=out), transpose_a=ta, transpose_b=tb,
+              epilogue=ep)
+    got = mxu.mxu_matmul(a, b, *eps, **kw)
+    if mxu.mxu_matmul.last_route != route:
+        raise AssertionError(f"B1 {case}: route {mxu.mxu_matmul.last_route}")
+    rtol = (0.0 if not out_dtype.is_floating_point
+            else F32_RTOL if out_dtype == torch.float32 else BF16_RTOL)
+    return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol, f"B1 {case}",
+                   scaled=True)[0]
+
+
+def b1_repeats(torch, gen):
+    """B1_REPEAT_CASE launched B1_REPEATS times on the same operands: every
+    launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import mxu
+    dt, out, ta, tb, m, n, k, pitch, _, route = B1_REPEAT_CASE
+    dtype = getattr(torch, dt)
+    a = pitched(torch, gen, m, k, dtype, pitch)
+    b = pitched(torch, gen, k, n, dtype, pitch)
+    cfg = default_config(dtype, out_dtype=out)
+    first = mxu.mxu_matmul(a, b, cfg=cfg)
+    if mxu.mxu_matmul.last_route != route:
+        raise AssertionError(f"B1 {B1_REPEAT_CASE}: route {mxu.mxu_matmul.last_route}")
+    for i in range(B1_REPEATS - 1):
+        if not torch.equal(first, mxu.mxu_matmul(a, b, cfg=cfg)):
+            raise AssertionError(f"B1: launch {i + 2} of {B1_REPEAT_CASE} differs from the first")
+
+
 def phase_b1(torch):
     from gemm_hls_tpu_torch import matmul
     from gemm_hls_tpu_torch.config import default_config, dtype_name
@@ -267,6 +369,13 @@ def phase_b1(torch):
                     worst = max(worst, rel)
     log(f"phase 3a: B1 vs plain, {len(cases) * 4 * len(shapes)} cases: ok "
         f"(worst rel err {worst:.3e})")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = max(b1_route_case(torch, gen, c) for c in B1_ROUTE_CASES)
+    b1_repeats(torch, gen)
+    log(f"phase 3a: B1 route cases, {len(B1_ROUTE_CASES)} (the wgmma engine: bf16 / fp16 "
+        f"in four layouts, int8 K-major, ragged through pitched views, every output type; "
+        f"WMMA: int8 in the other layouts, unaligned pitches): ok, route checked each "
+        f"(worst abs err {worst:.3e}); {B1_REPEATS} engine launches, the same bits")
 
     # Bool or_and through B1 (int8 -> int32 counts): a sparse case, and an
     # all-true K=256 one whose count is a multiple of 256.
@@ -410,7 +519,9 @@ def phase_main(torch):
             raise AssertionError(f"main path {key}: bad output")
         res["max_abs_err"], res["max_rel_err"] = max_abs, max_rel
         log(f"phase 5b: {key} {res['m']}x{res['n']}x{res['k']} {res['dtype']} "
-            f"{res['semiring']}: {res['seconds'] * 1e3:.3f} ms "
+            f"{res['semiring']}"
+            + (f" (route {mxu.mxu_matmul.last_route})" if key == "B1" else "")
+            + f": {res['seconds'] * 1e3:.3f} ms "
             f"({res['gops']:.1f} GOp/s) vs plain "
             f"{res['plain_seconds'] * 1e3:.3f} ms ({res['plain_gops']:.1f} "
             f"GOp/s); max abs err {max_abs:.3e}, max rel {max_rel:.3e}")
@@ -511,8 +622,11 @@ def phase_b2(torch):
                         0.0 if out == torch.int32 else F32_RTOL,
                         f"B1 {name} {dt}->{out} ta={ta} tb={tb}", scaled=True)
                 n_cases += 1
+    for case in B1_EPILOGUE_ROUTE_CASES:
+        b1_route_case(torch, gen, case)
     log(f"phase 6a: B1 with each epilogue vs plain, {n_cases} cases "
-        f"(float and integer inputs): ok")
+        f"(float and integer inputs) and {len(B1_EPILOGUE_ROUTE_CASES)} on the wgmma "
+        f"engine: ok")
 
     n_cases = 0
     shapes = [(7, 33, 65, 17), (3, 130, 257, 77), (2, 1000, 1030, 1100)]
@@ -887,19 +1001,26 @@ def phase_times(torch):
     bf16 = torch.bfloat16
     out = {}
 
-    def entry(key, fn, plain, args, iters, rtol, extra=None):
+    def entry(key, fn, plain, args, iters, rtol, extra=None, library=None):
         got, ref = fn(*args), plain(*args)
         max_abs, _ = compare(torch, got, ref, rtol, key, scaled=True)
         ms = time_fn(fn, args, iters=iters) * 1e3
         plain_ms = time_fn(plain, args, iters=iters) * 1e3
         out[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs)
         line = f"phase 9: {key}: {ms:.3f} ms vs plain {plain_ms:.3f} ms"
-        if extra:
-            e_ms = time_fn(extra[1], args, iters=iters) * 1e3
-            line += f" ({extra[0]} {e_ms:.3f} ms)"
-        log(line + f"; max abs err {max_abs:.3e}")
+        for name, call in [x for x in (extra, library) if x]:
+            e_ms = time_fn(call, args, iters=iters) * 1e3
+            line += f" ({name} {e_ms:.3f} ms)"
+        if library:
+            # The one PyTorch call computing the same function, held to the
+            # plain version like the kernel.
+            compare(torch, library[1](*args), ref, rtol, f"{key}: {library[0]}", scaled=True)
+            out[key]["library_ms"] = e_ms
+        log(line + f"; max abs err {max_abs:.3e}"
+            + (f"; route {mxu.mxu_matmul.last_route}" if key.startswith("B1") else ""))
 
-    # B1 with bias_relu at the trainer's first layer.
+    # B1 with bias_relu at the trainer's first layer, beside cuBLASLt's fused
+    # bias + ReLU epilogue.
     x = signed(torch, (8192, 4096), bf16, gen)
     w = signed(torch, (4096, 16384), bf16, gen) * 0.02
     b = signed(torch, (16384,), bf16, gen)
@@ -907,7 +1028,9 @@ def phase_times(torch):
     entry("B1 epilogue", lambda x_, w_, b_: mxu.mxu_matmul(x_, w_, b_, cfg=cfg, epilogue=ep),
           lambda x_, w_, b_: mxu.mxu_matmul_plain(x_, w_, b_, cfg=cfg, epilogue=ep),
           (x, w, b), 10, BF16_RTOL,
-          ("torch.relu(x @ w + b) in bf16", lambda x_, w_, b_: torch.relu(x_ @ w_ + b_)))
+          ("torch.relu(x @ w + b) in bf16", lambda x_, w_, b_: torch.relu(x_ @ w_ + b_)),
+          ("torch._addmm_activation(b, x, w)",
+           lambda x_, w_, b_: torch._addmm_activation(b_, x_, w_)))
     del x, w, b
     # B2 at 64 x 512^3 and 256 x 128^3, against torch.bmm.
     for bsz, sz in ((64, 512), (256, 128)):
@@ -980,6 +1103,76 @@ def int8_slices(torch, n, rows, cols, gen):
                          device="cuda", dtype=torch.int8)
 
 
+# B5's two routes (``ops.slice_kernels.ozaki_route``), phase 10b's case
+# table that tests/test_torch_kernels.py parametrises too: (n_slices,
+# n_diags, block_k, (M, N, K), layout, route).  layout "kmajor": B's slices
+# as (K, N) views of (N, K) storage; "pitched": both as views into rows of
+# whole 16-byte units plus one (K off every slab on the engine);
+# "rowmajor": B's slices row-major (K, N), transposed once by the wrapper.
+# 1-8 slices, n_diags up to 9 (past 2 n - 1: diagonals without a pair),
+# block_k 128, 256 and 2048 on the engine (one and several K blocks, a
+# last block one deep), 64 and 192 on mma.sync, unaligned K.
+OZAKI_ROUTE_CASES = (
+    [(ns, min(ns + 1, 9), 2048, (257, 130, 1024), "kmajor", "wgmma") for ns in range(1, 9)]
+    + [(8, 9, 128, (130, 260, 640), "kmajor", "wgmma"),
+       (8, 8, 256, (1024, 1024, 2048), "kmajor", "wgmma"),
+       (8, 9, 2048, (1024, 1024, 4096), "kmajor", "wgmma"),
+       (6, 4, 256, (200, 300, 768), "kmajor", "wgmma"),
+       (3, 9, 256, (64, 64, 512), "kmajor", "wgmma"),
+       (4, 5, 256, (65, 140, 1000), "pitched", "wgmma"),
+       (2, 3, 2048, (33, 129, 4097), "pitched", "wgmma"),
+       (3, 4, 2048, (65, 140, 1024), "rowmajor", "wgmma"),
+       (3, 4, 2048, (65, 140, 131), "kmajor", "mma.sync"),
+       (8, 9, 64, (257, 130, 1024), "kmajor", "mma.sync"),
+       (4, 5, 192, (100, 100, 512), "kmajor", "mma.sync")]
+)
+# The race check of the engine route.
+OZAKI_REPEAT_CASE = (8, 9, 256, (300, 520, 1024), "kmajor", "wgmma")
+OZAKI_REPEATS = 20
+
+
+def b5_route_operands(torch, gen, case):
+    """(stacked A slices (n, M, K), B slices (n, K, N)) of an
+    OZAKI_ROUTE_CASES case."""
+    ns, _, _, (m, n, k), layout, _ = case
+    kp = (k + 15) // 16 * 16 + 16 if layout == "pitched" else k
+    sa = int8_slices(torch, ns, m, kp, gen)[:, :, :k]
+    if layout == "rowmajor":
+        return sa, int8_slices(torch, ns, k, n, gen)
+    return sa, int8_slices(torch, ns, n, kp, gen)[:, :, :k].transpose(1, 2)
+
+
+def b5_route_case(torch, gen, case):
+    """One B5 route case against the plain version: (hi + lo's error over
+    the largest output, whether hi and lo are both bit-identical)."""
+    from gemm_hls_tpu_torch.ops import slice_kernels as sk
+    _, n_diags, block_k, _, _, route = case
+    sa, sb = b5_route_operands(torch, gen, case)
+    hi, lo = sk.fused_ozaki_int8(sa, sb, block_k=block_k, n_diags=n_diags)
+    if sk.fused_ozaki_int8.last_route != route:
+        raise AssertionError(f"B5 {case}: route {sk.fused_ozaki_int8.last_route}")
+    rhi, rlo = sk.fused_ozaki_int8_plain(list(sa), list(sb), block_k=block_k, n_diags=n_diags)
+    ref = rhi.double() + rlo.double()
+    err = float((hi.double() + lo.double() - ref).abs().max()) / (float(ref.abs().max()) or 1.0)
+    if err > 1e-15:
+        raise AssertionError(f"B5 {case}: hi + lo off by {err:.3e} of the largest output")
+    return err, bool(torch.equal(hi, rhi) and torch.equal(lo, rlo))
+
+
+def b5_repeats(torch, gen):
+    """OZAKI_REPEAT_CASE launched OZAKI_REPEATS times: the same bits each."""
+    from gemm_hls_tpu_torch.ops import slice_kernels as sk
+    _, n_diags, block_k, _, _, route = OZAKI_REPEAT_CASE
+    sa, sb = b5_route_operands(torch, gen, OZAKI_REPEAT_CASE)
+    first = sk.fused_ozaki_int8(sa, sb, block_k=block_k, n_diags=n_diags)
+    if sk.fused_ozaki_int8.last_route != route:
+        raise AssertionError(f"B5 {OZAKI_REPEAT_CASE}: route {sk.fused_ozaki_int8.last_route}")
+    for i in range(OZAKI_REPEATS - 1):
+        got = sk.fused_ozaki_int8(sa, sb, block_k=block_k, n_diags=n_diags)
+        if not all(torch.equal(x, y) for x, y in zip(first, got)):
+            raise AssertionError(f"B5: launch {i + 2} of {OZAKI_REPEAT_CASE} differs from the first")
+
+
 def phase_b45(torch):
     """Kernels B4 and B5 against their plain versions on the card."""
     from gemm_hls_tpu_torch.ops import slice_kernels as sk
@@ -1036,6 +1229,14 @@ def phase_b45(torch):
     log(f"phase 10b: B5 vs plain, {n5} cases: worst |hi + lo - plain| "
         f"{worst5:.3e} of the largest output; hi and lo bit-identical in "
         f"{exact5} of {n5}")
+    results = [b5_route_case(torch, gen, c) for c in OZAKI_ROUTE_CASES]
+    b5_repeats(torch, gen)
+    log(f"phase 10b: B5 route cases, {len(results)} (the wgmma engine: 1-8 slices, "
+        f"n_diags up to 9, block_k 128 / 256 / 2048, K off the slab; mma.sync: block_k 64 "
+        f"and 192, unaligned K): worst |hi + lo - plain| {max(r[0] for r in results):.3e} "
+        f"of the largest output, route checked each; bit-identical in "
+        f"{sum(r[1] for r in results)} of {len(results)}; {OZAKI_REPEATS} engine "
+        f"launches, the same bits")
     for call, match in (
             (lambda: sk.fused_int8_fp32(int8_slices(torch, 3, 8, 44400, gen),
                                         int8_slices(torch, 3, 44400, 16, gen)),
@@ -1360,7 +1561,8 @@ def phase_times3(torch):
                 iters=1, warmup=0, repeats=1) * 1e3
             del hi, lo, rhi, rlo, ref
         out[f"B5 {n}"] = entry
-        log(f"phase 12: B5 8 slices, 36 products, {n}^3: {ms:.3f} ms"
+        log(f"phase 12: B5 8 slices, 36 products, {n}^3 (route "
+            f"{sk.fused_ozaki_int8.last_route}): {ms:.3f} ms"
             + (f" vs plain {entry['plain_ms']:.3f} ms" if "plain_ms" in entry else "")
             + f" (torch.matmul float64 {lib:.3f} ms)")
         del sa, sb, A
@@ -3360,7 +3562,8 @@ def main() -> int:
         kernel("mxu_gemm with epilogue (B1 fused bias + activation)",
                "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
                "gemm_hls_tpu/ops/pallas_mxu.py:103", launches2["B1 epilogue"],
-               times["B1 epilogue"], bounds["B1 epilogue"], None),
+               times["B1 epilogue"], bounds["B1 epilogue"],
+               times["B1 epilogue"]["library_ms"]),
         kernel("mxu_gemm batched (B2, plain and per-column epilogue)",
                "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
                "gemm_hls_tpu/ops/pallas_mxu.py:143", launches2["B2"],

@@ -123,16 +123,21 @@ def _declare(lib):
     gemm = [vp, vp, vp, i64, i32, i32, i32, i64, i64, i64, i64, i32, i32]
     lib.mxu_gemm.restype = i32
     lib.mxu_gemm.argtypes = gemm + [i32, i32, i32, i32, i32, vp, vp, i32, vp]
+    # B1 on the tile engine: (a, b, c, M, N, K, lda, ldb, ta, tb, in, out,
+    # ep, e0, e1, ep_code, stream)
+    lib.mxu_wgmma.restype = i32
+    lib.mxu_wgmma.argtypes = [vp, vp, vp, i32, i32, i32, i64, i64, i32, i32,
+                              i32, i32, i32, vp, vp, i32, vp]
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     lib.semiring_gemm.restype = i32
     lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, vp]
     # (a slices, b^T slices, n_used, c, c2, ua, ub, M, N, K, lda, ldb,
-    #  n_diags, flush_steps, vec, stream)
+    #  n_diags, flush_steps, vec, engine, stream)
     ptrs = ctypes.POINTER(vp)
     lib.slice_gemm.restype = i32
     lib.slice_gemm.argtypes = [ptrs, ptrs, i32, vp, vp, vp, vp, i32, i32, i32,
-                               i64, i64, i32, i32, i32, vp]
+                               i64, i64, i32, i32, i32, i32, vp]
     # Flash attention: (seqs, lse, kv_len | delta, q_seg, kv_seg, offs, dims,
     # cap, scale, dtype, stream); seqs holds (pointer, heads, sb, sh, ss)
     # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec).

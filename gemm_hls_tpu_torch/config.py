@@ -24,7 +24,9 @@ import torch
 SMEM_LIMIT_BYTES = 232_448
 
 # C tiles the kernels in csrc/ are compiled for, keyed by route:
-#   "tc"   — csrc/mxu_gemm.cu, tensor-core tile (bf16 / fp16 / int8 inputs);
+#   "tc"   — csrc/mxu_gemm.cu, tensor-core tile (bf16 / fp16 / int8 inputs;
+#            the 2-D calls whose operands a TMA map describes run on the
+#            Hopper tile engine's 128 x 256 tile instead, ops/mxu.py::mxu_route);
 #   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 / int32 plus_times in
 #            mxu_gemm.cu, and every semiring in semiring_gemm.cu).
 KERNEL_TILES = {"tc": (128, 128, 32), "simt": (128, 128, 16)}
@@ -41,6 +43,19 @@ SLICE_TILES = {2: (128, 64, 64), 3: (128, 64, 64), 4: (128, 64, 64),
 # slice tiles, and the number of K steps in flight (the cp.async ring).
 SLICE_ROW_PITCH = 80
 SLICE_STAGES = 3
+# B5 on the Hopper tile engine (csrc/int8_slices.cu: ozaki_wg_kernel,
+# ops/slice_kernels.py::ozaki_route): (block_m, block_n, K slab in bytes),
+# one slice pair's A and B^T slabs a stage, and the stages of its TMA ring.
+OZAKI_ENGINE_TILE = (128, 128, 128)
+OZAKI_ENGINE_STAGES = 6
+
+
+def ozaki_engine_smem_bytes() -> int:
+    """Dynamic shared memory of one engine B5 block: 1024 bytes of
+    alignment slack (the swizzle's period), the ring, a full and an empty
+    mbarrier a stage."""
+    bm, bn, slab = OZAKI_ENGINE_TILE
+    return 1024 + OZAKI_ENGINE_STAGES * ((bm + bn) * slab + 16)
 
 
 def slice_route(n_diags: int, flush: bool = False) -> int:

@@ -93,6 +93,12 @@ __device__ __forceinline__ float ep_load(const void* p, int code, int n) {
   }
 }
 
+// exp of a non-positive argument only: no 1 / inf.
+__device__ __forceinline__ float ep_sigmoid(float x) {
+  const float t = expf(-fabsf(x));
+  return x >= 0.f ? 1.f / (1.f + t) : t / (1.f + t);
+}
+
 // Rounding as the plain version's separate torch ops: no contraction of
 // acc * s + b into one FMA.
 __device__ __forceinline__ float epilogue(float acc, const EpArgs& e, int n) {
@@ -106,10 +112,7 @@ __device__ __forceinline__ float epilogue(float acc, const EpArgs& e, int n) {
   const float x = __fadd_rn(acc, p);
   switch (e.kind) {
     case kEpBiasRelu: return dmax(x, 0.f);
-    case kEpBiasSigmoid: {  // exp of a non-positive argument only: no 1/inf
-      const float t = expf(-fabsf(x));
-      return x >= 0.f ? 1.f / (1.f + t) : t / (1.f + t);
-    }
+    case kEpBiasSigmoid: return ep_sigmoid(x);
     case kEpBiasTanh: return tanhf(x);
     default: return x;  // kEpBias
   }

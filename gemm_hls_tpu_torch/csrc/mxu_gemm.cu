@@ -5,7 +5,8 @@
 // kernel family:
 //   * _kernel (entry mxu_matmul, B1): the 2-D GEMM with its optional fused
 //     per-column epilogue at the store (pallas_mxu.py:103-106); here
-//     batch = 1.
+//     batch = 1.  The 2-D calls a TMA map can describe run on the Hopper
+//     tile engine instead (csrc/mxu_wgmma.cuh); this kernel keeps the rest.
 //   * _batched_kernel (entry mxu_matmul_batched, B2), plain and epilogue
 //     variants: (B, M, K) x (B, K, N) with whole examples per grid step.
 //     Here the batch is a grid axis (blockIdx.z, chunked past gridDim.z's
@@ -21,12 +22,17 @@
 // carry nothing between them, so the TPU kernel's sequential K grid axis
 // and its acc_ref scratch become this loop.
 //
-// Routes by input dtype:
+// Routes by input dtype (ops/mxu.py::mxu_route picks this kernel or the
+// engine by shape):
 //   bf16, fp16 -> tensor cores (WMMA 16x16x16), fp32 accumulator;
 //   int8       -> tensor cores (WMMA 16x16x16), int32 accumulator;
 //   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
 //                  (csrc/simt_gemm.cuh with the plus_times functor); this
 //                  meets the reference's "high"/"highest" precision.
+// The tensor-core tile here runs every batched call (B2), and the 2-D calls
+// the engine does not take: int8 with an operand that is not K-major (int8
+// wgmma reads nothing else), and any operand whose base or row pitch is not
+// a whole 16-byte unit.
 // The epilogue (common.cuh) sees the fp32 accumulator before the output
 // cast; an int32 accumulator is widened to fp32 for it.
 //
@@ -46,17 +52,14 @@
 // pallas_mxu.py::_mask_k_tail); rows past M/N are zero-filled too and the
 // store masks them.
 //
-// What bounds it on an H100 at 8192^3 bf16: the tensor-core rate.  1.1e12
-// FLOP at 989e12 FLOP/s is 1.11 ms.  The io_volume law of a 128x128 tile
-// reads M*N*K*(1/128 + 1/128) elements, 17.2 GB of bf16, 5.1 ms at
-// 3.35 TB/s if nothing were reused, so the kernel leans on the 50 MB L2
-// (the 132 tiles in flight share their A rows and B columns).
-// Measured (H100 80GB HBM3, 700 W): 5.86 ms at 8192^3 bf16, 188 TFLOP/s,
-// against torch.matmul's 1.32 ms.  Left on the table by this simple design:
-// WMMA issues mma.sync, a quarter of wgmma's rate; no TMA, no multi-stage
-// cp.async ring (one shared buffer, two barriers per K step, next tile
-// prefetched into registers); C is staged through shared memory one 16x16
-// fragment at a time; no persistent blocks or L2-aware rasterisation.
+// What bounds it on an H100: the tensor-core rate (bf16 8192^3: 1.1e12 FLOP
+// at 989e12 FLOP/s, 1.11 ms), which WMMA cannot approach: it issues
+// mma.sync, a quarter of wgmma's rate, from one shared buffer with two
+// barriers per 32-deep K step and the next tile prefetched through
+// registers, and stages C through shared memory one 16x16 fragment at a
+// time.  Measured (H100 80GB HBM3, 700 W, chip_smoke.py): 6.01 ms at bf16
+// 8192^3 while that shape ran here (the engine now takes it in 1.50 ms);
+// B2 at 64 x 512^3 0.152 ms against torch.bmm's 0.042.
 #include <mma.h>
 
 #include <type_traits>
@@ -156,9 +159,8 @@ __device__ __forceinline__ void tc_store(typename Tr::Raw* s,
   }
 }
 
-// Two blocks per SM (registers capped at 128, a few bytes spilled): 8.16 ->
-// 7.33 ms at 8192^3 bf16 on an H100 80GB HBM3 at 700 W, against 162
-// registers and one block per SM.
+// Two blocks per SM (registers capped at 128, a few bytes spilled), which
+// measured faster than 162 registers and one block per SM.
 // B_ROW: B is row-major (K, N) and 16-bit, so its tile keeps the natural
 // [k][n] layout (16-byte stores) and feeds a row-major matrix_b; otherwise
 // it takes the K-plane layout.  (int8 cannot: its 16-column fragments would

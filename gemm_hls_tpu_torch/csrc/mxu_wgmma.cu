@@ -1,0 +1,27 @@
+// Kernel B1 on the tile engine (csrc/mxu_wgmma.cuh): the int8 kernel (both
+// operands K-major: A (M, K), B held as (N, K)) and the entry that takes
+// every type the engine route runs.
+#include "mxu_wgmma.cuh"
+
+using namespace gemm_hls;
+
+// C (M, N) row-major = epilogue(op(A) . op(B)) in ``out_code``'s dtype.
+// lda / ldb: the operands' row pitch in elements (16-byte multiples, bases
+// 16-byte aligned: the tensor maps' rule); ta: A held (K, M); tb: B held
+// (N, K).  in_code bf16 / fp16 take every layout, int8 only ta = 0, tb = 1.
+// ep, e0, e1, ep_code: as mxu_gemm's.  Returns 0, a CUDA error code, -1 for
+// a type, layout or epilogue the route does not take, or -2 for a tensor
+// map cuTensorMapEncodeTiled refused.
+extern "C" int mxu_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
+                         int64_t ldb, int ta, int tb, int in_code, int out_code, int ep,
+                         const void* e0, const void* e1, int ep_code, void* stream) {
+  if (ep < 0 || ep >= kEpKinds || M < 1 || N < 1 || K < 1) return kUnsupported;
+  const MxuWgCall call{a, b, c, M, N, K, lda, ldb, ta, tb, out_code, EpArgs{e0, e1, ep_code, ep}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_code) {
+    case kBF16: return launch_mxu_wg_bf16(call, st);
+    case kF16: return launch_mxu_wg_f16(call, st);
+    case kI8: return !ta && tb ? launch_mxu_wg<signed char, false, false>(call, st) : kUnsupported;
+    default: return kUnsupported;
+  }
+}

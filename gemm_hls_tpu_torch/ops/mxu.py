@@ -1,6 +1,6 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
-(``csrc/mxu_gemm.cu``, ``csrc/row_softmax.cu``) and their plain PyTorch
-version.
+(``csrc/mxu_wgmma.cu``, ``csrc/mxu_gemm.cu``, ``csrc/row_softmax.cu``) and
+their plain PyTorch version.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
@@ -78,6 +78,27 @@ def _vec_ok(x) -> int:
     vec = 16 // x.element_size()
     return int(x.data_ptr() % 16 == 0
                and all(s % vec == 0 for s in _strides(x)))
+
+
+def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool,
+              batched: bool = False) -> str:
+    """The kernel a B1 / B2 launch takes: ``"wgmma"`` (the Hopper tile
+    engine, ``csrc/mxu_wgmma.cu``: TMA and warp-specialised wgmma) for a
+    2-D call of bf16 or fp16, or of int8 with both operands K-major (A
+    (M, K), B held (N, K): int8 wgmma reads nothing else), whose operands
+    are ``aligned`` (16-byte bases, row pitches whole 16-byte units: what a
+    TMA map describes); ``"wmma"`` (``csrc/mxu_gemm.cu``'s tensor-core
+    tile) for the other bf16 / fp16 / int8 calls and every batched (B2)
+    one; ``"simt"`` (IEEE fp32, wrapping int32, on the CUDA cores) for
+    fp32 and int32.  Chosen by shape, never as a fallback: a kernel that
+    fails to build or launch raises."""
+    if dtype in (torch.float32, torch.int32):
+        return "simt"
+    if batched or not aligned:
+        return "wmma"
+    if dtype in (torch.bfloat16, torch.float16):
+        return "wgmma"
+    return "wgmma" if dtype == torch.int8 and not transpose_a and transpose_b else "wmma"
 
 
 def _ep_operands(eps, n, device):
@@ -161,21 +182,30 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what):
             f"N={n}; softmax the fp32 scores instead")
     a, b = _row_major(a), _row_major(b)
     (lda, sa), (ldb, sb) = _strides(a), _strides(b)
+    vec_a, vec_b = _vec_ok(a), _vec_ok(b)
+    route = mxu_route(a.dtype, ta, tb, bool(vec_a and vec_b),
+                      batched=what != "kernel B1")
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     ops, ep_dt = _ep_operands(eps, n, a.device)
     ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
+    codes = (_build.dtype_code(a.dtype), _build.dtype_code(out_dtype))
     lib = _build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, n, k,
-                lda, ldb, sa, sb, int(ta), int(tb), _vec_ok(a), _vec_ok(b),
-                _build.dtype_code(a.dtype), _build.dtype_code(out_dtype))
+                lda, ldb, sa, sb, int(ta), int(tb), vec_a, vec_b, *codes)
         if rows:
             rc = lib.mxu_gemm_row_softmax(*args, stream)
+        elif route == "wgmma":
+            rc = lib.mxu_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+                               n, k, lda, ldb, int(ta), int(tb), *codes, code,
+                               *ptrs, _build.dtype_code(ep_dt), stream)
         else:
             rc = lib.mxu_gemm(*args, code, *ptrs, _build.dtype_code(ep_dt),
                               stream)
     _build.check(rc, what)
+    if what == "kernel B1":
+        mxu_matmul.last_route = route
     return out
 
 
@@ -185,7 +215,8 @@ def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
     a: (M, K), or (K, M) with ``transpose_a``; b: (K, N), or (N, K) with
     ``transpose_b``; ``ep_operands``: the epilogue's (N,) operands.  Shapes
-    need not be tile-aligned: the kernel masks every edge itself.  A
+    need not be tile-aligned: the kernel masks every edge itself.  The
+    kernel is :func:`mxu_route`'s, recorded as ``mxu_matmul.last_route``.  A
     whole-row epilogue (the row softmax) cannot run on B1's tiles, which
     split rows; it runs on B2's row-softmax variant with a batch of one.
     """
@@ -235,8 +266,10 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
 # Kernel launches since the counts were last reset (plain calls not
 # counted): B1 without / with a per-column epilogue; B2 plain or with a
-# per-column epilogue; B2's row-softmax variant.
+# per-column epilogue; B2's row-softmax variant.  And the route of B1's
+# last launch.
 mxu_matmul.launches = 0
+mxu_matmul.last_route = None
 mxu_matmul.epilogue_launches = 0
 mxu_matmul_batched.launches = 0
 mxu_matmul_batched.row_softmax_launches = 0

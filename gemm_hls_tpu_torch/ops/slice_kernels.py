@@ -19,9 +19,10 @@ operands are taken (the kernel masks the M, N and K edges itself); the
 TPU's ``block_m`` / ``block_n`` are VMEM tile choices, accepted and checked
 for the signature's sake while the card runs its compiled tile
 (``config.SLICE_TILES``).  B5's ``block_k`` is the flush period and a
-multiple of the kernel's 64-deep K step.  The kernels read B's slices
-K-contiguous, as B_j^T: transposed views of (N, K) storage cost nothing, a
-row-major (K, N) slice one int8 transposed copy.
+multiple of the kernel's 64-deep K step; :func:`ozaki_route` sends it to
+the Hopper tile engine or to the ``mma.sync`` kernel by shape.  The
+kernels read B's slices K-contiguous, as B_j^T: transposed views of (N, K)
+storage cost nothing, a row-major (K, N) slice one int8 transposed copy.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import ctypes
 import torch
 
 from gemm_hls_tpu_torch import _build
-from gemm_hls_tpu_torch.config import SLICE_TILES, slice_route
+from gemm_hls_tpu_torch.config import OZAKI_ENGINE_TILE, SLICE_TILES, slice_route
 from gemm_hls_tpu_torch.ops.mxu import _INT_MAX
 
 # Magnitude bits per int8 slice: x ~= ulp * sum_i s_i * 2^(-7 i).
@@ -40,6 +41,24 @@ SLICE_BITS = 7
 _INT32_BOUND = 1 << 31
 _K_STEP = 64  # the kernel's K step: B5 flushes on multiples of it
 _MAX_DIAGS = max(SLICE_TILES)
+# The tile engine's K slab for int8 (csrc/int8_slices.cu: kOzBK): B5 on the
+# engine flushes on multiples of it.
+OZ_ENGINE_SLAB = OZAKI_ENGINE_TILE[2]
+
+
+def ozaki_route(lda: int, ldb: int, block_k: int, aligned: bool) -> str:
+    """The kernel a B5 launch takes: ``"wgmma"`` (the Hopper tile engine,
+    ``ozaki_wg_kernel``: TMA and warp-specialised wgmma, diagonal-major)
+    where every slice row is a whole number of 16-byte units (the row
+    pitches ``lda`` of A_i and ``ldb`` of B_j^T, in int8 elements, and the
+    bases ``aligned``: what a TMA map describes) and ``block_k`` is a
+    multiple of the engine's 128-deep slab, so that no slab straddles a
+    flush; ``"mma.sync"`` (``slice_gemm_kernel``) otherwise.  Chosen by
+    shape, never as a fallback: a kernel that fails to build or launch
+    raises."""
+    if aligned and lda % 16 == 0 and ldb % 16 == 0 and block_k % OZ_ENGINE_SLAB == 0:
+        return "wgmma"
+    return "mma.sync"
 
 
 def _split_operands(sa, sb):
@@ -174,8 +193,10 @@ def _launch(sa, sb, m, n, k, n_diags, outs, ulps, flush_steps, what):
     if sa[0].device != sbt[0].device:
         raise ValueError(f"{what}: operands on {sa[0].device} and "
                          f"{sbt[0].device}")
-    vec = int(lda % 16 == 0 and ldb % 16 == 0
-              and all(s.data_ptr() % 16 == 0 for s in sa + sbt))
+    aligned = all(s.data_ptr() % 16 == 0 for s in sa + sbt)
+    vec = int(lda % 16 == 0 and ldb % 16 == 0 and aligned)
+    route = (ozaki_route(lda, ldb, flush_steps * _K_STEP, aligned)
+             if flush_steps else "mma.sync")
     pa = (ctypes.c_void_p * n_used)(*(s.data_ptr() for s in sa))
     pb = (ctypes.c_void_p * n_used)(*(s.data_ptr() for s in sbt))
     c, c2 = (outs + [None])[:2]
@@ -187,8 +208,9 @@ def _launch(sa, sb, m, n, k, n_diags, outs, ulps, flush_steps, what):
             pa, pb, n_used, c.data_ptr(), None if c2 is None else c2.data_ptr(),
             None if ua is None else ua.data_ptr(),
             None if ub is None else ub.data_ptr(), m, n, k, lda, ldb, n_diags,
-            flush_steps, vec, stream)
+            flush_steps, vec, int(route == "wgmma"), stream)
     _build.check(rc, what)
+    return route
 
 
 def _ulp_vector(u, length, device):
@@ -252,7 +274,8 @@ def fused_ozaki_int8(sa, sb, *, block_m: int = 128, block_n: int = 512,
     d < n_diags are computed (default ``n_slices + 1``).  Each diagonal is
     summed exactly per K block of ``block_k`` (bounded by
     ``n_slices * 127^2 * block_k < 2^31``) and flushed error-free into the
-    (hi, lo) accumulators, so K is unbounded.
+    (hi, lo) accumulators, so K is unbounded.  The kernel is
+    :func:`ozaki_route`'s, recorded as ``fused_ozaki_int8.last_route``.
     """
     n_slices, m, n, k, sa_l, sb_l = _split_operands(sa, sb)
     if n_diags is None:
@@ -271,12 +294,15 @@ def fused_ozaki_int8(sa, sb, *, block_m: int = 128, block_n: int = 512,
     dev = sa_l[0].device
     hi = torch.empty((m, n), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    _launch(sa_l, sb_l, m, n, k, n_diags, [hi, lo], None, block_k // _K_STEP,
-            "kernel B5")
+    fused_ozaki_int8.last_route = _launch(
+        sa_l, sb_l, m, n, k, n_diags, [hi, lo], None, block_k // _K_STEP,
+        "kernel B5")
     fused_ozaki_int8.launches += 1
     return hi, lo
 
 
-# Kernel launches since the counts were last reset (plain calls not counted).
+# Kernel launches since the counts were last reset (plain calls not
+# counted), and the route of B5's last launch.
 fused_int8_fp32.launches = 0
 fused_ozaki_int8.launches = 0
+fused_ozaki_int8.last_route = None

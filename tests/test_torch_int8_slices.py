@@ -26,7 +26,8 @@ from gemm_hls_tpu.ops import pallas_ozaki as jax_oz
 
 from gemm_hls_tpu_torch import matmul
 from gemm_hls_tpu_torch.config import (
-    SLICE_TILES, SMEM_LIMIT_BYTES, slice_route, slice_smem_bytes,
+    OZAKI_ENGINE_TILE, SLICE_TILES, SMEM_LIMIT_BYTES, ozaki_engine_smem_bytes,
+    slice_route, slice_smem_bytes,
 )
 from gemm_hls_tpu_torch.models import perf_model
 from gemm_hls_tpu_torch.ops import int8_slices, slice_kernels
@@ -351,6 +352,14 @@ def test_slice_tiles_fit_shared_memory(max_diags):
     assert bk == slice_kernels._K_STEP and bm % 16 == 0 and bn % 16 == 0
 
 
+def test_ozaki_engine_tile_fits_shared_memory():
+    # One block a SM: the 6-stage ring of (A_i, B_j^T) slab pairs, 128-byte
+    # swizzled rows (the slab is the swizzle's whole row).
+    bm, bn, slab = OZAKI_ENGINE_TILE
+    assert ozaki_engine_smem_bytes() <= SMEM_LIMIT_BYTES
+    assert slab == 128 and bm == 128 and bn % 8 == 0 and bn <= 256
+
+
 @pytest.mark.parametrize("n_diags,flush,route", [(1, False, 2), (2, False, 2),
                                                  (3, False, 3), (4, False, 4),
                                                  (8, False, 9), (2, True, 9)])
@@ -367,6 +376,50 @@ def test_slice_pass_counts_and_bounds(n_slices, n_diags, passes, n, bound_ms):
     assert perf_model.slice_passes(n_slices, n_diags) == passes
     secs, by = perf_model.slice_gemm_bound(perf_model.H100, n, n, n, n_slices, n_diags)
     assert by == "operations" and round(secs * 1e3, 2) == bound_ms
+
+
+@pytest.mark.parametrize("lda,ldb", [(1024, 1024), (4096, 2048), (1008, 1008),
+                                     (1000, 1024), (1024, 131)])
+@pytest.mark.parametrize("block_k", [64, 128, 192, 256, 2048])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ozaki_route(lda, ldb, block_k, aligned):
+    # B5 takes the engine where TMA describes every slice row (16-byte
+    # pitches and bases) and no 128-deep slab straddles a flush.
+    engine = (aligned and lda % 16 == 0 and ldb % 16 == 0
+              and block_k % slice_kernels.OZ_ENGINE_SLAB == 0)
+    want = "wgmma" if engine else "mma.sync"
+    assert slice_kernels.ozaki_route(lda, ldb, block_k, aligned) == want
+
+
+@pytest.mark.parametrize("k", [64, 100, 1000, 2048, 44000, (1 << 17) + 128])
+def test_front_doors_block_k_reaches_the_engine(k):
+    # ozaki_matmul_int8's and the i8x tiers' block_k are multiples of 256:
+    # with K-contiguous rows of whole 16-byte units, every such call runs
+    # on the engine.
+    for bk in (min(2048, -(-k // 256) * 256), min(4096, -(-k // 256) * 256)):
+        route = slice_kernels.ozaki_route(k, k, bk, True)
+        assert route == ("wgmma" if k % 16 == 0 else "mma.sync")
+
+
+def test_card_table_takes_the_routes_it_names():
+    # chip_smoke.py's B5 route table (phase 10b and the card tests): the
+    # route each case asserts is ozaki_route's for its pitches and block_k.
+    import chip_smoke
+
+    routes = set()
+    for case in chip_smoke.OZAKI_ROUTE_CASES + [chip_smoke.OZAKI_REPEAT_CASE]:
+        _, _, block_k, (_, _, k), layout, route = case
+        pitch = (k + 15) // 16 * 16 + 16 if layout == "pitched" else k
+        assert slice_kernels.ozaki_route(pitch, pitch, block_k, True) == route, case
+        routes.add(route)
+    assert routes == {"wgmma", "mma.sync"}
+
+
+def test_plain_b5_leaves_the_route_alone():
+    slice_kernels.fused_ozaki_int8.last_route = None
+    sa, sb = (_t(x) for x in _slices(3, 8, 16, 32))
+    slice_kernels.fused_ozaki_int8(sa, sb, block_k=64)
+    assert slice_kernels.fused_ozaki_int8.last_route is None
 
 
 def test_b4_b5_refuse_a_diagonal_count_past_the_kernels():

@@ -535,6 +535,32 @@ def test_b5_matches_plain(cuda, n_slices, extra_diag, block_k, mnk):
     assert float((got - ref).abs().max()) <= 1e-15 * max(float(ref.abs().max()), 1.0)
 
 
+# ---- both routes of B1 and B5 (the wgmma engine and the older tiles) -------
+# chip_smoke.py's phase-3a / 6a / 10b tables and runners; each case checks
+# the route its launch took.
+
+
+@pytest.mark.parametrize("case", chip_smoke.B1_ROUTE_CASES + chip_smoke.B1_EPILOGUE_ROUTE_CASES,
+                         ids=str)
+def test_b1_routes_match_plain(cuda, case):
+    chip_smoke.b1_route_case(torch, _gen(231), case)
+
+
+def test_b1_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.b1_repeats(torch, _gen(232))
+
+
+@pytest.mark.parametrize("case", chip_smoke.OZAKI_ROUTE_CASES, ids=str)
+def test_b5_routes_match_plain(cuda, case):
+    # Every diagonal is exact and the flush order is the plain version's,
+    # so hi and lo are bit-identical on either route.
+    assert chip_smoke.b5_route_case(torch, _gen(233), case)[1]
+
+
+def test_b5_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.b5_repeats(torch, _gen(234))
+
+
 @pytest.mark.parametrize("case", ["whole_k", "block_k", "diagonals", "devices"])
 def test_slice_kernel_refusals_on_the_card(cuda, case):
     sa, sb = _int8_slices(3, 8, 64, cuda, 5), _int8_slices(3, 64, 16, cuda, 6)

@@ -120,3 +120,80 @@ def test_wrapper_rejects_bad_operands(bad):
     b = torch.ones(6, 3) if bad == "shape" else torch.ones(5, 3, device="meta")
     with pytest.raises(ValueError):
         mxu.mxu_matmul(a, b, cfg=cfg)
+
+
+# ---- the kernel route (ops.mxu.mxu_route): pure, so it is checked here ------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("batched", [False, True])
+def test_route_of_16_bit_inputs(dtype, ta, tb, aligned, batched):
+    # Every layout reaches the engine (MN-major operands through wgmma's
+    # transpose bits) when TMA can describe both operands; B2 stays on WMMA.
+    want = "wgmma" if aligned and not batched else "wmma"
+    assert mxu.mxu_route(getattr(torch, dtype), ta, tb, aligned, batched) == want
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_route_of_int8_inputs(ta, tb, aligned):
+    # int8 wgmma reads K-major operands only: A (M, K) and B held (N, K).
+    want = "wgmma" if aligned and (ta, tb) == (False, True) else "wmma"
+    assert mxu.mxu_route(torch.int8, ta, tb, aligned) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_route_of_cuda_core_inputs(dtype, aligned):
+    # IEEE fp32 and wrapping int32 stay on the CUDA cores (no TF32).
+    assert mxu.mxu_route(getattr(torch, dtype), False, True, aligned) == "simt"
+
+
+@pytest.mark.parametrize("shape,col0,dtype,aligned", [
+    ((64, 1024), 0, "bfloat16", True),     # 2048-byte rows
+    ((64, 1000), 0, "bfloat16", True),     # 2000-byte rows: whole 16-byte units
+    ((64, 100), 0, "bfloat16", False),     # 200-byte rows
+    ((64, 136), 8, "bfloat16", True),      # a view 16 bytes into its rows
+    ((64, 136), 4, "bfloat16", False),     # a view 8 bytes in: the base is off
+    ((64, 1100), 0, "int8", False),        # 1100-byte rows
+    ((64, 1104), 0, "int8", True),
+    ((64, 1104), 16, "int8", True),
+])
+def test_alignment_the_route_reads(shape, col0, dtype, aligned):
+    # The wrapper's alignment test (bases and row pitches whole 16-byte
+    # units), on storage the size of the operand and on views into it.
+    x = torch.zeros(shape, dtype=getattr(torch, dtype))[:, col0:]
+    assert bool(mxu._vec_ok(x)) == aligned
+
+
+def test_plain_calls_leave_the_route_alone():
+    mxu.mxu_matmul.last_route = None
+    a, b = _inputs(8, 8, 8, "float32", False, False)
+    mxu.mxu_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                   cfg=default_config("float32"))
+    assert mxu.mxu_matmul.last_route is None
+
+
+def test_card_tables_take_the_routes_they_name():
+    # chip_smoke.py's B1 route tables (phases 3a / 6a and the card tests):
+    # the route each case asserts is mxu_route's for its layout and
+    # pitches, and both routes are covered for every tensor-core type.
+    import chip_smoke
+
+    seen = set()
+    for case in chip_smoke.B1_ROUTE_CASES + chip_smoke.B1_EPILOGUE_ROUTE_CASES:
+        dt, _, ta, tb, m, n, k, pitch, _, route = case
+        dtype = getattr(torch, dt)
+        per = 16 // dtype.itemsize
+
+        def row(cols):
+            return (cols + per - 1) // per * per + per if pitch else cols
+
+        aligned = row(m if ta else k) % per == 0 and row(k if tb else n) % per == 0
+        assert mxu.mxu_route(dtype, ta, tb, aligned) == route, case
+        seen.add((dt, route))
+    assert seen == {(dt, r) for dt in ("bfloat16", "float16", "int8")
+                    for r in ("wgmma", "wmma")}
