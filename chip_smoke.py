@@ -58,7 +58,9 @@ Phases, each printed as it ends:
      ids (packed, 4-D GQA), offsets (and a fully-future shard); GQA groups
      1, 4 and 8; 70000 heads (launched in chunks); lse; dq, dk, dv against
      the plain backward; fp32 gradients against float64 autograd of a
-     dense reference; refusals;
+     dense reference; refusals; then FLASH_ROUTE_CASES on both forward
+     routes (the wgmma engine and mma.sync), the route checked each, and
+     20 launches of one engine case with the same bits;
  14. slice 4's main path at full width, launch counts set to 0 before it
      and read after: ``flash_attention`` at (32, 1024, 128) bf16 full and
      causal and causal (8, 8192, 128); GQA causal prefill at the serving
@@ -66,18 +68,25 @@ Phases, each printed as it ends:
      padded-cache decode, 64 sequences x 4096 slots, 8 steps each writing
      K / V at the sequence ends, through the 4-D decode fast path; one
      training step's gradient through ``flash_attention(causal=True)`` at
-     (32, 1024, 128) bf16;
+     (32, 1024, 128) bf16; each forward's route printed and checked
+     against ``flash_route`` (the engine for the prefill shapes, mma.sync
+     for decode);
  15. times of the three flash kernels beside their plain versions, their
-     bounds and ``scaled_dot_product_attention`` (its forward beside
-     flash_fwd; its backward, which yields dq, dk and dv in one call, beside
-     the sum of flash_bwd_dq and flash_bwd_dkv, on flash_bwd_dkv's entry of
-     the kernels line), and of phase 14's end-to-end calls;
+     bounds, the forward's other tensor-core route and
+     ``scaled_dot_product_attention`` pinned to cuDNN and to
+     FlashAttention-2 (its forward beside flash_fwd; its backward, which
+     yields dq, dk and dv in one call, beside the sum of flash_bwd_dq and
+     flash_bwd_dkv, on flash_bwd_dkv's entry of the kernels line), all in
+     turns on device time (``time_turns``), the forward's routes also at
+     (8, 8192, 128) and the GQA prefill; and phase 14's end-to-end calls;
  16. the quantized and grouped kernels against their plain versions:
      ``dequant_gemm`` (B13: int8 / int4, per-channel / group-wise, M 1, 64,
      130, ragged N), ``w8a8_gemm`` (B14 / B15: both routes as the JAX rule
      picks them, int_acc on and off, zero rows, the int8 activations equal
      to the plain quantize's), ``grouped_gemm`` (B16: tests/test_grouped.py's
-     matrix, transpose_rhs, bf16 / fp16 / fp32, the zero tail exact);
+     matrix, transpose_rhs, bf16 / fp16 / fp32, the zero tail exact), then
+     GROUPED_ROUTE_CASES on both B16 routes, the route checked each, and 20
+     launches of one engine case with the same bits;
  17. slice 5's main path, launch counts set to 0 before it and read after:
      the serving decoder block (examples/15_serving_decoder.py) at
      experiments/serving_bench.py's width, every port call under
@@ -86,10 +95,12 @@ Phases, each printed as it ends:
      bf16 block with un-quantized weights at the example's quantization
      budget, once on B14 and once on B15; 8 decode steps at 64 sequences x
      4096 slots (int4 g128 projections on B13, padded-cache flash, the MoE)
-     against the plain step with the same int4 weights;
+     against the plain step with the same int4 weights; the flash and B16
+     routes printed and checked;
  18. times of B13, B14, B15 and B16 at their serving shapes beside their
      bounds, plain versions and library calls (bf16 ``torch.matmul`` on the
-     dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``), and the
+     dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``; B16 in
+     turns on device time with its other route, w2's dlhs too), and the
      serving prefill and decode step beside the plain composition;
  19. ``grouped_update`` (B17, the grouped GEMM's weight gradient) against
      its plain version: tests/test_grouped.py's matrix in bf16 / fp16 /
@@ -106,7 +117,7 @@ Phases, each printed as it ends:
      per-expert autograd step, 5 steps with 3 B16 and 2 B17 launches each
      and each loss against the plain loss, a step with the aux loss and one
      with an explicit GemmConfig, an fp32 run at d 512 against the plain
-     fp32 step;
+     fp32 step; B16's route for the forward and w2's dlhs checked;
  21. times of B17 at the step's two weight-gradient shapes beside its
      bound, plain version and ``torch._grouped_mm`` (or a per-expert
      ``torch.matmul`` loop), the training step beside the plain step and
@@ -537,6 +548,31 @@ def phase_main(torch):
     log("phase 5c: tools.run host-oracle verification at 1024^3 (bf16, "
         "min_plus): ok")
     return results, launches
+
+
+def time_turns(torch, fns, rounds=5, iters=20):
+    """{name: device ms a call} of the zero-argument callables ``fns``, timed
+    in turns: each round profiles ``iters`` calls of each in the same order
+    (torch.profiler, the device time of every kernel a call launches), so a
+    drift of the card's clock or of a neighbour's load falls on all of them
+    alike, and a wrapper's host cost (tens of microseconds a call, more than
+    a kernel of that size takes) does not count as the kernel's; the median
+    of the rounds."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            times[name].append(sum(us for _, us in device_kernels(prof)) / iters / 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def signed(torch, shape, dtype, gen):
@@ -1678,6 +1714,61 @@ FLASH_4D = [
 # fp32 kernel gradients against float64 autograd: (heads, S, D, causal).
 FLASH_GRAD_CASES = [(2, 70, 40, False), (3, 129, 64, True)]
 FLASH_REFUSALS = ("head_dim", "interpret")
+# The forward's two tensor-core routes (``ops.flash.flash_route``), phase
+# 13's route table, which tests/test_torch_kernels.py parametrises too:
+# (layout, dtype, batch, H_q, H_kv, S_q, S_kv, D, options, route).  "3d"
+# packs batch x heads into (B, S, D) tensors, "4d" is (batch, S, H, D) read
+# in place; kv_lengths are per packed kv head; "seg" gives every head
+# _SEG's three packed segments (S = 300); "pitched" makes every row a view
+# one element longer than D (not whole 16-byte units).  The engine: 3-D and
+# 4-D, D 64 and 128, bf16 and fp16, S_q and S_kv off the 128-row tiles,
+# causal, window, the soft cap, GQA 4 and 8, kv_lengths with NaN / inf
+# stale slots inside the last live tile (both its halves) and a length of
+# 1, segment ids, offsets (one a fully-future shard: o = 0, lse = -inf).
+# mma.sync: D 40 and 96, 63 rows a head, decode's one row, rows that are
+# not whole 16-byte units; fp32 on the CUDA cores.
+FLASH_ROUTE_CASES = (
+    [("3d", dt, 2, 1, 1, 200, 333, d, {}, "wgmma")
+     for dt, d in (("bfloat16", 128), ("float16", 64))]
+    + [("3d", "bfloat16", 3, 1, 1, 333, 333, 64, {"causal": True}, "wgmma"),
+       ("3d", "float16", 3, 1, 1, 333, 333, 128, {"causal": True, "window": 100}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 150, 200, 128, {"logit_cap": 5.0, "scale": 0.5}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 150, 200, 64,
+        {"causal": True, "window": 70, "logit_cap": 3.0}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 64, 1000, 128, {"causal": True}, "wgmma")]
+    # GQA 4 and 8 (MQA), causal
+    + [(lay, "bfloat16", 1, 8, hkv, 256, 256, d, {"causal": True}, "wgmma")
+       for lay, hkv, d in (("3d", 2, 128), ("3d", 1, 64), ("4d", 2, 64), ("4d", 1, 128))]
+    # kv_lengths with stale NaN / inf slots, plain and decode-anchored causal
+    + [("3d", "bfloat16", 1, 4, 2, 100, 300, 128,
+        {"kv_lengths": [300, 77], "causal": causal, "nan_pad": True}, "wgmma")
+       for causal in (False, True)]
+    + [("4d", "float16", 3, 4, 2, 130, 400, 64,
+        {"kv_lengths": [400, 1, 150, 399, 260, 129], "causal": True, "nan_pad": True},
+        "wgmma")]
+    # segment ids (packed causal training, GQA heads in the 4-D layout)
+    + [("3d", "bfloat16", 2, 1, 1, 300, 300, 64, {"causal": True, "seg": True}, "wgmma"),
+       ("4d", "bfloat16", 2, 4, 2, 300, 300, 128, {"seg": True}, "wgmma")]
+    # offsets: a later q shard with a window; a fully-future shard
+    + [("3d", "bfloat16", 2, 1, 1, 200, 200, 64,
+        {"causal": True, "window": 250, "offsets": [200, 0]}, "wgmma"),
+       ("3d", "float16", 2, 1, 1, 100, 100, 128, {"causal": True, "offsets": [0, 100]},
+        "wgmma")]
+    # the GQA prefill's heads and layout (phase 14b), and an fp16 4-D MQA
+    + [("4d", "bfloat16", 2, 16, 4, 256, 256, 128, {"causal": True}, "wgmma"),
+       ("4d", "float16", 1, 8, 1, 200, 333, 128, {}, "wgmma")]
+    # the mma.sync tile and the CUDA cores
+    + [("3d", "bfloat16", 2, 1, 1, 200, 333, d, {}, "mma.sync") for d in (40, 96)]
+    + [("3d", "bfloat16", 2, 1, 1, 63, 300, 128, {"causal": True}, "mma.sync"),
+       ("4d", "bfloat16", 4, 16, 4, 1, 1000, 128,
+        {"causal": True, "kv_lengths": [1000, 1, 513, 999] * 4, "nan_pad": True}, "mma.sync"),
+       ("3d", "bfloat16", 2, 1, 1, 200, 333, 128, {"pitched": True}, "mma.sync"),
+       ("3d", "float32", 2, 1, 1, 200, 333, 64, {"causal": True}, "simt")]
+)
+# The race check of the engine route: FLASH_REPEAT_CASE launched
+# FLASH_REPEATS times, the same bits each.
+FLASH_REPEAT_CASE = ("4d", "bfloat16", 2, 16, 4, 256, 256, 128, {"causal": True}, "wgmma")
+FLASH_REPEATS = 20
 
 
 def stale_slots(k, v, lens):
@@ -1728,6 +1819,76 @@ def flash_case(torch, gen, case):
     for name, g, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
         err = max(err, compare(torch, g, r, rtol, f"{what} {name}", scaled=True)[0])
     return err
+
+
+def flash_route_operands(torch, gen, case):
+    """(q, k, v, the kernel's int arguments, scale, mask keywords) of one
+    FLASH_ROUTE_CASES case, on the card."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    layout, dt, nb, hq, hkv, s_q, s_kv, d, kw, _ = case
+    dtype, kw = getattr(torch, dt), dict(kw)
+    width = d + 1 if kw.pop("pitched", False) else d
+
+    def make(s, h):
+        shape = (nb * h, s, width) if layout == "3d" else (nb, s, h, width)
+        return signed(torch, shape, dtype, gen)[..., :d]
+
+    q, k, v = make(s_q, hq), make(s_kv, hkv), make(s_kv, hkv)
+    if kw.pop("nan_pad", False):
+        for i, n in enumerate(kw["kv_lengths"]):
+            at = (i, slice(n, None)) if layout == "3d" else (i // hkv, slice(n, None), i % hkv)
+            k[at] = float("nan")
+            v[at] = float("inf")
+    if kw.pop("seg", False):
+        kw.update(q_seg=[_SEG] * (nb * hq), kv_seg=[_SEG] * (nb * hkv))
+    scale = kw.pop("scale", d ** -0.5)
+    ints = [flash._ints(kw.pop(n, None), q.device)
+            for n in ("kv_lengths", "q_seg", "kv_seg", "offsets")]
+    return q, k, v, ints, scale, kw
+
+
+def flash_route_forward(torch, q, k, v, ints, scale, kw):
+    from gemm_hls_tpu_torch.ops import flash
+    return flash._forward(q, k, v, *ints, kw.get("causal", False), kw.get("window"),
+                          kw.get("logit_cap"), scale, 512)
+
+
+def flash_route_case(torch, gen, case):
+    """One FLASH_ROUTE_CASES case: the forward on the card (o and lse) on
+    the route the case names against the plain version; returns the largest
+    abs error."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    q, k, v, ints, scale, kw = flash_route_operands(torch, gen, case)
+    o, lse = flash_route_forward(torch, q, k, v, ints, scale, kw)
+    if flash.flash_mha.last_route != case[-1]:
+        raise AssertionError(f"flash {case}: route {flash.flash_mha.last_route}")
+    ro, rlse = flash.flash_fwd_plain(flash._pack(q), flash._pack(k), flash._pack(v), *ints,
+                                     scale=scale, **kw)
+    what = f"flash route {case}"
+    err = compare(torch, o, flash._unpack(ro, q), flash_rtol(torch, q.dtype), what + " o",
+                  scaled=True)[0]
+    if not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    compare(torch, lse, rlse, F32_RTOL, what + " lse", scaled=True)
+    return err
+
+
+def flash_repeats(torch, gen):
+    """FLASH_REPEAT_CASE launched FLASH_REPEATS times on the same operands:
+    every launch gives the first one's bits (o and lse)."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    q, k, v, ints, scale, kw = flash_route_operands(torch, gen, FLASH_REPEAT_CASE)
+    first = flash_route_forward(torch, q, k, v, ints, scale, kw)
+    if flash.flash_mha.last_route != FLASH_REPEAT_CASE[-1]:
+        raise AssertionError(f"flash {FLASH_REPEAT_CASE}: route {flash.flash_mha.last_route}")
+    for i in range(FLASH_REPEATS - 1):
+        again = flash_route_forward(torch, q, k, v, ints, scale, kw)
+        if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+            raise AssertionError(f"flash: launch {i + 2} of {FLASH_REPEAT_CASE} differs "
+                                 f"from the first")
 
 
 def flash_4d_case(torch, gen, case, dt):
@@ -1837,6 +1998,17 @@ def phase_flash_kernels(torch):
         f"without stale NaN / inf slots, segment ids, offsets, GQA 1/4/8, 4-D "
         f"layouts, decode fast path, fp32 grads vs float64 autograd, "
         f"refusals): ok")
+    worst = max(flash_route_case(torch, gen, case) for case in FLASH_ROUTE_CASES)
+    flash_repeats(torch, gen)
+    torch.cuda.synchronize()
+    routes = {}
+    for case in FLASH_ROUTE_CASES:
+        routes[case[-1]] = routes.get(case[-1], 0) + 1
+    log(f"phase 13: flash_fwd route cases, {len(FLASH_ROUTE_CASES)} {routes} (3-D / 4-D, "
+        f"D 64 / 128, GQA 1 / 4 / 8, causal, window, cap, kv_lengths with NaN / inf "
+        f"stale slots, segment ids, offsets; D 40 / 96, 63 rows, decode, unaligned rows, "
+        f"fp32), each on its route: ok (max abs err {worst:.3e}); {FLASH_REPEATS} "
+        f"launches of {FLASH_REPEAT_CASE[:8]} on the engine: same bits")
 
 
 def decode_cache(torch, gen, nb=64, slots=4096, hkv=4, d=128, steps=8):
@@ -1866,6 +2038,14 @@ def decode_step(torch, q, kn, vn, kc, vc, lens):
     return flash_attention(q, kc, vc, causal=True, kv_lengths=lens)
 
 
+def main_route(wrapper, what, want):
+    """The route of ``wrapper``'s last launch on a main path, which must be
+    ``want`` (the route rule's for that call)."""
+    if wrapper.last_route != want:
+        raise AssertionError(f"{what}: route {wrapper.last_route}, the rule gives {want}")
+    return wrapper.last_route
+
+
 def phase_slice4(torch):
     """Phase 14: slice 4's main path at full width, counts zeroed before."""
     from gemm_hls_tpu_torch import flash_attention
@@ -1882,11 +2062,12 @@ def phase_slice4(torch):
         q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda",
                                dtype=bf16) for _ in range(3))
         out = flash_attention(q, k, v, causal=causal)
+        route = main_route(flash.flash_mha, key, "wgmma")
         ref = flash_plain_fwd(torch, q, k, v, causal=causal, scale=d ** -0.5)[0]
         err = compare(torch, out, ref, BF16_RTOL, key, scaled=True)
         res[key] = err[0]
         log(f"phase 14a: flash_attention {key} ({bh}, {s}, {d}) bf16 "
-            f"{'causal' if causal else 'full'}: max abs err {err[0]:.3e}, "
+            f"{'causal' if causal else 'full'}: route {route}, max abs err {err[0]:.3e}, "
             f"scaled rel {err[1]:.3e}")
         del q, k, v, out, ref
     # GQA causal prefill at the serving configuration
@@ -1896,11 +2077,13 @@ def phase_slice4(torch):
     k, v = (torch.randn((nb, s, hkv, d), generator=gen, device="cuda",
                         dtype=bf16) for _ in range(2))
     out = flash_attention(q, k, v, causal=True)
+    route = main_route(flash.flash_mha, "GQA prefill", "wgmma")
     ref = flash_plain_fwd(torch, q, k, v, causal=True, scale=d ** -0.5)[0]
     err = compare(torch, out, ref, BF16_RTOL, "GQA prefill", scaled=True)
     res["gqa prefill"] = err[0]
     log(f"phase 14b: GQA causal prefill (B={nb}, S={s}, H_q={hq}, H_kv={hkv}, "
-        f"D={d}) bf16: max abs err {err[0]:.3e}, scaled rel {err[1]:.3e}")
+        f"D={d}) bf16, 4-D layout: route {route}, max abs err {err[0]:.3e}, scaled rel "
+        f"{err[1]:.3e}")
     del q, k, v, out, ref
     # Padded-cache decode, 8 steps (experiments/serving_bench.py:150-161).
     kc, vc, lens = decode_cache(torch, gen)
@@ -1919,9 +2102,10 @@ def phase_slice4(torch):
                                    BF16_RTOL, f"decode step {step}",
                                    scaled=True)[0])
     res["decode"] = worst
+    route = main_route(flash.flash_mha, "decode", flash.flash_route(bf16, 128, 4, True))
     log(f"phase 14c: padded-cache decode, 64 sequences x 4096 slots, H_q 16, "
-        f"H_kv 4, D 128, 8 steps through the 4-D decode fast path: lengths now "
-        f"{int(lens.min())}-{int(lens.max())}, max abs err {worst:.3e}")
+        f"H_kv 4, D 128, 8 steps through the 4-D decode fast path: route {route}, "
+        f"lengths now {int(lens.min())}-{int(lens.max())}, max abs err {worst:.3e}")
     del kc, vc
     # One training step's gradient through flash_attention(causal=True).
     bh, s, d = 32, 1024, 128
@@ -1951,12 +2135,34 @@ def phase_slice4(torch):
     return launches, res
 
 
+def sdpa_backends(torch):
+    """The SDPA backends the library yardstick is pinned to, in turn: cuDNN
+    and FlashAttention-2, each where this PyTorch has it."""
+    from torch.nn.attention import SDPBackend
+    return [(name, getattr(SDPBackend, attr)) for name, attr in (
+        ("cuDNN", "CUDNN_ATTENTION"), ("flash", "FLASH_ATTENTION")) if hasattr(SDPBackend, attr)]
+
+
+def pinned_sdpa(torch, backend, q, k, v, causal):
+    """scaled_dot_product_attention of 3-D (B, S, D) operands under one
+    pinned backend (a yardstick, timed here and never called by the port)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    def run():
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  is_causal=causal)[0]
+    return run
+
+
 def phase_times4(torch):
     """Phase 15: flash kernel times beside their plain versions, their
     bounds and scaled_dot_product_attention, and the end-to-end calls of
-    phase 14 (launches here are comparisons, not the main path's)."""
-    import torch.nn.functional as F
-
+    phase 14 (launches here are comparisons, not the main path's).  The
+    kernels, the forward's other route and SDPA under each pinned backend
+    (forward, and backward through autograd) are timed in turns, one window
+    each a round; the library time is the faster backend's."""
     from gemm_hls_tpu_torch import flash_attention
     from gemm_hls_tpu_torch.models.perf_model import H100, flash_bound
     from gemm_hls_tpu_torch.ops import flash
@@ -1965,63 +2171,111 @@ def phase_times4(torch):
     gen = torch.Generator(device="cuda").manual_seed(151)
     bf16 = torch.bfloat16
     out = {}
+    backends = sdpa_backends(torch)
 
-    def sdpa(q, k, v, causal):
-        return F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                              is_causal=causal)[0]
+    def fwd(q, k, v, causal, route=None):
+        return lambda: flash._forward(q, k, v, None, None, None, None, causal, None, None,
+                                      q.shape[-1] ** -0.5, 512, route=route)[0]
+
+    def library(q, k, v, causal, do=None):
+        """{backend: callable} of SDPA's forward, or with ``do`` its
+        backward (dq, dk, dv in one autograd call), for each backend that
+        takes these operands."""
+        fns = {}
+        for name, backend in backends:
+            run = pinned_sdpa(torch, backend, q, k, v, causal)
+            try:
+                if do is None:
+                    run()
+                    fns[name] = run
+                    continue
+                qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+                og = pinned_sdpa(torch, backend, qg, kg, vg, causal)()
+                torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
+                fns[name] = (lambda og=og, xs=(qg, kg, vg):
+                             torch.autograd.grad(og, xs, do, retain_graph=True))
+            except RuntimeError as exc:  # a backend that refuses these operands
+                log(f"phase 15: SDPA {name} refused ({exc.__class__.__name__}: "
+                    f"{str(exc)[:80]})")
+        return fns
 
     for bh, s, d, causal in ((32, 1024, 128, True), (32, 1024, 128, False)):
         tag = "causal" if causal else "full"
         q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda",
                                    dtype=bf16) for _ in range(4))
         sc = d ** -0.5
-        fwd = lambda a, b, c: flash._forward(a, b, c, None, None, None, None,  # noqa: E731
-                                             causal, None, None, sc, 512)[0]
-        pfwd = lambda a, b, c: flash.flash_fwd_plain(a, b, c, causal=causal,  # noqa: E731
-                                                     scale=sc)[0]
         ro, rlse = flash.flash_fwd_plain(q, k, v, causal=causal, scale=sc)
-        err = compare(torch, fwd(q, k, v), ro, BF16_RTOL, "timed fwd", scaled=True)[0]
         delta = (do.float() * ro.float()).sum(-1)
         bargs = (q, k, v, do, rlse, delta, None, None, None, causal, None, None, sc, 512)
         pkw = dict(causal=causal, scale=sc)
-        entries = {
-            "flash_fwd": (fwd, pfwd, (q, k, v), "fwd", err),
-            "flash_bwd_dq": (lambda: flash._backward(*bargs, which="dq"),
-                             lambda: flash.flash_bwd_dq_plain(
-                                 q, k, v, do, rlse, delta, **pkw), (), "dq", None),
-            "flash_bwd_dkv": (lambda: flash._backward(*bargs, which="dkv"),
-                              lambda: flash.flash_bwd_dkv_plain(
-                                  q, k, v, do, rlse, delta, **pkw), (), "dkv", None),
-        }
-        # The library yardstick: SDPA's forward, and its backward (dq, dk,
-        # dv in one autograd call) for the dq / dkv pair.
-        lib_f = time_fn(lambda a, b, c: sdpa(a, b, c, causal), (q, k, v), iters=20) * 1e3
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        og = sdpa(qg, kg, vg, causal)
-        lib_b = time_fn(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
-                                                    retain_graph=True), (),
-                        iters=20) * 1e3
-        for name, (fn, plain, args, which, e) in entries.items():
-            if e is None:
-                got, ref = fn(), plain()
-                got, ref = (got, ref) if which == "dq" else (got[0], ref[0])
-                e = compare(torch, got, ref, BF16_RTOL, f"timed {name}", scaled=True)[0]
-            ms = time_fn(fn, args, iters=20) * 1e3
-            plain_ms = time_fn(plain, args, iters=3, warmup=1) * 1e3
+        kern = {"flash_fwd": fwd(q, k, v, causal),
+                "flash_bwd_dq": lambda: flash._backward(*bargs, which="dq"),
+                "flash_bwd_dkv": lambda: flash._backward(*bargs, which="dkv")}
+        plain = {"flash_fwd": lambda: flash.flash_fwd_plain(q, k, v, **pkw)[0],
+                 "flash_bwd_dq": lambda: flash.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **pkw),
+                 "flash_bwd_dkv": lambda: flash.flash_bwd_dkv_plain(q, k, v, do, rlse, delta,
+                                                                    **pkw)}
+        errs = {}
+        for name in kern:
+            got, ref = kern[name](), plain[name]()
+            got, ref = (got, ref) if name != "flash_bwd_dkv" else (got[0], ref[0])
+            errs[name] = compare(torch, got, ref, BF16_RTOL, f"timed {name}", scaled=True)[0]
+        route = flash.flash_mha.last_route
+        old = "mma.sync"  # the forward's other tensor-core route
+        lib_f, lib_b = library(q, k, v, causal), library(q, k, v, causal, do)
+        turns = time_turns(torch, dict(
+            kern, **{f"flash_fwd {old}": fwd(q, k, v, causal, old)},
+            **{f"SDPA fwd {n}": f for n, f in lib_f.items()},
+            **{f"SDPA bwd {n}": f for n, f in lib_b.items()}))
+        best_f = min(lib_f, key=lambda n: turns[f"SDPA fwd {n}"])
+        best_b = min(lib_b, key=lambda n: turns[f"SDPA bwd {n}"])
+        for name in kern:
+            which = {"flash_fwd": "fwd", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}[name]
+            ms = turns[name]
+            plain_ms = time_fn(plain[name], (), iters=3, warmup=1) * 1e3
             bound = flash_bound(H100, bh, s, s, d, bf16, causal, which)
-            out[f"{name} {tag}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=e,
-                                        bound=bound, library_ms=lib_f if which == "fwd" else None)
-            log(f"phase 15: {name} ({bh}, {s}, {d}) bf16 {tag}: {ms:.4f} ms vs "
-                f"plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms "
-                f"({bound[1]}); max abs err {e:.3e}"
-                + (f"; SDPA forward {lib_f:.4f} ms" if which == "fwd" else ""))
+            entry = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name], bound=bound,
+                         library_ms=None)
+            if which == "fwd":
+                entry.update(library_ms=turns[f"SDPA fwd {best_f}"], library=f"SDPA {best_f}",
+                             route=route, other_route=old, other_ms=turns[f"flash_fwd {old}"])
+            out[f"{name} {tag}"] = entry
+            log(f"phase 15: {name} ({bh}, {s}, {d}) bf16 {tag}: {ms:.4f} ms"
+                + (f" (route {route}; {old} {entry['other_ms']:.4f} ms)" if which == "fwd" else "")
+                + f" vs plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms ({bound[1]}); "
+                f"max abs err {errs[name]:.3e}"
+                + ("; SDPA forward " + ", ".join(f"{n} {turns[f'SDPA fwd {n}']:.4f} ms"
+                                                 for n in lib_f) if which == "fwd" else ""))
         # SDPA's backward yields dq, dk and dv in one call: it stands beside
         # the pair of kernels, on flash_bwd_dkv's entry, never beside dq alone.
         pair = out[f"flash_bwd_dq {tag}"]["ms"] + out[f"flash_bwd_dkv {tag}"]["ms"]
-        out[f"flash_bwd_dkv {tag}"].update(library_ms=lib_b, pair_ms=pair)
+        out[f"flash_bwd_dkv {tag}"].update(library_ms=turns[f"SDPA bwd {best_b}"], pair_ms=pair,
+                                           library=f"SDPA {best_b}")
         log(f"phase 15: flash_bwd_dq + flash_bwd_dkv ({bh}, {s}, {d}) bf16 {tag}: "
-            f"{pair:.4f} ms vs SDPA backward (dq, dk, dv) {lib_b:.4f} ms")
-        del q, k, v, do, qg, kg, vg, og
+            f"{pair:.4f} ms vs SDPA backward (dq, dk, dv) "
+            + ", ".join(f"{n} {turns[f'SDPA bwd {n}']:.4f} ms" for n in lib_b)
+            + " (pinned backends, timed in turns)")
+        del q, k, v, do
+
+    # The forward's routes at the other main-path shapes, in turns with SDPA.
+    for key, shape, causal in (("causal 8x8192", (8, 8192, 128), True),
+                               ("GQA prefill 4x1024 H16/4", None, True)):
+        if shape:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=bf16)
+                       for _ in range(3))
+            lib_f = library(q, k, v, causal)
+        else:
+            q = torch.randn((4, 1024, 16, 128), generator=gen, device="cuda", dtype=bf16)
+            k, v = (torch.randn((4, 1024, 4, 128), generator=gen, device="cuda", dtype=bf16)
+                    for _ in range(2))
+            lib_f = {}
+        fns = {r: fwd(q, k, v, causal, r) for r in ("wgmma", "mma.sync")}
+        turns = time_turns(torch, dict(fns, **{f"SDPA fwd {n}": f for n, f in lib_f.items()}))
+        out[f"flash_fwd {key}"] = turns
+        log(f"phase 15: flash_fwd {key} bf16 causal, in turns: "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in turns.items()))
+        del q, k, v
+    out["bound causal 8x8192"] = flash_bound(H100, 8, 8192, 8192, 128, bf16, True)[0] * 1e3
 
     # End-to-end calls of phase 14 (front door, host clock after a sync is
     # the same as CUDA events here: each timed window ends in a sync).
@@ -2037,13 +2291,6 @@ def phase_times4(torch):
         e2e(f"flash_attention {key}",
             lambda a, b, c, causal=causal: flash_attention(a, b, c, causal=causal),
             (q, k, v))
-        if key == "causal 8x8192":
-            lib = time_fn(lambda a, b, c: sdpa(a, b, c, True), (q, k, v), iters=10) * 1e3
-            out["sdpa causal 8x8192"] = lib
-            bound = flash_bound(H100, bh, s, s, d, bf16, True, "fwd")
-            out["bound causal 8x8192"] = bound[0] * 1e3
-            log(f"phase 15: SDPA causal 8x8192 {lib:.4f} ms; flash_fwd bound "
-                f"{bound[0] * 1e3:.4f} ms ({bound[1]})")
         del q, k, v
     q = torch.randn((4, 1024, 16, 128), generator=gen, device="cuda", dtype=bf16)
     k, v = (torch.randn((4, 1024, 4, 128), generator=gen, device="cuda",
@@ -2134,6 +2381,36 @@ _GROUPED_SHAPES = [
 ]
 GROUPED_CASES = [(dt, m, k, n, gs, trb) for dt in _DT
                  for m, k, n, gs in _GROUPED_SHAPES for trb in (False, True)]
+# B16's routes (``ops.gmm.grouped_route``), phase 16's route table, which
+# tests/test_torch_kernels.py parametrises too: (dtype, M, K, N, group
+# sizes, transpose_rhs, rows past the groups NaN, output dtype (None: the
+# input's), route).  The engine, both transpose_rhs: empty groups, a group
+# over several 128-row tiles, several groups in one tile, routing past M
+# (clamped), NaN rows past the groups, K off the 64-deep slab and N off the
+# 256-wide tile (N odd under transpose_rhs), fp32 outputs, fp16.  mma.sync:
+# K (or N without transpose_rhs) not whole 16-byte units; fp32 on the CUDA
+# cores.
+GROUPED_ROUTE_CASES = (
+    [(dt, 300, 128, 264, [100, 0, 150, 0], trb, False, None, "wgmma")
+     for dt in ("bfloat16", "float16") for trb in (False, True)]
+    + [(dt, m, k, n, gs, trb, nan, None, "wgmma") for trb in (False, True)
+       for dt, m, k, n, gs, nan in (
+           ("bfloat16", 1000, 256, 384, [700, 300], False),
+           ("bfloat16", 128, 64, 256, [10, 20, 30, 5, 40, 23], True),
+           ("bfloat16", 300, 136, 200, [200, 200], False),
+           ("float16", 300, 136, 200, [7, 250, 0, 20], True),
+           ("bfloat16", 200, 72, 136, [50, 0, 150], False))]
+    + [("bfloat16", 256, 128, 256, [100, 0, 156], False, False, "float32", "wgmma"),
+       ("float16", 256, 128, 256, [100, 0, 156], True, True, "float32", "wgmma"),
+       ("bfloat16", 256, 64, 33, [100, 156], True, False, None, "wgmma")]
+    + [("bfloat16", 256, 33, 64, [100, 156], trb, False, None, "mma.sync")
+       for trb in (False, True)]
+    + [("bfloat16", 256, 64, 33, [100, 156], False, True, None, "mma.sync"),
+       ("float32", 256, 64, 64, [100, 156], False, True, None, "simt")]
+)
+# The race check of the engine route.
+GROUPED_REPEAT_CASE = ("bfloat16", 1000, 256, 384, [700, 0, 300], False, False, None, "wgmma")
+GROUPED_REPEATS = 20
 # Phase 19's B17 table, which tests/test_torch_kernels.py parametrises too:
 # (dtype, M, K, N, group sizes, output dtype (None: the input's), rows past
 # the groups NaN in both operands).  _GROUPED_SHAPES in bf16 / fp16 / fp32
@@ -2254,6 +2531,51 @@ def grouped_case(torch, gen, case):
     return err
 
 
+def grouped_route_operands(torch, gen, case):
+    dt, m, k, n, gs, trb, nan, out, _ = case
+    dtype = getattr(torch, dt)
+    lhs = signed(torch, (m, k), dtype, gen)
+    rhs = signed(torch, (len(gs), n, k) if trb else (len(gs), k, n), dtype, gen)
+    if nan:
+        lhs[min(sum(gs), m):] = float("nan")
+    sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    return lhs, rhs, sizes, dict(transpose_rhs=trb, out_dtype=getattr(torch, out) if out else None)
+
+
+def grouped_route_case(torch, gen, case):
+    """One GROUPED_ROUTE_CASES case: ``grouped_mxu`` on the card, on the
+    route the case names, against the plain version; the rows past the
+    groups exactly zero, every output finite.  Returns the largest abs
+    error."""
+    from gemm_hls_tpu_torch.ops import gmm
+
+    lhs, rhs, sizes, kw = grouped_route_operands(torch, gen, case)
+    got = gmm.grouped_mxu(lhs, rhs, sizes, **kw)
+    if gmm.grouped_mxu.last_route != case[-1]:
+        raise AssertionError(f"B16 {case}: route {gmm.grouped_mxu.last_route}")
+    ref = gmm.grouped_mxu_plain(lhs, rhs, sizes, **kw)
+    err = compare(torch, got, ref, quant_rtol(torch, got.dtype), f"B16 route {case}",
+                  scaled=True)[0]
+    if bool(got[min(sum(case[4]), case[1]):].any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"B16 {case}: rows past the groups not zero, or not finite")
+    return err
+
+
+def grouped_repeats(torch, gen):
+    """GROUPED_REPEAT_CASE launched GROUPED_REPEATS times on the same
+    operands: every launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.ops import gmm
+
+    lhs, rhs, sizes, kw = grouped_route_operands(torch, gen, GROUPED_REPEAT_CASE)
+    first = gmm.grouped_mxu(lhs, rhs, sizes, **kw)
+    if gmm.grouped_mxu.last_route != GROUPED_REPEAT_CASE[-1]:
+        raise AssertionError(f"B16 {GROUPED_REPEAT_CASE}: route {gmm.grouped_mxu.last_route}")
+    for i in range(GROUPED_REPEATS - 1):
+        if not torch.equal(first, gmm.grouped_mxu(lhs, rhs, sizes, **kw)):
+            raise AssertionError(f"B16: launch {i + 2} of {GROUPED_REPEAT_CASE} differs from "
+                                 f"the first")
+
+
 def phase_quant_kernels(torch):
     """Phase 16: B13, B14 / B15 and B16 against their plain versions on the
     card, over the case tables above.  Tolerances: relative 1e-4 (scaled by
@@ -2273,6 +2595,17 @@ def phase_quant_kernels(torch):
         f"int_acc on and off, zero rows), B16 {len(GROUPED_CASES)} "
         f"(tests/test_grouped.py's matrix, transpose_rhs, bf16 / fp16 / fp32): "
         f"ok (max abs err {', '.join(f'{k} {v:.3e}' for k, v in worst.items())})")
+    worst = max(grouped_route_case(torch, gen, case) for case in GROUPED_ROUTE_CASES)
+    grouped_repeats(torch, gen)
+    torch.cuda.synchronize()
+    routes = {}
+    for case in GROUPED_ROUTE_CASES:
+        routes[case[-1]] = routes.get(case[-1], 0) + 1
+    log(f"phase 16: B16 route cases, {len(GROUPED_ROUTE_CASES)} {routes} (empty groups, a "
+        f"group over several tiles, several groups in a tile, routing past M, NaN rows "
+        f"past the groups, both transpose_rhs, K / N off the tiles, fp32 outputs; "
+        f"unaligned K or N; fp32), each on its route: ok (max abs err {worst:.3e}); "
+        f"{GROUPED_REPEATS} launches of {GROUPED_REPEAT_CASE[:6]} on the engine: same bits")
 
 
 # The serving decoder block of examples/15_serving_decoder.py at
@@ -2474,7 +2807,7 @@ def phase_slice5(torch):
     bf16 intermediates in other places) and under 5% of tokens above 2e-2 (bf16 rounding can flip a
     near-tie routing), every output finite, with the cache slots past each
     length NaN (K) / +inf (V) in the port's cache."""
-    from gemm_hls_tpu_torch.ops import flash
+    from gemm_hls_tpu_torch.ops import flash, gmm
     c = SERVING
     dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
     dense, q8, q4, dense4, moe, cfg = serving_setup(torch)
@@ -2493,15 +2826,17 @@ def phase_slice5(torch):
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        routes = (main_route(flash.flash_mha, "prefill flash", "wgmma"),
+                  main_route(gmm.grouped_mxu, "prefill MoE", "wgmma"))
         rel_attn = float((y_attn.float() - want_attn.float()).abs().max()
                          / want_attn.float().abs().max())
         tok = token_errors(torch, y, want)
         med, flipped = float(tok.median()), float((tok > 0.1).float().mean())
         finite = bool(torch.isfinite(y.float()).all())
         log(f"phase 17a: prefill B={c['batch']} S={c['seq']} d={c['d_model']} "
-            f"({route} projections, causal GQA flash, MoE on B16): attention "
-            f"sublayer rel err {rel_attn:.4f}, median token err {med:.4f}, "
-            f"{flipped:.1%} tokens routing-flipped")
+            f"({route} projections, causal GQA flash on route {routes[0]}, MoE on B16 "
+            f"route {routes[1]}): attention sublayer rel err {rel_attn:.4f}, median token "
+            f"err {med:.4f}, {flipped:.1%} tokens routing-flipped")
         if not (finite and rel_attn < 0.05 and med < 0.05 and flipped < 0.1):
             raise AssertionError(f"prefill {route}: outside the quantization budget")
         res[f"prefill {route}"] = dict(rel_attn=rel_attn, median=med, flipped=flipped)
@@ -2539,9 +2874,15 @@ def phase_slice5(torch):
     if not torch.equal(lens, rlens):
         raise AssertionError("decode: lengths differ from the plain step's")
     res["decode"] = dict(median=worst_med, flipped=worst_flip)
+    slots = c["dec_batch"] * c["top_k"]
+    routes = (main_route(flash.flash_mha, "decode flash",
+                         flash.flash_route(torch.bfloat16, c["d_head"], c["h_q"] // c["h_kv"],
+                                           True)),
+              main_route(gmm.grouped_mxu, "decode MoE", gmm.grouped_route(torch.bfloat16, True)))
     log(f"phase 17b: decode {c['steps']} steps, {c['dec_batch']} sequences x "
         f"{c['slots']} slots (int4 g{c['group']} projections on B13, padded-cache "
-        f"flash, MoE on B16), stale slots NaN / inf: worst median token err "
+        f"flash on route {routes[0]}, MoE on B16 route {routes[1]} at {slots} slots), "
+        f"stale slots NaN / inf: worst median token err "
         f"{worst_med:.2e}, worst {worst_flip:.1%} tokens above 2e-2; lengths now "
         f"{int(lens.min())}-{int(lens.max())}")
     launches = dict(quant_counters(), flash_fwd=flash.flash_mha.launches)
@@ -2566,6 +2907,13 @@ def device_profile(torch, fn, iters):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(key, us / iters) for key, us in device_kernels(prof)]
+    kernels.sort(key=lambda kv: -kv[1])
+    return sum(us for _, us in kernels) * iters / wall_us, kernels
+
+
+def device_kernels(prof):
+    """[(kernel, device us in the window)] of a torch.profiler window."""
     kernels = []
     for e in prof.key_averages():
         # Device-side events only: a CPU op (an autograd Function, a copy)
@@ -2576,9 +2924,8 @@ def device_profile(torch, fn, iters):
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
         if dev > 0:
-            kernels.append((e.key, dev / iters))
-    kernels.sort(key=lambda kv: -kv[1])
-    return sum(us for _, us in kernels) * iters / wall_us, kernels
+            kernels.append((e.key, dev))
+    return kernels
 
 
 def phase_times5(torch):
@@ -2644,30 +2991,54 @@ def phase_times5(torch):
                                                           out_dtype=bf16),
               lambda: torch._int_mm(xq_pre, wq8),
               w8a8_bound(H100, m, d, d, None, bf16, bf16), BF16_RTOL)
-    # B16: the MoE w1 at 8192 routed slots (prefill) and 128 (decode).
+    # B16: the MoE w1 at 8192 routed slots (prefill) and 128 (decode), and
+    # w2's dlhs (transpose_rhs) at 8192: the route the rule gives, the other
+    # tensor-core route and torch._grouped_mm timed in turns.
     w1 = (torch.randn((c["experts"], d, c["d_ff"]), generator=gen, device="cuda")
           * d ** -0.5).to(bf16)
-    for key, slots in (("B16 w1 prefill 8192 slots", m * c["top_k"]),
-                       ("B16 w1 decode 128 slots", c["dec_batch"] * c["top_k"])):
+    w2 = (torch.randn((c["experts"], c["d_ff"], d), generator=gen, device="cuda")
+          * c["d_ff"] ** -0.5).to(bf16)
+    for key, slots, w, trb in (("B16 w1 prefill 8192 slots", m * c["top_k"], w1, False),
+                               ("B16 w1 decode 128 slots", c["dec_batch"] * c["top_k"], w1,
+                                False),
+                               ("B16 w2 dlhs prefill 8192 slots", m * c["top_k"], w2, True)):
         ids = torch.randint(0, c["experts"], (slots,), generator=gen, device="cuda")
         sizes = torch.bincount(ids, minlength=c["experts"]).to(torch.int32)
-        lhs = (torch.randn((slots, d), generator=gen, device="cuda") * 0.5).to(bf16)
+        k_in, n_out = (w.shape[2], w.shape[1]) if trb else (w.shape[1], w.shape[2])
+        lhs = (torch.randn((slots, k_in), generator=gen, device="cuda") * 0.5).to(bf16)
         ends = torch.cumsum(sizes, 0).to(torch.int32)
-        library = None
+        fns = {"kernel": lambda lhs=lhs, sizes=sizes, w=w, trb=trb: gmm.grouped_mxu(
+            lhs, w, sizes, transpose_rhs=trb)}
+        ref = gmm.grouped_mxu_plain(lhs, w, sizes, transpose_rhs=trb)
+        err = compare(torch, fns["kernel"](), ref, BF16_RTOL, f"timed {key}", scaled=True)[0]
+        route = gmm.grouped_mxu.last_route
+        other = "mma.sync" if route == "wgmma" else "wgmma"
+        fns[other] = (lambda lhs=lhs, sizes=sizes, w=w, trb=trb: gmm._grouped_launch(
+            lhs, w, sizes, slots, k_in, n_out, c["experts"], trb, bf16, other))
+        compare(torch, fns[other](), ref, BF16_RTOL, f"timed {key} {other}", scaled=True)
         if hasattr(torch, "_grouped_mm"):
+            wl = w.transpose(1, 2) if trb else w
             try:
-                torch._grouped_mm(lhs, w1, offs=ends, out_dtype=bf16)
-                library = (lambda lhs=lhs, ends=ends:
-                           torch._grouped_mm(lhs, w1, offs=ends, out_dtype=bf16))
+                torch._grouped_mm(lhs, wl, offs=ends, out_dtype=bf16)
+                fns["library"] = (lambda lhs=lhs, wl=wl, ends=ends:
+                                  torch._grouped_mm(lhs, wl, offs=ends, out_dtype=bf16))
             except Exception as exc:  # the yardstick only: the port never calls it
                 log(f"phase 18: torch._grouped_mm refused ({type(exc).__name__}: {exc})")
+        turns = time_turns(torch, fns)
+        plain_ms = time_fn(lambda lhs=lhs, sizes=sizes, w=w, trb=trb: gmm.grouped_mxu_plain(
+            lhs, w, sizes, transpose_rhs=trb), (), iters=3, warmup=1) * 1e3
         live = int((sizes > 0).sum())
-        entry(key,
-              lambda lhs=lhs, sizes=sizes: gmm.grouped_mxu(lhs, w1, sizes),
-              lambda lhs=lhs, sizes=sizes: gmm.grouped_mxu_plain(lhs, w1, sizes),
-              library,
-              grouped_bound(H100, slots, d, c["d_ff"], slots, live, bf16), BF16_RTOL)
-    del w1, xp, xq_pre
+        bound = grouped_bound(H100, slots, k_in, n_out, slots, live, bf16)
+        out[key] = dict(ms=turns["kernel"], plain_ms=plain_ms, library_ms=turns.get("library"),
+                        max_abs_err=err, bound=bound, route=route, other_route=other,
+                        other_ms=turns[other])
+        log(f"phase 18: {key}: {turns['kernel']:.4f} ms (route {route}; {other} "
+            f"{turns[other]:.4f} ms) vs plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms "
+            f"({bound[1]}), torch._grouped_mm "
+            + (f"{turns['library']:.4f} ms" if "library" in turns else "none")
+            + f" (in turns); max abs err {err:.3e}")
+        del lhs, ref
+    del w1, w2, xp, xq_pre
 
     # The serving block end to end (host clock around synchronised work is
     # the same as CUDA events here: each timed window ends in a sync).
@@ -2936,7 +3307,7 @@ def phase_slice6(torch):
     import dataclasses
 
     from gemm_hls_tpu_torch import GemmConfig
-    from gemm_hls_tpu_torch.models.moe import MoEConfig, moe_train_step
+    from gemm_hls_tpu_torch.models.moe import MoEConfig, moe_forward, moe_train_step
     from gemm_hls_tpu_torch.ops import gmm
 
     c, t = SERVING, TRAIN
@@ -2949,6 +3320,8 @@ def phase_slice6(torch):
 
     # (a) gradients against the plain step.
     want_loss, want = plain_grads(torch, params, batch, cfg)
+    no_sync(torch, lambda: moe_forward(params, batch[0], cfg))
+    fwd_route = main_route(gmm.grouped_mxu, "train step forward", "wgmma")
     loss, got = no_sync(torch, lambda: port_grads(torch, params, batch, cfg))
     rel_loss = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
     errs = grad_errors(torch, got, want)
@@ -2978,10 +3351,13 @@ def phase_slice6(torch):
         if not all(bool(torch.isfinite(p.float()).all()) for p in params.values()):
             raise AssertionError(f"train step {step}: a parameter is not finite")
     launches = {"B16": counts()[0], "B17": counts()[1]}
+    # The step's last B16 launch is w2's dlhs (transpose_rhs flipped).
+    dlhs_route = main_route(gmm.grouped_mxu, "train step dlhs", "wgmma")
     log(f"phase 20b: {t['steps']} moe_train_step steps (lr {t['lr']}): losses "
         + " ".join(f"{v:.6f}" for v in losses)
         + f"; worst rel err against the plain loss on the same params {worst:.2e}; "
-        f"launch counts {launches} (3 B16 + 2 B17 a step)")
+        f"launch counts {launches} (3 B16 + 2 B17 a step); B16 route {fwd_route} "
+        f"forward, {dlhs_route} for w2's dlhs")
     if not (worst < 1e-2 and losses[-1] < losses[0]):
         raise AssertionError("MoE training: loss off the plain step's or not falling")
 
@@ -3596,7 +3972,13 @@ def main() -> int:
             f"{name} (B6-B12 flash attention, causal 32x1024x128 bf16)",
             f"gemm_hls_tpu_torch/csrc/{name}.cu",
             replaces, launches4[name], t, t["bound"], t["library_ms"]))
-        if name == "flash_bwd_dq":
+        if name == "flash_fwd":
+            # The engine route (csrc/flash_wgmma.cu) that the main path took;
+            # other_ms is flash_fwd.cu's mma.sync tile in the same turns.
+            kernels[-1].update(source="gemm_hls_tpu_torch/csrc/flash_wgmma.cu",
+                               kernel_route=t["route"], other_route=t["other_route"],
+                               other_ms=t["other_ms"], library_note=f"library_ms is {t['library']}")
+        elif name == "flash_bwd_dq":
             kernels[-1]["library_note"] = ("SDPA's backward yields dq, dk and dv in one "
                                            "call: its time is on flash_bwd_dkv, beside "
                                            "the pair")
@@ -3618,11 +4000,14 @@ def main() -> int:
              "w8a8_gemm.cu", "pallas_dequant.py:224"),
             ("B16 w1 prefill 8192 slots",
              "grouped_gemm (B16, MoE w1 8192 slots x 2048 -> 4096, 8 experts bf16)",
-             "grouped_gemm.cu", "pallas_grouped.py:151")):
+             "grouped_wgmma.cu", "pallas_grouped.py:151")):
         t = times5[key]
         kernels.append(kernel(name, f"gemm_hls_tpu_torch/csrc/{source}",
                               f"gemm_hls_tpu/ops/{replaces}", launches5[key[:3]], t,
                               t["bound"], t["library_ms"]))
+        if "route" in t:  # B16: the route the main path took, and the other one
+            kernels[-1].update(kernel_route=t["route"], other_route=t["other_route"],
+                               other_ms=t["other_ms"])
     # Slice 6 at the training step's w1 gradient shape.
     t = times6["B17 w1 grad 8192 slots"]
     kernels.append(kernel(

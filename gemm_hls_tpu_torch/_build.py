@@ -143,13 +143,14 @@ def _declare(lib):
     # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec).
     i64p, i32p, f32 = ctypes.POINTER(i64), ctypes.POINTER(i32), ctypes.c_float
     flash = [i64p, vp, vp, vp, vp, vp, i32p, f32, f32, i32, vp]
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_wgmma", "flash_bwd_dq", "flash_bwd_dkv"):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = flash
     # Quantized and grouped GEMMs: pointers, then int sizes and codes, then
     # the stream.
     for name, n_ptr, n_int in (("dequant_gemm", 5, 10), ("w8a8_quantize", 3, 5),
                                ("w8a8_gemm", 5, 8), ("grouped_gemm", 4, 9),
+                               ("grouped_wgmma", 4, 7),
                                ("grouped_update", 4, 8)):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]

@@ -19,6 +19,12 @@
 // the (tile, D) accumulator stay in registers for the whole loop; the q
 // tile is read once.  GQA: head b reads kv head b / group, never a copy.
 //
+// Which calls take it (ops/flash.py::flash_route): bf16 / fp16 with a head
+// dim other than 64 or 128, fewer than 64 query rows a head (decode's GQA
+// group of 1-4 rows) or rows that are not whole 16-byte units, and every
+// fp32 call.  bf16 / fp16 at D 64 or 128 with 64 rows or more and aligned
+// rows take the tile engine's csrc/flash_wgmma.cu.
+//
 // Routes by element type:
 //   bf16, fp16 -> tensor cores, mma.sync m16n8k16 with fp32 accumulation.
 //     256 threads, BQ = 128 q rows (16 a warp: eight warps share each K / V
@@ -41,10 +47,11 @@
 // 989 TFLOP/s, against 34 MB of q, k, v and o, 10 us at 3.35 TB/s; the
 // padded-cache decode step (64 x 4 kv heads x ~3000 cached rows, 4 q rows a
 // kv head) reads ~400 MB of cache and is bound by bytes.  Left on the table
-// by this first design: wgmma and TMA, warp specialisation, a split of long
-// kv loops across blocks for decode (one block a kv head leaves SMs idle).
-// Measured (H100 80GB HBM3, 700 W): 0.156 ms at 32 x 1024^2 x 128 bf16 full,
-// 110 TFLOP/s, against scaled_dot_product_attention's 0.033 ms.
+// for decode: a split of long kv loops across blocks (one block a kv head
+// leaves SMs idle).  Measured (H100 80GB HBM3, 700 W, chip_smoke.py phase
+// 15, where it is timed as the engine route's other tensor-core route):
+// ~0.15 ms at 32 x 1024^2 x 128 bf16 full or causal, 110 TFLOP/s; see
+// PERF.md §6.
 #include "flash_common.cuh"
 
 namespace gemm_hls {

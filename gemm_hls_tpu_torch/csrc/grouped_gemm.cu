@@ -17,6 +17,11 @@
 // G + 1 contiguous segments meets at most that many (segment, M-tile)
 // pairs; blocks past the live count return at once.
 //
+// Which calls take it (ops/gmm.py::grouped_route): bf16 / fp16 whose K rows
+// (or N rows without transpose_rhs) are not whole 16-byte units, and every
+// fp32 call; the aligned bf16 / fp16 calls take the tile engine's
+// csrc/grouped_wgmma.cu.
+//
 // Routes by element type: bf16 / fp16 -> tensor cores (mma.sync m16n8k16,
 // fp32 accumulators), a 64 x 128 block tile by eight warps (32 x 32 each),
 // K steps of 32 double-buffered by cp.async; ``transpose_rhs`` (each expert
@@ -27,9 +32,11 @@
 // What bounds it on an H100: at prefill (8192 routed slots x 2048 -> 4096,
 // 8 experts, bf16: 137 GFLOP) the tensor-core rate, 139 us at 989 TFLOP/s;
 // at decode (128 slots) the expert weights, 134 MB read once, 40 us at
-// 3.35 TB/s.  Left on the table: wgmma, TMA, a persistent schedule; at
-// decode a 64-row tile computes 4x more rows than a group of 16 holds.
+// 3.35 TB/s.  Measured (H100 80GB HBM3, 700 W, chip_smoke.py phase 18,
+// timed as the engine route's other tensor-core route): ~0.9 ms at prefill
+// (160 TFLOP/s), ~0.13 ms at 128 slots; see PERF.md §6.
 #include "tile_mma.cuh"
+#include "grouped_span.cuh"
 
 namespace gemm_hls {
 
@@ -46,27 +53,9 @@ struct Grouped {
   int M, N, K, G, trb, out_code, vec_a, vec_b;
 };
 
-// Logical tile t: group ``grp`` (G for the zero tail), rows [r_lo, r_hi) of
-// the M-tile at m0.  False past the live tile count.
 __device__ __forceinline__ bool locate(const Grouped& g, int t, int bm, int& grp, int& m0,
                                        int& r_lo, int& r_hi) {
-  int start = 0;
-  for (int i = 0; i <= g.G; ++i) {
-    const int end = i < g.G ? g.ends[i] : g.M;
-    if (end > start) {
-      const int first = start / bm, tiles = (end - 1) / bm - first + 1;
-      if (t < tiles) {
-        grp = i;
-        m0 = (first + t) * bm;
-        r_lo = max(start, m0);
-        r_hi = min(end, m0 + bm);
-        return true;
-      }
-      t -= tiles;
-      start = end;
-    }
-  }
-  return false;
+  return locate_span(g.ends, g.G, g.M, t, bm, grp, m0, r_lo, r_hi);
 }
 
 __device__ __forceinline__ void store_zero_rows(const Grouped& g, int r_lo, int r_hi, int n0,

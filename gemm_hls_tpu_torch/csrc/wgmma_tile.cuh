@@ -9,7 +9,11 @@
 //     test them once a step, outside the K loop), its operands K-major or
 //     MN-major as the caller holds them, the epilogue applied at the store.
 // The Ozaki slice GEMM B5 (csrc/int8_slices.cu) keeps its own walk over
-// (K block, diagonal, slice pair) on the same primitives.
+// (K block, diagonal, slice pair) on the same primitives; the grouped GEMM
+// B16 (csrc/grouped_wgmma.cu) its walk over (group, M tile, N tile) jobs
+// on the same block, stages and products; the flash forward B6
+// (csrc/flash_wgmma.cu) its own block on the TMA loads, the barriers and
+// the descriptors, with the attention products' wgmma forms.
 //
 // Block of 384 threads, one a SM (192 KB of stages):
 //   * warpgroup 0, the producer, gives up registers (setmaxnreg 40); one
@@ -117,6 +121,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The 3-D and 4-D loads: the grouped GEMM's experts (group as the last
+// coordinate, csrc/grouped_wgmma.cu) and the flash forward's (D, H, S,
+// batch) sequences (csrc/flash_wgmma.cu).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -708,21 +733,35 @@ inline CUtensorMapDataType tma_type(int esize, bool f16) {
                     : f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// A 2-D map, 128-byte swizzled, elements past the edges read as zero:
-// ``inner`` x ``outer`` esize-byte elements at ``base`` (16-byte aligned),
-// ``ld`` elements a row (ld * esize a multiple of 16), boxes of ``box_inner``
-// x ``box_outer``.
-inline bool encode_2d(CUtensorMap* map, const void* base, int64_t inner, int64_t outer, int64_t ld,
-                      int esize, bool f16, int box_inner, int box_outer) {
+// A map of ``rank`` dimensions, 128-byte swizzled, elements past the edges
+// read as zero: dims[0] the contiguous one, strides[i] the byte stride of
+// dimension i + 1 (each a multiple of 16), base 16-byte aligned, boxes of
+// box[0] (at most 128 bytes) x box[1] x ...
+inline bool encode_nd(CUtensorMap* map, const void* base, int rank, const int64_t* dims,
+                      const int64_t* strides, const int* box, int esize, bool f16) {
   const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, tma_type(esize, f16), 2, const_cast<void*>(base), dims, strides, box, unit,
+  if (!fn || rank < 1 || rank > 5) return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    unit[i] = 1;
+    if (i + 1 < rank) st[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  return fn(map, tma_type(esize, f16), rank, const_cast<void*>(base), d, st, bx, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map: ``inner`` x ``outer`` esize-byte elements at ``base``, ``ld``
+// elements a row (ld * esize a multiple of 16), boxes of ``box_inner`` x
+// ``box_outer``.
+inline bool encode_2d(CUtensorMap* map, const void* base, int64_t inner, int64_t outer, int64_t ld,
+                      int esize, bool f16, int box_inner, int box_outer) {
+  const int64_t dims[2] = {inner, outer}, strides[1] = {ld * esize};
+  const int box[2] = {box_inner, box_outer};
+  return encode_nd(map, base, 2, dims, strides, box, esize, f16);
 }
 
 // The map of a K-major operand (rows, k) at row pitch ``ld`` (0: k):

@@ -4,7 +4,8 @@ front ``flash_mha_diff``.
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_flash.py``:
 
-* :func:`flash_mha` -> ``csrc/flash_fwd.cu`` (B6 ``_flash_kernel``, B7
+* :func:`flash_mha` -> ``csrc/flash_wgmma.cu`` or ``csrc/flash_fwd.cu``
+  by shape (:func:`flash_route`; B6 ``_flash_kernel``, B7
   ``_flash_kernel_tri``, B8 ``_flash_kernel_onepass``): o = softmax(scale
   q k^T) v per head, optional lse;
 * :func:`flash_mha_bwd_dq` -> ``csrc/flash_bwd_dq.cu`` (B9, B11);
@@ -47,6 +48,11 @@ _MASK = -0.7 * float(torch.finfo(torch.float32).max)
 # and 128; a smaller D is zero-filled at load).
 MAX_KERNEL_D = 128
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# What the forward's wgmma route takes (csrc/flash_wgmma.cu): its head dims
+# (one instantiation each, the TMA box a whole 64-column chunk) and the
+# fewest q rows a head (one consumer warpgroup's 64).
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_MIN_ROWS = 64
 
 
 def _heads(x) -> int:
@@ -285,6 +291,24 @@ def _vec(*xs) -> int:
     return 1
 
 
+def flash_route(dtype, d: int, s_q: int, aligned: bool) -> str:
+    """The kernel a forward launch takes: ``"wgmma"`` (``csrc/flash_wgmma.cu``:
+    TMA and warp-specialised wgmma, one persistent block a SM) for bf16 /
+    fp16 with a head dim of 64 or 128 and at least 64 query rows a head,
+    whose q, k and v are ``aligned`` (16-byte bases, every row, head and
+    batch stride whole 16-byte units: what a TMA map describes);
+    ``"mma.sync"`` (``csrc/flash_fwd.cu``'s tensor-core tile) for the other
+    bf16 / fp16 calls (other head dims, decode's few rows a head, unaligned
+    rows); ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  Chosen by
+    shape, never as a fallback: a kernel that fails to build or launch
+    raises."""
+    if dtype == torch.float32:
+        return "simt"
+    if d in WGMMA_HEAD_DIMS and s_q >= WGMMA_MIN_ROWS and aligned:
+        return "wgmma"
+    return "mma.sync"
+
+
 def _kernel_ok(q, what, interpret):
     """Refuse what no kernel takes, on a CUDA operand."""
     if interpret:
@@ -328,9 +352,10 @@ def _dims(q, k, causal, window, vec):
 
 
 def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
-             logit_cap, scale, block_q, interpret=None):
-    """(o in q's layout, lse (B, S_q) fp32): the kernel on CUDA operands,
-    the plain version on CPU ones.  q, k, v each 3-D or 4-D."""
+             logit_cap, scale, block_q, interpret=None, route=None):
+    """(o in q's layout, lse (B, S_q) fp32): the kernel on CUDA operands
+    (``flash_route``'s, or ``route`` where a comparison names one), the
+    plain version on CPU ones.  q, k, v each 3-D or 4-D."""
     _check(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window)
     if q.device.type == "cpu":
         with torch.no_grad():
@@ -345,12 +370,16 @@ def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((_heads(q), q.shape[1]), dtype=torch.float32,
                       device=q.device)
-    _launch("flash_fwd", _seq(q) + _seq(k) + _seq(v) + _seq(o),
+    aligned = _vec(q, k, v)
+    route = route or flash_route(q.dtype, q.shape[-1], q.shape[1], bool(aligned))
+    _launch("flash_wgmma" if route == "wgmma" else "flash_fwd",
+            _seq(q) + _seq(k) + _seq(v) + _seq(o),
             [lse.data_ptr(), _ptr(kv_lengths), _ptr(q_seg), _ptr(kv_seg),
              _ptr(offsets)],
-            _dims(q, k, causal, window, _vec(q, k, v, o)), logit_cap, scale,
+            _dims(q, k, causal, window, aligned and _vec(o)), logit_cap, scale,
             q.dtype, q.device, "flash_fwd")
     flash_mha.launches += 1
+    flash_mha.last_route = route
     return o, lse
 
 
@@ -427,8 +456,8 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
       scale: folded into the fp32 scores in the kernel.
       block_q: the plain version's q tile; ``block_kv``,
         ``block_kv_compute`` and ``block_q_compute`` are accepted for the
-        JAX signature: the CUDA kernel's tiles are its own
-        (csrc/flash_fwd.cu).
+        JAX signature: the CUDA kernels' tiles are their own.  The kernel
+        is :func:`flash_route`'s, recorded as ``flash_mha.last_route``.
 
     Returns o (B, S_q, D) in q's dtype, and with ``save_lse`` also lse
     (B, S_q, 1) fp32 (-inf on a fully masked row, where o = 0).
@@ -477,8 +506,9 @@ def flash_mha_bwd_dkv(qs, k, v, do, lse, delta, q_segment_ids=None,
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted).
+# counted), and the route of the forward's last launch.
 flash_mha.launches = 0
+flash_mha.last_route = None
 flash_mha_bwd_dq.launches = 0
 flash_mha_bwd_dkv.launches = 0
 

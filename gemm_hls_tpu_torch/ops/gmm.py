@@ -6,7 +6,8 @@ Counterpart of ``gemm_hls_tpu/ops/pallas_grouped.py::grouped_mxu``:
 out[rows(g)] = lhs[rows(g)] . rhs[g] over a contiguous row partition
 given by ``group_sizes``, rows past ``sum(group_sizes)`` zero, with
 ``transpose_rhs`` reading each expert as (N, K) in place
-(``csrc/grouped_gemm.cu``).  Group g's rows are [min(S_g, M),
+(``csrc/grouped_wgmma.cu`` or ``csrc/grouped_gemm.cu`` by
+:func:`grouped_route`).  Group g's rows are [min(S_g, M),
 min(S_{g+1}, M)) with S the exclusive cumulative sizes: routing past M
 drops the trailing rows (the documented semantics of ``grouped_matmul``;
 ROADMAP C2 notes where the JAX schedule departs from it).
@@ -71,6 +72,23 @@ def _vec(t: torch.Tensor, row: int) -> int:
     return int(t.data_ptr() % 16 == 0 and row * t.element_size() % 16 == 0)
 
 
+def grouped_route(dtype, aligned: bool) -> str:
+    """The kernel a B16 launch takes: ``"wgmma"`` (``csrc/grouped_wgmma.cu``:
+    the Hopper tile engine, TMA and warp-specialised wgmma, one persistent
+    block a SM) for bf16 / fp16 whose operands are ``aligned`` (16-byte
+    bases, K and, without ``transpose_rhs``, N rows whole 16-byte units:
+    what a TMA map describes); ``"mma.sync"`` (``csrc/grouped_gemm.cu``'s
+    tensor-core tile) for the other bf16 / fp16 calls; ``"simt"`` (IEEE
+    fp32 on the CUDA cores) for fp32.  M needs no threshold: the engine
+    measured no slower than mma.sync from decode's 128 routed slots up
+    (PERF.md §6).  Chosen by dtype and alignment, never by the group
+    sizes (they live on the card), and never as a fallback: a kernel that
+    fails to build or launch raises."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if aligned else "mma.sync"
+
+
 def group_ends(group_sizes, m: int) -> torch.Tensor:
     """Cumulative group ends clamped to [0, M], int32, on the sizes'
     device (no host round trip)."""
@@ -101,7 +119,8 @@ def grouped_mxu(lhs, rhs, group_sizes, *, transpose_rhs=False, out_dtype=None,
     over its last axis without a copy).  Rows past ``sum(group_sizes)``
     come back zero.  The output type is ``out_dtype`` (default: the
     promoted input type); the kernel takes operands of one type, so a
-    mixed pair is promoted (exactly) first.
+    mixed pair is promoted (exactly) first.  The kernel is
+    :func:`grouped_route`'s, recorded as ``grouped_mxu.last_route``.
     """
     m, k, n, num_groups = _check(lhs, rhs, group_sizes, transpose_rhs)
     out_dtype = out_dtype or torch.promote_types(lhs.dtype, rhs.dtype)
@@ -110,20 +129,34 @@ def grouped_mxu(lhs, rhs, group_sizes, *, transpose_rhs=False, out_dtype=None,
                                  transpose_rhs=transpose_rhs,
                                  out_dtype=out_dtype)
     lhs, rhs = _kernel_operands("grouped_mxu", lhs, rhs, group_sizes, interpret)
+    return _grouped_launch(lhs, rhs, group_sizes, m, k, n, num_groups,
+                           bool(transpose_rhs), out_dtype)
+
+
+def _grouped_launch(lhs, rhs, group_sizes, m, k, n, num_groups, trb, out_dtype,
+                    route=None):
+    """B16 on CUDA operands of one type, contiguous: ``grouped_route``'s
+    kernel, or ``route`` where a comparison names one."""
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
     if m == 0 or n == 0:
         return out
+    vec_a, vec_b = _vec(lhs, k), _vec(rhs, k if trb else n)
+    route = route or grouped_route(lhs.dtype, bool(k and vec_a and vec_b))
     ends = group_ends(group_sizes, m)
     lib = _build.library()
+    ptrs = (lhs.data_ptr(), rhs.data_ptr(), ends.data_ptr(), out.data_ptr())
+    codes = (_build.dtype_code(lhs.dtype), _build.dtype_code(out_dtype))
     with torch.cuda.device(lhs.device):
-        rc = lib.grouped_gemm(
-            lhs.data_ptr(), rhs.data_ptr(), ends.data_ptr(), out.data_ptr(),
-            m, n, k, num_groups, int(bool(transpose_rhs)),
-            _build.dtype_code(lhs.dtype), _build.dtype_code(out_dtype),
-            _vec(lhs, k), _vec(rhs, k if transpose_rhs else n),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            rc = lib.grouped_wgmma(*ptrs, m, n, k, num_groups, int(trb), *codes,
+                                   stream)
+        else:
+            rc = lib.grouped_gemm(*ptrs, m, n, k, num_groups, int(trb), *codes,
+                                  vec_a, vec_b, stream)
     _build.check(rc, "grouped_mxu")
     grouped_mxu.launches += 1
+    grouped_mxu.last_route = route
     return out
 
 
@@ -188,6 +221,8 @@ def grouped_update_mxu(lhs, g, group_sizes, *, num_groups: int,
     return out
 
 
-# Kernel launches since the counts were last reset (plain calls not counted).
+# Kernel launches since the counts were last reset (plain calls not
+# counted), and the route of B16's last launch.
 grouped_mxu.launches = 0
+grouped_mxu.last_route = None
 grouped_update_mxu.launches = 0

@@ -458,3 +458,74 @@ def test_plain_versions_any_head_dim_and_block():
     o2, l2 = flash.flash_fwd_plain(*t, causal=True, scale=0.05, block_q=512)
     np.testing.assert_allclose(o1.numpy(), o2.numpy(), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(l1.numpy(), l2.numpy(), rtol=1e-6, atol=1e-7)
+
+
+# ---- the forward's routes (ops.flash.flash_route) --------------------------
+# The wgmma engine (csrc/flash_wgmma.cu) and the mma.sync tile run only on
+# the card; here the route rule and the engine's shapes at a small size.
+
+
+def test_route_rule():
+    bf16, f16 = torch.bfloat16, torch.float16
+    # The main path's shapes take the engine; decode's four rows a kv head,
+    # other head dims, unaligned rows and fp32 do not.
+    assert flash.flash_route(bf16, 128, 1024, True) == "wgmma"
+    assert flash.flash_route(f16, 64, 64, True) == "wgmma"
+    assert flash.flash_route(bf16, 128, 4, True) == "mma.sync"
+    assert flash.flash_route(bf16, 128, 63, True) == "mma.sync"
+    assert flash.flash_route(bf16, 96, 1024, True) == "mma.sync"
+    assert flash.flash_route(bf16, 128, 1024, False) == "mma.sync"
+    assert flash.flash_route(torch.float32, 128, 1024, True) == "simt"
+
+
+def test_route_cases_take_the_routes_they_name():
+    # chip_smoke.py's FLASH_ROUTE_CASES (phase 13 and the card tests): the
+    # route each case asserts is flash_route's for its dtype, head dim, rows
+    # and row pitch, and the table reaches every route.
+    import chip_smoke
+
+    seen = set()
+    for case in list(chip_smoke.FLASH_ROUTE_CASES) + [chip_smoke.FLASH_REPEAT_CASE]:
+        _, dt, _, _, _, s_q, _, d, kw, route = case
+        dtype = getattr(torch, dt)
+        width = d + 1 if kw.get("pitched") else d
+        aligned = width * dtype.itemsize % 16 == 0
+        assert flash.flash_route(dtype, d, s_q, aligned) == route, case
+        seen.add((dt, route))
+    assert {("bfloat16", "wgmma"), ("float16", "wgmma"), ("bfloat16", "mma.sync"),
+            ("float32", "simt")} <= seen
+
+
+def test_plain_calls_leave_the_route_alone():
+    flash.flash_mha.last_route = None
+    q = torch.zeros((1, 64, 64))
+    flash.flash_mha(q, q, q)
+    assert flash.flash_mha.last_route is None
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_engine_shapes_gqa_kv_lengths_3d(causal):
+    # The engine route's shapes at a small size: S_q 128, D 64, 8 q heads
+    # over 2 kv heads (GQA 4), a 256-slot cache with stale NaN / inf slots
+    # past each length (lengths >= S_q: every row sees a key, as the JAX
+    # kernel assumes under causal anchoring).
+    q, k, v = _draw(31, (8, 128, 64), (2, 256, 64), (2, 256, 64))
+    lens = np.array([256, 200], np.int32)
+    for i, n in enumerate(lens):
+        k[i, n:] = np.nan
+        v[i, n:] = np.inf
+    a, b = _both(q, k, v, kv_lengths=lens, causal=causal, block_q=64,
+                 block_kv=64)
+    assert np.isfinite(b).all()
+    np.testing.assert_allclose(b, a, **FWD)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_engine_shapes_gqa_4d(causal):
+    # The same in the (batch, S, H, D) layout the engine reads in place,
+    # kv lengths per batch element.
+    q, k, v = _draw(32, (2, 128, 8, 64), (2, 256, 2, 64), (2, 256, 2, 64))
+    lens = np.array([256, 150], np.int32)
+    a, b = _both(q, k, v, kv_lengths=lens, causal=causal, block_q=64,
+                 block_kv=64)
+    np.testing.assert_allclose(b, a, **FWD)

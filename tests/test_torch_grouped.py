@@ -354,3 +354,55 @@ def test_grouped_update_validation_errors(bad):
         gs = torch.tensor([4, 4, 0])
     with pytest.raises(ValueError):
         gmm.grouped_update_mxu(lhs, g, gs, num_groups=2)
+
+
+# ---- B16's routes (ops.gmm.grouped_route) ----------------------------------
+
+
+def test_route_rule():
+    # By dtype and alignment alone (the group sizes live on the card; the
+    # engine measured no slower down to decode's 128 slots): mma.sync for
+    # rows that are not whole 16-byte units, fp32 on the CUDA cores.
+    bf16 = torch.bfloat16
+    assert gmm.grouped_route(bf16, True) == "wgmma"
+    assert gmm.grouped_route(torch.float16, True) == "wgmma"
+    assert gmm.grouped_route(bf16, False) == "mma.sync"
+    assert gmm.grouped_route(torch.float32, True) == "simt"
+
+
+def test_route_cases_take_the_routes_they_name():
+    # chip_smoke.py's GROUPED_ROUTE_CASES (phase 16 and the card tests).
+    import chip_smoke
+
+    seen = set()
+    for case in list(chip_smoke.GROUPED_ROUTE_CASES) + [chip_smoke.GROUPED_REPEAT_CASE]:
+        dt, _, k, n, _, trb, _, _, route = case
+        dtype = getattr(torch, dt)
+        aligned = k * dtype.itemsize % 16 == 0 and (trb or n * dtype.itemsize % 16 == 0)
+        assert gmm.grouped_route(dtype, aligned) == route, case
+        seen.add((dt, route))
+    assert {("bfloat16", "wgmma"), ("float16", "wgmma"), ("bfloat16", "mma.sync"),
+            ("float32", "simt")} <= seen
+
+
+def test_plain_calls_leave_the_route_alone():
+    gmm.grouped_mxu.last_route = None
+    gmm.grouped_mxu(torch.ones((4, 8)), torch.ones((2, 8, 8)), torch.tensor([2, 2]))
+    assert gmm.grouped_mxu.last_route is None
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_engine_shape_vs_jax(transpose_rhs):
+    # The engine route's shape at a small size: M 256 over 3 groups, one
+    # empty, rows past the groups; relative 1e-5 (fp32 sums in two orders).
+    rng = np.random.default_rng(13)
+    m, k, n, gs = 256, 64, 64, [100, 0, 120]
+    lhs = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    rhs = rng.uniform(-1, 1, (3, n, k) if transpose_rhs else (3, k, n)).astype(np.float32)
+    want = np.asarray(jax_grouped(jnp.array(lhs), jnp.array(rhs), jnp.array(gs, jnp.int32),
+                                  dataclasses.replace(JCFG, block_m=64),
+                                  transpose_rhs=transpose_rhs))
+    got = grouped_matmul(torch.from_numpy(lhs), torch.from_numpy(rhs),
+                         torch.tensor(gs, dtype=torch.int32), transpose_rhs=transpose_rhs)
+    assert rel_err(got.numpy(), want) < 1e-5
+    assert not got[sum(gs):].any()

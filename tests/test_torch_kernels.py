@@ -770,6 +770,15 @@ def test_flash_refuses_what_no_kernel_takes(cuda, what):
     chip_smoke.flash_refusal(torch, what)
 
 
+@pytest.mark.parametrize("case", chip_smoke.FLASH_ROUTE_CASES, ids=str)
+def test_flash_routes_match_plain(cuda, case):
+    chip_smoke.flash_route_case(torch, _gen(31), case)
+
+
+def test_flash_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.flash_repeats(torch, _gen(32))
+
+
 # ---- slice 5: dequant (B13), W8A8 (B14 / B15), grouped (B16) ---------------
 # chip_smoke.py's phase-16 case tables, one runner each (its tolerances:
 # relative 1e-4 scaled for fp32 outputs, 1e-2 for bf16 / fp16; the W8A8
@@ -789,6 +798,15 @@ def test_w8a8_kernels_vs_plain(cuda, case):
 @pytest.mark.parametrize("case", chip_smoke.GROUPED_CASES, ids=str)
 def test_grouped_kernel_vs_plain(cuda, case):
     chip_smoke.grouped_case(torch, _gen(43), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.GROUPED_ROUTE_CASES, ids=str)
+def test_grouped_routes_match_plain(cuda, case):
+    chip_smoke.grouped_route_case(torch, _gen(44), case)
+
+
+def test_grouped_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.grouped_repeats(torch, _gen(45))
 
 
 def test_moe_forward_has_no_host_sync(cuda):
