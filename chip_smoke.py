@@ -60,7 +60,11 @@ Phases, each printed as it ends:
      the plain backward; fp32 gradients against float64 autograd of a
      dense reference; refusals; then FLASH_ROUTE_CASES on both forward
      routes (the wgmma engine and mma.sync), the route checked each, and
-     20 launches of one engine case with the same bits;
+     20 launches of one engine case with the same bits; then
+     FLASH_BWD_ROUTE_CASES (dq, dk and dv; every engine case also on
+     mma.sync), the routes checked, rows that see no key exactly 0, and 20
+     launches of each backward kernel on one engine case with the same
+     bits;
  14. slice 4's main path at full width, launch counts set to 0 before it
      and read after: ``flash_attention`` at (32, 1024, 128) bf16 full and
      causal and causal (8, 8192, 128); GQA causal prefill at the serving
@@ -70,15 +74,19 @@ Phases, each printed as it ends:
      training step's gradient through ``flash_attention(causal=True)`` at
      (32, 1024, 128) bf16; each forward's route printed and checked
      against ``flash_route`` (the engine for the prefill shapes, mma.sync
-     for decode);
+     for decode), the gradient's against ``flash_bwd_route`` (the engine),
+     then a torch.profiler breakdown of that gradient;
  15. times of the three flash kernels beside their plain versions, their
      bounds, the forward's other tensor-core route and
      ``scaled_dot_product_attention`` pinned to cuDNN and to
      FlashAttention-2 (its forward beside flash_fwd; its backward, which
      yields dq, dk and dv in one call, beside the sum of flash_bwd_dq and
-     flash_bwd_dkv, on flash_bwd_dkv's entry of the kernels line), all in
-     turns on device time (``time_turns``), the forward's routes also at
-     (8, 8192, 128) and the GQA prefill; and phase 14's end-to-end calls;
+     flash_bwd_dkv, on flash_bwd_dkv's entry of the kernels line), each
+     kernel's other route, and the pair with its delta pass, all in turns
+     on device time (``time_turns``); the forward's routes and the backward
+     pair (both routes, with the delta pass, SDPA's backward) also at
+     (8, 8192, 128) causal and the GQA prefill; and phase 14's end-to-end
+     calls;
  16. the quantized and grouped kernels against their plain versions:
      ``dequant_gemm`` (B13: int8 / int4, per-channel / group-wise, M 1, 64,
      130, ragged N), ``w8a8_gemm`` (B14 / B15: both routes as the JAX rule
@@ -1040,12 +1048,12 @@ def phase_times(torch):
     def entry(key, fn, plain, args, iters, rtol, extra=None, library=None):
         got, ref = fn(*args), plain(*args)
         max_abs, _ = compare(torch, got, ref, rtol, key, scaled=True)
-        ms = time_fn(fn, args, iters=iters) * 1e3
-        plain_ms = time_fn(plain, args, iters=iters) * 1e3
+        ms = time_fn(fn, [args], iters=iters) * 1e3
+        plain_ms = time_fn(plain, [args], iters=iters) * 1e3
         out[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs)
         line = f"phase 9: {key}: {ms:.3f} ms vs plain {plain_ms:.3f} ms"
         for name, call in [x for x in (extra, library) if x]:
-            e_ms = time_fn(call, args, iters=iters) * 1e3
+            e_ms = time_fn(call, [args], iters=iters) * 1e3
             line += f" ({name} {e_ms:.3f} ms)"
         if library:
             # The one PyTorch call computing the same function, held to the
@@ -1548,7 +1556,7 @@ def phase_times3(torch):
     n = 8192
     a = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
     b = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
-    lib = time_fn(torch.matmul, (a, b), iters=5) * 1e3
+    lib = time_fn(torch.matmul, [(a, b)], iters=5) * 1e3
     for p in ("i8x2", "i8x3", "i8x4"):
         ns = int(p[-1])
         # B's slices K-contiguous, as fp32_matmul_int8 makes them.
@@ -1562,17 +1570,17 @@ def phase_times3(torch):
         if not torch.equal(got, ref):
             raise AssertionError(f"B4 {p} {n}^3 differs from its plain version")
         del got, ref
-        ms = time_fn(sk.fused_int8_fp32, args, iters=5) * 1e3
-        plain_ms = time_fn(lambda *t: sk.fused_int8_fp32_plain(sa, sb, ua, ub), (),
+        ms = time_fn(sk.fused_int8_fp32, [args], iters=5) * 1e3
+        plain_ms = time_fn(lambda *t: sk.fused_int8_fp32_plain(sa, sb, ua, ub), [()],
                            iters=1, warmup=0, repeats=1) * 1e3
-        e2e = time_fn(lambda x, y: matmul(x, y, precision=p), (a, b), iters=5) * 1e3
+        e2e = time_fn(lambda x, y: matmul(x, y, precision=p), [(a, b)], iters=5) * 1e3
         out[f"B4 {p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                               max_abs_err=0.0, matmul_ms=e2e, n_slices=ns)
         log(f"phase 12: B4 {p} fp32 {n}^3: {ms:.3f} ms vs plain {plain_ms:.3f} "
             f"ms (torch.matmul fp32 {lib:.3f} ms); matmul(precision={p!r}) "
             f"end to end {e2e:.3f} ms")
         del sa, sb, sbt, args
-    high = time_fn(lambda x, y: matmul(x, y, precision="high"), (a, b), iters=2) * 1e3
+    high = time_fn(lambda x, y: matmul(x, y, precision="high"), [(a, b)], iters=2) * 1e3
     out["matmul high 8192"] = high
     log(f"phase 12: matmul(precision='high') fp32 {n}^3 (B1, CUDA cores): "
         f"{high:.3f} ms")
@@ -1582,10 +1590,10 @@ def phase_times3(torch):
         sa = int8_slices(torch, 8, n, n, gen)
         sb = int8_slices(torch, 8, n, n, gen).transpose(1, 2)  # K-major B
         kw = dict(block_k=2048, n_diags=8)
-        ms = time_fn(lambda x, y: sk.fused_ozaki_int8(x, y, **kw), (sa, sb),
+        ms = time_fn(lambda x, y: sk.fused_ozaki_int8(x, y, **kw), [(sa, sb)],
                      iters=5 if n == 2048 else 2) * 1e3
         A = torch.rand((n, n), generator=gen, device="cuda", dtype=torch.float64)
-        lib = time_fn(torch.matmul, (A, A), iters=5) * 1e3
+        lib = time_fn(torch.matmul, [(A, A)], iters=5) * 1e3
         entry = dict(ms=ms, library_ms=lib)
         if n == 2048:
             hi, lo = sk.fused_ozaki_int8(sa, sb, **kw)
@@ -1593,7 +1601,7 @@ def phase_times3(torch):
             ref = rhi.double() + rlo.double()
             entry["max_abs_err"] = float((hi.double() + lo.double() - ref).abs().max())
             entry["plain_ms"] = time_fn(
-                lambda: sk.fused_ozaki_int8_plain(list(sa), list(sb), **kw), (),
+                lambda: sk.fused_ozaki_int8_plain(list(sa), list(sb), **kw), [()],
                 iters=1, warmup=0, repeats=1) * 1e3
             del hi, lo, rhi, rlo, ref
         out[f"B5 {n}"] = entry
@@ -1769,6 +1777,61 @@ FLASH_ROUTE_CASES = (
 # FLASH_REPEATS times, the same bits each.
 FLASH_REPEAT_CASE = ("4d", "bfloat16", 2, 16, 4, 256, 256, 128, {"causal": True}, "wgmma")
 FLASH_REPEATS = 20
+# The backward's routes (``ops.flash.flash_bwd_route``: dq by its S_q rows,
+# dk / dv by S_kv), phase 13's backward route table, which
+# tests/test_torch_kernels.py parametrises too; its cases are
+# FLASH_ROUTE_CASES', and each names the route both kernels take.  Every
+# engine case also runs on the mma.sync tile (the route override): both
+# 16-bit routes on the same inputs.  The engine: bf16 and fp16, D 64 and
+# 128, S_q and S_kv off the 128-row tiles (200 x 333, 333 x 333), full,
+# causal, causal + window, the soft cap with a custom scale, S_q 64 against
+# S_kv 1000, GQA 4 and 8 in the 3-D and 4-D layouts, segment ids, offsets
+# (a later q shard with a window; a shard whose first 120 rows see no key;
+# a fully-future shard: lse = -inf rows, dq / dk / dv exactly 0 there).
+# dk / dv take items of 64 kv rows where the 128-row items fill at most one
+# round of the SMs (every small case on an H100's 132), else 128-row items:
+# the many-kv-head cases (200 and 138 items of 128 rows) hold the latter
+# with a window and with segment ids.
+# mma.sync: D 40 and 96, 63 rows, rows that are not whole 16-byte units;
+# fp32 on the CUDA cores.
+FLASH_BWD_ROUTE_CASES = (
+    [("3d", dt, 2, 1, 1, s_q, 333, d, {}, "wgmma")
+     for dt, d, s_q in (("bfloat16", 128, 200), ("float16", 64, 200), ("bfloat16", 64, 333),
+                        ("float16", 128, 333))]
+    + [("3d", "bfloat16", 3, 1, 1, 333, 333, 64, {"causal": True}, "wgmma"),
+       ("3d", "float16", 3, 1, 1, 333, 333, 128, {"causal": True, "window": 100}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 150, 200, 128, {"logit_cap": 5.0, "scale": 0.5}, "wgmma"),
+       ("3d", "float16", 2, 1, 1, 150, 200, 64,
+        {"causal": True, "window": 70, "logit_cap": 3.0}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 64, 1000, 128, {"causal": True}, "wgmma"),
+       ("3d", "float16", 2, 1, 1, 64, 1000, 64, {}, "wgmma")]
+    # GQA 4 and 8 (MQA), 3-D and 4-D, and the GQA prefill's heads unaligned
+    + [(lay, dt, 1, 8, hkv, 256, 256, d, {"causal": True}, "wgmma")
+       for lay, dt, hkv, d in (("3d", "bfloat16", 2, 128), ("3d", "float16", 1, 64),
+                               ("4d", "bfloat16", 2, 64), ("4d", "float16", 1, 128))]
+    + [("4d", "bfloat16", 2, 16, 4, 200, 333, 128, {}, "wgmma")]
+    # segment ids (packed causal training, GQA heads in the 4-D layout)
+    + [("3d", "bfloat16", 2, 1, 1, 300, 300, 64, {"causal": True, "seg": True}, "wgmma"),
+       ("4d", "float16", 2, 4, 2, 300, 300, 128, {"seg": True}, "wgmma")]
+    # offsets
+    + [("3d", "bfloat16", 2, 1, 1, 200, 200, 64,
+        {"causal": True, "window": 250, "offsets": [200, 0]}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 200, 200, 128, {"causal": True, "offsets": [0, 120]},
+        "wgmma"),
+       ("3d", "float16", 2, 1, 1, 100, 100, 128, {"causal": True, "offsets": [0, 100]},
+        "wgmma")]
+    # many kv heads: dk / dv in items of 128 kv rows
+    + [("3d", "bfloat16", 40, 1, 1, 200, 520, 128, {"causal": True, "window": 150}, "wgmma"),
+       ("4d", "float16", 23, 4, 2, 300, 300, 64, {"seg": True}, "wgmma")]
+    # the mma.sync tile and the CUDA cores
+    + [("3d", "bfloat16", 2, 1, 1, 200, 333, d, {}, "mma.sync") for d in (40, 96)]
+    + [("3d", "bfloat16", 2, 1, 1, 63, 63, 128, {"causal": True}, "mma.sync"),
+       ("3d", "bfloat16", 2, 1, 1, 200, 333, 128, {"pitched": True}, "mma.sync"),
+       ("3d", "float32", 2, 1, 1, 200, 333, 64, {"causal": True}, "simt")]
+)
+# The race check of the backward's engine route: each kernel launched
+# FLASH_REPEATS times on FLASH_BWD_REPEAT_CASE, the same bits each.
+FLASH_BWD_REPEAT_CASE = ("4d", "bfloat16", 2, 16, 4, 256, 256, 128, {"causal": True}, "wgmma")
 
 
 def stale_slots(k, v, lens):
@@ -1891,6 +1954,83 @@ def flash_repeats(torch, gen):
                                  f"from the first")
 
 
+def flash_bwd_operands(torch, gen, case):
+    """(q, k, v, dO in the case's layout, the plain forward's lse, delta,
+    the int arguments, the mask keywords) of one FLASH_BWD_ROUTE_CASES case,
+    on the card."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    q, k, v, ints, scale, kw = flash_route_operands(torch, gen, case)
+    do = signed(torch, q.shape, q.dtype, gen)
+    ro, rlse = flash.flash_fwd_plain(flash._pack(q), flash._pack(k), flash._pack(v), *ints,
+                                     scale=scale, **kw)
+    delta = (flash._pack(do).float() * ro.float()).sum(-1)
+    bkw = dict(causal=kw.get("causal", False), window=kw.get("window"),
+               logit_cap=kw.get("logit_cap"), scale=scale)
+    return q, k, v, do, rlse, delta, ints[1:], bkw
+
+
+def flash_bwd_launch(torch, ops, which, route=None):
+    """dq or (dk, dv) of flash_bwd_operands' ``ops`` on the card, on
+    ``route`` (None: flash_bwd_route's)."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    q, k, v, do, lse, delta, ints, bkw = ops
+    return flash._backward(q, k, v, do, lse, delta, *ints, bkw["causal"], bkw["window"],
+                           bkw["logit_cap"], bkw["scale"], 512, which, route=route)
+
+
+def flash_bwd_route_case(torch, gen, case, route=None):
+    """One FLASH_BWD_ROUTE_CASES case: dq, dk and dv on the card, on the
+    case's route (or ``route``), against the plain versions; the rows whose
+    lse is -inf (every key masked) have dq exactly 0, and a shard that sees
+    no key has dk = dv = 0.  Returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    ops = flash_bwd_operands(torch, gen, case)
+    q, k, v, do, lse, delta, ints, bkw = ops
+    want, what = route or case[-1], f"flash bwd {case} on {route or case[-1]}"
+    dq = flash_bwd_launch(torch, ops, "dq", route)
+    dk, dv = flash_bwd_launch(torch, ops, "dkv", route)
+    for wrapper in (flash.flash_mha_bwd_dq, flash.flash_mha_bwd_dkv):
+        if wrapper.last_route != want:
+            raise AssertionError(f"{what}: {wrapper.__name__} took route {wrapper.last_route}")
+    packed = [flash._pack(x) for x in (q, k, v, do)]
+    rdq = flash.flash_bwd_dq_plain(*packed, lse, delta, *ints, **bkw)
+    rdk, rdv = flash.flash_bwd_dkv_plain(*packed, lse, delta, *ints, **bkw)
+    err, rtol = 0.0, flash_rtol(torch, q.dtype)
+    for name, g, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        g = flash._pack(g)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+        err = max(err, compare(torch, g, r, rtol, f"{what} {name}", scaled=True)[0])
+    dead = torch.isneginf(lse)
+    if bool(dead.any()) and bool(flash._pack(dq)[dead].abs().max() != 0):
+        raise AssertionError(f"{what}: dq != 0 on rows that see no key")
+    if bool(dead.all()) and bool(dk.abs().max() != 0 or dv.abs().max() != 0):
+        raise AssertionError(f"{what}: dk / dv != 0 where no key is seen")
+    return err
+
+
+def flash_bwd_repeats(torch, gen):
+    """FLASH_BWD_REPEAT_CASE's dq and dkv launched FLASH_REPEATS times each
+    on the same operands: every launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    ops = flash_bwd_operands(torch, gen, FLASH_BWD_REPEAT_CASE)
+    for which, wrapper in (("dq", flash.flash_mha_bwd_dq), ("dkv", flash.flash_mha_bwd_dkv)):
+        first = flash_bwd_launch(torch, ops, which)
+        if wrapper.last_route != FLASH_BWD_REPEAT_CASE[-1]:
+            raise AssertionError(f"flash bwd {which} repeats: route {wrapper.last_route}")
+        first = first if which == "dkv" else (first,)
+        for i in range(FLASH_REPEATS - 1):
+            again = flash_bwd_launch(torch, ops, which)
+            again = again if which == "dkv" else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"flash bwd {which}: launch {i + 2} of "
+                                     f"{FLASH_BWD_REPEAT_CASE} differs from the first")
+
+
 def flash_4d_case(torch, gen, case, dt):
     """One FLASH_4D case in dtype ``dt``: the front door on the card (one
     flash_fwd launch) against the plain version on CPU copies."""
@@ -2009,6 +2149,21 @@ def phase_flash_kernels(torch):
         f"stale slots, segment ids, offsets; D 40 / 96, 63 rows, decode, unaligned rows, "
         f"fp32), each on its route: ok (max abs err {worst:.3e}); {FLASH_REPEATS} "
         f"launches of {FLASH_REPEAT_CASE[:8]} on the engine: same bits")
+    worst = {}
+    for case in FLASH_BWD_ROUTE_CASES:
+        worst[case[-1]] = max(worst.get(case[-1], 0.0), flash_bwd_route_case(torch, gen, case))
+        if case[-1] == "wgmma":
+            worst["mma.sync"] = max(worst.get("mma.sync", 0.0),
+                                    flash_bwd_route_case(torch, gen, case, "mma.sync"))
+    flash_bwd_repeats(torch, gen)
+    torch.cuda.synchronize()
+    n_wg = sum(c[-1] == "wgmma" for c in FLASH_BWD_ROUTE_CASES)
+    log(f"phase 13: flash_bwd_dq / flash_bwd_dkv route cases, {len(FLASH_BWD_ROUTE_CASES)} "
+        f"({n_wg} on the engine and again on mma.sync; D 64 / 128, bf16 / fp16, unaligned "
+        f"S, causal, window, cap, S_q 64 x S_kv 1000, GQA 4 / 8 in 3-D / 4-D, segment ids, "
+        f"offsets with lse = -inf rows; D 40 / 96, 63 rows, unaligned rows, fp32): ok, max "
+        f"abs err by route {worst}; {FLASH_REPEATS} launches of each kernel on "
+        f"{FLASH_BWD_REPEAT_CASE[:8]} on the engine: same bits")
 
 
 def decode_cache(torch, gen, nb=64, slots=4096, hkv=4, d=128, steps=8):
@@ -2124,14 +2279,26 @@ def phase_slice4(torch):
         worst = max(worst, compare(torch, x.grad, r, BF16_RTOL,
                                    f"training d{name}", scaled=True)[0])
     res["train grad"] = worst
+    routes = (main_route(flash.flash_mha_bwd_dq, "training dq", "wgmma"),
+              main_route(flash.flash_mha_bwd_dkv, "training dk, dv", "wgmma"))
     log(f"phase 14d: training gradient through flash_attention(causal=True) "
-        f"at ({bh}, {s}, {d}) bf16: dq, dk, dv max abs err {worst:.3e}")
+        f"at ({bh}, {s}, {d}) bf16: routes dq {routes[0]}, dk / dv {routes[1]}; dq, dk, "
+        f"dv max abs err {worst:.3e}")
     launches = flash_counters()
     log(f"phase 14: main-path launch counts {launches}")
     for name, cnt in launches.items():
         if cnt <= 0:
             raise AssertionError(f"kernel {name} was not launched on the slice 4 "
                                  f"main path")
+    # Where the training gradient's time goes: device busy share and kernels
+    # by device time (torch.profiler over synchronised calls).
+    busy, kernels = device_profile(torch, lambda: torch.autograd.grad(
+        (flash_attention(*xs, causal=True) * w).sum(), xs), 5)
+    res["train grad busy"] = busy
+    res["train grad kernels"] = kernels
+    log(f"phase 14e: profile of the training gradient at ({bh}, {s}, {d}) causal: device "
+        f"busy {busy:.1%} of the window, {sum(us for _, us in kernels):.1f} us of kernels a "
+        f"call: " + "; ".join(f"{name[:60]} {us:.1f} us" for name, us in kernels[:12]))
     return launches, res
 
 
@@ -2156,6 +2323,29 @@ def pinned_sdpa(torch, backend, q, k, v, causal):
     return run
 
 
+def sdpa_grads(torch, q, k, v, do, causal):
+    """{"SDPA bwd <backend>": callable} of scaled_dot_product_attention's
+    backward (dq, dk, dv in one autograd call) on (batch, H, S, D) operands,
+    for each pinned backend that takes them (a yardstick, never called by
+    the port)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    fns = {}
+    for name, backend in sdpa_backends(torch):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        try:
+            with sdpa_kernel([backend]):
+                og = F.scaled_dot_product_attention(*xs, is_causal=causal)
+            torch.autograd.grad(og, xs, do, retain_graph=True)
+        except RuntimeError as exc:  # a backend that refuses these operands
+            log(f"phase 15: SDPA {name} refused ({exc.__class__.__name__}: {str(exc)[:80]})")
+            continue
+        fns[f"SDPA bwd {name}"] = (lambda og=og, xs=xs:
+                                   torch.autograd.grad(og, xs, do, retain_graph=True))
+    return fns
+
+
 def phase_times4(torch):
     """Phase 15: flash kernel times beside their plain versions, their
     bounds and scaled_dot_product_attention, and the end-to-end calls of
@@ -2177,23 +2367,28 @@ def phase_times4(torch):
         return lambda: flash._forward(q, k, v, None, None, None, None, causal, None, None,
                                       q.shape[-1] ** -0.5, 512, route=route)[0]
 
-    def library(q, k, v, causal, do=None):
-        """{backend: callable} of SDPA's forward, or with ``do`` its
-        backward (dq, dk, dv in one autograd call), for each backend that
-        takes these operands."""
+    def bwd(bargs, which, route=None):
+        return lambda: flash._backward(*bargs, which=which, route=route)
+
+    def with_delta(bargs, o, do):
+        """The pair with the delta pass before it (what the autograd
+        Function runs, beside SDPA's backward, which computes its delta
+        inside)."""
+        def run():
+            delta = flash._pack((do.float() * o.float()).sum(-1, keepdim=True))[..., 0]
+            b = bargs[:5] + (delta,) + bargs[6:]
+            return flash._backward(*b, which="dq"), flash._backward(*b, which="dkv")
+        return run
+
+    def library(q, k, v, causal):
+        """{backend: callable} of SDPA's forward for each backend that takes
+        these operands (its backward: ``sdpa_grads``)."""
         fns = {}
         for name, backend in backends:
             run = pinned_sdpa(torch, backend, q, k, v, causal)
             try:
-                if do is None:
-                    run()
-                    fns[name] = run
-                    continue
-                qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-                og = pinned_sdpa(torch, backend, qg, kg, vg, causal)()
-                torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
-                fns[name] = (lambda og=og, xs=(qg, kg, vg):
-                             torch.autograd.grad(og, xs, do, retain_graph=True))
+                run()
+                fns[name] = run
             except RuntimeError as exc:  # a backend that refuses these operands
                 log(f"phase 15: SDPA {name} refused ({exc.__class__.__name__}: "
                     f"{str(exc)[:80]})")
@@ -2209,8 +2404,8 @@ def phase_times4(torch):
         bargs = (q, k, v, do, rlse, delta, None, None, None, causal, None, None, sc, 512)
         pkw = dict(causal=causal, scale=sc)
         kern = {"flash_fwd": fwd(q, k, v, causal),
-                "flash_bwd_dq": lambda: flash._backward(*bargs, which="dq"),
-                "flash_bwd_dkv": lambda: flash._backward(*bargs, which="dkv")}
+                "flash_bwd_dq": bwd(bargs, "dq"),
+                "flash_bwd_dkv": bwd(bargs, "dkv")}
         plain = {"flash_fwd": lambda: flash.flash_fwd_plain(q, k, v, **pkw)[0],
                  "flash_bwd_dq": lambda: flash.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **pkw),
                  "flash_bwd_dkv": lambda: flash.flash_bwd_dkv_plain(q, k, v, do, rlse, delta,
@@ -2220,28 +2415,34 @@ def phase_times4(torch):
             got, ref = kern[name](), plain[name]()
             got, ref = (got, ref) if name != "flash_bwd_dkv" else (got[0], ref[0])
             errs[name] = compare(torch, got, ref, BF16_RTOL, f"timed {name}", scaled=True)[0]
-        route = flash.flash_mha.last_route
-        old = "mma.sync"  # the forward's other tensor-core route
-        lib_f, lib_b = library(q, k, v, causal), library(q, k, v, causal, do)
+        routes = {"flash_fwd": flash.flash_mha.last_route,
+                  "flash_bwd_dq": flash.flash_mha_bwd_dq.last_route,
+                  "flash_bwd_dkv": flash.flash_mha_bwd_dkv.last_route}
+        old = "mma.sync"  # each kernel's other tensor-core route
+        lib_f = library(q, k, v, causal)
+        lib_b = sdpa_grads(torch, q[None], k[None], v[None], do[None], causal)
         turns = time_turns(torch, dict(
-            kern, **{f"flash_fwd {old}": fwd(q, k, v, causal, old)},
-            **{f"SDPA fwd {n}": f for n, f in lib_f.items()},
-            **{f"SDPA bwd {n}": f for n, f in lib_b.items()}))
+            kern, **{f"flash_fwd {old}": fwd(q, k, v, causal, old),
+                     f"flash_bwd_dq {old}": bwd(bargs, "dq", old),
+                     f"flash_bwd_dkv {old}": bwd(bargs, "dkv", old),
+                     "pair + delta": with_delta(bargs, ro, do)},
+            **{f"SDPA fwd {n}": f for n, f in lib_f.items()}, **lib_b))
+        lib_b = [n[len("SDPA bwd "):] for n in lib_b]
         best_f = min(lib_f, key=lambda n: turns[f"SDPA fwd {n}"])
         best_b = min(lib_b, key=lambda n: turns[f"SDPA bwd {n}"])
         for name in kern:
             which = {"flash_fwd": "fwd", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}[name]
             ms = turns[name]
-            plain_ms = time_fn(plain[name], (), iters=3, warmup=1) * 1e3
+            plain_ms = time_fn(plain[name], [()], iters=3, warmup=1) * 1e3
             bound = flash_bound(H100, bh, s, s, d, bf16, causal, which)
             entry = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name], bound=bound,
-                         library_ms=None)
+                         library_ms=None, route=routes[name], other_route=old,
+                         other_ms=turns[f"{name} {old}"])
             if which == "fwd":
-                entry.update(library_ms=turns[f"SDPA fwd {best_f}"], library=f"SDPA {best_f}",
-                             route=route, other_route=old, other_ms=turns[f"flash_fwd {old}"])
+                entry.update(library_ms=turns[f"SDPA fwd {best_f}"], library=f"SDPA {best_f}")
             out[f"{name} {tag}"] = entry
             log(f"phase 15: {name} ({bh}, {s}, {d}) bf16 {tag}: {ms:.4f} ms"
-                + (f" (route {route}; {old} {entry['other_ms']:.4f} ms)" if which == "fwd" else "")
+                f" (route {routes[name]}; {old} {entry['other_ms']:.4f} ms)"
                 + f" vs plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms ({bound[1]}); "
                 f"max abs err {errs[name]:.3e}"
                 + ("; SDPA forward " + ", ".join(f"{n} {turns[f'SDPA fwd {n}']:.4f} ms"
@@ -2250,9 +2451,12 @@ def phase_times4(torch):
         # the pair of kernels, on flash_bwd_dkv's entry, never beside dq alone.
         pair = out[f"flash_bwd_dq {tag}"]["ms"] + out[f"flash_bwd_dkv {tag}"]["ms"]
         out[f"flash_bwd_dkv {tag}"].update(library_ms=turns[f"SDPA bwd {best_b}"], pair_ms=pair,
-                                           library=f"SDPA {best_b}")
+                                           library=f"SDPA {best_b}",
+                                           pair_delta_ms=turns["pair + delta"])
         log(f"phase 15: flash_bwd_dq + flash_bwd_dkv ({bh}, {s}, {d}) bf16 {tag}: "
-            f"{pair:.4f} ms vs SDPA backward (dq, dk, dv) "
+            f"{pair:.4f} ms on the engine, "
+            f"{turns[f'flash_bwd_dq {old}'] + turns[f'flash_bwd_dkv {old}']:.4f} ms on {old}; "
+            f"with the delta pass {turns['pair + delta']:.4f} ms; vs SDPA backward (dq, dk, dv) "
             + ", ".join(f"{n} {turns[f'SDPA bwd {n}']:.4f} ms" for n in lib_b)
             + " (pinned backends, timed in turns)")
         del q, k, v, do
@@ -2277,10 +2481,50 @@ def phase_times4(torch):
         del q, k, v
     out["bound causal 8x8192"] = flash_bound(H100, 8, 8192, 8192, 128, bf16, True)[0] * 1e3
 
+    # The backward pair at the other main-path shapes, in turns: both routes,
+    # the pair with its delta pass, SDPA's backward (on (batch, H, S, D)
+    # copies; the GQA prefill's K and V expanded to the q heads, so SDPA's dk
+    # and dv are per q head, not summed).
+    for key, shape, causal in (("causal 8x8192", (8, 8192, 128), True),
+                               ("GQA prefill 4x1024 H16/4", None, True)):
+        if shape:
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda", dtype=bf16)
+                           for _ in range(4))
+            lib4 = [x[None] for x in (q, k, v, do)]
+        else:
+            q, do = (torch.randn((4, 1024, 16, 128), generator=gen, device="cuda", dtype=bf16)
+                     for _ in range(2))
+            k, v = (torch.randn((4, 1024, 4, 128), generator=gen, device="cuda", dtype=bf16)
+                    for _ in range(2))
+            lib4 = [x.permute(0, 2, 1, 3).repeat_interleave(16 // x.shape[2], 1).contiguous()
+                    for x in (q, k, v, do)]
+        sc = 128 ** -0.5
+        o, lse = flash._forward(q, k, v, None, None, None, None, causal, None, None, sc, 512)
+        delta = flash._pack((do.float() * o.float()).sum(-1, keepdim=True))[..., 0]
+        bargs = (q, k, v, do, lse, delta, None, None, None, causal, None, None, sc, 512)
+        fns = {f"{w} {r}": bwd(bargs, w, r) for r in ("wgmma", "mma.sync") for w in ("dq", "dkv")}
+        fns["pair + delta"] = with_delta(bargs, o, do)
+        for w in ("dq", "dkv"):
+            got, ref = fns[f"{w} wgmma"](), fns[f"{w} mma.sync"]()
+            if flash.flash_mha_bwd_dq.last_route != "mma.sync" and w == "dq":
+                raise AssertionError(f"{key}: the route override was not taken")
+            for g, r in zip(got if w == "dkv" else (got,), ref if w == "dkv" else (ref,)):
+                compare(torch, g, r, BF16_RTOL, f"{key} {w} engine vs mma.sync", scaled=True)
+        fns.update(sdpa_grads(torch, *lib4, causal))
+        turns = time_turns(torch, fns)
+        out[f"bwd pair {key}"] = turns
+        log(f"phase 15: flash_bwd_dq + flash_bwd_dkv {key} bf16 causal, in turns: "
+            f"pair {turns['dq wgmma'] + turns['dkv wgmma']:.4f} ms on the engine "
+            f"(dq {turns['dq wgmma']:.4f}, dkv {turns['dkv wgmma']:.4f}), "
+            f"{turns['dq mma.sync'] + turns['dkv mma.sync']:.4f} ms on mma.sync, with the "
+            f"delta pass {turns['pair + delta']:.4f} ms; "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in turns.items() if n.startswith("SDPA")))
+        del q, k, v, do, o, lib4
+
     # End-to-end calls of phase 14 (front door, host clock after a sync is
     # the same as CUDA events here: each timed window ends in a sync).
     def e2e(key, fn, args, iters=10):
-        out[key] = time_fn(fn, args, iters=iters) * 1e3
+        out[key] = time_fn(fn, [args], iters=iters) * 1e3
         log(f"phase 15: end to end {key}: {out[key]:.4f} ms")
 
     for key, (bh, s, d), causal in (("full 32x1024", (32, 1024, 128), False),
@@ -2950,9 +3194,9 @@ def phase_times5(torch):
     def entry(key, fn, plain, library, bound, tol, plain_iters=3):
         got, ref = fn(), plain()
         err = compare(torch, got, ref, tol, f"timed {key}", scaled=True)[0]
-        ms = time_fn(fn, (), iters=20) * 1e3
-        plain_ms = time_fn(plain, (), iters=plain_iters, warmup=1) * 1e3
-        lib_ms = time_fn(library, (), iters=20) * 1e3 if library else None
+        ms = time_fn(fn, [()], iters=20) * 1e3
+        plain_ms = time_fn(plain, [()], iters=plain_iters, warmup=1) * 1e3
+        lib_ms = time_fn(library, [()], iters=20) * 1e3 if library else None
         out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
                         bound=bound)
         log(f"phase 18: {key}: {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
@@ -3026,7 +3270,7 @@ def phase_times5(torch):
                 log(f"phase 18: torch._grouped_mm refused ({type(exc).__name__}: {exc})")
         turns = time_turns(torch, fns)
         plain_ms = time_fn(lambda lhs=lhs, sizes=sizes, w=w, trb=trb: gmm.grouped_mxu_plain(
-            lhs, w, sizes, transpose_rhs=trb), (), iters=3, warmup=1) * 1e3
+            lhs, w, sizes, transpose_rhs=trb), [()], iters=3, warmup=1) * 1e3
         live = int((sizes > 0).sum())
         bound = grouped_bound(H100, slots, k_in, n_out, slots, live, bf16)
         out[key] = dict(ms=turns["kernel"], plain_ms=plain_ms, library_ms=turns.get("library"),
@@ -3047,9 +3291,9 @@ def phase_times5(torch):
     x = (torch.randn((c["batch"], c["seq"], d), generator=gen, device="cuda")
          * 0.5).to(bf16)
     out["prefill ms"] = time_fn(lambda: serving_prefill(x, q8, moe, cfg, **dims)[0],
-                                (), iters=5) * 1e3
+                                [()], iters=5) * 1e3
     out["prefill plain ms"] = time_fn(
-        lambda: serving_prefill_plain(torch, x, dense, moe, cfg, **dims)[0], (),
+        lambda: serving_prefill_plain(torch, x, dense, moe, cfg, **dims)[0], [()],
         iters=5) * 1e3
     n_tok = c["batch"] * c["seq"]
     hd = c["h_q"] * c["d_head"]
@@ -3074,10 +3318,10 @@ def phase_times5(torch):
     xt = (torch.randn((c["dec_batch"], d), generator=gen, device="cuda") * 0.5).to(bf16)
     out["decode us"] = time_fn(
         lambda: serving_decode(xt, kc, vc, lens, q4, moe, cfg, group_size=c["group"],
-                               **dims)[0], (), iters=20) * 1e6
+                               **dims)[0], [()], iters=20) * 1e6
     out["decode plain us"] = time_fn(
         lambda: serving_decode_plain(torch, xt, rk, rv, lens, dense4, moe, cfg,
-                                     **dims)[0], (), iters=20) * 1e6
+                                     **dims)[0], [()], iters=20) * 1e6
     mean_len = float(lens.float().mean())
     kvh = c["h_kv"] * c["d_head"]
     dbound = sum(b[0] for b in (
@@ -3448,9 +3692,9 @@ def phase_times6(torch):
         got, ref = fn(), plain()
         err = compare(torch, got, ref, BF16_RTOL, f"timed {key}", scaled=True)[0]
         compare(torch, library(), ref, BF16_RTOL, f"{key} {lib_name}", scaled=True)
-        ms = time_fn(fn, (), iters=20) * 1e3
-        plain_ms = time_fn(plain, (), iters=3, warmup=1) * 1e3
-        lib_ms = time_fn(library, (), iters=20) * 1e3
+        ms = time_fn(fn, [()], iters=20) * 1e3
+        plain_ms = time_fn(plain, [()], iters=3, warmup=1) * 1e3
+        lib_ms = time_fn(library, [()], iters=20) * 1e3
         bound = grouped_update_bound(H100, k, n, slots, e, bf16)
         out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
                         max_abs_err=err, bound=bound)
@@ -3470,8 +3714,8 @@ def phase_times6(torch):
         return loss, *new.values()
 
     out["step ms"] = time_fn(lambda: moe_train_step(params, batch, cfg, lr=t["lr"])[1],
-                             (), iters=5) * 1e3
-    out["step plain ms"] = time_fn(plain_step, (), iters=3, warmup=1) * 1e3
+                             [()], iters=5) * 1e3
+    out["step plain ms"] = time_fn(plain_step, [()], iters=3, warmup=1) * 1e3
     router = H100.bound(2 * 2.0 * t["tokens"] * d * e, H100.peak_for("float32"),
                         2 * t["tokens"] * d * 2)
     out["step bound ms"] = 1e3 * (
@@ -3788,7 +4032,7 @@ def phase_times7(torch):
     s, bf16 = DIST["size"], torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(243)
     a, b = dist_operands(torch, gen, (s, s), (s, s), bf16)
-    lib_ms = time_fn(lambda: torch.matmul(a, b), (), iters=20) * 1e3
+    lib_ms = time_fn(lambda: torch.matmul(a, b), [()], iters=20) * 1e3
     out = {"torch.matmul ms": lib_ms}
     runs = [(n, None) for n in DIST["time_ranks"]] + [(DIST["ring_ranks"], 512)]
     for n, bk in runs:
@@ -3800,8 +4044,8 @@ def phase_times7(torch):
         plain = lambda a_s=a_s, b_s=b_s: ring.ring_gemm_plain(a_s, b_s)  # noqa: E731
         err = compare(torch, torch.cat(fn()), torch.cat(plain()), F32_RTOL,
                       f"B18 {n} ranks block_k={bk}", scaled=True)[0]
-        ms = time_fn(fn, (), iters=5) * 1e3
-        plain_ms = time_fn(plain, (), iters=2, warmup=1) * 1e3
+        ms = time_fn(fn, [()], iters=5) * 1e3
+        plain_ms = time_fn(plain, [()], iters=2, warmup=1) * 1e3
         bound = ring_bound(H100, s, s, s, n, bf16)
         key = f"B18 {n} ranks" + (f" block_k={bk}" if bk else "")
         out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
@@ -3825,8 +4069,8 @@ def phase_times7(torch):
     plain = lambda: cannon.cannon_gemm_plain(ab, bb, p)  # noqa: E731
     err = compare(torch, torch.stack(fn()), torch.stack(plain()), F32_RTOL,
                   f"B19 p={p}", scaled=True)[0]
-    ms = time_fn(fn, (), iters=5) * 1e3
-    plain_ms = time_fn(plain, (), iters=2, warmup=1) * 1e3
+    ms = time_fn(fn, [()], iters=5) * 1e3
+    plain_ms = time_fn(plain, [()], iters=2, warmup=1) * 1e3
     bound = cannon_bound(H100, s, s, s, p, bf16)
     key = f"B19 p={p}"
     out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
@@ -3972,21 +4216,24 @@ def main() -> int:
             f"{name} (B6-B12 flash attention, causal 32x1024x128 bf16)",
             f"gemm_hls_tpu_torch/csrc/{name}.cu",
             replaces, launches4[name], t, t["bound"], t["library_ms"]))
+        # The engine route (csrc/flash_wgmma.cu, csrc/flash_bwd_wgmma.cu) that
+        # the main path took; other_ms is the mma.sync tile (flash_fwd.cu,
+        # flash_bwd_dq.cu, flash_bwd_dkv.cu) in the same turns.
+        kernels[-1].update(source="gemm_hls_tpu_torch/csrc/" + (
+            "flash_wgmma.cu" if name == "flash_fwd" else "flash_bwd_wgmma.cu"),
+            kernel_route=t["route"], other_route=t["other_route"], other_ms=t["other_ms"])
         if name == "flash_fwd":
-            # The engine route (csrc/flash_wgmma.cu) that the main path took;
-            # other_ms is flash_fwd.cu's mma.sync tile in the same turns.
-            kernels[-1].update(source="gemm_hls_tpu_torch/csrc/flash_wgmma.cu",
-                               kernel_route=t["route"], other_route=t["other_route"],
-                               other_ms=t["other_ms"], library_note=f"library_ms is {t['library']}")
+            kernels[-1]["library_note"] = f"library_ms is {t['library']}"
         elif name == "flash_bwd_dq":
             kernels[-1]["library_note"] = ("SDPA's backward yields dq, dk and dv in one "
                                            "call: its time is on flash_bwd_dkv, beside "
                                            "the pair")
         elif name == "flash_bwd_dkv":
-            kernels[-1]["pair_ms"] = t["pair_ms"]
-            kernels[-1]["library_note"] = ("library_ms is SDPA's backward (dq, dk and dv "
-                                           "in one call), beside pair_ms = flash_bwd_dq "
-                                           "+ flash_bwd_dkv")
+            kernels[-1].update(pair_ms=t["pair_ms"], pair_delta_ms=t["pair_delta_ms"])
+            kernels[-1]["library_note"] = (f"library_ms is {t['library']}'s backward (dq, dk "
+                                           "and dv in one call, its delta inside), beside "
+                                           "pair_ms = flash_bwd_dq + flash_bwd_dkv and "
+                                           "pair_delta_ms, the pair with its delta pass")
     # Slice 5 at the serving shapes.
     for key, name, source, replaces in (
             ("B13 decode 64x2048x2048 int4 g128",

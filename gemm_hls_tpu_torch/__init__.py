@@ -13,8 +13,9 @@ plus_times GEMM runs on hand-written tensor-core kernels
 (``csrc/mxu_gemm.cu``: B1 and the batched B2; ``csrc/row_softmax.cu``: B2's
 row-softmax variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
 (B4, B5), every other semiring on a CUDA-core kernel
-(``csrc/semiring_gemm.cu``), flash attention on ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (B6-B12), the
+(``csrc/semiring_gemm.cu``), flash attention on ``csrc/flash_wgmma.cu``
+and ``csrc/flash_bwd_wgmma.cu`` (the tile engine) or ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` by shape (B6-B12), the
 quantized GEMMs ``matmul_quantized`` / ``matmul_w8a8`` on
 ``csrc/dequant_gemm.cu`` (B13) and ``csrc/w8a8_gemm.cu`` (B14, B15), and
 ``grouped_matmul`` (the MoE expert GEMM of ``models.moe``, differentiable:

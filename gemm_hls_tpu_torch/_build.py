@@ -143,7 +143,8 @@ def _declare(lib):
     # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec).
     i64p, i32p, f32 = ctypes.POINTER(i64), ctypes.POINTER(i32), ctypes.c_float
     flash = [i64p, vp, vp, vp, vp, vp, i32p, f32, f32, i32, vp]
-    for name in ("flash_fwd", "flash_wgmma", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_wgmma", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = flash
     # Quantized and grouped GEMMs: pointers, then int sizes and codes, then

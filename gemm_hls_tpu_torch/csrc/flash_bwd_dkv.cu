@@ -29,9 +29,14 @@
 //
 // What bounds it on an H100: four products of 2 S_q S_kv D each (8 in all,
 // halved under causal): 34.4 GFLOP at 32 heads x 1024^2 x 128 bf16, 35 us
-// at 989 TFLOP/s; bytes take 13 us at 3.35 TB/s.  Left on the table: wgmma,
-// TMA, the two fp32 D-wide accumulators per thread (registers bound the
-// occupancy at D = 128).
+// at 989 TFLOP/s; bytes take 13 us at 3.35 TB/s.  The bf16 / fp16 calls at
+// a head dim of 64 or 128 with at least 64 kv rows a head and 16-byte rows
+// take the tile engine's kernel instead (csrc/flash_bwd_wgmma.cu: the two
+// D-wide sums of two consumer warpgroups at 232 registers, 3.5-4.6x faster
+// full / causal at 32 heads of 1024^2 x 128 bf16 on an H100 80GB HBM3);
+// this file serves the rest (ops/flash.py::flash_bwd_route):
+// fp32, other head dims, fewer than 64 kv rows, rows that are not whole
+// 16-byte units.
 #include "flash_common.cuh"
 
 namespace gemm_hls {

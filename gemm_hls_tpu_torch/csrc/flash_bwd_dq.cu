@@ -27,8 +27,13 @@
 // What bounds it on an H100: three products of 2 S_q S_kv D each (6 in
 // all, halved under causal): 25.8 GFLOP at 32 heads x 1024^2 x 128 bf16,
 // 26 us at 989 TFLOP/s; the bytes (q, k, v, dO, lse, delta read once, dq
-// written once) take 12 us at 3.35 TB/s.  Left on the table: wgmma, TMA,
-// the fusion of dq into the dkv pass with atomics.
+// written once) take 12 us at 3.35 TB/s.  The bf16 / fp16 calls at a head
+// dim of 64 or 128 with at least 64 q rows a head and 16-byte rows take
+// the tile engine's kernel instead (csrc/flash_bwd_wgmma.cu: TMA and
+// wgmma, 3.4-4.8x faster full / causal at 32 heads of 1024^2 x 128 bf16 on
+// an H100 80GB HBM3); this file serves the rest
+// (ops/flash.py::flash_bwd_route): fp32, other head dims, fewer than 64 q
+// rows, rows that are not whole 16-byte units.
 #include "flash_common.cuh"
 
 namespace gemm_hls {

@@ -64,11 +64,14 @@
 // turns): 0.0296 / 0.0411 ms causal / full at 32 heads of 1024^2 x 128 bf16
 // (cuDNN's SDPA 0.0294 / 0.0317), 0.2664 ms causal at 8 x 8192^2 x 128
 // (0.2658); flash_fwd.cu's tile 0.142 / 0.148 and 1.261.
-#include "wgmma_tile.cuh"
+// The wgmma forms, the item walk, the mask bounds, the staging and the maps
+// are csrc/flash_wgmma.cuh's, shared with the backward pair
+// (csrc/flash_bwd_wgmma.cu).
+#include "flash_wgmma.cuh"
 
 namespace gemm_hls {
 
-constexpr int kFwBQ = 128, kFwBKV = 128, kFwMaxStages = 4, kFwThreads = 384;
+constexpr int kFwBQ = 128, kFwBKV = 128, kFwMaxStages = 4;
 // One 64-column chunk of a 128-row K-major tile (the 128-byte swizzle's
 // row): 16 KB.  V's MN-major boxes are kWgMnBox (64 kv rows x 64 d).
 constexpr int kFwChunk = 128 * kWgRowBytes;
@@ -95,121 +98,6 @@ struct FwArgs {
   long long spin;
 };
 
-// ---- the wgmma forms of attention ------------------------------------------
-
-#define FW_R64 \
-    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define FW_R32 \
-    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define FW_F32(d, o) \
-    "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), \
-    "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]), \
-    "+f"(d[o + 8]), "+f"(d[o + 9]), "+f"(d[o + 10]), "+f"(d[o + 11]), \
-    "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15]), \
-    "+f"(d[o + 16]), "+f"(d[o + 17]), "+f"(d[o + 18]), "+f"(d[o + 19]), \
-    "+f"(d[o + 20]), "+f"(d[o + 21]), "+f"(d[o + 22]), "+f"(d[o + 23]), \
-    "+f"(d[o + 24]), "+f"(d[o + 25]), "+f"(d[o + 26]), "+f"(d[o + 27]), \
-    "+f"(d[o + 28]), "+f"(d[o + 29]), "+f"(d[o + 30]), "+f"(d[o + 31])
-
-// S (64 x 128 of this warpgroup, 64 a thread) (+)= q . k^T for one k16
-// slice, both operands K-major in shared memory; scale_d 0 overwrites.
-template <typename T>
-__device__ __forceinline__ void fw_qk(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" FW_R64
-        "}, %64, %65, p, 1, 1, 0, 0;\n}"
-        : FW_F32(d, 0), FW_F32(d, 32)
-        : "l"(da), "l"(db), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FW_R64
-        "}, %64, %65, p, 1, 1, 0, 0;\n}"
-        : FW_F32(d, 0), FW_F32(d, 32)
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-}
-
-// O (64 x DMAX of this warpgroup, DMAX / 2 a thread) += P . V for one k16
-// slice of kv: P from registers (the m16n8k16 A fragment of each warp's 16
-// rows), V MN-major in shared memory (transpose bit set).
-template <typename T, int DMAX>
-__device__ __forceinline__ void fw_pv(float (&d)[DMAX / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DMAX == 128) {
-    if constexpr (std::is_same<T, __half>::value) {
-      asm volatile(
-          "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" FW_R64
-          "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-          : FW_F32(d, 0), FW_F32(d, 32)
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-    } else {
-      asm volatile(
-          "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FW_R64
-          "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-          : FW_F32(d, 0), FW_F32(d, 32)
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-    }
-  } else {
-    if constexpr (std::is_same<T, __half>::value) {
-      asm volatile(
-          "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {" FW_R32
-          "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-          : FW_F32(d, 0)
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-    } else {
-      asm volatile(
-          "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FW_R32
-          "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-          : FW_F32(d, 0)
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-    }
-  }
-}
-#undef FW_R64
-#undef FW_R32
-#undef FW_F32
-
-// ---- the walk --------------------------------------------------------------
-
-// Item i: head b (kv head kvh), q rows [q0, q0 + kFwBQ), live kv tiles
-// [j_lo, j_hi) (none: every row is masked).
-struct FwItem {
-  int b, kvh, q0, j_lo, j_hi;
-  Mask mask;
-};
-
-// This block's item of round r, or -1: the rounds alternate direction
-// (block c takes items c, 2 grid - 1 - c, 2 grid + c, ...), so a block that
-// took one of the longest causal items takes one of the shortest next.
-__device__ __forceinline__ int fw_round_item(int r, int items) {
-  const int g = gridDim.x, b = blockIdx.x;
-  const int i = r * g + ((r & 1) ? g - 1 - b : b);
-  return i < items ? i : -1;
-}
-
-__device__ __forceinline__ FwItem fw_item(const FlashArgs& a, int n_qt, int i) {
-  FwItem it;
-  it.b = i % a.B;
-  it.kvh = it.b / a.group;
-  it.q0 = (n_qt - 1 - i / a.B) * kFwBQ;
-  it.mask = head_mask(a, it.b);
-  int c_lo, c_hi;
-  kv_range(it.mask, it.q0, min(it.q0 + kFwBQ, a.S_q), c_lo, c_hi);
-  it.j_lo = c_lo / kFwBKV;
-  it.j_hi = c_hi > c_lo ? (c_hi + kFwBKV - 1) / kFwBKV : it.j_lo;
-  return it;
-}
-
 template <int DMAX>
 __device__ void fw_produce(const FwArgs& g, unsigned char* smem, FwBars* bars, int items) {
   using Z = FwSize<DMAX>;
@@ -220,7 +108,7 @@ __device__ void fw_produce(const FwArgs& g, unsigned char* smem, FwBars* bars, i
   for (int r = 0; r * static_cast<int>(gridDim.x) < items; ++r) {
     const int i = fw_round_item(r, items);
     if (i < 0) continue;
-    const FwItem it = fw_item(a, g.n_qt, i);
+    const FwItem it = fw_item(a, g.n_qt, i, kFwBQ, kFwBKV);
     if (it.j_lo == it.j_hi) continue;
     const int qn = it.b / a.q.heads, qh = it.b % a.q.heads;
     const int kn = it.kvh / a.k.heads, kh = it.kvh % a.k.heads;
@@ -267,15 +155,6 @@ __device__ __forceinline__ void fw_zero_v(unsigned char* vt, int z0, int z1, int
   named_sync(2 + wg, 128);
 }
 
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(src))
-      : "memory");
-}
-
 template <typename T, int DMAX>
 __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, int items) {
   using Z = FwSize<DMAX>;
@@ -292,7 +171,7 @@ __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, i
   for (int r = 0; r * static_cast<int>(gridDim.x) < items; ++r) {
     const int i = fw_round_item(r, items);
     if (i < 0) continue;
-    const FwItem it = fw_item(a, g.n_qt, i);
+    const FwItem it = fw_item(a, g.n_qt, i, kFwBQ, kFwBKV);
     float o[NO];
 #pragma unroll
     for (int x = 0; x < NO; ++x) o[x] = 0.f;
@@ -303,12 +182,7 @@ __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, i
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = it.q0 + r_loc + 8 * h;
-      c_min[h] = 0;
-      c_max[h] = it.mask.kv_lim;
-      if (it.mask.causal) {
-        c_max[h] = min(c_max[h], it.mask.qp0 + r + 1);
-        if (it.mask.window) c_min[h] = max(0, it.mask.qp0 + r - it.mask.window + 1);
-      }
+      row_bounds(it.mask, r, c_min[h], c_max[h]);
       if (a.q_seg && r < a.S_q) seg_q[h] = a.q_seg[static_cast<int64_t>(it.b) * a.S_q + r];
     }
     if (it.j_lo < it.j_hi) {
@@ -393,13 +267,7 @@ __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, i
       for (int x = 0; x < NO; ++x) o[x] *= corr[(x % 4) >> 1];
       // p.astype(v.dtype): k16 slice kk of P is values 8 kk .. 8 kk + 7.
       uint32_t pa[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        pa[kk][0] = MmaType<T>::pack(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = MmaType<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = MmaType<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = MmaType<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      fw_pack<T, 8>(pa, s);
       // A padded cache's stale slots inside this tile: zero V's rows.
       if (it.mask.kv_lim < c0 + kFwBKV && it.mask.kv_lim < a.S_kv)
         fw_zero_v<DMAX>(st + Z::kTile, it.mask.kv_lim - c0, min(kFwBKV, a.S_kv - c0), wg);
@@ -429,19 +297,15 @@ __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, i
     // rows past S_q; the previous item's store has read the tile first.
     if (tid == 0) bulk_wait_read<0>();
     named_sync(2 + wg, 128);
+    float inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int rs = 16 * warp + lane / 4 + 8 * h;  // row in the staging tile
-      const float inv = 1.f / (l_r[h] == 0.f ? 1.f : l_r[h]);
-#pragma unroll
-      for (int jj = 0; jj < NO / 4; ++jj)
-        *reinterpret_cast<uint32_t*>(o_stage + (jj / 8) * kWgMnBox + rs * kWgRowBytes +
-                                     ((jj % 8) ^ (rs % 8)) * 16 + 4 * tq) =
-            MmaType<T>::pack(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
+      inv[h] = 1.f / (l_r[h] == 0.f ? 1.f : l_r[h]);
       const int r = it.q0 + r_loc + 8 * h;
       if (a.lse && tq == 0 && r < a.S_q)
         a.lse[static_cast<int64_t>(it.b) * a.S_q + r] = m_r[h] * kLn2 + logf(l_r[h]);
     }
+    fw_stage<T, DMAX>(o_stage, o, inv);
     fence_proxy_async_shared();
     named_sync(2 + wg, 128);
     if (tid == 0) {
@@ -481,17 +345,6 @@ __global__ void __launch_bounds__(kFwThreads, 1) flash_wg_kernel(const __grid_co
   }
 }
 
-// The (D, H, S, batch) map of a sequence view with ``B`` heads of S rows:
-// boxes of 64 columns by ``rows`` rows.  A 3-D view (heads 1, no head
-// stride) takes its row pitch as the head stride, which dimension 1 of
-// extent 1 never uses.
-inline bool encode_seq(CUtensorMap* map, const Seq& x, int B, int S, int D, bool f16, int rows) {
-  const int64_t dims[4] = {D, x.heads, S, B / x.heads};
-  const int64_t strides[3] = {2 * (x.heads > 1 ? x.sh : x.ss), 2 * x.ss, 2 * x.sb};
-  const int box[4] = {64, 1, rows, 1};
-  return encode_nd(map, x.p, 4, dims, strides, box, 2, f16);
-}
-
 template <typename T, int DMAX>
 int launch_flash_wg(FwArgs& g, cudaStream_t st) {
   const FlashArgs& a = g.a;
@@ -502,19 +355,8 @@ int launch_flash_wg(FwArgs& g, cudaStream_t st) {
       !encode_seq(&g.mv, a.v, b_kv, a.S_kv, a.D, f16, 64) ||
       !encode_seq(&g.mo, a.o, a.B, a.S_q, a.D, f16, 64))
     return kTmaEncodeFailed;
-  auto kern = flash_wg_kernel<T, DMAX>;
-  constexpr int smem = FwSize<DMAX>::kSmem;
-  static const int attr = static_cast<int>(
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (attr) return attr;
-  int dev = 0, sms = 0;
-  int err = cudaGetDevice(&dev);
-  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err) return err;
-  const int64_t items = static_cast<int64_t>(a.B) * g.n_qt;
-  if (items > INT_MAX) return kUnsupported;
-  kern<<<static_cast<unsigned>(items < sms ? items : sms), kFwThreads, smem, st>>>(g);
-  return last_error();
+  return launch_persistent(flash_wg_kernel<T, DMAX>, g, FwSize<DMAX>::kSmem,
+                           static_cast<int64_t>(a.B) * g.n_qt, st);
 }
 
 }  // namespace gemm_hls

@@ -1,5 +1,5 @@
-"""Flash attention: the wrappers of the three Hopper kernels that replace
-TPU kernels B6-B12, their plain PyTorch versions, and the differentiable
+"""Flash attention: the wrappers of the Hopper kernels that replace TPU
+kernels B6-B12, their plain PyTorch versions, and the differentiable
 front ``flash_mha_diff``.
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_flash.py``:
@@ -8,10 +8,12 @@ Counterpart of ``gemm_hls_tpu/ops/pallas_flash.py``:
   by shape (:func:`flash_route`; B6 ``_flash_kernel``, B7
   ``_flash_kernel_tri``, B8 ``_flash_kernel_onepass``): o = softmax(scale
   q k^T) v per head, optional lse;
-* :func:`flash_mha_bwd_dq` -> ``csrc/flash_bwd_dq.cu`` (B9, B11);
-* :func:`flash_mha_bwd_dkv` -> ``csrc/flash_bwd_dkv.cu`` (B10, B12); dk and
-  dv come back per kv head (the kernel sums a GQA group's q heads itself;
-  the TPU kernel returned per-q-head tiles that its caller folded);
+* :func:`flash_mha_bwd_dq` -> ``csrc/flash_bwd_wgmma.cu`` or
+  ``csrc/flash_bwd_dq.cu`` by shape (:func:`flash_bwd_route`; B9, B11);
+* :func:`flash_mha_bwd_dkv` -> ``csrc/flash_bwd_wgmma.cu`` or
+  ``csrc/flash_bwd_dkv.cu`` (B10, B12); dk and dv come back per kv head
+  (the kernel sums a GQA group's q heads itself; the TPU kernel returned
+  per-q-head tiles that its caller folded);
 * :func:`flash_mha_diff`, a ``torch.autograd.Function`` whose backward is
   the two kernels above, Delta = sum_d dO * O taken in fp32.
 
@@ -48,9 +50,10 @@ _MASK = -0.7 * float(torch.finfo(torch.float32).max)
 # and 128; a smaller D is zero-filled at load).
 MAX_KERNEL_D = 128
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-# What the forward's wgmma route takes (csrc/flash_wgmma.cu): its head dims
-# (one instantiation each, the TMA box a whole 64-column chunk) and the
-# fewest q rows a head (one consumer warpgroup's 64).
+# What the wgmma routes take (csrc/flash_wgmma.cu, csrc/flash_bwd_wgmma.cu):
+# their head dims (one instantiation each, the TMA box a whole 64-column
+# chunk) and the fewest rows a head (one consumer warpgroup's 64): q rows
+# for the forward and dq, kv rows for dk / dv.
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_MIN_ROWS = 64
 
@@ -309,6 +312,19 @@ def flash_route(dtype, d: int, s_q: int, aligned: bool) -> str:
     return "mma.sync"
 
 
+def flash_bwd_route(dtype, d: int, rows: int, aligned: bool) -> str:
+    """The kernel a backward launch takes, by :func:`flash_route`'s rule:
+    ``"wgmma"`` (``csrc/flash_bwd_wgmma.cu``: TMA and warp-specialised
+    wgmma, one persistent block a SM) for bf16 / fp16 with a head dim of 64
+    or 128 and at least 64 ``rows`` a head (S_q for dq, S_kv for dk / dv),
+    whose q, k, v, dO and outputs are ``aligned`` (16-byte bases and
+    strides); ``"mma.sync"`` (``csrc/flash_bwd_dq.cu`` /
+    ``flash_bwd_dkv.cu``'s tensor-core tile) for the other bf16 / fp16
+    calls; ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  Chosen by
+    shape, never as a fallback."""
+    return flash_route(dtype, d, rows, aligned)
+
+
 def _kernel_ok(q, what, interpret):
     """Refuse what no kernel takes, on a CUDA operand."""
     if interpret:
@@ -384,10 +400,12 @@ def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
 
 
 def _backward(q, k, v, do, lse, delta, q_seg, kv_seg, offsets, causal,
-              window, logit_cap, scale, block_q, which, interpret=None):
+              window, logit_cap, scale, block_q, which, interpret=None,
+              route=None):
     """dq (``which`` = "dq") or (dk, dv) per kv head ("dkv") in the
-    operands' layouts: the kernel on CUDA operands, the plain version on
-    CPU ones.  lse, delta: (B, S_q) fp32."""
+    operands' layouts: the kernel on CUDA operands (``flash_bwd_route``'s,
+    or ``route`` where a comparison names one), the plain version on CPU
+    ones.  lse, delta: (B, S_q) fp32."""
     _check(q, k, v, None, q_seg, kv_seg, offsets, causal, window)
     lse = lse.reshape(_heads(q), q.shape[1]).float().contiguous()
     delta = delta.reshape(_heads(q), q.shape[1]).float().contiguous()
@@ -414,16 +432,18 @@ def _backward(q, k, v, do, lse, delta, q_seg, kv_seg, offsets, causal,
     seqs = _seq(q) + _seq(k) + _seq(v) + _seq(do)
     for x in outs:
         seqs += _seq(x)
-    _launch(what, seqs,
+    aligned = _vec(q, k, v, do, *outs)
+    rows = q.shape[1] if which == "dq" else k.shape[1]
+    route = route or flash_bwd_route(q.dtype, q.shape[-1], rows, bool(aligned))
+    _launch(what + "_wgmma" if route == "wgmma" else what, seqs,
             [lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
              _ptr(offsets)],
-            _dims(q, k, causal, window, _vec(q, k, v, do, *outs)), logit_cap,
+            _dims(q, k, causal, window, aligned), logit_cap,
             scale, q.dtype, q.device, what)
-    if which == "dq":
-        flash_mha_bwd_dq.launches += 1
-        return outs[0]
-    flash_mha_bwd_dkv.launches += 1
-    return outs[0], outs[1]
+    wrapper = flash_mha_bwd_dq if which == "dq" else flash_mha_bwd_dkv
+    wrapper.launches += 1
+    wrapper.last_route = route
+    return outs[0] if which == "dq" else (outs[0], outs[1])
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +500,8 @@ def flash_mha_bwd_dq(qs, k, v, do, lse, delta, q_segment_ids=None,
                      logit_cap=None, scale=1.0):
     """dL/dq (kernel ``flash_bwd_dq``) from the forward's lse and
     delta = sum_d dO * O, each (B, S_q) or (B, S_q, 1) fp32.  ``scale``
-    must match the forward's."""
+    must match the forward's.  The kernel is :func:`flash_bwd_route`'s,
+    recorded as ``flash_mha_bwd_dq.last_route``."""
     del block_kv
     dev = qs.device
     return _backward(qs, k, v, do, lse, delta,
@@ -495,7 +516,9 @@ def flash_mha_bwd_dkv(qs, k, v, do, lse, delta, q_segment_ids=None,
                       block_q=512, block_kv=2048, interpret=None,
                       window=None, logit_cap=None, scale=1.0):
     """(dL/dk, dL/dv) per kv head (kernel ``flash_bwd_dkv``), shaped like
-    k and v: a GQA group's q heads are summed in the kernel, in fp32."""
+    k and v: a GQA group's q heads are summed in the kernel, in fp32.  The
+    kernel is :func:`flash_bwd_route`'s for S_kv rows, recorded as
+    ``flash_mha_bwd_dkv.last_route``."""
     del block_kv
     dev = qs.device
     return _backward(qs, k, v, do, lse, delta,
@@ -506,11 +529,13 @@ def flash_mha_bwd_dkv(qs, k, v, do, lse, delta, q_segment_ids=None,
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted), and the route of the forward's last launch.
+# counted), and the route of each wrapper's last launch.
 flash_mha.launches = 0
 flash_mha.last_route = None
 flash_mha_bwd_dq.launches = 0
+flash_mha_bwd_dq.last_route = None
 flash_mha_bwd_dkv.launches = 0
+flash_mha_bwd_dkv.last_route = None
 
 
 class _FlashDiff(torch.autograd.Function):

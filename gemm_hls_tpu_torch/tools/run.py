@@ -102,7 +102,7 @@ def run(argv=None) -> dict:
            "semiring": sr.name, "device": name, "out": out, "ok": True}
     if device.type == "cuda":
         chip = detect_chip()
-        secs = time_fn(fn, (a, b), iters=args.iters, warmup=1)
+        secs = time_fn(fn, [(a, b)], iters=args.iters, warmup=1)
         gf = gflops(args.m, args.n, args.k, secs)
         peak = chip.peak_for(args.dtype) if sr.is_mxu else chip.vpu_ops
         res.update(seconds=secs, gops=gf)
@@ -111,7 +111,7 @@ def run(argv=None) -> dict:
               f"of {chip.name} peak).")
         if args.baseline:
             plain = fn(a, b, "torch")
-            p_secs = time_fn(fn, (a, b, "torch"), iters=max(1, args.iters // 5),
+            p_secs = time_fn(fn, [(a, b, "torch")], iters=max(1, args.iters // 5),
                              warmup=0, repeats=1)
             rtol = tolerance_for(out.dtype)
             ok, err = check_result(_host(out), _host(plain), rtol=rtol)

@@ -10,7 +10,7 @@ CUDA events on the launching stream time the device work directly.
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,13 +28,19 @@ def _consume(out) -> None:
                 f"time_fn: unexpected output type {type(leaf).__name__}")
 
 
-def time_fn(fn: Callable, args: Sequence, *, iters: int = 10, warmup: int = 2,
-            repeats: int = 3) -> float:
-    """Seconds per call of ``fn(*args)`` on the current CUDA stream: the
-    median over ``repeats`` windows of ``iters`` back-to-back calls, each
-    window bracketed by CUDA events, after ``warmup`` calls."""
+def time_fn(fn: Callable, args_sets: Sequence[Tuple], *, iters: int = 10,
+            warmup: int = 2, repeats: int = 3) -> float:
+    """Seconds per call of ``fn(*args_sets[0])`` on the current CUDA stream:
+    the median over ``repeats`` windows of ``iters`` back-to-back calls, each
+    window bracketed by CUDA events, after ``warmup`` calls.
+
+    ``args_sets`` is a sequence of argument tuples, as the reference's
+    ``time_fn`` takes it (``time_fn(f, [(a, b)])`` times ``f(a, b)``).  The
+    first set is timed: CUDA events see every call's device work, so no
+    other set is needed against cached results."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_fn measures CUDA device time; no CUDA device")
+    args = tuple(args_sets[0])
     for _ in range(max(0, warmup)):
         _consume(fn(*args))
     torch.cuda.synchronize()
@@ -49,6 +55,28 @@ def time_fn(fn: Callable, args: Sequence, *, iters: int = 10, warmup: int = 2,
         stop.synchronize()
         times.append(start.elapsed_time(stop) / 1e3 / iters)
     return statistics.median(times)
+
+
+def interleaved_medians(fns: Sequence[Callable], args: Tuple, flops: float,
+                        peak_gflops: Optional[float], *, rounds: int = 3,
+                        iters: int = 6) -> list:
+    """Median GFLOP/s per fn over ``rounds`` interleaved measurements
+    (``gemm_hls_tpu/utils/benchmark.py:90``), each a :func:`time_fn` of
+    ``fn(*args)`` on CUDA events: the candidates are measured back to back
+    within each round, so a drift of the card's clock falls on all of them;
+    a reading above ``peak_gflops`` is measured once more and dropped if it
+    is still impossible.  Raises RuntimeError if a fn keeps no reading."""
+    samples: list = [[] for _ in fns]
+    for _ in range(max(1, rounds)):
+        for fn, out in zip(fns, samples):
+            gf = flops / time_fn(fn, [args], iters=iters) / 1e9
+            if peak_gflops and gf > peak_gflops:
+                gf = flops / time_fn(fn, [args], iters=iters) / 1e9
+            if not peak_gflops or gf <= peak_gflops:
+                out.append(gf)
+    if any(not s for s in samples):
+        raise RuntimeError("no physically possible reading after a retry")
+    return [sorted(s)[len(s) // 2] for s in samples]
 
 
 def gflops(m: int, n: int, k: int, seconds: float) -> float:

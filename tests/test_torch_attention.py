@@ -9,6 +9,8 @@ scores and a softmax where it does not).  Tolerances: relative 1e-3
 gradients; relative 1e-2 for bf16.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +42,7 @@ def _ref_scores(q, k, scale):
 
 def _routes(monkeypatch):
     """Record the epilogue of every matmul the attention module makes."""
-    from gemm_hls_tpu_torch.ops import matmul as mm
+    mm = importlib.import_module("gemm_hls_tpu_torch.ops.matmul")
 
     seen, real = [], mm.matmul
 

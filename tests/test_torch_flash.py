@@ -529,3 +529,86 @@ def test_engine_shapes_gqa_4d(causal):
     a, b = _both(q, k, v, kv_lengths=lens, causal=causal, block_q=64,
                  block_kv=64)
     np.testing.assert_allclose(b, a, **FWD)
+
+
+# ---- the backward's routes (ops.flash.flash_bwd_route) ---------------------
+# The backward's wgmma engine (csrc/flash_bwd_wgmma.cu) and its mma.sync tile
+# run only on the card; here the route rule, the card table's routes, and
+# the plain backward against the JAX kernels at a shape the engine takes.
+
+
+def test_bwd_route_rule():
+    bf16, f16 = torch.bfloat16, torch.float16
+    # dq takes S_q rows, dk / dv S_kv rows: the main path's shapes take the
+    # engine; fewer than 64 rows, other head dims, unaligned rows and fp32
+    # do not.
+    assert flash.flash_bwd_route(bf16, 128, 1024, True) == "wgmma"
+    assert flash.flash_bwd_route(f16, 64, 64, True) == "wgmma"
+    assert flash.flash_bwd_route(bf16, 128, 63, True) == "mma.sync"
+    assert flash.flash_bwd_route(bf16, 128, 1, True) == "mma.sync"
+    assert flash.flash_bwd_route(bf16, 96, 1024, True) == "mma.sync"
+    assert flash.flash_bwd_route(f16, 40, 1024, True) == "mma.sync"
+    assert flash.flash_bwd_route(bf16, 128, 1024, False) == "mma.sync"
+    assert flash.flash_bwd_route(torch.float32, 128, 1024, True) == "simt"
+    assert flash.flash_bwd_route(torch.float32, 64, 8, False) == "simt"
+
+
+def test_bwd_route_cases_take_the_routes_they_name():
+    # chip_smoke.py's FLASH_BWD_ROUTE_CASES (phase 13 and the card tests):
+    # the route each case asserts is flash_bwd_route's for dq (S_q rows) and
+    # for dk / dv (S_kv rows) alike, no case passes kv_lengths (the
+    # backward takes none), and the table reaches every route.
+    import chip_smoke
+
+    seen = set()
+    for case in list(chip_smoke.FLASH_BWD_ROUTE_CASES) + [chip_smoke.FLASH_BWD_REPEAT_CASE]:
+        _, dt, _, _, _, s_q, s_kv, d, kw, route = case
+        dtype = getattr(torch, dt)
+        width = d + 1 if kw.get("pitched") else d
+        aligned = width * dtype.itemsize % 16 == 0
+        assert flash.flash_bwd_route(dtype, d, s_q, aligned) == route, case
+        assert flash.flash_bwd_route(dtype, d, s_kv, aligned) == route, case
+        assert "kv_lengths" not in kw, case
+        seen.add((dt, d, route))
+    assert {("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
+            ("float16", 64, "wgmma"), ("float16", 128, "wgmma"),
+            ("bfloat16", 128, "mma.sync"), ("float32", 64, "simt")} <= seen
+
+
+def test_plain_backward_calls_leave_the_routes_alone():
+    flash.flash_mha_bwd_dq.last_route = flash.flash_mha_bwd_dkv.last_route = None
+    q = torch.rand((2, 64, 64), requires_grad=True)
+    flash_attention(q, q, q, causal=True).sum().backward()
+    assert flash.flash_mha_bwd_dq.last_route is None
+    assert flash.flash_mha_bwd_dkv.last_route is None
+
+
+@pytest.mark.parametrize("seg", [False, True])
+def test_bwd_plain_vs_jax_kernels_at_an_engine_shape(seg):
+    # The card check holds the engine kernels to the plain versions at the
+    # engine's shapes (D 64, rows >= 64, GQA); here the plain versions are
+    # held to the JAX kernels (interpret mode) at such a shape: 2 kv heads
+    # x GQA 4, S 128, D 64, causal + window, with and without segment ids.
+    q, do = _draw(41, (8, 128, 64), (8, 128, 64))
+    k, v = _draw(42, (2, 128, 64), (2, 128, 64))
+    kw = dict(causal=True, window=48, block_q=32, block_kv=32, scale=0.125)
+    sq = _segments(8, 128, (40, 90)) if seg else None
+    skv = _segments(2, 128, (40, 90)) if seg else None
+    o, lse = jflash.flash_mha(*map(jnp.asarray, (q, k, v)), None, sq, skv,
+                              cfg=JCFG, interpret=True, save_lse=True, **kw)
+    delta = np.sum(do * np.asarray(o), axis=-1, keepdims=True)
+    jargs = [jnp.asarray(x) for x in (q, k, v, do, np.asarray(lse), delta)]
+    jseg = (None, None) if not seg else (jnp.asarray(sq)[..., None],
+                                         jnp.asarray(skv)[:, None, :])
+    dqj = jflash.flash_mha_bwd_dq(*jargs, *jseg, cfg=JCFG, interpret=True, **kw)
+    dkj, dvj = jflash.flash_mha_bwd_dkv(*jargs, *jseg, cfg=JCFG,
+                                        interpret=True, **kw)
+    targs = [torch.from_numpy(np.array(x)) for x in (q, k, v, do, lse, delta)]
+    tseg = dict(q_segment_ids=sq, kv_segment_ids=skv)
+    dqt = flash.flash_mha_bwd_dq(*targs, **tseg, **kw)
+    dkt, dvt = flash.flash_mha_bwd_dkv(*targs, **tseg, **kw)
+    np.testing.assert_allclose(dqt.numpy(), np.asarray(dqj), err_msg="dq", **GRAD)
+    # JAX's dkv returns per-q-head tiles that its caller folds.
+    for name, a, b in (("dk", dkj, dkt), ("dv", dvj, dvt)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a).reshape(2, 4, 128, 64).sum(1),
+                                   err_msg=name, **GRAD)

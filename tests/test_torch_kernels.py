@@ -779,6 +779,22 @@ def test_flash_engine_launches_repeat_bitwise(cuda):
     chip_smoke.flash_repeats(torch, _gen(32))
 
 
+# The backward's routes: each case on the route it names, and every engine
+# case again on the mma.sync tile (the route override).
+_BWD_RUNS = ([(case, None) for case in chip_smoke.FLASH_BWD_ROUTE_CASES]
+             + [(case, "mma.sync") for case in chip_smoke.FLASH_BWD_ROUTE_CASES
+                if case[-1] == "wgmma"])
+
+
+@pytest.mark.parametrize("case,route", _BWD_RUNS, ids=str)
+def test_flash_bwd_routes_match_plain(cuda, case, route):
+    chip_smoke.flash_bwd_route_case(torch, _gen(33), case, route)
+
+
+def test_flash_bwd_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.flash_bwd_repeats(torch, _gen(34))
+
+
 # ---- slice 5: dequant (B13), W8A8 (B14 / B15), grouped (B16) ---------------
 # chip_smoke.py's phase-16 case tables, one runner each (its tolerances:
 # relative 1e-4 scaled for fp32 outputs, 1e-2 for bf16 / fp16; the W8A8
