@@ -6,7 +6,8 @@
 Phases, each printed as it ends:
   1. device check: a CUDA device is required (there is no CPU path);
   2. build every kernel from ``gemm_hls_tpu_torch/csrc`` with nvcc (sm_90a,
-     one nvcc per source, all at once);
+     one nvcc per source, all at once), and list the kernels ptxas spilled
+     registers in and those whose wgmma it serialised (warning C7515);
   3. kernel B1 (dense plus_times) against its plain PyTorch version on the
      card: bf16, fp16, fp32, int8 -> int32 and int32, four layouts, odd,
      unaligned and 1024-class shapes, bool or_and, autograd gradients;
@@ -20,6 +21,10 @@ Phases, each printed as it ends:
      row-softmax variants) and batched B3 against their plain versions:
      dtypes, four layouts, odd shapes, N not a multiple of 128, a 2-D
      operand broadcast over the batch, a batch above gridDim.z's 65535;
+     then B2_ROUTE_CASES on both B2 routes (the wgmma engine and WMMA),
+     the route checked each, every engine case again on WMMA through the
+     route override, and 20 launches of one engine case with the same
+     bits;
   7. gradients of the batched, epilogue and fused_linear paths against
      plain autograd;
   8. slice 2's main path at full width, launch counts set to 0 before it
@@ -30,11 +35,13 @@ Phases, each printed as it ends:
      ``attention`` at (32, 1024, 128) bf16 (fused row softmax) and at
      (8, 8192, 128) (rows past the fused bound: the unfused branch), its
      gradient at (8, 512, 64); batched ``matmul`` calls (four layouts,
-     int8, fp32, broadcast, 4-D, min_plus);
+     int8, fp32, broadcast, 4-D, min_plus), each B2 launch's route
+     printed and checked (the engine for the aligned bf16 calls);
   9. times of B1's epilogue, B2 and B2's row softmax beside their plain
-     versions at the main path's shapes, and of phase 8's batched calls
-     beside the torch call that computes the same (not counted as
-     launches);
+     versions at the main path's shapes (B2 at 64 x 512^3, 256 x 128^3 and
+     attention's p . v on device time in turns beside its WMMA route and
+     ``torch.bmm``), and of phase 8's batched calls beside the torch call
+     that computes the same (not counted as launches);
  10. kernels B4 (diagonal) and B5 (hi/lo) against their plain versions:
      2, 3, 4 and 8 slices, stacked and split operands, scaled and
      unscaled, unaligned M, N and K, both flush periods of B5; the int32
@@ -116,7 +123,10 @@ Phases, each printed as it ends:
      tiles, empty groups exactly zero, two launches bitwise equal; then
      ``grouped_matmul``'s gradients (B16 and B17) against plain autograd,
      both ``transpose_rhs``, bf16 / fp32 and bf16 operands with an fp32
-     config;
+     config; then GROUPED_UPDATE_ROUTE_CASES on both B17 routes (the wgmma
+     engine and mma.sync), the route checked each, every engine case again
+     on mma.sync through the route override, and 20 launches of one engine
+     case with the same bits;
  20. slice 6's main path, launch counts set to 0 before it and read after:
      MoE training (``models.moe.moe_train_step``) at
      experiments/serving_bench.py's MoE width (d 2048, d_ff 4096, 8 experts
@@ -125,11 +135,14 @@ Phases, each printed as it ends:
      per-expert autograd step, 5 steps with 3 B16 and 2 B17 launches each
      and each loss against the plain loss, a step with the aux loss and one
      with an explicit GemmConfig, an fp32 run at d 512 against the plain
-     fp32 step; B16's route for the forward and w2's dlhs checked;
- 21. times of B17 at the step's two weight-gradient shapes beside its
-     bound, plain version and ``torch._grouped_mm`` (or a per-expert
-     ``torch.matmul`` loop), the training step beside the plain step and
-     its bound, and a torch.profiler breakdown of one step;
+     fp32 step; B16's route for the forward and w2's dlhs checked, and
+     every B17 launch's (the engine);
+ 21. times of B17 at the step's two weight-gradient shapes and at w1's
+     with 70% of the slots routed to one expert, on device time in turns
+     beside its mma.sync route and ``torch._grouped_mm`` (or a per-expert
+     ``torch.matmul`` loop), with its bound and plain version; the
+     training step beside the plain step and its bound, and a
+     torch.profiler breakdown of one step;
  22. ``ring_gemm`` (B18, the fused ring, both TPU bodies) against its plain
      schedule over RING_CASES: rings of 1-8 ranks living on the card, fp32
      / bf16 / int8 on each route (the wgmma engine, mma.sync, the CUDA
@@ -300,18 +313,59 @@ B1_EPILOGUE_ROUTE_CASES = (
 # times, the same bits each.
 B1_REPEAT_CASE = ("bfloat16", "float32", False, False, 1000, 1030, 1100, True, None, "wgmma")
 B1_REPEATS = 20
+# B2's routes (``ops.mxu.mxu_route``, one rule with B1's), phase 6's case
+# table that tests/test_torch_kernels.py parametrises too: (dtype, out
+# dtype, ta, tb, batch, M, N, K, pitched, broadcast ("a" / "b": that
+# operand 2-D), epilogue, route).  Each engine case runs again on WMMA
+# through the route override.  The engine: bf16 and fp16 in the four
+# layouts with M, N and K off the tiles (K 136 and 200: not whole 64-deep
+# slabs) through pitched views, aligned contiguous operands to fp32, a
+# broadcast 2-D a, a transposed 3-D a against a 2-D b (and the other two
+# pairings), a batch of one, M = N = K = 1, attention's p . v at N = 128
+# (half a tile), a batch past gridDim.z's 65535, every per-column
+# epilogue, int8 -> int32 and int8 -> fp32 with an epilogue (both
+# operands K-major).  WMMA: int8 in the other layouts, rows whose pitch is
+# not a whole 16-byte unit.  fp32 on the CUDA cores.
+B2_ROUTE_CASES = (
+    [(dt, dt, ta, tb, 3, 200, 300, 136, True, None, None, "wgmma")
+     for dt in ("bfloat16", "float16") for ta, tb in LAYOUTS]
+    + [("bfloat16", "float32", ta, tb, 4, 256, 256, 512, False, None, None, "wgmma")
+       for ta, tb in LAYOUTS]
+    + [("bfloat16", "bfloat16", False, False, 5, 130, 264, 200, True, "a", None, "wgmma"),
+       ("bfloat16", "float32", True, False, 5, 130, 264, 200, True, "b", None, "wgmma"),
+       ("float16", "float16", True, True, 3, 72, 520, 136, False, "b", None, "wgmma"),
+       ("bfloat16", "bfloat16", False, True, 3, 72, 520, 136, False, "a", None, "wgmma"),
+       ("bfloat16", "bfloat16", False, False, 1, 300, 520, 264, False, None, None, "wgmma"),
+       ("float16", "float32", True, False, 7, 1, 1, 1, True, None, None, "wgmma"),
+       ("bfloat16", "bfloat16", False, False, 2, 1024, 128, 1024, False, None, None, "wgmma"),
+       ("bfloat16", "float32", False, True, 70_000, 3, 8, 8, False, None, None, "wgmma")]
+    + [("bfloat16", "bfloat16", False, True, 5, 300, 1030, 200, True, None, ep, "wgmma")
+       for ep in EPILOGUES]
+    + [("int8", "int32", False, True, 3, 257, 384, 272, False, None, None, "wgmma"),
+       ("int8", "int32", False, True, 3, 200, 300, 136, True, None, None, "wgmma"),
+       ("int8", "float32", False, True, 3, 200, 300, 272, False, None, "bias_relu", "wgmma"),
+       ("int8", "int32", True, False, 3, 257, 384, 272, False, None, None, "wmma"),
+       ("int8", "int32", False, False, 3, 257, 384, 272, False, None, None, "wmma"),
+       ("bfloat16", "bfloat16", False, False, 3, 64, 72, 100, False, None, None, "wmma"),
+       ("float16", "float32", True, True, 2, 65, 140, 131, False, None, None, "wmma"),
+       ("float32", "float32", False, False, 3, 65, 140, 131, False, None, None, "simt")]
+)
+# The race check of B2's engine route.
+B2_REPEAT_CASE = ("bfloat16", "float32", True, False, 16, 300, 520, 264, True, None, None, "wgmma")
+B2_REPEATS = 20
 
 
-def pitched(torch, gen, rows, cols, dtype, pitch):
-    """(rows, cols) on the card, U(-1, 1) or int8 in [-3, 3]; with
+def pitched(torch, gen, rows, cols, dtype, pitch, lead=()):
+    """(*lead, rows, cols) on the card, U(-1, 1) or int8 in [-3, 3]; with
     ``pitch``, a view into rows of whole 16-byte units plus one unit."""
     per = 16 // dtype.itemsize
     width = (cols + per - 1) // per * per + per if pitch else cols
+    shape = (*lead, rows, width)
     if dtype == torch.int8:
-        x = torch.randint(-3, 4, (rows, width), generator=gen, device="cuda").to(dtype)
+        x = torch.randint(-3, 4, shape, generator=gen, device="cuda").to(dtype)
     else:
-        x = signed(torch, (rows, width), dtype, gen)
-    return x[:, :cols]
+        x = signed(torch, shape, dtype, gen)
+    return x[..., :cols]
 
 
 def b1_route_case(torch, gen, case):
@@ -355,6 +409,54 @@ def b1_repeats(torch, gen):
     for i in range(B1_REPEATS - 1):
         if not torch.equal(first, mxu.mxu_matmul(a, b, cfg=cfg)):
             raise AssertionError(f"B1: launch {i + 2} of {B1_REPEAT_CASE} differs from the first")
+
+
+def b2_route_operands(torch, gen, case):
+    """(a, b, epilogue operands, keyword arguments) of a B2_ROUTE_CASES
+    case, on the card."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    dt, out, ta, tb, bsz, m, n, k, pitch, bcast, ep_name, _ = case
+    dtype = getattr(torch, dt)
+    a = pitched(torch, gen, *((k, m) if ta else (m, k)), dtype, pitch,
+                () if bcast == "a" else (bsz,))
+    b = pitched(torch, gen, *((n, k) if tb else (k, n)), dtype, pitch,
+                () if bcast == "b" else (bsz,))
+    ep = get_epilogue(ep_name) if ep_name else None
+    floats = dtype.is_floating_point
+    eps = [signed(torch, (n,), dtype if floats else torch.float32, gen) * (1 if floats else 20)
+           for _ in range(ep.n_operands if ep else 0)]
+    return a, b, eps, dict(cfg=default_config(dtype, out_dtype=out), transpose_a=ta,
+                           transpose_b=tb, epilogue=ep)
+
+
+def b2_route_case(torch, gen, case, route=None):
+    """One B2_ROUTE_CASES case on the route it names (or on ``route``, the
+    override) against the plain version, the route checked; returns the
+    largest abs error."""
+    from gemm_hls_tpu_torch.ops import mxu
+    a, b, eps, kw = b2_route_operands(torch, gen, case)
+    got = mxu.mxu_matmul_batched(a, b, *eps, route=route, **kw)
+    if mxu.mxu_matmul_batched.last_route != (route or case[-1]):
+        raise AssertionError(f"B2 {case}: route {mxu.mxu_matmul_batched.last_route}")
+    out_dtype = got.dtype
+    rtol = (0.0 if not out_dtype.is_floating_point
+            else F32_RTOL if out_dtype == torch.float32 else BF16_RTOL)
+    return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol,
+                   f"B2 {case} on {route or case[-1]}", scaled=True)[0]
+
+
+def b2_repeats(torch, gen):
+    """B2_REPEAT_CASE launched B2_REPEATS times on the same operands: every
+    launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.ops import mxu
+    a, b, _, kw = b2_route_operands(torch, gen, B2_REPEAT_CASE)
+    first = mxu.mxu_matmul_batched(a, b, **kw)
+    if mxu.mxu_matmul_batched.last_route != B2_REPEAT_CASE[-1]:
+        raise AssertionError(f"B2 {B2_REPEAT_CASE}: route {mxu.mxu_matmul_batched.last_route}")
+    for i in range(B2_REPEATS - 1):
+        if not torch.equal(first, mxu.mxu_matmul_batched(a, b, **kw)):
+            raise AssertionError(f"B2: launch {i + 2} of {B2_REPEAT_CASE} differs from the first")
 
 
 def phase_b1(torch):
@@ -705,6 +807,19 @@ def phase_b2(torch):
         n_cases += 1
     log(f"phase 6b: B2 (plain + per-column epilogue) vs plain, {n_cases} "
         f"cases: ok")
+    worst = max(b2_route_case(torch, gen, c) for c in B2_ROUTE_CASES)
+    engine = [c for c in B2_ROUTE_CASES if c[-1] == "wgmma"]
+    worst_old = max(b2_route_case(torch, gen, c, "wmma") for c in engine)
+    b2_repeats(torch, gen)
+    routes = {}
+    for case in B2_ROUTE_CASES:
+        routes[case[-1]] = routes.get(case[-1], 0) + 1
+    log(f"phase 6b: B2 route cases, {len(B2_ROUTE_CASES)} {routes} (the wgmma engine: bf16 / "
+        f"fp16 in four layouts, ragged M / N / K, broadcast 2-D a / b, batch 1 and 70000, N = "
+        f"128, every epilogue, K-major int8; WMMA: int8 in other layouts, unaligned pitches; "
+        f"fp32), each on its route: ok (worst abs err {worst:.3e}); the {len(engine)} engine "
+        f"cases again on WMMA: ok ({worst_old:.3e}); {B2_REPEATS} engine launches of "
+        f"{B2_REPEAT_CASE[:8]}: the same bits")
 
     n_cases = 0
     softmax = get_epilogue("softmax")
@@ -972,43 +1087,56 @@ def phase_slice2(torch):
         compare(torch, g, r, F32_RTOL, f"attention grad d{name}", scaled=True)
     log("phase 8e: attention gradient at (8, 512, 64) fp32 vs plain autograd: ok")
 
-    # 8f: batched GEMMs through the front door.
-    n_cases = 0
+    # 8f: batched GEMMs through the front door, each B2 launch's route
+    # recorded: the aligned bf16 calls take the engine, int8 with a
+    # row-major B WMMA, fp32 the CUDA cores.
+    n_cases, routes = 0, {}
+
+    def checked(what, want, fn, ref, rtol, scaled=True):
+        before = mxu.mxu_matmul_batched.launches
+        got = fn()
+        if mxu.mxu_matmul_batched.launches > before:
+            routes[what] = mxu.mxu_matmul_batched.last_route
+            if routes[what] != want:
+                raise AssertionError(f"{what}: B2 route {routes[what]}, the rule gives {want}")
+        compare(torch, got, ref(), rtol, what, scaled=scaled)
+
     for bsz, sz in ((64, 512), (256, 128)):
         for ta, tb in LAYOUTS:
             a = signed(torch, (bsz, sz, sz), torch.bfloat16, gen)
             b = signed(torch, (bsz, sz, sz), torch.bfloat16, gen)
             kw = dict(transpose_a=ta, transpose_b=tb)
-            compare(torch, matmul(a, b, **kw), matmul(a, b, backend="torch", **kw),
-                    BF16_RTOL, f"matmul bf16 {bsz}x{sz}^3 ta={ta} tb={tb}",
-                    scaled=True)
+            checked(f"bf16 {bsz}x{sz}^3 ta={int(ta)} tb={int(tb)}", "wgmma",
+                    lambda: matmul(a, b, **kw), lambda: matmul(a, b, backend="torch", **kw),
+                    BF16_RTOL)
             n_cases += 1
     a8 = torch.randint(-100, 100, (64, 512, 512), generator=gen, device="cuda",
                        dtype=torch.int8)
     b8 = torch.randint(-100, 100, (64, 512, 512), generator=gen, device="cuda",
                        dtype=torch.int8)
-    compare(torch, matmul(a8, b8, out_dtype="int32"),
-            matmul(a8, b8, out_dtype="int32", backend="torch"), 0.0, "int8 batched")
+    checked("int8 batched", "wmma", lambda: matmul(a8, b8, out_dtype="int32"),
+            lambda: matmul(a8, b8, out_dtype="int32", backend="torch"), 0.0, scaled=False)
     a32, b32 = (signed(torch, (64, 512, 512), torch.float32, gen) for _ in range(2))
-    compare(torch, matmul(a32, b32), matmul(a32, b32, backend="torch"), F32_RTOL,
-            "fp32 batched", scaled=True)
+    checked("fp32 batched", "simt", lambda: matmul(a32, b32),
+            lambda: matmul(a32, b32, backend="torch"), F32_RTOL)
     w = b32[0].to(torch.bfloat16)
     ab = a32.to(torch.bfloat16)
     for kw in (dict(transpose_a=True), dict()):  # broadcast 2-D b: B2, and one B1
-        compare(torch, matmul(ab, w, **kw), matmul(ab, w, backend="torch", **kw),
-                BF16_RTOL, f"broadcast 2-D b {kw}", scaled=True)
-    compare(torch, matmul(w, ab), matmul(w, ab, backend="torch"), BF16_RTOL,
-            "broadcast 2-D a", scaled=True)
+        checked(f"broadcast 2-D b {kw}", "wgmma", lambda: matmul(ab, w, **kw),
+                lambda: matmul(ab, w, backend="torch", **kw), BF16_RTOL)
+    checked("broadcast 2-D a", "wgmma", lambda: matmul(w, ab),
+            lambda: matmul(w, ab, backend="torch"), BF16_RTOL)
     a4 = ab.reshape(8, 8, 512, 512)
-    compare(torch, matmul(a4, a4), matmul(a4, a4, backend="torch"), BF16_RTOL,
-            "4-D leading dims", scaled=True)
+    checked("4-D leading dims", "wgmma", lambda: matmul(a4, a4),
+            lambda: matmul(a4, a4, backend="torch"), BF16_RTOL)
     am, bm = (signed(torch, (16, 512, 512), torch.float32, gen) for _ in range(2))
     compare(torch, matmul(am, bm, semiring="min_plus"),
             matmul(am, bm, semiring="min_plus", backend="torch"), 0.0,
             "batched min_plus")
     n_cases += 7
     log(f"phase 8f: batched matmul vs plain, {n_cases} cases (64x512^3 and "
-        f"256x128^3 bf16 four layouts, int8, fp32, broadcast, 4-D, min_plus): ok")
+        f"256x128^3 bf16 four layouts, int8, fp32, broadcast, 4-D, min_plus): ok; "
+        f"B2 routes {routes}")
 
     launches = {k: v for k, v in counters().items() if k in SLICE2_KERNELS}
     log(f"phase 8: main-path launch counts {launches}")
@@ -1031,6 +1159,46 @@ def plain_attention(torch, q, k, v):
     p = mxu.mxu_matmul_plain(qs, k, cfg=cfg, transpose_b=True,
                              epilogue=get_epilogue("softmax"))
     return mxu.mxu_matmul_plain(p, v, cfg=cfg)
+
+
+def b2_times(torch, gen):
+    """B2 at 64 x 512^3, 256 x 128^3 and attention's p . v (32 x 1024 x
+    1024 . 1024 x 128: N = 128, half the engine's 256-wide tile), bf16, on
+    device time in turns: the route the rule gives, the other tensor-core
+    route, the plain version and torch.bmm (launches here are comparisons,
+    not the main path's)."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import mxu
+
+    bf16, cfg, out = torch.bfloat16, default_config(torch.bfloat16), {}
+    for key, (bsz, m, n, k) in (("B2 64x512^3", (64, 512, 512, 512)),
+                                ("B2 256x128^3", (256, 128, 128, 128)),
+                                ("B2 p.v 32x1024x128x1024", (32, 1024, 128, 1024))):
+        a = signed(torch, (bsz, m, k), bf16, gen)
+        c = signed(torch, (bsz, k, n), bf16, gen)
+        fns = {"kernel": lambda a=a, c=c: mxu.mxu_matmul_batched(a, c, cfg=cfg)}
+        ref = mxu.mxu_matmul_plain(a, c, cfg=cfg)
+        err = compare(torch, fns["kernel"](), ref, BF16_RTOL, key, scaled=True)[0]
+        route = mxu.mxu_matmul_batched.last_route
+        other = "wmma" if route == "wgmma" else "wgmma"
+        fns[other] = lambda a=a, c=c, o=other: mxu.mxu_matmul_batched(a, c, cfg=cfg, route=o)
+        compare(torch, fns[other](), ref, BF16_RTOL, f"{key} {other}", scaled=True)
+        fns["plain"] = lambda a=a, c=c: mxu.mxu_matmul_plain(a, c, cfg=cfg)
+        fns["library"] = lambda a=a, c=c: torch.bmm(a, c)
+        compare(torch, fns["library"](), ref, BF16_RTOL, f"{key} torch.bmm", scaled=True)
+        turns = time_turns(torch, fns)
+        bound = H100.bound(2.0 * bsz * m * n * k, H100.peak_for("bfloat16"),
+                           bsz * (m * k + k * n + m * n) * 2)
+        out[key] = dict(ms=turns["kernel"], plain_ms=turns["plain"],
+                        library_ms=turns["library"], max_abs_err=err, route=route,
+                        other_route=other, other_ms=turns[other], bound=bound)
+        log(f"phase 9: {key} bf16: {turns['kernel']:.4f} ms (route {route}; {other} "
+            f"{turns[other]:.4f} ms) vs plain {turns['plain']:.4f} ms, torch.bmm "
+            f"{turns['library']:.4f} ms (device time in turns), bound "
+            f"{bound[0] * 1e3:.4f} ms ({bound[1]}); max abs err {err:.3e}")
+        del a, c, ref
+    return out
 
 
 def phase_times(torch):
@@ -1076,12 +1244,7 @@ def phase_times(torch):
           ("torch._addmm_activation(b, x, w)",
            lambda x_, w_, b_: torch._addmm_activation(b_, x_, w_)))
     del x, w, b
-    # B2 at 64 x 512^3 and 256 x 128^3, against torch.bmm.
-    for bsz, sz in ((64, 512), (256, 128)):
-        a = signed(torch, (bsz, sz, sz), bf16, gen)
-        c = signed(torch, (bsz, sz, sz), bf16, gen)
-        entry(f"B2 {bsz}x{sz}^3", lambda a_, c_: mxu.mxu_matmul_batched(a_, c_, cfg=cfg),
-              torch.bmm, (a, c), 20, BF16_RTOL)
+    out.update(b2_times(torch, gen))
     # B2's row softmax at the attention scores' shape.
     q = torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
     k = torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
@@ -2673,6 +2836,34 @@ GROUPED_UPDATE_CASES = (
        ("bfloat16", 2048, 512, 1024, [512, 0, 300, 700, 1, 35, 200, 300], "float32",
         False)]
 )
+# B17's routes (``ops.gmm.grouped_update_route``), phase 19's route table,
+# which tests/test_torch_kernels.py parametrises too: (dtype, M, K, N, group
+# sizes, output dtype (None: the input's), rows past the groups NaN in both
+# operands, route).  Each engine case runs again on mma.sync through the
+# route override.  The engine: spans that start off a multiple of 64 and
+# spans shorter than 64 (the last slab's lines past the span zeroed in both
+# operands), empty groups (exactly zero), NaN rows past the groups, routing
+# past M (clamped), K and N off the 128 x 256 tile, spans over several
+# slabs and tiles, fp16, fp32 outputs, every group empty, one row.
+# mma.sync: K or N not whole 16-byte units.  fp32 on the CUDA cores.
+GROUPED_UPDATE_ROUTE_CASES = (
+    [(dt, 600, 256, 512, [70, 0, 33, 200, 5, 100], None, True, "wgmma")
+     for dt in ("bfloat16", "float16")]
+    + [("bfloat16", 300, 128, 256, [10, 20, 0, 63, 1, 250], None, False, "wgmma"),
+       ("bfloat16", 1000, 136, 264, [300, 0, 450, 130], None, True, "wgmma"),
+       ("float16", 1000, 200, 72, [129, 64, 0, 500], "float32", True, "wgmma"),
+       ("bfloat16", 2048, 512, 1024, [512, 0, 300, 700, 1, 35, 200, 300], "float32", False,
+        "wgmma"),
+       ("bfloat16", 256, 64, 64, [0, 0, 0], None, True, "wgmma"),
+       ("float16", 1, 8, 8, [1], None, False, "wgmma"),
+       ("bfloat16", 300, 130, 129, [100, 0, 150, 30], None, True, "mma.sync"),
+       ("bfloat16", 300, 136, 100, [100, 0, 150, 30], None, False, "mma.sync"),
+       ("float32", 300, 136, 200, [7, 250, 0, 40], None, True, "simt")]
+)
+# The race check of B17's engine route.
+GROUPED_UPDATE_REPEAT_CASE = ("bfloat16", 2048, 512, 1024, [900, 0, 1000, 48], None, True,
+                              "wgmma")
+GROUPED_UPDATE_REPEATS = 20
 # grouped_matmul's gradients on the card: (dtype, transpose_rhs, explicit
 # GemmConfig()), the last two the mixed case (bf16 operands, fp32 output
 # and cotangent).
@@ -3400,6 +3591,60 @@ def grouped_update_repeats(torch, gen):
         raise AssertionError("B17: two launches differ")
 
 
+def grouped_update_route_operands(torch, gen, case):
+    dt, m, k, n, gs, out, nan, _ = case
+    dtype = getattr(torch, dt)
+    lhs, g = signed(torch, (m, k), dtype, gen), signed(torch, (m, n), dtype, gen)
+    if nan:  # stale rows past the groups: no output may see them
+        lhs[min(sum(gs), m):] = float("nan")
+        g[min(sum(gs), m):] = float("nan")
+    sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    return lhs, g, sizes, getattr(torch, out) if out else dtype
+
+
+def grouped_update_route_case(torch, gen, case, route=None):
+    """One GROUPED_UPDATE_ROUTE_CASES case on the route it names (or on
+    ``route``, the override) against the plain version, the route checked;
+    the blocks of groups with no rows exactly zero, every output finite.
+    Returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import gmm
+
+    m, k, n, gs = case[1:5]
+    lhs, g, sizes, out_dtype = grouped_update_route_operands(torch, gen, case)
+    if route:
+        got = gmm._update_launch(lhs, g, sizes, m, k, n, len(gs), out_dtype, route)
+    else:
+        got = gmm.grouped_update_mxu(lhs, g, sizes, num_groups=len(gs), out_dtype=out_dtype)
+    if gmm.grouped_update_mxu.last_route != (route or case[-1]):
+        raise AssertionError(f"B17 {case}: route {gmm.grouped_update_mxu.last_route}")
+    ref = gmm.grouped_update_mxu_plain(lhs, g, sizes, num_groups=len(gs), out_dtype=out_dtype)
+    err = compare(torch, got, ref, quant_rtol(torch, got.dtype),
+                  f"B17 route {case} on {route or case[-1]}", scaled=True)[0]
+    ends = gmm.group_ends(sizes, m).tolist()
+    for grp, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)):
+        if hi <= lo and bool(got[grp].any()):
+            raise AssertionError(f"B17 {case}: empty group {grp}'s block is not zero")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"B17 {case}: an output is not finite")
+    return err
+
+
+def grouped_update_route_repeats(torch, gen):
+    """GROUPED_UPDATE_REPEAT_CASE launched GROUPED_UPDATE_REPEATS times on
+    the same operands: every launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.ops import gmm
+
+    case = GROUPED_UPDATE_REPEAT_CASE
+    lhs, g, sizes, out_dtype = grouped_update_route_operands(torch, gen, case)
+    kw = dict(num_groups=len(case[4]), out_dtype=out_dtype)
+    first = gmm.grouped_update_mxu(lhs, g, sizes, **kw)
+    if gmm.grouped_update_mxu.last_route != case[-1]:
+        raise AssertionError(f"B17 {case}: route {gmm.grouped_update_mxu.last_route}")
+    for i in range(GROUPED_UPDATE_REPEATS - 1):
+        if not torch.equal(first, gmm.grouped_update_mxu(lhs, g, sizes, **kw)):
+            raise AssertionError(f"B17: launch {i + 2} of {case} differs from the first")
+
+
 def grouped_grad_case(torch, gen, case):
     """One GROUPED_GRAD_CASES case: ``grouped_matmul``'s gradients on the
     card (B16 forward, B16 for dlhs, B17 for drhs) against plain autograd
@@ -3455,6 +3700,20 @@ def phase_grouped_update(torch):
         f"grouped_matmul gradients vs plain autograd, {len(GROUPED_GRAD_CASES)} cases "
         f"(transpose_rhs, bf16 / fp32, bf16 operands with an fp32 config): ok "
         f"(max abs err {worst_grad:.3e})")
+    worst = max(grouped_update_route_case(torch, gen, c) for c in GROUPED_UPDATE_ROUTE_CASES)
+    engine = [c for c in GROUPED_UPDATE_ROUTE_CASES if c[-1] == "wgmma"]
+    worst_old = max(grouped_update_route_case(torch, gen, c, "mma.sync") for c in engine)
+    grouped_update_route_repeats(torch, gen)
+    torch.cuda.synchronize()
+    routes = {}
+    for case in GROUPED_UPDATE_ROUTE_CASES:
+        routes[case[-1]] = routes.get(case[-1], 0) + 1
+    log(f"phase 19: B17 route cases, {len(GROUPED_UPDATE_ROUTE_CASES)} {routes} (spans off "
+        f"multiples of 64 and shorter than 64, empty groups exactly zero, NaN rows past the "
+        f"groups, routing past M, K / N off the tiles, fp16, fp32 outputs; unaligned K or N; "
+        f"fp32), each on its route: ok (max abs err {worst:.3e}); the {len(engine)} engine "
+        f"cases again on mma.sync: ok ({worst_old:.3e}); {GROUPED_UPDATE_REPEATS} launches of "
+        f"{GROUPED_UPDATE_REPEAT_CASE[:5]} on the engine: the same bits")
 
 
 # Phase 20's training run at SERVING's MoE width: 4096 tokens (B 4 x S
@@ -3577,31 +3836,47 @@ def phase_slice6(torch):
         raise AssertionError("MoE gradient outside its tolerance against the plain step")
     del got, want
 
-    # (b) the main path: 5 training steps, launch counts zeroed first.
+    # (b) the main path: 5 training steps, launch counts zeroed first, the
+    # route of every B17 launch recorded (both weight gradients: the rule
+    # gives the engine).
     reset_quant_counters()
     gmm.grouped_update_mxu.launches = 0
-    losses, worst = [], 0.0
-    for step in range(t["steps"]):
-        plain_loss = float(moe_plain_loss(torch, params, batch, cfg))
-        before = counts()
-        params, loss = no_sync(torch, lambda p=params: moe_train_step(
-            p, batch, cfg, lr=t["lr"]))
-        after = counts()
-        if (after[0] - before[0], after[1] - before[1]) != (3, 2):
-            raise AssertionError(f"train step {step}: B16 {after[0] - before[0]}, "
-                                 f"B17 {after[1] - before[1]} launches (want 3, 2)")
-        losses.append(float(loss))
-        worst = max(worst, abs(losses[-1] - plain_loss) / abs(plain_loss))
-        if not all(bool(torch.isfinite(p.float()).all()) for p in params.values()):
-            raise AssertionError(f"train step {step}: a parameter is not finite")
+    losses, worst, b17_routes = [], 0.0, []
+    launch_b17 = gmm._update_launch
+
+    def recorded(*args, **kw):
+        out = launch_b17(*args, **kw)
+        b17_routes.append(gmm.grouped_update_mxu.last_route)
+        return out
+
+    gmm._update_launch = recorded
+    try:
+        for step in range(t["steps"]):
+            plain_loss = float(moe_plain_loss(torch, params, batch, cfg))
+            before = counts()
+            params, loss = no_sync(torch, lambda p=params: moe_train_step(
+                p, batch, cfg, lr=t["lr"]))
+            after = counts()
+            if (after[0] - before[0], after[1] - before[1]) != (3, 2):
+                raise AssertionError(f"train step {step}: B16 {after[0] - before[0]}, "
+                                     f"B17 {after[1] - before[1]} launches (want 3, 2)")
+            losses.append(float(loss))
+            worst = max(worst, abs(losses[-1] - plain_loss) / abs(plain_loss))
+            if not all(bool(torch.isfinite(p.float()).all()) for p in params.values()):
+                raise AssertionError(f"train step {step}: a parameter is not finite")
+    finally:
+        gmm._update_launch = launch_b17
     launches = {"B16": counts()[0], "B17": counts()[1]}
+    if len(b17_routes) != launches["B17"] or set(b17_routes) != {"wgmma"}:
+        raise AssertionError(f"train steps: B17 routes {b17_routes}, the rule gives wgmma")
     # The step's last B16 launch is w2's dlhs (transpose_rhs flipped).
     dlhs_route = main_route(gmm.grouped_mxu, "train step dlhs", "wgmma")
     log(f"phase 20b: {t['steps']} moe_train_step steps (lr {t['lr']}): losses "
         + " ".join(f"{v:.6f}" for v in losses)
         + f"; worst rel err against the plain loss on the same params {worst:.2e}; "
         f"launch counts {launches} (3 B16 + 2 B17 a step); B16 route {fwd_route} "
-        f"forward, {dlhs_route} for w2's dlhs")
+        f"forward, {dlhs_route} for w2's dlhs; B17 routes {sorted(set(b17_routes))} "
+        f"({len(b17_routes)} launches)")
     if not (worst < 1e-2 and losses[-1] < losses[0]):
         raise AssertionError("MoE training: loss off the plain step's or not falling")
 
@@ -3666,42 +3941,57 @@ def phase_times6(torch):
     gen = torch.Generator(device="cuda").manual_seed(211)
     slots, d, ff, e = t["tokens"] * c["top_k"], c["d_model"], c["d_ff"], c["experts"]
     ids = torch.randint(0, e, (slots,), generator=gen, device="cuda")
-    sizes = torch.bincount(ids, minlength=e).to(torch.int32)
-    ends = torch.cumsum(sizes, 0).to(torch.int32)
-    host_ends = [0] + ends.tolist()
+    uniform = torch.bincount(ids, minlength=e).to(torch.int32)
+    # A skewed routing: 70% of the slots to one expert, the rest spread.
+    hot = int(0.7 * slots)
+    skewed = torch.tensor([hot] + [(slots - hot) // (e - 1)] * (e - 2)
+                          + [slots - hot - (slots - hot) // (e - 1) * (e - 2)],
+                          dtype=torch.int32, device="cuda")
     out = {}
-    for key, k, n in (("B17 w1 grad 8192 slots", d, ff), ("B17 w2 grad 8192 slots", ff, d)):
+    for key, k, n, sizes in (("B17 w1 grad 8192 slots", d, ff, uniform),
+                             ("B17 w2 grad 8192 slots", ff, d, uniform),
+                             ("B17 w1 grad 8192 slots skewed 70%", d, ff, skewed)):
+        ends = torch.cumsum(sizes, 0).to(torch.int32)
+        host_ends = [0] + ends.tolist()
         lhs = (torch.randn((slots, k), generator=gen, device="cuda") * 0.5).to(bf16)
         g = (torch.randn((slots, n), generator=gen, device="cuda") * 1e-3).to(bf16)
-        fn = lambda lhs=lhs, g=g: gmm.grouped_update_mxu(lhs, g, sizes, num_groups=e)  # noqa: E731
-        plain = lambda lhs=lhs, g=g: gmm.grouped_update_mxu_plain(  # noqa: E731
+        fns = {"kernel": lambda lhs=lhs, g=g, sizes=sizes: gmm.grouped_update_mxu(
+            lhs, g, sizes, num_groups=e)}
+        plain = lambda lhs=lhs, g=g, sizes=sizes: gmm.grouped_update_mxu_plain(  # noqa: E731
             lhs, g, sizes, num_groups=e)
-        lib_name, library = "per-expert torch.matmul loop", (
-            lambda lhs=lhs, g=g: torch.stack([lhs[a:b].T @ g[a:b] for a, b in
-                                              zip(host_ends[:-1], host_ends[1:])]))
+        got, ref = fns["kernel"](), plain()
+        err = compare(torch, got, ref, BF16_RTOL, f"timed {key}", scaled=True)[0]
+        route = gmm.grouped_update_mxu.last_route
+        other = "mma.sync" if route == "wgmma" else "wgmma"
+        fns[other] = lambda lhs=lhs, g=g, sizes=sizes, o=other: gmm._update_launch(
+            lhs, g, sizes, slots, k, n, e, bf16, o)
+        compare(torch, fns[other](), ref, BF16_RTOL, f"timed {key} {other}", scaled=True)
+        lib_name = "per-expert torch.matmul loop"
+        fns["library"] = (lambda lhs=lhs, g=g, host_ends=host_ends: torch.stack(
+            [lhs[a:b].T @ g[a:b] for a, b in zip(host_ends[:-1], host_ends[1:])]))
         if hasattr(torch, "_grouped_mm"):
             try:
                 lib_out = torch._grouped_mm(lhs.t(), g, offs=ends, out_dtype=bf16)
                 if tuple(lib_out.shape) != (e, k, n):
                     raise ValueError(f"shape {tuple(lib_out.shape)}")
-                lib_name, library = "torch._grouped_mm", (
-                    lambda lhs=lhs, g=g: torch._grouped_mm(lhs.t(), g, offs=ends,
-                                                           out_dtype=bf16))
+                lib_name = "torch._grouped_mm"
+                fns["library"] = (lambda lhs=lhs, g=g, ends=ends: torch._grouped_mm(
+                    lhs.t(), g, offs=ends, out_dtype=bf16))
             except Exception as exc:  # the yardstick only: the port never calls it
                 log(f"phase 21: torch._grouped_mm refused ({type(exc).__name__}: {exc})")
-        got, ref = fn(), plain()
-        err = compare(torch, got, ref, BF16_RTOL, f"timed {key}", scaled=True)[0]
-        compare(torch, library(), ref, BF16_RTOL, f"{key} {lib_name}", scaled=True)
-        ms = time_fn(fn, [()], iters=20) * 1e3
+        compare(torch, fns["library"](), ref, BF16_RTOL, f"{key} {lib_name}", scaled=True)
+        turns = time_turns(torch, fns)
         plain_ms = time_fn(plain, [()], iters=3, warmup=1) * 1e3
-        lib_ms = time_fn(library, [()], iters=20) * 1e3
         bound = grouped_update_bound(H100, k, n, slots, e, bf16)
-        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
-                        max_abs_err=err, bound=bound)
-        log(f"phase 21: {key} ({slots} x {k}) x ({slots} x {n}) -> ({e}, {k}, {n}) bf16: "
-            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms "
-            f"({bound[1]}), {lib_name} {lib_ms:.4f} ms; max abs err {err:.3e}")
-        del lhs, g, got, ref
+        out[key] = dict(ms=turns["kernel"], plain_ms=plain_ms, library_ms=turns["library"],
+                        library=lib_name, max_abs_err=err, bound=bound, route=route,
+                        other_route=other, other_ms=turns[other])
+        log(f"phase 21: {key} ({slots} x {k}) x ({slots} x {n}) -> ({e}, {k}, {n}) bf16, "
+            f"group sizes {sizes.tolist()}: {turns['kernel']:.4f} ms (route {route}; {other} "
+            f"{turns[other]:.4f} ms) vs plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms "
+            f"({bound[1]}), {lib_name} {turns['library']:.4f} ms (device time in turns); "
+            f"max abs err {err:.3e}")
+        del lhs, g, got, ref, fns
 
     # The training step end to end (each timed window ends in a sync).
     cfg = MoEConfig(d_model=d, d_ff=ff, num_experts=e, top_k=c["top_k"], dtype="bfloat16")
@@ -4111,16 +4401,20 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    spills, entry = [], ""
+    spills, serialised, entry = [], set(), ""
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "C7515" in ln:  # ptxas serialised the function's wgmma
+            serialised.add(ln.split("function '")[-1].rstrip("'"))
         elif "spill" in ln and not ln.strip().endswith(
                 "0 bytes spill stores, 0 bytes spill loads"):
             spills.append(f"{entry}: {ln.strip()}")
     log(f"phase 2: built and loaded {lib_path.name} in "
         f"{time.perf_counter() - t0:.1f} s; kernels with spills: {len(spills)}"
-        + "".join(f"\n  {x}" for x in spills))
+        + "".join(f"\n  {x}" for x in spills)
+        + f"\nphase 2: kernels whose wgmma ptxas serialised (C7515): {len(serialised)}"
+        + "".join(f"\n  {x}" for x in sorted(serialised)))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -4164,8 +4458,7 @@ def main() -> int:
         "B1 epilogue": H100.bound(2.0 * 8192 * 16384 * 4096, H100.peak_for("bfloat16"),
                                   (8192 * 4096 + 4096 * 16384 + 8192 * 16384
                                    + 16384) * bf16),
-        "B2": H100.bound(2.0 * 64 * 512 ** 3, H100.peak_for("bfloat16"),
-                         3 * 64 * 512 * 512 * bf16),
+        "B2": times["B2 64x512^3"]["bound"],
         "B2 row-softmax": H100.bound(2.0 * 32 * 1024 * 1024 * 128,
                                      H100.peak_for("bfloat16"),
                                      (2 * 32 * 1024 * 128 + 32 * 1024 * 1024) * bf16),
@@ -4185,10 +4478,9 @@ def main() -> int:
                times["B1 epilogue"], bounds["B1 epilogue"],
                times["B1 epilogue"]["library_ms"]),
         kernel("mxu_gemm batched (B2, plain and per-column epilogue)",
-               "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
+               "gemm_hls_tpu_torch/csrc/mxu_wgmma.cuh",
                "gemm_hls_tpu/ops/pallas_mxu.py:143", launches2["B2"],
-               times["B2 64x512^3"], bounds["B2"],
-               times["B2 64x512^3"]["plain_ms"]),  # the plain version is torch.bmm
+               times["B2 64x512^3"], bounds["B2"], times["B2 64x512^3"]["library_ms"]),
         kernel("mxu_gemm_row_softmax (B2, row-softmax epilogue)",
                "gemm_hls_tpu_torch/csrc/row_softmax.cu",
                "gemm_hls_tpu/ops/pallas_mxu.py:176", launches2["B2 row-softmax"],
@@ -4206,6 +4498,11 @@ def main() -> int:
                "gemm_hls_tpu/ops/pallas_ozaki.py:37", launches3["B5"], b5,
                bounds["B5"], b5["library_ms"]),
     ]
+    # B2: the route the main path's aligned bf16 calls take (the engine),
+    # the other one (csrc/mxu_gemm.cu's WMMA tile) in the same turns.
+    t = times["B2 64x512^3"]
+    kernels[2].update(kernel_route=t["route"], other_route=t["other_route"],
+                      other_ms=t["other_ms"], library_note="library_ms is torch.bmm")
     # Slice 4 at the causal training shape, (32, 1024, 128) bf16.
     for name, replaces in (
             ("flash_fwd", "gemm_hls_tpu/ops/pallas_flash.py:62,322,467"),
@@ -4255,13 +4552,19 @@ def main() -> int:
         if "route" in t:  # B16: the route the main path took, and the other one
             kernels[-1].update(kernel_route=t["route"], other_route=t["other_route"],
                                other_ms=t["other_ms"])
-    # Slice 6 at the training step's w1 gradient shape.
+    # Slice 6 at the training step's w1 gradient shape: the route the main
+    # path took (csrc/grouped_update_wgmma.cu), the other in the same turns,
+    # and w2's gradient and a skewed routing beside.
     t = times6["B17 w1 grad 8192 slots"]
     kernels.append(kernel(
         "grouped_update (B17, MoE w1 weight gradient 8192 slots x 2048 x 4096, "
-        "8 experts bf16)", "gemm_hls_tpu_torch/csrc/grouped_update.cu",
+        "8 experts bf16)", "gemm_hls_tpu_torch/csrc/grouped_update_wgmma.cu",
         "gemm_hls_tpu/ops/pallas_grouped.py:300", launches6["B17"], t, t["bound"],
         t["library_ms"]))
+    w2, skew = times6["B17 w2 grad 8192 slots"], times6["B17 w1 grad 8192 slots skewed 70%"]
+    kernels[-1].update(kernel_route=t["route"], other_route=t["other_route"],
+                       other_ms=t["other_ms"], w2_ms=w2["ms"], w2_library_ms=w2["library_ms"],
+                       skewed_ms=skew["ms"], skewed_library_ms=skew["library_ms"])
     kernels[-1]["library_note"] = f"library_ms is {t['library']}"
     # Slice 7 at bf16 8192^3, the ranks on one card.
     for key, name, source, replaces in (

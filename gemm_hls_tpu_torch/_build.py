@@ -123,11 +123,10 @@ def _declare(lib):
     gemm = [vp, vp, vp, i64, i32, i32, i32, i64, i64, i64, i64, i32, i32]
     lib.mxu_gemm.restype = i32
     lib.mxu_gemm.argtypes = gemm + [i32, i32, i32, i32, i32, vp, vp, i32, vp]
-    # B1 on the tile engine: (a, b, c, M, N, K, lda, ldb, ta, tb, in, out,
-    # ep, e0, e1, ep_code, stream)
+    # B1 / B2 on the tile engine: mxu_gemm's arguments without the vector
+    # flags (its operands are aligned by the route's rule).
     lib.mxu_wgmma.restype = i32
-    lib.mxu_wgmma.argtypes = [vp, vp, vp, i32, i32, i32, i64, i64, i32, i32,
-                              i32, i32, i32, vp, vp, i32, vp]
+    lib.mxu_wgmma.argtypes = gemm + [i32, i32, i32, vp, vp, i32, vp]
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     lib.semiring_gemm.restype = i32
@@ -152,7 +151,8 @@ def _declare(lib):
     for name, n_ptr, n_int in (("dequant_gemm", 5, 10), ("w8a8_quantize", 3, 5),
                                ("w8a8_gemm", 5, 8), ("grouped_gemm", 4, 9),
                                ("grouped_wgmma", 4, 7),
-                               ("grouped_update", 4, 8)):
+                               ("grouped_update", 4, 8),
+                               ("grouped_update_wgmma", 4, 6)):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]
     # The fused distributed GEMMs: (rank table of int64 pointers, int dims,

@@ -17,7 +17,11 @@
 //
 // Routes by element type: bf16 / fp16 -> tensor cores (mma.sync m16n8k16,
 // fp32 accumulators), a 128 x 128 output block by eight warps (64 x 32
-// each), chunks of 32 rows double-buffered by cp.async.  The contraction
+// each), chunks of 32 rows double-buffered by cp.async.  The bf16 / fp16
+// calls a TMA map can describe (16-byte bases, K and N whole 16-byte
+// units, at least one row) run on the tile engine instead
+// (csrc/grouped_update_wgmma.cu, ops/gmm.py::grouped_update_route): this
+// tile keeps rows that are not whole 16-byte units, and M = 0.  The contraction
 // runs over rows, so the lhs chunk lands as [row][k], which is A transposed:
 // ldmatrix.trans reads A's fragments from it, and gbar's chunk [row][n] is
 // the [k][n] form of B.  fp32 -> CUDA cores (IEEE fp32 FMA, no TF32) on
@@ -27,9 +31,9 @@
 // What bounds it on an H100: at serving_bench's prefill (8192 routed slots,
 // w1's gradient 2048 x 4096 for each of 8 experts, bf16) the tensor-core
 // rate, 2 x 8192 x 2048 x 4096 operations in 139 us at 989 TFLOP/s, against
-// 70 us for its 235 MB.  Left on the table: wgmma, TMA, and splitting one
-// long group's rows over several blocks (a second pass), which a skewed
-// routing needs to fill the card.
+// 70 us for its 235 MB.  Measured there (H100 80GB HBM3, 700 W,
+// chip_smoke.py) 0.780 ms while the MoE step ran here; the engine route's
+// times are in PERF.md section 6.
 #include "tile_mma.cuh"
 
 namespace gemm_hls {

@@ -14,8 +14,10 @@
 //     broadcast over the batch, so no example is copied.  The TPU kernel
 //     batched examples to amortise a per-grid-step latch; Hopper has none,
 //     so one 128x128 C tile of one example per block is the whole design.
-//     The row-wise (softmax) epilogue variant, which needs whole rows in a
-//     block, is csrc/row_softmax.cu.
+//     The batched calls a TMA map can describe run on the tile engine too
+//     (csrc/mxu_wgmma.cuh, its batch as the engine's steps).  The row-wise
+//     (softmax) epilogue variant, which needs whole rows in a block, is
+//     csrc/row_softmax.cu.
 // Same communication-avoiding schedule as the TPU kernels: one C tile stays
 // in fast memory (here: registers) while K streams through.  On Hopper each
 // 256-thread block owns one 128x128 C tile and loops over K itself; blocks
@@ -29,10 +31,10 @@
 //   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
 //                  (csrc/simt_gemm.cuh with the plus_times functor); this
 //                  meets the reference's "high"/"highest" precision.
-// The tensor-core tile here runs every batched call (B2), and the 2-D calls
+// The tensor-core tile here runs the calls, 2-D (B1) and batched (B2), that
 // the engine does not take: int8 with an operand that is not K-major (int8
-// wgmma reads nothing else), and any operand whose base or row pitch is not
-// a whole 16-byte unit.
+// wgmma reads nothing else), and any operand whose base, row pitch or batch
+// stride is not a whole 16-byte unit.
 // The epilogue (common.cuh) sees the fp32 accumulator before the output
 // cast; an int32 accumulator is widened to fp32 for it.
 //
@@ -59,7 +61,8 @@
 // registers, and stages C through shared memory one 16x16 fragment at a
 // time.  Measured (H100 80GB HBM3, 700 W, chip_smoke.py): 6.01 ms at bf16
 // 8192^3 while that shape ran here (the engine now takes it in 1.50 ms);
-// B2 at 64 x 512^3 0.152 ms against torch.bmm's 0.042.
+// B2 at 64 x 512^3 0.152 ms against torch.bmm's 0.042 while it ran here
+// (the engine's time: PERF.md section 6).
 #include <mma.h>
 
 #include <type_traits>

@@ -1,22 +1,28 @@
-// Kernel B1 on the tile engine (csrc/mxu_wgmma.cuh): the int8 kernel (both
-// operands K-major: A (M, K), B held as (N, K)) and the entry that takes
-// every type the engine route runs.
+// Kernels B1 and B2 on the tile engine (csrc/mxu_wgmma.cuh): the int8
+// kernel (both operands K-major: A (M, K), B held as (N, K)) and the entry
+// that takes every type the engine route runs.
 #include "mxu_wgmma.cuh"
 
 using namespace gemm_hls;
 
-// C (M, N) row-major = epilogue(op(A) . op(B)) in ``out_code``'s dtype.
-// lda / ldb: the operands' row pitch in elements (16-byte multiples, bases
-// 16-byte aligned: the tensor maps' rule); ta: A held (K, M); tb: B held
-// (N, K).  in_code bf16 / fp16 take every layout, int8 only ta = 0, tb = 1.
-// ep, e0, e1, ep_code: as mxu_gemm's.  Returns 0, a CUDA error code, -1 for
-// a type, layout or epilogue the route does not take, or -2 for a tensor
-// map cuTensorMapEncodeTiled refused.
-extern "C" int mxu_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int64_t lda,
-                         int64_t ldb, int ta, int tb, int in_code, int out_code, int ep,
-                         const void* e0, const void* e1, int ep_code, void* stream) {
+// C (batch, M, N) row-major = epilogue(op(A[z]) . op(B[z])) in
+// ``out_code``'s dtype: mxu_gemm's arguments.  lda / ldb: the operands' row
+// pitch, sa / sb: their batch stride (0: a 2-D operand broadcast over the
+// batch, read through a 2-D map), in elements, each a 16-byte multiple with
+// bases 16-byte aligned
+// (the tensor maps' rule); ta: A held (K, M); tb: B held (N, K).  in_code
+// bf16 / fp16 take every layout, int8 only ta = 0, tb = 1.  ep, e0, e1,
+// ep_code: as mxu_gemm's.  Returns 0, a CUDA error code, -1 for a type,
+// layout or epilogue the route does not take, or -2 for a tensor map
+// cuTensorMapEncodeTiled refused.
+extern "C" int mxu_wgmma(const void* a, const void* b, void* c, int64_t batch, int M, int N, int K,
+                         int64_t lda, int64_t ldb, int64_t sa, int64_t sb, int ta, int tb,
+                         int in_code, int out_code, int ep, const void* e0, const void* e1,
+                         int ep_code, void* stream) {
   if (ep < 0 || ep >= kEpKinds || M < 1 || N < 1 || K < 1) return kUnsupported;
-  const MxuWgCall call{a, b, c, M, N, K, lda, ldb, ta, tb, out_code, EpArgs{e0, e1, ep_code, ep}};
+  if (batch < 1 || batch > INT_MAX) return kUnsupported;
+  const MxuWgCall call{a,  b,  c,  static_cast<int>(batch), M, N, K, lda, ldb, sa, sb,
+                       ta, tb, out_code, EpArgs{e0, e1, ep_code, ep}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (in_code) {
     case kBF16: return launch_mxu_wg_bf16(call, st);

@@ -1,15 +1,25 @@
-// Kernel B1 on the Hopper tile engine (csrc/wgmma_tile.cuh): the 2-D dense
-// GEMM C (M, N) = epilogue(op(A) . op(B)) for bf16 / fp16 inputs with fp32
-// sums, and int8 inputs with int32 sums where both operands are K-major.
-// The counterpart of gemm_hls_tpu/ops/pallas_mxu.py::_kernel and its fused
-// per-column epilogue (:69, :103); the shapes it does not take stay on
-// csrc/mxu_gemm.cu (see there).
+// Kernels B1 and B2 on the Hopper tile engine (csrc/wgmma_tile.cuh): the
+// dense GEMM C[z] (M, N) = epilogue(op(A[z]) . op(B[z])) for bf16 / fp16
+// inputs with fp32 sums, and int8 inputs with int32 sums where both
+// operands are K-major; one example (B1) or a batch of them (B2).  The
+// counterpart of gemm_hls_tpu/ops/pallas_mxu.py::_kernel and its fused
+// per-column epilogue (:69, :103), and of ::_batched_kernel (:143, called
+// at :298 with the epilogue and :328 without); the shapes it does not take
+// stay on csrc/mxu_gemm.cu (see there), the row softmax on
+// csrc/row_softmax.cu.
 //
 // One persistent block a SM (the engine's 384 threads: two consumer
 // warpgroups own 64 rows each of a 128 x 256 tile, one producer thread
-// keeps a 4-stage TMA ring full) walks the tiles in the engine's grouped
-// order.  The operands are read where the caller holds them, through
-// their row pitch, so neither a transpose nor a strided view is copied: a
+// keeps a 4-stage TMA ring full) walks the (example, tile) pairs, the
+// tiles of an example in the engine's grouped order.  A batch is the
+// engine's steps: step z reads a 3-D operand through a 3-D map (contiguous
+// axis, outer axis, batch) at coordinate z, so TMA zero-fills each
+// example's own K and M / N edges (a flattened (B K, .) map would read the
+// next example's rows into an MN-major operand's K tail), and a 2-D
+// operand broadcast over the batch through a 2-D map every step reads
+// alike; C[z] starts z M N elements in.  The operands are read where the
+// caller holds them, through their row pitch and batch stride, so neither
+// a transpose nor a strided view is copied: a
 // K-major operand (A (M, K), or B held as (N, K)) by 128-byte K boxes, an
 // MN-major one (A held as (K, M), or the main path's row-major B (K, N))
 // by 64-value boxes that wgmma reads through its transpose bit.  TMA zero-fills M, N and K
@@ -24,11 +34,13 @@
 // staged in shared memory, once a tile.
 //
 // What bounds it on an H100: the tensor-core rate (bf16 8192^3: 1.1e12
-// FLOP at 989e12 FLOP/s, 1.11 ms).  Measured (H100 80GB HBM3, 700 W,
-// chip_smoke.py): 1.499 ms at bf16 8192^3 (733 TFLOP/s) against
-// torch.matmul's 1.514; with bias + ReLU at 8192 x 4096 . 4096 x 16384,
-// 1.620 ms against torch._addmm_activation's 1.499 (the store does not
-// overlap the next tile's wgmma).
+// FLOP at 989e12 FLOP/s, 1.11 ms); B2 at 64 x 512^3 the bytes (100 MB of
+// operands and output, 30 us at 3.35 TB/s, against 17 us of products).
+// Measured (H100 80GB HBM3, 700 W, chip_smoke.py): 1.499 ms at bf16
+// 8192^3 (733 TFLOP/s) against torch.matmul's 1.514; with bias + ReLU at
+// 8192 x 4096 . 4096 x 16384, 1.620 ms against torch._addmm_activation's
+// 1.499 (the store does not overlap the next tile's wgmma).  B2's times:
+// PERF.md section 6.
 #pragma once
 
 #include <type_traits>
@@ -182,10 +194,10 @@ constexpr int kMxuWgSmem = kWgSmem + 2 * kEpStage * static_cast<int>(sizeof(floa
 struct MxuWgArgs {
   CUtensorMap ma, mb;  // A and B as the caller holds them (launch parameters)
   void* c;
-  int64_t ldc;
+  int64_t ldc, c_step;  // C's row pitch (elements); bytes from C[z] to C[z + 1]
   int out_code;
   EpArgs ep;
-  int M, N, K;
+  int M, N, K, batch, batch_maps;
   long long spin;
 };
 
@@ -199,44 +211,72 @@ __global__ void __launch_bounds__(kWgThreads, 1) mxu_wg_kernel(const __grid_cons
   if (threadIdx.x == 0) wg_init_bars(bars);
   __syncthreads();
   const WgJob job{{&g.ma, &g.ma}, {&g.mb, &g.mb}, {nullptr, nullptr}, 0, 0, nullptr, nullptr,
-                  nullptr, g.spin, g.M, g.N, g.K, 1, static_cast<int>(gridDim.x),
-                  static_cast<int>(blockIdx.x), 1};
-  const EpOut o{g.c, g.ldc, g.out_code, g.ep, cols};
-  wg_compute<T, MnA, MnB>(job, smem, bars, [&](int) { return o; });
+                  nullptr, g.spin, g.M, g.N, g.K, g.batch, static_cast<int>(gridDim.x),
+                  static_cast<int>(blockIdx.x), 1, g.batch_maps};
+  wg_compute<T, MnA, MnB>(job, smem, bars, [&](int z) {
+    return EpOut{static_cast<char*>(g.c) + z * g.c_step, g.ldc, g.out_code, g.ep, cols};
+  });
 }
 
-// B1's operands: a / b at row pitch lda / ldb (elements), ta: A held
-// (K, M), tb: B held (N, K).
+// B1's and B2's operands: a / b at row pitch lda / ldb and batch stride
+// sa / sb (elements; 0: a 2-D operand broadcast over the batch, or a batch
+// of one), ta: A held (K, M), tb: B held (N, K); C (batch, M, N)
+// row-major.
 struct MxuWgCall {
   const void* a;
   const void* b;
   void* c;
-  int M, N, K;
-  int64_t lda, ldb;
+  int batch, M, N, K;
+  int64_t lda, ldb, sa, sb;
   int ta, tb, out_code;
   EpArgs ep;
 };
 
-// One persistent block a SM, at most one a tile.  Returns 0, a CUDA
-// error, kUnsupported, or kTmaEncodeFailed.
+// The map of one operand: MN-major (mn values contiguous, k rows) or
+// K-major (rows of k, box_rows of them a box); 3-D over ``batch`` examples
+// ``bs`` elements apart where bs != 0, else 2-D.
+inline bool encode_operand(CUtensorMap* map, const void* base, bool mn_major, int rows, int k,
+                           int64_t ld, int64_t bs, int batch, int esize, bool f16, int box_rows) {
+  if (!bs) {
+    return mn_major ? encode_mnmajor(map, base, k, rows, ld, f16)
+                    : encode_kmajor(map, base, rows, k, esize, box_rows, ld, f16);
+  }
+  const int64_t strides[2] = {ld * esize, bs * esize};
+  if (mn_major) {
+    const int64_t dims[3] = {rows, k, batch};
+    const int box[3] = {kWgRowBytes / 2, WgType<__nv_bfloat16>::BK, 1};
+    return encode_nd(map, base, 3, dims, strides, box, 2, f16);
+  }
+  const int64_t dims[3] = {k, rows, batch};
+  const int box[3] = {kWgRowBytes / esize, box_rows, 1};
+  return encode_nd(map, base, 3, dims, strides, box, esize, f16);
+}
+
+constexpr int out_bytes(int code) { return code == kF32 || code == kI32 ? 4 : code == kI8 ? 1 : 2; }
+
+// One persistent block a SM, at most one an (example, tile) pair.  Returns
+// 0, a CUDA error, kUnsupported, or kTmaEncodeFailed.
 template <typename T, bool MnA, bool MnB>
 int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
   constexpr int esize = sizeof(T);
   constexpr bool f16 = std::is_same<T, __half>::value;
+  // A batch stride of 0 is a 2-D map: no tensor map relies on a stride of 0.
   MxuWgArgs g{};
-  const bool ok =
-      (MnA ? encode_mnmajor(&g.ma, call.a, call.K, call.M, call.lda, f16)
-           : encode_kmajor(&g.ma, call.a, call.M, call.K, esize, kWgBM, call.lda, f16)) &&
-      (MnB ? encode_mnmajor(&g.mb, call.b, call.K, call.N, call.ldb, f16)
-           : encode_kmajor(&g.mb, call.b, call.N, call.K, esize, kWgBN, call.ldb, f16));
+  const bool ok = encode_operand(&g.ma, call.a, MnA, call.M, call.K, call.lda, call.sa, call.batch,
+                                 esize, f16, kWgBM) &&
+                  encode_operand(&g.mb, call.b, MnB, call.N, call.K, call.ldb, call.sb, call.batch,
+                                 esize, f16, kWgBN);
   if (!ok) return kTmaEncodeFailed;
   g.c = call.c;
   g.ldc = call.N;
+  g.c_step = static_cast<int64_t>(call.M) * call.N * out_bytes(call.out_code);
   g.out_code = call.out_code;
   g.ep = call.ep;
   g.M = call.M;
   g.N = call.N;
   g.K = call.K;
+  g.batch = call.batch;
+  g.batch_maps = (call.sa ? 1 : 0) | (call.sb ? 2 : 0);
   g.spin = spin_cycles(10000);  // a stage wait is microseconds; 10 s means a lost load
   auto kern = mxu_wg_kernel<T, MnA, MnB>;
   static const int attr = static_cast<int>(
@@ -246,10 +286,10 @@ int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
   int err = cudaGetDevice(&dev);
   if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err) return err;
-  const int64_t tiles = static_cast<int64_t>((call.M + kWgBM - 1) / kWgBM) *
+  const int64_t items = static_cast<int64_t>(call.batch) * ((call.M + kWgBM - 1) / kWgBM) *
                         ((call.N + kWgBN - 1) / kWgBN);
-  if (tiles > INT_MAX) return kUnsupported;
-  kern<<<static_cast<unsigned>(tiles < sms ? tiles : sms), kWgThreads, kMxuWgSmem, st>>>(g);
+  if (items > INT_MAX) return kUnsupported;
+  kern<<<static_cast<unsigned>(items < sms ? items : sms), kWgThreads, kMxuWgSmem, st>>>(g);
   return last_error();
 }
 

@@ -4,14 +4,18 @@
 //   * the fused distributed GEMMs (csrc/ring_gemm.cu, B18;
 //     csrc/cannon_gemm.cu, B19): a rank's steps, each gated on recv flags
 //     and acknowledged through done[] (and Cannon's per-tile flags);
-//   * the dense GEMM B1 (csrc/mxu_wgmma.cuh): one step, no flags (a WgJob
-//     with null recv / done / tile_flags; the producer and the consumers
-//     test them once a step, outside the K loop), its operands K-major or
-//     MN-major as the caller holds them, the epilogue applied at the store.
+//   * the dense GEMM B1 and the batched GEMM B2 (csrc/mxu_wgmma.cuh): no
+//     flags (a WgJob with null recv / done / tile_flags; the producer and
+//     the consumers test them once a step, outside the K loop), one step
+//     for B1 and one step an example for B2 (a 3-D operand is read through
+//     a 3-D map at the step's batch coordinate, a broadcast 2-D one
+//     through a 2-D map), its operands K-major or MN-major as the caller
+//     holds them, the epilogue applied at the store.
 // The Ozaki slice GEMM B5 (csrc/int8_slices.cu) keeps its own walk over
 // (K block, diagonal, slice pair) on the same primitives; the grouped GEMM
-// B16 (csrc/grouped_wgmma.cu) its walk over (group, M tile, N tile) jobs
-// on the same block, stages and products; the flash forward B6
+// B16 (csrc/grouped_wgmma.cu) and its weight gradient B17
+// (csrc/grouped_update_wgmma.cu) their walks over (group, tile) jobs on the
+// same block, stages and products; the flash forward B6
 // (csrc/flash_wgmma.cu) its own block on the TMA loads, the barriers and
 // the descriptors, with the attention products' wgmma forms.
 //
@@ -57,7 +61,9 @@
 // step's warpgroup waits for both halves before it reads.  B1 is one step
 // over persistent blocks, one a SM, so the order of tile_origin (groups of
 // 8 tile rows) keeps a wave's A and B panels in the L2, and a tile's store
-// overlaps the producer's loads of the next tile.
+// overlaps the producer's loads of the next tile.  B2 is one step an
+// example: a wave takes the tiles of a few neighbouring examples, and a
+// batch past gridDim's limits needs no chunking.
 //
 // No flag wait or __syncthreads() follows the role split: a barrier over
 // the whole block there would deadlock against the producer's loop.  The
@@ -124,9 +130,10 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// The 3-D and 4-D loads: the grouped GEMM's experts (group as the last
-// coordinate, csrc/grouped_wgmma.cu) and the flash forward's (D, H, S,
-// batch) sequences (csrc/flash_wgmma.cu).
+// The 3-D and 4-D loads: the batched GEMM's examples and the grouped
+// GEMM's experts (the example or group as the last coordinate,
+// csrc/mxu_wgmma.cuh, csrc/grouped_wgmma.cu) and the flash forward's (D, H,
+// S, batch) sequences (csrc/flash_wgmma.cu).
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, uint64_t* bar) {
   asm volatile(
@@ -508,8 +515,8 @@ __device__ __forceinline__ bool wg_reads_sum(const TileOut& o) { return o.add !=
 // One rank's compute work: ``steps`` products of (M, K) . (K, N), step s
 // reading its operands through map_a[s % 2] / map_b[s % 2] once
 // recv[0][s] and recv[1][s] reach recv_first (s = 0) or recv_next.  A job
-// without a ring (B1) has null recv, done and tile_flags, and its maps in
-// the launch parameters (maps_in_params: no tensormap acquire).
+// without a ring (B1, B2) has null recv, done and tile_flags, and its maps
+// in the launch parameters (maps_in_params: no tensormap acquire).
 struct WgJob {
   const CUtensorMap* map_a[2];
   const CUtensorMap* map_b[2];
@@ -522,28 +529,38 @@ struct WgJob {
   int M, N, K, steps;
   int n_comp, cb;  // the rank's compute blocks, this block's index among them
   int maps_in_params;  // else they sit in a device buffer the host wrote before the launch
+  // Bit 0 / 1: A / B is a 3-D map read at batch coordinate s (B2's
+  // examples); else a 2-D map every step reads alike.
+  int batch_maps = 0;
 };
+
+// A box at (c0, c1) of a 2-D map, or of example z of a 3-D one (z >= 0).
+__device__ __forceinline__ void tma_load_z(void* dst, const CUtensorMap* map, int c0, int c1, int z,
+                                           uint64_t* bar) {
+  if (z >= 0) tma_load_3d(dst, map, c0, c1, z, bar);
+  else tma_load_2d(dst, map, c0, c1, bar);
+}
 
 // One stage of K-slab kt of the tile at (m0, n0): A's 128 rows and B's
 // 256, one box each where the operand is K-major, else 2 / 4 MN-major
-// boxes of kWgMnBox.
+// boxes of kWgMnBox; za / zb: the example of a 3-D map, or -1.
 template <typename T, bool MnA, bool MnB>
 __device__ __forceinline__ void wg_load_stage(unsigned char* st, const CUtensorMap* ma,
                                               const CUtensorMap* mb, int kt, int m0, int n0,
-                                              uint64_t* bar) {
+                                              int za, int zb, uint64_t* bar) {
   constexpr int BK = WgType<T>::BK;
   if constexpr (MnA) {
 #pragma unroll
-    for (int h = 0; h < kWgBM / 64; ++h) tma_load_2d(st + h * kWgMnBox, ma, m0 + 64 * h, kt * BK, bar);
+    for (int h = 0; h < kWgBM / 64; ++h) tma_load_z(st + h * kWgMnBox, ma, m0 + 64 * h, kt * BK, za, bar);
   } else {
-    tma_load_2d(st, ma, kt * BK, m0, bar);
+    tma_load_z(st, ma, kt * BK, m0, za, bar);
   }
   if constexpr (MnB) {
 #pragma unroll
     for (int h = 0; h < kWgBN / 64; ++h)
-      tma_load_2d(st + kWgTileA + h * kWgMnBox, mb, n0 + 64 * h, kt * BK, bar);
+      tma_load_z(st + kWgTileA + h * kWgMnBox, mb, n0 + 64 * h, kt * BK, zb, bar);
   } else {
-    tma_load_2d(st + kWgTileA, mb, kt * BK, n0, bar);
+    tma_load_z(st + kWgTileA, mb, kt * BK, n0, zb, bar);
   }
 }
 
@@ -580,10 +597,12 @@ __device__ void wg_produce(const WgJob& j, unsigned char* smem, WgBars* bars, in
     tile_origin(t, tiles_m, tiles_n, kWgBM, kWgBN, m0, n0);
     const CUtensorMap* ma = j.map_a[s & 1];
     const CUtensorMap* mb = j.map_b[s & 1];
+    const int za = j.batch_maps & 1 ? s : -1, zb = j.batch_maps & 2 ? s : -1;
     for (int kt = 0; kt < ksteps; ++kt) {
       mbar_wait(&bars->empty[stage], phase ^ 1, j.spin);
       mbar_expect_tx(&bars->full[stage], kWgStage);
-      wg_load_stage<T, MnA, MnB>(smem + stage * kWgStage, ma, mb, kt, m0, n0, &bars->full[stage]);
+      wg_load_stage<T, MnA, MnB>(smem + stage * kWgStage, ma, mb, kt, m0, n0, za, zb,
+                                 &bars->full[stage]);
       if (++stage == kWgStages) {
         stage = 0;
         phase ^= 1;

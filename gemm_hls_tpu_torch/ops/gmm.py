@@ -15,8 +15,9 @@ ROADMAP C2 notes where the JAX schedule departs from it).
 Counterpart of ``pallas_grouped.py::grouped_update_mxu`` (B17, the
 gradient of the experts): out[g] = lhs[rows(g)]^T . gbar[rows(g)], (M, K)
 and (M, N) in, (G, K, N) out, over the same clamped row spans; a group
-with no rows gets a zero block, and rows outside every span are never
-read (``csrc/grouped_update.cu``).
+with no rows gets a zero block, and rows outside every span reach no
+output (``csrc/grouped_update_wgmma.cu`` or ``csrc/grouped_update.cu`` by
+:func:`grouped_update_route`).
 
 The kernels read the group ends on the card: the wrappers never move the
 routing to the host (no ``.item()``, no ``.tolist()``), so a MoE step
@@ -68,7 +69,8 @@ def _kernel_operands(what, a, b, group_sizes, interpret):
 
 def _vec(t: torch.Tensor, row: int) -> int:
     """1 if ``t``'s rows of ``row`` elements are whole 16-byte vectors at a
-    16-byte aligned base (the tensor-core routes' cp.async loads)."""
+    16-byte aligned base (the mma.sync routes' cp.async loads, and what the
+    engine routes' TMA maps describe)."""
     return int(t.data_ptr() % 16 == 0 and row * t.element_size() % 16 == 0)
 
 
@@ -84,6 +86,21 @@ def grouped_route(dtype, aligned: bool) -> str:
     (PERF.md §6).  Chosen by dtype and alignment, never by the group
     sizes (they live on the card), and never as a fallback: a kernel that
     fails to build or launch raises."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if aligned else "mma.sync"
+
+
+def grouped_update_route(dtype, aligned: bool) -> str:
+    """The kernel a B17 launch takes: ``"wgmma"``
+    (``csrc/grouped_update_wgmma.cu``: the Hopper tile engine, TMA and
+    warp-specialised wgmma, one persistent block a SM) for bf16 / fp16
+    whose operands are ``aligned`` (16-byte bases, K and N whole 16-byte
+    units, at least one row: what a TMA map describes); ``"mma.sync"``
+    (``csrc/grouped_update.cu``'s tensor-core blocks) for the other bf16 /
+    fp16 calls; ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  Chosen
+    by dtype and alignment, never by the group sizes (they live on the
+    card), and never as a fallback."""
     if dtype == torch.float32:
         return "simt"
     return "wgmma" if aligned else "mma.sync"
@@ -193,9 +210,11 @@ def grouped_update_mxu(lhs, g, group_sizes, *, num_groups: int,
 
     The gradient of ``grouped_mxu``'s rhs.  ``group_sizes`` (G,) int
     partitions the rows as in ``grouped_mxu``; groups with no rows get
-    zero blocks, and rows outside every group are never read (a NaN there
-    reaches no output).  The output type is ``out_dtype`` (default: the
-    promoted input type); a mixed pair is promoted (exactly) first.
+    zero blocks, and rows outside every group reach no output (a NaN there
+    neither).  The output type is ``out_dtype`` (default: the promoted
+    input type); a mixed pair is promoted (exactly) first.  The kernel is
+    :func:`grouped_update_route`'s, recorded as
+    ``grouped_update_mxu.last_route``.
     """
     m, k, n = _check_update(lhs, g, group_sizes, num_groups)
     out_dtype = out_dtype or torch.promote_types(lhs.dtype, g.dtype)
@@ -205,24 +224,39 @@ def grouped_update_mxu(lhs, g, group_sizes, *, num_groups: int,
                                         out_dtype=out_dtype)
     lhs, g = _kernel_operands("grouped_update_mxu", lhs, g, group_sizes,
                               interpret)
+    return _update_launch(lhs, g, group_sizes, m, k, n, num_groups, out_dtype)
+
+
+def _update_launch(lhs, g, group_sizes, m, k, n, num_groups, out_dtype,
+                   route=None):
+    """B17 on CUDA operands of one type, contiguous:
+    ``grouped_update_route``'s kernel, or ``route`` where a comparison
+    names one."""
     out = torch.empty((num_groups, k, n), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
         return out
+    vec_a, vec_b = _vec(lhs, k), _vec(g, n)
+    route = route or grouped_update_route(lhs.dtype, bool(m and vec_a and vec_b))
     ends = group_ends(group_sizes, m)
     lib = _build.library()
+    ptrs = (lhs.data_ptr(), g.data_ptr(), ends.data_ptr(), out.data_ptr())
+    codes = (_build.dtype_code(lhs.dtype), _build.dtype_code(out_dtype))
     with torch.cuda.device(lhs.device):
-        rc = lib.grouped_update(
-            lhs.data_ptr(), g.data_ptr(), ends.data_ptr(), out.data_ptr(),
-            m, k, n, num_groups, _build.dtype_code(lhs.dtype),
-            _build.dtype_code(out_dtype), _vec(lhs, k), _vec(g, n),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            rc = lib.grouped_update_wgmma(*ptrs, m, k, n, num_groups, *codes, stream)
+        else:
+            rc = lib.grouped_update(*ptrs, m, k, n, num_groups, *codes, vec_a,
+                                    vec_b, stream)
     _build.check(rc, "grouped_update_mxu")
     grouped_update_mxu.launches += 1
+    grouped_update_mxu.last_route = route
     return out
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted), and the route of B16's last launch.
+# counted), and the route of B16's and of B17's last launch.
 grouped_mxu.launches = 0
 grouped_mxu.last_route = None
 grouped_update_mxu.launches = 0
+grouped_update_mxu.last_route = None

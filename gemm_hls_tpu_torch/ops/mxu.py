@@ -1,6 +1,6 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
-(``csrc/mxu_wgmma.cu``, ``csrc/mxu_gemm.cu``, ``csrc/row_softmax.cu``) and
-their plain PyTorch version.
+(``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``,
+``csrc/row_softmax.cu``) and their plain PyTorch version.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
@@ -69,8 +69,9 @@ def _row_major(x: torch.Tensor) -> torch.Tensor:
 
 def _strides(x):
     """(row pitch, batch stride) in elements; a 2-D operand's batch stride
-    is 0 (broadcast)."""
-    return x.stride(-2), (x.stride(0) if x.ndim == 3 else 0)
+    is 0 (broadcast), and so is a batch of one's (its stride is never
+    stepped)."""
+    return x.stride(-2), (x.stride(0) if x.ndim == 3 and x.shape[0] > 1 else 0)
 
 
 def _vec_ok(x) -> int:
@@ -80,21 +81,22 @@ def _vec_ok(x) -> int:
                and all(s % vec == 0 for s in _strides(x)))
 
 
-def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool,
-              batched: bool = False) -> str:
-    """The kernel a B1 / B2 launch takes: ``"wgmma"`` (the Hopper tile
-    engine, ``csrc/mxu_wgmma.cu``: TMA and warp-specialised wgmma) for a
-    2-D call of bf16 or fp16, or of int8 with both operands K-major (A
+def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str:
+    """The kernel a B1 or B2 launch takes (one rule for both, 2-D and
+    batched): ``"wgmma"`` (the Hopper tile engine, ``csrc/mxu_wgmma.cu``:
+    TMA and warp-specialised wgmma, a batch walked as the engine's steps)
+    for bf16 or fp16 in any layout, or int8 with both operands K-major (A
     (M, K), B held (N, K): int8 wgmma reads nothing else), whose operands
-    are ``aligned`` (16-byte bases, row pitches whole 16-byte units: what a
-    TMA map describes); ``"wmma"`` (``csrc/mxu_gemm.cu``'s tensor-core
-    tile) for the other bf16 / fp16 / int8 calls and every batched (B2)
-    one; ``"simt"`` (IEEE fp32, wrapping int32, on the CUDA cores) for
-    fp32 and int32.  Chosen by shape, never as a fallback: a kernel that
-    fails to build or launch raises."""
+    are ``aligned`` (16-byte bases, row pitches and batch strides whole
+    16-byte units: what a TMA map describes); ``"wmma"``
+    (``csrc/mxu_gemm.cu``'s tensor-core tile) for the other bf16 / fp16 /
+    int8 calls; ``"simt"`` (IEEE fp32, wrapping int32, on the CUDA cores)
+    for fp32 and int32.  B2's row softmax has a kernel of its own
+    (``csrc/row_softmax.cu``).  Chosen by shape, never as a fallback: a
+    kernel that fails to build or launch raises."""
     if dtype in (torch.float32, torch.int32):
         return "simt"
-    if batched or not aligned:
+    if not aligned:
         return "wmma"
     if dtype in (torch.bfloat16, torch.float16):
         return "wgmma"
@@ -145,8 +147,9 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     return out.to(cfg.tout_dtype)
 
 
-def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what):
-    """Launch B1 / B2 on CUDA operands; returns (bsz, M, N)."""
+def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
+    """Launch B1 / B2 on CUDA operands: :func:`mxu_route`'s kernel, or
+    ``route`` where a comparison names one; returns (bsz, M, N)."""
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype != b.dtype:
@@ -183,8 +186,7 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what):
     a, b = _row_major(a), _row_major(b)
     (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     vec_a, vec_b = _vec_ok(a), _vec_ok(b)
-    route = mxu_route(a.dtype, ta, tb, bool(vec_a and vec_b),
-                      batched=what != "kernel B1")
+    route = route or mxu_route(a.dtype, ta, tb, bool(vec_a and vec_b))
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     ops, ep_dt = _ep_operands(eps, n, a.device)
     ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
@@ -193,19 +195,17 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, n, k,
-                lda, ldb, sa, sb, int(ta), int(tb), vec_a, vec_b, *codes)
+                lda, ldb, sa, sb, int(ta), int(tb))
+        ep_args = (code, *ptrs, _build.dtype_code(ep_dt), stream)
         if rows:
-            rc = lib.mxu_gemm_row_softmax(*args, stream)
+            rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
         elif route == "wgmma":
-            rc = lib.mxu_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-                               n, k, lda, ldb, int(ta), int(tb), *codes, code,
-                               *ptrs, _build.dtype_code(ep_dt), stream)
+            rc = lib.mxu_wgmma(*args, *codes, *ep_args)
         else:
-            rc = lib.mxu_gemm(*args, code, *ptrs, _build.dtype_code(ep_dt),
-                              stream)
+            rc = lib.mxu_gemm(*args, vec_a, vec_b, *codes, *ep_args)
     _build.check(rc, what)
-    if what == "kernel B1":
-        mxu_matmul.last_route = route
+    if not rows:
+        (mxu_matmul if what == "kernel B1" else mxu_matmul_batched).last_route = route
     return out
 
 
@@ -240,15 +240,18 @@ def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
 
 def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
-                       transpose_b=False, epilogue: Optional[Epilogue] = None):
+                       transpose_b=False, epilogue: Optional[Epilogue] = None,
+                       route: Optional[str] = None):
     """C (B, M, N) = epilogue(op(A[z]) . op(B[z])) in ``cfg.out_dtype``
     (kernel B2).
 
     a: (B, M, K), or (B, K, M) with ``transpose_a``; b: (B, K, N), or
     (B, N, K) with ``transpose_b``.  One of them may be 2-D: it is read
-    through a batch stride of 0, never copied per example.  A per-column
-    epilogue runs at the store of the tile kernel; the row softmax runs on
-    B2's row-softmax variant (rows of at most ``ROW_SOFTMAX_MAX_N``).
+    for every example, never copied per example.  A per-column epilogue
+    runs at the store of the tile kernel, :func:`mxu_route`'s (recorded as
+    ``mxu_matmul_batched.last_route``; ``route`` names another for a
+    comparison); the row softmax runs on B2's row-softmax variant (rows of
+    at most ``ROW_SOFTMAX_MAX_N``).
     """
     bsz, m, n, k = batched_dims(a, b, transpose_a, transpose_b)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -256,7 +259,7 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
                                 transpose_a=transpose_a,
                                 transpose_b=transpose_b, epilogue=epilogue)
     out = _launch(a, b, ep_operands, bsz, m, n, k, cfg, transpose_a,
-                  transpose_b, epilogue, "kernel B2")
+                  transpose_b, epilogue, "kernel B2", route)
     if epilogue is not None and epilogue.rows:
         mxu_matmul_batched.row_softmax_launches += 1
     else:
@@ -266,10 +269,11 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
 # Kernel launches since the counts were last reset (plain calls not
 # counted): B1 without / with a per-column epilogue; B2 plain or with a
-# per-column epilogue; B2's row-softmax variant.  And the route of B1's
-# last launch.
+# per-column epilogue; B2's row-softmax variant.  And the route of B1's and
+# of B2's last launch (the row softmax has one kernel).
 mxu_matmul.launches = 0
 mxu_matmul.last_route = None
 mxu_matmul.epilogue_launches = 0
 mxu_matmul_batched.launches = 0
+mxu_matmul_batched.last_route = None
 mxu_matmul_batched.row_softmax_launches = 0

@@ -88,6 +88,67 @@ def test_batched_bf16(out, rtol):
     np.testing.assert_allclose(got, exp, rtol=rtol, atol=rtol * 1e-2)
 
 
+# ---- B2 on the tile engine: the route (ops.mxu.mxu_route, one rule with
+# B1's) and the engine's shapes through the plain path --------------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8", "float32", "int32"])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_batched_route_rule(dtype, ta, tb, aligned):
+    # bf16 / fp16 in every layout and int8 with both operands K-major take
+    # the engine when TMA can describe both operands (16-byte bases, row
+    # pitches and batch strides); the rest of the 16-bit and int8 calls
+    # WMMA; fp32 and int32 the CUDA cores.
+    dt = getattr(torch, dtype)
+    per = 16 // dt.itemsize
+    cols = 4 * per + (0 if aligned else 1)
+    a = torch.zeros((3, 24, cols), dtype=dt)
+    b = torch.zeros((3, cols, 8 * per), dtype=dt)
+    ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
+    assert ok == aligned
+    if dtype in ("float32", "int32"):
+        want = "simt"
+    elif aligned and (dtype != "int8" or (ta, tb) == (False, True)):
+        want = "wgmma"
+    else:
+        want = "wmma"
+    assert mxu.mxu_route(dt, ta, tb, ok) == want
+
+
+def test_broadcast_operand_is_read_without_a_batch_stride():
+    w = torch.zeros((64, 72), dtype=torch.bfloat16)
+    assert mxu._strides(w) == (72, 0) and mxu._vec_ok(w)
+    x = torch.zeros((3, 64, 72), dtype=torch.bfloat16)
+    assert mxu._strides(x) == (72, 64 * 72)
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("broadcast", [None, "a", "b"])
+def test_engine_shapes_match_jax(ta, tb, broadcast):
+    # The engine's tiles at a small size: M and N multiples of 64, K = 100
+    # (not a whole 64-deep slab), bf16 operands to fp32, a 2-D operand
+    # broadcast; relative 1e-3 (fp32 sums in two orders).
+    bsz, m, n, k = 2, 128, 64, 100
+    a = _u(_shape(bsz, m, k, ta), 20)
+    b = _u(_shape(bsz, k, n, tb), 21)
+    a = a[0] if broadcast == "a" else a
+    b = b[0] if broadcast == "b" else b
+    got, exp = _both(a, b, dtype="bfloat16", out_dtype="float32", transpose_a=ta,
+                     transpose_b=tb)
+    assert got.shape == (bsz, m, n)
+    np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+
+
+def test_engine_int8_shape_exact():
+    # int8 on the engine: A (B, M, K) and B held (B, N, K), K = 144 (past
+    # one 128-deep slab); exact int32.
+    rng = np.random.default_rng(23)
+    a = rng.integers(-100, 100, (2, 64, 144)).astype(np.int8)
+    b = rng.integers(-100, 100, (2, 128, 144)).astype(np.int8)
+    got, exp = _both(a, b, out_dtype="int32", transpose_b=True)
+    np.testing.assert_array_equal(got, exp)
+
+
 @pytest.mark.parametrize("ta,tb", LAYOUTS)
 def test_batched_gradients_match_jax(ta, tb):
     a = _u(_shape(2, 16, 24, ta), 8)

@@ -406,3 +406,73 @@ def test_engine_shape_vs_jax(transpose_rhs):
                          torch.tensor(gs, dtype=torch.int32), transpose_rhs=transpose_rhs)
     assert rel_err(got.numpy(), want) < 1e-5
     assert not got[sum(gs):].any()
+
+
+# ---- B17's routes (ops.gmm.grouped_update_route) ----------------------------
+
+
+def test_update_route_rule():
+    # By dtype and alignment alone, as B16's: the engine for bf16 / fp16
+    # whose K and N rows a TMA map describes, mma.sync for the rest, fp32
+    # on the CUDA cores.
+    bf16 = torch.bfloat16
+    assert gmm.grouped_update_route(bf16, True) == "wgmma"
+    assert gmm.grouped_update_route(torch.float16, True) == "wgmma"
+    assert gmm.grouped_update_route(bf16, False) == "mma.sync"
+    assert gmm.grouped_update_route(torch.float16, False) == "mma.sync"
+    assert gmm.grouped_update_route(torch.float32, True) == "simt"
+
+
+def test_update_route_cases_take_the_routes_they_name():
+    # chip_smoke.py's GROUPED_UPDATE_ROUTE_CASES (phase 19 and the card
+    # tests): the route each asserts is the rule's for its K, N and rows,
+    # and both tensor-core routes and the CUDA cores are covered.
+    import chip_smoke
+
+    seen = set()
+    cases = list(chip_smoke.GROUPED_UPDATE_ROUTE_CASES) + [chip_smoke.GROUPED_UPDATE_REPEAT_CASE]
+    for case in cases:
+        dt, m, k, n, _, _, _, route = case
+        dtype = getattr(torch, dt)
+        aligned = m > 0 and k * dtype.itemsize % 16 == 0 and n * dtype.itemsize % 16 == 0
+        assert gmm.grouped_update_route(dtype, aligned) == route, case
+        seen.add((dt, route))
+    assert {("bfloat16", "wgmma"), ("float16", "wgmma"), ("bfloat16", "mma.sync"),
+            ("float32", "simt")} <= seen
+
+
+def test_plain_update_calls_leave_the_route_alone():
+    gmm.grouped_update_mxu.last_route = None
+    gmm.grouped_update_mxu(torch.ones((4, 8)), torch.ones((4, 8)), torch.tensor([2, 2]),
+                           num_groups=2)
+    assert gmm.grouped_update_mxu.last_route is None
+
+
+@pytest.mark.parametrize("dt,jdt,tol", TYPES)
+@pytest.mark.parametrize("gs", [
+    [70, 0, 33, 101, 5, 47],     # spans starting off multiples of 64, one empty
+    [10, 20, 1, 63, 30],         # every span shorter than 64
+    [130, 64, 0, 60],            # a span over three 64-row slabs, rows past the groups
+])
+def test_engine_spans_vs_jax(gs, dt, jdt, tol):
+    # The engine's slabs start at each group's first row and stop past its
+    # last, the lines of the last slab past the span zeroed: at the engine
+    # route's shapes (K and N whole 16-byte units) with NaN in the rows
+    # past the groups, the plain version against JAX's kernel.
+    rng = np.random.default_rng(19)
+    m, k, n = 256, 64, 48
+    lhs = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    g = rng.uniform(-1, 1, (m, n)).astype(np.float32)
+    lhs[sum(gs):], g[sum(gs):] = np.nan, np.nan
+    jl, jg = jnp.asarray(lhs, jdt), jnp.asarray(g, jdt)
+    want = np.asarray(jax_update(jl, jg, jnp.array(gs, jnp.int32), cfg=_jcfg(dt, 32),
+                                 num_groups=len(gs), interpret=True), np.float32)
+    got = gmm.grouped_update_mxu(_t(jl, dt), _t(jg, dt), torch.tensor(gs, dtype=torch.int32),
+                                 num_groups=len(gs)).float()
+    assert got.shape == (len(gs), k, n)
+    assert np.isfinite(want).all() and bool(torch.isfinite(got).all())
+    assert rel_err(got.numpy(), want) < tol
+    for grp, size in enumerate(gs):
+        if size == 0:
+            assert not got[grp].any()
+

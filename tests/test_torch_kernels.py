@@ -1,9 +1,10 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
-row-softmax variants), B3 (2-D and batched), B4 and B5 (the integer-slice
+row-softmax variants; both tensor-core routes over ``chip_smoke.py``'s
+phase-6 route table), B3 (2-D and batched), B4 and B5 (the integer-slice
 GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
 case tables), the quantized and grouped GEMMs (B13-B16, over its
-phase-16 tables) and the grouped GEMM's weight gradient (B17, over its
-phase-19 tables), the fused ring and Cannon (B18, B19, over its
+phase-16 tables) and the grouped GEMM's weight gradient (B17, both
+tensor-core routes, over its phase-19 tables), the fused ring and Cannon (B18, B19, over its
 phase-22 / 23 tables, ranks living on the card) on the card, each against
 its plain PyTorch version; the
 gradients of the batched, epilogue, ``fused_linear``, ``attention``, i8x,
@@ -550,6 +551,21 @@ def test_b1_engine_launches_repeat_bitwise(cuda):
     chip_smoke.b1_repeats(torch, _gen(232))
 
 
+# B2's routes (chip_smoke.py phase 6): each case on the route it names, and
+# every engine case again on WMMA (the route override).
+_B2_RUNS = ([(case, None) for case in chip_smoke.B2_ROUTE_CASES]
+            + [(case, "wmma") for case in chip_smoke.B2_ROUTE_CASES if case[-1] == "wgmma"])
+
+
+@pytest.mark.parametrize("case,route", _B2_RUNS, ids=str)
+def test_b2_routes_match_plain(cuda, case, route):
+    chip_smoke.b2_route_case(torch, _gen(235), case, route)
+
+
+def test_b2_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.b2_repeats(torch, _gen(236))
+
+
 @pytest.mark.parametrize("case", chip_smoke.OZAKI_ROUTE_CASES, ids=str)
 def test_b5_routes_match_plain(cuda, case):
     # Every diagonal is exact and the flush order is the plain version's,
@@ -855,6 +871,22 @@ def test_grouped_update_kernel_vs_plain(cuda, case):
 
 def test_grouped_update_launches_repeat_bitwise(cuda):
     chip_smoke.grouped_update_repeats(torch, _gen(61))
+
+
+# B17's routes (phase 19): each case on the route it names, and every
+# engine case again on mma.sync (the route override).
+_B17_RUNS = ([(case, None) for case in chip_smoke.GROUPED_UPDATE_ROUTE_CASES]
+             + [(case, "mma.sync") for case in chip_smoke.GROUPED_UPDATE_ROUTE_CASES
+                if case[-1] == "wgmma"])
+
+
+@pytest.mark.parametrize("case,route", _B17_RUNS, ids=str)
+def test_grouped_update_routes_match_plain(cuda, case, route):
+    chip_smoke.grouped_update_route_case(torch, _gen(62), case, route)
+
+
+def test_grouped_update_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.grouped_update_route_repeats(torch, _gen(63))
 
 
 @pytest.mark.parametrize("case", chip_smoke.GROUPED_GRAD_CASES, ids=str)

@@ -131,9 +131,17 @@ def test_wrapper_rejects_bad_operands(bad):
 @pytest.mark.parametrize("batched", [False, True])
 def test_route_of_16_bit_inputs(dtype, ta, tb, aligned, batched):
     # Every layout reaches the engine (MN-major operands through wgmma's
-    # transpose bits) when TMA can describe both operands; B2 stays on WMMA.
-    want = "wgmma" if aligned and not batched else "wmma"
-    assert mxu.mxu_route(getattr(torch, dtype), ta, tb, aligned, batched) == want
+    # transpose bits) when TMA can describe both operands, 2-D (B1) and
+    # batched (B2) alike: the wrapper's alignment test on operands of that
+    # rank (a batched operand's batch stride included) decides it.
+    dt = getattr(torch, dtype)
+    lead = (3,) if batched else ()
+    cols = 64 if aligned else 60  # 128- or 120-byte rows
+    a = torch.zeros(lead + (40, cols), dtype=dt)
+    b = torch.zeros(lead + (cols, 64), dtype=dt)
+    ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
+    assert ok == aligned
+    assert mxu.mxu_route(dt, ta, tb, ok) == ("wgmma" if aligned else "wmma")
 
 
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
@@ -169,12 +177,61 @@ def test_alignment_the_route_reads(shape, col0, dtype, aligned):
     assert bool(mxu._vec_ok(x)) == aligned
 
 
+@pytest.mark.parametrize("shape,rows,aligned", [
+    ((4, 40, 64), None, True),      # 128-byte rows, 5120-byte examples
+    ((4, 3, 8), None, True),        # 16-byte rows, 48-byte examples
+    ((4, 3, 68), 64, False),        # a view: 128-byte rows 136 bytes apart
+    ((4, 5, 64), None, True),
+    ((1, 3, 12), None, False),      # 24-byte rows
+])
+def test_alignment_of_batched_operands(shape, rows, aligned):
+    # Base, row pitch and batch stride whole 16-byte units; a batch of one
+    # has no batch stride to step.
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    x = x[..., :rows] if rows else x
+    assert bool(mxu._vec_ok(x)) == aligned
+    assert mxu._strides(x)[1] == (x.stride(0) if shape[0] > 1 else 0)
+
+
+def test_batch_stride_of_a_single_example_is_unused():
+    # (1, M, K) of a pitched view: its stride(0) is not a 16-byte unit,
+    # but one example never steps it, so the engine can take it.
+    x = torch.zeros((1, 3, 12), dtype=torch.bfloat16)[..., :8]
+    assert mxu._strides(x) == (12, 0)
+    y = torch.zeros((1, 3, 8), dtype=torch.bfloat16).as_strided((1, 3, 8), (25, 8, 1))
+    assert bool(mxu._vec_ok(y))
+
+
 def test_plain_calls_leave_the_route_alone():
     mxu.mxu_matmul.last_route = None
     a, b = _inputs(8, 8, 8, "float32", False, False)
     mxu.mxu_matmul(torch.from_numpy(a), torch.from_numpy(b),
                    cfg=default_config("float32"))
     assert mxu.mxu_matmul.last_route is None
+
+
+def test_b2_card_table_takes_the_routes_it_names():
+    # chip_smoke.py's B2_ROUTE_CASES (phase 6 and the card tests): the
+    # route each case asserts is mxu_route's for its layout, pitches and
+    # batch strides, and every route of every tensor-core type is covered.
+    import chip_smoke
+
+    seen = set()
+    for case in list(chip_smoke.B2_ROUTE_CASES) + [chip_smoke.B2_REPEAT_CASE]:
+        dt, _, ta, tb, bsz, m, n, k, pitch, bcast, _, route = case
+        dtype = getattr(torch, dt)
+        per = 16 // dtype.itemsize
+
+        def ok(rows, cols, three_d):
+            pitch_ = (cols + per - 1) // per * per + per if pitch else cols
+            return pitch_ % per == 0 and (not three_d or bsz == 1 or rows * pitch_ % per == 0)
+
+        aligned = (ok(*((k, m) if ta else (m, k)), bcast != "a")
+                   and ok(*((n, k) if tb else (k, n)), bcast != "b"))
+        assert mxu.mxu_route(dtype, ta, tb, aligned) == route, case
+        seen.add((dt, route))
+    assert {(dt, r) for dt in ("bfloat16", "int8") for r in ("wgmma", "wmma")} <= seen
+    assert {("float16", "wgmma"), ("float16", "wmma"), ("float32", "simt")} <= seen
 
 
 def test_card_tables_take_the_routes_they_name():

@@ -189,6 +189,24 @@ def test_bool_or_and_count_of_256_is_true():
                                   reference_matmul(a, b, semiring="or_and"))
 
 
+@pytest.mark.parametrize("backend", [None, "vpu"])
+def test_or_and_on_float32_operands_is_0_or_1(backend):
+    # ROADMAP C2: the reference cannot trace or_and on non-bool operands
+    # (its scan carry is float32 in, bool out); the port returns 0 / 1 in
+    # the input dtype, held here to the numpy oracle.  Nonzero entries of
+    # either sign count as true.
+    rng = np.random.default_rng(29)
+    a = np.where(rng.random((17, 40)) < 0.1, rng.uniform(-2, 2, (17, 40)), 0).astype(np.float32)
+    b = np.where(rng.random((40, 23)) < 0.1, rng.uniform(-2, 2, (40, 23)), 0).astype(np.float32)
+    got = matmul(torch.from_numpy(a), torch.from_numpy(b), semiring="or_and",
+                 backend=backend)
+    assert got.dtype == torch.float32
+    assert set(np.unique(got.numpy())) <= {0.0, 1.0}
+    want = reference_matmul(a, b, semiring="or_and")
+    assert want.any() and not want.all()
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
 def test_pack_bits_match_reference():
     import importlib
     jax_mm = importlib.import_module("gemm_hls_tpu.ops.matmul")
