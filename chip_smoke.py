@@ -44,19 +44,26 @@ Phases, each printed as it ends:
      that computes the same (not counted as launches);
  10. kernels B4 (diagonal) and B5 (hi/lo) against their plain versions:
      2, 3, 4 and 8 slices, stacked and split operands, scaled and
-     unscaled, unaligned M, N and K, both flush periods of B5; the int32
-     bounds refuse on the card;
+     unscaled, unaligned M, N and K, both flush periods of B5; then
+     DIAG_ROUTE_CASES on both B4 routes (the wgmma engine and mma.sync), the
+     route checked each, every engine case again on mma.sync, each equal to
+     the plain version bit for bit, and 20 launches of one engine case with
+     the same bits; OZAKI_ROUTE_CASES likewise for B5; the int32 bounds
+     refuse on the card;
  11. slice 3's main path at full width, launch counts set to 0 before it
      and read after: ``matmul(precision="i8x2"|"i8x3"|"i8x4")`` at fp32
-     8192^3 (B4), K = 44000 and 2^17 + 128 (B5), the i8x3 gradient at
-     4096^3; ``ozaki_matmul_int8`` at f64 2048^3 and 8192^3 (B5) and
+     8192^3 (B4, its route checked: the engine), K = 44000 and 2^17 + 128
+     (B5), the i8x3 gradient at 4096^3 (B4 on the engine);
+     ``ozaki_matmul_int8`` at f64 2048^3 and 8192^3 (B5) and
      ``ozaki_matmul`` at 2048^3 (B1); ``all_pairs_shortest_paths`` and
      ``widest_paths`` at n = 4096 (B3), ``transitive_closure`` at 8192 (B1
      int8 and bit-packed B3), ``pagerank`` at 8192 (B1); the five semiring
      gradients at 1024^3;
- 12. times of B4 (i8x2/3/4 at 8192^3) and B5 (8 slices at 2048^3 and
-     8192^3) beside their plain versions and the library product
-     (``torch.matmul`` fp32 / float64), and of the end-to-end calls;
+ 12. times of B4 (i8x2/3/4 at 8192^3, both routes, fp32 ``torch.matmul``
+     and ``matmul(precision=...)`` end to end, in turns on CUDA events) and
+     B5 (8 slices at 2048^3 and 8192^3) beside their plain versions and the
+     library product (``torch.matmul`` fp32 / float64), and of the
+     end-to-end calls;
  13. the flash kernels (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``:
      TPU kernels B6-B12) against their plain versions: bf16, fp16, fp32; D
      16, 36, 40, 64, 128; unaligned S_q and S_kv, S_q = 1; full, causal,
@@ -100,8 +107,10 @@ Phases, each printed as it ends:
      picks them, int_acc on and off, zero rows, the int8 activations equal
      to the plain quantize's), ``grouped_gemm`` (B16: tests/test_grouped.py's
      matrix, transpose_rhs, bf16 / fp16 / fp32, the zero tail exact), then
+     DEQUANT_ROUTE_CASES on B13's routes (the wgmma engine, mma.sync, the
+     CUDA cores; every engine case again on mma.sync) and
      GROUPED_ROUTE_CASES on both B16 routes, the route checked each, and 20
-     launches of one engine case with the same bits;
+     launches of one engine case of each with the same bits;
  17. slice 5's main path, launch counts set to 0 before it and read after:
      the serving decoder block (examples/15_serving_decoder.py) at
      experiments/serving_bench.py's width, every port call under
@@ -110,13 +119,18 @@ Phases, each printed as it ends:
      bf16 block with un-quantized weights at the example's quantization
      budget, once on B14 and once on B15; 8 decode steps at 64 sequences x
      4096 slots (int4 g128 projections on B13, padded-cache flash, the MoE)
-     against the plain step with the same int4 weights; the flash and B16
-     routes printed and checked;
+     against the plain step with the same int4 weights; the flash, B16 and
+     B13 routes printed and checked (every decode projection's shape on the
+     B13 engine);
  18. times of B13, B14, B15 and B16 at their serving shapes beside their
      bounds, plain versions and library calls (bf16 ``torch.matmul`` on the
-     dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``; B16 in
+     dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``; B13 at
+     the decode q and k / v projections on both routes, in turns on device
+     time with host us a call; B16 in
      turns on device time with its other route, w2's dlhs too), and the
-     serving prefill and decode step beside the plain composition;
+     serving prefill and decode step beside the plain composition, with a
+     profile of each (the decode's B13 one engine launch a projection, no
+     split-K pass);
  19. ``grouped_update`` (B17, the grouped GEMM's weight gradient) against
      its plain version: tests/test_grouped.py's matrix in bf16 / fp16 /
      fp32, NaN rows past the groups, routing past M, K and N off the
@@ -682,6 +696,19 @@ def time_turns(torch, fns, rounds=5, iters=20):
                     fn()
                 torch.cuda.synchronize()
             times[name].append(sum(us for _, us in device_kernels(prof)) / iters / 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def event_turns(torch, fns, rounds=3, iters=3):
+    """{name: ms a call} of the zero-argument callables ``fns`` on CUDA
+    events (``time_fn``), in turns: each round times every callable once,
+    in the same order; the median of the rounds.  For millisecond kernels,
+    whose wrapper's host cost is below their device time."""
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_fn(fn, [()], iters=iters, warmup=1) * 1e3)
     return {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -1338,6 +1365,96 @@ OZAKI_REPEAT_CASE = (8, 9, 256, (300, 520, 1024), "kmajor", "wgmma")
 OZAKI_REPEATS = 20
 
 
+# B4's two routes (``ops.slice_kernels.diag_route``), phase 10a's case
+# table that tests/test_torch_kernels.py parametrises too: (n_slices,
+# n_diags, (M, N, K), layout, ulps, fill, route).  layout "stacked": (n, M,
+# K) / (n, K, N) tensors, B row-major (the wrapper transposes it once);
+# "split": tuples of per-slice tensors, B's slices (K, N) views of (N, K)
+# storage; "kmajor": the stacked form of those views; "pitched": tuples of
+# views into rows of whole 16-byte units plus one (K off every slab on the
+# engine); "rowmajor": tuples, B's slices row-major.  fill "max": every A
+# value 127 and every B value -127, K at the whole-K bound's last 16-byte
+# multiple (each P_d at its largest).  The engine: 2, 3 and 4 slices,
+# n_diags 1 and below n_slices, ragged M, N and K, K off the 128 slab, with
+# and without ulps.  mma.sync: more than 4 diagonals, rows that are not
+# whole 16-byte units.
+DIAG_ROUTE_CASES = (
+    [(ns, ns, (257, 130, 1024), layout, ulps, "rand", "wgmma")
+     for ns, layout, ulps in ((2, "stacked", False), (3, "split", True), (4, "kmajor", True),
+                              (3, "rowmajor", False), (4, "stacked", True))]
+    + [(3, 2, (130, 260, 640), "kmajor", True, "rand", "wgmma"),
+       (4, 3, (200, 300, 768), "split", False, "rand", "wgmma"),
+       (4, 2, (64, 64, 512), "kmajor", True, "rand", "wgmma"),
+       (2, 1, (100, 70, 256), "split", True, "rand", "wgmma"),
+       (3, 3, (65, 140, 1000), "pitched", True, "rand", "wgmma"),
+       (4, 4, (33, 129, 4000), "pitched", False, "rand", "wgmma"),
+       (2, 2, (1, 1, 16), "split", True, "rand", "wgmma"),
+       (3, 3, (1000, 1000, 2048), "kmajor", True, "rand", "wgmma"),
+       (2, 2, (16, 128, 66560), "stacked", False, "max", "wgmma"),
+       (3, 3, (8, 64, 44368), "stacked", True, "max", "wgmma"),
+       (4, 4, (8, 64, 33280), "stacked", False, "max", "wgmma"),
+       (8, 8, (100, 100, 512), "kmajor", True, "rand", "mma.sync"),
+       (3, 5, (100, 100, 512), "split", False, "rand", "mma.sync"),
+       (3, 3, (65, 140, 131), "kmajor", True, "rand", "mma.sync"),
+       (2, 2, (65, 140, 1000), "rowmajor", False, "rand", "mma.sync")]
+)
+# Each engine case again on mma.sync (the route override).
+DIAG_RUNS = ([(case, None) for case in DIAG_ROUTE_CASES]
+             + [(case, "mma.sync") for case in DIAG_ROUTE_CASES if case[-1] == "wgmma"])
+# The race check of the engine route.
+DIAG_REPEAT_CASE = (3, 3, (300, 520, 1024), "kmajor", True, "rand", "wgmma")
+DIAG_REPEATS = 20
+
+
+def b4_route_operands(torch, gen, case):
+    """(sa, sb, ulps) of a DIAG_ROUTE_CASES case, in its layout."""
+    ns, _, (m, n, k), layout, scaled, fill, _ = case
+    if fill == "max":
+        sa = torch.full((ns, m, k), 127, dtype=torch.int8, device="cuda")
+        sb = torch.full((ns, k, n), -127, dtype=torch.int8, device="cuda")
+    else:
+        kp = (k + 15) // 16 * 16 + 16 if layout == "pitched" else k
+        sa = int8_slices(torch, ns, m, kp, gen)[:, :, :k]
+        if layout in ("stacked", "rowmajor"):
+            sb = int8_slices(torch, ns, k, n, gen)
+        else:
+            sb = int8_slices(torch, ns, n, kp, gen)[:, :, :k].transpose(1, 2)
+    ulps = ()
+    if scaled:
+        ulps = tuple(torch.exp2(torch.randint(-9, 3, shape, generator=gen, device="cuda").float())
+                     for shape in ((m, 1), (1, n)))
+    if layout in ("stacked", "kmajor"):
+        return sa, sb, ulps
+    return tuple(sa), tuple(sb), ulps
+
+
+def diag_route_case(torch, gen, case, route=None):
+    """One B4 route case on its route (or ``route``, the override), checked,
+    against the plain version: equal bit for bit."""
+    from gemm_hls_tpu_torch.ops import slice_kernels as sk
+    n_diags = case[1]
+    sa, sb, ulps = b4_route_operands(torch, gen, case)
+    got = sk.fused_int8_fp32(sa, sb, *ulps, n_diags=n_diags, route=route)
+    if sk.fused_int8_fp32.last_route != (route or case[-1]):
+        raise AssertionError(f"B4 {case}: route {sk.fused_int8_fp32.last_route}")
+    ref = sk.fused_int8_fp32_plain(list(sa), list(sb), *ulps, n_diags=n_diags)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"B4 {case} on {route or case[-1]}: {int((got != ref).sum())} "
+                             f"elements differ from the plain version")
+
+
+def diag_repeats(torch, gen):
+    """DIAG_REPEAT_CASE launched DIAG_REPEATS times: the same bits each."""
+    from gemm_hls_tpu_torch.ops import slice_kernels as sk
+    sa, sb, ulps = b4_route_operands(torch, gen, DIAG_REPEAT_CASE)
+    first = sk.fused_int8_fp32(sa, sb, *ulps, n_diags=DIAG_REPEAT_CASE[1])
+    if sk.fused_int8_fp32.last_route != DIAG_REPEAT_CASE[-1]:
+        raise AssertionError(f"B4 {DIAG_REPEAT_CASE}: route {sk.fused_int8_fp32.last_route}")
+    for i in range(DIAG_REPEATS - 1):
+        if not torch.equal(first, sk.fused_int8_fp32(sa, sb, *ulps, n_diags=DIAG_REPEAT_CASE[1])):
+            raise AssertionError(f"B4: launch {i + 2} of {DIAG_REPEAT_CASE} differs from the first")
+
+
 def b5_route_operands(torch, gen, case):
     """(stacked A slices (n, M, K), B slices (n, K, N)) of an
     OZAKI_ROUTE_CASES case."""
@@ -1433,6 +1550,18 @@ def phase_b45(torch):
     log(f"phase 10a: B4 vs plain, {n4} cases (2, 3, 4, 8 slices; stacked, "
         f"split and K-major B; scaled and unscaled; unaligned M, N, K): all "
         f"exact")
+    for case, route in DIAG_RUNS:
+        diag_route_case(torch, gen, case, route)
+    diag_repeats(torch, gen)
+    routes = {}
+    for case, route in DIAG_RUNS:
+        routes[route or case[-1]] = routes.get(route or case[-1], 0) + 1
+    log(f"phase 10a: B4 route cases, {len(DIAG_ROUTE_CASES)} ({len(DIAG_RUNS)} runs {routes}: "
+        f"every engine case again on mma.sync; 2-4 slices, n_diags 1 and below n_slices, "
+        f"the five layouts, ragged M / N / K, K off the slab and at the whole-K bound, with "
+        f"and without ulps; more than 4 diagonals and unaligned rows on mma.sync), route "
+        f"checked each: all equal to the plain version; {DIAG_REPEATS} engine launches, "
+        f"the same bits")
     log(f"phase 10b: B5 vs plain, {n5} cases: worst |hi + lo - plain| "
         f"{worst5:.3e} of the largest output; hi and lo bit-identical in "
         f"{exact5} of {n5}")
@@ -1526,13 +1655,14 @@ def phase_slice3(torch):
         torch.cuda.synchronize()
         if b45() != (before[0] + 1, before[1]):
             raise AssertionError(f"{p} {n}^3: launches B4/B5 {before} -> {b45()}")
+        main_route(sk.fused_int8_fp32, f"{p} {n}^3 B4", "wgmma")
         if out.shape != (n, n) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{p}: bad output")
         errs[p] = normwise(torch, out, a, b)
         del out
         if errs[p][0] >= bound:
             raise AssertionError(f"{p} {n}^3: normwise {errs[p][0]:.3e} >= {bound:g}")
-        log(f"phase 11a: matmul precision={p} fp32 {n}^3 on B4: normwise "
+        log(f"phase 11a: matmul precision={p} fp32 {n}^3 on B4 (route wgmma): normwise "
             f"{errs[p][0]:.3e} (bound {bound:g}), Frobenius rel {errs[p][1]:.3e}")
     if not (errs["i8x4"][0] < errs["i8x3"][0] and errs["i8x4"][1] < 2 ** -22):
         raise AssertionError(f"i8x4 not at the fp32 output floor: {errs}")
@@ -1563,6 +1693,7 @@ def phase_slice3(torch):
     dx, dy = x.grad, y.grad
     if b45()[0] != before[0] + 3:
         raise AssertionError(f"i8x3 gradient: B4 launches {before} -> {b45()}")
+    main_route(sk.fused_int8_fp32, "i8x3 gradient B4", "wgmma")
     x2, y2 = x.detach().clone().requires_grad_(), y.detach().clone().requires_grad_()
     (x2 @ y2).backward(g)
     for name, got, ref, ops in (("dA", dx, x2.grad, (g, y.detach().T)),
@@ -1719,7 +1850,6 @@ def phase_times3(torch):
     n = 8192
     a = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
     b = torch.rand((n, n), generator=gen, device="cuda") * 10 - 5
-    lib = time_fn(torch.matmul, [(a, b)], iters=5) * 1e3
     for p in ("i8x2", "i8x3", "i8x4"):
         ns = int(p[-1])
         # B's slices K-contiguous, as fp32_matmul_int8 makes them.
@@ -1728,20 +1858,27 @@ def phase_times3(torch):
                                     stacked=False)
         sb, ub = [s.T for s in sbt], ubt.T
         args = (tuple(sa), tuple(sb), ua, ub)
-        got = sk.fused_int8_fp32(*args)
         ref = sk.fused_int8_fp32_plain(sa, sb, ua, ub)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"B4 {p} {n}^3 differs from its plain version")
-        del got, ref
-        ms = time_fn(sk.fused_int8_fp32, [args], iters=5) * 1e3
+        for route in ("wgmma", "mma.sync"):
+            if not torch.equal(sk.fused_int8_fp32(*args, route=route), ref):
+                raise AssertionError(f"B4 {p} {n}^3 on {route} differs from its plain version")
+        del ref
+        rule = sk.diag_route(ns, n, n, True)
+        fns = {route: (lambda route=route: sk.fused_int8_fp32(*args, route=route))
+               for route in ("wgmma", "mma.sync")}
+        fns["library"] = lambda: torch.matmul(a, b)
+        fns["matmul"] = lambda: matmul(a, b, precision=p)
+        turns = event_turns(torch, fns)
         plain_ms = time_fn(lambda *t: sk.fused_int8_fp32_plain(sa, sb, ua, ub), [()],
                            iters=1, warmup=0, repeats=1) * 1e3
-        e2e = time_fn(lambda x, y: matmul(x, y, precision=p), [(a, b)], iters=5) * 1e3
-        out[f"B4 {p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                              max_abs_err=0.0, matmul_ms=e2e, n_slices=ns)
-        log(f"phase 12: B4 {p} fp32 {n}^3: {ms:.3f} ms vs plain {plain_ms:.3f} "
-            f"ms (torch.matmul fp32 {lib:.3f} ms); matmul(precision={p!r}) "
-            f"end to end {e2e:.3f} ms")
+        other = "mma.sync" if rule == "wgmma" else "wgmma"
+        out[f"B4 {p}"] = dict(ms=turns[rule], plain_ms=plain_ms, library_ms=turns["library"],
+                              max_abs_err=0.0, matmul_ms=turns["matmul"], n_slices=ns,
+                              route=rule, other_route=other, other_ms=turns[other])
+        log(f"phase 12: B4 {p} fp32 {n}^3 on CUDA events, in turns: {turns[rule]:.3f} ms "
+            f"(route {rule}; {other} {turns[other]:.3f} ms) vs plain {plain_ms:.3f} ms, "
+            f"torch.matmul fp32 {turns['library']:.3f} ms; matmul(precision={p!r}) end to "
+            f"end {turns['matmul']:.3f} ms")
         del sa, sb, sbt, args
     high = time_fn(lambda x, y: matmul(x, y, precision="high"), [(a, b)], iters=2) * 1e3
     out["matmul high 8192"] = high
@@ -2764,6 +2901,42 @@ DEQUANT_CASES = (
     + [("bfloat16", bits, 32, m, n, k, None)
        for bits in (4, 8) for m, n, k in ((1, 1001, 256), (64, 2048, 2048))]
 )
+# B13's routes (``ops.dequant.dequant_route``), phase 16's route table,
+# which tests/test_torch_kernels.py parametrises too: (x dtype, bits, group
+# (None: per-channel), M, N, K, output dtype (None: x's), route).  Each
+# engine case runs again on mma.sync (the route override).  The engine:
+# int8 and int4; per-channel, g32, g64, g128 and g256 (a step inside one
+# group's half); M 1, 64, 130 and 256; N 512 and 2048, and 528 (off every N
+# tile); per-channel int4 with K split across the halves (K 2048: the
+# splits of a tile's cluster read x at p and p + K/2); K 96 and 384 (a
+# partial step, three steps); fp16; fp32 outputs.  mma.sync: N 1001, a
+# group that does not tile the 128-deep step (96), per-channel int8 at K
+# 1000.  simt: fp32 x.
+DEQUANT_ROUTE_CASES = (
+    [("bfloat16", 4, 128, 64, n, 2048, None, "wgmma") for n in (2048, 512)]
+    + [("bfloat16", 4, 32, 64, 2048, 2048, None, "wgmma"),
+       ("bfloat16", 4, 64, 130, 512, 1024, None, "wgmma"),
+       ("bfloat16", 4, 256, 64, 512, 2048, None, "wgmma"),
+       ("bfloat16", 4, None, 64, 512, 2048, None, "wgmma"),
+       ("bfloat16", 4, None, 1, 2048, 1024, "float32", "wgmma"),
+       ("bfloat16", 4, 32, 1, 528, 96, None, "wgmma"),
+       ("bfloat16", 8, None, 256, 512, 1024, None, "wgmma"),
+       ("bfloat16", 8, 32, 1, 512, 2048, None, "wgmma"),
+       ("bfloat16", 8, 64, 130, 2048, 512, "float32", "wgmma"),
+       ("bfloat16", 8, 128, 256, 2048, 2048, None, "wgmma"),
+       ("float16", 4, 128, 64, 2048, 2048, None, "wgmma"),
+       ("float16", 4, 64, 256, 512, 384, None, "wgmma"),
+       ("float16", 8, None, 130, 512, 1024, "float32", "wgmma"),
+       ("bfloat16", 4, 128, 64, 1001, 2048, None, "mma.sync"),
+       ("bfloat16", 8, 96, 64, 512, 960, None, "mma.sync"),
+       ("bfloat16", 8, None, 64, 512, 1000, None, "mma.sync"),
+       ("float32", 4, 128, 64, 512, 1024, None, "simt")]
+)
+DEQUANT_RUNS = ([(case, None) for case in DEQUANT_ROUTE_CASES]
+                + [(case, "mma.sync") for case in DEQUANT_ROUTE_CASES if case[-1] == "wgmma"])
+# The race check of the engine route: the decode q projection.
+DEQUANT_REPEAT_CASE = DEQUANT_ROUTE_CASES[0]
+DEQUANT_REPEATS = 20
 # B14 / B15: (x dtype, group, M, N, K, fuse_quant asked, zero rows, out
 # dtype, route the JAX rule gives).
 W8A8_CASES = [
@@ -2903,6 +3076,48 @@ def dequant_case(torch, gen, case):
                    scaled=True)[0]
 
 
+def dequant_route_operands(torch, gen, case):
+    from gemm_hls_tpu_torch import GemmConfig, quantize_weights
+    dt, bits, g, m, n, k, out, _ = case
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    wq, s = (torch.from_numpy(a).cuda()
+             for a in quantize_weights(_host(torch, w), bits=bits, group_size=g))
+    x = signed(torch, (m, k), getattr(torch, dt), gen)
+    # block_k K: whole scale groups in one K-block (it decides no bit here).
+    return x, wq, s, dict(cfg=GemmConfig(dtype=dt, block_k=k, out_dtype=out), bits=bits,
+                          group_size=g)
+
+
+def dequant_route_case(torch, gen, case, route=None):
+    """One DEQUANT_ROUTE_CASES case on its route (or ``route``, the
+    override), checked, against the plain version at quant_rtol.  Returns
+    the largest abs error."""
+    from gemm_hls_tpu_torch.ops import dequant
+    x, wq, s, kw = dequant_route_operands(torch, gen, case)
+    got = dequant.dequant_matmul(x, wq, s, route=route, **kw)
+    if dequant.dequant_matmul.last_route != (route or case[-1]):
+        raise AssertionError(f"B13 {case}: route {dequant.dequant_matmul.last_route}")
+    ref = dequant.dequant_matmul_plain(x, wq, s, bits=kw["bits"], group_size=kw["group_size"],
+                                       out_dtype=got.dtype)
+    return compare(torch, got, ref, quant_rtol(torch, got.dtype),
+                   f"B13 {case} on {route or case[-1]}", scaled=True)[0]
+
+
+def dequant_repeats(torch, gen):
+    """DEQUANT_REPEAT_CASE launched DEQUANT_REPEATS times: the same bits
+    each (the cluster's sum runs in rank order, no atomics)."""
+    from gemm_hls_tpu_torch.ops import dequant
+    x, wq, s, kw = dequant_route_operands(torch, gen, DEQUANT_REPEAT_CASE)
+    first = dequant.dequant_matmul(x, wq, s, **kw)
+    if dequant.dequant_matmul.last_route != DEQUANT_REPEAT_CASE[-1]:
+        raise AssertionError(f"B13 {DEQUANT_REPEAT_CASE}: route "
+                             f"{dequant.dequant_matmul.last_route}")
+    for i in range(DEQUANT_REPEATS - 1):
+        if not torch.equal(first, dequant.dequant_matmul(x, wq, s, **kw)):
+            raise AssertionError(f"B13: launch {i + 2} of {DEQUANT_REPEAT_CASE} differs from "
+                                 f"the first")
+
+
 def w8a8_case(torch, gen, case):
     """One W8A8_CASES case: the route the JAX rule gives (checked by the
     launch counters), its int8 activations equal to the plain quantize's,
@@ -3030,6 +3245,18 @@ def phase_quant_kernels(torch):
         f"int_acc on and off, zero rows), B16 {len(GROUPED_CASES)} "
         f"(tests/test_grouped.py's matrix, transpose_rhs, bf16 / fp16 / fp32): "
         f"ok (max abs err {', '.join(f'{k} {v:.3e}' for k, v in worst.items())})")
+    worst = max(dequant_route_case(torch, gen, case, route) for case, route in DEQUANT_RUNS)
+    dequant_repeats(torch, gen)
+    torch.cuda.synchronize()
+    routes = {}
+    for case, route in DEQUANT_RUNS:
+        routes[route or case[-1]] = routes.get(route or case[-1], 0) + 1
+    log(f"phase 16: B13 route cases, {len(DEQUANT_ROUTE_CASES)} ({len(DEQUANT_RUNS)} runs "
+        f"{routes}: every engine case again on mma.sync; int8 / int4, per-channel and g32 - "
+        f"g256, M 1 - 256, N 512 / 528 / 2048, per-channel int4 split across the halves, "
+        f"fp16, fp32 outputs; ragged N, a group off the step, fp32 x), route checked each: "
+        f"ok (max abs err {worst:.3e}); {DEQUANT_REPEATS} launches of "
+        f"{DEQUANT_REPEAT_CASE[:6]} on the engine: same bits")
     worst = max(grouped_route_case(torch, gen, case) for case in GROUPED_ROUTE_CASES)
     grouped_repeats(torch, gen)
     torch.cuda.synchronize()
@@ -3309,13 +3536,24 @@ def phase_slice5(torch):
     if not torch.equal(lens, rlens):
         raise AssertionError("decode: lengths differ from the plain step's")
     res["decode"] = dict(median=worst_med, flipped=worst_flip)
+    # Every decode projection's shape takes the engine (the rule is by shape:
+    # q, k, v, o), and the last launch did.
+    from gemm_hls_tpu_torch.ops import dequant
+    d, hd, kvh = c["d_model"], c["h_q"] * c["d_head"], c["h_kv"] * c["d_head"]
+    proj = {name: dequant.dequant_route(torch.bfloat16, n, k, c["group"], True)
+            for name, (k, n) in (("q", (d, hd)), ("k", (d, kvh)), ("v", (d, kvh)),
+                                 ("o", (hd, d)))}
+    if set(proj.values()) != {"wgmma"}:
+        raise AssertionError(f"decode projections' B13 routes {proj}")
+    b13_route = main_route(dequant.dequant_matmul, "decode B13", "wgmma")
     slots = c["dec_batch"] * c["top_k"]
     routes = (main_route(flash.flash_mha, "decode flash",
                          flash.flash_route(torch.bfloat16, c["d_head"], c["h_q"] // c["h_kv"],
                                            True)),
               main_route(gmm.grouped_mxu, "decode MoE", gmm.grouped_route(torch.bfloat16, True)))
     log(f"phase 17b: decode {c['steps']} steps, {c['dec_batch']} sequences x "
-        f"{c['slots']} slots (int4 g{c['group']} projections on B13, padded-cache "
+        f"{c['slots']} slots (int4 g{c['group']} projections on B13 route {b13_route}, "
+        f"one launch each, padded-cache "
         f"flash on route {routes[0]}, MoE on B16 route {routes[1]} at {slots} slots), "
         f"stale slots NaN / inf: worst median token err "
         f"{worst_med:.2e}, worst {worst_flip:.1%} tokens above 2e-2; lengths now "
@@ -3363,6 +3601,70 @@ def device_kernels(prof):
     return kernels
 
 
+# B13's decode projections at SERVING's width (examples/15_serving_decoder.py:
+# int4 g128, bf16, 64 sequences): q and o (64 x 2048 -> 2048), k and v
+# (64 x 2048 -> 512).  (M, K, N).
+B13_SHAPES = {"q": (64, 2048, 2048), "kv": (64, 2048, 512)}
+
+
+def host_us(torch, fn, calls=200):
+    """Host-clock microseconds a call of ``fn``, over ``calls`` back-to-back
+    calls that end in one sync: the wrapper's host cost where it exceeds
+    the kernel's device time, else the device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def b13_times(torch, rng):
+    """B13 at B13_SHAPES: both routes' launches, the plain version and ``xd
+    @ w_deq`` (bf16 torch.matmul on the dequantized weights, the
+    yardstick) checked against the plain version, then device ms a call in
+    turns (``time_turns``) and host us a call (``host_us``) of each.
+    Returns {shape: {"ms": {...}, "host_us": {...}, "plain_ms", "bound",
+    "route", "plan", "max_abs_err"}}."""
+    from gemm_hls_tpu_torch import quantize_weights
+    from gemm_hls_tpu_torch.models.perf_model import H100, dequant_bound
+    from gemm_hls_tpu_torch.ops import dequant, quant
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    bf16, g = torch.bfloat16, SERVING["group"]
+    gen = torch.Generator(device="cuda").manual_seed(183)
+    out = {}
+    for key, (m, k, n) in B13_SHAPES.items():
+        w = rng.standard_normal((k, n)).astype("float32") / k ** 0.5
+        wq, s = (torch.from_numpy(a).cuda() for a in quantize_weights(w, bits=4, group_size=g))
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).to(bf16)
+        w_deq = dequant.dequant_matmul_plain(torch.eye(k, device="cuda", dtype=bf16), wq, s,
+                                             bits=4, group_size=g)
+        cfg = quant.dequant_config(m, n, k, bf16)
+        fns = {r: (lambda r=r: dequant.dequant_matmul(x, wq, s, cfg=cfg, bits=4, group_size=g,
+                                                      route=r)) for r in ("wgmma", "mma.sync")}
+        fns["library"] = lambda: x @ w_deq
+        ref = dequant.dequant_matmul_plain(x, wq, s, bits=4, group_size=g)
+        err = max(compare(torch, fn(), ref, BF16_RTOL, f"timed B13 {key} {name}",
+                          scaled=True)[0] for name, fn in fns.items())
+        rule = dequant.dequant_route(bf16, n, k, g, True)
+        turns = time_turns(torch, fns)
+        host = {name: host_us(torch, fn) for name, fn in fns.items()}
+        plain_ms = time_fn(lambda: dequant.dequant_matmul_plain(x, wq, s, bits=4, group_size=g),
+                           [()], iters=10, warmup=1) * 1e3
+        bound = dequant_bound(H100, m, n, k, 4, g, bf16, bf16)
+        plan = dequant._engine_plan(x.device, m, n, k)
+        out[key] = dict(ms=turns, host_us=host, plain_ms=plain_ms, bound=bound, route=rule,
+                        plan=plan, max_abs_err=err)
+        log(f"phase 18: B13 {key} projection {m}x{k}x{n} int4 g{g} bf16, device ms a call in "
+            f"turns: " + ", ".join(f"{name} {ms:.4f}" for name, ms in turns.items())
+            + "; host us a call: " + ", ".join(f"{name} {us:.1f}" for name, us in host.items())
+            + f"; plain {plain_ms:.3f} ms, bound {bound[0] * 1e3:.4f} ms ({bound[1]}), the "
+            f"rule's route {rule} (engine plan {plan[0]}x{plan[1]}); max abs err {err:.3e}")
+    return out
+
+
 def phase_times5(torch):
     """Phase 18: the new kernels at their serving shapes beside their
     bounds, plain versions and library yardsticks (timed here, never called
@@ -3382,11 +3684,11 @@ def phase_times5(torch):
     rng = np.random.default_rng(181)
     out = {}
 
-    def entry(key, fn, plain, library, bound, tol, plain_iters=3):
+    def entry(key, fn, plain, library, bound, tol):
         got, ref = fn(), plain()
         err = compare(torch, got, ref, tol, f"timed {key}", scaled=True)[0]
         ms = time_fn(fn, [()], iters=20) * 1e3
-        plain_ms = time_fn(plain, [()], iters=plain_iters, warmup=1) * 1e3
+        plain_ms = time_fn(plain, [()], iters=3, warmup=1) * 1e3
         lib_ms = time_fn(library, [()], iters=20) * 1e3 if library else None
         out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
                         bound=bound)
@@ -3396,22 +3698,19 @@ def phase_times5(torch):
             + f"; max abs err {err:.3e}")
 
     d = c["d_model"]
-    # B13: the decode q projection, (64, 2048) x (2048, 2048) int4 g128 bf16.
-    w = rng.standard_normal((d, d)).astype(np.float32) / np.sqrt(d)
-    wq4, s4 = (torch.from_numpy(a).cuda() for a in
-               quantize_weights(w, bits=4, group_size=c["group"]))
-    xd = (torch.randn((c["dec_batch"], d), generator=gen, device="cuda") * 0.5).to(bf16)
-    dcfg = quant.dequant_config(c["dec_batch"], d, d, bf16)
-    w_deq = dequant.dequant_matmul_plain(torch.eye(d, device="cuda", dtype=bf16),
-                                         wq4, s4, bits=4, group_size=c["group"])
-    entry("B13 decode 64x2048x2048 int4 g128",
-          lambda: dequant.dequant_matmul(xd, wq4, s4, cfg=dcfg, bits=4,
-                                         group_size=c["group"]),
-          lambda: dequant.dequant_matmul_plain(xd, wq4, s4, bits=4, group_size=c["group"]),
-          lambda: xd @ w_deq,
-          dequant_bound(H100, c["dec_batch"], d, d, 4, c["group"], bf16, bf16), BF16_RTOL,
-          plain_iters=10)
+    # B13 at the decode projections: its routes and xd @ w_deq in turns on
+    # the device, and host us a call.
+    b13 = b13_times(torch, rng)
+    q = b13["q"]
+    out["B13 decode 64x2048x2048 int4 g128"] = dict(
+        ms=q["ms"][q["route"]], plain_ms=q["plain_ms"], library_ms=q["ms"]["library"],
+        max_abs_err=q["max_abs_err"], bound=q["bound"], route=q["route"],
+        other_route="mma.sync", other_ms=q["ms"]["mma.sync"], plan=q["plan"],
+        host_us=q["host_us"], kv=dict(ms=b13["kv"]["ms"], host_us=b13["kv"]["host_us"],
+                                      plan=b13["kv"]["plan"],
+                                      bound_ms=b13["kv"]["bound"][0] * 1e3))
     # B14 / B15: a prefill projection, (4096, 2048) x (2048, 2048), bf16 out.
+    w = rng.standard_normal((d, d)).astype(np.float32) / np.sqrt(d)
     m = c["batch"] * c["seq"]
     wq8, s8 = (torch.from_numpy(a).cuda() for a in quantize_weights(w, bits=8))
     xp = (torch.randn((m, d), generator=gen, device="cuda") * 0.5).to(bf16)
@@ -3541,6 +3840,9 @@ def phase_times5(torch):
             ("prefill", lambda: serving_prefill(x, q8, moe, cfg, **dims), 3)):
         busy, kernels = device_profile(torch, fn, iters)
         out[f"{key} busy"] = busy
+        if key == "decode step" and (not any("dequant_wg_kernel" in name for name, _ in kernels)
+                                     or any("dequant_reduce" in name for name, _ in kernels)):
+            raise AssertionError("decode step: B13 is not one engine launch a projection")
         log(f"phase 18: profile {key}: device busy {busy:.1%} of the window; per call "
             + "; ".join(f"{name[:48]} {us:.1f} us" for name, us in kernels[:8]))
     return out
@@ -4467,6 +4769,8 @@ def main() -> int:
         "B5": slice_gemm_bound(H100, 2048, 2048, 2048, 8, 8, n_outputs=2),
     }
     b4, b5 = times3["B4 i8x3"], times3["B5 2048"]
+    b4_tiers = {p: {key: times3[f"B4 {p}"][key] for key in ("ms", "other_ms", "matmul_ms")}
+                for p in ("i8x2", "i8x4")}
     kernels = [
         kernel("mxu_gemm (B1, dense plus_times)",
                "gemm_hls_tpu_torch/csrc/mxu_gemm.cu",
@@ -4498,6 +4802,12 @@ def main() -> int:
                "gemm_hls_tpu/ops/pallas_ozaki.py:37", launches3["B5"], b5,
                bounds["B5"], b5["library_ms"]),
     ]
+    # B4: the engine route the main path took (csrc/diag_wgmma.cu), the
+    # mma.sync kernel in the same turns, and the other tiers.
+    kernels[5].update(source="gemm_hls_tpu_torch/csrc/diag_wgmma.cu", kernel_route=b4["route"],
+                      other_route=b4["other_route"], other_ms=b4["other_ms"],
+                      matmul_ms=b4["matmul_ms"], tiers=b4_tiers,
+                      library_note="library_ms is fp32 torch.matmul")
     # B2: the route the main path's aligned bf16 calls take (the engine),
     # the other one (csrc/mxu_gemm.cu's WMMA tile) in the same turns.
     t = times["B2 64x512^3"]
@@ -4535,7 +4845,7 @@ def main() -> int:
     for key, name, source, replaces in (
             ("B13 decode 64x2048x2048 int4 g128",
              "dequant_gemm (B13, int4 g128 decode projection 64x2048x2048 bf16)",
-             "dequant_gemm.cu", "pallas_dequant.py:36"),
+             "dequant_wgmma.cu", "pallas_dequant.py:36"),
             ("B14 prefill 4096x2048x2048 fused",
              "w8a8_gemm fused (B14, prefill projection 4096x2048x2048 bf16)",
              "w8a8_gemm.cu", "pallas_dequant.py:260"),
@@ -4549,9 +4859,14 @@ def main() -> int:
         kernels.append(kernel(name, f"gemm_hls_tpu_torch/csrc/{source}",
                               f"gemm_hls_tpu/ops/{replaces}", launches5[key[:3]], t,
                               t["bound"], t["library_ms"]))
-        if "route" in t:  # B16: the route the main path took, and the other one
+        if "route" in t:  # B13, B16: the route the main path took, and the other one
             kernels[-1].update(kernel_route=t["route"], other_route=t["other_route"],
                                other_ms=t["other_ms"])
+        if key.startswith("B13"):  # device time in turns, host us a call
+            kernels[-1].update(plan=t["plan"], host_us=t["host_us"],
+                               kv_64x2048x512=t["kv"],
+                               library_note="library_ms is xd @ w_deq, bf16 torch.matmul on "
+                                            "the dequantized weights")
     # Slice 6 at the training step's w1 gradient shape: the route the main
     # path took (csrc/grouped_update_wgmma.cu), the other in the same turns,
     # and w2's gradient and a skewed routing beside.

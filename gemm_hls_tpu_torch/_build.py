@@ -137,6 +137,11 @@ def _declare(lib):
     lib.slice_gemm.restype = i32
     lib.slice_gemm.argtypes = [ptrs, ptrs, i32, vp, vp, vp, vp, i32, i32, i32,
                                i64, i64, i32, i32, i32, i32, vp]
+    # B4 on the tile engine: (a slices, b^T slices, n_used, c, ua, ub, M, N,
+    # K, lda, ldb, n_diags, stream)
+    lib.slice_diag_wgmma.restype = i32
+    lib.slice_diag_wgmma.argtypes = [ptrs, ptrs, i32, vp, vp, vp, i32, i32, i32,
+                                     i64, i64, i32, vp]
     # Flash attention: (seqs, lse, kv_len | delta, q_seg, kv_seg, offs, dims,
     # cap, scale, dtype, stream); seqs holds (pointer, heads, sb, sh, ss)
     # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec).
@@ -148,13 +153,17 @@ def _declare(lib):
         getattr(lib, name).argtypes = flash
     # Quantized and grouped GEMMs: pointers, then int sizes and codes, then
     # the stream.
-    for name, n_ptr, n_int in (("dequant_gemm", 5, 10), ("w8a8_quantize", 3, 5),
+    for name, n_ptr, n_int in (("dequant_gemm", 5, 10), ("dequant_wgmma", 4, 10),
+                               ("w8a8_quantize", 3, 5),
                                ("w8a8_gemm", 5, 8), ("grouped_gemm", 4, 9),
                                ("grouped_wgmma", 4, 7),
                                ("grouped_update", 4, 8),
                                ("grouped_update_wgmma", 4, 6)):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]
+    # B13's engine plans: the clusters of (bn, splits) the card holds at once.
+    lib.dequant_wgmma_clusters.restype = i32
+    lib.dequant_wgmma_clusters.argtypes = [i32, i32, ctypes.POINTER(i32)]
     # The fused distributed GEMMs: (rank table of int64 pointers, int dims,
     # int[2] blocks per rank out, tensor maps, stamps, stream).
     for name in ("ring_gemm", "cannon_gemm"):

@@ -2,6 +2,13 @@
 // streamed quantized (int8, or int4 packed two to a byte) and expanded in
 // the kernel.
 //
+// The calls ops/dequant.py::dequant_route does not send to the Hopper tile
+// engine (csrc/dequant_wgmma.cu) run here: fp32 x (dequant_simt), and bf16
+// / fp16 x whose rows or packed weight rows are not whole 16-byte units
+// (N = 1001, ragged N) or whose scale groups do not tile the engine's
+// 128-deep K step (dequant_tc).  The serving decode's projections run on
+// the engine.
+//
 // Replaces gemm_hls_tpu/ops/pallas_dequant.py::_dequant_kernel (B13).  The
 // TPU kernel walked K as a sequential grid axis into a VMEM accumulator;
 // here a block loops over its K range itself and keeps the accumulator in
@@ -27,8 +34,8 @@
 // launch.  64 x 64 tiles give only 32 blocks there, so a launch with fewer
 // tiles than the card has SMs splits K (grid z); each split writes fp32
 // partials and a second pass sums them in split order (deterministic, no
-// atomics) and applies the store.  Left on the table: wgmma, TMA, a
-// persistent schedule, and fusing the split-K sum into the last block.
+// atomics) and applies the store.  The engine route has the wgmma, TMA and
+// one-launch split-K sum; left on the table here: a persistent schedule.
 #include "tile_mma.cuh"
 
 namespace gemm_hls {

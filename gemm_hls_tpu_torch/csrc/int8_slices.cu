@@ -22,7 +22,10 @@
 // TMA, warp-specialised wgmma, the diagonal-major walk) wherever a TMA map
 // describes the slices (rows and bases of whole 16-byte units) and block_k
 // is a multiple of its 128-deep slab (ops/slice_kernels.py::ozaki_route);
-// B4, and B5 on other shapes, run on slice_gemm_kernel (mma.sync).  Both
+// B4 runs on the engine too (csrc/diag_wgmma.cu, every slice pair of a K
+// step from slabs landed once) for up to 4 diagonals with such rows
+// (ops/slice_kernels.py::diag_route).  B4 with more diagonals or other
+// rows, and B5 on other shapes, run on slice_gemm_kernel (mma.sync).  All
 // read B as B_j^T (N, K) rows, since int8 MMA operands are K-major (the
 // wrapper passes transposed views, or transposes a row-major slice once).
 // Every int32 diagonal is exact (the wrapper checks the bound on the K the
@@ -55,8 +58,9 @@
 // i8x2 / i8x3 / i8x4 are 3 / 6 / 10 products of 1.1 TOP: 1.67 / 3.33 /
 // 5.56 ms at 1979 TOP/s; the bytes (slices read once, fp32 C written once)
 // take under 0.3 ms at 3.35 TB/s.  8-slice Ozaki at 2048^3: 36 products of
-// 17.2 GOP, 0.31 ms.  slice_gemm_kernel reached 15% of that (B5 2.12 ms at
-// 2048^3, 8 slices; B4 i8x3 17.1 ms at 8192^3): mma.sync issues from
+// 17.2 GOP, 0.31 ms.  slice_gemm_kernel reached 15-20% of that (B5 2.12 ms
+// at 2048^3, 8 slices; B4 i8x3 17.3 ms at 8192^3, 5.6 on the engine):
+// mma.sync issues from
 // registers that ldmatrix fills, and the nine accumulators held its tile
 // to 64 x 32.  The engine's walk keeps three tiles live, so its tile is
 // 128 x 128 and wgmma reads shared memory directly: B5 at 2048^3 takes

@@ -12,7 +12,8 @@
 // What bounds it on an H100: the CUDA-core issue rate.  A (map, reduce)
 // pair such as min_plus costs two instructions per term (add, min); at
 // 128 lanes x 132 SMs x ~1.98 GHz that is ~16.7e12 terms/s, i.e. a ceiling
-// of ~33 TOp/s counted as 2*M*N*K.  Shared-memory reads (16 per 64 terms a
+// of 33.45 TOp/s counted as 2*M*N*K (models/perf_model.py's vpu_ops: 4.11
+// ms at 4096^3).  Shared-memory reads (16 per 64 terms a
 // thread) fit under that; device-memory traffic follows the io_volume law
 // of a 128x128 tile and is far below the bandwidth bound at 4096^3.
 // Left on the table by this simple design: no packed f16x2/bf16x2 math,

@@ -20,13 +20,14 @@ class ChipSpec:
     """One accelerator's roofline constants.
 
     ``peak_flops`` maps dtype name -> peak FLOP/s of the tensor cores
-    (float32: the CUDA-core FMA rate); ``vpu_ops`` is the CUDA-core fp32
-    rate that bounds the generic-semiring kernel.
+    (float32: the CUDA-core FMA rate, an FMA counted as 2 ops);
+    ``vpu_ops`` is the CUDA-core instruction rate that bounds the
+    generic-semiring kernel, whose (map, reduce) pair is two instructions.
     """
 
     name: str
     peak_flops: Dict[str, float]
-    vpu_ops: float                # non-tensor fp32 ops/s
+    vpu_ops: float                # CUDA-core instructions/s
     hbm_bytes_per_s: float        # device-memory bandwidth
 
     def peak_for(self, dtype) -> float:
@@ -49,11 +50,15 @@ H100 = ChipSpec(
     # data sheet).
     peak_flops={"bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
                 "tfloat32": 495e12, "float32": 67e12, "float64": 67e12},
-    # 67e12 counts an FMA as 2 ops: 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz
-    # (H100 SXM boost clock).  A (map, reduce) pair costs two instructions
-    # without fusion, so the generic-semiring ceiling in 2*M*N*K ops is the
-    # same figure.
-    vpu_ops=67e12,
+    # The fp32 67e12 counts an FMA as 2 ops: 132 SMs x 128 fp32 lanes x 2 x
+    # 1.98 GHz (H100 SXM boost clock).  The CUDA cores issue one instruction
+    # per lane per clock, 132 x 128 x 1.98e9 = 33.45e12 a second, and a
+    # semiring term is two of them (map, then reduce: add and min for
+    # min_plus), counted as 2 ops: so the generic-semiring ceiling in
+    # 2*M*N*K ops is 33.45e12, half the FMA figure (the reference draws its
+    # VPU bound from an elementwise rate too, gemm_hls_tpu/models/
+    # perf_model.py).
+    vpu_ops=132 * 128 * 1.98e9,
     hbm_bytes_per_s=3.35e12,
 )
 

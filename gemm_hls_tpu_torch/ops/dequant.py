@@ -4,9 +4,11 @@ kernels B13-B15, their plain PyTorch versions, and
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_dequant.py``:
 
-* :func:`dequant_matmul` -> ``csrc/dequant_gemm.cu`` (B13
-  ``_dequant_kernel``): y = x . dequant(w_q, s), int8 or planar int4
-  weights expanded in the kernel.  Group-wise scales are folded into the
+* :func:`dequant_matmul` (B13 ``_dequant_kernel``): y = x . dequant(w_q,
+  s), int8 or planar int4 weights expanded in the kernel, on the route
+  :func:`dequant_route` gives: ``csrc/dequant_wgmma.cu`` (the Hopper tile
+  engine, one launch, no workspace) for aligned bf16 / fp16, else
+  ``csrc/dequant_gemm.cu``.  Group-wise scales are folded into the
   weights in the compute type (one rounding of q * s, none for fp32
   inputs); per-channel scales multiply the fp32 accumulator at the store.
 * :func:`w8a8_matmul` -> ``csrc/w8a8_gemm.cu``: with ``fuse_quant`` (B14
@@ -31,6 +33,8 @@ through float64 matmuls; fp32 scaling in the kernel's order).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -100,6 +104,98 @@ def dequant_matmul_plain(x, w_q, scales, *, bits=8, group_size=None,
     return y.to(out_dtype or x.dtype)
 
 
+# B13 on the tile engine (csrc/dequant_wgmma.cu): K values a step (128 int8
+# rows or 64 planar int4 rows of packed weights), the row tile, the N tiles
+# the kernel is built for (widest first), and the most K splits of one tile
+# (a portable cluster).
+DEQUANT_ENGINE_STEP = 128
+DEQUANT_ENGINE_BM = 64
+DEQUANT_ENGINE_BN = (128, 64, 32)
+DEQUANT_ENGINE_MAX_SPLITS = 8
+
+
+def dequant_route(x_dtype, n: int, k: int, group: int, aligned: bool) -> str:
+    """The kernel a B13 launch takes: ``"wgmma"`` (``csrc/dequant_wgmma.cu``,
+    the Hopper tile engine) for bf16 / fp16 x whose rows and packed weight
+    rows are whole 16-byte units (K % 8 == 0, N % 16 == 0) with 16-byte
+    bases (``aligned``), and whose scale groups tile the engine's 128-deep
+    K step (``group`` divides it, at least 16, or is a multiple of it;
+    ``group`` is K for per-channel scales); ``"mma.sync"``
+    (``dequant_tc``) for the other bf16 / fp16 calls, ``"simt"``
+    (``dequant_simt``) for fp32.  Chosen by shape, never as a fallback."""
+    if x_dtype == torch.float32:
+        return "simt"
+    step = DEQUANT_ENGINE_STEP
+    tiles = (16 <= group and step % group == 0) or group % step == 0
+    if aligned and k % 8 == 0 and n % 16 == 0 and tiles:
+        return "wgmma"
+    return "mma.sync"
+
+
+def dequant_engine_plan(m: int, n: int, k: int, sms: int, clusters=None) -> tuple:
+    """(N tile, K splits) of a B13 engine launch on a card of ``sms`` SMs
+    that holds ``clusters(bn, splits)`` clusters of a plan at once (default
+    ``sms // splits``): the widest N tile whose (64-row, N) tiles, split
+    ``DEQUANT_ENGINE_MAX_SPLITS`` ways, still fill three quarters of the
+    card (the narrowest built, 32, otherwise); then K split into whole
+    128-deep steps, none empty, as far as tiles x splits reach the SM count
+    and the tiles' clusters fit the card at once.  A split is a block of a
+    thread block cluster: the cluster sums its partials in shared memory."""
+    tiles_m = cdiv(m, DEQUANT_ENGINE_BM)
+    cap = DEQUANT_ENGINE_MAX_SPLITS
+    bn = next((b for b in DEQUANT_ENGINE_BN if cdiv(n, b) * tiles_m * cap * 4 >= sms * 3),
+              DEQUANT_ENGINE_BN[-1])
+    tiles, steps = cdiv(n, bn) * tiles_m, cdiv(k, DEQUANT_ENGINE_STEP)
+    fits = clusters or (lambda bn, splits: sms // splits)
+    for want in range(min(steps, cap, cdiv(sms, tiles)), 1, -1):
+        splits = cdiv(steps, cdiv(steps, want))
+        if tiles <= fits(bn, splits):
+            return bn, splits
+    return bn, 1
+
+
+def sm_count(device) -> int:
+    """The SM count of ``device``, read once per device."""
+    idx = _index(device)
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _engine_plan(device, m: int, n: int, k: int) -> tuple:
+    """:func:`dequant_engine_plan` for ``device``, found once per shape."""
+    key = (_index(device), m, n, k)
+    if key not in _PLANS:
+        _PLANS[key] = dequant_engine_plan(m, n, k, sm_count(device), engine_clusters(device))
+    return _PLANS[key]
+
+
+def engine_clusters(device):
+    """``clusters(bn, splits)`` of :func:`dequant_engine_plan` for
+    ``device``: how many clusters of the plan the card holds at once
+    (cudaOccupancyMaxActiveClusters), read once per device and plan."""
+    idx = _index(device)
+
+    def clusters(bn: int, splits: int) -> int:
+        key = (idx, bn, splits)
+        if key not in _CLUSTERS:
+            got = ctypes.c_int(0)
+            with torch.cuda.device(idx):
+                rc = _build.library().dequant_wgmma_clusters(bn, splits, ctypes.byref(got))
+            _build.check(rc, "dequant_wgmma_clusters")
+            _CLUSTERS[key] = got.value
+        return _CLUSTERS[key]
+    return clusters
+
+
+def _index(device) -> int:
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
+
+
+_SMS, _CLUSTERS, _PLANS = {}, {}, {}
+
+
 def _dequant_splits(m: int, n: int, k: int, sms: int) -> int:
     """K splits of one B13 launch: enough (m, n) tiles x splits for two
     blocks on each of the card's ``sms`` SMs, each split a whole number of
@@ -113,7 +209,7 @@ def _dequant_splits(m: int, n: int, k: int, sms: int) -> int:
 
 
 def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
-                   group_size=None, interpret=None):
+                   group_size=None, interpret=None, route=None):
     """y[M, N] = x[M, K] . dequant(w_q, scales) (kernel B13).
 
     Args:
@@ -127,6 +223,8 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
 
     The JAX wrapper's checks: K a multiple of block_k; group-wise scales
     need block_k a whole multiple of group_size; the packed row count.
+    The kernel is :func:`dequant_route`'s, recorded as
+    ``dequant_matmul.last_route``; ``route`` names one for comparisons.
     """
     m, k = x.shape
     n = w_q.shape[1]
@@ -163,20 +261,27 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    splits = _dequant_splits(
-        m, n, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    route = route or dequant_route(x.dtype, n, k, g, x.data_ptr() % 16 == 0)
     lib = _build.library()
+    ptrs = (x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr())
+    codes = (_build.dtype_code(x.dtype), _build.dtype_code(out_dtype))
     with torch.cuda.device(x.device):
-        rc = lib.dequant_gemm(
-            x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, n, k, bits, g, n_groups,
-            splits, _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
-            int(x.data_ptr() % 16 == 0 and k % 8 == 0),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            bn, splits = _engine_plan(x.device, m, n, k)
+            rc = lib.dequant_wgmma(*ptrs, m, n, k, bits, g, n_groups, bn, splits, *codes,
+                                   stream)
+        else:
+            splits = _dequant_splits(m, n, k, sm_count(x.device))
+            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+                  if splits > 1 else None)
+            rc = lib.dequant_gemm(
+                *ptrs, None if ws is None else ws.data_ptr(), m, n, k, bits, g,
+                n_groups, splits, *codes, int(x.data_ptr() % 16 == 0 and k % 8 == 0),
+                stream)
     _build.check(rc, "dequant_matmul")
     dequant_matmul.launches += 1
+    dequant_matmul.last_route = route
     return out
 
 
@@ -339,7 +444,9 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted): B13; B14 (quantize + GEMM, counted once a call); B15.
+# counted): B13; B14 (quantize + GEMM, counted once a call); B15.  The
+# route of B13's last launch.
 dequant_matmul.launches = 0
+dequant_matmul.last_route = None
 w8a8_matmul.fused_launches = 0
 w8a8_matmul.launches = 0

@@ -7,7 +7,8 @@ operand: diagonal d is the exact int32 sum P_d = sum_{i+j=d} sa_i . sb_j.
 
 * :func:`fused_int8_fp32` (B4): P_d over all of K, combined as
   sum_d P_d * 2^(-7d) in fp32 (d ascending), times the row / column ulps
-  when given.
+  when given; :func:`diag_route` sends it to the Hopper tile engine
+  (``csrc/diag_wgmma.cu``) or to the ``mma.sync`` kernel by shape.
 * :func:`fused_ozaki_int8` (B5): P_d per K block of ``block_k``, split into
   fp32-exact halves and TwoSum-flushed into (hi, lo).
 
@@ -57,6 +58,26 @@ def ozaki_route(lda: int, ldb: int, block_k: int, aligned: bool) -> str:
     shape, never as a fallback: a kernel that fails to build or launch
     raises."""
     if aligned and lda % 16 == 0 and ldb % 16 == 0 and block_k % OZ_ENGINE_SLAB == 0:
+        return "wgmma"
+    return "mma.sync"
+
+
+# B4 on the Hopper tile engine (csrc/diag_wgmma.cu): the most diagonals it
+# keeps in registers (4, on a 128 x 64 tile; up to 3 on 128 x 128).
+DIAG_ENGINE_MAX_DIAGS = 4
+
+
+def diag_route(n_diags: int, lda: int, ldb: int, aligned: bool) -> str:
+    """The kernel a B4 launch takes: ``"wgmma"`` (the Hopper tile engine,
+    ``diag_wg_kernel``: every used slice's A and B^T slab of a K step
+    landed once by TMA, every diagonal's int32 accumulator in registers)
+    for at most ``DIAG_ENGINE_MAX_DIAGS`` diagonals where every slice row is
+    a whole number of 16-byte units (the row pitches ``lda`` of A_i and
+    ``ldb`` of B_j^T, in int8 elements, and the bases ``aligned``: what a
+    TMA map describes); ``"mma.sync"`` (``slice_gemm_kernel``) otherwise.
+    Chosen by shape, never as a fallback."""
+    if (n_diags <= DIAG_ENGINE_MAX_DIAGS and aligned and lda % 16 == 0
+            and ldb % 16 == 0):
         return "wgmma"
     return "mma.sync"
 
@@ -177,7 +198,7 @@ def _k_rows(slices, what):
     return slices, slices[0].stride(0)
 
 
-def _launch(sa, sb, m, n, k, n_diags, outs, ulps, flush_steps, what):
+def _launch(sa, sb, m, n, k, n_diags, outs, ulps, flush_steps, what, route=None):
     n_used = min(len(sa), n_diags)
     if n_diags > _MAX_DIAGS:
         raise NotImplementedError(
@@ -195,20 +216,24 @@ def _launch(sa, sb, m, n, k, n_diags, outs, ulps, flush_steps, what):
                          f"{sbt[0].device}")
     aligned = all(s.data_ptr() % 16 == 0 for s in sa + sbt)
     vec = int(lda % 16 == 0 and ldb % 16 == 0 and aligned)
-    route = (ozaki_route(lda, ldb, flush_steps * _K_STEP, aligned)
-             if flush_steps else "mma.sync")
+    route = route or (ozaki_route(lda, ldb, flush_steps * _K_STEP, aligned)
+                      if flush_steps else diag_route(n_diags, lda, ldb, aligned))
     pa = (ctypes.c_void_p * n_used)(*(s.data_ptr() for s in sa))
     pb = (ctypes.c_void_p * n_used)(*(s.data_ptr() for s in sbt))
     c, c2 = (outs + [None])[:2]
     ua, ub = ulps if ulps is not None else (None, None)
+    ua, ub = (None if u is None else u.data_ptr() for u in (ua, ub))
     lib = _build.library()
     with torch.cuda.device(sa[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.slice_gemm(
-            pa, pb, n_used, c.data_ptr(), None if c2 is None else c2.data_ptr(),
-            None if ua is None else ua.data_ptr(),
-            None if ub is None else ub.data_ptr(), m, n, k, lda, ldb, n_diags,
-            flush_steps, vec, int(route == "wgmma"), stream)
+        if route == "wgmma" and not flush_steps:
+            rc = lib.slice_diag_wgmma(pa, pb, n_used, c.data_ptr(), ua, ub, m, n,
+                                      k, lda, ldb, n_diags, stream)
+        else:
+            rc = lib.slice_gemm(
+                pa, pb, n_used, c.data_ptr(), None if c2 is None else c2.data_ptr(),
+                ua, ub, m, n, k, lda, ldb, n_diags, flush_steps, vec,
+                int(route == "wgmma"), stream)
     _build.check(rc, what)
     return route
 
@@ -225,7 +250,7 @@ def _ulp_vector(u, length, device):
 
 def fused_int8_fp32(sa, sb, ulp_a=None, ulp_b=None, *, block_m: int = 512,
                     block_n: int = 1024, block_k: int = 4096,
-                    n_diags: int = None):
+                    n_diags: int = None, route=None):
     """fp32-class slice-triangle GEMM (kernel B4): (n, M, K) int8 x
     (n, K, N) int8 -> (M, N) float32.
 
@@ -235,7 +260,9 @@ def fused_int8_fp32(sa, sb, ulp_a=None, ulp_b=None, *, block_m: int = 512,
     (M, 1) and ``ulp_b`` (1, N) (both or neither) the ulp rescale is fused
     into the store; otherwise the result is unscaled.  Requires
     ``n_slices * 127^2 * K < 2^31`` (K <= 44380 for 3 slices); beyond it,
-    use :func:`fused_ozaki_int8`.
+    use :func:`fused_ozaki_int8`.  The kernel is :func:`diag_route`'s,
+    recorded as ``fused_int8_fp32.last_route``; ``route`` names one for
+    comparisons.
     """
     n_slices, m, n, k, sa_l, sb_l = _split_operands(sa, sb)
     if n_diags is None:
@@ -260,7 +287,8 @@ def fused_int8_fp32(sa, sb, ulp_a=None, ulp_b=None, *, block_m: int = 512,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     ulps = ((_ulp_vector(ulp_a, m, dev), _ulp_vector(ulp_b, n, dev))
             if scaled else None)
-    _launch(sa_l, sb_l, m, n, k, n_diags, [out], ulps, 0, "kernel B4")
+    fused_int8_fp32.last_route = _launch(sa_l, sb_l, m, n, k, n_diags, [out],
+                                         ulps, 0, "kernel B4", route)
     fused_int8_fp32.launches += 1
     return out
 
@@ -302,7 +330,8 @@ def fused_ozaki_int8(sa, sb, *, block_m: int = 128, block_n: int = 512,
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted), and the route of B5's last launch.
+# counted), and the route of each kernel's last launch.
 fused_int8_fp32.launches = 0
+fused_int8_fp32.last_route = None
 fused_ozaki_int8.launches = 0
 fused_ozaki_int8.last_route = None

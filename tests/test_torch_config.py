@@ -237,4 +237,7 @@ def test_perf_model_h100_peaks():
     assert H100.peak_for("int8") == 1979e12
     assert H100.peak_for("tfloat32") == 495e12
     assert H100.peak_for(torch.float32) == 67e12
-    assert np.isclose(H100.vpu_ops, 67e12)
+    # One CUDA-core instruction per lane per clock (132 SMs x 128 lanes x
+    # 1.98 GHz), a semiring term's (map, reduce) pair two instructions
+    # counted as 2 ops: half the FMA-counted fp32 rate.
+    assert np.isclose(H100.vpu_ops, 33.45e12, rtol=1e-3)

@@ -139,6 +139,30 @@ def test_fused_int8_fp32_plain_matches_pallas(n_slices, form):
         np.testing.assert_allclose(got, exp, rtol=1e-6)
 
 
+@pytest.mark.parametrize("n_slices,n_diags,k", [(3, 2, 192), (4, 3, 320), (4, 2, 192),
+                                               (2, 1, 64), (3, 3, 448)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_fused_int8_fp32_plain_matches_pallas_below_n_slices(n_slices, n_diags, k, scaled):
+    # The diagonals the engine route keeps (n_diags below n_slices, one
+    # diagonal) at K off its 128-deep slab: the plain B4 equals the Pallas
+    # _diag_kernel exactly unscaled, to 1e-6 with the ulps.
+    m, n = 32, 128
+    sa, sb = _slices(n_slices, m, n, k, seed=10 + n_slices + n_diags)
+    rng = np.random.default_rng(k)
+    ua = (2.0 ** rng.integers(-9, 3, (m, 1))).astype(np.float32)
+    ub = (2.0 ** rng.integers(-9, 3, (1, n))).astype(np.float32)
+    ulps_j = (jnp.asarray(ua), jnp.asarray(ub)) if scaled else ()
+    ulps_t = (_t(ua), _t(ub)) if scaled else ()
+    exp = np.asarray(jax_oz.fused_int8_fp32(jnp.asarray(sa), jnp.asarray(sb), *ulps_j,
+                                            block_m=32, block_n=128, block_k=64,
+                                            n_diags=n_diags))
+    got = slice_kernels.fused_int8_fp32(_t(sa), _t(sb), *ulps_t, n_diags=n_diags).numpy()
+    if scaled:
+        np.testing.assert_allclose(got, exp, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, exp)
+
+
 @pytest.mark.parametrize("n_slices,n_diags", [(2, None), (3, 3), (8, 8)])
 def test_fused_ozaki_int8_plain_matches_pallas(n_slices, n_diags):
     m, n, k = 32, 128, 512
@@ -413,6 +437,51 @@ def test_card_table_takes_the_routes_it_names():
         assert slice_kernels.ozaki_route(pitch, pitch, block_k, True) == route, case
         routes.add(route)
     assert routes == {"wgmma", "mma.sync"}
+
+
+@pytest.mark.parametrize("n_diags,lda,ldb,aligned,want", [
+    (3, 8192, 8192, True, "wgmma"),      # i8x3 at 8192^3
+    (2, 4096, 2048, True, "wgmma"),
+    (4, 1008, 1008, True, "wgmma"),      # K off the 128 slab, pitch 16-byte
+    (1, 1024, 1024, True, "wgmma"),
+    (5, 1024, 1024, True, "mma.sync"),   # more diagonals than the engine holds
+    (9, 1024, 1024, True, "mma.sync"),   # phase 10a's 8 slices
+    (3, 1000, 1024, True, "mma.sync"),   # A's pitch off 16 bytes
+    (3, 1024, 131, True, "mma.sync"),    # B's pitch off 16 bytes
+    (3, 1024, 1024, False, "mma.sync"),  # a base off 16 bytes
+])
+def test_diag_route(n_diags, lda, ldb, aligned, want):
+    # B4 takes the engine for at most 4 diagonals where TMA describes every
+    # slice row (16-byte pitches and bases); any K, as TMA zero-fills it.
+    assert slice_kernels.diag_route(n_diags, lda, ldb, aligned) == want
+
+
+def test_diag_card_table_takes_the_routes_it_names():
+    # chip_smoke.py's B4 route table (phase 10a and the card tests): the
+    # route each case asserts is diag_route's for its pitches (B's slices
+    # K-contiguous with A's pitch, as the wrapper reads them); each engine
+    # case also runs on mma.sync; the edge cases sit at the whole-K bound.
+    import chip_smoke
+
+    routes = set()
+    for case in chip_smoke.DIAG_ROUTE_CASES + [chip_smoke.DIAG_REPEAT_CASE]:
+        ns, n_diags, (_, _, k), layout, _, fill, route = case
+        pitch = (k + 15) // 16 * 16 + 16 if layout == "pitched" else k
+        assert slice_kernels.diag_route(n_diags, pitch, pitch, True) == route, case
+        assert ns * 127 ** 2 * k < 2 ** 31, case
+        if fill == "max":
+            assert ns * 127 ** 2 * (k + 16) >= 2 ** 31, case
+        routes.add(route)
+    assert routes == {"wgmma", "mma.sync"}
+    overrides = [c for c, r in chip_smoke.DIAG_RUNS if r == "mma.sync"]
+    assert overrides == [c for c in chip_smoke.DIAG_ROUTE_CASES if c[-1] == "wgmma"]
+
+
+def test_plain_b4_leaves_the_route_alone():
+    slice_kernels.fused_int8_fp32.last_route = None
+    sa, sb = (_t(x) for x in _slices(3, 8, 16, 32))
+    slice_kernels.fused_int8_fp32(sa, sb)
+    assert slice_kernels.fused_int8_fp32.last_route is None
 
 
 def test_plain_b5_leaves_the_route_alone():

@@ -577,6 +577,17 @@ def test_b5_engine_launches_repeat_bitwise(cuda):
     chip_smoke.b5_repeats(torch, _gen(234))
 
 
+@pytest.mark.parametrize("case,route", chip_smoke.DIAG_RUNS, ids=str)
+def test_b4_routes_equal_plain(cuda, case, route):
+    # Each case on the route it names, every engine case again on mma.sync:
+    # the exact diagonals and the plain combine order give the plain bits.
+    chip_smoke.diag_route_case(torch, _gen(237), case, route)
+
+
+def test_b4_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.diag_repeats(torch, _gen(238))
+
+
 @pytest.mark.parametrize("case", ["whole_k", "block_k", "diagonals", "devices"])
 def test_slice_kernel_refusals_on_the_card(cuda, case):
     sa, sb = _int8_slices(3, 8, 64, cuda, 5), _int8_slices(3, 64, 16, cuda, 6)
@@ -820,6 +831,15 @@ def test_flash_bwd_engine_launches_repeat_bitwise(cuda):
 @pytest.mark.parametrize("case", chip_smoke.DEQUANT_CASES, ids=str)
 def test_dequant_kernel_vs_plain(cuda, case):
     chip_smoke.dequant_case(torch, _gen(37), case)
+
+
+@pytest.mark.parametrize("case,route", chip_smoke.DEQUANT_RUNS, ids=str)
+def test_dequant_routes_match_plain(cuda, case, route):
+    chip_smoke.dequant_route_case(torch, _gen(38), case, route)
+
+
+def test_dequant_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.dequant_repeats(torch, _gen(39))
 
 
 @pytest.mark.parametrize("case", chip_smoke.W8A8_CASES, ids=str)

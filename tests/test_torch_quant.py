@@ -136,6 +136,106 @@ def test_dequant_bf16_x_vs_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("g", [32, None])
+@pytest.mark.parametrize("m", [64, 256])
+def test_matmul_quantized_vs_jax_at_engine_shapes(m, g):
+    # int4 at the engine route's shapes (bf16 x, N 512, g32 and
+    # per-channel); K 512 is one K-block on both sides (ROADMAP C:
+    # pallas_dequant.py's per-channel int4 over several blocks is wrong).
+    rng = _rng(10 + m)
+    w = rng.standard_normal((512, 512)).astype(np.float32)
+    x = rng.standard_normal((m, 512)).astype(np.float32)
+    wq, s = quantize_weights(w, bits=4, group_size=g)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jquant.matmul_quantized(
+        xb, jnp.asarray(wq), jnp.asarray(s), bits=4, group_size=g,
+        out_dtype=jnp.float32, interpret=True))
+    got = matmul_quantized(_t(np.asarray(xb, np.float32)).bfloat16(), wq, s,
+                           bits=4, group_size=g, out_dtype=torch.float32)
+    assert dequant.dequant_route(torch.bfloat16, 512, 512, g or 512, True) == "wgmma"
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,n,k,g,aligned,want", [
+    (torch.bfloat16, 2048, 2048, 128, True, "wgmma"),   # the decode q / o projection
+    (torch.bfloat16, 512, 2048, 128, True, "wgmma"),    # the decode k / v projection
+    (torch.float16, 512, 2048, 32, True, "wgmma"),
+    (torch.bfloat16, 2048, 2048, 16, True, "wgmma"),    # the narrowest group a step holds
+    (torch.bfloat16, 2048, 2048, 2048, True, "wgmma"),  # per-channel: a multiple of the step
+    (torch.bfloat16, 1001, 2048, 128, True, "mma.sync"),  # N not a whole 16-byte row
+    (torch.bfloat16, 2048, 1000, 1000, True, "mma.sync"),  # per-channel off the step
+    (torch.bfloat16, 2048, 2016, 96, True, "mma.sync"),  # g96 does not tile 128
+    (torch.bfloat16, 2048, 2048, 8, True, "mma.sync"),   # groups under 16
+    (torch.bfloat16, 2048, 2048, 128, False, "mma.sync"),  # a base off 16 bytes
+    (torch.float32, 2048, 2048, 128, True, "simt"),
+    (torch.float32, 1001, 1000, 1000, False, "simt"),
+])
+def test_dequant_route(dtype, n, k, g, aligned, want):
+    # The engine takes bf16 / fp16 with 16-byte rows and bases and groups
+    # that tile its 128-deep K step; fp32 x stays on the CUDA cores.
+    assert dequant.dequant_route(dtype, n, k, g, aligned) == want
+
+
+# Clusters an H100 (132 SMs) holds at once by splits, as
+# cudaOccupancyMaxActiveClusters reported them for the engine (PERF.md, section 6).
+_H100_CLUSTERS = {8: 15, 6: 17, 4: 30, 2: 66}
+
+
+@pytest.mark.parametrize("m,n,k,plan,card", [
+    (64, 2048, 2048, (128, 8), False),  # the decode q / o projection: 128 blocks
+    (64, 2048, 2048, (128, 6), True),   # 16 clusters of 8 do not fit the card at once
+    (64, 512, 2048, (32, 8), False),    # k / v: 16 tiles of 32
+    (64, 512, 2048, (32, 6), True),
+    (256, 2048, 2048, (128, 2), False),  # 64 tiles: 3 splits would take two waves
+    (1, 512, 96, (32, 1), True),
+    (4096, 2048, 2048, (128, 1), True),
+])
+def test_dequant_engine_plan(m, n, k, plan, card):
+    held = (lambda bn, splits: _H100_CLUSTERS[splits]) if card else None
+    assert dequant.dequant_engine_plan(m, n, k, 132, held) == plan
+
+
+def test_dequant_engine_plan_leaves_no_rank_empty():
+    # Every split a whole number of steps and none empty, at most a
+    # portable cluster, whatever the shape and SM count.
+    for sms in (1, 78, 132):
+        for m in (1, 64, 130, 1024):
+            for n in (16, 512, 528, 2048):
+                for k in (8, 96, 128, 1000, 2048, 8192):
+                    bn, splits = dequant.dequant_engine_plan(m, n, k, sms)
+                    steps = -(-k // dequant.DEQUANT_ENGINE_STEP)
+                    per = -(-steps // splits)
+                    assert bn in dequant.DEQUANT_ENGINE_BN
+                    assert 1 <= splits <= dequant.DEQUANT_ENGINE_MAX_SPLITS
+                    assert (splits - 1) * per < steps
+
+
+def test_dequant_card_table_takes_the_routes_it_names():
+    # chip_smoke.py's B13 route table (phase 16 and the card tests): the
+    # route each case asserts is dequant_route's; each engine case also
+    # runs on mma.sync.
+    import chip_smoke
+
+    routes = set()
+    for case in chip_smoke.DEQUANT_ROUTE_CASES:
+        dt, _, g, _, n, k, _, route = case
+        assert dequant.dequant_route(getattr(torch, dt), n, k, g or k, True) == route, case
+        assert k % (g or k) == 0, case
+        routes.add(route)
+    assert routes == {"wgmma", "mma.sync", "simt"}
+    overrides = [c for c, r in chip_smoke.DEQUANT_RUNS if r == "mma.sync"]
+    assert overrides == [c for c in chip_smoke.DEQUANT_ROUTE_CASES if c[-1] == "wgmma"]
+    assert chip_smoke.DEQUANT_REPEAT_CASE[-1] == "wgmma"
+
+
+def test_plain_dequant_leaves_the_route_alone():
+    dequant.dequant_matmul.last_route = None
+    wq, s = quantize_weights(_rng(11).standard_normal((64, 32)).astype(np.float32), bits=8)
+    dequant.dequant_matmul(torch.ones(4, 64), _t(wq), _t(s),
+                           cfg=GemmConfig(dtype="float32", block_k=64))
+    assert dequant.dequant_matmul.last_route is None
+
+
 def test_dequant_rejects_mismatches():
     rng = _rng(9)
     w = rng.standard_normal((256, 128)).astype(np.float32)
