@@ -7,7 +7,8 @@ Phases, each printed as it ends:
   1. device check: a CUDA device is required (there is no CPU path);
   2. build every kernel from ``gemm_hls_tpu_torch/csrc`` with nvcc (sm_90a,
      one nvcc per source, all at once), and list the kernels ptxas spilled
-     registers in and those whose wgmma it serialised (warning C7515);
+     registers in and those whose wgmma it serialised (warnings C7515 and
+     C7518), and the W8A8 engine kernel's registers;
   3. kernel B1 (dense plus_times) against its plain PyTorch version on the
      card: bf16, fp16, fp32, int8 -> int32 and int32, four layouts, odd,
      unaligned and 1024-class shapes, bool or_and, autograd gradients;
@@ -103,21 +104,26 @@ Phases, each printed as it ends:
      calls;
  16. the quantized and grouped kernels against their plain versions:
      ``dequant_gemm`` (B13: int8 / int4, per-channel / group-wise, M 1, 64,
-     130, ragged N), ``w8a8_gemm`` (B14 / B15: both routes as the JAX rule
-     picks them, int_acc on and off, zero rows, the int8 activations equal
-     to the plain quantize's), ``grouped_gemm`` (B16: tests/test_grouped.py's
-     matrix, transpose_rhs, bf16 / fp16 / fp32, the zero tail exact), then
-     DEQUANT_ROUTE_CASES on B13's routes (the wgmma engine, mma.sync, the
-     CUDA cores; every engine case again on mma.sync) and
-     GROUPED_ROUTE_CASES on both B16 routes, the route checked each, and 20
-     launches of one engine case of each with the same bits;
+     130, ragged N), ``w8a8_gemm`` (B14 / B15: both schedules as the JAX
+     rule picks them, int_acc on and off, zero rows, the int8 activations
+     equal to the plain quantize's), ``grouped_gemm`` (B16:
+     tests/test_grouped.py's matrix, transpose_rhs, bf16 / fp16 / fp32, the
+     zero tail exact), then DEQUANT_ROUTE_CASES on B13's routes (the wgmma
+     engine, mma.sync, the CUDA cores; every engine case again on mma.sync),
+     W8A8_ROUTE_CASES on both B14 / B15 routes (the wgmma engine and
+     mma.sync: the three modes, group-wise and past the int32 bound, both
+     N tiles; every engine case again on mma.sync, bitwise equal; the int8
+     activations and scales equal to plain) and GROUPED_ROUTE_CASES on both
+     B16 routes, the route checked each, and 20 launches of one engine case
+     of each with the same bits;
  17. slice 5's main path, launch counts set to 0 before it and read after:
      the serving decoder block (examples/15_serving_decoder.py) at
      experiments/serving_bench.py's width, every port call under
      ``torch.cuda.set_sync_debug_mode("error")``: prefill B 4 x S 1024
      (W8A8 projections, causal GQA flash, the MoE on B16) against the plain
      bf16 block with un-quantized weights at the example's quantization
-     budget, once on B14 and once on B15; 8 decode steps at 64 sequences x
+     budget, once on B14 and once on B15, every W8A8 GEMM launch's route
+     recorded and checked (the engine); 8 decode steps at 64 sequences x
      4096 slots (int4 g128 projections on B13, padded-cache flash, the MoE)
      against the plain step with the same int4 weights; the flash, B16 and
      B13 routes printed and checked (every decode projection's shape on the
@@ -126,7 +132,11 @@ Phases, each printed as it ends:
      bounds, plain versions and library calls (bf16 ``torch.matmul`` on the
      dequantized weights, ``torch._int_mm``, ``torch._grouped_mm``; B13 at
      the decode q and k / v projections on both routes, in turns on device
-     time with host us a call; B16 in
+     time with host us a call; B14 and B15 at the prefill's q / o and k / v
+     projections in turns on device time, the whole call on both routes,
+     the quantize pass and the GEMM apart, beside ``torch._int_mm`` with
+     row-major and column-major weights and bf16 ``torch.matmul``, with
+     host us a call (``w8a8_times``); B16 in
      turns on device time with its other route, w2's dlhs too), and the
      serving prefill and decode step beside the plain composition, with a
      profile of each (the decode's B13 one engine launch a projection, no
@@ -2881,6 +2891,8 @@ def reset_quant_counters():
     from gemm_hls_tpu_torch.ops import dequant, gmm
     dequant.dequant_matmul.launches = 0
     dequant.w8a8_matmul.fused_launches = dequant.w8a8_matmul.launches = 0
+    dequant.w8a8_matmul.routes = {}
+    dequant.w8a8_matmul.last_route = None
     gmm.grouped_mxu.launches = 0
 
 
@@ -2951,6 +2963,39 @@ W8A8_CASES = [
     # 127^2 K >= 2^31: per-block fp32 scaling, N ragged
     ("float32", None, 8, 130, 135168, False, False, "float32", "B15"),
 ]
+# B14 / B15's routes (``ops.dequant.w8a8_route``), phase 16's route table,
+# which tests/test_torch_kernels.py parametrises too: (x dtype, group
+# (None: per-channel), M, N, K, block_k (None: the front door's), fuse_quant
+# asked, zero rows, output dtype, route).  Each engine case runs again on
+# mma.sync (the route override) and must give the same bits.  The engine:
+# the three modes (fused with one scale block, as the prefill; int_acc;
+# per_block group-wise and past the int32 bound), fused with 4 K-blocks
+# and group-wise (bk 128), per_block group-wise at bk 256; bf16 / fp16 /
+# fp32 x and outputs; M 1, 64, 130 and 2200 / 4864 (enough tiles for the
+# 128-wide N tile on an H100); N 512, 2048, 784 (off both N tiles) and 144;
+# K 1040 (a partial 128-deep step).  mma.sync: K off 16 bytes, N off 16
+# bytes, per_block at bk 64 and bk 32 (the tile's 32-deep fold).
+W8A8_ROUTE_CASES = (
+    ("bfloat16", None, 2200, 2048, 1024, None, True, True, "bfloat16", "wgmma"),
+    ("float32", None, 4864, 784, 512, None, False, True, "float32", "wgmma"),
+    ("bfloat16", None, 130, 2048, 2048, None, True, True, "bfloat16", "wgmma"),
+    ("bfloat16", None, 64, 512, 2048, None, False, False, "bfloat16", "wgmma"),
+    ("float16", None, 1, 2048, 1024, None, True, False, "float16", "wgmma"),
+    ("float32", None, 130, 784, 1024, None, False, True, "float32", "wgmma"),
+    ("bfloat16", None, 64, 512, 1040, None, False, True, "float32", "wgmma"),
+    ("bfloat16", None, 130, 784, 2048, 512, True, True, "bfloat16", "wgmma"),
+    ("bfloat16", 128, 64, 512, 1024, None, True, False, "float32", "wgmma"),
+    ("float16", 256, 130, 2048, 1024, None, False, True, "bfloat16", "wgmma"),
+    ("float32", 128, 1, 784, 512, None, False, False, "float16", "wgmma"),
+    ("float32", None, 8, 144, 135168, None, False, False, "float32", "wgmma"),
+    ("bfloat16", None, 64, 512, 1000, None, False, False, "bfloat16", "mma.sync"),
+    ("bfloat16", None, 130, 1000, 1024, None, False, True, "bfloat16", "mma.sync"),
+    ("bfloat16", 64, 64, 512, 1024, None, False, False, "float32", "mma.sync"),
+    ("float32", 32, 130, 256, 512, None, False, True, "float32", "mma.sync"),
+)
+# The race check of the engine route: a fused case on the 128-wide N tile.
+W8A8_REPEAT_CASE = W8A8_ROUTE_CASES[0]
+W8A8_REPEATS = 20
 # B16: tests/test_grouped.py:40-48's (M, K, N, group sizes), each with and
 # without transpose_rhs, in bf16, fp16 and fp32.
 _GROUPED_SHAPES = [
@@ -3157,6 +3202,78 @@ def w8a8_case(torch, gen, case):
     return err
 
 
+def w8a8_route_plan(case):
+    """(config, fused, mode, block_k, route) of a W8A8_ROUTE_CASES case as
+    the wrapper resolves them on the host (the JAX rule, then
+    ``w8a8_route`` for 16-byte aligned operands)."""
+    import torch
+
+    from gemm_hls_tpu_torch import GemmConfig
+    from gemm_hls_tpu_torch.ops import dequant, quant
+    _, g, m, n, k, bk, fuse, _, out, _ = case
+    cfg = quant.w8a8_resolve(m, n, k, g, getattr(torch, out),
+                             GemmConfig(block_k=bk) if bk else None)
+    fused, mode, bk = dequant.w8a8_schedule(m, n, k, cfg, k // (g or k), fuse)
+    return cfg, fused, mode, bk, dequant.w8a8_route(n, k, bk, mode, True)
+
+
+def w8a8_route_operands(torch, gen, case):
+    from gemm_hls_tpu_torch import quantize_weights
+    dt, g, m, n, k, _, fuse, zero_rows, _, _ = case
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    wq, s = (torch.from_numpy(a).cuda()
+             for a in quantize_weights(_host(torch, w), bits=8, group_size=g))
+    x = signed(torch, (m, k), getattr(torch, dt), gen) * 4
+    x[:, : k // 2] *= 20
+    if zero_rows:
+        x[m // 2] = 0
+        x[m - 1] = 0
+    return x, wq, s, dict(cfg=w8a8_route_plan(case)[0], group_size=g, fuse_quant=fuse)
+
+
+def w8a8_route_case(torch, gen, case):
+    """One W8A8_ROUTE_CASES case on its route (checked): the int8
+    activations and their scales equal to the plain quantize's, the output
+    within quant_rtol of the plain version, zero rows exactly zero; an
+    engine case again on mma.sync (the route override), bitwise equal.
+    Returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import dequant
+    x, wq, s, kw = w8a8_route_operands(torch, gen, case)
+    _, fused, _, bk, _ = w8a8_route_plan(case)
+    got = dequant.w8a8_matmul(x, wq, s, **kw)
+    if dequant.w8a8_matmul.last_route != case[-1]:
+        raise AssertionError(f"W8A8 {case}: route {dequant.w8a8_matmul.last_route}")
+    qb = bk if fused else x.shape[1]
+    xq, sx = dequant._quantize_kernel(x, qb, fused)
+    pq, psx = dequant._quantize_plain(x, qb, fused)
+    if not (torch.equal(xq, pq) and torch.equal(sx.flatten(), psx.flatten())):
+        raise AssertionError(f"W8A8 {case}: int8 activations or scales differ from plain")
+    ref = dequant.w8a8_plain(x, wq, s, bk=bk, fused=fused, out_dtype=got.dtype)
+    err = compare(torch, got, ref, quant_rtol(torch, got.dtype), f"W8A8 {case} on {case[-1]}",
+                  scaled=True)[0]
+    if case[7] and bool(got[[x.shape[0] // 2, -1]].any()):
+        raise AssertionError(f"W8A8 {case}: a zero row gave a non-zero output")
+    if case[-1] == "wgmma":
+        other = dequant.w8a8_matmul(x, wq, s, route="mma.sync", **kw)
+        if not torch.equal(got, other):
+            raise AssertionError(f"W8A8 {case}: the engine and mma.sync differ by up to "
+                                 f"{float((got.float() - other.float()).abs().max()):.3e}")
+    return err
+
+
+def w8a8_repeats(torch, gen):
+    """W8A8_REPEAT_CASE launched W8A8_REPEATS times on the engine: the same
+    bits each."""
+    from gemm_hls_tpu_torch.ops import dequant
+    x, wq, s, kw = w8a8_route_operands(torch, gen, W8A8_REPEAT_CASE)
+    first = dequant.w8a8_matmul(x, wq, s, **kw)
+    for i in range(W8A8_REPEATS - 1):
+        again = dequant.w8a8_matmul(x, wq, s, **kw)
+        if dequant.w8a8_matmul.last_route != "wgmma" or not torch.equal(first, again):
+            raise AssertionError(f"W8A8: launch {i + 2} of {W8A8_REPEAT_CASE} differs from the "
+                                 f"first (route {dequant.w8a8_matmul.last_route})")
+
+
 def grouped_case(torch, gen, case):
     """One GROUPED_CASES case: ``grouped_matmul`` on the card (one B16
     launch) against the plain version; the rows past sum(group_sizes)
@@ -3257,6 +3374,18 @@ def phase_quant_kernels(torch):
         f"fp16, fp32 outputs; ragged N, a group off the step, fp32 x), route checked each: "
         f"ok (max abs err {worst:.3e}); {DEQUANT_REPEATS} launches of "
         f"{DEQUANT_REPEAT_CASE[:6]} on the engine: same bits")
+    worst = max(w8a8_route_case(torch, gen, case) for case in W8A8_ROUTE_CASES)
+    w8a8_repeats(torch, gen)
+    torch.cuda.synchronize()
+    routes = {}
+    for case in W8A8_ROUTE_CASES:
+        routes[case[-1]] = routes.get(case[-1], 0) + 1
+    log(f"phase 16: B14 / B15 route cases, {len(W8A8_ROUTE_CASES)} {routes} (fused one and 4 "
+        f"K-blocks, int_acc, per_block group-wise bk 128 / 256 and past the int32 bound; "
+        f"bf16 / fp16 / fp32; M 1 - 4864, N 144 - 2048 and 784, K 1040; K or N off 16 bytes, "
+        f"per_block bk 64 and 32), route checked each, int8 activations equal to plain, every "
+        f"engine case bitwise equal on mma.sync: ok (max abs err {worst:.3e}); "
+        f"{W8A8_REPEATS} launches of {W8A8_REPEAT_CASE[:5]} on the engine: same bits")
     worst = max(grouped_route_case(torch, gen, case) for case in GROUPED_ROUTE_CASES)
     grouped_repeats(torch, gen)
     torch.cuda.synchronize()
@@ -3469,7 +3598,7 @@ def phase_slice5(torch):
     bf16 intermediates in other places) and under 5% of tokens above 2e-2 (bf16 rounding can flip a
     near-tie routing), every output finite, with the cache slots past each
     length NaN (K) / +inf (V) in the port's cache."""
-    from gemm_hls_tpu_torch.ops import flash, gmm
+    from gemm_hls_tpu_torch.ops import dequant, flash, gmm
     c = SERVING
     dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
     dense, q8, q4, dense4, moe, cfg = serving_setup(torch)
@@ -3490,13 +3619,18 @@ def phase_slice5(torch):
             torch.cuda.set_sync_debug_mode("default")
         routes = (main_route(flash.flash_mha, "prefill flash", "wgmma"),
                   main_route(gmm.grouped_mxu, "prefill MoE", "wgmma"))
+        # Every W8A8 GEMM of the prefills so far (4 a prefill) on the engine.
+        w8_routes = dict(dequant.w8a8_matmul.routes)
+        if w8_routes != {"wgmma": 4 * (len(res) + 1)}:
+            raise AssertionError(f"prefill {route}: W8A8 GEMM routes {w8_routes}")
         rel_attn = float((y_attn.float() - want_attn.float()).abs().max()
                          / want_attn.float().abs().max())
         tok = token_errors(torch, y, want)
         med, flipped = float(tok.median()), float((tok > 0.1).float().mean())
         finite = bool(torch.isfinite(y.float()).all())
         log(f"phase 17a: prefill B={c['batch']} S={c['seq']} d={c['d_model']} "
-            f"({route} projections, causal GQA flash on route {routes[0]}, MoE on B16 "
+            f"({route} projections, W8A8 GEMM launches by route {w8_routes}, causal GQA "
+            f"flash on route {routes[0]}, MoE on B16 "
             f"route {routes[1]}): attention sublayer rel err {rel_attn:.4f}, median token "
             f"err {med:.4f}, {flipped:.1%} tokens routing-flipped")
         if not (finite and rel_attn < 0.05 and med < 0.05 and flipped < 0.1):
@@ -3538,7 +3672,6 @@ def phase_slice5(torch):
     res["decode"] = dict(median=worst_med, flipped=worst_flip)
     # Every decode projection's shape takes the engine (the rule is by shape:
     # q, k, v, o), and the last launch did.
-    from gemm_hls_tpu_torch.ops import dequant
     d, hd, kvh = c["d_model"], c["h_q"] * c["d_head"], c["h_kv"] * c["d_head"]
     proj = {name: dequant.dequant_route(torch.bfloat16, n, k, c["group"], True)
             for name, (k, n) in (("q", (d, hd)), ("k", (d, kvh)), ("v", (d, kvh)),
@@ -3665,6 +3798,107 @@ def b13_times(torch, rng):
     return out
 
 
+# B14 / B15 at the prefill projections (B 4 x S 1024 tokens, d 2048): q and o
+# (4096 x 2048 -> 2048), k and v (4096 x 2048 -> 512).  (M, K, N).
+W8A8_SHAPES = {"q/o": (4096, 2048, 2048), "k/v": (4096, 2048, 512)}
+
+
+def w8a8_times(torch, rng):
+    """B14 and B15 at W8A8_SHAPES, per-channel int8 weights, bf16 x and y.
+    Checked first: each call against the plain version, the GEMM alone and
+    the mma.sync route bitwise equal to the call, and torch._int_mm's int32
+    product of the per-row int8 x scaled as B15 scales it bitwise equal to
+    B15.  Then device ms a call in turns (``time_turns``): each whole call
+    (the quantize pass and the GEMM) on the rule's route and on mma.sync,
+    its quantize pass alone, its GEMM alone on both routes; torch._int_mm
+    with the weights row-major and column-major (made so once, outside the
+    timing); bf16 torch.matmul of x and the unquantized weights.  Host us a
+    call of each whole call.  Returns {"B14 q/o": {...}, ...}."""
+    from gemm_hls_tpu_torch import quantize_weights
+    from gemm_hls_tpu_torch.models.perf_model import H100, w8a8_bound
+    from gemm_hls_tpu_torch.ops import dequant, quant
+    from gemm_hls_tpu_torch.utils.benchmark import time_fn
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(185)
+    out = {}
+    for shape, (m, k, n) in W8A8_SHAPES.items():
+        w = rng.standard_normal((k, n)).astype("float32") / k ** 0.5
+        wq, s = (torch.from_numpy(a).cuda() for a in quantize_weights(w, bits=8))
+        w_bf16 = torch.from_numpy(w).cuda().to(bf16)
+        wq_cm = wq.t().contiguous().t()
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).to(bf16)
+        xq_pre, sx_pre = dequant.quantize_activations(x)
+        p_int = torch._int_mm(xq_pre, wq)
+        if not torch.equal(p_int, torch._int_mm(xq_pre, wq_cm)):
+            raise AssertionError(f"W8A8 {shape}: torch._int_mm differs by weight layout")
+        cfg = quant.w8a8_resolve(m, n, k, None, bf16)
+        fns = {"_int_mm row-major": lambda: torch._int_mm(xq_pre, wq),
+               "_int_mm col-major": lambda: torch._int_mm(xq_pre, wq_cm),
+               "bf16 matmul": lambda: x @ w_bf16}
+        info = {}
+        for key, fuse in (("B14", True), ("B15", False)):
+            fused, mode, bk = dequant.w8a8_schedule(m, n, k, cfg, 1, fuse)
+            route = dequant.w8a8_route(n, k, bk, mode, True)
+            qb = bk if fused else k
+            xq, sx = dequant._quantize_kernel(x, qb, fused)
+            y = torch.empty((m, n), dtype=bf16, device="cuda")
+            ys = torch.empty_like(y)
+            call = (lambda fuse=fuse, r=None: dequant.w8a8_matmul(x, wq, s, cfg=cfg,
+                                                                  fuse_quant=fuse, route=r))
+            fns[f"{key} call"] = call
+            fns[f"{key} call mma.sync"] = lambda call=call: call(r="mma.sync")
+            fns[f"{key} quantize"] = lambda qb=qb, fused=fused: dequant._quantize_kernel(x, qb, fused)
+            for r, dst in ((route, y), ("mma.sync", ys)):
+                fns[f"{key} gemm" + ("" if r == route else " mma.sync")] = (
+                    lambda xq=xq, sx=sx, bk=bk, mode=mode, r=r, dst=dst: dequant._w8a8_launch(
+                        xq, sx, wq, s, dst, bk=bk, mode=mode, route=r))
+            got = call()
+            ref = dequant.w8a8_plain(x, wq, s, bk=bk, fused=fused, out_dtype=bf16)
+            err = compare(torch, got, ref, BF16_RTOL, f"timed {key} {shape}", scaled=True)[0]
+            fns[f"{key} gemm"]()
+            fns[f"{key} gemm mma.sync"]()
+            if not (torch.equal(got, y) and torch.equal(got, ys)
+                    and torch.equal(got, call(r="mma.sync"))):
+                raise AssertionError(f"timed {key} {shape}: the GEMM alone or mma.sync differs")
+            if mode == "int_acc" and not torch.equal(
+                    got, ((p_int.float() * s[0]) * sx_pre).to(bf16)):
+                raise AssertionError(f"timed {key} {shape}: torch._int_mm scaled as B15 differs")
+            plain_ms = time_fn(lambda bk=bk, fused=fused: dequant.w8a8_plain(
+                x, wq, s, bk=bk, fused=fused, out_dtype=bf16), [()], iters=3, warmup=1) * 1e3
+            info[key] = dict(route=route, mode=mode, err=err, plain_ms=plain_ms,
+                             plan=dequant.w8a8_engine_plan(m, n, k, bk, mode,
+                                                           dequant.sm_count(x.device)))
+        turns = time_turns(torch, fns)
+        lib = {name: turns[f"_int_mm {name}"] for name in ("row-major", "col-major")}
+        best = min(lib, key=lib.get)
+        for key, i in info.items():
+            host = {r: host_us(torch, lambda r=r, key=key: fns[f"{key} call"](
+                r=None if r == i["route"] else r)) for r in (i["route"], "mma.sync")}
+            out[f"{key} {shape}"] = dict(
+                ms=turns[f"{key} call"], gemm_ms=turns[f"{key} gemm"],
+                quantize_ms=turns[f"{key} quantize"], other_ms=turns[f"{key} call mma.sync"],
+                other_gemm_ms=turns[f"{key} gemm mma.sync"], route=i["route"],
+                other_route="mma.sync", mode=i["mode"], plan=i["plan"], host_us=host,
+                plain_ms=i["plain_ms"], max_abs_err=i["err"], library_ms=lib[best],
+                library=f"torch._int_mm, weights {best}", library_other_ms=lib[
+                    "col-major" if best == "row-major" else "row-major"],
+                bf16_matmul_ms=turns["bf16 matmul"],
+                bound=w8a8_bound(H100, m, n, k, None, bf16, bf16))
+            log(f"phase 18: {key} {shape} {m}x{k}x{n} bf16 ({i['mode']}, route {i['route']}, "
+                f"N tile {i['plan']}), device ms a call in turns: call {turns[f'{key} call']:.4f} "
+                f"= quantize {turns[f'{key} quantize']:.4f} + GEMM {turns[f'{key} gemm']:.4f}; "
+                f"mma.sync call {turns[f'{key} call mma.sync']:.4f} (GEMM "
+                f"{turns[f'{key} gemm mma.sync']:.4f}); torch._int_mm row-major "
+                f"{lib['row-major']:.4f}, col-major {lib['col-major']:.4f}; bf16 torch.matmul "
+                f"{turns['bf16 matmul']:.4f}; host us a call: "
+                + ", ".join(f"{r} {us:.1f}" for r, us in host.items())
+                + f"; plain {i['plain_ms']:.3f} ms, bound "
+                f"{out[f'{key} {shape}']['bound'][0] * 1e3:.4f} ms; max abs err {i['err']:.3e}")
+        del x, xq_pre, p_int, wq, wq_cm, w_bf16
+    return out
+
+
 def phase_times5(torch):
     """Phase 18: the new kernels at their serving shapes beside their
     bounds, plain versions and library yardsticks (timed here, never called
@@ -3672,10 +3906,9 @@ def phase_times5(torch):
     composition (launches here are comparisons, not the main path's)."""
     import numpy as np
 
-    from gemm_hls_tpu_torch import quantize_weights
     from gemm_hls_tpu_torch.models.perf_model import (H100, dequant_bound, flash_bound,
                                                       grouped_bound, w8a8_bound)
-    from gemm_hls_tpu_torch.ops import dequant, gmm, quant
+    from gemm_hls_tpu_torch.ops import gmm
     from gemm_hls_tpu_torch.utils.benchmark import time_fn
 
     c = SERVING
@@ -3683,19 +3916,6 @@ def phase_times5(torch):
     gen = torch.Generator(device="cuda").manual_seed(181)
     rng = np.random.default_rng(181)
     out = {}
-
-    def entry(key, fn, plain, library, bound, tol):
-        got, ref = fn(), plain()
-        err = compare(torch, got, ref, tol, f"timed {key}", scaled=True)[0]
-        ms = time_fn(fn, [()], iters=20) * 1e3
-        plain_ms = time_fn(plain, [()], iters=3, warmup=1) * 1e3
-        lib_ms = time_fn(library, [()], iters=20) * 1e3 if library else None
-        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-                        bound=bound)
-        log(f"phase 18: {key}: {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
-            f"{bound[0] * 1e3:.4f} ms ({bound[1]}), library "
-            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
-            + f"; max abs err {err:.3e}")
 
     d = c["d_model"]
     # B13 at the decode projections: its routes and xd @ w_deq in turns on
@@ -3709,22 +3929,10 @@ def phase_times5(torch):
         host_us=q["host_us"], kv=dict(ms=b13["kv"]["ms"], host_us=b13["kv"]["host_us"],
                                       plan=b13["kv"]["plan"],
                                       bound_ms=b13["kv"]["bound"][0] * 1e3))
-    # B14 / B15: a prefill projection, (4096, 2048) x (2048, 2048), bf16 out.
-    w = rng.standard_normal((d, d)).astype(np.float32) / np.sqrt(d)
+    # B14 / B15 at the prefill projections: both routes, the quantize pass and
+    # the GEMM apart, torch._int_mm and bf16 torch.matmul in turns.
+    out.update(w8a8_times(torch, rng))
     m = c["batch"] * c["seq"]
-    wq8, s8 = (torch.from_numpy(a).cuda() for a in quantize_weights(w, bits=8))
-    xp = (torch.randn((m, d), generator=gen, device="cuda") * 0.5).to(bf16)
-    wcfg = quant.w8a8_resolve(m, d, d, None, bf16)
-    xq_pre = dequant.quantize_activations(xp)[0]
-    for key, fuse, bk in (("B14 prefill 4096x2048x2048 fused", True, d),
-                          ("B15 prefill 4096x2048x2048 two-pass", False, d)):
-        entry(key,
-              lambda fuse=fuse: dequant.w8a8_matmul(xp, wq8, s8, cfg=wcfg,
-                                                    fuse_quant=fuse),
-              lambda fuse=fuse, bk=bk: dequant.w8a8_plain(xp, wq8, s8, bk=bk, fused=fuse,
-                                                          out_dtype=bf16),
-              lambda: torch._int_mm(xq_pre, wq8),
-              w8a8_bound(H100, m, d, d, None, bf16, bf16), BF16_RTOL)
     # B16: the MoE w1 at 8192 routed slots (prefill) and 128 (decode), and
     # w2's dlhs (transpose_rhs) at 8192: the route the rule gives, the other
     # tensor-core route and torch._grouped_mm timed in turns.
@@ -3772,7 +3980,7 @@ def phase_times5(torch):
             + (f"{turns['library']:.4f} ms" if "library" in turns else "none")
             + f" (in turns); max abs err {err:.3e}")
         del lhs, ref
-    del w1, w2, xp, xq_pre
+    del w1, w2
 
     # The serving block end to end (host clock around synchronised work is
     # the same as CUDA events here: each timed window ends in a sync).
@@ -4703,20 +4911,24 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    spills, serialised, entry = [], set(), ""
+    spills, serialised, entry, w8_regs = [], set(), "", []
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln.strip()
-        elif "C7515" in ln:  # ptxas serialised the function's wgmma
+        elif "C7515" in ln or "C7518" in ln:  # ptxas serialised the function's wgmma
             serialised.add(ln.split("function '")[-1].rstrip("'"))
         elif "spill" in ln and not ln.strip().endswith(
                 "0 bytes spill stores, 0 bytes spill loads"):
             spills.append(f"{entry}: {ln.strip()}")
+        elif "w8a8_wg_kernel" in entry and "registers" in ln:
+            w8_regs.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
     log(f"phase 2: built and loaded {lib_path.name} in "
         f"{time.perf_counter() - t0:.1f} s; kernels with spills: {len(spills)}"
         + "".join(f"\n  {x}" for x in spills)
-        + f"\nphase 2: kernels whose wgmma ptxas serialised (C7515): {len(serialised)}"
-        + "".join(f"\n  {x}" for x in sorted(serialised)))
+        + f"\nphase 2: kernels whose wgmma ptxas serialised (C7515, C7518): {len(serialised)}"
+        + "".join(f"\n  {x}" for x in sorted(serialised))
+        + "\nphase 2: the W8A8 engine kernel (csrc/w8a8_wgmma.cu), as ptxas reports it:"
+        + "".join(f"\n  {x}" for x in w8_regs))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -4846,12 +5058,12 @@ def main() -> int:
             ("B13 decode 64x2048x2048 int4 g128",
              "dequant_gemm (B13, int4 g128 decode projection 64x2048x2048 bf16)",
              "dequant_wgmma.cu", "pallas_dequant.py:36"),
-            ("B14 prefill 4096x2048x2048 fused",
-             "w8a8_gemm fused (B14, prefill projection 4096x2048x2048 bf16)",
-             "w8a8_gemm.cu", "pallas_dequant.py:260"),
-            ("B15 prefill 4096x2048x2048 two-pass",
-             "w8a8_gemm two-pass (B15, prefill projection 4096x2048x2048 bf16)",
-             "w8a8_gemm.cu", "pallas_dequant.py:224"),
+            ("B14 q/o",
+             "w8a8_gemm fused (B14, prefill q / o projection 4096x2048x2048 bf16: quantize "
+             "pass + GEMM)", "w8a8_wgmma.cu", "pallas_dequant.py:260"),
+            ("B15 q/o",
+             "w8a8_gemm two-pass (B15, prefill q / o projection 4096x2048x2048 bf16: quantize "
+             "pass + GEMM)", "w8a8_wgmma.cu", "pallas_dequant.py:224"),
             ("B16 w1 prefill 8192 slots",
              "grouped_gemm (B16, MoE w1 8192 slots x 2048 -> 4096, 8 experts bf16)",
              "grouped_wgmma.cu", "pallas_grouped.py:151")):
@@ -4867,6 +5079,19 @@ def main() -> int:
                                kv_64x2048x512=t["kv"],
                                library_note="library_ms is xd @ w_deq, bf16 torch.matmul on "
                                             "the dequantized weights")
+        if key[:3] in ("B14", "B15"):  # device time in turns, both prefill shapes
+            parts = ("gemm_ms", "quantize_ms", "other_gemm_ms", "plan", "mode", "host_us",
+                     "library_other_ms", "bf16_matmul_ms")
+            kv = times5[f"{key[:3]} k/v"]
+            kernels[-1].update({f: t[f] for f in parts})
+            kernels[-1]["kv_4096x2048x512"] = dict(
+                {f: kv[f] for f in parts + ("ms", "other_ms", "library_ms", "library")},
+                bound_ms=kv["bound"][0] * 1e3)
+            kernels[-1]["library_note"] = (
+                f"library_ms is {t['library']} on the per-row int8 x (the int32 product "
+                "alone: no quantize, no scales); library_other_ms the other weight layout; "
+                "bf16_matmul_ms bf16 torch.matmul of x and the unquantized weights; ms and "
+                "other_ms the whole call (quantize pass + GEMM) on each route")
     # Slice 6 at the training step's w1 gradient shape: the route the main
     # path took (csrc/grouped_update_wgmma.cu), the other in the same turns,
     # and w2's gradient and a skewed routing beside.

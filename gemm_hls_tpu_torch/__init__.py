@@ -17,7 +17,8 @@ row-softmax variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
 and ``csrc/flash_bwd_wgmma.cu`` (the tile engine) or ``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` by shape (B6-B12), the
 quantized GEMMs ``matmul_quantized`` / ``matmul_w8a8`` on
-``csrc/dequant_gemm.cu`` (B13) and ``csrc/w8a8_gemm.cu`` (B14, B15), and
+``csrc/dequant_wgmma.cu`` / ``csrc/w8a8_wgmma.cu`` (the tile engine) or
+``csrc/dequant_gemm.cu`` / ``csrc/w8a8_gemm.cu`` by shape (B13; B14, B15), and
 ``grouped_matmul`` (the MoE expert GEMM of ``models.moe``, differentiable:
 ``moe_train_step`` trains through it) on ``csrc/grouped_gemm.cu`` (B16) and
 its weight gradient on ``csrc/grouped_update.cu`` (B17), and the fused

@@ -155,7 +155,8 @@ def _declare(lib):
     # the stream.
     for name, n_ptr, n_int in (("dequant_gemm", 5, 10), ("dequant_wgmma", 4, 10),
                                ("w8a8_quantize", 3, 5),
-                               ("w8a8_gemm", 5, 8), ("grouped_gemm", 4, 9),
+                               ("w8a8_gemm", 5, 8), ("w8a8_wgmma", 5, 8),
+                               ("grouped_gemm", 4, 9),
                                ("grouped_wgmma", 4, 7),
                                ("grouped_update", 4, 8),
                                ("grouped_update_wgmma", 4, 6)):

@@ -406,22 +406,6 @@ __global__ void __launch_bounds__(DqTile<BN>::kThreads, 1)
   }
 }
 
-// An unswizzled map of a row-major (rows, n) array of bytes (the packed
-// weights) or floats (the scales): boxes of box_n x box_rows.
-inline bool encode_rows(CUtensorMap* map, const void* base, int64_t rows, int64_t n, bool f32,
-                        int box_n, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n * (f32 ? 4 : 1))};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_n), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The launch of grid (N tiles, row tiles, splits), each split a block of a
 // (1, 1, splits) cluster: ``cfg`` with its cluster attribute in ``attr``.
 template <int BN>

@@ -1,25 +1,34 @@
 // Kernels of the W8A8 GEMM: y ~ x . dequant(w_q, s_w), int8 activations
-// times int8 weights on the int8 tensor cores.
+// times int8 weights on the int8 tensor cores.  This file holds the
+// quantize pass both routes run first, and the mma.sync tile: the route
+// (ops/dequant.py::w8a8_route) for what the tile engine of
+// csrc/w8a8_wgmma.cu does not take (K or N off 16 bytes, unaligned bases,
+// per-block scales on a K-block that is not a whole 128-deep engine step).
 //
 // Replaces two TPU kernels of gemm_hls_tpu/ops/pallas_dequant.py:
 //   * _w8a8_fused_kernel (B14): x quantized per (row, K-block of bk) on
 //     first touch into a VMEM-resident int8 (block_m, K) strip.  That strip
 //     is 256 KB at 128 x 2048, over the 227 KB a Hopper block may hold, so
-//     here a small kernel (w8a8_quantize) writes int8 x and the
+//     here a pass of its own (w8a8_quantize) writes int8 x and the
 //     per-(row, K-block) scales, and the GEMM (mode kFused) folds each
-//     block's scales into its fp32 contribution: acc += (f32(P_b) s_x[b, m])
-//     (* s_w[b, n] when group-wise), a per-channel s_w at the store;
-//   * _w8a8_kernel (B15): x pre-quantized per row (the same quantize kernel
-//     with bk = K, the two-pass formulas), then either one exact int32 sum
-//     over all of K scaled once at the store, (f32(P) s_w[n]) s_x[m]
-//     (mode kIntAcc: per-channel scales and 127^2 K < 2^31), or an fp32
-//     sum of per-block f32(P_b) s_w[b, n] times s_x[m] (mode kPerBlock).
+//     block's scales into its fp32 contribution;
+//   * _w8a8_kernel (B15): x pre-quantized per row (the same pass with
+//     bk = K, the two-pass formulas), then mode kIntAcc or kPerBlock.
+// The modes and the fp32 steps after the int32 products are csrc/w8a8.cuh's.
 // The quantize formulas are the JAX ones, in IEEE single steps: fused r =
 // 127 / ax (0 for an all-zero block), q = rint(x r), s = ax * fl(1/127);
 // two-pass s = ax / 127 (1 for an all-zero row), q = rint(x / s); both
 // clip to +-127 and round half to even, so q and every int32 block product
-// P_b are the JAX package's bit for bit.  The fp32 steps after them use
-// __fmul_rn / __fadd_rn (no FMA contraction), in the plain version's order.
+// P_b are the JAX package's bit for bit.
+//
+// The quantize pass is bound by its bytes: at the prefill projections x is
+// 4096 x 2048 bf16, 16 MB read and 8 MB of int8 written, 7.5 us at 3.35
+// TB/s.  One warp a segment (the elements that share a scale), 16 elements
+// a lane in 16-byte loads, the segment held in registers between its max
+// and its values (up to 256 bytes a lane: 4096 16-bit or 2048 fp32
+// elements; longer segments are read twice), the int8 values written 16
+// bytes at a time; element loads and stores where a row or a block is not
+// whole 16-byte units.
 //
 // GEMM: mma.sync m16n8k32 s8 x s8 -> s32, a 64 x 128 block tile by eight
 // warps (32 x 32 each), K steps of 64 bytes double-buffered in shared
@@ -29,19 +38,22 @@
 // step's MMAs issue, transposes them with byte permutes and stores them as
 // rows of B^T, so ldmatrix serves both operands as in csrc/int8_slices.cu.
 // The int32 block partial is flushed into the fp32 accumulator wherever a
-// scale block ends, which must be at the end of a 64-deep K step.
+// scale block ends, which must be at the end of a 32-deep sub-step (bk a
+// multiple of 32).
 //
-// What bounds it on an H100: at the prefill projections ((4096, 2048) x
-// (2048, 2048), 34.4 GOP) the int8 tensor-core rate, 17.4 us at 1979
-// TOP/s; the bytes (16 MB of bf16 x, 4 MB of weights, 16 MB of bf16 y) take
-// 11 us at 3.35 TB/s.  Left on the table: wgmma, TMA, quantizing x in the
-// GEMM's own load stage, a persistent schedule.
+// What bounds the GEMM on an H100: at the prefill projections ((4096, 2048)
+// x (2048, 2048), 34.4 GOP) the int8 tensor-core rate, 17.4 us at 1979
+// TOP/s; the bytes (16 MB of bf16 x, 4 MB of weights, 16 MB of bf16 y)
+// take 11 us at 3.35 TB/s.  This tile reaches about 6% of it; the engine
+// route is the one built for that bound.
 #include "tile_mma.cuh"
+#include "w8a8.cuh"
 
 namespace gemm_hls {
 
 constexpr int WBM = 64, WBN = 128, WBK = 64, WTH = 256, WPITCH = 80;
-constexpr int kFused = 0, kIntAcc = 1, kPerBlock = 2;
+// Where the mma.sync tile may fold a scale block: the end of an m16n8k32 sub-step.
+constexpr int kW8FoldStep = 32;
 
 struct W8a8 {
   const signed char* xq;  // (M, K)
@@ -54,24 +66,95 @@ struct W8a8 {
 
 // ---- quantize --------------------------------------------------------------
 
-__device__ __forceinline__ float load_x(const void* x, int64_t i, int code) {
-  switch (code) {
-    case kBF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
-    case kF16: return __half2float(static_cast<const __half*>(x)[i]);
-    default: return static_cast<const float*>(x)[i];
+constexpr int kQWarps = 8;         // segments a block: one warp each
+constexpr int kQLaneBytes = 256;   // bytes of x a lane holds between the max and the values
+
+// 16 consecutive elements of x as the words of sizeof(T) 16-byte loads, and
+// element e of them as a float (exact).
+template <typename T>
+__device__ __forceinline__ void q16_load(uint32_t (&w)[4 * sizeof(T)], const T* p) {
+  const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)); ++i) {
+    const uint4 u = __ldg(v + i);
+    w[4 * i] = u.x;
+    w[4 * i + 1] = u.y;
+    w[4 * i + 2] = u.z;
+    w[4 * i + 3] = u.w;
   }
 }
+template <typename T> __device__ __forceinline__ float q16_at(const uint32_t (&w)[4 * sizeof(T)], int e);
+template <> __device__ __forceinline__ float q16_at<__nv_bfloat16>(const uint32_t (&w)[8], int e) {
+  return __uint_as_float(e & 1 ? w[e / 2] & 0xFFFF0000u : w[e / 2] << 16);
+}
+template <> __device__ __forceinline__ float q16_at<__half>(const uint32_t (&w)[8], int e) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(e & 1 ? w[e / 2] >> 16 : w[e / 2])));
+}
+template <> __device__ __forceinline__ float q16_at<float>(const uint32_t (&w)[16], int e) {
+  return __uint_as_float(w[e]);
+}
 
-// One warp per (row, K-block): the block's max |x|, then its int8 values.
-__global__ void __launch_bounds__(256) w8a8_quantize_kernel(const void* x, signed char* xq,
-                                                            float* sx, int M, int K, int bk,
-                                                            int fused, int code) {
-  const int lane = threadIdx.x % 32, row = blockIdx.y * 8 + threadIdx.x / 32, kb = blockIdx.x;
-  if (row >= M) return;
-  const int k_lo = kb * bk, k_hi = min(K, k_lo + bk);
-  const int64_t base = static_cast<int64_t>(row) * K;
+// One value's int8 code (its low byte), by the route's formula.
+__device__ __forceinline__ int w8_code(float v, float r, float s, int fused) {
+  const float q = rintf(fused ? __fmul_rn(v, r) : __fdiv_rn(v, s));
+  return static_cast<int>(fminf(fmaxf(q, -127.f), 127.f));
+}
+
+// The 16 values' codes as one 16-byte store.
+template <typename T>
+__device__ __forceinline__ void q16_store(signed char* q, const uint32_t (&w)[4 * sizeof(T)], float r,
+                                          float s, int fused) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = w8_code(q16_at<T>(w, 4 * i + j), r, s, fused);
+    o[i] = __byte_perm(__byte_perm(c[0], c[1], 0x0040), __byte_perm(c[2], c[3], 0x0040), 0x5410);
+  }
+  *reinterpret_cast<uint4*>(q) = make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// One warp a segment: (row, K-block kb of bk) of n_kb blocks a row.  Its
+// max |x|, its scale, then its int8 values.  ``vec``: x's base is 16-byte
+// aligned and K and bk are multiples of 16, so a lane takes 16 elements at
+// a time (16-byte loads, one 16-byte store); a segment of up to
+// kQLaneBytes a lane stays in registers between the two passes.
+template <typename T>
+__global__ void __launch_bounds__(32 * kQWarps) w8a8_quantize_kernel(const T* x, signed char* xq,
+                                                                     float* sx, int M, int K, int bk,
+                                                                     int n_kb, int fused, int vec) {
+  constexpr int kW = 4 * static_cast<int>(sizeof(T));
+  constexpr int kHeld = kQLaneBytes / (16 * static_cast<int>(sizeof(T)));
+  const int lane = threadIdx.x % 32;
+  const int64_t seg = static_cast<int64_t>(blockIdx.x) * kQWarps + threadIdx.x / 32;
+  if (seg >= static_cast<int64_t>(M) * n_kb) return;
+  const int row = static_cast<int>(seg / n_kb), kb = static_cast<int>(seg % n_kb);
+  const int k_lo = kb * bk, len = min(K - k_lo, bk);
+  const T* xs = x + static_cast<int64_t>(row) * K + k_lo;
+  signed char* qs = xq + static_cast<int64_t>(row) * K + k_lo;
+  const int units = vec ? len / 16 : 0;
+  const bool held = vec && units <= 32 * kHeld;
+  uint32_t w[kHeld][kW];
   float ax = 0.f;
-  for (int k = k_lo + lane; k < k_hi; k += 32) ax = fmaxf(ax, fabsf(load_x(x, base + k, code)));
+  if (held) {
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      if (lane + 32 * i < units) {
+        q16_load<T>(w[i], xs + 16 * (lane + 32 * i));
+#pragma unroll
+        for (int e = 0; e < 16; ++e) ax = fmaxf(ax, fabsf(q16_at<T>(w[i], e)));
+      }
+  } else if (vec) {  // a longer segment: read twice
+    for (int u = lane; u < units; u += 32) {
+      uint32_t v[kW];
+      q16_load<T>(v, xs + 16 * u);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) ax = fmaxf(ax, fabsf(q16_at<T>(v, e)));
+    }
+  } else {
+    for (int k = lane; k < len; k += 32) ax = fmaxf(ax, fabsf(to_acc(xs[k], 0.f)));
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ax = fmaxf(ax, __shfl_xor_sync(0xffffffffu, ax, o));
   float r = 0.f, s;
@@ -82,11 +165,33 @@ __global__ void __launch_bounds__(256) w8a8_quantize_kernel(const void* x, signe
     s = ax == 0.f ? 1.f : __fdiv_rn(ax, 127.f);
   }
   if (lane == 0) sx[static_cast<int64_t>(kb) * M + row] = s;
-  for (int k = k_lo + lane; k < k_hi; k += 32) {
-    const float v = load_x(x, base + k, code);
-    const float q = rintf(fused ? __fmul_rn(v, r) : __fdiv_rn(v, s));
-    xq[base + k] = static_cast<signed char>(static_cast<int>(fminf(fmaxf(q, -127.f), 127.f)));
+  if (held) {
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      if (lane + 32 * i < units) q16_store<T>(qs + 16 * (lane + 32 * i), w[i], r, s, fused);
+  } else if (vec) {
+    for (int u = lane; u < units; u += 32) {
+      uint32_t v[kW];
+      q16_load<T>(v, xs + 16 * u);
+      q16_store<T>(qs + 16 * u, v, r, s, fused);
+    }
+  } else {
+    for (int k = lane; k < len; k += 32)
+      qs[k] = static_cast<signed char>(w8_code(to_acc(xs[k], 0.f), r, s, fused));
   }
+}
+
+template <typename T>
+int w8_quantize(const void* x, void* xq, void* sx, int M, int K, int bk, int fused,
+                cudaStream_t st) {
+  const int n_kb = (K + bk - 1) / bk;
+  const int64_t blocks = (static_cast<int64_t>(M) * n_kb + kQWarps - 1) / kQWarps;
+  if (blocks > INT_MAX) return kUnsupported;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 16 == 0 && bk % 16 == 0;
+  w8a8_quantize_kernel<T><<<static_cast<unsigned>(blocks), 32 * kQWarps, 0, st>>>(
+      static_cast<const T*>(x), static_cast<signed char*>(xq), static_cast<float*>(sx), M, K, bk,
+      n_kb, fused, vec);
+  return last_error();
 }
 
 // ---- GEMM ------------------------------------------------------------------
@@ -216,7 +321,7 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
     }
     cp_commit();
 #pragma unroll
-    for (int kk = 0; kk < WBK; kk += 32) {
+    for (int kk = 0; kk < WBK; kk += kW8FoldStep) {
       uint32_t af[2][4], bf[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -229,40 +334,31 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
           mma_s8(part[mt][nt], af[mt], bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
-    }
-    // A scale block ends with this K step: fold its int32 partial into acc,
-    // (f32(P) s_x) s_w with the scales that do not apply set to 1 (exact).
-    const int kend = min(k0 + WBK, g.K);
-    if (g.mode != kIntAcc && (kend % g.bk == 0 || kend == g.K)) {
-      const int64_t kb = (kend - 1) / g.bk;
-      float rs[2][2], cs[4][2];
+      // A scale block ends with this 32-deep sub-step: fold its int32
+      // partial into acc (csrc/w8a8.cuh).
+      const int kend = min(k0 + kk + kW8FoldStep, g.K);
+      if (g.mode != kIntAcc && k0 + kk < g.K && (kend % g.bk == 0 || kend == g.K)) {
+        const int64_t kb = (kend - 1) / g.bk;
+        float rs[2][2], cs[4][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int gm = m0 + wm * 32 + mt * 16 + gq + 8 * h;
-          rs[mt][h] = g.mode == kFused && gm < g.M ? g.sx[kb * g.M + gm] : 1.f;
-        }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int gn = n0 + wn * 32 + nt * 8 + 2 * tq + j;
-          cs[nt][j] = gn >= g.N ? 1.f
-                      : g.n_groups > 1 ? g.sw[kb * g.N + gn]
-                      : g.mode == kPerBlock ? g.sw[gn] : 1.f;
-        }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+          for (int h = 0; h < 2; ++h) rs[mt][h] = w8_fold_rs(g, kb, m0 + wm * 32 + mt * 16 + gq + 8 * h);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float c = __fmul_rn(__fmul_rn(__int2float_rn(part[mt][nt][e]), rs[mt][e >> 1]),
-                                      cs[nt][e & 1]);
-            acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], c);
-            part[mt][nt][e] = 0;
-          }
+          for (int j = 0; j < 2; ++j) cs[nt][j] = w8_fold_cs(g, kb, n0 + wn * 32 + nt * 8 + 2 * tq + j);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e],
+                                         w8_part(part[mt][nt][e], rs[mt][e >> 1], cs[nt][e & 1]));
+              part[mt][nt][e] = 0;
+            }
+      }
     }
     if (more) store_w(Bt[cur ^ 1], w);
     cp_wait<0>();
@@ -270,23 +366,16 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
   }
 
   // The store: kIntAcc (f32(P) s_w) s_x, kPerBlock acc s_x, kFused acc s_w
-  // (per-channel) -- the scales that do not apply set to 1 (exact).
+  // (per-channel) -- csrc/w8a8.cuh.
   float rs[2][2], cs[4][2];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gm = m0 + wm * 32 + mt * 16 + gq + 8 * h;
-      rs[mt][h] = g.mode != kFused && gm < g.M ? g.sx[gm] : 1.f;
-    }
+    for (int h = 0; h < 2; ++h) rs[mt][h] = w8_store_rs(g, m0 + wm * 32 + mt * 16 + gq + 8 * h);
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gn = n0 + wn * 32 + nt * 8 + 2 * tq + j;
-      cs[nt][j] = gn < g.N && (g.mode == kIntAcc || (g.mode == kFused && g.n_groups == 1))
-                      ? g.sw[gn] : 1.f;
-    }
+    for (int j = 0; j < 2; ++j) cs[nt][j] = w8_store_cs(g, n0 + wn * 32 + nt * 8 + 2 * tq + j);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -294,7 +383,7 @@ __global__ void __launch_bounds__(WTH) w8a8_gemm_kernel(const W8a8 g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float b = g.mode == kIntAcc ? __int2float_rn(part[mt][nt][e]) : acc[mt][nt][e];
-        acc[mt][nt][e] = __fmul_rn(__fmul_rn(b, cs[nt][e & 1]), rs[mt][e >> 1]);
+        acc[mt][nt][e] = w8_out(b, cs[nt][e & 1], rs[mt][e >> 1]);
       }
   const int r0 = m0 + wm * 32 + gq, c0 = n0 + wn * 32 + 2 * tq;
   switch (g.out_code) {
@@ -313,23 +402,25 @@ using namespace gemm_hls;
 // row (bk = K) with the two-pass route's (fused = 0).
 extern "C" int w8a8_quantize(const void* x, void* xq, void* sx, int M, int K, int bk, int fused,
                              int code, void* stream) {
-  if (bk < 1 || (code != kBF16 && code != kF16 && code != kF32)) return kUnsupported;
-  const int64_t gy = (M + 7) / 8;
-  if (gy > 65535) return kUnsupported;
-  w8a8_quantize_kernel<<<dim3((K + bk - 1) / bk, static_cast<unsigned>(gy)), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<signed char*>(xq), static_cast<float*>(sx), M, K, bk, fused, code);
-  return last_error();
+  if (bk < 1) return kUnsupported;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (code) {
+    case kBF16: return w8_quantize<__nv_bfloat16>(x, xq, sx, M, K, bk, fused, st);
+    case kF16: return w8_quantize<__half>(x, xq, sx, M, K, bk, fused, st);
+    case kF32: return w8_quantize<float>(x, xq, sx, M, K, bk, fused, st);
+  }
+  return kUnsupported;
 }
 
 // out (M, N) = xq (M, K) int8 . wq (K, N) int8 with the scales of ``mode``
-// (kFused 0, kIntAcc 1, kPerBlock 2; see the note at the top), scale blocks
-// of bk rows (a multiple of 64 unless kIntAcc).  vec: K a multiple of 16
-// (xq's rows 16-byte aligned).  Returns 0, a CUDA error code, or -1.
+// (csrc/w8a8.cuh), scale blocks of bk rows (a multiple of 32 unless
+// kIntAcc).  vec: K a multiple of 16 (xq's rows 16-byte aligned).  Returns
+// 0, a CUDA error code, or -1.
 extern "C" int w8a8_gemm(const void* xq, const void* wq, const void* sw, const void* sx, void* out,
                          int M, int N, int K, int bk, int n_groups, int mode, int out_code, int vec,
                          void* stream) {
-  if (mode < kFused || mode > kPerBlock || bk < 1 || (mode != kIntAcc && bk % WBK)) return kUnsupported;
+  if (mode < kFused || mode > kPerBlock || bk < 1 || (mode != kIntAcc && bk % kW8FoldStep))
+    return kUnsupported;
   const int64_t gy = (M + WBM - 1) / WBM;
   if (gy > 65535) return kUnsupported;
   const W8a8 g{static_cast<const signed char*>(xq), static_cast<const signed char*>(wq),

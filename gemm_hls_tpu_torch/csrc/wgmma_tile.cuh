@@ -130,6 +130,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// shared -> global: a box at (c0, c1) of a 2-D map, in the bulk group the
+// caller commits (W8A8's output tile, csrc/w8a8_wgmma.cu).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+
 // The 3-D and 4-D loads: the batched GEMM's examples and the grouped
 // GEMM's experts (the example or group as the last coordinate,
 // csrc/mxu_wgmma.cuh, csrc/grouped_wgmma.cu) and the flash forward's (D, H,
@@ -360,6 +370,23 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
       : WG_R64
       : "l"(da), "l"(db), "r"(scale_d));
 }
+// m64n64k32 of int8: B4's 4-diagonal tile, W8A8's narrow N tile (32 a
+// thread).
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 #undef WG_REGS128
 #undef WG_REGS64
 #undef WG_F128
@@ -748,8 +775,10 @@ inline EncodeTiled encode_tiled() {
 constexpr int kTmaEncodeFailed = -2;
 
 inline CUtensorMapDataType tma_type(int esize, bool f16) {
-  return esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                    : f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return esize == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+         : esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : f16        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // A map of ``rank`` dimensions, 128-byte swizzled, elements past the edges
@@ -795,6 +824,23 @@ inline bool encode_kmajor(CUtensorMap* map, const void* base, int rows, int k, i
 // rows (wg_desc_mn's layout).
 inline bool encode_mnmajor(CUtensorMap* map, const void* base, int k, int mn, int64_t ld, bool f16) {
   return encode_2d(map, base, mn, k, ld, 2, f16, kWgRowBytes / 2, WgType<__nv_bfloat16>::BK);
+}
+
+// An unswizzled map of a row-major (rows, n) array of bytes (B13's packed
+// weights, the W8A8 weights) or floats (B13's scales): boxes of box_n x
+// box_rows.
+inline bool encode_rows(CUtensorMap* map, const void* base, int64_t rows, int64_t n, bool f32,
+                        int box_n, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n * (f32 ? 4 : 1))};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_n), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Each rank's four maps (A and B^T of an even and an odd step), copied on

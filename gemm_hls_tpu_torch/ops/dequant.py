@@ -11,15 +11,20 @@ Counterpart of ``gemm_hls_tpu/ops/pallas_dequant.py``:
   ``csrc/dequant_gemm.cu``.  Group-wise scales are folded into the
   weights in the compute type (one rounding of q * s, none for fp32
   inputs); per-channel scales multiply the fp32 accumulator at the store.
-* :func:`w8a8_matmul` -> ``csrc/w8a8_gemm.cu``: with ``fuse_quant`` (B14
-  ``_w8a8_fused_kernel``) x is quantized per (row, K-block) by a small
-  kernel, then multiplied on the int8 tensor cores with both scales folded
-  into each block's fp32 contribution; otherwise (B15 ``_w8a8_kernel``)
-  x is quantized per row (:func:`quantize_activations`) and the int32 sum
-  runs over all of K when the scales are per-channel and ``127^2 K <
-  2^31`` (``int_acc``), else it is scaled per K-block.  The JAX routing
-  rule between the two (``pallas_dequant.py:380-382``) is kept as it is:
-  it decides the numerics (ROADMAP C2).
+* :func:`w8a8_matmul`: with ``fuse_quant`` (B14 ``_w8a8_fused_kernel``)
+  x is quantized per (row, K-block) by a pass of its own, then multiplied
+  on the int8 tensor cores with both scales folded into each block's fp32
+  contribution; otherwise (B15 ``_w8a8_kernel``) x is quantized per row
+  (:func:`quantize_activations`) and the int32 sum runs over all of K
+  when the scales are per-channel and ``127^2 K < 2^31`` (``int_acc``),
+  else it is scaled per K-block.  The JAX routing rule between the two
+  (``pallas_dequant.py:380-382``) is kept as it is: it decides the
+  numerics (ROADMAP C2; :func:`w8a8_schedule`).  The GEMM runs on the
+  route :func:`w8a8_route` gives: ``csrc/w8a8_wgmma.cu`` (the Hopper tile
+  engine) for 16-byte rows and whole 128-deep scale blocks, else
+  ``csrc/w8a8_gemm.cu`` (mma.sync), which also holds the quantize pass.
+  Both fold the int32 block products in the same fp32 steps
+  (``csrc/w8a8.cuh``): the same bits.
 
 The quantization formulas differ by route, and each is copied: the fused
 route takes r = 127 / ax and round(x r), a zero block getting scale 0; the
@@ -45,9 +50,7 @@ from gemm_hls_tpu_torch.config import GemmConfig, cdiv, round_up
 # kept as a routing rule (it decides the activation-scale grid).
 _FUSED_STRIP_ELEMS = 8 * 1024 * 1024
 _KERNEL_X_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-# The kernels' K step, in elements: B13 splits K into chunks of whole
-# steps; B14 / B15 fold their int32 partial into fp32 at the end of a step,
-# so their scale blocks are whole steps.
+# B13's mma.sync K step, in elements: it splits K into chunks of whole steps.
 KERNEL_K_STEP = 64
 
 
@@ -289,7 +292,68 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
 # B14 / B15: W8A8
 # ---------------------------------------------------------------------------
 
-_FUSED, _INT_ACC, _PER_BLOCK = 0, 1, 2  # csrc/w8a8_gemm.cu's modes
+# csrc/w8a8.cuh's modes.
+W8A8_MODES = {"fused": 0, "int_acc": 1, "per_block": 2}
+# The mma.sync tile (csrc/w8a8_gemm.cu) folds a scale block at the end of a
+# 32-deep sub-step, so its scale blocks are whole sub-steps.
+W8A8_FOLD_STEP = 32
+# B14 / B15 on the tile engine (csrc/w8a8_wgmma.cu): K bytes a step, the row
+# tile, the N tiles the kernel is built for (widest first).
+W8A8_ENGINE_STEP = 128
+W8A8_ENGINE_BM = 256
+W8A8_ENGINE_BN = (128, 64)
+
+
+def w8a8_schedule(m: int, n: int, k: int, cfg: GemmConfig, n_groups: int,
+                  fuse_quant: bool) -> tuple:
+    """(fused, mode, block_k) of a W8A8 call.  The JAX rule sends a fused
+    request to the two-pass route when the (block_m, K) strip is over 8 Mi
+    elements or K, block_k or the N tile is not a multiple of 128.  The
+    mode is ``"fused"`` on B14; on B15 ``"int_acc"`` (one int32 sum over
+    all of K) where the scales are per-channel and 127^2 K < 2^31, else
+    ``"per_block"``."""
+    bm = min(cfg.block_m, round_up(m, 32))
+    bn, bk = min(cfg.block_n, n), min(cfg.block_k, k)
+    if fuse_quant and (bm * k > _FUSED_STRIP_ELEMS or k % 128 or bk % 128
+                       or bn % 128):
+        fuse_quant = False
+    if fuse_quant:
+        return True, "fused", bk
+    if n_groups == 1 and 16129 * k < 2 ** 31:
+        return False, "int_acc", bk
+    return False, "per_block", bk
+
+
+def _scale_blocks(k: int, bk: int, mode: str) -> bool:
+    """Whether a mode's scale blocks end inside K (an int32 partial folded
+    into an fp32 sum at each block's end)."""
+    return mode == "per_block" or (mode == "fused" and bk < k)
+
+
+def w8a8_route(n: int, k: int, bk: int, mode: str, aligned: bool) -> str:
+    """The kernel a B14 / B15 GEMM takes: ``"wgmma"`` (``csrc/w8a8_wgmma.cu``,
+    the Hopper tile engine) where xq's and w_q's rows are whole 16-byte
+    units (K % 16 == 0, N % 16 == 0) with 16-byte bases (``aligned``: x's
+    and w_q's data pointers), and where scale blocks that end inside K
+    are whole 128-deep engine steps (bk % 128 == 0); ``"mma.sync"``
+    (``csrc/w8a8_gemm.cu``) for the rest.  Any M goes.  Chosen by shape,
+    never as a fallback."""
+    steps = not _scale_blocks(k, bk, mode) or bk % W8A8_ENGINE_STEP == 0
+    if aligned and k % 16 == 0 and n % 16 == 0 and steps:
+        return "wgmma"
+    return "mma.sync"
+
+
+def w8a8_engine_plan(m: int, n: int, k: int, bk: int, mode: str, sms: int) -> int:
+    """The N tile of a B14 / B15 engine launch on a card of ``sms`` SMs:
+    64 where scale blocks end inside K (the int32 partial and the fp32 sum
+    take 32 + 32 registers a thread at 64); else 128 where the (256, 128)
+    tiles fill a wave of the card (the prefill's q / o projection: 256
+    tiles), else 64 (k / v, N 512: 128 tiles)."""
+    wide, narrow = W8A8_ENGINE_BN
+    if _scale_blocks(k, bk, mode):
+        return narrow
+    return wide if cdiv(m, W8A8_ENGINE_BM) * cdiv(n, wide) >= sms else narrow
 
 
 def quantize_activations(x):
@@ -373,22 +437,41 @@ def _quantize_kernel(x, bk: int, fused: bool):
     return xq, sx
 
 
+def _w8a8_launch(xq, sx, w_q, scales, out, *, bk: int, mode: str, route: str):
+    """The GEMM of ``w8a8_matmul`` on ``route`` into ``out``, over the
+    quantize pass's int8 ``xq`` and scales ``sx``."""
+    m, k = xq.shape
+    n = w_q.shape[1]
+    w_q, scales = _aligned(w_q), _aligned(scales.float())
+    args = (xq.data_ptr(), w_q.data_ptr(), scales.data_ptr(), sx.data_ptr(), out.data_ptr(),
+            m, n, k, bk, scales.shape[0], W8A8_MODES[mode], _build.dtype_code(out.dtype))
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            bn = w8a8_engine_plan(m, n, k, bk, mode, sm_count(xq.device))
+            rc = lib.w8a8_wgmma(*args, bn, stream)
+        else:
+            rc = lib.w8a8_gemm(*args, int(k % 16 == 0), stream)
+    _build.check(rc, f"w8a8_matmul ({route})")
+
+
 def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
-                interpret=None, fuse_quant: bool = True):
+                interpret=None, fuse_quant: bool = True, route=None):
     """y = (x quantized) . dequant(w_q, scales) on the int8 tensor cores.
 
     ``fuse_quant=True`` (default) quantizes x per (row, K-block of
     ``block_k``) and folds both scales into each block (kernel B14);
     ``fuse_quant=False`` runs the two-pass schedule (per-row
     :func:`quantize_activations`, kernel B15).  The JAX rule that sends a
-    fused request to the two-pass route (a (block_m, K) strip over 8 Mi
-    elements, or K, block_k or the n tile not a multiple of 128) is kept.
-    Output type ``cfg.out_dtype`` (default float32).
+    fused request to the two-pass route is kept (:func:`w8a8_schedule`).
+    Output type ``cfg.out_dtype`` (default float32).  The GEMM's kernel is
+    :func:`w8a8_route`'s, recorded as ``w8a8_matmul.last_route`` and
+    counted in ``w8a8_matmul.routes``; ``route`` names one for comparisons.
     """
     m, k = x.shape
     n = w_q.shape[1]
-    bm = min(cfg.block_m, round_up(m, 32))
-    bn, bk = min(cfg.block_n, n), min(cfg.block_k, k)
+    bk = min(cfg.block_k, k)
     if w_q.dtype != torch.int8:
         raise ValueError(f"w_q must be int8, got {w_q.dtype}")
     if k % bk:
@@ -402,9 +485,7 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
         raise ValueError(f"W8A8 group-wise scales need group_size == "
                          f"block_k ({g} != {bk}): int32 contributions "
                          "are per-block")
-    if fuse_quant and (bm * k > _FUSED_STRIP_ELEMS or k % 128 or bk % 128
-                       or bn % 128):
-        fuse_quant = False
+    fuse_quant, mode, bk = w8a8_schedule(m, n, k, cfg, n_groups, fuse_quant)
     out_dtype = cfg.tout_dtype if cfg.out_dtype is not None else torch.float32
     if x.device.type == "cpu":
         return w8a8_plain(x, w_q, scales.float(), bk=bk, fused=fuse_quant,
@@ -414,39 +495,32 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
     if x.dtype not in _KERNEL_X_DTYPES:
         raise NotImplementedError(
             f"w8a8_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32)")
-    int_acc = n_groups == 1 and 16129 * k < 2 ** 31
-    mode = _FUSED if fuse_quant else (_INT_ACC if int_acc else _PER_BLOCK)
-    if mode != _INT_ACC and bk % KERNEL_K_STEP:
+    if mode != "int_acc" and bk % W8A8_FOLD_STEP:
         raise NotImplementedError(
-            f"w8a8_matmul: block_k {bk} is not a multiple of the kernel's "
-            f"{KERNEL_K_STEP}-deep K step, where its scales change")
+            f"w8a8_matmul: block_k {bk} is not a multiple of {W8A8_FOLD_STEP}, the "
+            f"depth of an int8 tensor-core step, where its scales change")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    if fuse_quant:
-        xq, sx = _quantize_kernel(x, bk, fused=True)
-    else:
-        xq, sx = _quantize_kernel(x, k, fused=False)
-    w_q, scales = _aligned(w_q), scales.float().contiguous()
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.w8a8_gemm(
-            xq.data_ptr(), w_q.data_ptr(), scales.data_ptr(), sx.data_ptr(),
-            out.data_ptr(), m, n, k, bk, n_groups, mode,
-            _build.dtype_code(out_dtype), int(k % 16 == 0),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "w8a8_matmul")
+    route = route or w8a8_route(n, k, bk, mode, x.data_ptr() % 16 == 0
+                                and w_q.data_ptr() % 16 == 0)
+    xq, sx = _quantize_kernel(x, bk if fuse_quant else k, fuse_quant)
+    _w8a8_launch(xq, sx, w_q, scales, out, bk=bk, mode=mode, route=route)
     if fuse_quant:
         w8a8_matmul.fused_launches += 1
     else:
         w8a8_matmul.launches += 1
+    w8a8_matmul.last_route = route
+    w8a8_matmul.routes[route] = w8a8_matmul.routes.get(route, 0) + 1
     return out
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted): B13; B14 (quantize + GEMM, counted once a call); B15.  The
-# route of B13's last launch.
+# counted): B13; B14 (quantize + GEMM, counted once a call); B15; the
+# W8A8 GEMMs by route.  The route of B13's and of W8A8's last launch.
 dequant_matmul.launches = 0
 dequant_matmul.last_route = None
 w8a8_matmul.fused_launches = 0
 w8a8_matmul.launches = 0
+w8a8_matmul.routes = {}
+w8a8_matmul.last_route = None

@@ -3,7 +3,8 @@ row-softmax variants; both tensor-core routes over ``chip_smoke.py``'s
 phase-6 route table), B3 (2-D and batched), B4 and B5 (the integer-slice
 GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
 case tables), the quantized and grouped GEMMs (B13-B16, over its
-phase-16 tables) and the grouped GEMM's weight gradient (B17, both
+phase-16 tables; B13 and B14 / B15 on both tensor-core routes, the W8A8
+engine bitwise equal to its mma.sync tile) and the grouped GEMM's weight gradient (B17, both
 tensor-core routes, over its phase-19 tables), the fused ring and Cannon (B18, B19, over its
 phase-22 / 23 tables, ranks living on the card) on the card, each against
 its plain PyTorch version; the
@@ -845,6 +846,17 @@ def test_dequant_engine_launches_repeat_bitwise(cuda):
 @pytest.mark.parametrize("case", chip_smoke.W8A8_CASES, ids=str)
 def test_w8a8_kernels_vs_plain(cuda, case):
     chip_smoke.w8a8_case(torch, _gen(41), case)
+
+
+# B14 / B15's routes: each case on the route it names (the engine's cases
+# again on mma.sync inside the runner, bitwise equal).
+@pytest.mark.parametrize("case", chip_smoke.W8A8_ROUTE_CASES, ids=str)
+def test_w8a8_routes_match_plain(cuda, case):
+    chip_smoke.w8a8_route_case(torch, _gen(42), case)
+
+
+def test_w8a8_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.w8a8_repeats(torch, _gen(46))
 
 
 @pytest.mark.parametrize("case", chip_smoke.GROUPED_CASES, ids=str)
