@@ -8,7 +8,8 @@ Phases, each printed as it ends:
   2. build every kernel from ``gemm_hls_tpu_torch/csrc`` with nvcc (sm_90a,
      one nvcc per source, all at once), and list the kernels ptxas spilled
      registers in and those whose wgmma it serialised (warnings C7515 and
-     C7518), and the W8A8 engine kernel's registers;
+     C7518), the W8A8 and row-softmax engine kernels' registers, and the
+     row-softmax engine source's nvcc seconds beside the slowest source's;
   3. kernel B1 (dense plus_times) against its plain PyTorch version on the
      card: bf16, fp16, fp32, int8 -> int32 and int32, four layouts, odd,
      unaligned and 1024-class shapes, bool or_and, autograd gradients;
@@ -25,7 +26,11 @@ Phases, each printed as it ends:
      then B2_ROUTE_CASES on both B2 routes (the wgmma engine and WMMA),
      the route checked each, every engine case again on WMMA through the
      route override, and 20 launches of one engine case with the same
-     bits;
+     bits; then ROW_SOFTMAX_ROUTE_CASES on both row-softmax routes (the
+     wgmma engine, ``csrc/row_softmax_wgmma.cu``, and ``row_softmax.cu``),
+     the route checked each, every row summing to 1, every engine case
+     again on ``row_softmax.cu`` through the route override, and 20
+     launches of one engine case with the same bits;
   7. gradients of the batched, epilogue and fused_linear paths against
      plain autograd;
   8. slice 2's main path at full width, launch counts set to 0 before it
@@ -33,16 +38,21 @@ Phases, each printed as it ends:
      fused and unfused) at dims (4096, 16384, 4096) with 8192 bf16 tokens
      and at (1024, 4096, 1024) with 2048 fp32 tokens, each held step by
      step against a plain PyTorch trainer, plus a checkpoint round trip;
-     ``attention`` at (32, 1024, 128) bf16 (fused row softmax) and at
-     (8, 8192, 128) (rows past the fused bound: the unfused branch), its
+     ``attention`` at (32, 1024, 128) bf16 (fused row softmax, its route
+     checked: the engine) and at (8, 8192, 128) (rows past the fused
+     bound: the unfused branch), its
      gradient at (8, 512, 64); batched ``matmul`` calls (four layouts,
      int8, fp32, broadcast, 4-D, min_plus), each B2 launch's route
      printed and checked (the engine for the aligned bf16 calls);
   9. times of B1's epilogue, B2 and B2's row softmax beside their plain
      versions at the main path's shapes (B2 at 64 x 512^3, 256 x 128^3 and
      attention's p . v on device time in turns beside its WMMA route and
-     ``torch.bmm``), and of phase 8's batched calls beside the torch call
-     that computes the same (not counted as launches);
+     ``torch.bmm``; the row softmax at 32 x 1024^2 x 128 on device time in
+     turns beside ``row_softmax.cu``, the plain version and the two-call
+     compositions ``torch.softmax(torch.bmm(q, k^T)[.float()], -1)``, with
+     its bound; ``attention`` (32, 1024, 128) beside its plain
+     composition the same way), and of phase 8's batched calls beside the
+     torch call that computes the same (not counted as launches);
  10. kernels B4 (diagonal) and B5 (hi/lo) against their plain versions:
      2, 3, 4 and 8 slices, stacked and split operands, scaled and
      unscaled, unaligned M, N and K, both flush periods of B5; then
@@ -377,6 +387,39 @@ B2_ROUTE_CASES = (
 # The race check of B2's engine route.
 B2_REPEAT_CASE = ("bfloat16", "float32", True, False, 16, 300, 520, 264, True, None, None, "wgmma")
 B2_REPEATS = 20
+# B2's row-softmax routes (``ops.mxu.row_softmax_route``), phase 6c's case
+# table that tests/test_torch_kernels.py parametrises too: (dtype, out
+# dtype, ta, tb, batch, M, N, K, pitched, broadcast, scale (A's values
+# times it: scores large enough that exp underflows for most columns),
+# route).  Each engine case runs again on row_softmax.cu through the route
+# override.  The engine: bf16 and fp16 in the four layouts with M, N and K
+# off the tiles through pitched views, every output type, K 256 (its
+# limit), N = ROW_SOFTMAX_MAX_N, a broadcast 2-D a / b, a batch of one, a
+# batch past gridDim's 65535, large scores.  row_softmax.cu: fp32, a row
+# pitch that is not a whole 16-byte unit, K 320, rows of P of 258 bytes.
+ROW_SOFTMAX_ROUTE_CASES = (
+    [(dt, dt, ta, tb, 3, 200, 520, 136, True, None, 1, "wgmma")
+     for dt in ("bfloat16", "float16") for ta, tb in LAYOUTS]
+    + [("bfloat16", "float32", ta, tb, 2, 300, 1000, 72, True, None, 1, "wgmma")
+       for ta, tb in LAYOUTS]
+    + [("float16", "float32", False, True, 2, 130, 300, 256, True, None, 1, "wgmma"),
+       ("bfloat16", "float16", True, True, 2, 64, 200, 40, True, None, 1, "wgmma"),
+       ("float16", "bfloat16", False, False, 2, 17, 3200, 64, False, None, 1, "wgmma"),
+       ("bfloat16", "bfloat16", False, True, 4, 100, 264, 128, False, "a", 1, "wgmma"),
+       ("float16", "float16", True, False, 4, 100, 264, 128, True, "b", 1, "wgmma"),
+       ("bfloat16", "bfloat16", False, True, 1, 1000, 1024, 128, False, None, 1, "wgmma"),
+       ("bfloat16", "float32", False, True, 70_000, 3, 8, 8, False, None, 1, "wgmma"),
+       ("bfloat16", "bfloat16", False, True, 2, 256, 1024, 128, False, None, 40, "wgmma"),
+       ("float16", "float32", True, False, 2, 256, 1024, 128, False, None, 40, "wgmma"),
+       ("float32", "float32", False, True, 3, 200, 520, 136, False, None, 1, "simt"),
+       ("bfloat16", "bfloat16", False, False, 3, 64, 200, 100, False, None, 1, "wmma"),
+       ("bfloat16", "float32", False, True, 2, 100, 264, 320, False, None, 1, "wmma"),
+       ("float16", "float16", False, True, 2, 100, 129, 64, False, None, 1, "wmma")]
+)
+# The race check of the row softmax's engine route.
+ROW_SOFTMAX_REPEAT_CASE = ("bfloat16", "float32", True, False, 16, 300, 1000, 200, True, None, 1,
+                           "wgmma")
+ROW_SOFTMAX_REPEATS = 20
 
 
 def pitched(torch, gen, rows, cols, dtype, pitch, lead=()):
@@ -481,6 +524,54 @@ def b2_repeats(torch, gen):
     for i in range(B2_REPEATS - 1):
         if not torch.equal(first, mxu.mxu_matmul_batched(a, b, **kw)):
             raise AssertionError(f"B2: launch {i + 2} of {B2_REPEAT_CASE} differs from the first")
+
+
+def row_softmax_route_operands(torch, gen, case):
+    """(a, b, keyword arguments) of a ROW_SOFTMAX_ROUTE_CASES case, on the
+    card: B2_ROUTE_CASES' operands, A scaled in place (a pitched view stays
+    one), the softmax epilogue."""
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    *head, scale, route = case
+    a, b, _, kw = b2_route_operands(torch, gen, (*head, None, route))
+    a.mul_(scale)
+    kw["epilogue"] = get_epilogue("softmax")
+    return a, b, kw
+
+
+def row_softmax_route_case(torch, gen, case, route=None):
+    """One ROW_SOFTMAX_ROUTE_CASES case on the route it names (or on
+    ``route``, the override) against the plain version, the route checked,
+    every row summing to 1 within 4 rtol; returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import mxu
+    a, b, kw = row_softmax_route_operands(torch, gen, case)
+    got = mxu.mxu_matmul_batched(a, b, route=route, **kw)
+    want = route or case[-1]
+    if mxu.mxu_matmul_batched.row_softmax_route != want:
+        raise AssertionError(f"B2 row-softmax {case}: route "
+                             f"{mxu.mxu_matmul_batched.row_softmax_route}")
+    rtol = F32_RTOL if got.dtype == torch.float32 else BF16_RTOL
+    what = f"B2 row-softmax {case} on {want}"
+    err = compare(torch, got, mxu.mxu_matmul_plain(a, b, **kw), rtol, what, scaled=True)[0]
+    worst = float((got.double().sum(-1) - 1).abs().max())
+    if not worst <= 4 * rtol:
+        raise AssertionError(f"{what}: a row sums to 1 + {worst:.3e}")
+    return err
+
+
+def row_softmax_repeats(torch, gen):
+    """ROW_SOFTMAX_REPEAT_CASE launched ROW_SOFTMAX_REPEATS times on the same
+    operands: every launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.ops import mxu
+    case = ROW_SOFTMAX_REPEAT_CASE
+    a, b, kw = row_softmax_route_operands(torch, gen, case)
+    first = mxu.mxu_matmul_batched(a, b, **kw)
+    if mxu.mxu_matmul_batched.row_softmax_route != case[-1]:
+        raise AssertionError(f"B2 row-softmax {case}: route "
+                             f"{mxu.mxu_matmul_batched.row_softmax_route}")
+    for i in range(ROW_SOFTMAX_REPEATS - 1):
+        if not torch.equal(first, mxu.mxu_matmul_batched(a, b, **kw)):
+            raise AssertionError(f"B2 row-softmax: launch {i + 2} of {case} differs from "
+                                 f"the first")
 
 
 def phase_b1(torch):
@@ -876,6 +967,20 @@ def phase_b2(torch):
                 n_cases += 1
     log(f"phase 6c: B2 row-softmax vs plain, {n_cases} cases (N up to "
         f"{ROW_SOFTMAX_MAX_N}): ok")
+    worst = max(row_softmax_route_case(torch, gen, c) for c in ROW_SOFTMAX_ROUTE_CASES)
+    engine = [c for c in ROW_SOFTMAX_ROUTE_CASES if c[-1] == "wgmma"]
+    worst_old = max(row_softmax_route_case(torch, gen, c, "wmma") for c in engine)
+    row_softmax_repeats(torch, gen)
+    routes = {}
+    for case in ROW_SOFTMAX_ROUTE_CASES:
+        routes[case[-1]] = routes.get(case[-1], 0) + 1
+    log(f"phase 6c: B2 row-softmax route cases, {len(ROW_SOFTMAX_ROUTE_CASES)} {routes} (the "
+        f"wgmma engine: bf16 / fp16 in four layouts, every output type, ragged M / N / K, K 256, "
+        f"N = {ROW_SOFTMAX_MAX_N}, broadcast 2-D a / b, batch 1 and 70000, large scores; "
+        f"row_softmax.cu: fp32, an unaligned pitch, K 320, 258-byte rows of P), each on its "
+        f"route: ok (worst abs err {worst:.3e}); the {len(engine)} engine cases again on "
+        f"row_softmax.cu: ok ({worst_old:.3e}); {ROW_SOFTMAX_REPEATS} engine launches of "
+        f"{ROW_SOFTMAX_REPEAT_CASE[:8]}: the same bits")
 
     bsz = 70_000  # above gridDim.z's 65535: launched in two chunks
     a = signed(torch, (bsz, 3, 5), f32, gen)
@@ -1095,24 +1200,32 @@ def phase_slice2(torch):
                 raise AssertionError("checkpoint round trip changed the params")
             log("phase 8a: checkpoint round trip of the bf16 params: ok")
 
-    # 8c/8d: fused-scores attention, and rows past the fused bound.
+    # 8c/8d: fused-scores attention (its row softmax on the engine), and
+    # rows past the fused bound.
     gen = torch.Generator(device="cuda").manual_seed(51)
+    row_routes = {}
     for key, (bh, s, d) in (("attention", (32, 1024, 128)),
                             ("attention long", (8, 8192, 128))):
         q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
         before = mxu.mxu_matmul_batched.row_softmax_launches
+        mxu.mxu_matmul_batched.row_softmax_route = None
         out = attention(q, k, v)
         fused = mxu.mxu_matmul_batched.row_softmax_launches - before
         if fused != (1 if s <= ROW_SOFTMAX_MAX_N else 0):
             raise AssertionError(f"{key}: {fused} row-softmax launches")
+        if fused:
+            row_routes[key] = mxu.mxu_matmul_batched.row_softmax_route
+            if row_routes[key] != "wgmma":
+                raise AssertionError(f"{key}: row softmax on {row_routes[key]}, the rule "
+                                     f"gives wgmma")
         ref = plain_attention(torch, q, k, v)
         max_abs, max_rel = compare(torch, out, ref, BF16_RTOL, key, scaled=True)
         if out.shape != q.shape or not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"{key}: bad output")
         log(f"phase 8c: {key} ({bh}, {s}, {d}) bf16, "
-            f"{'fused row softmax' if fused else 'unfused branch'}: max abs err "
-            f"{max_abs:.3e}, scaled rel {max_rel:.3e}")
+            f"{f'fused row softmax on {row_routes[key]}' if fused else 'unfused branch'}: "
+            f"max abs err {max_abs:.3e}, scaled rel {max_rel:.3e}")
         del q, k, v, out, ref
     # 8e: attention's gradient against plain autograd.
     gen = torch.Generator(device="cuda").manual_seed(53)
@@ -1176,12 +1289,12 @@ def phase_slice2(torch):
         f"B2 routes {routes}")
 
     launches = {k: v for k, v in counters().items() if k in SLICE2_KERNELS}
-    log(f"phase 8: main-path launch counts {launches}")
+    log(f"phase 8: main-path launch counts {launches}; row-softmax routes {row_routes}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the slice 2 "
                                  f"main path")
-    return launches
+    return launches, row_routes
 
 
 def plain_attention(torch, q, k, v):
@@ -1238,6 +1351,71 @@ def b2_times(torch, gen):
     return out
 
 
+def row_softmax_times(torch, gen):
+    """B2's row softmax at the attention scores' shape (32 x 1024^2 x 128
+    bf16, k held (N, K)) on device time in turns: the route the rule gives
+    (the engine), row_softmax.cu through the route override, the plain
+    version, the fp32-softmax composition torch.softmax(torch.bmm(q, k^T)
+    .float(), -1).to(bf16) and the fastest two-call one, torch.softmax(
+    torch.bmm(q, k^T), -1) in bf16 (its scores rounded to bf16 before the
+    softmax: looser numerics; no one PyTorch call computes the function);
+    then ``attention`` (32, 1024, 128) beside its plain composition.
+    Launches here are comparisons, not the main path's."""
+    from gemm_hls_tpu_torch import attention
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import mxu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+
+    bf16, cfg, sm = torch.bfloat16, default_config(torch.bfloat16), get_epilogue("softmax")
+    bsz, m, n, k = 32, 1024, 1024, 128
+    q, kk, v = (torch.randn((bsz, s, k), generator=gen, device="cuda", dtype=bf16)
+                for s in (m, n, n))
+    kw = dict(cfg=cfg, transpose_b=True, epilogue=sm)
+    ref = mxu.mxu_matmul_plain(q, kk, **kw)
+    fns = {"kernel": lambda: mxu.mxu_matmul_batched(q, kk, **kw)}
+    err = compare(torch, fns["kernel"](), ref, BF16_RTOL, "B2 row-softmax", scaled=True)[0]
+    route = mxu.mxu_matmul_batched.row_softmax_route
+    other = "wmma" if route == "wgmma" else "wgmma"
+    fns[other] = lambda: mxu.mxu_matmul_batched(q, kk, route=other, **kw)
+    compare(torch, fns[other](), ref, BF16_RTOL, f"B2 row-softmax {other}", scaled=True)
+    fns["plain"] = lambda: mxu.mxu_matmul_plain(q, kk, **kw)
+    # Both compositions round the scores to bf16 (torch.bmm's output), so
+    # they are not held to the plain version's tolerance: their largest
+    # difference from it is printed.
+    fns["fp32 softmax of bmm"] = lambda: torch.softmax(
+        torch.bmm(q, kk.transpose(1, 2)).float(), -1).to(bf16)
+    fns["bf16 softmax of bmm"] = lambda: torch.softmax(torch.bmm(q, kk.transpose(1, 2)), -1)
+    loose = {name: float((fns[name]().float() - ref.float()).abs().max())
+             for name in ("fp32 softmax of bmm", "bf16 softmax of bmm")}
+    turns = time_turns(torch, fns)
+    # One pass of products; q, k and P, each once.
+    bound = H100.bound(2.0 * bsz * m * n * k, H100.peak_for("bfloat16"),
+                       (bsz * m * k + bsz * n * k + bsz * m * n) * 2)
+    out = {"B2 row-softmax": dict(
+        ms=turns["kernel"], plain_ms=turns["plain"], max_abs_err=err, route=route,
+        other_route=other, other_ms=turns[other], bound=bound,
+        fp32_softmax_of_bmm_ms=turns["fp32 softmax of bmm"],
+        bf16_softmax_of_bmm_ms=turns["bf16 softmax of bmm"])}
+    log(f"phase 9: B2 row-softmax {bsz}x{m}x{n}x{k} bf16: {turns['kernel']:.4f} ms (route "
+        f"{route}; {other} {turns[other]:.4f} ms) vs plain {turns['plain']:.4f} ms; two "
+        f"calls: torch.softmax(bmm).float() -> bf16 {turns['fp32 softmax of bmm']:.4f} ms, "
+        f"torch.softmax(bmm) in bf16 {turns['bf16 softmax of bmm']:.4f} ms (device time in "
+        f"turns; their max abs differences from plain {loose['fp32 softmax of bmm']:.3e} / "
+        f"{loose['bf16 softmax of bmm']:.3e}); bound {bound[0] * 1e3:.4f} ms ({bound[1]}); "
+        f"max abs err {err:.3e}")
+    ref = plain_attention(torch, q, kk, v)
+    fns = {"attention": lambda: attention(q, kk, v),
+           "plain": lambda: plain_attention(torch, q, kk, v)}
+    att_err = compare(torch, fns["attention"](), ref, BF16_RTOL, "attention", scaled=True)[0]
+    turns = time_turns(torch, fns)
+    out["attention (32, 1024, 128)"] = dict(ms=turns["attention"], plain_ms=turns["plain"],
+                                            max_abs_err=att_err)
+    log(f"phase 9: attention (32, 1024, 128) bf16: {turns['attention']:.4f} ms vs plain "
+        f"{turns['plain']:.4f} ms (device time in turns); max abs err {att_err:.3e}")
+    return out
+
+
 def phase_times(torch):
     """Kernel vs plain times at the main path's shapes (launches here are
     comparisons, not the main path's)."""
@@ -1282,23 +1460,8 @@ def phase_times(torch):
            lambda x_, w_, b_: torch._addmm_activation(b_, x_, w_)))
     del x, w, b
     out.update(b2_times(torch, gen))
-    # B2's row softmax at the attention scores' shape.
-    q = torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
-    k = torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
-    sm = get_epilogue("softmax")
-    entry("B2 row-softmax", lambda q_, k_: mxu.mxu_matmul_batched(
-              q_, k_, cfg=cfg, transpose_b=True, epilogue=sm),
-          lambda q_, k_: mxu.mxu_matmul_plain(q_, k_, cfg=cfg, transpose_b=True,
-                                              epilogue=sm),
-          (q, k), 20, BF16_RTOL,
-          ("torch.softmax(bmm) in bf16", lambda q_, k_: torch.softmax(
-              torch.bmm(q_, k_.transpose(1, 2)).float(), -1).to(bf16)))
-    from gemm_hls_tpu_torch import attention, matmul
-    v = torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
-    entry("attention (32, 1024, 128)", attention,
-          lambda q_, k_, v_: plain_attention(torch, q_, k_, v_), (q, k, v), 20,
-          BF16_RTOL)
-    del q, k, v
+    out.update(row_softmax_times(torch, gen))
+    from gemm_hls_tpu_torch import matmul
 
     # Phase 8f's batched calls through the front door, beside the torch
     # call that computes the same thing (torch.bmm / torch.matmul; for int8
@@ -4911,9 +5074,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    spills, serialised, entry, w8_regs = [], set(), "", []
+    spills, serialised, entry, w8_regs, rs_regs, nvcc_s = [], set(), "", [], [], {}
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in ln:
+        if ln.startswith("== ") and " s, rc " in ln:  # a source's compile seconds
+            name, secs = ln[3:].split(": ", 1)
+            nvcc_s[name] = float(secs.split(" s,")[0])
+        elif "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln.strip()
         elif "C7515" in ln or "C7518" in ln:  # ptxas serialised the function's wgmma
             serialised.add(ln.split("function '")[-1].rstrip("'"))
@@ -4922,20 +5088,27 @@ def main() -> int:
             spills.append(f"{entry}: {ln.strip()}")
         elif "w8a8_wg_kernel" in entry and "registers" in ln:
             w8_regs.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
+        elif "row_softmax_wg_kernel" in entry and "registers" in ln:
+            rs_regs.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
+    slowest = max(nvcc_s, key=nvcc_s.get) if nvcc_s else None
     log(f"phase 2: built and loaded {lib_path.name} in "
         f"{time.perf_counter() - t0:.1f} s; kernels with spills: {len(spills)}"
         + "".join(f"\n  {x}" for x in spills)
         + f"\nphase 2: kernels whose wgmma ptxas serialised (C7515, C7518): {len(serialised)}"
         + "".join(f"\n  {x}" for x in sorted(serialised))
         + "\nphase 2: the W8A8 engine kernel (csrc/w8a8_wgmma.cu), as ptxas reports it:"
-        + "".join(f"\n  {x}" for x in w8_regs))
+        + "".join(f"\n  {x}" for x in w8_regs)
+        + "\nphase 2: the row-softmax engine kernel (csrc/row_softmax_wgmma.cu), as ptxas "
+          "reports it:" + "".join(f"\n  {x}" for x in rs_regs)
+        + f"\nphase 2: nvcc seconds: row_softmax_wgmma.cu "
+          f"{nvcc_s.get('row_softmax_wgmma.cu')}, the slowest {slowest} {nvcc_s.get(slowest)}")
 
     phase_b1(torch)
     phase_b3(torch)
     results, launches = phase_main(torch)
     phase_b2(torch)
     phase_grads(torch)
-    launches2 = phase_slice2(torch)
+    launches2, row_routes = phase_slice2(torch)
     times = phase_times(torch)
     phase_b45(torch)
     launches3, res3 = phase_slice3(torch)
@@ -4973,9 +5146,7 @@ def main() -> int:
                                   (8192 * 4096 + 4096 * 16384 + 8192 * 16384
                                    + 16384) * bf16),
         "B2": times["B2 64x512^3"]["bound"],
-        "B2 row-softmax": H100.bound(2.0 * 32 * 1024 * 1024 * 128,
-                                     H100.peak_for("bfloat16"),
-                                     (2 * 32 * 1024 * 128 + 32 * 1024 * 1024) * bf16),
+        "B2 row-softmax": times["B2 row-softmax"]["bound"],
         "B3": H100.bound(2.0 * 4096 ** 3, H100.vpu_ops, 3 * 4096 * 4096 * 4),
         "B4": slice_gemm_bound(H100, n8, n8, n8, 3, 3),
         "B5": slice_gemm_bound(H100, 2048, 2048, 2048, 8, 8, n_outputs=2),
@@ -5025,6 +5196,18 @@ def main() -> int:
     t = times["B2 64x512^3"]
     kernels[2].update(kernel_route=t["route"], other_route=t["other_route"],
                       other_ms=t["other_ms"], library_note="library_ms is torch.bmm")
+    # B2's row softmax: the route phase 8c's attention took (the engine,
+    # csrc/row_softmax_wgmma.cu), row_softmax.cu in the same turns, and the
+    # two-call compositions (no one PyTorch call computes it).
+    t = times["B2 row-softmax"]
+    kernels[3].update(source="gemm_hls_tpu_torch/csrc/row_softmax_wgmma.cu",
+                      kernel_route=row_routes["attention"], other_route=t["other_route"],
+                      other_ms=t["other_ms"],
+                      fp32_softmax_of_bmm_ms=t["fp32_softmax_of_bmm_ms"],
+                      bf16_softmax_of_bmm_ms=t["bf16_softmax_of_bmm_ms"],
+                      library_note="no one PyTorch call: two-call compositions beside, "
+                                   "torch.softmax(torch.bmm(q, k^T).float(), -1).to(bf16) "
+                                   "and torch.softmax(torch.bmm(q, k^T), -1) in bf16")
     # Slice 4 at the causal training shape, (32, 1024, 128) bf16.
     for name, replaces in (
             ("flash_fwd", "gemm_hls_tpu/ops/pallas_flash.py:62,322,467"),

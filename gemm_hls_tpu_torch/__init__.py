@@ -10,8 +10,9 @@ epilogues, the int8-slice precision tiers and semiring gradients),
 Ozaki f64-class GEMMs in ``ops.ozaki``, the graph applications in
 ``models.graph`` and the MLP trainer in ``models.mlp``.  The dense
 plus_times GEMM runs on hand-written tensor-core kernels
-(``csrc/mxu_gemm.cu``: B1 and the batched B2; ``csrc/row_softmax.cu``: B2's
-row-softmax variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
+(``csrc/mxu_gemm.cu``: B1 and the batched B2; ``csrc/row_softmax_wgmma.cu``
+on the tile engine or ``csrc/row_softmax.cu`` by shape: B2's row-softmax
+variant), the integer-slice GEMMs on ``csrc/int8_slices.cu``
 (B4, B5), every other semiring on a CUDA-core kernel
 (``csrc/semiring_gemm.cu``), flash attention on ``csrc/flash_wgmma.cu``
 and ``csrc/flash_bwd_wgmma.cu`` (the tile engine) or ``csrc/flash_fwd.cu``,

@@ -129,6 +129,9 @@ def _declare(lib):
     lib.mxu_wgmma.argtypes = gemm + [i32, i32, i32, vp, vp, i32, vp]
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
+    # B2's row softmax on the tile engine: (..., in_code, out_code, stream).
+    lib.row_softmax_wgmma.restype = i32
+    lib.row_softmax_wgmma.argtypes = gemm + [i32, i32, vp]
     lib.semiring_gemm.restype = i32
     lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, vp]
     # (a slices, b^T slices, n_used, c, c2, ua, ub, M, N, K, lda, ldb,

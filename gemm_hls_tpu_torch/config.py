@@ -156,7 +156,8 @@ def _row_softmax_max_n() -> int:
 # Longest row the fused row softmax takes: 3200 columns.  The port's
 # counterpart of the JAX package's VMEM rule ``_batched_fast_path_ok``
 # (gemm_hls_tpu/ops/matmul.py:174-203); past it, attention takes the
-# unfused branch.
+# unfused branch.  The engine route (csrc/row_softmax_wgmma.cu) keeps no
+# strip and takes the same bound.
 ROW_SOFTMAX_MAX_N = _row_softmax_max_n()
 
 

@@ -5,8 +5,9 @@
 // counterpart of gemm_hls_tpu/ops/pallas_mxu.py::_kernel and its fused
 // per-column epilogue (:69, :103), and of ::_batched_kernel (:143, called
 // at :298 with the epilogue and :328 without); the shapes it does not take
-// stay on csrc/mxu_gemm.cu (see there), the row softmax on
-// csrc/row_softmax.cu.
+// stay on csrc/mxu_gemm.cu (see there).  The row softmax has its own
+// engine kernel (csrc/row_softmax_wgmma.cu, which reads its operands
+// through encode_operand's maps) and csrc/row_softmax.cu off the engine.
 //
 // One persistent block a SM (the engine's 384 threads: two consumer
 // warpgroups own 64 rows each of a 128 x 256 tile, one producer thread

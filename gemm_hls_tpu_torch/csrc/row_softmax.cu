@@ -4,7 +4,11 @@
 // Replaces the epilogue path of gemm_hls_tpu/ops/pallas_mxu.py::
 // _batched_kernel (pallas_mxu.py:176-188, launched at :328) with the row
 // softmax of gemm_hls_tpu/ops/attention.py::_softmax_rows as its epilogue:
-// the fused attention scores.  A row softmax needs whole rows, so N is not
+// the fused attention scores.  It takes what the tile engine's route
+// (csrc/row_softmax_wgmma.cu, ops/mxu.py::row_softmax_route) does
+// not: fp32 inputs, operands whose bases, row pitches or batch strides are
+// not whole 16-byte units, K past 256, and rows of P whose bytes are not
+// whole 16-byte units.  A row softmax needs whole rows, so N is not
 // gridded: one 256-thread block owns a strip of RBM = 16 rows of one batch
 // entry and every column.  It walks N in 128-column tiles, each a
 // 16 x 128 x K product (WMMA for bf16 / fp16, fp32 FMA on CUDA cores for
@@ -23,7 +27,8 @@
 // What bounds it at the attention shape (32 x 1024^2 x 128, bf16): not the
 // tensor cores (8.6 GFLOP) nor the 64 MB written, but latency: one block
 // per 16 rows re-stages its A strip for every N tile, two barriers per
-// 32-deep K step, no prefetch.  A simple kernel that is right comes first.
+// 32-deep K step, no prefetch (0.522 ms on an H100 80GB HBM3 at 700 W
+// against a 0.025 ms bound; the engine route takes that shape now).
 //
 // Ragged edges as in csrc/mxu_gemm.cu: the K tail and rows / columns past
 // M / N are zero-filled in shared memory, never loaded; the softmax reads

@@ -3,10 +3,12 @@
 Counterpart of ``gemm_hls_tpu/ops/attention.py`` (``attention_scores``,
 ``attention``): the scores' row softmax runs inside the GEMM, so the scores
 never reach device memory, only the probabilities.  A row softmax needs
-whole rows in one block: kernel B2's row-softmax variant
-(``csrc/row_softmax.cu``) keeps a strip of rows and every column in shared
-memory, which bounds the row length (``config.ROW_SOFTMAX_MAX_N``, the
-port's counterpart of the JAX package's VMEM rule).  Past the bound the
+whole rows in one block: kernel B2's row-softmax variant computes each
+row's max and sum before it writes the row (``csrc/row_softmax_wgmma.cu``
+on the tile engine, which computes the scores twice) or keeps a strip of
+rows and every column in shared memory (``csrc/row_softmax.cu``, which
+bounds the row length: ``config.ROW_SOFTMAX_MAX_N``, the port's
+counterpart of the JAX package's VMEM rule, holds for both).  Past the bound the
 scores are written in fp32 by B2's plain variant and softmaxed after, as
 the JAX package does past its own rule (its ``attention.py:88-90``).
 

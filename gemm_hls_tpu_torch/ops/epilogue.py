@@ -14,8 +14,8 @@ So an epilogue here is a registry entry that holds
 * ``bwd(y, g, *operands) -> (dacc, *doperands)``: the output-form
   derivative that ``fused_linear`` passes as ``epilogue_bwd``, or None;
 * ``rows``: it needs whole rows (the row softmax), so it runs on kernel
-  B2's row-softmax variant (``csrc/row_softmax.cu``), never on a tile that
-  splits a row.
+  B2's row-softmax variant (``csrc/row_softmax_wgmma.cu`` or
+  ``csrc/row_softmax.cu``), never on a tile that splits a row.
 
 Operands are per-output-column: (N,) tensors, seen by ``fn`` and ``bwd`` as
 (1, N).  ``matmul(epilogue=...)`` takes a registry name, an entry, or any

@@ -1,6 +1,7 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
-(``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``,
-``csrc/row_softmax.cu``) and their plain PyTorch version.
+(``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``; B2's row
+softmax ``csrc/row_softmax_wgmma.cu`` on the engine, ``csrc/row_softmax.cu``)
+and their plain PyTorch version.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
@@ -91,8 +92,8 @@ def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str
     16-byte units: what a TMA map describes); ``"wmma"``
     (``csrc/mxu_gemm.cu``'s tensor-core tile) for the other bf16 / fp16 /
     int8 calls; ``"simt"`` (IEEE fp32, wrapping int32, on the CUDA cores)
-    for fp32 and int32.  B2's row softmax has a kernel of its own
-    (``csrc/row_softmax.cu``).  Chosen by shape, never as a fallback: a
+    for fp32 and int32.  B2's row softmax has kernels of its own
+    (:func:`row_softmax_route`).  Chosen by shape, never as a fallback: a
     kernel that fails to build or launch raises."""
     if dtype in (torch.float32, torch.int32):
         return "simt"
@@ -101,6 +102,32 @@ def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str
     if dtype in (torch.bfloat16, torch.float16):
         return "wgmma"
     return "wgmma" if dtype == torch.int8 and not transpose_a and transpose_b else "wmma"
+
+
+# Deepest K the row softmax's engine route takes: its block holds the
+# item's whole 128-row A tile (64 KB of shared memory at K 256).
+ROW_SOFTMAX_ENGINE_MAX_K = 256
+
+
+def row_softmax_route(dtype, out_dtype, n: int, k: int, aligned: bool) -> str:
+    """The kernel a row-softmax launch of B2 takes: ``"wgmma"`` (the Hopper
+    tile engine, ``csrc/row_softmax_wgmma.cu``: the scores computed twice by
+    wgmma, once for each row's max and sum and once for P, which leaves by
+    TMA stores) for bf16 or fp16 in any layout whose operands are
+    ``aligned`` (16-byte bases, row pitches and batch strides whole 16-byte
+    units, as for :func:`mxu_route`), with K <= ROW_SOFTMAX_ENGINE_MAX_K
+    (the block holds a whole 128-row A tile) and rows of P that are whole
+    16-byte units (N times ``out_dtype``'s bytes: what P's TMA map
+    describes); else ``csrc/row_softmax.cu``, ``"wmma"`` for bf16 / fp16
+    (its tensor-core strip) and ``"simt"`` for fp32 (the CUDA cores).
+    Every route takes N up to ``ROW_SOFTMAX_MAX_N``.  Chosen by shape, never
+    as a fallback."""
+    if dtype == torch.float32:
+        return "simt"
+    if (aligned and k <= ROW_SOFTMAX_ENGINE_MAX_K
+            and n * out_dtype.itemsize % 16 == 0):
+        return "wgmma"
+    return "wmma"
 
 
 def _ep_operands(eps, n, device):
@@ -186,7 +213,15 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
     a, b = _row_major(a), _row_major(b)
     (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     vec_a, vec_b = _vec_ok(a), _vec_ok(b)
-    route = route or mxu_route(a.dtype, ta, tb, bool(vec_a and vec_b))
+    aligned = bool(vec_a and vec_b)
+    if rows:
+        old = "simt" if a.dtype == torch.float32 else "wmma"
+        if route not in (None, "wgmma", old):
+            raise ValueError(f"{what}: the row softmax of {dtype_name(a.dtype)} "
+                             f"runs on 'wgmma' or {old!r}, not {route!r}")
+        route = route or row_softmax_route(a.dtype, out_dtype, n, k, aligned)
+    else:
+        route = route or mxu_route(a.dtype, ta, tb, aligned)
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     ops, ep_dt = _ep_operands(eps, n, a.device)
     ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
@@ -197,14 +232,18 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, n, k,
                 lda, ldb, sa, sb, int(ta), int(tb))
         ep_args = (code, *ptrs, _build.dtype_code(ep_dt), stream)
-        if rows:
+        if rows and route == "wgmma":
+            rc = lib.row_softmax_wgmma(*args, *codes, stream)
+        elif rows:
             rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
         elif route == "wgmma":
             rc = lib.mxu_wgmma(*args, *codes, *ep_args)
         else:
             rc = lib.mxu_gemm(*args, vec_a, vec_b, *codes, *ep_args)
     _build.check(rc, what)
-    if not rows:
+    if rows:
+        mxu_matmul_batched.row_softmax_route = route
+    else:
         (mxu_matmul if what == "kernel B1" else mxu_matmul_batched).last_route = route
     return out
 
@@ -251,7 +290,9 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     runs at the store of the tile kernel, :func:`mxu_route`'s (recorded as
     ``mxu_matmul_batched.last_route``; ``route`` names another for a
     comparison); the row softmax runs on B2's row-softmax variant (rows of
-    at most ``ROW_SOFTMAX_MAX_N``).
+    at most ``ROW_SOFTMAX_MAX_N``), :func:`row_softmax_route`'s kernel
+    (recorded as ``mxu_matmul_batched.row_softmax_route``; ``route`` names
+    the other for a comparison).
     """
     bsz, m, n, k = batched_dims(a, b, transpose_a, transpose_b)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -269,11 +310,12 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
 # Kernel launches since the counts were last reset (plain calls not
 # counted): B1 without / with a per-column epilogue; B2 plain or with a
-# per-column epilogue; B2's row-softmax variant.  And the route of B1's and
-# of B2's last launch (the row softmax has one kernel).
+# per-column epilogue; B2's row-softmax variant.  And the route of B1's, of
+# B2's and of B2's row softmax's last launch.
 mxu_matmul.launches = 0
 mxu_matmul.last_route = None
 mxu_matmul.epilogue_launches = 0
 mxu_matmul_batched.launches = 0
 mxu_matmul_batched.last_route = None
 mxu_matmul_batched.row_softmax_launches = 0
+mxu_matmul_batched.row_softmax_route = None

@@ -155,37 +155,47 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str, text: str) -> str:
-    """The source ``text`` patched as variant ``name``, its kernel in
-    namespace gemm_hls::v_<name> and its entry point w8a8_wgmma_<name>."""
-    for old, new in VARIANTS.get(name, []):
+def patch_source(name: str, text: str, patches, entry: str) -> str:
+    """The kernel source ``text`` with ``patches`` ((old, new) pairs) applied,
+    its kernel in namespace gemm_hls::v_<name> and its entry point
+    <entry>_<name>, so that variants of one source share a library."""
+    for old, new in patches:
         if old not in text:
-            raise ValueError(f"variant {name}: its patch no longer matches {SOURCE}: {old[:60]!r}")
+            raise ValueError(f"variant {name}: its patch no longer matches: {old[:60]!r}")
         text = text.replace(old, new)
     text = text.replace("namespace gemm_hls {", f"namespace gemm_hls {{ namespace v_{name} {{", 1)
     text = text.replace("}  // namespace gemm_hls", "} }  // namespace gemm_hls", 1)
     text = text.replace("using namespace gemm_hls;",
                         f"using namespace gemm_hls;\nusing namespace gemm_hls::v_{name};")
-    text = text.replace('extern "C" int w8a8_wgmma(', f'extern "C" int w8a8_wgmma_{name}(')
-    return text + (_STAMP_TAIL if name == "stamps" else "")
+    return text.replace(f'extern "C" int {entry}(', f'extern "C" int {entry}_{name}(')
 
 
-def build(names) -> ctypes.CDLL:
-    """The tree's kernel and ``names``' variants in one library."""
-    src = _build.BUILD_DIR / "w8a8-ab" / "csrc"
+def build_variants(tag: str, sources) -> Path:
+    """One library of ``sources`` ({file name: text}) beside copies of the
+    headers, under the gitignored build/<tag>/; prints each source's
+    compile seconds, the ptxas registers, spills and C75xx warnings."""
+    src = _build.BUILD_DIR / tag / "csrc"
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
     for f in _build.CSRC_DIR.glob("*.cuh"):
         shutil.copy(f, src / f.name)
-    text = (_build.CSRC_DIR / SOURCE).read_text()
-    for name in ("tree", *names):
-        (src / f"w8a8_{name}.cu").write_text(variant_source(name, text))
+    for name, text in sources.items():
+        (src / name).write_text(text)
     _build.CSRC_DIR, _build.BUILD_DIR = src, src.parent
     path = _build.build()
     for ln in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in ln or "C75" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln):
+        if (ln.startswith("== ") or "registers" in ln or "C75" in ln
+                or ("spill" in ln and " 0 bytes spill stores" not in ln)):
             print(ln.strip()[:170])
-    lib = ctypes.CDLL(str(path))
+    return path
+
+
+def build(names) -> ctypes.CDLL:
+    """The tree's kernel and ``names``' variants in one library."""
+    text = (_build.CSRC_DIR / SOURCE).read_text()
+    lib = ctypes.CDLL(str(build_variants("w8a8-ab", {
+        f"w8a8_{name}.cu": patch_source(name, text, VARIANTS.get(name, []), "w8a8_wgmma")
+        + (_STAMP_TAIL if name == "stamps" else "") for name in ("tree", *names)})))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("tree", *names):
         fn = getattr(lib, f"w8a8_wgmma_{name}")

@@ -1,6 +1,6 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
 row-softmax variants; both tensor-core routes over ``chip_smoke.py``'s
-phase-6 route table), B3 (2-D and batched), B4 and B5 (the integer-slice
+phase-6 route tables), B3 (2-D and batched), B4 and B5 (the integer-slice
 GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
 case tables), the quantized and grouped GEMMs (B13-B16, over its
 phase-16 tables; B13 and B14 / B15 on both tensor-core routes, the W8A8
@@ -565,6 +565,22 @@ def test_b2_routes_match_plain(cuda, case, route):
 
 def test_b2_engine_launches_repeat_bitwise(cuda):
     chip_smoke.b2_repeats(torch, _gen(236))
+
+
+# B2's row-softmax routes (chip_smoke.py phase 6c): each case on the route
+# it names, and every engine case again on row_softmax.cu (the override).
+_ROW_SOFTMAX_RUNS = (
+    [(case, None) for case in chip_smoke.ROW_SOFTMAX_ROUTE_CASES]
+    + [(case, "wmma") for case in chip_smoke.ROW_SOFTMAX_ROUTE_CASES if case[-1] == "wgmma"])
+
+
+@pytest.mark.parametrize("case,route", _ROW_SOFTMAX_RUNS, ids=str)
+def test_b2_row_softmax_routes_match_plain(cuda, case, route):
+    chip_smoke.row_softmax_route_case(torch, _gen(239), case, route)
+
+
+def test_b2_row_softmax_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.row_softmax_repeats(torch, _gen(240))
 
 
 @pytest.mark.parametrize("case", chip_smoke.OZAKI_ROUTE_CASES, ids=str)
