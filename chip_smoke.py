@@ -193,7 +193,24 @@ Phases, each printed as it ends:
      ``torch.matmul``; then B18 (1, 4 and 8 ranks) and B19 times beside
      their bounds, plain schedules and bf16 ``torch.matmul`` of the
      product, and each launch's time stamps: the prologue, each step, when
-     its sends were done, the longest flag wait.
+     its sends were done, the longest flag wait;
+ 25. slice 16's main path, the out-of-memory GEMM staged from host memory
+     and the tools of one card, each step timed and its launch counts set
+     to 0 before it and read after: (a) ``tools.oversize`` at its defaults
+     (32768^3 bf16 in 8192^3 host tiles, 64 panel jobs), its 8 spot checks
+     against float64 host dot products, every panel's route (the engine),
+     the rate with the staging, the host-to-device GB/s and bytes beside
+     the CA law, and the same problem in turns (prefetch off, off, on),
+     each bit-identical to the tool's run;
+     (b) ``streamed_matmul`` min_plus at 8192^3 fp32 in 4096 tiles equal
+     to the plain semiring on the card, and plus_times beside fp32
+     ``torch.matmul``; (c) ``streamed_matmul_files`` on the same operands
+     through the native tile IO, equal to (b)'s plus_times; (d)
+     ``streamed_ozaki_matmul`` at 8192^3 float64, normwise error against
+     float64 ``torch.matmul`` below 1e-13; (e) ``tools.selftest`` at full
+     size, every check passing; (f) ``tools.profile`` of bf16 8192^3, then
+     its CLI in a fresh process writing a Chrome trace that must hold the
+     B1 engine kernel; (g) ``tools.print_specifications`` of the problem.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -5050,6 +5067,245 @@ def phase_times7(torch):
     return out
 
 
+# Slice 16: the host-staged GEMM's problem sizes (phase 25): the mid-size
+# semiring, file and Ozaki runs, their host tile, and the profiled GEMM.
+STAGED = dict(mid=8192, mid_tile=4096, profile=8192)
+
+
+def every_counter():
+    """The launch count of every kernel (B1-B19)."""
+    from gemm_hls_tpu_torch.ops import cannon, gmm, ring
+    out = dict(counters(), **flash_counters(), **quant_counters())
+    out.update(B17=gmm.grouped_update_mxu.launches, B18=ring.ring_gemm.launches,
+               B19=cannon.cannon_gemm.launches)
+    return out
+
+
+def reset_every_counter():
+    from gemm_hls_tpu_torch.ops import cannon, gmm, ring
+    reset_counters()
+    reset_flash_counters()
+    reset_quant_counters()
+    gmm.grouped_update_mxu.launches = 0
+    ring.ring_gemm.launches = cannon.cannon_gemm.launches = 0
+
+
+def launched():
+    """The kernels launched since the last reset, with their counts."""
+    return {k: v for k, v in every_counter().items() if v}
+
+
+def phase_slice16(torch):
+    """Phase 25 (main path): slice 16's staged GEMMs and tools; returns
+    each step's launches and readings.  Raises on any mismatch."""
+    import collections
+    import os
+
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+    from gemm_hls_tpu_torch.ops.vpu import vpu_matmul_plain
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.parallel import streamed_matmul, streamed_matmul_files
+    from gemm_hls_tpu_torch.parallel.staging import streamed_ozaki_matmul
+    from gemm_hls_tpu_torch.tools import oversize, print_specifications, profile, selftest
+    from gemm_hls_tpu_torch.utils.tileio import MatrixFile, native_tileio_available
+
+    out = {"launches": {}}
+
+    def step(key, t0):
+        torch.cuda.synchronize()
+        out["launches"][key] = launched()
+        out[f"{key} s"] = time.perf_counter() - t0
+        return out[f"{key} s"]
+
+    # (a) the reference tool at its defaults.
+    reset_every_counter()
+    t0 = time.perf_counter()
+    res = oversize.run([])
+    secs = step("a", t0)
+    stats = res["stats"]
+    if not res["ok"] or len(res["spots"]) != 8:
+        raise AssertionError("phase 25a: oversize spot verification failed")
+    if stats["routes"] != ["wgmma"] * stats["jobs"] or stats["jobs"] != 64:
+        raise AssertionError(f"phase 25a: panel routes {stats['routes']}")
+    if out["launches"]["a"] != {"B1": 64}:
+        raise AssertionError(f"phase 25a: launches {out['launches']['a']}")
+    worst = max(s["rel"] for s in res["spots"])
+    log(f"phase 25a: tools.oversize 32768^3 bf16, tiles 8192: {secs:.3f} s "
+        f"(fill {res['fill_seconds']:.3f} s, GEMM with staging {res['seconds']:.3f} s, "
+        f"{res['gops'] / 1e3:.2f} TOp/s); host-to-device {stats['h2d_bytes']} bytes = "
+        f"{stats['h2d_bytes'] / res['law_h2d_bytes']:.4f} x the CA law's "
+        f"M*N*(K/tile_n + K/tile_m) words, {stats['h2d_bytes'] / res['seconds'] / 1e9:.2f} "
+        f"GB/s over the GEMM; device-to-host {stats['d2h_bytes']} bytes; 8 spot checks "
+        f"pass (worst rel {worst:.2e}); prefetch {stats['prefetch']}, {stats['slots']} "
+        f"slots; launches {out['launches']['a']}\nphase 25a: panel routes "
+        + " ".join(stats["routes"]))
+    out["oversize"] = {"seconds": res["seconds"], "tops": res["gops"] / 1e3,
+                       "h2d_bytes": stats["h2d_bytes"], "law_h2d_bytes": res["law_h2d_bytes"],
+                       "h2d_gbs": stats["h2d_bytes"] / res["seconds"] / 1e9,
+                       "worst_spot_rel": worst,
+                       **{k: stats[k] for k in ("fill_s", "stage_wait_s", "drain_s")}}
+    # The same problem with prefetch off and on again, in turns after the
+    # tool's run (on, off, off, on), each bit-identical to the tool's.
+    turns = []
+    for i, prefetch in enumerate((False, False, True)):
+        reset_every_counter()
+        t0 = time.perf_counter()
+        c2 = streamed_matmul(res["a"], res["b"], tile_m=8192, tile_n=8192, tile_k=8192,
+                             prefetch=prefetch)
+        secs = step(f"a turn {i + 1}", t0)
+        if not torch.equal(c2, res["c"]):
+            raise AssertionError(f"phase 25a: prefetch {prefetch} differs from the tool's run")
+        del c2
+        st = streamed_matmul.last_stats
+        turns.append({"prefetch": prefetch, "seconds": secs,
+                      **{k: st[k] for k in ("fill_s", "stage_wait_s", "drain_s")}})
+    out["oversize"]["turns"] = turns
+    log("phase 25a: the same problem in turns after the tool's run (prefetch on), each "
+        "bit-identical to it: " + "; ".join(
+            f"prefetch {'on' if t['prefetch'] else 'off'} {t['seconds']:.3f} s "
+            f"({2.0 * 32768 ** 3 / t['seconds'] / 1e12:.2f} TOp/s; host fill {t['fill_s']:.3f} "
+            f"s, compute thread waiting {t['stage_wait_s']:.3f} s, drain {t['drain_s']:.3f} s)"
+            for t in turns)
+        + f"; the tool's run: fill {stats['fill_s']:.3f} s, waiting {stats['stage_wait_s']:.3f}"
+        f" s, drain {stats['drain_s']:.3f} s")
+    del res
+
+    # (b) min_plus and plus_times at 8192^3 fp32 in 4096 host tiles.
+    n, t = STAGED["mid"], STAGED["mid_tile"]
+    gen = torch.Generator(device="cuda").manual_seed(251)
+    a_dev = torch.rand((n, n), generator=gen, device="cuda")
+    b_dev = torch.rand((n, n), generator=gen, device="cuda")
+    a, b = a_dev.cpu(), b_dev.cpu()
+    reset_every_counter()
+    t0 = time.perf_counter()
+    tropical = streamed_matmul(a, b, semiring="min_plus", tile_m=t, tile_n=t, tile_k=t)
+    secs = step("b min_plus", t0)
+    routes = collections.Counter(streamed_matmul.last_stats["routes"])
+    t0 = time.perf_counter()
+    sr = get_semiring("min_plus")
+    plain = vpu_matmul_plain(a_dev, b_dev, cfg=default_config("float32", semiring=sr.name),
+                             sr=sr).cpu()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(tropical, plain):
+        raise AssertionError("phase 25b: streamed min_plus differs from the plain semiring")
+    log(f"phase 25b: streamed_matmul min_plus {n}^3 fp32, tiles {t}: {secs:.3f} s, equal "
+        f"to the plain semiring on the card ({plain_s:.3f} s); panel routes {dict(routes)}, "
+        f"launches {out['launches']['b min_plus']}")
+    reset_every_counter()
+    t0 = time.perf_counter()
+    dense = streamed_matmul(a, b, tile_m=t, tile_n=t, tile_k=t)
+    secs = step("b plus_times", t0)
+    _, rel = compare(torch, dense, torch.matmul(a_dev, b_dev).cpu(), F32_RTOL,
+                     "phase 25b streamed plus_times")
+    log(f"phase 25b: streamed_matmul plus_times {n}^3 fp32, tiles {t}: {secs:.3f} s, max rel "
+        f"err {rel:.2e} against fp32 torch.matmul; panel routes "
+        f"{dict(collections.Counter(streamed_matmul.last_stats['routes']))}, launches "
+        f"{out['launches']['b plus_times']}")
+    out["min_plus_seconds"], out["plus_times_seconds"] = out["b min_plus s"], secs
+
+    # (c) the same operands from files, through the native tile IO.
+    if not native_tileio_available():
+        raise AssertionError("phase 25c: native/libtileio.so did not build or load")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {name: MatrixFile(os.path.join(tmp, f"{name}.bin"), n, n, "float32",
+                                  create=True) for name in "abc"}
+        try:
+            if not all(f.native for f in files.values()):
+                raise AssertionError("phase 25c: a MatrixFile took the numpy.memmap path")
+            files["a"].write_tile(0, 0, a.numpy())
+            files["b"].write_tile(0, 0, b.numpy())
+            reset_every_counter()
+            t0 = time.perf_counter()
+            streamed_matmul_files(files["a"], files["b"], files["c"], tile_m=t, tile_n=t,
+                                  tile_k=t)
+            secs = step("c", t0)
+            from_file = torch.from_numpy(files["c"].read_tile(0, n, 0, n))
+        finally:
+            for f in files.values():
+                f.close()
+    if not torch.equal(from_file, dense):
+        raise AssertionError("phase 25c: the files' product differs from the in-memory one")
+    want = {"b min_plus": {"B3": 8}, "b plus_times": {"B1": 8}, "c": {"B1": 8}}
+    for key, counts in want.items():
+        if out["launches"][key] != counts:
+            raise AssertionError(f"phase 25 {key}: launches {out['launches'][key]}, "
+                                 f"want {counts}")
+    log(f"phase 25c: streamed_matmul_files {n}^3 fp32 on the native tile IO, tiles {t}: "
+        f"{secs:.3f} s, equal to 25b's in-memory plus_times; launches {out['launches']['c']}")
+    del a_dev, b_dev, tropical, plain, dense, from_file
+
+    # (d) f64-class Ozaki streamed at 8192^3.
+    a64 = torch.rand((n, n), generator=gen, device="cuda", dtype=torch.float64) * 10 - 5
+    b64 = torch.rand((n, n), generator=gen, device="cuda", dtype=torch.float64) * 10 - 5
+    reset_every_counter()
+    t0 = time.perf_counter()
+    got = streamed_ozaki_matmul(a64.cpu().numpy(), b64.cpu().numpy())
+    secs = step("d", t0)
+    err, _ = normwise(torch, torch.from_numpy(got).cuda(), a64, b64)
+    if not err < 1e-13:
+        raise AssertionError(f"phase 25d: streamed Ozaki normwise {err:.2e} >= 1e-13")
+    if out["launches"]["d"].get("B5") != 4:
+        raise AssertionError(f"phase 25d: launches {out['launches']['d']}, want 4 of B5")
+    out["ozaki_seconds"], out["ozaki_normwise"] = secs, err
+    log(f"phase 25d: streamed_ozaki_matmul {n}^3 float64 (tiles 4096 x 4096 x 16384): "
+        f"{secs:.3f} s, normwise {err:.2e} against float64 torch.matmul; launches "
+        f"{out['launches']['d']}")
+    del a64, b64, got
+
+    # (e) the self-test battery at full size.
+    reset_every_counter()
+    t0 = time.perf_counter()
+    if selftest.main([]) != 0:
+        raise AssertionError("phase 25e: a self-test check failed")
+    secs = step("e", t0)
+    log(f"phase 25e: tools.selftest (1024^3): every check passes in {secs:.3f} s; launches "
+        f"{out['launches']['e']}")
+
+    # (f) the profiler on bf16 8192^3: in this process for the time against
+    # the model (its B1 launches counted), then as a user runs it, in a fresh
+    # process that writes a Chrome trace, whose kernel events are checked.
+    m = STAGED["profile"]
+    reset_every_counter()
+    t0 = time.perf_counter()
+    prof = profile.profile_matmul(m, m, m, dtype="bfloat16", iters=20)
+    secs = step("f", t0)
+    if prof["route"] != "wgmma":
+        raise AssertionError(f"phase 25f: route {prof['route']}")
+    out["profile"] = prof
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gemm_hls_tpu_torch.tools.profile", str(m), str(m), str(m),
+             "--dtype", "bfloat16", "--iters", "20", "--trace-dir", tmp],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 25f: tools.profile exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if not any("mxu_wg_kernel" in k for k in kernels):
+        raise AssertionError(f"phase 25f: the trace's kernel events {kernels} hold no B1 "
+                             "engine kernel")
+    log(f"phase 25f: tools.profile bf16 {m}^3: {prof['measured_seconds'] * 1e3:.4f} ms "
+        f"({prof['measured_gflops'] / 1e3:.1f} TFLOP/s, route {prof['route']}) against the "
+        f"model's {prof['expected_seconds'] * 1e3:.4f} ms for blocks {prof['blocks']} "
+        f"[{prof['bound']}-bound]: {prof['percent_of_expected']:.1f}% of expected, "
+        f"{prof['percent_of_peak']:.1f}% of peak; {secs:.3f} s; launches "
+        f"{out['launches']['f']}\nphase 25f: the CLI in a fresh process with --trace-dir "
+        f"({cli_s:.3f} s): {len(events)} trace events, kernel events {kernels}; its output: "
+        + " | ".join(proc.stdout.strip().splitlines()))
+
+    # (g) the analytical model of the same problem.
+    t0 = time.perf_counter()
+    spec = print_specifications.main([str(m)] * 3 + ["--dtype", "bfloat16"])
+    log(f"phase 25g: tools.print_specifications ({spec['chip']}): expected "
+        f"{spec['expected_runtime_s'] * 1e3:.4f} ms, {time.perf_counter() - t0:.3f} s")
+    if spec["chip"] != "h100":
+        raise AssertionError(f"phase 25g: chip model {spec['chip']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5125,6 +5381,7 @@ def main() -> int:
     phase_dist_kernels(torch)
     launches7 = phase_slice7(torch)
     times7 = phase_times7(torch)
+    staged = phase_slice16(torch)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -5302,6 +5559,12 @@ def main() -> int:
                               f"gemm_hls_tpu/ops/{replaces}", launches7[key[:3]], t,
                               t["bound"], t["library_ms"]))
         kernels[-1]["library_note"] = "library_ms is bf16 torch.matmul of the whole product"
+    # Slice 16's staged path (phase 25a-d): its launches of B1, B3 and B5,
+    # and the oversize run's readings on B1.
+    path = ("a", "b min_plus", "b plus_times", "c", "d")
+    for idx, key in ((0, "B1"), (4, "B3"), (6, "B5")):
+        kernels[idx]["staged_launches"] = sum(staged["launches"][p].get(key, 0) for p in path)
+    kernels[0]["oversize_32768_bf16"] = staged["oversize"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,7 @@ def dtype_code(d: torch.dtype) -> int:
         return _DTYPE_CODES[d]
     except KeyError:
         raise NotImplementedError(
-            f"no CUDA kernel takes dtype {d} (ROADMAP A, slice 2)") from None
+            f"no CUDA kernel takes dtype {d} (ROADMAP B coverage items 1 and 2)") from None
 
 
 def _sources():

@@ -7,9 +7,13 @@ the TPU's lane/sublane/VMEM checks.
 
 The blocks describe one CUDA thread block's C tile (``block_m x block_n``)
 and its K step (``block_k``).  The kernels in ``csrc/`` are compiled for
-fixed tiles (``KERNEL_TILES``); ``validate`` checks that a config names the
-tile of the kernel that will run, so the I/O law below describes that
-kernel.
+fixed tiles.  The front door's config names the tile of :func:`kernel_route`
+(``KERNEL_TILES``: the WMMA tile for bf16 / fp16 / int8, the CUDA-core tile
+for the rest), and ``validate`` holds it to that.  A call whose operands a
+TMA map describes runs on the Hopper tile engine's larger tile instead
+(``ENGINE_TILES``; ``ops/mxu.py::mxu_route`` decides at the launch), so the
+I/O law describes the kernel that runs only for the config of
+:func:`route_config`, which names the tile of the route the call takes.
 """
 
 from __future__ import annotations
@@ -30,6 +34,17 @@ SMEM_LIMIT_BYTES = 232_448
 #   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 / int32 plus_times in
 #            mxu_gemm.cu, and every semiring in semiring_gemm.cu).
 KERNEL_TILES = {"tc": (128, 128, 32), "simt": (128, 128, 16)}
+
+# Kernel B1 / B2 on the Hopper tile engine (csrc/wgmma_tile.cuh,
+# csrc/mxu_wgmma.cuh), route "wgmma": a 128 x 256 C tile and a K step of one
+# 128-byte swizzle row of the input type, in a ring of ENGINE_STAGES TMA
+# stages.  ENGINE_FIXED_SMEM: the swizzle's 1024 bytes of alignment slack,
+# the stages' full / empty mbarriers and six send slots' (``WgBars``), and
+# the epilogue's two staging rows of 2 x 256 floats (``kMxuWgSmem``).
+ENGINE_TILES = {"bfloat16": (128, 256, 64), "float16": (128, 256, 64),
+                "int8": (128, 256, 128)}
+ENGINE_STAGES = 4
+ENGINE_FIXED_SMEM = 1024 + 8 * (2 * ENGINE_STAGES + 6) + 2 * 2 * 256 * 4
 
 # Kernels B4 / B5 (csrc/int8_slices.cu), keyed by the most diagonals an
 # instantiation keeps in registers: (block_m, block_n, K step).  Each
@@ -130,6 +145,29 @@ def kernel_route(dtype, semiring: str = "plus_times") -> str:
     return "simt"
 
 
+def call_route(dtype, semiring: str = "plus_times", transpose_a: bool = False,
+               transpose_b: bool = False, aligned: bool = True) -> str:
+    """The route a 2-D or batched call takes: ``ops/mxu.py::mxu_route``'s
+    rule in this module's names.  "wgmma" (the tile engine) for bf16 /
+    fp16 in any layout and int8 with A (M, K) and B held (N, K), when the
+    operands are ``aligned`` (16-byte bases and row pitches); "tc" (the
+    WMMA tile) for the other bf16 / fp16 / int8 plus_times calls; "simt"
+    for the rest."""
+    route = kernel_route(dtype, semiring)
+    if route != "tc" or not aligned:
+        return route
+    if dtype_name(dtype) != "int8" or (not transpose_a and transpose_b):
+        return "wgmma"
+    return "tc"
+
+
+def route_tile(route: str, dtype) -> Tuple[int, int, int]:
+    """The compiled (block_m, block_n, block_k) of ``route`` for ``dtype``."""
+    if route == "wgmma":
+        return ENGINE_TILES[dtype_name(dtype)]
+    return KERNEL_TILES[route]
+
+
 # Kernel B2's row-softmax variant (csrc/row_softmax.cu): a block owns a strip
 # of ROW_SOFTMAX_ROWS rows and every column, its fp32 scores in shared memory
 # with a row pitch of whole 128-column tiles plus 4, beside the operand
@@ -175,8 +213,8 @@ class GemmConfig:
 
     ``precision`` applies to float32 plus_times: "high" and "highest" run
     IEEE fp32 FMA on CUDA cores.  "default" (the TPU's bf16 multi-pass) has
-    no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP A, deferred
-    7: the TF32 decision).  "i8x2" / "i8x3" / "i8x4" run fp32 through 2 / 3
+    no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP B
+    coverage item 6: the TF32 decision).  "i8x2" / "i8x3" / "i8x4" run fp32 through 2 / 3
     / 4 int8 slices per operand on the int8 tensor cores
     (``ops/int8_slices.py``, kernels B4 / B5): 3 / 6 / 10 int8 products,
     about 2^-14 / 2^-21 normwise and the fp32 output floor.
@@ -224,7 +262,7 @@ class GemmConfig:
                  route: Optional[str] = None) -> "GemmConfig":
         """Eager checks.  ``strict_alignment`` (set when a kernel will run)
         adds the Hopper ones: the tile is the one the kernel of ``route``
-        ("tc" / "simt"; default: :func:`kernel_route`) was compiled for,
+        ("wgmma" / "tc" / "simt"; default: :meth:`route`) was compiled for,
         its shared memory fits a block, and tile rows are whole 16-byte
         vectors."""
         if self.pad_policy not in ("pad", "strict"):
@@ -240,12 +278,13 @@ class GemmConfig:
             if not (isinstance(v, int) and v > 0):
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
         if strict_alignment:
-            route = route or kernel_route(self.dtype, self.semiring)
+            route = route or self.route()
             tile = (self.block_m, self.block_n, self.block_k)
-            if tile != KERNEL_TILES[route]:
+            if tile != route_tile(route, self.dtype):
                 raise ValueError(
                     f"blocks {tile} are not the {route!r} kernel's compiled "
-                    f"tile {KERNEL_TILES[route]} (Hopper tiling constraint)")
+                    f"tile {route_tile(route, self.dtype)} (Hopper tiling "
+                    f"constraint)")
             in_b = itemsize(self.dtype)
             for name in ("block_n", "block_k"):
                 if getattr(self, name) * in_b % 16:
@@ -261,10 +300,27 @@ class GemmConfig:
 
     # ---- derived tiling math (same law as the JAX package) ---------------
 
+    def route(self) -> str:
+        """The route whose compiled tile the blocks name: "wgmma" for the
+        engine's tile of a plus_times dtype it runs, else
+        :func:`kernel_route`'s."""
+        if (self.semiring == "plus_times"
+                and (self.block_m, self.block_n, self.block_k)
+                == ENGINE_TILES.get(self.dtype)):
+            return "wgmma"
+        return kernel_route(self.dtype, self.semiring)
+
     def smem_bytes(self, route: Optional[str] = None) -> int:
-        """Shared memory of one thread block, as the kernels lay it out."""
+        """Shared memory of one thread block, as the kernels lay it out
+        (default route: :meth:`route`)."""
         acc_b = itemsize(self.tacc_dtype)
-        if (route or kernel_route(self.dtype, self.semiring)) == "tc":
+        route = route or self.route()
+        if route == "wgmma":
+            # One 128-byte row per K slab of each A and B row, a stage.
+            per_row = self.block_k * itemsize(self.dtype)
+            return (ENGINE_FIXED_SMEM
+                    + ENGINE_STAGES * (self.block_m + self.block_n) * per_row)
+        if route == "tc":
             in_b = itemsize(self.dtype)
             planes = cdiv(self.block_k, 16)
             ld = _TC_PLANE_LD[in_b]
@@ -293,6 +349,20 @@ class GemmConfig:
         return ((self.block_m * k * gm * gn + k * self.block_n * gm * gn)
                 * in_b + m * n * out_b)
 
+    def hbm_traffic_bytes(self, m: int, n: int, k: int) -> int:
+        """:meth:`io_volume_bytes` with the JAX package's one refinement
+        (``gemm_hls_tpu/config.py::hbm_traffic_bytes``): when the whole K
+        is one block step, A's row of blocks is read ``gm`` times, not
+        ``gm * gn`` (on the card: the blocks of a row share A's slab
+        through L2).  The same numbers as the reference, for the runtime
+        estimate of ``models.perf_model.specifications``."""
+        in_b = itemsize(self.dtype)
+        out_b = itemsize(self.tout_dtype)
+        gm, gn, gk = self.grid(m, n, k)
+        a_fetches = gm if gk == 1 else gm * gn
+        return ((self.block_m * k * a_fetches + k * self.block_n * gm * gn)
+                * in_b + m * n * out_b)
+
     def flops(self, m: int, n: int, k: int) -> int:
         """2*M*N*K, the reference's GOp/s accounting."""
         return 2 * m * n * k
@@ -302,6 +372,20 @@ class GemmConfig:
 
     def replace(self, **kw) -> "GemmConfig":
         return dataclasses.replace(self, **kw)
+
+
+def route_config(dtype="float32", *, semiring: str = "plus_times",
+                 transpose_a: bool = False, transpose_b: bool = False,
+                 aligned: bool = True, **kw) -> GemmConfig:
+    """The config of the tile a call of ``dtype`` runs on the card: the
+    blocks of :func:`call_route`'s kernel (the engine's 128 x 256 tile for
+    an aligned bf16 / fp16 call), so its I/O law and shared memory are
+    those of the kernel that runs."""
+    route = call_route(dtype, semiring, transpose_a, transpose_b, aligned)
+    bm, bn, bk = route_tile(route, dtype)
+    return GemmConfig(dtype=dtype_name(dtype), block_m=bm, block_n=bn,
+                      block_k=bk, semiring=semiring, transpose_a=transpose_a,
+                      transpose_b=transpose_b, **kw)
 
 
 def default_config(dtype="float32", **kw) -> GemmConfig:

@@ -1,10 +1,9 @@
-"""Models: the roofline constants of the card, the graph applications on
-the semiring GEMM, the MLP trainer (``models.mlp``) and the MoE FFN.
+"""Models: the analytical model of the card (``perf_model``: roofline
+constants, ``specifications``; ``scaling_model`` for groups of cards), the
+graph applications on the semiring GEMM, the MLP trainer (``models.mlp``)
+and the MoE FFN.
 
-Exports what ``gemm_hls_tpu.models`` exports where the port defines the
-name; the rest of the reference's ``perf_model`` (``get_chip``,
-``available_chips``, ``specifications``, ``format_specifications``) waits
-for ROADMAP A4, and ``scaling_model`` for A5."""
+Exports what ``gemm_hls_tpu.models`` exports."""
 
 from gemm_hls_tpu_torch.models.graph import (
     all_pairs_shortest_paths,
@@ -21,11 +20,30 @@ from gemm_hls_tpu_torch.models.moe import (
     moe_forward_ep_a2a,
     moe_train_step,
 )
-from gemm_hls_tpu_torch.models.perf_model import ChipSpec, detect_chip
+from gemm_hls_tpu_torch.models.perf_model import (
+    ChipSpec,
+    available_chips,
+    detect_chip,
+    format_specifications,
+    get_chip,
+    specifications,
+)
+from gemm_hls_tpu_torch.models.scaling_model import (
+    comm_volume_per_device,
+    multichip_model,
+    weak_scaling_efficiency,
+)
 
 __all__ = [
     "ChipSpec",
+    "get_chip",
+    "available_chips",
     "detect_chip",
+    "specifications",
+    "format_specifications",
+    "comm_volume_per_device",
+    "multichip_model",
+    "weak_scaling_efficiency",
     "all_pairs_shortest_paths",
     "distance_product",
     "transitive_closure",

@@ -235,12 +235,12 @@ def moe_train_step(params, batch, cfg: MoEConfig, lr=1e-2,
 def moe_forward_ep(params, x, cfg: MoEConfig, mesh=None, **kw):
     """Expert-parallel MoE over a device mesh: multi-GPU."""
     raise NotImplementedError(
-        "moe_forward_ep shards experts over several GPUs: ROADMAP A, slice 5 "
+        "moe_forward_ep shards experts over several GPUs: ROADMAP A7 "
         "(multi-GPU, torch.distributed)")
 
 
 def moe_forward_ep_a2a(params, x, cfg: MoEConfig, mesh=None, **kw):
     """Expert-parallel MoE with all_to_all dispatch: multi-GPU."""
     raise NotImplementedError(
-        "moe_forward_ep_a2a shards experts over several GPUs: ROADMAP A, "
-        "slice 5 (multi-GPU, torch.distributed)")
+        "moe_forward_ep_a2a shards experts over several GPUs: ROADMAP A7 "
+        "(multi-GPU, torch.distributed)")

@@ -1,5 +1,7 @@
-"""Roofline constants of the card: the ``ChipSpec`` / ``detect_chip``
-subset of ``gemm_hls_tpu/models/perf_model.py`` for an NVIDIA H100.
+"""Analytical performance model of the card: the port of
+``gemm_hls_tpu/models/perf_model.py`` (``PrintSpecifications``,
+``src/PrintSpecifications.cpp``) for an NVIDIA H100, plus the bounds
+``chip_smoke.py`` holds each kernel to.
 
 Rates are NVIDIA's published dense peaks for the H100 SXM at its full
 700 W power limit (NVIDIA H100 data sheet).  A card set to a
@@ -10,25 +12,40 @@ beside it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from gemm_hls_tpu_torch.config import SMEM_LIMIT_BYTES, GemmConfig, itemsize
 
 
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
-    """One accelerator's roofline constants.
+    """One accelerator's roofline constants, under the reference's field
+    names.
 
     ``peak_flops`` maps dtype name -> peak FLOP/s of the tensor cores
     (float32: the CUDA-core FMA rate, an FMA counted as 2 ops);
     ``vpu_ops`` is the CUDA-core instruction rate that bounds the
     generic-semiring kernel, whose (map, reduce) pair is two instructions.
+    ``vmem_bytes``: the shared memory one thread block may use (the
+    reference's VMEM, the fast memory a block's tiles live in).
+    ``ici_bandwidth`` / ``ici_links``: the card-to-card links (NVLink on
+    the H100), bytes/s per link in one direction, and their count.
+    ``grid_step_overhead_s``: the fixed cost of one block step in the
+    runtime estimate (the reference's Mosaic latch).
     """
 
     name: str
     peak_flops: Dict[str, float]
     vpu_ops: float                # CUDA-core instructions/s
-    hbm_bytes_per_s: float        # device-memory bandwidth
+    hbm_bandwidth: float          # device-memory bytes/s
+    vmem_bytes: int = 0
+    ici_bandwidth: float = 0.0
+    ici_links: int = 0
+    clock_hz: float = 0.0
+    tdp_watts: float = 0.0
+    grid_step_overhead_s: float = 0.0
 
     def peak_for(self, dtype) -> float:
         d = str(dtype).removeprefix("torch.")
@@ -39,11 +56,19 @@ class ChipSpec:
         take for ``ops`` operations at ``peak`` per second that must move
         ``bytes_moved`` bytes (each input read once, each output written
         once), and which of the two sets it."""
-        t_ops, t_bytes = ops / peak, bytes_moved / self.hbm_bytes_per_s
+        t_ops, t_bytes = ops / peak, bytes_moved / self.hbm_bandwidth
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-H100 = ChipSpec(
+_CHIPS: Dict[str, ChipSpec] = {}
+
+
+def _register(c: ChipSpec) -> ChipSpec:
+    _CHIPS[c.name] = c
+    return c
+
+
+H100 = _register(ChipSpec(
     name="h100",
     # bf16/fp16 989 TFLOP/s, int8 1979 TOP/s, tf32 495 TFLOP/s dense; fp64
     # on the tensor cores and fp32 outside them 67 TFLOP/s (NVIDIA H100 SXM
@@ -59,8 +84,148 @@ H100 = ChipSpec(
     # VPU bound from an elementwise rate too, gemm_hls_tpu/models/
     # perf_model.py).
     vpu_ops=132 * 128 * 1.98e9,
-    hbm_bytes_per_s=3.35e12,
-)
+    hbm_bandwidth=3.35e12,
+    vmem_bytes=SMEM_LIMIT_BYTES,
+    # NVLink 4: 18 links, 450 GB/s each way per card (data sheet).
+    ici_bandwidth=450e9 / 18,
+    ici_links=18,
+    clock_hz=1.98e9,
+    tdp_watts=700.0,
+    # Not fitted, and 0 for that reason: ``calibrate.fit_latch`` times the
+    # same work at two grid densities, and the card's kernels run one
+    # compiled tile each, so the same work always takes the same number of
+    # block steps.  A step's fixed cost stays inside the measured rates.
+    grid_step_overhead_s=0.0,
+))
+
+# The CPU, where the plain versions run: the reference's rough laptop-class
+# numbers, kept only so the model runs without a card.
+CPU = _register(ChipSpec(
+    name="cpu",
+    peak_flops={"bfloat16": 2e11, "float32": 2e11, "int8": 4e11},
+    vpu_ops=1e11,
+    hbm_bandwidth=50e9,
+    vmem_bytes=32 * 1024 * 1024,
+    tdp_watts=65.0,
+))
+
+
+def get_chip(name: str) -> ChipSpec:
+    try:
+        return _CHIPS[name]
+    except KeyError:
+        raise KeyError(f"unknown chip {name!r}; available: {sorted(_CHIPS)}") from None
+
+
+def available_chips():
+    return sorted(_CHIPS)
+
+
+def detect_chip(device=None) -> ChipSpec:
+    """The constants of ``device`` (default: CUDA device 0 when there is
+    one, else the CPU); raises for a card without an entry (the
+    self-calibration of the reference, ``tools/calibrate.py``, is not
+    ported yet)."""
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    if dev.type == "cpu":
+        return CPU
+    name = torch.cuda.get_device_name(dev)
+    if "H100" in name:
+        return H100
+    raise NotImplementedError(f"no roofline constants for {name!r}")
+
+
+def specifications(cfg: GemmConfig, m: int, n: int, k: int,
+                   chip: Optional[ChipSpec] = None,
+                   semiring_is_mxu: bool = True) -> dict:
+    """Closed-form expectations for one (config, problem, chip) triple,
+    the reference's dict key for key (``PrintSpecifications``): peak and
+    expected performance, runtime, tile census, communication volume and
+    I/O fraction, from ``cfg``'s blocks.  :func:`~gemm_hls_tpu_torch.config.route_config`
+    gives the blocks of the kernel a call runs.
+
+    ``vmem_bytes`` is the shared memory of one thread block of the tile
+    (``GemmConfig.smem_bytes``) and ``vmem_budget`` the card's limit a
+    block (``config.SMEM_LIMIT_BYTES`` on the H100).
+    """
+    chip = chip or detect_chip()
+    flops = cfg.flops(m, n, k)
+    # The schedule-law volume is what the reference's comm-volume printout
+    # reports; the runtime estimate uses the refined traffic.
+    io_bytes = cfg.hbm_traffic_bytes(m, n, k)
+    peak = chip.peak_for(cfg.dtype) if semiring_is_mxu else chip.vpu_ops
+
+    t_compute = flops / peak
+    t_memory = io_bytes / chip.hbm_bandwidth
+    gm, gn, gk = cfg.grid(m, n, k)
+    # Beyond the roofline (PrintSpecifications.cpp:45-50's drain model): the
+    # first A / B blocks' fill before the tensor cores start, the last C
+    # tile's store, and a fixed cost a block step; the fill and the store
+    # extend the compute leg only (their bytes are in io_bytes already).
+    in_b = itemsize(cfg.dtype)
+    out_b = itemsize(cfg.tout_dtype)
+    t_prologue = ((cfg.block_m * cfg.block_k + cfg.block_k * cfg.block_n)
+                  * in_b / chip.hbm_bandwidth)
+    t_drain = cfg.block_m * cfg.block_n * out_b / chip.hbm_bandwidth
+    t_steps = gm * gn * gk * chip.grid_step_overhead_s
+    t_expected = max(t_compute + t_prologue + t_drain, t_memory) + t_steps
+
+    total_elems = m * k + k * n + m * n
+    return {
+        "chip": chip.name,
+        "dtype": cfg.dtype,
+        "problem": (m, n, k),
+        "blocks": (cfg.block_m, cfg.block_n, cfg.block_k),
+        "grid": (gm, gn, gk),
+        "num_output_tiles": gm * gn,
+        "num_k_steps": gk,
+        "flops": flops,
+        "peak_flops": peak,
+        "ideal_runtime_s": t_compute,
+        "expected_runtime_s": t_expected,
+        "prologue_s": t_prologue,
+        "drain_s": t_drain,
+        "step_overhead_s": t_steps,
+        "expected_gflops": flops / t_expected / 1e9,
+        "percent_of_peak": 100.0 * t_compute / t_expected,
+        "io_volume_words": cfg.io_volume_words(m, n, k),
+        "io_volume_bytes": io_bytes,
+        "io_fraction": cfg.io_volume_words(m, n, k) / total_elems,
+        "arithmetic_intensity": flops / io_bytes,
+        "ridge_intensity": peak / chip.hbm_bandwidth,
+        "bound": "compute" if t_compute >= t_memory else "memory",
+        "vmem_bytes": cfg.smem_bytes(),
+        "vmem_budget": chip.vmem_bytes,
+    }
+
+
+def format_specifications(spec: dict) -> str:
+    """Human-readable report, the reference CLI's printout."""
+    m, n, k = spec["problem"]
+    lines = [
+        f"Problem: C[{m},{n}] = A[{m},{k}] . B[{k},{n}]  ({spec['dtype']}, {spec['chip']})",
+        f"Blocks (outer/memory tiles): {spec['blocks']}  grid {spec['grid']}"
+        f"  -> {spec['num_output_tiles']} output tiles x {spec['num_k_steps']} K-steps",
+        f"Total ops: {spec['flops']:.4g}  (2*M*N*K)",
+        f"Peak performance: {spec['peak_flops'] / 1e9:.1f} GOp/s",
+        f"Ideal runtime: {spec['ideal_runtime_s'] * 1e3:.3f} ms",
+        f"Expected runtime (roofline + overheads): "
+        f"{spec['expected_runtime_s'] * 1e3:.3f} ms  [{spec['bound']}-bound]",
+        f"  non-overlapped: prologue {spec['prologue_s'] * 1e6:.1f} us, "
+        f"drain {spec['drain_s'] * 1e6:.1f} us, "
+        f"block-step cost {spec['step_overhead_s'] * 1e6:.1f} us",
+        f"Expected performance: {spec['expected_gflops']:.1f} GOp/s"
+        f" ({spec['percent_of_peak']:.1f}% of peak)",
+        f"Communication volume: {spec['io_volume_words']:.4g} words"
+        f" ({spec['io_volume_bytes'] / 1e9:.3f} GB)",
+        f"I/O fraction (vs single-read/write minimum): {spec['io_fraction']:.2f}x",
+        f"Arithmetic intensity: {spec['arithmetic_intensity']:.1f} op/B"
+        f" (ridge {spec['ridge_intensity']:.1f})",
+        f"Shared memory a block: {spec['vmem_bytes'] / 1e3:.1f} KB"
+        f" of {spec['vmem_budget'] / 1e3:.1f} KB",
+    ]
+    return "\n".join(lines)
 
 
 def slice_passes(n_slices: int, n_diags: int) -> int:
@@ -79,15 +244,6 @@ def slice_gemm_bound(chip: ChipSpec, m: int, n: int, k: int, n_slices: int,
     ops = slice_passes(n_slices, n_diags) * 2.0 * m * n * k
     bytes_moved = n_slices * (m * k + k * n) + 4 * n_outputs * m * n
     return chip.bound(ops, chip.peak_for("int8"), bytes_moved)
-
-
-def detect_chip() -> ChipSpec:
-    """The constants of CUDA device 0 (``torch.cuda.get_device_name``);
-    raises for a card without an entry."""
-    name = torch.cuda.get_device_name(0)
-    if "H100" in name:
-        return H100
-    raise NotImplementedError(f"no roofline constants for {name!r}")
 
 
 def _esize(dtype) -> int:
@@ -170,7 +326,7 @@ def ring_bound(chip: ChipSpec, m: int, n: int, k: int, n_dev: int, dtype: torch.
     cores, fp32: the CUDA cores); bytes: A, B and C once, plus the ring's
     (n_dev - 1) copies of |B|, each read once and written once.
 
-    Over ``n_dev`` cards (not used yet: ROADMAP A5) each card does 2 M N K
+    Over ``n_dev`` cards (not used yet: ROADMAP A7) each card does 2 M N K
     / n_dev operations while (n_dev - 1) |B| / n_dev crosses its NVLink at
     450 GB/s each way; the ring hides the transfer when that time is below
     the card's compute time.
@@ -187,7 +343,7 @@ def cannon_bound(chip: ChipSpec, m: int, n: int, k: int, p: int, dtype: torch.dt
     written) and (p - 1) shifts of |A| / p and |B| / p per grid row and
     column (|A| + |B| a step, read and written).
 
-    Over p^2 cards (not used yet: ROADMAP A5) each card does 2 M N K / p^3
+    Over p^2 cards (not used yet: ROADMAP A7) each card does 2 M N K / p^3
     operations a step while it sends |A| / p^2 and |B| / p^2 over NVLink at
     450 GB/s each way.
     """

@@ -253,7 +253,7 @@ def cannon_matmul_fused(a, b, p: int, *, devices=None, interpret=None, precision
     (M, N).  ``devices=None`` puts the p^2 ranks on the current card; a
     given list names each rank's device (all on one card, or ``["cpu"] *
     p * p`` for the plain version; ranks on distinct cards raise
-    NotImplementedError, ROADMAP A5).  float32 runs IEEE fp32 whatever
+    NotImplementedError, ROADMAP A7).  float32 runs IEEE fp32 whatever
     ``precision`` says, bf16 sums in fp32, int8 in int32 cast at the store;
     ``interpret`` is accepted and ignored.
 

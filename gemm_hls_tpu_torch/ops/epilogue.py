@@ -103,6 +103,6 @@ def kernel_code(ep: Epilogue) -> int:
         raise NotImplementedError(
             f"epilogue {ep.name!r} is a Python callable, which the CUDA "
             f"kernels cannot run; pass a registered epilogue "
-            f"({', '.join(available_epilogues())}) or CPU tensors (ROADMAP "
-            f"A, slice 2: callable epilogues -> generated functor)")
+            f"({', '.join(available_epilogues())}) or CPU tensors (ROADMAP B"
+            f" coverage item 5: callable epilogues -> generated functor)")
     return ep.code or 0

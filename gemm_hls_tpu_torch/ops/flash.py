@@ -337,7 +337,7 @@ def _kernel_ok(q, what, interpret):
     if q.shape[-1] > MAX_KERNEL_D:
         raise NotImplementedError(
             f"{what}: head dim {q.shape[-1]} > {MAX_KERNEL_D}, the largest "
-            f"the kernels are compiled for (ROADMAP A)")
+            f"the kernels are compiled for (ROADMAP B coverage item 3)")
 
 
 def _same_device(q, *xs):

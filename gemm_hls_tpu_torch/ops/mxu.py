@@ -20,7 +20,7 @@ import torch
 
 from gemm_hls_tpu_torch import _build
 from gemm_hls_tpu_torch.config import (
-    ROW_SOFTMAX_MAX_N, GemmConfig, dtype_name, row_softmax_fusable,
+    ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, row_softmax_fusable,
 )
 from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
 
@@ -94,14 +94,10 @@ def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str
     int8 calls; ``"simt"`` (IEEE fp32, wrapping int32, on the CUDA cores)
     for fp32 and int32.  B2's row softmax has kernels of its own
     (:func:`row_softmax_route`).  Chosen by shape, never as a fallback: a
-    kernel that fails to build or launch raises."""
-    if dtype in (torch.float32, torch.int32):
-        return "simt"
-    if not aligned:
-        return "wmma"
-    if dtype in (torch.bfloat16, torch.float16):
-        return "wgmma"
-    return "wgmma" if dtype == torch.int8 and not transpose_a and transpose_b else "wmma"
+    kernel that fails to build or launch raises.  The rule itself is
+    ``config.call_route``'s, whose "tc" tile is WMMA's."""
+    route = call_route(dtype, "plus_times", transpose_a, transpose_b, aligned)
+    return "wmma" if route == "tc" else route
 
 
 # Deepest K the row softmax's engine route takes: its block holds the
@@ -183,8 +179,8 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if a.dtype == torch.float64:
         raise NotImplementedError(
-            "float64 on CUDA is not ported yet (ROADMAP A, slice 2: float64 "
-            "on CUDA); pass backend='torch' for the plain version")
+            "float64 on CUDA is not ported yet (ROADMAP B coverage item 1: "
+            "float64 on CUDA); pass backend='torch' for the plain version")
     out_dtype = cfg.tout_dtype
     if a.dtype.is_floating_point and not out_dtype.is_floating_point:
         raise NotImplementedError(

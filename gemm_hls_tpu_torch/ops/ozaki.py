@@ -390,12 +390,12 @@ def ozaki_matmul_int8(a: np.ndarray, b: np.ndarray, *,
 def ozaki_matmul_distributed(*args, **kwargs):
     """The multi-device Ozaki GEMM (slices x gather-SUMMA)."""
     raise NotImplementedError(
-        "ozaki_matmul_distributed is not ported yet (ROADMAP A, slice 5: "
+        "ozaki_matmul_distributed is not ported yet (ROADMAP A7: "
         "multi-GPU)")
 
 
 def ozaki_matmul_int8_distributed(*args, **kwargs):
     """The multi-device fused int8 Ozaki GEMM."""
     raise NotImplementedError(
-        "ozaki_matmul_int8_distributed is not ported yet (ROADMAP A, slice 5: "
+        "ozaki_matmul_int8_distributed is not ported yet (ROADMAP A7: "
         "multi-GPU)")

@@ -373,7 +373,7 @@ def ring_matmul(a, b, mesh: Mesh, *, axis: str = "x", config=None, interpret=Non
     multiples of 128, ``pallas_ring.py:232-247``), which come from its (8,
     128) tiling; ``interpret`` is accepted and ignored, as
     ``GemmConfig.from_reference`` drops it.  Ranks on two or more cards
-    raise NotImplementedError (ROADMAP A5).
+    raise NotImplementedError (ROADMAP A7).
     """
     del config, interpret
     devices = _ring_devices(mesh, axis)

@@ -68,13 +68,13 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
         raise NotImplementedError(
             f"semiring {sr.name!r} has no CUDA functor; custom semirings run "
             f"on CPU tensors or backend='torch' until their JIT lands "
-            f"(ROADMAP A, slice 2: custom-semiring JIT)")
+            f"(ROADMAP B coverage item 5: custom-semiring JIT)")
     if a.dtype != b.dtype:
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if a.dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
             f"kernel B3 takes float32, bfloat16 and int32, not "
-            f"{dtype_name(a.dtype)} (ROADMAP A, slice 2)")
+            f"{dtype_name(a.dtype)} (ROADMAP B coverage item 2)")
     out_dtype = cfg.tout_dtype
     if cfg.tacc_dtype != (torch.int32 if a.dtype == torch.int32
                           else torch.float32):

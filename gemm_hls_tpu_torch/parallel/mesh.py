@@ -8,7 +8,7 @@ card (each with its own buffers, all running concurrently in one launch of
 the fused kernels), and ``["cpu"] * 4`` the same ranks on the CPU, where
 the fused GEMMs run their plain versions.  Ranks on two or more distinct
 cards need the multi-card transport (peer pointers, system-scope fences,
-one launch per card: ROADMAP A5) and are refused by the ops that run on a
+one launch per card: ROADMAP A7) and are refused by the ops that run on a
 mesh (:func:`one_device`).
 """
 
@@ -103,7 +103,7 @@ def one_device(devices) -> torch.device:
 
     Raises ValueError for ranks on both the CPU and CUDA, and
     NotImplementedError for ranks on two or more distinct cards (the
-    multi-card transport, ROADMAP A5).  Decided from the device names
+    multi-card transport, ROADMAP A7).  Decided from the device names
     alone: ``cuda`` (the current card) meets an explicit index only through
     ``torch.cuda.current_device()``.
     """
@@ -121,10 +121,10 @@ def one_device(devices) -> torch.device:
         raise NotImplementedError(
             f"ranks on cards {sorted(named)}: ranks on distinct cards need the "
             "multi-card transport (peer pointers, system-scope fences, one launch "
-            "per card: ROADMAP A5); put every rank on one card")
+            "per card: ROADMAP A7); put every rank on one card")
     if None in indices and named and named != {torch.cuda.current_device()}:
         raise NotImplementedError(
             f"ranks on the current card and on cuda:{named.pop()}: ranks on "
-            "distinct cards need the multi-card transport (ROADMAP A5)")
+            "distinct cards need the multi-card transport (ROADMAP A7)")
     index = named.pop() if named else torch.cuda.current_device()
     return torch.device("cuda", index)

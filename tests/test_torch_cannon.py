@@ -111,7 +111,7 @@ def test_cannon_fused_rejects_bad_grid():
 
 def test_cannon_on_four_cards_raises_before_any_cuda_call():
     devices = [torch.device("cuda", i) for i in range(4)]
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A7"):
         cannon_matmul_fused(torch.zeros((8, 8)), torch.zeros((8, 8)), p=2, devices=devices)
 
 

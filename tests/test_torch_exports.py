@@ -10,6 +10,9 @@ imported here.
 
 import ast
 import importlib
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -20,19 +23,29 @@ SUBPACKAGES = ("ops", "models", "utils", "parallel", "tools")
 # Names the reference exports that the port does not define yet, by the
 # ROADMAP.md item (section A) that ports them.
 NOT_PORTED = {
-    "models": {
-        "A4": {"get_chip", "available_chips", "specifications", "format_specifications"},
-        "A5": {"comm_volume_per_device", "multichip_model", "weak_scaling_efficiency"},
-    },
     "parallel": {
         "A7": {"distributed_matmul", "summa_matmul", "cannon_matmul", "shard_operands_2d",
                "matmul_25d", "shard_operands_25d", "distributed_streamed_matmul",
-               "streamed_matmul", "streamed_matmul_files", "ring_flash_attention",
-               "ring_decode_attention", "init_pipeline_params", "pipeline_forward",
-               "pipeline_train_step", "shard_pipeline_params", "stages_forward"},
+               "ring_flash_attention", "ring_decode_attention", "init_pipeline_params",
+               "pipeline_forward", "pipeline_train_step", "shard_pipeline_params",
+               "stages_forward"},
     },
-    "tools": {"A4": {"optimal_tiles", "tile_candidates"}},
 }
+
+# The modules of the staged GEMM, the analytical model and the tools; each
+# must import on a machine without jax.
+JAX_FREE_MODULES = (
+    "gemm_hls_tpu_torch.__main__",
+    "gemm_hls_tpu_torch.utils.tileio",
+    "gemm_hls_tpu_torch.parallel.staging",
+    "gemm_hls_tpu_torch.models.perf_model",
+    "gemm_hls_tpu_torch.models.scaling_model",
+    "gemm_hls_tpu_torch.tools.oversize",
+    "gemm_hls_tpu_torch.tools.print_specifications",
+    "gemm_hls_tpu_torch.tools.tile_optimizer",
+    "gemm_hls_tpu_torch.tools.profile",
+    "gemm_hls_tpu_torch.tools.selftest",
+)
 
 
 def reference_all(sub):
@@ -79,3 +92,26 @@ def test_ops_exports_the_functions():
     assert callable(matmul) and callable(grouped_matmul)
     mod = importlib.import_module("gemm_hls_tpu_torch.ops.matmul")
     assert mod.matmul is matmul
+
+
+@pytest.fixture(scope="module")
+def imports_without_jax():
+    """{module: error text or ""}, each imported in one fresh interpreter
+    where ``sys.modules["jax"] = None`` makes any import of jax fail."""
+    code = ("import importlib, json, sys\nsys.modules['jax'] = None\nout = {}\n"
+            f"for m in {list(JAX_FREE_MODULES)!r}:\n"
+            "    try:\n        importlib.import_module(m)\n        out[m] = ''\n"
+            "    except Exception as e:\n        out[m] = repr(e)\n"
+            "out['gemm_hls_tpu'] = ' '.join(m for m in sys.modules "
+            "if m == 'gemm_hls_tpu' or m.startswith('gemm_hls_tpu.'))\n"
+            "print(json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", JAX_FREE_MODULES)
+def test_module_imports_without_jax(imports_without_jax, module):
+    assert imports_without_jax[module] == ""
+    assert imports_without_jax["gemm_hls_tpu"] == ""

@@ -1009,3 +1009,78 @@ def test_ring_matmul_front_door_on_the_card(cuda):
     got = ring_matmul(a, b, make_mesh((4,), ("x",), devices=[cuda] * 4))
     want = ring_matmul(a.cpu(), b.cpu(), make_mesh((4,), ("x",), devices=["cpu"] * 4))
     _agree(torch.cat(got).cpu(), torch.cat(want), 1e-4)
+
+
+# ---- slice 16: the host-staged GEMM (B1, B3, B5 per panel) -----------------
+
+def _host_operands(m, n, k, dtype, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((m, k), generator=gen).to(dtype),
+            torch.rand((k, n), generator=gen).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,semiring", [(torch.bfloat16, "plus_times"),
+                                            (torch.float32, "plus_times"),
+                                            (torch.float32, "min_plus")])
+def test_staged_prefetch_equals_sync_on_the_engine(cuda, dtype, semiring):
+    from gemm_hls_tpu_torch.parallel import streamed_matmul
+    a, b = _host_operands(1000, 704, 1504, dtype)
+    kw = dict(semiring=semiring, tile_m=384, tile_n=256, tile_k=512, out_dtype=torch.float32)
+    got = streamed_matmul(a, b, **kw)
+    stats = streamed_matmul.last_stats
+    assert stats["prefetch"] and stats["slots"] == 3 and stats["jobs"] == 3 * 3 * 3
+    sync = streamed_matmul(a, b, prefetch=False, **kw)
+    assert streamed_matmul.last_stats["slots"] == 1
+    assert torch.equal(got, sync)
+    if semiring == "plus_times" and dtype == torch.bfloat16:
+        # The ragged panels' rows (480 of K, 192 of N) are whole 16-byte
+        # units, so every panel takes the engine.
+        assert stats["routes"] == ["wgmma"] * stats["jobs"]
+    ref = matmul(a.to(cuda), b.to(cuda), semiring=semiring, out_dtype=torch.float32,
+                 backend="torch").cpu()
+    _agree(got, ref, 0.0 if semiring == "min_plus" else 1e-4)
+
+
+def test_staged_ring_reuse_under_small_depth(cuda, monkeypatch):
+    # depth 1: two pinned slots for 100 jobs, each refilled only after the
+    # GEMM that read it; host bytes equal the panels' bytes.
+    from gemm_hls_tpu_torch.parallel import staging, streamed_matmul
+    monkeypatch.setattr(staging, "PREFETCH_DEPTH", 1)
+    a, b = _host_operands(512, 640, 1280, torch.bfloat16, seed=7)
+    got = streamed_matmul(a, b, tile_m=128, tile_n=128, tile_k=256)
+    stats = streamed_matmul.last_stats
+    assert stats["slots"] == 2 and stats["jobs"] == 4 * 5 * 5
+    assert stats["h2d_bytes"] == (512 * 1280 * 5 + 1280 * 640 * 4) * 2
+    assert stats["d2h_bytes"] == 512 * 640 * 2
+    assert torch.equal(got, streamed_matmul(a, b, tile_m=128, tile_n=128, tile_k=256,
+                                            prefetch=False))
+    _agree(got.float(), (a.float() @ b.float()).to(torch.bfloat16).float(), 1e-2)
+
+
+def test_staged_files_on_the_native_tileio(cuda, tmp_path):
+    from gemm_hls_tpu_torch.parallel import streamed_matmul, streamed_matmul_files
+    from gemm_hls_tpu_torch.utils.tileio import MatrixFile, native_tileio_available
+    assert native_tileio_available()
+    a, b = _host_operands(300, 260, 700, torch.float32, seed=9)
+    with MatrixFile(tmp_path / "a.bin", 300, 700, np.float32, create=True) as fa, \
+         MatrixFile(tmp_path / "b.bin", 700, 260, np.float32, create=True) as fb, \
+         MatrixFile(tmp_path / "c.bin", 300, 260, np.float32, create=True) as fc:
+        assert fa.native and fb.native and fc.native
+        fa.write_tile(0, 0, a.numpy())
+        fb.write_tile(0, 0, b.numpy())
+        streamed_matmul_files(fa, fb, fc, tile_m=128, tile_n=128, tile_k=256)
+        got = torch.from_numpy(fc.read_tile(0, 300, 0, 260))
+    assert torch.equal(got, streamed_matmul(a, b, tile_m=128, tile_n=128, tile_k=256))
+
+
+def test_staged_ozaki_on_the_card(cuda):
+    from gemm_hls_tpu_torch.parallel.staging import streamed_ozaki_matmul
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-5, 5, (300, 700))
+    b = rng.uniform(-5, 5, (700, 260))
+    slice_kernels.fused_ozaki_int8.launches = 0
+    got = streamed_ozaki_matmul(a, b, tile_m=128, tile_n=128, tile_k=256)
+    assert slice_kernels.fused_ozaki_int8.launches == 3 * 3 * 3
+    normw = np.abs(got - a @ b) / (np.linalg.norm(a, axis=1)[:, None]
+                                   * np.linalg.norm(b, axis=0)[None, :])
+    assert normw.max() < 1e-13

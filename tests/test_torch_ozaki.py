@@ -201,9 +201,9 @@ def test_ozaki_refusals(request_):
         "interpret": (lambda: ozaki.ozaki_matmul(a, b, interpret=True),
                       NotImplementedError, "interpreter"),
         "distributed": (lambda: ozaki.ozaki_matmul_distributed(a, b, None),
-                        NotImplementedError, "slice 5"),
+                        NotImplementedError, "A7"),
         "int8_distributed": (lambda: ozaki.ozaki_matmul_int8_distributed(
-            a, b, None), NotImplementedError, "slice 5"),
+            a, b, None), NotImplementedError, "A7"),
     }
     fn, exc, match = calls[request_]
     with pytest.raises(exc, match=match):

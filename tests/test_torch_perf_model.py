@@ -1,0 +1,157 @@
+"""The port's analytical model (``models/perf_model.py``) against
+``gemm_hls_tpu.models.perf_model`` for the same configs, with a JAX
+``ChipSpec`` built from the port's H100 constants: every numeric key of
+``specifications`` equal to rel 1e-12.  ``vmem_bytes`` / ``vmem_budget``
+differ by design (a thread block's shared memory and the card's limit a
+block, not a Pallas VMEM estimate) and are checked on their own.  Also the
+registry, the H100 constants, and ``config.route_config``: the tile of the
+route a call takes.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from gemm_hls_tpu.config import GemmConfig as JaxConfig
+from gemm_hls_tpu.models import perf_model as jax_pm
+
+from gemm_hls_tpu_torch.config import (
+    SMEM_LIMIT_BYTES, GemmConfig, call_route, default_config, route_config,
+)
+from gemm_hls_tpu_torch.models import perf_model as pm
+
+OWN_MEANING = {"vmem_bytes", "vmem_budget"}
+
+
+def _jax_chip(chip: pm.ChipSpec) -> jax_pm.ChipSpec:
+    return jax_pm.ChipSpec(**dataclasses.asdict(chip))
+
+
+CONFIGS = [
+    dict(dtype="bfloat16", block_m=128, block_n=256, block_k=64),            # the engine
+    dict(dtype="bfloat16", block_m=128, block_n=128, block_k=32, out_dtype="float32"),
+    dict(dtype="float32", block_m=128, block_n=128, block_k=16),             # CUDA cores
+    dict(dtype="int8", block_m=128, block_n=256, block_k=128, out_dtype="int32"),
+    dict(dtype="bfloat16", block_m=512, block_n=1024, block_k=1024),         # the JAX default
+    dict(dtype="float32", block_m=128, block_n=128, block_k=16, semiring="min_plus"),
+]
+PROBLEMS = [(8192, 8192, 8192), (4096, 1000, 77), (65, 140, 131), (1, 1, 1),
+            (32768, 32768, 32768), (2048, 8192, 64)]
+
+
+@pytest.mark.parametrize("fields", CONFIGS, ids=str)
+@pytest.mark.parametrize("mnk", PROBLEMS, ids=str)
+@pytest.mark.parametrize("mxu", [True, False])
+@pytest.mark.parametrize("latch", [0.0, 2.2e-7])
+def test_specifications_match_jax(fields, mnk, mxu, latch):
+    chip = dataclasses.replace(pm.H100, grid_step_overhead_s=latch)
+    cfg, jcfg = GemmConfig(**fields), JaxConfig(**fields)
+    got = pm.specifications(cfg, *mnk, chip=chip, semiring_is_mxu=mxu)
+    want = jax_pm.specifications(jcfg, *mnk, chip=_jax_chip(chip), semiring_is_mxu=mxu)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        if key in OWN_MEANING:
+            continue
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            assert got[key] == pytest.approx(value, rel=1e-12), key
+        else:
+            assert got[key] == value, key
+    assert got["vmem_bytes"] == cfg.smem_bytes()
+    assert got["vmem_budget"] == SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("fields", CONFIGS, ids=str)
+@pytest.mark.parametrize("mnk", PROBLEMS, ids=str)
+def test_hbm_traffic_matches_jax(fields, mnk):
+    assert GemmConfig(**fields).hbm_traffic_bytes(*mnk) == \
+        JaxConfig(**fields).hbm_traffic_bytes(*mnk)
+
+
+def test_registry():
+    assert pm.available_chips() == ["cpu", "h100"]
+    assert pm.get_chip("h100") is pm.H100
+    with pytest.raises(KeyError, match="unknown chip"):
+        pm.get_chip("v5e")
+
+
+def test_detect_chip_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert pm.detect_chip().name == "cpu"
+    assert pm.detect_chip("cpu") is pm.CPU
+
+
+def test_h100_constants():
+    h = pm.H100
+    assert h.hbm_bandwidth == 3.35e12
+    assert h.vmem_bytes == SMEM_LIMIT_BYTES
+    # NVLink 4: 18 links, 450 GB/s each way per card.
+    assert h.ici_links == 18 and h.ici_bandwidth * h.ici_links == pytest.approx(450e9)
+    assert h.tdp_watts == 700.0
+    assert h.grid_step_overhead_s == 0.0  # not fitted: see perf_model.H100
+    # The bounds of the kernels still read the bandwidth.
+    secs, by = h.bound(0.0, 1.0, 3.35e12)
+    assert (secs, by) == (1.0, "bytes")
+
+
+def test_engine_tile_is_memory_bound_under_the_law():
+    # The law counts every block's slab reads as device-memory traffic: for
+    # bf16 8192^3 on the engine tile that is 13.0 GB, 3.886 ms at 3.35 TB/s.
+    spec = pm.specifications(route_config("bfloat16"), 8192, 8192, 8192, chip=pm.H100)
+    assert spec["blocks"] == (128, 256, 64)
+    assert spec["bound"] == "memory"
+    assert spec["io_volume_bytes"] == 8192 ** 3 * 2 * (1 / 128 + 1 / 256) + 8192 ** 2 * 2
+    assert spec["expected_runtime_s"] == pytest.approx(3.886e-3, rel=1e-3)
+    assert spec["ideal_runtime_s"] == pytest.approx(2 * 8192 ** 3 / 989e12)
+
+
+def test_format_specifications():
+    text = pm.format_specifications(
+        pm.specifications(route_config("bfloat16"), 1024, 1024, 1024, chip=pm.H100))
+    for line in ("Peak performance", "Communication volume", "Shared memory a block",
+                 "(128, 256, 64)"):
+        assert line in text
+
+
+@pytest.mark.parametrize("dtype,semiring,ta,tb,aligned,route", [
+    ("bfloat16", "plus_times", False, False, True, "wgmma"),
+    ("float16", "plus_times", True, True, True, "wgmma"),
+    ("bfloat16", "plus_times", False, False, False, "tc"),
+    ("int8", "plus_times", False, True, True, "wgmma"),
+    ("int8", "plus_times", False, False, True, "tc"),
+    ("int8", "plus_times", True, True, True, "tc"),
+    ("float32", "plus_times", False, False, True, "simt"),
+    ("int32", "plus_times", False, False, True, "simt"),
+    ("bfloat16", "min_plus", False, False, True, "simt"),
+])
+def test_route_config_follows_mxu_route(dtype, semiring, ta, tb, aligned, route):
+    from gemm_hls_tpu_torch.ops.mxu import mxu_route
+
+    assert call_route(dtype, semiring, ta, tb, aligned) == route
+    if semiring == "plus_times":
+        # ops/mxu.py's rule, whose "wmma" is the "tc" tile here.
+        want = mxu_route(getattr(torch, dtype), ta, tb, aligned)
+        assert {"wmma": "tc"}.get(want, want) == route
+    cfg = route_config(dtype, semiring=semiring, transpose_a=ta, transpose_b=tb,
+                       aligned=aligned)
+    assert cfg.route() == route or (route == "tc" and dtype == "int8")
+    cfg.validate(strict_alignment=True, route=route)
+    assert cfg.smem_bytes(route) <= SMEM_LIMIT_BYTES
+
+
+def test_engine_shared_memory_is_the_kernels():
+    # csrc/mxu_wgmma.cuh's kMxuWgSmem: 1024 bytes of slack, 4 stages of a
+    # 128 x 128-byte A slab and a 256 x 128-byte B slab, 14 mbarriers, and
+    # 2 x 2 x 256 floats of epilogue staging.
+    want = 1024 + 4 * (128 + 256) * 128 + 14 * 8 + 2 * 2 * 256 * 4
+    assert route_config("bfloat16").smem_bytes() == want == 201840
+    assert route_config("int8", transpose_b=True).smem_bytes() == want
+
+
+def test_default_config_stays_the_front_doors():
+    # The front door validates against kernel_route's tile; route_config
+    # is what the tools read.
+    assert (default_config("bfloat16").block_m, default_config("bfloat16").block_n) == (128, 128)
+    with pytest.raises(ValueError, match="compiled tile"):
+        route_config("bfloat16").validate(strict_alignment=True, route="tc")

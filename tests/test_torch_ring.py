@@ -134,10 +134,10 @@ def test_block_k_64_is_accepted():
 
 
 def test_ranks_on_two_cards_raise_before_any_cuda_call():
-    # Ranks on distinct cards need the multi-card transport (ROADMAP A5);
+    # Ranks on distinct cards need the multi-card transport (ROADMAP A7);
     # the check reads the device names only, so it runs without a card.
     mesh = Mesh([torch.device("cuda", 0), torch.device("cuda", 1)], ("x",))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A7"):
         ring_matmul(torch.zeros((4, 4)), torch.zeros((4, 4)), mesh)
 
 
