@@ -211,6 +211,24 @@ Phases, each printed as it ends:
      size, every check passing; (f) ``tools.profile`` of bf16 8192^3, then
      its CLI in a fresh process writing a Chrome trace that must hold the
      B1 engine kernel; (g) ``tools.print_specifications`` of the problem.
+ 26. slice 17's tuning tools (phases 1-25 run with no autotune cache file,
+     so their route checks are the route rule's): (a) the engine's tile as
+     an explicit config (``route_config("bfloat16")``) runs bf16 8192^3 on
+     the engine and refuses an unaligned call; then each family tuned at
+     one of the packaged seed's shapes into a temporary cache (the dense
+     and batched routes, the flash forward and backward pair, B13's route
+     and plan, W8A8's route and N tile, B16's route; every candidate's
+     readings and the winner printed), the front door called with that
+     cache on the winner's route or plan and held to the plain version
+     (``tools.autotune.tolerance``), then with no cache file on the route
+     rule's; (b) a sweep of a small grid, each configuration in its own
+     process (ok, invalid_config, vmem_overflow, and a raising setup_code:
+     crashed), its CSV merged with itself; (c) ``run_calibration`` into a
+     temporary file, the measured bf16 rate beside the data-sheet peak; (d)
+     the built library packaged, unpackaged into an empty directory, and
+     loaded by a fresh process that cannot run nvcc; (e) with only the
+     packaged seed, bf16 8192^3 ``matmul(a, b)`` takes the seed's route.
+     (b) and (d) run beside (a), (c) and (e).
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -253,6 +271,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -5306,6 +5325,352 @@ def phase_slice16(torch):
     return out
 
 
+# Slice 17 (phase 26): the tuning tools at one of the seed's shapes a
+# family (gemm_hls_tpu_torch/data/autotune_seed.json), the sweep's grid and
+# problem, the calibration probe's size.
+TUNE = dict(dense=8192, batched=(64, 512), flash=(32, 1024, 128), dequant=(64, 2048, 2048, 128),
+            w8a8=(4096, 2048, 2048), grouped=(8192, 2048, 4096, 8), rounds=3,
+            sweep=1024, calibrate=2048)
+
+
+def held(torch, got, ref, what):
+    """The contract a tuned knob is held to, ``tools.autotune.tolerance``:
+    exact for integers, rel 1e-3 normwise for fp32 outputs, 1e-2 normwise
+    for 16-bit ones (one bf16 ulp of an element is 2^-8, so the whole result
+    is held, not each element).  Returns the normwise error."""
+    from gemm_hls_tpu_torch.tools.autotune import agreement, tolerance
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {ref.shape}/{ref.dtype}")
+    err = agreement(got, ref)
+    if not err <= tolerance(got.dtype):
+        raise AssertionError(f"{what}: normwise rel err {err:.3e} > {tolerance(got.dtype)}")
+    return err
+
+
+def tune_report(report):
+    """One line a candidate: its knobs, status, readings (ms) and median."""
+    out = []
+    for r in report:
+        knobs = {k: v for k, v in r["entry"].items() if k in ("route", "plan")}
+        spread = (f"readings {[round(x, 4) for x in r['samples_ms']]} ms, median "
+                  f"{r['ms']:.4f} ms ({r['gflops'] / 1e3:.1f} TFLOP/s), spread "
+                  f"{(max(r['samples_ms']) / min(r['samples_ms']) - 1) * 100:.1f}%"
+                  if "ms" in r else r.get("detail", ""))
+        out.append(f"    {knobs}: {r['status']} {spread}")
+    return "\n".join(out)
+
+
+def phase_slice17(torch, seed):
+    """Phase 26: slice 17's tuning tools, ``seed`` the packaged autotune seed;
+    returns their readings.  Raises on any mismatch."""
+    import os
+    import tarfile
+
+    from gemm_hls_tpu_torch import _build, matmul
+    from gemm_hls_tpu_torch.config import default_config, route_config
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import dequant, flash, gmm, mxu, quant
+    from gemm_hls_tpu_torch.ops.attention import flash_attention
+    from gemm_hls_tpu_torch.ops.grouped import grouped_matmul
+    from gemm_hls_tpu_torch.tools import autotune, cache, calibrate, sweep
+
+    out = {}
+    rounds = TUNE["rounds"]
+    tmp = Path(tempfile.mkdtemp(prefix="phase26_"))
+    tuned = str(tmp / "autotune.json")
+    none = str(tmp / "absent.json")
+    gen = torch.Generator(device="cpu").manual_seed(26)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to("cuda", dtype)
+
+    def adopt(what, call, wrapper, want, ref, plan=None, want_plan=None):
+        """The front door with the tuned cache (DEFAULT_CACHE, no seed) on
+        the winner's route, held to the plain version; then with no cache
+        file on the route rule's, ``rule``."""
+        autotune.DEFAULT_CACHE, autotune.SEED_CACHE = tuned, none
+        got = call()
+        torch.cuda.synchronize()
+        route = wrapper.last_route
+        if route != want or (plan is not None and plan() != want_plan):
+            raise AssertionError(f"phase 26a {what}: the front door took {route} "
+                                 f"{plan() if plan else ''}, the winner is {want} "
+                                 f"{want_plan if plan else ''}")
+        err = held(torch, got if not isinstance(got, tuple) else got[0], ref, f"phase 26a {what}")
+        autotune.DEFAULT_CACHE = none
+        call()
+        torch.cuda.synchronize()
+        return route, err, wrapper.last_route
+
+    # (b) and (d) run beside (a), (c) and (e): the sweep's children and the
+    # fresh process spend their time starting up, on the host.
+    # (d) the built library packaged, unpackaged into an empty directory, and
+    # loaded by a fresh process that cannot run nvcc.
+    t0 = time.perf_counter()
+    built = _build.BUILD_DIR
+    archive = tmp / "kernels.tar.gz"
+    cache.package(str(archive))
+    pack_s = time.perf_counter() - t0
+    target = tmp / "unpacked"
+    try:
+        cache.unpackage(str(archive), str(target))
+    finally:
+        _build.BUILD_DIR = built
+    with tarfile.open(archive) as tar:
+        members = tar.getnames()
+    code = (
+        "import json, sys, time\n"
+        "t0 = time.perf_counter()\n"
+        "import torch\n"
+        "from gemm_hls_tpu_torch import _build\n"
+        "from gemm_hls_tpu_torch.config import route_config\n"
+        "from gemm_hls_tpu_torch.ops import mxu\n"
+        "from gemm_hls_tpu_torch.tools import cache\n"
+        "cache.enable_persistent_cache(sys.argv[1])\n"
+        "def no_nvcc():\n"
+        "    raise RuntimeError('nvcc was called')\n"
+        "_build._nvcc = no_nvcc\n"
+        "t1 = time.perf_counter()\n"
+        "_build.library()\n"
+        "t2 = time.perf_counter()\n"
+        "a = torch.randn(1024, 1024, device='cuda').bfloat16()\n"
+        "c = mxu.mxu_matmul(a, a, cfg=route_config('bfloat16'))\n"
+        "err = float((c.float() - (a.float() @ a.float())).norm() / (a.float() @ a.float()).norm())\n"
+        "print(json.dumps(dict(load_s=t2 - t1, process_s=time.perf_counter() - t0, "
+        "route=mxu.mxu_matmul.last_route, err=err, lib=str(_build.library_path()))))\n")
+    env = dict(os.environ, PATH=os.pathsep.join(
+        x for x in os.environ.get("PATH", "").split(os.pathsep) if "cuda" not in x))
+    env.pop("CUDA_HOME", None)
+    env.pop("CUDA_PATH", None)
+    fresh = subprocess.Popen([sys.executable, "-c", code, str(target)], cwd=REPO, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # (b) a sweep of a small grid, each configuration in its own process:
+    # the engine's tile, a tile no kernel is compiled for, one past the
+    # shared memory, and a setup_code that raises.
+    grid = (sweep.expand_grid(block_m=[128], block_n=[256], block_k=[64])
+            + [dict(block_m=256, block_n=128, block_k=64),
+               dict(block_m=512, block_n=512, block_k=128)])
+    swept = {}
+
+    def run_sweep(sz):
+        t = time.perf_counter()
+        try:
+            res = sweep.sweep(grid, sz, sz, sz, base=default_config("bfloat16"),
+                              isolation="process", workers=len(grid), timeout_s=300)
+            res.append(sweep.run_one(default_config("bfloat16"), sz, sz, sz,
+                                     isolation="process", timeout_s=300,
+                                     setup_code="raise RuntimeError('injected by phase 26b')"))
+            swept["res"] = res
+        except Exception as exc:  # noqa: BLE001 - raised again in the phase's thread
+            swept["exc"] = exc
+        swept["s"] = time.perf_counter() - t
+
+    sweeper = threading.Thread(target=run_sweep, args=(TUNE["sweep"],))
+    sweeper.start()
+    try:
+        # (a) the engine's tile as an explicit config runs on the engine, and an
+        # unaligned call with it raises (it cannot run there); then every family
+        # tuned at one seed shape into a temporary cache, and adopted by its
+        # front door.
+        t0 = time.perf_counter()
+        n = TUNE["dense"]
+        autotune.DEFAULT_CACHE, autotune.SEED_CACHE = none, none
+        a, b = rand(n, n), rand(n, n)
+        ecfg = route_config("bfloat16")
+        err = held(torch, matmul(a, b, config=ecfg), torch.matmul(a, b), "phase 26a engine config")
+        if mxu.mxu_matmul.last_route != "wgmma":
+            raise AssertionError(f"phase 26a: route_config's tile took {mxu.mxu_matmul.last_route}")
+        pitched = rand(n, n + 1)[:, :n]  # rows of 8193 bf16: not whole 16-byte units
+        try:
+            matmul(pitched, b, config=ecfg)
+        except ValueError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("phase 26a: an unaligned call with the engine's tile ran")
+        log(f"phase 26a: matmul(a, b, config=route_config('bfloat16')) bf16 {n}^3 on "
+            f"{mxu.mxu_matmul.last_route} (normwise {err:.2e} to torch.matmul); with rows of "
+            f"{n + 1} elements it raises: {refusal}")
+        cfg = autotune.autotune(n, n, n, dtype="bfloat16", cache_path=tuned, rounds=rounds)
+        win = autotune._MXU_ROUTE[cfg.route()]
+        a, b = rand(n, n), rand(n, n)
+        route, err, rule = adopt("dense", lambda: matmul(a, b), mxu.mxu_matmul, win,
+                                 torch.matmul(a, b))
+        if rule != mxu.mxu_route(torch.bfloat16, False, False, True):
+            raise AssertionError(f"phase 26a dense: with no cache the route is {rule}")
+        out["dense"] = dict(winner=win, route=route, no_cache_route=rule, err=err,
+                            report=autotune.autotune.last_report)
+        log(f"phase 26a: autotune bf16 {n}^3, {rounds} rounds in turns:\n"
+            + tune_report(autotune.autotune.last_report)
+            + f"\n  winner {win} (blocks {cfg.block_m}x{cfg.block_n}x{cfg.block_k}); matmul(a, b) "
+              f"took {route} (normwise {err:.2e} to torch.matmul); with no cache file {rule}")
+
+        bsz, s = TUNE["batched"]
+        win = autotune.autotune_batched(bsz, s, s, s, cache_path=tuned, rounds=rounds)
+        a, b = rand(bsz, s, s), rand(bsz, s, s)
+        route, err, rule = adopt("batched", lambda: matmul(a, b), mxu.mxu_matmul_batched, win,
+                                 torch.matmul(a, b))
+        out["batched"] = dict(winner=win, route=route, no_cache_route=rule, err=err,
+                              report=autotune.autotune_batched.last_report)
+        log(f"phase 26a: autotune_batched {bsz} x {s}^3 bf16:\n"
+            + tune_report(autotune.autotune_batched.last_report)
+            + f"\n  winner {win}; matmul(a, b) took {route} (normwise {err:.2e}); with no "
+              f"cache file {rule}")
+
+        bh, sq, d = TUNE["flash"]
+        fwd = autotune.autotune_flash(bh, sq, sq, d, causal=True, cache_path=tuned, rounds=rounds)
+        fwd_report = autotune._tune_family.last_report
+        ent = autotune.autotune_flash_bwd(bh, sq, sq, d, causal=True, cache_path=tuned,
+                                          rounds=rounds)
+        q, k, v = (rand(bh, sq, d, scale=0.3) for _ in range(3))
+        ref = flash.flash_fwd_plain(q, k, v, causal=True, scale=d ** -0.5)[0]
+        route, err, rule = adopt("flash", lambda: flash_attention(q, k, v, causal=True),
+                                 flash.flash_mha, fwd["route"], ref)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        autotune.DEFAULT_CACHE, autotune.SEED_CACHE = tuned, none
+        flash_attention(qg, kg, vg, causal=True).float().sum().backward()
+        torch.cuda.synchronize()
+        bwd = (flash.flash_mha_bwd_dq.last_route, flash.flash_mha_bwd_dkv.last_route)
+        if bwd != (ent["bwd_route"],) * 2:
+            raise AssertionError(f"phase 26a flash: the backward took {bwd}, the winner is "
+                                 f"{ent['bwd_route']}")
+        out["flash"] = dict(winner=fwd["route"], bwd_winner=ent["bwd_route"], route=route,
+                            bwd_routes=bwd, no_cache_route=rule, err=err,
+                            report=fwd_report, bwd_report=autotune.autotune_flash_bwd.last_report)
+        log(f"phase 26a: autotune_flash ({bh}, {sq}, {d}) causal bf16, forward:\n"
+            + tune_report(fwd_report) + "\n  backward pair (dq + dk / dv):\n"
+            + tune_report(autotune.autotune_flash_bwd.last_report)
+            + f"\n  winners {fwd['route']} / {ent['bwd_route']}; flash_attention took {route} "
+              f"(normwise {err:.2e} to the plain version), its gradient {bwd}; with no cache "
+              f"file {rule}")
+
+        m, nn, kk, g = TUNE["dequant"]
+        e = autotune.autotune_quant(m, nn, kk, mode="int4", group_size=g, cache_path=tuned,
+                                    rounds=rounds)
+        rep = autotune._tune_family.last_report
+        w = torch.randn(kk, nn, generator=gen) / kk ** 0.5
+        wq, sc = (torch.from_numpy(t).cuda() for t in quant.quantize_weights(w.numpy(), 4, g))
+        x = rand(m, kk)
+        want_plan = tuple(e["plan"]) if "plan" in e else None
+        route, err, rule = adopt(
+            "dequant4", lambda: quant.matmul_quantized(x, wq, sc, bits=4, group_size=g),
+            dequant.dequant_matmul, e["route"],
+            dequant.dequant_matmul_plain(x, wq, sc, bits=4, group_size=g, out_dtype=x.dtype),
+            plan=lambda: dequant.dequant_matmul.last_plan, want_plan=want_plan)
+        out["dequant4"] = dict(winner=e, route=route, no_cache_route=rule, err=err, report=rep)
+        log(f"phase 26a: autotune_quant int4 g{g} ({m}, {nn}, {kk}) bf16:\n" + tune_report(rep)
+            + f"\n  winner {e['route']} {e.get('plan', '')}; matmul_quantized took {route} "
+              f"{want_plan or ''} (normwise {err:.2e}); with no cache file {rule} "
+              f"{dequant.dequant_matmul.last_plan}")
+
+        m, nn, kk = TUNE["w8a8"]
+        e = autotune.autotune_quant(m, nn, kk, mode="w8a8", cache_path=tuned, rounds=rounds)
+        rep = autotune._tune_family.last_report
+        w = torch.randn(kk, nn, generator=gen) / kk ** 0.5
+        wq, sc = (torch.from_numpy(t).cuda() for t in quant.quantize_weights(w.numpy(), 8))
+        x = rand(m, kk)
+        wcfg = quant.w8a8_resolve(m, nn, kk)
+        fused, _, bk = dequant.w8a8_schedule(m, nn, kk, wcfg, 1, True)
+        route, err, rule = adopt(
+            "w8a8", lambda: quant.matmul_w8a8(x, wq, sc), dequant.w8a8_matmul, e["route"],
+            dequant.w8a8_plain(x, wq, sc, bk=bk, fused=fused, out_dtype=torch.float32),
+            plan=lambda: dequant.w8a8_matmul.last_plan, want_plan=e.get("plan"))
+        out["w8a8"] = dict(winner=e, route=route, no_cache_route=rule, err=err, report=rep)
+        log(f"phase 26a: autotune_quant w8a8 ({m}, {nn}, {kk}) bf16:\n" + tune_report(rep)
+            + f"\n  winner {e['route']} {e.get('plan', '')}; matmul_w8a8 took {route} "
+              f"(normwise {err:.2e}); with no cache file {rule} {dequant.w8a8_matmul.last_plan}")
+
+        m, kk, nn, ng = TUNE["grouped"]
+        e = autotune.autotune_grouped(m, kk, nn, ng, cache_path=tuned, rounds=rounds)
+        rep = autotune._tune_family.last_report
+        lhs, rhs = rand(m, kk), rand(ng, kk, nn, scale=kk ** -0.5)
+        sizes = torch.full((ng,), m // ng, dtype=torch.int32, device="cuda")
+        route, err, rule = adopt("grouped", lambda: grouped_matmul(lhs, rhs, sizes),
+                                 gmm.grouped_mxu, e["route"], gmm.grouped_mxu_plain(lhs, rhs, sizes))
+        out["grouped"] = dict(winner=e, route=route, no_cache_route=rule, err=err, report=rep)
+        log(f"phase 26a: autotune_grouped ({m}, {kk}, {nn}, {ng}) bf16:\n" + tune_report(rep)
+            + f"\n  winner {e['route']}; grouped_matmul took {route} (normwise {err:.2e}); "
+              f"with no cache file {rule}")
+        out["a s"] = time.perf_counter() - t0
+        log(f"phase 26a: {out['a s']:.1f} s; the tuned cache: "
+            + json.dumps(json.loads(Path(tuned).read_text())))
+
+        # (c) the calibration into a temporary file.
+        t0 = time.perf_counter()
+        cal_path = str(tmp / "calibration.json")
+        cal = calibrate.run_calibration(cache_path=cal_path, n_probe=TUNE["calibrate"],
+                                        autotune_cache=str(tmp / "calibrate_autotune.json"),
+                                        force=True)
+        kind = torch.cuda.get_device_name(0).lower()
+        if calibrate.load_calibration(kind, cal_path) != cal:
+            raise AssertionError("phase 26c: the calibration did not persist")
+        seeded = autotune._load(str(tmp / "calibrate_autotune.json"))
+        out["calibration"] = dict(cal, seeded=seeded)
+        out["c s"] = time.perf_counter() - t0
+        log(f"phase 26c: run_calibration ({2 * TUNE['calibrate']}^3 bf16 on the engine): "
+            f"measured_bf16_flops {cal['measured_bf16_flops'] / 1e12:.1f} TFLOP/s against "
+            f"perf_model.H100.peak_flops['bfloat16'] {H100.peak_flops['bfloat16'] / 1e12:.0f} "
+            f"({cal['measured_bf16_flops'] / H100.peak_flops['bfloat16'] * 100:.1f}%), "
+            f"grid_step_overhead_s {cal['grid_step_overhead_s']}, card {cal['card']!r}; its "
+            f"autotune seed {json.dumps(seeded)}; {out['c s']:.1f} s")
+
+        # (e) the shipped seed adopted: no user cache, the packaged seed.
+        autotune.DEFAULT_CACHE, autotune.SEED_CACHE = none, seed
+        key = autotune._key("h100", "bfloat16", "plus_times", n, n, n)
+        entry = autotune._load(seed).get(key)
+        if entry is None:
+            raise AssertionError(f"phase 26e: the seed has no {key}")
+        a, b = rand(n, n), rand(n, n)
+        got = matmul(a, b)
+        torch.cuda.synchronize()
+        if mxu.mxu_matmul.last_route != entry["route"]:
+            raise AssertionError(f"phase 26e: matmul took {mxu.mxu_matmul.last_route}, the "
+                                 f"seed names {entry['route']}")
+        err = held(torch, got, torch.matmul(a, b), "phase 26e")
+        out["seed"] = dict(key=key, entry=entry, route=mxu.mxu_matmul.last_route, err=err)
+        log(f"phase 26e: with only the packaged seed, matmul(a, b) bf16 {n}^3 took "
+            f"{mxu.mxu_matmul.last_route}, the seed's {key}: {json.dumps(entry)} (normwise "
+            f"{err:.2e})")
+    finally:
+        sweeper.join()
+        stdout, stderr = fresh.communicate(timeout=300)
+
+    if "exc" in swept:
+        raise swept["exc"]
+    res = swept["res"]
+    statuses = [r.status for r in res]
+    if statuses != ["ok", "invalid_config", "vmem_overflow", "crashed"]:
+        raise AssertionError(f"phase 26b: statuses {statuses}: "
+                             + " | ".join(r.detail for r in res))
+    csv_path = tmp / "sweep.csv"
+    text = sweep.to_csv(res, str(csv_path))
+    merged = sweep.merge_csvs([str(csv_path), str(csv_path)])
+    if merged.count("\n") != text.count("\n"):
+        raise AssertionError("phase 26b: the CSV merged with itself changed its rows")
+    out["sweep"] = dict(statuses=statuses, gflops=res[0].gflops, seconds=res[0].seconds)
+    log(f"phase 26b: sweep {TUNE['sweep']}^3 bf16, each configuration in its own process "
+        f"({len(grid)} at once, then the crashing setup_code, beside 26a-e): statuses "
+        f"{statuses} in {swept['s']:.1f} s; the engine tile {res[0].gflops / 1e3:.1f} "
+        f"TFLOP/s verified (max rel {res[0].max_rel_err:.2e}); merged with itself "
+        f"{merged.count(chr(10)) - 1} rows\n" + text.rstrip())
+
+    if fresh.returncode != 0:
+        raise AssertionError(f"phase 26d: the fresh process failed: {stderr[-2000:]}")
+    loaded = json.loads(stdout.strip().splitlines()[-1])
+    if not loaded["lib"].startswith(str(target)) or loaded["err"] > 1e-2:
+        raise AssertionError(f"phase 26d: {loaded}")
+    out["cache"] = dict(loaded, archive_mb=archive.stat().st_size / 1e6, package_s=pack_s,
+                        members=members)
+    log(f"phase 26d: package {members} ({archive.stat().st_size / 1e6:.1f} MB, "
+        f"{pack_s:.1f} s), unpackaged into an empty directory; a fresh process without "
+        f"nvcc (beside 26a-e) loaded it in {loaded['load_s']:.3f} s "
+        f"({loaded['process_s']:.1f} s with imports and one B1 launch on "
+        f"{loaded['route']}, normwise {loaded['err']:.2e})")
+    autotune.DEFAULT_CACHE = none
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5318,6 +5683,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # Phases 1-25 run with no autotune cache file (their route checks are
+    # the route rule's); phase 26 names its caches itself.
+    from gemm_hls_tpu_torch.tools import autotune
+    packaged_seed = autotune.SEED_CACHE
+    no_cache = tempfile.mkdtemp(prefix="no_autotune_cache_")
+    autotune.DEFAULT_CACHE = autotune.SEED_CACHE = str(Path(no_cache) / "absent.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5382,6 +5753,9 @@ def main() -> int:
     launches7 = phase_slice7(torch)
     times7 = phase_times7(torch)
     staged = phase_slice16(torch)
+    t0 = time.perf_counter()
+    phase_slice17(torch, packaged_seed)
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 

@@ -10,6 +10,9 @@ from gemm_hls_tpu_torch.utils.tileio import native_tileio_available
 
 CLIS = [
     ("gemm_hls_tpu_torch.tools.run", "run one GEMM: timing, GOp/s, verification"),
+    ("gemm_hls_tpu_torch.tools.sweep", "configuration sweeps with failure taxonomy -> CSV"),
+    ("gemm_hls_tpu_torch.tools.autotune", "measure + cache the best route / plan for a problem"),
+    ("gemm_hls_tpu_torch.tools.calibrate", "self-calibration of a card without constants"),
     ("gemm_hls_tpu_torch.tools.tile_optimizer", "shared-memory-budget tile optimizer"),
     ("gemm_hls_tpu_torch.tools.print_specifications", "analytical roofline expectations"),
     ("gemm_hls_tpu_torch.tools.profile", "measured vs roofline + torch.profiler trace"),

@@ -161,6 +161,21 @@ def call_route(dtype, semiring: str = "plus_times", transpose_a: bool = False,
     return "tc"
 
 
+def named_route(route: Optional[str], rule: str, what: str) -> str:
+    """The route a launch takes: ``route`` where a caller names one (a
+    tuned winner, a comparison), else ``rule``, the route rule's.  Naming
+    the tile engine ("wgmma") where the rule does not give it raises (its
+    TMA maps cannot describe the call), and so does a CUDA-core route
+    ("simt") for inputs the rule sends to the tensor cores, or the
+    reverse."""
+    if route is None or route == rule:
+        return rule
+    if route == "wgmma" or (route == "simt") != (rule == "simt"):
+        raise ValueError(f"{what}: route {route!r} cannot run this call; the route "
+                         f"rule gives {rule!r}")
+    return route
+
+
 def route_tile(route: str, dtype) -> Tuple[int, int, int]:
     """The compiled (block_m, block_n, block_k) of ``route`` for ``dtype``."""
     if route == "wgmma":

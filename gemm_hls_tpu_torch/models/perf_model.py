@@ -121,11 +121,33 @@ def available_chips():
     return sorted(_CHIPS)
 
 
+def _calibrated_spec(kind: str) -> Optional[ChipSpec]:
+    """ChipSpec for a card without an entry, from its persisted
+    self-calibration (``tools/calibrate.py``): the H100's data-sheet
+    roofline scaled by the measured bf16 engine rate over the H100's, with
+    the calibration's block-step cost (0: see ``calibrate.run_calibration``).
+    None when no calibration exists (the reference's ``_calibrated_spec``,
+    which scales its v5e table)."""
+    from gemm_hls_tpu_torch.tools.calibrate import load_calibration
+
+    e = load_calibration(kind)
+    if not e:
+        return None
+    scale = e["measured_bf16_flops"] / H100.peak_flops["bfloat16"]
+    return dataclasses.replace(
+        H100,
+        name=kind,
+        peak_flops={d: p * scale for d, p in H100.peak_flops.items()},
+        vpu_ops=H100.vpu_ops * scale,
+        grid_step_overhead_s=e["grid_step_overhead_s"],
+    )
+
+
 def detect_chip(device=None) -> ChipSpec:
     """The constants of ``device`` (default: CUDA device 0 when there is
-    one, else the CPU); raises for a card without an entry (the
-    self-calibration of the reference, ``tools/calibrate.py``, is not
-    ported yet)."""
+    one, else the CPU).  A card without an entry takes its persisted
+    self-calibration (``python -m gemm_hls_tpu_torch.tools.calibrate``);
+    without one it raises, naming that command."""
     dev = torch.device(device if device is not None else
                        ("cuda" if torch.cuda.is_available() else "cpu"))
     if dev.type == "cpu":
@@ -133,7 +155,13 @@ def detect_chip(device=None) -> ChipSpec:
     name = torch.cuda.get_device_name(dev)
     if "H100" in name:
         return H100
-    raise NotImplementedError(f"no roofline constants for {name!r}")
+    cal = _calibrated_spec(name.lower())
+    if cal is not None:
+        return cal
+    raise NotImplementedError(
+        f"no roofline constants for {name!r}: run `python -m "
+        f"gemm_hls_tpu_torch.tools.calibrate` on it for a self-calibration "
+        f"(the bf16 engine rate scales the H100's table)")
 
 
 def specifications(cfg: GemmConfig, m: int, n: int, k: int,

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from gemm_hls_tpu_torch.config import GemmConfig, row_softmax_fusable
+from gemm_hls_tpu_torch.config import GemmConfig, dtype_name, row_softmax_fusable
 
 
 def _fused_scores_ok(q, k, config: Optional[GemmConfig]) -> bool:
@@ -132,13 +132,19 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
       config: accepted for the JAX signature (unused).
       block_q / bwd_block_q: the plain versions' q tiles; the other
         ``block_*`` arguments are accepted for the JAX signature.  The
-        CUDA kernels' tiles are their own (csrc/flash_*.cu).  The JAX
-        package's autotuned block table is not ported.
+        CUDA kernels' tiles are their own (csrc/flash_*.cu).  With
+        ``block_q`` or ``block_kv`` None, a tuned ``flash`` winner for this
+        shape bucket (``tools/autotune.py``: the user cache, then the
+        packaged H100 seed) names the forward's and the backward pair's
+        routes, as the JAX package's entry names its blocks
+        (gemm_hls_tpu/ops/attention.py:203-224); a miss keeps
+        ``flash_route`` / ``flash_bwd_route``.
       interpret: CUDA has no interpreter mode; True on a CUDA tensor
         raises.
 
     Returns the attention output in q's layout and dtype.
     """
+    from gemm_hls_tpu_torch.ops import flash
     from gemm_hls_tpu_torch.ops.flash import flash_mha, flash_mha_diff
 
     del config, block_kv_compute, block_q_compute, bwd_block_kv
@@ -174,6 +180,15 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     elif q.ndim != 3:
         raise ValueError(f"flash_attention expects (B, S, D) or "
                          f"(batch, S, H, D), got {tuple(q.shape)}")
+    route = bwd_route = None
+    if block_q is None or block_kv is None:
+        from gemm_hls_tpu_torch.tools.autotune import cached_family_entry
+
+        e = cached_family_entry(
+            "flash", (flash._heads(q), q.shape[1], k.shape[1], q.shape[-1]),
+            dtype=dtype_name(q.dtype), tag="causal" if causal else "full",
+            device=q.device, aligned=bool(flash._vec(q, k, v))) or {}
+        route, bwd_route = e.get("route"), e.get("bwd_route")
     block_q = block_q or 512
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -185,13 +200,14 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     if kv_lengths is not None:
         out = flash_mha(qs, k, v, kv_lengths, q_segment_ids, kv_segment_ids,
                         causal=causal, block_q=block_q, interpret=interpret,
-                        window=window, logit_cap=logit_cap, scale=kscale)
+                        window=window, logit_cap=logit_cap, scale=kscale,
+                        route=route)
     else:
         out = flash_mha_diff(qs, k, v, q_segment_ids, kv_segment_ids,
                              causal=causal, block_q=block_q,
                              interpret=interpret, window=window,
                              logit_cap=logit_cap, bwd_block_q=bwd_block_q,
-                             scale=kscale)
+                             scale=kscale, route=route, bwd_route=bwd_route)
     if decode_fast:
         # The (batch * H_kv, group, D) rows are the q heads of one token.
         out = out.reshape(nb, 1, hq, out.shape[-1])

@@ -44,7 +44,7 @@ import ctypes
 import torch
 
 from gemm_hls_tpu_torch import _build
-from gemm_hls_tpu_torch.config import GemmConfig, cdiv, round_up
+from gemm_hls_tpu_torch.config import GemmConfig, cdiv, named_route, round_up
 
 # The JAX fused route's VMEM bound on the quantized (block_m, K) strip,
 # kept as a routing rule (it decides the activation-scale grid).
@@ -148,13 +148,26 @@ def dequant_engine_plan(m: int, n: int, k: int, sms: int, clusters=None) -> tupl
     cap = DEQUANT_ENGINE_MAX_SPLITS
     bn = next((b for b in DEQUANT_ENGINE_BN if cdiv(n, b) * tiles_m * cap * 4 >= sms * 3),
               DEQUANT_ENGINE_BN[-1])
-    tiles, steps = cdiv(n, bn) * tiles_m, cdiv(k, DEQUANT_ENGINE_STEP)
+    return bn, _engine_splits(m, n, k, bn, sms, clusters)
+
+
+def dequant_engine_plans(m: int, n: int, k: int, sms: int, clusters=None) -> list:
+    """The plans a tuner may name for a B13 engine launch: one a built N
+    tile (widest first), each with :func:`dequant_engine_plan`'s K splits
+    for that tile, so every one fits the card at once as the rule's does."""
+    return [(bn, _engine_splits(m, n, k, bn, sms, clusters)) for bn in DEQUANT_ENGINE_BN]
+
+
+def _engine_splits(m: int, n: int, k: int, bn: int, sms: int, clusters=None) -> int:
+    """K splits of N tile ``bn`` (see :func:`dequant_engine_plan`)."""
+    tiles = cdiv(n, bn) * cdiv(m, DEQUANT_ENGINE_BM)
+    steps = cdiv(k, DEQUANT_ENGINE_STEP)
     fits = clusters or (lambda bn, splits: sms // splits)
-    for want in range(min(steps, cap, cdiv(sms, tiles)), 1, -1):
+    for want in range(min(steps, DEQUANT_ENGINE_MAX_SPLITS, cdiv(sms, tiles)), 1, -1):
         splits = cdiv(steps, cdiv(steps, want))
         if tiles <= fits(bn, splits):
-            return bn, splits
-    return bn, 1
+            return splits
+    return 1
 
 
 def sm_count(device) -> int:
@@ -170,6 +183,14 @@ def _engine_plan(device, m: int, n: int, k: int) -> tuple:
     key = (_index(device), m, n, k)
     if key not in _PLANS:
         _PLANS[key] = dequant_engine_plan(m, n, k, sm_count(device), engine_clusters(device))
+    return _PLANS[key]
+
+
+def engine_plans(device, m: int, n: int, k: int) -> list:
+    """:func:`dequant_engine_plans` for ``device``, found once per shape."""
+    key = (_index(device), m, n, k, "all")
+    if key not in _PLANS:
+        _PLANS[key] = dequant_engine_plans(m, n, k, sm_count(device), engine_clusters(device))
     return _PLANS[key]
 
 
@@ -212,7 +233,7 @@ def _dequant_splits(m: int, n: int, k: int, sms: int) -> int:
 
 
 def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
-                   group_size=None, interpret=None, route=None):
+                   group_size=None, interpret=None, route=None, plan=None):
     """y[M, N] = x[M, K] . dequant(w_q, scales) (kernel B13).
 
     Args:
@@ -227,7 +248,11 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
     The JAX wrapper's checks: K a multiple of block_k; group-wise scales
     need block_k a whole multiple of group_size; the packed row count.
     The kernel is :func:`dequant_route`'s, recorded as
-    ``dequant_matmul.last_route``; ``route`` names one for comparisons.
+    ``dequant_matmul.last_route``; ``route`` names one (a tuned winner, a
+    comparison).  On the engine the plan (N tile, K splits) is
+    :func:`dequant_engine_plan`'s, recorded as ``dequant_matmul.last_plan``;
+    ``plan`` names one of :func:`dequant_engine_plans`'.  A route or plan
+    named that cannot run the call raises.
     """
     m, k = x.shape
     n = w_q.shape[1]
@@ -264,17 +289,24 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    route = route or dequant_route(x.dtype, n, k, g, x.data_ptr() % 16 == 0)
+    route = named_route(route, dequant_route(x.dtype, n, k, g, x.data_ptr() % 16 == 0),
+                        "dequant_matmul")
+    if plan is not None and (route != "wgmma" or tuple(plan) not in engine_plans(
+            x.device, m, n, k)):
+        raise ValueError(f"dequant_matmul: plan {plan} is not one of the engine's plans "
+                         f"{engine_plans(x.device, m, n, k)} on route {route!r}")
     lib = _build.library()
     ptrs = (x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr())
     codes = (_build.dtype_code(x.dtype), _build.dtype_code(out_dtype))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "wgmma":
-            bn, splits = _engine_plan(x.device, m, n, k)
+            bn, splits = tuple(plan) if plan is not None else _engine_plan(x.device, m, n, k)
+            dequant_matmul.last_plan = (bn, splits)
             rc = lib.dequant_wgmma(*ptrs, m, n, k, bits, g, n_groups, bn, splits, *codes,
                                    stream)
         else:
+            dequant_matmul.last_plan = None
             splits = _dequant_splits(m, n, k, sm_count(x.device))
             ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                   if splits > 1 else None)
@@ -342,6 +374,12 @@ def w8a8_route(n: int, k: int, bk: int, mode: str, aligned: bool) -> str:
     if aligned and k % 16 == 0 and n % 16 == 0 and steps:
         return "wgmma"
     return "mma.sync"
+
+
+def w8a8_engine_plans(k: int, bk: int, mode: str) -> tuple:
+    """The N tiles a B14 / B15 engine launch may take: 64 alone where scale
+    blocks end inside K (see :func:`w8a8_engine_plan`), else both."""
+    return W8A8_ENGINE_BN[1:] if _scale_blocks(k, bk, mode) else W8A8_ENGINE_BN
 
 
 def w8a8_engine_plan(m: int, n: int, k: int, bk: int, mode: str, sms: int) -> int:
@@ -437,9 +475,11 @@ def _quantize_kernel(x, bk: int, fused: bool):
     return xq, sx
 
 
-def _w8a8_launch(xq, sx, w_q, scales, out, *, bk: int, mode: str, route: str):
+def _w8a8_launch(xq, sx, w_q, scales, out, *, bk: int, mode: str, route: str,
+                 bn=None):
     """The GEMM of ``w8a8_matmul`` on ``route`` into ``out``, over the
-    quantize pass's int8 ``xq`` and scales ``sx``."""
+    quantize pass's int8 ``xq`` and scales ``sx``; on the engine, N tile
+    ``bn`` (default :func:`w8a8_engine_plan`'s)."""
     m, k = xq.shape
     n = w_q.shape[1]
     w_q, scales = _aligned(w_q), _aligned(scales.float())
@@ -449,15 +489,17 @@ def _w8a8_launch(xq, sx, w_q, scales, out, *, bk: int, mode: str, route: str):
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "wgmma":
-            bn = w8a8_engine_plan(m, n, k, bk, mode, sm_count(xq.device))
+            bn = bn or w8a8_engine_plan(m, n, k, bk, mode, sm_count(xq.device))
+            w8a8_matmul.last_plan = bn
             rc = lib.w8a8_wgmma(*args, bn, stream)
         else:
+            w8a8_matmul.last_plan = None
             rc = lib.w8a8_gemm(*args, int(k % 16 == 0), stream)
     _build.check(rc, f"w8a8_matmul ({route})")
 
 
 def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
-                interpret=None, fuse_quant: bool = True, route=None):
+                interpret=None, fuse_quant: bool = True, route=None, plan=None):
     """y = (x quantized) . dequant(w_q, scales) on the int8 tensor cores.
 
     ``fuse_quant=True`` (default) quantizes x per (row, K-block of
@@ -467,7 +509,11 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
     fused request to the two-pass route is kept (:func:`w8a8_schedule`).
     Output type ``cfg.out_dtype`` (default float32).  The GEMM's kernel is
     :func:`w8a8_route`'s, recorded as ``w8a8_matmul.last_route`` and
-    counted in ``w8a8_matmul.routes``; ``route`` names one for comparisons.
+    counted in ``w8a8_matmul.routes``; ``route`` names one (a tuned winner,
+    a comparison).  On the engine the N tile is :func:`w8a8_engine_plan`'s,
+    recorded as ``w8a8_matmul.last_plan``; ``plan`` names one of
+    :func:`w8a8_engine_plans`'.  A route or plan named that cannot run the
+    call raises.
     """
     m, k = x.shape
     n = w_q.shape[1]
@@ -502,10 +548,13 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    route = route or w8a8_route(n, k, bk, mode, x.data_ptr() % 16 == 0
-                                and w_q.data_ptr() % 16 == 0)
+    route = named_route(route, w8a8_route(n, k, bk, mode, x.data_ptr() % 16 == 0
+                                          and w_q.data_ptr() % 16 == 0), "w8a8_matmul")
+    if plan is not None and (route != "wgmma" or plan not in w8a8_engine_plans(k, bk, mode)):
+        raise ValueError(f"w8a8_matmul: N tile {plan} is not one of the engine's "
+                         f"{w8a8_engine_plans(k, bk, mode)} on route {route!r}")
     xq, sx = _quantize_kernel(x, bk if fuse_quant else k, fuse_quant)
-    _w8a8_launch(xq, sx, w_q, scales, out, bk=bk, mode=mode, route=route)
+    _w8a8_launch(xq, sx, w_q, scales, out, bk=bk, mode=mode, route=route, bn=plan)
     if fuse_quant:
         w8a8_matmul.fused_launches += 1
     else:
@@ -520,7 +569,9 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
 # W8A8 GEMMs by route.  The route of B13's and of W8A8's last launch.
 dequant_matmul.launches = 0
 dequant_matmul.last_route = None
+dequant_matmul.last_plan = None
 w8a8_matmul.fused_launches = 0
 w8a8_matmul.launches = 0
 w8a8_matmul.routes = {}
 w8a8_matmul.last_route = None
+w8a8_matmul.last_plan = None

@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from gemm_hls_tpu_torch import _build
+from gemm_hls_tpu_torch.config import named_route
 
 # Large finite "minus infinity" for masked scores (pallas_flash.py:47).
 _MASK = -0.7 * float(torch.finfo(torch.float32).max)
@@ -387,7 +388,8 @@ def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
     lse = torch.empty((_heads(q), q.shape[1]), dtype=torch.float32,
                       device=q.device)
     aligned = _vec(q, k, v)
-    route = route or flash_route(q.dtype, q.shape[-1], q.shape[1], bool(aligned))
+    route = named_route(route, flash_route(q.dtype, q.shape[-1], q.shape[1], bool(aligned)),
+                   "flash_fwd")
     _launch("flash_wgmma" if route == "wgmma" else "flash_fwd",
             _seq(q) + _seq(k) + _seq(v) + _seq(o),
             [lse.data_ptr(), _ptr(kv_lengths), _ptr(q_seg), _ptr(kv_seg),
@@ -434,7 +436,7 @@ def _backward(q, k, v, do, lse, delta, q_seg, kv_seg, offsets, causal,
         seqs += _seq(x)
     aligned = _vec(q, k, v, do, *outs)
     rows = q.shape[1] if which == "dq" else k.shape[1]
-    route = route or flash_bwd_route(q.dtype, q.shape[-1], rows, bool(aligned))
+    route = named_route(route, flash_bwd_route(q.dtype, q.shape[-1], rows, bool(aligned)), what)
     _launch(what + "_wgmma" if route == "wgmma" else what, seqs,
             [lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
              _ptr(offsets)],
@@ -461,7 +463,7 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
               kv_segment_ids=None, offsets=None, *, causal=False,
               block_q=512, block_kv=2048, block_kv_compute=None,
               block_q_compute=None, interpret=None, window=None,
-              logit_cap=None, save_lse=False, scale=1.0):
+              logit_cap=None, save_lse=False, scale=1.0, route=None):
     """o = softmax(scale q k^T) v per head (kernel ``flash_fwd``).
 
     Args:
@@ -477,7 +479,8 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
       block_q: the plain version's q tile; ``block_kv``,
         ``block_kv_compute`` and ``block_q_compute`` are accepted for the
         JAX signature: the CUDA kernels' tiles are their own.  The kernel
-        is :func:`flash_route`'s, recorded as ``flash_mha.last_route``.
+        is :func:`flash_route`'s, recorded as ``flash_mha.last_route``;
+        ``route`` names one (a tuned winner, a comparison).
 
     Returns o (B, S_q, D) in q's dtype, and with ``save_lse`` also lse
     (B, S_q, 1) fp32 (-inf on a fully masked row, where o = 0).
@@ -488,7 +491,7 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
                       _seg2(q_segment_ids, _heads(q), dev),
                       _seg2(kv_segment_ids, _heads(k), dev),
                       _ints(offsets, dev, (2,)), causal, window, logit_cap,
-                      scale, block_q, interpret)
+                      scale, block_q, interpret, route)
     if save_lse:
         return o, lse[..., None]
     return o
@@ -546,7 +549,7 @@ class _FlashDiff(torch.autograd.Function):
     def forward(ctx, q, k, v, q_seg, kv_seg, opts):
         o, lse = _forward(q, k, v, None, q_seg, kv_seg, None, opts["causal"],
                           opts["window"], opts["logit_cap"], opts["scale"],
-                          opts["block_q"], opts["interpret"])
+                          opts["block_q"], opts["interpret"], opts["route"])
         ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
         ctx.opts = opts
         return o
@@ -560,7 +563,8 @@ class _FlashDiff(torch.autograd.Function):
         do = do.to(q.dtype)
         kw = dict(causal=opts["causal"], window=opts["window"],
                   logit_cap=opts["logit_cap"], scale=opts["scale"],
-                  block_q=opts["bwd_block_q"], interpret=opts["interpret"])
+                  block_q=opts["bwd_block_q"], interpret=opts["interpret"],
+                  route=opts["bwd_route"])
         dq = _backward(q, k, v, do, lse, delta, q_seg, kv_seg, None,
                        which="dq", **kw)
         dk, dv = _backward(q, k, v, do, lse, delta, q_seg, kv_seg, None,
@@ -572,15 +576,19 @@ def flash_mha_diff(qs, k, v, q_seg=None, kv_seg=None, *, causal=False,
                    block_q=512, block_kv=2048, interpret=None, window=None,
                    logit_cap=None, block_kv_compute=None,
                    block_q_compute=None, bwd_block_q=None, bwd_block_kv=None,
-                   scale=1.0):
+                   scale=1.0, route=None, bwd_route=None):
     """Differentiable flash attention: :func:`flash_mha`'s forward (with
     lse saved) and a backward on the dq and dkv kernels.  q, k, v are 3-D,
     or 4-D (batch, S, H, D) read in place; segment ids are (B, S) per
-    packed head.  ``bwd_block_q`` is the plain backward's q tile."""
+    packed head.  ``bwd_block_q`` is the plain backward's q tile.
+    ``route`` / ``bwd_route`` name the forward's / the backward pair's
+    kernel (a tuned winner); None takes :func:`flash_route`'s /
+    :func:`flash_bwd_route`'s."""
     del block_kv, block_kv_compute, block_q_compute, bwd_block_kv
     dev = qs.device
     opts = dict(causal=causal, window=window, logit_cap=logit_cap,
                 scale=scale, block_q=block_q, interpret=interpret,
-                bwd_block_q=bwd_block_q or block_q)
+                bwd_block_q=bwd_block_q or block_q, route=route,
+                bwd_route=bwd_route)
     return _FlashDiff.apply(qs, k, v, _seg2(q_seg, _heads(qs), dev),
                             _seg2(kv_seg, _heads(k), dev), opts)

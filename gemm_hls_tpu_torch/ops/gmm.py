@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from gemm_hls_tpu_torch import _build
+from gemm_hls_tpu_torch.config import named_route
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -128,7 +129,7 @@ def grouped_mxu_plain(lhs, rhs, group_sizes, *, transpose_rhs=False,
 
 
 def grouped_mxu(lhs, rhs, group_sizes, *, transpose_rhs=False, out_dtype=None,
-                interpret=None):
+                interpret=None, route=None):
     """Ragged grouped matmul (kernel B16): (M, K) x (G, K, N) -> (M, N).
 
     ``group_sizes`` (G,) int partitions the M rows contiguously; row block
@@ -137,7 +138,9 @@ def grouped_mxu(lhs, rhs, group_sizes, *, transpose_rhs=False, out_dtype=None,
     come back zero.  The output type is ``out_dtype`` (default: the
     promoted input type); the kernel takes operands of one type, so a
     mixed pair is promoted (exactly) first.  The kernel is
-    :func:`grouped_route`'s, recorded as ``grouped_mxu.last_route``.
+    :func:`grouped_route`'s, recorded as ``grouped_mxu.last_route``;
+    ``route`` names one (a tuned winner), and raises where it cannot run
+    the call.
     """
     m, k, n, num_groups = _check(lhs, rhs, group_sizes, transpose_rhs)
     out_dtype = out_dtype or torch.promote_types(lhs.dtype, rhs.dtype)
@@ -147,18 +150,19 @@ def grouped_mxu(lhs, rhs, group_sizes, *, transpose_rhs=False, out_dtype=None,
                                  out_dtype=out_dtype)
     lhs, rhs = _kernel_operands("grouped_mxu", lhs, rhs, group_sizes, interpret)
     return _grouped_launch(lhs, rhs, group_sizes, m, k, n, num_groups,
-                           bool(transpose_rhs), out_dtype)
+                           bool(transpose_rhs), out_dtype, route)
 
 
 def _grouped_launch(lhs, rhs, group_sizes, m, k, n, num_groups, trb, out_dtype,
                     route=None):
     """B16 on CUDA operands of one type, contiguous: ``grouped_route``'s
-    kernel, or ``route`` where a comparison names one."""
+    kernel, or ``route`` where a caller names one."""
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
     if m == 0 or n == 0:
         return out
     vec_a, vec_b = _vec(lhs, k), _vec(rhs, k if trb else n)
-    route = route or grouped_route(lhs.dtype, bool(k and vec_a and vec_b))
+    route = named_route(route, grouped_route(lhs.dtype, bool(k and vec_a and vec_b)),
+                        "grouped_mxu")
     ends = group_ends(group_sizes, m)
     lib = _build.library()
     ptrs = (lhs.data_ptr(), rhs.data_ptr(), ends.data_ptr(), out.data_ptr())

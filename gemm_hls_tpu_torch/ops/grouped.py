@@ -22,8 +22,8 @@ from typing import Optional
 
 import torch
 
-from gemm_hls_tpu_torch.config import GemmConfig
-from gemm_hls_tpu_torch.ops.gmm import grouped_mxu, grouped_update_mxu
+from gemm_hls_tpu_torch.config import GemmConfig, dtype_name
+from gemm_hls_tpu_torch.ops.gmm import _vec, grouped_mxu, grouped_update_mxu
 
 
 class _Grouped(torch.autograd.Function):
@@ -32,11 +32,11 @@ class _Grouped(torch.autograd.Function):
     only if its input needs a gradient."""
 
     @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs):
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs, route):
         ctx.save_for_backward(lhs, rhs, group_sizes)
         ctx.transpose_rhs = transpose_rhs
         return grouped_mxu(lhs, rhs, group_sizes, transpose_rhs=transpose_rhs,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, route=route)
 
     @staticmethod
     def backward(ctx, g):
@@ -51,7 +51,7 @@ class _Grouped(torch.autograd.Function):
             drhs = grouped_update_mxu(a, b, group_sizes,
                                       num_groups=rhs.shape[0],
                                       out_dtype=rhs.dtype)
-        return dlhs, drhs, None, None, None
+        return dlhs, drhs, None, None, None, None
 
 
 def grouped_matmul(lhs, rhs, group_sizes, cfg: Optional[GemmConfig] = None,
@@ -69,7 +69,12 @@ def grouped_matmul(lhs, rhs, group_sizes, cfg: Optional[GemmConfig] = None,
       cfg: optional :class:`GemmConfig`; only its output type is read,
         ``out_dtype`` else ``dtype`` (float32 by default), as the JAX
         package's ``cfg.jout_dtype``.  Without a config the output is the
-        promoted input type.  The kernel's tiles are its own.
+        promoted input type, and a tuned ``grouped`` winner for this
+        (M, K, N, G) bucket (``tools/autotune.py``: the user cache, then the
+        packaged H100 seed) names B16's forward route, as the JAX package's
+        entry names its blocks (gemm_hls_tpu/ops/grouped.py:43-56); a miss
+        keeps ``ops/gmm.py::grouped_route``.  The kernel's tiles are its
+        own; the backward keeps the route rule.
       transpose_rhs: contract over each expert matrix's *last* axis.
 
     Returns (M, N).
@@ -84,4 +89,15 @@ def grouped_matmul(lhs, rhs, group_sizes, cfg: Optional[GemmConfig] = None,
     if gs.is_floating_point() or gs.is_complex() or gs.dtype == torch.bool:
         raise ValueError(f"group_sizes must be integer, got {gs.dtype}")
     out_dtype = cfg.tout_dtype if cfg is not None else None
-    return _Grouped.apply(lhs, rhs, gs, out_dtype, bool(transpose_rhs))
+    route = None
+    if cfg is None and lhs.dtype == rhs.dtype:
+        from gemm_hls_tpu_torch.tools.autotune import cached_family_entry
+
+        k = lhs.shape[1]
+        n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+        e = cached_family_entry(
+            "grouped", (lhs.shape[0], k, n, rhs.shape[0]),
+            dtype=dtype_name(lhs.dtype), device=lhs.device,
+            aligned=bool(k and _vec(lhs, k) and _vec(rhs, k if transpose_rhs else n)))
+        route = (e or {}).get("route")
+    return _Grouped.apply(lhs, rhs, gs, out_dtype, bool(transpose_rhs), route)

@@ -56,11 +56,11 @@ _I8X = ("i8x2", "i8x3", "i8x4")
 
 class _MxuPadded(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, cfg: GemmConfig):
+    def forward(ctx, a, b, cfg: GemmConfig, route=None):
         ctx.save_for_backward(a, b)
         ctx.cfg = cfg
         out = mxu.mxu_matmul(a, b, cfg=cfg, transpose_a=cfg.transpose_a,
-                             transpose_b=cfg.transpose_b)
+                             transpose_b=cfg.transpose_b, route=route)
         if not out.is_floating_point():
             ctx.mark_non_differentiable(out)
         return out
@@ -69,17 +69,17 @@ class _MxuPadded(torch.autograd.Function):
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         da, db = _mxu_bwd(ctx.cfg, (a, b), g, ctx.needs_input_grad[:2])
-        return da, db, None
+        return da, db, None, None
 
 
 class _MxuBatched(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, cfg: GemmConfig):
+    def forward(ctx, a, b, cfg: GemmConfig, route=None):
         ctx.save_for_backward(a, b)
         ctx.cfg = cfg
         out = mxu.mxu_matmul_batched(a, b, cfg=cfg,
                                      transpose_a=cfg.transpose_a,
-                                     transpose_b=cfg.transpose_b)
+                                     transpose_b=cfg.transpose_b, route=route)
         if not out.is_floating_point():
             ctx.mark_non_differentiable(out)
         return out
@@ -88,7 +88,7 @@ class _MxuBatched(torch.autograd.Function):
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         da, db = _mxu_bwd(ctx.cfg, (a, b), g, ctx.needs_input_grad[:2])
-        return da, db, None
+        return da, db, None, None
 
 
 def _flattens(a, b, cfg: GemmConfig) -> bool:
@@ -99,15 +99,16 @@ def _flattens(a, b, cfg: GemmConfig) -> bool:
             and a.shape[0] * a.shape[1] <= mxu._MAX_M)
 
 
-def _plus_times(a, b, cfg: GemmConfig):
-    """Differentiable plus_times on B1 (2-D) or B2 (batched)."""
+def _plus_times(a, b, cfg: GemmConfig, route=None):
+    """Differentiable plus_times on B1 (2-D) or B2 (batched), on ``route``
+    where one is named (the backward keeps the route rule)."""
     if a.ndim == 2 and b.ndim == 2:
-        return _MxuPadded.apply(a, b, cfg)
+        return _MxuPadded.apply(a, b, cfg, route)
     if _flattens(a, b, cfg):
         bsz, m, k = a.shape
-        return _MxuPadded.apply(a.reshape(bsz * m, k), b, cfg).reshape(
+        return _MxuPadded.apply(a.reshape(bsz * m, k), b, cfg, route).reshape(
             bsz, m, -1)
-    return _MxuBatched.apply(a, b, cfg)
+    return _MxuBatched.apply(a, b, cfg, route)
 
 
 def _mxu_bwd(cfg: GemmConfig, res, g, need=(True, True)):
@@ -170,11 +171,11 @@ class _MxuEpilogue(torch.autograd.Function):
     """Fused epilogue on B1 (2-D operands) or B2 (batched ones)."""
 
     @staticmethod
-    def forward(ctx, a, b, cfg: GemmConfig, ep, epilogue_bwd, *eps):
+    def forward(ctx, a, b, cfg: GemmConfig, ep, epilogue_bwd, route, *eps):
         gemm = (mxu.mxu_matmul if a.ndim == 2 and b.ndim == 2
                 else mxu.mxu_matmul_batched)
         y = gemm(a, b, *eps, cfg=cfg, transpose_a=cfg.transpose_a,
-                 transpose_b=cfg.transpose_b, epilogue=ep)
+                 transpose_b=cfg.transpose_b, epilogue=ep, route=route)
         ctx.save_for_backward(a, b, y, *eps)
         ctx.cfg, ctx.ep, ctx.epilogue_bwd, ctx.gemm = cfg, ep, epilogue_bwd, gemm
         if not y.is_floating_point():
@@ -194,7 +195,7 @@ class _MxuEpilogue(torch.autograd.Function):
         dacc, deps = _epilogue_cotangents(ctx.ep, ctx.epilogue_bwd, y, g,
                                           eps, recompute_acc)
         da, db = _mxu_bwd(cfg, (a, b), dacc, ctx.needs_input_grad[:2])
-        return (da, db, None, None, None,
+        return (da, db, None, None, None, None,
                 *(d.to(e.dtype) for d, e in zip(deps, eps)))
 
 
@@ -210,8 +211,9 @@ def _check_ep_operands(b, cfg: GemmConfig, ep_operands):
 
 
 def _mxu_with_epilogue(a, b, cfg: GemmConfig, epilogue, ep_operands,
-                       epilogue_bwd=None):
-    """Differentiable plus_times with a fused output epilogue."""
+                       epilogue_bwd=None, route=None):
+    """Differentiable plus_times with a fused output epilogue, on ``route``
+    where one is named."""
     if cfg.precision in _I8X:
         raise ValueError("epilogue fusion is not supported with the "
                          "int8-slice precision tiers")
@@ -225,9 +227,9 @@ def _mxu_with_epilogue(a, b, cfg: GemmConfig, epilogue, ep_operands,
     if _flattens(a, b, cfg):
         bsz, m, k = a.shape
         out = _MxuEpilogue.apply(a.reshape(bsz * m, k), b, cfg, ep,
-                                 epilogue_bwd, *eps)
+                                 epilogue_bwd, route, *eps)
         return out.reshape(bsz, m, -1)
-    return _MxuEpilogue.apply(a, b, cfg, ep, epilogue_bwd, *eps)
+    return _MxuEpilogue.apply(a, b, cfg, ep, epilogue_bwd, route, *eps)
 
 
 def _i8x(a, b, n_slices: int):
@@ -335,6 +337,39 @@ def _vpu_dispatch(a, b, cfg: GemmConfig, sr: Semiring):
 
 
 # ---------------------------------------------------------------------------
+# Tuned winners (tools/autotune.py), adopted by the front door without a
+# config: the JAX package's ``cached_config`` / ``cached_batch_block`` steps
+# (gemm_hls_tpu/ops/matmul.py:631-647, :127-141).
+# ---------------------------------------------------------------------------
+
+def _cached_winner(a, b, ta: bool, tb: bool):
+    """(config, route) of the cached winner for this plus_times call, or
+    (None, None) on a miss.  2-D operands read the dense entry
+    (``cached_config``: the winner's blocks and the route they name);
+    batched ones the batched entry (``cached_batch_block``: the B2 route).
+    The lookup never measures, and an entry whose route cannot run these
+    operands is a miss (``tools/autotune.py``)."""
+    from gemm_hls_tpu_torch.tools import autotune
+
+    def aligned():
+        return mxu.operand_aligned(a) and mxu.operand_aligned(b)
+
+    m, k = (a.shape[-1], a.shape[-2]) if ta else (a.shape[-2], a.shape[-1])
+    n = b.shape[-2] if tb else b.shape[-1]
+    dtype = dtype_name(a.dtype)
+    if a.ndim == 2 and b.ndim == 2:
+        hit = autotune.cached_winner(m, n, k, dtype=dtype,
+                                     layout=autotune.layout_of(ta, tb),
+                                     aligned=aligned, device=a.device)
+        return hit if hit is not None else (None, None)
+    bsz = a.shape[0] if a.ndim == 3 else b.shape[0]
+    route = autotune.cached_batch_block(bsz, m, n, k, dtype=dtype,
+                                        layout=autotune.layout_of(ta, tb),
+                                        aligned=aligned, device=a.device)
+    return None, route
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -363,7 +398,19 @@ def matmul(
         operands must carry identical leading dims, or one operand may be
         2-D (broadcast over the other's batch).
       semiring: registry name or :class:`Semiring`.
-      config: a :class:`GemmConfig`; defaults to :func:`default_config`.
+      config: a :class:`GemmConfig`.  Its blocks name the compiled tile of a
+        route (``config.GemmConfig.route``).  The tile engine's
+        (``config.ENGINE_TILES``; :func:`~gemm_hls_tpu_torch.config.route_config`
+        of an aligned bf16 / fp16 call) runs a plus_times call on the engine,
+        and raises where the engine cannot describe the call (operands that
+        are not whole 16-byte rows and bases, int8 not K-major).  The WMMA
+        tile (``default_config``'s, which internal callers pass) and the
+        CUDA-core tile keep the route rule by shape
+        (``ops/mxu.py::mxu_route``: the engine where its maps describe the
+        call).  None: a tuned winner for this shape bucket if one is cached
+        (``tools/autotune.py``: the user cache, then the packaged H100
+        seed; a plain plus_times call without an epilogue), its route named
+        to the kernel, else :func:`default_config` and the route rule.
       backend: "cuda" (default: kernel B1 / B2 / B3 by semiring), "vpu" (B3
         for every semiring) or "torch" (the plain versions).
       interpret: accepted for the reference's signature; there is no
@@ -424,10 +471,17 @@ def matmul(
         backend = "cuda"
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    # The compiled tile that will run: B3's for backend="vpu".
-    route = "simt" if backend == "vpu" else kernel_route(a.dtype, sr.name)
+    # The route a tuned winner or an engine-tile config names (None: the
+    # route rule by shape decides at the launch).
+    force = None
+    if (config is None and backend == "cuda" and sr.name == "plus_times"
+            and epilogue is None and a.dtype == b.dtype
+            and precision not in _I8X):
+        config, force = _cached_winner(a, b, bool(transpose_a),
+                                       bool(transpose_b))
     if config is None:
-        bm, bn, bk = KERNEL_TILES[route]
+        bm, bn, bk = KERNEL_TILES["simt" if backend == "vpu"
+                                  else kernel_route(a.dtype, sr.name)]
         config = default_config(a.dtype, semiring=sr.name, block_m=bm,
                                 block_n=bn, block_k=bk)
     overrides = {}
@@ -478,11 +532,15 @@ def matmul(
     if not sr.supports_dtype(a.dtype):
         raise ValueError(f"semiring {sr.name} does not support dtype {a.dtype}")
 
-    # Bool operands run on internal int8 / bit-packed configs.
+    # Bool operands run on internal int8 / bit-packed configs; the compiled
+    # tile that will run is B3's for backend="vpu", else the config's.
+    route = "simt" if backend == "vpu" else config.route()
     config.validate(
         strict_alignment=(backend != "torch" and a.is_cuda
                           and a.dtype != torch.bool),
         route=route)
+    if route == "wgmma":
+        force = "wgmma"
 
     if config.pad_policy == "strict":
         if (m_out % config.block_m or n_out % config.block_n
@@ -497,7 +555,8 @@ def matmul(
             raise ValueError("epilogue fusion requires the plus_times "
                              "semiring on the cuda backend")
         return _mxu_with_epilogue(a, b, config, epilogue,
-                                  tuple(epilogue_operands), epilogue_bwd)
+                                  tuple(epilogue_operands), epilogue_bwd,
+                                  force)
     if backend == "torch":
         return _torch_matmul(a, b, config, sr)
     if backend == "vpu":
@@ -511,7 +570,7 @@ def matmul(
                              "without transpose flags")
         return _i8x(a, b, int(config.precision[-1])).to(config.tout_dtype)
     if sr.is_mxu:
-        return _plus_times(a, b, config)
+        return _plus_times(a, b, config, force)
     if (sr.name in tropical_grad._SUPPORTED and not config.transpose_a
             and not config.transpose_b):
         # Differentiable additive-map path: argmin / argmax subgradients,

@@ -20,7 +20,8 @@ import torch
 
 from gemm_hls_tpu_torch import _build
 from gemm_hls_tpu_torch.config import (
-    ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, row_softmax_fusable,
+    ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, named_route,
+    row_softmax_fusable,
 )
 from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
 
@@ -80,6 +81,16 @@ def _vec_ok(x) -> int:
     vec = 16 // x.element_size()
     return int(x.data_ptr() % 16 == 0
                and all(s % vec == 0 for s in _strides(x)))
+
+
+def operand_aligned(x) -> bool:
+    """Whether ``x``, as a launch passes it (:func:`_row_major`), has the
+    16-byte base, row pitch and batch stride a TMA map describes; found
+    without the copy a launch makes of an operand that is not row-major
+    (a fresh copy is aligned where its rows are whole 16-byte units)."""
+    if x.stride(-1) == 1 and x.stride(-2) >= x.shape[-1]:
+        return bool(_vec_ok(x))
+    return x.shape[-1] * x.element_size() % 16 == 0
 
 
 def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str:
@@ -171,8 +182,12 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
 
 def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
-    """Launch B1 / B2 on CUDA operands: :func:`mxu_route`'s kernel, or
-    ``route`` where a comparison names one; returns (bsz, M, N)."""
+    """Launch B1 / B2 on CUDA operands: :func:`mxu_route`'s kernel (the row
+    softmax: :func:`row_softmax_route`'s), or ``route`` where a caller names
+    one; returns (bsz, M, N).  A call named to the tile engine that the
+    route rule does not give the engine (unaligned operands, int8 not
+    K-major, a row softmax past its bounds) raises: the engine's TMA maps
+    cannot describe it."""
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype != b.dtype:
@@ -215,9 +230,10 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         if route not in (None, "wgmma", old):
             raise ValueError(f"{what}: the row softmax of {dtype_name(a.dtype)} "
                              f"runs on 'wgmma' or {old!r}, not {route!r}")
-        route = route or row_softmax_route(a.dtype, out_dtype, n, k, aligned)
+        rule = row_softmax_route(a.dtype, out_dtype, n, k, aligned)
     else:
-        route = route or mxu_route(a.dtype, ta, tb, aligned)
+        rule = mxu_route(a.dtype, ta, tb, aligned)
+    route = named_route(route, rule, what)
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     ops, ep_dt = _ep_operands(eps, n, a.device)
     ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
@@ -245,14 +261,16 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
 
 
 def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
-               transpose_b=False, epilogue: Optional[Epilogue] = None):
+               transpose_b=False, epilogue: Optional[Epilogue] = None,
+               route: Optional[str] = None):
     """C (M, N) = epilogue(op(A) . op(B)) in ``cfg.out_dtype`` (kernel B1).
 
     a: (M, K), or (K, M) with ``transpose_a``; b: (K, N), or (N, K) with
     ``transpose_b``; ``ep_operands``: the epilogue's (N,) operands.  Shapes
     need not be tile-aligned: the kernel masks every edge itself.  The
-    kernel is :func:`mxu_route`'s, recorded as ``mxu_matmul.last_route``.  A
-    whole-row epilogue (the row softmax) cannot run on B1's tiles, which
+    kernel is :func:`mxu_route`'s, recorded as ``mxu_matmul.last_route``;
+    ``route`` names one (a tuned winner, a comparison).  A whole-row
+    epilogue (the row softmax) cannot run on B1's tiles, which
     split rows; it runs on B2's row-softmax variant with a batch of one.
     """
     m, n, k = _dims(a, b, transpose_a, transpose_b)
@@ -264,9 +282,9 @@ def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
         return mxu_matmul_batched(a[None], b, *ep_operands, cfg=cfg,
                                   transpose_a=transpose_a,
                                   transpose_b=transpose_b,
-                                  epilogue=epilogue)[0]
+                                  epilogue=epilogue, route=route)[0]
     out = _launch(a, b, ep_operands, 1, m, n, k, cfg, transpose_a,
-                  transpose_b, epilogue, "kernel B1")[0]
+                  transpose_b, epilogue, "kernel B1", route)[0]
     if epilogue is None:
         mxu_matmul.launches += 1
     else:

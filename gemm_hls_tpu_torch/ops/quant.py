@@ -7,8 +7,11 @@ K-group holds K-rows ``i`` (low nibble) and ``i + g/2`` (high nibble)).
 
 :func:`matmul_quantized` (weight-only, kernel B13) and :func:`matmul_w8a8`
 (int8 activations x int8 weights, kernels B14 / B15) resolve their blocks
-as the JAX front doors do when no autotune entry exists (the v5e autotune
-lookup is not ported).  ``block_k`` is semantic here, not a tile size:
+as the JAX front doors do when no autotune entry exists, whatever the
+autotune cache holds: a tuned winner (``tools/autotune.py``, families
+``dequant4`` / ``dequant8`` and ``w8a8``) names only the kernel's route and
+engine plan, which change no result.  ``block_k`` is semantic here, not a
+tile size:
 
 * W8A8 quantizes the activations per (row, K-block of ``block_k``) on the
   fused route (B14), so the output depends on it; group-wise weight
@@ -139,24 +142,22 @@ def matmul_quantized(x, w_q, scales, *, bits: int = 8,
         scale groups.
       out_dtype: the output's type (default: x's).
 
+    Without a config, a tuned ``dequant{bits}`` winner for this shape
+    bucket names B13's route and engine plan (the JAX package's entry names
+    its blocks, gemm_hls_tpu/ops/quant.py:124-130); a miss keeps
+    ``dequant_route`` and ``dequant_engine_plan``.
+
     Inference path (no gradient); see ``ops/dequant.py``.
     """
     from gemm_hls_tpu_torch.ops.dequant import dequant_matmul
 
     m, k = x.shape
     n = w_q.shape[1]
-    g = group_size or k
-    cfg = config if config is not None else dequant_config(m, n, k, x.dtype)
-    bk = min(cfg.block_k, k)
-    if g != k:
-        # Whole scale groups per K-block.
-        bk = max(g, (bk // g) * g)
-    cfg = cfg.replace(dtype=dtype_name(x.dtype), block_k=bk)
-    if out_dtype is not None:
-        cfg = cfg.replace(out_dtype=dtype_name(out_dtype))
+    cfg = dequant_resolve(m, n, k, x.dtype, group_size, out_dtype, config)
+    route, plan = _tuned(f"dequant{bits}", (m, n, k), x, group_size, config)
     return dequant_matmul(x, _on(w_q, x), _on(scales, x, torch.float32),
                           cfg=cfg, bits=bits, group_size=group_size,
-                          interpret=interpret)
+                          interpret=interpret, route=route, plan=plan)
 
 
 def matmul_w8a8(x, w_q, scales, *, group_size: Optional[int] = None,
@@ -166,13 +167,54 @@ def matmul_w8a8(x, w_q, scales, *, group_size: Optional[int] = None,
     quantized dynamically (per (row, K-block) on the fused route B14, per
     row on the two-pass route B15), the dot exact in int32, both scales on
     the fp32 accumulator.  Error ~1e-2.  Output float32 unless
-    ``out_dtype`` says otherwise.  Inference path."""
+    ``out_dtype`` says otherwise.  Without a config, a tuned ``w8a8``
+    winner for this shape bucket names the GEMM's route and engine N tile
+    (gemm_hls_tpu/ops/quant.py:180-191 names blocks, ``block_k`` among
+    them, which changes the result: the port's entry never does); a miss
+    keeps ``w8a8_route`` and ``w8a8_engine_plan``.  Inference path."""
     from gemm_hls_tpu_torch.ops.dequant import w8a8_matmul
 
-    cfg = w8a8_resolve(x.shape[0], w_q.shape[1], x.shape[1], group_size,
-                       out_dtype, config)
+    m, k = x.shape
+    n = w_q.shape[1]
+    cfg = w8a8_resolve(m, n, k, group_size, out_dtype, config)
+    route, plan = _tuned("w8a8", (m, n, k), x, group_size, config)
     return w8a8_matmul(x, _on(w_q, x), _on(scales, x, torch.float32),
-                       cfg=cfg, group_size=group_size, interpret=interpret)
+                       cfg=cfg, group_size=group_size, interpret=interpret,
+                       route=route, plan=plan)
+
+
+def _tuned(family: str, dims, x, group_size, config):
+    """(route, plan) of a cached winner for a front-door call without a
+    config, else (None, None): the route rule and the built-in plan."""
+    if config is not None:
+        return None, None
+    from gemm_hls_tpu_torch.tools.autotune import cached_family_entry
+
+    e = cached_family_entry(family, dims, dtype=dtype_name(x.dtype),
+                            tag=f"g{group_size}" if group_size else "chan",
+                            device=x.device, aligned=x.data_ptr() % 16 == 0)
+    if e is None:
+        return None, None
+    plan = e.get("plan")
+    return e.get("route"), tuple(plan) if isinstance(plan, list) else plan
+
+
+def dequant_resolve(m: int, n: int, k: int, x_dtype, group_size=None, out_dtype=None,
+                    config: Optional[GemmConfig] = None) -> GemmConfig:
+    """The config ``matmul_quantized`` hands to ``dequant_matmul``: the
+    given blocks or :func:`dequant_config`'s, ``block_k`` clamped to K and
+    aligned to whole scale groups (quant.py:140-145), x's type, the output
+    type where one is given."""
+    g = group_size or k
+    cfg = config if config is not None else dequant_config(m, n, k, x_dtype)
+    bk = min(cfg.block_k, k)
+    if g != k:
+        # Whole scale groups per K-block.
+        bk = max(g, (bk // g) * g)
+    cfg = cfg.replace(dtype=dtype_name(x_dtype), block_k=bk)
+    if out_dtype is not None:
+        cfg = cfg.replace(out_dtype=dtype_name(out_dtype))
+    return cfg
 
 
 def w8a8_resolve(m: int, n: int, k: int, group_size=None, out_dtype=None,

@@ -10,6 +10,7 @@ CUDA events on the launching stream time the device work directly.
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -29,7 +30,7 @@ def _consume(out) -> None:
 
 
 def time_fn(fn: Callable, args_sets: Sequence[Tuple], *, iters: int = 10,
-            warmup: int = 2, repeats: int = 3) -> float:
+            warmup: int = 2, repeats: int = 3, hold_stream: bool = False) -> float:
     """Seconds per call of ``fn(*args_sets[0])`` on the current CUDA stream:
     the median over ``repeats`` windows of ``iters`` back-to-back calls, each
     window bracketed by CUDA events, after ``warmup`` calls.
@@ -37,17 +38,34 @@ def time_fn(fn: Callable, args_sets: Sequence[Tuple], *, iters: int = 10,
     ``args_sets`` is a sequence of argument tuples, as the reference's
     ``time_fn`` takes it (``time_fn(f, [(a, b)])`` times ``f(a, b)``).  The
     first set is timed: CUDA events see every call's device work, so no
-    other set is needed against cached results."""
+    other set is needed against cached results.
+
+    ``hold_stream``: before each window a device-side spin
+    (``torch.cuda._sleep``), twice as long as one warm call took on the
+    host for each call of the window, holds the stream while the window's calls are
+    enqueued, so the start event fires with every call queued behind it and
+    the events time the calls' device work back to back.  Without it, a
+    call whose host cost exceeds its kernel (tens of microseconds of
+    Python and ctypes) is timed at the host's enqueue rate."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_fn measures CUDA device time; no CUDA device")
     args = tuple(args_sets[0])
     for _ in range(max(0, warmup)):
         _consume(fn(*args))
     torch.cuda.synchronize()
+    if hold_stream:  # one warm call's host time
+        t0 = time.perf_counter()
+        _consume(fn(*args))
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
     times = []
     for _ in range(max(1, repeats)):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if hold_stream:
+            # Cycles at a 2 GHz upper bound of the SM clock (a slower clock
+            # only spins longer), at most about half a second.
+            torch.cuda._sleep(min(int(2e9 * 2 * host_s * iters) + 1_000_000, 10**9))
         start.record()
         for _ in range(iters):
             _consume(fn(*args))

@@ -32,8 +32,9 @@ NOT_PORTED = {
     },
 }
 
-# The modules of the staged GEMM, the analytical model and the tools; each
-# must import on a machine without jax.
+# The modules of the staged GEMM, the analytical model and the tools (the
+# tuning tools of slice 17 among them); each must import on a machine
+# without jax.
 JAX_FREE_MODULES = (
     "gemm_hls_tpu_torch.__main__",
     "gemm_hls_tpu_torch.utils.tileio",
@@ -45,6 +46,10 @@ JAX_FREE_MODULES = (
     "gemm_hls_tpu_torch.tools.tile_optimizer",
     "gemm_hls_tpu_torch.tools.profile",
     "gemm_hls_tpu_torch.tools.selftest",
+    "gemm_hls_tpu_torch.tools.autotune",
+    "gemm_hls_tpu_torch.tools.sweep",
+    "gemm_hls_tpu_torch.tools.calibrate",
+    "gemm_hls_tpu_torch.tools.cache",
 )
 
 

@@ -1084,3 +1084,57 @@ def test_staged_ozaki_on_the_card(cuda):
     normw = np.abs(got - a @ b) / (np.linalg.norm(a, axis=1)[:, None]
                                    * np.linalg.norm(b, axis=0)[None, :])
     assert normw.max() < 1e-13
+
+
+# ---- slice 17: the front door's engine config, named routes, the tuner -----
+
+@pytest.fixture(autouse=True)
+def _no_autotune_cache(monkeypatch, tmp_path):
+    """Every card test here holds the route rule: no user cache and no
+    packaged seed (the tuner's own tests name their caches)."""
+    from gemm_hls_tpu_torch.tools import autotune
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", str(tmp_path / "absent.json"))
+    monkeypatch.setattr(autotune, "SEED_CACHE", str(tmp_path / "absent.json"))
+
+
+def test_engine_config_runs_on_the_engine(cuda):
+    from gemm_hls_tpu_torch.config import route_config
+    a, b = (torch.randn(1024, 1024, device=cuda).bfloat16() for _ in range(2))
+    got = matmul(a, b, config=route_config("bfloat16"))
+    assert mxu.mxu_matmul.last_route == "wgmma"
+    ref = torch.matmul(a, b)
+    assert float((got.float() - ref.float()).norm() / ref.float().norm()) <= 1e-3
+    pitched = torch.randn(1024, 1025, device=cuda).bfloat16()[:, :1024]
+    with pytest.raises(ValueError, match="cannot run"):
+        matmul(pitched, b, config=route_config("bfloat16"))
+    # The WMMA tile keeps the route rule: the engine for aligned operands,
+    # WMMA for the pitched ones.
+    matmul(a, b, config=default_config("bfloat16"))
+    assert mxu.mxu_matmul.last_route == "wgmma"
+    matmul(pitched, b, config=default_config("bfloat16"))
+    assert mxu.mxu_matmul.last_route == "wmma"
+
+
+def test_named_engine_route_raises_where_the_rule_refuses(cuda):
+    from gemm_hls_tpu_torch.ops import flash
+    q = torch.randn(2, 128, 80, device=cuda).bfloat16()  # no engine at D 80
+    with pytest.raises(ValueError, match="cannot run"):
+        flash.flash_mha(q, q, q, route="wgmma")
+    a8 = torch.randint(-3, 4, (256, 256), device=cuda, dtype=torch.int8)
+    cfg = default_config("int8", out_dtype="int32")
+    with pytest.raises(ValueError, match="cannot run"):
+        mxu.mxu_matmul(a8, a8, cfg=cfg, route="wgmma")  # int8 B not K-major
+
+
+def test_tuned_batched_route_is_adopted(cuda, tmp_path, monkeypatch):
+    from gemm_hls_tpu_torch.tools import autotune
+    cache = str(tmp_path / "tuned.json")
+    win = autotune.autotune_batched(8, 256, 256, 256, cache_path=cache, rounds=2)
+    report = autotune.autotune_batched.last_report
+    assert {r["entry"]["route"] for r in report} == {"wgmma", "wmma"}
+    assert all(r["status"] == "ok" and len(r["samples_ms"]) == 2 for r in report)
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", cache)
+    a, b = (torch.randn(8, 256, 256, device=cuda).bfloat16() for _ in range(2))
+    got = matmul(a, b)
+    assert mxu.mxu_matmul_batched.last_route == win
+    assert torch.allclose(got.float(), torch.matmul(a, b).float(), rtol=1e-2, atol=1e-1)

@@ -212,7 +212,10 @@ def test_package_main_lists_its_clis():
     assert "CLIs:" in proc.stdout and "chip model: cpu" in proc.stdout
     mods = [ln.split()[2] for ln in proc.stdout.splitlines()
             if ln.strip().startswith("python -m")]
-    assert "gemm_hls_tpu_torch.tools.oversize" in mods and len(mods) == 10
+    assert "gemm_hls_tpu_torch.tools.oversize" in mods and len(mods) == 13
+    # The reference's index lists its tuning CLIs (gemm_hls_tpu/__main__.py:22-27).
+    for mod in ("sweep", "autotune", "calibrate"):
+        assert f"gemm_hls_tpu_torch.tools.{mod}" in mods
     for mod in mods:
         assert importlib.util.find_spec(mod) is not None, mod
 
