@@ -127,7 +127,8 @@ Phases, each printed as it ends:
      B16 routes, the route checked each, and 20 launches of one engine case
      of each with the same bits;
  17. slice 5's main path, launch counts set to 0 before it and read after:
-     the serving decoder block (examples/15_serving_decoder.py) at
+     the serving decoder block (examples/15_serving_decoder.py, the port's
+     module gemm_hls_tpu_torch/models/serving.py) at
      experiments/serving_bench.py's width, every port call under
      ``torch.cuda.set_sync_debug_mode("error")``: prefill B 4 x S 1024
      (W8A8 projections, causal GQA flash, the MoE on B16) against the plain
@@ -229,6 +230,18 @@ Phases, each printed as it ends:
      loaded by a fresh process that cannot run nvcc; (e) with only the
      packaged seed, bf16 8192^3 ``matmul(a, b)`` takes the seed's route.
      (b) and (d) run beside (a), (c) and (e).
+ 27. slice 18: (a) every port example (examples/torch/, EXAMPLE_KERNELS)
+     run in this process with ``--device cuda``, the launch counts set to 0
+     before each, each required to launch its kernels; its seconds and
+     printed lines shown; (b) the bias_gelu epilogue against its plain
+     version on every B1 route and on B2's engine and WMMA
+     (BIAS_GELU_ROUTE_CASES, BIAS_GELU_B2_CASES, the routes checked), and 20
+     engine launches with the same bits; (c) the engine flash kernels
+     (forward, dq, dk / dv) timed in turns in a fresh process at
+     ATTN_MODEL_CASES' 50 shapes (phase 15's among them), each beside
+     ``models/attn_model.py``'s prediction and the ratio, then the model
+     refitted to this run's readings and its constants printed in
+     ENGINE_CONSTANTS' form.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -281,7 +294,7 @@ F32_RTOL = 1e-4
 BF16_RTOL = 1e-2
 LAYOUTS = [(False, False), (True, False), (False, True), (True, True)]
 EPILOGUES = ["bias", "bias_relu", "bias_sigmoid", "bias_tanh", "col_scale",
-             "scale_bias"]
+             "scale_bias", "bias_gelu"]
 
 
 def log(msg: str) -> None:
@@ -369,15 +382,15 @@ B1_ROUTE_CASES = (
 )
 # Each epilogue on the engine route: bf16 (bf16 operands) and fp16 (fp16
 # operands) outputs, int8 inputs to fp32 (every kind) and to int32 (the
-# exact kinds: sigmoid / tanh would flip a truncated int on a one-ulp
-# difference next to 1).
+# exact kinds: sigmoid / tanh / gelu would flip a truncated int on a one-ulp
+# difference next to an integer).
 B1_EPILOGUE_ROUTE_CASES = (
     [("bfloat16", "bfloat16", False, False, 1000, 1030, 1100, True, ep, "wgmma")
      for ep in EPILOGUES]
     + [("float16", "float16", True, True, 304, 520, 264, False, ep, "wgmma") for ep in EPILOGUES]
     + [("int8", "float32", False, True, 300, 520, 272, False, ep, "wgmma") for ep in EPILOGUES]
     + [("int8", "int32", False, True, 300, 520, 272, False, ep, "wgmma")
-       for ep in EPILOGUES if ep not in ("bias_sigmoid", "bias_tanh")]
+       for ep in EPILOGUES if ep not in ("bias_sigmoid", "bias_tanh", "bias_gelu")]
 )
 # The race check of the engine route: B1_REPEAT_CASE launched B1_REPEATS
 # times, the same bits each.
@@ -913,13 +926,13 @@ def phase_b2(torch):
                             f"ta={ta} tb={tb} {(m, n, k)}", scaled=True)
                     n_cases += 1
     # Integer inputs: the exact int32 accumulator widened to fp32 for the
-    # epilogue.  An int32 output of sigmoid / tanh would flip on a one-ulp
-    # difference next to 1, so it takes the exact epilogues only.
+    # epilogue.  An int32 output of sigmoid / tanh / gelu would flip on a one-ulp
+    # difference next to an integer, so it takes the exact epilogues only.
     m, n, k = 1000, 1030, 1100
     for dt, out in ((torch.int8, torch.int32), (torch.int8, f32), (torch.int32, f32)):
         for ta, tb in LAYOUTS:
             for name in EPILOGUES:
-                if out == torch.int32 and name in ("bias_sigmoid", "bias_tanh"):
+                if out == torch.int32 and name in ("bias_sigmoid", "bias_tanh", "bias_gelu"):
                     continue
                 ep = get_epilogue(name)
                 a, b = (torch.randint(-3, 4, shape, generator=gen, device="cuda").to(dt)
@@ -3598,180 +3611,14 @@ def phase_quant_kernels(torch):
         f"{GROUPED_REPEATS} launches of {GROUPED_REPEAT_CASE[:6]} on the engine: same bits")
 
 
-# The serving decoder block of examples/15_serving_decoder.py at
+# The serving decoder block of examples/15_serving_decoder.py
+# (gemm_hls_tpu_torch/models/serving.py) at
 # experiments/serving_bench.py:28-31's width: d_model 2048, GQA 16 / 4
 # heads of 128, MoE 8 experts top-2 with d_ff 4096, bf16; prefill B 4 x S
 # 1024; decode 64 sequences over a 4096-slot padded cache, 8 steps.
 SERVING = dict(batch=4, seq=1024, d_model=2048, h_q=16, h_kv=4, d_head=128,
                d_ff=4096, experts=8, top_k=2, dec_batch=64, slots=4096,
                steps=8, group=128)
-
-
-def _w8a8_proj(a, wq, sc, out_dtype, fuse_quant):
-    """A prefill projection: ``matmul_w8a8`` (its fused route, B14, where
-    the JAX rule allows), or the same resolution through the two-pass
-    route (B15)."""
-    from gemm_hls_tpu_torch import matmul_w8a8
-    from gemm_hls_tpu_torch.ops import dequant, quant
-    if fuse_quant:
-        return matmul_w8a8(a, wq, sc, out_dtype=out_dtype)
-    cfg = quant.w8a8_resolve(a.shape[0], wq.shape[1], a.shape[1], None, out_dtype)
-    return dequant.w8a8_matmul(a, wq, sc, cfg=cfg, fuse_quant=False)
-
-
-def serving_prefill(x, quant, moe, moe_cfg, *, h_q, h_kv, d_head,
-                    fuse_quant=True):
-    """Prefill (examples/15_serving_decoder.py::block_prefill): W8A8
-    projections over the B S rows, causal GQA flash attention on the 4-D
-    (B, S, H, D) layout read in place, the residual, the MoE FFN.  Every
-    intermediate is in x's type.  Returns (block output, attention
-    sublayer output y, k, v), k and v (B, S, H_kv, D)."""
-    from gemm_hls_tpu_torch import flash_attention
-    from gemm_hls_tpu_torch.models.moe import moe_forward
-    b, s, d = x.shape
-    flat = x.reshape(b * s, d)
-    proj = {name: _w8a8_proj(flat, *quant[name], x.dtype, fuse_quant)
-            for name in ("wq", "wk", "wv")}
-    q = proj["wq"].reshape(b, s, h_q, d_head)
-    k = proj["wk"].reshape(b, s, h_kv, d_head)
-    v = proj["wv"].reshape(b, s, h_kv, d_head)
-    att = flash_attention(q, k, v, causal=True, block_q=32, block_kv=32)
-    out = _w8a8_proj(att.reshape(b * s, -1), *quant["wo"], x.dtype, fuse_quant)
-    y = x + out.reshape(b, s, d)
-    ffn = moe_forward(moe, y.reshape(b * s, d), moe_cfg)
-    return y + ffn.reshape(b, s, d), y, k, v
-
-
-def serving_decode(x_tok, cache_k, cache_v, lengths, quant4, moe, moe_cfg, *,
-                   h_q, h_kv, d_head, group_size):
-    """One-token decode (examples/15_serving_decoder.py::block_decode):
-    int4 projections (B13) over the B rows, the new K / V written at each
-    sequence's logical end in place (``index_put_`` on the (B, S_max,
-    H_kv, D) caches: the JAX example's functional ``.at[].set`` copies),
-    padded-cache flash attention with per-sequence lengths, the MoE FFN.
-    Returns (output, cache_k, cache_v, lengths + 1)."""
-    import torch
-
-    from gemm_hls_tpu_torch import flash_attention, matmul_quantized
-    from gemm_hls_tpu_torch.models.moe import moe_forward
-    b = x_tok.shape[0]
-
-    def mq(a, name):
-        return matmul_quantized(a, *quant4[name], bits=4, group_size=group_size)
-
-    q = mq(x_tok, "wq").reshape(b, 1, h_q, d_head)
-    k_new = mq(x_tok, "wk").reshape(b, 1, h_kv, d_head)
-    v_new = mq(x_tok, "wv").reshape(b, 1, h_kv, d_head)
-    at = (torch.arange(b, device=x_tok.device), lengths.long())
-    cache_k.index_put_(at, k_new[:, 0])
-    cache_v.index_put_(at, v_new[:, 0])
-    lengths = lengths + 1
-    att = flash_attention(q, cache_k, cache_v, causal=True, kv_lengths=lengths,
-                          block_q=32, block_kv=32)
-    y = x_tok + mq(att.reshape(b, h_q * d_head), "wo")
-    return y + moe_forward(moe, y, moe_cfg), cache_k, cache_v, lengths
-
-
-def moe_plain(torch, params, x, cfg):
-    """The MoE FFN as a plain per-expert loop: each expert's routed tokens
-    gathered (their count read on the host), two torch.matmul, the tanh
-    GELU, the mix; torch.topk routing."""
-    from gemm_hls_tpu_torch.models.moe import gelu_tanh
-    logits = x.float() @ params["router"]
-    top, ids = torch.topk(logits, cfg.top_k, dim=-1)
-    mix = torch.softmax(top, dim=-1)
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):
-        tok, slot = torch.nonzero(ids == e, as_tuple=True)
-        if tok.numel():
-            h = gelu_tanh(x[tok] @ params["w1"][e]).to(params["w2"].dtype)
-            y.index_add_(0, tok, (h @ params["w2"][e]).float() * mix[tok, slot, None])
-    return y.to(x.dtype)
-
-
-def attention_plain(torch, q, k, v, causal, lens=None):
-    """GQA attention on (B, S, H, D) by scaled_dot_product_attention (kv
-    heads repeated); ``lens`` masks the cache slots at or past each
-    sequence's length (the query at the cache end)."""
-    import torch.nn.functional as F
-    rep = q.shape[2] // k.shape[2]
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    kh, vh = kh.repeat_interleave(rep, 1), vh.repeat_interleave(rep, 1)
-    mask = None
-    if lens is not None:
-        mask = (torch.arange(k.shape[1], device=k.device)[None, :]
-                < lens[:, None])[:, None, None, :]
-    o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                       is_causal=causal and lens is None)
-    return o.transpose(1, 2)
-
-
-def serving_prefill_plain(torch, x, dense, moe, moe_cfg, *, h_q, h_kv, d_head):
-    """The same prefill block in plain PyTorch with the un-quantized
-    weights: bf16 torch.matmul, SDPA, the per-expert loop.  Returns
-    (block output, attention sublayer output)."""
-    b, s, d = x.shape
-    flat = x.reshape(b * s, d)
-    q, k, v = (flat @ dense[n] for n in ("wq", "wk", "wv"))
-    att = attention_plain(torch, q.reshape(b, s, h_q, d_head),
-                          k.reshape(b, s, h_kv, d_head),
-                          v.reshape(b, s, h_kv, d_head), True)
-    y = x + (att.reshape(b * s, -1) @ dense["wo"]).reshape(b, s, d)
-    return y + moe_plain(torch, moe, y.reshape(b * s, d), moe_cfg).reshape(b, s, d), y
-
-
-def serving_decode_plain(torch, x_tok, cache_k, cache_v, lengths, dense4, moe,
-                         moe_cfg, *, h_q, h_kv, d_head):
-    """The decode step in plain PyTorch with the int4 weights dequantized
-    as the kernel expands them (``dense4``: bf16(q s)): bf16 torch.matmul,
-    the new token written in place, SDPA over each sequence's live slots
-    (the caller's cache holds zeros past the lengths), the per-expert loop.
-    Returns (output, lengths + 1)."""
-    b = x_tok.shape[0]
-    q = (x_tok @ dense4["wq"]).reshape(b, 1, h_q, d_head)
-    at = (torch.arange(b, device=x_tok.device), lengths.long())
-    cache_k.index_put_(at, (x_tok @ dense4["wk"]).reshape(b, h_kv, d_head))
-    cache_v.index_put_(at, (x_tok @ dense4["wv"]).reshape(b, h_kv, d_head))
-    lengths = lengths + 1
-    att = attention_plain(torch, q, cache_k, cache_v, True, lengths)
-    y = x_tok + att.reshape(b, h_q * d_head) @ dense4["wo"]
-    return y + moe_plain(torch, moe, y, moe_cfg), lengths
-
-
-def serving_setup(torch, seed=5):
-    """The block's weights at SERVING's width, seeded as
-    experiments/serving_bench.py draws them: dense f32 (K, N) projections,
-    int8 per-channel (prefill) and int4 g128 (decode) copies on the card,
-    bf16 copies of the dense and the dequantized int4 weights, and bf16
-    MoE parameters from a torch.Generator."""
-    import numpy as np
-
-    from gemm_hls_tpu_torch import quantize_weights
-    from gemm_hls_tpu_torch.models.moe import MoEConfig, init_moe_params
-    from gemm_hls_tpu_torch.ops.dequant import dequant_matmul_plain
-    c = SERVING
-    rng = np.random.default_rng(seed)
-    d, hd = c["d_model"], c["d_head"]
-    shapes = {"wq": (d, c["h_q"] * hd), "wk": (d, c["h_kv"] * hd),
-              "wv": (d, c["h_kv"] * hd), "wo": (c["h_q"] * hd, d)}
-    dense = {n: (rng.standard_normal(sh) / np.sqrt(sh[0])).astype(np.float32)
-             for n, sh in shapes.items()}
-
-    def cuda(pair):
-        return tuple(torch.from_numpy(a).cuda() for a in pair)
-
-    q8 = {n: cuda(quantize_weights(w, bits=8)) for n, w in dense.items()}
-    q4 = {n: cuda(quantize_weights(w, bits=4, group_size=c["group"]))
-          for n, w in dense.items()}
-    eye = {n: torch.eye(sh[0], device="cuda", dtype=torch.bfloat16)
-           for n, sh in shapes.items()}
-    dense4 = {n: dequant_matmul_plain(eye[n], *q4[n], bits=4, group_size=c["group"])
-              for n in shapes}
-    dense = {n: torch.from_numpy(w).cuda().to(torch.bfloat16) for n, w in dense.items()}
-    cfg = MoEConfig(d_model=d, d_ff=c["d_ff"], num_experts=c["experts"],
-                    top_k=c["top_k"], dtype="bfloat16")
-    moe = init_moe_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    return dense, q8, q4, dense4, moe, cfg
 
 
 def token_errors(torch, got, want):
@@ -3797,22 +3644,23 @@ def phase_slice5(torch):
     bf16 intermediates in other places) and under 5% of tokens above 2e-2 (bf16 rounding can flip a
     near-tie routing), every output finite, with the cache slots past each
     length NaN (K) / +inf (V) in the port's cache."""
+    from gemm_hls_tpu_torch.models import serving
     from gemm_hls_tpu_torch.ops import dequant, flash, gmm
     c = SERVING
     dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
-    dense, q8, q4, dense4, moe, cfg = serving_setup(torch)
+    dense, q8, q4, dense4, moe, cfg = serving.serving_setup(SERVING)
     gen = torch.Generator(device="cuda").manual_seed(171)
     x = (torch.randn((c["batch"], c["seq"], c["d_model"]), generator=gen,
                      device="cuda") * 0.5).to(torch.bfloat16)
     reset_quant_counters()
     reset_flash_counters()
     res = {}
-    want, want_attn = serving_prefill_plain(torch, x, dense, moe, cfg, **dims)
+    want, want_attn = serving.prefill_plain(x, dense, moe, cfg, **dims)
     for route, fuse in (("B14", True), ("B15", False)):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            y, y_attn, _, _ = serving_prefill(x, q8, moe, cfg, fuse_quant=fuse, **dims)
+            y, y_attn, _, _ = serving.block_prefill(x, q8, moe, cfg, fuse_quant=fuse, **dims)
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -3847,12 +3695,12 @@ def phase_slice5(torch):
                          device="cuda") * 0.5).to(torch.bfloat16)
     worst_med, worst_flip = 0.0, 0.0
     for step in range(c["steps"]):
-        want, rlens = serving_decode_plain(torch, x_tok, rk, rv, rlens, dense4, moe,
+        want, rlens = serving.decode_plain(x_tok, rk, rv, rlens, dense4, moe,
                                            cfg, **dims)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            y, kc, vc, lens = serving_decode(x_tok, kc, vc, lens, q4, moe, cfg,
+            y, kc, vc, lens = serving.block_decode(x_tok, kc, vc, lens, q4, moe, cfg,
                                              group_size=c["group"], **dims)
             torch.cuda.synchronize()
         finally:
@@ -4107,6 +3955,7 @@ def phase_times5(torch):
 
     from gemm_hls_tpu_torch.models.perf_model import (H100, dequant_bound, flash_bound,
                                                       grouped_bound, w8a8_bound)
+    from gemm_hls_tpu_torch.models import serving
     from gemm_hls_tpu_torch.ops import gmm
     from gemm_hls_tpu_torch.utils.benchmark import time_fn
 
@@ -4184,13 +4033,13 @@ def phase_times5(torch):
     # The serving block end to end (host clock around synchronised work is
     # the same as CUDA events here: each timed window ends in a sync).
     dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
-    dense, q8, q4, dense4, moe, cfg = serving_setup(torch)
+    dense, q8, q4, dense4, moe, cfg = serving.serving_setup(SERVING)
     x = (torch.randn((c["batch"], c["seq"], d), generator=gen, device="cuda")
          * 0.5).to(bf16)
-    out["prefill ms"] = time_fn(lambda: serving_prefill(x, q8, moe, cfg, **dims)[0],
+    out["prefill ms"] = time_fn(lambda: serving.block_prefill(x, q8, moe, cfg, **dims)[0],
                                 [()], iters=5) * 1e3
     out["prefill plain ms"] = time_fn(
-        lambda: serving_prefill_plain(torch, x, dense, moe, cfg, **dims)[0], [()],
+        lambda: serving.prefill_plain(x, dense, moe, cfg, **dims)[0], [()],
         iters=5) * 1e3
     n_tok = c["batch"] * c["seq"]
     hd = c["h_q"] * c["d_head"]
@@ -4214,10 +4063,10 @@ def phase_times5(torch):
     rk, rv = (torch.where(live[..., None, None], t, 0) for t in (kc, vc))
     xt = (torch.randn((c["dec_batch"], d), generator=gen, device="cuda") * 0.5).to(bf16)
     out["decode us"] = time_fn(
-        lambda: serving_decode(xt, kc, vc, lens, q4, moe, cfg, group_size=c["group"],
+        lambda: serving.block_decode(xt, kc, vc, lens, q4, moe, cfg, group_size=c["group"],
                                **dims)[0], [()], iters=20) * 1e6
     out["decode plain us"] = time_fn(
-        lambda: serving_decode_plain(torch, xt, rk, rv, lens, dense4, moe, cfg,
+        lambda: serving.decode_plain(xt, rk, rv, lens, dense4, moe, cfg,
                                      **dims)[0], [()], iters=20) * 1e6
     mean_len = float(lens.float().mean())
     kvh = c["h_kv"] * c["d_head"]
@@ -4242,9 +4091,9 @@ def phase_times5(torch):
     x = (torch.randn((c["batch"], c["seq"], d), generator=gen, device="cuda")
          * 0.5).to(bf16)
     for key, fn, iters in (
-            ("decode step", lambda: serving_decode(xt, kc, vc, lens, q4, moe, cfg,
+            ("decode step", lambda: serving.block_decode(xt, kc, vc, lens, q4, moe, cfg,
                                                    group_size=c["group"], **dims), 10),
-            ("prefill", lambda: serving_prefill(x, q8, moe, cfg, **dims), 3)):
+            ("prefill", lambda: serving.block_prefill(x, q8, moe, cfg, **dims), 3)):
         busy, kernels = device_profile(torch, fn, iters)
         out[f"{key} busy"] = busy
         if key == "decode step" and (not any("dequant_wg_kernel" in name for name, _ in kernels)
@@ -4448,11 +4297,12 @@ def train_setup(torch, cfg, tokens, seed):
 
 
 def moe_plain_loss(torch, params, batch, cfg, aux_weight=0.0):
-    """The MoE loss in plain PyTorch: ``moe_plain`` (per-expert loop,
-    torch.topk routing) and, with ``aux_weight``, the Switch aux loss from
-    its own softmax and routing counts."""
+    """The MoE loss in plain PyTorch: ``models/serving.py::moe_plain``
+    (per-expert loop, torch.topk routing) and, with ``aux_weight``, the
+    Switch aux loss from its own softmax and routing counts."""
+    from gemm_hls_tpu_torch.models import serving
     x, y = batch
-    loss = torch.mean((moe_plain(torch, params, x, cfg).float() - y.float()) ** 2)
+    loss = torch.mean((serving.moe_plain(params, x, cfg).float() - y.float()) ** 2)
     if aux_weight:
         logits = x.float() @ params["router"]
         ids = torch.topk(logits, cfg.top_k, dim=-1)[1]
@@ -5671,6 +5521,242 @@ def phase_slice17(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 18: the port's examples on the card, the bias_gelu epilogue, and the
+# flash-attention model (models/attn_model.py) against the engine kernels
+# ---------------------------------------------------------------------------
+
+# Phase 27c's shapes: (key, batch, S, H_q, H_kv, D, causal).  H_q None: a
+# 3-D (batch, S, D) call, batch the heads; else the 4-D (batch, S, H, D)
+# layout read in place (GQA).  Phase 15's shapes (the anchors) and, around
+# them, 1-67 heads of 1024 rows (one to five rounds of the 132 SMs), S
+# 256-16384 at a constant token count, D 64, GQA; full and causal each.
+ATTN_MODEL_CASES = tuple(
+    [(f"{m} {b}x1024", b, 1024, None, None, 128, m == "causal")
+     for b in (4, 8, 16, 17, 24, 32, 33, 48, 64, 66, 67) for m in ("full", "causal")]
+    + [(f"{m} {b}x{s}", b, s, None, None, 128, m == "causal")
+       for b, s in ((128, 256), (64, 512), (16, 2048), (8, 4096), (4, 8192), (8, 8192),
+                    (2, 8192), (1, 16384)) for m in ("full", "causal")]
+    + [(f"{m} {b}x{s} D64", b, s, None, None, 64, m == "causal")
+       for b, s in ((32, 1024), (64, 1024), (8, 8192), (16, 512)) for m in ("full", "causal")]
+    + [(f"{m} GQA {b}x{s} H{hq}/{hkv}", b, s, hq, hkv, 128, m == "causal")
+       for b, s, hq, hkv in ((4, 1024, 16, 4), (8, 2048, 32, 8)) for m in ("full", "causal")])
+
+
+def attn_model_times(torch, cases, rounds=3, iters=10):
+    """{key: {"fwd" | "dq" | "dkv": device ms a call}} of the engine flash
+    kernels (``csrc/flash_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``) at
+    ``cases``' shapes (``ATTN_MODEL_CASES``' form), bf16, the three kernels
+    of a shape timed in turns (``time_turns``); every launch's route checked
+    (the engine)."""
+    from gemm_hls_tpu_torch.ops import flash
+    gen = torch.Generator(device="cuda").manual_seed(271)
+    bf16 = torch.bfloat16
+    out = {}
+    for key, batch, s, hq, hkv, d, causal in cases:
+        def rand(shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=bf16)
+        if hq is None:
+            q, k, v, do = (rand((batch, s, d)) for _ in range(4))
+        else:
+            q, do = rand((batch, s, hq, d)), rand((batch, s, hq, d))
+            k, v = rand((batch, s, hkv, d)), rand((batch, s, hkv, d))
+        sc = d ** -0.5
+        o, lse = flash._forward(q, k, v, None, None, None, None, causal, None, None, sc, 512)
+        delta = flash._pack((do.float() * o.float()).sum(-1, keepdim=True))[..., 0]
+        bargs = (q, k, v, do, lse, delta, None, None, None, causal, None, None, sc, 512)
+        fns = {"fwd": lambda: flash._forward(q, k, v, None, None, None, None, causal, None,
+                                             None, sc, 512)[0],
+               "dq": lambda: flash._backward(*bargs, which="dq"),
+               "dkv": lambda: flash._backward(*bargs, which="dkv")}
+        out[key] = time_turns(torch, fns, rounds=rounds, iters=iters)
+        routes = (flash.flash_mha.last_route, flash.flash_mha_bwd_dq.last_route,
+                  flash.flash_mha_bwd_dkv.last_route)
+        if set(routes) != {"wgmma"}:
+            raise AssertionError(f"attention model shape {key}: routes {routes}")
+        del q, k, v, do, o, lse, delta, bargs
+    return out
+
+
+# Phase 27c's model fit and ratios: the anchors (PERF.md section 6, phase
+# 15's shapes), full-mask and causal; the GQA prefill is held out (the
+# model's signature has no kv-head count).
+ATTN_ANCHORS_FULL = ("full 32x1024", "full 32x1024 D64")
+ATTN_ANCHORS_CAUSAL = ("causal 32x1024", "causal 8x8192")
+ATTN_HELD_OUT = ("causal GQA 4x1024 H16/4",)
+
+# Phase 27a: the kernels each port example (examples/torch/) must launch on
+# the card, as every_counter() names them ("B14|B15": either).  02's custom
+# semiring step runs the plain path on purpose (backend="torch"); its
+# built-in semirings run B3.
+EXAMPLE_KERNELS = {
+    "01_basic_gemm.py": ("B1",),
+    "02_semirings.py": ("B3",),
+    "03_graph_algorithms.py": ("B3",),
+    "05_f64_on_bf16.py": ("B1", "B5"),
+    "07_differentiable_semirings.py": ("B3",),
+    "08_fused_distributed_kernels.py": ("B18", "B19"),
+    "09_fp32_frontier.py": ("B1", "B4"),
+    "10_transformer_block.py": ("B1 epilogue", "B2"),
+    "11_attention_scores.py": ("B2", "B2 row-softmax"),
+    "12_flash_attention.py": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "B2"),
+    "13_quantized_inference.py": ("B13", "B14|B15"),
+    "14_moe.py": ("B16", "B17"),
+    "15_serving_decoder.py": ("B13", "B14|B15", "B16", "flash_fwd"),
+}
+
+# Phase 27b: the bias_gelu epilogue on each of B1's routes (B1_ROUTE_CASES'
+# form): the engine (bf16 through pitched views, K-major int8), WMMA (rows
+# that are not whole 16-byte units, int8 in another layout), the CUDA cores
+# (fp32); and on B2's engine (each case again on WMMA through the route
+# override).
+BIAS_GELU_ROUTE_CASES = (
+    ("bfloat16", "bfloat16", False, False, 1000, 1030, 1100, True, "bias_gelu", "wgmma"),
+    ("float16", "float32", True, True, 304, 520, 264, False, "bias_gelu", "wgmma"),
+    ("int8", "float32", False, True, 300, 520, 272, False, "bias_gelu", "wgmma"),
+    ("bfloat16", "float32", False, False, 65, 140, 131, False, "bias_gelu", "wmma"),
+    ("int8", "float32", False, False, 300, 520, 272, False, "bias_gelu", "wmma"),
+    ("float32", "float32", False, False, 65, 140, 131, False, "bias_gelu", "simt"),
+)
+BIAS_GELU_B2_CASES = (
+    ("bfloat16", "bfloat16", False, True, 5, 300, 1030, 200, True, None, "bias_gelu", "wgmma"),
+    ("bfloat16", "float32", True, False, 5, 130, 264, 200, True, "b", "bias_gelu", "wgmma"),
+)
+BIAS_GELU_REPEATS = 20
+
+
+def phase_examples(torch):
+    """Phase 27a: every port example (examples/torch/) run in this process
+    with ``--device cuda``, every launch count set to 0 before each; each
+    must launch the kernels EXAMPLE_KERNELS names.  Returns {example:
+    (seconds, launches)}."""
+    import contextlib
+    import importlib.util
+    import io
+    paths = sorted((REPO / "examples" / "torch").glob("[0-9]*.py"))
+    if {p.name for p in paths} != set(EXAMPLE_KERNELS):
+        raise AssertionError(f"examples/torch/ holds {[p.name for p in paths]}, the table "
+                             f"{sorted(EXAMPLE_KERNELS)}")
+    out = {}
+    for path in paths:
+        spec = importlib.util.spec_from_file_location(f"port_example_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_every_counter()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launched()
+        missing = [k for k in EXAMPLE_KERNELS[path.name]
+                   if not any(got.get(name) for name in k.split("|"))]
+        log(f"phase 27a: {path.name} in {secs:.2f} s, launches {got}"
+            + "".join(f"\n  | {line}" for line in printed.getvalue().splitlines()))
+        if missing:
+            raise AssertionError(f"{path.name} launched none of {missing} on the card")
+        out[path.name] = (secs, got)
+    return out
+
+
+def phase_bias_gelu(torch):
+    """Phase 27b: the bias_gelu epilogue against its plain version on every
+    B1 route and on B2's (BIAS_GELU_ROUTE_CASES, BIAS_GELU_B2_CASES, the
+    routes checked), and BIAS_GELU_REPEATS launches of the engine case with
+    the same bits."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import mxu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    gen = torch.Generator(device="cuda").manual_seed(272)
+    worst = max(b1_route_case(torch, gen, c) for c in BIAS_GELU_ROUTE_CASES)
+    for case in BIAS_GELU_B2_CASES:
+        worst = max(worst, b2_route_case(torch, gen, case),
+                    b2_route_case(torch, gen, case, route="wmma"))
+    dt, out, ta, tb, m, n, k, pitch, name, route = BIAS_GELU_ROUTE_CASES[0]
+    dtype = getattr(torch, dt)
+    a = pitched(torch, gen, m, k, dtype, pitch)
+    b = pitched(torch, gen, k, n, dtype, pitch)
+    bias = signed(torch, (n,), dtype, gen)
+    kw = dict(cfg=default_config(dtype, out_dtype=out), epilogue=get_epilogue(name))
+    first = mxu.mxu_matmul(a, b, bias, **kw)
+    if mxu.mxu_matmul.last_route != route:
+        raise AssertionError(f"bias_gelu repeats: route {mxu.mxu_matmul.last_route}")
+    for i in range(BIAS_GELU_REPEATS - 1):
+        if not torch.equal(first, mxu.mxu_matmul(a, b, bias, **kw)):
+            raise AssertionError(f"bias_gelu: launch {i + 2} differs from the first")
+    log(f"phase 27b: bias_gelu vs plain on B1's routes "
+        f"({sorted({c[-1] for c in BIAS_GELU_ROUTE_CASES})}, {len(BIAS_GELU_ROUTE_CASES)} "
+        f"cases) and B2's ({len(BIAS_GELU_B2_CASES)} engine cases, each again on WMMA): ok "
+        f"(worst abs err {worst:.3e}); {BIAS_GELU_REPEATS} engine launches: the same bits")
+
+
+def phase_attn_model(torch):
+    """Phase 27c: the engine flash kernels timed in turns at
+    ATTN_MODEL_CASES' shapes, each beside ``models/attn_model.py``'s
+    prediction and the ratio; then the model refitted to this run's readings
+    (every 3-D shape; the GQA ones held out) and the fitted constants
+    printed in the table's form.  Returns (times, ratios, fitted entry).
+
+    The kernels are timed in a fresh process (the library already built):
+    late in this long process torch.profiler's windows held only part of
+    the kernels' device time (a third of it, then none), as phase 25f's
+    in-process trace of tools.profile held no kernel."""
+    from gemm_hls_tpu_torch.models import attn_model
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    code = ("import json, sys, torch\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            "import chip_smoke as cs\n"
+            "print(json.dumps(cs.attn_model_times(torch, cs.ATTN_MODEL_CASES)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"phase 27c: the timing process failed:\n{proc.stderr[-3000:]}")
+    times = json.loads(proc.stdout.splitlines()[-1])
+    empty = [(key, k) for key, t in times.items() for k, ms in t.items() if not ms > 0]
+    if empty:
+        raise AssertionError(f"phase 27c: no device time read for {empty}")
+    readings, ratios = [], {}
+    for key, batch, s, hq, hkv, d, causal in ATTN_MODEL_CASES:
+        heads = batch * (hq or 1)
+        ratios[key] = {}
+        for k in ("fwd", "dq", "dkv"):
+            pred = attn_model.predict_s(k, heads, s, d, causal, chip=H100) * 1e3
+            ratios[key][k] = pred / times[key][k]
+            if hq is None:
+                readings.append((k, heads, s, d, causal, times[key][k] * 1e-3))
+        log(f"phase 27c: {key}: " + ", ".join(
+            f"{k} {times[key][k]:.4f} ms (model {ratios[key][k] * times[key][k]:.4f}, "
+            f"x{ratios[key][k]:.3f})" for k in ("fwd", "dq", "dkv")))
+    fit = attn_model.fit_constants(readings, H100)
+    log(f"phase 27c: constants fitted to this run (ENGINE_CONSTANTS['h100'] form): "
+        f"{json.dumps(fit)}")
+    for group, keys in (("full-mask anchors", ATTN_ANCHORS_FULL),
+                        ("causal anchors", ATTN_ANCHORS_CAUSAL),
+                        ("held out", ATTN_HELD_OUT)):
+        log(f"phase 27c: {group}: " + "; ".join(
+            f"{key} " + " ".join(f"{k} x{ratios[key][k]:.3f}" for k in ("fwd", "dq", "dkv"))
+            for key in keys))
+    inside = all(0.85 < ratios[key][k] < 1.15 for key in ATTN_ANCHORS_FULL
+                 for k in ("fwd", "dq", "dkv"))
+    log(f"phase 27c: the table within +-15% at every full-mask anchor: {inside}")
+    return times, ratios, fit
+
+
+def phase_slice18(torch):
+    """Phase 27: slice 18's examples, the bias_gelu epilogue and the
+    attention model, each step timed."""
+    t0 = time.perf_counter()
+    examples = phase_examples(torch)
+    t1 = time.perf_counter()
+    phase_bias_gelu(torch)
+    t2 = time.perf_counter()
+    model = phase_attn_model(torch)
+    log(f"phase 27: examples {t1 - t0:.1f} s, bias_gelu {t2 - t1:.1f} s, attention model "
+        f"{time.perf_counter() - t2:.1f} s")
+    return examples, model
+
+
 def main() -> int:
     import torch
 
@@ -5756,6 +5842,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_slice17(torch, packaged_seed)
     log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_slice18(torch)
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 

@@ -74,9 +74,9 @@ __device__ __forceinline__ int dmax(int a, int b) { return max(a, b); }
 // intrinsics, so the card agrees with the plain version to fp32 rounding.
 enum EpKind : int {
   kEpNone = 0, kEpBias = 1, kEpBiasRelu = 2, kEpBiasSigmoid = 3, kEpBiasTanh = 4,
-  kEpColScale = 5, kEpScaleBias = 6,
+  kEpColScale = 5, kEpScaleBias = 6, kEpBiasGelu = 7,
 };
-constexpr int kEpKinds = 7;
+constexpr int kEpKinds = 8;
 
 struct EpArgs {
   const void* e0;
@@ -99,6 +99,22 @@ __device__ __forceinline__ float ep_sigmoid(float x) {
   return x >= 0.f ? 1.f / (1.f + t) : t / (1.f + t);
 }
 
+// The tanh GELU, jax.nn.gelu's default form, in the order of PyTorch's
+// gelu(approximate="tanh"): 0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))),
+// each product and sum rounded on its own.
+__device__ __forceinline__ float ep_gelu_inline(float x) {
+  constexpr float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
+  constexpr float kKappa = 0.044715f;
+  const float cube = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(kBeta, __fadd_rn(x, __fmul_rn(kKappa, cube)));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
+}
+// The per-element stores of the WMMA and CUDA-core routes call it out of
+// line: inlined into every unrolled store of every instantiation it took
+// mxu_gemm.cu's build to 170 s, the slowest source (the engine's epilogue,
+// mxu_wgmma.cuh, keeps it inline over its registers).
+static __device__ __noinline__ float ep_gelu(float x) { return ep_gelu_inline(x); }
+
 // Rounding as the plain version's separate torch ops: no contraction of
 // acc * s + b into one FMA.
 __device__ __forceinline__ float epilogue(float acc, const EpArgs& e, int n) {
@@ -114,6 +130,7 @@ __device__ __forceinline__ float epilogue(float acc, const EpArgs& e, int n) {
     case kEpBiasRelu: return dmax(x, 0.f);
     case kEpBiasSigmoid: return ep_sigmoid(x);
     case kEpBiasTanh: return tanhf(x);
+    case kEpBiasGelu: return ep_gelu(x);
     default: return x;  // kEpBias
   }
 }

@@ -120,6 +120,10 @@ __device__ __forceinline__ void ep_apply(Acc (&f)[128], const EpArgs& e, float* 
 #pragma unroll
       for (int i = 0; i < 128; ++i) set_f(f[i], tanhf(as_f(f[i])));
       break;
+    case kEpBiasGelu:
+#pragma unroll
+      for (int i = 0; i < 128; ++i) set_f(f[i], ep_gelu_inline(as_f(f[i])));
+      break;
     default: break;
   }
 }

@@ -33,16 +33,11 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from gemm_hls_tpu_torch.config import GemmConfig, torch_dtype
 from gemm_hls_tpu_torch.models.mlp import _tensor
+from gemm_hls_tpu_torch.ops.epilogue import gelu_tanh
 from gemm_hls_tpu_torch.ops.grouped import grouped_matmul
-
-
-def gelu_tanh(x):
-    """``jax.nn.gelu``'s default (approximate=True) form."""
-    return F.gelu(x, approximate="tanh")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +52,13 @@ def _output_form_bwd(dact):
     return bwd
 
 
+def gelu_tanh(x):
+    """``jax.nn.gelu``'s default (approximate=True) form, the tanh GELU
+    (torch's default is the erf form).  The ``bias_gelu`` epilogue and the
+    MoE FFN's activation (``models/moe.py``)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def softmax_rows(acc):
     """Row softmax over the last axis of the fp32 accumulator
     (``gemm_hls_tpu/ops/attention.py::_softmax_rows``)."""
@@ -71,6 +79,8 @@ _REGISTRY = {e.name: e for e in (
     Epilogue("col_scale", lambda acc, s: acc * s, code=5, n_operands=1),
     Epilogue("scale_bias", lambda acc, s, b: acc * s + b, code=6,
              n_operands=2),
+    Epilogue("bias_gelu", lambda acc, b: gelu_tanh(acc + b), code=7,
+             n_operands=1),
     Epilogue("softmax", softmax_rows, rows=True),
 )}
 

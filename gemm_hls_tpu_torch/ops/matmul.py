@@ -420,9 +420,9 @@ def matmul(
         without transpose flags).
       epilogue: fused output transform (plus_times, default backend): a
         registry name of ``ops/epilogue.py`` ("bias", "bias_relu",
-        "bias_sigmoid", "bias_tanh", "col_scale", "scale_bias", "softmax"),
-        an :class:`~gemm_hls_tpu_torch.ops.epilogue.Epilogue`, or a callable
-        ``f(acc_f32, *operands)``.  A callable runs on CPU tensors only: on
+        "bias_sigmoid", "bias_tanh", "bias_gelu", "col_scale", "scale_bias",
+        "softmax"), an :class:`~gemm_hls_tpu_torch.ops.epilogue.Epilogue`, or
+        a callable ``f(acc_f32, *operands)``.  A callable runs on CPU tensors only: on
         CUDA it raises NotImplementedError (no compiled functor).
         Differentiable: the backward recomputes the accumulator and pulls
         the cotangent back through ``torch.func.vjp`` of the epilogue, or

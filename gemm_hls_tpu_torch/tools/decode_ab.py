@@ -6,9 +6,11 @@ trees in turns.
 Imports ``gemm_hls_tpu_torch`` and ``chip_smoke`` from the current directory
 (the root of the tree to time, which may be an older checkout without this
 file), builds that tree's kernels, sets up the serving block at
-``chip_smoke.SERVING``'s width as phase 18 does (``serving_setup``, a 64 x
-4096-slot decode cache), and prints one JSON line: the host-clock us a step
-of ``serving_decode`` over 7 windows of 50 steps (each window ends in one
+``chip_smoke.SERVING``'s width as phase 18 does
+(``models/serving.py::serving_setup``, a 64 x 4096-slot decode cache; a tree
+from before that module takes ``chip_smoke``'s copy of the block), and
+prints one JSON line: the host-clock us a step of the block's decode step
+over 7 windows of 50 steps (each window ends in one
 sync) and their median, the main thread's CPU us a step in the same
 windows (``time.thread_time``: the host's own cost of a step, which a
 descheduled host core does not inflate) and their median, then a
@@ -45,15 +47,20 @@ def main(argv=None) -> int:
     c = cs.SERVING
     dims = dict(h_q=c["h_q"], h_kv=c["h_kv"], d_head=c["d_head"])
     gen = torch.Generator(device="cuda").manual_seed(181)
-    _, _, q4, _, moe, cfg = cs.serving_setup(torch)
+    try:
+        from gemm_hls_tpu_torch.models import serving
+        _, _, q4, _, moe, cfg = serving.serving_setup(c)
+        decode = serving.block_decode
+    except ImportError:  # a tree whose block lived in chip_smoke.py
+        _, _, q4, _, moe, cfg = cs.serving_setup(torch)
+        decode = cs.serving_decode
     kc, vc, lens = cs.decode_cache(torch, gen, nb=c["dec_batch"], slots=c["slots"],
                                    hkv=c["h_kv"], d=c["d_head"], steps=c["steps"])
     xt = (torch.randn((c["dec_batch"], c["d_model"]), generator=gen, device="cuda")
           * 0.5).to(torch.bfloat16)
 
     def step():
-        return cs.serving_decode(xt, kc, vc, lens, q4, moe, cfg, group_size=c["group"],
-                                 **dims)
+        return decode(xt, kc, vc, lens, q4, moe, cfg, group_size=c["group"], **dims)
 
     for _ in range(5):
         step()

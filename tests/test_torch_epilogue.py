@@ -38,6 +38,7 @@ JAX_EPILOGUES = {
     "bias_tanh": lambda acc, b: jnp.tanh(acc + b),
     "col_scale": lambda acc, s: acc * s,
     "scale_bias": lambda acc, s, b: acc * s + b,
+    "bias_gelu": lambda acc, b: jax.nn.gelu(acc + b),
 }
 ACTS = {"identity": lambda p: p, "relu": jax.nn.relu,
         "sigmoid": jax.nn.sigmoid, "tanh": jnp.tanh}
@@ -219,7 +220,7 @@ def test_custom_epilogue_bwd_is_used():
     assert calls == [(16, 128)]
 
 
-@pytest.mark.parametrize("name", ["bias_relu", "scale_bias"])
+@pytest.mark.parametrize("name", ["bias_relu", "scale_bias", "bias_gelu"])
 def test_batched_epilogue_matches_jax(name):
     # Both operands 3-D: the batched kernel (B2) with the epilogue.
     a, b = _u((4, 16, 32), 18), _u((4, 32, 128), 19)

@@ -32,15 +32,17 @@ NOT_PORTED = {
     },
 }
 
-# The modules of the staged GEMM, the analytical model and the tools (the
-# tuning tools of slice 17 among them); each must import on a machine
-# without jax.
+# The modules of the staged GEMM, the analytical models, the serving block
+# and the tools (the tuning tools of slice 17 among them); each must import
+# on a machine without jax.
 JAX_FREE_MODULES = (
     "gemm_hls_tpu_torch.__main__",
     "gemm_hls_tpu_torch.utils.tileio",
     "gemm_hls_tpu_torch.parallel.staging",
     "gemm_hls_tpu_torch.models.perf_model",
     "gemm_hls_tpu_torch.models.scaling_model",
+    "gemm_hls_tpu_torch.models.attn_model",
+    "gemm_hls_tpu_torch.models.serving",
     "gemm_hls_tpu_torch.tools.oversize",
     "gemm_hls_tpu_torch.tools.print_specifications",
     "gemm_hls_tpu_torch.tools.tile_optimizer",

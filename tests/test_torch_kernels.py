@@ -200,7 +200,7 @@ def test_unported_requests_raise(cuda, request_):
 # ---- B1's epilogue and B2 --------------------------------------------------
 
 EPILOGUES = ["bias", "bias_relu", "bias_sigmoid", "bias_tanh", "col_scale",
-             "scale_bias"]
+             "scale_bias", "bias_gelu"]
 FLOAT_CASES = [(torch.bfloat16, torch.bfloat16, 1e-2),
                (torch.bfloat16, torch.float32, 1e-4),
                (torch.float16, torch.float32, 1e-4),
@@ -250,9 +250,9 @@ def test_b1_epilogue_matches_plain(cuda, dtype, out, rtol, ta, tb, name):
     for dtype, out in ((torch.int8, torch.int32), (torch.int8, torch.float32),
                        (torch.int32, torch.float32))
     for name in EPILOGUES
-    # sigmoid / tanh truncated to int32 would flip on a one-ulp difference
-    # of values next to 1: the exact epilogues only for an int32 output.
-    if not (out == torch.int32 and name in ("bias_sigmoid", "bias_tanh"))])
+    # sigmoid / tanh / gelu truncated to int32 would flip on a one-ulp difference
+    # of values next to an integer: the exact epilogues only for an int32 output.
+    if not (out == torch.int32 and name in ("bias_sigmoid", "bias_tanh", "bias_gelu"))])
 @pytest.mark.parametrize("ta,tb", LAYOUTS)
 def test_b1_epilogue_on_integer_inputs(cuda, dtype, out, name, ta, tb):
     # The int32 accumulator meets the epilogue widened to fp32, as the plain

@@ -254,3 +254,28 @@ def test_card_tables_take_the_routes_they_name():
         seen.add((dt, route))
     assert seen == {(dt, r) for dt in ("bfloat16", "float16", "int8")
                     for r in ("wgmma", "wmma")}
+
+
+def test_bias_gelu_card_tables_take_the_routes_they_name():
+    # chip_smoke.py's phase 27b tables: the bias_gelu epilogue on every B1
+    # route (the engine, WMMA, the CUDA cores) and on B2's engine, each the
+    # route mxu_route gives its layout and pitches.
+    import chip_smoke
+
+    seen = set()
+    for case in chip_smoke.BIAS_GELU_ROUTE_CASES:
+        dt, _, ta, tb, m, n, k, pitch, ep, route = case
+        dtype = getattr(torch, dt)
+        per = 16 // dtype.itemsize
+
+        def row(cols):
+            return (cols + per - 1) // per * per + per if pitch else cols
+
+        aligned = row(m if ta else k) % per == 0 and row(k if tb else n) % per == 0
+        assert ep == "bias_gelu" and mxu.mxu_route(dtype, ta, tb, aligned) == route, case
+        seen.add(route)
+    assert seen == {"wgmma", "wmma", "simt"}
+    for case in chip_smoke.BIAS_GELU_B2_CASES:
+        dt, _, ta, tb, bsz, m, n, k, pitch, bcast, ep, route = case
+        assert ep == "bias_gelu" and route == "wgmma" and pitch, case
+        assert mxu.mxu_route(getattr(torch, dt), ta, tb, True) == route, case

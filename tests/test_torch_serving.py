@@ -1,25 +1,34 @@
-"""The serving decoder block of ``chip_smoke.py`` (``serving_prefill``,
-``serving_decode``) against ``examples/15_serving_decoder.py``'s
-``block_prefill`` / ``block_decode`` on the CPU, at the example's size.
+"""The serving decoder block of the port (``models/serving.py``:
+``block_prefill``, ``block_decode``) against
+``examples/15_serving_decoder.py``'s on the CPU, at the example's size; and
+the ``bias_gelu`` epilogue the port's example 10 fuses, against the JAX
+``matmul(..., epilogue=_bias_gelu)``.
 
 The example is loaded with importlib and builds its own weights and MoE
 parameters (``make_block``); the port gets the same numpy weights and the
-MoE parameters through ``params_from_reference(..., device="cpu")``.  The
-JAX side runs its Pallas kernels in interpret mode, the port its plain
+MoE parameters through ``serving.params_from_reference(..., device="cpu")``.
+The JAX side runs its Pallas kernels in interpret mode, the port its plain
 versions.  Tolerance: relative error 1e-3 of the largest output (the same
-W8A8 / int4 quantization on both sides, fp32 sums in other orders).
+W8A8 / int4 quantization on both sides, fp32 sums in other orders); the
+epilogue at ``tests/test_epilogue.py``'s rtol 1e-4, atol 1e-5.
 """
 
 import importlib.util
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from gemm_hls_tpu import GemmConfig as JaxConfig
+from gemm_hls_tpu import matmul as jax_matmul
+from gemm_hls_tpu.utils import make_operands
+
+from gemm_hls_tpu_torch import matmul
 from gemm_hls_tpu_torch.models import moe as tmoe
+from gemm_hls_tpu_torch.models import serving
 
 torch.set_num_threads(1)
 
@@ -36,10 +45,10 @@ def example():
     rng = np.random.default_rng(5)
     dense, quant, quant4, moe, moe_cfg = ex.make_block(rng)
     x = rng.standard_normal((ex.B, ex.S, ex.D)).astype(np.float32) * 0.5
+    _, tquant, tquant4, tparams = serving.params_from_reference(dense, quant, quant4, moe,
+                                                                device="cpu")
     port = dict(
-        quant={k: tuple(torch.from_numpy(a) for a in v) for k, v in quant.items()},
-        quant4={k: tuple(torch.from_numpy(a) for a in v) for k, v in quant4.items()},
-        moe=tmoe.params_from_reference(moe, device="cpu"),
+        quant=tquant, quant4=tquant4, moe=tparams,
         cfg=tmoe.MoEConfig(d_model=moe_cfg.d_model, d_ff=moe_cfg.d_ff,
                            num_experts=moe_cfg.num_experts, top_k=moe_cfg.top_k),
         dims=dict(h_q=ex.H_Q, h_kv=ex.H_KV, d_head=ex.D_HEAD))
@@ -54,7 +63,7 @@ def _rel(got, want):
 def test_serving_prefill_vs_example(example):
     ex, (quant, _, moe, moe_cfg), port, x = example
     y, y_attn, k, v = ex.block_prefill(jnp.asarray(x), quant, moe, moe_cfg)
-    ty, ty_attn, tk, tv = chip_smoke.serving_prefill(
+    ty, ty_attn, tk, tv = serving.block_prefill(
         torch.from_numpy(x), port["quant"], port["moe"], port["cfg"], **port["dims"])
     assert _rel(ty_attn.numpy(), y_attn) < TOL
     assert _rel(ty.numpy(), y) < TOL
@@ -70,7 +79,7 @@ def test_serving_prefill_two_pass_route(example):
     ex, (_, _, moe, moe_cfg), port, x = example
     dense = ex.make_block(np.random.default_rng(5))[0]
     _, want_attn = ex.ref_block(jnp.asarray(x), dense, moe, moe_cfg)
-    _, ty_attn, _, _ = chip_smoke.serving_prefill(
+    _, ty_attn, _, _ = serving.block_prefill(
         torch.from_numpy(x), port["quant"], port["moe"], port["cfg"],
         fuse_quant=False, **port["dims"])
     assert _rel(ty_attn.numpy(), want_attn) < 0.05
@@ -92,7 +101,7 @@ def test_serving_decode_vs_example(example):
     jx, tx = jnp.asarray(x_tok), torch.from_numpy(x_tok)
     for step in range(3):
         jx, jk, jv, jl = ex.block_decode(jx, jk, jv, jl, quant4, moe, moe_cfg)
-        tx, tk2, tv2, tl = chip_smoke.serving_decode(
+        tx, tk2, tv2, tl = serving.block_decode(
             tx, tk, tv, tl, port["quant4"], port["moe"], port["cfg"],
             group_size=32, **port["dims"])
         assert tk2 is tk and tv2 is tv          # written in place
@@ -100,3 +109,56 @@ def test_serving_decode_vs_example(example):
         np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
         assert _rel(tk.numpy(), jk) < TOL and _rel(tv.numpy(), jv) < TOL
         assert torch.isfinite(tx).all()
+
+
+def _top2(y, router):
+    """Each token's two largest router logits' experts, as a set."""
+    logits = np.asarray(y, np.float64).reshape(-1, router.shape[0]) @ np.asarray(router,
+                                                                                  np.float64)
+    return [frozenset(row) for row in np.argsort(-logits, axis=-1)[:, :2]]
+
+
+def test_serving_block_routing_agrees(example):
+    # The MoE sublayer of the whole block: at least 95% of the tokens take
+    # the same top-2 experts on both sides (the router reads the attention
+    # sublayer's output, where the two sides differ by fp32 sums in other
+    # orders), and those tokens' outputs match at rel 1e-3.
+    ex, (quant, _, moe, moe_cfg), port, x = example
+    y, y_attn, _, _ = ex.block_prefill(jnp.asarray(x), quant, moe, moe_cfg)
+    ty, ty_attn, _, _ = serving.block_prefill(
+        torch.from_numpy(x), port["quant"], port["moe"], port["cfg"], **port["dims"])
+    router = np.asarray(moe["router"])
+    same = np.array([a == b for a, b in zip(_top2(y_attn, router),
+                                            _top2(ty_attn.numpy(), router))])
+    assert same.mean() >= 0.95, same.mean()
+    got, want = ty.numpy().reshape(-1, ex.D)[same], np.asarray(y).reshape(-1, ex.D)[same]
+    assert _rel(got, want) < TOL
+
+
+def _bias_gelu(acc, b):
+    return jax.nn.gelu(acc + b)
+
+
+def test_bias_gelu_epilogue_matches_jax():
+    # tests/test_epilogue.py::test_bias_relu_fused's operands and blocks.
+    a, b = make_operands(40, 129, 64, "float32", low=-5.0, high=5.0)
+    bias = np.linspace(-10, 10, 129).astype(np.float32)
+    got = matmul(torch.from_numpy(a), torch.from_numpy(b), epilogue="bias_gelu",
+                 epilogue_operands=(torch.from_numpy(bias),))
+    exp = jax_matmul(jnp.asarray(a), jnp.asarray(b),
+                     config=JaxConfig(block_m=32, block_n=128, block_k=128, interpret=True),
+                     epilogue=_bias_gelu, epilogue_operands=(jnp.asarray(bias),))
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-4, atol=1e-5)
+
+
+def test_bias_gelu_batched_epilogue_matches_jax():
+    # tests/test_epilogue.py::test_batched_epilogue_fused's operands.
+    rng = np.random.default_rng(5)
+    a = rng.uniform(-2, 2, (4, 16, 32)).astype(np.float32)
+    b = rng.uniform(-2, 2, (4, 32, 128)).astype(np.float32)
+    bias = np.linspace(-2, 2, 128).astype(np.float32)
+    got = matmul(torch.from_numpy(a), torch.from_numpy(b), epilogue="bias_gelu",
+                 epilogue_operands=(torch.from_numpy(bias),))
+    exp = jax_matmul(jnp.asarray(a), jnp.asarray(b), interpret=True, epilogue=_bias_gelu,
+                     epilogue_operands=(jnp.asarray(bias),))
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-4, atol=1e-5)
