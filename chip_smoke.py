@@ -242,6 +242,24 @@ Phases, each printed as it ends:
      ``models/attn_model.py``'s prediction and the ratio, then the model
      refitted to this run's readings and its constants printed in
      ENGINE_CONSTANTS' form.
+ 28. slice 19's main path, the distributed CA-GEMMs on virtual ranks of
+     the card (``[cuda] * 8``: one process drives every rank, the
+     collectives are device-to-device copies), every launch count and the
+     byte counter set to 0 before each call and read after, each rank's
+     local kernel and its route checked: (a) bf16 8192^3 through
+     ``summa_matmul`` on (2, 4) and (2, 2), ``cannon_matmul`` on (2, 2),
+     ``matmul_25d`` on (2, 2, 2) and ``distributed_matmul("auto")``
+     against bf16 ``torch.matmul`` (B1 on the engine once per rank, p
+     times for Cannon), then timed in turns on CUDA events beside B18, B19
+     and ``torch.matmul``; (e) the bytes each rank received equal to
+     ``models/scaling_model.comm_volume_per_device`` (Cannon's shifts, its
+     skew printed apart); (b) min_plus SUMMA at fp32 4096^3,
+     ``distributed_matmul`` min_plus at 4097 x 4095 x 4093 with A
+     transposed, APSP at n = 4096 through SUMMA, each equal to the
+     single-card call (B3 once per rank per call); (c) the distributed
+     Ozaki GEMMs at f64 8192^3 (int8, B5) and 2048^3 (bf16 slices, B1)
+     against float64 ``torch.matmul``; (d) ``distributed_streamed_matmul``
+     at fp32 16384^3 in 8192 tiles, SUMMA and 2.5D.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -5593,6 +5611,7 @@ EXAMPLE_KERNELS = {
     "01_basic_gemm.py": ("B1",),
     "02_semirings.py": ("B3",),
     "03_graph_algorithms.py": ("B3",),
+    "04_distributed.py": ("B1", "B3"),
     "05_f64_on_bf16.py": ("B1", "B5"),
     "07_differentiable_semirings.py": ("B3",),
     "08_fused_distributed_kernels.py": ("B18", "B19"),
@@ -5757,6 +5776,266 @@ def phase_slice18(torch):
     return examples, model
 
 
+# ---------------------------------------------------------------------------
+# Slice 19: the distributed CA-GEMMs on virtual ranks of the card (phase 28)
+# ---------------------------------------------------------------------------
+
+# Phase 28's problem sizes: the dense front doors (28a, 28e), the semiring
+# calls and APSP (28b), the Ozaki GEMMs (28c), the streamed GEMM and its
+# host tile (28d).
+DIST_CA = dict(dense=8192, semiring=4096, unaligned=(4097, 4095, 4093), apsp=4096,
+               ozaki_int8=8192, ozaki=2048, streamed=16384, streamed_tile=8192)
+
+
+def virtual_mesh(torch, shape):
+    """A mesh of ``shape`` whose ranks all live on the card: (x, y), or
+    (z, x, y) for three axes."""
+    from gemm_hls_tpu_torch.parallel import make_mesh, mesh_25d
+    n = 1
+    for s in shape:
+        n *= s
+    ranks = [torch.device("cuda")] * n
+    if len(shape) == 3:
+        return mesh_25d(c=shape[0], devices=ranks)
+    return make_mesh(shape, devices=ranks)
+
+
+def ranks_launched(what, front, mesh, kernel, calls, route):
+    """The kernels launched since the last reset must be ``kernel`` alone,
+    once per rank per local GEMM (``calls`` each), every launch of the front
+    door's last call on ``route`` as ``front.last_routes`` recorded it.
+    Returns the launches."""
+    got = launched()
+    ranks = mesh.devices.size
+    routes = front.last_routes
+    if got != {kernel: ranks * calls}:
+        raise AssertionError(f"{what}: launches {got}, want {kernel}: {ranks} ranks x {calls}")
+    if len(routes) != ranks or any(set(r) != {route} for r in routes.values()):
+        raise AssertionError(f"{what}: routes {routes}, want {route} on each of {ranks} ranks")
+    return got
+
+
+def phase_slice19(torch):
+    """Phase 28 (main path): the distributed CA-GEMMs on virtual ranks of the
+    card, each call with every launch count and the byte counter set to 0
+    just before it and read just after.  (a) bf16 8192^3 through
+    ``summa_matmul`` on (2, 4) and (2, 2), ``cannon_matmul`` on (2, 2),
+    ``matmul_25d`` on (2, 2, 2) and ``distributed_matmul("auto")``, each held
+    to bf16 ``torch.matmul`` of the whole product (relative 1e-2 scaled),
+    B1 on the engine once per rank (Cannon: p per rank), then timed in turns
+    on CUDA events beside B18 (4 ranks), B19 (p = 2) and ``torch.matmul``,
+    and each profiled (device busy share, device time by kernel);
+    (e) at those calls each rank's received bytes equal to
+    ``models/scaling_model.comm_volume_per_device`` (Cannon's shifts; its
+    skew printed apart; 2.5D's reduction in fp32); (b) fp32 min_plus SUMMA
+    at 4096^3 on (2, 2), ``distributed_matmul`` at 4097 x 4095 x 4093 with A
+    transposed, min_plus, on (2, 4), and APSP at n = 4096 through SUMMA
+    min_plus on (2, 2), each equal to the single-card call, B3 once per rank
+    per call; (c) ``ozaki_matmul_int8_distributed`` at 8192^3 float64 on
+    (2, 2) (normwise < 1e-13, B5 once per rank) and
+    ``ozaki_matmul_distributed`` at 2048^3 on (2, 4) (< 5e-14, B1 once per
+    rank per slice pair) against float64 ``torch.matmul``; (d)
+    ``distributed_streamed_matmul`` at fp32 16384^3 in 8192 tiles, SUMMA on
+    (2, 2) and 2.5D on (2, 2, 2), against float64 ``torch.matmul`` on the
+    card (max |C - ref| / max |ref| < 1e-4).  Returns {step: launches} and
+    28a's times."""
+    import functools
+
+    import numpy as np
+
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.models import graph
+    from gemm_hls_tpu_torch.models.scaling_model import comm_volume_per_device
+    from gemm_hls_tpu_torch.ops import cannon, ring
+    from gemm_hls_tpu_torch.ops.ozaki import (
+        ozaki_matmul_distributed, ozaki_matmul_int8_distributed, slice_plan,
+    )
+    from gemm_hls_tpu_torch.parallel import (
+        cannon_matmul, distributed_matmul, distributed_streamed_matmul, make_mesh,
+        matmul_25d, shard_operands_2d, shard_operands_25d, summa_matmul,
+    )
+    from gemm_hls_tpu_torch.parallel import sharding
+
+    launches, steps = {}, {}
+
+    def run(key, fn):
+        reset_every_counter()
+        sharding.reset_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[key] = time.perf_counter() - t0
+        return out
+
+    # --- 28a / 28e: the dense front doors at bf16 8192^3 -------------------
+    s, bf16 = DIST_CA["dense"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(281)
+    a, b = dist_operands(torch, gen, (s, s), (s, s), bf16)
+    ref = torch.matmul(a, b)
+    m24, m22, m222 = (virtual_mesh(torch, sh) for sh in ((2, 4), (2, 2), (2, 2, 2)))
+    placed = {"m24": shard_operands_2d(a, b, m24), "m22": shard_operands_2d(a, b, m22),
+              "m222": shard_operands_25d(a, b, m222)}
+    dense = {
+        "summa (2, 4)": (lambda: summa_matmul(*placed["m24"], m24), summa_matmul, m24, 1,
+                         "summa", (2, 4)),
+        "summa (2, 2)": (lambda: summa_matmul(*placed["m22"], m22), summa_matmul, m22, 1,
+                         "summa", (2, 2)),
+        "cannon (2, 2)": (lambda: cannon_matmul(*placed["m22"], m22), cannon_matmul, m22, 2,
+                          "cannon", (2, 2)),
+        "25d (2, 2, 2)": (lambda: matmul_25d(*placed["m222"], m222), matmul_25d, m222, 1,
+                          "25d", (2, 2, 2)),
+        "auto (2, 2)": (lambda: distributed_matmul(a, b, m22), cannon_matmul, m22, 2,
+                        "cannon", (2, 2)),
+    }
+    comm = {}
+    for key, (fn, front, mesh, calls, alg, shape) in dense.items():
+        c = run(f"28a {key}", fn)
+        launches[f"28a {key}"] = ranks_launched(key, front, mesh, "B1", calls, "wgmma")
+        err = compare(torch, c.full(), ref, BF16_RTOL, f"28a {key}", scaled=True)[0]
+        del c
+        want = comm_volume_per_device(alg, s, s, s, shape, 2)
+        tags = ["ppermute"] if alg == "cannon" else None
+        got = sharding.bytes_received(mesh, tags)
+        skew = sharding.bytes_received(mesh, ["skew"]) if alg == "cannon" else None
+        comm[key] = dict(bytes_per_rank=got.reshape(-1).tolist(), model=want,
+                         skew=None if skew is None else skew.reshape(-1).tolist())
+        log(f"phase 28a: {key} bf16 {s}^3: {steps[f'28a {key}']:.3f} s host clock (first "
+            f"call), B1 x{launches[f'28a {key}']['B1']} on wgmma, max abs err {err:.3e} vs bf16 "
+            f"torch.matmul\nphase 28e: {key} bytes received per rank {comm[key]['bytes_per_rank']}"
+            f" vs comm_volume_per_device {want}"
+            + (f"; skew (not in the model) {comm[key]['skew']}" if skew is not None else ""))
+        if not (got == want).all():
+            raise AssertionError(f"28e {key}: bytes {got.tolist()} differ from the model's {want}")
+    del ref
+    ring_mesh = make_mesh((4,), ("x",), devices=[torch.device("cuda")] * 4)
+    a_r, b_r = ring.shard_operands_ring(a, b, ring_mesh)
+    ring_scratch = ring.ring_scratch(4, s, s // 4, bf16, "cuda")
+    ab, bb = cannon.cannon_blocks(a, b, 2)
+    ab, bb = [t.contiguous() for t in ab], [t.contiguous() for t in bb]
+    cannon_scratch = cannon.cannon_scratch(2, s // 2, s // 2, s // 2, bf16, "cuda")
+    # time_fn takes tensors: each rank's result tensor.
+    fns = {key: lambda fn=v[0]: list(fn().shards.flat) for key, v in dense.items()}
+    fns.update({"B18 ring 4 ranks": lambda: ring.ring_gemm(a_r, b_r, scratch=ring_scratch),
+                "B19 fused Cannon p=2": lambda: cannon.cannon_gemm(ab, bb, 2,
+                                                                   scratch=cannon_scratch),
+                "torch.matmul": lambda: torch.matmul(a, b)})
+    times = event_turns(torch, fns)
+    log("phase 28a: bf16 8192^3 on CUDA events in turns (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    profiles = {}
+    for key in dense:
+        busy, kernels = device_profile(torch, fns[key], 3)
+        profiles[key] = dict(busy=busy, kernels=kernels[:5])
+        log(f"phase 28a: {key} profile: device busy {busy:.1%} of the host clock; by kernel "
+            f"(us a call): " + "; ".join(f"{name[:60]} {us:.1f}" for name, us in kernels[:5]))
+    del a, b, placed, a_r, b_r, ring_scratch, ab, bb, cannon_scratch, fns
+
+    # --- 28b: the other semirings, exact ----------------------------------
+    n4 = DIST_CA["semiring"]
+    x, y = dist_operands(torch, gen, (n4, n4), (n4, n4), torch.float32)
+    c = run("28b summa min_plus", lambda: summa_matmul(x, y, m22, semiring="min_plus"))
+    launches["28b summa min_plus"] = ranks_launched("summa min_plus", summa_matmul, m22, "B3",
+                                                    1, "semiring_gemm")
+    compare(torch, c.full(), matmul(x, y, semiring="min_plus"), 0.0, "28b summa min_plus")
+    m, n, k = DIST_CA["unaligned"]
+    xt, yt = dist_operands(torch, gen, (k, m), (k, n), torch.float32)
+    c = run("28b distributed_matmul", lambda: distributed_matmul(
+        xt, yt, m24, semiring="min_plus", transpose_a=True))
+    launches["28b distributed_matmul"] = ranks_launched(
+        "distributed_matmul", summa_matmul, m24, "B3", 1, "semiring_gemm")
+    if c.shape != (m, n) or tuple(c.spec) != ():
+        raise AssertionError(f"28b distributed_matmul: {c.shape}, spec {c.spec}")
+    compare(torch, c.full(), matmul(xt, yt, semiring="min_plus", transpose_a=True), 0.0,
+            "28b distributed_matmul unaligned")
+    del x, y, xt, yt, c
+    na = DIST_CA["apsp"]
+    w = torch.randint(1, 10, (na, na), generator=gen, device="cuda").float()
+    adj = torch.where(torch.rand((na, na), generator=gen, device="cuda") < 0.002, w,
+                      torch.full_like(w, float("inf")))
+    dist = run("28b APSP", lambda: graph.all_pairs_shortest_paths(
+        adj, matmul_fn=functools.partial(summa_matmul, mesh=m22, semiring="min_plus")))
+    squarings = max(1, int(np.ceil(np.log2(na - 1))))
+    launches["28b APSP"] = ranks_launched("APSP", summa_matmul, m22, "B3", squarings,
+                                          "semiring_gemm")
+    single = graph.all_pairs_shortest_paths(adj)
+    compare(torch, dist.full(), single, 0.0, "28b APSP vs single-card APSP")
+    reach = int(torch.isfinite(single).sum())
+    del w, adj, dist, single
+    log(f"phase 28b: summa min_plus fp32 {n4}^3 (2, 2) {steps['28b summa min_plus']:.3f} s; "
+        f"distributed_matmul min_plus {m}x{n}x{k} A transposed (2, 4) "
+        f"{steps['28b distributed_matmul']:.3f} s; APSP n={na} via SUMMA (2, 2), {squarings} "
+        f"squarings, {reach} reachable pairs, {steps['28b APSP']:.3f} s: each equal to the "
+        f"single-card call, B3 once per rank per call")
+
+    # --- 28c: the Ozaki GEMMs against float64 torch.matmul ------------------
+    rng = np.random.default_rng(283)
+    n8 = DIST_CA["ozaki_int8"]
+    a64, b64 = rng.uniform(-5, 5, (n8, n8)), rng.uniform(-5, 5, (n8, n8))
+    got = run("28c ozaki int8", lambda: ozaki_matmul_int8_distributed(a64, b64, m22))
+    launches["28c ozaki int8"] = launched()
+    err8 = normwise(torch, torch.from_numpy(got).cuda(), torch.from_numpy(a64).cuda(),
+                    torch.from_numpy(b64).cuda())[0]
+    if launches["28c ozaki int8"] != {"B5": 4} or not err8 < 1e-13:
+        raise AssertionError(f"28c int8 Ozaki: launches {launches['28c ozaki int8']}, "
+                             f"normwise {err8:.3e}")
+    n2 = DIST_CA["ozaki"]
+    a64, b64 = rng.uniform(-5, 5, (n2, n2)), rng.uniform(-5, 5, (n2, n2))
+    got = run("28c ozaki bf16", lambda: ozaki_matmul_distributed(a64, b64, m24))
+    _, ns = slice_plan(n2)
+    pairs = sum(1 for sd in range(ns + 1) for i in range(sd + 1) if i < ns and sd - i < ns)
+    launches["28c ozaki bf16"] = ranks_launched("ozaki_matmul_distributed",
+                                                ozaki_matmul_distributed, m24, "B1", pairs,
+                                                "wgmma")
+    errb = normwise(torch, torch.from_numpy(got).cuda(), torch.from_numpy(a64).cuda(),
+                    torch.from_numpy(b64).cuda())[0]
+    if not errb < 5e-14:
+        raise AssertionError(f"28c Ozaki bf16 slices: normwise {errb:.3e}")
+    del a64, b64, got
+    log(f"phase 28c: ozaki_matmul_int8_distributed f64 {n8}^3 (2, 2): normwise {err8:.3e}, "
+        f"B5 x4, {steps['28c ozaki int8']:.3f} s; ozaki_matmul_distributed f64 {n2}^3 (2, 4): "
+        f"normwise {errb:.3e}, {pairs} slice pairs, B1 x{launches['28c ozaki bf16']['B1']}, "
+        f"{steps['28c ozaki bf16']:.3f} s")
+
+    # --- 28d: the streamed GEMM over the ranks ------------------------------
+    ns_, tile = DIST_CA["streamed"], DIST_CA["streamed_tile"]
+    ad, bd = dist_operands(torch, gen, (ns_, ns_), (ns_, ns_), torch.float32)
+    ah, bh = ad.cpu(), bd.cpu()
+    ref = torch.matmul(ad.double(), bd.double())
+    del ad, bd
+    jobs = (ns_ // tile) ** 3
+    for key, mesh, alg in (("summa (2, 2)", m22, "summa"), ("25d (2, 2, 2)", m222, "25d")):
+        step = f"28d streamed {key}"
+        out = run(step, lambda mesh=mesh, alg=alg: distributed_streamed_matmul(
+            ah, bh, mesh, tile_m=tile, tile_n=tile, tile_k=tile, algorithm=alg))
+        launches[step] = launched()
+        if launches[step] != {"B1": jobs * mesh.devices.size}:
+            raise AssertionError(f"{step}: launches {launches[step]}, want B1 x "
+                                 f"{jobs * mesh.devices.size}")
+        # Every panel's product on every rank on B1's CUDA-core route (fp32).
+        stats = distributed_streamed_matmul.last_stats
+        if (stats["jobs"] != jobs or len(stats["routes"]) != jobs
+                or any(len(r) != mesh.devices.size or any(v != ["simt"] for v in r.values())
+                       for r in stats["routes"])):
+            raise AssertionError(f"{step}: last_stats {stats['jobs']} jobs, routes "
+                                 f"{stats['routes'][:2]}")
+        rel = float((out.cuda().double() - ref).abs().max() / ref.abs().max())
+        if out.shape != (ns_, ns_) or not rel < F32_RTOL:
+            raise AssertionError(f"{step}: rel err {rel:.3e}")
+        log(f"phase 28d: distributed_streamed_matmul {alg} fp32 {ns_}^3, tiles {tile} "
+            f"({jobs} panel products) on {key}: {steps[step]:.3f} s, max |C - ref| / max |ref| "
+            f"{rel:.3e} vs float64 torch.matmul, B1 x{launches[step]['B1']} on simt; staged "
+            f"through {stats['slots']} pinned slots (prefetch {stats['prefetch']}), "
+            f"{stats['h2d_bytes']} B host -> card, {stats['d2h_bytes']} B back, host fill "
+            f"{stats['fill_s']:.3f} s, wait {stats['stage_wait_s']:.3f} s, drain "
+            f"{stats['drain_s']:.3f} s")
+        del out
+    del ah, bh, ref
+    log(f"phase 28: launches {launches}")
+    return {"launches": launches, "times": times, "comm": comm, "steps": steps,
+            "profiles": profiles}
+
+
+
 def main() -> int:
     import torch
 
@@ -5845,6 +6124,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_slice18(torch)
     log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist19 = phase_slice19(torch)
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -6028,6 +6310,11 @@ def main() -> int:
     for idx, key in ((0, "B1"), (4, "B3"), (6, "B5")):
         kernels[idx]["staged_launches"] = sum(staged["launches"][p].get(key, 0) for p in path)
     kernels[0]["oversize_32768_bf16"] = staged["oversize"]
+    # Slice 19's distributed CA-GEMMs (phase 28): each rank's local kernel.
+    for idx, key in ((0, "B1"), (4, "B3"), (6, "B5")):
+        kernels[idx]["distributed_launches"] = sum(
+            got.get(key, 0) for got in dist19["launches"].values())
+    kernels[0]["distributed_bf16_8192_ms"] = dist19["times"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

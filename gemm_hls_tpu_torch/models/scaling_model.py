@@ -16,7 +16,8 @@ Communication volumes per card (operand words moved between cards):
   the y-axis ring + B panel (K * N/py) * (px-1)/px over x.
 * Cannon on (p, p):          (p-1) shifts of |A_blk| + |B_blk|.
 * 2.5D with replication c:   the 2-D volume shrunk to the K/c chunk, plus
-  one reduce of the C block over z ((c-1)/c * M/px * N/py).
+  one reduce of the C block over z (2 (c-1)/c * M/px * N/py words of the
+  accumulator type: a reduce-scatter and an all-gather).
 """
 
 from __future__ import annotations
@@ -32,7 +33,17 @@ from gemm_hls_tpu_torch.models.perf_model import ChipSpec, detect_chip
 def comm_volume_per_device(algorithm: str, m: int, n: int, k: int,
                            mesh_shape: Tuple[int, ...],
                            itemsize: int = 2) -> int:
-    """Bytes sent+received per card over its links."""
+    """Bytes sent+received per card over its links, for operands of
+    ``itemsize`` bytes.
+
+    2.5D's C reduction is charged in the plus_times accumulator type (fp32
+    for 2-byte floats, int32 for int8, the operand type for 4- and 8-byte
+    ones), which is what both the port and the JAX package move (each
+    package's ``parallel/grid25d.py`` sums the partials in it before the
+    one cast).  The
+    JAX package's model charges it at operand width; this one deliberately
+    does not.  ``parallel/sharding.py``'s byte counter holds the port's
+    collectives to these volumes, counting what each rank receives."""
     if algorithm == "summa":
         px, py = mesh_shape
         a_recv = (m // px) * k * (py - 1) // py
@@ -50,7 +61,7 @@ def comm_volume_per_device(algorithm: str, m: int, n: int, k: int,
         a_recv = (m // px) * kc * (py - 1) // py
         b_recv = kc * (n // py) * (px - 1) // px
         c_reduce = (m // px) * (n // py) * (c - 1) // c * 2  # reduce-scatter+gather
-        return (a_recv + b_recv + c_reduce) * itemsize
+        return (a_recv + b_recv) * itemsize + c_reduce * max(itemsize, 4)
     raise ValueError(f"unknown algorithm {algorithm!r}")
 
 

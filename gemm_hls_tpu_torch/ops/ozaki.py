@@ -21,8 +21,9 @@ The H100 has float64 arithmetic, so on CUDA ``split="auto"`` runs
 fp32 partials in float64; the JAX package's workarounds for the TPU's
 lack of f64, the fp32 double-single split and the float-float (hi, lo) sum,
 are kept as ``split="device"`` and :func:`device_accumulate` (the CPU's
-path, for parity).  The multi-device variants belong
-to the multi-GPU slice.
+path, for parity).  :func:`ozaki_matmul_distributed` and
+:func:`ozaki_matmul_int8_distributed` run the same schemes over a mesh of
+ranks (``parallel/summa.py``'s gather-SUMMA schedule).
 
 Reference for the technique: Ozaki et al., "Error-free transformations of
 matrix multiplication by using fast routines of matrix multiplication and
@@ -387,15 +388,139 @@ def ozaki_matmul_int8(a: np.ndarray, b: np.ndarray, *,
     return ((hi.double() + lo.double()) * ulp_a * ulp_b).cpu().numpy()
 
 
-def ozaki_matmul_distributed(*args, **kwargs):
-    """The multi-device Ozaki GEMM (slices x gather-SUMMA)."""
-    raise NotImplementedError(
-        "ozaki_matmul_distributed is not ported yet (ROADMAP A7: "
-        "multi-GPU)")
+def ozaki_matmul_distributed(a: np.ndarray, b: np.ndarray, mesh, *,
+                             axes=("x", "y"), target_rel: float = 1e-14,
+                             config: Optional[GemmConfig] = None) -> np.ndarray:
+    """f64-class GEMM over a mesh of ranks: Ozaki bf16 slices x gather-SUMMA
+    (``parallel/summa.py``'s schedule, kernel B1 on each rank).
+
+    The exactness argument does not depend on the distribution: SUMMA
+    computes every output element as one full-K fp32 accumulation on one
+    rank, so the ``2 * slice_bits + log2(K) <= 24`` bound holds unchanged.
+    The operands are split on the first rank's device
+    (:func:`device_split_f64`), each slice stack is laid out P(None, x, y)
+    and gathered once (A along the column axis, B along the row axis), and
+    each rank runs the slice pairs' products on its panels.  The exact
+    partials are summed per rank in float64 on CUDA ranks, and in the JAX
+    package's float-float (hi, lo) scheme elsewhere (ROADMAP C2).  Each
+    rank's kernel routes are left in ``last_routes``.
+
+    Args:
+      a: (M, K) float64 (numpy); b: (K, N) float64; the mesh must divide M
+        by x, N by y and K by x * y, as SUMMA's.
+    Returns (M, N) float64.
+    """
+    from gemm_hls_tpu_torch.parallel.sharding import (
+        P, Sharded, all_gather, device_put, map_shards, rank_coords,
+    )
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+    from gemm_hls_tpu_torch.parallel.summa import _local_matmul
+
+    a, b = _check_pair(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    ax, ay = axes
+    px, py = mesh.shape[ax], mesh.shape[ay]
+    if m % px or k % (px * py) or n % py:
+        raise ValueError(f"shape ({m},{n},{k}) not divisible by mesh {px}x{py} "
+                         f"(K must divide {px * py})")
+    slice_bits, n_slices = slice_plan(k, target_rel)
+    if config is None:
+        config = default_config("bfloat16", out_dtype="float32")
+    else:
+        config = config.replace(dtype="bfloat16", out_dtype="float32")
+    home = mesh.devices.flat[0]
+    sa = device_split_f64(torch.from_numpy(a).to(home), slice_bits, n_slices,
+                          axis=1).to(torch.bfloat16)
+    sb = device_split_f64(torch.from_numpy(b).to(home), slice_bits, n_slices,
+                          axis=0).to(torch.bfloat16)
+    sa_d = device_put(sa, mesh, P(None, ax, ay))
+    sb_d = device_put(sb, mesh, P(None, ax, ay))
+    del sa, sb
+    ga = all_gather(sa_d.shards, mesh, ay, dim=2)  # (s, M/px, K)
+    gb = all_gather(sb_d.shards, mesh, ax, dim=1)  # (s, K, N/py)
+    del sa_d, sb_d
+    pairs = [(i, s - i) for s in range(n_slices + 1) for i in range(s + 1)
+             if i < n_slices and s - i < n_slices]
+    plus_times = get_semiring("plus_times")
+    routes = {}
+
+    def local(coord):
+        acc = hi = lo = None
+        for i, j in pairs:
+            part = _local_matmul(routes, coord, ga[coord][i], gb[coord][j],
+                                 plus_times, config=config)
+            if part.is_cuda:  # exact fp32 partials summed in float64 (C2)
+                acc = part.double() if acc is None else acc + part.double()
+            elif hi is None:
+                hi, lo = part, torch.zeros_like(part)
+            else:
+                hi, err = _two_sum(hi, part)
+                lo = lo + err
+        ga[coord] = gb[coord] = None  # a rank's panels live for its products only
+        return acc if acc is not None else hi.double() + lo.double()
+
+    shards = map_shards(local, rank_coords(mesh), mesh=mesh)
+    ozaki_matmul_distributed.last_routes = routes
+    return Sharded(mesh, P(ax, ay), (m, n), shards).full().cpu().numpy()
 
 
-def ozaki_matmul_int8_distributed(*args, **kwargs):
-    """The multi-device fused int8 Ozaki GEMM."""
-    raise NotImplementedError(
-        "ozaki_matmul_int8_distributed is not ported yet (ROADMAP A7: "
-        "multi-GPU)")
+def ozaki_matmul_int8_distributed(a: np.ndarray, b: np.ndarray, mesh, *,
+                                  axes=("x", "y"), target_rel: float = 1e-14,
+                                  n_slices: int = None) -> np.ndarray:
+    """Distributed f64-class GEMM on the fused int8 kernel: each rank
+    all-gathers its slice-stack panels (the gather-SUMMA schedule: A along
+    the column axis, B along the row axis) and runs the whole slice
+    triangle in one launch of kernel B5, so each rank's arithmetic is the
+    single-card path's (~1e-15 normwise, K unbounded).
+
+    The operands are split on the first rank's device (on CUDA the f64
+    split on the card, :func:`device_split_f64_int8`; elsewhere the host
+    split) and zero-padded so the mesh divides M by x, N by y and K by
+    x * y (zero slices add exact zeros).  Each rank receives ``n_slices``
+    int8 panels, the bytes of one f64 panel.
+    """
+    from gemm_hls_tpu_torch.parallel.sharding import (
+        P, Sharded, all_gather, device_put, on_device, pad_to,
+    )
+
+    a, b = _check_pair(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if n_slices is None:
+        need_bits = min(53, int(-math.log2(target_rel)) + 6)
+        n_slices = math.ceil(need_bits / INT8_SLICE_BITS)
+    ax, ay = axes
+    px, py = mesh.shape[ax], mesh.shape[ay]
+    home = mesh.devices.flat[0]
+    if home.type == "cuda":
+        sa, ulp_a = device_split_f64_int8(torch.from_numpy(a).to(home), n_slices, axis=1)
+        sb, ulp_b = device_split_f64_int8(torch.from_numpy(b).to(home), n_slices, axis=0)
+    else:
+        sa_h, ulp_a_h = split_f64_int8(a, n_slices, axis=1)
+        sb_h, ulp_b_h = split_f64_int8(b, n_slices, axis=0)
+        sa, sb = torch.from_numpy(sa_h).to(home), torch.from_numpy(sb_h).to(home)
+        ulp_a, ulp_b = torch.from_numpy(ulp_a_h).to(home), torch.from_numpy(ulp_b_h).to(home)
+    mp, np_, kp = round_up(m, px), round_up(n, py), round_up(k, px * py)
+    sa_d = device_put(pad_to(sa, (n_slices, mp, kp)), mesh, P(None, ax, ay))
+    sb_d = device_put(pad_to(sb, (n_slices, kp, np_)), mesh, P(None, ax, ay))
+    del sa, sb
+    ga = all_gather(sa_d.shards, mesh, ay, dim=2)  # (s, M/px, K)
+    gb = all_gather(sb_d.shards, mesh, ax, dim=1)  # (s, K, N/py)
+    del sa_d, sb_d
+    his = np.empty(mesh.devices.shape, dtype=object)
+    los = np.empty(mesh.devices.shape, dtype=object)
+    for coord in mesh.coords():
+        with on_device(mesh.devices[coord]):
+            # n_diags = n_slices: diagonal n_slices weighs 2^(-7 n_slices),
+            # below the float-float floor (as ozaki_matmul_int8).
+            his[coord], los[coord] = fused_ozaki_int8(
+                ga[coord], gb[coord], block_k=min(2048, round_up(kp, 256)),
+                n_diags=n_slices)
+        ga[coord] = gb[coord] = None
+    hi = Sharded(mesh, P(ax, ay), (mp, np_), his).full()[:m, :n]
+    lo = Sharded(mesh, P(ax, ay), (mp, np_), los).full()[:m, :n]
+    return ((hi.double() + lo.double()) * ulp_a * ulp_b).cpu().numpy()
+
+
+ozaki_matmul_distributed.last_routes = {}

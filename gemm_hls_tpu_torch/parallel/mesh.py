@@ -2,14 +2,18 @@
 ``gemm_hls_tpu/parallel/mesh.py`` over torch devices.
 
 A :class:`Mesh` is a plain array of ``torch.device`` with named axes, as
-``jax.sharding.Mesh`` is one of JAX devices.  A device may repeat:
-``[torch.device("cuda")] * 4`` is a 4-rank ring whose ranks all live on one
-card (each with its own buffers, all running concurrently in one launch of
-the fused kernels), and ``["cpu"] * 4`` the same ranks on the CPU, where
-the fused GEMMs run their plain versions.  Ranks on two or more distinct
-cards need the multi-card transport (peer pointers, system-scope fences,
-one launch per card: ROADMAP A7) and are refused by the ops that run on a
-mesh (:func:`one_device`).
+``jax.sharding.Mesh`` is one of JAX devices; a rank is a coordinate of that
+array.  A device may repeat: ``[torch.device("cuda")] * 4`` is four ranks
+that all live on one card, each with its own buffers, and ``["cpu"] * 4``
+the same ranks on the CPU, where the kernels run their plain versions.
+
+One process drives every rank.  The collective GEMMs (SUMMA, Cannon, 2.5D:
+``parallel/summa.py``, ``parallel/grid25d.py``) move shards between ranks
+as copies (``parallel/sharding.py``), on one card or between cards.  The
+fused kernels B18 / B19 (``ops/ring.py``, ``ops/cannon.py``) run all their
+ranks in one launch on one card and refuse ranks on distinct cards
+(:func:`one_device`): that needs peer pointers and system-scope fences in
+the kernels (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -40,6 +44,43 @@ class Mesh:
         """The devices along ``axis`` (at index 0 of every other axis)."""
         idx = self.axis_names.index(axis)
         return list(np.moveaxis(self.devices, idx, 0).reshape(self.shape[axis], -1)[:, 0])
+
+    def coords(self):
+        """Every rank's coordinate, in row-major order."""
+        return list(np.ndindex(self.devices.shape))
+
+    def axis_index(self, coord, axes) -> int:
+        """The rank's index over ``axes`` (one axis name, or a tuple taken
+        major first, as ``jax.lax.axis_index`` numbers a joint axis)."""
+        idx = 0
+        for name in _axes(axes):
+            i = self.axis_names.index(name)
+            idx = idx * self.devices.shape[i] + coord[i]
+        return idx
+
+    def groups(self, axes):
+        """The ranks that a collective over ``axes`` joins: one list per
+        coordinate of the other axes, each ordered by :meth:`axis_index`."""
+        over = [self.axis_names.index(name) for name in _axes(axes)]
+        rest = [i for i in range(self.devices.ndim) if i not in over]
+        sizes = [self.devices.shape[i] for i in over]
+        out = []
+        for fixed in np.ndindex(*[self.devices.shape[i] for i in rest]):
+            group = []
+            for moving in np.ndindex(*sizes):
+                coord = [0] * self.devices.ndim
+                for i, v in zip(rest, fixed):
+                    coord[i] = v
+                for i, v in zip(over, moving):
+                    coord[i] = v
+                group.append(tuple(coord))
+            out.append(group)
+        return out
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    """An axis name or a tuple of them, as a tuple."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def _default_devices():

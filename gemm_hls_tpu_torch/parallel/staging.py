@@ -19,6 +19,10 @@ with the accumulator as their output type (kernel B1's engine route with
 fp32 output for bf16 panels; B3 for the other semirings), and the
 cross-panel sums stay in the accumulator type on the card.  On the CPU the
 same schedule runs the plain versions.
+
+:func:`distributed_streamed_matmul` runs the same schedule with each panel
+product over a mesh of ranks (the distributed CA-GEMM of
+``parallel/dispatch.py`` / ``parallel/grid25d.py``).
 """
 
 from __future__ import annotations
@@ -221,14 +225,28 @@ class _Drain:
                 self._finish(i)
 
 
-def _stream(m, n, k, *, sr, config, tile_m, tile_n, tile_k, in_dtype,
-            out_dtype, device, prefetch, fill_a, fill_b, sink):
-    """The staged schedule shared by the in-memory and the file GEMMs;
-    returns what it moved, which kernels ran and where the host's time
-    went (``last_stats``: ``stage_wait_s`` is the compute thread's wait
-    for staged panels)."""
-    acc_dtype = config.tacc_dtype
-    cfg_acc = config.replace(out_dtype=dtype_name(acc_dtype))
+def _local_product(sr, config: GemmConfig):
+    """Each panel product on the device's front door (kernel B1 for
+    plus_times, with the accumulator as its output type; B3 for the other
+    semirings); returns (partial, the kernel route, None on the CPU)."""
+    cfg_acc = config.replace(out_dtype=dtype_name(config.tacc_dtype))
+
+    def product(a_panel, b_panel):
+        partial = matmul(a_panel, b_panel, semiring=sr, config=cfg_acc)
+        if not a_panel.is_cuda:
+            return partial, None
+        return partial, (mxu.mxu_matmul.last_route if sr.is_mxu else "semiring_gemm")
+    return product
+
+
+def _stream(m, n, k, *, sr, acc_dtype, product, tile_m, tile_n, tile_k,
+            in_dtype, out_dtype, device, prefetch, fill_a, fill_b, sink):
+    """The staged schedule shared by the in-memory, the file and the
+    distributed GEMMs: ``product(a_panel, b_panel)`` returns a panel's
+    partial on ``device`` in ``acc_dtype`` and the routes its kernels took.
+    Returns what the schedule moved, each panel's routes and where the
+    host's time went (``last_stats``: ``stage_wait_s`` is the compute
+    thread's wait for staged panels)."""
     ident = sr.identity_for(acc_dtype)
     kp = cdiv(k, tile_k)
     jobs = [(i0, j0, kk)
@@ -266,10 +284,10 @@ def _stream(m, n, k, *, sr, config, tile_m, tile_n, tile_k, in_dtype,
             if kk == 0:
                 acc = torch.full((i1 - i0, j1 - j0), ident, dtype=acc_dtype,
                                  device=device)
-            partial = matmul(a_panel, b_panel, semiring=sr, config=cfg_acc)
+            partial, route = product(a_panel, b_panel)
             stager.release(slot)
-            if device.type == "cuda":
-                routes.append(mxu.mxu_matmul.last_route if sr.is_mxu else "semiring_gemm")
+            if route is not None:
+                routes.append(route)
             acc = sr.reduce_op(acc, partial)
             if kk == kp - 1:
                 drain.put(acc if acc.dtype == out_dtype else acc.to(out_dtype),
@@ -331,7 +349,8 @@ def streamed_matmul_files(a_file, b_file, c_file, *, semiring="plus_times",
         return lambda h, r0, r1, c0, c1: f.read_tile(r0, r1, c0, c1, out=h.numpy())
 
     streamed_matmul_files.last_stats = _stream(
-        m, n, k, sr=sr, config=config, tile_m=tile_m, tile_n=tile_n,
+        m, n, k, sr=sr, acc_dtype=config.tacc_dtype,
+        product=_local_product(sr, config), tile_m=tile_m, tile_n=tile_n,
         tile_k=tile_k, in_dtype=in_dtype, out_dtype=_torch_dtype(c_file.dtype),
         device=_device(device), prefetch=prefetch,
         fill_a=read(a_file), fill_b=read(b_file),
@@ -364,15 +383,27 @@ def streamed_matmul(a, b, *, semiring="plus_times",
     """
     sr = get_semiring(semiring)
     at, bt = _host_tensor(a), _host_tensor(b)
+    if config is None:
+        config = default_config(at.dtype, semiring=sr.name)
+    out, streamed_matmul.last_stats = _stream_host(
+        at, bt, as_numpy=not isinstance(a, torch.Tensor), out_dtype=out_dtype,
+        sr=sr, acc_dtype=config.tacc_dtype, product=_local_product(sr, config),
+        tile_m=tile_m, tile_n=tile_n, tile_k=tile_k, device=_device(device),
+        prefetch=prefetch)
+    return out
+
+
+def _stream_host(at, bt, *, as_numpy, out_dtype, **schedule):
+    """:func:`_stream` over host operands (CPU tensors): the result in
+    ``out_dtype`` (default: A's type) as a CPU tensor, or as a numpy array
+    where the caller passed numpy (``as_numpy``); returns (result,
+    ``last_stats``)."""
     m, k = at.shape
     k2, n = bt.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(at.shape)} x "
                          f"{tuple(bt.shape)}")
-    if config is None:
-        config = default_config(at.dtype, semiring=sr.name)
     out_dt = at.dtype if out_dtype is None else _torch_dtype(out_dtype)
-    as_numpy = not isinstance(a, torch.Tensor)
     if as_numpy and out_dt == torch.bfloat16:
         raise ValueError("numpy has no bfloat16: pass CPU tensors for a "
                          "bfloat16 result")
@@ -384,12 +415,75 @@ def streamed_matmul(a, b, *, semiring="plus_times",
     def sink(h, i0, i1, j0, j1):
         out[i0:i1, j0:j1].copy_(h)
 
-    streamed_matmul.last_stats = _stream(
-        m, n, k, sr=sr, config=config, tile_m=tile_m, tile_n=tile_n,
-        tile_k=tile_k, in_dtype=at.dtype, out_dtype=out_dt,
-        device=_device(device), prefetch=prefetch,
-        fill_a=panel(at), fill_b=panel(bt), sink=sink)
-    return out.numpy() if as_numpy else out
+    stats = _stream(m, n, k, in_dtype=at.dtype, out_dtype=out_dt,
+                    fill_a=panel(at), fill_b=panel(bt), sink=sink, **schedule)
+    return (out.numpy() if as_numpy else out), stats
+
+
+def distributed_streamed_matmul(a, b, mesh, *, semiring="plus_times",
+                                config: Optional[GemmConfig] = None,
+                                tile_m: int = 16384, tile_n: int = 16384,
+                                tile_k: int = 16384, algorithm: str = "summa",
+                                out_dtype=None):
+    """Out-of-device-memory GEMM over a mesh of ranks: host memory holds the
+    problem, and each stationary C host tile is computed by the distributed
+    CA-GEMM (``algorithm`` "summa": ``distributed_matmul``, or "25d":
+    ``matmul_25d`` on a (z, x, y) mesh).
+
+    The schedule is :func:`streamed_matmul`'s: each K panel goes host -> the
+    first rank's device through the pinned slot ring, prefetched where it
+    fits, the panel product spreads it over the ranks and brings the
+    partial back to that device in the accumulator type, where the
+    cross-panel partials accumulate (one rounding per panel in the input
+    type would breach bf16's 1e-3 contract); the cast to ``out_dtype``
+    happens once per C tile, on its way to host memory.  Ragged remainder
+    panels are padded to the mesh (K with the semiring's absorbing pair).
+
+    Args:
+      a: (M, K) numpy array or CPU tensor (a CPU tensor for bf16); b:
+        (K, N), the same kind.  The result comes back as the same kind, in
+        ``out_dtype`` (default: a's type).
+
+    What the call moved is left in ``distributed_streamed_matmul.last_stats``
+    (its ``routes``: each panel's {rank: [route]} where the ranks are on a
+    card).
+    """
+    import math
+
+    from gemm_hls_tpu_torch.config import round_up
+    from gemm_hls_tpu_torch.parallel.dispatch import _pad_for_mesh, distributed_matmul
+    from gemm_hls_tpu_torch.parallel.grid25d import matmul_25d
+    from gemm_hls_tpu_torch.parallel.summa import summa_matmul
+
+    sr = get_semiring(semiring)
+    at, bt = _host_tensor(a), _host_tensor(b)
+    acc_dt = (config or default_config(at.dtype, semiring=sr.name)).tacc_dtype
+    home = _device(mesh.devices.flat[0])
+
+    if algorithm == "summa":
+        def product(ap, bp):
+            res = distributed_matmul(ap, bp, mesh, algorithm="summa", semiring=sr,
+                                     config=config, out_dtype=acc_dt)
+            return res.full(home), dict(summa_matmul.last_routes) or None
+    elif algorithm == "25d":
+        cz, px, py = mesh.shape["z"], mesh.shape["x"], mesh.shape["y"]
+
+        def product(ap, bp):
+            mp_, kp_ = ap.shape
+            np_ = bp.shape[1]
+            # K split c * px ways for B and c * py ways for A.
+            kpad = round_up(kp_, cz * px * py // math.gcd(px, py))
+            ap, bp = _pad_for_mesh(ap, bp, sr, round_up(mp_, px), kpad, round_up(np_, py))
+            res = matmul_25d(ap, bp, mesh, semiring=sr, config=config, out_dtype=acc_dt)
+            return res.full(home)[:mp_, :np_], dict(matmul_25d.last_routes) or None
+    else:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+
+    out, distributed_streamed_matmul.last_stats = _stream_host(
+        at, bt, as_numpy=not isinstance(a, torch.Tensor), out_dtype=out_dtype,
+        sr=sr, acc_dtype=acc_dt, product=product, tile_m=tile_m, tile_n=tile_n,
+        tile_k=tile_k, device=home, prefetch=True)
+    return out
 
 
 def streamed_ozaki_matmul(a: np.ndarray, b: np.ndarray, *,
@@ -429,3 +523,4 @@ def streamed_ozaki_matmul(a: np.ndarray, b: np.ndarray, *,
 
 streamed_matmul.last_stats = None
 streamed_matmul_files.last_stats = None
+distributed_streamed_matmul.last_stats = None

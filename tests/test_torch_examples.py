@@ -23,8 +23,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORTED = sorted((REPO / "examples" / "torch").glob("[0-9]*.py"))
 
 # The reference's examples that the port does not run yet, by the ROADMAP.md
-# item (section A) that ports them: both need several cards.
-NOT_PORTED_EXAMPLES = {"A7": {"04_distributed.py", "06_training.py"}}
+# item (section A) that ports them: 06 waits for the MLP's dp / tp shardings.
+NOT_PORTED_EXAMPLES = {"A7": {"06_training.py"}}
 
 # Lines each example must print (a line starts with the given text), the
 # reference example's verification lines.
@@ -40,6 +40,10 @@ VERIFIED = {
                                "  longest shortest path: 23.27",
                                "transitive closure (or_and): consistent with APSP reachability",
                                "widest paths (max_min): median bottleneck 28.7"],
+    "04_distributed.py": ["SUMMA on {'x': 2, 'y': 4}: verified; C sharding "
+                          "PartitionSpec('x', 'y')", "Cannon on (2,2): verified",
+                          "2.5D on {'z': 2, 'x': 2, 'y': 2}: verified",
+                          "distributed min_plus: verified"],
     "05_f64_on_bf16.py": ["K=512: 8 slices of 7 mantissa bits each", "elementwise max rel err:",
                           "normwise max err:", "fused int8 variant normwise max err:"],
     "07_differentiable_semirings.py": ["initial 2-hop dist(0 -> 23): 6.825 (target 3.0)",

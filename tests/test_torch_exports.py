@@ -24,21 +24,23 @@ SUBPACKAGES = ("ops", "models", "utils", "parallel", "tools")
 # ROADMAP.md item (section A) that ports them.
 NOT_PORTED = {
     "parallel": {
-        "A7": {"distributed_matmul", "summa_matmul", "cannon_matmul", "shard_operands_2d",
-               "matmul_25d", "shard_operands_25d", "distributed_streamed_matmul",
-               "ring_flash_attention", "ring_decode_attention", "init_pipeline_params",
+        "A7": {"ring_flash_attention", "ring_decode_attention", "init_pipeline_params",
                "pipeline_forward", "pipeline_train_step", "shard_pipeline_params",
                "stages_forward"},
     },
 }
 
-# The modules of the staged GEMM, the analytical models, the serving block
-# and the tools (the tuning tools of slice 17 among them); each must import
-# on a machine without jax.
+# The modules of the staged and the distributed GEMMs, the analytical
+# models, the serving block and the tools (the tuning tools of slice 17
+# among them); each must import on a machine without jax.
 JAX_FREE_MODULES = (
     "gemm_hls_tpu_torch.__main__",
     "gemm_hls_tpu_torch.utils.tileio",
     "gemm_hls_tpu_torch.parallel.staging",
+    "gemm_hls_tpu_torch.parallel.sharding",
+    "gemm_hls_tpu_torch.parallel.summa",
+    "gemm_hls_tpu_torch.parallel.grid25d",
+    "gemm_hls_tpu_torch.parallel.dispatch",
     "gemm_hls_tpu_torch.models.perf_model",
     "gemm_hls_tpu_torch.models.scaling_model",
     "gemm_hls_tpu_torch.models.attn_model",

@@ -7,7 +7,9 @@ phase-16 tables; B13 and B14 / B15 on both tensor-core routes, the W8A8
 engine bitwise equal to its mma.sync tile) and the grouped GEMM's weight gradient (B17, both
 tensor-core routes, over its phase-19 tables), the fused ring and Cannon (B18, B19, over its
 phase-22 / 23 tables, ranks living on the card) on the card, each against
-its plain PyTorch version; the
+its plain PyTorch version; the distributed CA-GEMMs (SUMMA, Cannon, 2.5D,
+``distributed_matmul``, the distributed int8 Ozaki GEMM) on virtual ranks
+of the card, each rank's local kernel (B1, B3, B5) counted; the
 gradients of the batched, epilogue, ``fused_linear``, ``attention``, i8x,
 semiring and grouped paths against plain autograd; the i8x tiers, the
 Ozaki GEMMs and the graph applications against float64 and
@@ -190,11 +192,19 @@ def test_unported_requests_raise(cuda, request_):
         kw["epilogue"] = lambda acc: acc
     elif request_ == "interpret":
         kw["interpret"] = True
+    if request_ == "ozaki_distributed":
+        # Landed with the distributed CA-GEMM (ROADMAP A7's GEMM half): it
+        # now runs on ranks of the card, one B5 launch a rank.
+        from gemm_hls_tpu_torch.parallel import make_mesh
+        x = np.random.default_rng(0).uniform(-5, 5, (64, 64))
+        before = slice_kernels.fused_ozaki_int8.launches
+        got = ozaki.ozaki_matmul_int8_distributed(x, x, make_mesh((2, 2), devices=[cuda] * 4))
+        assert slice_kernels.fused_ozaki_int8.launches - before == 4
+        assert chip_smoke.normwise(torch, torch.from_numpy(got), torch.from_numpy(x),
+                                   torch.from_numpy(x))[0] < 1e-13
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
-        if request_ == "ozaki_distributed":
-            ozaki.ozaki_matmul_int8_distributed(np.ones((8, 8)), np.ones((8, 8)), None)
-        else:
-            matmul(a, a, **kw)
+        matmul(a, a, **kw)
 
 
 # ---- B1's epilogue and B2 --------------------------------------------------
@@ -1138,3 +1148,84 @@ def test_tuned_batched_route_is_adopted(cuda, tmp_path, monkeypatch):
     got = matmul(a, b)
     assert mxu.mxu_matmul_batched.last_route == win
     assert torch.allclose(got.float(), torch.matmul(a, b).float(), rtol=1e-2, atol=1e-1)
+
+
+# ---- the distributed CA-GEMMs on virtual ranks of the card ------------------
+
+def _mesh_of(cuda, shape, names=("x", "y")):
+    from gemm_hls_tpu_torch.parallel import make_mesh, mesh_25d
+    if len(shape) == 3:
+        return mesh_25d(c=shape[0], devices=[cuda] * int(np.prod(shape)))
+    return make_mesh(shape, names, devices=[cuda] * int(np.prod(shape)))
+
+
+def _launches():
+    return {"B1": mxu.mxu_matmul.launches, "B3": vpu.vpu_matmul.launches,
+            "B5": slice_kernels.fused_ozaki_int8.launches}
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in _launches().items() if v - before[k]}
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+def test_summa_bf16_on_ranks_of_the_card(cuda, ta, tb):
+    from gemm_hls_tpu_torch.parallel import summa_matmul
+    mesh = _mesh_of(cuda, (2, 4))
+    a, b = _operands(256, 512, 512, torch.bfloat16, ta, tb, device=cuda)
+    before = _launches()
+    c = summa_matmul(a, b, mesh, transpose_a=ta, transpose_b=tb, out_dtype=torch.float32)
+    assert _launched(before) == {"B1": 8}
+    assert summa_matmul.last_routes and all(
+        r == ["wgmma"] for r in summa_matmul.last_routes.values())
+    ref = torch.matmul((a.T if ta else a).float(), (b.T if tb else b).float())
+    _agree(c.full(), ref, 1e-4)
+
+
+@pytest.mark.parametrize("semiring,dtype", [("plus_times", torch.bfloat16),
+                                            ("min_plus", torch.float32)])
+def test_cannon_on_ranks_of_the_card(cuda, semiring, dtype):
+    from gemm_hls_tpu_torch.parallel import cannon_matmul
+    mesh = _mesh_of(cuda, (2, 2))
+    a, b = _operands(256, 256, 512, dtype, device=cuda)
+    before = _launches()
+    c = cannon_matmul(a, b, mesh, semiring=semiring)
+    assert _launched(before) == {"B1" if semiring == "plus_times" else "B3": 8}
+    ref = matmul(a.cpu(), b.cpu(), semiring=semiring, out_dtype=torch.float32).to(dtype)
+    _agree(c.full(), ref.to(cuda), 1e-2 if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.parametrize("semiring,dtype", [("plus_times", torch.bfloat16),
+                                            ("max_plus", torch.float32)])
+def test_matmul_25d_on_ranks_of_the_card(cuda, semiring, dtype):
+    from gemm_hls_tpu_torch.parallel import matmul_25d
+    mesh = _mesh_of(cuda, (2, 2, 2))
+    a, b = _operands(256, 256, 512, dtype, device=cuda)
+    before = _launches()
+    c = matmul_25d(a, b, mesh, semiring=semiring, out_dtype=torch.float32)
+    assert _launched(before) == {"B1" if semiring == "plus_times" else "B3": 8}
+    ref = matmul(a.cpu().float(), b.cpu().float(), semiring=semiring)
+    _agree(c.full(), ref.to(cuda), 1e-4 if semiring == "plus_times" else 0.0)
+
+
+def test_distributed_matmul_unaligned_on_ranks_of_the_card(cuda):
+    from gemm_hls_tpu_torch.parallel import distributed_matmul
+    mesh = _mesh_of(cuda, (2, 4))
+    a, b = _operands(257, 255, 253, torch.float32, ta=True, device=cuda)
+    before = _launches()
+    c = distributed_matmul(a, b, mesh, semiring="min_plus", transpose_a=True)
+    assert _launched(before) == {"B3": 8}
+    assert c.shape == (257, 255) and tuple(c.spec) == ()
+    ref = matmul(a.cpu(), b.cpu(), semiring="min_plus", transpose_a=True)
+    _agree(c.full(), ref.to(cuda), 0.0)
+
+
+def test_ozaki_int8_distributed_on_ranks_of_the_card(cuda):
+    mesh = _mesh_of(cuda, (2, 2))
+    rng = np.random.default_rng(13)
+    a, b = rng.uniform(-5, 5, (300, 520)), rng.uniform(-5, 5, (520, 260))
+    before = _launches()
+    got = ozaki.ozaki_matmul_int8_distributed(a, b, mesh)
+    assert _launched(before) == {"B5": 4}
+    assert chip_smoke.normwise(torch, torch.from_numpy(got), torch.from_numpy(a),
+                               torch.from_numpy(b))[0] < 1e-13

@@ -186,8 +186,16 @@ def test_unported_requests_name_roadmap(request_):
     elif request_ == "interpret":
         call = lambda: matmul(a, a, interpret=True)  # noqa: E731
     else:
-        call = lambda: ozaki.ozaki_matmul_int8_distributed(a.numpy(), a.numpy(),  # noqa: E731
-                                                           None)
+        # Landed with the distributed CA-GEMM (ROADMAP A7's GEMM half): the
+        # request now runs, here on four CPU ranks.
+        from gemm_hls_tpu_torch.parallel import make_mesh
+
+        x = np.random.default_rng(0).uniform(-5, 5, (8, 8))
+        got = ozaki.ozaki_matmul_int8_distributed(
+            x, x, make_mesh((2, 2), devices=["cpu"] * 4))
+        scale = np.linalg.norm(x, axis=1)[:, None] * np.linalg.norm(x, axis=0)[None, :]
+        assert (np.abs(got - x @ x) / scale).max() < 1e-13
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|backend='torch'"):
         call()
 

@@ -6,7 +6,10 @@ The JAX side runs its Pallas kernels in interpret mode, as
 plain versions of B1 and B5).  Tolerances: splits exact; ``ozaki_matmul``
 1e-14 and ``ozaki_matmul_int8`` 1e-13 normwise against the float64 oracle
 (the JAX tests' bounds) and within 1e-15 of the normwise scale of JAX's own
-result.  The K > 2^17 case runs against the oracle only.
+result.  The K > 2^17 case runs against the oracle only.  The distributed
+GEMMs run on CPU ranks against the JAX functions on the 8 virtual devices
+of ``tests/conftest.py``, at ``tests/test_ozaki.py``'s sizes and bounds
+(5e-14 bf16 slices, 1e-13 int8, the awkward K at its 1e-6 target).
 """
 
 import jax.numpy as jnp
@@ -18,9 +21,13 @@ from gemm_hls_tpu.ops import ozaki as jax_ozaki
 
 from gemm_hls_tpu_torch.config import default_config
 from gemm_hls_tpu_torch.ops import ozaki
+from gemm_hls_tpu_torch.parallel import make_mesh
 from gemm_hls_tpu_torch.utils import make_operands
 
 torch.set_num_threads(1)
+
+# Ranks on the CPU: the distributed GEMMs' plain versions.
+_MESH24 = make_mesh((2, 4), devices=["cpu"] * 8)
 
 
 def _scale(a, b):
@@ -200,11 +207,40 @@ def test_ozaki_refusals(request_):
                    ValueError, "contraction mismatch"),
         "interpret": (lambda: ozaki.ozaki_matmul(a, b, interpret=True),
                       NotImplementedError, "interpreter"),
-        "distributed": (lambda: ozaki.ozaki_matmul_distributed(a, b, None),
-                        NotImplementedError, "A7"),
+        "distributed": (lambda: ozaki.ozaki_matmul_distributed(a, a, _MESH24),
+                        ValueError, "contraction mismatch"),
         "int8_distributed": (lambda: ozaki.ozaki_matmul_int8_distributed(
-            a, b, None), NotImplementedError, "A7"),
+            a, a, _MESH24), ValueError, "contraction mismatch"),
     }
     fn, exc, match = calls[request_]
     with pytest.raises(exc, match=match):
         fn()
+
+
+def test_ozaki_distributed_matches_jax():
+    from gemm_hls_tpu.parallel import make_mesh as jax_mesh
+    a, b = make_operands(32, 64, 64, "float64", low=-5.0, high=5.0)
+    got = ozaki.ozaki_matmul_distributed(a, b, _MESH24)
+    want = jax_ozaki.ozaki_matmul_distributed(a, b, jax_mesh((2, 4)))
+    assert _normwise(got, a, b) < 5e-14
+    _near_jax(got, want, a, b)
+
+
+@pytest.mark.parametrize("shape,seed,target,bound", [
+    ((96, 140, 88), 13, 1e-14, 1e-13),   # test_int8_distributed_matches_oracle
+    ((32, 2500, 32), 17, 1e-6, 1e-6),    # test_int8_distributed_awkward_k
+])
+def test_ozaki_int8_distributed_matches_jax(shape, seed, target, bound):
+    import jax
+
+    from gemm_hls_tpu.parallel import make_mesh as jax_mesh
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-5, 5, (m, k))
+    b = rng.uniform(-5, 5, (k, n))
+    mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+    got = ozaki.ozaki_matmul_int8_distributed(a, b, mesh, target_rel=target)
+    want = jax_ozaki.ozaki_matmul_int8_distributed(
+        a, b, jax_mesh((2, 2), devices=jax.devices()[:4]), target_rel=target)
+    assert _normwise(got, a, b) < bound
+    _near_jax(got, want, a, b)

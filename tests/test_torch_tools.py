@@ -1,6 +1,8 @@
 """The port's tools on the CPU: the tile optimizer on the card's compiled
 tiles, the scaling model against ``gemm_hls_tpu.models.scaling_model`` with
-the same constants (every numeric key equal to rel 1e-12), and the CLIs
+the same constants (every numeric key equal to rel 1e-12; 2.5D's C
+reduction charged in the accumulator type on both sides, where the JAX
+model charges operand width), and the CLIs
 (``print_specifications``, ``profile``, ``oversize``, ``selftest`` and
 ``python -m gemm_hls_tpu_torch``) as smoke tests with ``--device cpu``.
 """
@@ -101,6 +103,27 @@ def _jax_chip(chip):
     return jax_pm.ChipSpec(**dataclasses.asdict(chip))
 
 
+_JAX_VOLUME = jax_sm.comm_volume_per_device
+
+
+def _jax_volume_acc_reduce(alg, m, n, k, mesh, itemsize=2):
+    """The JAX model's volume with 2.5D's C reduction charged in the
+    accumulator type (fp32 for 2-byte operands), as the port charges it."""
+    volume = _JAX_VOLUME(alg, m, n, k, mesh, itemsize)
+    if alg != "25d":
+        return volume
+    c, px, py = mesh
+    operands = _JAX_VOLUME("summa", m, n, k // c, (px, py), itemsize)
+    return operands + (volume - operands) // itemsize * max(itemsize, 4)
+
+
+@pytest.fixture
+def jax_sm_acc_reduce(monkeypatch):
+    """``jax_sm`` whose model reads :func:`_jax_volume_acc_reduce`."""
+    monkeypatch.setattr(jax_sm, "comm_volume_per_device", _jax_volume_acc_reduce)
+    return jax_sm
+
+
 CASES = [("summa", (16384, 16384, 16384), (4, 4)), ("summa", (8192, 4096, 2048), (2, 4)),
          ("cannon", (8192, 8192, 8192), (4, 4)), ("cannon", (4096, 4096, 4096), (2, 2)),
          ("25d", (16384, 16384, 16384), (4, 4, 4)), ("25d", (8192, 8192, 8192), (2, 2, 2))]
@@ -110,15 +133,15 @@ CASES = [("summa", (16384, 16384, 16384), (4, 4)), ("summa", (8192, 4096, 2048),
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_comm_volume_matches_jax(alg, mnk, mesh, itemsize):
     assert sm.comm_volume_per_device(alg, *mnk, mesh, itemsize) == \
-        jax_sm.comm_volume_per_device(alg, *mnk, mesh, itemsize)
+        _jax_volume_acc_reduce(alg, *mnk, mesh, itemsize)
 
 
 @pytest.mark.parametrize("alg,mnk,mesh", CASES, ids=str)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("overlap", [0.0, 0.8])
-def test_multichip_model_matches_jax(alg, mnk, mesh, dtype, overlap):
+def test_multichip_model_matches_jax(alg, mnk, mesh, dtype, overlap, jax_sm_acc_reduce):
     got = sm.multichip_model(alg, *mnk, mesh, dtype=dtype, chip=pm.H100, overlap=overlap)
-    want = jax_sm.multichip_model(alg, *mnk, mesh, dtype=dtype, chip=_jax_chip(pm.H100),
+    want = jax_sm_acc_reduce.multichip_model(alg, *mnk, mesh, dtype=dtype, chip=_jax_chip(pm.H100),
                                   overlap=overlap)
     assert set(got) == set(want)
     for key, value in want.items():
@@ -130,9 +153,9 @@ def test_multichip_model_matches_jax(alg, mnk, mesh, dtype, overlap):
 
 @pytest.mark.parametrize("alg,mesh", [("25d", (4, 2, 2)), ("summa", (4, 4)),
                                       ("cannon", (2, 2))])
-def test_weak_scaling_matches_jax(alg, mesh):
+def test_weak_scaling_matches_jax(alg, mesh, jax_sm_acc_reduce):
     got = sm.weak_scaling_efficiency(alg, (8192, 8192, 8192), mesh, chip=pm.H100)
-    want = jax_sm.weak_scaling_efficiency(alg, (8192, 8192, 8192), mesh,
+    want = jax_sm_acc_reduce.weak_scaling_efficiency(alg, (8192, 8192, 8192), mesh,
                                           chip=_jax_chip(pm.H100))
     assert got == pytest.approx(want, rel=1e-12)
     assert 0 < got <= 1
