@@ -260,6 +260,32 @@ Phases, each printed as it ends:
      Ozaki GEMMs at f64 8192^3 (int8, B5) and 2048^3 (bf16 slices, B1)
      against float64 ``torch.matmul``; (d) ``distributed_streamed_matmul``
      at fp32 16384^3 in 8192 tiles, SUMMA and 2.5D.
+ 29. slice 20's main path, training parallelism on virtual ranks of the
+     card, every launch count, the byte counter and the kernel library's
+     entry counts (``EntryLog``: an entry point names a kernel's route) set
+     to 0 before each call and read after: (a) ``ring_flash_attention`` at
+     B.H 16, S 32768, D 128 bf16 over 8 ranks, full, causal, zigzag, causal
+     with window 4096 and GQA 16 / 4, each held to the single-card
+     ``flash_mha`` on the same pre-scaled q, every forward launch on the
+     engine (36 causal, 136 zigzag), the causal and zigzag gradients held to
+     ``flash_mha_diff``'s, the bytes a rank received (forward (n - 1) 2
+     |KV shard|, backward that plus n 2 |KV shard in fp32|); (b)
+     ``ring_decode_attention`` over 4 ranks of a ragged 64-sequence x 4096
+     cache (GQA 16 / 4, S_q 1 and 4, window none and 1024) against the
+     single-card decode, one shard's call with lengths past both of its ends
+     against the plain version on ``mma.sync``; (c) the sharded MLP step at
+     (4096, 16384, 4096) x 8192 bf16 tokens on (dp 2, tp 4), 3 steps held to
+     the unsharded ``train_step``, the tp / dp psum bytes; (d)
+     ``moe_forward_ep`` on (dp 2, ep 4) and ``moe_forward_ep_a2a`` on ep 4
+     (capacity_factor 4) at d 2048 / d_ff 4096 / 8 experts top-2, 4096
+     tokens, output and gradients against ``moe_forward``, B16 / B17 on the
+     engine, the psum and all_to_all bytes; (e) the GPipe pipeline, 4 stages
+     of 4096 -> 16384 -> 4096 bf16, 8192 rows in 8 microbatches, against
+     ``stages_forward`` and one train step against its autograd step, the
+     ppermute bytes (T - 1) mb d 2 each way; each beside the single-card call
+     on CUDA events in turns; then each path's device-busy share in a fresh
+     process.  Phase 13's FLASH_ROUTE_CASES hold the forward's fp32 output
+     (``out_dtype=torch.float32``) on both 16-bit routes.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -2274,7 +2300,10 @@ FLASH_REFUSALS = ("head_dim", "interpret")
 # stale slots inside the last live tile (both its halves) and a length of
 # 1, segment ids, offsets (one a fully-future shard: o = 0, lse = -inf).
 # mma.sync: D 40 and 96, 63 rows a head, decode's one row, rows that are
-# not whole 16-byte units; fp32 on the CUDA cores.
+# not whole 16-byte units; fp32 on the CUDA cores.  "out_fp32" stores o in
+# fp32 (``out_dtype=torch.float32``, ring attention's partials) on both
+# 16-bit routes: held to the plain version and, rounded to the operand
+# type, bit for bit to the 16-bit-output launch (lse too).
 FLASH_ROUTE_CASES = (
     [("3d", dt, 2, 1, 1, 200, 333, d, {}, "wgmma")
      for dt, d in (("bfloat16", 128), ("float16", 64))]
@@ -2312,6 +2341,19 @@ FLASH_ROUTE_CASES = (
         {"causal": True, "kv_lengths": [1000, 1, 513, 999] * 4, "nan_pad": True}, "mma.sync"),
        ("3d", "bfloat16", 2, 1, 1, 200, 333, 128, {"pitched": True}, "mma.sync"),
        ("3d", "float32", 2, 1, 1, 200, 333, 64, {"causal": True}, "simt")]
+    # fp32 o on the engine (the ring's shapes: offsets, GQA, causal, full) and
+    # on mma.sync (decode's rows with lengths past both ends of a shard)
+    + [("3d", "bfloat16", 2, 1, 1, 333, 333, 128, {"causal": True, "out_fp32": True}, "wgmma"),
+       ("3d", "float16", 2, 1, 1, 200, 333, 64, {"out_fp32": True}, "wgmma"),
+       ("4d", "bfloat16", 2, 16, 4, 256, 256, 128,
+        {"causal": True, "window": 300, "offsets": [256, 0], "out_fp32": True}, "wgmma"),
+       ("3d", "bfloat16", 1, 4, 2, 100, 300, 128,
+        {"kv_lengths": [300, 77], "nan_pad": True, "out_fp32": True}, "wgmma"),
+       ("3d", "bfloat16", 2, 1, 1, 200, 333, 40, {"causal": True, "out_fp32": True},
+        "mma.sync"),
+       ("4d", "bfloat16", 4, 16, 4, 4, 1000, 128,
+        {"causal": True, "kv_lengths": [1000, -5, 513, 1400] * 4, "out_fp32": True},
+        "mma.sync")]
 )
 # The race check of the engine route: FLASH_REPEAT_CASE launched
 # FLASH_REPEATS times, the same bits each.
@@ -2445,6 +2487,8 @@ def flash_route_operands(torch, gen, case):
             v[at] = float("inf")
     if kw.pop("seg", False):
         kw.update(q_seg=[_SEG] * (nb * hq), kv_seg=[_SEG] * (nb * hkv))
+    if kw.pop("out_fp32", False):
+        kw["out_dtype"] = torch.float32
     scale = kw.pop("scale", d ** -0.5)
     ints = [flash._ints(kw.pop(n, None), q.device)
             for n in ("kv_lengths", "q_seg", "kv_seg", "offsets")]
@@ -2454,7 +2498,7 @@ def flash_route_operands(torch, gen, case):
 def flash_route_forward(torch, q, k, v, ints, scale, kw):
     from gemm_hls_tpu_torch.ops import flash
     return flash._forward(q, k, v, *ints, kw.get("causal", False), kw.get("window"),
-                          kw.get("logit_cap"), scale, 512)
+                          kw.get("logit_cap"), scale, 512, out_dtype=kw.get("out_dtype"))
 
 
 def flash_route_case(torch, gen, case):
@@ -2475,6 +2519,12 @@ def flash_route_case(torch, gen, case):
     if not bool(torch.isfinite(o).all()):
         raise AssertionError(f"{what}: non-finite output")
     compare(torch, lse, rlse, F32_RTOL, what + " lse", scaled=True)
+    if kw.get("out_dtype") is not None:  # the same kernel arithmetic, another store
+        o16, lse16 = flash_route_forward(torch, q, k, v, ints, scale,
+                                         dict(kw, out_dtype=q.dtype))
+        if not (torch.equal(o.to(q.dtype), o16) and torch.equal(lse, lse16)):
+            raise AssertionError(f"{what}: the fp32 o rounded differs from the "
+                                 f"{q.dtype} launch")
     return err
 
 
@@ -5613,6 +5663,7 @@ EXAMPLE_KERNELS = {
     "03_graph_algorithms.py": ("B3",),
     "04_distributed.py": ("B1", "B3"),
     "05_f64_on_bf16.py": ("B1", "B5"),
+    "06_training.py": ("B1",),
     "07_differentiable_semirings.py": ("B3",),
     "08_fused_distributed_kernels.py": ("B18", "B19"),
     "09_fp32_frontier.py": ("B1", "B4"),
@@ -6036,6 +6087,661 @@ def phase_slice19(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# Slice 20: training parallelism on virtual ranks of the card (phase 29)
+# ---------------------------------------------------------------------------
+
+# Phase 29's sizes: (a) the ring at B.H 16, S 32768, D 128 over 8 ranks; (b)
+# decode over 4 ranks of a 64-sequence cache of 4096 slots (16 q heads over 4
+# kv heads); (c) the trainer's width on (dp 2, tp 4); (d) serving_bench's
+# MoE width; (e) 4 stages of the trainer's block, 8 microbatches.
+PAR = dict(ring=dict(heads=16, kv_heads=4, seq=32768, d=128, ranks=8, window=4096),
+           decode=dict(seqs=64, slots=4096, q_heads=16, kv_heads=4, d=128, ranks=4,
+                       window=1024, lengths=(4, 1000, 1024, 1025, 3000, 4096)),
+           mlp=dict(dims=(4096, 16384, 4096), tokens=8192, mesh=(2, 4), steps=3, lr=0.1),
+           moe=dict(d_model=2048, d_ff=4096, experts=8, top_k=2, tokens=4096, capacity=4.0),
+           pipe=dict(stages=4, d_model=4096, d_ffn=16384, batch=8192, microbatches=8,
+                     lr=0.1))
+# Normwise |x - ref| / |ref| bounds against the single-card call: the ring's
+# and decode's outputs within twice the flash kernels' known 0.9e-3-2.3e-3
+# from plain (PERF.md section 7; P's bf16 rounding): each side rounds P
+# against its own running max, a shard's or the whole row's, and its output
+# to bf16 once; gradients and the sharded steps' bf16 results within bf16's
+# 1e-2 (each ring step's dq, dk, dv leave the kernels rounded to bf16 before
+# the fp32 sums; a psum adds bf16 partials).
+PAR_FWD_TOL, PAR_BF16_TOL = 5e-3, 1e-2
+
+
+class EntryLog:
+    """Every call into the kernel library, counted by entry point, which
+    names the kernel's route (``mxu_wgmma``, ``flash_wgmma``,
+    ``flash_bwd_dq_wgmma``, ``grouped_wgmma``, ...): inside ``with
+    EntryLog()`` every wrapper reaches the library through a counting proxy
+    (they all call ``_build.library()`` at launch)."""
+
+    def __init__(self):
+        import collections
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        from gemm_hls_tpu_torch import _build
+        lib, calls = _build.library(), self.calls
+
+        class Counting:
+            def __getattr__(self, name):
+                fn = getattr(lib, name)
+
+                def counted(*args):
+                    calls[name] += 1
+                    return fn(*args)
+                return counted
+
+        proxy = Counting()
+        self._build, self._library = _build, _build.library
+        _build.library = lambda: proxy
+        return self
+
+    def __exit__(self, *exc):
+        self._build.library = self._library
+        return False
+
+
+def par_step(torch, record, key, fn):
+    """``fn()`` with every launch count, the byte counter and an EntryLog set
+    to 0 just before it, read just after: record[key] holds its host seconds,
+    launches, library entries and the bytes each rank received by tag."""
+    from gemm_hls_tpu_torch.parallel import sharding
+    reset_every_counter()
+    sharding.reset_bytes()
+    with EntryLog() as entries:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    record[key] = dict(seconds=secs, launches=launched(), entries=dict(entries.calls),
+                       bytes={tag: dict(v) for tag, v in sharding.BYTES.items()})
+    return out
+
+
+def rel_norm(got, ref):
+    got, ref = got.detach().double(), ref.detach().double()
+    return float((got - ref).norm() / ref.norm())
+
+
+def within(what, err, tol):
+    if not err < tol:
+        raise AssertionError(f"{what}: normwise {err:.3e} >= {tol:g}")
+    return err
+
+
+def expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: {got}, want {want}")
+
+
+def rank_bytes(record, key, mesh, tag, want):
+    """Each rank of ``mesh`` received ``want`` bytes under ``tag`` in
+    record[key]'s run."""
+    got = record[key]["bytes"].get(tag, {})
+    expect(f"{key} {tag} bytes", {c: got.get(c, 0) for c in mesh.coords()},
+           {c: want for c in mesh.coords()})
+    return want
+
+
+def cuda_mesh(shape, names):
+    import torch
+    from gemm_hls_tpu_torch.parallel import make_mesh
+    n = 1
+    for s in shape:
+        n *= s
+    return make_mesh(shape, names, devices=[torch.device("cuda")] * n)
+
+
+def ring_inputs(torch):
+    c = PAR["ring"]
+    gen = torch.Generator(device="cuda").manual_seed(291)
+    full = [signed(torch, (c["heads"], c["seq"], c["d"]), torch.bfloat16, gen) for _ in range(3)]
+    gqa = [signed(torch, (c["kv_heads"], c["seq"], c["d"]), torch.bfloat16, gen)
+           for _ in range(2)]
+    return full, gqa
+
+
+def ring_launches(n, s_loc, causal=False, zigzag=False, window=None):
+    """Flash calls of one ring, by the schedule's own rule: every (rank,
+    shard) pair, causal the past and diagonal shards, with a window those
+    not wholly older than every query's window; zigzag 3 + 2 (n - 1) a
+    rank."""
+    if zigzag:
+        return n * (2 * n + 1)
+    count = 0
+    for my in range(n):
+        for shard in range(n):
+            if causal and shard > my:
+                continue
+            if window is not None and (shard + 1) * s_loc <= my * s_loc - window + 1:
+                continue
+            count += 1
+    return count
+
+
+def ring_rank_checks(torch, qs, k, v, mesh, window, my=5):
+    """Rank ``my``'s step calls of the causal window ring at the main path's
+    shape (S_loc rows, the window's offsets), held to the plain versions on
+    the same inputs: at its two live steps (the diagonal shard and the one
+    before it) the forward storing fp32 o, which rounded to bf16 must equal
+    the bf16 launch bit for bit, and the backward pair fed the ring's global
+    lse and a random dO.  Launches here are comparisons: they come after the
+    counted run.  Returns the largest abs error of each output."""
+    from gemm_hls_tpu_torch.ops import flash
+    from gemm_hls_tpu_torch.parallel import P, device_put
+    from gemm_hls_tpu_torch.parallel.ring_attention import _Plain
+    n = mesh.shape["x"]
+    s_loc = qs.shape[1] // n
+    ring = _Plain(mesh, "x", True, window, None, None, None, None, 512, 2048, None)
+    q_sh, k_sh, v_sh = (device_put(x, mesh, P(None, "x", None)).shards for x in (qs, k, v))
+    with torch.no_grad():
+        o, lse = ring.forward(q_sh, k_sh, v_sh)
+    c = (my,)
+    qc, lse_c = q_sh[c], lse[c][..., 0]
+    do = signed(torch, qc.shape, qc.dtype, torch.Generator(device="cuda").manual_seed(298))
+    delta = (do.float() * o[c].float()).sum(-1)
+    rtol, errs = flash_rtol(torch, qc.dtype), {}
+    for t in (0, 1):
+        (_, _, causal, offsets, _), = ring._calls(c, t, s_loc, s_loc, qc.device)
+        shard = ((my - t) % n,)
+        kc, vc, what = k_sh[shard], v_sh[shard], f"29a rank {my} step {t}"
+        kw = dict(causal=causal, window=window, scale=1.0)
+        o32, l32 = flash.flash_mha(qc, kc, vc, offsets=offsets, save_lse=True,
+                                   out_dtype=torch.float32, **kw)
+        expect(f"{what} forward route", flash.flash_mha.last_route, "wgmma")
+        o16, l16 = flash.flash_mha(qc, kc, vc, offsets=offsets, save_lse=True, **kw)
+        if not (torch.equal(o32.to(qc.dtype), o16) and torch.equal(l32, l16)):
+            raise AssertionError(f"{what}: the fp32 o rounded differs from the bf16 launch")
+        ro, rl = flash.flash_fwd_plain(qc, kc, vc, None, None, None, offsets,
+                                       out_dtype=torch.float32, **kw)
+        errs[f"step {t} o"] = compare(torch, o32, ro, rtol, f"{what} o", scaled=True)[0]
+        compare(torch, l32[..., 0], rl, F32_RTOL, f"{what} lse", scaled=True)
+        args = (qc, kc, vc, do, lse_c, delta)
+        got = [flash.flash_mha_bwd_dq(*args, offsets=offsets, **kw),
+               *flash.flash_mha_bwd_dkv(*args, offsets=offsets, **kw)]
+        expect(f"{what} backward routes", (flash.flash_mha_bwd_dq.last_route,
+                                           flash.flash_mha_bwd_dkv.last_route),
+               ("wgmma", "wgmma"))
+        want = [flash.flash_bwd_dq_plain(*args, None, None, offsets, **kw),
+                *flash.flash_bwd_dkv_plain(*args, None, None, offsets, **kw)]
+        for name, g, r in zip(("dq", "dk", "dv"), got, want):
+            errs[f"step {t} {name}"] = compare(torch, g, r, rtol, f"{what} {name}",
+                                               scaled=True)[0]
+    return errs
+
+
+def phase_ring(torch, record, times):
+    """Phase 29a: ring_flash_attention on 8 virtual ranks, each run held to
+    the single-card flash_mha on the same pre-scaled q; one rank's step
+    calls of the window ring held to the plain versions (ring_rank_checks);
+    the causal and zigzag gradients to flash_mha_diff's."""
+    from gemm_hls_tpu_torch.ops.flash import flash_mha, flash_mha_diff
+    from gemm_hls_tpu_torch.parallel import ring_flash_attention
+    from gemm_hls_tpu_torch.parallel.ring_attention import BWD_TAG, FWD_TAG
+    c = PAR["ring"]
+    n, s_loc, d = c["ranks"], c["seq"] // c["ranks"], c["d"]
+    mesh = cuda_mesh((n,), ("x",))
+    (q, k, v), (kg, vg) = ring_inputs(torch)
+    sc = torch.tensor(d ** -0.5, dtype=torch.bfloat16, device="cuda")
+    qs = q * sc  # the ring's pre-scaled q (JAX's (q * scale).astype(q.dtype))
+    runs = {"full": (k, v, {}),
+            "causal": (k, v, {"causal": True}),
+            "zigzag causal": (k, v, {"causal": True, "zigzag": True}),
+            f"causal window {c['window']}": (k, v, {"causal": True, "window": c["window"]}),
+            f"GQA {c['heads']}/{c['kv_heads']} causal": (kg, vg, {"causal": True})}
+    for name, (kk, vv, opts) in runs.items():
+        key = f"29a {name}"
+        o = par_step(torch, record, key, lambda: ring_flash_attention(q, kk, vv, mesh, **opts)
+                     .full())
+        single = {o2: opts[o2] for o2 in ("causal", "window") if o2 in opts}
+        ref = flash_mha(qs, kk, vv, **single)
+        err = within(key, rel_norm(o, ref), PAR_FWD_TOL)
+        want = ring_launches(n, s_loc, opts.get("causal", False), opts.get("zigzag", False),
+                             opts.get("window"))
+        expect(f"{key} launches", record[key]["launches"], {"flash_fwd": want})
+        expect(f"{key} routes", record[key]["entries"], {"flash_wgmma": want})
+        shard = kk.shape[0] * s_loc * d * 2
+        rank_bytes(record, key, mesh, FWD_TAG, (n - 1) * 2 * shard)
+        record[key]["normwise"] = err
+        times[key] = event_turns(torch, {
+            "ring": lambda kk=kk, vv=vv, opts=opts: ring_flash_attention(
+                q, kk, vv, mesh, **opts).shards.tolist(),
+            "single-card flash_mha": lambda kk=kk, vv=vv, single=single: flash_mha(
+                qs, kk, vv, **single)}, rounds=3, iters=1)
+        log(f"phase 29a: ring {name} bf16 {c['heads']}x{c['seq']}x{d} over {n} ranks: normwise "
+            f"{err:.3e} vs single-card flash_mha, flash_fwd x{want} on wgmma, "
+            f"{(n - 1) * 2 * shard} B received a rank; {record[key]['seconds']:.3f} s first "
+            f"call; in turns (ms): " + ", ".join(f"{a} {b:.3f}" for a, b in times[key].items()))
+    del o, ref
+    errs = ring_rank_checks(torch, qs, k, v, mesh, c["window"])
+    record["29a rank steps"] = errs
+    log(f"phase 29a: rank 5's calls of the window ring (S_loc {s_loc}, offsets) vs the plain "
+        f"versions, fp32 o rounded equal to the bf16 launch; max abs err "
+        + ", ".join(f"{a} {b:.3e}" for a, b in errs.items()))
+    gen = torch.Generator(device="cuda").manual_seed(292)
+    do = signed(torch, q.shape, torch.bfloat16, gen)
+    for name, zz in (("causal", False), ("zigzag causal", True)):
+        key = f"29a {name} gradient"
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def ring_grads(xs=xs, zz=zz):
+            o = ring_flash_attention(*xs, mesh, causal=True, zigzag=zz).full()
+            return torch.autograd.grad(o, xs, do)
+
+        def single_grads(xs=xs):
+            o = flash_mha_diff(xs[0] * sc, xs[1], xs[2], causal=True)
+            return torch.autograd.grad(o, xs, do)
+
+        got = par_step(torch, record, key, ring_grads)
+        want = single_grads()
+        errs = [within(f"{key} {w}", rel_norm(a, b), PAR_BF16_TOL)
+                for w, a, b in zip(("dq", "dk", "dv"), got, want)]
+        m = ring_launches(n, s_loc, True, zz)
+        expect(f"{key} launches", record[key]["launches"],
+               {"flash_fwd": m, "flash_bwd_dq": m, "flash_bwd_dkv": m})
+        expect(f"{key} routes", record[key]["entries"],
+               {"flash_wgmma": m, "flash_bwd_dq_wgmma": m, "flash_bwd_dkv_wgmma": m})
+        shard = c["heads"] * s_loc * d * 2
+        rank_bytes(record, key, mesh, FWD_TAG, (n - 1) * 2 * shard)
+        rank_bytes(record, key, mesh, BWD_TAG, (n - 1) * 2 * shard + n * 2 * 2 * shard)
+        record[key]["normwise"] = errs
+        times[key] = event_turns(torch, {"ring": ring_grads, "single-card flash_mha_diff":
+                                         single_grads}, rounds=3, iters=1)
+        log(f"phase 29a: ring {name} gradient: dq / dk / dv normwise "
+            f"{' / '.join(f'{e:.3e}' for e in errs)} vs flash_mha_diff, flash_fwd / dq / dkv "
+            f"x{m} each on wgmma, backward bytes a rank "
+            f"{(n - 1) * 2 * shard + n * 4 * shard}; in turns (ms): "
+            + ", ".join(f"{a} {b:.3f}" for a, b in times[key].items()))
+        del got, want, xs
+
+
+def phase_ring_decode(torch, record):
+    """Phase 29b: ring_decode_attention over 4 ranks of a ragged 64-sequence
+    cache (lengths leaving whole shards past the end), GQA, S_q 1 and 4, with
+    and without a window, each held to the single-card flash_mha(kv_lengths,
+    causal=True); then one shard's call with lengths past both ends of it
+    against the plain version on the card (the mma.sync route)."""
+    from gemm_hls_tpu_torch.ops import flash
+    from gemm_hls_tpu_torch.parallel import ring_decode_attention
+    from gemm_hls_tpu_torch.parallel.ring_attention import DECODE_TAG
+    c = PAR["decode"]
+    n, nb, d, slots = c["ranks"], c["seqs"], c["d"], c["slots"]
+    b_kv, b_q, s_loc = nb * c["kv_heads"], nb * c["q_heads"], c["slots"] // c["ranks"]
+    mesh = cuda_mesh((n,), ("x",))
+    gen = torch.Generator(device="cuda").manual_seed(293)
+    kc, vc = (signed(torch, (b_kv, slots, d), torch.bfloat16, gen) for _ in range(2))
+    lens = torch.randint(4, slots + 1, (nb,), generator=gen, device="cuda")
+    lens[:len(c["lengths"])] = torch.tensor(c["lengths"], device="cuda")
+    kvl = lens.repeat_interleave(c["kv_heads"]).to(torch.int32)
+    sc = torch.tensor(d ** -0.5, dtype=torch.bfloat16, device="cuda")
+    for s_q in (1, 4):
+        qd = signed(torch, (b_q, s_q, d), torch.bfloat16, gen)
+        for window in (None, c["window"]):
+            key = f"29b decode S_q {s_q} window {window}"
+            o = par_step(torch, record, key, lambda: ring_decode_attention(
+                qd, kc, vc, kvl, mesh, window=window).full())
+            ref = flash.flash_mha(qd * sc, kc, vc, kv_lengths=kvl, causal=True, window=window)
+            err = within(key, rel_norm(o, ref), PAR_FWD_TOL)
+            expect(f"{key} launches", record[key]["launches"], {"flash_fwd": n})
+            expect(f"{key} routes", record[key]["entries"], {"flash_fwd": n})
+            rank_bytes(record, key, mesh, DECODE_TAG, (n - 1) * (b_q * s_q * d + b_q * s_q) * 4)
+            record[key]["normwise"] = err
+            log(f"phase 29b: {key}: normwise {err:.3e} vs single-card flash_mha, flash_fwd "
+                f"x{n} on mma.sync, {record[key]['seconds'] * 1e3:.3f} ms first call")
+    # Both ends of a shard: shard 2's lengths re-anchored, some <= 0, some > S_loc.
+    qd = signed(torch, (b_q, 4, d), torch.bfloat16, gen)
+    len_eff = (kvl - 2 * s_loc).to(torch.int32)
+    if not (bool((len_eff <= 0).any()) and bool((len_eff > s_loc).any())):
+        raise AssertionError("29b: the shard's lengths do not reach past both of its ends")
+    ks, vs = kc[:, 2 * s_loc:3 * s_loc], vc[:, 2 * s_loc:3 * s_loc]
+    o, lse = flash.flash_mha(qd, ks, vs, kv_lengths=len_eff, causal=True, save_lse=True,
+                             out_dtype=torch.float32)
+    expect("29b shard route", flash.flash_mha.last_route, "mma.sync")
+    ro, rlse = flash.flash_fwd_plain(qd, ks, vs, len_eff, causal=True, out_dtype=torch.float32)
+    err = compare(torch, o, ro, BF16_RTOL, "29b shard past both ends o", scaled=True)[0]
+    compare(torch, lse[..., 0], rlse, F32_RTOL, "29b shard past both ends lse", scaled=True)
+    log(f"phase 29b: one shard's call with lengths -> {int(len_eff.min())} .. "
+        f"{int(len_eff.max())} (S_loc {s_loc}) on mma.sync vs the plain version: max abs err "
+        f"{err:.3e}, lse -inf on the same {int(torch.isinf(rlse).sum())} rows")
+
+
+def mlp_inputs(torch):
+    from gemm_hls_tpu_torch.models import mlp
+    c = PAR["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(294)
+    params = mlp.init_params(gen, c["dims"], torch.bfloat16)
+    batch = mlp.make_batch(gen, c["tokens"], c["dims"][0], c["dims"][-1], torch.bfloat16)
+    return params, batch
+
+
+def phase_mlp_sharded(torch, record, times):
+    """Phase 29c: the sharded MLP step (dp 2, tp 4) at the trainer's width,
+    three steps, each loss and the params after them held to the unsharded
+    train_step from the same weights; B1 on the engine; the tp and dp psum
+    bytes each rank received."""
+    from gemm_hls_tpu_torch.models import mlp
+    from gemm_hls_tpu_torch.ops import mxu
+    from gemm_hls_tpu_torch.parallel import device_put
+    c = PAR["mlp"]
+    (din, dh, dout), dp, tp = c["dims"], c["mesh"][0], c["mesh"][1]
+    mesh = cuda_mesh(c["mesh"], ("dp", "tp"))
+    params, batch = mlp_inputs(torch)
+    sharded = mlp.shard_params(params, mesh)
+    sb = tuple(device_put(t, mesh, mlp.batch_sharding(mesh)) for t in batch)
+    ref, losses = params, []
+    for step in range(c["steps"]):
+        key = f"29c step {step}"
+        sharded, loss = par_step(torch, record, key,
+                                 lambda p=sharded: mlp.train_step(p, sb, lr=c["lr"]))
+        ref, ref_loss = mlp.train_step(ref, batch, lr=c["lr"])
+        losses.append((float(loss), float(ref_loss)))
+        if not abs(losses[-1][0] - losses[-1][1]) <= BF16_RTOL * abs(losses[-1][1]):
+            raise AssertionError(f"{key}: loss {losses[-1]}")
+        # A rank's forward: two bf16 GEMMs on the engine; its backward dW0,
+        # dh and dW1 (x takes no gradient) in fp32, the cotangent's type
+        # (ops/matmul.py::_mxu_bwd, JAX's dot), on B1's CUDA-core route.
+        ranks = dp * tp
+        expect(f"{key} launches", record[key]["launches"], {"B1": 5 * ranks})
+        expect(f"{key} routes", record[key]["entries"],
+               {"mxu_wgmma": 2 * ranks, "mxu_gemm": 3 * ranks})
+        expect(f"{key} backward route", mxu.mxu_matmul.last_route, "simt")
+        partial = c["tokens"] // dp * dout * 2
+        rank_bytes(record, key, mesh, "tp_psum", 2 * (tp - 1) * partial // tp)
+        rank_bytes(record, key, mesh, "tp_psum_bwd", 2 * (tp - 1) * partial // tp)
+        over_dp = (din * dh // tp + dh // tp + dh // tp * dout) * 2
+        rank_bytes(record, key, mesh, "grad_psum",
+                   2 * (dp - 1) * over_dp // dp + 2 * (dp * tp - 1) * dout * 2 // (dp * tp))
+    errs = []
+    for (w, b), (rw, rb) in zip(sharded, ref):
+        errs += [within("29c params", rel_norm(w.full(), rw), PAR_BF16_TOL),
+                 within("29c params", rel_norm(b.full(), rb), PAR_BF16_TOL)]
+    record["29c"] = dict(losses=losses, param_normwise=errs)
+    times["29c"] = event_turns(torch, {
+        "sharded step": lambda: mlp.train_step(sharded, sb, lr=c["lr"])[1],
+        "single-card step": lambda: mlp.train_step(ref, batch, lr=c["lr"])[1]},
+        rounds=3, iters=1)
+    key = "29c step 0"
+    log(f"phase 29c: sharded MLP step {c['dims']} x {c['tokens']} bf16 tokens on (dp {dp}, tp "
+        f"{tp}): losses (sharded, single-card) {losses}, params normwise max {max(errs):.3e}; "
+        f"B1 x{record[key]['launches'].get('B1')} a step (the forward's on wgmma, the "
+        f"backward's fp32 on simt); bytes a rank: tp psum "
+        f"{record[key]['bytes']['tp_psum'][(0, 0)]} each way, grad psum "
+        f"{record[key]['bytes']['grad_psum'][(0, 0)]}; in turns (ms): "
+        + ", ".join(f"{a} {b:.3f}" for a, b in times["29c"].items()))
+
+
+def moe_inputs(torch):
+    """MoE params and tokens at PAR's width; tokens whose 2nd and 3rd router
+    logits lie within 1e-3 redrawn (a rank's router GEMM over its own rows
+    may round an exact near-tie the other way, as the CPU tests' seeds
+    assert none)."""
+    from gemm_hls_tpu_torch.models.moe import MoEConfig, init_moe_params
+    c = PAR["moe"]
+    cfg = MoEConfig(d_model=c["d_model"], d_ff=c["d_ff"], num_experts=c["experts"],
+                    top_k=c["top_k"], dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(295)
+    params = init_moe_params(gen, cfg)
+    x = signed(torch, (c["tokens"], c["d_model"]), torch.bfloat16, gen)
+    for _ in range(10):
+        logits = (x.double() @ params["router"].double()).sort(-1, descending=True)[0]
+        close = (logits[:, c["top_k"] - 1] - logits[:, c["top_k"]]) < 1e-3
+        if not bool(close.any()):
+            break
+        x[close] = signed(torch, (int(close.sum()), c["d_model"]), torch.bfloat16, gen)
+    return cfg, params, x
+
+
+def ep_rank_calls(torch, fn):
+    """The first B16 forward, B16 dlhs and B17 call that ``fn()`` makes (the
+    first rank's: in an EP form most of its slots sort into the zero tail),
+    their operands copied as given, each then held to its plain version on
+    them; the rows past the groups exactly zero.  Launches here are
+    comparisons: they come after the counted run.  Returns, per call, (the
+    largest abs error, the share of rows in the zero tail)."""
+    from gemm_hls_tpu_torch.ops import gmm, grouped
+    seen = {}
+
+    def recorder(name, wrapped):
+        def call(lhs, rhs, sizes, **kw):
+            key = name if name == "B17" else ("B16 dlhs" if kw.get("transpose_rhs") else "B16")
+            if key not in seen:
+                seen[key] = (lhs.detach().clone(), rhs.detach().clone(), sizes.clone(), kw)
+            return wrapped(lhs, rhs, sizes, **kw)
+        return call
+
+    saved = grouped.grouped_mxu, grouped.grouped_update_mxu
+    grouped.grouped_mxu = recorder("B16", saved[0])
+    grouped.grouped_update_mxu = recorder("B17", saved[1])
+    try:
+        fn()
+    finally:
+        grouped.grouped_mxu, grouped.grouped_update_mxu = saved
+    expect("ep rank calls", sorted(seen), ["B16", "B16 dlhs", "B17"])
+    out = {}
+    for key, (lhs, rhs, sizes, kw) in seen.items():
+        m, used = lhs.shape[0], int(gmm.group_ends(sizes, lhs.shape[0])[-1])
+        if key == "B17":
+            kw = dict(num_groups=kw["num_groups"], out_dtype=kw.get("out_dtype"))
+            got = gmm.grouped_update_mxu(lhs, rhs, sizes, **kw)
+            route, ref = gmm.grouped_update_mxu.last_route, gmm.grouped_update_mxu_plain(
+                lhs, rhs, sizes, **kw)
+        else:
+            kw = dict(transpose_rhs=kw.get("transpose_rhs", False), out_dtype=kw.get("out_dtype"))
+            got = gmm.grouped_mxu(lhs, rhs, sizes, **kw)
+            route, ref = gmm.grouped_mxu.last_route, gmm.grouped_mxu_plain(lhs, rhs, sizes, **kw)
+            if bool(got[used:].any()):
+                raise AssertionError(f"ep {key}: rows past the groups are not zero")
+        expect(f"ep {key} route", route, "wgmma")
+        err = compare(torch, got, ref, quant_rtol(torch, got.dtype), f"ep {key}", scaled=True)[0]
+        out[key] = (err, (m - used) / m)
+    return out
+
+
+def phase_moe_ep(torch, record, times):
+    """Phase 29d: moe_forward_ep on (dp 2, ep 4) and moe_forward_ep_a2a on ep
+    4 (capacity_factor 4: nothing drops), output and gradients held to the
+    single-card moe_forward; B16 / B17 routes; the first rank's B16 forward,
+    B16 dlhs and B17 calls held to their plain versions (ep_rank_calls); the
+    psum and all_to_all bytes each rank received."""
+    from gemm_hls_tpu_torch.models.moe import (
+        a2a_capacity, moe_forward, moe_forward_ep, moe_forward_ep_a2a,
+    )
+    from gemm_hls_tpu_torch.parallel import Sharded
+    c = PAR["moe"]
+    cfg, params, x = moe_inputs(torch)
+    w = signed(torch, x.shape, torch.float32, torch.Generator(device="cuda").manual_seed(296))
+    m24, m4 = cuda_mesh((2, 4), ("dp", "ep")), cuda_mesh((4,), ("ep",))
+    names = ("router", "w1", "w2")
+
+    def grads(fn):
+        p = {k: params[k].detach().requires_grad_() for k in names}
+        xg = x.detach().requires_grad_()
+        y = fn(p, xg)
+        y = y.full() if isinstance(y, Sharded) else y
+        return (y, *torch.autograd.grad((y.float() * w).sum(), [p[k] for k in names] + [xg]))
+
+    want = grads(lambda p, xx: moe_forward(p, xx, cfg))
+    d, ep = c["d_model"], 4
+    cap = a2a_capacity(c["tokens"] // ep, c["top_k"], ep, c["capacity"])
+    runs = {"ep psum (dp 2, ep 4)": (lambda p, xx: moe_forward_ep(p, xx, cfg, m24), m24),
+            f"ep all_to_all (ep 4, capacity_factor {c['capacity']:g})":
+                (lambda p, xx: moe_forward_ep_a2a(p, xx, cfg, m4,
+                                                  capacity_factor=c["capacity"]), m4)}
+    for name, (fn, mesh) in runs.items():
+        key = f"29d {name}"
+        got = par_step(torch, record, key, lambda fn=fn: grads(fn))
+        errs = [within(f"{key} {what}", rel_norm(a, b), PAR_BF16_TOL)
+                for what, a, b in zip(("y",) + names + ("x",), got, want)]
+        got_l, ent = record[key]["launches"], record[key]["entries"]
+        expect(f"{key} launches", set(got_l), {"B16", "B17"})
+        expect(f"{key} routes", ent, {"grouped_wgmma": got_l.get("B16"),
+                                      "grouped_update_wgmma": got_l.get("B17")})
+        if "psum" in name:
+            partial = c["tokens"] // 2 * d * 2
+            rank_bytes(record, key, mesh, "ep_psum", 2 * (ep - 1) * partial // ep)
+            rank_bytes(record, key, mesh, "ep_psum_bwd", 2 * (ep - 1) * partial // ep)
+        else:
+            rank_bytes(record, key, mesh, "all_to_all", (ep - 1) * cap * (2 * d * 2 + 4))
+            rank_bytes(record, key, mesh, "all_to_all_bwd", (ep - 1) * cap * 2 * d * 2)
+        record[key]["normwise"] = errs
+        calls = ep_rank_calls(torch, lambda fn=fn: grads(fn))
+        if not calls["B16"][1] > 0.5:
+            raise AssertionError(f"{key}: the first rank's B16 call has only "
+                                 f"{calls['B16'][1]:.0%} of its rows in the zero tail")
+        record[key]["rank_calls"] = calls
+        times[key] = event_turns(torch, {
+            "ep": lambda fn=fn: fn(params, x).shards.tolist(),
+            "single-card moe_forward": lambda: moe_forward(params, x, cfg)}, rounds=3, iters=3)
+        log(f"phase 29d: {key[4:]} d {d} d_ff {c['d_ff']} {c['experts']} experts top-"
+            f"{c['top_k']} bf16, {c['tokens']} tokens: y / router / w1 / w2 / x grads normwise "
+            f"{' / '.join(f'{e:.3e}' for e in errs)} vs single-card moe_forward; launches "
+            f"{got_l} on the engine; the first rank's calls vs the plain versions (max abs "
+            f"err, zero-tail share): "
+            + ", ".join(f"{a} {e:.3e} {z:.0%}" for a, (e, z) in calls.items())
+            + "; bytes a rank "
+            f"{ {t: v[next(iter(v))] for t, v in record[key]['bytes'].items()} }; forward in "
+            f"turns (ms): " + ", ".join(f"{a} {b:.3f}" for a, b in times[key].items()))
+
+
+def pipe_inputs(torch):
+    from gemm_hls_tpu_torch.parallel import init_pipeline_params
+    c = PAR["pipe"]
+    gen = torch.Generator(device="cuda").manual_seed(297)
+    params = init_pipeline_params(gen, c["stages"], c["d_model"], c["d_ffn"], torch.bfloat16)
+    x, y = (signed(torch, (c["batch"], c["d_model"]), torch.bfloat16, gen) for _ in range(2))
+    return params, x, y
+
+
+def phase_pipeline(torch, record, times):
+    """Phase 29e: pipeline_forward on 4 stages held to stages_forward, one
+    pipeline_train_step to the autograd step of stages_forward, B1 on the
+    engine, the ppermute bytes (T - 1) mb d 2 each way."""
+    from gemm_hls_tpu_torch.parallel import (
+        pipeline_forward, pipeline_train_step, shard_pipeline_params, stages_forward,
+    )
+    c = PAR["pipe"]
+    p_, m, d = c["stages"], c["microbatches"], c["d_model"]
+    mb, steps = c["batch"] // m, m + p_ - 1
+    mesh = cuda_mesh((p_,), ("pp",))
+    params, x, y = pipe_inputs(torch)
+    sp = shard_pipeline_params(params, mesh)
+    key = "29e forward"
+    o = par_step(torch, record, key, lambda: pipeline_forward(sp, x, mesh, microbatches=m).full())
+    err = within(key, rel_norm(o, stages_forward(params, x)), PAR_BF16_TOL)
+    expect(f"{key} launches", record[key]["launches"], {"B1": 2 * p_ * m})
+    expect(f"{key} routes", record[key]["entries"], {"mxu_wgmma": 2 * p_ * m})
+    hops = (steps - 1) * mb * d * 2
+    rank_bytes(record, key, mesh, "pipeline", hops)
+    key = "29e train step"
+    new, loss = par_step(torch, record, key, lambda: pipeline_train_step(
+        sp, (x, y), mesh, microbatches=m, lr=c["lr"]))
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    ref_loss = torch.mean((stages_forward(leaves, x).float() - y.float()) ** 2)
+    g = torch.autograd.grad(ref_loss, list(leaves.values()))
+    ref_loss = ref_loss.detach()
+    errs = [within(f"{key} {name}", rel_norm(new[name].full(), leaves[name].detach() - c["lr"] * gg),
+                 PAR_BF16_TOL) for name, gg in zip(leaves, g)]
+    if not abs(float(loss) - float(ref_loss)) <= BF16_RTOL * abs(float(ref_loss)):
+        raise AssertionError(f"{key}: loss {float(loss)} vs {float(ref_loss)}")
+    # Each stage application's two bf16 GEMMs on the engine, again in the
+    # backward's recompute (remat); its backward's dW1, dW2, dh and (past
+    # stage 0, whose input takes no gradient) dx in fp32 on B1's CUDA-core
+    # route.
+    b1 = record[key]["launches"].get("B1", 0)
+    bwd = m * (4 * p_ - 1)
+    expect(f"{key} launches", record[key]["launches"], {"B1": 4 * p_ * m + bwd})
+    expect(f"{key} routes", record[key]["entries"],
+           {"mxu_wgmma": 4 * p_ * m, "mxu_gemm": bwd})
+    rank_bytes(record, key, mesh, "pipeline", hops)
+    rank_bytes(record, key, mesh, "pipeline_bwd", hops)
+    record["29e"] = dict(forward_normwise=err, param_normwise=errs,
+                         loss=(float(loss), float(ref_loss)))
+    times["29e"] = event_turns(torch, {
+        "pipeline_forward": lambda: pipeline_forward(sp, x, mesh, microbatches=m).shards.tolist(),
+        "stages_forward": lambda: stages_forward(params, x),
+        "pipeline_train_step": lambda: pipeline_train_step(sp, (x, y), mesh, microbatches=m,
+                                                           lr=c["lr"])[1]}, rounds=3, iters=1)
+    log(f"phase 29e: pipeline {p_} stages of {d} -> {c['d_ffn']} -> {d} bf16, batch "
+        f"{c['batch']} in {m} microbatches (T {steps}): forward normwise {err:.3e} vs "
+        f"stages_forward, B1 x{2 * p_ * m} on wgmma; train step loss {float(loss):.6f} vs "
+        f"{float(ref_loss):.6f}, params normwise max {max(errs):.3e}, B1 x{b1} ({4 * p_ * m} "
+        f"on wgmma, {bwd} fp32 on simt); ppermute "
+        f"{hops} B a rank each way; in turns (ms): "
+        + ", ".join(f"{a} {b:.3f}" for a, b in times["29e"].items()))
+
+
+def phase29_profiles(torch):
+    """Device-busy share of one call of each phase-29 path (torch.profiler),
+    run in a fresh process: late in a long one the profiler held only part
+    of the kernels' device time (phase 27c)."""
+    from gemm_hls_tpu_torch.models import mlp
+    from gemm_hls_tpu_torch.models.moe import moe_forward_ep
+    from gemm_hls_tpu_torch.parallel import (
+        device_put, pipeline_train_step, ring_flash_attention, shard_pipeline_params,
+    )
+    (q, k, v), _ = ring_inputs(torch)
+    ring_mesh = cuda_mesh((PAR["ring"]["ranks"],), ("x",))
+    params, batch = mlp_inputs(torch)
+    mesh = cuda_mesh(PAR["mlp"]["mesh"], ("dp", "tp"))
+    sharded = mlp.shard_params(params, mesh)
+    sb = tuple(device_put(t, mesh, mlp.batch_sharding(mesh)) for t in batch)
+    cfg, moe_params, x = moe_inputs(torch)
+    ep_mesh = cuda_mesh((2, 4), ("dp", "ep"))
+    pp, px, py = pipe_inputs(torch)
+    pmesh = cuda_mesh((PAR["pipe"]["stages"],), ("pp",))
+    sp = shard_pipeline_params(pp, pmesh)
+    fns = {"ring causal forward": lambda: ring_flash_attention(q, k, v, ring_mesh, causal=True),
+           "sharded MLP step": lambda: mlp.train_step(sharded, sb, lr=0.1),
+           "MoE ep psum forward": lambda: moe_forward_ep(moe_params, x, cfg, ep_mesh),
+           "pipeline train step": lambda: pipeline_train_step(
+               sp, (px, py), pmesh, microbatches=PAR["pipe"]["microbatches"], lr=0.1)}
+    out = {}
+    for name, fn in fns.items():
+        busy, kernels = device_profile(torch, fn, 2)
+        out[name] = dict(busy=busy, kernels=kernels[:4])
+    return out
+
+
+def phase_slice20(torch):
+    """Phase 29 (main path): training parallelism on virtual ranks of the card
+    (29a ring attention, 29b ring decode, 29c the sharded MLP step, 29d MoE
+    expert parallelism, 29e the pipeline), every launch count, the byte
+    counter and the library's entry counts set to 0 just before each call
+    and read just after; then each path's device-busy share in a fresh
+    process.  Returns (record, times, profiles)."""
+    record, times, secs = {}, {}, {}
+    for name, fn in (("29a", lambda: phase_ring(torch, record, times)),
+                     ("29b", lambda: phase_ring_decode(torch, record)),
+                     ("29c", lambda: phase_mlp_sharded(torch, record, times)),
+                     ("29d", lambda: phase_moe_ep(torch, record, times)),
+                     ("29e", lambda: phase_pipeline(torch, record, times))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    code = ("import json, sys, torch\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            "import chip_smoke as cs\n"
+            "print(json.dumps(cs.phase29_profiles(torch)))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"phase 29 profiles: the process failed:\n{proc.stderr[-3000:]}")
+    profiles = json.loads(proc.stdout.splitlines()[-1])
+    secs["profiles"] = time.perf_counter() - t0
+    for name, prof in profiles.items():
+        log(f"phase 29: {name} profile: device busy {prof['busy']:.1%} of the host clock; by "
+            f"kernel (us a call): " + "; ".join(f"{k[:60]} {us:.1f}" for k, us in prof["kernels"]))
+    log("phase 29: seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return record, times, profiles
+
+
 def main() -> int:
     import torch
 
@@ -6127,6 +6833,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dist19 = phase_slice19(torch)
     log(f"phase 28: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    par20, par20_times, par20_profiles = phase_slice20(torch)
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s")
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -6315,6 +7024,16 @@ def main() -> int:
         kernels[idx]["distributed_launches"] = sum(
             got.get(key, 0) for got in dist19["launches"].values())
     kernels[0]["distributed_bf16_8192_ms"] = dist19["times"]
+    # Slice 20's training parallelism (phase 29): each kernel's launches on
+    # its runs, and each run's times in turns beside the single-card call.
+    by_kernel = {"B1": "mxu_gemm (B1", "flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+                 "flash_bwd_dkv": "flash_bwd_dkv", "B16": "grouped_gemm", "B17": "grouped_update"}
+    for key, prefix in by_kernel.items():
+        entry = next(k for k in kernels if k["name"].startswith(prefix))
+        entry["parallel_launches"] = sum(r["launches"].get(key, 0) for r in par20.values()
+                                         if isinstance(r, dict) and "launches" in r)
+    kernels[0]["parallel_times_ms"] = par20_times
+    kernels[0]["parallel_busy"] = {k: v["busy"] for k, v in par20_profiles.items()}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -67,10 +67,11 @@ struct FlashArgs {
   float cap, scale;    // cap 0: none
   int vec;             // every row start 16-byte aligned: cp.async tiles
   int b0;              // first head (fwd, dq) or kv head (dkv) of this launch
+  int o_f32;           // forward: o stored in fp32 whatever q's type (the ring's partials)
 };
 
 // The dims block of the entry points: B, group, S_q, S_kv, D, causal,
-// window, vec.
+// window, vec (the forward's block adds o_f32 as its ninth entry).
 inline void dims_into(FlashArgs& a, const int* dims) {
   a.B = dims[0];
   a.group = dims[1];

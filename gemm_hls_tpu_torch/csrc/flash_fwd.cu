@@ -235,13 +235,24 @@ __global__ void __launch_bounds__(FT) flash_fwd_tc(const FlashArgs a) {
     if (r >= a.S_q) continue;
     const float inv = 1.f / (l_r[h] == 0.f ? 1.f : l_r[h]);
     const int64_t base = a.o.row(b, r);
+    if (a.o_f32) {  // fp32 o (ops/flash.py out_dtype=float32): the sum / l unrounded
+      float* of = static_cast<float*>(o) + base;
 #pragma unroll
-    for (int t = 0; t < NT_D; ++t)
+      for (int t = 0; t < NT_D; ++t)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = t * 8 + 2 * tq + e;
-        if (d < a.D) MmaType<T>::store(o, base + d, acc[t][2 * h + e] * inv);
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int d = t * 8 + 2 * tq + e;
+          if (d < a.D) of[d] = acc[t][2 * h + e] * inv;
+        }
+    } else {
+#pragma unroll
+      for (int t = 0; t < NT_D; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = t * 8 + 2 * tq + e;
+          if (d < a.D) MmaType<T>::store(o, base + d, acc[t][2 * h + e] * inv);
+        }
+    }
     if (a.lse && tq == 0) a.lse[static_cast<int64_t>(b) * a.S_q + r] = m_r[h] * kLn2 + logf(l_r[h]);
   }
 }
@@ -341,8 +352,9 @@ int launch_flash(K kernel, int rows, int threads, int smem, const FlashArgs& a, 
 using namespace gemm_hls;
 
 // seqs: (pointer, heads, sb, sh, ss) x {q, k, v, o}; dims: B, group, S_q,
-// S_kv, D, causal, window, vec; lse: (B, S_q) fp32 or null; kv_len (B_kv,),
-// q_seg (B, S_q), kv_seg (B_kv, S_kv) and offs (2,) int32, each or null;
+// S_kv, D, causal, window, vec, o_f32 (o in fp32 for a 16-bit q); lse:
+// (B, S_q) fp32 or null; kv_len (B_kv,), q_seg (B, S_q), kv_seg (B_kv,
+// S_kv) and offs (2,) int32, each or null;
 // cap 0 for none.  Returns 0, a CUDA error code, or -1 for a dtype or D no
 // kernel is built for (D <= 128).
 extern "C" int flash_fwd(const int64_t* seqs, void* lse, const void* kv_len, const void* q_seg,
@@ -359,6 +371,7 @@ extern "C" int flash_fwd(const int64_t* seqs, void* lse, const void* kv_len, con
   a.kv_seg = static_cast<const int*>(kv_seg);
   a.offs = static_cast<const int*>(offs);
   dims_into(a, dims);
+  a.o_f32 = dims[8];
   a.cap = cap;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -48,7 +48,8 @@
 //     64 rows into a staging tile in the O map's swizzled boxes (no bank
 //     conflict) and one thread issues a TMA store a 64-column chunk, which
 //     clips the rows past S_q (4-byte stores scattered over 8 rows a warp
-//     took ~2 us an item);
+//     took ~2 us an item); an fp32 o (out_dtype=float32, the ring
+//     attention's partials) is stored from registers, 8 bytes a store;
 //   * kv slots at or past kv_lengths inside the last live tile (a padded
 //     cache's stale NaN / inf, which TMA cannot stop at) are zeroed in
 //     shared memory by the consumers before P V, then fenced to the async
@@ -291,12 +292,6 @@ __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, i
       l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
       l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
     }
-    // O goes out through this warpgroup's staging tile (64 rows, the O
-    // map's 128-byte-swizzled boxes: 16-byte unit u of row r at u ^ (r % 8),
-    // no bank conflict) and one TMA store a 64-column chunk, which clips the
-    // rows past S_q; the previous item's store has read the tile first.
-    if (tid == 0) bulk_wait_read<0>();
-    named_sync(2 + wg, 128);
     float inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -305,6 +300,32 @@ __device__ void fw_consume(const FwArgs& g, unsigned char* smem, FwBars* bars, i
       if (a.lse && tq == 0 && r < a.S_q)
         a.lse[static_cast<int64_t>(it.b) * a.S_q + r] = m_r[h] * kLn2 + logf(l_r[h]);
     }
+    if (a.o_f32) {
+      // fp32 o (the ring's partials, ops/flash.py out_dtype=float32): each
+      // thread stores its fragment's column pairs as 8-byte stores, no
+      // staging (fp32 would double the staging tiles to 64 KB at D 128,
+      // 230.5 KB of the block's 232 KB; the direct store is the simple
+      // first form).  The wrapper allocates o, so its rows are whole
+      // 8-byte pairs.
+      float* of = static_cast<float*>(const_cast<void*>(a.o.p));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = it.q0 + r_loc + 8 * h;
+        if (r >= a.S_q) continue;
+        float* row = of + a.o.row(it.b, r) + 2 * tq;
+#pragma unroll
+        for (int jj = 0; jj < DMAX / 8; ++jj)
+          *reinterpret_cast<float2*>(row + 8 * jj) =
+              make_float2(o[4 * jj + 2 * h] * inv[h], o[4 * jj + 2 * h + 1] * inv[h]);
+      }
+      continue;
+    }
+    // O goes out through this warpgroup's staging tile (64 rows, the O
+    // map's 128-byte-swizzled boxes: 16-byte unit u of row r at u ^ (r % 8),
+    // no bank conflict) and one TMA store a 64-column chunk, which clips the
+    // rows past S_q; the previous item's store has read the tile first.
+    if (tid == 0) bulk_wait_read<0>();
+    named_sync(2 + wg, 128);
     fw_stage<T, DMAX>(o_stage, o, inv);
     fence_proxy_async_shared();
     named_sync(2 + wg, 128);
@@ -353,7 +374,7 @@ int launch_flash_wg(FwArgs& g, cudaStream_t st) {
   if (!encode_seq(&g.mq, a.q, a.B, a.S_q, a.D, f16, kFwBQ) ||
       !encode_seq(&g.mk, a.k, b_kv, a.S_kv, a.D, f16, kFwBKV) ||
       !encode_seq(&g.mv, a.v, b_kv, a.S_kv, a.D, f16, 64) ||
-      !encode_seq(&g.mo, a.o, a.B, a.S_q, a.D, f16, 64))
+      (!a.o_f32 && !encode_seq(&g.mo, a.o, a.B, a.S_q, a.D, f16, 64)))
     return kTmaEncodeFailed;
   return launch_persistent(flash_wg_kernel<T, DMAX>, g, FwSize<DMAX>::kSmem,
                            static_cast<int64_t>(a.B) * g.n_qt, st);
@@ -363,9 +384,9 @@ int launch_flash_wg(FwArgs& g, cudaStream_t st) {
 
 using namespace gemm_hls;
 
-// flash_fwd's arguments (csrc/flash_fwd.cu), for bf16 / fp16 with D 64 or
-// 128, S_q >= 64, every base and row / head / batch stride of q, k and v
-// whole 16-byte units (what a TMA map describes).  Returns 0, a CUDA
+// flash_fwd's arguments (csrc/flash_fwd.cu, o_f32 included), for bf16 /
+// fp16 with D 64 or 128, S_q >= 64, every base and row / head / batch
+// stride of q, k and v whole 16-byte units (what a TMA map describes).  Returns 0, a CUDA
 // error code, -1 for what the route does not take, or -2 for a tensor map
 // cuTensorMapEncodeTiled refused.
 extern "C" int flash_wgmma(const int64_t* seqs, void* lse, const void* kv_len, const void* q_seg,
@@ -383,6 +404,7 @@ extern "C" int flash_wgmma(const int64_t* seqs, void* lse, const void* kv_len, c
   a.kv_seg = static_cast<const int*>(kv_seg);
   a.offs = static_cast<const int*>(offs);
   dims_into(a, dims);
+  a.o_f32 = dims[8];
   a.cap = cap;
   a.scale = scale;
   if ((a.D != 64 && a.D != 128) || a.S_q < 64 || a.S_kv < 1 || a.B < 1 || a.group < 1)

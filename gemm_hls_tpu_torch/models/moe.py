@@ -22,9 +22,18 @@ tanh GELU, ``jax.nn.gelu``'s default (torch's default is the erf form).
 Training (``moe_train_step``) runs through ``grouped_matmul``'s autograd:
 B16 for the activations' gradient, the weight-gradient kernel B17 for the
 experts', and the routing's gradient (through the mix weights) in plain
-torch; the backward needs no host synchronisation either.  The
-expert-parallel forms (``moe_forward_ep``, ``moe_forward_ep_a2a``) belong
-to the multi-GPU slice and raise ``NotImplementedError``.
+torch; the backward needs no host synchronisation either.
+
+Expert parallelism over a mesh of ranks (one process drives them all,
+``parallel/sharding.py``): ``moe_forward_ep`` splits the experts over an
+``ep`` axis and (optionally) the tokens over ``dp``; every rank routes its
+tokens, runs its local experts (slots routed elsewhere fall into B16's
+zero tail) and a ``psum`` over ``ep`` merges the disjoint contributions.
+``moe_forward_ep_a2a`` splits tokens and experts over the same axis and
+moves only the routed slots: a fixed-capacity buffer per destination rank,
+one ``all_to_all`` there and one back, slots past the capacity dropped
+(exactly zero).  Both are differentiable through ``grouped_matmul``'s
+autograd and the collectives' (their backward the adjoint copies).
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ from gemm_hls_tpu_torch.config import GemmConfig, torch_dtype
 from gemm_hls_tpu_torch.models.mlp import _tensor
 from gemm_hls_tpu_torch.ops.epilogue import gelu_tanh
 from gemm_hls_tpu_torch.ops.grouped import grouped_matmul
+from gemm_hls_tpu_torch.parallel.sharding import (
+    P, Sharded, all_to_all, device_put, on_device, psum, rank_array,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,15 +239,129 @@ def moe_train_step(params, batch, cfg: MoEConfig, lr=1e-2,
     return new, loss.detach()
 
 
-def moe_forward_ep(params, x, cfg: MoEConfig, mesh=None, **kw):
-    """Expert-parallel MoE over a device mesh: multi-GPU."""
-    raise NotImplementedError(
-        "moe_forward_ep shards experts over several GPUs: ROADMAP A7 "
-        "(multi-GPU, torch.distributed)")
+def _ep_params(params, mesh, ep_axis):
+    """The router replicated, w1 / w2 split over ``ep_axis`` by expert: each
+    rank's shards (an object array of dicts)."""
+    placed = {"router": device_put(params["router"], mesh, P(None, None))}
+    for name in ("w1", "w2"):
+        placed[name] = device_put(params[name], mesh, P(ep_axis, None, None))
+    out = rank_array(mesh)
+    for c in mesh.coords():
+        out[c] = {name: t.shard(c) for name, t in placed.items()}
+    return out
 
 
-def moe_forward_ep_a2a(params, x, cfg: MoEConfig, mesh=None, **kw):
-    """Expert-parallel MoE with all_to_all dispatch: multi-GPU."""
-    raise NotImplementedError(
-        "moe_forward_ep_a2a shards experts over several GPUs: ROADMAP A7 "
-        "(multi-GPU, torch.distributed)")
+def _check_ep(cfg, ep):
+    if cfg.num_experts % ep:
+        raise ValueError(f"num_experts {cfg.num_experts} % ep {ep} != 0")
+    return cfg.num_experts // ep
+
+
+def moe_forward_ep(params, x, cfg: MoEConfig, mesh, *, ep_axis: str = "ep",
+                   dp_axis: Optional[str] = "dp", activation=gelu_tanh) -> Sharded:
+    """Expert-parallel MoE: experts split over ``ep_axis``, tokens (with
+    ``dp_axis``) over ``dp_axis``.  Each rank routes its tokens with the
+    replicated router, runs only its local experts (remote slots fall into
+    the grouped kernel's zero tail) and a ``psum`` over ``ep_axis`` (tag
+    ``"ep_psum"``) merges the disjoint partial outputs.  ``params`` and
+    ``x`` are global tensors (or :class:`Sharded`); returns the output as a
+    :class:`Sharded` laid out like ``x``, differentiable back to both."""
+    per = _check_ep(cfg, mesh.shape[ep_axis])
+    x_spec = P(dp_axis, None) if dp_axis else P(None, None)
+    xs = device_put(x, mesh, x_spec)
+    ps = _ep_params(params, mesh, ep_axis)
+    part = rank_array(mesh)
+    for c in mesh.coords():
+        with on_device(mesh.devices[c]):
+            p, xx = ps[c], xs.shard(c)
+            expert_ids, mix = route(xx, p["router"], cfg.num_experts, cfg.top_k)
+            part[c] = _local_expert_ffn(xx, expert_ids, mix, p["w1"], p["w2"],
+                                        mesh.axis_index(c, ep_axis) * per, cfg, activation)
+    y = psum(part, mesh, ep_axis, tag="ep_psum")
+    for c in mesh.coords():
+        y[c] = y[c].to(xs.dtype)
+    return Sharded(mesh, x_spec, xs.shape, y)
+
+
+def a2a_capacity(n_loc: int, top_k: int, ep: int, capacity_factor: float) -> int:
+    """Slots a rank sends each destination rank: ceil(capacity_factor
+    n_loc top_k / ep), rounded up to a multiple of 8 (JAX's sublane
+    rounding, moe.py:294-295)."""
+    cap = -(-int(capacity_factor * n_loc * top_k) // ep)
+    return -(-cap // 8) * 8
+
+
+def _a2a_pack(xx, p, cfg, ep, per, cap):
+    """A rank's send buffers: (x rows (ep, cap, d), local expert ids (ep,
+    cap), each slot's row pos (ep * cap: dropped), the sort order, mix)."""
+    n_loc, d = xx.shape
+    expert_ids, mix = route(xx, p["router"], cfg.num_experts, cfg.top_k)
+    slots = expert_ids.reshape(-1)
+    dest = slots // per
+    order = torch.argsort(dest, stable=True)
+    dest_sorted = dest[order]
+    counts = _counts(dest, ep).long()
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(slots.numel(), device=xx.device) - start[dest_sorted]
+    pos = torch.where(rank < cap, dest_sorted * cap + rank, ep * cap)
+    feat = torch.index_select(xx, 0, order // cfg.top_k)
+    lid = (slots[order] % per).to(torch.int32)
+    send_x = torch.zeros((ep * cap + 1, d), dtype=xx.dtype, device=xx.device).index_put(
+        (pos,), feat)
+    send_id = torch.full((ep * cap + 1,), per, dtype=torch.int32, device=xx.device) \
+        .index_put((pos,), lid)
+    return send_x[:-1].reshape(ep, cap, d), send_id[:-1].reshape(ep, cap), pos, order, mix
+
+
+def moe_forward_ep_a2a(params, x, cfg: MoEConfig, mesh, *, ep_axis: str = "ep",
+                       activation=gelu_tanh, capacity_factor: float = 2.0) -> Sharded:
+    """Expert-parallel MoE with ``all_to_all`` dispatch: tokens and experts
+    both split over ``ep_axis``.  Each rank routes its tokens and packs the
+    slots bound for each destination rank into a buffer of
+    :func:`a2a_capacity` rows (the capacity pools a rank's ``per`` local
+    experts, as JAX's does); one ``all_to_all`` (tag ``"all_to_all"``) sends
+    the buffers and their local expert ids, the experts run on the received
+    rows (padding rows carry id ``per``: the grouped kernel's zero tail), a
+    second one returns the outputs, and the router's mix combines them.
+    Slots past a destination's capacity are dropped: they contribute exactly
+    zero.  Equal to ``moe_forward`` when nothing drops (``capacity_factor``
+    >= ep).  Returns a :class:`Sharded` laid out like ``x`` (P(ep_axis,
+    None)), differentiable back to ``params`` and ``x``."""
+    ep = mesh.shape[ep_axis]
+    per = _check_ep(cfg, ep)
+    if x.shape[0] % ep:
+        raise ValueError(f"tokens {x.shape[0]} % ep {ep} != 0 - x is sharded over "
+                         f"'{ep_axis}', so the token count must divide the ep size")
+    x_spec = P(ep_axis, None)
+    xs = device_put(x, mesh, x_spec)
+    ps = _ep_params(params, mesh, ep_axis)
+    cap = a2a_capacity(x.shape[0] // ep, cfg.top_k, ep, capacity_factor)
+    send_x, send_id, state = (rank_array(mesh) for _ in range(3))
+    for c in mesh.coords():
+        with on_device(mesh.devices[c]):
+            send_x[c], send_id[c], *state[c] = _a2a_pack(xs.shard(c), ps[c], cfg, ep, per, cap)
+    recv_x = all_to_all(send_x, mesh, ep_axis, 0, 0)
+    recv_id = all_to_all(send_id, mesh, ep_axis, 0, 0)
+    ys = rank_array(mesh)
+    for c in mesh.coords():
+        with on_device(mesh.devices[c]):
+            p = ps[c]
+            rx, rid = recv_x[c].reshape(ep * cap, -1), recv_id[c].reshape(ep * cap).long()
+            xd, group_sizes, inv = _dispatch_ids(rx, rid, per + 1)
+            group_sizes = group_sizes[:per]
+            h = grouped_matmul(xd, p["w1"], group_sizes, cfg.gemm_cfg())
+            h = activation(h).to(p["w2"].dtype)
+            out = grouped_matmul(h, p["w2"], group_sizes, cfg.gemm_cfg())
+            ys[c] = torch.index_select(out, 0, inv).reshape(ep, cap, -1)
+    back = all_to_all(ys, mesh, ep_axis, 0, 0)
+    y = rank_array(mesh)
+    for c in mesh.coords():
+        with on_device(mesh.devices[c]):
+            pos, order, mix = state[c]
+            b = back[c].reshape(ep * cap, -1)
+            b = torch.cat([b, b.new_zeros((1, b.shape[1]))], 0)  # the dropped slots' row
+            y_slot = torch.index_select(torch.index_select(b, 0, pos), 0, _inverse(order))
+            n_loc = xs.shard(c).shape[0]
+            y[c] = torch.sum(y_slot.reshape(n_loc, cfg.top_k, -1) * mix[..., None].to(b.dtype),
+                             dim=1).to(xs.dtype)
+    return Sharded(mesh, x_spec, xs.shape, y)

@@ -166,9 +166,9 @@ def _scores(qf, kf, scale, logit_cap):
 
 def flash_fwd_plain(q, k, v, kv_lengths=None, q_seg=None, kv_seg=None,
                     offsets=None, *, causal=False, window=None,
-                    logit_cap=None, scale=1.0, block_q=512):
-    """Plain version of ``flash_fwd``: (o in q's dtype, lse (B, S_q) fp32)
-    for 3-D q (B, S_q, D) and k, v (B_kv, S_kv, D)."""
+                    logit_cap=None, scale=1.0, block_q=512, out_dtype=None):
+    """Plain version of ``flash_fwd``: (o in ``out_dtype``, default q's,
+    lse (B, S_q) fp32) for 3-D q (B, S_q, D) and k, v (B_kv, S_kv, D)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bsz, s_q, d = q.shape
     b_kv, s_kv = k.shape[:2]
@@ -182,7 +182,7 @@ def flash_fwd_plain(q, k, v, kv_lengths=None, q_seg=None, kv_seg=None,
         vf = torch.where(live, vf, 0.0)
     vf = vf.view(b_kv, 1, s_kv, d)
     qv = q.view(b_kv, group, s_q, d)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty((bsz, s_q), dtype=torch.float32, device=q.device)
     ov, lv = o.view(b_kv, group, s_q, d), lse.view(b_kv, group, s_q)
     for r0 in range(0, s_q, max(1, block_q)):
@@ -198,7 +198,7 @@ def flash_fwd_plain(q, k, v, kv_lengths=None, q_seg=None, kv_seg=None,
             p = torch.where(valid, p, 0.0)
         l = p.sum(-1, keepdim=True)
         pv = torch.matmul(p.to(v.dtype).float(), vf)
-        ov[:, :, r0:r1] = (pv / torch.where(l == 0, 1.0, l)).to(q.dtype)
+        ov[:, :, r0:r1] = (pv / torch.where(l == 0, 1.0, l)).to(o.dtype)
         lv[:, :, r0:r1] = (m + torch.log(l))[..., 0]
     return o, lse
 
@@ -368,23 +368,37 @@ def _dims(q, k, causal, window, vec):
             q.shape[-1], int(bool(causal)), int(window or 0), vec]
 
 
+def _out_dtype(q, out_dtype):
+    """o's type: q's (None), or fp32 (the ring's partials, JAX's
+    ``cfg.out_dtype="float32"``); the kernels store no other."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype
+    if out_dtype != torch.float32:
+        raise ValueError(f"flash_mha out_dtype {out_dtype}: q's type "
+                         f"({q.dtype}) or torch.float32")
+    return out_dtype
+
+
 def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
-             logit_cap, scale, block_q, interpret=None, route=None):
-    """(o in q's layout, lse (B, S_q) fp32): the kernel on CUDA operands
-    (``flash_route``'s, or ``route`` where a comparison names one), the
-    plain version on CPU ones.  q, k, v each 3-D or 4-D."""
+             logit_cap, scale, block_q, interpret=None, route=None,
+             out_dtype=None):
+    """(o in q's layout and ``out_dtype`` (default q's), lse (B, S_q) fp32):
+    the kernel on CUDA operands (``flash_route``'s, or ``route`` where a
+    comparison names one), the plain version on CPU ones.  q, k, v each 3-D
+    or 4-D."""
     _check(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window)
+    odt = _out_dtype(q, out_dtype)
     if q.device.type == "cpu":
         with torch.no_grad():
             o, lse = flash_fwd_plain(
                 _pack(q), _pack(k), _pack(v), kv_lengths, q_seg, kv_seg,
                 offsets, causal=causal, window=window, logit_cap=logit_cap,
-                scale=scale, block_q=block_q)
+                scale=scale, block_q=block_q, out_dtype=odt)
         return _unpack(o, q), lse
     _same_device(q, k, v, kv_lengths, q_seg, kv_seg, offsets)
     _kernel_ok(q, "flash_fwd", interpret)
     q, k, v = _strided(q), _strided(k), _strided(v)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=odt, device=q.device)
     lse = torch.empty((_heads(q), q.shape[1]), dtype=torch.float32,
                       device=q.device)
     aligned = _vec(q, k, v)
@@ -394,7 +408,8 @@ def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
             _seq(q) + _seq(k) + _seq(v) + _seq(o),
             [lse.data_ptr(), _ptr(kv_lengths), _ptr(q_seg), _ptr(kv_seg),
              _ptr(offsets)],
-            _dims(q, k, causal, window, aligned and _vec(o)), logit_cap, scale,
+            _dims(q, k, causal, window, aligned and _vec(o))
+            + [int(odt == torch.float32)], logit_cap, scale,
             q.dtype, q.device, "flash_fwd")
     flash_mha.launches += 1
     flash_mha.last_route = route
@@ -463,7 +478,8 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
               kv_segment_ids=None, offsets=None, *, causal=False,
               block_q=512, block_kv=2048, block_kv_compute=None,
               block_q_compute=None, interpret=None, window=None,
-              logit_cap=None, save_lse=False, scale=1.0, route=None):
+              logit_cap=None, save_lse=False, scale=1.0, route=None,
+              out_dtype=None):
     """o = softmax(scale q k^T) v per head (kernel ``flash_fwd``).
 
     Args:
@@ -481,8 +497,11 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
         JAX signature: the CUDA kernels' tiles are their own.  The kernel
         is :func:`flash_route`'s, recorded as ``flash_mha.last_route``;
         ``route`` names one (a tuned winner, a comparison).
+      out_dtype: None (q's type) or ``torch.float32``: o stored unrounded in
+        fp32 from the same kernel arithmetic (JAX's ``cfg.out_dtype``; the
+        ring's partials, merged in fp32 before one rounding).
 
-    Returns o (B, S_q, D) in q's dtype, and with ``save_lse`` also lse
+    Returns o (B, S_q, D) in ``out_dtype``, and with ``save_lse`` also lse
     (B, S_q, 1) fp32 (-inf on a fully masked row, where o = 0).
     """
     del block_kv, block_kv_compute, block_q_compute
@@ -491,7 +510,7 @@ def flash_mha(q, k, v, kv_lengths=None, q_segment_ids=None,
                       _seg2(q_segment_ids, _heads(q), dev),
                       _seg2(kv_segment_ids, _heads(k), dev),
                       _ints(offsets, dev, (2,)), causal, window, logit_cap,
-                      scale, block_q, interpret, route)
+                      scale, block_q, interpret, route, out_dtype)
     if save_lse:
         return o, lse[..., None]
     return o

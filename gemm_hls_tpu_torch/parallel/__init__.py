@@ -13,8 +13,15 @@ B3.  ``ring_matmul`` (kernel B18) and ``cannon_matmul_fused`` (kernel B19)
 run their ranks concurrently in one launch on one card, or their plain
 schedules on the CPU.  ``streamed_matmul`` and ``streamed_matmul_files``
 (``parallel/staging.py``) run GEMMs larger than the card's memory from
-host memory or disk, one device-resident C tile at a time.  Ring
-attention and the pipeline wait for ROADMAP A7.
+host memory or disk, one device-resident C tile at a time.  The training
+half: ``ring_flash_attention`` / ``ring_decode_attention``
+(``parallel/ring_attention.py``: sequence-parallel flash attention on
+kernels B6-B12, plain, zigzag and decode) and the GPipe pipeline
+(``parallel/pipeline.py``: ``init_pipeline_params``,
+``shard_pipeline_params``, ``stages_forward``, ``pipeline_forward``,
+``pipeline_train_step``, each stage on B1); the collectives are
+differentiable (their backward the adjoint copies) and include
+``all_to_all`` (``models/moe.py``'s expert parallelism).
 """
 
 from gemm_hls_tpu_torch.ops.cannon import cannon_matmul_fused
@@ -22,6 +29,17 @@ from gemm_hls_tpu_torch.ops.ring import ring_matmul, shard_operands_ring
 from gemm_hls_tpu_torch.parallel.dispatch import distributed_matmul
 from gemm_hls_tpu_torch.parallel.grid25d import matmul_25d, shard_operands_25d
 from gemm_hls_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_25d
+from gemm_hls_tpu_torch.parallel.pipeline import (
+    init_pipeline_params,
+    pipeline_forward,
+    pipeline_train_step,
+    shard_pipeline_params,
+    stages_forward,
+)
+from gemm_hls_tpu_torch.parallel.ring_attention import (
+    ring_decode_attention,
+    ring_flash_attention,
+)
 from gemm_hls_tpu_torch.parallel.sharding import P, Sharded, device_put
 from gemm_hls_tpu_torch.parallel.staging import (
     distributed_streamed_matmul,
@@ -51,6 +69,13 @@ __all__ = [
     "streamed_matmul",
     "streamed_matmul_files",
     "ring_matmul",
+    "ring_flash_attention",
+    "ring_decode_attention",
     "shard_operands_ring",
     "cannon_matmul_fused",
+    "init_pipeline_params",
+    "pipeline_forward",
+    "pipeline_train_step",
+    "shard_pipeline_params",
+    "stages_forward",
 ]

@@ -168,12 +168,18 @@ def device_put(x, mesh: Mesh, spec: P) -> Sharded:
             and _normalized(x.spec) == _normalized(spec)):
         return x
     t = global_tensor(x)
-    shards = np.empty(mesh.devices.shape, dtype=object)
+    shards = rank_array(mesh)
     for coord in mesh.coords():
         part = t[shard_slices(t.shape, mesh, spec, coord)]
         buf = torch.empty(part.shape, dtype=t.dtype, device=mesh.devices[coord])
         shards[coord] = buf.copy_(part, non_blocking=True)
     return Sharded(mesh, spec, t.shape, shards)
+
+
+def rank_array(mesh: Mesh) -> np.ndarray:
+    """An empty object array of the mesh's shape: a slot for each rank's
+    tensor."""
+    return np.empty(mesh.devices.shape, dtype=object)
 
 
 def _record(tag: str, dst, src, nbytes: int) -> None:
@@ -190,13 +196,8 @@ def _send(x: torch.Tensor, mesh: Mesh, src, dst, tag: str) -> torch.Tensor:
     return buf
 
 
-def all_gather(x: np.ndarray, mesh: Mesh, axis, *, dim: int, tiled: bool = True,
-               tag: str = "all_gather") -> np.ndarray:
-    """``jax.lax.all_gather(x, axis, axis=dim, tiled=tiled)`` on every rank:
-    each rank of a group over ``axis`` (a name, or a tuple major first) gets
-    the group's tensors in :meth:`Mesh.axis_index` order, concatenated
-    along ``dim`` (``tiled``) or stacked at ``dim``."""
-    out = np.empty(mesh.devices.shape, dtype=object)
+def _all_gather(x, mesh, axis, dim, tiled, tag):
+    out = rank_array(mesh)
     for group in mesh.groups(axis):
         parts = [x[c] for c in group]
         shape = list(parts[0].shape)
@@ -220,12 +221,29 @@ def all_gather(x: np.ndarray, mesh: Mesh, axis, *, dim: int, tiled: bool = True,
     return out
 
 
-def psum(x: np.ndarray, mesh: Mesh, axis, *, tag: str = "psum") -> np.ndarray:
-    """``jax.lax.psum(x, axis)`` on every rank, as a ring reduce-scatter
-    then a ring all-gather over each group: g - 1 steps each, every rank
-    sending one of g chunks a step to the next rank of the ring, so each
-    rank receives 2 (g - 1) / g of its tensor."""
-    out = np.empty(mesh.devices.shape, dtype=object)
+def _all_gather_adjoint(g, x_like, mesh, axis, dim, tiled, tag):
+    """The reduce-scatter back to the source ranks: rank ``src`` gets the sum,
+    over its group in order, of every rank's cotangent slice that holds its
+    part (sent from each other rank to ``src``)."""
+    out = rank_array(mesh)
+    for group in mesh.groups(axis):
+        off = 0
+        for src in group:
+            width = x_like[src].shape[dim] if tiled else 1
+            acc = None
+            for dst in group:
+                part = (g[dst].narrow(dim, off, width) if tiled
+                        else g[dst].select(dim, off))
+                if dst != src:
+                    part = _send(part, mesh, dst, src, tag)
+                acc = part.clone() if acc is None else acc.add_(part)
+            out[src] = acc
+            off += width
+    return out
+
+
+def _psum(x, mesh, axis, tag):
+    out = rank_array(mesh)
     for group in mesh.groups(axis):
         g = len(group)
         if g == 1:
@@ -253,27 +271,152 @@ def psum(x: np.ndarray, mesh: Mesh, axis, *, tag: str = "psum") -> np.ndarray:
     return out
 
 
-def ppermute(x: np.ndarray, mesh: Mesh, axes, perm, *,
-             tag: str = "ppermute") -> np.ndarray:
-    """``jax.lax.ppermute(x, axes, perm)`` on every rank: within each group
-    over ``axes``, rank ``dst`` of each ``(src, dst)`` pair (indices over
-    ``axes`` major first, ``i * p + j`` for two axes) gets rank ``src``'s
-    tensor; a rank no pair names gets zeros."""
-    out = np.empty(mesh.devices.shape, dtype=object)
+def _ppermute(x, zeros, mesh, axes, perm, tag):
+    """Rank ``dst`` of each pair gets rank ``src``'s ``x``; every other rank
+    ``zeros(coord)``."""
+    out = rank_array(mesh)
     for group in mesh.groups(axes):
         for s, d in perm:
             src, dst = group[s], group[d]
             out[dst] = x[src] if src == dst else _send(x[src], mesh, src, dst, tag)
         for c in group:
             if out[c] is None:
-                out[c] = torch.zeros_like(x[c])
+                out[c] = zeros(c)
     return out
+
+
+def _all_to_all(x, mesh, axis, split_dim, concat_dim, tiled, tag):
+    out = rank_array(mesh)
+    for group in mesh.groups(axis):
+        n = len(group)
+        size = x[group[0]].shape[split_dim]
+        if (size % n) if tiled else (size != n):
+            raise ValueError(f"all_to_all: dim {split_dim} of size {size} over "
+                             f"{n} ranks ({'tiled' if tiled else 'untiled'})")
+        for j, dst in enumerate(group):
+            parts = []
+            for src in group:
+                part = (x[src].narrow(split_dim, j * (size // n), size // n) if tiled
+                        else x[src].select(split_dim, j))
+                parts.append(part if src == dst else _send(part, mesh, src, dst, tag))
+            out[dst] = torch.cat(parts, concat_dim) if tiled else torch.stack(parts, concat_dim)
+    return out
+
+
+class _Like:
+    """A tensor's shape, type and device, without its storage."""
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype, self.device = tuple(t.shape), t.dtype, t.device
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+
+
+def _zeros_for(g, like):
+    """``g`` with each missing (None) cotangent as zeros shaped like ``like``."""
+    out = np.empty(g.shape, dtype=object)
+    for c in np.ndindex(g.shape):
+        out[c] = like[c].zeros() if g[c] is None else g[c]
+    return out
+
+
+class _Collective(torch.autograd.Function):
+    """A collective over every rank's tensor at once, differentiable: the
+    backward is the adjoint of the copies the forward made (``adjoint``,
+    counted under the forward's tag + ``"_bwd"``), so gradients are those of
+    the global function of the per-rank tensors.  Integer tensors pass
+    through without gradients."""
+
+    @staticmethod
+    def forward(ctx, fwd, adjoint, mesh, *flat):
+        out = fwd(_unflat(flat, mesh))
+        ctx.adjoint, ctx.mesh = adjoint, mesh
+        ctx.x_like = _unflat([_Like(t) for t in flat], mesh)
+        ctx.out_like = _unflat([_Like(out[c]) for c in mesh.coords()], mesh)
+        ctx.set_materialize_grads(False)
+        return tuple(out[c] for c in mesh.coords())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        gx = ctx.adjoint(_zeros_for(_unflat(grads, mesh), ctx.out_like), ctx.x_like)
+        return (None, None, None) + tuple(
+            gx[c] if ctx.x_like[c].dtype.is_floating_point else None
+            for c in mesh.coords())
+
+
+def _unflat(flat, mesh: Mesh) -> np.ndarray:
+    out = rank_array(mesh)
+    for c, t in zip(mesh.coords(), flat):
+        out[c] = t
+    return out
+
+
+def _apply(fwd, adjoint, x: np.ndarray, mesh: Mesh) -> np.ndarray:
+    return _unflat(_Collective.apply(fwd, adjoint, mesh, *(x[c] for c in mesh.coords())),
+                   mesh)
+
+
+def all_gather(x: np.ndarray, mesh: Mesh, axis, *, dim: int, tiled: bool = True,
+               tag: str = "all_gather") -> np.ndarray:
+    """``jax.lax.all_gather(x, axis, axis=dim, tiled=tiled)`` on every rank:
+    each rank of a group over ``axis`` (a name, or a tuple major first) gets
+    the group's tensors in :meth:`Mesh.axis_index` order, concatenated
+    along ``dim`` (``tiled``) or stacked at ``dim``.  Differentiable: the
+    backward reduce-scatters the cotangents back to the source ranks."""
+    return _apply(
+        lambda t: _all_gather(t, mesh, axis, dim, tiled, tag),
+        lambda g, like: _all_gather_adjoint(g, like, mesh, axis, dim, tiled, tag + "_bwd"),
+        x, mesh)
+
+
+def psum(x: np.ndarray, mesh: Mesh, axis, *, tag: str = "psum") -> np.ndarray:
+    """``jax.lax.psum(x, axis)`` on every rank, as a ring reduce-scatter
+    then a ring all-gather over each group: g - 1 steps each, every rank
+    sending one of g chunks a step to the next rank of the ring, so each
+    rank receives 2 (g - 1) / g of its tensor.  Differentiable: every
+    contributor's gradient is the sum of its group's cotangents (a psum of
+    them)."""
+    return _apply(lambda t: _psum(t, mesh, axis, tag),
+                  lambda g, like: _psum(g, mesh, axis, tag + "_bwd"), x, mesh)
+
+
+def ppermute(x: np.ndarray, mesh: Mesh, axes, perm, *,
+             tag: str = "ppermute") -> np.ndarray:
+    """``jax.lax.ppermute(x, axes, perm)`` on every rank: within each group
+    over ``axes``, rank ``dst`` of each ``(src, dst)`` pair (indices over
+    ``axes`` major first, ``i * p + j`` for two axes) gets rank ``src``'s
+    tensor; a rank no pair names gets zeros.  Differentiable: the backward
+    is the inverse permutation of the cotangents (zeros to a rank that sent
+    nothing)."""
+    perm = [tuple(p) for p in perm]
+    inverse = [(d, s) for s, d in perm]
+    return _apply(lambda t: _ppermute(t, lambda c: torch.zeros_like(t[c]), mesh, axes, perm, tag),
+                  lambda g, like: _ppermute(g, lambda c: like[c].zeros(), mesh, axes, inverse,
+                                            tag + "_bwd"),
+                  x, mesh)
+
+
+def all_to_all(x: np.ndarray, mesh: Mesh, axis, split_dim: int, concat_dim: int, *,
+               tiled: bool = False, tag: str = "all_to_all") -> np.ndarray:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=tiled)`` on
+    every rank: rank j of a group gets chunk j of every rank's ``x`` along
+    ``split_dim``, in rank order along ``concat_dim``.  Untiled, dim
+    ``split_dim`` must have the group's size and is replaced by a new dim of
+    that size at ``concat_dim``; tiled, it is cut into equal chunks that are
+    concatenated along ``concat_dim``.  Differentiable: the backward is the
+    reverse ``all_to_all`` (the two dims swapped)."""
+    return _apply(
+        lambda t: _all_to_all(t, mesh, axis, split_dim, concat_dim, tiled, tag),
+        lambda g, like: _all_to_all(g, mesh, axis, concat_dim, split_dim, tiled, tag + "_bwd"),
+        x, mesh)
 
 
 def rank_coords(mesh: Mesh) -> np.ndarray:
     """Each rank's coordinate, as an object array of the mesh's shape (for
     :func:`map_shards` callables that need their rank)."""
-    out = np.empty(mesh.devices.shape, dtype=object)
+    out = rank_array(mesh)
     for coord in mesh.coords():
         out[coord] = coord
     return out
@@ -281,7 +424,7 @@ def rank_coords(mesh: Mesh) -> np.ndarray:
 
 def map_shards(fn, *xs: np.ndarray, mesh: Mesh) -> np.ndarray:
     """``fn(*rank's tensors)`` on every rank, each on its own device."""
-    out = np.empty(mesh.devices.shape, dtype=object)
+    out = rank_array(mesh)
     for coord in mesh.coords():
         with on_device(mesh.devices[coord]):
             out[coord] = fn(*(x[coord] for x in xs))

@@ -2,10 +2,12 @@
 
 Counterpart of the ``.npz`` half of ``gemm_hls_tpu/utils/checkpoint.py``
 (its Orbax half stays with the JAX package).  State is any nesting of
-lists, tuples and dicts over tensors or numpy arrays; leaves are saved as
-``arr_<i>`` in flattening order (dict keys sorted), and restored into the
-structure, dtypes and devices of a ``like`` template, with a leaf count and
-shape check.  numpy has no bfloat16, so a bf16 tensor is saved as the int16
+lists, tuples and dicts over tensors, numpy arrays or
+:class:`~gemm_hls_tpu_torch.parallel.sharding.Sharded` tensors; leaves are
+saved as ``arr_<i>`` in flattening order (dict keys sorted), a sharded one
+as its global tensor, and restored into the structure, dtypes and devices
+(for a sharded leaf, the mesh and layout) of a ``like`` template, with a
+leaf count and shape check.  numpy has no bfloat16, so a bf16 tensor is saved as the int16
 view of its bits and restored through the template's dtype.
 """
 
@@ -37,7 +39,18 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def _sharded(x) -> bool:
+    from gemm_hls_tpu_torch.parallel.sharding import Sharded
+    return isinstance(x, Sharded)
+
+
+def _shape(x):
+    return tuple(x.shape) if _sharded(x) else tuple(np.shape(x))
+
+
 def _to_numpy(x):
+    if _sharded(x):
+        x = x.full()
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
@@ -45,6 +58,11 @@ def _to_numpy(x):
 
 
 def _restore(a, like):
+    if _sharded(like):
+        from gemm_hls_tpu_torch.parallel.sharding import device_put
+        t = torch.from_numpy(a)
+        t = t.view(torch.bfloat16) if like.dtype == torch.bfloat16 else t
+        return device_put(t.to(like.dtype), like.mesh, like.spec)
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(a)
         t = t.view(torch.bfloat16) if like.dtype == torch.bfloat16 else t
@@ -75,9 +93,9 @@ def load_checkpoint(path: str, like: Any) -> Any:
             if key not in data:
                 raise ValueError(f"checkpoint is missing leaf {key}")
             a = data[key]
-            if tuple(a.shape) != tuple(np.shape(leaf)):
+            if tuple(a.shape) != _shape(leaf):
                 raise ValueError(
                     f"checkpoint leaf {i} has shape {tuple(a.shape)}, "
-                    f"template expects {tuple(np.shape(leaf))}")
+                    f"template expects {_shape(leaf)}")
             restored.append(_restore(a, leaf))
     return _unflatten(like, iter(restored))

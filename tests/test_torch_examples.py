@@ -23,8 +23,9 @@ REPO = Path(__file__).resolve().parent.parent
 PORTED = sorted((REPO / "examples" / "torch").glob("[0-9]*.py"))
 
 # The reference's examples that the port does not run yet, by the ROADMAP.md
-# item (section A) that ports them: 06 waits for the MLP's dp / tp shardings.
-NOT_PORTED_EXAMPLES = {"A7": {"06_training.py"}}
+# item (section A) that ports them: none since 06 landed with A7's training
+# half.
+NOT_PORTED_EXAMPLES = {}
 
 # Lines each example must print (a line starts with the given text), the
 # reference example's verification lines.
@@ -46,6 +47,9 @@ VERIFIED = {
                           "distributed min_plus: verified"],
     "05_f64_on_bf16.py": ["K=512: 8 slices of 7 mantissa bits each", "elementwise max rel err:",
                           "normwise max err:", "fused int8 variant normwise max err:"],
+    "06_training.py": ["mesh: {'dp': 2, 'tp': 4}",
+                       *(f"step {i}: loss " for i in range(5)),
+                       "checkpoint saved + restored: ck.npz"],
     "07_differentiable_semirings.py": ["initial 2-hop dist(0 -> 23): 6.825 (target 3.0)",
                                        "after 40 subgradient steps: 3.000, loss 0.0000",
                                        "log_plus (soft-min) gradient: 7 edges receive signal"],

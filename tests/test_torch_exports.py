@@ -21,14 +21,8 @@ REPO = Path(__file__).resolve().parent.parent
 SUBPACKAGES = ("ops", "models", "utils", "parallel", "tools")
 
 # Names the reference exports that the port does not define yet, by the
-# ROADMAP.md item (section A) that ports them.
-NOT_PORTED = {
-    "parallel": {
-        "A7": {"ring_flash_attention", "ring_decode_attention", "init_pipeline_params",
-               "pipeline_forward", "pipeline_train_step", "shard_pipeline_params",
-               "stages_forward"},
-    },
-}
+# ROADMAP.md item (section A) that ports them: none since A7's training half.
+NOT_PORTED = {}
 
 # The modules of the staged and the distributed GEMMs, the analytical
 # models, the serving block and the tools (the tuning tools of slice 17
@@ -41,6 +35,10 @@ JAX_FREE_MODULES = (
     "gemm_hls_tpu_torch.parallel.summa",
     "gemm_hls_tpu_torch.parallel.grid25d",
     "gemm_hls_tpu_torch.parallel.dispatch",
+    "gemm_hls_tpu_torch.parallel.ring_attention",
+    "gemm_hls_tpu_torch.parallel.pipeline",
+    "gemm_hls_tpu_torch.models.mlp",
+    "gemm_hls_tpu_torch.models.moe",
     "gemm_hls_tpu_torch.models.perf_model",
     "gemm_hls_tpu_torch.models.scaling_model",
     "gemm_hls_tpu_torch.models.attn_model",

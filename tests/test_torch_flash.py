@@ -612,3 +612,34 @@ def test_bwd_plain_vs_jax_kernels_at_an_engine_shape(seg):
     for name, a, b in (("dk", dkj, dkt), ("dv", dvj, dvt)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a).reshape(2, 4, 128, 64).sum(1),
                                    err_msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("dt,causal", [("bfloat16", True), ("float16", False)])
+def test_fp32_output_vs_jax(dt, causal):
+    # flash_mha(out_dtype=float32) on 16-bit operands (the ring's partials):
+    # o unrounded, against the JAX kernel with cfg.out_dtype "float32" (ring
+    # attention's setting) in interpret mode; rounded to the operand type it
+    # is bit for bit the 16-bit-output call (the same arithmetic, another
+    # store); lse unchanged.  Another output type is refused.
+    q, k, v = _draw(61, (4, 128, 64), (2, 128, 64), (2, 128, 64))
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    cfg = default_config(dt).replace(dtype=dt, out_dtype="float32")
+    jo, jl = jflash.flash_mha(*(jnp.asarray(x, jdt) for x in (q, k, v)), cfg=cfg,
+                              causal=causal, block_q=64, block_kv=64, interpret=True,
+                              save_lse=True, scale=0.125)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    o32, l32 = flash.flash_mha(tq, tk, tv, causal=causal, block_q=64, save_lse=True,
+                               scale=0.125, out_dtype=torch.float32)
+    o16, l16 = flash.flash_mha(tq, tk, tv, causal=causal, block_q=64, save_lse=True,
+                               scale=0.125)
+    assert o32.dtype == torch.float32 and o16.dtype == tdt
+    # Both round p to the operand type before p v, from exps computed
+    # differently: a probability may round the other way, so the bound is
+    # one 16-bit ulp (2^-8) of the largest output.
+    scale = np.abs(np.asarray(jo)).max()
+    np.testing.assert_allclose(o32.numpy(), np.asarray(jo), rtol=1e-3, atol=2 ** -8 * scale)
+    np.testing.assert_allclose(l32.numpy(), np.asarray(jl), **FWD)
+    assert torch.equal(o32.to(tdt), o16) and torch.equal(l32, l16)
+    with pytest.raises(ValueError, match="out_dtype"):
+        flash.flash_mha(tq, tk, tv, out_dtype=torch.float16 if dt == "bfloat16"
+                        else torch.bfloat16)

@@ -1229,3 +1229,97 @@ def test_ozaki_int8_distributed_on_ranks_of_the_card(cuda):
     assert _launched(before) == {"B5": 4}
     assert chip_smoke.normwise(torch, torch.from_numpy(got), torch.from_numpy(a),
                                torch.from_numpy(b))[0] < 1e-13
+
+
+# ---- slice 20: ring attention, the sharded MLP, MoE EP and the pipeline on
+# virtual ranks of the card, each against its single-card call (normwise:
+# chip_smoke.PAR_FWD_TOL for attention outputs, PAR_BF16_TOL for gradients
+# and bf16 steps).
+
+def _ranks(cuda, shape, names):
+    from gemm_hls_tpu_torch.parallel import make_mesh
+    return make_mesh(shape, names, devices=[cuda] * int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_attention_on_ranks_of_the_card(cuda, zigzag):
+    from gemm_hls_tpu_torch.ops import flash
+    from gemm_hls_tpu_torch.parallel import ring_flash_attention
+    mesh = _ranks(cuda, (4,), ("x",))
+    gen = _gen(41)
+    q, k, v, do = (chip_smoke.signed(torch, (4, 1024, 64), torch.bfloat16, gen) for _ in range(4))
+    xs = [t.requires_grad_() for t in (q, k, v)]
+    before = flash.flash_mha.launches
+    o = ring_flash_attention(*xs, mesh, causal=True, zigzag=zigzag).full()
+    fwd = chip_smoke.ring_launches(4, 256, True, zigzag)
+    assert flash.flash_mha.launches - before == fwd
+    assert flash.flash_mha.last_route == "wgmma"
+    grads = torch.autograd.grad(o, xs, do)
+    sc = torch.tensor(64 ** -0.5, dtype=torch.bfloat16, device=cuda)
+    ref = flash.flash_mha_diff(xs[0] * sc, xs[1], xs[2], causal=True)
+    want = torch.autograd.grad(ref, xs, do)
+    assert chip_smoke.rel_norm(o, ref) < chip_smoke.PAR_FWD_TOL
+    for g, w in zip(grads, want):
+        assert chip_smoke.rel_norm(g, w) < chip_smoke.PAR_BF16_TOL
+
+
+def test_ring_decode_on_ranks_of_the_card(cuda):
+    from gemm_hls_tpu_torch.ops import flash
+    from gemm_hls_tpu_torch.parallel import ring_decode_attention
+    mesh = _ranks(cuda, (4,), ("x",))
+    gen = _gen(42)
+    q = chip_smoke.signed(torch, (16, 4, 128), torch.bfloat16, gen)
+    k, v = (chip_smoke.signed(torch, (4, 1024, 128), torch.bfloat16, gen) for _ in range(2))
+    lens = torch.tensor([4, 300, 700, 1024], dtype=torch.int32, device=cuda)
+    o = ring_decode_attention(q, k, v, lens, mesh, window=500).full()
+    assert flash.flash_mha.last_route == "mma.sync"
+    sc = torch.tensor(128 ** -0.5, dtype=torch.bfloat16, device=cuda)
+    ref = flash.flash_mha(q * sc, k, v, kv_lengths=lens, causal=True, window=500)
+    assert chip_smoke.rel_norm(o, ref) < chip_smoke.PAR_FWD_TOL
+
+
+def test_sharded_mlp_step_on_ranks_of_the_card(cuda):
+    from gemm_hls_tpu_torch.models import mlp
+    mesh = _ranks(cuda, (2, 4), ("dp", "tp"))
+    gen = _gen(43)
+    params = mlp.init_params(gen, (256, 512, 256), torch.bfloat16)
+    batch = mlp.make_batch(gen, 128, 256, 256, torch.bfloat16)
+    got, loss = mlp.train_step(mlp.shard_params(params, mesh), batch, lr=0.1)
+    want, wloss = mlp.train_step(params, batch, lr=0.1)
+    assert abs(float(loss) - float(wloss)) <= 1e-2 * abs(float(wloss))
+    for (w, b), (ww, wb) in zip(got, want):
+        assert chip_smoke.rel_norm(w.full(), ww) < chip_smoke.PAR_BF16_TOL
+        assert chip_smoke.rel_norm(b.full(), wb) < chip_smoke.PAR_BF16_TOL
+
+
+@pytest.mark.parametrize("form", ["psum", "a2a"])
+def test_moe_expert_parallel_on_ranks_of_the_card(cuda, form):
+    from gemm_hls_tpu_torch.models.moe import (
+        MoEConfig, init_moe_params, moe_forward, moe_forward_ep, moe_forward_ep_a2a,
+    )
+    cfg = MoEConfig(d_model=256, d_ff=512, num_experts=8, top_k=2, dtype="bfloat16")
+    gen = _gen(44)
+    params = init_moe_params(gen, cfg)
+    x = chip_smoke.signed(torch, (512, 256), torch.bfloat16, gen)
+    if form == "psum":
+        got = moe_forward_ep(params, x, cfg, _ranks(cuda, (2, 4), ("dp", "ep")))
+    else:
+        got = moe_forward_ep_a2a(params, x, cfg, _ranks(cuda, (4,), ("ep",)),
+                                 capacity_factor=4.0)
+    want = moe_forward(params, x, cfg)
+    logits = (x.double() @ params["router"].double()).sort(-1, descending=True)[0]
+    keep = (logits[:, 1] - logits[:, 2]) > 1e-3  # rows whose routing cannot flip
+    assert chip_smoke.rel_norm(got.full()[keep], want[keep]) < chip_smoke.PAR_BF16_TOL
+
+
+def test_pipeline_on_ranks_of_the_card(cuda):
+    from gemm_hls_tpu_torch.parallel import (
+        init_pipeline_params, pipeline_forward, shard_pipeline_params, stages_forward,
+    )
+    mesh = _ranks(cuda, (2,), ("pp",))
+    params = init_pipeline_params(_gen(45), 2, 256, 512, torch.bfloat16)
+    x = chip_smoke.signed(torch, (256, 256), torch.bfloat16, _gen(46))
+    before = _launches()
+    got = pipeline_forward(shard_pipeline_params(params, mesh), x, mesh, microbatches=4).full()
+    assert _launched(before) == {"B1": 2 * 2 * 4}
+    assert chip_smoke.rel_norm(got, stages_forward(params, x)) < chip_smoke.PAR_BF16_TOL

@@ -9,7 +9,14 @@ error below 1e-4 of the largest output.  Routing ids must be equal, except
 tokens whose JAX top-k margin (the gap between the k-th and the next
 logit) is below 1e-5, where fp32 rounding may order them either way:
 those are counted and reported, and left out of the output comparison.
+
+Expert parallelism (``moe_forward_ep``, ``moe_forward_ep_a2a``) runs on CPU
+ranks against JAX's on its virtual devices (``tests/test_moe.py``'s meshes
+and sizes, each JAX call under one ``jax.jit``), output and gradients at rel
+1e-3, the a2a's drop rule included.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -141,12 +148,101 @@ def test_init_moe_params_shapes():
     assert p["w2"].shape == (4, 24, 16)
 
 
-@pytest.mark.parametrize("fn,match", [("moe_forward_ep", "A7"),
-                                      ("moe_forward_ep_a2a", "A7")])
-def test_unported_entry_points_raise(fn, match):
-    _, cfg, _, p, x = _setup(2)
-    with pytest.raises(NotImplementedError, match=match):
-        getattr(moe, fn)(p, torch.from_numpy(x), cfg)
+# ---- expert parallelism on CPU ranks against JAX's 8 virtual devices ------
+
+def _ep_meshes(shape, names):
+    from jax.sharding import Mesh
+
+    from gemm_hls_tpu_torch.parallel import make_mesh
+    n = int(np.prod(shape))
+    return (make_mesh(shape, names, devices=["cpu"] * n),
+            Mesh(np.array(jax.devices()[:n]).reshape(shape), names))
+
+
+def _ep_setup(seed, tokens):
+    # tests/test_moe.py's _cfg(): d 32, d_ff 48, 4 experts, top-2.
+    from gemm_hls_tpu.config import GemmConfig as JaxConfig
+    jcfg = jmoe.MoEConfig(d_model=32, d_ff=48, num_experts=4, top_k=2,
+                          gemm=JaxConfig(block_m=128, block_n=128, block_k=128,
+                                         interpret=True))
+    cfg = moe.MoEConfig(d_model=32, d_ff=48, num_experts=4, top_k=2)
+    jp = jmoe.init_moe_params(jax.random.key(seed), jcfg)
+    x = np.random.default_rng(seed + 1).standard_normal((tokens, 32)).astype(np.float32)
+    assert not _near_ties(x, jp["router"], 2).any()
+    return jcfg, cfg, jp, x
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def _jax_vjp(fn, *args):
+    """fn's output and the gradient of sum(fn^2), under one jit (eager
+    shard_map runs op by op)."""
+    out, vjp = jax.vjp(fn, *args)
+    return out, vjp(2 * out)
+
+
+# (form, mesh shape, axis names, tokens, capacity_factor): the JAX tests'
+# meshes and sizes; capacity_factor = ep keeps every slot, 0.25 drops some.
+EP_CASES = [("psum", (2, 4), ("dp", "ep"), 64, None),
+            ("a2a", (4,), ("ep",), 32, 4.0),
+            ("a2a", (4,), ("ep",), 64, 0.25)]
+
+
+@pytest.mark.parametrize("case", EP_CASES, ids=lambda c: f"{c[0]}-{c[4]}")
+def test_expert_parallel_vs_jax(case):
+    """moe_forward_ep / moe_forward_ep_a2a on CPU ranks against JAX's on the
+    same mesh: the output and the gradient of sum(y^2) with respect to
+    every parameter and x, rel 1e-3 (fp32); under the tight capacity the
+    same slots drop on both sides, and a row that lost no slot equals the
+    no-drop output."""
+    form, shape, names, tokens, cf = case
+    jcfg, cfg, jp, x = _ep_setup(13, tokens)
+    mesh, jmesh = _ep_meshes(shape, names)
+    if form == "psum":
+        jfn = lambda p, xx: jmoe.moe_forward_ep(p, xx, jcfg, jmesh)  # noqa: E731
+        fn = lambda p, xx: moe.moe_forward_ep(p, xx, cfg, mesh)  # noqa: E731
+    else:
+        jfn = lambda p, xx: jmoe.moe_forward_ep_a2a(p, xx, jcfg, jmesh,  # noqa: E731
+                                                     capacity_factor=cf)
+        fn = lambda p, xx: moe.moe_forward_ep_a2a(p, xx, cfg, mesh,  # noqa: E731
+                                                  capacity_factor=cf)
+    jout, (jgrads, jgx) = _jax_vjp(jfn, jp, jnp.asarray(x))
+    p = {k: v.requires_grad_() for k, v in moe.params_from_reference(jp, device="cpu").items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out = fn(p, tx)
+    assert out.shape == x.shape and tuple(out.spec) == (P_EP[form], None)
+    got = out.full()
+    grads = torch.autograd.grad((got ** 2).sum(), [p["router"], p["w1"], p["w2"], tx])
+    assert _rel(got.detach().numpy(), jout) < 1e-3
+    for name, g, want in zip(("router", "w1", "w2", "x"), grads,
+                             (jgrads["router"], jgrads["w1"], jgrads["w2"], jgx)):
+        assert _rel(g.numpy(), want) < 1e-3, name
+    if cf is not None and cf < shape[0]:
+        full = moe.moe_forward(p, tx, cfg).detach().numpy()
+        same = np.isclose(got.detach().numpy(), full, rtol=1e-5, atol=1e-6).all(axis=1)
+        assert 0 < same.sum() < tokens  # some rows lost a slot, some none
+        assert np.isfinite(got.detach().numpy()).all()
+
+
+P_EP = {"psum": "dp", "a2a": "ep"}
+
+
+def test_a2a_capacity_is_jax_rounding():
+    for n_loc, top_k, ep, cf in [(16, 2, 4, 4.0), (16, 2, 4, 0.25), (1024, 2, 4, 4.0),
+                                 (7, 3, 2, 1.3)]:
+        cap = -(-int(cf * n_loc * top_k) // ep)
+        assert moe.a2a_capacity(n_loc, top_k, ep, cf) == -(-cap // 8) * 8
+
+
+def test_expert_parallel_refusals():
+    _, cfg, _, x = _ep_setup(13, 64)
+    p = moe.params_from_reference(jmoe.init_moe_params(
+        jax.random.key(13), jmoe.MoEConfig(d_model=32, d_ff=48, num_experts=4)), device="cpu")
+    mesh3, _ = _ep_meshes((3,), ("ep",))
+    with pytest.raises(ValueError, match="num_experts"):
+        moe.moe_forward_ep(p, torch.from_numpy(x), cfg, mesh3, dp_axis=None)
+    mesh4, _ = _ep_meshes((4,), ("ep",))
+    with pytest.raises(ValueError, match="tokens"):
+        moe.moe_forward_ep_a2a(p, torch.from_numpy(x[:30]), cfg, mesh4)
 
 
 # ---- moe_train_step: B16 and B17 through grouped_matmul's autograd --------

@@ -157,6 +157,74 @@ def test_collectives_match_jax(case):
                                    err_msg=f"{name} {coord}")
 
 
+_GRAD_CASES = [
+    ("all_gather y tiled", "y", dict(dim=1, tiled=True)),
+    ("all_gather (z, y) untiled", ("z", "y"), dict(dim=0, tiled=False)),
+    ("psum z", "z", {}),
+    ("psum (x, y)", ("x", "y"), {}),
+    ("ppermute y", "y", dict(perm=[(0, 1), (1, 0)])),
+    ("ppermute partial", ("z", "x"), dict(perm=[(0, 3), (3, 1)])),
+    ("all_to_all y untiled", "y", dict(split_dim=0, concat_dim=0, tiled=False)),
+    ("all_to_all (x, y) tiled", ("x", "y"), dict(split_dim=1, concat_dim=0, tiled=True)),
+    ("all_to_all z tiled", "z", dict(split_dim=0, concat_dim=1, tiled=True)),
+]
+
+
+@pytest.mark.parametrize("case", _GRAD_CASES, ids=lambda c: c[0])
+def test_collective_gradients_match_jax(case):
+    """Each collective (all_to_all's forward too) against ``jax.lax``'s inside
+    ``shard_map`` on the (z, x, y) mesh, and the gradient of
+    sum_rank(w_rank * out_rank) with respect to the global input against
+    ``jax.grad`` of the same function: the backward is the adjoint of the
+    forward's copies (a reduce-scatter, a psum, the inverse permutation,
+    the reverse all_to_all), counted under the forward's tag + "_bwd"."""
+    name, axes, kw = case
+    mesh, jmesh = _mesh25()
+    spec = (("z", "x"), "y")
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-1, 1, (8, 24)).astype(np.float32)
+    if name.startswith("all_gather"):
+        fn = functools.partial(sharding.all_gather, dim=kw["dim"], tiled=kw["tiled"])
+        jfn = functools.partial(jax.lax.all_gather, axis_name=axes, axis=kw["dim"],
+                                tiled=kw["tiled"])
+    elif name.startswith("psum"):
+        fn, jfn = sharding.psum, functools.partial(jax.lax.psum, axis_name=axes)
+    elif name.startswith("ppermute"):
+        fn = functools.partial(sharding.ppermute, perm=kw["perm"])
+        jfn = functools.partial(jax.lax.ppermute, axis_name=axes, perm=kw["perm"])
+    else:
+        fn = functools.partial(sharding.all_to_all, **kw)
+        jfn = functools.partial(jax.lax.all_to_all, axis_name=axes, split_axis=kw["split_dim"],
+                                concat_axis=kw["concat_dim"], tiled=kw["tiled"])
+    # Each rank's block is (2, 12): the untiled all_to_all's split dim has
+    # the y group's size, the tiled ones' divide by theirs.
+    spmd = jax.shard_map(lambda b: jfn(b)[None], mesh=jmesh, in_specs=(JP(*spec),),
+                         out_specs=JP(("z", "x", "y")), check_vma=False)
+    out_shape = jax.eval_shape(spmd, jax.ShapeDtypeStruct(x.shape, jnp.float32)).shape
+    w = rng.uniform(-1, 1, out_shape).astype(np.float32)
+
+    def jloss(xx):
+        out = spmd(xx)
+        return jnp.sum(out * w), out
+
+    (_, want), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    placed = device_put(tx, mesh, P(*spec))
+    sharding.reset_bytes()
+    got = fn(placed.shards, mesh, axes)
+    loss = 0
+    for c in mesh.coords():
+        idx = mesh.axis_index(c, ("z", "x", "y"))
+        np.testing.assert_allclose(got[c].detach().numpy(), np.asarray(want)[idx],
+                                   rtol=1e-6, atol=1e-6, err_msg=f"{name} {c}")
+        loss = loss + (got[c] * torch.from_numpy(w[idx])).sum()
+    (grad,) = torch.autograd.grad(loss, tx)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), rtol=1e-5, atol=1e-6,
+                               err_msg=name)
+    tag = name.split()[0]
+    assert (tag + "_bwd" in sharding.BYTES) == any(sharding.BYTES[tag].values())
+
+
 def test_mesh_groups_follow_axis_index():
     mesh, _ = _mesh25()
     for axes in ("y", ("z", "y"), ("x", "z", "y")):
