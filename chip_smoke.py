@@ -286,6 +286,22 @@ Phases, each printed as it ends:
      on CUDA events in turns; then each path's device-busy share in a fresh
      process.  Phase 13's FLASH_ROUTE_CASES hold the forward's fp32 output
      (``out_dtype=torch.float32``) on both 16-bit routes.
+ 30. slice 21, every operand type of B1 - B3: WIDE_B1_CASES (float64 on
+     ``csrc/dmma_gemm.cu`` in four layouts, dense, pitched and odd-pitched
+     operands, ragged K, every epilogue, broadcast and a batch past
+     gridDim.z, +-inf / NaN; int16 and the unsigned ints on
+     ``csrc/mxu_simt_int.cu``; int8's extremes on its tensor-core routes;
+     the route checked each) and WIDE_B3_CASES (every semiring of each
+     type's ``csrc/semiring_<type>.cu``, the extremes, odd K and pitches,
+     batched) against the plain versions; then slice 21's main path,
+     launch counts set to 0 before and read after: float64 ``matmul`` at
+     8192^3 on dmma against the plain version and at 2048^3 in four layouts
+     against numpy's float64 product (rtol 1e-9), batched float64 16 x
+     1024^3 with bias_gelu and scale_bias, the float64 gradient at 4096^3,
+     B3 at 4096^3 (min_plus float16 / int8 / uint8 / int16 / float64 /
+     uint16 / int64, max_min uint32) bit for bit, B1 int16 / uint8 plus_times at 4096^3
+     exact; each kernel timed beside its plain version and its bound,
+     float64 ``torch.matmul`` beside dmma.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -930,7 +946,9 @@ def reset_counters():
     mxu.mxu_matmul.launches = mxu.mxu_matmul.epilogue_launches = 0
     mxu.mxu_matmul_batched.launches = 0
     mxu.mxu_matmul_batched.row_softmax_launches = 0
+    mxu.route_launches.clear()
     vpu.vpu_matmul.launches = 0
+    vpu.vpu_matmul.dtype_launches.clear()
     slice_kernels.fused_int8_fp32.launches = 0
     slice_kernels.fused_ozaki_int8.launches = 0
 
@@ -6742,6 +6760,390 @@ def phase_slice20(torch):
     return record, times, profiles
 
 
+# Slice 21: every operand type the reference's GEMM kernels take (phase
+# 30).  The case tables tests/test_torch_kernels.py parametrises too.
+WIDE_DTYPES = ("float64", "float16", "int8", "int16", "uint8", "uint16", "uint32", "int64")
+# Each type's B3 instantiation, csrc/semiring_<suffix>.cu.
+B3_SOURCES = {"float64": "f64", "float16": "f16", "int8": "i8", "int16": "i16", "uint8": "u8",
+              "uint16": "u16", "uint32": "u32", "int64": "i64"}
+# The semirings with a kernel functor, and those that take integers (the
+# reference's log_plus takes floats only, as torch.logaddexp does).
+B3_SEMIRINGS = ("plus_times", "min_plus", "max_plus", "max_min", "min_max", "max_times",
+                "plus_absdiff", "plus_sqdiff", "log_plus")
+EXACT_SEMIRINGS = ("min_plus", "max_plus", "max_min", "min_max", "max_times")
+
+
+# B1 / B2 on the wide types: (dtype, out dtype, ta, tb, batch (None: B1),
+# M, N, K, values, layout, broadcast ("a" / "b": that operand 2-D),
+# epilogue, route).  values: "rand" (floats U(-1, 1), integers over their
+# whole range: every sum wraps), "small" (integers in [-3, 3], [0, 3]
+# unsigned), "edge" (the type's extremes, and floats' +-inf and NaN,
+# sprinkled in).  layout: "dense", "pitched" (rows of whole 16-byte units
+# plus one unit), "odd" (a view one element into rows one element longer:
+# base and pitch off the 16-byte grid, so the float64 tile copies 8 bytes
+# at a time).  float64 on csrc/dmma_gemm.cu: the four layouts on each
+# layout of memory, M, N and K off the tile, K 1 / 3 / 17, a 1 x 1 x 1
+# call, float32 output, a broadcast 2-D a / b, a batch past gridDim.z's
+# 65535, every epilogue (B1 and B2), +-inf and NaN; int16 and the unsigned
+# ints on csrc/mxu_simt_int.cu in the four layouts, odd and ragged shapes,
+# int32 and own-type outputs, an epilogue to fp32, batched; int8's
+# extremes on its tensor-core routes (the engine and WMMA).
+WIDE_B1_CASES = (
+    [("float64", "float64", ta, tb, None, 300, 520, 136, "rand", lay, None, None, "dmma")
+     for ta, tb in LAYOUTS for lay in ("dense", "pitched", "odd")]
+    + [("float64", "float64", ta, tb, 3, 130, 264, 67, "rand", "odd", None, None, "dmma")
+       for ta, tb in LAYOUTS]
+    + [("float64", "float64", False, False, None, 1, 1, 1, "rand", "dense", None, None, "dmma"),
+       ("float64", "float64", True, False, None, 129, 7, 1, "rand", "odd", None, None, "dmma"),
+       ("float64", "float64", False, True, None, 65, 200, 3, "rand", "dense", None, None, "dmma"),
+       ("float64", "float64", True, True, None, 200, 129, 17, "rand", "pitched", None, None,
+        "dmma"),
+       ("float64", "float32", False, False, None, 300, 520, 136, "rand", "dense", None, None,
+        "dmma"),
+       ("float64", "float64", False, False, 5, 130, 264, 200, "rand", "pitched", "a", None,
+        "dmma"),
+       ("float64", "float64", True, True, 5, 130, 264, 200, "rand", "dense", "b", None, "dmma"),
+       ("float64", "float64", False, True, 70_000, 3, 8, 8, "rand", "dense", None, None,
+        "dmma"),
+       ("float64", "float64", False, False, None, 64, 72, 100, "edge", "dense", None, None,
+        "dmma")]
+    + [("float64", "float64", False, False, None, 300, 520, 136, "rand", "dense", None, ep,
+        "dmma") for ep in EPILOGUES]
+    + [("float64", "float64", True, False, 3, 130, 264, 67, "rand", "odd", None, ep, "dmma")
+       for ep in ("bias_gelu", "scale_bias")]
+    + [(dt, dt, ta, tb, None, 130, 200, 67, "rand", "dense", None, None, "simt")
+       for dt in ("int16", "uint8", "uint16", "uint32") for ta, tb in LAYOUTS]
+    + [(dt, "int32", False, True, None, 77, 90, 33, "rand", "odd", None, None, "simt")
+       for dt in ("int16", "uint8", "uint16", "uint32")]
+    + [(dt, dt, True, False, None, 5, 3, 1, "edge", "dense", None, None, "simt")
+       for dt in ("int16", "uint8", "uint16", "uint32")]
+    + [(dt, "float32", False, False, None, 130, 200, 67, "small", "dense", None, "bias", "simt")
+       for dt in ("int16", "uint8")]
+    + [(dt, dt, False, True, 3, 64, 72, 17, "rand", "pitched", "b", None, "simt")
+       for dt in ("int16", "uint8", "uint16", "uint32")]
+    + [("int8", out, False, True, None, 300, 520, 272, "edge", "dense", None, None, "wgmma")
+       for out in ("int32", "int8")]
+    + [("int8", "int32", False, False, None, 130, 200, 33, "edge", "dense", None, None, "wmma")]
+)
+# B3 on the wide types: (dtype, semiring, out dtype, ta, tb, batch, M, N, K,
+# values, layout, broadcast).  Every semiring the type takes at an odd
+# shape with the sums wrapping, then the extremes (+-inf and NaN for the
+# floats; uint32 above 2^31, int64 above 2^32) under the min / max
+# semirings with both operands transposed and odd pitches, K 1 / 3 / 33
+# (odd K for the 1- and 2-byte types), batched with a broadcast b, and
+# wider outputs; "few" (floats): U(-1, 1) with one NaN and a +inf / -inf
+# pair in the first K slice only, so float64's min / max semirings run
+# their all-finite form (semiring_ops.cuh, kNum) on the later slices with
+# NaN accumulators.
+WIDE_B3_CASES = (
+    [(dt, sr, dt, False, False, None, 130, 200, 67, "rand", "dense", None)
+     for dt in WIDE_DTYPES for sr in B3_SEMIRINGS if sr != "log_plus" or dt in ("float64", "float16")]
+    + [(dt, sr, dt, True, True, None, 77, 90, k, "edge", "odd", None)
+       for dt in WIDE_DTYPES for sr, k in (("min_plus", 33), ("max_min", 3), ("max_plus", 1))]
+    + [(dt, "min_max", dt, False, True, 3, 64, 72, 17, "rand", "pitched", "b")
+       for dt in WIDE_DTYPES]
+    + [("float16", "log_plus", "float16", True, False, None, 64, 72, 33, "edge", "dense", None),
+       ("float64", "log_plus", "float64", True, False, None, 64, 72, 33, "edge", "dense", None),
+       ("float16", "min_plus", "float32", False, False, None, 130, 200, 67, "rand", "dense", None),
+       ("float64", "plus_sqdiff", "float32", False, False, None, 130, 200, 67, "rand", "dense",
+        None),
+       ("int8", "max_plus", "int32", False, False, None, 130, 200, 67, "edge", "dense", None),
+       ("uint8", "plus_times", "int32", False, False, None, 130, 200, 67, "rand", "dense", None)]
+    + [(dt, sr, dt, ta, False, None, 130, 200, 67, "few", "dense", None)
+       for dt in ("float64", "float16") for sr in ("min_plus", "max_min", "max_times")
+       for ta in (False, True)]
+)
+
+
+def wide_operand(torch, gen, rows, cols, dtype, values="rand", layout="dense", lead=()):
+    """A (*lead, rows, cols) operand of ``dtype`` on the card (WIDE_B1_CASES'
+    values and layout), drawn in int64 / float64 and cast once, so a type
+    with few CUDA kernels (uint16, uint32) needs only the cast."""
+    dev = "cuda"
+    if layout == "pitched":
+        per = 16 // dtype.itemsize
+        width = (cols + per - 1) // per * per + per
+    else:
+        width = cols + (layout == "odd")
+    shape = (*lead, rows, width)
+    if dtype.is_floating_point:
+        x = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+        specials = [float("inf"), float("-inf"), float("nan"), 0.0, -0.0]
+    else:
+        info = torch.iinfo(dtype)
+        lo, hi = (-3, 4) if values == "small" else (info.min, info.max + 1)
+        if dtype == torch.uint8 and values == "small":
+            lo = 0
+        if dtype == torch.int64 and values != "small":
+            lo, hi = -2**40, 2**40  # above 2^32: wrapped to the low 32 bits at the load
+        if dtype in (torch.uint16, torch.uint32) and values == "small":
+            lo = 0
+        x = torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int64)
+        specials = sorted({info.min, info.max, 0, 1, info.max // 2 + 1, info.max // 2}
+                          | ({-1} if info.min < 0 else set())
+                          | ({2**32 + 5, -2**33 + 7, 2**31} if dtype == torch.int64 else set()))
+    if values == "edge":
+        pick = torch.randint(len(specials), shape, generator=gen, device=dev)
+        vals = torch.tensor(specials, dtype=x.dtype, device=dev)[pick]
+        x = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.08, vals, x)
+    x = x.to(dtype)
+    return x[..., 1:] if layout == "odd" else x[..., :cols]
+
+
+def wide_rtol(torch, out_dtype, exact):
+    """Kernel against plain: exact for integers and the min / max semirings;
+    float64 sums 1e-9 (the reference's float64 tolerance,
+    tests/test_matmul.py), fp32 1e-4 and 16-bit outputs 1e-2, scaled."""
+    if exact or not out_dtype.is_floating_point:
+        return 0.0
+    return {torch.float64: 1e-9, torch.float32: F32_RTOL}.get(out_dtype, BF16_RTOL)
+
+
+def wide_b1_operands(torch, gen, case):
+    """(a, b, epilogue operands, keyword arguments) of a WIDE_B1_CASES case."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    dt, out, ta, tb, bsz, m, n, k, values, layout, bcast, ep_name, _ = case
+    dtype = getattr(torch, dt)
+    a = wide_operand(torch, gen, *((k, m) if ta else (m, k)), dtype, values, layout,
+                     () if bsz is None or bcast == "a" else (bsz,))
+    b = wide_operand(torch, gen, *((n, k) if tb else (k, n)), dtype, values, layout,
+                     () if bsz is None or bcast == "b" else (bsz,))
+    ep = get_epilogue(ep_name) if ep_name else None
+    floats = dtype.is_floating_point
+    eps = [signed(torch, (n,), dtype if floats else torch.float32, gen) * (1 if floats else 20)
+           for _ in range(ep.n_operands if ep else 0)]
+    return a, b, eps, dict(cfg=default_config(dtype, out_dtype=out), transpose_a=ta,
+                           transpose_b=tb, epilogue=ep)
+
+
+def wide_b1_case(torch, gen, case):
+    """One WIDE_B1_CASES case on B1 (batch None) or B2 against the plain
+    version, the route checked; returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import mxu
+    a, b, eps, kw = wide_b1_operands(torch, gen, case)
+    fn = mxu.mxu_matmul if case[4] is None else mxu.mxu_matmul_batched
+    got = fn(a, b, *eps, **kw)
+    if fn.last_route != case[-1]:
+        raise AssertionError(f"B1 / B2 {case}: route {fn.last_route}")
+    rtol = wide_rtol(torch, got.dtype, False)
+    return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol,
+                   f"B1 / B2 {case}", scaled=True)[0]
+
+
+def wide_b3_case(torch, gen, case):
+    """One WIDE_B3_CASES case on B3 against the plain version; returns the
+    largest abs error."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import vpu
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+    dt, sr, out, ta, tb, bsz, m, n, k, values, layout, bcast = case
+    dtype = getattr(torch, dt)
+    a = wide_operand(torch, gen, *((k, m) if ta else (m, k)), dtype, values, layout,
+                     () if bsz is None or bcast == "a" else (bsz,))
+    b = wide_operand(torch, gen, *((n, k) if tb else (k, n)), dtype, values, layout,
+                     () if bsz is None or bcast == "b" else (bsz,))
+    if values == "few":  # in the first K slice: NaN at (5, 3), inf + -inf at (9, 7)
+        a_mk, b_kn = (a.transpose(-1, -2) if ta else a), (b.transpose(-1, -2) if tb else b)
+        a_mk[..., 5, 3], a_mk[..., 9, 2] = float("nan"), float("inf")
+        b_kn[..., 2, 7] = float("-inf")
+    kw = dict(cfg=default_config(dtype, semiring=sr, out_dtype=out), sr=get_semiring(sr),
+              transpose_a=ta, transpose_b=tb)
+    got = vpu.vpu_matmul(a, b, **kw)
+    rtol = wide_rtol(torch, got.dtype, sr in EXACT_SEMIRINGS)
+    return compare(torch, got, vpu.vpu_matmul_plain(a, b, **kw), rtol, f"B3 {case}",
+                   scaled=True)[0]
+
+
+# The main path's shapes (phase 30): float64 at 8192^3 (and 2048^3 against
+# the numpy oracle), batched 16 x 1024^3 with epilogues, the float64
+# gradient at 4096^3, B3 at 4096^3 per new type (each type's
+# semiring_<type>.cu), B1's integer CUDA-core route at 4096^3.
+SLICE21 = dict(f64=8192, oracle=2048, batched=(16, 1024), grad=4096, b3=4096, b1_int=4096)
+SLICE21_B3 = (("float16", "min_plus"), ("int8", "min_plus"), ("uint8", "min_plus"),
+              ("int16", "min_plus"), ("float64", "min_plus"), ("uint32", "max_min"),
+              ("uint16", "min_plus"), ("int64", "min_plus"))
+SLICE21_B1_INT = ("int16", "uint8")
+
+
+def phase_slice21(torch):
+    """Phase 30: slice 21's kernels and main path.  (f) the case tables
+    first (WIDE_B1_CASES, WIDE_B3_CASES: every wide type on B1 / B2 / B3
+    against the plain versions, the edges); then, launch counts set to 0
+    just before and read just after, the front door at the main path's
+    shapes: (a) float64 ``matmul`` at 8192^3 on ``dmma`` against the plain
+    version and, at 2048^3 in the four layouts, against numpy's float64
+    product (rtol 1e-9); (b) batched float64 16 x 1024^3 with a
+    ``bias_gelu`` and a ``scale_bias`` epilogue; (c) the float64 gradient at
+    4096^3 against plain autograd; (d) B3 at 4096^3, min_plus in float16,
+    int8, uint8, int16, float64, uint16 and int64 and max_min in uint32, bit
+    for bit; (e)
+    B1 int16 and uint8 plus_times at 4096^3, exact.  Then each kernel's time
+    beside its plain version's and its bound, float64 ``torch.matmul``
+    (cuBLAS DGEMM) beside B1's float64.  Returns the readings for the
+    kernels line."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import mxu, vpu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = max(wide_b1_case(torch, gen, c) for c in WIDE_B1_CASES)
+    routes = sorted({c[-1] for c in WIDE_B1_CASES})
+    log(f"phase 30f: B1 / B2 wide-type cases, {len(WIDE_B1_CASES)} (float64 on dmma in four "
+        f"layouts, dense / pitched / odd pitches, K 1 / 3 / 17, float32 out, broadcast, batch "
+        f"70000, every epilogue, +-inf / NaN; int16 / uint8 / uint16 / uint32 on simt; int8 "
+        f"-128 / 127 on its tensor-core routes), routes {routes} checked each: ok (worst abs "
+        f"err {worst:.3e})")
+    worst = max(wide_b3_case(torch, gen, c) for c in WIDE_B3_CASES)
+    log(f"phase 30f: B3 wide-type cases, {len(WIDE_B3_CASES)} (every semiring of each of "
+        f"{', '.join(WIDE_DTYPES)}; extremes, +-inf / NaN, uint32 above 2^31, int64 above "
+        f"2^32, odd K and pitches, batched): ok (worst abs err {worst:.3e})")
+
+    reset_counters()
+    t0 = time.perf_counter()
+    n = SLICE21["f64"]
+    a = signed(torch, (n, n), torch.float64, gen)
+    b = signed(torch, (n, n), torch.float64, gen)
+    got = matmul(a, b)
+    if mxu.mxu_matmul.last_route != "dmma":
+        raise AssertionError(f"30a: float64 {n}^3 on {mxu.mxu_matmul.last_route}")
+    cfg64 = default_config(torch.float64)
+    plain64 = mxu.mxu_matmul_plain(a, b, cfg=cfg64)
+    err_a = compare(torch, got, plain64, 1e-9, f"30a float64 {n}^3", scaled=True)
+    del got, plain64
+    no = SLICE21["oracle"]
+    oracle_err = {}
+    for ta, tb in LAYOUTS:
+        x = signed(torch, (no, no), torch.float64, gen)
+        y = signed(torch, (no, no), torch.float64, gen)
+        got = matmul(x, y, transpose_a=ta, transpose_b=tb)
+        if mxu.mxu_matmul.last_route != "dmma":
+            raise AssertionError(f"30a: float64 {no}^3 {ta, tb} on {mxu.mxu_matmul.last_route}")
+        xn, yn = x.cpu().numpy(), y.cpu().numpy()
+        want = torch.from_numpy((xn.T if ta else xn) @ (yn.T if tb else yn)).cuda()
+        oracle_err[f"{'t' if ta else 'n'}{'t' if tb else 'n'}"] = compare(
+            torch, got, want, 1e-9, f"30a float64 {no}^3 {ta, tb} vs numpy", scaled=True)[1]
+    log(f"phase 30a: float64 {n}^3 on dmma vs plain: max abs err {err_a[0]:.3e}, scaled rel "
+        f"{err_a[1]:.3e}; {no}^3 in four layouts vs numpy float64, scaled rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in oracle_err.items()))
+
+    bsz, nb = SLICE21["batched"]
+    xb = signed(torch, (bsz, nb, nb), torch.float64, gen)
+    yb = signed(torch, (bsz, nb, nb), torch.float64, gen)
+    s_ = signed(torch, (nb,), torch.float64, gen)
+    bias = signed(torch, (nb,), torch.float64, gen)
+    batched_err = {}
+    for ep, ops in (("bias_gelu", (bias,)), ("scale_bias", (s_, bias))):
+        got = matmul(xb, yb, epilogue=ep, epilogue_operands=ops)
+        if mxu.mxu_matmul_batched.last_route != "dmma":
+            raise AssertionError(f"30b: {ep} on {mxu.mxu_matmul_batched.last_route}")
+        want = mxu.mxu_matmul_plain(xb, yb, *ops, cfg=cfg64, epilogue=get_epilogue(ep))
+        batched_err[ep] = compare(torch, got, want, 1e-9, f"30b {ep}", scaled=True)[0]
+    log(f"phase 30b: batched float64 {bsz} x {nb}^3 with bias_gelu / scale_bias on dmma vs "
+        f"plain: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in batched_err.items()))
+
+    ng = SLICE21["grad"]
+    xg = signed(torch, (ng, ng), torch.float64, gen).requires_grad_()
+    yg = signed(torch, (ng, ng), torch.float64, gen).requires_grad_()
+    cot = signed(torch, (ng, ng), torch.float64, gen)
+    before = mxu.route_launches["dmma", "float64"]
+    matmul(xg, yg).backward(cot)
+    if mxu.route_launches["dmma", "float64"] - before != 3:
+        raise AssertionError("30c: the float64 gradient is not three dmma launches")
+    xp, yp = xg.detach().clone().requires_grad_(), yg.detach().clone().requires_grad_()
+    torch.matmul(xp, yp).backward(cot)
+    grad_err = [compare(torch, g_, w_, 1e-9, f"30c d{nm}", scaled=True)[0]
+                for nm, g_, w_ in (("a", xg.grad, xp.grad), ("b", yg.grad, yp.grad))]
+    del xg, yg, xp, yp, cot
+    log(f"phase 30c: float64 gradient {ng}^3 (forward and both backward GEMMs on dmma) vs "
+        f"plain autograd: max abs err dA {grad_err[0]:.3e}, dB {grad_err[1]:.3e}")
+
+    nb3 = SLICE21["b3"]
+    b3_ops = {}
+    for dt, sr in SLICE21_B3:
+        dtype = getattr(torch, dt)
+        x = wide_operand(torch, gen, nb3, nb3, dtype)
+        y = wide_operand(torch, gen, nb3, nb3, dtype)
+        got = matmul(x, y, semiring=sr)
+        cfg = default_config(dtype, semiring=sr)
+        want = vpu.vpu_matmul_plain(x, y, cfg=cfg, sr=get_semiring(sr))
+        compare(torch, got, want, 0.0, f"30d {dt} {sr} {nb3}^3")
+        b3_ops[dt, sr] = (x, y, cfg)
+        del got, want
+    log(f"phase 30d: B3 {nb3}^3 " + ", ".join(f"{sr} {dt}" for dt, sr in SLICE21_B3)
+        + " vs plain: bit for bit")
+
+    ni = SLICE21["b1_int"]
+    b1_ops = {}
+    for dt in SLICE21_B1_INT:
+        dtype = getattr(torch, dt)
+        x = wide_operand(torch, gen, ni, ni, dtype)
+        y = wide_operand(torch, gen, ni, ni, dtype)
+        got = matmul(x, y)
+        if mxu.mxu_matmul.last_route != "simt":
+            raise AssertionError(f"30e: {dt} on {mxu.mxu_matmul.last_route}")
+        cfg = default_config(dtype)
+        compare(torch, got, mxu.mxu_matmul_plain(x, y, cfg=cfg), 0.0, f"30e {dt} {ni}^3")
+        b1_ops[dt] = (x, y, cfg)
+        del got
+    log(f"phase 30e: B1 plus_times {ni}^3 " + ", ".join(SLICE21_B1_INT)
+        + " on simt (int32 accumulator, wrapping) vs plain: exact")
+    launches = dict(counters(), routes=dict(mxu.route_launches),
+                    b3_dtypes=dict(vpu.vpu_matmul.dtype_launches))
+    log(f"phase 30: main-path launches {launches}")
+    need = [("dmma", "float64")] + [("simt", dt) for dt in SLICE21_B1_INT]
+    if any(not mxu.route_launches[key] for key in need) or any(
+            not vpu.vpu_matmul.dtype_launches[dt] for dt, _ in SLICE21_B3):
+        raise AssertionError(f"phase 30: a kernel of the path was not launched: {launches}")
+    main_s = time.perf_counter() - t0
+
+    # Times, in turns on CUDA events (launches here are comparisons).
+    readings = {}
+    e64 = 8
+    t = event_turns(torch, {"kernel": lambda: mxu.mxu_matmul(a, b, cfg=cfg64),
+                            "plain": lambda: mxu.mxu_matmul_plain(a, b, cfg=cfg64),
+                            "library": lambda: torch.matmul(a, b)})
+    readings["B1 float64"] = dict(
+        ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"], max_abs_err=err_a[0],
+        bound=H100.bound(2.0 * n ** 3, H100.peak_for("float64"), 3 * n * n * e64),
+        oracle_2048_scaled_rel=oracle_err, batched_max_abs_err=batched_err,
+        grad_max_abs_err=grad_err)
+    for (dt, sr), (x, y, cfg) in b3_ops.items():
+        sem = get_semiring(sr)
+        t = event_turns(torch, {"kernel": lambda: vpu.vpu_matmul(x, y, cfg=cfg, sr=sem)},
+                        rounds=3, iters=2)
+        t.update(event_turns(torch, {"plain": lambda: vpu.vpu_matmul_plain(x, y, cfg=cfg,
+                                                                           sr=sem)},
+                             rounds=1, iters=1))
+        isz = x.element_size()
+        readings[f"B3 {sr} {dt}"] = dict(
+            ms=t["kernel"], plain_ms=t["plain"], library_ms=None, max_abs_err=0.0,
+            bound=H100.bound(2.0 * nb3 ** 3, H100.vpu_ops_for(dt), 3 * nb3 * nb3 * isz))
+    for dt, (x, y, cfg) in b1_ops.items():
+        t = event_turns(torch, {"kernel": lambda: mxu.mxu_matmul(x, y, cfg=cfg),
+                                "plain": lambda: mxu.mxu_matmul_plain(x, y, cfg=cfg)},
+                        rounds=3, iters=2)
+        isz = x.element_size()
+        readings[f"B1 {dt}"] = dict(
+            ms=t["kernel"], plain_ms=t["plain"], library_ms=None, max_abs_err=0.0,
+            bound=H100.bound(2.0 * ni ** 3, H100.peak_for(dt), 3 * ni * ni * isz))
+    for key, r in readings.items():
+        bound_ms = r["bound"][0] * 1e3
+        lib = f", library {r['library_ms']:.3f} ms" if r["library_ms"] else ""
+        log(f"phase 30: {key}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, bound "
+            f"{bound_ms:.3f} ms ({r['bound'][1]}), {bound_ms / r['ms']:.1%} of the bound")
+    del a, b, b3_ops, b1_ops
+    torch.cuda.empty_cache()
+    log(f"phase 30: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
+    return {"launches": launches, "readings": readings}
+
+
 def main() -> int:
     import torch
 
@@ -6836,6 +7238,7 @@ def main() -> int:
     t0 = time.perf_counter()
     par20, par20_times, par20_profiles = phase_slice20(torch)
     log(f"phase 29: {time.perf_counter() - t0:.1f} s")
+    slice21 = phase_slice21(torch)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -7034,6 +7437,31 @@ def main() -> int:
                                          if isinstance(r, dict) and "launches" in r)
     kernels[0]["parallel_times_ms"] = par20_times
     kernels[0]["parallel_busy"] = {k: v["busy"] for k, v in par20_profiles.items()}
+    # Slice 21 (phase 30): the wide operand types, each kernel source with
+    # its launches on phase 30's main path.
+    r21, l21 = slice21["readings"], slice21["launches"]
+    routes21, b3_dt = l21["routes"], l21["b3_dtypes"]
+    kernels.append(kernel(
+        "dmma_gemm (B1 / B2 float64 on the FP64 tensor cores, 8192^3)",
+        "gemm_hls_tpu_torch/csrc/dmma_gemm.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        routes21.get(("dmma", "float64"), 0), r21["B1 float64"], r21["B1 float64"]["bound"],
+        r21["B1 float64"]["library_ms"]))
+    kernels[-1].update({k: r21["B1 float64"][k] for k in (
+        "oracle_2048_scaled_rel", "batched_max_abs_err", "grad_max_abs_err")})
+    kernels[-1]["library_note"] = "library_ms is float64 torch.matmul (cuBLAS DGEMM)"
+    for dt in SLICE21_B1_INT:
+        t = r21[f"B1 {dt}"]
+        kernels.append(kernel(
+            f"mxu_gemm CUDA-core route (B1 {dt} plus_times, int32 accumulator, 4096^3)",
+            "gemm_hls_tpu_torch/csrc/mxu_simt_int.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69",
+            routes21.get(("simt", dt), 0), t, t["bound"], None))
+    for dt, sr in SLICE21_B3:
+        t = r21[f"B3 {sr} {dt}"]
+        kernels.append(kernel(
+            f"semiring_gemm (B3 {sr} {dt}, 4096^3)",
+            f"gemm_hls_tpu_torch/csrc/semiring_{B3_SOURCES[dt]}.cu",
+            "gemm_hls_tpu/ops/pallas_vpu.py:56",
+            b3_dt.get(dt, 0), t, t["bound"], None))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,20 +28,30 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Must match ``enum DType`` in csrc/common.cuh.
+# Must match ``enum DType`` in csrc/common.cuh.  The first five are the
+# types every kernel's store writes; the wide ones after them (float64,
+# int16, the unsigned ints, int64) only kernels B1 - B3 take.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-                torch.int8: 3, torch.int32: 4}
+                torch.int8: 3, torch.int32: 4, torch.float64: 5,
+                torch.int16: 6, torch.uint8: 7, torch.uint16: 8,
+                torch.uint32: 9, torch.int64: 10}
+_BASE_CODES = 5
 
 _lock = threading.Lock()
 _lib = None
 
 
-def dtype_code(d: torch.dtype) -> int:
-    try:
-        return _DTYPE_CODES[d]
-    except KeyError:
+def dtype_code(d: torch.dtype, wide: bool = False) -> int:
+    """The kernels' code of ``d``.  ``wide``: the caller is a tile of B1 -
+    B3 that also takes float64, int16, the unsigned ints and int64 (the
+    CUDA-core tile, ``csrc/dmma_gemm.cu``); the other kernels refuse them
+    here."""
+    code = _DTYPE_CODES.get(d)
+    if code is None or (code >= _BASE_CODES and not wide):
         raise NotImplementedError(
-            f"no CUDA kernel takes dtype {d} (ROADMAP B coverage items 1 and 2)") from None
+            f"no CUDA kernel of this call takes dtype {d} (ROADMAP B "
+            f"coverage items 8-17: the wide types on the other kernels)")
+    return code
 
 
 def _sources():
@@ -123,6 +133,9 @@ def _declare(lib):
     gemm = [vp, vp, vp, i64, i32, i32, i32, i64, i64, i64, i64, i32, i32]
     lib.mxu_gemm.restype = i32
     lib.mxu_gemm.argtypes = gemm + [i32, i32, i32, i32, i32, vp, vp, i32, vp]
+    # B1 / B2 for float64 on the FP64 tensor cores: mxu_gemm's arguments.
+    lib.dmma_gemm.restype = i32
+    lib.dmma_gemm.argtypes = lib.mxu_gemm.argtypes
     # B1 / B2 on the tile engine: mxu_gemm's arguments without the vector
     # flags (its operands are aligned by the route's rule).
     lib.mxu_wgmma.restype = i32

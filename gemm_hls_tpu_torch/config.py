@@ -8,8 +8,9 @@ the TPU's lane/sublane/VMEM checks.
 The blocks describe one CUDA thread block's C tile (``block_m x block_n``)
 and its K step (``block_k``).  The kernels in ``csrc/`` are compiled for
 fixed tiles.  The front door's config names the tile of :func:`kernel_route`
-(``KERNEL_TILES``: the WMMA tile for bf16 / fp16 / int8, the CUDA-core tile
-for the rest), and ``validate`` holds it to that.  A call whose operands a
+(``KERNEL_TILES``: the WMMA tile for bf16 / fp16 / int8 plus_times, the
+FP64 tensor-core tile for float64 plus_times, the CUDA-core tile for the
+rest), and ``validate`` holds it to that.  A call whose operands a
 TMA map describes runs on the Hopper tile engine's larger tile instead
 (``ENGINE_TILES``; ``ops/mxu.py::mxu_route`` decides at the launch), so the
 I/O law describes the kernel that runs only for the config of
@@ -32,8 +33,14 @@ SMEM_LIMIT_BYTES = 232_448
 #            the 2-D calls whose operands a TMA map describes run on the
 #            Hopper tile engine's 128 x 256 tile instead, ops/mxu.py::mxu_route);
 #   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 / int32 plus_times in
-#            mxu_gemm.cu, and every semiring in semiring_gemm.cu).
-KERNEL_TILES = {"tc": (128, 128, 32), "simt": (128, 128, 16)}
+#            mxu_gemm.cu, int16 / uint8 / uint16 / uint32 plus_times in
+#            mxu_simt_int.cu, and every semiring in semiring_gemm.cu);
+#   "dmma" — csrc/dmma_gemm.cu, float64 plus_times on the FP64 tensor cores
+#            (mma.sync m16n8k4 .f64), its K slices in a ring of DMMA_STAGES
+#            cp.async stages.
+KERNEL_TILES = {"tc": (128, 128, 32), "simt": (128, 128, 16),
+                "dmma": (128, 128, 16)}
+DMMA_STAGES = 3
 
 # Kernel B1 / B2 on the Hopper tile engine (csrc/wgmma_tile.cuh,
 # csrc/mxu_wgmma.cuh), route "wgmma": a 128 x 256 C tile and a K step of one
@@ -139,9 +146,12 @@ def accumulator_for(dtype) -> str:
 
 
 def kernel_route(dtype, semiring: str = "plus_times") -> str:
-    """Which compiled tile runs this (dtype, semiring): "tc" or "simt"."""
+    """Which compiled tile runs this (dtype, semiring): "tc" (bf16 / fp16 /
+    int8 plus_times), "dmma" (float64 plus_times) or "simt" (the rest)."""
     if semiring == "plus_times" and dtype_name(dtype) in _TENSOR_CORE_DTYPES:
         return "tc"
+    if semiring == "plus_times" and dtype_name(dtype) == "float64":
+        return "dmma"
     return "simt"
 
 
@@ -151,8 +161,9 @@ def call_route(dtype, semiring: str = "plus_times", transpose_a: bool = False,
     rule in this module's names.  "wgmma" (the tile engine) for bf16 /
     fp16 in any layout and int8 with A (M, K) and B held (N, K), when the
     operands are ``aligned`` (16-byte bases and row pitches); "tc" (the
-    WMMA tile) for the other bf16 / fp16 / int8 plus_times calls; "simt"
-    for the rest."""
+    WMMA tile) for the other bf16 / fp16 / int8 plus_times calls; "dmma"
+    (the FP64 tensor cores, any layout and alignment) for float64
+    plus_times; "simt" for the rest."""
     route = kernel_route(dtype, semiring)
     if route != "tc" or not aligned:
         return route
@@ -167,10 +178,12 @@ def named_route(route: Optional[str], rule: str, what: str) -> str:
     the tile engine ("wgmma") where the rule does not give it raises (its
     TMA maps cannot describe the call), and so does a CUDA-core route
     ("simt") for inputs the rule sends to the tensor cores, or the
-    reverse."""
+    reverse, and any other route for float64 ("dmma", the one kernel that
+    takes it) or "dmma" for another type."""
     if route is None or route == rule:
         return rule
-    if route == "wgmma" or (route == "simt") != (rule == "simt"):
+    if (route == "wgmma" or (route == "simt") != (rule == "simt")
+            or "dmma" in (route, rule)):
         raise ValueError(f"{what}: route {route!r} cannot run this call; the route "
                          f"rule gives {rule!r}")
     return route
@@ -227,7 +240,9 @@ class GemmConfig:
     ``debug``), which :meth:`from_reference` drops.
 
     ``precision`` applies to float32 plus_times: "high" and "highest" run
-    IEEE fp32 FMA on CUDA cores.  "default" (the TPU's bf16 multi-pass) has
+    IEEE fp32 FMA on CUDA cores.  float64 plus_times runs IEEE float64 FMA
+    on the FP64 tensor cores (``csrc/dmma_gemm.cu``) whatever the
+    precision, as the reference's float64 dot does.  "default" (the TPU's bf16 multi-pass) has
     no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP B
     coverage item 6: the TF32 decision).  "i8x2" / "i8x3" / "i8x4" run fp32 through 2 / 3
     / 4 int8 slices per operand on the int8 tensor cores
@@ -277,7 +292,8 @@ class GemmConfig:
                  route: Optional[str] = None) -> "GemmConfig":
         """Eager checks.  ``strict_alignment`` (set when a kernel will run)
         adds the Hopper ones: the tile is the one the kernel of ``route``
-        ("wgmma" / "tc" / "simt"; default: :meth:`route`) was compiled for,
+        ("wgmma" / "tc" / "dmma" / "simt"; default: :meth:`route`) was
+        compiled for,
         its shared memory fits a block, and tile rows are whole 16-byte
         vectors."""
         if self.pad_policy not in ("pad", "strict"):
@@ -335,6 +351,12 @@ class GemmConfig:
             per_row = self.block_k * itemsize(self.dtype)
             return (ENGINE_FIXED_SMEM
                     + ENGINE_STAGES * (self.block_m + self.block_n) * per_row)
+        if route == "dmma":
+            # A ring of stages, each operand's K slice in the larger of its
+            # two layouts: [o][k] rows of block_k + 4, [k][o] of o + 4.
+            return DMMA_STAGES * sum(
+                max(o * (self.block_k + 4), self.block_k * (o + 4))
+                for o in (self.block_m, self.block_n)) * 8
         if route == "tc":
             in_b = itemsize(self.dtype)
             planes = cdiv(self.block_k, 16)

@@ -30,7 +30,10 @@
 //   int8       -> tensor cores (WMMA 16x16x16), int32 accumulator;
 //   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
 //                  (csrc/simt_gemm.cuh with the plus_times functor); this
-//                  meets the reference's "high"/"highest" precision.
+//                  meets the reference's "high"/"highest" precision;
+//   int16, uint8, uint16, uint32 -> the same CUDA-core tile on an int32
+//                  accumulator (csrc/mxu_simt_int.cu);
+//   float64     -> csrc/dmma_gemm.cu (the FP64 tensor cores), its own entry.
 // The tensor-core tile here runs the calls, 2-D (B1) and batched (B2), that
 // the engine does not take: int8 with an operand that is not K-major (int8
 // wgmma reads nothing else), and any operand whose base, row pitch or batch
@@ -261,6 +264,9 @@ int launch_tc(const Gemm& g, int64_t batch, cudaStream_t stream) {
   });
 }
 
+// int16 and the unsigned ints on the CUDA cores (csrc/mxu_simt_int.cu).
+int launch_mxu_simt_int(int in_code, const Gemm& g, int64_t batch, cudaStream_t s);
+
 }  // namespace gemm_hls
 
 using namespace gemm_hls;
@@ -286,6 +292,10 @@ extern "C" int mxu_gemm(const void* a, const void* b, void* c, int64_t batch, in
     case kI8: return launch_tc<signed char>(g, batch, s);
     case kF32: return launch_simt<float, float, PlusTimes<float>, true>(g, batch, s);
     case kI32: return launch_simt<int, int, PlusTimes<int>, true>(g, batch, s);
+    case kI16:
+    case kU8:
+    case kU16:
+    case kU32: return launch_mxu_simt_int(in_code, g, batch, s);
     default: return kUnsupported;
   }
 }

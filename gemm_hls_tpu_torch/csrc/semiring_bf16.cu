@@ -1,6 +1,5 @@
-// Kernel B3 for bf16 inputs: every built-in semiring but log_plus (in
-// csrc/semiring_gemm.cu), in its own translation unit so it builds in
-// parallel with the others.
+// Kernel B3 for bf16 inputs: every built-in semiring (log_plus included), in
+// its own translation unit so it builds in parallel with the others.
 #include "semiring_ops.cuh"
 
 namespace gemm_hls {

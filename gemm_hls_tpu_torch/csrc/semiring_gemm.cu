@@ -21,15 +21,28 @@
 // shared-memory loads.
 //
 // Each built-in semiring is a functor; ``op`` selects it and matches
-// ``op_code`` in gemm_hls_tpu_torch/ops/semiring.py.  Inputs: f32 and bf16
-// (f32 accumulator) and int32 (int32 accumulator, wrapping like the
-// reference).  The accumulator is cast to the output dtype at the store.
+// ``op_code`` in gemm_hls_tpu_torch/ops/semiring.py.  Inputs, each type
+// instantiated in its own source (semiring_ops.cuh): f32, bf16 and f16
+// (f32 accumulator; 16-bit inputs widen exactly), float64 (float64
+// accumulator), and int32, int8, int16, uint8, uint16, uint32 and int64
+// (int32 accumulator, each element widened or wrapped at the load as the
+// reference's astype(int32) does, sums wrapping like the reference's).
+// log_plus takes the floating types only.  The accumulator is cast to the
+// output dtype at the store.
 #include "semiring_ops.cuh"
 
 namespace gemm_hls {
 
 extern template int dispatch_op<float, float>(int, const Gemm&, int64_t, cudaStream_t);
 extern template int dispatch_op<__nv_bfloat16, float>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<__half, float>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<double, double>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<signed char, int>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<short, int>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<unsigned char, int>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<unsigned short, int>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<unsigned int, int>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_op<long long, int>(int, const Gemm&, int64_t, cudaStream_t);
 
 }  // namespace gemm_hls
 
@@ -45,11 +58,6 @@ extern "C" int semiring_gemm(const void* a, const void* b, void* c, int64_t batc
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Gemm g{a, b, c, M, N, K, lda, ldb, sa, sb, ta, tb, 0, 0, out_code,
                EpArgs{nullptr, nullptr, 0, kEpNone}};
-  if (op == kLogPlus) {
-    if (in_code == kF32) return launch_simt<float, float, LogPlus>(g, batch, s);
-    if (in_code == kBF16) return launch_simt<__nv_bfloat16, float, LogPlus>(g, batch, s);
-    return kUnsupported;
-  }
   if (op == kOrAndBits) {
     if (in_code == kI32) return launch_simt<int, int, OrAndBits>(g, batch, s);
     return kUnsupported;
@@ -57,7 +65,15 @@ extern "C" int semiring_gemm(const void* a, const void* b, void* c, int64_t batc
   switch (in_code) {
     case kF32: return dispatch_op<float, float>(op, g, batch, s);
     case kBF16: return dispatch_op<__nv_bfloat16, float>(op, g, batch, s);
+    case kF16: return dispatch_op<__half, float>(op, g, batch, s);
+    case kF64: return dispatch_op<double, double>(op, g, batch, s);
     case kI32: return dispatch_op<int, int>(op, g, batch, s);
+    case kI8: return dispatch_op<signed char, int>(op, g, batch, s);
+    case kI16: return dispatch_op<short, int>(op, g, batch, s);
+    case kU8: return dispatch_op<unsigned char, int>(op, g, batch, s);
+    case kU16: return dispatch_op<unsigned short, int>(op, g, batch, s);
+    case kU32: return dispatch_op<unsigned int, int>(op, g, batch, s);
+    case kI64: return dispatch_op<long long, int>(op, g, batch, s);
     default: return kUnsupported;
   }
 }

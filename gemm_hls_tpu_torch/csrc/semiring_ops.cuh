@@ -1,8 +1,11 @@
 // The built-in semiring functors of kernel B3 and their dispatch by op
-// code, shared by the translation units that instantiate them
-// (semiring_gemm.cu, semiring_f32.cu, semiring_bf16.cu: one per input
-// dtype, so nvcc builds them in parallel).
+// code, shared by the translation units that instantiate them, one per
+// input dtype so nvcc builds them in parallel: semiring_gemm.cu (int32 and
+// the bit-packed or_and), semiring_f32.cu, semiring_bf16.cu,
+// semiring_f16.cu, semiring_f64.cu and semiring_{i8,i16,u8,u16,u32,i64}.cu.
 #pragma once
+
+#include <type_traits>
 
 #include "simt_gemm.cuh"
 
@@ -13,27 +16,55 @@ enum Op : int {
   kMaxTimes = 5, kPlusAbsdiff = 6, kPlusSqdiff = 7, kLogPlus = 8, kOrAndBits = 9,
 };
 
-template <typename Acc> struct MinPlus {
+// min / max of an accumulator (or operand) and a value known not to be NaN
+// (kNum: a K slice whose operands are all finite, so no mapped value is
+// NaN): for float64 one compare and select, which keeps a NaN accumulator,
+// where dmin / dmax take three compares (sm_90 has no float64 min / max
+// instruction).  The other types' dmin / dmax are one instruction already.
+template <bool kNum, typename Acc>
+__device__ __forceinline__ Acc rmin(Acc acc, Acc x) {
+  if constexpr (kNum && std::is_same<Acc, double>::value) return x < acc ? x : acc;
+  else return dmin(acc, x);
+}
+template <bool kNum, typename Acc>
+__device__ __forceinline__ Acc rmax(Acc acc, Acc x) {
+  if constexpr (kNum && std::is_same<Acc, double>::value) return x > acc ? x : acc;
+  else return dmax(acc, x);
+}
+
+// The min / max functors name their kNum form (Num), which the tile runs on
+// a float64 K slice with no NaN or infinity (simt_gemm.cuh::NumOf).
+template <typename Acc, bool kNum = false> struct MinPlus {
+  using Num = MinPlus<Acc, true>;
   static __device__ __forceinline__ Acc identity() { return Lim<Acc>::hi(); }
-  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return dmin(acc, dadd(a, b)); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return rmin<kNum>(acc, dadd(a, b)); }
 };
-template <typename Acc> struct MaxPlus {
+template <typename Acc, bool kNum = false> struct MaxPlus {
+  using Num = MaxPlus<Acc, true>;
   static __device__ __forceinline__ Acc identity() { return Lim<Acc>::lo(); }
-  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return dmax(acc, dadd(a, b)); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return rmax<kNum>(acc, dadd(a, b)); }
 };
-template <typename Acc> struct MaxMin {
+template <typename Acc, bool kNum = false> struct MaxMin {
+  using Num = MaxMin<Acc, true>;
   static __device__ __forceinline__ Acc identity() { return Lim<Acc>::lo(); }
-  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return dmax(acc, dmin(a, b)); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) {
+    return rmax<kNum>(acc, rmin<kNum>(a, b));
+  }
 };
-template <typename Acc> struct MinMax {
+template <typename Acc, bool kNum = false> struct MinMax {
+  using Num = MinMax<Acc, true>;
   static __device__ __forceinline__ Acc identity() { return Lim<Acc>::hi(); }
-  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return dmin(acc, dmax(a, b)); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) {
+    return rmin<kNum>(acc, rmax<kNum>(a, b));
+  }
 };
-template <typename Acc> struct MaxTimes {
+template <typename Acc, bool kNum = false> struct MaxTimes {
+  using Num = MaxTimes<Acc, true>;
   static __device__ __forceinline__ Acc identity() { return Lim<Acc>::lo(); }
-  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return dmax(acc, dmul(a, b)); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return rmax<kNum>(acc, dmul(a, b)); }
 };
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dabs(double x) { return fabs(x); }
 __device__ __forceinline__ int dabs(int x) { return x < 0 ? dsub(0, x) : x; }
 template <typename Acc> struct PlusAbsdiff {
   static __device__ __forceinline__ Acc identity() { return Acc(0); }
@@ -49,7 +80,8 @@ template <typename Acc> struct PlusSqdiff {
 
 // numpy's logaddexp: equal arguments (both -inf included) return x + ln 2,
 // so logaddexp(-inf, -inf) = -inf.  The naive m + log1p(exp(-|x - y|))
-// forms -inf - -inf = NaN there.
+// forms -inf - -inf = NaN there.  In the accumulator's precision: fp32
+// (fp32 / bf16 / fp16 inputs) or float64.
 __device__ __forceinline__ float logaddexp(float x, float y) {
   if (x == y) return x + 0.693147180559945309f;
   const float d = x - y;
@@ -57,9 +89,18 @@ __device__ __forceinline__ float logaddexp(float x, float y) {
   if (d <= 0.f) return y + log1pf(expf(d));
   return d;  // NaN operand
 }
-struct LogPlus {
-  static __device__ __forceinline__ float identity() { return -INFINITY; }
-  static __device__ __forceinline__ float step(float acc, float a, float b) { return logaddexp(acc, a + b); }
+// Out of line: double exp and log1p inlined into every unrolled term of the
+// tile's 16 x 64 steps would take ptxas minutes.
+static __device__ __noinline__ double logaddexp(double x, double y) {
+  if (x == y) return x + 0.693147180559945309;
+  const double d = x - y;
+  if (d > 0.0) return x + log1p(exp(-d));
+  if (d <= 0.0) return y + log1p(exp(d));
+  return d;  // NaN operand
+}
+template <typename Acc> struct LogPlus {
+  static __device__ __forceinline__ Acc identity() { return Lim<Acc>::lo(); }
+  static __device__ __forceinline__ Acc step(Acc acc, Acc a, Acc b) { return logaddexp(acc, a + b); }
 };
 
 // Bool or_and on bit-packed int32 words (32 contraction bits per word):
@@ -80,6 +121,10 @@ int dispatch_op(int op, const Gemm& g, int64_t batch, cudaStream_t s) {
     case kMaxTimes: return launch_simt<TIn, Acc, MaxTimes<Acc>>(g, batch, s);
     case kPlusAbsdiff: return launch_simt<TIn, Acc, PlusAbsdiff<Acc>>(g, batch, s);
     case kPlusSqdiff: return launch_simt<TIn, Acc, PlusSqdiff<Acc>>(g, batch, s);
+    case kLogPlus:  // a floating accumulator only (torch's logaddexp takes no integers)
+      if constexpr (std::is_floating_point<Acc>::value)
+        return launch_simt<TIn, Acc, LogPlus<Acc>>(g, batch, s);
+      return kUnsupported;
     default: return kUnsupported;
   }
 }

@@ -25,7 +25,8 @@ class ChipSpec:
     names.
 
     ``peak_flops`` maps dtype name -> peak FLOP/s of the tensor cores
-    (float32: the CUDA-core FMA rate, an FMA counted as 2 ops);
+    for the type (float32, and the integer types the tensor cores do not
+    take: the CUDA cores' FMA / multiply-add rate, one counted as 2 ops);
     ``vpu_ops`` is the CUDA-core instruction rate that bounds the
     generic-semiring kernel, whose (map, reduce) pair is two instructions.
     ``vmem_bytes``: the shared memory one thread block may use (the
@@ -51,6 +52,21 @@ class ChipSpec:
         d = str(dtype).removeprefix("torch.")
         return self.peak_flops.get(d, self.peak_flops["float32"])
 
+    def vpu_ops_for(self, dtype) -> float:
+        """The generic-semiring rate (kernel B3) for ``dtype`` inputs, in
+        2*M*N*K ops a second: ``vpu_ops`` for every type but float64, half
+        of it for float64.  A term is a (map, reduce) pair: two fp32
+        instructions on 128 lanes a clock an SM (fp32, bf16 and fp16 inputs,
+        an fp32 accumulator); one instruction on 64 lanes for the int32
+        accumulator of every integer type, where sm_90's DPX fuses the add
+        with the min / max (``VIADDMNMX`` in the built min_plus kernels'
+        SASS), the same term rate; two on 64 lanes for float64 (64-bit
+        add, and compare and select: sm_90 has no float64 min / max
+        instruction).  Lanes a clock: the CUDA C++ Programming Guide's
+        arithmetic-throughput table, compute capability 9.0."""
+        d = str(dtype).removeprefix("torch.")
+        return self.vpu_ops / 2 if d == "float64" else self.vpu_ops
+
     def bound(self, ops: float, peak: float, bytes_moved: float):
         """(seconds, "operations" | "bytes"): the least time the card could
         take for ``ops`` operations at ``peak`` per second that must move
@@ -73,8 +89,17 @@ H100 = _register(ChipSpec(
     # bf16/fp16 989 TFLOP/s, int8 1979 TOP/s, tf32 495 TFLOP/s dense; fp64
     # on the tensor cores and fp32 outside them 67 TFLOP/s (NVIDIA H100 SXM
     # data sheet).
+    # The tensor cores take uint8 at the int8 rate (mma / wgmma .u8).
     peak_flops={"bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
-                "tfloat32": 495e12, "float32": 67e12, "float64": 67e12},
+                "uint8": 1979e12, "tfloat32": 495e12, "float32": 67e12,
+                "float64": 67e12,
+                # The tensor cores take no int16, uint16, uint32 or int32:
+                # plus_times of these runs on the CUDA cores' int32
+                # multiply-add, 64 a clock an SM (the CUDA C++ Programming
+                # Guide's throughput table, compute capability 9.0), counted
+                # as 2 ops: 132 x 64 x 2 x 1.98e9.
+                **dict.fromkeys(("int32", "int16", "uint16", "uint32"),
+                                132 * 64 * 2 * 1.98e9)},
     # The fp32 67e12 counts an FMA as 2 ops: 132 SMs x 128 fp32 lanes x 2 x
     # 1.98 GHz (H100 SXM boost clock).  The CUDA cores issue one instruction
     # per lane per clock, 132 x 128 x 1.98e9 = 33.45e12 a second, and a
@@ -182,6 +207,8 @@ def specifications(cfg: GemmConfig, m: int, n: int, k: int,
     # The schedule-law volume is what the reference's comm-volume printout
     # reports; the runtime estimate uses the refined traffic.
     io_bytes = cfg.hbm_traffic_bytes(m, n, k)
+    # The reference's one VPU rate for every dtype (the dict is its, key for
+    # key); kernel B3's bound by dtype is ``ChipSpec.vpu_ops_for``.
     peak = chip.peak_for(cfg.dtype) if semiring_is_mxu else chip.vpu_ops
 
     t_compute = flops / peak

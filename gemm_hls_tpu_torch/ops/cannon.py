@@ -174,7 +174,8 @@ def cannon_gemm(a_blocks: Sequence[torch.Tensor], b_blocks: Sequence[torch.Tenso
             raise ValueError(f"blocks of unequal shapes: {tuple(a.shape)} x {tuple(b.shape)}")
     dt = _in_dtype(a_blocks[0], b_blocks[0])
     if dt not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"cannon_gemm: no kernel takes {dt} (float32, bfloat16, int8)")
+        raise NotImplementedError(f"cannon_gemm: no kernel takes {dt} (float32, bfloat16, "
+                                  f"int8; ROADMAP B coverage item 9)")
     a_blocks = [_aligned(a.to(dt)) for a in a_blocks]
     b_blocks = [_aligned(b.to(dt)) for b in b_blocks]
     out = [torch.empty((ml, nl), dtype=out_dtype, device=dev) for _ in range(ranks)]

@@ -284,7 +284,8 @@ def dequant_matmul(x, w_q, scales, *, cfg: GemmConfig, bits: int = 8,
     _refuse_interpret(interpret, "dequant_matmul")
     if x.dtype not in _KERNEL_X_DTYPES:
         raise NotImplementedError(
-            f"dequant_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32)")
+            f"dequant_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32; "
+            f"ROADMAP B coverage item 13)")
     x, w_q, scales = x.contiguous(), _aligned(w_q), _aligned(scales.float())
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
@@ -540,7 +541,8 @@ def w8a8_matmul(x, w_q, scales, *, cfg: GemmConfig, group_size=None,
     _refuse_interpret(interpret, "w8a8_matmul")
     if x.dtype not in _KERNEL_X_DTYPES:
         raise NotImplementedError(
-            f"w8a8_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32)")
+            f"w8a8_matmul: no kernel takes x of {x.dtype} (bf16, fp16, fp32; "
+            f"ROADMAP B coverage item 14)")
     if mode != "int_acc" and bk % W8A8_FOLD_STEP:
         raise NotImplementedError(
             f"w8a8_matmul: block_k {bk} is not a multiple of {W8A8_FOLD_STEP}, the "

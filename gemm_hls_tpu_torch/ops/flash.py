@@ -334,7 +334,8 @@ def _kernel_ok(q, what, interpret):
             f"plain version")
     if q.dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"{what}: no kernel takes {q.dtype} (bf16, fp16, fp32)")
+            f"{what}: no kernel takes {q.dtype} (bf16, fp16, fp32; ROADMAP B "
+            f"coverage item 12)")
     if q.shape[-1] > MAX_KERNEL_D:
         raise NotImplementedError(
             f"{what}: head dim {q.shape[-1]} > {MAX_KERNEL_D}, the largest "

@@ -64,7 +64,8 @@ def _kernel_operands(what, a, b, group_sizes, interpret):
     in_dtype = torch.promote_types(a.dtype, b.dtype)
     if in_dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"{what}: no kernel takes {in_dtype} (bf16, fp16, fp32)")
+            f"{what}: no kernel takes {in_dtype} (bf16, fp16, fp32; ROADMAP B "
+            f"coverage items 10 and 11)")
     return a.to(in_dtype).contiguous(), b.to(in_dtype).contiguous()
 
 

@@ -3,9 +3,11 @@
 Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
 
 * ``plus_times``                 -> kernel B1 (2-D) or B2 (batched)
-  (``ops/mxu.py``), differentiable through :class:`_MxuPadded` /
-  :class:`_MxuBatched`, whose backward is B1 / B2 again; with a fused
-  ``epilogue``, through :class:`_MxuEpilogue`.
+  (``ops/mxu.py``; float64 on the FP64 tensor cores, int16 and the
+  unsigned ints on the CUDA cores), differentiable through
+  :class:`_MxuPadded` / :class:`_MxuBatched`, whose backward is B1 / B2
+  again; with a fused ``epilogue``, through :class:`_MxuEpilogue`.  int64
+  plus_times raises TypeError, as in the JAX package.
 * bool ``or_and``                -> B1 / B2 on int8 -> int32 counts.
 * any other semiring             -> kernel B3 (``ops/vpu.py``), 2-D or batched.
 * ``backend="vpu"``              -> B3 for every semiring, bool ``or_and``
@@ -531,6 +533,11 @@ def matmul(
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if not sr.supports_dtype(a.dtype):
         raise ValueError(f"semiring {sr.name} does not support dtype {a.dtype}")
+    if sr.is_mxu and a.dtype in mxu._NO_PLUS_TIMES:
+        # The reference's dot refuses an int32 accumulator narrower than its
+        # int64 inputs, on every backend.
+        raise TypeError(f"{dtype_name(a.dtype)} plus_times: the int32 "
+                        f"accumulator is narrower than the inputs")
 
     # Bool operands run on internal int8 / bit-packed configs; the compiled
     # tile that will run is B3's for backend="vpu", else the config's.

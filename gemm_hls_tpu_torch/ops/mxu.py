@@ -1,7 +1,7 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
-(``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``; B2's row
-softmax ``csrc/row_softmax_wgmma.cu`` on the engine, ``csrc/row_softmax.cu``)
-and their plain PyTorch version.
+(``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``, float64 on
+``csrc/dmma_gemm.cu``; B2's row softmax ``csrc/row_softmax_wgmma.cu`` on
+the engine, ``csrc/row_softmax.cu``) and their plain PyTorch version.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
@@ -14,6 +14,7 @@ batch is never copied.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -30,6 +31,9 @@ _MAX_M = 65535 * 128
 _INT_MAX = 2**31 - 1
 
 _EP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# Integer inputs no kernel takes: the reference refuses int64 plus_times (its
+# int32 accumulator is narrower than the inputs).
+_NO_PLUS_TIMES = (torch.int64, torch.uint64)
 
 
 def _dims(a, b, transpose_a, transpose_b):
@@ -76,6 +80,48 @@ def _strides(x):
     return x.stride(-2), (x.stride(0) if x.ndim == 3 and x.shape[0] > 1 else 0)
 
 
+def _as_int32(x):
+    """``x`` as the reference's ``astype(int32)`` makes it: integers of
+    other widths widened, or wrapped to their low 32 bits (uint32, int64);
+    other types as they are."""
+    if x.is_floating_point() or x.dtype in (torch.int32, torch.bool):
+        return x
+    return x.to(torch.int64).to(torch.int32)
+
+
+# Deepest K whose 16-bit-half partial sums stay exact in float64
+# (K 2^32 <= 2^53 with a margin).
+_HALF_SUM_K = 1 << 20
+
+
+def _int32_matmul(a, b):
+    """The int32 product ``a . b`` (``torch.matmul``'s broadcasting) of
+    int32 operands, exact modulo 2^32 as the reference's int32 sum wraps,
+    on either device from float64 products (CUDA's matmul takes no
+    integers): one product where K max|a| max|b| < 2^53, every partial sum
+    exact; else each operand splits into a signed high and an unsigned low
+    16-bit half, and the three products that reach the low 32 bits run in
+    float64, each exact (|partial sum| < K 2^32), K cut into pieces of
+    ``_HALF_SUM_K``."""
+    def top(x):
+        return int(x.to(torch.int64).abs().amax()) if x.numel() else 0
+
+    if a.shape[-1] * top(a) * top(b) < 2**53:
+        wide = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+        return wide.to(torch.int64).to(torch.int32)
+    total = None
+    for k0 in range(0, a.shape[-1], _HALF_SUM_K):
+        x = a[..., k0:k0 + _HALF_SUM_K]
+        y = b[..., k0:k0 + _HALF_SUM_K, :]
+        x_lo, y_lo = (x & 0xFFFF).double(), (y & 0xFFFF).double()
+        x_hi, y_hi = (x >> 16).double(), (y >> 16).double()
+        low = torch.matmul(x_lo, y_lo).to(torch.int64)
+        cross = (torch.matmul(x_hi, y_lo) + torch.matmul(x_lo, y_hi)).to(torch.int64)
+        part = (low & 0xFFFFFFFF) + ((cross & 0xFFFF) << 16)
+        total = part if total is None else total + part
+    return (total & 0xFFFFFFFF).to(torch.int32)
+
+
 def _vec_ok(x) -> int:
     """16-byte loads are legal: aligned base, row pitch and batch stride."""
     vec = 16 // x.element_size()
@@ -102,8 +148,10 @@ def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str
     are ``aligned`` (16-byte bases, row pitches and batch strides whole
     16-byte units: what a TMA map describes); ``"wmma"``
     (``csrc/mxu_gemm.cu``'s tensor-core tile) for the other bf16 / fp16 /
-    int8 calls; ``"simt"`` (IEEE fp32, wrapping int32, on the CUDA cores)
-    for fp32 and int32.  B2's row softmax has kernels of its own
+    int8 calls; ``"dmma"`` (``csrc/dmma_gemm.cu``: IEEE float64 on the FP64
+    tensor cores, any layout and alignment) for float64; ``"simt"`` (IEEE
+    fp32, or an int32 accumulator that wraps, on the CUDA cores) for fp32
+    and int32, int16, uint8, uint16 and uint32.  B2's row softmax has kernels of its own
     (:func:`row_softmax_route`).  Chosen by shape, never as a fallback: a
     kernel that fails to build or launch raises.  The rule itself is
     ``config.call_route``'s, whose "tc" tile is WMMA's."""
@@ -137,9 +185,12 @@ def row_softmax_route(dtype, out_dtype, n: int, k: int, aligned: bool) -> str:
     return "wmma"
 
 
-def _ep_operands(eps, n, device):
+def _ep_operands(eps, n, device, wide=False):
     """The (N,) epilogue operands as contiguous tensors of one dtype the
-    kernel reads (f32, bf16 or f16; anything else is widened to f32)."""
+    kernel reads (f32, bf16 or f16; anything else is widened to f32).
+    ``wide``: a float64 GEMM's, which also reads float64 operands and
+    widens anything else to float64, as the plain version's promotion
+    does."""
     flat = []
     for e in eps:
         if e.numel() != n or e.shape[-1] != n:
@@ -150,8 +201,9 @@ def _ep_operands(eps, n, device):
                              f"{device}")
         flat.append(e.reshape(n))
     dt = flat[0].dtype if flat else torch.float32
-    if dt not in _EP_DTYPES or any(e.dtype != dt for e in flat):
-        dt = torch.float32
+    kinds = _EP_DTYPES + ((torch.float64,) if wide else ())
+    if dt not in kinds or any(e.dtype != dt for e in flat):
+        dt = torch.float64 if wide else torch.float32
     return [e.to(dt).contiguous() for e in flat], dt
 
 
@@ -161,9 +213,10 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     broadcasting) in the accumulator dtype, then the epilogue's torch
     function, then the cast.  bf16 / fp16 to the same type without an
     epilogue: ``torch.matmul`` as is (fp32 accumulation inside, one
-    rounding).  Integer inputs go through float64 (CUDA's matmul takes no
-    integers), exact while |sum| < 2^53, then wrap to int32 like the
-    reference's int32 sum."""
+    rounding).  Integer inputs are cast to int32 first, as the reference's
+    ``astype`` does (uint32 wraps), and summed exactly modulo 2^32 like the
+    reference's int32 sum (:func:`_int32_matmul`).  float64 is
+    ``torch.matmul`` in float64."""
     _mnk(a, b, transpose_a, transpose_b)
     a_l = a.transpose(-1, -2) if transpose_a else a
     b_l = b.transpose(-1, -2) if transpose_b else b
@@ -174,8 +227,7 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     elif acc.is_floating_point:
         out = torch.matmul(a_l.to(acc), b_l.to(acc))
     else:
-        wide = torch.matmul(a_l.to(torch.float64), b_l.to(torch.float64))
-        out = wide.to(torch.int64).to(acc)
+        out = _int32_matmul(_as_int32(a_l), _as_int32(b_l)).to(acc)
     if epilogue is not None:
         out = epilogue.fn(out, *ep_operands)
     return out.to(cfg.tout_dtype)
@@ -192,10 +244,10 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype != b.dtype:
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
-    if a.dtype == torch.float64:
-        raise NotImplementedError(
-            "float64 on CUDA is not ported yet (ROADMAP B coverage item 1: "
-            "float64 on CUDA); pass backend='torch' for the plain version")
+    if a.dtype in _NO_PLUS_TIMES:
+        raise TypeError(f"{what}: {dtype_name(a.dtype)} plus_times has no "
+                        f"kernel: the int32 accumulator is narrower than the "
+                        f"inputs (the reference refuses it too)")
     out_dtype = cfg.tout_dtype
     if a.dtype.is_floating_point and not out_dtype.is_floating_point:
         raise NotImplementedError(
@@ -235,24 +287,31 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         rule = mxu_route(a.dtype, ta, tb, aligned)
     route = named_route(route, rule, what)
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
-    ops, ep_dt = _ep_operands(eps, n, a.device)
+    ops, ep_dt = _ep_operands(eps, n, a.device, wide=route == "dmma")
     ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
-    codes = (_build.dtype_code(a.dtype), _build.dtype_code(out_dtype))
+    # The CUDA-core and float64 tiles store every type; the tensor-core
+    # tiles (the engine, WMMA) and the row softmax the base five (ROADMAP B
+    # coverage item 17).
+    wide = not rows and route in ("simt", "dmma")
+    codes = (_build.dtype_code(a.dtype, wide), _build.dtype_code(out_dtype, wide))
     lib = _build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, n, k,
                 lda, ldb, sa, sb, int(ta), int(tb))
-        ep_args = (code, *ptrs, _build.dtype_code(ep_dt), stream)
+        ep_args = (code, *ptrs, _build.dtype_code(ep_dt, wide), stream)
         if rows and route == "wgmma":
             rc = lib.row_softmax_wgmma(*args, *codes, stream)
         elif rows:
             rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
         elif route == "wgmma":
             rc = lib.mxu_wgmma(*args, *codes, *ep_args)
+        elif route == "dmma":
+            rc = lib.dmma_gemm(*args, vec_a, vec_b, *codes, *ep_args)
         else:
             rc = lib.mxu_gemm(*args, vec_a, vec_b, *codes, *ep_args)
     _build.check(rc, what)
+    route_launches[route, dtype_name(a.dtype)] += 1
     if rows:
         mxu_matmul_batched.row_softmax_route = route
     else:
@@ -333,3 +392,7 @@ mxu_matmul_batched.launches = 0
 mxu_matmul_batched.last_route = None
 mxu_matmul_batched.row_softmax_launches = 0
 mxu_matmul_batched.row_softmax_route = None
+# Launches of B1 and B2 together (the row softmax's too) by (route, input
+# dtype): the kernel source each reached, "dmma" csrc/dmma_gemm.cu and
+# ("simt", "int16" / "uint8" / "uint16" / "uint32") csrc/mxu_simt_int.cu.
+route_launches = collections.Counter()

@@ -274,7 +274,8 @@ def ring_gemm(a_shards: Sequence[torch.Tensor], b_shards: Sequence[torch.Tensor]
             raise ValueError(f"shards of unequal shapes: {tuple(a.shape)} x {tuple(b.shape)}")
     dt = _in_dtype(a_shards[0], b_shards[0])
     if dt not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"ring_gemm: no kernel takes {dt} (float32, bfloat16, int8)")
+        raise NotImplementedError(f"ring_gemm: no kernel takes {dt} (float32, bfloat16, int8; "
+                                  f"ROADMAP B coverage item 8)")
     if block_k is not None and (int(block_k) < 1 or k % int(block_k)):
         raise ValueError(f"K={k} must be divisible by block_k={block_k}")
     a_shards = [_aligned(a.to(dt)) for a in a_shards]

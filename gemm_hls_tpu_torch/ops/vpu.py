@@ -12,6 +12,8 @@ kernel or raises; a CPU tensor runs :func:`vpu_matmul_plain`.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from gemm_hls_tpu_torch import _build
@@ -24,7 +26,17 @@ from gemm_hls_tpu_torch.ops.semiring import Semiring
 # Bytes the plain version's mapped (M, ck, N) chunk may take.
 _PLAIN_CHUNK_BYTES = 256 << 20
 
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+# Input dtype -> the accumulator kernel B3 keeps it in (the reference's
+# ``jacc_dtype``): fp32 for the 16- and 32-bit floats, float64 for float64,
+# int32 for every integer type (each element widened, or wrapped, at the
+# load as ``astype(int32)`` does).
+_KERNEL_DTYPES = {
+    torch.float32: torch.float32, torch.bfloat16: torch.float32,
+    torch.float16: torch.float32, torch.float64: torch.float64,
+    torch.int32: torch.int32, torch.int8: torch.int32, torch.int16: torch.int32,
+    torch.uint8: torch.int32, torch.uint16: torch.int32,
+    torch.uint32: torch.int32, torch.int64: torch.int32,
+}
 
 
 def _shape(a, b, transpose_a, transpose_b):
@@ -40,6 +52,7 @@ def vpu_matmul_plain(a, b, *, cfg: GemmConfig, sr: Semiring,
     dtype, its mapped intermediate bounded to [B x] M x ck x N elements."""
     bsz, m, n, k = _shape(a, b, transpose_a, transpose_b)
     acc_dtype = cfg.tacc_dtype
+    # ``.to`` first: a uint16 / uint32 CUDA tensor takes few other ops.
     a_l = (a.transpose(-1, -2) if transpose_a else a).to(acc_dtype)
     b_l = (b.transpose(-1, -2) if transpose_b else b).to(acc_dtype)
     lead = () if bsz is None else (bsz,)
@@ -73,13 +86,18 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if a.dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"kernel B3 takes float32, bfloat16 and int32, not "
-            f"{dtype_name(a.dtype)} (ROADMAP B coverage item 2)")
+            f"kernel B3 takes no {dtype_name(a.dtype)} inputs (ROADMAP B "
+            f"coverage item 15: uint64)")
     out_dtype = cfg.tout_dtype
-    if cfg.tacc_dtype != (torch.int32 if a.dtype == torch.int32
-                          else torch.float32):
+    if cfg.tacc_dtype != _KERNEL_DTYPES[a.dtype]:
         raise NotImplementedError(
-            f"accumulator {cfg.acc_dtype} for {dtype_name(a.dtype)} inputs")
+            f"accumulator {cfg.acc_dtype} for {dtype_name(a.dtype)} inputs: "
+            f"kernel B3 keeps them in {dtype_name(_KERNEL_DTYPES[a.dtype])} "
+            f"(ROADMAP B coverage item 16: a configured acc_dtype)")
+    if sr.name == "log_plus" and not cfg.tacc_dtype.is_floating_point:
+        raise NotImplementedError(
+            f"log_plus on {dtype_name(a.dtype)} inputs: kernel B3 takes it "
+            f"on floating accumulators, as torch.logaddexp does")
     if a.dtype.is_floating_point and not out_dtype.is_floating_point:
         raise NotImplementedError(
             f"{dtype_name(a.dtype)} -> {dtype_name(out_dtype)} output cast")
@@ -97,13 +115,16 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
                                1 if bsz is None else bsz, m, n, k, lda,
                                ldb, sa, sb,
                                int(transpose_a), int(transpose_b),
-                               _build.dtype_code(a.dtype),
-                               _build.dtype_code(out_dtype), sr.op_code,
+                               _build.dtype_code(a.dtype, True),
+                               _build.dtype_code(out_dtype, True), sr.op_code,
                                stream)
     _build.check(rc, f"semiring_gemm[{sr.name}]")
     vpu_matmul.launches += 1
+    vpu_matmul.dtype_launches[dtype_name(a.dtype)] += 1
     return out
 
 
-# Kernel launches since the count was last reset (plain calls not counted).
+# Kernel launches since the count was last reset (plain calls not counted),
+# and the same by input dtype (each type's semiring_*.cu instantiation).
 vpu_matmul.launches = 0
+vpu_matmul.dtype_launches = collections.Counter()

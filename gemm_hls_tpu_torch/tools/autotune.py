@@ -8,8 +8,10 @@ can choose at run time is the route and, on the tile engine, the launch
 plan, and those are the knobs this tuner turns:
 
 * dense ``plus_times`` (key ``chip/dtype/semiring/MxNxK[/layout]``): B1's
-  route, the tile engine (``wgmma``) or WMMA (``wmma``; ``simt`` for fp32 /
-  int32 and every other semiring).  The winner is a :class:`GemmConfig`
+  route, the tile engine (``wgmma``) or WMMA (``wmma``; ``dmma`` for
+  float64, ``simt`` for fp32 / int32, int16, the unsigned ints and every
+  other semiring: one route each, so nothing to choose; a cached winner
+  whose route cannot run the dtype is a miss).  The winner is a :class:`GemmConfig`
   whose blocks are that route's compiled tile (``config.route_tile``);
 * batched (``.../Bbx MxNxK``): B2's route, the same two kernels;
 * ``flash`` (dims (B, S_q, S_kv, D), tag ``causal`` / ``full``): the
@@ -72,7 +74,7 @@ _load_memo: dict = {}
 
 # B1 / B2 route names (ops/mxu.py::mxu_route) by the compiled tile a
 # config's blocks name (GemmConfig.route), and back.
-_MXU_ROUTE = {"wgmma": "wgmma", "tc": "wmma", "simt": "simt"}
+_MXU_ROUTE = {"wgmma": "wgmma", "tc": "wmma", "simt": "simt", "dmma": "dmma"}
 _TILE_ROUTE = {v: k for k, v in _MXU_ROUTE.items()}
 
 
@@ -284,13 +286,15 @@ def candidate_configs(m: int, n: int, k: int, dtype: str, semiring: str,
 
 
 def _operands(shape_a, shape_b, dtype: str, device, seed: int = 5):
-    """Seeded operands on the card: N(0, 1) floats, int8 in [-3, 3]."""
+    """Seeded operands on the card: N(0, 1) floats, integers in [-3, 3]
+    ([0, 3] unsigned)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     td = torch_dtype(dtype)
     if td.is_floating_point:
         draw = [torch.randn(s, generator=gen) for s in (shape_a, shape_b)]
     else:
-        draw = [torch.randint(-3, 4, s, generator=gen) for s in (shape_a, shape_b)]
+        low = -3 if td.is_signed else 0
+        draw = [torch.randint(low, 4, s, generator=gen) for s in (shape_a, shape_b)]
     return tuple(x.to(device=device, dtype=td) for x in draw)
 
 

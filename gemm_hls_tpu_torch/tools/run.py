@@ -5,6 +5,9 @@
         [--verify {on,off}] [--iters I] [--backend cuda|vpu|torch] [--baseline]
         [--device {cuda,cpu}]
 
+``--dtype`` takes every operand type the kernels take: float32, bfloat16,
+float16, float64, int8, int16, int32, uint8, uint16, uint32, and int64
+under the semirings other than plus_times (which the reference refuses).
 Seed-5 U(1,10) operands, kernel launch and timing on CUDA events,
 GOp/s = 1e-9 * 2*M*N*K / t, and element-wise verification against the
 float64 BLAS / semiring oracle (relative 1e-3 for float32, exact for
@@ -104,7 +107,8 @@ def run(argv=None) -> dict:
         chip = detect_chip()
         secs = time_fn(fn, [(a, b)], iters=args.iters, warmup=1)
         gf = gflops(args.m, args.n, args.k, secs)
-        peak = chip.peak_for(args.dtype) if sr.is_mxu else chip.vpu_ops
+        peak = (chip.peak_for(args.dtype) if sr.is_mxu
+                else chip.vpu_ops_for(args.dtype))
         res.update(seconds=secs, gops=gf)
         print(f"Kernel executed in {secs:.6f} seconds, corresponding to a "
               f"performance of {gf:.1f} GOp/s ({percent_of_peak(gf, peak):.1f}% "
@@ -129,7 +133,12 @@ def run(argv=None) -> dict:
     if args.verify == "on":
         print("Verifying result...")
         exp = reference_matmul(_host(a), _host(b), semiring=sr.name)
-        ok, err = check_result(_host(out), exp, rtol=tolerance_for(out.dtype))
+        got = _host(out)
+        if exp.dtype.kind in "iu":
+            # The reference's int32 accumulator wraps, then its astype to
+            # the output type (int8 / int16 / the unsigned ints) wraps again.
+            exp = exp.astype(np.int32).astype(got.dtype)
+        ok, err = check_result(got, exp, rtol=tolerance_for(out.dtype))
         res["ok"] = res["ok"] and ok
         res["max_rel_err_vs_oracle"] = err
         if ok:

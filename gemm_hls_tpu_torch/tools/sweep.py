@@ -117,29 +117,38 @@ def expand_grid(**axes: Sequence) -> List[Dict]:
             for vals in itertools.product(*(axes[k] for k in keys))]
 
 
-class _Timeout(Exception):
-    pass
+class _Timeout(BaseException):
+    """The in-process timeout.  A ``BaseException``, so no ``except
+    Exception`` around the timed call (``_run_one_inner``'s taxonomy)
+    reads it as a crash."""
 
 
 @contextlib.contextmanager
 def _alarm(seconds: Optional[float]):
     """SIGALRM wall-clock timeout (main thread only) around an in-process
-    run (``build_manager.py:649-669``)."""
+    run (``build_manager.py:649-669``).  Yields a list the handler appends
+    to when the alarm fires: an alarm whose exception was swallowed (one
+    that lands in a gc callback is printed as "Exception ignored" and
+    lost) still shows there, and ``run_one`` reads it after each attempt."""
     import signal
+    fired = []
     if not seconds or not hasattr(signal, "SIGALRM"):
-        yield
+        yield fired
         return
 
     def handler(signum, frame):
+        fired.append(signum)
         raise _Timeout(f"exceeded {seconds}s")
 
     old = signal.signal(signal.SIGALRM, handler)
-    signal.setitimer(signal.ITIMER_REAL, seconds)
     try:
-        yield
+        signal.setitimer(signal.ITIMER_REAL, seconds)
+        yield fired
     finally:
-        signal.setitimer(signal.ITIMER_REAL, 0)
-        signal.signal(signal.SIGALRM, old)
+        try:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+        finally:
+            signal.signal(signal.SIGALRM, old)
 
 
 def _child_main(payload_json: str) -> int:
@@ -236,10 +245,13 @@ def run_one(cfg: GemmConfig, m: int, n: int, k: int, *, verify: bool = True,
             last = res
             continue
         try:
-            with _alarm(timeout_s):
-                return stamp(_run_one_inner(cfg, m, n, k, verify=verify,
-                                            iters=iters, backend=backend,
-                                            device=platform))
+            with _alarm(timeout_s) as fired:
+                res = _run_one_inner(cfg, m, n, k, verify=verify,
+                                     iters=iters, backend=backend,
+                                     device=platform)
+            if not fired:
+                return stamp(res)
+            last = SweepResult(cfg, "timeout", detail=f"exceeded {timeout_s}s")
         except _Timeout as e:
             last = SweepResult(cfg, "timeout", detail=str(e))
     return stamp(last)

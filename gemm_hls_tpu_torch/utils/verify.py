@@ -96,7 +96,8 @@ def tolerance_for(dtype) -> float:
     """Per-dtype relative tolerance: float32 is the reference's 1e-3,
     integers and bool exact."""
     name = str(dtype).removeprefix("torch.")
-    if name in ("bool", "int8", "int16", "int32", "int64", "uint8"):
+    if name in ("bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
+                "uint32"):
         return 0.0
     return {"float64": 1e-9, "float32": 1e-3, "float16": 1e-2}.get(name, 2e-2)
 

@@ -182,8 +182,14 @@ def test_unported_requests_raise(cuda, request_):
     a = torch.ones(8, 8, device=cuda)
     kw = {}
     if request_ == "float64":
-        a = a.double()
-    elif request_ == "custom":
+        # Landed with the wide operand types: float64 runs on the FP64
+        # tensor cores (csrc/dmma_gemm.cu), one launch.
+        before = mxu.route_launches["dmma", "float64"]
+        got = matmul(a.double(), a.double())
+        assert mxu.route_launches["dmma", "float64"] - before == 1
+        assert got.dtype == torch.float64 and torch.equal(got, torch.full_like(got, 8.0))
+        return
+    if request_ == "custom":
         kw["semiring"] = Semiring(name="lambda", map_op=torch.add,
                                   reduce_op=torch.minimum, identity=float("inf"),
                                   np_map=np.add, np_reduce=np.minimum)
@@ -1323,3 +1329,76 @@ def test_pipeline_on_ranks_of_the_card(cuda):
     got = pipeline_forward(shard_pipeline_params(params, mesh), x, mesh, microbatches=4).full()
     assert _launched(before) == {"B1": 2 * 2 * 4}
     assert chip_smoke.rel_norm(got, stages_forward(params, x)) < chip_smoke.PAR_BF16_TOL
+
+
+# ---- slice 21: the wide operand types (chip_smoke.py phase 30) ------------
+# Every wide type on B1 / B2 (float64 on csrc/dmma_gemm.cu, int16 and the
+# unsigned ints on csrc/mxu_simt_int.cu, int8's extremes on its tensor-core
+# routes) and on B3 (every semiring of each type's csrc/semiring_*.cu),
+# each against its plain version on the card, the route checked.
+
+@pytest.mark.parametrize("case", chip_smoke.WIDE_B1_CASES, ids=str)
+def test_wide_b1_b2_cases_match_plain(cuda, case):
+    chip_smoke.wide_b1_case(torch, _gen(2101), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.WIDE_B3_CASES, ids=str)
+def test_wide_b3_cases_match_plain(cuda, case):
+    chip_smoke.wide_b3_case(torch, _gen(2102), case)
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+def test_float64_matmul_matches_the_numpy_oracle(cuda, ta, tb):
+    # The front door on dmma against numpy's float64 product (rtol 1e-9,
+    # scaled by the largest output: mixed-sign sums).
+    rng = np.random.default_rng(2103)
+    a, b = rng.uniform(-1, 1, (777, 1025)), rng.uniform(-1, 1, (1025, 513))
+    x = torch.from_numpy(a.T.copy() if ta else a).to(cuda)
+    y = torch.from_numpy(b.T.copy() if tb else b).to(cuda)
+    got = matmul(x, y, transpose_a=ta, transpose_b=tb)
+    assert mxu.mxu_matmul.last_route == "dmma"
+    want = a @ b
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-9,
+                               atol=1e-9 * np.abs(want).max())
+
+
+def test_float64_gradient_on_dmma_matches_plain_autograd(cuda):
+    gen = _gen(2104)
+    a = chip_smoke.signed(torch, (300, 520), torch.float64, gen).requires_grad_()
+    b = chip_smoke.signed(torch, (520, 136), torch.float64, gen).requires_grad_()
+    g = chip_smoke.signed(torch, (300, 136), torch.float64, gen)
+    before = mxu.route_launches["dmma", "float64"]
+    matmul(a, b).backward(g)
+    assert mxu.route_launches["dmma", "float64"] - before == 3
+    ap, bp = a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    torch.matmul(ap, bp).backward(g)
+    for got, want in ((a.grad, ap.grad), (b.grad, bp.grad)):
+        chip_smoke.compare(torch, got, want, 1e-9, "float64 gradient", scaled=True)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float64"])
+def test_tropical_subgradients_of_the_new_floats_on_b3(cuda, dtype):
+    gen = _gen(2105)
+    dt = getattr(torch, dtype)
+    a = chip_smoke.signed(torch, (64, 48), dt, gen).requires_grad_()
+    b = chip_smoke.signed(torch, (48, 40), dt, gen).requires_grad_()
+    before = vpu.vpu_matmul.dtype_launches[dtype]
+    out = matmul(a, b, semiring="min_plus")
+    assert vpu.vpu_matmul.dtype_launches[dtype] - before == 1
+    out.float().sum().backward()
+    ac, bc = a.detach().cpu().requires_grad_(), b.detach().cpu().requires_grad_()
+    matmul(ac, bc, semiring="min_plus").float().sum().backward()
+    assert torch.equal(out.cpu(), matmul(ac.detach(), bc.detach(), semiring="min_plus"))
+    # The fp32 routing sums of the backward run in another order on the card
+    # (float16 gradients then round to 2^-11).
+    rtol = 1e-5 if dtype == "float64" else chip_smoke.BF16_RTOL
+    for got, want in ((a.grad, ac.grad), (b.grad, bc.grad)):
+        chip_smoke.compare(torch, got.cpu(), want, rtol, f"{dtype} subgradient", scaled=True)
+
+
+def test_int64_plus_times_raises_on_the_card(cuda):
+    a = torch.ones((4, 5), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="int64 plus_times"):
+        matmul(a, a.T.contiguous())
+    with pytest.raises(TypeError, match="int64 plus_times"):
+        mxu.mxu_matmul(a, a, cfg=default_config(torch.int64), transpose_b=True)

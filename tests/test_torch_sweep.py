@@ -84,6 +84,15 @@ def test_run_one_taxonomy_on_the_plain_versions():
                          retries=1).status == "timeout"
 
 
+def test_in_process_timeout_always_reads_timeout():
+    # Wherever the alarm lands (inside the GEMM's own ``except Exception``,
+    # in a gc callback that swallows it), a call whose alarm fired reads
+    # "timeout": never "crashed", never "ok".
+    got = [sweep.run_one(SIMT, 32, 32, 32, platform="cpu", iters=1, timeout_s=1e-4,
+                         retries=1).status for _ in range(100)]
+    assert not {"crashed", "ok"} & set(got), got
+
+
 def test_classify_exception():
     assert sweep._classify_exception(RuntimeError("CUDA error: too many resources "
                                                   "requested for launch")) == "vmem_overflow"
