@@ -302,6 +302,27 @@ Phases, each printed as it ends:
      uint16 / int64, max_min uint32) bit for bit, B1 int16 / uint8 plus_times at 4096^3
      exact; each kernel timed beside its plain version and its bound,
      float64 ``torch.matmul`` beside dmma.
+ 31. slice 22, user-defined semirings and Python-callable epilogues, each
+     compiled at first use into a functor of its own
+     (``gemm_hls_tpu_torch/ops/codegen.py``): (a) the phase's generated
+     libraries, built beside phase 2's library build, each one's nvcc
+     seconds and registers; a second lookup builds nothing and a fresh
+     process loads them all with no nvcc; then GEN_B3_CASES (user
+     semirings on B3: four layouts, edge shapes, batched, a broadcast
+     batch, K tails, NaN / +-inf) and GEN_EPILOGUE_CASES (callables on
+     every B1 / B2 route, the route checked, relu(acc + b) equal to the
+     registered bias_relu bit for bit) against the plain versions; then,
+     counts set to 0 before and read after, the main path through the
+     front door with no plain version run on the card: (b) B3 at fp32
+     4096^3 with example 02's plus_max (rel 1e-3), a user max_plus (bit
+     for bit the built-in's, exact), a user log semiring (rel 1e-3 to
+     log_plus) and plus_max on int8 (exact); (c) silu(acc + b) at B1's
+     epilogue shape, bf16 (8192 x 4096) . (4096 x 16384) on the engine,
+     relu(acc + b) equal to bias_relu bit for bit on the engine, WMMA, the
+     CUDA cores and dmma, a two-operand clamp, a batched (B2) call, int8
+     K-major with an fp32 operand, and a callable's gradient at fp32
+     2048^3 against plain autograd; (d) the generated kernels timed in
+     turns beside the built-ins, their plain versions and bounds.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -938,7 +959,11 @@ def counters():
             "B2 row-softmax": mxu.mxu_matmul_batched.row_softmax_launches,
             "B3": vpu.vpu_matmul.launches,
             "B4": slice_kernels.fused_int8_fp32.launches,
-            "B5": slice_kernels.fused_ozaki_int8.launches}
+            "B5": slice_kernels.fused_ozaki_int8.launches,
+            # Slice 22's generated functors (counted in B1 epilogue / B2 / B3
+            # too): user semirings on B3, callable epilogues on B1 / B2.
+            "B3 generated": sum(vpu.vpu_matmul.generated_launches.values()),
+            "B1 generated epilogue": sum(mxu.generated_launches.values())}
 
 
 def reset_counters():
@@ -949,6 +974,8 @@ def reset_counters():
     mxu.route_launches.clear()
     vpu.vpu_matmul.launches = 0
     vpu.vpu_matmul.dtype_launches.clear()
+    vpu.vpu_matmul.generated_launches.clear()
+    mxu.generated_launches.clear()
     slice_kernels.fused_int8_fp32.launches = 0
     slice_kernels.fused_ozaki_int8.launches = 0
 
@@ -5672,12 +5699,12 @@ ATTN_ANCHORS_CAUSAL = ("causal 32x1024", "causal 8x8192")
 ATTN_HELD_OUT = ("causal GQA 4x1024 H16/4",)
 
 # Phase 27a: the kernels each port example (examples/torch/) must launch on
-# the card, as every_counter() names them ("B14|B15": either).  02's custom
-# semiring step runs the plain path on purpose (backend="torch"); its
-# built-in semirings run B3.
+# the card, as every_counter() names them ("B14|B15": either).  02's
+# built-in semirings run B3, its custom plus_max B3 through a generated
+# functor (slice 22, ops/codegen.py).
 EXAMPLE_KERNELS = {
     "01_basic_gemm.py": ("B1",),
-    "02_semirings.py": ("B3",),
+    "02_semirings.py": ("B3", "B3 generated"),
     "03_graph_algorithms.py": ("B3",),
     "04_distributed.py": ("B1", "B3"),
     "05_f64_on_bf16.py": ("B1", "B5"),
@@ -7144,6 +7171,562 @@ def phase_slice21(torch):
     return {"launches": launches, "readings": readings}
 
 
+# ---------------------------------------------------------------------------
+# Slice 22: user-defined semirings and Python-callable epilogues on the card
+# (phase 31), each compiled at first use into a functor of its own
+# (gemm_hls_tpu_torch/ops/codegen.py)
+# ---------------------------------------------------------------------------
+
+_USER_SEMIRINGS = {}
+_USER_EPILOGUES = {}
+
+
+def user_semirings():
+    """Phase 31's user-defined semirings, built once (every call reuses one
+    lowering): example 02's plus_max, a max_plus and a log semiring that
+    re-express built-ins, and an integer max_xor."""
+    if not _USER_SEMIRINGS:
+        import numpy as np
+        import torch
+
+        from gemm_hls_tpu_torch import Semiring
+        inf = float("inf")
+        _USER_SEMIRINGS.update(
+            plus_max=Semiring("plus_max", torch.maximum, torch.add, 0, np.maximum, np.add),
+            user_max_plus=Semiring("user_max_plus", torch.add, torch.maximum, -inf, np.add,
+                                   np.maximum),
+            user_log=Semiring("user_log", torch.add, torch.logaddexp, -inf, np.add,
+                              np.logaddexp),
+            max_xor=Semiring("max_xor", torch.bitwise_xor, torch.maximum, -inf,
+                             np.bitwise_xor, np.maximum))
+    return _USER_SEMIRINGS
+
+
+def user_epilogues():
+    """Phase 31's callable epilogues: name -> (callable, operand count)."""
+    if not _USER_EPILOGUES:
+        import torch
+        import torch.nn.functional as F
+        _USER_EPILOGUES.update(
+            relu_bias=(lambda acc, b: torch.relu(acc + b), 1),
+            silu_bias=(lambda acc, b: F.silu(acc + b), 1),
+            clamp2=(lambda acc, lo, hi: torch.clamp(acc, lo, hi) * 0.5, 2),
+            leaky=(lambda acc, b: torch.where(acc + b > 0, acc + b, 0.01 * (acc + b)), 1))
+    return _USER_EPILOGUES
+
+
+# B3 with a user semiring (phase 31's table, tests/test_torch_kernels.py
+# parametrises it too): WIDE_B3_CASES' form, the semiring first: (semiring,
+# dtype, out dtype, ta, tb, batch, M, N, K, values, layout, broadcast).
+# The three float customs in four layouts; NaN / +-inf ("edge") under the
+# min / max and the sum customs with odd pitches and K tails; batched, with
+# a broadcast a or b; int8 and int32 inputs (sums and xors wrapping);
+# 1 x 1 x 1 and M 1.  Five libraries: each (semiring, input type) is one.
+GEN_B3_CASES = (
+    [(sr, "float32", "float32", ta, tb, None, 130, 200, 67, "rand", "dense", None)
+     for sr in ("plus_max", "user_max_plus", "user_log") for ta, tb in LAYOUTS]
+    + [("user_max_plus", "float32", "float32", True, True, None, 77, 90, 33, "edge", "odd", None),
+       ("plus_max", "float32", "float32", False, False, None, 77, 90, 33, "edge", "odd", None),
+       ("user_log", "float32", "float32", True, False, None, 64, 72, 33, "edge", "dense", None),
+       ("user_max_plus", "float32", "float32", False, True, 3, 64, 72, 17, "rand", "pitched",
+        "b"),
+       ("plus_max", "float32", "float32", True, False, 3, 64, 72, 17, "rand", "dense", "a"),
+       ("user_log", "float32", "float32", False, False, 4, 64, 72, 17, "rand", "dense", None),
+       ("plus_max", "int8", "int32", False, False, None, 130, 200, 67, "rand", "dense", None),
+       ("plus_max", "int8", "int32", True, True, 3, 64, 72, 17, "edge", "odd", None),
+       ("max_xor", "int32", "int32", True, False, None, 130, 200, 67, "rand", "odd", None),
+       ("max_xor", "int32", "int32", False, False, None, 77, 90, 33, "edge", "dense", None),
+       ("user_max_plus", "float32", "float32", False, False, None, 1, 1, 1, "rand", "dense",
+        None),
+       ("plus_max", "float32", "float32", False, False, None, 1, 300, 1, "rand", "dense", None)]
+)
+# Callable epilogues on B1 / B2 (phase 31's table, tests/test_torch_kernels.py
+# parametrises it too): (epilogue, dtype, out dtype, ta, tb, batch (None:
+# B1), M, N, K, layout, broadcast, route).  Operands: fp32 for integer
+# inputs (as the registered epilogues take them), the input's own type
+# else.  relu_bias on every route: the engine in two layouts through
+# pitched views (ragged M, N, K), WMMA through rows that are not whole
+# 16-byte units and odd bases (both B layouts), the CUDA cores, dmma in two
+# layouts, int8 on the engine (K-major) and on WMMA; silu_bias, the
+# two-operand clamp and the leaky ReLU (torch.where); B2 batched, with a
+# broadcast 2-D operand.  A library is one (callable, route, input type,
+# layout; the CUDA cores take any layout): twelve, seven of them the main
+# path's.
+GEN_EPILOGUE_CASES = (
+    [("relu_bias", "bfloat16", "bfloat16", ta, tb, None, 1000, 1030, 1100, "pitched", None,
+      "wgmma") for ta, tb in ((False, False), (True, True))]
+    + [("relu_bias", "float64", "float64", ta, False, None, 130, 200, 67, lay, None, "dmma")
+       for ta, lay in ((False, "dense"), (True, "odd"))]
+    + [("relu_bias", "bfloat16", "float32", False, False, None, 250, 300, 100, "dense", None,
+        "wmma"),
+       ("relu_bias", "float16", "float16", True, True, None, 130, 264, 67, "odd", None, "wmma"),
+       ("relu_bias", "float32", "float32", False, False, None, 130, 200, 67, "dense", None,
+        "simt"),
+       ("relu_bias", "float32", "float32", True, True, None, 130, 200, 67, "odd", None, "simt"),
+       ("relu_bias", "int8", "float32", False, True, None, 300, 520, 272, "dense", None,
+        "wgmma"),
+       ("relu_bias", "int8", "float32", False, False, None, 300, 520, 272, "dense", None,
+        "wmma"),
+       ("silu_bias", "bfloat16", "bfloat16", False, False, None, 1000, 1030, 1100, "pitched",
+        None, "wgmma"),
+       ("silu_bias", "float32", "float32", True, False, None, 130, 200, 67, "dense", None,
+        "simt"),
+       ("clamp2", "bfloat16", "float32", False, False, None, 264, 384, 512, "dense", None,
+        "wgmma"),
+       ("leaky", "float32", "float32", False, True, None, 130, 200, 67, "dense", None, "simt"),
+       ("relu_bias", "bfloat16", "bfloat16", False, False, 5, 300, 1030, 200, "pitched", None,
+        "wgmma"),
+       ("silu_bias", "bfloat16", "float32", False, False, 5, 130, 264, 200, "pitched", "a",
+        "wgmma"),
+       ("relu_bias", "float32", "float32", False, False, 3, 65, 140, 131, "dense", "a", "simt"),
+       ("relu_bias", "float64", "float64", False, False, 3, 65, 140, 131, "dense", None, "dmma"),
+       ("relu_bias", "bfloat16", "float32", False, False, 3, 64, 72, 100, "dense", None, "wmma")]
+)
+
+# The main path's shapes (phase 31): B3 at 4096^3 (B3's standing size,
+# PERF.md section 6); B1's epilogue row, bf16 (8192 x 4096) . (4096 x
+# 16384); relu(acc + b) on WMMA (bf16, A's rows 2008 bytes), the CUDA cores
+# (fp32) and dmma (float64) at 2048^3; the clamp at bf16 4096^3; B2 16 x
+# 1024^3; int8 K-major 4096^3; the gradient at fp32 2048^3.
+SLICE22 = dict(b3=4096, ep=(8192, 16384, 4096), wmma=(2048, 2048, 1004), other=2048,
+               clamp=4096, batched=(16, 1024), int8=4096, grad=2048)
+
+
+def _gen_ep_operands(torch, gen, dtype, n, count):
+    """``count`` (N,) epilogue operands: fp32 for integer inputs, the input
+    type else; the clamp's as (lo, hi) with lo < hi."""
+    odt = dtype if dtype.is_floating_point else torch.float32
+    ops = [signed(torch, (n,), odt, gen) * (1 if dtype.is_floating_point else 20)
+           for _ in range(count)]
+    if count == 2:  # clamp2's bounds
+        ops = [-(ops[0].abs() + 0.25), ops[1].abs() + 0.25]
+    return ops
+
+
+def gen_b3_case(torch, gen, case):
+    """One GEN_B3_CASES case through the front door against the plain
+    version; returns the largest abs error."""
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import vpu
+    name, dt, out, ta, tb, bsz, m, n, k, values, layout, bcast = case
+    sr = user_semirings()[name]
+    dtype = getattr(torch, dt)
+    a = wide_operand(torch, gen, *((k, m) if ta else (m, k)), dtype, values, layout,
+                     () if bsz is None or bcast == "a" else (bsz,))
+    b = wide_operand(torch, gen, *((n, k) if tb else (k, n)), dtype, values, layout,
+                     () if bsz is None or bcast == "b" else (bsz,))
+    before = sum(vpu.vpu_matmul.generated_launches.values())
+    got = front(lambda: matmul(a, b, semiring=sr, transpose_a=ta, transpose_b=tb,
+                               out_dtype=out))
+    if sum(vpu.vpu_matmul.generated_launches.values()) != before + 1:
+        raise AssertionError(f"B3 generated {case}: not one generated launch")
+    cfg = default_config(dtype, semiring=name, out_dtype=out)
+    want = vpu.vpu_matmul_plain(a, b, cfg=cfg, sr=sr, transpose_a=ta, transpose_b=tb)
+    exact = name in ("user_max_plus", "max_xor") or not dtype.is_floating_point
+    rtol = 0.0 if exact else (BF16_RTOL if got.dtype == torch.bfloat16 else 1e-3)
+    return compare(torch, got, want, rtol, f"B3 generated {case}", scaled=True)[0]
+
+
+def gen_epilogue_operands(torch, gen, case):
+    """(a, b, epilogue operands, callable) of a GEN_EPILOGUE_CASES case."""
+    name, dt, out, ta, tb, bsz, m, n, k, layout, bcast, _ = case
+    dtype = getattr(torch, dt)
+    fn, count = user_epilogues()[name]
+    a = wide_operand(torch, gen, *((k, m) if ta else (m, k)), dtype, "rand", layout,
+                     () if bsz is None or bcast == "a" else (bsz,))
+    b = wide_operand(torch, gen, *((n, k) if tb else (k, n)), dtype, "rand", layout,
+                     () if bsz is None or bcast == "b" else (bsz,))
+    return a, b, _gen_ep_operands(torch, gen, dtype, n, count), fn
+
+
+def gen_epilogue_case(torch, gen, case):
+    """One GEN_EPILOGUE_CASES case through the front door against the plain
+    version, its route checked (and relu_bias against the registered
+    bias_relu, bit for bit); returns the largest abs error."""
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import mxu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    name, dt, out, ta, tb, bsz, _, _, _, _, _, route = case
+    a, b, eps, fn = gen_epilogue_operands(torch, gen, case)
+    kw = dict(transpose_a=ta, transpose_b=tb, out_dtype=out)
+    before = sum(mxu.generated_launches.values())
+    got = front(lambda: matmul(a, b, epilogue=fn, epilogue_operands=eps, **kw))
+    wrapper = mxu.mxu_matmul if a.ndim == b.ndim == 2 or (
+        a.ndim == 3 and b.ndim == 2 and not ta) else mxu.mxu_matmul_batched
+    if sum(mxu.generated_launches.values()) != before + 1 or wrapper.last_route != route:
+        raise AssertionError(f"B1 / B2 generated {case}: route {wrapper.last_route}, "
+                             f"generated {dict(mxu.generated_launches)}")
+    cfg = default_config(getattr(torch, dt), out_dtype=out)
+    want = mxu.mxu_matmul_plain(a, b, *(e.reshape(1, -1) for e in eps), cfg=cfg,
+                                transpose_a=ta, transpose_b=tb, epilogue=get_epilogue(fn))
+    err = compare(torch, got, want, wide_rtol(torch, got.dtype, False),
+                  f"B1 / B2 generated {case}", scaled=True)[0]
+    if name == "relu_bias":
+        reg = matmul(a, b, epilogue="bias_relu", epilogue_operands=eps, **kw)
+        if not torch.equal(got, reg):
+            raise AssertionError(f"{case}: relu(acc + b) differs from bias_relu")
+    return err
+
+
+def plain_calls():
+    """Plain-version runs of B1 / B2 and B3 on CUDA tensors so far."""
+    from gemm_hls_tpu_torch.ops import mxu, vpu
+    return mxu.mxu_matmul_plain.cuda_calls + vpu.vpu_matmul_plain.cuda_calls
+
+
+def front(fn):
+    """A front-door call, which must run no plain version on the card."""
+    before = plain_calls()
+    out = fn()
+    if plain_calls() != before:
+        raise AssertionError("a custom semiring or callable epilogue ran its plain "
+                             "version on CUDA tensors")
+    return out
+
+
+def phase31_specs(torch):
+    """(source, entry) of every generated library phase 31 runs: its case
+    tables' and its main path's, as the front door derives them."""
+    from gemm_hls_tpu_torch.ops import codegen, vpu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    b3 = {(c[0], c[1]) for c in GEN_B3_CASES} | {
+        ("plus_max", "float32"), ("user_max_plus", "float32"), ("user_log", "float32"),
+        ("plus_max", "int8")}
+    eps = {(c[0], c[-1], c[1], c[3], c[4]) for c in GEN_EPILOGUE_CASES} | {
+        ("silu_bias", "wgmma", "bfloat16", False, False),
+        ("relu_bias", "wgmma", "bfloat16", False, False),
+        ("relu_bias", "wmma", "bfloat16", False, False),
+        ("relu_bias", "simt", "float32", False, False),
+        ("relu_bias", "dmma", "float64", False, False),
+        ("clamp2", "wgmma", "bfloat16", False, False),
+        ("relu_bias", "wgmma", "int8", False, True),
+        ("silu_bias", "simt", "float32", False, False)}
+    specs = {}
+    for name, dt in sorted(b3):
+        dtype = getattr(torch, dt)
+        spec = codegen.semiring_spec(user_semirings()[name], dtype, vpu._KERNEL_DTYPES[dtype])
+        specs[spec[0]] = spec
+    for name, route, dt, ta, tb in sorted(eps):
+        dtype = getattr(torch, dt)
+        fn, count = user_epilogues()[name]
+        acc = {torch.float64: torch.float64}.get(dtype, torch.float32
+                                                 if dtype.is_floating_point else torch.int32)
+        odt = dtype if dtype.is_floating_point else torch.float32
+        spec = codegen.epilogue_spec(fn, route, dtype, acc, [odt] * count, ta, tb,
+                                     get_epilogue(fn).name)
+        specs[spec[0]] = spec
+    return list(specs.values())
+
+
+class GeneratedBuilds:
+    """Phase 31's generated libraries built in a thread, started beside phase
+    2's library build and waited for at its end, so they share its CPU time
+    and no later phase's (``_build.generated_libraries``: one nvcc each, at
+    most one a core at once)."""
+
+    def __init__(self, torch):
+        from gemm_hls_tpu_torch import _build
+        self.specs = phase31_specs(torch)
+        self.error, self.seconds = None, None
+        self._thread = threading.Thread(target=self._run, args=(_build,), daemon=True)
+        self._thread.start()
+
+    def _run(self, build):
+        t0 = time.perf_counter()
+        try:
+            build.generated_libraries(self.specs)
+        except Exception as e:  # noqa: BLE001 (raised again by wait())
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def wait(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.seconds
+
+
+_LOAD_GENERATED = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from gemm_hls_tpu_torch import _build
+def no_nvcc():
+    raise RuntimeError("nvcc was called")
+_build._nvcc = no_nvcc
+specs = [tuple(s) for s in json.load(open(sys.argv[2]))]
+fns = _build.generated_libraries(specs)
+print(len(fns), _build.generated_builds)
+"""
+
+
+def phase_slice22(torch, builds):
+    """Phase 31: slice 22's generated functors.  (a) the builds started at
+    phase 2 (their seconds and registers), a second lookup and a fresh
+    process that loads every library with no nvcc; the case tables; then,
+    launch counts set to 0 just before and read just after, the main path
+    through the front door with no plain version run on the card: (b) B3
+    with user semirings at fp32 4096^3 and int8, (c) callable epilogues on
+    every route, batched, int8, a gradient; then (d) the times.  Returns
+    the readings for the kernels line."""
+    import os
+
+    from gemm_hls_tpu_torch import _build, matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import codegen, mxu, vpu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+
+    t_start = time.perf_counter()
+    gen_s = builds.wait()
+    rows = []
+    for src, _ in builds.specs:
+        log_path = _build.generated_path(src).with_suffix(".log")
+        text = log_path.read_text() if log_path.exists() else ""
+        head = text.splitlines()[0] if text else "(loaded, no build log)"
+        regs = sorted({ln.split("Used ", 1)[1].split(",")[0] for ln in text.splitlines()
+                       if "Used " in ln and "registers" in ln})
+        spills = sorted({ln.strip() for ln in text.splitlines() if "spill" in ln
+                         and not ln.strip().endswith("0 bytes spill stores, 0 bytes spill loads")})
+        kind = src.split("// Generated by gemm_hls_tpu_torch/ops/codegen.py: ", 1)[1]
+        rows.append(f"{head[3:]} | {kind.splitlines()[0][:70]} | {', '.join(regs)}"
+                    + (f" | spills {spills}" if spills else ""))
+    before = _build.generated_builds
+    t0 = time.perf_counter()
+    _build.generated_libraries(builds.specs)
+    lookup_s = time.perf_counter() - t0
+    if _build.generated_builds != before:
+        raise AssertionError("31a: a second lookup built a generated library")
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_file = os.path.join(tmp, "specs.json")
+        with open(spec_file, "w") as f:
+            json.dump(builds.specs, f)
+        child = subprocess.run([sys.executable, "-c", _LOAD_GENERATED, str(REPO), spec_file],
+                               capture_output=True, text=True, timeout=300)
+    if child.returncode or child.stdout.split() != [str(len(builds.specs)), "0"]:
+        raise AssertionError(f"31a: a fresh process did not load the generated libraries "
+                             f"without nvcc: {child.stdout} {child.stderr[-2000:]}")
+    log(f"phase 31a: {len(builds.specs)} generated libraries in {gen_s:.1f} s beside phase 2's "
+        f"build ({_build.generated_builds} built here); a second lookup {lookup_s * 1e3:.1f} ms, "
+        f"no build; a fresh process loaded all {len(builds.specs)} with no nvcc. Each: nvcc "
+        f"seconds | functor | registers" + "".join(f"\n  {r}" for r in rows))
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    worst = max(gen_b3_case(torch, gen, c) for c in GEN_B3_CASES)
+    log(f"phase 31a: B3 user-semiring cases, {len(GEN_B3_CASES)} (four layouts, NaN / +-inf, "
+        f"odd pitches and K tails, batched and broadcast, bf16 / int8 / int32, 1 x 1 x 1): ok "
+        f"(worst abs err {worst:.3e})")
+    worst = max(gen_epilogue_case(torch, gen, c) for c in GEN_EPILOGUE_CASES)
+    routes = sorted({c[-1] for c in GEN_EPILOGUE_CASES})
+    log(f"phase 31a: B1 / B2 callable-epilogue cases, {len(GEN_EPILOGUE_CASES)}, routes "
+        f"{routes} checked each, relu(acc + b) equal to bias_relu bit for bit: ok (worst abs "
+        f"err {worst:.3e})")
+
+    # ---- the main path ------------------------------------------------------
+    reset_counters()
+    t0 = time.perf_counter()
+    srs = user_semirings()
+    n = SLICE22["b3"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    x = signed(torch, (n, n), f32, gen)
+    y = signed(torch, (n, n), f32, gen)
+    cfg_sr = {name: default_config(f32, semiring=name) for name in srs}
+    b3 = {}
+    got = front(lambda: matmul(x, y, semiring=srs["plus_max"]))
+    b3["plus_max"] = compare(torch, got, vpu.vpu_matmul_plain(
+        x, y, cfg=cfg_sr["plus_max"], sr=srs["plus_max"]), 1e-3, "31b plus_max", scaled=True)[0]
+    got = front(lambda: matmul(x, y, semiring=srs["user_max_plus"]))
+    if not torch.equal(got, matmul(x, y, semiring="max_plus")):
+        raise AssertionError("31b: the user max_plus differs from the built-in")
+    b3["user_max_plus"] = compare(torch, got, vpu.vpu_matmul_plain(
+        x, y, cfg=cfg_sr["user_max_plus"], sr=srs["user_max_plus"]), 0.0, "31b max_plus")[0]
+    got = front(lambda: matmul(x, y, semiring=srs["user_log"]))
+    b3["user_log"] = compare(torch, got, matmul(x, y, semiring="log_plus"), 1e-3,
+                             "31b user log vs log_plus", scaled=True)[0]
+    x8 = wide_operand(torch, gen, n, n, torch.int8)
+    y8 = wide_operand(torch, gen, n, n, torch.int8)
+    got = front(lambda: matmul(x8, y8, semiring=srs["plus_max"]))
+    cfg8 = default_config(torch.int8, semiring="plus_max")
+    b3["plus_max int8"] = compare(torch, got, vpu.vpu_matmul_plain(
+        x8, y8, cfg=cfg8, sr=srs["plus_max"]), 0.0, "31b plus_max int8")[0]
+    del got
+    log(f"phase 31b: B3 user semirings at {n}^3 vs plain: plus_max fp32 (rel 1e-3) max abs "
+        f"{b3['plus_max']:.3e}; user max_plus bit for bit the built-in's and exact; user log "
+        f"within 1e-3 of log_plus (max abs {b3['user_log']:.3e}); plus_max int8 exact")
+
+    eps_fns = user_epilogues()
+    relu, silu, clamp2 = (eps_fns[k][0] for k in ("relu_bias", "silu_bias", "clamp2"))
+    m_e, n_e, k_e = SLICE22["ep"]
+    xe = signed(torch, (m_e, k_e), bf16, gen)
+    we = signed(torch, (k_e, n_e), bf16, gen) * 0.02
+    be = signed(torch, (n_e,), bf16, gen)
+    cfg_e = default_config(bf16)
+    ep_err, routes = {}, {}
+
+    def held(key, fn, want, rtol, route, bitwise=None):
+        got = front(fn)
+        wrapper = mxu.mxu_matmul if got.ndim == 2 else mxu.mxu_matmul_batched
+        routes[key] = wrapper.last_route
+        if routes[key] != route:
+            raise AssertionError(f"31c {key}: route {routes[key]}, want {route}")
+        ep_err[key] = compare(torch, got, want(), rtol, f"31c {key}", scaled=True)[0]
+        if bitwise is not None and not torch.equal(got, bitwise()):
+            raise AssertionError(f"31c {key}: differs from the registered bias_relu")
+
+    def plain(a, b, *ops, cfg, fn, **kw):
+        return mxu.mxu_matmul_plain(a, b, *(o.reshape(1, -1) for o in ops), cfg=cfg,
+                                    epilogue=get_epilogue(fn), **kw)
+
+    held("silu engine", lambda: matmul(xe, we, epilogue=silu, epilogue_operands=(be,)),
+         lambda: plain(xe, we, be, cfg=cfg_e, fn=silu), BF16_RTOL, "wgmma")
+    held("relu engine", lambda: matmul(xe, we, epilogue=relu, epilogue_operands=(be,)),
+         lambda: plain(xe, we, be, cfg=cfg_e, fn=relu), BF16_RTOL, "wgmma",
+         lambda: matmul(xe, we, epilogue="bias_relu", epilogue_operands=(be,)))
+    mw, nw, kw_ = SLICE22["wmma"]
+    xw = signed(torch, (mw, kw_), bf16, gen)  # 2008-byte rows: not 16-byte units
+    ww = signed(torch, (kw_, nw), bf16, gen)
+    bw = signed(torch, (nw,), f32, gen)
+    held("relu wmma", lambda: matmul(xw, ww, epilogue=relu, epilogue_operands=(bw,)),
+         lambda: plain(xw, ww, bw, cfg=cfg_e, fn=relu), BF16_RTOL, "wmma",
+         lambda: matmul(xw, ww, epilogue="bias_relu", epilogue_operands=(bw,)))
+    no = SLICE22["other"]
+    xs_, ws_, bs_ = (signed(torch, s, f32, gen) for s in ((no, no), (no, no), (no,)))
+    held("relu simt", lambda: matmul(xs_, ws_, epilogue=relu, epilogue_operands=(bs_,)),
+         lambda: plain(xs_, ws_, bs_, cfg=default_config(f32), fn=relu), F32_RTOL, "simt",
+         lambda: matmul(xs_, ws_, epilogue="bias_relu", epilogue_operands=(bs_,)))
+    f64 = torch.float64
+    xd, wd, bd = (signed(torch, s, f64, gen) for s in ((no, no), (no, no), (no,)))
+    held("relu dmma", lambda: matmul(xd, wd, epilogue=relu, epilogue_operands=(bd,)),
+         lambda: plain(xd, wd, bd, cfg=default_config(f64), fn=relu), 1e-9, "dmma",
+         lambda: matmul(xd, wd, epilogue="bias_relu", epilogue_operands=(bd,)))
+    nc = SLICE22["clamp"]
+    xc, wc = signed(torch, (nc, nc), bf16, gen), signed(torch, (nc, nc), bf16, gen)
+    lo, hi = _gen_ep_operands(torch, gen, f32, nc, 2)
+    held("clamp2 engine", lambda: matmul(xc, wc, epilogue=clamp2, epilogue_operands=(lo, hi)),
+         lambda: plain(xc, wc, lo, hi, cfg=cfg_e, fn=clamp2), BF16_RTOL, "wgmma")
+    bsz, nb = SLICE22["batched"]
+    xb, wb = signed(torch, (bsz, nb, nb), bf16, gen), signed(torch, (bsz, nb, nb), bf16, gen)
+    bb = signed(torch, (nb,), bf16, gen)
+    held("relu batched engine", lambda: matmul(xb, wb, epilogue=relu, epilogue_operands=(bb,)),
+         lambda: plain(xb, wb, bb, cfg=cfg_e, fn=relu), BF16_RTOL, "wgmma",
+         lambda: matmul(xb, wb, epilogue="bias_relu", epilogue_operands=(bb,)))
+    ni = SLICE22["int8"]
+    xi = wide_operand(torch, gen, ni, ni, torch.int8)
+    wi = wide_operand(torch, gen, ni, ni, torch.int8)  # held (N, K): K-major
+    bi = signed(torch, (ni,), f32, gen) * 1e4
+    cfg_i = default_config(torch.int8, out_dtype="float32")
+    held("relu int8 engine", lambda: matmul(xi, wi, transpose_b=True, out_dtype="float32",
+                                            epilogue=relu, epilogue_operands=(bi,)),
+         lambda: plain(xi, wi, bi, cfg=cfg_i, fn=relu, transpose_b=True), F32_RTOL, "wgmma",
+         lambda: matmul(xi, wi, transpose_b=True, out_dtype="float32", epilogue="bias_relu",
+                        epilogue_operands=(bi,)))
+    ng = SLICE22["grad"]
+    xg, wg_, bg = (signed(torch, s, f32, gen) for s in ((ng, ng), (ng, ng), (ng,)))
+    cot = signed(torch, (ng, ng), f32, gen)
+    leaves = [t.clone().requires_grad_() for t in (xg, wg_, bg)]
+    front(lambda: matmul(leaves[0], leaves[1], epilogue=silu,
+                         epilogue_operands=(leaves[2],)).backward(cot))
+    routes["silu gradient"] = mxu.mxu_matmul.last_route  # the backward's last GEMM
+    ref = [t.clone().requires_grad_() for t in (xg, wg_, bg)]
+    torch.nn.functional.silu(torch.matmul(ref[0], ref[1]) + ref[2]).backward(cot)
+    grad_err = [compare(torch, g_.grad, w_.grad, F32_RTOL, f"31c gradient d{nm}", scaled=True)[0]
+                for nm, g_, w_ in zip(("x", "w", "b"), leaves, ref)]
+    del leaves, ref, cot
+    launches = dict(counters(), routes=dict(mxu.route_launches),
+                    generated_epilogue=dict(mxu.generated_launches),
+                    generated_b3=dict(vpu.vpu_matmul.generated_launches))
+    main_s = time.perf_counter() - t0
+    log(f"phase 31c: callable epilogues vs plain: " + "; ".join(
+        f"{k} ({routes[k]}) {v:.3e}" for k, v in ep_err.items())
+        + f"; relu(acc + b) bit for bit bias_relu on engine, WMMA, CUDA cores, dmma, batched "
+          f"and int8; silu gradient at fp32 {ng}^3 (B1 on {routes['silu gradient']}) vs "
+          f"plain autograd: max abs err dx {grad_err[0]:.3e}, dw {grad_err[1]:.3e}, "
+          f"db {grad_err[2]:.3e}")
+    log(f"phase 31: main-path launches {launches}; plain-version runs on the card inside the "
+        f"front-door calls: 0")
+    need = {("wgmma", "bfloat16"), ("wmma", "bfloat16"), ("simt", "float32"),
+            ("dmma", "float64"), ("wgmma", "int8")}
+    if any(not mxu.generated_launches[key] for key in need) or set(
+            vpu.vpu_matmul.generated_launches) != {"float32", "int8"}:
+        raise AssertionError(f"phase 31: a generated kernel of the path was not launched: "
+                             f"{launches}")
+
+    # ---- (d) times, in turns on CUDA events (comparison launches) ----------
+    readings = {}
+    sem = {k: get_semiring(k) for k in ("min_plus", "max_plus")}
+    t = event_turns(torch, {
+        "plus_max": lambda: vpu.vpu_matmul(x, y, cfg=cfg_sr["plus_max"], sr=srs["plus_max"]),
+        "user_max_plus": lambda: vpu.vpu_matmul(x, y, cfg=cfg_sr["user_max_plus"],
+                                                sr=srs["user_max_plus"]),
+        "min_plus": lambda: vpu.vpu_matmul(x, y, cfg=default_config(f32, semiring="min_plus"),
+                                           sr=sem["min_plus"]),
+        "max_plus": lambda: vpu.vpu_matmul(x, y, cfg=default_config(f32, semiring="max_plus"),
+                                           sr=sem["max_plus"])}, rounds=3, iters=2)
+    t.update(event_turns(torch, {
+        "plain": lambda: vpu.vpu_matmul_plain(x, y, cfg=cfg_sr["plus_max"], sr=srs["plus_max"]),
+        "plain_max_plus": lambda: vpu.vpu_matmul_plain(x, y, cfg=cfg_sr["user_max_plus"],
+                                                       sr=srs["user_max_plus"])},
+        rounds=1, iters=1))
+    readings["B3 generated"] = dict(
+        ms=t["plus_max"], plain_ms=t["plain"], library_ms=None, max_abs_err=b3["plus_max"],
+        bound=H100.bound(2.0 * n ** 3, H100.vpu_ops, 3 * n * n * 4),
+        user_max_plus_ms=t["user_max_plus"], user_max_plus_plain_ms=t["plain_max_plus"],
+        builtin_min_plus_ms=t["min_plus"], builtin_max_plus_ms=t["max_plus"],
+        max_abs_err_by_semiring=b3)
+    bias_relu = get_epilogue("bias_relu")
+
+    def ep_bound(a, b, out_bytes, bias):
+        """Inputs read once (A, B, the bias), the output written once."""
+        (m_, k_), n_ = a.shape, b.shape[1]
+        return H100.bound(2.0 * m_ * n_ * k_, H100.peak_for(a.dtype),
+                          (m_ * k_ + k_ * n_) * a.element_size() + m_ * n_ * out_bytes
+                          + n_ * bias.element_size())
+
+    def gen_call(a, b, bias, fn, cfg):
+        return mxu.mxu_matmul(a, b, bias, cfg=cfg, epilogue=get_epilogue(fn))
+
+    t = event_turns(torch, {
+        "silu": lambda: gen_call(xe, we, be, silu, cfg_e),
+        "relu": lambda: gen_call(xe, we, be, relu, cfg_e),
+        "bias_relu": lambda: mxu.mxu_matmul(xe, we, be, cfg=cfg_e, epilogue=bias_relu),
+        "library": lambda: torch._addmm_activation(be, xe, we)}, rounds=3, iters=10)
+    t.update(event_turns(torch, {
+        "plain_silu": lambda: plain(xe, we, be, cfg=cfg_e, fn=silu),
+        "plain_relu": lambda: plain(xe, we, be, cfg=cfg_e, fn=relu)}, rounds=1, iters=3))
+    readings["B1 generated epilogue wgmma"] = dict(
+        ms=t["silu"], plain_ms=t["plain_silu"], library_ms=None,
+        max_abs_err=ep_err["silu engine"], bound=ep_bound(xe, we, 2, be),
+        relu_ms=t["relu"], relu_plain_ms=t["plain_relu"], bias_relu_ms=t["bias_relu"],
+        addmm_activation_relu_ms=t["library"], kernel_route="wgmma")
+    for key, (a, b, bias, cfg, dt) in {
+            "wmma": (xw, ww, bw, cfg_e, bf16), "simt": (xs_, ws_, bs_, default_config(f32), f32),
+            "dmma": (xd, wd, bd, default_config(f64), f64)}.items():
+        t = event_turns(torch, {
+            "relu": lambda: gen_call(a, b, bias, relu, cfg),
+            "bias_relu": lambda: mxu.mxu_matmul(a, b, bias, cfg=cfg, epilogue=bias_relu),
+            "library": lambda: torch._addmm_activation(bias.to(dt), a, b)}, rounds=3, iters=5)
+        t.update(event_turns(torch, {"plain": lambda: plain(a, b, bias, cfg=cfg, fn=relu)},
+                             rounds=1, iters=2))
+        readings[f"B1 generated epilogue {key}"] = dict(
+            ms=t["relu"], plain_ms=t["plain"], library_ms=t["library"],
+            max_abs_err=ep_err[f"relu {key}"], bound=ep_bound(a, b, a.element_size(), bias),
+            bias_relu_ms=t["bias_relu"], kernel_route=key)
+    for key, r in readings.items():
+        bound_ms = r["bound"][0] * 1e3
+        extra = ", ".join(f"{k} {v:.3f}" for k, v in r.items()
+                          if k.endswith("_ms") and k not in ("ms", "plain_ms") and v)
+        log(f"phase 31d: {key}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({r['bound'][1]}), {bound_ms / r['ms']:.1%} of the bound; "
+            f"{extra}")
+    del x, y, x8, y8, xe, we, xw, ww, xs_, ws_, xd, wd, xc, wc, xb, wb, xi, wi, xg, wg_
+    torch.cuda.empty_cache()
+    log(f"phase 31: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s); "
+        f"{codegen.ITEM} runs on the card")
+    return {"launches": launches, "readings": readings}
+
+
 def main() -> int:
     import torch
 
@@ -7172,8 +7755,11 @@ def main() -> int:
 
     from gemm_hls_tpu_torch import _build
     t0 = time.perf_counter()
+    # Phase 31's generated libraries build beside the library (phase 31a).
+    builds = GeneratedBuilds(torch)
     lib_path = _build.build()
     _build.library()
+    gen_s = builds.wait()
     spills, serialised, entry, w8_regs, rs_regs, nvcc_s = [], set(), "", [], [], {}
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         if ln.startswith("== ") and " s, rc " in ln:  # a source's compile seconds
@@ -7192,7 +7778,8 @@ def main() -> int:
             rs_regs.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
     slowest = max(nvcc_s, key=nvcc_s.get) if nvcc_s else None
     log(f"phase 2: built and loaded {lib_path.name} in "
-        f"{time.perf_counter() - t0:.1f} s; kernels with spills: {len(spills)}"
+        f"{time.perf_counter() - t0:.1f} s (phase 31's {len(builds.specs)} generated libraries "
+        f"beside it, {gen_s:.1f} s); kernels with spills: {len(spills)}"
         + "".join(f"\n  {x}" for x in spills)
         + f"\nphase 2: kernels whose wgmma ptxas serialised (C7515, C7518): {len(serialised)}"
         + "".join(f"\n  {x}" for x in sorted(serialised))
@@ -7239,6 +7826,7 @@ def main() -> int:
     par20, par20_times, par20_profiles = phase_slice20(torch)
     log(f"phase 29: {time.perf_counter() - t0:.1f} s")
     slice21 = phase_slice21(torch)
+    slice22 = phase_slice22(torch, builds)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -7462,6 +8050,35 @@ def main() -> int:
             f"gemm_hls_tpu_torch/csrc/semiring_{B3_SOURCES[dt]}.cu",
             "gemm_hls_tpu/ops/pallas_vpu.py:56",
             b3_dt.get(dt, 0), t, t["bound"], None))
+    # Slice 22 (phase 31): the generated functors, each with its launches
+    # on phase 31's main path; the library holds the generated text's tile.
+    r22, l22 = slice22["readings"], slice22["launches"]
+    t = r22["B3 generated"]
+    kernels.append(kernel(
+        "semiring_gemm generated (B3 with a user semiring: example 02's plus_max, fp32 4096^3)",
+        "gemm_hls_tpu_torch/ops/codegen.py", "gemm_hls_tpu/ops/pallas_vpu.py:56",
+        sum(l22["generated_b3"].values()), t, t["bound"], None))
+    kernels[-1].update({k: t[k] for k in (
+        "user_max_plus_ms", "user_max_plus_plain_ms", "builtin_min_plus_ms",
+        "builtin_max_plus_ms", "max_abs_err_by_semiring")},
+        tile="gemm_hls_tpu_torch/csrc/simt_gemm.cuh")
+    tiles = {"wgmma": "mxu_wgmma.cuh", "wmma": "mxu_tc.cuh", "simt": "simt_gemm.cuh",
+             "dmma": "dmma_gemm.cuh"}
+    shapes = {"wgmma": "silu(acc + b), bf16 8192x4096 . 4096x16384",
+              "wmma": "relu(acc + b), bf16 2048x1004 . 1004x2048",
+              "simt": "relu(acc + b), fp32 2048^3", "dmma": "relu(acc + b), float64 2048^3"}
+    for route, what in shapes.items():
+        t = r22[f"B1 generated epilogue {route}"]
+        kernels.append(kernel(
+            f"mxu_gemm generated epilogue (B1 with a Python callable, {what}, {route})",
+            "gemm_hls_tpu_torch/ops/codegen.py", "gemm_hls_tpu/ops/pallas_mxu.py:103",
+            sum(v for (r, _), v in l22["generated_epilogue"].items() if r == route), t,
+            t["bound"], t["library_ms"]))
+        kernels[-1].update({k: v for k, v in t.items() if k.endswith("_ms") and k not in (
+            "ms", "plain_ms", "library_ms")}, kernel_route=route,
+            tile=f"gemm_hls_tpu_torch/csrc/{tiles[route]}",
+            library_note="library_ms is torch._addmm_activation (relu(b + x w)), "
+                         "bias_relu_ms the registered bias_relu epilogue in the same turns")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

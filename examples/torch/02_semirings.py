@@ -3,12 +3,10 @@
 The port of ``examples/02_semirings.py`` to ``gemm_hls_tpu_torch``: the
 same operands, calls, printed lines and checks.  On the card the built-in
 semirings run kernel B3 (``csrc/semiring_gemm.cu``) and the bool or_and the
-int8 route of B1; ``--device cpu`` runs their plain versions.
-
-Differences from the reference: the custom ``plus_max`` step passes
-``backend="torch"``.  A CUDA kernel runs only the semirings compiled into
-it, so a semiring registered at run time runs on the plain path until a
-generated functor lands (ROADMAP B, coverage item 5); the example says so.
+int8 route of B1; the custom ``plus_max`` runs B3 too, its map and reduce
+compiled at first use into a functor of its own (``ops/codegen.py``, a few
+seconds of nvcc, then cached under ``gemm_hls_tpu_torch/build/``).
+``--device cpu`` runs their plain versions.
 
     python examples/torch/02_semirings.py [--device cuda|cpu]
 """
@@ -60,9 +58,7 @@ def main(argv=None):
         np_map=np.maximum, np_reduce=np.add,
         reduce_axis=lambda x, dim: torch.sum(x, dim=dim),
     ), overwrite=True)
-    print("custom semirings run on the plain path (backend='torch') until the "
-          "generated functor lands (ROADMAP B coverage item 5)")
-    out = matmul(on(a), on(b), semiring=plus_max, backend="torch")
+    out = matmul(on(a), on(b), semiring=plus_max)
     verify_matmul(out.cpu().numpy(), reference_matmul(a, b, semiring="plus_max"))
     print("custom plus_max: registered and verified")
 

@@ -39,6 +39,13 @@ _BASE_CODES = 5
 
 _lock = threading.Lock()
 _lib = None
+# Generated libraries (user semirings, callable epilogues: ops/codegen.py)
+# loaded in this process, by path, and the nvcc builds this process ran;
+# their own lock, so a kernel launch never waits on their build.
+_gen_lock = threading.Lock()
+_generated = {}
+_generated_fns = {}  # (source text, entry) -> its declared function
+generated_builds = 0
 
 
 def dtype_code(d: torch.dtype, wide: bool = False) -> int:
@@ -125,6 +132,115 @@ def build() -> Path:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
+
+
+# The C interfaces of the generated entry points (ops/codegen.py):
+# semiring_gemm's arguments less the op code; mxu_gemm's with four
+# epilogue operand pointers and no epilogue kind.
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_GEMM_ARGS = [_VP, _VP, _VP, _I64, _I32, _I32, _I32, _I64, _I64, _I64, _I64, _I32, _I32]
+GENERATED_ARGTYPES = {
+    "gen_semiring_gemm": _GEMM_ARGS + [_I32, _I32, _VP],
+    "gen_epilogue_gemm": _GEMM_ARGS + [_I32] * 4 + [_VP] * 4 + [_I32, _VP],
+}
+
+
+def generated_path(source: str) -> Path:
+    """Where ``source``'s library lives: ``libgemm_hls_gen_<hash>.so`` in
+    ``BUILD_DIR``, the hash over the generated text, every ``csrc/*.cuh`` it
+    may include and the flags.  Keyed by the text, never by a semiring's or
+    callable's name: two functors that differ in one constant, or share a
+    name, get two libraries."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    for p in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libgemm_hls_gen_{h.hexdigest()[:16]}.so"
+
+
+def generated_libraries(specs):
+    """The entry points of generated translation units, ``specs`` a list of
+    (source text, ``extern "C"`` entry name): each library is loaded from
+    ``BUILD_DIR`` where it exists, else built, the missing ones side by side
+    (one ``nvcc -shared`` each, at most one a core at once, the same
+    ``NVCC_FLAGS``, ``-I csrc``), written to a temporary name and moved into
+    place.  Holds the generated libraries' lock, never the kernel
+    library's, so launches of built kernels go on during a build.  The source is kept beside
+    its library (``gen_<hash>.cu``) and so is the build log (seconds,
+    ptxas registers and spills).  A failed build raises RuntimeError with
+    the source's path and the end of nvcc's output; nothing falls back to
+    a plain version.  Returns ctypes functions, declared as
+    ``GENERATED_ARGTYPES`` says."""
+    global generated_builds
+    with _gen_lock:
+        # A launch's lookup: its text and entry, no hash (the hash reads
+        # every header; a millisecond a call).
+        fns = [_generated_fns.get(tuple(spec)) for spec in specs]
+        if all(fns):
+            return fns
+        paths = [generated_path(src) for src, _ in specs]
+        jobs = {}  # library path -> (source path, log path, tmp path, process)
+        missing = {p: src for p, (src, _) in zip(paths, specs)
+                   if p not in _generated and not p.exists()}
+        if missing:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            nvcc = _nvcc()
+
+            def start(out, src):
+                cu = out.with_name(out.stem.replace("libgemm_hls_gen_", "gen_") + ".cu")
+                cu.write_text(src)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                log = out.with_suffix(f".{os.getpid()}.buildlog")
+                with open(log, "w") as f:
+                    proc = subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC_DIR), "-o",
+                         str(tmp), str(cu)], stdout=f, stderr=subprocess.STDOUT)
+                jobs[out] = (cu, log, tmp, proc, time.perf_counter())
+
+            # At most one nvcc a core at once (each holds a few GB in cicc /
+            # ptxas); the rest start as they finish.
+            waiting = list(missing.items())
+            seconds = {}
+            while len(seconds) < len(missing):
+                while waiting and len(jobs) - len(seconds) < (os.cpu_count() or 8):
+                    start(*waiting.pop(0))
+                for out, (_, _, _, proc, t0) in jobs.items():
+                    if out not in seconds and proc.poll() is not None:
+                        seconds[out] = time.perf_counter() - t0
+                time.sleep(0.1)
+            failed = []
+            for out, (cu, log, tmp, proc, _) in jobs.items():
+                rc = proc.returncode
+                text = log.read_text()
+                log.unlink()
+                out.with_suffix(".log").write_text(
+                    f"== {cu.name}: {seconds[out]:.1f} s, rc {rc}\n{text}")
+                if rc:
+                    tmp.unlink(missing_ok=True)
+                    failed.append(f"{cu}: {text[-4000:]}")
+                else:
+                    os.replace(tmp, out)
+                    generated_builds += 1
+            if failed:
+                raise RuntimeError("nvcc failed on a generated functor:\n"
+                                   + "\n".join(failed))
+        fns = []
+        for out, spec in zip(paths, specs):
+            if out not in _generated:
+                _generated[out] = ctypes.CDLL(str(out))
+            fn = getattr(_generated[out], spec[1])
+            fn.restype = ctypes.c_int
+            fn.argtypes = GENERATED_ARGTYPES[spec[1]]
+            _generated_fns[tuple(spec)] = fn
+            fns.append(fn)
+        return fns
+
+
+def generated_library(source: str, entry: str):
+    """The ``extern "C"`` function ``entry`` of one generated translation
+    unit, built at first use (:func:`generated_libraries`)."""
+    return generated_libraries([(source, entry)])[0]
 
 
 def _declare(lib):

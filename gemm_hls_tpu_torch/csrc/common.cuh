@@ -216,26 +216,53 @@ __device__ __forceinline__ T epilogue(T acc, const EpArgs& e, int n) {
     default: return x;  // kEpBias
   }
 }
-// C[idx] = epilogue(acc) cast to the output dtype.  An int32 accumulator
-// (int8 / int32 inputs) meets the epilogue widened to fp32, as the plain
-// version's int32 + fp32 promotes (exact while |acc| < 2^24); without an
-// epilogue it is stored as it is.
+// ---- the epilogue policy of a store ----------------------------------------
+// A store takes its epilogue as a policy ``Ep``: ``EpArgs`` (the default, the
+// built-in epilogues above, chosen at run time by ``kind``), or a generated
+// functor (gemm_hls_tpu_torch/ops/codegen.py: a user's Python callable
+// compiled at first use into its own library, csrc/gen_ops.cuh), called as
+// ``ep(acc, n)`` on the accumulator of column n in its own type.  Only the
+// generated libraries instantiate the second form, so the built-in kernels'
+// code is what it was.
+__device__ __forceinline__ bool ep_none(const EpArgs& e) { return e.kind == kEpNone; }
 template <typename Acc>
-__device__ __forceinline__ void store_ep(void* c, int64_t idx, Acc acc, const EpArgs& e, int n,
+__device__ __forceinline__ float ep_eval(const EpArgs& e, Acc acc, int n) {
+  return epilogue(static_cast<float>(acc), e, n);
+}
+template <typename Ep>
+__device__ __forceinline__ bool ep_none(const Ep&) { return false; }
+template <typename Ep, typename Acc>
+__device__ __forceinline__ auto ep_eval(const Ep& e, Acc acc, int n) { return e(acc, n); }
+
+// C[idx] = epilogue(acc) cast to the output dtype.  An int32 accumulator
+// (int8 / int32 inputs) meets a built-in epilogue widened to fp32, as the
+// plain version's int32 + fp32 promotes (exact while |acc| < 2^24); without
+// an epilogue it is stored as it is.
+template <typename Acc, typename Ep = EpArgs>
+__device__ __forceinline__ void store_ep(void* c, int64_t idx, Acc acc, const Ep& e, int n,
                                          int out_code) {
-  if (e.kind == kEpNone)
+  if (ep_none(e))
     store_out(c, idx, acc, out_code);
   else
-    store_out(c, idx, epilogue(static_cast<float>(acc), e, n), out_code);
+    store_out(c, idx, ep_eval(e, acc, n), out_code);
+}
+
+// store_ep of a generated functor, out of line: inlined into the CUDA-core
+// tile's 64 unrolled stores (each with the operands' and the output's
+// type switches) it took ptxas five to six minutes a library.
+template <typename Acc, typename Ep>
+static __device__ __noinline__ void store_gen_ep(void* c, int64_t idx, Acc acc, const Ep& e, int n,
+                                                 int out_code) {
+  store_out(c, idx, ep_eval(e, acc, n), out_code);
 }
 
 // store_ep for the wide output types, out of line (see store_wide).
-template <bool kEpilogue, typename Acc>
-static __device__ __noinline__ void store_wide_ep(void* c, int64_t idx, Acc acc, const EpArgs& e,
+template <bool kEpilogue, typename Acc, typename Ep = EpArgs>
+static __device__ __noinline__ void store_wide_ep(void* c, int64_t idx, Acc acc, const Ep& e,
                                                   int n, int out_code) {
   if constexpr (kEpilogue) {
-    if (e.kind != kEpNone) {
-      store_wide(c, idx, static_cast<double>(epilogue(static_cast<float>(acc), e, n)), out_code);
+    if (!ep_none(e)) {
+      store_wide(c, idx, static_cast<double>(ep_eval(e, acc, n)), out_code);
       return;
     }
   }

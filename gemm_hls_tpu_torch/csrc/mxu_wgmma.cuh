@@ -192,6 +192,47 @@ __device__ void wg_put(Acc (&d)[128], const EpOut& o, int row0, int n0, int M, i
   ep_store<kInt, kInt>(d, o, r0, c0, M, N);
 }
 
+// Where a tile goes under a generated epilogue functor (ops/codegen.py: a
+// Python callable compiled at first use): C as for EpOut, the functor in
+// the kernel's parameters.  Each thread reads its 64 columns' operands
+// once (``Ep::load``, no staging: the functor's operands are its own) and
+// applies the functor to the column's two rows in place; an int32 tile
+// whose functor returns a float keeps the float's bits, as wg_put does.
+template <typename Ep>
+struct EpOutGen {
+  void* c;
+  int64_t ldc;
+  int out_code;
+  const Ep* ep;
+};
+template <typename Ep>
+__device__ __forceinline__ bool wg_reads_sum(const EpOutGen<Ep>&) { return false; }
+
+template <typename Acc, typename Ep>
+__device__ void wg_put(Acc (&d)[128], const EpOutGen<Ep>& o, int row0, int n0, int M, int N) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+  const int r0 = row0 + 16 * warp + lane / 4, c0 = n0 + 2 * (lane % 4);
+  constexpr bool kInt = std::is_same<Acc, int>::value;
+  using R = decltype(o.ep->apply(Acc(), o.ep->load(0)));
+  constexpr bool kBits = kInt && std::is_floating_point<R>::value;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      // A column past N is never stored: read the last one.
+      const auto cols = o.ep->load(min(c0 + 8 * j + q, N - 1));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Acc& x = d[4 * j + 2 * h + q];
+        const R r = o.ep->apply(x, cols);
+        if constexpr (kBits) set_f(x, static_cast<float>(r));
+        else x = static_cast<Acc>(r);
+      }
+    }
+  const EpOut eo{o.c, o.ldc, o.out_code, EpArgs{nullptr, nullptr, 0, kEpNone}, nullptr};
+  ep_store<kInt, kBits>(d, eo, r0, c0, M, N);
+}
+
 // The engine's stages and barriers, then both consumer warpgroups' column
 // staging.
 constexpr int kMxuWgSmem = kWgSmem + 2 * kEpStage * static_cast<int>(sizeof(float));
@@ -220,6 +261,23 @@ __global__ void __launch_bounds__(kWgThreads, 1) mxu_wg_kernel(const __grid_cons
                   static_cast<int>(blockIdx.x), 1, g.batch_maps};
   wg_compute<T, MnA, MnB>(job, smem, bars, [&](int z) {
     return EpOut{static_cast<char*>(g.c) + z * g.c_step, g.ldc, g.out_code, g.ep, cols};
+  });
+}
+
+// The engine with a generated epilogue functor ``Ep`` at its store.
+template <typename T, bool MnA, bool MnB, typename Ep>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mxu_wg_ep_kernel(const __grid_constant__ MxuWgArgs g, const __grid_constant__ Ep ep) {
+  extern __shared__ unsigned char dyn_smem[];
+  unsigned char* smem = wg_align(dyn_smem);
+  WgBars* bars = reinterpret_cast<WgBars*>(smem + kWgStages * kWgStage);
+  if (threadIdx.x == 0) wg_init_bars(bars);
+  __syncthreads();
+  const WgJob job{{&g.ma, &g.ma}, {&g.mb, &g.mb}, {nullptr, nullptr}, 0, 0, nullptr, nullptr,
+                  nullptr, g.spin, g.M, g.N, g.K, g.batch, static_cast<int>(gridDim.x),
+                  static_cast<int>(blockIdx.x), 1, g.batch_maps};
+  wg_compute<T, MnA, MnB>(job, smem, bars, [&](int z) {
+    return EpOutGen<Ep>{static_cast<char*>(g.c) + z * g.c_step, g.ldc, g.out_code, &ep};
   });
 }
 
@@ -259,14 +317,14 @@ inline bool encode_operand(CUtensorMap* map, const void* base, bool mn_major, in
 
 constexpr int out_bytes(int code) { return code == kF32 || code == kI32 ? 4 : code == kI8 ? 1 : 2; }
 
-// One persistent block a SM, at most one an (example, tile) pair.  Returns
-// 0, a CUDA error, kUnsupported, or kTmaEncodeFailed.
+// The kernel's arguments for ``call`` (its tensor maps encoded) and its
+// grid: one persistent block a SM, at most one an (example, tile) pair.
+// Returns 0, a CUDA error, kUnsupported, or kTmaEncodeFailed.
 template <typename T, bool MnA, bool MnB>
-int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
+int mxu_wg_setup(const MxuWgCall& call, MxuWgArgs& g, unsigned& blocks) {
   constexpr int esize = sizeof(T);
   constexpr bool f16 = std::is_same<T, __half>::value;
   // A batch stride of 0 is a 2-D map: no tensor map relies on a stride of 0.
-  MxuWgArgs g{};
   const bool ok = encode_operand(&g.ma, call.a, MnA, call.M, call.K, call.lda, call.sa, call.batch,
                                  esize, f16, kWgBM) &&
                   encode_operand(&g.mb, call.b, MnB, call.N, call.K, call.ldb, call.sb, call.batch,
@@ -283,10 +341,6 @@ int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
   g.batch = call.batch;
   g.batch_maps = (call.sa ? 1 : 0) | (call.sb ? 2 : 0);
   g.spin = spin_cycles(10000);  // a stage wait is microseconds; 10 s means a lost load
-  auto kern = mxu_wg_kernel<T, MnA, MnB>;
-  static const int attr = static_cast<int>(
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMxuWgSmem));
-  if (attr) return attr;
   int dev = 0, sms = 0;
   int err = cudaGetDevice(&dev);
   if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -294,7 +348,38 @@ int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
   const int64_t items = static_cast<int64_t>(call.batch) * ((call.M + kWgBM - 1) / kWgBM) *
                         ((call.N + kWgBN - 1) / kWgBN);
   if (items > INT_MAX) return kUnsupported;
-  kern<<<static_cast<unsigned>(items < sms ? items : sms), kWgThreads, kMxuWgSmem, st>>>(g);
+  blocks = static_cast<unsigned>(items < sms ? items : sms);
+  return 0;
+}
+
+template <typename T, bool MnA, bool MnB>
+int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
+  MxuWgArgs g{};
+  unsigned blocks = 0;
+  const int rc = mxu_wg_setup<T, MnA, MnB>(call, g, blocks);
+  if (rc) return rc;
+  auto kern = mxu_wg_kernel<T, MnA, MnB>;
+  static const int attr = static_cast<int>(
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMxuWgSmem));
+  if (attr) return attr;
+  kern<<<blocks, kWgThreads, kMxuWgSmem, st>>>(g);
+  return last_error();
+}
+
+// The engine under a generated epilogue: the one type and layout its
+// library was built for (-1 for another), no column staging.
+template <typename T, bool MnA, bool MnB, typename Ep>
+int launch_mxu_wg_ep(const MxuWgCall& call, const Ep& ep, cudaStream_t st) {
+  if (static_cast<bool>(call.ta) != MnA || static_cast<bool>(call.tb) == MnB) return kUnsupported;
+  MxuWgArgs g{};
+  unsigned blocks = 0;
+  const int rc = mxu_wg_setup<T, MnA, MnB>(call, g, blocks);
+  if (rc) return rc;
+  auto kern = mxu_wg_ep_kernel<T, MnA, MnB, Ep>;
+  static const int attr = static_cast<int>(
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem));
+  if (attr) return attr;
+  kern<<<blocks, kWgThreads, kWgSmem, st>>>(g, ep);
   return last_error();
 }
 

@@ -144,10 +144,22 @@ __device__ __forceinline__ void simt_step(Acc (&acc)[8][8], Acc (*As)[SBM + 1],
     for (int j = 0; j < 8; ++j) acc[i][j] = Op::step(acc[i][j], a[i], b[j]);
 }
 
-// kEpilogue: the store applies g.ep (the plus_times routes of B1 / B2);
-// the semiring functors of B3 take none, and skip its code.
-template <typename TIn, typename Acc, typename Op, bool kEpilogue>
-__global__ void __launch_bounds__(STHREADS) simt_gemm_kernel(const Gemm g, const int64_t z0) {
+// The epilogue policy of the store: g.ep (the built-in epilogues), or a
+// copy of the one generated functor a generated library passes
+// (ops/codegen.py), stored through common.cuh::store_gen_ep.
+__device__ __forceinline__ const EpArgs& ep_policy(const EpArgs& e) { return e; }
+template <typename Ep>
+__device__ __forceinline__ Ep ep_policy(const EpArgs&, const Ep& gen) { return gen; }
+
+// kEpilogue: the store applies the epilogue policy (the plus_times routes
+// of B1 / B2); the semiring functors of B3 take none, and skip its code.
+// ``ep`` is empty for the library's kernels, one generated functor for a
+// generated library's: the body stays in the kernel, reading g from its
+// parameters (a __device__ tile taking g by reference cost the fp32
+// instantiation 16 registers).
+template <typename TIn, typename Acc, typename Op, bool kEpilogue, typename... Ep>
+__global__ void __launch_bounds__(STHREADS) simt_gemm_kernel(const Gemm g, const int64_t z0,
+                                                             const Ep... ep) {
   __shared__ Acc As[SBK][SBM + 1];
   __shared__ Acc Bs[SBK][SBN + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -200,6 +212,7 @@ __global__ void __launch_bounds__(STHREADS) simt_gemm_kernel(const Gemm g, const
   }
 
   const int64_t c0 = z * M * N;
+  decltype(auto) ep_of = ep_policy(g.ep, ep...);
   if (g.out_code <= kI32) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -209,8 +222,10 @@ __global__ void __launch_bounds__(STHREADS) simt_gemm_kernel(const Gemm g, const
         const int gn = n0 + tx + 16 * j;
         if (gm < M && gn < N) {
           const int64_t idx = c0 + static_cast<int64_t>(gm) * N + gn;
-          if constexpr (kEpilogue)
-            store_ep(g.c, idx, acc[i][j], g.ep, gn, g.out_code);
+          if constexpr (kEpilogue && sizeof...(Ep) > 0)
+            store_gen_ep(g.c, idx, acc[i][j], ep_of, gn, g.out_code);
+          else if constexpr (kEpilogue)
+            store_ep(g.c, idx, acc[i][j], ep_of, gn, g.out_code);
           else
             store_out(g.c, idx, acc[i][j], g.out_code);
         }
@@ -224,7 +239,7 @@ __global__ void __launch_bounds__(STHREADS) simt_gemm_kernel(const Gemm g, const
       for (int j = 0; j < 8; ++j) {
         const int gn = n0 + tx + 16 * j;
         if (gm < M && gn < N)
-          store_wide_ep<kEpilogue>(g.c, c0 + static_cast<int64_t>(gm) * N + gn, acc[i][j], g.ep,
+          store_wide_ep<kEpilogue>(g.c, c0 + static_cast<int64_t>(gm) * N + gn, acc[i][j], ep_of,
                                    gn, g.out_code);
       }
     }
@@ -236,6 +251,16 @@ int launch_simt(const Gemm& g, int64_t batch, cudaStream_t stream) {
   return for_batch_chunks(batch, [&](int64_t z0, unsigned nz) {
     const dim3 grid((g.N + SBN - 1) / SBN, (g.M + SBM - 1) / SBM, nz);
     simt_gemm_kernel<TIn, Acc, Op, kEpilogue><<<grid, STHREADS, 0, stream>>>(g, z0);
+  });
+}
+
+// The tile with a generated epilogue functor ``Ep`` at its store (B1 / B2's
+// CUDA-core route for a Python callable, ops/codegen.py).
+template <typename TIn, typename Acc, typename Op, typename Ep>
+int launch_simt_ep(const Gemm& g, int64_t batch, cudaStream_t stream, const Ep& ep) {
+  return for_batch_chunks(batch, [&](int64_t z0, unsigned nz) {
+    const dim3 grid((g.N + SBN - 1) / SBN, (g.M + SBM - 1) / SBM, nz);
+    simt_gemm_kernel<TIn, Acc, Op, true, Ep><<<grid, STHREADS, 0, stream>>>(g, z0, ep);
   });
 }
 

@@ -10,7 +10,8 @@ So an epilogue here is a registry entry that holds
 * ``fn(acc, *operands)``: the torch function; the plain version applies it,
   and autograd differentiates it when no output-form derivative is given;
 * ``code``: the kernel's epilogue (``EpKind`` in ``csrc/common.cuh``),
-  or None where the kernels have no per-element code for it;
+  or None where the library has no code for it (a callable: its functor
+  is generated, ``ops/codegen.py``; the row softmax: ``rows``);
 * ``bwd(y, g, *operands) -> (dacc, *doperands)``: the output-form
   derivative that ``fused_linear`` passes as ``epilogue_bwd``, or None;
 * ``rows``: it needs whole rows (the row softmax), so it runs on kernel
@@ -19,7 +20,10 @@ So an epilogue here is a registry entry that holds
 
 Operands are per-output-column: (N,) tensors, seen by ``fn`` and ``bwd`` as
 (1, N).  ``matmul(epilogue=...)`` takes a registry name, an entry, or any
-callable; a callable runs on CPU tensors only (see :func:`kernel_code`).
+per-element callable of up to four operands: on CPU tensors it runs as it
+is; on CUDA ones it is traced and compiled at first use into a functor at
+the store of the B1 / B2 route the call takes (``ops/codegen.py``, see
+:func:`kernel_code`), and one it cannot translate raises.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from gemm_hls_tpu_torch.ops import codegen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,13 +112,11 @@ def get_epilogue(epilogue) -> Epilogue:
                     f"got {type(epilogue).__name__}")
 
 
-def kernel_code(ep: Epilogue) -> int:
-    """The kernel's ``EpKind`` of ``ep``; raises for a callable, which no
-    compiled kernel can run (a card never silently runs it unfused)."""
+def kernel_code(ep: Epilogue):
+    """The kernel's ``EpKind`` of a registered ``ep``, or, for a Python
+    callable, a :class:`~gemm_hls_tpu_torch.ops.codegen.GeneratedEpilogue`
+    handle: the launch lowers it for its route, types and layout and builds
+    its functor at first use (a card never runs a callable unfused)."""
     if ep.code is None and not ep.rows:
-        raise NotImplementedError(
-            f"epilogue {ep.name!r} is a Python callable, which the CUDA "
-            f"kernels cannot run; pass a registered epilogue "
-            f"({', '.join(available_epilogues())}) or CPU tensors (ROADMAP B"
-            f" coverage item 5: callable epilogues -> generated functor)")
+        return codegen.GeneratedEpilogue(ep.fn, ep.name)
     return ep.code or 0

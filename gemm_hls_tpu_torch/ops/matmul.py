@@ -6,10 +6,13 @@ Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
   (``ops/mxu.py``; float64 on the FP64 tensor cores, int16 and the
   unsigned ints on the CUDA cores), differentiable through
   :class:`_MxuPadded` / :class:`_MxuBatched`, whose backward is B1 / B2
-  again; with a fused ``epilogue``, through :class:`_MxuEpilogue`.  int64
-  plus_times raises TypeError, as in the JAX package.
+  again; with a fused ``epilogue``, through :class:`_MxuEpilogue` (a
+  Python callable epilogue compiled at first use into a functor at the
+  store, ``ops/codegen.py``).  int64 plus_times raises TypeError, as in
+  the JAX package.
 * bool ``or_and``                -> B1 / B2 on int8 -> int32 counts.
-* any other semiring             -> kernel B3 (``ops/vpu.py``), 2-D or batched.
+* any other semiring             -> kernel B3 (``ops/vpu.py``), 2-D or batched;
+  a user-defined one through a functor generated from its map and reduce.
 * ``backend="vpu"``              -> B3 for every semiring, bool ``or_and``
   bit-packed (the JAX package's ``backend="pallas-vpu"``).
 * ``backend="torch"``            -> the plain PyTorch versions (the JAX
@@ -40,8 +43,8 @@ from gemm_hls_tpu_torch.config import (
     KERNEL_TILES, GemmConfig, default_config, dtype_name, kernel_route,
     round_up, torch_dtype,
 )
-from gemm_hls_tpu_torch.ops import int8_slices, mxu, tropical_grad, vpu
-from gemm_hls_tpu_torch.ops.epilogue import get_epilogue, kernel_code
+from gemm_hls_tpu_torch.ops import codegen, int8_slices, mxu, tropical_grad, vpu
+from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
 from gemm_hls_tpu_torch.ops.semiring import Semiring, get_semiring
 
 _BACKENDS = ("cuda", "vpu", "torch")
@@ -220,8 +223,13 @@ def _mxu_with_epilogue(a, b, cfg: GemmConfig, epilogue, ep_operands,
         raise ValueError("epilogue fusion is not supported with the "
                          "int8-slice precision tiers")
     ep = get_epilogue(epilogue)
-    if not (a.device.type == "cpu" and b.device.type == "cpu"):
-        kernel_code(ep)  # a callable is refused off the CPU, never unfused
+    if (ep.code is None and not ep.rows and not (a.is_cuda and b.is_cuda)
+            and not (a.device.type == "cpu" and b.device.type == "cpu")):
+        # A callable runs as it is on the CPU and compiles into a functor
+        # for CUDA (the launch lowers it); no other device runs it unfused.
+        raise NotImplementedError(
+            f"callable epilogues run on CPU tensors or compile for CUDA ones, "
+            f"not on {a.device} / {b.device} ({codegen.ITEM})")
     eps = _check_ep_operands(b, cfg, ep_operands)
     if (ep.code is not None or ep.rows) and len(eps) != ep.n_operands:
         raise ValueError(f"epilogue {ep.name!r} takes {ep.n_operands} "
@@ -424,8 +432,11 @@ def matmul(
         registry name of ``ops/epilogue.py`` ("bias", "bias_relu",
         "bias_sigmoid", "bias_tanh", "bias_gelu", "col_scale", "scale_bias",
         "softmax"), an :class:`~gemm_hls_tpu_torch.ops.epilogue.Epilogue`, or
-        a callable ``f(acc_f32, *operands)``.  A callable runs on CPU tensors only: on
-        CUDA it raises NotImplementedError (no compiled functor).
+        a per-element callable ``f(acc, *operands)`` of up to four operands
+        (``acc`` in the accumulator dtype).  A callable runs as it is on CPU
+        tensors; on CUDA ones it is traced and compiled at first use into a
+        functor at the store of the call's route (``ops/codegen.py``; one it
+        cannot translate raises NotImplementedError, never runs unfused).
         Differentiable: the backward recomputes the accumulator and pulls
         the cotangent back through ``torch.func.vjp`` of the epilogue, or
         uses ``epilogue_bwd``.

@@ -5,11 +5,13 @@ the engine, ``csrc/row_softmax.cu``) and their plain PyTorch version.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
-epilogue (``ops/epilogue.py``).  A CUDA tensor launches a kernel or raises;
-a CPU tensor runs :func:`mxu_matmul_plain`.  Operands are passed in their
-physical layout with the transpose flags and, batched, with their batch
-stride: no transpose is materialised and a 2-D operand broadcast over the
-batch is never copied.
+epilogue (``ops/epilogue.py``): a registered one in the library, a Python
+callable as a functor generated for the call's route, type and layout
+(``ops/codegen.py``) at the same store.  A CUDA tensor launches a kernel
+or raises; a CPU tensor runs :func:`mxu_matmul_plain`.  Operands are passed
+in their physical layout with the transpose flags and, batched, with their
+batch stride: no transpose is materialised and a 2-D operand broadcast over
+the batch is never copied.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from gemm_hls_tpu_torch.config import (
     ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, named_route,
     row_softmax_fusable,
 )
+from gemm_hls_tpu_torch.ops import codegen
 from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
 
 # Largest M the kernels' grid takes (gridDim.y <= 65535 blocks of 128 rows).
@@ -218,6 +221,8 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     reference's int32 sum (:func:`_int32_matmul`).  float64 is
     ``torch.matmul`` in float64."""
     _mnk(a, b, transpose_a, transpose_b)
+    if a.is_cuda:
+        mxu_matmul_plain.cuda_calls += 1
     a_l = a.transpose(-1, -2) if transpose_a else a
     b_l = b.transpose(-1, -2) if transpose_b else b
     acc = cfg.tacc_dtype
@@ -256,10 +261,13 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         raise ValueError(f"{what} takes 1 <= M <= {_MAX_M} and "
                          f"1 <= N, K < 2^31, got ({m}, {n}, {k})")
     code = 0 if epilogue is None else kernel_code(epilogue)
-    if epilogue is not None and epilogue.n_operands != len(eps):
+    gen = code if isinstance(code, codegen.GeneratedEpilogue) else None
+    if gen is not None:
+        code = 0
+    elif epilogue is not None and epilogue.n_operands != len(eps):
         raise ValueError(f"epilogue {epilogue.name!r} takes "
                          f"{epilogue.n_operands} operands, got {len(eps)}")
-    if code and not a.dtype.is_floating_point and any(
+    if (code or gen) and not a.dtype.is_floating_point and any(
             e.dtype != torch.float32 for e in eps):
         # The kernel widens the int32 accumulator to fp32 for the epilogue:
         # the plain version's int32 + fp32 promotes the same way, while an
@@ -286,9 +294,18 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
     else:
         rule = mxu_route(a.dtype, ta, tb, aligned)
     route = named_route(route, rule, what)
-    out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     ops, ep_dt = _ep_operands(eps, n, a.device, wide=route == "dmma")
-    ptrs = [e.data_ptr() for e in ops] + [None] * (2 - len(ops))
+    fn = None
+    if gen is not None:
+        # The functor sees each operand in its own type where the kernel's
+        # read of it is exact (f32 / bf16 / fp16; float64 on dmma), as the
+        # plain version's promotion does; lowered, and any refusal raised,
+        # before its library is looked up.
+        kept = _EP_DTYPES + ((torch.float64,) if route == "dmma" else ())
+        fn = codegen.epilogue_kernel(
+            gen.fn, route, a.dtype, cfg.tacc_dtype,
+            [e.dtype if e.dtype in kept else ep_dt for e in eps], ta, tb, gen.name)
+    out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     # The CUDA-core and float64 tiles store every type; the tensor-core
     # tiles (the engine, WMMA) and the row softmax the base five (ROADMAP B
     # coverage item 17).
@@ -299,8 +316,12 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         stream = torch.cuda.current_stream().cuda_stream
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, n, k,
                 lda, ldb, sa, sb, int(ta), int(tb))
-        ep_args = (code, *ptrs, _build.dtype_code(ep_dt, wide), stream)
-        if rows and route == "wgmma":
+        # The registered epilogues read two operands, a generated one four.
+        ptrs = [e.data_ptr() for e in ops] + [None] * (codegen.MAX_OPERANDS - len(ops))
+        ep_args = (code, *ptrs[:2], _build.dtype_code(ep_dt, wide), stream)
+        if fn is not None:
+            rc = fn(*args, vec_a, vec_b, *codes, *ptrs, *ep_args[3:])
+        elif rows and route == "wgmma":
             rc = lib.row_softmax_wgmma(*args, *codes, stream)
         elif rows:
             rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
@@ -312,6 +333,8 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
             rc = lib.mxu_gemm(*args, vec_a, vec_b, *codes, *ep_args)
     _build.check(rc, what)
     route_launches[route, dtype_name(a.dtype)] += 1
+    if fn is not None:
+        generated_launches[route, dtype_name(a.dtype)] += 1
     if rows:
         mxu_matmul_batched.row_softmax_route = route
     else:
@@ -396,3 +419,9 @@ mxu_matmul_batched.row_softmax_route = None
 # dtype): the kernel source each reached, "dmma" csrc/dmma_gemm.cu and
 # ("simt", "int16" / "uint8" / "uint16" / "uint32") csrc/mxu_simt_int.cu.
 route_launches = collections.Counter()
+# The same for the launches with a generated epilogue (a Python callable,
+# ops/codegen.py: the route's tile in a library of its own).
+generated_launches = collections.Counter()
+# Plain-version calls on CUDA tensors (the front door's backend="torch", or
+# a comparison): a callable epilogue on the card never falls back to it.
+mxu_matmul_plain.cuda_calls = 0

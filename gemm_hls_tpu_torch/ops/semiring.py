@@ -6,9 +6,13 @@ numpy oracles (copied, since importing the JAX package pulls in jax).
 
 C[i,j] = reduce_k map(A[i,k], B[k,j]).  Only ``plus_times`` (and bool
 ``or_and``, by exact int8 counting) rides the tensor cores; every other
-semiring runs on the CUDA-core kernel ``csrc/semiring_gemm.cu``, which
-implements each built-in as a functor selected by ``op_code``.  A
-registered semiring without an ``op_code`` runs only on the plain path.
+semiring runs on the CUDA-core kernel B3 (``csrc/semiring_gemm.cu`` and its
+per-type sources), which implements each built-in as a functor selected by
+``op_code``.  A user semiring (``op_code`` None) runs B3's tile too: its
+``map_op`` and ``reduce_op`` are traced and compiled at first use into a
+functor of its own (``ops/codegen.py``), with ``identity_for`` as its
+identity; one whose ops the functor cannot express raises
+NotImplementedError on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ class Semiring:
       reduce_axis: ``f(x, dim)`` axis reduction matching ``reduce_op``
         (None: balanced fold of ``reduce_op``).
       absorbing: (pad_a, pad_b) with ``map(pad_a, pad_b) == identity``.
-      op_code: functor index in ``csrc/semiring_gemm.cu`` (None: no kernel).
+      op_code: functor index in ``csrc/semiring_gemm.cu`` (None: a
+        generated functor, ``ops/codegen.py``).
     """
 
     name: str

@@ -7,7 +7,11 @@ the TPU entry it takes whole, unpadded operands (the kernel masks M, N and
 the K tail itself), the transpose flags (read through strides) and a batch
 axis: 3-D operands, or one 3-D and one 2-D operand broadcast over the batch
 through a batch stride of 0, run in one launch.  A CUDA tensor launches the
-kernel or raises; a CPU tensor runs :func:`vpu_matmul_plain`.
+kernel or raises; a CPU tensor runs :func:`vpu_matmul_plain`.  A built-in
+semiring runs its functor in the library (``op_code``); a user-defined one
+(``op_code`` None) runs a functor generated from its map and reduce
+(``ops/codegen.py``), built at first use into a library of its own for the
+call's input type: the same tile, the same checks, no plain fallback.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from gemm_hls_tpu_torch import _build
 from gemm_hls_tpu_torch.config import GemmConfig, dtype_name
+from gemm_hls_tpu_torch.ops import codegen
 from gemm_hls_tpu_torch.ops.mxu import (
     _INT_MAX, _MAX_M, _dims, _row_major, _strides, batched_dims,
 )
@@ -51,6 +56,8 @@ def vpu_matmul_plain(a, b, *, cfg: GemmConfig, sr: Semiring,
     """Plain version: a K-chunked broadcast map / reduce in the accumulator
     dtype, its mapped intermediate bounded to [B x] M x ck x N elements."""
     bsz, m, n, k = _shape(a, b, transpose_a, transpose_b)
+    if a.is_cuda:
+        vpu_matmul_plain.cuda_calls += 1
     acc_dtype = cfg.tacc_dtype
     # ``.to`` first: a uint16 / uint32 CUDA tensor takes few other ops.
     a_l = (a.transpose(-1, -2) if transpose_a else a).to(acc_dtype)
@@ -77,11 +84,6 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
                                 transpose_b=transpose_b)
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if sr.op_code is None:
-        raise NotImplementedError(
-            f"semiring {sr.name!r} has no CUDA functor; custom semirings run "
-            f"on CPU tensors or backend='torch' until their JIT lands "
-            f"(ROADMAP B coverage item 5: custom-semiring JIT)")
     if a.dtype != b.dtype:
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if a.dtype not in _KERNEL_DTYPES:
@@ -104,27 +106,38 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
     if min(m, n, k) < 1 or m > _MAX_M or max(n, k) > _INT_MAX:
         raise ValueError(f"kernel B3 takes 1 <= M <= {_MAX_M} and "
                          f"1 <= N, K < 2^31, got ({m}, {n}, {k})")
+    # A user semiring's functor, lowered (and any refusal raised) before
+    # anything is allocated or built.
+    gen = (None if sr.op_code is not None
+           else codegen.semiring_kernel(sr, a.dtype, cfg.tacc_dtype))
     a, b = _row_major(a), _row_major(b)
     (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     lead = () if bsz is None else (bsz,)
     out = torch.empty(lead + (m, n), dtype=out_dtype, device=a.device)
-    lib = _build.library()
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1 if bsz is None else bsz,
+            m, n, k, lda, ldb, sa, sb, int(transpose_a), int(transpose_b),
+            _build.dtype_code(a.dtype, True), _build.dtype_code(out_dtype, True))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.semiring_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               1 if bsz is None else bsz, m, n, k, lda,
-                               ldb, sa, sb,
-                               int(transpose_a), int(transpose_b),
-                               _build.dtype_code(a.dtype, True),
-                               _build.dtype_code(out_dtype, True), sr.op_code,
-                               stream)
+        if gen is None:
+            rc = _build.library().semiring_gemm(*args, sr.op_code, stream)
+        else:
+            rc = gen(*args, stream)
     _build.check(rc, f"semiring_gemm[{sr.name}]")
     vpu_matmul.launches += 1
-    vpu_matmul.dtype_launches[dtype_name(a.dtype)] += 1
+    if gen is None:
+        vpu_matmul.dtype_launches[dtype_name(a.dtype)] += 1
+    else:
+        vpu_matmul.generated_launches[dtype_name(a.dtype)] += 1
     return out
 
 
 # Kernel launches since the count was last reset (plain calls not counted),
-# and the same by input dtype (each type's semiring_*.cu instantiation).
+# and the same by input dtype: the built-in semirings' (each type's
+# semiring_*.cu instantiation) and the user semirings' generated functors.
 vpu_matmul.launches = 0
 vpu_matmul.dtype_launches = collections.Counter()
+vpu_matmul.generated_launches = collections.Counter()
+# Plain-version calls on CUDA tensors (the front door's backend="torch", or
+# a comparison): a custom semiring on the card never falls back to it.
+vpu_matmul_plain.cuda_calls = 0

@@ -7,7 +7,10 @@ XLA's compilation cache.  The port's is ``_build.py``'s kernel library: one
 shared library of every ``csrc/`` kernel, built by ``nvcc`` at first use
 and named by a hash of the sources and flags
 (``libgemm_hls_kernels_<hash>.so``, beside its build log), in the
-package's gitignored ``build/``.  This module points the build at another
+package's gitignored ``build/``, and beside it the libraries of user
+semirings and callable epilogues (``ops/codegen.py``:
+``libgemm_hls_gen_<hash>.so``, named by a hash of the generated text, with
+its source and log).  This module points the build at another
 directory for this process, and packages and unpackages that directory as
 a tarball, so another machine with the same sources loads the library with
 no ``nvcc``.  A library whose hash does not match the sources is never
@@ -55,7 +58,8 @@ def cache_dir() -> Optional[str]:
 
 def package(archive_path: str, cache_dir_: Optional[str] = None) -> str:
     """Tar the build directory (default: the one this process builds into)
-    for another machine (``build_manager.py package``)."""
+    for another machine (``build_manager.py package``): the kernel library
+    and the generated ones alike."""
     d = Path(cache_dir_ or _enabled_dir or _build.BUILD_DIR)
     if not d.is_dir():
         raise FileNotFoundError(f"no kernel build at {d}")

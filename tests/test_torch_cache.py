@@ -1,8 +1,9 @@
 """The port's kernel-build cache (``gemm_hls_tpu_torch/tools/cache.py``) on
 the CPU: a package / unpackage round trip of a fake hashed library, which
 then loads with no nvcc, and one whose hash does not match the sources,
-which is never loaded.  The real library's round trip runs on the card
-(``chip_smoke.py`` phase 26d)."""
+which is never loaded; the generated libraries of user semirings and
+callable epilogues (``ops/codegen.py``) likewise.  The real libraries'
+round trips run on the card (``chip_smoke.py`` phases 26d and 31a)."""
 
 import tarfile
 
@@ -63,3 +64,47 @@ def test_enable_persistent_cache_defaults(build_dir, tmp_path):
     assert _build.library_path().parent == tmp_path / "default"
     with pytest.raises(FileNotFoundError):
         cache.package(str(tmp_path / "x.tar.gz"), str(tmp_path / "nothing"))
+
+
+def test_generated_libraries_travel_with_the_cache(build_dir, tmp_path, monkeypatch):
+    import torch
+
+    from gemm_hls_tpu_torch import Semiring
+    from gemm_hls_tpu_torch.ops import codegen
+
+    src = codegen.semiring_source(
+        Semiring("plus_max", torch.maximum, torch.add, 0, None, None), torch.float32,
+        torch.float32)
+    gen = _build.generated_path(src)
+    assert gen.parent == build_dir and gen.name.startswith("libgemm_hls_gen_")
+    gen.write_bytes(b"\x7fELF fake generated functor")
+    gen.with_suffix(".log").write_text("== gen_x.cu: 2.0 s, rc 0\n")
+    archive = cache.package(str(tmp_path / "kernels.tar.gz"))
+    with tarfile.open(archive) as tar:
+        assert {gen.name, gen.with_suffix(".log").name} <= set(tar.getnames())
+    target = tmp_path / "unpacked"
+    cache.unpackage(archive, str(target))
+    loaded = []
+
+    class FakeLib:
+        def __init__(self, path):
+            loaded.append(path)
+
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            fn.name = name
+            return fn
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(_build, "_generated", {})
+    monkeypatch.setattr(_build, "_generated_fns", {})
+    before = _build.generated_builds
+    fn = _build.generated_library(src, codegen.SEMIRING_ENTRY)
+    # Found in the unpackaged directory under the text's hash: no nvcc.
+    assert loaded == [str(target / gen.name)] and fn.name == codegen.SEMIRING_ENTRY
+    assert fn.argtypes == _build.GENERATED_ARGTYPES[codegen.SEMIRING_ENTRY]
+    assert _build.generated_builds == before
+    assert _build.generated_library(src, codegen.SEMIRING_ENTRY) is not None
+    assert len(loaded) == 1  # a second lookup in the process loads nothing
+    with pytest.raises(RuntimeError, match="nvcc was called"):
+        _build.generated_library(src.replace("plus_max", "other"), codegen.SEMIRING_ENTRY)

@@ -161,8 +161,14 @@ def test_unknown_epilogue_name():
 
 
 def test_callable_epilogue_refused_off_the_cpu():
-    # A callable has no compiled code: any device other than the CPU (the
-    # card included) raises, never running it unfused.
+    # What stays refused since callables compile for the card
+    # (ops/codegen.py): one the functor cannot express raises, naming the op,
+    # before any build; and a device with neither the plain path nor a
+    # compiler (meta) raises, never running it unfused.
+    from gemm_hls_tpu_torch.ops import codegen
+
+    with pytest.raises(NotImplementedError, match="'softmax'.*ROADMAP B coverage item 5"):
+        codegen.lower_epilogue(lambda acc: torch.softmax(acc, -1), torch.float32, [])
     a = torch.ones(8, 16, device="meta")
     b = torch.ones(16, 128, device="meta")
     with pytest.raises(NotImplementedError, match="callable epilogues"):

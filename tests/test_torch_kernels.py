@@ -189,14 +189,26 @@ def test_unported_requests_raise(cuda, request_):
         assert mxu.route_launches["dmma", "float64"] - before == 1
         assert got.dtype == torch.float64 and torch.equal(got, torch.full_like(got, 8.0))
         return
-    if request_ == "custom":
-        kw["semiring"] = Semiring(name="lambda", map_op=torch.add,
-                                  reduce_op=torch.minimum, identity=float("inf"),
-                                  np_map=np.add, np_reduce=np.minimum)
-    elif request_ == "epilogue":
-        # A Python callable has no compiled functor: refused, never unfused.
-        kw["epilogue"] = lambda acc: acc
-    elif request_ == "interpret":
+    if request_ in ("custom", "epilogue"):
+        # Landed with the generated functors (ops/codegen.py): a user
+        # semiring runs B3, a callable epilogue B1, each compiled at first
+        # use into a library of its own, one generated launch.
+        before = (sum(vpu.vpu_matmul.generated_launches.values()),
+                  sum(mxu.generated_launches.values()))
+        if request_ == "custom":
+            got = matmul(a, a, semiring=Semiring(
+                name="lambda", map_op=torch.add, reduce_op=torch.minimum,
+                identity=float("inf"), np_map=np.add, np_reduce=np.minimum))
+            want = torch.full_like(got, 2.0)
+        else:
+            got = matmul(a, a, epilogue=lambda acc: acc * 0.5 - 1)
+            want = torch.full_like(got, 3.0)
+        after = (sum(vpu.vpu_matmul.generated_launches.values()),
+                 sum(mxu.generated_launches.values()))
+        assert after[request_ == "epilogue"] - before[request_ == "epilogue"] == 1
+        assert torch.equal(got, want)
+        return
+    if request_ == "interpret":
         kw["interpret"] = True
     if request_ == "ozaki_distributed":
         # Landed with the distributed CA-GEMM (ROADMAP A7's GEMM half): it
@@ -1402,3 +1414,48 @@ def test_int64_plus_times_raises_on_the_card(cuda):
         matmul(a, a.T.contiguous())
     with pytest.raises(TypeError, match="int64 plus_times"):
         mxu.mxu_matmul(a, a, cfg=default_config(torch.int64), transpose_b=True)
+
+
+# ---- slice 22: user semirings and callable epilogues (generated functors) --
+
+@pytest.mark.parametrize("case", chip_smoke.GEN_B3_CASES, ids=str)
+def test_generated_b3_cases_match_plain(cuda, case):
+    chip_smoke.gen_b3_case(torch, _gen(2201), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.GEN_EPILOGUE_CASES, ids=str)
+def test_generated_epilogue_cases_match_plain(cuda, case):
+    chip_smoke.gen_epilogue_case(torch, _gen(2202), case)
+
+
+def test_generated_user_max_plus_is_the_builtin_bit_for_bit(cuda):
+    gen = _gen(2203)
+    a = chip_smoke.wide_operand(torch, gen, 300, 257, torch.float32, "edge")
+    b = chip_smoke.wide_operand(torch, gen, 257, 130, torch.float32, "edge")
+    got = matmul(a, b, semiring=chip_smoke.user_semirings()["user_max_plus"])
+    assert torch.equal(got.isnan(), matmul(a, b, semiring="max_plus").isnan())
+    ok = ~got.isnan()
+    assert torch.equal(got[ok], matmul(a, b, semiring="max_plus")[ok])
+
+
+def test_generated_epilogue_gradient_matches_plain_autograd(cuda):
+    gen = _gen(2204)
+    silu = chip_smoke.user_epilogues()["silu_bias"][0]
+    xs = [chip_smoke.signed(torch, s, torch.float32, gen) for s in ((130, 67), (67, 200), (200,))]
+    got = [t.clone().requires_grad_() for t in xs]
+    ref = [t.clone().requires_grad_() for t in xs]
+    cot = chip_smoke.signed(torch, (130, 200), torch.float32, gen)
+    before = sum(mxu.generated_launches.values())
+    matmul(got[0], got[1], epilogue=silu, epilogue_operands=(got[2],)).backward(cot)
+    assert sum(mxu.generated_launches.values()) - before == 1
+    torch.nn.functional.silu(torch.matmul(ref[0], ref[1]) + ref[2]).backward(cot)
+    for g_, w_ in zip(got, ref):
+        chip_smoke.compare(torch, g_.grad, w_.grad, 1e-4, "callable gradient", scaled=True)
+
+
+def test_untranslatable_callable_raises_on_the_card(cuda):
+    a = torch.ones(8, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="'amax'.*ROADMAP B coverage item 5"):
+        matmul(a, a, epilogue=lambda acc: acc - acc.amax(-1, keepdim=True))
+    with pytest.raises(NotImplementedError, match="yields bool"):
+        matmul(a, a, semiring=Semiring("cmp", lambda x, y: x > y, torch.add, 0, None, None))

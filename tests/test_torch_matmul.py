@@ -177,8 +177,9 @@ def test_unported_requests_name_roadmap(request_):
 
     a = torch.ones(8, 8)
     if request_ == "epilogue":
-        # A callable epilogue off the CPU (here on the meta device; on CUDA
-        # alike) has no compiled functor.
+        # A callable epilogue on a device with neither the plain path nor a
+        # compiler (the meta device; on CUDA it compiles into a functor,
+        # ops/codegen.py) raises.
         a = a.to("meta")
         call = lambda: matmul(a, torch.ones(8, 8, device="meta"),  # noqa: E731
                               epilogue=lambda acc, bias: acc + bias,
