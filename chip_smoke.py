@@ -287,9 +287,10 @@ Phases, each printed as it ends:
      process.  Phase 13's FLASH_ROUTE_CASES hold the forward's fp32 output
      (``out_dtype=torch.float32``) on both 16-bit routes.
  30. slice 21, every operand type of B1 - B3: WIDE_B1_CASES (float64 on
-     ``csrc/dmma_gemm.cu`` in four layouts, dense, pitched and odd-pitched
-     operands, ragged K, every epilogue, broadcast and a batch past
-     gridDim.z, +-inf / NaN; int16 and the unsigned ints on
+     dmma in four layouts, dense, pitched and odd-pitched operands, the
+     tile checked each since slice 23: ``csrc/dmma_tma.cu`` where aligned,
+     ``csrc/dmma_gemm.cu`` else; ragged K, every epilogue, broadcast and a
+     batch past gridDim.z, +-inf / NaN; int16 and the unsigned ints on
      ``csrc/mxu_simt_int.cu``; int8's extremes on its tensor-core routes;
      the route checked each) and WIDE_B3_CASES (every semiring of each
      type's ``csrc/semiring_<type>.cu``, the extremes, odd K and pitches,
@@ -323,6 +324,28 @@ Phases, each printed as it ends:
      K-major with an fp32 operand, and a callable's gradient at fp32
      2048^3 against plain autograd; (d) the generated kernels timed in
      turns beside the built-ins, their plain versions and bounds.
+ 32. slice 23, float64 at the card's FP64 rates: DMMA_TMA_CASES (B1 / B2
+     float64 on ``csrc/dmma_tma.cu``, the TMA tile: four layouts, M and N off
+     the tile, K 1 / 3 / 17 / 200, 1 x 1 x 1, a batch of 70000, broadcast,
+     every epilogue, +-inf / NaN, float32 output; the tile checked each, as
+     phase 30f's WIDE_B1_CASES now check theirs: their odd pitches on
+     ``csrc/dmma_gemm.cu``) and F64_GATE_CASES (B3 float64 on its tile,
+     every min / max semiring on slices holding +inf only, -inf only, both,
+     NaN, and an infinity beside a zero, the form each slice ran counted
+     against ``ops.vpu.num_gate``) against the plain versions, bit for bit
+     for B3, and a user float64 semiring; then, counts set to 0 before and
+     read after, the main path: (a) float64 ``matmul`` at 8192^3 on the TMA
+     tile against the plain version, at 2048^3 in four layouts against
+     numpy (rtol 1e-9), batched 16 x 1024^3 with bias_gelu and scale_bias,
+     the gradient at 4096^3 (three TMA launches), a callable relu(acc + b)
+     at 2048^3, and an unaligned 4097 x 4095 x 4093 product on the cp.async
+     tile; (b) B3 min_plus float64 at 4096^3 and float64
+     ``all_pairs_shortest_paths`` at n = 4096 on a sparse adjacency (+inf
+     off the edges) against the plain squarings, exact, its slices on the
+     Num form; then (c) the times in turns: B1 float64 on both tiles beside
+     ``torch.matmul`` at 8192^3, 4096^3, 2048^3 and 16 x 1024^3, B3 float64
+     under each semiring at 4096^3 beside its bound (min_plus also on
+     +inf-holding operands), float64 APSP beside fp32 APSP.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -972,6 +995,7 @@ def reset_counters():
     mxu.mxu_matmul_batched.launches = 0
     mxu.mxu_matmul_batched.row_softmax_launches = 0
     mxu.route_launches.clear()
+    mxu.dmma_tile_launches.clear()
     vpu.vpu_matmul.launches = 0
     vpu.vpu_matmul.dtype_launches.clear()
     vpu.vpu_matmul.generated_launches.clear()
@@ -6944,15 +6968,38 @@ def wide_b1_operands(torch, gen, case):
                            transpose_b=tb, epilogue=ep)
 
 
+def aligned_case(case):
+    """Whether a WIDE_B1_CASES-form case's operands, as ``wide_operand``
+    makes them, have the 16-byte bases, row pitches and batch strides a TMA
+    map describes: pitched rows always, dense rows of whole 16-byte units,
+    odd-pitched views never."""
+    dt, ta, tb, bsz, m, n, k, layout, bcast = (case[0], case[2], case[3], case[4], *case[5:8],
+                                               case[9], case[10])
+    if layout != "dense":
+        return layout == "pitched"
+    size = {"float64": 8, "float32": 4, "int64": 8, "uint32": 4, "int32": 4}.get(dt, 2)
+    size = 1 if dt in ("int8", "uint8") else size
+    rows = (m if ta else k, k if tb else n)
+    ok = all(cols * size % 16 == 0 for cols in rows)
+    if bsz is not None:  # each 3-D operand's batch stride
+        elems = [(k * m, "a"), (n * k, "b")]
+        ok = ok and all(e * size % 16 == 0 for e, w in elems if bcast != w)
+    return ok
+
+
 def wide_b1_case(torch, gen, case):
     """One WIDE_B1_CASES case on B1 (batch None) or B2 against the plain
-    version, the route checked; returns the largest abs error."""
+    version, the route (and, for float64, the tile of ``ops.mxu.dmma_tile``)
+    checked; returns the largest abs error."""
     from gemm_hls_tpu_torch.ops import mxu
-    a, b, eps, kw = wide_b1_operands(torch, gen, case)
+    a, b, eps, kw = wide_b1_operands(torch, gen, case[:13])
     fn = mxu.mxu_matmul if case[4] is None else mxu.mxu_matmul_batched
     got = fn(a, b, *eps, **kw)
-    if fn.last_route != case[-1]:
+    if fn.last_route != case[12]:
         raise AssertionError(f"B1 / B2 {case}: route {fn.last_route}")
+    tile = mxu.dmma_tile(aligned_case(case)) if case[12] == "dmma" else None
+    if fn.last_dmma_tile != tile:
+        raise AssertionError(f"B1 / B2 {case}: float64 tile {fn.last_dmma_tile}, not {tile}")
     rtol = wide_rtol(torch, got.dtype, False)
     return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol,
                    f"B1 / B2 {case}", scaled=True)[0]
@@ -7040,6 +7087,7 @@ def phase_slice21(torch):
     got = matmul(a, b)
     if mxu.mxu_matmul.last_route != "dmma":
         raise AssertionError(f"30a: float64 {n}^3 on {mxu.mxu_matmul.last_route}")
+    tile30 = mxu.mxu_matmul.last_dmma_tile
     cfg64 = default_config(torch.float64)
     plain64 = mxu.mxu_matmul_plain(a, b, cfg=cfg64)
     err_a = compare(torch, got, plain64, 1e-9, f"30a float64 {n}^3", scaled=True)
@@ -7140,7 +7188,7 @@ def phase_slice21(torch):
         ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"], max_abs_err=err_a[0],
         bound=H100.bound(2.0 * n ** 3, H100.peak_for("float64"), 3 * n * n * e64),
         oracle_2048_scaled_rel=oracle_err, batched_max_abs_err=batched_err,
-        grad_max_abs_err=grad_err)
+        grad_max_abs_err=grad_err, tile=tile30)
     for (dt, sr), (x, y, cfg) in b3_ops.items():
         sem = get_semiring(sr)
         t = event_turns(torch, {"kernel": lambda: vpu.vpu_matmul(x, y, cfg=cfg, sr=sem)},
@@ -7387,35 +7435,39 @@ def front(fn):
 
 
 def phase31_specs(torch):
-    """(source, entry) of every generated library phase 31 runs: its case
-    tables' and its main path's, as the front door derives them."""
-    from gemm_hls_tpu_torch.ops import codegen, vpu
+    """(source, entry) of every generated library phases 31 and 32 run:
+    their case tables' and main paths', as the front door derives them."""
+    from gemm_hls_tpu_torch.ops import codegen, mxu, vpu
     from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
     b3 = {(c[0], c[1]) for c in GEN_B3_CASES} | {
         ("plus_max", "float32"), ("user_max_plus", "float32"), ("user_log", "float32"),
-        ("plus_max", "int8")}
-    eps = {(c[0], c[-1], c[1], c[3], c[4]) for c in GEN_EPILOGUE_CASES} | {
-        ("silu_bias", "wgmma", "bfloat16", False, False),
-        ("relu_bias", "wgmma", "bfloat16", False, False),
-        ("relu_bias", "wmma", "bfloat16", False, False),
-        ("relu_bias", "simt", "float32", False, False),
-        ("relu_bias", "dmma", "float64", False, False),
-        ("clamp2", "wgmma", "bfloat16", False, False),
-        ("relu_bias", "wgmma", "int8", False, True),
-        ("silu_bias", "simt", "float32", False, False)}
+        ("plus_max", "int8"), ("user_max_plus", "float64")}
+    # (callable, route, dtype, ta, tb, float64 tile): the tile as the route
+    # rule picks it (the main path's 2048^3 float64 operands are aligned).
+    eps = {(c[0], c[-1], c[1], c[3], c[4],
+            mxu.dmma_tile(aligned_case((c[1], c[2], *c[3:9], "rand", *c[9:11])))
+            if c[-1] == "dmma" else None) for c in GEN_EPILOGUE_CASES} | {
+        ("silu_bias", "wgmma", "bfloat16", False, False, None),
+        ("relu_bias", "wgmma", "bfloat16", False, False, None),
+        ("relu_bias", "wmma", "bfloat16", False, False, None),
+        ("relu_bias", "simt", "float32", False, False, None),
+        ("relu_bias", "dmma", "float64", False, False, "tma"),
+        ("clamp2", "wgmma", "bfloat16", False, False, None),
+        ("relu_bias", "wgmma", "int8", False, True, None),
+        ("silu_bias", "simt", "float32", False, False, None)}
     specs = {}
     for name, dt in sorted(b3):
         dtype = getattr(torch, dt)
         spec = codegen.semiring_spec(user_semirings()[name], dtype, vpu._KERNEL_DTYPES[dtype])
         specs[spec[0]] = spec
-    for name, route, dt, ta, tb in sorted(eps):
+    for name, route, dt, ta, tb, tile in sorted(eps, key=str):
         dtype = getattr(torch, dt)
         fn, count = user_epilogues()[name]
         acc = {torch.float64: torch.float64}.get(dtype, torch.float32
                                                  if dtype.is_floating_point else torch.int32)
         odt = dtype if dtype.is_floating_point else torch.float32
         spec = codegen.epilogue_spec(fn, route, dtype, acc, [odt] * count, ta, tb,
-                                     get_epilogue(fn).name)
+                                     get_epilogue(fn).name, tile)
         specs[spec[0]] = spec
     return list(specs.values())
 
@@ -7727,6 +7779,386 @@ def phase_slice22(torch, builds):
     return {"launches": launches, "readings": readings}
 
 
+# ---------------------------------------------------------------------------
+# Slice 23: float64 at the card's FP64 rates (phase 32): B1 / B2's TMA tile
+# (csrc/dmma_tma.cu) and B3's float64 tile (csrc/simt_gemm.cuh)
+# ---------------------------------------------------------------------------
+
+# B1 / B2 float64 on the TMA tile: WIDE_B1_CASES' form, every case aligned
+# (aligned_case), so the tile is "tma" (tests/test_torch_kernels.py and
+# tests/test_torch_f64_tiles.py parametrise it too).  The four layouts,
+# pitched (ragged M, N, K) and dense; K 1, 3, 17 and 200 (off the 16-deep
+# slice); 1 x 1 x 1 (pitched); a batch of 70000; a broadcast 2-D a / b;
+# every epilogue; bias_gelu and scale_bias batched with A transposed; +-inf
+# and NaN; float32 output; several tiles a block (1000 x 1030 x 1100).
+DMMA_TMA_CASES = (
+    [("float64", "float64", ta, tb, None, 300, 520, 136, "rand", lay, None, None, "dmma")
+     for ta, tb in LAYOUTS for lay in ("pitched", "dense")]
+    + [("float64", "float64", ta, tb, None, 129, 257, k, "rand", "pitched", None, None, "dmma")
+       for (ta, tb), k in zip(LAYOUTS, (1, 3, 17, 200))]
+    + [("float64", "float64", False, False, None, 1, 1, 1, "rand", "pitched", None, None,
+        "dmma"),
+       ("float64", "float64", True, True, None, 1000, 1030, 1100, "rand", "pitched", None,
+        None, "dmma"),
+       ("float64", "float64", False, True, 70_000, 3, 8, 8, "rand", "dense", None, None, "dmma"),
+       ("float64", "float64", False, False, 5, 130, 264, 200, "rand", "pitched", "a", None,
+        "dmma"),
+       ("float64", "float64", True, True, 5, 130, 264, 200, "rand", "pitched", "b", None,
+        "dmma"),
+       ("float64", "float64", False, False, None, 64, 72, 100, "edge", "dense", None, None,
+        "dmma"),
+       ("float64", "float32", True, False, None, 300, 520, 136, "rand", "dense", None, None,
+        "dmma")]
+    + [("float64", "float64", False, False, None, 300, 520, 136, "rand", "dense", None, ep,
+        "dmma") for ep in EPILOGUES]
+    + [("float64", "float64", True, False, 3, 130, 264, 66, "rand", "pitched", None, ep, "dmma")
+       for ep in ("bias_gelu", "scale_bias")]
+)
+# B3 float64's Num gate: (semiring, fill).  fill: "pos_inf" (+inf in 3% of
+# A and of B), "neg_inf" (-inf), "both" (+inf in A, -inf in B), "nan" (NaN
+# in A), "inf_zero" (+inf in A, exact zeros in B); 3% of a block's 128 x 16
+# slice is ~60 values, so every slice of every block holds them and takes
+# the form ``ops.vpu.num_gate`` names for the whole operands.
+F64_GATE_FILLS = ("pos_inf", "neg_inf", "both", "nan", "inf_zero")
+F64_GATE_CASES = tuple((sr, fill) for sr in ("min_plus", "max_plus", "max_min", "min_max",
+                                               "max_times") for fill in F64_GATE_FILLS)
+F64_GATE_SHAPE = (256, 384, 320)  # M, N, K: 2 x 3 blocks, 20 full slices each
+# The race check of the TMA tile: each (M, N, K, ta, tb) launched
+# DMMA_TMA_REPEATS times, the same bits each and the first against plain
+# (the stage release once let a refill overwrite fragments in flight).
+DMMA_TMA_REPEAT_CASES = ((8192, 8192, 8192, False, False), (8192, 8192, 8192, False, True),
+                         (4096, 4096, 4096, False, False), (4096, 4096, 4096, False, True),
+                         (4096, 4096, 4096, True, False), (4096, 4096, 4096, True, True),
+                         (3968, 4224, 4112, False, False))
+DMMA_TMA_REPEATS = 100
+# The main path's shapes (phase 32).
+SLICE23 = dict(f64=8192, oracle=2048, batched=(16, 1024), grad=4096, ep=2048,
+               unaligned=(4097, 4095, 4093), b3=4096, apsp=4096, times=(8192, 4096, 2048),
+               log_plus=2048)
+
+
+def f64_gate_operands(torch, gen, fill, m, n, k):
+    """(a, b) of an F64_GATE_CASES fill: U(-1, 1) float64 with 3% of the
+    values replaced."""
+    a = torch.rand((m, k), generator=gen, device="cuda", dtype=torch.float64) * 2 - 1
+    b = torch.rand((k, n), generator=gen, device="cuda", dtype=torch.float64) * 2 - 1
+    inf, nan = float("inf"), float("nan")
+    va, vb = {"pos_inf": (inf, inf), "neg_inf": (-inf, -inf), "both": (inf, -inf),
+              "nan": (nan, None), "inf_zero": (inf, 0.0)}[fill]
+    for x, v in ((a, va), (b, vb)):
+        if v is not None:
+            x[torch.rand(x.shape, generator=gen, device="cuda") < 0.03] = v
+    return a, b
+
+
+def f64_gate_case(torch, gen, case):
+    """One F64_GATE_CASES case on B3 float64 against the plain version, bit
+    for bit, and the slices' forms against ``num_gate``; returns the form
+    that ran ("num" or "nan_keeping")."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import vpu
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+    sr, fill = case
+    m, n, k = F64_GATE_SHAPE
+    a, b = f64_gate_operands(torch, gen, fill, m, n, k)
+    kw = dict(cfg=default_config(torch.float64, semiring=sr), sr=get_semiring(sr))
+    vpu.f64_slice_forms(reset=True)
+    got = vpu.vpu_matmul(a, b, **kw)
+    fast, slow = vpu.f64_slice_forms(reset=True)
+    compare(torch, got, vpu.vpu_matmul_plain(a, b, **kw), 0.0, f"B3 float64 gate {case}")
+    want = vpu.num_gate(sr, a, b)
+    if (want and (slow or not fast)) or (not want and (fast or not slow)):
+        raise AssertionError(f"B3 float64 gate {case}: slices {fast} Num / {slow} NaN-keeping, "
+                             f"num_gate says {want}")
+    return "num" if want else "nan_keeping"
+
+
+def dmma_tma_repeats(torch, gen, repeats=DMMA_TMA_REPEATS):
+    """DMMA_TMA_REPEAT_CASES on the TMA tile, ``repeats`` launches each: the
+    same bits every launch, the first within rtol 1e-9 of the plain
+    version."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import mxu
+    cfg = default_config(torch.float64)
+    for m, n, k, ta, tb in DMMA_TMA_REPEAT_CASES:
+        a = signed(torch, (k, m) if ta else (m, k), torch.float64, gen)
+        b = signed(torch, (n, k) if tb else (k, n), torch.float64, gen)
+        kw = dict(cfg=cfg, transpose_a=ta, transpose_b=tb)
+        first = mxu.mxu_matmul(a, b, **kw)
+        if mxu.mxu_matmul.last_dmma_tile != "tma":
+            raise AssertionError(f"32f repeats {m, n, k, ta, tb}: tile {mxu.mxu_matmul.last_dmma_tile}")
+        compare(torch, first, mxu.mxu_matmul_plain(a, b, **kw), 1e-9,
+                f"32f repeats {m, n, k, ta, tb}", scaled=True)
+        for i in range(repeats - 1):
+            if not torch.equal(mxu.mxu_matmul(a, b, **kw), first):
+                raise AssertionError(f"32f repeats {m, n, k, ta, tb}: launch {i + 2} differs")
+
+
+def apsp_adjacency(torch, gen, n, dtype):
+    """Phase 11e's sparse graph: integer weights 1-9 on ~4 edges a node,
+    +inf off the edges (every path sum exact)."""
+    w = torch.randint(1, 10, (n, n), generator=gen, device="cuda").to(dtype)
+    keep = torch.rand((n, n), generator=gen, device="cuda") < 4.0 / n
+    return torch.where(keep, w, torch.full_like(w, float("inf")))
+
+
+def ptxas_report(log_text, fragment):
+    """{entry function: its registers and spill line} of the library log's
+    entries whose name contains ``fragment``."""
+    out, entry = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else None
+        elif entry and fragment in entry and ("registers" in ln or "spill" in ln):
+            out.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def phase_slice23(torch, lib_log):
+    """Phase 32: slice 23's float64 tiles.  The case tables first
+    (DMMA_TMA_CASES, F64_GATE_CASES, a user float64 semiring); then, launch
+    counts set to 0 just before and read just after, the main path through
+    the front door: (a) B1 / B2 float64 on the TMA tile (8192^3, 2048^3 in
+    four layouts against numpy, batched with epilogues, the gradient, a
+    callable epilogue) and on the cp.async tile (an unaligned product); (b)
+    B3 min_plus float64 at 4096^3 and float64 APSP at n = 4096; then (c)
+    the times in turns.  Returns the readings for the kernels line."""
+    import numpy as np
+
+    from gemm_hls_tpu_torch import matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models import graph
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import mxu, vpu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+
+    t_start = time.perf_counter()
+    f64 = torch.float64
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    if not all(aligned_case(c) for c in DMMA_TMA_CASES):
+        raise AssertionError("32f: a DMMA_TMA_CASES case is not aligned")
+    worst = max(wide_b1_case(torch, gen, c) for c in DMMA_TMA_CASES)
+    log(f"phase 32f: B1 / B2 float64 TMA-tile cases, {len(DMMA_TMA_CASES)} (four layouts, "
+        f"ragged M / N / K, K 1 / 3 / 17 / 200, 1 x 1 x 1, batch 70000, broadcast, every "
+        f"epilogue, +-inf / NaN, float32 out), route dmma and tile tma checked each: ok (worst "
+        f"abs err {worst:.3e})")
+    dmma_tma_repeats(torch, gen)
+    log(f"phase 32f: the TMA tile's race check, {DMMA_TMA_REPEATS} launches each of "
+        + ", ".join(f"{m}x{n}x{k} {'t' if ta else 'n'}{'t' if tb else 'n'}"
+                    for m, n, k, ta, tb in DMMA_TMA_REPEAT_CASES)
+        + ": the same bits, the first vs plain within 1e-9")
+    forms = {c: f64_gate_case(torch, gen, c) for c in F64_GATE_CASES}
+    log("phase 32f: B3 float64 gate cases, bit for bit vs plain, the form each slice ran "
+        "counted and equal to num_gate's: "
+        + ", ".join(f"{sr} {fill} {form}" for (sr, fill), form in forms.items()))
+    user = user_semirings()["user_max_plus"]
+    for fill in ("pos_inf", "nan"):
+        a, b = f64_gate_operands(torch, gen, fill, *F64_GATE_SHAPE)
+        before = vpu.vpu_matmul.generated_launches["float64"]
+        got = matmul(a, b, semiring=user)
+        if vpu.vpu_matmul.generated_launches["float64"] != before + 1:
+            raise AssertionError("32f: the user float64 semiring was not one generated launch")
+        compare(torch, got, vpu.vpu_matmul_plain(
+            a, b, cfg=default_config(f64, semiring="max_plus"), sr=user), 0.0,
+            f"32f user max_plus float64 {fill}")
+    log("phase 32f: a user float64 max_plus (generated, launch_simt_f64) with +inf and with "
+        "NaN operands vs plain: bit for bit")
+
+    # ---- the main path ------------------------------------------------------
+    reset_counters()
+    vpu.f64_slice_forms(reset=True)
+    t0 = time.perf_counter()
+    cfg64 = default_config(f64)
+
+    def on_tile(what, fn, tile, launches=1):
+        before = mxu.dmma_tile_launches[tile]
+        out = fn()
+        if mxu.dmma_tile_launches[tile] - before != launches:
+            raise AssertionError(f"32a {what}: not {launches} launch(es) on the {tile} tile "
+                                 f"({dict(mxu.dmma_tile_launches)})")
+        return out
+
+    n = SLICE23["f64"]
+    a, b = signed(torch, (n, n), f64, gen), signed(torch, (n, n), f64, gen)
+    got = on_tile(f"{n}^3", lambda: matmul(a, b), "tma")
+    err_a = compare(torch, got, mxu.mxu_matmul_plain(a, b, cfg=cfg64), 1e-9,
+                    f"32a float64 {n}^3", scaled=True)
+    del got
+    no = SLICE23["oracle"]
+    oracle = {}
+    for ta, tb in LAYOUTS:
+        x, y = signed(torch, (no, no), f64, gen), signed(torch, (no, no), f64, gen)
+        got = on_tile(f"{no}^3 {ta, tb}", lambda: matmul(x, y, transpose_a=ta, transpose_b=tb),
+                      "tma")
+        xn, yn = x.cpu().numpy(), y.cpu().numpy()
+        want = torch.from_numpy((xn.T if ta else xn) @ (yn.T if tb else yn)).cuda()
+        oracle[f"{'t' if ta else 'n'}{'t' if tb else 'n'}"] = compare(
+            torch, got, want, 1e-9, f"32a float64 {no}^3 {ta, tb} vs numpy", scaled=True)[1]
+    bsz, nb = SLICE23["batched"]
+    xb, yb = signed(torch, (bsz, nb, nb), f64, gen), signed(torch, (bsz, nb, nb), f64, gen)
+    s_, bias = signed(torch, (nb,), f64, gen), signed(torch, (nb,), f64, gen)
+    batched = {}
+    for ep, ops in (("bias_gelu", (bias,)), ("scale_bias", (s_, bias))):
+        got = on_tile(ep, lambda: matmul(xb, yb, epilogue=ep, epilogue_operands=ops), "tma")
+        batched[ep] = compare(torch, got, mxu.mxu_matmul_plain(
+            xb, yb, *ops, cfg=cfg64, epilogue=get_epilogue(ep)), 1e-9, f"32a {ep}",
+            scaled=True)[0]
+    ng = SLICE23["grad"]
+    xg = signed(torch, (ng, ng), f64, gen).requires_grad_()
+    yg = signed(torch, (ng, ng), f64, gen).requires_grad_()
+    cot = signed(torch, (ng, ng), f64, gen)
+    on_tile("gradient", lambda: matmul(xg, yg).backward(cot), "tma", launches=3)
+    xp, yp = xg.detach().clone().requires_grad_(), yg.detach().clone().requires_grad_()
+    torch.matmul(xp, yp).backward(cot)
+    grad = [compare(torch, g_, w_, 1e-9, f"32a d{nm}", scaled=True)[0]
+            for nm, g_, w_ in (("a", xg.grad, xp.grad), ("b", yg.grad, yp.grad))]
+    del xg, yg, xp, yp, cot
+    ne = SLICE23["ep"]
+    relu = user_epilogues()["relu_bias"][0]
+    xe, ye, be = (signed(torch, s, f64, gen) for s in ((ne, ne), (ne, ne), (ne,)))
+    before = mxu.generated_launches["dmma", "float64"]
+    got = on_tile("callable epilogue", lambda: matmul(xe, ye, epilogue=relu,
+                                                      epilogue_operands=(be,)), "tma")
+    if mxu.generated_launches["dmma", "float64"] != before + 1:
+        raise AssertionError("32a: the callable float64 epilogue was not a generated launch")
+    ep_err = compare(torch, got, mxu.mxu_matmul_plain(
+        xe, ye, be.reshape(1, -1), cfg=cfg64, epilogue=get_epilogue(relu)), 1e-9,
+        "32a relu(acc + b) float64", scaled=True)[0]
+    mu, nu, ku = SLICE23["unaligned"]
+    xu, yu = signed(torch, (mu, ku), f64, gen), signed(torch, (ku, nu), f64, gen)
+    got = on_tile(f"{mu}x{nu}x{ku}", lambda: matmul(xu, yu), "cp_async")
+    err_u = compare(torch, got, mxu.mxu_matmul_plain(xu, yu, cfg=cfg64), 1e-9,
+                    f"32a float64 {mu}x{nu}x{ku}", scaled=True)[0]
+    del got
+    log(f"phase 32a: float64 {n}^3 on the TMA tile vs plain: max abs err {err_a[0]:.3e}, "
+        f"scaled rel {err_a[1]:.3e}; {no}^3 in four layouts vs numpy, scaled rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in oracle.items())
+        + f"; batched {bsz} x {nb}^3 " + ", ".join(f"{k} {v:.3e}" for k, v in batched.items())
+        + f"; gradient {ng}^3 (3 launches) dA {grad[0]:.3e}, dB {grad[1]:.3e}; relu(acc + b) "
+        f"{ne}^3 {ep_err:.3e}; {mu} x {nu} x {ku} on the cp.async tile {err_u:.3e}")
+
+    nb3 = SLICE23["b3"]
+    sem = get_semiring("min_plus")
+    cfg_mp = default_config(f64, semiring="min_plus")
+    xm, ym = signed(torch, (nb3, nb3), f64, gen), signed(torch, (nb3, nb3), f64, gen)
+    got = matmul(xm, ym, semiring="min_plus")
+    b3_err = compare(torch, got, vpu.vpu_matmul_plain(xm, ym, cfg=cfg_mp, sr=sem), 0.0,
+                     f"32b min_plus float64 {nb3}^3")[0]
+    del got
+    fin_forms = vpu.f64_slice_forms(reset=True)
+    na = SLICE23["apsp"]
+    adj = apsp_adjacency(torch, gen, na, f64)
+    b3_before = vpu.vpu_matmul.dtype_launches["float64"]
+    dist = graph.all_pairs_shortest_paths(adj)
+    squarings = vpu.vpu_matmul.dtype_launches["float64"] - b3_before
+    apsp_forms = vpu.f64_slice_forms(reset=True)
+    want = graph.all_pairs_shortest_paths(
+        adj, matmul_fn=lambda x, y: vpu.vpu_matmul_plain(x, y, cfg=cfg_mp, sr=sem))
+    compare(torch, dist, want, 0.0, f"32b float64 APSP n={na}")
+    del dist, want
+    if fin_forms[1] or not fin_forms[0] or apsp_forms[1] or not apsp_forms[0]:
+        raise AssertionError(f"32b: B3 float64 slices off the Num form: finite {fin_forms}, "
+                             f"APSP {apsp_forms} (Num, NaN-keeping)")
+    log(f"phase 32b: min_plus float64 {nb3}^3 vs plain bit for bit ({fin_forms[0]} slices, "
+        f"all Num); float64 APSP n={na} ({squarings} B3 launches, +inf off ~4 edges a node) "
+        f"vs the plain squarings: exact, {apsp_forms[0]} slices all on the Num form")
+    launches = dict(counters(), routes=dict(mxu.route_launches),
+                    tiles=dict(mxu.dmma_tile_launches),
+                    b3_dtypes=dict(vpu.vpu_matmul.dtype_launches))
+    log(f"phase 32: main-path launches {launches}")
+    if (not mxu.dmma_tile_launches["tma"] or not mxu.dmma_tile_launches["cp_async"]
+            or not vpu.vpu_matmul.dtype_launches["float64"]):
+        raise AssertionError(f"phase 32: a kernel of the path was not launched: {launches}")
+    main_s = time.perf_counter() - t0
+
+    # ---- (c) times, in turns on CUDA events (comparison launches) ----------
+    readings = {}
+    e64 = 8
+    for nt in SLICE23["times"]:
+        x, y = (a, b) if nt == n else (signed(torch, (nt, nt), f64, gen),
+                                       signed(torch, (nt, nt), f64, gen))
+        t = event_turns(torch, {
+            "tma": lambda: mxu.mxu_matmul(x, y, cfg=cfg64),
+            "cp_async": lambda: mxu.mxu_matmul(x, y, cfg=cfg64, _dmma_tile="cp_async"),
+            "library": lambda: torch.matmul(x, y)})
+        readings[f"B1 {nt}^3"] = dict(t, bound=H100.bound(
+            2.0 * nt ** 3, H100.peak_for("float64"), 3 * nt * nt * e64))
+    t = event_turns(torch, {
+        "tma": lambda: mxu.mxu_matmul_batched(xb, yb, cfg=cfg64),
+        "cp_async": lambda: mxu.mxu_matmul_batched(xb, yb, cfg=cfg64, _dmma_tile="cp_async"),
+        "library": lambda: torch.matmul(xb, yb)})
+    readings[f"B2 {bsz}x{nb}^3"] = dict(t, bound=H100.bound(
+        2.0 * bsz * nb ** 3, H100.peak_for("float64"), 3 * bsz * nb * nb * e64))
+    t = event_turns(torch, {"cp_async": lambda: mxu.mxu_matmul(xu, yu, cfg=cfg64),
+                            "library": lambda: torch.matmul(xu, yu)})
+    readings[f"B1 {mu}x{nu}x{ku}"] = dict(t, bound=H100.bound(
+        2.0 * mu * nu * ku, H100.peak_for("float64"), (mu * ku + ku * nu + mu * nu) * e64))
+    plain_b1 = event_turns(torch, {"plain": lambda: mxu.mxu_matmul_plain(a, b, cfg=cfg64)},
+                           rounds=1)["plain"]
+    for key, r in readings.items():
+        bound_ms = r["bound"][0] * 1e3
+        log(f"phase 32c: B1 / B2 float64 {key}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in r.items() if k != "bound")
+            + f"; bound {bound_ms:.3f} ms ({r['bound'][1]})"
+            + (f", the TMA tile {bound_ms / r['tma']:.1%} of it, "
+               f"{r['tma'] / r['library']:.3f}x torch.matmul" if "tma" in r else ""))
+    del a, b, xb, yb, xu, yu
+
+    b3 = {}
+    half_inf = xm.clone()
+    half_inf[torch.rand(xm.shape, generator=gen, device="cuda") < 0.5] = float("inf")
+    for sr in B3_SEMIRINGS:
+        nt = SLICE23["log_plus"] if sr == "log_plus" else nb3
+        x, y = (xm, ym) if nt == nb3 else (xm[:nt, :nt], ym[:nt, :nt])
+        cfg = default_config(f64, semiring=sr)
+        srf = get_semiring(sr)
+        fns = {"kernel": lambda: vpu.vpu_matmul(x, y, cfg=cfg, sr=srf)}
+        if sr == "min_plus":
+            fns["kernel +inf"] = lambda: vpu.vpu_matmul(half_inf, y, cfg=cfg, sr=srf)
+        t = event_turns(torch, fns, rounds=3, iters=1 if sr == "log_plus" else 2)
+        b3[sr] = dict(t, n=nt, bound=H100.bound(2.0 * nt ** 3, H100.vpu_ops_for("float64", sr),
+                                                3 * nt * nt * e64))
+    vpu.f64_slice_forms(reset=True)
+    plain_b3 = event_turns(torch, {"plain": lambda: vpu.vpu_matmul_plain(
+        xm, ym, cfg=cfg_mp, sr=sem)}, rounds=1, iters=1)["plain"]
+    for sr, r in b3.items():
+        bound_ms = r["bound"][0] * 1e3
+        log(f"phase 32c: B3 float64 {sr} {r['n']}^3: {r['kernel']:.3f} ms"
+            + (f" (A half +inf: {r['kernel +inf']:.3f} ms, "
+               f"{r['kernel +inf'] / r['kernel']:.3f}x)" if "kernel +inf" in r else "")
+            + f", bound {bound_ms:.3f} ms, {bound_ms / r['kernel']:.1%} of it")
+    # A time under its bound means the bound counts work the function does
+    # not need.
+    over = [f"{key} {k}" for key, r in readings.items() for k in ("tma", "cp_async")
+            if k in r and r[k] < r["bound"][0] * 1e3]
+    over += [f"B3 {sr} {k}" for sr, r in b3.items() for k in ("kernel", "kernel +inf")
+             if k in r and r[k] < r["bound"][0] * 1e3]
+    if over:
+        raise AssertionError(f"32c: faster than the bound: {over}")
+    if b3["min_plus"]["kernel +inf"] > 1.2 * b3["min_plus"]["kernel"]:
+        raise AssertionError("32c: min_plus float64 on +inf-holding operands past 1.2x finite")
+    adj32 = adj.float()
+    t = event_turns(torch, {"float64": lambda: graph.all_pairs_shortest_paths(adj),
+                            "float32": lambda: graph.all_pairs_shortest_paths(adj32)},
+                    rounds=3, iters=1)
+    apsp = dict(float64_ms=t["float64"], float32_ms=t["float32"], squarings=squarings)
+    log(f"phase 32c: APSP n={na}, CUDA events in turns: float64 {t['float64']:.3f} ms, "
+        f"float32 {t['float32']:.3f} ms ({squarings} squarings each)")
+    del xm, ym, half_inf, adj, adj32
+    torch.cuda.empty_cache()
+
+    ptxas = {**ptxas_report(lib_log, "dmma_tma_kernel"), **ptxas_report(lib_log, "simt_f64")}
+    log(f"phase 32: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
+    return {"launches": launches, "b1": readings, "b3": b3, "apsp": apsp, "ptxas": ptxas,
+            "plain_b1_ms": plain_b1, "plain_b3_ms": plain_b3, "b3_max_abs_err": b3_err,
+            "b1_err": dict(max_abs_err=err_a[0], oracle_2048_scaled_rel=oracle,
+                           batched_max_abs_err=batched, grad_max_abs_err=grad,
+                           callable_epilogue_max_abs_err=ep_err, unaligned_max_abs_err=err_u),
+            "forms": dict(finite=fin_forms, apsp=apsp_forms,
+                          gate={f"{sr} {fill}": f for (sr, fill), f in forms.items()})}
+
+
 def main() -> int:
     import torch
 
@@ -7761,7 +8193,8 @@ def main() -> int:
     _build.library()
     gen_s = builds.wait()
     spills, serialised, entry, w8_regs, rs_regs, nvcc_s = [], set(), "", [], [], {}
-    for ln in lib_path.with_suffix(".log").read_text().splitlines():
+    lib_log = lib_path.with_suffix(".log").read_text()
+    for ln in lib_log.splitlines():
         if ln.startswith("== ") and " s, rc " in ln:  # a source's compile seconds
             name, secs = ln[3:].split(": ", 1)
             nvcc_s[name] = float(secs.split(" s,")[0])
@@ -7788,7 +8221,13 @@ def main() -> int:
         + "\nphase 2: the row-softmax engine kernel (csrc/row_softmax_wgmma.cu), as ptxas "
           "reports it:" + "".join(f"\n  {x}" for x in rs_regs)
         + f"\nphase 2: nvcc seconds: row_softmax_wgmma.cu "
-          f"{nvcc_s.get('row_softmax_wgmma.cu')}, the slowest {slowest} {nvcc_s.get(slowest)}")
+          f"{nvcc_s.get('row_softmax_wgmma.cu')}, the slowest {slowest} {nvcc_s.get(slowest)}"
+        + "\nphase 2: the float64 tiles (csrc/dmma_tma.cu, nvcc "
+          f"{nvcc_s.get('dmma_tma.cu')} s; csrc/semiring_f64.cu, nvcc "
+          f"{nvcc_s.get('semiring_f64.cu')} s), as ptxas reports them:"
+        + "".join(f"\n  {k}: {v}" for k, v in {
+            **ptxas_report(lib_log, "dmma_tma_kernel"),
+            **ptxas_report(lib_log, "simt_f64")}.items()))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -7827,6 +8266,9 @@ def main() -> int:
     log(f"phase 29: {time.perf_counter() - t0:.1f} s")
     slice21 = phase_slice21(torch)
     slice22 = phase_slice22(torch, builds)
+    t0 = time.perf_counter()
+    slice23 = phase_slice23(torch, lib_log)
+    log(f"phase 32: {time.perf_counter() - t0:.1f} s")
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -8029,13 +8471,18 @@ def main() -> int:
     # its launches on phase 30's main path.
     r21, l21 = slice21["readings"], slice21["launches"]
     routes21, b3_dt = l21["routes"], l21["b3_dtypes"]
+    # Since slice 23 phase 30's aligned float64 operands run on the TMA tile:
+    # the entry is named after the tile that ran.
+    tma30 = r21["B1 float64"]["tile"] == "tma"
     kernels.append(kernel(
-        "dmma_gemm (B1 / B2 float64 on the FP64 tensor cores, 8192^3)",
-        "gemm_hls_tpu_torch/csrc/dmma_gemm.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        f"{'dmma_tma' if tma30 else 'dmma_gemm'} (B1 / B2 float64 on the FP64 tensor cores, "
+        "phase 30's 8192^3)",
+        "gemm_hls_tpu_torch/csrc/" + ("dmma_tma.cu" if tma30 else "dmma_gemm.cu"),
+        "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
         routes21.get(("dmma", "float64"), 0), r21["B1 float64"], r21["B1 float64"]["bound"],
         r21["B1 float64"]["library_ms"]))
     kernels[-1].update({k: r21["B1 float64"][k] for k in (
-        "oracle_2048_scaled_rel", "batched_max_abs_err", "grad_max_abs_err")})
+        "oracle_2048_scaled_rel", "batched_max_abs_err", "grad_max_abs_err", "tile")})
     kernels[-1]["library_note"] = "library_ms is float64 torch.matmul (cuBLAS DGEMM)"
     for dt in SLICE21_B1_INT:
         t = r21[f"B1 {dt}"]
@@ -8062,8 +8509,9 @@ def main() -> int:
         "user_max_plus_ms", "user_max_plus_plain_ms", "builtin_min_plus_ms",
         "builtin_max_plus_ms", "max_abs_err_by_semiring")},
         tile="gemm_hls_tpu_torch/csrc/simt_gemm.cuh")
+    # dmma's main-path shape is aligned: its library holds the TMA tile.
     tiles = {"wgmma": "mxu_wgmma.cuh", "wmma": "mxu_tc.cuh", "simt": "simt_gemm.cuh",
-             "dmma": "dmma_gemm.cuh"}
+             "dmma": "dmma_tma.cuh"}
     shapes = {"wgmma": "silu(acc + b), bf16 8192x4096 . 4096x16384",
               "wmma": "relu(acc + b), bf16 2048x1004 . 1004x2048",
               "simt": "relu(acc + b), fp32 2048^3", "dmma": "relu(acc + b), float64 2048^3"}
@@ -8079,6 +8527,48 @@ def main() -> int:
             tile=f"gemm_hls_tpu_torch/csrc/{tiles[route]}",
             library_note="library_ms is torch._addmm_activation (relu(b + x w)), "
                          "bias_relu_ms the registered bias_relu epilogue in the same turns")
+    # Slice 23 (phase 32): the float64 tiles, each with its launches on
+    # phase 32's main path, its time in turns beside the other tile and the
+    # library call, and its ptxas report.
+    r23, l23 = slice23["b1"], slice23["launches"]
+    t = r23["B1 8192^3"]
+    kernels.append(kernel(
+        "dmma_tma (B1 / B2 float64, the TMA tile: TMA ring, producer thread, two consumer "
+        "warpgroups on mma.sync m16n8k8 .f64, persistent blocks; 8192^3)",
+        "gemm_hls_tpu_torch/csrc/dmma_tma.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        l23["tiles"].get("tma", 0),
+        dict(ms=t["tma"], plain_ms=slice23["plain_b1_ms"], **slice23["b1_err"]),
+        t["bound"], t["library"]))
+    kernels[-1].update(
+        slice23["b1_err"], cp_async_tile_ms=t["cp_async"],
+        shapes_ms={k: {f: v for f, v in r.items() if f != "bound"} for k, r in r23.items()},
+        ptxas={k: v for k, v in slice23["ptxas"].items() if "dmma_tma" in k},
+        library_note="library_ms is float64 torch.matmul (cuBLAS DGEMM); cp_async_tile_ms the "
+                     "cp.async tile (csrc/dmma_gemm.cu) on the same operands in the same turns")
+    key = [k for k in r23 if "x" in k and "^3" not in k][0]
+    t = r23[key]
+    kernels.append(kernel(
+        f"dmma_gemm cp.async tile (B1 / B2 float64 where no TMA map describes the operands; "
+        f"{key[3:]})", "gemm_hls_tpu_torch/csrc/dmma_gemm.cu",
+        "gemm_hls_tpu/ops/pallas_mxu.py:69,143", l23["tiles"].get("cp_async", 0),
+        dict(ms=t["cp_async"], plain_ms=t["library"],
+             max_abs_err=slice23["b1_err"]["unaligned_max_abs_err"]),
+        t["bound"], t["library"]))
+    kernels[-1]["library_note"] = "library_ms is float64 torch.matmul (cuBLAS DGEMM)"
+    t = slice23["b3"]["min_plus"]
+    kernels.append(kernel(
+        "semiring_gemm float64 tile (B3 min_plus float64, cp.async ring, the Num form on "
+        "slices no NaN can come from; 4096^3)", "gemm_hls_tpu_torch/csrc/semiring_f64.cu",
+        "gemm_hls_tpu/ops/pallas_vpu.py:56", l23["b3_dtypes"].get("float64", 0),
+        dict(ms=t["kernel"], plain_ms=slice23["plain_b3_ms"],
+             max_abs_err=slice23["b3_max_abs_err"]), t["bound"],
+        None))
+    kernels[-1].update(
+        tile="gemm_hls_tpu_torch/csrc/simt_gemm.cuh", plus_inf_ms=t["kernel +inf"],
+        semirings_ms={sr: dict(ms=r["kernel"], n=r["n"], bound_ms=r["bound"][0] * 1e3)
+                      for sr, r in slice23["b3"].items()},
+        apsp_4096=slice23["apsp"], forms=slice23["forms"],
+        ptxas={k: v for k, v in slice23["ptxas"].items() if "simt_f64" in k})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

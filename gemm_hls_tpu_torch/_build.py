@@ -252,10 +252,13 @@ def _declare(lib):
     # B1 / B2 for float64 on the FP64 tensor cores: mxu_gemm's arguments.
     lib.dmma_gemm.restype = i32
     lib.dmma_gemm.argtypes = lib.mxu_gemm.argtypes
-    # B1 / B2 on the tile engine: mxu_gemm's arguments without the vector
-    # flags (its operands are aligned by the route's rule).
+    # B1 / B2 on the tile engine, and float64 on the TMA tile: mxu_gemm's
+    # arguments without the vector flags (their operands are aligned by the
+    # route's rule).
     lib.mxu_wgmma.restype = i32
     lib.mxu_wgmma.argtypes = gemm + [i32, i32, i32, vp, vp, i32, vp]
+    lib.dmma_tma_gemm.restype = i32
+    lib.dmma_tma_gemm.argtypes = lib.mxu_wgmma.argtypes
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     # B2's row softmax on the tile engine: (..., in_code, out_code, stream).
@@ -263,6 +266,9 @@ def _declare(lib):
     lib.row_softmax_wgmma.argtypes = gemm + [i32, i32, vp]
     lib.semiring_gemm.restype = i32
     lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, vp]
+    # B3 float64's slice forms: (unsigned long long[2] out, reset).
+    lib.semiring_f64_forms.restype = i32
+    lib.semiring_f64_forms.argtypes = [vp, i32]
     # (a slices, b^T slices, n_used, c, c2, ua, ub, M, N, K, lda, ldb,
     #  n_diags, flush_steps, vec, engine, stream)
     ptrs = ctypes.POINTER(vp)

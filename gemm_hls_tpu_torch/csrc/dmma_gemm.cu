@@ -45,10 +45,12 @@
 //
 // What bounds it on an H100: the FP64 tensor-core rate, 67e12 FLOP/s (data
 // sheet; 8192^3 is 1.1e12 FLOP, 16.4 ms), far above its bytes (three 512 MB
-// matrices at 3.35e12 B/s: 0.48 ms).  This simple design runs one block of
-// 8 warps a SM (64 doubles of accumulator a thread, 254 registers); deeper
-// reuse and more warps in flight are left for a later redesign.  Times:
-// PERF.md section 6.
+// matrices at 3.35e12 B/s: 0.48 ms).  This design runs one block of 8 warps
+// a SM (64 doubles of accumulator a thread, 254 registers), every warp
+// copying and meeting a block barrier each slice; the operands a TMA map
+// describes run on csrc/dmma_tma.cu instead (ops/mxu.py::dmma_tile), and
+// this tile keeps the rest (odd pitches, 8-byte bases).  Times: PERF.md
+// section 6.
 #include "dmma_gemm.cuh"
 
 using namespace gemm_hls;

@@ -777,6 +777,7 @@ constexpr int kTmaEncodeFailed = -2;
 inline CUtensorMapDataType tma_type(int esize, bool f16) {
   return esize == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
          : esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : esize == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
          : f16        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }

@@ -52,7 +52,7 @@ class ChipSpec:
         d = str(dtype).removeprefix("torch.")
         return self.peak_flops.get(d, self.peak_flops["float32"])
 
-    def vpu_ops_for(self, dtype) -> float:
+    def vpu_ops_for(self, dtype, semiring=None) -> float:
         """The generic-semiring rate (kernel B3) for ``dtype`` inputs, in
         2*M*N*K ops a second: ``vpu_ops`` for every type but float64, half
         of it for float64.  A term is a (map, reduce) pair: two fp32
@@ -62,10 +62,15 @@ class ChipSpec:
         with the min / max (``VIADDMNMX`` in the built min_plus kernels'
         SASS), the same term rate; two on 64 lanes for float64 (64-bit
         add, and compare and select: sm_90 has no float64 min / max
-        instruction).  Lanes a clock: the CUDA C++ Programming Guide's
-        arithmetic-throughput table, compute capability 9.0."""
+        instruction).  ``semiring="plus_times"`` on a floating type is one
+        fused multiply-add a term (FFMA, DFMA), so twice that rate (the
+        integers' IMAD keeps their one instruction a term).  Lanes a clock:
+        the CUDA C++ Programming Guide's arithmetic-throughput table,
+        compute capability 9.0."""
         d = str(dtype).removeprefix("torch.")
-        return self.vpu_ops / 2 if d == "float64" else self.vpu_ops
+        rate = self.vpu_ops / 2 if d == "float64" else self.vpu_ops
+        fused = semiring == "plus_times" and d in ("float64", "float32", "bfloat16", "float16")
+        return 2 * rate if fused else rate
 
     def bound(self, ops: float, peak: float, bytes_moved: float):
         """(seconds, "operations" | "bytes"): the least time the card could

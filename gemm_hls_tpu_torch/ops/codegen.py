@@ -559,7 +559,8 @@ def semiring_source(sr, in_dtype, acc_dtype) -> str:
     the functor ``step(acc, a, b) = reduce(acc, map(a, b))`` with identity
     ``sr.identity_for(acc_dtype)`` on ``csrc/simt_gemm.cuh``'s tile, and
     ``extern "C" gen_semiring_gemm`` with ``semiring_gemm``'s arguments
-    less the op code."""
+    less the op code; a float64 accumulator on the float64 tile
+    (``launch_simt_f64``)."""
     mp, rp = lower_semiring(sr, acc_dtype)
     act = _CTYPES[acc_dtype]
     m_lines, m_out = _Emitter(mp, "semiring", "m", ["a", "b"]).emit()
@@ -573,8 +574,12 @@ def semiring_source(sr, in_dtype, acc_dtype) -> str:
         + [f"    return {r_out};", "  }", "};"])
     ns = _ident(body)
     in_ct, in_code = _IN_TYPES[in_dtype]
+    # float64 runs on the tile of its own (launch_simt would reach it too).
+    f64 = acc_dtype == torch.float64
+    launch = "launch_simt_f64" if f64 else "launch_simt"
+    targs = f"{ns}::Semiring" if f64 else f"{in_ct}, {act}, {ns}::Semiring"
     return f"""// Generated by gemm_hls_tpu_torch/ops/codegen.py: kernel B3 (csrc/simt_gemm.cuh's
-// tile) with the user semiring {sr.name!r} on {dtype_name(in_dtype)} inputs, a
+// {'float64 ' if f64 else ''}tile) with the user semiring {sr.name!r} on {dtype_name(in_dtype)} inputs, a
 // {dtype_name(acc_dtype)} accumulator.
 #include "gen_ops.cuh"
 
@@ -592,8 +597,7 @@ extern "C" int {SEMIRING_ENTRY}(const void* a, const void* b, void* c, int64_t b
   if (in_code != {in_code}) return kUnsupported;
   const Gemm g{{a, b, c, M, N, K, lda, ldb, sa, sb, ta, tb, 0, 0, out_code,
                EpArgs{{nullptr, nullptr, 0, kEpNone}}}};
-  return launch_simt<{in_ct}, {act}, {ns}::Semiring>(g, batch,
-                                                     static_cast<cudaStream_t>(stream));
+  return {launch}<{targs}>(g, batch, static_cast<cudaStream_t>(stream));
 }}
 """
 
@@ -642,12 +646,14 @@ def _layout(route, in_dtype, transpose_a, transpose_b):
 
 
 def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
-                    transpose_b: bool) -> str:
+                    transpose_b: bool, tile=None) -> str:
     """The translation unit of one B1 / B2 route (``ops/mxu.py::mxu_route``:
     "wgmma", "wmma", "simt" or "dmma") for ``in_dtype`` inputs in one layout,
     with ``prog`` (``lower_epilogue``'s) as its store's epilogue functor, and
     ``extern "C" gen_epilogue_gemm`` with ``mxu_gemm``'s arguments, four
-    operand pointers in place of two and no epilogue kind."""
+    operand pointers in place of two and no epilogue kind.  "dmma" takes
+    its ``tile`` (``ops/mxu.py::dmma_tile``): "tma" (``dmma_tma.cuh``) or
+    "cp_async" (``dmma_gemm.cuh``, also where none is named)."""
     acc = prog.dtypes[0]
     act = _CTYPES[acc]
     ops = prog.dtypes[1:]
@@ -690,8 +696,12 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
         b_row = in_dtype.itemsize == 2 and not tb
         launch = f"{gemm}\n  return launch_tc_ep<{in_ct}, {str(b_row).lower()}>(g, batch, s, ep);"
     elif route == "dmma":
-        include = "dmma_gemm.cuh"
-        launch = (f"{gemm}\n  return launch_dmma_ep<{str(not ta).lower()}, "
+        tile = tile or "cp_async"
+        if tile not in ("tma", "cp_async"):
+            raise refuse(prog.what, f"float64 tile {tile!r}")
+        include, fn = (("dmma_tma.cuh", "launch_dmma_tma_ep") if tile == "tma"
+                       else ("dmma_gemm.cuh", "launch_dmma_ep"))
+        launch = (f"{gemm}\n  return {fn}<{str(not ta).lower()}, "
                   f"{str(tb).lower()}>(g, batch, s, ep);")
     elif route == "simt":
         include = "simt_gemm.cuh"
@@ -699,8 +709,9 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
                   f"(g, batch, s, ep);")
     else:
         raise refuse(prog.what, f"route {route!r} takes no generated epilogue")
+    tile_note = f" ({tile} tile)" if route == "dmma" else ""
     return f"""// Generated by gemm_hls_tpu_torch/ops/codegen.py: kernels B1 / B2 on the
-// {route!r} route for {dtype_name(in_dtype)} inputs ({_LAYOUT_NOTE[route](ta, tb)}), a
+// {route!r} route{tile_note} for {dtype_name(in_dtype)} inputs ({_LAYOUT_NOTE[route](ta, tb)}), a
 // {dtype_name(acc)} accumulator, and the Python callable epilogue {prog.what!r} on
 // {len(ops)} per-column operand(s) at the store.
 #include "{include}"
@@ -776,19 +787,19 @@ def epilogue_program(fn, acc_dtype, operand_dtypes, name="epilogue"):
 
 
 def epilogue_spec(fn, route, in_dtype, acc_dtype, operand_dtypes, transpose_a,
-                  transpose_b, name="epilogue"):
+                  transpose_b, name="epilogue", tile=None):
     """(source, entry) of the callable ``fn``'s library on ``route`` for one
-    input type and layout."""
+    input type and layout (and, on "dmma", one tile)."""
     prog = epilogue_program(fn, acc_dtype, operand_dtypes, name)
     ta, tb = _layout(route, in_dtype, transpose_a, transpose_b)
-    src = _cached(fn, ("src", route, in_dtype, acc_dtype, tuple(operand_dtypes), ta, tb),
-                  lambda: epilogue_source(prog, route, in_dtype, ta, tb))
+    src = _cached(fn, ("src", route, in_dtype, acc_dtype, tuple(operand_dtypes), ta, tb, tile),
+                  lambda: epilogue_source(prog, route, in_dtype, ta, tb, tile))
     return src, EPILOGUE_ENTRY
 
 
 def epilogue_kernel(fn, route, in_dtype, acc_dtype, operand_dtypes, transpose_a,
-                    transpose_b, name="epilogue"):
+                    transpose_b, name="epilogue", tile=None):
     """``gen_epilogue_gemm`` of the callable ``fn`` on ``route`` for one
-    input type and layout, built at first use."""
+    input type and layout (and float64 tile), built at first use."""
     return _build.generated_library(*epilogue_spec(
-        fn, route, in_dtype, acc_dtype, operand_dtypes, transpose_a, transpose_b, name))
+        fn, route, in_dtype, acc_dtype, operand_dtypes, transpose_a, transpose_b, name, tile))

@@ -1,7 +1,8 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
 (``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``, float64 on
-``csrc/dmma_gemm.cu``; B2's row softmax ``csrc/row_softmax_wgmma.cu`` on
-the engine, ``csrc/row_softmax.cu``) and their plain PyTorch version.
+``csrc/dmma_tma.cu`` or ``csrc/dmma_gemm.cu``; B2's row softmax
+``csrc/row_softmax_wgmma.cu`` on the engine, ``csrc/row_softmax.cu``) and
+their plain PyTorch version.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
@@ -151,8 +152,9 @@ def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str
     are ``aligned`` (16-byte bases, row pitches and batch strides whole
     16-byte units: what a TMA map describes); ``"wmma"``
     (``csrc/mxu_gemm.cu``'s tensor-core tile) for the other bf16 / fp16 /
-    int8 calls; ``"dmma"`` (``csrc/dmma_gemm.cu``: IEEE float64 on the FP64
-    tensor cores, any layout and alignment) for float64; ``"simt"`` (IEEE
+    int8 calls; ``"dmma"`` (IEEE float64 on the FP64 tensor cores, any
+    layout and alignment; its tile: :func:`dmma_tile`) for float64;
+    ``"simt"`` (IEEE
     fp32, or an int32 accumulator that wraps, on the CUDA cores) for fp32
     and int32, int16, uint8, uint16 and uint32.  B2's row softmax has kernels of its own
     (:func:`row_softmax_route`).  Chosen by shape, never as a fallback: a
@@ -160,6 +162,19 @@ def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str
     ``config.call_route``'s, whose "tc" tile is WMMA's."""
     route = call_route(dtype, "plus_times", transpose_a, transpose_b, aligned)
     return "wmma" if route == "tc" else route
+
+
+DMMA_TILES = ("tma", "cp_async")
+
+
+def dmma_tile(aligned: bool) -> str:
+    """The tile a float64 ("dmma") launch of B1 or B2 runs: ``"tma"``
+    (``csrc/dmma_tma.cu``: TMA loads, a producer thread and two consumer
+    warpgroups, persistent blocks) where the operands are ``aligned``
+    (16-byte bases, row pitches and batch strides: what a TMA map
+    describes), else ``"cp_async"`` (``csrc/dmma_gemm.cu``: any pitch, 8-byte
+    copies).  Chosen by shape, never as a fallback."""
+    return "tma" if aligned else "cp_async"
 
 
 # Deepest K the row softmax's engine route takes: its block holds the
@@ -238,13 +253,17 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     return out.to(cfg.tout_dtype)
 
 
-def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
+def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
+            dmma_tile_=None):
     """Launch B1 / B2 on CUDA operands: :func:`mxu_route`'s kernel (the row
     softmax: :func:`row_softmax_route`'s), or ``route`` where a caller names
     one; returns (bsz, M, N).  A call named to the tile engine that the
     route rule does not give the engine (unaligned operands, int8 not
     K-major, a row softmax past its bounds) raises: the engine's TMA maps
-    cannot describe it."""
+    cannot describe it.  float64 runs :func:`dmma_tile`'s tile;
+    ``dmma_tile_="cp_async"`` runs the cp.async tile on aligned operands
+    too (a comparison in turns), and naming the TMA tile for operands it
+    cannot describe raises."""
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype != b.dtype:
@@ -294,6 +313,13 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
     else:
         rule = mxu_route(a.dtype, ta, tb, aligned)
     route = named_route(route, rule, what)
+    tile = None
+    if route == "dmma":
+        tile = dmma_tile(aligned)
+        if dmma_tile_ not in (None, tile) and not (dmma_tile_ == "cp_async" and aligned):
+            raise ValueError(f"{what}: the {dmma_tile_!r} float64 tile cannot take "
+                             f"these operands (16-byte aligned: {aligned})")
+        tile = dmma_tile_ or tile
     ops, ep_dt = _ep_operands(eps, n, a.device, wide=route == "dmma")
     fn = None
     if gen is not None:
@@ -304,7 +330,8 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
         kept = _EP_DTYPES + ((torch.float64,) if route == "dmma" else ())
         fn = codegen.epilogue_kernel(
             gen.fn, route, a.dtype, cfg.tacc_dtype,
-            [e.dtype if e.dtype in kept else ep_dt for e in eps], ta, tb, gen.name)
+            [e.dtype if e.dtype in kept else ep_dt for e in eps], ta, tb, gen.name,
+            tile=tile)
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     # The CUDA-core and float64 tiles store every type; the tensor-core
     # tiles (the engine, WMMA) and the row softmax the base five (ROADMAP B
@@ -327,31 +354,40 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None):
             rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
         elif route == "wgmma":
             rc = lib.mxu_wgmma(*args, *codes, *ep_args)
+        elif route == "dmma" and tile == "tma":
+            rc = lib.dmma_tma_gemm(*args, *codes, *ep_args)
         elif route == "dmma":
             rc = lib.dmma_gemm(*args, vec_a, vec_b, *codes, *ep_args)
         else:
             rc = lib.mxu_gemm(*args, vec_a, vec_b, *codes, *ep_args)
+    if rc and tile == "tma":
+        what += (f" (float64 TMA tile: A {tuple(a.shape)} strides {a.stride()}, B "
+                 f"{tuple(b.shape)} strides {b.stride()}, ta {ta}, tb {tb})")
     _build.check(rc, what)
     route_launches[route, dtype_name(a.dtype)] += 1
     if fn is not None:
         generated_launches[route, dtype_name(a.dtype)] += 1
+    if tile is not None:
+        dmma_tile_launches[tile] += 1
     if rows:
         mxu_matmul_batched.row_softmax_route = route
     else:
-        (mxu_matmul if what == "kernel B1" else mxu_matmul_batched).last_route = route
+        entry = mxu_matmul if what == "kernel B1" else mxu_matmul_batched
+        entry.last_route, entry.last_dmma_tile = route, tile
     return out
 
 
 def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
                transpose_b=False, epilogue: Optional[Epilogue] = None,
-               route: Optional[str] = None):
+               route: Optional[str] = None, _dmma_tile: Optional[str] = None):
     """C (M, N) = epilogue(op(A) . op(B)) in ``cfg.out_dtype`` (kernel B1).
 
     a: (M, K), or (K, M) with ``transpose_a``; b: (K, N), or (N, K) with
     ``transpose_b``; ``ep_operands``: the epilogue's (N,) operands.  Shapes
     need not be tile-aligned: the kernel masks every edge itself.  The
     kernel is :func:`mxu_route`'s, recorded as ``mxu_matmul.last_route``;
-    ``route`` names one (a tuned winner, a comparison).  A whole-row
+    ``route`` names one (a tuned winner, a comparison).  float64 records
+    its tile (:func:`dmma_tile`) as ``mxu_matmul.last_dmma_tile``.  A whole-row
     epilogue (the row softmax) cannot run on B1's tiles, which
     split rows; it runs on B2's row-softmax variant with a batch of one.
     """
@@ -366,7 +402,7 @@ def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
                                   transpose_b=transpose_b,
                                   epilogue=epilogue, route=route)[0]
     out = _launch(a, b, ep_operands, 1, m, n, k, cfg, transpose_a,
-                  transpose_b, epilogue, "kernel B1", route)[0]
+                  transpose_b, epilogue, "kernel B1", route, _dmma_tile)[0]
     if epilogue is None:
         mxu_matmul.launches += 1
     else:
@@ -376,7 +412,7 @@ def mxu_matmul(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 
 def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
                        transpose_b=False, epilogue: Optional[Epilogue] = None,
-                       route: Optional[str] = None):
+                       route: Optional[str] = None, _dmma_tile: Optional[str] = None):
     """C (B, M, N) = epilogue(op(A[z]) . op(B[z])) in ``cfg.out_dtype``
     (kernel B2).
 
@@ -396,7 +432,7 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
                                 transpose_a=transpose_a,
                                 transpose_b=transpose_b, epilogue=epilogue)
     out = _launch(a, b, ep_operands, bsz, m, n, k, cfg, transpose_a,
-                  transpose_b, epilogue, "kernel B2", route)
+                  transpose_b, epilogue, "kernel B2", route, _dmma_tile)
     if epilogue is not None and epilogue.rows:
         mxu_matmul_batched.row_softmax_launches += 1
     else:
@@ -407,12 +443,15 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 # Kernel launches since the counts were last reset (plain calls not
 # counted): B1 without / with a per-column epilogue; B2 plain or with a
 # per-column epilogue; B2's row-softmax variant.  And the route of B1's, of
-# B2's and of B2's row softmax's last launch.
+# B2's and of B2's row softmax's last launch, and the float64 tile of B1's
+# and B2's last launch (None for the other types).
 mxu_matmul.launches = 0
 mxu_matmul.last_route = None
+mxu_matmul.last_dmma_tile = None
 mxu_matmul.epilogue_launches = 0
 mxu_matmul_batched.launches = 0
 mxu_matmul_batched.last_route = None
+mxu_matmul_batched.last_dmma_tile = None
 mxu_matmul_batched.row_softmax_launches = 0
 mxu_matmul_batched.row_softmax_route = None
 # Launches of B1 and B2 together (the row softmax's too) by (route, input
@@ -422,6 +461,9 @@ route_launches = collections.Counter()
 # The same for the launches with a generated epilogue (a Python callable,
 # ops/codegen.py: the route's tile in a library of its own).
 generated_launches = collections.Counter()
+# float64 launches of B1 and B2 by tile: "tma" csrc/dmma_tma.cu (or its
+# generated epilogue's library), "cp_async" csrc/dmma_gemm.cu.
+dmma_tile_launches = collections.Counter()
 # Plain-version calls on CUDA tensors (the front door's backend="torch", or
 # a comparison): a callable epilogue on the card never falls back to it.
 mxu_matmul_plain.cuda_calls = 0

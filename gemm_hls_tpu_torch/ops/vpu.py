@@ -1,5 +1,7 @@
 """Generic-semiring GEMM: the wrapper of kernel B3
-(``csrc/semiring_gemm.cu``) and its plain PyTorch version.
+(``csrc/semiring_gemm.cu``; float64 on the tile of its own in
+``csrc/simt_gemm.cuh``, with the Num form's gate :func:`num_gate`) and its
+plain PyTorch version.
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_vpu.py::vpu_matmul``, and of the
 ``jax.vmap`` over it that the JAX front door runs for 3-D operands.  Unlike
@@ -17,6 +19,7 @@ call's input type: the same tile, the same checks, no plain fallback.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -130,6 +133,44 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
     else:
         vpu_matmul.generated_launches[dtype_name(a.dtype)] += 1
     return out
+
+
+# The float64 tile's Num gate (csrc/semiring_ops.cuh: gate_sum,
+# gate_minmax, gate_product) by semiring: whether a K slice of the block's
+# operands lets no mapped value be NaN, so the one-compare form runs.
+NUM_GATES = {"min_plus": "sum", "max_plus": "sum", "max_min": "minmax",
+             "min_max": "minmax", "max_times": "product"}
+
+
+def num_gate(semiring: str, *slices):
+    """The float64 tile's verdict on a K slice whose in-bounds operand
+    values are ``slices`` (arrays or tensors): True where the semiring's
+    Num form runs (no NaN; for an added pair not both +inf and -inf; for a
+    product no infinity beside a zero), False where the NaN-keeping form
+    runs, None for a semiring without a Num form."""
+    kind = NUM_GATES.get(semiring)
+    if kind is None:
+        return None
+    vals = torch.cat([torch.as_tensor(x).reshape(-1).double() for x in slices])
+    if bool(torch.isnan(vals).any()):
+        return False
+    pos, neg = bool((vals == float("inf")).any()), bool((vals == float("-inf")).any())
+    if kind == "sum":
+        return not (pos and neg)
+    if kind == "product":
+        return not ((pos or neg) and bool((vals == 0).any()))
+    return True
+
+
+def f64_slice_forms(reset: bool = True):
+    """(Num slices, NaN-keeping slices) the library's float64 B3 tiles ran
+    since the last reset: full K slices of the min / max semirings, summed
+    over the blocks (``semiring_f64_forms``); ``reset`` sets both to 0.
+    Synchronises the card."""
+    out = (ctypes.c_ulonglong * 2)()
+    _build.check(_build.library().semiring_f64_forms(ctypes.addressof(out), int(reset)),
+                 "semiring_f64_forms")
+    return int(out[0]), int(out[1])
 
 
 # Kernel launches since the count was last reset (plain calls not counted),

@@ -9,9 +9,10 @@ memory.  A function is paired by its (mangled) name in the same source;
 one whose name changed (a template parameter added with a default) is
 paired with an unpaired function of the same source with the same report.
 The exit code is 0 when every function of the first log has an equal
-report in the second.
+report in the second; ``--skip`` leaves a source out (one whose kernels
+the change rewrote on purpose), and its report is printed apart.
 
-    python -m gemm_hls_tpu_torch.tools.ptxas_compare parent.log change.log
+    python -m gemm_hls_tpu_torch.tools.ptxas_compare parent.log change.log [--skip SRC ...]
 """
 
 from __future__ import annotations
@@ -66,9 +67,16 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("parent", help="the first build log (the reference)")
     p.add_argument("change", help="the second build log")
+    p.add_argument("--skip", action="append", default=[],
+                   help="a source (say semiring_f64.cu) left out of the verdict")
     args = p.parse_args(argv)
     with open(args.parent) as f1, open(args.change) as f2:
-        lines, bad = compare(parse(f1.read()), parse(f2.read()))
+        parent, change = parse(f1.read()), parse(f2.read())
+    skipped = {s: parent.pop(s, {}) for s in args.skip}
+    lines, bad = compare(parent, change)
+    for src, old in skipped.items():
+        lines.append(f"{src}: skipped ({len(old)} functions in the first log, "
+                     f"{len(change.get(src, {}))} in the second)")
     print("\n".join(lines))
     print(f"ptxas reports: {'unchanged' if not bad else f'{bad} function(s) changed'}")
     return 1 if bad else 0

@@ -1459,3 +1459,66 @@ def test_untranslatable_callable_raises_on_the_card(cuda):
         matmul(a, a, epilogue=lambda acc: acc - acc.amax(-1, keepdim=True))
     with pytest.raises(NotImplementedError, match="yields bool"):
         matmul(a, a, semiring=Semiring("cmp", lambda x, y: x > y, torch.add, 0, None, None))
+
+
+# ---- slice 23: float64 at the card's FP64 rates (the float64 tiles) --------
+
+@pytest.mark.parametrize("case", chip_smoke.DMMA_TMA_CASES, ids=str)
+def test_dmma_tma_cases_match_plain(cuda, case):
+    chip_smoke.wide_b1_case(torch, _gen(2301), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.F64_GATE_CASES, ids=str)
+def test_b3_float64_gate_cases_match_plain_on_their_form(cuda, case):
+    chip_smoke.f64_gate_case(torch, _gen(2302), case)
+
+
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+def test_float64_tiles_agree_on_aligned_operands(cuda, ta, tb):
+    gen = _gen(2303)
+    a = chip_smoke.signed(torch, (136, 300) if ta else (300, 136), torch.float64, gen)
+    b = chip_smoke.signed(torch, (520, 136) if tb else (136, 520), torch.float64, gen)
+    cfg = default_config(torch.float64)
+    kw = dict(cfg=cfg, transpose_a=ta, transpose_b=tb)
+    got = mxu.mxu_matmul(a, b, **kw)
+    assert mxu.mxu_matmul.last_dmma_tile == "tma"
+    old = mxu.mxu_matmul(a, b, _dmma_tile="cp_async", **kw)
+    assert mxu.mxu_matmul.last_dmma_tile == "cp_async"
+    chip_smoke.compare(torch, got, old, 1e-9, "TMA tile vs cp.async tile", scaled=True)
+    # A view one element into A's rows: its base is off the 16-byte grid.
+    a_off = a[:, 1:]
+    b_off = b if ta else (b[:, 1:] if tb else b[1:])
+    with pytest.raises(ValueError, match="'tma' float64 tile cannot take"):
+        mxu.mxu_matmul(a_off, b_off, _dmma_tile="tma", **kw)
+
+
+def test_dmma_tma_launches_repeat_bitwise(cuda):
+    chip_smoke.dmma_tma_repeats(torch, _gen(2304))
+
+
+def test_float64_apsp_runs_the_num_form_exactly(cuda):
+    gen = _gen(2305)
+    adj = chip_smoke.apsp_adjacency(torch, gen, 700, torch.float64)
+    vpu.f64_slice_forms(reset=True)
+    dist = graph.all_pairs_shortest_paths(adj)
+    fast, slow = vpu.f64_slice_forms(reset=True)
+    assert fast > 0 and slow == 0
+    cfg = default_config(torch.float64, semiring="min_plus")
+    want = graph.all_pairs_shortest_paths(adj, matmul_fn=lambda x, y: vpu.vpu_matmul_plain(
+        x, y, cfg=cfg, sr=get_semiring("min_plus")))
+    assert torch.equal(dist, want)
+
+
+def test_float64_callable_epilogue_runs_on_the_tile_the_rule_picks(cuda):
+    gen = _gen(2306)
+    relu = chip_smoke.user_epilogues()["relu_bias"][0]
+    for m, k, tile in ((256, 320, "tma"), (255, 321, "cp_async")):
+        a = chip_smoke.signed(torch, (m, k), torch.float64, gen)
+        b = chip_smoke.signed(torch, (k, 384), torch.float64, gen)
+        bias = chip_smoke.signed(torch, (384,), torch.float64, gen)
+        before = mxu.generated_launches["dmma", "float64"]
+        got = matmul(a, b, epilogue=relu, epilogue_operands=(bias,))
+        assert mxu.generated_launches["dmma", "float64"] == before + 1
+        assert mxu.mxu_matmul.last_dmma_tile == tile
+        want = matmul(a, b, epilogue="bias_relu", epilogue_operands=(bias,))
+        assert torch.equal(got, want)
