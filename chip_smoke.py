@@ -345,7 +345,28 @@ Phases, each printed as it ends:
      Num form; then (c) the times in turns: B1 float64 on both tiles beside
      ``torch.matmul`` at 8192^3, 4096^3, 2048^3 and 16 x 1024^3, B3 float64
      under each semiring at 4096^3 beside its bound (min_plus also on
-     +inf-holding operands), float64 APSP beside fp32 APSP.
+     +inf-holding operands), float64 APSP beside fp32 APSP;
+ 33. slice 24, fp32 B1 / B2 on the tile engine as TF32 (the split pass
+     ``csrc/tf32_split.cu`` turns each operand K-major, hi and lo rounded
+     to TF32; ``csrc/mxu_wgmma_tf32.cu`` runs one pass at "default", three
+     at "high" / "highest"): TF32_ROUTE_CASES (both precisions, four
+     layouts, dense and pitched, B2 with broadcast operands, every
+     epilogue, K 1 / 3 / 5, +-inf and NaN in both operands, unaligned rows
+     on the CUDA cores) with each launch's route and passes checked, the
+     split's workspaces bit for bit their plain version (and on +-inf,
+     NaN, subnormals and the largest finite values), the GEMM within
+     TF32_RTOL of the passes in float64, and where +-inf and NaN are
+     planted within TF32_IEEE_RTOL of IEEE fp32 with its infinities and
+     NaNs at the same places; TF32_REPEATS same-bits launches; then,
+     counts set to 0 before and read after, the main path: fp32 ``matmul``
+     at 8192^3 at both precisions, B2 at 16 x 1024^3, phase 8a's bf16
+     trainer (its backward at the reference's DEFAULT: one TF32 pass), B1's
+     launches by route and passes, beside phase 29c's and 29e's steps and
+     times read from phase 29's record; then fp32 8192^3 / 4096^3 /
+     2048^3 in turns on CUDA events beside the CUDA-core tile, fp32
+     ``torch.matmul`` without and with TF32 and the split pass alone, each
+     normwise error against float64 ``torch.matmul`` held to SGEMM's (4x,
+     "high") and cuBLAS TF32's (2x, "default").
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -360,7 +381,9 @@ Tolerances (kernel vs plain version on the same inputs, on the card):
   exact for integer, bool and tropical results (min/max of identically
   rounded terms); relative 1e-4 for outputs summed in fp32 (both sum in
   fp32 in different orders over K <= 2048: about sqrt(K) * 2^-24 per
-  element); relative 1e-2 where the output is rounded to bf16 (one bf16
+  element; fp32 plus_times on the engine, three TF32 passes with each
+  32-deep stage added in IEEE fp32, sits inside it); relative 1e-2 where
+  the output is rounded to bf16 (one bf16
   ulp is 2^-8 relative).  Outputs of mixed-sign operands (epilogues,
   softmax, attention, gradients) can cancel to near zero, so there the
   relative error is taken against |ref| + max|ref| ("scaled").  The
@@ -986,7 +1009,9 @@ def counters():
             # Slice 22's generated functors (counted in B1 epilogue / B2 / B3
             # too): user semirings on B3, callable epilogues on B1 / B2.
             "B3 generated": sum(vpu.vpu_matmul.generated_launches.values()),
-            "B1 generated epilogue": sum(mxu.generated_launches.values())}
+            "B1 generated epilogue": sum(mxu.generated_launches.values()),
+            # B1 / B2's fp32 route on the engine: the split pass, two a GEMM.
+            "B1 tf32 split": mxu.tf32_operand.launches}
 
 
 def reset_counters():
@@ -996,6 +1021,8 @@ def reset_counters():
     mxu.mxu_matmul_batched.row_softmax_launches = 0
     mxu.route_launches.clear()
     mxu.dmma_tile_launches.clear()
+    mxu.tf32_launches.clear()
+    mxu.tf32_operand.launches = 0
     vpu.vpu_matmul.launches = 0
     vpu.vpu_matmul.dtype_launches.clear()
     vpu.vpu_matmul.generated_launches.clear()
@@ -1401,7 +1428,7 @@ def phase_slice2(torch):
 
     # 8f: batched GEMMs through the front door, each B2 launch's route
     # recorded: the aligned bf16 calls take the engine, int8 with a
-    # row-major B WMMA, fp32 the CUDA cores.
+    # row-major B WMMA, aligned fp32 the engine's TF32 passes.
     n_cases, routes = 0, {}
 
     def checked(what, want, fn, ref, rtol, scaled=True):
@@ -1429,7 +1456,7 @@ def phase_slice2(torch):
     checked("int8 batched", "wmma", lambda: matmul(a8, b8, out_dtype="int32"),
             lambda: matmul(a8, b8, out_dtype="int32", backend="torch"), 0.0, scaled=False)
     a32, b32 = (signed(torch, (64, 512, 512), torch.float32, gen) for _ in range(2))
-    checked("fp32 batched", "simt", lambda: matmul(a32, b32),
+    checked("fp32 batched", "wgmma", lambda: matmul(a32, b32),
             lambda: matmul(a32, b32, backend="torch"), F32_RTOL)
     w = b32[0].to(torch.bfloat16)
     ab = a32.to(torch.bfloat16)
@@ -2217,7 +2244,8 @@ def phase_times3(torch):
         del sa, sb, sbt, args
     high = time_fn(lambda x, y: matmul(x, y, precision="high"), [(a, b)], iters=2) * 1e3
     out["matmul high 8192"] = high
-    log(f"phase 12: matmul(precision='high') fp32 {n}^3 (B1, CUDA cores): "
+    log(f"phase 12: matmul(precision='high') fp32 {n}^3 (B1, three TF32 passes on the "
+        f"engine after the split pass): "
         f"{high:.3f} ms")
     del a, b
 
@@ -5231,7 +5259,10 @@ def phase_slice16(torch):
                 f.close()
     if not torch.equal(from_file, dense):
         raise AssertionError("phase 25c: the files' product differs from the in-memory one")
-    want = {"b min_plus": {"B3": 8}, "b plus_times": {"B1": 8}, "c": {"B1": 8}}
+    # plus_times: each panel product on the engine's TF32 passes after two
+    # split passes.
+    want = {"b min_plus": {"B3": 8}, "b plus_times": {"B1": 8, "B1 tf32 split": 16},
+            "c": {"B1": 8, "B1 tf32 split": 16}}
     for key, counts in want.items():
         if out["launches"][key] != counts:
             raise AssertionError(f"phase 25 {key}: launches {out['launches'][key]}, "
@@ -6128,13 +6159,15 @@ def phase_slice19(torch):
         out = run(step, lambda mesh=mesh, alg=alg: distributed_streamed_matmul(
             ah, bh, mesh, tile_m=tile, tile_n=tile, tile_k=tile, algorithm=alg))
         launches[step] = launched()
-        if launches[step] != {"B1": jobs * mesh.devices.size}:
+        products = jobs * mesh.devices.size
+        if launches[step] != {"B1": products, "B1 tf32 split": 2 * products}:
             raise AssertionError(f"{step}: launches {launches[step]}, want B1 x "
-                                 f"{jobs * mesh.devices.size}")
-        # Every panel's product on every rank on B1's CUDA-core route (fp32).
+                                 f"{products} and the split pass twice each")
+        # Every panel's product on every rank on B1's engine (fp32: TF32
+        # passes on the split operands).
         stats = distributed_streamed_matmul.last_stats
         if (stats["jobs"] != jobs or len(stats["routes"]) != jobs
-                or any(len(r) != mesh.devices.size or any(v != ["simt"] for v in r.values())
+                or any(len(r) != mesh.devices.size or any(v != ["wgmma"] for v in r.values())
                        for r in stats["routes"])):
             raise AssertionError(f"{step}: last_stats {stats['jobs']} jobs, routes "
                                  f"{stats['routes'][:2]}")
@@ -6143,7 +6176,7 @@ def phase_slice19(torch):
             raise AssertionError(f"{step}: rel err {rel:.3e}")
         log(f"phase 28d: distributed_streamed_matmul {alg} fp32 {ns_}^3, tiles {tile} "
             f"({jobs} panel products) on {key}: {steps[step]:.3f} s, max |C - ref| / max |ref| "
-            f"{rel:.3e} vs float64 torch.matmul, B1 x{launches[step]['B1']} on simt; staged "
+            f"{rel:.3e} vs float64 torch.matmul, B1 x{launches[step]['B1']} on wgmma; staged "
             f"through {stats['slots']} pinned slots (prefetch {stats['prefetch']}), "
             f"{stats['h2d_bytes']} B host -> card, {stats['d2h_bytes']} B back, host fill "
             f"{stats['fill_s']:.3f} s, wait {stats['stage_wait_s']:.3f} s, drain "
@@ -6513,12 +6546,15 @@ def phase_mlp_sharded(torch, record, times):
             raise AssertionError(f"{key}: loss {losses[-1]}")
         # A rank's forward: two bf16 GEMMs on the engine; its backward dW0,
         # dh and dW1 (x takes no gradient) in fp32, the cotangent's type
-        # (ops/matmul.py::_mxu_bwd, JAX's dot), on B1's CUDA-core route.
+        # (ops/matmul.py::_mxu_bwd, JAX's dot), at the reference's DEFAULT:
+        # one TF32 pass on the engine after two split passes.
         ranks = dp * tp
-        expect(f"{key} launches", record[key]["launches"], {"B1": 5 * ranks})
+        expect(f"{key} launches", record[key]["launches"],
+               {"B1": 5 * ranks, "B1 tf32 split": 6 * ranks})
         expect(f"{key} routes", record[key]["entries"],
-               {"mxu_wgmma": 2 * ranks, "mxu_gemm": 3 * ranks})
-        expect(f"{key} backward route", mxu.mxu_matmul.last_route, "simt")
+               {"mxu_wgmma": 2 * ranks, "mxu_wgmma_tf32": 3 * ranks, "tf32_split": 6 * ranks})
+        expect(f"{key} backward route", (mxu.mxu_matmul.last_route,
+                                         mxu.mxu_matmul.last_tf32_passes), ("wgmma", 1))
         partial = c["tokens"] // dp * dout * 2
         rank_bytes(record, key, mesh, "tp_psum", 2 * (tp - 1) * partial // tp)
         rank_bytes(record, key, mesh, "tp_psum_bwd", 2 * (tp - 1) * partial // tp)
@@ -6538,7 +6574,7 @@ def phase_mlp_sharded(torch, record, times):
     log(f"phase 29c: sharded MLP step {c['dims']} x {c['tokens']} bf16 tokens on (dp {dp}, tp "
         f"{tp}): losses (sharded, single-card) {losses}, params normwise max {max(errs):.3e}; "
         f"B1 x{record[key]['launches'].get('B1')} a step (the forward's on wgmma, the "
-        f"backward's fp32 on simt); bytes a rank: tp psum "
+        f"backward's fp32 one TF32 pass on wgmma); bytes a rank: tp psum "
         f"{record[key]['bytes']['tp_psum'][(0, 0)]} each way, grad psum "
         f"{record[key]['bytes']['grad_psum'][(0, 0)]}; in turns (ms): "
         + ", ".join(f"{a} {b:.3f}" for a, b in times["29c"].items()))
@@ -6719,13 +6755,14 @@ def phase_pipeline(torch, record, times):
         raise AssertionError(f"{key}: loss {float(loss)} vs {float(ref_loss)}")
     # Each stage application's two bf16 GEMMs on the engine, again in the
     # backward's recompute (remat); its backward's dW1, dW2, dh and (past
-    # stage 0, whose input takes no gradient) dx in fp32 on B1's CUDA-core
-    # route.
+    # stage 0, whose input takes no gradient) dx in fp32 at the reference's
+    # DEFAULT: one TF32 pass on the engine after two split passes.
     b1 = record[key]["launches"].get("B1", 0)
     bwd = m * (4 * p_ - 1)
-    expect(f"{key} launches", record[key]["launches"], {"B1": 4 * p_ * m + bwd})
+    expect(f"{key} launches", record[key]["launches"],
+           {"B1": 4 * p_ * m + bwd, "B1 tf32 split": 2 * bwd})
     expect(f"{key} routes", record[key]["entries"],
-           {"mxu_wgmma": 4 * p_ * m, "mxu_gemm": bwd})
+           {"mxu_wgmma": 4 * p_ * m, "mxu_wgmma_tf32": bwd, "tf32_split": 2 * bwd})
     rank_bytes(record, key, mesh, "pipeline", hops)
     rank_bytes(record, key, mesh, "pipeline_bwd", hops)
     record["29e"] = dict(forward_normwise=err, param_normwise=errs,
@@ -6739,7 +6776,7 @@ def phase_pipeline(torch, record, times):
         f"{c['batch']} in {m} microbatches (T {steps}): forward normwise {err:.3e} vs "
         f"stages_forward, B1 x{2 * p_ * m} on wgmma; train step loss {float(loss):.6f} vs "
         f"{float(ref_loss):.6f}, params normwise max {max(errs):.3e}, B1 x{b1} ({4 * p_ * m} "
-        f"on wgmma, {bwd} fp32 on simt); ppermute "
+        f"on wgmma, {bwd} fp32 one TF32 pass on wgmma); ppermute "
         f"{hops} B a rank each way; in turns (ms): "
         + ", ".join(f"{a} {b:.3f}" for a, b in times["29e"].items()))
 
@@ -7311,6 +7348,8 @@ GEN_EPILOGUE_CASES = (
        ("relu_bias", "float32", "float32", False, False, None, 130, 200, 67, "dense", None,
         "simt"),
        ("relu_bias", "float32", "float32", True, True, None, 130, 200, 67, "odd", None, "simt"),
+       ("relu_bias", "float32", "float32", False, False, None, 256, 384, 512, "dense", None,
+        "wgmma"),
        ("relu_bias", "int8", "float32", False, True, None, 300, 520, 272, "dense", None,
         "wgmma"),
        ("relu_bias", "int8", "float32", False, False, None, 300, 520, 272, "dense", None,
@@ -7451,10 +7490,11 @@ def phase31_specs(torch):
         ("relu_bias", "wgmma", "bfloat16", False, False, None),
         ("relu_bias", "wmma", "bfloat16", False, False, None),
         ("relu_bias", "simt", "float32", False, False, None),
+        ("relu_bias", "wgmma", "float32", False, False, None),
         ("relu_bias", "dmma", "float64", False, False, "tma"),
         ("clamp2", "wgmma", "bfloat16", False, False, None),
         ("relu_bias", "wgmma", "int8", False, True, None),
-        ("silu_bias", "simt", "float32", False, False, None)}
+        ("silu_bias", "wgmma", "float32", False, False, None)}
     specs = {}
     for name, dt in sorted(b3):
         dtype = getattr(torch, dt)
@@ -7462,6 +7502,10 @@ def phase31_specs(torch):
         specs[spec[0]] = spec
     for name, route, dt, ta, tb, tile in sorted(eps, key=str):
         dtype = getattr(torch, dt)
+        if route == "wgmma" and dtype == torch.float32:
+            # fp32 on the engine reads the split pass's K-major workspaces
+            # at the front door's default precision, three TF32 passes.
+            ta, tb, tile = False, True, f"tf32x{mxu.tf32_passes('high')}"
         fn, count = user_epilogues()[name]
         acc = {torch.float64: torch.float64}.get(dtype, torch.float32
                                                  if dtype.is_floating_point else torch.int32)
@@ -7644,10 +7688,17 @@ def phase_slice22(torch, builds):
          lambda: plain(xw, ww, bw, cfg=cfg_e, fn=relu), BF16_RTOL, "wmma",
          lambda: matmul(xw, ww, epilogue="bias_relu", epilogue_operands=(bw,)))
     no = SLICE22["other"]
-    xs_, ws_, bs_ = (signed(torch, s, f32, gen) for s in ((no, no), (no, no), (no,)))
+    # fp32 on the CUDA cores: K 2047, rows of A not whole 16-byte units.
+    xs_, ws_, bs_ = (signed(torch, s, f32, gen) for s in ((no, no - 1), (no - 1, no), (no,)))
     held("relu simt", lambda: matmul(xs_, ws_, epilogue=relu, epilogue_operands=(bs_,)),
          lambda: plain(xs_, ws_, bs_, cfg=default_config(f32), fn=relu), F32_RTOL, "simt",
          lambda: matmul(xs_, ws_, epilogue="bias_relu", epilogue_operands=(bs_,)))
+    # fp32 on the engine, three TF32 passes (its functor at the promoted
+    # store), held to the same IEEE plain version.
+    xt_, wt_, bt_ = (signed(torch, s, f32, gen) for s in ((no, no), (no, no), (no,)))
+    held("relu tf32 engine", lambda: matmul(xt_, wt_, epilogue=relu, epilogue_operands=(bt_,)),
+         lambda: plain(xt_, wt_, bt_, cfg=default_config(f32), fn=relu), F32_RTOL, "wgmma",
+         lambda: matmul(xt_, wt_, epilogue="bias_relu", epilogue_operands=(bt_,)))
     f64 = torch.float64
     xd, wd, bd = (signed(torch, s, f64, gen) for s in ((no, no), (no, no), (no,)))
     held("relu dmma", lambda: matmul(xd, wd, epilogue=relu, epilogue_operands=(bd,)),
@@ -7699,7 +7750,7 @@ def phase_slice22(torch, builds):
     log(f"phase 31: main-path launches {launches}; plain-version runs on the card inside the "
         f"front-door calls: 0")
     need = {("wgmma", "bfloat16"), ("wmma", "bfloat16"), ("simt", "float32"),
-            ("dmma", "float64"), ("wgmma", "int8")}
+            ("dmma", "float64"), ("wgmma", "int8"), ("wgmma", "float32")}
     if any(not mxu.generated_launches[key] for key in need) or set(
             vpu.vpu_matmul.generated_launches) != {"float32", "int8"}:
         raise AssertionError(f"phase 31: a generated kernel of the path was not launched: "
@@ -7772,7 +7823,7 @@ def phase_slice22(torch, builds):
         log(f"phase 31d: {key}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({r['bound'][1]}), {bound_ms / r['ms']:.1%} of the bound; "
             f"{extra}")
-    del x, y, x8, y8, xe, we, xw, ww, xs_, ws_, xd, wd, xc, wc, xb, wb, xi, wi, xg, wg_
+    del x, y, x8, y8, xe, we, xw, ww, xs_, ws_, xt_, wt_, xd, wd, xc, wc, xb, wb, xi, wi, xg, wg_
     torch.cuda.empty_cache()
     log(f"phase 31: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s); "
         f"{codegen.ITEM} runs on the card")
@@ -8159,6 +8210,371 @@ def phase_slice23(torch, lib_log):
                           gate={f"{sr} {fill}": f for (sr, fill), f in forms.items()})}
 
 
+# ---------------------------------------------------------------------------
+# Slice 24 (phase 33): fp32 on the tile engine's TF32 passes, and the bf16
+# trainer's backward at the reference's DEFAULT
+# ---------------------------------------------------------------------------
+
+# B1 / B2 fp32 on the engine (``ops/mxu.py::tf32_operand``, the split pass
+# ``csrc/tf32_split.cu``, the engine ``csrc/mxu_wgmma_tf32.cu``), case table
+# of phase 33a that tests/test_torch_kernels.py parametrises too:
+# (precision, ta, tb, batch, M, N, K, pitched, broadcast, epilogue,
+# specials, route).  pitched: each operand a view into rows of whole
+# 16-byte units plus one unit (ragged M, N and K that still reach the
+# engine).  specials: +-inf and NaN planted in both operands
+# (``tf32_plant_specials``), the output held to IEEE fp32 too, where its
+# infinities and NaNs fall.  Both precisions in the four layouts, dense
+# and pitched; B2 at 16 x 1024^3, pitched in two layouts, a broadcast 2-D
+# a and b; every epilogue at "high" and bias_gelu batched at "default"; K
+# 1, 3 and 5 (the split's zero pad inside a 16-byte row); +-inf and NaN
+# at both precisions in the four layouts, batched and with an epilogue;
+# rows that are not whole 16-byte units on the CUDA cores.
+TF32_ROUTE_CASES = (
+    [(prec, ta, tb, None, 300, 520, 136, False, None, None, False, "wgmma")
+     for prec in ("default", "high") for ta, tb in LAYOUTS]
+    + [(prec, ta, tb, None, 1000, 1030, 1100, True, None, None, False, "wgmma")
+       for prec in ("default", "high") for ta, tb in LAYOUTS]
+    + [(prec, False, False, 16, 1024, 1024, 1024, False, None, None, False, "wgmma")
+       for prec in ("default", "high")]
+    + [("high", True, True, 3, 130, 264, 200, True, None, None, False, "wgmma"),
+       ("default", False, True, 3, 130, 264, 200, True, None, None, False, "wgmma"),
+       ("default", False, False, 5, 130, 264, 200, True, "a", None, False, "wgmma"),
+       ("high", True, False, 5, 300, 264, 136, False, "b", None, False, "wgmma")]
+    + [("high", False, False, None, 300, 520, 136, False, None, ep, False, "wgmma")
+       for ep in EPILOGUES]
+    + [("default", True, False, 3, 130, 264, 200, True, None, "bias_gelu", False, "wgmma")]
+    + [("high", False, False, None, 64, 72, k, True, None, None, False, "wgmma")
+       for k in (1, 3, 5)]
+    + [(prec, ta, tb, None, 300, 520, 136, False, None, None, True, "wgmma")
+       for prec in ("default", "high") for ta, tb in LAYOUTS]
+    + [("high", False, True, 3, 130, 264, 200, True, None, None, True, "wgmma"),
+       ("default", True, False, 3, 130, 264, 200, True, "b", "bias_relu", True, "wgmma")]
+    + [("high", False, False, None, 130, 200, 67, False, None, None, False, "simt"),
+       ("default", True, True, None, 130, 200, 67, False, None, None, False, "simt"),
+       ("high", False, False, 3, 65, 140, 131, False, None, None, False, "simt"),
+       ("high", False, False, None, 130, 200, 67, False, None, None, True, "simt")]
+)
+TF32_REPEAT_CASES = tuple(c for c in TF32_ROUTE_CASES
+                          if c[4:7] == (1000, 1030, 1100) and c[1:3] == (False, False))
+TF32_REPEATS = 20
+# Scaled rel (|d| / (|ref| + max |ref|)) of the engine against its plain
+# version, the same passes in float64: the tensor cores add each k8 step
+# into an fp32 sum cut toward zero (one pass: about 1e-8 K relative; the
+# three-pass route adds each 32-deep stage in IEEE fp32).
+TF32_RTOL = 1e-4
+# Scaled rel of the engine against IEEE fp32 (``mxu_matmul_plain``) in the
+# specials cases, by passes: three passes drop lo . lo (about 2^-22 of a
+# product); one rounds each operand to TF32 (up to 2^-10 of a product).
+TF32_IEEE_RTOL = {3: 1e-5, 1: 4e-3}
+# Phase 33's shapes: fp32 8192^3, 4096^3 and 2048^3 (timed in turns), B2 at
+# 16 x 1024^3, and the trainer of phase 8a at its width, 3 steps.
+SLICE24 = dict(sizes=(8192, 4096, 2048), batched=(16, 1024), trainer_steps=3)
+
+
+def tf32_plant_specials(torch, x):
+    """+inf, -inf and NaN at fixed places of ``x`` (every example alike):
+    outputs that are +-inf, NaN from inf - inf or from a NaN, and finite."""
+    for (i, j), v in zip(((1, 2), (3, 4), (5, 6), (2, 8), (9, 1)),
+                         (float("inf"), -float("inf"), float("nan"), -float("inf"),
+                          float("inf"))):
+        x[..., i, j] = v
+
+
+def tf32_case_operands(torch, gen, case):
+    """(a, b, epilogue operands, keyword arguments) of a TF32_ROUTE_CASES
+    case, on the card."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+    prec, ta, tb, bsz, m, n, k, pitch, bcast, ep_name, specials, _ = case
+    f32 = torch.float32
+    a = pitched(torch, gen, *((k, m) if ta else (m, k)), f32, pitch,
+                () if bsz is None or bcast == "a" else (bsz,))
+    b = pitched(torch, gen, *((n, k) if tb else (k, n)), f32, pitch,
+                () if bsz is None or bcast == "b" else (bsz,))
+    if specials:
+        tf32_plant_specials(torch, a)
+        tf32_plant_specials(torch, b)
+    ep = get_epilogue(ep_name) if ep_name else None
+    eps = [signed(torch, (n,), f32, gen) for _ in range(ep.n_operands if ep else 0)]
+    return a, b, eps, dict(cfg=default_config(f32, precision=prec), transpose_a=ta,
+                           transpose_b=tb, epilogue=ep)
+
+
+def tf32_plain(torch, a, b, eps, kw):
+    """The engine route's plain version: the TF32 passes in float64
+    (``ops/mxu.py::tf32_matmul_plain``), then the epilogue's torch
+    function, then the cast."""
+    from gemm_hls_tpu_torch.ops import mxu
+    out = mxu.tf32_matmul_plain(a, b, mxu.tf32_passes(kw["cfg"].precision),
+                                kw["transpose_a"], kw["transpose_b"])
+    if kw["epilogue"] is not None:
+        out = kw["epilogue"].fn(out, *eps)
+    return out.to(kw["cfg"].tout_dtype)
+
+
+def tf32_split_equal(torch, x, mn_major, passes, side, what):
+    """The split pass's workspace of ``x`` on the card equals its plain
+    version bit for bit."""
+    from gemm_hls_tpu_torch.ops import mxu
+    got = mxu.tf32_operand(x, mn_major, passes, side)
+    want = mxu.tf32_operand_plain(x, mn_major, passes, side)
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum()) \
+            if got.shape == want.shape else "shape"
+        raise AssertionError(f"{what}: the split pass's {side} workspace differs from its "
+                             f"plain version ({bad} words)")
+
+
+def tf32_route_case(torch, gen, case):
+    """One TF32_ROUTE_CASES case: its route and TF32 passes checked, the
+    split pass's workspaces equal to their plain version bit for bit, the
+    GEMM held to its plain version (the passes in float64 on the engine,
+    IEEE fp32 on the CUDA cores), +-inf and NaN at the same places (a
+    specials case on the engine: also IEEE fp32's, within
+    TF32_IEEE_RTOL); returns (largest abs error, route)."""
+    from gemm_hls_tpu_torch.ops import mxu
+    a, b, eps, kw = tf32_case_operands(torch, gen, case)
+    gemm = mxu.mxu_matmul if case[3] is None else mxu.mxu_matmul_batched
+    got = gemm(a, b, *eps, **kw)
+    passes = mxu.tf32_passes(case[0])
+    if gemm.last_route != case[-1] or gemm.last_tf32_passes != (
+            passes if case[-1] == "wgmma" else None):
+        raise AssertionError(f"TF32 {case}: route {gemm.last_route}, passes "
+                             f"{gemm.last_tf32_passes}")
+    if case[-1] != "wgmma":
+        return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), F32_RTOL,
+                       f"TF32 {case}", scaled=True)[0], gemm.last_route
+    tf32_split_equal(torch, a, case[1], passes, "a", f"TF32 {case}")
+    tf32_split_equal(torch, b, not case[2], passes, "b", f"TF32 {case}")
+    if case[10]:
+        compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), TF32_IEEE_RTOL[passes],
+                f"TF32 {case} against IEEE fp32", scaled=True)
+    return compare(torch, got, tf32_plain(torch, a, b, eps, kw), TF32_RTOL, f"TF32 {case}",
+                   scaled=True)[0], gemm.last_route
+
+
+def tf32_repeats(torch, gen):
+    """Each TF32_REPEAT_CASES case launched TF32_REPEATS times on the same
+    operands: every launch gives the first one's bits."""
+    from gemm_hls_tpu_torch.ops import mxu
+    for case in TF32_REPEAT_CASES:
+        a, b, _, kw = tf32_case_operands(torch, gen, case)
+        first = mxu.mxu_matmul(a, b, **kw)
+        for i in range(TF32_REPEATS - 1):
+            if not torch.equal(first, mxu.mxu_matmul(a, b, **kw)):
+                raise AssertionError(f"TF32: launch {i + 2} of {case} differs from the first")
+
+
+def tf32_edge_operand(torch, gen, rows, cols):
+    """U(-1, 1) with the split's edge values in its first row: +-inf, NaN,
+    subnormals, the largest finite values (whose rounding would overflow),
+    powers of two, ties at bit 13 (1 + 2^-11, 1 + 3 * 2^-11) and zeros."""
+    x = signed(torch, (rows, cols), torch.float32, gen)
+    edge = torch.tensor([float("inf"), -float("inf"), float("nan"), 1e-40, -3e-39, 2.0 ** -126,
+                         3.4028235e38, -3.4028235e38, 1.0, 2.0 ** 100, -2.0 ** -100,
+                         1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), 0.0, -0.0],
+                        device="cuda")
+    x[0, :edge.numel()] = edge
+    return x
+
+
+def phase_slice24(torch, lib_log, record29, times29):
+    """Phase 33: slice 24, fp32 on the tile engine.  (a) TF32_ROUTE_CASES,
+    each launch's route and passes printed, the split pass's workspaces bit
+    for bit their plain version, the GEMM within TF32_RTOL of the passes in
+    float64 (and, where +-inf and NaN are planted, IEEE fp32's places for
+    them); the split of an operand holding +-inf, NaN, subnormals and the
+    largest finite values, bit for bit; (b) TF32_REPEATS same-bits launches;
+    then, every launch count set to 0 just before and read just after, the
+    main path: (c) fp32 ``matmul`` at 8192^3 at "high" and "default" and B2
+    at 16 x 1024^3 through the front door, phase 8a's bf16 trainer (its
+    backward at the reference's DEFAULT: one TF32 pass) against the plain
+    trainer, B1's launches by route and passes; phase 29c's and 29e's
+    steps read from phase 29's ``record29`` and ``times29``; (d) fp32
+    8192^3 / 4096^3 / 2048^3 on CUDA events in turns: both precisions, the
+    engine alone, the CUDA-core tile, fp32 ``torch.matmul`` without and
+    with TF32, and the split pass alone; each one's normwise
+    error against float64 ``torch.matmul``, held to SGEMM's and cuBLAS
+    TF32's on the same data.  Returns the readings for the kernels line."""
+    from gemm_hls_tpu_torch import _build, matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import mxu
+
+    import collections
+
+    t_start = time.perf_counter()
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    # ---- (a) the case table, the split's edge values; (b) same bits --------
+    errs, seen, each = [], collections.Counter(), []
+    for case in TF32_ROUTE_CASES:
+        err, route = tf32_route_case(torch, gen, case)
+        errs.append(err)
+        seen[route, case[0]] += 1
+        prec, ta, tb, bsz, m, n, k = case[:7]
+        each.append(f"{prec} t{int(ta)}{int(tb)} {'' if bsz is None else f'{bsz}x'}{m}x{n}x{k}"
+                    f"{' ' + case[9] if case[9] else ''}{' inf/NaN' if case[10] else ''}: "
+                    f"{route}")
+    log("phase 33a: each launch's route: " + "; ".join(each))
+    edge = tf32_edge_operand(torch, gen, 300, 520)
+    for mn in (False, True):
+        for passes in (1, 3):
+            for side in ("a", "b"):
+                tf32_split_equal(torch, edge if not mn else edge.t().contiguous(), mn, passes,
+                                 side, f"33a edge values mn {mn}")
+    tf32_repeats(torch, gen)
+    log(f"phase 33a: TF32_ROUTE_CASES {len(TF32_ROUTE_CASES)} cases, by (route, precision) "
+        f"{dict(seen)}; every engine case's split workspaces bit for bit their plain version, "
+        f"the GEMM within {TF32_RTOL:g} scaled of the passes in float64 (max abs err "
+        f"{max(errs):.3e}); the split of +-inf, NaN, subnormals and the largest finite values "
+        f"bit for bit; phase 33b: {TF32_REPEATS} launches of {len(TF32_REPEAT_CASES)} cases, "
+        f"the same bits")
+    del edge
+
+    # ---- (c) the main path, counts reset --------------------------------
+    n = SLICE24["sizes"][0]
+    a = signed(torch, (n, n), f32, gen)
+    b = signed(torch, (n, n), f32, gen)
+    bsz, nb = SLICE24["batched"]
+    ab, bb = signed(torch, (bsz, nb, nb), f32, gen), signed(torch, (bsz, nb, nb), f32, gen)
+    reset_every_counter()
+    t0 = time.perf_counter()
+    main = {"high": front(lambda: matmul(a, b)),
+            "default": front(lambda: matmul(a, b, precision="default")),
+            "batched": front(lambda: matmul(ab, bb))}
+    torch.cuda.synchronize()
+    ref = torch.matmul(a.double(), b.double())
+    main_err = {k: normwise_of(torch, main[k], ref) for k in ("high", "default")}
+    main_err["batched"] = normwise_of(torch, main["batched"],
+                                      torch.matmul(ab.double(), bb.double()))
+    del main, ref
+    dims, tokens = (4096, 16384, 4096), 8192
+    run = run_trainer(torch, dims, tokens, torch.bfloat16, True, steps=SLICE24["trainer_steps"])
+    (losses, secs, _), (p_losses, p_secs, _) = run["port"], run["plain"]
+    for i, (l, pl) in enumerate(zip(losses, p_losses)):
+        if not abs(l - pl) <= BF16_RTOL * abs(pl):
+            raise AssertionError(f"33c trainer step {i}: loss {l} vs plain {pl}")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    got = launched()
+    by_route = {f"{r} {dt}": v for (r, dt), v in sorted(mxu.route_launches.items())}
+    passes = {f"x{p}": v for p, v in sorted(mxu.tf32_launches.items())}
+    if not (got.get("B1") and got.get("B2") and got.get("B1 tf32 split")
+            and mxu.route_launches["wgmma", "float32"] == sum(mxu.tf32_launches.values())
+            and set(mxu.tf32_launches) == {1, 3}
+            and not any(r != "wgmma" for r, dt in mxu.route_launches if dt == "float32")):
+        raise AssertionError(f"33c: launches {got}, B1 / B2 by route {by_route}, by TF32 "
+                             f"passes {passes}")
+    trainer_ms = statistics.median(secs[1:]) * 1e3
+    plain_ms = statistics.median(p_secs[1:]) * 1e3
+    log(f"phase 33c: fp32 matmul {n}^3 normwise vs float64: high {main_err['high']:.3e}, "
+        f"default {main_err['default']:.3e}; B2 {bsz} x {nb}^3 high {main_err['batched']:.3e}; "
+        f"trainer bf16 {dims} x {tokens} fused: losses {[round(v, 4) for v in losses]} vs "
+        f"plain {[round(v, 4) for v in p_losses]}, step {trainer_ms:.1f} ms (plain "
+        f"{plain_ms:.1f} ms); launches {got}; B1 / B2 by route {by_route}; fp32 engine "
+        f"launches by TF32 passes {passes}; {main_s:.1f} s")
+    launches = dict(got, by_route=by_route, tf32_passes=passes)
+    del a, b, ab, bb
+    torch.cuda.empty_cache()
+    # Phase 29c's and 29e's steps ran this route already (their backward at
+    # the reference's DEFAULT, each call's counts set to 0 before it): their
+    # library entries by route and their times in turns, from its record.
+    steps29 = [key for key in record29
+               if key.startswith(("29c step", "29e forward", "29e train"))]
+    par = {key: dict(seconds=record29[key]["seconds"], entries=record29[key]["entries"])
+           for key in ("29c step 0", "29e train step")}
+    times29 = {run_: times29[run_] for run_ in ("29c", "29e") if run_ in times29}
+    launches["29c / 29e"] = {k: sum(record29[key]["entries"].get(k, 0) for key in steps29)
+                             for k in ("mxu_wgmma", "mxu_wgmma_tf32", "tf32_split", "mxu_gemm")}
+    log(f"phase 33c: phase 29c / 29e ({', '.join(steps29)}): library entries by route "
+        f"{launches['29c / 29e']}; in turns (ms): "
+        + "; ".join(f"{run_}: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+                    for run_, t in times29.items()))
+
+    # ---- (d) times in turns, normwise errors -------------------------------
+    lib = _build.library()
+
+    def engine_only(wa, wb, c, p):
+        """The engine alone on split workspaces (no split pass)."""
+        with torch.cuda.device(wa.device):
+            rc = lib.mxu_wgmma_tf32(wa.data_ptr(), wb.data_ptr(), c.data_ptr(), 1, c.shape[0],
+                                    c.shape[1], wa.shape[1], wa.shape[1], wb.shape[1], 0, 0, p,
+                                    0, 0, None, None, 0,
+                                    torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "33d engine alone")
+        return c
+
+    def tf32_lib(x, y):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.matmul(x, y)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    readings = {}
+    cfg_s = default_config(f32)
+    for size in SLICE24["sizes"]:
+        x = signed(torch, (size, size), f32, gen)
+        y = signed(torch, (size, size), f32, gen)
+        ws = {p: (mxu.tf32_operand(x, False, p, "a"), mxu.tf32_operand(y, True, p, "b"))
+              for p in (1, 3)}
+        c = torch.empty((size, size), device="cuda", dtype=f32)
+        fns = {"high": lambda: matmul(x, y),
+               "default": lambda: matmul(x, y, precision="default"),
+               "engine high": lambda: engine_only(*ws[3], c, 3),
+               "engine default": lambda: engine_only(*ws[1], c, 1),
+               "split b high": lambda: mxu.tf32_operand(y, True, 3, "b"),
+               "split b default": lambda: mxu.tf32_operand(y, True, 1, "b"),
+               "simt": lambda: mxu.mxu_matmul(x, y, cfg=cfg_s, route="simt"),
+               "sgemm": lambda: torch.matmul(x, y),
+               "cublas tf32": lambda: tf32_lib(x, y)}
+        t = event_turns(torch, fns, rounds=3, iters=3 if size == 8192 else 10)
+        t.update(event_turns(torch, {
+            "plain high": lambda: mxu.tf32_matmul_plain(x, y, 3),
+            "plain split b": lambda: mxu.tf32_operand_plain(y, True, 3, "b")},
+            rounds=1, iters=1))
+        ref = torch.matmul(x.double(), y.double())
+        err = {k: normwise_of(torch, fns[k](), ref)
+               for k in ("high", "default", "simt", "sgemm", "cublas tf32")}
+        plain_high = mxu.tf32_matmul_plain(x, y, 3)
+        err["plain high"] = normwise_of(torch, plain_high, ref)
+        max_abs = float((fns["high"]() - plain_high).abs().max())
+        split_abs = float((mxu.tf32_operand(y, True, 3, "b")
+                           - mxu.tf32_operand_plain(y, True, 3, "b")).abs().max())
+        del plain_high
+        flops, io = 2.0 * size ** 3, 3 * size * size * 4
+        bounds = {"high": H100.bound(3 * flops, H100.peak_for("tfloat32"), io),
+                  "default": H100.bound(flops, H100.peak_for("tfloat32"), io),
+                  "ffma": H100.bound(flops, H100.peak_for("float32"), io),
+                  "split b high": H100.bound(0.0, 1.0, size * size * 4 * (1 + 3))}
+        readings[size] = dict(ms=t, normwise=err, max_abs_err=max_abs, split_max_abs_err=split_abs,
+                              bounds={k: v[0] * 1e3 for k, v in bounds.items()},
+                              bound_by={k: v[1] for k, v in bounds.items()})
+        log(f"phase 33d: fp32 {size}^3 on CUDA events in turns (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+            + "; bounds (ms): " + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items())
+            + "; normwise vs float64: " + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+        if not (err["high"] <= 4 * err["sgemm"] and err["default"] <= 2 * err["cublas tf32"]
+                and max(err["high"], err["default"]) < 1e-3):
+            raise AssertionError(f"33d {size}^3: normwise {err}: 'high' past 4x SGEMM's or "
+                                 f"'default' past 2x cuBLAS TF32's")
+        del x, y, ws, c, ref
+        torch.cuda.empty_cache()
+    log(f"phase 33: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
+    return {"launches": launches, "readings": readings, "main_normwise": main_err,
+            "trainer": dict(step_ms=trainer_ms, plain_ms=plain_ms, losses=losses),
+            "par": par, "times29": times29,
+            "ptxas": {**ptxas_report(lib_log, "mxu_wg_kernelIf"),
+                      **ptxas_report(lib_log, "tf32_split_kernel")}}
+
+
+def normwise_of(torch, got, ref):
+    """|got - ref| / |ref| (Frobenius), ``ref`` in float64."""
+    return float(torch.linalg.norm(got.double() - ref) / torch.linalg.norm(ref))
+
+
+
 def main() -> int:
     import torch
 
@@ -8227,7 +8643,13 @@ def main() -> int:
           f"{nvcc_s.get('semiring_f64.cu')} s), as ptxas reports them:"
         + "".join(f"\n  {k}: {v}" for k, v in {
             **ptxas_report(lib_log, "dmma_tma_kernel"),
-            **ptxas_report(lib_log, "simt_f64")}.items()))
+            **ptxas_report(lib_log, "simt_f64")}.items())
+        + "\nphase 2: B1 / B2's fp32 route (csrc/mxu_wgmma_tf32.cu, nvcc "
+          f"{nvcc_s.get('mxu_wgmma_tf32.cu')} s: one pass, then the three promoted; "
+          f"csrc/tf32_split.cu, nvcc {nvcc_s.get('tf32_split.cu')} s), as ptxas reports them:"
+        + "".join(f"\n  {k}: {v}" for k, v in {
+            **ptxas_report(lib_log, "mxu_wg_kernelIf"),
+            **ptxas_report(lib_log, "tf32_split_kernel")}.items()))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -8269,6 +8691,7 @@ def main() -> int:
     t0 = time.perf_counter()
     slice23 = phase_slice23(torch, lib_log)
     log(f"phase 32: {time.perf_counter() - t0:.1f} s")
+    slice24 = phase_slice24(torch, lib_log, par20, par20_times)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -8514,7 +8937,8 @@ def main() -> int:
              "dmma": "dmma_tma.cuh"}
     shapes = {"wgmma": "silu(acc + b), bf16 8192x4096 . 4096x16384",
               "wmma": "relu(acc + b), bf16 2048x1004 . 1004x2048",
-              "simt": "relu(acc + b), fp32 2048^3", "dmma": "relu(acc + b), float64 2048^3"}
+              "simt": "relu(acc + b), fp32 2048 x 2047 . 2047 x 2048",
+              "dmma": "relu(acc + b), float64 2048^3"}
     for route, what in shapes.items():
         t = r22[f"B1 generated epilogue {route}"]
         kernels.append(kernel(
@@ -8569,6 +8993,48 @@ def main() -> int:
                       for sr, r in slice23["b3"].items()},
         apsp_4096=slice23["apsp"], forms=slice23["forms"],
         ptxas={k: v for k, v in slice23["ptxas"].items() if "simt_f64" in k})
+    # Slice 24 (phase 33): B1 / B2's fp32 route on the engine and its split
+    # pass, each with its launches on phase 33's main path (the front door,
+    # the trainer, 29c / 29e again), its time in turns beside the CUDA-core
+    # tile and the library calls, and its ptxas report.
+    l24, r24 = slice24["launches"], slice24["readings"]
+    par24 = l24["29c / 29e"]
+    t = r24[8192]
+    kernels.append(kernel(
+        "mxu_wgmma_tf32 (B1 / B2 fp32 on the tile engine after the split pass: three TF32 "
+        "passes at precision \"high\", each stage added in IEEE fp32; fp32 8192^3)",
+        "gemm_hls_tpu_torch/csrc/mxu_wgmma_tf32.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        l24["by_route"].get("wgmma float32", 0) + par24["mxu_wgmma_tf32"],
+        dict(ms=t["ms"]["high"], plain_ms=t["ms"]["plain high"], max_abs_err=t["max_abs_err"]),
+        (t["bounds"]["high"] / 1e3, t["bound_by"]["high"]), t["ms"]["sgemm"]))
+    kernels[-1].update(
+        default_ms=t["ms"]["default"], default_bound_ms=t["bounds"]["default"],
+        ffma_bound_ms=t["bounds"]["ffma"], engine_alone_ms={
+            "high": t["ms"]["engine high"], "default": t["ms"]["engine default"]},
+        simt_ms=t["ms"]["simt"], cublas_tf32_ms=t["ms"]["cublas tf32"],
+        normwise=t["normwise"], launches_by_passes=l24["tf32_passes"],
+        parallel_launches_29c_29e=par24["mxu_wgmma_tf32"],
+        shapes_ms={s: r["ms"] for s, r in r24.items() if s != 8192},
+        shapes_normwise={s: r["normwise"] for s, r in r24.items() if s != 8192},
+        trainer_bf16=slice24["trainer"], ptxas={k: v for k, v in slice24["ptxas"].items()
+                                               if "mxu_wg" in k},
+        library_note="library_ms is fp32 torch.matmul without TF32 (cuBLAS SGEMM, the library "
+                     "call for \"high\"); cublas_tf32_ms the same call with TF32 (for "
+                     "\"default\"); simt_ms the CUDA-core tile (csrc/mxu_gemm.cu) on the same "
+                     "operands in the same turns; ms includes both split passes")
+    kernels.append(kernel(
+        "tf32_split (the split pass of B1 / B2's fp32 route: hi and lo rounded to TF32, "
+        "K-major; B (K, N) MN-major at 8192^2, three segments)",
+        "gemm_hls_tpu_torch/csrc/tf32_split.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69",
+        l24.get("B1 tf32 split", 0) + par24["tf32_split"],
+        dict(ms=t["ms"]["split b high"], plain_ms=t["ms"]["plain split b"],
+             max_abs_err=t["split_max_abs_err"]),
+        (t["bounds"]["split b high"] / 1e3, t["bound_by"]["split b high"]), None))
+    kernels[-1].update(
+        default_ms=t["ms"]["split b default"],
+        ptxas={k: v for k, v in slice24["ptxas"].items() if "tf32_split" in k},
+        library_note="no one PyTorch call splits into TF32; the TPU's MXU splits fp32 inside "
+                     "its dot (pallas_mxu.py's DEFAULT / HIGHEST), so no TPU kernel is its own")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,17 @@ f64-class path).
 
 The port of ``examples/09_fp32_frontier.py`` to ``gemm_hls_tpu_torch``: the
 same operands, calls and printed errors.  On the card the fp32 calls run
-kernel B1 on the CUDA cores and the slice schemes kernel B4
+kernel B1 on the tile engine as TF32 and the slice schemes kernel B4
 (``csrc/diag_wgmma.cu``, on the tile engine); ``--device cpu`` runs their
 plain versions.  Differences from the reference: each line prints the
 normwise error only, without the reference's TPU rates; the fp32 config
-names the CUDA cores' compiled tile (``config.route_config("float32")``,
-128 x 128 x 16), which the card requires, for the reference's 128 x 128 x
-512; on the card ``precision="default"`` runs IEEE fp32 as "high" does
-(ROADMAP B, coverage item 6).
+names the compiled tile of the route the card takes
+(``config.route_config("float32")``: the tile engine's 128 x 256 x 32 for
+these aligned operands), which the card requires, for the reference's
+128 x 128 x 512.  On the card "high" runs three TF32 passes of each
+operand's split (HIGHEST's fp32 accuracy) and ``precision="default"`` one
+(the reference's DEFAULT, about 2^-11 relative a product); the CPU runs
+IEEE fp32 for both, as JAX's CPU dot does.
 
     python examples/torch/09_fp32_frontier.py [--device cuda|cpu]
 """

@@ -259,6 +259,15 @@ def _declare(lib):
     lib.mxu_wgmma.argtypes = gemm + [i32, i32, i32, vp, vp, i32, vp]
     lib.dmma_tma_gemm.restype = i32
     lib.dmma_tma_gemm.argtypes = lib.mxu_wgmma.argtypes
+    # fp32 on the engine, on the split pass's K-major workspaces: mxu_wgmma's
+    # arguments with the TF32 passes (1 or 3) in place of the transpose
+    # flags and no input code.
+    lib.mxu_wgmma_tf32.restype = i32
+    lib.mxu_wgmma_tf32.argtypes = gemm[:11] + [i32, i32, i32, vp, vp, i32, vp]
+    # B1 / B2's fp32 route: the TF32 split pass (x, out, batch, rows, k,
+    # ld, bs, mn_major, kp, segs, lo_seg, stream).
+    lib.tf32_split.restype = i32
+    lib.tf32_split.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, i32, vp]
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     # B2's row softmax on the tile engine: (..., in_code, out_code, stream).

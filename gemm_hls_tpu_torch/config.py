@@ -33,7 +33,8 @@ SMEM_LIMIT_BYTES = 232_448
 #            the 2-D calls whose operands a TMA map describes run on the
 #            Hopper tile engine's 128 x 256 tile instead, ops/mxu.py::mxu_route);
 #   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 / int32 plus_times in
-#            mxu_gemm.cu, int16 / uint8 / uint16 / uint32 plus_times in
+#            mxu_gemm.cu, fp32 where no TMA map describes the
+#            operands, int16 / uint8 / uint16 / uint32 plus_times in
 #            mxu_simt_int.cu, and every semiring in semiring_gemm.cu);
 #   "dmma" — csrc/dmma_gemm.cu, float64 plus_times on the FP64 tensor cores
 #            (mma.sync m16n8k4 .f64), its K slices in a ring of DMMA_STAGES
@@ -44,12 +45,14 @@ DMMA_STAGES = 3
 
 # Kernel B1 / B2 on the Hopper tile engine (csrc/wgmma_tile.cuh,
 # csrc/mxu_wgmma.cuh), route "wgmma": a 128 x 256 C tile and a K step of one
-# 128-byte swizzle row of the input type, in a ring of ENGINE_STAGES TMA
-# stages.  ENGINE_FIXED_SMEM: the swizzle's 1024 bytes of alignment slack,
+# 128-byte swizzle row of the input type (fp32: 32 TF32 values of the split
+# pass's workspace, csrc/tf32_split.cu, so a stage keeps the 16-bit types'
+# 48 KB and the ring its stages), in a ring of ENGINE_STAGES TMA stages.
+# ENGINE_FIXED_SMEM: the swizzle's 1024 bytes of alignment slack,
 # the stages' full / empty mbarriers and six send slots' (``WgBars``), and
 # the epilogue's two staging rows of 2 x 256 floats (``kMxuWgSmem``).
 ENGINE_TILES = {"bfloat16": (128, 256, 64), "float16": (128, 256, 64),
-                "int8": (128, 256, 128)}
+                "int8": (128, 256, 128), "float32": (128, 256, 32)}
 ENGINE_STAGES = 4
 ENGINE_FIXED_SMEM = 1024 + 8 * (2 * ENGINE_STAGES + 6) + 2 * 2 * 256 * 4
 
@@ -146,8 +149,11 @@ def accumulator_for(dtype) -> str:
 
 
 def kernel_route(dtype, semiring: str = "plus_times") -> str:
-    """Which compiled tile runs this (dtype, semiring): "tc" (bf16 / fp16 /
-    int8 plus_times), "dmma" (float64 plus_times) or "simt" (the rest)."""
+    """Which compiled tile the front door's default config names for this
+    (dtype, semiring): "tc" (bf16 / fp16 / int8 plus_times), "dmma"
+    (float64 plus_times) or "simt" (the rest, fp32 plus_times included).
+    Where a TMA map describes the operands, a bf16 / fp16 / int8 / fp32
+    plus_times call runs on the engine instead (:func:`call_route`)."""
     if semiring == "plus_times" and dtype_name(dtype) in _TENSOR_CORE_DTYPES:
         return "tc"
     if semiring == "plus_times" and dtype_name(dtype) == "float64":
@@ -156,15 +162,23 @@ def kernel_route(dtype, semiring: str = "plus_times") -> str:
 
 
 def call_route(dtype, semiring: str = "plus_times", transpose_a: bool = False,
-               transpose_b: bool = False, aligned: bool = True) -> str:
+               transpose_b: bool = False, aligned: bool = True, out_dtype=None) -> str:
     """The route a 2-D or batched call takes: ``ops/mxu.py::mxu_route``'s
     rule in this module's names.  "wgmma" (the tile engine) for bf16 /
-    fp16 in any layout and int8 with A (M, K) and B held (N, K), when the
-    operands are ``aligned`` (16-byte bases and row pitches); "tc" (the
-    WMMA tile) for the other bf16 / fp16 / int8 plus_times calls; "dmma"
-    (the FP64 tensor cores, any layout and alignment) for float64
-    plus_times; "simt" for the rest."""
+    fp16 / fp32 in any layout (fp32 as TF32 passes on workspaces the
+    split pass turns K-major, into an fp32 / bf16 / fp16 ``out_dtype``, or
+    None: the config's own) and int8 with A (M, K) and B held (N, K),
+    when the operands are ``aligned`` (16-byte bases, row pitches and batch
+    strides); "tc" (the WMMA tile) for the other bf16 / fp16 / int8
+    plus_times calls; "dmma" (the FP64 tensor cores, any layout and
+    alignment) for float64 plus_times; "simt" for the rest (unaligned fp32
+    plus_times and fp32 into float64, which the engine does not store,
+    included)."""
     route = kernel_route(dtype, semiring)
+    if semiring == "plus_times" and dtype_name(dtype) == "float32":
+        engine_out = out_dtype is None or dtype_name(out_dtype) in ("float32", "bfloat16",
+                                                                   "float16")
+        return "wgmma" if aligned and engine_out else "simt"
     if route != "tc" or not aligned:
         return route
     if dtype_name(dtype) != "int8" or (not transpose_a and transpose_b):
@@ -172,17 +186,22 @@ def call_route(dtype, semiring: str = "plus_times", transpose_a: bool = False,
     return "tc"
 
 
-def named_route(route: Optional[str], rule: str, what: str) -> str:
+def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
     """The route a launch takes: ``route`` where a caller names one (a
     tuned winner, a comparison), else ``rule``, the route rule's.  Naming
     the tile engine ("wgmma") where the rule does not give it raises (its
     TMA maps cannot describe the call), and so does a CUDA-core route
     ("simt") for inputs the rule sends to the tensor cores, or the
     reverse, and any other route for float64 ("dmma", the one kernel that
-    takes it) or "dmma" for another type."""
+    takes it) or "dmma" for another type.  B1 / B2 pass the inputs'
+    ``dtype``: fp32 runs on the engine (TF32) or on the CUDA cores, so
+    "simt" may be named where the rule gives "wgmma", and no other."""
     if route is None or route == rule:
         return rule
-    if (route == "wgmma" or (route == "simt") != (rule == "simt")
+    fp32 = dtype is not None and dtype_name(dtype) == "float32"
+    if fp32 and route == "simt" and rule == "wgmma":
+        return route
+    if (route == "wgmma" or fp32 or (route == "simt") != (rule == "simt")
             or "dmma" in (route, rule)):
         raise ValueError(f"{what}: route {route!r} cannot run this call; the route "
                          f"rule gives {rule!r}")
@@ -239,12 +258,19 @@ class GemmConfig:
     minus its three TPU-only fields (``interpret``, ``vmem_limit_bytes``,
     ``debug``), which :meth:`from_reference` drops.
 
-    ``precision`` applies to float32 plus_times: "high" and "highest" run
-    IEEE fp32 FMA on CUDA cores.  float64 plus_times runs IEEE float64 FMA
-    on the FP64 tensor cores (``csrc/dmma_gemm.cu``) whatever the
-    precision, as the reference's float64 dot does.  "default" (the TPU's bf16 multi-pass) has
-    no Hopper counterpart yet and also runs IEEE fp32 (ROADMAP B
-    coverage item 6: the TF32 decision).  "i8x2" / "i8x3" / "i8x4" run fp32 through 2 / 3
+    ``precision`` applies to float32 plus_times.  Where a TMA map
+    describes the operands (the engine route, ``ops/mxu.py::mxu_route``)
+    it runs TF32 on the tensor cores (``ops/mxu.py::tf32_passes``):
+    "default" one pass of the operands rounded to TF32 (the reference's
+    Precision.DEFAULT, about 2^-11 relative a product, as the TPU's bf16
+    pass documents ~5e-4), "high" and "highest" three passes, hi . hi +
+    hi . lo + lo . hi of each operand's TF32 split (HIGHEST's fp32
+    accuracy).  Unaligned fp32, and fp32 into a float64 output, run IEEE
+    fp32 FMA on the CUDA cores whatever the precision.  float64 plus_times runs IEEE float64 FMA on
+    the FP64 tensor cores (``csrc/dmma_tma.cu``, ``csrc/dmma_gemm.cu``)
+    whatever the precision, as the reference's float64 dot does.  On the
+    CPU every precision is IEEE fp32, as JAX's CPU dot computes DEFAULT.
+    "i8x2" / "i8x3" / "i8x4" run fp32 through 2 / 3
     / 4 int8 slices per operand on the int8 tensor cores
     (``ops/int8_slices.py``, kernels B4 / B5): 3 / 6 / 10 int8 products,
     about 2^-14 / 2^-21 normwise and the fp32 output floor.

@@ -1,6 +1,7 @@
 // Kernels B1 and B2 on the tile engine (csrc/mxu_wgmma.cuh): the int8
 // kernel (both operands K-major: A (M, K), B held as (N, K)) and the entry
-// that takes every type the engine route runs.
+// that takes the 16-bit types and int8 (fp32 has its own entry,
+// mxu_wgmma_tf32, in csrc/mxu_wgmma_tf32.cu).
 #include "mxu_wgmma.cuh"
 
 using namespace gemm_hls;

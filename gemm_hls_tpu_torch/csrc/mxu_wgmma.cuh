@@ -1,7 +1,9 @@
 // Kernels B1 and B2 on the Hopper tile engine (csrc/wgmma_tile.cuh): the
 // dense GEMM C[z] (M, N) = epilogue(op(A[z]) . op(B[z])) for bf16 / fp16
-// inputs with fp32 sums, and int8 inputs with int32 sums where both
-// operands are K-major; one example (B1) or a batch of them (B2).  The
+// inputs with fp32 sums, int8 inputs with int32 sums where both operands
+// are K-major, and fp32 inputs as TF32 on the K-major workspaces of
+// csrc/tf32_split.cu (one pass, or three passes laid along K); one example
+// (B1) or a batch of them (B2).  The
 // counterpart of gemm_hls_tpu/ops/pallas_mxu.py::_kernel and its fused
 // per-column epilogue (:69, :103), and of ::_batched_kernel (:143, called
 // at :298 with the epilogue and :328 without); the shapes it does not take
@@ -247,8 +249,10 @@ struct MxuWgArgs {
   long long spin;
 };
 
-// MnA: A is held (K, M); MnB: B is held (K, N) (the main path's layout).
-template <typename T, bool MnA, bool MnB>
+// MnA: A is held (K, M); MnB: B is held (K, N) (the main path's layout);
+// kPromote: fp32's three TF32 passes, each stage's sum added in IEEE fp32
+// (wgmma_tile.cuh, wg_consume).
+template <typename T, bool MnA, bool MnB, bool kPromote = false>
 __global__ void __launch_bounds__(kWgThreads, 1) mxu_wg_kernel(const __grid_constant__ MxuWgArgs g) {
   extern __shared__ unsigned char dyn_smem[];
   unsigned char* smem = wg_align(dyn_smem);
@@ -259,13 +263,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) mxu_wg_kernel(const __grid_cons
   const WgJob job{{&g.ma, &g.ma}, {&g.mb, &g.mb}, {nullptr, nullptr}, 0, 0, nullptr, nullptr,
                   nullptr, g.spin, g.M, g.N, g.K, g.batch, static_cast<int>(gridDim.x),
                   static_cast<int>(blockIdx.x), 1, g.batch_maps};
-  wg_compute<T, MnA, MnB>(job, smem, bars, [&](int z) {
+  wg_compute<T, MnA, MnB, kPromote>(job, smem, bars, [&](int z) {
     return EpOut{static_cast<char*>(g.c) + z * g.c_step, g.ldc, g.out_code, g.ep, cols};
   });
 }
 
 // The engine with a generated epilogue functor ``Ep`` at its store.
-template <typename T, bool MnA, bool MnB, typename Ep>
+template <typename T, bool MnA, bool MnB, typename Ep, bool kPromote>
 __global__ void __launch_bounds__(kWgThreads, 1)
 mxu_wg_ep_kernel(const __grid_constant__ MxuWgArgs g, const __grid_constant__ Ep ep) {
   extern __shared__ unsigned char dyn_smem[];
@@ -276,7 +280,7 @@ mxu_wg_ep_kernel(const __grid_constant__ MxuWgArgs g, const __grid_constant__ Ep
   const WgJob job{{&g.ma, &g.ma}, {&g.mb, &g.mb}, {nullptr, nullptr}, 0, 0, nullptr, nullptr,
                   nullptr, g.spin, g.M, g.N, g.K, g.batch, static_cast<int>(gridDim.x),
                   static_cast<int>(blockIdx.x), 1, g.batch_maps};
-  wg_compute<T, MnA, MnB>(job, smem, bars, [&](int z) {
+  wg_compute<T, MnA, MnB, kPromote>(job, smem, bars, [&](int z) {
     return EpOutGen<Ep>{static_cast<char*>(g.c) + z * g.c_step, g.ldc, g.out_code, &ep};
   });
 }
@@ -352,13 +356,13 @@ int mxu_wg_setup(const MxuWgCall& call, MxuWgArgs& g, unsigned& blocks) {
   return 0;
 }
 
-template <typename T, bool MnA, bool MnB>
+template <typename T, bool MnA, bool MnB, bool kPromote = false>
 int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
   MxuWgArgs g{};
   unsigned blocks = 0;
   const int rc = mxu_wg_setup<T, MnA, MnB>(call, g, blocks);
   if (rc) return rc;
-  auto kern = mxu_wg_kernel<T, MnA, MnB>;
+  auto kern = mxu_wg_kernel<T, MnA, MnB, kPromote>;
   static const int attr = static_cast<int>(
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMxuWgSmem));
   if (attr) return attr;
@@ -367,15 +371,16 @@ int launch_mxu_wg(const MxuWgCall& call, cudaStream_t st) {
 }
 
 // The engine under a generated epilogue: the one type and layout its
-// library was built for (-1 for another), no column staging.
-template <typename T, bool MnA, bool MnB, typename Ep>
+// library was built for (-1 for another), no column staging; kPromote as
+// for mxu_wg_kernel.
+template <typename T, bool MnA, bool MnB, bool kPromote = false, typename Ep>
 int launch_mxu_wg_ep(const MxuWgCall& call, const Ep& ep, cudaStream_t st) {
   if (static_cast<bool>(call.ta) != MnA || static_cast<bool>(call.tb) == MnB) return kUnsupported;
   MxuWgArgs g{};
   unsigned blocks = 0;
   const int rc = mxu_wg_setup<T, MnA, MnB>(call, g, blocks);
   if (rc) return rc;
-  auto kern = mxu_wg_ep_kernel<T, MnA, MnB, Ep>;
+  auto kern = mxu_wg_ep_kernel<T, MnA, MnB, Ep, kPromote>;
   static const int attr = static_cast<int>(
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem));
   if (attr) return attr;
@@ -392,7 +397,7 @@ int launch_mxu_wg_16(const MxuWgCall& call, cudaStream_t st) {
 }
 
 // Defined in mxu_wgmma_bf16.cu / mxu_wgmma_f16.cu (one translation unit a
-// type, compiled side by side).
+// type, compiled side by side; fp32 has its own entry, mxu_wgmma_tf32.cu).
 int launch_mxu_wg_bf16(const MxuWgCall& call, cudaStream_t st);
 int launch_mxu_wg_f16(const MxuWgCall& call, cudaStream_t st);
 

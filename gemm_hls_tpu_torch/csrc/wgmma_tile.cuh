@@ -30,7 +30,8 @@
 //   * warpgroups 1 and 2, the consumers (setmaxnreg 232), each own 64 rows
 //     of the 128 x 256 tile: per stage, four wgmma.mma_async of m64n256 --
 //     k16 bf16 / fp16 with fp32 sums, or k32 s8 x s8 -> s32 -- on
-//     128-byte-swizzled slabs, one wgmma group kept in flight, a stage
+//     128-byte-swizzled slabs (k8 tf32 for the fp32 route, both operands
+//     K-major), one wgmma group kept in flight, a stage
 //     released once the group that read it has retired.  The tile's sums
 //     stay in registers (128 a thread) and go out from there (TileOut,
 //     dist_tile.cuh; B1's EpOut).  ptxas reports such a kernel at 168
@@ -73,6 +74,7 @@
 
 #include <cuda.h>
 
+#include <type_traits>
 #include <vector>
 
 #include "dist_tile.cuh"
@@ -113,6 +115,13 @@ template <> struct WgType<__half> {
 template <> struct WgType<signed char> {
   using Acc = int;
   static constexpr int BK = 128;
+};
+// fp32 read as TF32: B1 / B2's fp32 route, on the K-major workspaces of
+// csrc/tf32_split.cu (hi, and lo, rounded to TF32 there: wgmma would cut
+// the raw bits).  A 128-byte row holds 32 values, four k8 steps.
+template <> struct WgType<float> {
+  using Acc = float;
+  static constexpr int BK = 32;
 };
 
 __device__ __forceinline__ unsigned char* wg_align(unsigned char* dyn) {
@@ -362,6 +371,33 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db
       : WG_R128
       : "l"(da), "l"(db), "r"(scale_d));
 }
+// k8 of TF32 (32-bit values whose low 13 bits are 0), both operands
+// K-major (tf32 wgmma has no transpose bit), fp32 sums.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {" WG_REGS128
+      "}, %128, %129, p, 1, 1;\n}"
+      : WG_F128
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// m64n64k8 of TF32: one quarter of a warpgroup's 64 x 256 part, summed a
+// stage at a time (the promoted three-pass route, wg_consume).
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 // m64n128k32 of int8: B5's diagonal accumulator (64 a thread).
 __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -407,6 +443,11 @@ template <bool TA, bool TB> struct WgMma<__half, TA, TB> {
 template <> struct WgMma<signed char, false, false> {
   static __device__ __forceinline__ void run(int (&d)[128], uint64_t da, uint64_t db, int sd) {
     wgmma_s8(d, da, db, sd);
+  }
+};
+template <> struct WgMma<float, false, false> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t da, uint64_t db, int sd) {
+    wgmma_tf32(d, da, db, sd);
   }
 };
 
@@ -639,7 +680,33 @@ __device__ void wg_produce(const WgJob& j, unsigned char* smem, WgBars* bars, in
   if (j.stamps) stamp_max(j.stamps + 2, longest);
 }
 
-template <typename T, bool MnA, bool MnB, typename OutOf>
+// kPromote (fp32's three TF32 passes, csrc/mxu_wgmma_tf32.cu): the tensor
+// cores add each k8 step's products into an fp32 sum cut toward zero, an
+// error that grows with K and in one direction (at K 1024, 18x SGEMM's
+// normwise error, PERF.md); so a stage's products are summed in fresh
+// m64n64 partials, a quarter of the warpgroup's 64 x 256 at a time, and
+// added into d (not a wgmma operand then) with IEEE adds: the cut error
+// stays that of a 32-deep sum.  Quarter q's partial is d[32 q, 32 q + 32)
+// of the m64n256 fragment, so the store is the same.  Two partials take
+// turns, the next quarter issued before the last is waited for (wait_group
+// 0: at wait_group 1 ptxas serialised the wgmma, C7514): 1.7x faster
+// than m64n128 halves and than one partial waited for at once (PERF.md).
+template <int Q>
+__device__ __forceinline__ void tf32_quarter(float (&p)[32], uint64_t da, uint32_t sb) {
+  const uint64_t db = wg_desc(sb + Q * 64 * kWgRowBytes);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32_n64(p, da + 2 * kk, db + 2 * kk, kk > 0);
+  wg_commit();
+}
+template <int Q>
+__device__ __forceinline__ void tf32_add(float (&d)[128], float (&p)[32]) {
+  wg_pin(p);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[32 * Q + i] = __fadd_rn(d[32 * Q + i], p[i]);
+}
+
+template <typename T, bool MnA, bool MnB, bool kPromote, typename OutOf>
 __device__ void wg_consume(const WgJob& j, unsigned char* smem, WgBars* bars, OutOf out_of,
                            int tiles_m, int tiles_n, int ksteps) {
   using Acc = typename WgType<T>::Acc;
@@ -673,31 +740,71 @@ __device__ void wg_consume(const WgJob& j, unsigned char* smem, WgBars* bars, Ou
     }
     int m0, n0;
     tile_origin(t, tiles_m, tiles_n, kWgBM, kWgBN, m0, n0);
-    wg_pin(d);
-    for (int kt = 0; kt < ksteps; ++kt) {
-      mbar_wait(&bars->full[stage], phase, j.spin);
-      const uint32_t st = base + stage * kWgStage;
-      // A warpgroup's 64 rows: half the K-major box, or the whole of one
-      // of the two MN-major boxes (8 KB either way).
-      const uint64_t da = SA::desc(st + wg * kWgMnBox), db = SB::desc(st + kWgTileA);
-      wg_fence();
+    if constexpr (kPromote) {
+      static_assert(std::is_same<T, float>::value && !MnA && !MnB, "promoted TF32 only");
+      // Group g = 4 kt + q sums stage kt's quarter q in p[g % 2]; group g + 1
+      // is issued before group g is waited for and added.
+      float p0[32], p1[32];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        WgMma<T, MnA, MnB>::run(d, da + SA::kStep * kk, db + SB::kStep * kk, kt > 0 || kk > 0);
-      wg_commit();
-      if (kt > 0) {
-        wg_wait<1>();  // the group that read stage prev has retired
+      for (int i = 0; i < 128; ++i) d[i] = 0.f;
+      for (int kt = 0; kt < ksteps; ++kt) {
+        mbar_wait(&bars->full[stage], phase, j.spin);
+        const uint32_t st = base + stage * kWgStage;
+        const uint64_t da = SA::desc(st + wg * kWgMnBox);
+        const uint32_t sb = st + kWgTileA;
+        tf32_quarter<0>(p0, da, sb);
+        if (kt > 0) {
+          wg_wait<0>();
+          tf32_add<3>(d, p1);
+          mbar_arrive(&bars->empty[prev]);  // the last group that read it has retired
+        }
+        tf32_quarter<1>(p1, da, sb);
+        wg_wait<0>();
+        tf32_add<0>(d, p0);
+        tf32_quarter<2>(p0, da, sb);
+        wg_wait<0>();
+        tf32_add<1>(d, p1);
+        tf32_quarter<3>(p1, da, sb);
+        wg_wait<0>();
+        tf32_add<2>(d, p0);
+        prev = stage;
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_wait<0>();
+      if (ksteps > 0) {
+        tf32_add<3>(d, p1);
         mbar_arrive(&bars->empty[prev]);
       }
-      prev = stage;
-      if (++stage == kWgStages) {
-        stage = 0;
-        phase ^= 1;
+    } else {
+      wg_pin(d);
+      for (int kt = 0; kt < ksteps; ++kt) {
+        mbar_wait(&bars->full[stage], phase, j.spin);
+        const uint32_t st = base + stage * kWgStage;
+        // A warpgroup's 64 rows: half the K-major box, or the whole of one
+        // of the two MN-major boxes (8 KB either way).
+        const uint64_t da = SA::desc(st + wg * kWgMnBox), db = SB::desc(st + kWgTileA);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgMma<T, MnA, MnB>::run(d, da + SA::kStep * kk, db + SB::kStep * kk, kt > 0 || kk > 0);
+        wg_commit();
+        if (kt > 0) {
+          wg_wait<1>();  // the group that read stage prev has retired
+          mbar_arrive(&bars->empty[prev]);
+        }
+        prev = stage;
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
+      wg_wait<0>();
+      mbar_arrive(&bars->empty[prev]);
+      wg_pin(d);
     }
-    wg_wait<0>();
-    mbar_arrive(&bars->empty[prev]);
-    wg_pin(d);
     const auto o = out_of(s);
     int* flag = j.tile_flags ? j.tile_flags + t : nullptr;
     if (flag && wg_reads_sum(o)) {
@@ -721,10 +828,11 @@ __device__ void wg_consume(const WgJob& j, unsigned char* smem, WgBars* bars, Ou
 
 // The compute block: ``smem`` the aligned dynamic shared memory, the
 // barriers initialised; out_of(s) is step s's output (TileOut or EpOut).
-// MnA / MnB: the operand is MN-major (16-bit types only).
-template <typename T, bool MnA = false, bool MnB = false, typename OutOf>
+// MnA / MnB: the operand is MN-major (16-bit types only); kPromote: see
+// wg_consume (fp32's three TF32 passes).
+template <typename T, bool MnA = false, bool MnB = false, bool kPromote = false, typename OutOf>
 __device__ void wg_compute(const WgJob& j, unsigned char* smem, WgBars* bars, OutOf out_of) {
-  static_assert(sizeof(T) == 2 || !(MnA || MnB), "int8 wgmma reads K-major operands only");
+  static_assert(sizeof(T) == 2 || !(MnA || MnB), "int8 and tf32 wgmma read K-major operands only");
   const int tiles_m = (j.M + kWgBM - 1) / kWgBM, tiles_n = (j.N + kWgBN - 1) / kWgBN;
   const int ksteps = (j.K + WgType<T>::BK - 1) / WgType<T>::BK;
   if (threadIdx.x < 128) {
@@ -732,7 +840,7 @@ __device__ void wg_compute(const WgJob& j, unsigned char* smem, WgBars* bars, Ou
     if (threadIdx.x == 0) wg_produce<T, MnA, MnB>(j, smem, bars, tiles_m, tiles_n, ksteps);
   } else {
     reg_alloc<232>();
-    wg_consume<T, MnA, MnB>(j, smem, bars, out_of, tiles_m, tiles_n, ksteps);
+    wg_consume<T, MnA, MnB, kPromote>(j, smem, bars, out_of, tiles_m, tiles_n, ksteps);
   }
 }
 

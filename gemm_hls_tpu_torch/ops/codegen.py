@@ -653,7 +653,10 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
     ``extern "C" gen_epilogue_gemm`` with ``mxu_gemm``'s arguments, four
     operand pointers in place of two and no epilogue kind.  "dmma" takes
     its ``tile`` (``ops/mxu.py::dmma_tile``): "tma" (``dmma_tma.cuh``) or
-    "cp_async" (``dmma_gemm.cuh``, also where none is named)."""
+    "cp_async" (``dmma_gemm.cuh``, also where none is named); fp32 on
+    "wgmma" its TF32 passes as the tile, "tf32x1" or "tf32x3" (the
+    split pass's K-major workspaces, so ``transpose_a`` False and
+    ``transpose_b`` True; three passes add each stage's sum in IEEE fp32)."""
     acc = prog.dtypes[0]
     act = _CTYPES[acc]
     ops = prog.dtypes[1:]
@@ -685,12 +688,14 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
             f"               EpArgs{{nullptr, nullptr, 0, kEpNone}}}};")
     if route == "wgmma":
         include = "mxu_wgmma.cuh"
+        if (in_dtype == torch.float32) != (tile in ("tf32x1", "tf32x3")):
+            raise refuse(prog.what, f"engine tile {tile!r} for {dtype_name(in_dtype)} inputs")
         launch = (f"if (batch < 1 || batch > INT_MAX) return kUnsupported;\n"
                   f"  const MxuWgCall call{{a, b, c, static_cast<int>(batch), M, N, K, lda, ldb, sa,"
                   f" sb, ta, tb,\n                       out_code, EpArgs{{nullptr, nullptr, 0, "
                   f"kEpNone}}}};\n"
                   f"  return launch_mxu_wg_ep<{in_ct}, {str(ta).lower()}, "
-                  f"{str(not tb).lower()}>(call, ep, s);")
+                  f"{str(not tb).lower()}{', true' if tile == 'tf32x3' else ''}>(call, ep, s);")
     elif route == "wmma":
         include = "mxu_tc.cuh"
         b_row = in_dtype.itemsize == 2 and not tb
@@ -709,7 +714,7 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
                   f"(g, batch, s, ep);")
     else:
         raise refuse(prog.what, f"route {route!r} takes no generated epilogue")
-    tile_note = f" ({tile} tile)" if route == "dmma" else ""
+    tile_note = f" ({tile} tile)" if tile else ""
     return f"""// Generated by gemm_hls_tpu_torch/ops/codegen.py: kernels B1 / B2 on the
 // {route!r} route{tile_note} for {dtype_name(in_dtype)} inputs ({_LAYOUT_NOTE[route](ta, tb)}), a
 // {dtype_name(acc)} accumulator, and the Python callable epilogue {prog.what!r} on

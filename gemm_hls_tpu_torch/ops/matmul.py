@@ -3,12 +3,14 @@
 Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
 
 * ``plus_times``                 -> kernel B1 (2-D) or B2 (batched)
-  (``ops/mxu.py``; float64 on the FP64 tensor cores, int16 and the
-  unsigned ints on the CUDA cores), differentiable through
-  :class:`_MxuPadded` / :class:`_MxuBatched`, whose backward is B1 / B2
-  again; with a fused ``epilogue``, through :class:`_MxuEpilogue` (a
-  Python callable epilogue compiled at first use into a functor at the
-  store, ``ops/codegen.py``).  int64 plus_times raises TypeError, as in
+  (``ops/mxu.py``; aligned fp32 as TF32 passes on the tile engine, float64
+  on the FP64 tensor cores, int16 and the unsigned ints on the CUDA
+  cores), differentiable through :class:`_MxuPadded` /
+  :class:`_MxuBatched`, whose backward is B1 / B2 again at the precision
+  the reference resolves for the forward (:func:`backward_precision`);
+  with a fused ``epilogue``, through :class:`_MxuEpilogue` (a Python
+  callable epilogue compiled at first use into a functor at the store,
+  ``ops/codegen.py``).  int64 plus_times raises TypeError, as in
   the JAX package.
 * bool ``or_and``                -> B1 / B2 on int8 -> int32 counts.
 * any other semiring             -> kernel B3 (``ops/vpu.py``), 2-D or batched;
@@ -116,20 +118,36 @@ def _plus_times(a, b, cfg: GemmConfig, route=None):
     return _MxuBatched.apply(a, b, cfg, route)
 
 
+def backward_precision(cfg: GemmConfig) -> str:
+    """The precision of the backward GEMMs of a forward under ``cfg``: the
+    reference keeps the forward's config (``gemm_hls_tpu/ops/matmul.py``'s
+    ``_mxu_bwd``, ``cfg.replace``), whose ``_resolve_precision``
+    (``ops/pallas_mxu.py``) gives DEFAULT for any input narrower than 4
+    bytes or not floating, so a bf16 / fp16 layer's fp32 cotangent meets
+    the MXU at DEFAULT: "default" there (one TF32 pass on the card), the
+    config's own precision otherwise."""
+    d = torch_dtype(cfg.dtype)
+    if not d.is_floating_point or d.itemsize < 4:
+        return "default"
+    return cfg.precision
+
+
 def _mxu_bwd(cfg: GemmConfig, res, g, need=(True, True)):
     """(dA, dB) for the cotangent ``g``; None where ``need`` says no
     gradient is wanted (no GEMM is run for it)."""
     a, b = res
     ta, tb = cfg.transpose_a, cfg.transpose_b
     g = g.to(cfg.tacc_dtype)
+    precision = backward_precision(cfg)
 
     def run(x, y, tx, ty, like):
         # The cotangent is fp32 while a bf16 operand stays bf16: promote the
-        # pair, as the reference's dot does.
+        # pair, as the reference's dot does, at the precision the
+        # reference resolves for the forward's config.
         dt = torch.promote_types(x.dtype, y.dtype)
         c = default_config(dt).replace(
             transpose_a=tx, transpose_b=ty, out_dtype=dtype_name(like.dtype),
-            precision=cfg.precision)
+            precision=precision)
         out = _plus_times(x.to(dt), y.to(dt), c)
         if out.ndim > like.ndim:  # a broadcast 2-D operand: sum the batch
             out = out.sum(0)
@@ -352,13 +370,14 @@ def _vpu_dispatch(a, b, cfg: GemmConfig, sr: Semiring):
 # (gemm_hls_tpu/ops/matmul.py:631-647, :127-141).
 # ---------------------------------------------------------------------------
 
-def _cached_winner(a, b, ta: bool, tb: bool):
-    """(config, route) of the cached winner for this plus_times call, or
-    (None, None) on a miss.  2-D operands read the dense entry
-    (``cached_config``: the winner's blocks and the route they name);
-    batched ones the batched entry (``cached_batch_block``: the B2 route).
-    The lookup never measures, and an entry whose route cannot run these
-    operands is a miss (``tools/autotune.py``)."""
+def _cached_winner(a, b, ta: bool, tb: bool, out_dtype=None):
+    """(config, route) of the cached winner for this plus_times call into
+    ``out_dtype`` (None: the inputs' type), or (None, None) on a miss.
+    2-D operands read the dense entry (``cached_config``: the winner's
+    blocks and the route they name); batched ones the batched entry
+    (``cached_batch_block``: the B2 route).  The lookup never measures, and
+    an entry whose route the rule cannot run on these operands into this
+    output type is a miss (``tools/autotune.py``)."""
     from gemm_hls_tpu_torch.tools import autotune
 
     def aligned():
@@ -370,12 +389,14 @@ def _cached_winner(a, b, ta: bool, tb: bool):
     if a.ndim == 2 and b.ndim == 2:
         hit = autotune.cached_winner(m, n, k, dtype=dtype,
                                      layout=autotune.layout_of(ta, tb),
-                                     aligned=aligned, device=a.device)
+                                     aligned=aligned, device=a.device,
+                                     out_dtype=out_dtype)
         return hit if hit is not None else (None, None)
     bsz = a.shape[0] if a.ndim == 3 else b.shape[0]
     route = autotune.cached_batch_block(bsz, m, n, k, dtype=dtype,
                                         layout=autotune.layout_of(ta, tb),
-                                        aligned=aligned, device=a.device)
+                                        aligned=aligned, device=a.device,
+                                        out_dtype=out_dtype)
     return None, route
 
 
@@ -491,7 +512,7 @@ def matmul(
             and epilogue is None and a.dtype == b.dtype
             and precision not in _I8X):
         config, force = _cached_winner(a, b, bool(transpose_a),
-                                       bool(transpose_b))
+                                       bool(transpose_b), out_dtype)
     if config is None:
         bm, bn, bk = KERNEL_TILES["simt" if backend == "vpu"
                                   else kernel_route(a.dtype, sr.name)]

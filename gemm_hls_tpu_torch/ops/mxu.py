@@ -1,8 +1,9 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
-(``csrc/mxu_wgmma.cu`` on the tile engine, ``csrc/mxu_gemm.cu``, float64 on
+(``csrc/mxu_wgmma.cu`` on the tile engine, fp32 there as TF32 after the
+split pass ``csrc/tf32_split.cu``; ``csrc/mxu_gemm.cu``, float64 on
 ``csrc/dmma_tma.cu`` or ``csrc/dmma_gemm.cu``; B2's row softmax
 ``csrc/row_softmax_wgmma.cu`` on the engine, ``csrc/row_softmax.cu``) and
-their plain PyTorch version.
+their plain PyTorch versions.
 
 Counterparts of ``gemm_hls_tpu/ops/pallas_mxu.py::mxu_matmul`` (2-D, B1)
 and ``::mxu_matmul_batched`` (3-D, B2), each with its optional fused
@@ -25,7 +26,7 @@ import torch
 from gemm_hls_tpu_torch import _build
 from gemm_hls_tpu_torch.config import (
     ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, named_route,
-    row_softmax_fusable,
+    round_up, row_softmax_fusable,
 )
 from gemm_hls_tpu_torch.ops import codegen
 from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
@@ -143,25 +144,157 @@ def operand_aligned(x) -> bool:
     return x.shape[-1] * x.element_size() % 16 == 0
 
 
-def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool) -> str:
+def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool,
+              out_dtype=None) -> str:
     """The kernel a B1 or B2 launch takes (one rule for both, 2-D and
     batched): ``"wgmma"`` (the Hopper tile engine, ``csrc/mxu_wgmma.cu``:
     TMA and warp-specialised wgmma, a batch walked as the engine's steps)
-    for bf16 or fp16 in any layout, or int8 with both operands K-major (A
-    (M, K), B held (N, K): int8 wgmma reads nothing else), whose operands
-    are ``aligned`` (16-byte bases, row pitches and batch strides whole
-    16-byte units: what a TMA map describes); ``"wmma"``
+    for bf16 or fp16 in any layout, int8 with both operands K-major (A
+    (M, K), B held (N, K): int8 wgmma reads nothing else), or fp32 in any
+    layout (as TF32: :func:`tf32_operand` splits and turns each operand
+    K-major first, and the engine runs :func:`tf32_passes` passes) into an
+    fp32 / bf16 / fp16 ``out_dtype`` (None: the config's), whose
+    operands are ``aligned`` (16-byte bases, row pitches and batch strides
+    whole 16-byte units: what a TMA map describes); ``"wmma"``
     (``csrc/mxu_gemm.cu``'s tensor-core tile) for the other bf16 / fp16 /
     int8 calls; ``"dmma"`` (IEEE float64 on the FP64 tensor cores, any
     layout and alignment; its tile: :func:`dmma_tile`) for float64;
-    ``"simt"`` (IEEE
-    fp32, or an int32 accumulator that wraps, on the CUDA cores) for fp32
-    and int32, int16, uint8, uint16 and uint32.  B2's row softmax has kernels of its own
+    ``"simt"`` (IEEE fp32, or an int32 accumulator that wraps, on the CUDA
+    cores) for unaligned fp32, fp32 into float64 (the engine stores the
+    base types) and int32, int16, uint8, uint16 and uint32 (a caller may
+    name it for aligned fp32 too: a tuned winner, a comparison).  B2's row softmax has kernels of its own
     (:func:`row_softmax_route`).  Chosen by shape, never as a fallback: a
     kernel that fails to build or launch raises.  The rule itself is
     ``config.call_route``'s, whose "tc" tile is WMMA's."""
-    route = call_route(dtype, "plus_times", transpose_a, transpose_b, aligned)
+    route = call_route(dtype, "plus_times", transpose_a, transpose_b, aligned, out_dtype)
     return "wmma" if route == "tc" else route
+
+
+# ---- B1 / B2's fp32 route on the engine: the TF32 split ------------------
+
+def tf32_passes(precision: str) -> int:
+    """TF32 passes of an fp32 launch on the engine: 1 for ``"default"`` (hi
+    . hi, the reference's Precision.DEFAULT: about 2^-11 relative a
+    product), 3 for ``"high"`` / ``"highest"`` (hi . hi + hi . lo + lo . hi
+    in one fp32 accumulator, HIGHEST's fp32 accuracy: the dropped lo . lo
+    is about 2^-22 of a product)."""
+    return 1 if precision == "default" else 3
+
+
+# The segment of a three-pass workspace row that holds lo: A [hi | hi | lo]
+# against B [hi | lo | hi] along K gives hi.hi + hi.lo + lo.hi.  The hi
+# facing the other operand's lo, segment 3 - lo, holds 0 for +-inf and NaN:
+# only hi.hi carries them, so inf . 1.0 is inf, not inf + 1.0 . 0 . inf.
+TF32_LO_SEG = {"a": 2, "b": 1}
+
+
+def _tf32_bits(u):
+    """TF32 bits of fp32 bits ``u`` (int64 holding the uint32): round to
+    nearest even at bit 13, the low 13 bits cleared; a rounding that
+    reaches the all-ones exponent cut toward zero instead (hi stays
+    finite); +-inf kept, NaN kept quiet with its sign.  The integer
+    operations of ``csrc/tf32_split.cu::tf32_bits``."""
+    special = (u & 0x7F800000) == 0x7F800000
+    r = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    r = torch.where((r & 0x7F800000) == 0x7F800000, u & 0xFFFFE000, r)
+    nan = torch.where((u & 0x7FFFFF) != 0, (u | 0x400000) & 0xFFFFE000, u)
+    return torch.where(special, nan, r)
+
+
+def _bits(x):
+    return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _from_bits(u):
+    return (u - ((u >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def tf32_split_plain(x):
+    """(hi, lo) of fp32 ``x``, the split pass's plain version: hi = x
+    rounded to TF32 (:func:`_tf32_bits`), lo = (x - hi) rounded the same
+    way (x - hi is exact in fp32), 0 where x is +-inf or NaN.  |x - hi - lo|
+    is at most 2^-22 |x|, or half TF32's subnormal spacing (2^-137) where
+    x - hi is that small; on the card ``csrc/tf32_split.cu`` equals it bit
+    for bit."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"the TF32 split takes float32, got {x.dtype}")
+    u = _bits(x)
+    hi = _from_bits(_tf32_bits(u))
+    lo = _from_bits(_tf32_bits(_bits(x - hi)))
+    special = (u & 0x7F800000) == 0x7F800000
+    return hi, torch.where(special, torch.zeros_like(lo), lo)
+
+
+def _tf32_layout(x, mn_major: bool):
+    """(batch, rows, k) of an operand held (rows, k), or (k, rows) with
+    ``mn_major``; batch 1 for a 2-D operand or a batch of one."""
+    rows, k = (x.shape[-1], x.shape[-2]) if mn_major else (x.shape[-2], x.shape[-1])
+    return (x.shape[0] if x.ndim == 3 else 1), rows, k
+
+
+def _tf32_check(x, passes, side):
+    if x.dtype != torch.float32:
+        raise TypeError(f"the TF32 split takes float32, got {x.dtype}")
+    if passes not in (1, 3) or side not in TF32_LO_SEG:
+        raise ValueError(f"passes 1 or 3 and side 'a' or 'b', got {passes}, {side!r}")
+    return TF32_LO_SEG[side] if passes == 3 else -1
+
+
+def tf32_operand_plain(x, mn_major: bool, passes: int, side: str):
+    """Plain version of :func:`tf32_operand`, on ``x``'s own device: the
+    workspace built from :func:`tf32_split_plain`, the cross term's hi
+    (``TF32_LO_SEG``) 0 where x is +-inf or NaN."""
+    lo_seg = _tf32_check(x, passes, side)
+    bsz, _, k = _tf32_layout(x, mn_major)
+    xr = x.transpose(-1, -2) if mn_major else x
+    pad = round_up(k, 4) - k
+    hi, lo = (torch.nn.functional.pad(p, (0, pad)) for p in tf32_split_plain(xr))
+    cross = torch.where(torch.isfinite(hi), hi, torch.zeros_like(hi))
+    out = torch.cat([lo if s == lo_seg else cross if lo_seg > 0 and s == 3 - lo_seg else hi
+                     for s in range(passes)], dim=-1)
+    return out if out.ndim == 2 or bsz > 1 else out[0]
+
+
+def tf32_operand(x, mn_major: bool, passes: int, side: str):
+    """The K-major TF32 workspace the engine reads for fp32 operand ``x``
+    on the card (held (rows, K), or (K, rows) with ``mn_major``; 2-D, or
+    3-D with the batch first): (rows, passes * kp), or (batch, rows,
+    passes * kp) for a batch of more than one, kp = K rounded up to 4
+    values (16-byte rows), each row's segments one after another: hi alone
+    for one pass; for three, ``side`` "a" [hi | hi | lo] or "b" [hi | lo |
+    hi] (``TF32_LO_SEG``: the hi facing the other's lo 0 for +-inf and
+    NaN); every value past K zero (a batch read with a stride of 0 is
+    split once, 2-D).  Launches ``csrc/tf32_split.cu`` (counted in
+    ``tf32_operand.launches``); only the card's fp32 route calls it, so a
+    tensor off the card raises."""
+    lo_seg = _tf32_check(x, passes, side)
+    if not x.is_cuda:
+        raise ValueError(f"the TF32 split pass runs on the card, got a tensor on {x.device}")
+    bsz, rows, k = _tf32_layout(x, mn_major)
+    kp = round_up(k, 4)
+    x = _row_major(x)
+    ld, bs = _strides(x)  # bs 0: one example (a broadcast batch is split once)
+    out = torch.empty(((bsz,) if bs else ()) + (rows, passes * kp), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().tf32_split(
+            x.data_ptr(), out.data_ptr(), bsz if bs else 1, rows, k, ld, bs, int(mn_major),
+            kp, passes, lo_seg, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "the TF32 split pass")
+    tf32_operand.launches += 1
+    return out
+
+
+def tf32_matmul_plain(a, b, passes: int, transpose_a=False, transpose_b=False):
+    """Plain version of the fp32 engine route, on the operands' device: the
+    same passes in float64 over the split operands
+    (:func:`tf32_operand_plain`'s workspaces), rounded once to fp32.  The
+    kernel sums in fp32 in the tensor cores' order, so it is held to this
+    at a tolerance, not bit for bit; on the CPU the port keeps IEEE fp32
+    (:func:`mxu_matmul_plain`)."""
+    wa = tf32_operand_plain(a, transpose_a, passes, "a").double()
+    wb = tf32_operand_plain(b, not transpose_b, passes, "b").double()
+    return torch.matmul(wa, wb.transpose(-1, -2)).to(torch.float32)
 
 
 DMMA_TILES = ("tma", "cp_async")
@@ -311,8 +444,10 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
                              f"runs on 'wgmma' or {old!r}, not {route!r}")
         rule = row_softmax_route(a.dtype, out_dtype, n, k, aligned)
     else:
-        rule = mxu_route(a.dtype, ta, tb, aligned)
-    route = named_route(route, rule, what)
+        rule = mxu_route(a.dtype, ta, tb, aligned, out_dtype)
+    route = named_route(route, rule, what, a.dtype if not rows else None)
+    # fp32 on the engine: TF32 passes on K-major workspaces (below).
+    passes = tf32_passes(cfg.precision) if route == "wgmma" and a.dtype == torch.float32 else None
     tile = None
     if route == "dmma":
         tile = dmma_tile(aligned)
@@ -330,8 +465,17 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         kept = _EP_DTYPES + ((torch.float64,) if route == "dmma" else ())
         fn = codegen.epilogue_kernel(
             gen.fn, route, a.dtype, cfg.tacc_dtype,
-            [e.dtype if e.dtype in kept else ep_dt for e in eps], ta, tb, gen.name,
-            tile=tile)
+            [e.dtype if e.dtype in kept else ep_dt for e in eps],
+            *((False, True) if passes else (ta, tb)), gen.name,
+            tile=f"tf32x{passes}" if passes else tile)
+    if passes:
+        # The fp32 route: each operand split once into a K-major TF32
+        # workspace (csrc/tf32_split.cu), then the engine's K-major kernel
+        # over the passes laid along K.
+        a = tf32_operand(a, ta, passes, "a")
+        b = tf32_operand(b, not tb, passes, "b")
+        ta, tb, k = False, True, a.shape[-1]
+        (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
     # The CUDA-core and float64 tiles store every type; the tensor-core
     # tiles (the engine, WMMA) and the row softmax the base five (ROADMAP B
@@ -352,6 +496,8 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
             rc = lib.row_softmax_wgmma(*args, *codes, stream)
         elif rows:
             rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
+        elif passes:
+            rc = lib.mxu_wgmma_tf32(*args[:11], passes, codes[1], *ep_args)
         elif route == "wgmma":
             rc = lib.mxu_wgmma(*args, *codes, *ep_args)
         elif route == "dmma" and tile == "tma":
@@ -369,11 +515,14 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         generated_launches[route, dtype_name(a.dtype)] += 1
     if tile is not None:
         dmma_tile_launches[tile] += 1
+    if passes is not None:
+        tf32_launches[passes] += 1
     if rows:
         mxu_matmul_batched.row_softmax_route = route
     else:
         entry = mxu_matmul if what == "kernel B1" else mxu_matmul_batched
         entry.last_route, entry.last_dmma_tile = route, tile
+        entry.last_tf32_passes = passes
     return out
 
 
@@ -443,15 +592,18 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 # Kernel launches since the counts were last reset (plain calls not
 # counted): B1 without / with a per-column epilogue; B2 plain or with a
 # per-column epilogue; B2's row-softmax variant.  And the route of B1's, of
-# B2's and of B2's row softmax's last launch, and the float64 tile of B1's
-# and B2's last launch (None for the other types).
+# B2's and of B2's row softmax's last launch, the float64 tile of B1's and
+# B2's last launch, and the TF32 passes of their last fp32 engine launch
+# (None for the other types and routes).
 mxu_matmul.launches = 0
 mxu_matmul.last_route = None
 mxu_matmul.last_dmma_tile = None
+mxu_matmul.last_tf32_passes = None
 mxu_matmul.epilogue_launches = 0
 mxu_matmul_batched.launches = 0
 mxu_matmul_batched.last_route = None
 mxu_matmul_batched.last_dmma_tile = None
+mxu_matmul_batched.last_tf32_passes = None
 mxu_matmul_batched.row_softmax_launches = 0
 mxu_matmul_batched.row_softmax_route = None
 # Launches of B1 and B2 together (the row softmax's too) by (route, input
@@ -464,6 +616,10 @@ generated_launches = collections.Counter()
 # float64 launches of B1 and B2 by tile: "tma" csrc/dmma_tma.cu (or its
 # generated epilogue's library), "cp_async" csrc/dmma_gemm.cu.
 dmma_tile_launches = collections.Counter()
+# fp32 launches of B1 and B2 on the engine by TF32 passes (1: "default",
+# 3: "high" / "highest"), and the split pass's launches (two a GEMM).
+tf32_launches = collections.Counter()
+tf32_operand.launches = 0
 # Plain-version calls on CUDA tensors (the front door's backend="torch", or
 # a comparison): a callable epilogue on the card never falls back to it.
 mxu_matmul_plain.cuda_calls = 0

@@ -8,10 +8,12 @@ can choose at run time is the route and, on the tile engine, the launch
 plan, and those are the knobs this tuner turns:
 
 * dense ``plus_times`` (key ``chip/dtype/semiring/MxNxK[/layout]``): B1's
-  route, the tile engine (``wgmma``) or WMMA (``wmma``; ``dmma`` for
-  float64, ``simt`` for fp32 / int32, int16, the unsigned ints and every
-  other semiring: one route each, so nothing to choose; a cached winner
-  whose route cannot run the dtype is a miss).  The winner is a :class:`GemmConfig`
+  route, the tile engine (``wgmma``) or WMMA (``wmma``); for fp32 the
+  engine (TF32 passes) or the CUDA cores (``simt``), where a TMA map
+  describes the operands (``dmma`` for float64, ``simt`` for unaligned
+  fp32, int32, int16, the unsigned ints and every other semiring: one
+  route each, so nothing to choose; a cached winner whose route cannot run
+  the dtype is a miss).  The winner is a :class:`GemmConfig`
   whose blocks are that route's compiled tile (``config.route_tile``);
 * batched (``.../Bbx MxNxK``): B2's route, the same two kernels;
 * ``flash`` (dims (B, S_q, S_kv, D), tag ``causal`` / ``full``): the
@@ -152,11 +154,12 @@ def _entries(key_of: Callable[[str], str], cache_path: Optional[str], device) ->
     return [c[key] for c in caches if key in c]
 
 
-def _runs(route: str, rule: str) -> bool:
+def _runs(route: str, rule: str, dtype=None) -> bool:
     """Whether a launch takes ``route`` where the route rule gives ``rule``
-    (``config.named_route``'s test, without the raise)."""
+    (``config.named_route``'s test, without the raise; B1 / B2 pass their
+    input ``dtype``)."""
     try:
-        named_route(route, rule, "")
+        named_route(route, rule, "", dtype)
     except ValueError:
         return False
     return True
@@ -202,10 +205,10 @@ def _pitches_aligned(dtype: str, *pitches: int) -> bool:
 
 
 def _dense_rule(dtype: str, semiring: str, layout: str, m: int, n: int,
-                k: int, aligned) -> str:
+                k: int, aligned, out_dtype=None) -> str:
     """The route rule's B1 / B2 kernel for these operands (``aligned``: a
     bool, a callable giving it, or None: contiguous operands of these
-    dims)."""
+    dims) and ``out_dtype`` (None: the inputs' own)."""
     from gemm_hls_tpu_torch.ops.mxu import mxu_route
 
     if semiring != "plus_times":
@@ -215,13 +218,13 @@ def _dense_rule(dtype: str, semiring: str, layout: str, m: int, n: int,
         aligned = _pitches_aligned(dtype, m if ta else k, k if tb else n)
     elif callable(aligned):
         aligned = aligned()
-    return mxu_route(torch_dtype(dtype), ta, tb, aligned)
+    return mxu_route(torch_dtype(dtype), ta, tb, aligned, out_dtype)
 
 
 def cached_winner(m: int, n: int, k: int, *, dtype: str,
                   semiring: str = "plus_times", layout: str = "nn",
                   cache_path: Optional[str] = None, aligned: Optional[bool] = None,
-                  device=None):
+                  device=None, out_dtype=None):
     """(config, route) of the cached dense winner, or None: never measures.
 
     The user cache first, then the packaged seed.  An entry is a miss where
@@ -229,8 +232,9 @@ def cached_winner(m: int, n: int, k: int, *, dtype: str,
     those blocks name, where the route rule cannot run that route on these
     operands (``aligned``: their 16-byte rows and bases, a bool or a
     callable asked only once an entry is found; None: contiguous operands
-    of these dims), or where its tile pads the problem by more than 1.3x
-    (the reference's guard)."""
+    of these dims; ``out_dtype``: the call's, where the rule reads it: fp32
+    into float64 keeps the CUDA cores), or where its tile pads the problem
+    by more than 1.3x (the reference's guard)."""
     entries = _entries(lambda chip: _key(chip, dtype, semiring, m, n, k, layout),
                        cache_path, device)
     rule = None
@@ -241,8 +245,8 @@ def cached_winner(m: int, n: int, k: int, *, dtype: str,
         except (KeyError, TypeError, ValueError):
             continue
         route = e.get("route", _MXU_ROUTE[cfg.route()])
-        rule = rule or _dense_rule(dtype, semiring, layout, m, n, k, aligned)
-        if _TILE_ROUTE.get(route) != cfg.route() or not _runs(route, rule):
+        rule = rule or _dense_rule(dtype, semiring, layout, m, n, k, aligned, out_dtype)
+        if _TILE_ROUTE.get(route) != cfg.route() or not _runs(route, rule, dtype):
             continue
         # Winners are keyed by power-of-two bucket: an off-bucket shape the
         # winner's tile pads by more than 1.3x keeps the route rule.
@@ -269,15 +273,25 @@ def cached_config(m: int, n: int, k: int, *, dtype: str,
     return None if hit is None else hit[0]
 
 
+def _beside_engine(rule: str, dtype: str) -> List[str]:
+    """The B1 / B2 route a tuner times beside the rule's engine route: WMMA
+    for the 16-bit types and int8, the CUDA-core tile for fp32 (TF32 on
+    the engine against IEEE fp32 FMA); none beside another route."""
+    if rule != "wgmma":
+        return []
+    return ["simt"] if torch_dtype(dtype) == torch.float32 else ["wmma"]
+
+
 def candidate_configs(m: int, n: int, k: int, dtype: str, semiring: str,
                       max_candidates: int = 6, layout: str = "nn",
                       aligned: Optional[bool] = None) -> List[GemmConfig]:
     """The configs whose routes can run this problem: for plus_times the
     route rule's (the tile engine where its maps describe the operands) and
-    WMMA beside the engine; the CUDA-core tile for fp32 / int32 and every
-    other semiring."""
+    the other kernel beside the engine (WMMA; the CUDA-core tile for fp32);
+    the CUDA-core tile for unaligned fp32, int32 and every other
+    semiring."""
     rule = _dense_rule(dtype, semiring, layout, m, n, k, aligned)
-    routes = [rule] + (["wmma"] if rule == "wgmma" else [])
+    routes = [rule] + _beside_engine(rule, dtype)
     return [GemmConfig(dtype=dtype, semiring=semiring,
                        block_m=bm, block_n=bn, block_k=bk,
                        transpose_a=layout[0] == "t", transpose_b=layout[1] == "t")
@@ -345,9 +359,12 @@ def _timer(run: Callable, iters: int) -> Callable:
 
 
 def _ceiling(device, dtype: str) -> Optional[float]:
-    """The chip's peak rate for ``dtype`` in GFLOP/s, or None."""
+    """The chip's peak rate for ``dtype`` in GFLOP/s, or None; fp32's is
+    the TF32 tensor cores' (its engine route), above the CUDA cores'."""
     from gemm_hls_tpu_torch.models.perf_model import detect_chip
 
+    if str(dtype).removeprefix("torch.") == "float32":
+        dtype = "tfloat32"
     try:
         return (detect_chip(device).peak_for(dtype) or 0) / 1e9 or None
     except NotImplementedError:
@@ -511,7 +528,8 @@ def _batched_key(chip, dtype, semiring, bsz, m, n, k, layout):
 def cached_batch_block(bsz: int, m: int, n: int, k: int, *, dtype: str,
                        semiring: str = "plus_times",
                        cache_path: Optional[str] = None, layout: str = "nn",
-                       aligned: Optional[bool] = None, device=None) -> Optional[str]:
+                       aligned: Optional[bool] = None, device=None,
+                       out_dtype=None) -> Optional[str]:
     """Cached B2 route for this 3-D problem ("wgmma", "wmma" or "simt"), or
     None: never measures.  Where the TPU's answer was a batch block (how
     many examples one grid step holds), the card's is the kernel that
@@ -525,8 +543,8 @@ def cached_batch_block(bsz: int, m: int, n: int, k: int, *, dtype: str,
         route = e.get("route")
         if route not in _TILE_ROUTE:
             continue
-        rule = rule or _dense_rule(dtype, semiring, layout, m, n, k, aligned)
-        if not _runs(route, rule):
+        rule = rule or _dense_rule(dtype, semiring, layout, m, n, k, aligned, out_dtype)
+        if not _runs(route, rule, dtype):
             continue
         try:
             bm, bn, bk = route_tile(_TILE_ROUTE[route], dtype)
@@ -543,9 +561,9 @@ def batch_block_candidates(bsz: int, m: int, n: int, k: int, dtype: str,
                            semiring: str = "plus_times", layout: str = "nn",
                            aligned: Optional[bool] = None) -> List[str]:
     """The B2 routes that can run this batched problem: the route rule's
-    and, beside the engine, WMMA."""
+    and, beside the engine, WMMA (the CUDA-core tile for fp32)."""
     rule = _dense_rule(dtype, semiring, layout, m, n, k, aligned)
-    return [rule] + (["wmma"] if rule == "wgmma" else [])
+    return [rule] + _beside_engine(rule, dtype)
 
 
 def autotune_batched(bsz: int, m: int, n: int, k: int, *,

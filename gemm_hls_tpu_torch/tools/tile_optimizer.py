@@ -49,7 +49,8 @@ def optimal_tiles(dtype="float32", *, vmem_budget: Optional[int] = None,
     not given) whose block fits ``vmem_budget`` bytes of shared memory
     (default: ``SMEM_LIMIT_BYTES``), preferring (1) minimal I/O volume, (2)
     balance, (3) larger block_k.  For bf16 that is the tile engine's 128 x
-    256, which moves a quarter less than the WMMA tile."""
+    256, which moves a quarter less than the WMMA tile; for fp32 too (its
+    TF32 route), against the CUDA-core tile's 128 x 128."""
     budget = SMEM_LIMIT_BYTES if vmem_budget is None else vmem_budget
     name = dtype_name(dtype)
     best, best_key = None, None

@@ -97,8 +97,9 @@ def test_batched_bf16(out, rtol):
 def test_batched_route_rule(dtype, ta, tb, aligned):
     # bf16 / fp16 in every layout and int8 with both operands K-major take
     # the engine when TMA can describe both operands (16-byte bases, row
-    # pitches and batch strides); the rest of the 16-bit and int8 calls
-    # WMMA; fp32 and int32 the CUDA cores.
+    # pitches and batch strides), and so does fp32 (TF32 passes); the rest
+    # of the 16-bit and int8 calls WMMA; unaligned fp32 and every int32
+    # call the CUDA cores.
     dt = getattr(torch, dtype)
     per = 16 // dt.itemsize
     cols = 4 * per + (0 if aligned else 1)
@@ -106,7 +107,7 @@ def test_batched_route_rule(dtype, ta, tb, aligned):
     b = torch.zeros((3, cols, 8 * per), dtype=dt)
     ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
     assert ok == aligned
-    if dtype in ("float32", "int32"):
+    if dtype == "int32" or (dtype == "float32" and not aligned):
         want = "simt"
     elif aligned and (dtype != "int8" or (ta, tb) == (False, True)):
         want = "wgmma"

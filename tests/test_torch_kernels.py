@@ -1522,3 +1522,81 @@ def test_float64_callable_epilogue_runs_on_the_tile_the_rule_picks(cuda):
         assert mxu.mxu_matmul.last_dmma_tile == tile
         want = matmul(a, b, epilogue="bias_relu", epilogue_operands=(bias,))
         assert torch.equal(got, want)
+
+
+# B1 / B2's fp32 route on the tile engine (chip_smoke.py phase 33): each
+# case on the route it names with its TF32 passes, the split pass's
+# workspaces bit for bit their plain version, the GEMM held to the passes
+# in float64; the same bits launch after launch; the split of the edge
+# values; a tuned CUDA-core winner of an aligned fp32 call adopted.
+
+@pytest.mark.parametrize("case", chip_smoke.TF32_ROUTE_CASES, ids=str)
+def test_tf32_routes_match_plain(cuda, case):
+    chip_smoke.tf32_route_case(torch, _gen(2401), case)
+
+
+def test_tf32_engine_launches_repeat_bitwise(cuda):
+    chip_smoke.tf32_repeats(torch, _gen(2402))
+
+
+@pytest.mark.parametrize("mn_major", [False, True])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tf32_split_of_edge_values_is_bitwise(cuda, mn_major, passes):
+    x = chip_smoke.tf32_edge_operand(torch, _gen(2403), 70, 130)
+    x = x.t().contiguous() if mn_major else x
+    for side in ("a", "b"):
+        chip_smoke.tf32_split_equal(torch, x, mn_major, passes, side, "edge values")
+
+
+def test_tf32_backward_of_a_bf16_layer_runs_one_pass(cuda):
+    gen = _gen(2404)
+    a = chip_smoke.signed(torch, (512, 256), torch.bfloat16, gen).requires_grad_()
+    b = chip_smoke.signed(torch, (256, 384), torch.bfloat16, gen).requires_grad_()
+    mxu.tf32_launches.clear()
+    matmul(a, b).float().sum().backward()
+    assert dict(mxu.tf32_launches) == {1: 2}
+    assert mxu.mxu_matmul.last_route == "wgmma" and mxu.mxu_matmul.last_tf32_passes == 1
+
+
+def test_tuned_cuda_core_winner_of_aligned_fp32_is_adopted(cuda, tmp_path, monkeypatch):
+    from gemm_hls_tpu_torch.tools import autotune
+    cache = str(tmp_path / "tuned.json")
+    autotune.autotune(512, 512, 512, dtype="float32", cache_path=cache, rounds=2)
+    assert {r["entry"]["route"] for r in autotune.autotune.last_report} == {"wgmma", "simt"}
+    data = autotune._load(cache)
+    for e in data.values():
+        e.update(block_m=128, block_n=128, block_k=16, route="simt")
+    autotune._store(cache, data)
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", cache)
+    a, b = (torch.randn(512, 512, device=cuda) for _ in range(2))
+    got = matmul(a, b)
+    assert mxu.mxu_matmul.last_route == "simt"
+    assert torch.allclose(got, torch.matmul(a, b), rtol=1e-4, atol=1e-3)
+
+
+def test_tuned_engine_winner_of_fp32_is_not_adopted_into_float64(cuda, tmp_path, monkeypatch):
+    # The engine stores the base types, so the route rule keeps fp32 into
+    # float64 on the CUDA cores; a cached fp32 engine winner is a miss there
+    # and still taken for an fp32 output.
+    from gemm_hls_tpu_torch.config import ENGINE_TILES
+    from gemm_hls_tpu_torch.tools import autotune
+    cache = str(tmp_path / "tuned.json")
+    bm, bn, bk = ENGINE_TILES["float32"]
+    chip = autotune._chip_name(cuda)
+    autotune._store(cache, {
+        autotune._key(chip, "float32", "plus_times", 512, 512, 512): {
+            "block_m": bm, "block_n": bn, "block_k": bk, "route": "wgmma"},
+        autotune._key_batched(chip, "float32", "plus_times", 4, 512, 512, 512): {
+            "route": "wgmma"}})
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", cache)
+    a, b = (torch.randn(512, 512, device=cuda) for _ in range(2))
+    want = torch.matmul(a.double(), b.double())
+    got = matmul(a, b, out_dtype="float64")
+    assert got.dtype == torch.float64 and mxu.mxu_matmul.last_route == "simt"
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+    matmul(a, b)
+    assert mxu.mxu_matmul.last_route == "wgmma"
+    a3, b3 = (torch.randn(4, 512, 512, device=cuda) for _ in range(2))
+    got = matmul(a3, b3, out_dtype="float64")
+    assert got.dtype == torch.float64 and mxu.mxu_matmul_batched.last_route == "simt"
+    assert torch.allclose(got, torch.matmul(a3.double(), b3.double()), rtol=1e-4, atol=1e-3)

@@ -156,8 +156,11 @@ def test_route_of_int8_inputs(ta, tb, aligned):
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_route_of_cuda_core_inputs(dtype, aligned):
-    # IEEE fp32 and wrapping int32 stay on the CUDA cores (no TF32).
-    assert mxu.mxu_route(getattr(torch, dtype), False, True, aligned) == "simt"
+    # Wrapping int32 stays on the CUDA cores; fp32 takes the engine's TF32
+    # passes where a TMA map describes its operands, IEEE fp32 FMA on the
+    # CUDA cores where none does.
+    want = "wgmma" if dtype == "float32" and aligned else "simt"
+    assert mxu.mxu_route(getattr(torch, dtype), False, True, aligned) == want
 
 
 @pytest.mark.parametrize("shape,col0,dtype,aligned", [

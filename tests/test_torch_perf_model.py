@@ -121,7 +121,8 @@ def test_format_specifications():
     ("int8", "plus_times", False, True, True, "wgmma"),
     ("int8", "plus_times", False, False, True, "tc"),
     ("int8", "plus_times", True, True, True, "tc"),
-    ("float32", "plus_times", False, False, True, "simt"),
+    ("float32", "plus_times", False, False, True, "wgmma"),
+    ("float32", "plus_times", True, False, False, "simt"),
     ("int32", "plus_times", False, False, True, "simt"),
     ("bfloat16", "min_plus", False, False, True, "simt"),
 ])

@@ -49,7 +49,7 @@ def test_bf16_picks_the_engine_tile():
 
 @pytest.mark.parametrize("dtype,kw,tile", [
     ("float16", {}, ENGINE_TILES["float16"]),
-    ("float32", {}, KERNEL_TILES["simt"]),
+    ("float32", {}, ENGINE_TILES["float32"]),  # TF32 passes on the engine
     ("int8", {}, KERNEL_TILES["tc"]),
     ("int8", {"transpose_b": True}, ENGINE_TILES["int8"]),
     ("bfloat16", {"semiring": "min_plus"}, KERNEL_TILES["simt"]),
