@@ -13,6 +13,8 @@ Phases, each printed as it ends:
   3. kernel B1 (dense plus_times) against its plain PyTorch version on the
      card: bf16, fp16, fp32, int8 -> int32 and int32, four layouts, odd,
      unaligned and 1024-class shapes, bool or_and, autograd gradients;
+     B1_ROUTE_CASES on the engine, each launch's route and pack-pass
+     launches checked, every packed case again on WMMA, named;
   4. kernel B3 (semiring GEMM) against its plain version: every built-in
      semiring, f32 / bf16 / int32, unaligned shapes up to 2048, NaN and
      +-inf inputs, all -inf rows for log_plus;
@@ -23,10 +25,11 @@ Phases, each printed as it ends:
      row-softmax variants) and batched B3 against their plain versions:
      dtypes, four layouts, odd shapes, N not a multiple of 128, a 2-D
      operand broadcast over the batch, a batch above gridDim.z's 65535;
-     then B2_ROUTE_CASES on both B2 routes (the wgmma engine and WMMA),
-     the route checked each, every engine case again on WMMA through the
-     route override, and 20 launches of one engine case with the same
-     bits; then ROW_SOFTMAX_ROUTE_CASES on both row-softmax routes (the
+     then B2_ROUTE_CASES on the wgmma engine (in place, or after the pack
+     pass), the route and pack launches checked each, every case again on
+     WMMA (fp32: the CUDA cores) through the route override, and 20
+     launches of one engine case with the same bits; then
+     ROW_SOFTMAX_ROUTE_CASES on both row-softmax routes (the
      wgmma engine, ``csrc/row_softmax_wgmma.cu``, and ``row_softmax.cu``),
      the route checked each, every row summing to 1, every engine case
      again on ``row_softmax.cu`` through the route override, and 20
@@ -42,8 +45,8 @@ Phases, each printed as it ends:
      checked: the engine) and at (8, 8192, 128) (rows past the fused
      bound: the unfused branch), its
      gradient at (8, 512, 64); batched ``matmul`` calls (four layouts,
-     int8, fp32, broadcast, 4-D, min_plus), each B2 launch's route
-     printed and checked (the engine for the aligned bf16 calls);
+     int8 with B held (K, N), fp32, broadcast, 4-D, min_plus), each B2
+     launch's route printed and checked (the engine for every one);
   9. times of B1's epilogue, B2 and B2's row softmax beside their plain
      versions at the main path's shapes (B2 at 64 x 512^3, 256 x 128^3 and
      attention's p . v on device time in turns beside its WMMA route and
@@ -215,7 +218,8 @@ Phases, each printed as it ends:
  26. slice 17's tuning tools (phases 1-25 run with no autotune cache file,
      so their route checks are the route rule's): (a) the engine's tile as
      an explicit config (``route_config("bfloat16")``) runs bf16 8192^3 on
-     the engine and refuses an unaligned call; then each family tuned at
+     the engine, and an unaligned call with it too after one pack of A;
+     then each family tuned at
      one of the packaged seed's shapes into a temporary cache (the dense
      and batched routes, the flash forward and backward pair, B13's route
      and plan, W8A8's route and N tile, B16's route; every candidate's
@@ -234,8 +238,10 @@ Phases, each printed as it ends:
      run in this process with ``--device cuda``, the launch counts set to 0
      before each, each required to launch its kernels; its seconds and
      printed lines shown; (b) the bias_gelu epilogue against its plain
-     version on every B1 route and on B2's engine and WMMA
-     (BIAS_GELU_ROUTE_CASES, BIAS_GELU_B2_CASES, the routes checked), and 20
+     version on B1's engine (in place, packed, unaligned fp32 split; the
+     packed and unaligned cases again on WMMA and the CUDA cores, named)
+     and on B2's engine and WMMA (BIAS_GELU_ROUTE_CASES,
+     BIAS_GELU_B2_CASES, the routes checked), and 20
      engine launches with the same bits; (c) the engine flash kernels
      (forward, dq, dk / dv) timed in turns in a fresh process at
      ATTN_MODEL_CASES' 50 shapes (phase 15's among them), each beside
@@ -291,8 +297,9 @@ Phases, each printed as it ends:
      tile checked each since slice 23: ``csrc/dmma_tma.cu`` where aligned,
      ``csrc/dmma_gemm.cu`` else; ragged K, every epilogue, broadcast and a
      batch past gridDim.z, +-inf / NaN; int16 and the unsigned ints on
-     ``csrc/mxu_simt_int.cu``; int8's extremes on its tensor-core routes;
-     the route checked each) and WIDE_B3_CASES (every semiring of each
+     ``csrc/mxu_simt_int.cu``; int8's extremes on the engine, in place and
+     packed, the packed case again on WMMA; the route checked each) and
+     WIDE_B3_CASES (every semiring of each
      type's ``csrc/semiring_<type>.cu``, the extremes, odd K and pitches,
      batched) against the plain versions; then slice 21's main path,
      launch counts set to 0 before and read after: float64 ``matmul`` at
@@ -311,16 +318,19 @@ Phases, each printed as it ends:
      process loads them all with no nvcc; then GEN_B3_CASES (user
      semirings on B3: four layouts, edge shapes, batched, a broadcast
      batch, K tails, NaN / +-inf) and GEN_EPILOGUE_CASES (callables on
-     every B1 / B2 route, the route checked, relu(acc + b) equal to the
-     registered bias_relu bit for bit) against the plain versions; then,
+     the engine, dmma, and, named, each packed or unaligned-fp32 case's
+     retired WMMA or CUDA-core route; the route checked, relu(acc + b)
+     equal to the registered bias_relu bit for bit) against the plain
+     versions; then,
      counts set to 0 before and read after, the main path through the
      front door with no plain version run on the card: (b) B3 at fp32
      4096^3 with example 02's plus_max (rel 1e-3), a user max_plus (bit
      for bit the built-in's, exact), a user log semiring (rel 1e-3 to
      log_plus) and plus_max on int8 (exact); (c) silu(acc + b) at B1's
      epilogue shape, bf16 (8192 x 4096) . (4096 x 16384) on the engine,
-     relu(acc + b) equal to bias_relu bit for bit on the engine, WMMA, the
-     CUDA cores and dmma, a two-operand clamp, a batched (B2) call, int8
+     relu(acc + b) equal to bias_relu bit for bit on the engine (in place,
+     after A's pack, after the split of unaligned fp32), on WMMA and the
+     CUDA cores (named) and dmma, a two-operand clamp, a batched (B2) call, int8
      K-major with an fp32 operand, and a callable's gradient at fp32
      2048^3 against plain autograd; (d) the generated kernels timed in
      turns beside the built-ins, their plain versions and bounds.
@@ -352,7 +362,7 @@ Phases, each printed as it ends:
      at "high" / "highest"): TF32_ROUTE_CASES (both precisions, four
      layouts, dense and pitched, B2 with broadcast operands, every
      epilogue, K 1 / 3 / 5, +-inf and NaN in both operands, unaligned rows
-     on the CUDA cores) with each launch's route and passes checked, the
+     on the engine too) with each launch's route and passes checked, the
      split's workspaces bit for bit their plain version (and on +-inf,
      NaN, subnormals and the largest finite values), the GEMM within
      TF32_RTOL of the passes in float64, and where +-inf and NaN are
@@ -367,6 +377,27 @@ Phases, each printed as it ends:
      ``torch.matmul`` without and with TF32 and the split pass alone, each
      normwise error against float64 ``torch.matmul`` held to SGEMM's (4x,
      "high") and cuBLAS TF32's (2x, "default").
+ 34. slice 25, B1 / B2 on the tile engine at any layout and alignment:
+     (a) PACK_CASES, the pack pass (``csrc/operand_pack.cu``: an operand
+     the engine's TMA maps cannot read in place copied K-major, K padded
+     to 16-byte rows) bit for bit its plain version (bf16 / fp16 / int8,
+     both holdings, pitches K + 1 / K + 3, a base one element off,
+     batched, broadcast, 1 x 1 x 1); (c) UNALIGNED_TF32_CASES (fp32 on
+     operands no TMA map describes, four layouts, both precisions,
+     batched, every epilogue, +-inf / NaN) on the engine after the split
+     and again on the CUDA cores, named; then, counts set to 0 before and
+     read after, the main path through the front door (b): relu(a . b +
+     bias) bf16 2048 x 1004 . 1004 x 2048, bf16 and fp32 8192 x 8190 .
+     8190 x 8192 at "high" and "default", int8 8192^3 with B held (K, N),
+     B2 int8 64 x 512^3 and bf16 16 x 1024 x 1024 x 1002, each held to its
+     plain version, every B1 / B2 launch on the engine, the pack and split
+     launches counted; (d) each shape in turns on CUDA events (at 2048
+     around windows queued behind a held stream): pack (or split) plus
+     engine, the engine alone on a
+     workspace, the pass alone, the retired route named (WMMA, the CUDA
+     cores) and the library call (``torch._addmm_activation``,
+     ``torch.matmul``, ``torch._int_mm`` with B row- and column-major,
+     SGEMM and cuBLAS TF32), with their bounds.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -478,15 +509,16 @@ def operands(torch, m, n, k, dtype, ta=False, tb=False, seed=5):
             torch.from_numpy(b).to("cuda", dtype))
 
 
-# B1's two tensor-core routes (``ops.mxu.mxu_route``), case tables of
-# phases 3a and 6a that tests/test_torch_kernels.py parametrises too:
-# (dtype, out dtype, ta, tb, M, N, K, pitched, epilogue, route).  pitched:
-# each operand a view into rows of whole 16-byte units plus one unit, so
-# M, N and K off every tile still reach the engine.  bf16 and fp16 in the
-# four layouts (ragged through pitched views, and aligned contiguous),
-# every output type, tiny shapes; int8 on the engine where both operands
-# are K-major and on WMMA in the other layouts; rows whose pitch is not a
-# whole 16-byte unit on WMMA.
+# B1's tensor-core route (``ops.mxu.mxu_route``), case tables of phases 3a
+# and 6a that tests/test_torch_kernels.py parametrises too: (dtype, out
+# dtype, ta, tb, M, N, K, pitched, epilogue, route).  pitched: each operand
+# a view into rows of whole 16-byte units plus one unit, so M, N and K off
+# every tile reach the engine in place.  bf16 and fp16 in the four layouts
+# (ragged through pitched views, and aligned contiguous), every output
+# type, tiny shapes; int8 with both operands K-major, read in place; int8
+# in the other layouts and rows whose pitch is not a whole 16-byte unit on
+# the engine after the pack pass (``case_packs``), each of those again on
+# the WMMA tile through ``route="wmma"``.
 B1_ROUTE_CASES = (
     [(dt, dt, ta, tb, 1000, 1030, 1100, True, None, "wgmma")
      for dt in ("bfloat16", "float16") for ta, tb in LAYOUTS]
@@ -498,14 +530,14 @@ B1_ROUTE_CASES = (
        ("float16", "float32", True, False, 7, 13, 5, True, None, "wgmma"),
        ("int8", "int32", False, True, 1000, 1030, 1100, True, None, "wgmma"),
        ("int8", "int32", False, True, 257, 384, 512, False, None, "wgmma"),
-       ("int8", "int32", True, True, 257, 384, 512, False, None, "wmma")]
+       ("int8", "int32", True, True, 257, 384, 512, False, None, "wgmma")]
     + [("int8", out, False, True, 300, 520, 272, False, None, "wgmma")
        for out in ("int8", "float32", "bfloat16", "float16")]
-    + [("int8", "int32", ta, tb, 272, 384, 512, False, None, "wmma")
+    + [("int8", "int32", ta, tb, 272, 384, 512, False, None, "wgmma")
        for ta, tb in LAYOUTS if (ta, tb) != (False, True)]
-    + [("bfloat16", "bfloat16", False, False, 64, 72, 100, False, None, "wmma"),
-       ("float16", "float32", False, True, 65, 140, 131, False, None, "wmma"),
-       ("bfloat16", "float32", False, False, 64, 130, 128, False, None, "wmma")]
+    + [("bfloat16", "bfloat16", False, False, 64, 72, 100, False, None, "wgmma"),
+       ("float16", "float32", False, True, 65, 140, 131, False, None, "wgmma"),
+       ("bfloat16", "float32", False, False, 64, 130, 128, False, None, "wgmma")]
 )
 # Each epilogue on the engine route: bf16 (bf16 operands) and fp16 (fp16
 # operands) outputs, int8 inputs to fp32 (every kind) and to int32 (the
@@ -534,8 +566,10 @@ B1_REPEATS = 20
 # pairings), a batch of one, M = N = K = 1, attention's p . v at N = 128
 # (half a tile), a batch past gridDim.z's 65535, every per-column
 # epilogue, int8 -> int32 and int8 -> fp32 with an epilogue (both
-# operands K-major).  WMMA: int8 in the other layouts, rows whose pitch is
-# not a whole 16-byte unit.  fp32 on the CUDA cores.
+# operands K-major).  After the pack pass (``case_packs``): int8 in the
+# other layouts, rows whose pitch is not a whole 16-byte unit; unaligned
+# fp32 after the split pass.  Each bf16 / fp16 / int8 case runs again on
+# WMMA through the route override, the fp32 one on the CUDA cores.
 B2_ROUTE_CASES = (
     [(dt, dt, ta, tb, 3, 200, 300, 136, True, None, None, "wgmma")
      for dt in ("bfloat16", "float16") for ta, tb in LAYOUTS]
@@ -554,11 +588,11 @@ B2_ROUTE_CASES = (
     + [("int8", "int32", False, True, 3, 257, 384, 272, False, None, None, "wgmma"),
        ("int8", "int32", False, True, 3, 200, 300, 136, True, None, None, "wgmma"),
        ("int8", "float32", False, True, 3, 200, 300, 272, False, None, "bias_relu", "wgmma"),
-       ("int8", "int32", True, False, 3, 257, 384, 272, False, None, None, "wmma"),
-       ("int8", "int32", False, False, 3, 257, 384, 272, False, None, None, "wmma"),
-       ("bfloat16", "bfloat16", False, False, 3, 64, 72, 100, False, None, None, "wmma"),
-       ("float16", "float32", True, True, 2, 65, 140, 131, False, None, None, "wmma"),
-       ("float32", "float32", False, False, 3, 65, 140, 131, False, None, None, "simt")]
+       ("int8", "int32", True, False, 3, 257, 384, 272, False, None, None, "wgmma"),
+       ("int8", "int32", False, False, 3, 257, 384, 272, False, None, None, "wgmma"),
+       ("bfloat16", "bfloat16", False, False, 3, 64, 72, 100, False, None, None, "wgmma"),
+       ("float16", "float32", True, True, 2, 65, 140, 131, False, None, None, "wgmma"),
+       ("float32", "float32", False, False, 3, 65, 140, 131, False, None, None, "wgmma")]
 )
 # The race check of B2's engine route.
 B2_REPEAT_CASE = ("bfloat16", "float32", True, False, 16, 300, 520, 264, True, None, None, "wgmma")
@@ -598,6 +632,76 @@ ROW_SOFTMAX_REPEAT_CASE = ("bfloat16", "float32", True, False, 16, 300, 1000, 20
 ROW_SOFTMAX_REPEATS = 20
 
 
+_SIZES = {"float64": 8, "int64": 8, "float32": 4, "int32": 4, "uint32": 4, "int8": 1,
+          "uint8": 1}
+
+
+def operands_aligned(dt, ta, tb, bsz, m, n, k, layout, bcast=None):
+    """(A, B): whether each operand of a case, as ``pitched`` /
+    ``wide_operand`` make it (layout "dense", "pitched": rows of whole
+    16-byte units plus one unit, or "odd": a view one element into rows one
+    element longer), has the 16-byte base, row pitch and batch stride a TMA
+    map describes.  ``bsz`` None: B1; a batch of one steps no stride; the
+    ``bcast`` operand is 2-D."""
+    if layout != "dense":
+        return (layout == "pitched",) * 2
+    size = _SIZES.get(dt, 2)
+    out = []
+    for cols, elems, side in ((m if ta else k, k * m, "a"), (k if tb else n, n * k, "b")):
+        ok = cols * size % 16 == 0
+        if bsz not in (None, 1) and bcast != side:
+            ok = ok and elems * size % 16 == 0
+        out.append(ok)
+    return tuple(out)
+
+
+def case_packs(dt, ta, tb, bsz, m, n, k, layout, bcast=None):
+    """(pack A, pack B): the operands an engine launch of the case copies
+    K-major first (``config.packed_operands``)."""
+    from gemm_hls_tpu_torch.config import packed_operands
+    return packed_operands(dt, ta, tb, *operands_aligned(dt, ta, tb, bsz, m, n, k, layout,
+                                                         bcast))
+
+
+def retired_route(dt, ta, tb, bsz, m, n, k, layout, bcast=None):
+    """The route the rule gave a case before the pack pass, where that was
+    not the engine: "wmma" for a bf16 / fp16 / int8 case whose operands the
+    engine packs, "simt" for fp32 on operands no TMA map describes; else
+    None.  Each such case runs again there, named."""
+    if dt == "float32":
+        return None if all(operands_aligned(dt, ta, tb, bsz, m, n, k, layout, bcast)) else "simt"
+    return "wmma" if any(case_packs(dt, ta, tb, bsz, m, n, k, layout, bcast)) else None
+
+
+def b1_case_layout(case):
+    """A B1_ROUTE_CASES-form case as (dtype, ta, tb, batch, M, N, K, layout,
+    broadcast)."""
+    dt, _, ta, tb, m, n, k, pitch = case[:8]
+    return dt, ta, tb, None, m, n, k, "pitched" if pitch else "dense", None
+
+
+def b2_case_layout(case):
+    """A B2_ROUTE_CASES-form case as (dtype, ta, tb, batch, M, N, K, layout,
+    broadcast)."""
+    dt, _, ta, tb, bsz, m, n, k, pitch, bcast = case[:10]
+    return dt, ta, tb, bsz, m, n, k, "pitched" if pitch else "dense", bcast
+
+
+def pack_count():
+    """Pack-pass launches so far."""
+    from gemm_hls_tpu_torch.ops import mxu
+    return sum(mxu.pack_operand.launches.values())
+
+
+def check_packs(gemm, layout, route, before, what):
+    """The launch just made on ``route`` packed the operands ``case_packs``
+    names (none off the engine)."""
+    want = sum(case_packs(*layout)) if route == "wgmma" else 0
+    if gemm.last_route != route or pack_count() - before != want:
+        raise AssertionError(f"{what}: route {gemm.last_route}, {pack_count() - before} "
+                             f"pack launches, want {route} and {want}")
+
+
 def pitched(torch, gen, rows, cols, dtype, pitch, lead=()):
     """(*lead, rows, cols) on the card, U(-1, 1) or int8 in [-3, 3]; with
     ``pitch``, a view into rows of whole 16-byte units plus one unit."""
@@ -611,13 +715,14 @@ def pitched(torch, gen, rows, cols, dtype, pitch, lead=()):
     return x[..., :cols]
 
 
-def b1_route_case(torch, gen, case):
-    """One B1_ROUTE_CASES / B1_EPILOGUE_ROUTE_CASES case against the plain
-    version, the route checked; returns the largest abs error."""
+def b1_route_case(torch, gen, case, route=None):
+    """One B1_ROUTE_CASES / B1_EPILOGUE_ROUTE_CASES case on the route it
+    names (or on ``route``, the override) against the plain version, the
+    route and its pack launches checked; returns the largest abs error."""
     from gemm_hls_tpu_torch.config import default_config
     from gemm_hls_tpu_torch.ops import mxu
     from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
-    dt, out, ta, tb, m, n, k, pitch, ep_name, route = case
+    dt, out, ta, tb, m, n, k, pitch, ep_name, _ = case
     dtype, out_dtype = getattr(torch, dt), getattr(torch, out)
     a = pitched(torch, gen, *((k, m) if ta else (m, k)), dtype, pitch)
     b = pitched(torch, gen, *((n, k) if tb else (k, n)), dtype, pitch)
@@ -627,13 +732,13 @@ def b1_route_case(torch, gen, case):
            for _ in range(ep.n_operands if ep else 0)]
     kw = dict(cfg=default_config(dtype, out_dtype=out), transpose_a=ta, transpose_b=tb,
               epilogue=ep)
-    got = mxu.mxu_matmul(a, b, *eps, **kw)
-    if mxu.mxu_matmul.last_route != route:
-        raise AssertionError(f"B1 {case}: route {mxu.mxu_matmul.last_route}")
+    before = pack_count()
+    got = mxu.mxu_matmul(a, b, *eps, route=route, **kw)
+    check_packs(mxu.mxu_matmul, b1_case_layout(case), route or case[-1], before, f"B1 {case}")
     rtol = (0.0 if not out_dtype.is_floating_point
             else F32_RTOL if out_dtype == torch.float32 else BF16_RTOL)
-    return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol, f"B1 {case}",
-                   scaled=True)[0]
+    return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol,
+                   f"B1 {case} on {route or case[-1]}", scaled=True)[0]
 
 
 def b1_repeats(torch, gen):
@@ -675,13 +780,14 @@ def b2_route_operands(torch, gen, case):
 
 def b2_route_case(torch, gen, case, route=None):
     """One B2_ROUTE_CASES case on the route it names (or on ``route``, the
-    override) against the plain version, the route checked; returns the
-    largest abs error."""
+    override) against the plain version, the route and its pack launches
+    checked; returns the largest abs error."""
     from gemm_hls_tpu_torch.ops import mxu
     a, b, eps, kw = b2_route_operands(torch, gen, case)
+    before = pack_count()
     got = mxu.mxu_matmul_batched(a, b, *eps, route=route, **kw)
-    if mxu.mxu_matmul_batched.last_route != (route or case[-1]):
-        raise AssertionError(f"B2 {case}: route {mxu.mxu_matmul_batched.last_route}")
+    check_packs(mxu.mxu_matmul_batched, b2_case_layout(case), route or case[-1], before,
+                f"B2 {case}")
     out_dtype = got.dtype
     rtol = (0.0 if not out_dtype.is_floating_point
             else F32_RTOL if out_dtype == torch.float32 else BF16_RTOL)
@@ -783,11 +889,16 @@ def phase_b1(torch):
         f"(worst rel err {worst:.3e})")
     gen = torch.Generator(device="cuda").manual_seed(8)
     worst = max(b1_route_case(torch, gen, c) for c in B1_ROUTE_CASES)
+    retired = [(c, r) for c in B1_ROUTE_CASES if (r := retired_route(*b1_case_layout(c)))]
+    worst_old = max(b1_route_case(torch, gen, c, r) for c, r in retired)
     b1_repeats(torch, gen)
-    log(f"phase 3a: B1 route cases, {len(B1_ROUTE_CASES)} (the wgmma engine: bf16 / fp16 "
-        f"in four layouts, int8 K-major, ragged through pitched views, every output type; "
-        f"WMMA: int8 in the other layouts, unaligned pitches): ok, route checked each "
-        f"(worst abs err {worst:.3e}); {B1_REPEATS} engine launches, the same bits")
+    log(f"phase 3a: B1 route cases, {len(B1_ROUTE_CASES)} on the wgmma engine (bf16 / fp16 "
+        f"in four layouts, int8 K-major, ragged through pitched views, every output type, "
+        f"read in place; int8 in the other layouts and unaligned pitches after the pack "
+        f"pass, {sum(any(case_packs(*b1_case_layout(c))) for c in B1_ROUTE_CASES)} cases): "
+        f"ok, route and pack launches checked each (worst abs err {worst:.3e}); the "
+        f"{len(retired)} packed cases again on WMMA, named (worst {worst_old:.3e}); "
+        f"{B1_REPEATS} engine launches, the same bits")
 
     # Bool or_and through B1 (int8 -> int32 counts): a sparse case, and an
     # all-true K=256 one whose count is a multiple of 256.
@@ -976,16 +1087,21 @@ def time_turns(torch, fns, rounds=5, iters=20):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def event_turns(torch, fns, rounds=3, iters=3):
+def event_turns(torch, fns, rounds=3, iters=3, hold=False):
     """{name: ms a call} of the zero-argument callables ``fns`` on CUDA
     events (``time_fn``), in turns: each round times every callable once,
     in the same order; the median of the rounds.  For millisecond kernels,
-    whose wrapper's host cost is below their device time."""
+    whose wrapper's host cost is below their device time; ``hold``: the
+    stream held while each window is queued (``time_fn``'s
+    ``hold_stream``), so calls of tens of microseconds are timed back to
+    back on the device (late in this long process ``torch.profiler``, which
+    ``time_turns`` reads, can miss a callable's kernels)."""
     from gemm_hls_tpu_torch.utils.benchmark import time_fn
     times = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
-            times[name].append(time_fn(fn, [()], iters=iters, warmup=1) * 1e3)
+            times[name].append(time_fn(fn, [()], iters=iters, warmup=1,
+                                       hold_stream=hold) * 1e3)
     return {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -1011,7 +1127,10 @@ def counters():
             "B3 generated": sum(vpu.vpu_matmul.generated_launches.values()),
             "B1 generated epilogue": sum(mxu.generated_launches.values()),
             # B1 / B2's fp32 route on the engine: the split pass, two a GEMM.
-            "B1 tf32 split": mxu.tf32_operand.launches}
+            "B1 tf32 split": mxu.tf32_operand.launches,
+            # B1 / B2 on the engine at any layout and alignment: the pack
+            # pass, one an operand its maps cannot read in place.
+            "B1 pack": sum(mxu.pack_operand.launches.values())}
 
 
 def reset_counters():
@@ -1023,6 +1142,8 @@ def reset_counters():
     mxu.dmma_tile_launches.clear()
     mxu.tf32_launches.clear()
     mxu.tf32_operand.launches = 0
+    mxu.pack_operand.launches.clear()
+    mxu.packed_launches.clear()
     vpu.vpu_matmul.launches = 0
     vpu.vpu_matmul.dtype_launches.clear()
     vpu.vpu_matmul.generated_launches.clear()
@@ -1126,16 +1247,18 @@ def phase_b2(torch):
         f"cases: ok")
     worst = max(b2_route_case(torch, gen, c) for c in B2_ROUTE_CASES)
     engine = [c for c in B2_ROUTE_CASES if c[-1] == "wgmma"]
-    worst_old = max(b2_route_case(torch, gen, c, "wmma") for c in engine)
+    worst_old = max(b2_route_case(torch, gen, c, "simt" if c[0] == "float32" else "wmma")
+                    for c in engine)
     b2_repeats(torch, gen)
     routes = {}
     for case in B2_ROUTE_CASES:
         routes[case[-1]] = routes.get(case[-1], 0) + 1
     log(f"phase 6b: B2 route cases, {len(B2_ROUTE_CASES)} {routes} (the wgmma engine: bf16 / "
         f"fp16 in four layouts, ragged M / N / K, broadcast 2-D a / b, batch 1 and 70000, N = "
-        f"128, every epilogue, K-major int8; WMMA: int8 in other layouts, unaligned pitches; "
-        f"fp32), each on its route: ok (worst abs err {worst:.3e}); the {len(engine)} engine "
-        f"cases again on WMMA: ok ({worst_old:.3e}); {B2_REPEATS} engine launches of "
+        f"128, every epilogue, K-major int8 read in place; int8 in other layouts and unaligned "
+        f"pitches after the pack pass; unaligned fp32 after the split), each on its route, "
+        f"its packs counted: ok (worst abs err {worst:.3e}); the {len(engine)} engine cases "
+        f"again on WMMA (fp32: simt): ok ({worst_old:.3e}); {B2_REPEATS} engine launches of "
         f"{B2_REPEAT_CASE[:8]}: the same bits")
 
     n_cases = 0
@@ -1428,7 +1551,8 @@ def phase_slice2(torch):
 
     # 8f: batched GEMMs through the front door, each B2 launch's route
     # recorded: the aligned bf16 calls take the engine, int8 with a
-    # row-major B WMMA, aligned fp32 the engine's TF32 passes.
+    # row-major B the engine after B's pack pass, fp32 the engine's TF32
+    # passes.
     n_cases, routes = 0, {}
 
     def checked(what, want, fn, ref, rtol, scaled=True):
@@ -1453,7 +1577,8 @@ def phase_slice2(torch):
                        dtype=torch.int8)
     b8 = torch.randint(-100, 100, (64, 512, 512), generator=gen, device="cuda",
                        dtype=torch.int8)
-    checked("int8 batched", "wmma", lambda: matmul(a8, b8, out_dtype="int32"),
+    checked("int8 batched (B (K, N): packed)", "wgmma",
+            lambda: matmul(a8, b8, out_dtype="int32"),
             lambda: matmul(a8, b8, out_dtype="int32", backend="torch"), 0.0, scaled=False)
     a32, b32 = (signed(torch, (64, 512, 512), torch.float32, gen) for _ in range(2))
     checked("fp32 batched", "wgmma", lambda: matmul(a32, b32),
@@ -5489,9 +5614,9 @@ def phase_slice17(torch, seed):
     sweeper.start()
     try:
         # (a) the engine's tile as an explicit config runs on the engine, and an
-        # unaligned call with it raises (it cannot run there); then every family
-        # tuned at one seed shape into a temporary cache, and adopted by its
-        # front door.
+        # unaligned call with it runs there too, its A packed first; then every
+        # family tuned at one seed shape into a temporary cache, and adopted by
+        # its front door.
         t0 = time.perf_counter()
         n = TUNE["dense"]
         autotune.DEFAULT_CACHE, autotune.SEED_CACHE = none, none
@@ -5501,21 +5626,24 @@ def phase_slice17(torch, seed):
         if mxu.mxu_matmul.last_route != "wgmma":
             raise AssertionError(f"phase 26a: route_config's tile took {mxu.mxu_matmul.last_route}")
         pitched = rand(n, n + 1)[:, :n]  # rows of 8193 bf16: not whole 16-byte units
-        try:
-            matmul(pitched, b, config=ecfg)
-        except ValueError as exc:
-            refusal = str(exc)
-        else:
-            raise AssertionError("phase 26a: an unaligned call with the engine's tile ran")
+        packs = dict(mxu.pack_operand.launches)
+        err_u = held(torch, matmul(pitched, b, config=ecfg), torch.matmul(pitched, b),
+                     "phase 26a unaligned engine config")
+        if (mxu.mxu_matmul.last_route != "wgmma"
+                or mxu.pack_operand.launches["bfloat16"] != packs.get("bfloat16", 0) + 1):
+            raise AssertionError(f"phase 26a: the unaligned call took "
+                                 f"{mxu.mxu_matmul.last_route}, packs {packs} -> "
+                                 f"{dict(mxu.pack_operand.launches)}")
+        del pitched
         log(f"phase 26a: matmul(a, b, config=route_config('bfloat16')) bf16 {n}^3 on "
             f"{mxu.mxu_matmul.last_route} (normwise {err:.2e} to torch.matmul); with rows of "
-            f"{n + 1} elements it raises: {refusal}")
+            f"{n + 1} elements on wgmma after one pack of A (normwise {err_u:.2e})")
         cfg = autotune.autotune(n, n, n, dtype="bfloat16", cache_path=tuned, rounds=rounds)
         win = autotune._MXU_ROUTE[cfg.route()]
         a, b = rand(n, n), rand(n, n)
         route, err, rule = adopt("dense", lambda: matmul(a, b), mxu.mxu_matmul, win,
                                  torch.matmul(a, b))
-        if rule != mxu.mxu_route(torch.bfloat16, False, False, True):
+        if rule != mxu.mxu_route(torch.bfloat16):
             raise AssertionError(f"phase 26a dense: with no cache the route is {rule}")
         out["dense"] = dict(winner=win, route=route, no_cache_route=rule, err=err,
                             report=autotune.autotune.last_report)
@@ -5775,18 +5903,19 @@ EXAMPLE_KERNELS = {
     "15_serving_decoder.py": ("B13", "B14|B15", "B16", "flash_fwd"),
 }
 
-# Phase 27b: the bias_gelu epilogue on each of B1's routes (B1_ROUTE_CASES'
-# form): the engine (bf16 through pitched views, K-major int8), WMMA (rows
-# that are not whole 16-byte units, int8 in another layout), the CUDA cores
-# (fp32); and on B2's engine (each case again on WMMA through the route
+# Phase 27b: the bias_gelu epilogue on B1's engine (B1_ROUTE_CASES' form):
+# bf16 through pitched views and K-major int8 read in place, rows that are
+# not whole 16-byte units and int8 in another layout packed first, fp32 on
+# unaligned rows split (each of those again on WMMA or the CUDA cores,
+# named); and on B2's engine (each case again on WMMA through the route
 # override).
 BIAS_GELU_ROUTE_CASES = (
     ("bfloat16", "bfloat16", False, False, 1000, 1030, 1100, True, "bias_gelu", "wgmma"),
     ("float16", "float32", True, True, 304, 520, 264, False, "bias_gelu", "wgmma"),
     ("int8", "float32", False, True, 300, 520, 272, False, "bias_gelu", "wgmma"),
-    ("bfloat16", "float32", False, False, 65, 140, 131, False, "bias_gelu", "wmma"),
-    ("int8", "float32", False, False, 300, 520, 272, False, "bias_gelu", "wmma"),
-    ("float32", "float32", False, False, 65, 140, 131, False, "bias_gelu", "simt"),
+    ("bfloat16", "float32", False, False, 65, 140, 131, False, "bias_gelu", "wgmma"),
+    ("int8", "float32", False, False, 300, 520, 272, False, "bias_gelu", "wgmma"),
+    ("float32", "float32", False, False, 65, 140, 131, False, "bias_gelu", "wgmma"),
 )
 BIAS_GELU_B2_CASES = (
     ("bfloat16", "bfloat16", False, True, 5, 300, 1030, 200, True, None, "bias_gelu", "wgmma"),
@@ -5840,6 +5969,10 @@ def phase_bias_gelu(torch):
     from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
     gen = torch.Generator(device="cuda").manual_seed(272)
     worst = max(b1_route_case(torch, gen, c) for c in BIAS_GELU_ROUTE_CASES)
+    for case in BIAS_GELU_ROUTE_CASES:  # the retired routes, named
+        if retired_route(*b1_case_layout(case)):
+            worst = max(worst, b1_route_case(torch, gen, case,
+                                             retired_route(*b1_case_layout(case))))
     for case in BIAS_GELU_B2_CASES:
         worst = max(worst, b2_route_case(torch, gen, case),
                     b2_route_case(torch, gen, case, route="wmma"))
@@ -5855,9 +5988,10 @@ def phase_bias_gelu(torch):
     for i in range(BIAS_GELU_REPEATS - 1):
         if not torch.equal(first, mxu.mxu_matmul(a, b, bias, **kw)):
             raise AssertionError(f"bias_gelu: launch {i + 2} differs from the first")
-    log(f"phase 27b: bias_gelu vs plain on B1's routes "
-        f"({sorted({c[-1] for c in BIAS_GELU_ROUTE_CASES})}, {len(BIAS_GELU_ROUTE_CASES)} "
-        f"cases) and B2's ({len(BIAS_GELU_B2_CASES)} engine cases, each again on WMMA): ok "
+    log(f"phase 27b: bias_gelu vs plain on B1's engine ({len(BIAS_GELU_ROUTE_CASES)} "
+        f"cases, {sum(any(case_packs(*b1_case_layout(c))) for c in BIAS_GELU_ROUTE_CASES)} "
+        f"packed, each packed or unaligned fp32 case again on WMMA / the CUDA cores, "
+        f"named) and B2's ({len(BIAS_GELU_B2_CASES)} engine cases, each again on WMMA): ok "
         f"(worst abs err {worst:.3e}); {BIAS_GELU_REPEATS} engine launches: the same bits")
 
 
@@ -6911,7 +7045,7 @@ WIDE_B1_CASES = (
        for dt in ("int16", "uint8", "uint16", "uint32")]
     + [("int8", out, False, True, None, 300, 520, 272, "edge", "dense", None, None, "wgmma")
        for out in ("int32", "int8")]
-    + [("int8", "int32", False, False, None, 130, 200, 33, "edge", "dense", None, None, "wmma")]
+    + [("int8", "int32", False, False, None, 130, 200, 33, "edge", "dense", None, None, "wgmma")]
 )
 # B3 on the wide types: (dtype, semiring, out dtype, ta, tb, batch, M, N, K,
 # values, layout, broadcast).  Every semiring the type takes at an odd
@@ -7008,32 +7142,28 @@ def wide_b1_operands(torch, gen, case):
 def aligned_case(case):
     """Whether a WIDE_B1_CASES-form case's operands, as ``wide_operand``
     makes them, have the 16-byte bases, row pitches and batch strides a TMA
-    map describes: pitched rows always, dense rows of whole 16-byte units,
-    odd-pitched views never."""
-    dt, ta, tb, bsz, m, n, k, layout, bcast = (case[0], case[2], case[3], case[4], *case[5:8],
-                                               case[9], case[10])
-    if layout != "dense":
-        return layout == "pitched"
-    size = {"float64": 8, "float32": 4, "int64": 8, "uint32": 4, "int32": 4}.get(dt, 2)
-    size = 1 if dt in ("int8", "uint8") else size
-    rows = (m if ta else k, k if tb else n)
-    ok = all(cols * size % 16 == 0 for cols in rows)
-    if bsz is not None:  # each 3-D operand's batch stride
-        elems = [(k * m, "a"), (n * k, "b")]
-        ok = ok and all(e * size % 16 == 0 for e, w in elems if bcast != w)
-    return ok
+    map describes (``operands_aligned``): pitched rows always, dense rows of
+    whole 16-byte units, odd-pitched views never."""
+    return all(operands_aligned(*wide_case_layout(case)))
 
 
-def wide_b1_case(torch, gen, case):
+def wide_case_layout(case):
+    """A WIDE_B1_CASES-form case as (dtype, ta, tb, batch, M, N, K, layout,
+    broadcast)."""
+    return (case[0], case[2], case[3], case[4], *case[5:8], case[9], case[10])
+
+
+def wide_b1_case(torch, gen, case, route=None):
     """One WIDE_B1_CASES case on B1 (batch None) or B2 against the plain
-    version, the route (and, for float64, the tile of ``ops.mxu.dmma_tile``)
+    version, on its route (or on ``route``, the override), the route, its
+    pack launches (and, for float64, the tile of ``ops.mxu.dmma_tile``)
     checked; returns the largest abs error."""
     from gemm_hls_tpu_torch.ops import mxu
     a, b, eps, kw = wide_b1_operands(torch, gen, case[:13])
     fn = mxu.mxu_matmul if case[4] is None else mxu.mxu_matmul_batched
-    got = fn(a, b, *eps, **kw)
-    if fn.last_route != case[12]:
-        raise AssertionError(f"B1 / B2 {case}: route {fn.last_route}")
+    before = pack_count()
+    got = fn(a, b, *eps, route=route, **kw)
+    check_packs(fn, wide_case_layout(case), route or case[12], before, f"B1 / B2 {case}")
     tile = mxu.dmma_tile(aligned_case(case)) if case[12] == "dmma" else None
     if fn.last_dmma_tile != tile:
         raise AssertionError(f"B1 / B2 {case}: float64 tile {fn.last_dmma_tile}, not {tile}")
@@ -7105,11 +7235,16 @@ def phase_slice21(torch):
     t_start = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(21)
     worst = max(wide_b1_case(torch, gen, c) for c in WIDE_B1_CASES)
+    for case in WIDE_B1_CASES:  # int8 packed on the engine: again on WMMA, named
+        if retired_route(*wide_case_layout(case)):
+            worst = max(worst, wide_b1_case(torch, gen, case,
+                                            retired_route(*wide_case_layout(case))))
     routes = sorted({c[-1] for c in WIDE_B1_CASES})
     log(f"phase 30f: B1 / B2 wide-type cases, {len(WIDE_B1_CASES)} (float64 on dmma in four "
         f"layouts, dense / pitched / odd pitches, K 1 / 3 / 17, float32 out, broadcast, batch "
         f"70000, every epilogue, +-inf / NaN; int16 / uint8 / uint16 / uint32 on simt; int8 "
-        f"-128 / 127 on its tensor-core routes), routes {routes} checked each: ok (worst abs "
+        f"-128 / 127 on the engine, in place and packed, the packed one again on WMMA), "
+        f"routes {routes} checked each: ok (worst abs "
         f"err {worst:.3e})")
     worst = max(wide_b3_case(torch, gen, c) for c in WIDE_B3_CASES)
     log(f"phase 30f: B3 wide-type cases, {len(WIDE_B3_CASES)} (every semiring of each of "
@@ -7335,39 +7470,41 @@ GEN_B3_CASES = (
 # layouts, int8 on the engine (K-major) and on WMMA; silu_bias, the
 # two-operand clamp and the leaky ReLU (torch.where); B2 batched, with a
 # broadcast 2-D operand.  A library is one (callable, route, input type,
-# layout; the CUDA cores take any layout): twelve, seven of them the main
-# path's.
+# layout; the CUDA cores take any layout).  Since the pack pass the rule
+# sends the WMMA and fp32 CUDA-core cases to the engine (an operand packed
+# or split first, its functor built for the layout the engine then reads):
+# each runs again on its former route, named (``retired_route``).
 GEN_EPILOGUE_CASES = (
     [("relu_bias", "bfloat16", "bfloat16", ta, tb, None, 1000, 1030, 1100, "pitched", None,
       "wgmma") for ta, tb in ((False, False), (True, True))]
     + [("relu_bias", "float64", "float64", ta, False, None, 130, 200, 67, lay, None, "dmma")
        for ta, lay in ((False, "dense"), (True, "odd"))]
     + [("relu_bias", "bfloat16", "float32", False, False, None, 250, 300, 100, "dense", None,
-        "wmma"),
-       ("relu_bias", "float16", "float16", True, True, None, 130, 264, 67, "odd", None, "wmma"),
+        "wgmma"),
+       ("relu_bias", "float16", "float16", True, True, None, 130, 264, 67, "odd", None, "wgmma"),
        ("relu_bias", "float32", "float32", False, False, None, 130, 200, 67, "dense", None,
-        "simt"),
-       ("relu_bias", "float32", "float32", True, True, None, 130, 200, 67, "odd", None, "simt"),
+        "wgmma"),
+       ("relu_bias", "float32", "float32", True, True, None, 130, 200, 67, "odd", None, "wgmma"),
        ("relu_bias", "float32", "float32", False, False, None, 256, 384, 512, "dense", None,
         "wgmma"),
        ("relu_bias", "int8", "float32", False, True, None, 300, 520, 272, "dense", None,
         "wgmma"),
        ("relu_bias", "int8", "float32", False, False, None, 300, 520, 272, "dense", None,
-        "wmma"),
+        "wgmma"),
        ("silu_bias", "bfloat16", "bfloat16", False, False, None, 1000, 1030, 1100, "pitched",
         None, "wgmma"),
        ("silu_bias", "float32", "float32", True, False, None, 130, 200, 67, "dense", None,
-        "simt"),
+        "wgmma"),
        ("clamp2", "bfloat16", "float32", False, False, None, 264, 384, 512, "dense", None,
         "wgmma"),
-       ("leaky", "float32", "float32", False, True, None, 130, 200, 67, "dense", None, "simt"),
+       ("leaky", "float32", "float32", False, True, None, 130, 200, 67, "dense", None, "wgmma"),
        ("relu_bias", "bfloat16", "bfloat16", False, False, 5, 300, 1030, 200, "pitched", None,
         "wgmma"),
        ("silu_bias", "bfloat16", "float32", False, False, 5, 130, 264, 200, "pitched", "a",
         "wgmma"),
-       ("relu_bias", "float32", "float32", False, False, 3, 65, 140, 131, "dense", "a", "simt"),
+       ("relu_bias", "float32", "float32", False, False, 3, 65, 140, 131, "dense", "a", "wgmma"),
        ("relu_bias", "float64", "float64", False, False, 3, 65, 140, 131, "dense", None, "dmma"),
-       ("relu_bias", "bfloat16", "float32", False, False, 3, 64, 72, 100, "dense", None, "wmma")]
+       ("relu_bias", "bfloat16", "float32", False, False, 3, 64, 72, 100, "dense", None, "wgmma")]
 )
 
 # The main path's shapes (phase 31): B3 at 4096^3 (B3's standing size,
@@ -7427,31 +7564,40 @@ def gen_epilogue_operands(torch, gen, case):
     return a, b, _gen_ep_operands(torch, gen, dtype, n, count), fn
 
 
-def gen_epilogue_case(torch, gen, case):
-    """One GEN_EPILOGUE_CASES case through the front door against the plain
-    version, its route checked (and relu_bias against the registered
-    bias_relu, bit for bit); returns the largest abs error."""
+def gen_epilogue_case(torch, gen, case, route=None):
+    """One GEN_EPILOGUE_CASES case through the front door (or, on ``route``,
+    a route named, through B1 / B2's wrapper) against the plain version, its
+    route checked (and relu_bias against the registered bias_relu, bit for
+    bit); returns the largest abs error."""
     from gemm_hls_tpu_torch import matmul
     from gemm_hls_tpu_torch.config import default_config
     from gemm_hls_tpu_torch.ops import mxu
     from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
-    name, dt, out, ta, tb, bsz, _, _, _, _, _, route = case
+    name, dt, out, ta, tb, bsz, _, _, _, _, _, rule = case
     a, b, eps, fn = gen_epilogue_operands(torch, gen, case)
     kw = dict(transpose_a=ta, transpose_b=tb, out_dtype=out)
-    before = sum(mxu.generated_launches.values())
-    got = front(lambda: matmul(a, b, epilogue=fn, epilogue_operands=eps, **kw))
-    wrapper = mxu.mxu_matmul if a.ndim == b.ndim == 2 or (
-        a.ndim == 3 and b.ndim == 2 and not ta) else mxu.mxu_matmul_batched
-    if sum(mxu.generated_launches.values()) != before + 1 or wrapper.last_route != route:
-        raise AssertionError(f"B1 / B2 generated {case}: route {wrapper.last_route}, "
-                             f"generated {dict(mxu.generated_launches)}")
     cfg = default_config(getattr(torch, dt), out_dtype=out)
+    before = sum(mxu.generated_launches.values())
+    if route is None:
+        got = front(lambda: matmul(a, b, epilogue=fn, epilogue_operands=eps, **kw))
+        wrapper = mxu.mxu_matmul if a.ndim == b.ndim == 2 or (
+            a.ndim == 3 and b.ndim == 2 and not ta) else mxu.mxu_matmul_batched
+    else:
+        wrapper = mxu.mxu_matmul if a.ndim == b.ndim == 2 else mxu.mxu_matmul_batched
+        got = front(lambda: wrapper(a, b, *eps, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                                    epilogue=get_epilogue(fn), route=route))
+    if sum(mxu.generated_launches.values()) != before + 1 or wrapper.last_route != (
+            route or rule):
+        raise AssertionError(f"B1 / B2 generated {case} on {route or rule}: route "
+                             f"{wrapper.last_route}, generated {dict(mxu.generated_launches)}")
     want = mxu.mxu_matmul_plain(a, b, *(e.reshape(1, -1) for e in eps), cfg=cfg,
                                 transpose_a=ta, transpose_b=tb, epilogue=get_epilogue(fn))
     err = compare(torch, got, want, wide_rtol(torch, got.dtype, False),
-                  f"B1 / B2 generated {case}", scaled=True)[0]
+                  f"B1 / B2 generated {case} on {route or rule}", scaled=True)[0]
     if name == "relu_bias":
-        reg = matmul(a, b, epilogue="bias_relu", epilogue_operands=eps, **kw)
+        reg = matmul(a, b, epilogue="bias_relu", epilogue_operands=eps, **kw) \
+            if route is None else wrapper(a, b, *eps, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                                          epilogue=get_epilogue("bias_relu"), route=route)
         if not torch.equal(got, reg):
             raise AssertionError(f"{case}: relu(acc + b) differs from bias_relu")
     return err
@@ -7482,10 +7628,21 @@ def phase31_specs(torch):
         ("plus_max", "float32"), ("user_max_plus", "float32"), ("user_log", "float32"),
         ("plus_max", "int8"), ("user_max_plus", "float64")}
     # (callable, route, dtype, ta, tb, float64 tile): the tile as the route
-    # rule picks it (the main path's 2048^3 float64 operands are aligned).
-    eps = {(c[0], c[-1], c[1], c[3], c[4],
-            mxu.dmma_tile(aligned_case((c[1], c[2], *c[3:9], "rand", *c[9:11])))
-            if c[-1] == "dmma" else None) for c in GEN_EPILOGUE_CASES} | {
+    # rule picks it (the main path's 2048^3 float64 operands are aligned);
+    # on the engine the layout it reads after the pack pass; each case's
+    # former route too (``retired_route``: phase 31a names it).
+    eps = set()
+    for c in GEN_EPILOGUE_CASES:
+        layout = (c[1], c[3], c[4], c[5], *c[6:9], c[9], c[10])
+        ta, tb = c[3], c[4]
+        if c[-1] == "wgmma":
+            pa, pb = case_packs(*layout)
+            ta, tb = ta and not pa, tb or pb
+        eps.add((c[0], c[-1], c[1], ta, tb,
+                 mxu.dmma_tile(all(operands_aligned(*layout))) if c[-1] == "dmma" else None))
+        if retired_route(*layout):
+            eps.add((c[0], retired_route(*layout), c[1], c[3], c[4], None))
+    eps |= {
         ("silu_bias", "wgmma", "bfloat16", False, False, None),
         ("relu_bias", "wgmma", "bfloat16", False, False, None),
         ("relu_bias", "wmma", "bfloat16", False, False, None),
@@ -7616,9 +7773,14 @@ def phase_slice22(torch, builds):
         f"(worst abs err {worst:.3e})")
     worst = max(gen_epilogue_case(torch, gen, c) for c in GEN_EPILOGUE_CASES)
     routes = sorted({c[-1] for c in GEN_EPILOGUE_CASES})
+    retired = [(c, retired_route(c[1], c[3], c[4], c[5], *c[6:9], c[9], c[10]))
+               for c in GEN_EPILOGUE_CASES]
+    retired = [(c, r) for c, r in retired if r]
+    worst_old = max(gen_epilogue_case(torch, gen, c, r) for c, r in retired)
     log(f"phase 31a: B1 / B2 callable-epilogue cases, {len(GEN_EPILOGUE_CASES)}, routes "
         f"{routes} checked each, relu(acc + b) equal to bias_relu bit for bit: ok (worst abs "
-        f"err {worst:.3e})")
+        f"err {worst:.3e}); the {len(retired)} packed or unaligned-fp32 cases again on "
+        f"{sorted({r for _, r in retired})}, named (worst {worst_old:.3e})")
 
     # ---- the main path ------------------------------------------------------
     reset_counters()
@@ -7661,12 +7823,14 @@ def phase_slice22(torch, builds):
     cfg_e = default_config(bf16)
     ep_err, routes = {}, {}
 
-    def held(key, fn, want, rtol, route, bitwise=None):
+    def held(key, fn, want, rtol, route, bitwise=None, packs=0):
+        before = pack_count()
         got = front(fn)
         wrapper = mxu.mxu_matmul if got.ndim == 2 else mxu.mxu_matmul_batched
         routes[key] = wrapper.last_route
-        if routes[key] != route:
-            raise AssertionError(f"31c {key}: route {routes[key]}, want {route}")
+        if routes[key] != route or pack_count() - before != packs:
+            raise AssertionError(f"31c {key}: route {routes[key]}, want {route}; "
+                                 f"{pack_count() - before} packs, want {packs}")
         ep_err[key] = compare(torch, got, want(), rtol, f"31c {key}", scaled=True)[0]
         if bitwise is not None and not torch.equal(got, bitwise()):
             raise AssertionError(f"31c {key}: differs from the registered bias_relu")
@@ -7674,6 +7838,12 @@ def phase_slice22(torch, builds):
     def plain(a, b, *ops, cfg, fn, **kw):
         return mxu.mxu_matmul_plain(a, b, *(o.reshape(1, -1) for o in ops), cfg=cfg,
                                     epilogue=get_epilogue(fn), **kw)
+
+    def gen_call(a, b, bias, fn, cfg, route=None):
+        """B1 with the callable ``fn`` at its store, on ``route`` if named."""
+        return mxu.mxu_matmul(a, b, bias, cfg=cfg, epilogue=get_epilogue(fn), route=route)
+
+    bias_relu = get_epilogue("bias_relu")
 
     held("silu engine", lambda: matmul(xe, we, epilogue=silu, epilogue_operands=(be,)),
          lambda: plain(xe, we, be, cfg=cfg_e, fn=silu), BF16_RTOL, "wgmma")
@@ -7684,14 +7854,19 @@ def phase_slice22(torch, builds):
     xw = signed(torch, (mw, kw_), bf16, gen)  # 2008-byte rows: not 16-byte units
     ww = signed(torch, (kw_, nw), bf16, gen)
     bw = signed(torch, (nw,), f32, gen)
-    held("relu wmma", lambda: matmul(xw, ww, epilogue=relu, epilogue_operands=(bw,)),
-         lambda: plain(xw, ww, bw, cfg=cfg_e, fn=relu), BF16_RTOL, "wmma",
-         lambda: matmul(xw, ww, epilogue="bias_relu", epilogue_operands=(bw,)))
+    # On the engine after A's pack pass (the route rule); on WMMA, named
+    # (its former route, a comparison), after the main path below.
+    held("relu packed engine", lambda: matmul(xw, ww, epilogue=relu, epilogue_operands=(bw,)),
+         lambda: plain(xw, ww, bw, cfg=cfg_e, fn=relu), BF16_RTOL, "wgmma",
+         lambda: matmul(xw, ww, epilogue="bias_relu", epilogue_operands=(bw,)), packs=1)
     no = SLICE22["other"]
-    # fp32 on the CUDA cores: K 2047, rows of A not whole 16-byte units.
+    # fp32, K 2047 (rows of A not whole 16-byte units): on the engine after
+    # the split pass (the route rule); on the CUDA cores, named, after the
+    # main path below.
     xs_, ws_, bs_ = (signed(torch, s, f32, gen) for s in ((no, no - 1), (no - 1, no), (no,)))
-    held("relu simt", lambda: matmul(xs_, ws_, epilogue=relu, epilogue_operands=(bs_,)),
-         lambda: plain(xs_, ws_, bs_, cfg=default_config(f32), fn=relu), F32_RTOL, "simt",
+    held("relu unaligned tf32 engine",
+         lambda: matmul(xs_, ws_, epilogue=relu, epilogue_operands=(bs_,)),
+         lambda: plain(xs_, ws_, bs_, cfg=default_config(f32), fn=relu), F32_RTOL, "wgmma",
          lambda: matmul(xs_, ws_, epilogue="bias_relu", epilogue_operands=(bs_,)))
     # fp32 on the engine, three TF32 passes (its functor at the promoted
     # store), held to the same IEEE plain version.
@@ -7741,20 +7916,41 @@ def phase_slice22(torch, builds):
                     generated_epilogue=dict(mxu.generated_launches),
                     generated_b3=dict(vpu.vpu_matmul.generated_launches))
     main_s = time.perf_counter() - t0
-    log(f"phase 31c: callable epilogues vs plain: " + "; ".join(
-        f"{k} ({routes[k]}) {v:.3e}" for k, v in ep_err.items())
-        + f"; relu(acc + b) bit for bit bias_relu on engine, WMMA, CUDA cores, dmma, batched "
-          f"and int8; silu gradient at fp32 {ng}^3 (B1 on {routes['silu gradient']}) vs "
-          f"plain autograd: max abs err dx {grad_err[0]:.3e}, dw {grad_err[1]:.3e}, "
-          f"db {grad_err[2]:.3e}")
     log(f"phase 31: main-path launches {launches}; plain-version runs on the card inside the "
         f"front-door calls: 0")
-    need = {("wgmma", "bfloat16"), ("wmma", "bfloat16"), ("simt", "float32"),
-            ("dmma", "float64"), ("wgmma", "int8"), ("wgmma", "float32")}
-    if any(not mxu.generated_launches[key] for key in need) or set(
+    need = {("wgmma", "bfloat16"), ("dmma", "float64"), ("wgmma", "int8"),
+            ("wgmma", "float32")}
+    if any(not mxu.generated_launches[key] for key in need) or not mxu.packed_launches[
+            "bfloat16"] or set(
             vpu.vpu_matmul.generated_launches) != {"float32", "int8"}:
         raise AssertionError(f"phase 31: a generated kernel of the path was not launched: "
                              f"{launches}")
+    if any(r in ("wmma", "simt") for r, _ in launches["generated_epilogue"]):
+        raise AssertionError(f"phase 31: the main path took a retired route: {launches}")
+
+    # The retired routes, named (comparisons, outside the counted window):
+    # WMMA on the packed case's operands, the CUDA cores on unaligned fp32.
+    retired = (("wmma", "bfloat16"), ("simt", "float32"))
+    before = {key: mxu.generated_launches[key] for key in retired}
+    held("relu wmma", lambda: gen_call(xw, ww, bw, relu, cfg_e, "wmma"),
+         lambda: plain(xw, ww, bw, cfg=cfg_e, fn=relu), BF16_RTOL, "wmma",
+         lambda: mxu.mxu_matmul(xw, ww, bw, cfg=cfg_e, epilogue=bias_relu, route="wmma"))
+    held("relu simt", lambda: gen_call(xs_, ws_, bs_, relu, default_config(f32), "simt"),
+         lambda: plain(xs_, ws_, bs_, cfg=default_config(f32), fn=relu), F32_RTOL, "simt",
+         lambda: mxu.mxu_matmul(xs_, ws_, bs_, cfg=default_config(f32), epilogue=bias_relu,
+                                route="simt"))
+    named_launches = {f"{r} {d}": mxu.generated_launches[(r, d)] - before[(r, d)]
+                      for r, d in retired}
+    if not all(named_launches.values()):
+        raise AssertionError(f"phase 31: a named retired route did not launch: "
+                             f"{named_launches}")
+    log(f"phase 31c: callable epilogues vs plain: " + "; ".join(
+        f"{k} ({routes[k]}) {v:.3e}" for k, v in ep_err.items())
+        + f"; relu(acc + b) bit for bit bias_relu on the engine (in place, after the pack "
+          f"pass, after the split of unaligned fp32), WMMA and the CUDA cores (named), dmma, "
+          f"batched and int8; silu gradient at fp32 {ng}^3 (B1 on {routes['silu gradient']}) vs "
+          f"plain autograd: max abs err dx {grad_err[0]:.3e}, dw {grad_err[1]:.3e}, "
+          f"db {grad_err[2]:.3e}")
 
     # ---- (d) times, in turns on CUDA events (comparison launches) ----------
     readings = {}
@@ -7778,17 +7974,12 @@ def phase_slice22(torch, builds):
         user_max_plus_ms=t["user_max_plus"], user_max_plus_plain_ms=t["plain_max_plus"],
         builtin_min_plus_ms=t["min_plus"], builtin_max_plus_ms=t["max_plus"],
         max_abs_err_by_semiring=b3)
-    bias_relu = get_epilogue("bias_relu")
-
     def ep_bound(a, b, out_bytes, bias):
         """Inputs read once (A, B, the bias), the output written once."""
         (m_, k_), n_ = a.shape, b.shape[1]
         return H100.bound(2.0 * m_ * n_ * k_, H100.peak_for(a.dtype),
                           (m_ * k_ + k_ * n_) * a.element_size() + m_ * n_ * out_bytes
                           + n_ * bias.element_size())
-
-    def gen_call(a, b, bias, fn, cfg):
-        return mxu.mxu_matmul(a, b, bias, cfg=cfg, epilogue=get_epilogue(fn))
 
     t = event_turns(torch, {
         "silu": lambda: gen_call(xe, we, be, silu, cfg_e),
@@ -7806,9 +7997,11 @@ def phase_slice22(torch, builds):
     for key, (a, b, bias, cfg, dt) in {
             "wmma": (xw, ww, bw, cfg_e, bf16), "simt": (xs_, ws_, bs_, default_config(f32), f32),
             "dmma": (xd, wd, bd, default_config(f64), f64)}.items():
+        named = key if key in ("wmma", "simt") else None  # the retired routes, named
         t = event_turns(torch, {
-            "relu": lambda: gen_call(a, b, bias, relu, cfg),
-            "bias_relu": lambda: mxu.mxu_matmul(a, b, bias, cfg=cfg, epilogue=bias_relu),
+            "relu": lambda: gen_call(a, b, bias, relu, cfg, named),
+            "bias_relu": lambda: mxu.mxu_matmul(a, b, bias, cfg=cfg, epilogue=bias_relu,
+                                                route=named),
             "library": lambda: torch._addmm_activation(bias.to(dt), a, b)}, rounds=3, iters=5)
         t.update(event_turns(torch, {"plain": lambda: plain(a, b, bias, cfg=cfg, fn=relu)},
                              rounds=1, iters=2))
@@ -7827,7 +8020,7 @@ def phase_slice22(torch, builds):
     torch.cuda.empty_cache()
     log(f"phase 31: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s); "
         f"{codegen.ITEM} runs on the card")
-    return {"launches": launches, "readings": readings}
+    return {"launches": launches, "named_launches": named_launches, "readings": readings}
 
 
 # ---------------------------------------------------------------------------
@@ -8228,7 +8421,9 @@ def phase_slice23(torch, lib_log):
 # a and b; every epilogue at "high" and bias_gelu batched at "default"; K
 # 1, 3 and 5 (the split's zero pad inside a 16-byte row); +-inf and NaN
 # at both precisions in the four layouts, batched and with an epilogue;
-# rows that are not whole 16-byte units on the CUDA cores.
+# rows that are not whole 16-byte units (the split pass reads any pitch,
+# so they reach the engine too since the pack pass's slice: phase 34 runs
+# each of them again on the CUDA cores, named, ``retired_route``).
 TF32_ROUTE_CASES = (
     [(prec, ta, tb, None, 300, 520, 136, False, None, None, False, "wgmma")
      for prec in ("default", "high") for ta, tb in LAYOUTS]
@@ -8249,10 +8444,10 @@ TF32_ROUTE_CASES = (
        for prec in ("default", "high") for ta, tb in LAYOUTS]
     + [("high", False, True, 3, 130, 264, 200, True, None, None, True, "wgmma"),
        ("default", True, False, 3, 130, 264, 200, True, "b", "bias_relu", True, "wgmma")]
-    + [("high", False, False, None, 130, 200, 67, False, None, None, False, "simt"),
-       ("default", True, True, None, 130, 200, 67, False, None, None, False, "simt"),
-       ("high", False, False, 3, 65, 140, 131, False, None, None, False, "simt"),
-       ("high", False, False, None, 130, 200, 67, False, None, None, True, "simt")]
+    + [("high", False, False, None, 130, 200, 67, False, None, None, False, "wgmma"),
+       ("default", True, True, None, 130, 200, 67, False, None, None, False, "wgmma"),
+       ("high", False, False, 3, 65, 140, 131, False, None, None, False, "wgmma"),
+       ("high", False, False, None, 130, 200, 67, False, None, None, True, "wgmma")]
 )
 TF32_REPEAT_CASES = tuple(c for c in TF32_ROUTE_CASES
                           if c[4:7] == (1000, 1030, 1100) and c[1:3] == (False, False))
@@ -8278,6 +8473,13 @@ def tf32_plant_specials(torch, x):
                          (float("inf"), -float("inf"), float("nan"), -float("inf"),
                           float("inf"))):
         x[..., i, j] = v
+
+
+def tf32_case_layout(case):
+    """A TF32_ROUTE_CASES case as (dtype, ta, tb, batch, M, N, K, layout,
+    broadcast)."""
+    _, ta, tb, bsz, m, n, k, pitch, bcast = case[:9]
+    return "float32", ta, tb, bsz, m, n, k, "pitched" if pitch else "dense", bcast
 
 
 def tf32_case_operands(torch, gen, case):
@@ -8325,23 +8527,25 @@ def tf32_split_equal(torch, x, mn_major, passes, side, what):
                              f"plain version ({bad} words)")
 
 
-def tf32_route_case(torch, gen, case):
-    """One TF32_ROUTE_CASES case: its route and TF32 passes checked, the
-    split pass's workspaces equal to their plain version bit for bit, the
-    GEMM held to its plain version (the passes in float64 on the engine,
-    IEEE fp32 on the CUDA cores), +-inf and NaN at the same places (a
-    specials case on the engine: also IEEE fp32's, within
-    TF32_IEEE_RTOL); returns (largest abs error, route)."""
+def tf32_route_case(torch, gen, case, route=None):
+    """One TF32_ROUTE_CASES case on its route (or on ``route``, the
+    override): its route and TF32 passes checked, the split pass's
+    workspaces equal to their plain version bit for bit, the GEMM held to
+    its plain version (the passes in float64 on the engine, IEEE fp32 on
+    the CUDA cores), +-inf and NaN at the same places (a specials case on
+    the engine: also IEEE fp32's, within TF32_IEEE_RTOL); returns (largest
+    abs error, route)."""
     from gemm_hls_tpu_torch.ops import mxu
     a, b, eps, kw = tf32_case_operands(torch, gen, case)
     gemm = mxu.mxu_matmul if case[3] is None else mxu.mxu_matmul_batched
-    got = gemm(a, b, *eps, **kw)
+    got = gemm(a, b, *eps, route=route, **kw)
     passes = mxu.tf32_passes(case[0])
-    if gemm.last_route != case[-1] or gemm.last_tf32_passes != (
-            passes if case[-1] == "wgmma" else None):
+    want = route or case[-1]
+    if gemm.last_route != want or gemm.last_tf32_passes != (
+            passes if want == "wgmma" else None):
         raise AssertionError(f"TF32 {case}: route {gemm.last_route}, passes "
                              f"{gemm.last_tf32_passes}")
-    if case[-1] != "wgmma":
+    if want != "wgmma":
         return compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), F32_RTOL,
                        f"TF32 {case}", scaled=True)[0], gemm.last_route
     tf32_split_equal(torch, a, case[1], passes, "a", f"TF32 {case}")
@@ -8566,7 +8770,311 @@ def phase_slice24(torch, lib_log, record29, times29):
             "trainer": dict(step_ms=trainer_ms, plain_ms=plain_ms, losses=losses),
             "par": par, "times29": times29,
             "ptxas": {**ptxas_report(lib_log, "mxu_wg_kernelIf"),
-                      **ptxas_report(lib_log, "tf32_split_kernel")}}
+                      **ptxas_report(lib_log, "SplitPut")}}
+
+
+# ---------------------------------------------------------------------------
+# Slice 25 (phase 34): B1 / B2 on the tile engine at any layout and
+# alignment: the pack pass (csrc/operand_pack.cu) and unaligned fp32 after
+# the split pass
+# ---------------------------------------------------------------------------
+
+# The pack pass against its plain version, bit for bit (phase 34a;
+# tests/test_torch_kernels.py parametrises it too): (dtype, mn_major,
+# batch (None: 2-D), rows, K, pad (elements past the held row's end: the
+# pitch is the row plus it), offset (the base that many elements in),
+# broadcast (one example read for every batch entry, a stride of 0)).
+# Both holdings of each type, dense and at pitches K + 1 and K + 3 (rows +
+# 1 and + 3 held (K, rows)), a base one element off, batched with odd batch
+# strides, a broadcast batch, a batch of one, 1 x 1 and 1 x 1 x 1, shapes
+# off the 128-byte tile on both sides.
+PACK_CASES = (
+    [(dt, mn, None, 300, 517, pad, off, False) for dt in ("bfloat16", "float16", "int8")
+     for mn in (False, True) for pad, off in ((0, 0), (1, 0), (3, 0), (1, 1))]
+    + [(dt, mn, 3, 130, 200, 3, 1, False) for dt in ("bfloat16", "float16", "int8")
+       for mn in (False, True)]
+    + [(dt, mn, 4, 64, 100, 1, 0, True) for dt in ("bfloat16", "int8") for mn in (False, True)]
+    + [(dt, mn, None, 1, 1, 0, 0, False) for dt in ("bfloat16", "int8") for mn in (False, True)]
+    + [(dt, True, 1, 1, 1, 1, 1, False) for dt in ("float16", "int8")]
+    + [("int8", False, None, 7, 129, 0, 1, False), ("bfloat16", True, None, 65, 3, 3, 0, False),
+       ("int8", True, 2, 257, 16, 0, 0, False), ("float16", False, None, 2048, 1004, 0, 0, False)]
+)
+# Unaligned fp32 on the engine after the split pass (phase 34c), in
+# TF32_ROUTE_CASES' form: both precisions in the four layouts at M, N and K
+# none of them a multiple of 4 (every row pitch off 16 bytes), batched (odd
+# batch strides) and with a broadcast 2-D a / b, every epilogue, +-inf and
+# NaN planted at both precisions in the four layouts, batched and with an
+# epilogue.  Each case runs again on the CUDA cores, named.
+UNALIGNED_TF32_CASES = (
+    [(prec, ta, tb, None, 130, 198, 67, False, None, None, False, "wgmma")
+     for prec in ("default", "high") for ta, tb in LAYOUTS]
+    + [("high", ta, tb, 3, 130, 198, 67, False, None, None, False, "wgmma") for ta, tb in LAYOUTS]
+    + [("default", False, True, 5, 66, 130, 43, False, "a", None, False, "wgmma"),
+       ("high", True, False, 5, 66, 130, 43, False, "b", None, False, "wgmma")]
+    + [("high", False, False, None, 130, 198, 67, False, None, ep, False, "wgmma")
+       for ep in EPILOGUES]
+    + [(prec, ta, tb, None, 130, 198, 67, False, None, None, True, "wgmma")
+       for prec in ("default", "high") for ta, tb in LAYOUTS]
+    + [("high", False, True, 3, 130, 198, 67, False, None, None, True, "wgmma"),
+       ("default", True, False, 3, 130, 198, 67, False, "b", "bias_relu", True, "wgmma")]
+)
+# Phase 34's shapes: relu(a . b + bias) bf16 2048 x
+# 1004 . 1004 x 2048 (A's rows 2008 bytes); bf16 and fp32 8192 x 8190 .
+# 8190 x 8192 (A's rows off 16 bytes); int8 8192^3 with B held (K, N), the
+# reference benchmark's layout; B2 at int8 64 x 512^3 (B (K, N)) and bf16
+# 16 x 1024 x 1024 x 1002.
+SLICE25 = dict(relu=(2048, 2048, 1004), big=(8192, 8192, 8190), int8=8192,
+               batched_int8=(64, 512), batched_bf16=(16, 1024, 1002))
+
+
+def pack_case_operand(torch, gen, case):
+    """The operand of a PACK_CASES case on the card: random bits (every
+    16-bit pattern, NaNs included), held (rows, K), or (K, rows) with
+    mn_major, as a view into rows ``pad`` elements longer, ``offset`` in."""
+    dt, mn, bsz, rows, k, pad, off, bcast = case
+    dtype = getattr(torch, dt)
+    held = (k, rows) if mn else (rows, k)
+    lead = () if bsz is None else (1 if bcast else bsz,)
+    shape = (*lead, held[0], held[1] + pad + off)
+    bits = torch.int16 if dtype.itemsize == 2 else torch.int8
+    info = torch.iinfo(bits)
+    x = torch.randint(info.min, info.max + 1, shape, generator=gen, device="cuda",
+                      dtype=bits).view(dtype)
+    x = x[..., off:off + held[1]]
+    return x.expand(bsz, *held) if bcast else x
+
+
+def pack_case(torch, gen, case):
+    """One PACK_CASES case: the pack pass's workspace equal to its plain
+    version bit for bit, one launch counted."""
+    from gemm_hls_tpu_torch.ops import mxu
+    x = pack_case_operand(torch, gen, case)
+    before = pack_count()
+    got = mxu.pack_operand(x, case[1])
+    want = mxu.pack_operand_plain(x, case[1])
+    if pack_count() != before + 1:
+        raise AssertionError(f"pack {case}: {pack_count() - before} launches")
+    if got.shape != want.shape or not torch.equal(got.view(torch.uint8),
+                                                  want.view(torch.uint8)):
+        raise AssertionError(f"pack {case}: the workspace {tuple(got.shape)} differs from its "
+                             f"plain version {tuple(want.shape)}")
+
+
+def phase_slice25(torch, lib_log):
+    """Phase 34: slice 25, B1 / B2 on the engine at any layout and
+    alignment.  (a) PACK_CASES, the pack pass bit for bit its plain version;
+    (c) UNALIGNED_TF32_CASES on the engine (the split workspaces bit for
+    bit, the GEMM within TF32_RTOL of the passes in float64, +-inf and NaN
+    where IEEE fp32 puts them) and again on the CUDA cores, named (the
+    former WMMA cases of phases 3a, 6b, 27b, 30f and 31a ran there again on
+    WMMA, named); then, every launch count set to 0 just before and read
+    just after, the main path through the front door (b): SLICE25's shapes,
+    each held to its plain version, every B1 / B2 launch on the engine and
+    the pack and split launches counted; (d) each shape on CUDA events in
+    turns: pack (or split) plus engine, the engine alone on a workspace,
+    the pass alone, the retired route named, the library call.  Returns
+    the readings for the kernels line."""
+    from gemm_hls_tpu_torch import _build, matmul
+    from gemm_hls_tpu_torch.config import default_config, pack_bytes, round_up
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    from gemm_hls_tpu_torch.ops import mxu
+    from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    # ---- (a) the pack pass; (c) unaligned fp32 ----------------------------
+    for case in PACK_CASES:
+        pack_case(torch, gen, case)
+    log(f"phase 34a: PACK_CASES {len(PACK_CASES)} (bf16 / fp16 / int8, both holdings, pitches "
+        f"K + 1 / K + 3, a base one element off, batched, broadcast, 1 x 1 x 1): the pack "
+        f"pass's workspace bit for bit its plain version, one launch each")
+    errs, old = [], []
+    for case in UNALIGNED_TF32_CASES:
+        if all(operands_aligned(*tf32_case_layout(case))):
+            raise AssertionError(f"34c {case}: its operands are aligned")
+        errs.append(tf32_route_case(torch, gen, case)[0])
+        old.append(tf32_route_case(torch, gen, case, route="simt")[0])
+    log(f"phase 34c: UNALIGNED_TF32_CASES {len(UNALIGNED_TF32_CASES)} on wgmma after the split "
+        f"(four layouts, both precisions, batched, broadcast, every epilogue, +-inf / NaN): the "
+        f"split workspaces bit for bit, the GEMM within {TF32_RTOL:g} of the passes in float64 "
+        f"(max abs err {max(errs):.3e}), specials where IEEE fp32 puts them; again on simt, "
+        f"named (max abs err {max(old):.3e})")
+
+    # ---- (b) the main path, counts reset ------------------------------------
+    mr, nr, kr = SLICE25["relu"]
+    xr, wr, br = (signed(torch, sh, bf16, gen) for sh in ((mr, kr), (kr, nr), (nr,)))
+    m, n, k = SLICE25["big"]
+    a16, b16 = signed(torch, (m, k), bf16, gen), signed(torch, (k, n), bf16, gen)
+    a32, b32 = signed(torch, (m, k), f32, gen), signed(torch, (k, n), f32, gen)
+    n8 = SLICE25["int8"]
+    a8, b8 = (torch.randint(-100, 100, (n8, n8), generator=gen, device="cuda", dtype=i8)
+              for _ in range(2))  # B held (K, N)
+    zb, sb_ = SLICE25["batched_int8"]
+    a8b, b8b = (torch.randint(-100, 100, (zb, sb_, sb_), generator=gen, device="cuda", dtype=i8)
+                for _ in range(2))
+    zh, mh, kh = SLICE25["batched_bf16"]
+    ahb, bhb = signed(torch, (zh, mh, kh), bf16, gen), signed(torch, (zh, kh, mh), bf16, gen)
+    relu = get_epilogue("bias_relu")
+    cfg16, cfg8 = default_config(bf16), default_config(i8, out_dtype="int32")
+    reset_every_counter()
+    t0 = time.perf_counter()
+    main, want_packs = {}, {"bfloat16": 3, "int8": 2}
+    main["relu"] = matmul(xr, wr, epilogue="bias_relu", epilogue_operands=(br,))
+    main["bf16"] = matmul(a16, b16)
+    main["int8"] = matmul(a8, b8, out_dtype="int32")
+    main["fp32 high"] = matmul(a32, b32)
+    main["fp32 default"] = matmul(a32, b32, precision="default")
+    main["int8 batched"] = matmul(a8b, b8b, out_dtype="int32")
+    main["bf16 batched"] = matmul(ahb, bhb)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    got = launched()
+    by_route = {f"{r} {dt}": v for (r, dt), v in sorted(mxu.route_launches.items())}
+    packs = dict(mxu.pack_operand.launches)
+    packed = dict(mxu.packed_launches)
+    launches = dict(got, by_route=by_route, packs=packs, packed=packed,
+                    tf32_passes={f"x{p}": v for p, v in sorted(mxu.tf32_launches.items())})
+    if (any(r != "wgmma" for r, _ in mxu.route_launches) or packs != want_packs
+            or got.get("B1 tf32 split") != 4 or sum(mxu.packed_launches.values()) != 5):
+        raise AssertionError(f"34b: launches {launches}: every B1 / B2 launch on wgmma, packs "
+                             f"{want_packs}, 4 split launches and 5 packed GEMMs expected")
+    errs = {}
+    for key, (x, y, kw, rtol) in {
+            "relu": (xr, wr, dict(epilogue=relu, cfg=cfg16), BF16_RTOL),
+            "bf16": (a16, b16, dict(cfg=cfg16), BF16_RTOL),
+            "int8": (a8, b8, dict(cfg=cfg8), 0.0),
+            "int8 batched": (a8b, b8b, dict(cfg=cfg8), 0.0),
+            "bf16 batched": (ahb, bhb, dict(cfg=cfg16), BF16_RTOL)}.items():
+        ops = (br,) if key == "relu" else ()
+        errs[key] = compare(torch, main[key], mxu.mxu_matmul_plain(x, y, *ops, **kw), rtol,
+                            f"34b {key}", scaled=True)[0]
+    ref = torch.matmul(a32.double(), b32.double())
+    normwise = {key: normwise_of(torch, main[f"fp32 {key}"], ref) for key in ("high", "default")}
+    sgemm_err = normwise_of(torch, torch.matmul(a32, b32), ref)
+    del ref, main
+    if not (normwise["high"] <= 4 * sgemm_err and normwise["default"] < 1e-3):
+        raise AssertionError(f"34b fp32: normwise {normwise}, SGEMM {sgemm_err:.3e}")
+    log(f"phase 34b: the main path through the front door (bf16 relu {mr}x{nr}x{kr}, bf16 and "
+        f"fp32 {m}x{n}x{k} at high / default, int8 {n8}^3 B (K, N), B2 int8 {zb}x{sb_}^3 and "
+        f"bf16 {zh}x{mh}x{mh}x{kh}) vs plain: max abs err "
+        + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+        + f"; fp32 normwise vs float64 high {normwise['high']:.3e}, default "
+          f"{normwise['default']:.3e} (SGEMM {sgemm_err:.3e}); launches {got}; B1 / B2 by "
+          f"route {by_route}; packs by dtype {packs}; packed GEMMs {packed}; {main_s:.1f} s")
+
+    # ---- (d) times in turns ----------------------------------------------------
+    lib = _build.library()
+
+    def tf32_engine(wa, wb, c, p):
+        """The fp32 engine alone on split workspaces."""
+        with torch.cuda.device(wa.device):
+            rc = lib.mxu_wgmma_tf32(wa.data_ptr(), wb.data_ptr(), c.data_ptr(), 1, c.shape[0],
+                                    c.shape[1], wa.shape[1], wa.shape[1], wb.shape[1], 0, 0, p,
+                                    0, 0, None, None, 0,
+                                    torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "34d fp32 engine alone")
+        return c
+
+    def gemm_bound(x, y, out_bytes, dtype, extra=0):
+        (m_, k_), n_ = x.shape, y.shape[1]
+        return H100.bound(2.0 * m_ * n_ * k_, H100.peak_for(dtype),
+                          (m_ * k_ + k_ * n_) * x.element_size() + m_ * n_ * out_bytes + extra)
+
+    readings = {}
+    # relu(a . b + bias) bf16 2048 x 1004 . 1004 x 2048: CUDA events around
+    # windows queued behind a held stream (device time back to back).
+    xr_p = mxu.pack_operand(xr, False)[:, :kr]  # the engine reads it in place
+    t = event_turns(torch, {
+        "packed": lambda: mxu.mxu_matmul(xr, wr, br, cfg=cfg16, epilogue=relu),
+        "engine": lambda: mxu.mxu_matmul(xr_p, wr, br, cfg=cfg16, epilogue=relu),
+        "pack": lambda: mxu.pack_operand(xr, False),
+        "wmma": lambda: mxu.mxu_matmul(xr, wr, br, cfg=cfg16, epilogue=relu, route="wmma"),
+        "library": lambda: torch._addmm_activation(br, xr, wr)}, rounds=5, iters=20, hold=True)
+    t.update(event_turns(torch, {"plain": lambda: mxu.mxu_matmul_plain(
+        xr, wr, br, cfg=cfg16, epilogue=relu)}, rounds=1, iters=5, hold=True))
+    readings["relu"] = dict(ms=t, bound=gemm_bound(xr, wr, 2, bf16, nr * 2),
+                            pack_bound=H100.bound(0.0, 1.0, pack_bytes(bf16, mr, nr, kr)),
+                            max_abs_err=errs["relu"])
+    # bf16 8192 x 8190 . 8190 x 8192: CUDA events (milliseconds a call).
+    a16_p = mxu.pack_operand(a16, False)[:, :k]
+    t = event_turns(torch, {
+        "packed": lambda: mxu.mxu_matmul(a16, b16, cfg=cfg16),
+        "engine": lambda: mxu.mxu_matmul(a16_p, b16, cfg=cfg16),
+        "pack": lambda: mxu.pack_operand(a16, False),
+        "wmma": lambda: mxu.mxu_matmul(a16, b16, cfg=cfg16, route="wmma"),
+        "library": lambda: torch.matmul(a16, b16),
+        "pad": lambda: torch.nn.functional.pad(a16, (0, 2))}, rounds=3, iters=5)
+    t.update(event_turns(torch, {
+        "plain": lambda: mxu.mxu_matmul_plain(a16, b16, cfg=cfg16),
+        "plain pack": lambda: mxu.pack_operand_plain(a16, False)}, rounds=1, iters=2))
+    pack_diff = float((mxu.pack_operand(a16, False).float()
+                       - mxu.pack_operand_plain(a16, False).float()).abs().max())
+    readings["bf16"] = dict(ms=t, bound=gemm_bound(a16, b16, 2, bf16),
+                            pack_bound=H100.bound(0.0, 1.0, pack_bytes(bf16, m, n, k)),
+                            max_abs_err=errs["bf16"], pack_max_abs_err=pack_diff)
+    del a16_p, xr_p
+    # int8 8192^3, B held (K, N): CUDA events.
+    b8_p = mxu.pack_operand(b8, True)[:, :n8]  # (N, K), K-major
+    b8_col = b8.t().contiguous().t()  # the same B, column-major
+    t = event_turns(torch, {
+        "packed": lambda: mxu.mxu_matmul(a8, b8, cfg=cfg8),
+        "engine": lambda: mxu.mxu_matmul(a8, b8_p, cfg=cfg8, transpose_b=True),
+        "pack": lambda: mxu.pack_operand(b8, True),
+        "wmma": lambda: mxu.mxu_matmul(a8, b8, cfg=cfg8, route="wmma"),
+        "library": lambda: torch._int_mm(a8, b8),
+        "library col-major": lambda: torch._int_mm(a8, b8_col)}, rounds=3, iters=5)
+    t.update(event_turns(torch, {"plain": lambda: mxu.mxu_matmul_plain(a8, b8, cfg=cfg8)},
+                         rounds=1, iters=1))
+    readings["int8"] = dict(ms=t, bound=gemm_bound(a8, b8, 4, i8),
+                            pack_bound=H100.bound(0.0, 1.0, pack_bytes(i8, n8, n8, n8)),
+                            max_abs_err=errs["int8"])
+    del b8_p, b8_col
+    # fp32 8192 x 8190 . 8190 x 8192: CUDA events; the split of the
+    # unaligned A alone, the engine alone on both workspaces.
+    ws = {p: (mxu.tf32_operand(a32, False, p, "a"), mxu.tf32_operand(b32, True, p, "b"))
+          for p in (1, 3)}
+    c32 = torch.empty((m, n), device="cuda", dtype=f32)
+    cfg_h, cfg_d = default_config(f32), default_config(f32, precision="default")
+
+    def tf32_lib():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.matmul(a32, b32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    t = event_turns(torch, {
+        "high": lambda: mxu.mxu_matmul(a32, b32, cfg=cfg_h),
+        "default": lambda: mxu.mxu_matmul(a32, b32, cfg=cfg_d),
+        "engine high": lambda: tf32_engine(*ws[3], c32, 3),
+        "engine default": lambda: tf32_engine(*ws[1], c32, 1),
+        "split a high": lambda: mxu.tf32_operand(a32, False, 3, "a"),
+        "simt": lambda: mxu.mxu_matmul(a32, b32, cfg=cfg_h, route="simt"),
+        "sgemm": lambda: torch.matmul(a32, b32),
+        "cublas tf32": tf32_lib}, rounds=3, iters=3)
+    t.update(event_turns(torch, {"plain high": lambda: mxu.tf32_matmul_plain(a32, b32, 3)},
+                         rounds=1, iters=1))
+    flops, io = 2.0 * m * n * k, (m * k + k * n + m * n) * 4
+    max_abs = float((mxu.mxu_matmul(a32, b32, cfg=cfg_h)
+                     - mxu.tf32_matmul_plain(a32, b32, 3)).abs().max())
+    readings["fp32"] = dict(
+        ms=t, normwise=dict(normwise, sgemm=sgemm_err), max_abs_err=max_abs,
+        bounds={"high": H100.bound(3 * flops, H100.peak_for("tfloat32"), io),
+                "default": H100.bound(flops, H100.peak_for("tfloat32"), io),
+                "split a high": H100.bound(0.0, 1.0, m * k * 4 + m * round_up(k, 4) * 3 * 4)})
+    del ws, c32, a32, b32, a16, b16, a8, b8, a8b, b8b, ahb, bhb
+    torch.cuda.empty_cache()
+    for key, r in readings.items():
+        log(f"phase 34d: {key} in turns (ms): " + ", ".join(f"{n_} {v:.4f}"
+                                                          for n_, v in r["ms"].items())
+            + "; bounds (ms): " + ", ".join(
+                f"{n_} {v[0] * 1e3:.4f} ({v[1]})" for n_, v in (
+                    r["bounds"].items() if "bounds" in r
+                    else (("gemm", r["bound"]), ("pack", r["pack_bound"])))))
+    log(f"phase 34: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
+    return {"launches": launches, "readings": readings,
+            "ptxas": {**ptxas_report(lib_log, "PackPut"), **ptxas_report(lib_log, "SplitPut")}}
 
 
 def normwise_of(torch, got, ref):
@@ -8646,10 +9154,13 @@ def main() -> int:
             **ptxas_report(lib_log, "simt_f64")}.items())
         + "\nphase 2: B1 / B2's fp32 route (csrc/mxu_wgmma_tf32.cu, nvcc "
           f"{nvcc_s.get('mxu_wgmma_tf32.cu')} s: one pass, then the three promoted; "
-          f"csrc/tf32_split.cu, nvcc {nvcc_s.get('tf32_split.cu')} s), as ptxas reports them:"
+          f"csrc/tf32_split.cu, nvcc {nvcc_s.get('tf32_split.cu')} s) and the pack pass "
+          f"(csrc/operand_pack.cu, nvcc {nvcc_s.get('operand_pack.cu')} s), as ptxas reports "
+          f"them:"
         + "".join(f"\n  {k}: {v}" for k, v in {
             **ptxas_report(lib_log, "mxu_wg_kernelIf"),
-            **ptxas_report(lib_log, "tf32_split_kernel")}.items()))
+            **ptxas_report(lib_log, "SplitPut"),
+            **ptxas_report(lib_log, "PackPut")}.items()))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -8692,6 +9203,7 @@ def main() -> int:
     slice23 = phase_slice23(torch, lib_log)
     log(f"phase 32: {time.perf_counter() - t0:.1f} s")
     slice24 = phase_slice24(torch, lib_log, par20, par20_times)
+    slice25 = phase_slice25(torch, lib_log)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -9032,9 +9544,79 @@ def main() -> int:
         (t["bounds"]["split b high"] / 1e3, t["bound_by"]["split b high"]), None))
     kernels[-1].update(
         default_ms=t["ms"]["split b default"],
-        ptxas={k: v for k, v in slice24["ptxas"].items() if "tf32_split" in k},
+        ptxas={k: v for k, v in slice24["ptxas"].items() if "SplitPut" in k},
         library_note="no one PyTorch call splits into TF32; the TPU's MXU splits fp32 inside "
                      "its dot (pallas_mxu.py's DEFAULT / HIGHEST), so no TPU kernel is its own")
+    # Slice 25 (phase 34): B1 / B2 on the engine at any layout and
+    # alignment.  The pack pass, the engine after it and unaligned fp32 after
+    # the split, each with its launches on phase 34's main path and its
+    # times in turns beside the retired route (named) and the library call.
+    l25, r25 = slice25["launches"], slice25["readings"]
+    t, rr, r8 = r25["bf16"], r25["relu"], r25["int8"]
+    kernels.append(kernel(
+        "operand_pack (the pack pass of B1 / B2 on the engine: an operand its TMA maps cannot "
+        "read in place copied K-major, K padded to 16-byte rows; bf16 8192 x 8190 A)",
+        "gemm_hls_tpu_torch/csrc/operand_pack.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        sum(l25["packs"].values()),
+        dict(ms=t["ms"]["pack"], plain_ms=t["ms"]["plain pack"],
+             max_abs_err=t["pack_max_abs_err"]), t["pack_bound"], t["ms"]["pad"]))
+    kernels[-1].update(
+        launches_by_dtype=l25["packs"], int8_8192_b_ms=r8["ms"]["pack"],
+        int8_8192_b_bound_ms=r8["pack_bound"][0] * 1e3, relu_2048x1004_a_ms=rr["ms"]["pack"],
+        ptxas={k: v for k, v in slice25["ptxas"].items() if "PackPut" in k},
+        library_note="library_ms is torch.nn.functional.pad of the operand (one call, the "
+                     "same workspace); it replaces no TPU kernel: the TPU's Pallas kernel "
+                     "reads any pitch in place (pallas_mxu.py:365-368), TMA needs 16-byte "
+                     "bases and pitches and int8 wgmma K-major operands")
+    kernels.append(kernel(
+        "mxu_wgmma after the pack pass (B1 / B2 bf16 / fp16 / int8 in any layout and alignment; "
+        "bf16 8192 x 8190 . 8190 x 8192, A packed)",
+        "gemm_hls_tpu_torch/csrc/mxu_wgmma.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        sum(l25["packed"].values()),
+        dict(ms=t["ms"]["packed"], plain_ms=t["ms"]["plain"], max_abs_err=t["max_abs_err"]),
+        t["bound"], t["ms"]["library"]))
+    kernels[-1].update(
+        kernel_route="wgmma", engine_alone_ms=t["ms"]["engine"], pack_ms=t["ms"]["pack"],
+        retired_route="wmma", retired_route_ms=t["ms"]["wmma"], packed_launches=l25["packed"],
+        relu_bf16_2048x1004={**{f"{k}_ms": v for k, v in rr["ms"].items()},
+                             "bound_ms": rr["bound"][0] * 1e3, "max_abs_err": rr["max_abs_err"]},
+        int8_8192_b_kn={**{f"{k}_ms": v for k, v in r8["ms"].items()},
+                        "bound_ms": r8["bound"][0] * 1e3, "max_abs_err": r8["max_abs_err"]},
+        library_note="library_ms is torch.matmul; retired_route_ms the WMMA tile "
+                     "(csrc/mxu_gemm.cu) named on the same operands in the same turns; in "
+                     "relu_bf16_2048x1004 library is torch._addmm_activation, in int8_8192_b_kn "
+                     "torch._int_mm with B row-major and column-major; ms includes the pack")
+    t = r25["fp32"]
+    kernels.append(kernel(
+        "mxu_wgmma_tf32 on unaligned fp32 (B1 / B2: the split pass reads any pitch, then the "
+        "engine; fp32 8192 x 8190 . 8190 x 8192 at precision \"high\")",
+        "gemm_hls_tpu_torch/csrc/mxu_wgmma_tf32.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        l25["by_route"].get("wgmma float32", 0),
+        dict(ms=t["ms"]["high"], plain_ms=t["ms"]["plain high"], max_abs_err=t["max_abs_err"]),
+        t["bounds"]["high"], t["ms"]["sgemm"]))
+    kernels[-1].update(
+        default_ms=t["ms"]["default"], default_bound_ms=t["bounds"]["default"][0] * 1e3,
+        engine_alone_ms={"high": t["ms"]["engine high"], "default": t["ms"]["engine default"]},
+        split_a_high_ms=t["ms"]["split a high"],
+        split_a_high_bound_ms=t["bounds"]["split a high"][0] * 1e3,
+        retired_route="simt", retired_route_ms=t["ms"]["simt"],
+        cublas_tf32_ms=t["ms"]["cublas tf32"], normwise=t["normwise"],
+        library_note="library_ms is fp32 torch.matmul without TF32 (cuBLAS SGEMM); "
+                     "cublas_tf32_ms with TF32; retired_route_ms the CUDA-core tile named; "
+                     "max_abs_err against the plain version (the passes in float64)")
+    # The routes the rule no longer gives (WMMA for bf16 / fp16 / int8, the
+    # CUDA cores for fp32 on unaligned operands): phase 31's entries, with
+    # no launch on its main path; named_launches counts the launches made
+    # after it where the route was named (the comparison).
+    for entry in kernels:
+        if entry["name"].startswith("mxu_gemm generated epilogue") and entry.get(
+                "kernel_route") in ("wmma", "simt"):
+            route = entry["kernel_route"]
+            entry["retired_route"] = True
+            entry["named_launches"] = sum(v for k, v in slice22["named_launches"].items()
+                                          if k.startswith(route))
+            entry["route_note"] = ("the route rule sends these operands to the engine since "
+                                   "the pack pass; this tile runs where a caller names it")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -253,8 +253,8 @@ def _declare(lib):
     lib.dmma_gemm.restype = i32
     lib.dmma_gemm.argtypes = lib.mxu_gemm.argtypes
     # B1 / B2 on the tile engine, and float64 on the TMA tile: mxu_gemm's
-    # arguments without the vector flags (their operands are aligned by the
-    # route's rule).
+    # arguments without the vector flags (their operands are aligned: the
+    # launch packs one that is not, operand_pack).
     lib.mxu_wgmma.restype = i32
     lib.mxu_wgmma.argtypes = gemm + [i32, i32, i32, vp, vp, i32, vp]
     lib.dmma_tma_gemm.restype = i32
@@ -268,6 +268,10 @@ def _declare(lib):
     # ld, bs, mn_major, kp, segs, lo_seg, stream).
     lib.tf32_split.restype = i32
     lib.tf32_split.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, i32, vp]
+    # B1 / B2 on the engine at any layout and alignment: the pack pass (x,
+    # out, batch, rows, k, ld, bs, mn_major, kp, esize, stream).
+    lib.operand_pack.restype = i32
+    lib.operand_pack.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, vp]
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     # B2's row softmax on the tile engine: (..., in_code, out_code, stream).

@@ -10,11 +10,12 @@ and its K step (``block_k``).  The kernels in ``csrc/`` are compiled for
 fixed tiles.  The front door's config names the tile of :func:`kernel_route`
 (``KERNEL_TILES``: the WMMA tile for bf16 / fp16 / int8 plus_times, the
 FP64 tensor-core tile for float64 plus_times, the CUDA-core tile for the
-rest), and ``validate`` holds it to that.  A call whose operands a
-TMA map describes runs on the Hopper tile engine's larger tile instead
-(``ENGINE_TILES``; ``ops/mxu.py::mxu_route`` decides at the launch), so the
-I/O law describes the kernel that runs only for the config of
-:func:`route_config`, which names the tile of the route the call takes.
+rest), and ``validate`` holds it to that.  A bf16 / fp16 / int8 / fp32
+plus_times call runs on the Hopper tile engine's larger tile instead
+(``ENGINE_TILES``; ``ops/mxu.py::mxu_route`` decides at the launch, and an
+operand the engine cannot read in place is packed first), so the I/O law
+describes the kernel that runs only for the config of :func:`route_config`,
+which names the tile of the route the call takes.
 """
 
 from __future__ import annotations
@@ -29,12 +30,13 @@ import torch
 SMEM_LIMIT_BYTES = 232_448
 
 # C tiles the kernels in csrc/ are compiled for, keyed by route:
-#   "tc"   — csrc/mxu_gemm.cu, tensor-core tile (bf16 / fp16 / int8 inputs;
-#            the 2-D calls whose operands a TMA map describes run on the
-#            Hopper tile engine's 128 x 256 tile instead, ops/mxu.py::mxu_route);
-#   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 / int32 plus_times in
-#            mxu_gemm.cu, fp32 where no TMA map describes the
-#            operands, int16 / uint8 / uint16 / uint32 plus_times in
+#   "tc"   — csrc/mxu_gemm.cu, tensor-core tile (bf16 / fp16 / int8 inputs,
+#            where a caller names its route "wmma": the route rule sends
+#            every such call to the Hopper tile engine's 128 x 256 tile,
+#            ops/mxu.py::mxu_route);
+#   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (int32 plus_times in
+#            mxu_gemm.cu, fp32 into float64 and fp32 where a caller names
+#            "simt", int16 / uint8 / uint16 / uint32 plus_times in
 #            mxu_simt_int.cu, and every semiring in semiring_gemm.cu);
 #   "dmma" — csrc/dmma_gemm.cu, float64 plus_times on the FP64 tensor cores
 #            (mma.sync m16n8k4 .f64), its K slices in a ring of DMMA_STAGES
@@ -152,8 +154,8 @@ def kernel_route(dtype, semiring: str = "plus_times") -> str:
     """Which compiled tile the front door's default config names for this
     (dtype, semiring): "tc" (bf16 / fp16 / int8 plus_times), "dmma"
     (float64 plus_times) or "simt" (the rest, fp32 plus_times included).
-    Where a TMA map describes the operands, a bf16 / fp16 / int8 / fp32
-    plus_times call runs on the engine instead (:func:`call_route`)."""
+    A bf16 / fp16 / int8 / fp32 plus_times call runs on the engine instead
+    (:func:`call_route`)."""
     if semiring == "plus_times" and dtype_name(dtype) in _TENSOR_CORE_DTYPES:
         return "tc"
     if semiring == "plus_times" and dtype_name(dtype) == "float64":
@@ -161,41 +163,86 @@ def kernel_route(dtype, semiring: str = "plus_times") -> str:
     return "simt"
 
 
-def call_route(dtype, semiring: str = "plus_times", transpose_a: bool = False,
-               transpose_b: bool = False, aligned: bool = True, out_dtype=None) -> str:
+def call_route(dtype, semiring: str = "plus_times", out_dtype=None) -> str:
     """The route a 2-D or batched call takes: ``ops/mxu.py::mxu_route``'s
     rule in this module's names.  "wgmma" (the tile engine) for bf16 /
-    fp16 / fp32 in any layout (fp32 as TF32 passes on workspaces the
-    split pass turns K-major, into an fp32 / bf16 / fp16 ``out_dtype``, or
-    None: the config's own) and int8 with A (M, K) and B held (N, K),
-    when the operands are ``aligned`` (16-byte bases, row pitches and batch
-    strides); "tc" (the WMMA tile) for the other bf16 / fp16 / int8
-    plus_times calls; "dmma" (the FP64 tensor cores, any layout and
-    alignment) for float64 plus_times; "simt" for the rest (unaligned fp32
-    plus_times and fp32 into float64, which the engine does not store,
-    included)."""
-    route = kernel_route(dtype, semiring)
-    if semiring == "plus_times" and dtype_name(dtype) == "float32":
+    fp16 / int8 plus_times and for fp32 plus_times into an fp32 / bf16 /
+    fp16 ``out_dtype`` (None: the config's own), in every layout and at
+    every alignment: an operand the engine's TMA maps cannot read in place
+    is first copied into a K-major workspace (:func:`packed_operands`, the
+    one place that reads layout and alignment; fp32 is always split into
+    TF32 workspaces); "dmma" (the FP64 tensor cores) for float64
+    plus_times; "simt" for the rest (fp32 into float64, which the engine
+    does not store, included)."""
+    name = dtype_name(dtype)
+    if semiring == "plus_times" and name == "float32":
         engine_out = out_dtype is None or dtype_name(out_dtype) in ("float32", "bfloat16",
                                                                    "float16")
-        return "wgmma" if aligned and engine_out else "simt"
-    if route != "tc" or not aligned:
-        return route
-    if dtype_name(dtype) != "int8" or (not transpose_a and transpose_b):
-        return "wgmma"
-    return "tc"
+        return "wgmma" if engine_out else "simt"
+    route = kernel_route(dtype, semiring)
+    return "wgmma" if route == "tc" else route
+
+
+def beside_engine(rule: str, dtype) -> list:
+    """The B1 / B2 route a caller may name, and a tuner times, beside the
+    rule's engine route: WMMA for the 16-bit types and int8, the CUDA-core
+    tile for fp32 (TF32 on the engine against IEEE fp32 FMA); none beside
+    another route."""
+    if rule != "wgmma":
+        return []
+    return ["simt"] if dtype_name(dtype) == "float32" else ["wmma"]
+
+
+def packed_operands(dtype, transpose_a: bool, transpose_b: bool, aligned_a: bool,
+                    aligned_b: bool) -> Tuple[bool, bool]:
+    """Which operands a B1 / B2 launch on the engine copies first into a
+    K-major workspace (``ops/mxu.py::pack_operand``): a bf16 / fp16 / int8
+    operand whose base, row pitch or batch stride is not a whole 16-byte
+    unit (``aligned_a`` / ``aligned_b`` false: no TMA map describes it), and
+    an int8 operand that is not K-major (A held (K, M), B held (K, N):
+    int8 wgmma reads K-major operands only).  fp32 packs nothing here: its
+    split pass (``ops/mxu.py::tf32_operand``) takes every layout and
+    pitch."""
+    if dtype_name(dtype) not in _TENSOR_CORE_DTYPES:
+        return False, False
+    int8 = dtype_name(dtype) == "int8"
+    return (not aligned_a or (int8 and transpose_a),
+            not aligned_b or (int8 and not transpose_b))
+
+
+def pack_bytes(dtype, m: int, n: int, k: int, transpose_a: bool = False,
+               transpose_b: bool = False, aligned_a: Optional[bool] = None,
+               aligned_b: Optional[bool] = None) -> int:
+    """Device-memory bytes the pack pass moves for one 2-D plus_times call
+    on the engine: each packed operand (:func:`packed_operands`) read once
+    and its workspace, K rounded up to whole 16-byte units, written once.
+    ``aligned_a`` / ``aligned_b`` None: contiguous
+    operands of these dims (aligned where their rows are whole 16-byte
+    units).  0 for the types the pass does not take."""
+    size = itemsize(dtype)
+    per = 16 // size
+    if aligned_a is None:
+        aligned_a = (m if transpose_a else k) % per == 0
+    if aligned_b is None:
+        aligned_b = (k if transpose_b else n) % per == 0
+    pa, pb = packed_operands(dtype, transpose_a, transpose_b, aligned_a, aligned_b)
+    kp = round_up(k, per)
+    return size * ((m * (k + kp) if pa else 0) + (n * (k + kp) if pb else 0))
 
 
 def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
     """The route a launch takes: ``route`` where a caller names one (a
     tuned winner, a comparison), else ``rule``, the route rule's.  Naming
-    the tile engine ("wgmma") where the rule does not give it raises (its
-    TMA maps cannot describe the call), and so does a CUDA-core route
+    the tile engine ("wgmma") where the rule does not give it raises (the
+    engine cannot run the call: fp32 into float64, a row softmax past its
+    bounds, another family's shape), and so does a CUDA-core route
     ("simt") for inputs the rule sends to the tensor cores, or the
     reverse, and any other route for float64 ("dmma", the one kernel that
-    takes it) or "dmma" for another type.  B1 / B2 pass the inputs'
-    ``dtype``: fp32 runs on the engine (TF32) or on the CUDA cores, so
-    "simt" may be named where the rule gives "wgmma", and no other."""
+    takes it) or "dmma" for another type.  So B1 / B2's bf16 / fp16 / int8
+    may name "wmma" where the rule gives "wgmma", in any layout and at any
+    alignment.  B1 / B2 pass the inputs' ``dtype``: fp32 runs on the engine
+    (TF32) or on the CUDA cores, so "simt" may be named where the rule
+    gives "wgmma", and no other."""
     if route is None or route == rule:
         return rule
     fp32 = dtype is not None and dtype_name(dtype) == "float32"
@@ -209,10 +256,11 @@ def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
 
 
 def route_tile(route: str, dtype) -> Tuple[int, int, int]:
-    """The compiled (block_m, block_n, block_k) of ``route`` for ``dtype``."""
+    """The compiled (block_m, block_n, block_k) of ``route`` for ``dtype``
+    ("wmma", the launch's name of the "tc" tile, names it too)."""
     if route == "wgmma":
         return ENGINE_TILES[dtype_name(dtype)]
-    return KERNEL_TILES[route]
+    return KERNEL_TILES["tc" if route == "wmma" else route]
 
 
 # Kernel B2's row-softmax variant (csrc/row_softmax.cu): a block owns a strip
@@ -258,15 +306,17 @@ class GemmConfig:
     minus its three TPU-only fields (``interpret``, ``vmem_limit_bytes``,
     ``debug``), which :meth:`from_reference` drops.
 
-    ``precision`` applies to float32 plus_times.  Where a TMA map
-    describes the operands (the engine route, ``ops/mxu.py::mxu_route``)
-    it runs TF32 on the tensor cores (``ops/mxu.py::tf32_passes``):
+    ``precision`` applies to float32 plus_times.  On the engine route
+    (``ops/mxu.py::mxu_route``: any layout and alignment, the split pass
+    reading any pitch) it runs TF32 on the tensor cores
+    (``ops/mxu.py::tf32_passes``):
     "default" one pass of the operands rounded to TF32 (the reference's
     Precision.DEFAULT, about 2^-11 relative a product, as the TPU's bf16
     pass documents ~5e-4), "high" and "highest" three passes, hi . hi +
     hi . lo + lo . hi of each operand's TF32 split (HIGHEST's fp32
-    accuracy).  Unaligned fp32, and fp32 into a float64 output, run IEEE
-    fp32 FMA on the CUDA cores whatever the precision.  float64 plus_times runs IEEE float64 FMA on
+    accuracy).  fp32 into a float64 output, and fp32 where a caller names
+    the route "simt", run IEEE fp32 FMA on the CUDA cores whatever the
+    precision.  float64 plus_times runs IEEE float64 FMA on
     the FP64 tensor cores (``csrc/dmma_tma.cu``, ``csrc/dmma_gemm.cu``)
     whatever the precision, as the reference's float64 dot does.  On the
     CPU every precision is IEEE fp32, as JAX's CPU dot computes DEFAULT.
@@ -439,12 +489,14 @@ class GemmConfig:
 
 def route_config(dtype="float32", *, semiring: str = "plus_times",
                  transpose_a: bool = False, transpose_b: bool = False,
-                 aligned: bool = True, **kw) -> GemmConfig:
+                 **kw) -> GemmConfig:
     """The config of the tile a call of ``dtype`` runs on the card: the
     blocks of :func:`call_route`'s kernel (the engine's 128 x 256 tile for
-    an aligned bf16 / fp16 call), so its I/O law and shared memory are
-    those of the kernel that runs."""
-    route = call_route(dtype, semiring, transpose_a, transpose_b, aligned)
+    a bf16 / fp16 call in any layout and at any alignment), so its I/O law
+    and shared memory are those of the kernel that runs.  The bytes of an
+    operand the launch packs first are :func:`pack_bytes`
+    (``models/perf_model.specifications`` charges them)."""
+    route = call_route(dtype, semiring, kw.get("out_dtype"))
     bm, bn, bk = route_tile(route, dtype)
     return GemmConfig(dtype=dtype_name(dtype), block_m=bm, block_n=bn,
                       block_k=bk, semiring=semiring, transpose_a=transpose_a,

@@ -5,8 +5,12 @@
 // kernel family:
 //   * _kernel (entry mxu_matmul, B1): the 2-D GEMM with its optional fused
 //     per-column epilogue at the store (pallas_mxu.py:103-106); here
-//     batch = 1.  The 2-D calls a TMA map can describe run on the Hopper
-//     tile engine instead (csrc/mxu_wgmma.cuh); this kernel keeps the rest.
+//     batch = 1.  The route rule sends every bf16 / fp16 / int8 / fp32 call
+//     to the Hopper tile engine instead (csrc/mxu_wgmma.cuh, after the pack
+//     pass csrc/operand_pack.cu or the TF32 split where its TMA maps cannot
+//     read an operand in place); this kernel runs them where a caller names
+//     its route ("wmma", "simt": a tuned winner, a comparison), and the
+//     integer types and fp32 into float64 by the rule.
 //   * _batched_kernel (entry mxu_matmul_batched, B2), plain and epilogue
 //     variants: (B, M, K) x (B, K, N) with whole examples per grid step.
 //     Here the batch is a grid axis (blockIdx.z, chunked past gridDim.z's
@@ -14,8 +18,8 @@
 //     broadcast over the batch, so no example is copied.  The TPU kernel
 //     batched examples to amortise a per-grid-step latch; Hopper has none,
 //     so one 128x128 C tile of one example per block is the whole design.
-//     The batched calls a TMA map can describe run on the tile engine too
-//     (csrc/mxu_wgmma.cuh, its batch as the engine's steps).  The row-wise
+//     The batched calls run on the tile engine too (csrc/mxu_wgmma.cuh,
+//     its batch as the engine's steps), by the same rule.  The row-wise
 //     (softmax) epilogue variant, which needs whole rows in a block, is
 //     csrc/row_softmax.cu.
 // Same communication-avoiding schedule as the TPU kernels: one C tile stays
@@ -24,20 +28,23 @@
 // carry nothing between them, so the TPU kernel's sequential K grid axis
 // and its acc_ref scratch become this loop.
 //
-// Routes by input dtype (ops/mxu.py::mxu_route picks this kernel or the
-// engine by shape):
+// Routes by input dtype (ops/mxu.py::mxu_route gives the engine to bf16,
+// fp16, int8 and fp32 into the base types; a caller may name this kernel):
 //   bf16, fp16 -> tensor cores (WMMA 16x16x16), fp32 accumulator;
 //   int8       -> tensor cores (WMMA 16x16x16), int32 accumulator;
 //   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
 //                  (csrc/simt_gemm.cuh with the plus_times functor); this
-//                  meets the reference's "high"/"highest" precision;
+//                  meets the reference's "high"/"highest" precision (fp32
+//                  reaches it into float64, or named "simt");
 //   int16, uint8, uint16, uint32 -> the same CUDA-core tile on an int32
 //                  accumulator (csrc/mxu_simt_int.cu);
 //   float64     -> csrc/dmma_gemm.cu (the FP64 tensor cores), its own entry.
-// The tensor-core tile here runs the calls, 2-D (B1) and batched (B2), that
-// the engine does not take: int8 with an operand that is not K-major (int8
-// wgmma reads nothing else), and any operand whose base, row pitch or batch
-// stride is not a whole 16-byte unit.
+// The tensor-core tile here ran, until the pack pass, the calls that the
+// engine's TMA maps cannot read in place: int8 with an operand that is not
+// K-major (int8 wgmma reads nothing else), and any operand whose base, row
+// pitch or batch stride is not a whole 16-byte unit.  The engine now packs
+// such an operand into a K-major workspace first; this tile takes any
+// layout and pitch in place, where a caller names it.
 // The epilogue (common.cuh) sees the fp32 accumulator before the output
 // cast; an int32 accumulator is widened to fp32 for it.
 //

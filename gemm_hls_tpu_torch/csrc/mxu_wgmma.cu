@@ -11,7 +11,8 @@ using namespace gemm_hls;
 // pitch, sa / sb: their batch stride (0: a 2-D operand broadcast over the
 // batch, read through a 2-D map), in elements, each a 16-byte multiple with
 // bases 16-byte aligned
-// (the tensor maps' rule); ta: A held (K, M); tb: B held (N, K).  in_code
+// (the tensor maps' rule: ops/mxu.py::_launch packs an operand that is
+// not, csrc/operand_pack.cu); ta: A held (K, M); tb: B held (N, K).  in_code
 // bf16 / fp16 take every layout, int8 only ta = 0, tb = 1.  ep, e0, e1,
 // ep_code: as mxu_gemm's.  Returns 0, a CUDA error code, -1 for a type,
 // layout or epilogue the route does not take, or -2 for a tensor map

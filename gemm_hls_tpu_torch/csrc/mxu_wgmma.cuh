@@ -6,8 +6,11 @@
 // (B1) or a batch of them (B2).  The
 // counterpart of gemm_hls_tpu/ops/pallas_mxu.py::_kernel and its fused
 // per-column epilogue (:69, :103), and of ::_batched_kernel (:143, called
-// at :298 with the epilogue and :328 without); the shapes it does not take
-// stay on csrc/mxu_gemm.cu (see there).  The row softmax has its own
+// at :298 with the epilogue and :328 without), in every layout and at every
+// alignment: an operand its TMA maps cannot read in place (a base, row
+// pitch or batch stride off 16 bytes; int8 not K-major) is first copied
+// K-major by csrc/operand_pack.cu (ops/mxu.py::_launch), and fp32 split by
+// csrc/tf32_split.cu.  The row softmax has its own
 // engine kernel (csrc/row_softmax_wgmma.cu, which reads its operands
 // through encode_operand's maps) and csrc/row_softmax.cu off the engine.
 //

@@ -28,10 +28,11 @@
 //
 // What bounds it on an H100: bytes.  It reads each value once and writes
 // segs values: at 8192^2, three segments, 0.27 GB read and 0.81 GB
-// written, 0.32 ms at 3.35 TB/s.  A block turns a 32 x 32 tile through
-// shared memory (an MN-major operand is read along M or N and written
-// along K; a K-major one passes straight through the same tile).
-#include "common.cuh"
+// written, 0.32 ms at 3.35 TB/s.  Its tile walk is csrc/operand_tile.cuh's
+// (one 32 x 32 tile a block through shared memory: an MN-major operand is
+// read along M or N and written along K; a K-major one passes straight
+// through the same tile), which csrc/operand_pack.cu shares.
+#include "operand_tile.cuh"
 
 namespace gemm_hls {
 namespace {
@@ -55,51 +56,20 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo, float& hi_c
   hi_cross = special ? 0.f : hi;
 }
 
-constexpr int kTile = 32, kRowsPerPass = 8;
-
-// kMn: x[z] is held (k, rows) (rows contiguous); else (rows, k).  Grid:
-// (K tiles of kp, row tiles, examples), the last two walked in strides.
-template <bool kMn>
-__global__ void __launch_bounds__(kTile * kRowsPerPass)
-    tf32_split_kernel(const float* __restrict__ x, float* __restrict__ out, int batch, int rows,
-                      int k, int64_t ld, int64_t bs, int kp, int segs, int lo_seg) {
-  __shared__ float tile[kTile][kTile + 1];  // [k][row]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int64_t kw = static_cast<int64_t>(segs) * kp;
-  const int row_tiles = (rows + kTile - 1) / kTile;
-  const int cross_seg = segs == 3 ? 3 - lo_seg : -1;  // the hi facing the other's lo
-  for (int z = blockIdx.z; z < batch; z += gridDim.z) {
-    const float* xz = x + z * bs;
-    float* oz = out + static_cast<int64_t>(z) * rows * kw;
-    for (int rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
-      const int r0 = rt * kTile;
-#pragma unroll
-      for (int i = ty; i < kTile; i += kRowsPerPass) {
-        if constexpr (kMn) {
-          const int kk = k0 + i, r = r0 + tx;
-          tile[i][tx] = kk < k && r < rows ? xz[kk * ld + r] : 0.f;
-        } else {
-          const int kk = k0 + tx, r = r0 + i;
-          tile[tx][i] = kk < k && r < rows ? xz[r * ld + kk] : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = ty; i < kTile; i += kRowsPerPass) {
-        const int kk = k0 + tx, r = r0 + i;
-        if (r < rows && kk < kp) {
-          float hi, lo, hi_cross;
-          split(tile[tx][i], hi, lo, hi_cross);  // 0 past K: every part 0
-          float* o = oz + r * kw + kk;
-          for (int s = 0; s < segs; ++s)
-            o[static_cast<int64_t>(s) * kp] = s == lo_seg ? lo : s == cross_seg ? hi_cross : hi;
-        }
-      }
-      __syncthreads();  // the next tile reuses the shared one
-    }
+// Writes one value's segments: out[z] is (rows, segs * kp).
+struct SplitPut {
+  float* out;
+  int rows, kp, segs, lo_seg;
+  __device__ __forceinline__ void operator()(int z, int r, int kk, uint32_t word) const {
+    const int64_t kw = static_cast<int64_t>(segs) * kp;
+    const int cross_seg = segs == 3 ? 3 - lo_seg : -1;  // the hi facing the other's lo
+    float hi, lo, hi_cross;
+    split(__uint_as_float(word), hi, lo, hi_cross);  // 0 past K: every part 0
+    float* o = out + (static_cast<int64_t>(z) * rows + r) * kw + kk;
+    for (int s = 0; s < segs; ++s)
+      o[static_cast<int64_t>(s) * kp] = s == lo_seg ? lo : s == cross_seg ? hi_cross : hi;
   }
-}
+};
 
 }  // namespace
 }  // namespace gemm_hls
@@ -118,20 +88,7 @@ extern "C" int tf32_split(const void* x, void* out, int64_t batch, int rows, int
   if (batch < 1 || batch > INT_MAX || rows < 1 || k < 1 || kp < k || kp % 4) return kUnsupported;
   if (!(segs == 1 && lo_seg < 0) && !(segs == 3 && (lo_seg == 1 || lo_seg == 2)))
     return kUnsupported;
-  const dim3 block(kTile, kRowsPerPass);
-  const int64_t row_tiles = (rows + kTile - 1) / kTile;
-  const dim3 grid(static_cast<unsigned>((kp + kTile - 1) / kTile),
-                  static_cast<unsigned>(row_tiles < kMaxGridZ ? row_tiles : kMaxGridZ),
-                  static_cast<unsigned>(batch < kMaxGridZ ? batch : kMaxGridZ));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* src = static_cast<const float*>(x);
-  float* dst = static_cast<float*>(out);
-  const int nb = static_cast<int>(batch);
-  if (mn_major)
-    tf32_split_kernel<true><<<grid, block, 0, st>>>(src, dst, nb, rows, k, ld, bs, kp, segs,
-                                                     lo_seg);
-  else
-    tf32_split_kernel<false><<<grid, block, 0, st>>>(src, dst, nb, rows, k, ld, bs, kp, segs,
-                                                      lo_seg);
-  return last_error();
+  return launch_operand_tile(static_cast<const float*>(x), batch, rows, k, ld, bs, mn_major != 0,
+                             kp, SplitPut{static_cast<float*>(out), rows, kp, segs, lo_seg},
+                             static_cast<cudaStream_t>(stream));
 }

@@ -196,7 +196,7 @@ def detect_chip(device=None) -> ChipSpec:
 
 def specifications(cfg: GemmConfig, m: int, n: int, k: int,
                    chip: Optional[ChipSpec] = None,
-                   semiring_is_mxu: bool = True) -> dict:
+                   semiring_is_mxu: bool = True, pack_bytes: int = 0) -> dict:
     """Closed-form expectations for one (config, problem, chip) triple,
     the reference's dict key for key (``PrintSpecifications``): peak and
     expected performance, runtime, tile census, communication volume and
@@ -206,6 +206,13 @@ def specifications(cfg: GemmConfig, m: int, n: int, k: int,
     ``vmem_bytes`` is the shared memory of one thread block of the tile
     (``GemmConfig.smem_bytes``) and ``vmem_budget`` the card's limit a
     block (``config.SMEM_LIMIT_BYTES`` on the H100).
+
+    ``pack_bytes``: the bytes the pack pass moves before the GEMM
+    (``config.pack_bytes``: an operand the engine's TMA maps cannot read in
+    place, read once and written once K-major).  The pass runs before the
+    GEMM, so its time at the card's memory rate adds to the expected
+    runtime, and the dict gains ``pack_bytes`` and ``pack_s``; at 0 (the
+    default) the dict is the reference's, key for key.
     """
     chip = chip or detect_chip()
     flops = cfg.flops(m, n, k)
@@ -229,10 +236,12 @@ def specifications(cfg: GemmConfig, m: int, n: int, k: int,
                   * in_b / chip.hbm_bandwidth)
     t_drain = cfg.block_m * cfg.block_n * out_b / chip.hbm_bandwidth
     t_steps = gm * gn * gk * chip.grid_step_overhead_s
-    t_expected = max(t_compute + t_prologue + t_drain, t_memory) + t_steps
+    t_pack = pack_bytes / chip.hbm_bandwidth
+    t_expected = max(t_compute + t_prologue + t_drain, t_memory) + t_steps + t_pack
 
     total_elems = m * k + k * n + m * n
-    return {
+    pack = {"pack_bytes": pack_bytes, "pack_s": t_pack} if pack_bytes else {}
+    return {**pack, 
         "chip": chip.name,
         "dtype": cfg.dtype,
         "problem": (m, n, k),
@@ -285,6 +294,9 @@ def format_specifications(spec: dict) -> str:
         f"Shared memory a block: {spec['vmem_bytes'] / 1e3:.1f} KB"
         f" of {spec['vmem_budget'] / 1e3:.1f} KB",
     ]
+    if spec.get("pack_bytes"):
+        lines.append(f"Pack pass (operands copied K-major first): "
+                     f"{spec['pack_bytes'] / 1e9:.3f} GB, {spec['pack_s'] * 1e6:.1f} us")
     return "\n".join(lines)
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
 
 * ``plus_times``                 -> kernel B1 (2-D) or B2 (batched)
-  (``ops/mxu.py``; aligned fp32 as TF32 passes on the tile engine, float64
+  (``ops/mxu.py``; bf16 / fp16 / int8 on the tile engine in any layout and
+  at any alignment, an operand its TMA maps cannot read in place packed
+  first; fp32 as TF32 passes on the tile engine, float64
   on the FP64 tensor cores, int16 and the unsigned ints on the CUDA
   cores), differentiable through :class:`_MxuPadded` /
   :class:`_MxuBatched`, whose backward is B1 / B2 again at the precision
@@ -376,12 +378,9 @@ def _cached_winner(a, b, ta: bool, tb: bool, out_dtype=None):
     2-D operands read the dense entry (``cached_config``: the winner's
     blocks and the route they name); batched ones the batched entry
     (``cached_batch_block``: the B2 route).  The lookup never measures, and
-    an entry whose route the rule cannot run on these operands into this
-    output type is a miss (``tools/autotune.py``)."""
+    an entry whose route the rule cannot run into this output type is a
+    miss (``tools/autotune.py``)."""
     from gemm_hls_tpu_torch.tools import autotune
-
-    def aligned():
-        return mxu.operand_aligned(a) and mxu.operand_aligned(b)
 
     m, k = (a.shape[-1], a.shape[-2]) if ta else (a.shape[-2], a.shape[-1])
     n = b.shape[-2] if tb else b.shape[-1]
@@ -389,14 +388,12 @@ def _cached_winner(a, b, ta: bool, tb: bool, out_dtype=None):
     if a.ndim == 2 and b.ndim == 2:
         hit = autotune.cached_winner(m, n, k, dtype=dtype,
                                      layout=autotune.layout_of(ta, tb),
-                                     aligned=aligned, device=a.device,
-                                     out_dtype=out_dtype)
+                                     device=a.device, out_dtype=out_dtype)
         return hit if hit is not None else (None, None)
     bsz = a.shape[0] if a.ndim == 3 else b.shape[0]
     route = autotune.cached_batch_block(bsz, m, n, k, dtype=dtype,
                                         layout=autotune.layout_of(ta, tb),
-                                        aligned=aligned, device=a.device,
-                                        out_dtype=out_dtype)
+                                        device=a.device, out_dtype=out_dtype)
     return None, route
 
 
@@ -432,13 +429,14 @@ def matmul(
       config: a :class:`GemmConfig`.  Its blocks name the compiled tile of a
         route (``config.GemmConfig.route``).  The tile engine's
         (``config.ENGINE_TILES``; :func:`~gemm_hls_tpu_torch.config.route_config`
-        of an aligned bf16 / fp16 call) runs a plus_times call on the engine,
-        and raises where the engine cannot describe the call (operands that
-        are not whole 16-byte rows and bases, int8 not K-major).  The WMMA
+        of a bf16 / fp16 call) runs a plus_times call on the engine (an
+        operand its TMA maps cannot read in place packed first), and raises
+        where the engine cannot run the call (fp32 into float64).  The WMMA
         tile (``default_config``'s, which internal callers pass) and the
         CUDA-core tile keep the route rule by shape
-        (``ops/mxu.py::mxu_route``: the engine where its maps describe the
-        call).  None: a tuned winner for this shape bucket if one is cached
+        (``ops/mxu.py::mxu_route``: the engine for bf16 / fp16 / int8 /
+        fp32 in every layout and at every alignment).  None: a tuned winner
+        for this shape bucket if one is cached
         (``tools/autotune.py``: the user cache, then the packaged H100
         seed; a plain plus_times call without an epilogue), its route named
         to the kernel, else :func:`default_config` and the route rule.

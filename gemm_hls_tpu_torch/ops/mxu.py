@@ -1,6 +1,9 @@
 """Dense plus_times GEMM: the wrappers of kernels B1 and B2
-(``csrc/mxu_wgmma.cu`` on the tile engine, fp32 there as TF32 after the
-split pass ``csrc/tf32_split.cu``; ``csrc/mxu_gemm.cu``, float64 on
+(``csrc/mxu_wgmma.cu`` on the tile engine, in any layout and at any
+alignment after the pack pass ``csrc/operand_pack.cu`` where its TMA maps
+cannot read an operand in place, fp32 there as TF32 after the split pass
+``csrc/tf32_split.cu``; ``csrc/mxu_gemm.cu`` where a caller names it,
+float64 on
 ``csrc/dmma_tma.cu`` or ``csrc/dmma_gemm.cu``; B2's row softmax
 ``csrc/row_softmax_wgmma.cu`` on the engine, ``csrc/row_softmax.cu``) and
 their plain PyTorch versions.
@@ -26,7 +29,7 @@ import torch
 from gemm_hls_tpu_torch import _build
 from gemm_hls_tpu_torch.config import (
     ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, named_route,
-    round_up, row_softmax_fusable,
+    packed_operands, round_up, row_softmax_fusable,
 )
 from gemm_hls_tpu_torch.ops import codegen
 from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
@@ -134,40 +137,29 @@ def _vec_ok(x) -> int:
                and all(s % vec == 0 for s in _strides(x)))
 
 
-def operand_aligned(x) -> bool:
-    """Whether ``x``, as a launch passes it (:func:`_row_major`), has the
-    16-byte base, row pitch and batch stride a TMA map describes; found
-    without the copy a launch makes of an operand that is not row-major
-    (a fresh copy is aligned where its rows are whole 16-byte units)."""
-    if x.stride(-1) == 1 and x.stride(-2) >= x.shape[-1]:
-        return bool(_vec_ok(x))
-    return x.shape[-1] * x.element_size() % 16 == 0
-
-
-def mxu_route(dtype, transpose_a: bool, transpose_b: bool, aligned: bool,
-              out_dtype=None) -> str:
+def mxu_route(dtype, out_dtype=None) -> str:
     """The kernel a B1 or B2 launch takes (one rule for both, 2-D and
     batched): ``"wgmma"`` (the Hopper tile engine, ``csrc/mxu_wgmma.cu``:
     TMA and warp-specialised wgmma, a batch walked as the engine's steps)
-    for bf16 or fp16 in any layout, int8 with both operands K-major (A
-    (M, K), B held (N, K): int8 wgmma reads nothing else), or fp32 in any
-    layout (as TF32: :func:`tf32_operand` splits and turns each operand
+    for bf16, fp16 and int8 in every layout and at every alignment (an
+    operand whose base, row pitch or batch stride is not a whole 16-byte
+    unit, or an int8 operand that is not K-major, is first packed into a
+    K-major workspace: :func:`pack_operand`, chosen by
+    ``config.packed_operands``), and for fp32 in every layout and at every
+    alignment (as TF32: :func:`tf32_operand` splits and turns each operand
     K-major first, and the engine runs :func:`tf32_passes` passes) into an
-    fp32 / bf16 / fp16 ``out_dtype`` (None: the config's), whose
-    operands are ``aligned`` (16-byte bases, row pitches and batch strides
-    whole 16-byte units: what a TMA map describes); ``"wmma"``
-    (``csrc/mxu_gemm.cu``'s tensor-core tile) for the other bf16 / fp16 /
-    int8 calls; ``"dmma"`` (IEEE float64 on the FP64 tensor cores, any
-    layout and alignment; its tile: :func:`dmma_tile`) for float64;
-    ``"simt"`` (IEEE fp32, or an int32 accumulator that wraps, on the CUDA
-    cores) for unaligned fp32, fp32 into float64 (the engine stores the
-    base types) and int32, int16, uint8, uint16 and uint32 (a caller may
-    name it for aligned fp32 too: a tuned winner, a comparison).  B2's row softmax has kernels of its own
-    (:func:`row_softmax_route`).  Chosen by shape, never as a fallback: a
-    kernel that fails to build or launch raises.  The rule itself is
-    ``config.call_route``'s, whose "tc" tile is WMMA's."""
-    route = call_route(dtype, "plus_times", transpose_a, transpose_b, aligned, out_dtype)
-    return "wmma" if route == "tc" else route
+    fp32 / bf16 / fp16 ``out_dtype`` (None: the config's); ``"dmma"``
+    (IEEE float64 on the FP64 tensor cores, any layout and alignment; its
+    tile: :func:`dmma_tile`) for float64; ``"simt"`` (IEEE fp32, or an
+    int32 accumulator that wraps, on the CUDA cores) for fp32 into float64
+    (the engine stores the base types) and int32, int16, uint8, uint16 and
+    uint32.  A caller may name ``"wmma"`` (``csrc/mxu_gemm.cu``'s
+    tensor-core tile) for bf16 / fp16 / int8 and ``"simt"`` for fp32 on any
+    operands (``config.beside_engine``: a tuned winner, a comparison).
+    B2's row softmax has kernels of its own (:func:`row_softmax_route`).
+    Chosen by type, never as a fallback: a kernel that fails to build or
+    launch raises.  The rule itself is ``config.call_route``'s."""
+    return call_route(dtype, "plus_times", out_dtype)
 
 
 # ---- B1 / B2's fp32 route on the engine: the TF32 split ------------------
@@ -225,9 +217,10 @@ def tf32_split_plain(x):
     return hi, torch.where(special, torch.zeros_like(lo), lo)
 
 
-def _tf32_layout(x, mn_major: bool):
+def _operand_layout(x, mn_major: bool):
     """(batch, rows, k) of an operand held (rows, k), or (k, rows) with
-    ``mn_major``; batch 1 for a 2-D operand or a batch of one."""
+    ``mn_major``; batch 1 for a 2-D operand or a batch of one (the split
+    and pack passes' view of it)."""
     rows, k = (x.shape[-1], x.shape[-2]) if mn_major else (x.shape[-2], x.shape[-1])
     return (x.shape[0] if x.ndim == 3 else 1), rows, k
 
@@ -245,7 +238,7 @@ def tf32_operand_plain(x, mn_major: bool, passes: int, side: str):
     workspace built from :func:`tf32_split_plain`, the cross term's hi
     (``TF32_LO_SEG``) 0 where x is +-inf or NaN."""
     lo_seg = _tf32_check(x, passes, side)
-    bsz, _, k = _tf32_layout(x, mn_major)
+    bsz, _, k = _operand_layout(x, mn_major)
     xr = x.transpose(-1, -2) if mn_major else x
     pad = round_up(k, 4) - k
     hi, lo = (torch.nn.functional.pad(p, (0, pad)) for p in tf32_split_plain(xr))
@@ -270,7 +263,7 @@ def tf32_operand(x, mn_major: bool, passes: int, side: str):
     lo_seg = _tf32_check(x, passes, side)
     if not x.is_cuda:
         raise ValueError(f"the TF32 split pass runs on the card, got a tensor on {x.device}")
-    bsz, rows, k = _tf32_layout(x, mn_major)
+    bsz, rows, k = _operand_layout(x, mn_major)
     kp = round_up(k, 4)
     x = _row_major(x)
     ld, bs = _strides(x)  # bs 0: one example (a broadcast batch is split once)
@@ -295,6 +288,87 @@ def tf32_matmul_plain(a, b, passes: int, transpose_a=False, transpose_b=False):
     wa = tf32_operand_plain(a, transpose_a, passes, "a").double()
     wb = tf32_operand_plain(b, not transpose_b, passes, "b").double()
     return torch.matmul(wa, wb.transpose(-1, -2)).to(torch.float32)
+
+
+# ---- B1 / B2 on the engine at any layout and alignment: the pack pass ------
+
+PACK_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
+
+
+def _pack_kp(x, mn_major):
+    """(batch, rows, K, kp) of a pack: kp = K rounded up to whole 16-byte
+    units of ``x``'s type."""
+    if x.dtype not in PACK_DTYPES:
+        raise TypeError(f"the pack pass takes bfloat16, float16 or int8, got {x.dtype}")
+    bsz, rows, k = _operand_layout(x, mn_major)
+    return bsz, rows, k, round_up(k, 16 // x.element_size())
+
+
+def pack_operand_plain(x, mn_major: bool):
+    """Plain version of :func:`pack_operand`, on ``x``'s own device: x (or
+    its transpose, with ``mn_major``) zero-padded along K to whole 16-byte
+    units, contiguous; a batch read with a stride of 0 (a broadcast, or a
+    batch of one) 2-D."""
+    _, _, k, kp = _pack_kp(x, mn_major)
+    xr = x.transpose(-1, -2) if mn_major else x
+    out = torch.nn.functional.pad(xr, (0, kp - k))
+    if out.ndim == 3 and _strides(x)[1] == 0:
+        out = out[0]
+    return out.contiguous()
+
+
+def pack_operand(x, mn_major: bool):
+    """The K-major workspace the engine reads for bf16 / fp16 / int8 operand
+    ``x`` on the card (held (rows, K), or (K, rows) with ``mn_major``; 2-D,
+    or 3-D with the batch first; any base, row pitch and batch stride):
+    (rows, kp), or (batch, rows, kp) for a batch read with a stride other
+    than 0, kp = K rounded up to whole 16-byte units, every value past K
+    zero (a broadcast batch is packed once, 2-D).  Launches
+    ``csrc/operand_pack.cu`` (counted by dtype in
+    ``pack_operand.launches``).  The workspace is the operand's size again
+    (a call that cannot hold it raises torch's out-of-memory error); only
+    the card's engine route calls it, so a tensor off the card raises."""
+    bsz, rows, k, kp = _pack_kp(x, mn_major)
+    if not x.is_cuda:
+        raise ValueError(f"the pack pass runs on the card, got a tensor on {x.device}")
+    x = _row_major(x)
+    ld, bs = _strides(x)  # bs 0: one example (a broadcast batch is packed once)
+    out = torch.empty(((bsz,) if bs else ()) + (rows, kp), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().operand_pack(
+            x.data_ptr(), out.data_ptr(), bsz if bs else 1, rows, k, ld, bs, int(mn_major), kp,
+            x.element_size(), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "the pack pass")
+    pack_operand.launches[dtype_name(x.dtype)] += 1
+    return out
+
+
+def _packed(a, b, ta, tb, pack_a, pack_b, pack):
+    """(a, b, ta, tb, K) with each operand flagged ``pack_a`` / ``pack_b``
+    replaced by ``pack``'s K-major workspace, whose rows run to kp: the
+    engine's maps end at K, so its zeros past K are never read."""
+    k = a.shape[-2] if ta else a.shape[-1]
+    if pack_a:
+        a, ta = pack(a, ta), False
+    if pack_b:
+        b, tb = pack(b, not tb), True
+    return a, b, ta, tb, k
+
+
+def packed_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
+                        transpose_b=False, epilogue: Optional[Epilogue] = None):
+    """Plain version of the engine route on packed operands, on the
+    operands' device: each operand ``config.packed_operands`` packs (from
+    its dtype, layout and 16-byte alignment, :func:`_vec_ok`) replaced by
+    :func:`pack_operand_plain`'s workspace, then :func:`mxu_matmul_plain`
+    over K on the layouts the engine then reads."""
+    pa, pb = packed_operands(a.dtype, transpose_a, transpose_b, _vec_ok(_row_major(a)),
+                             _vec_ok(_row_major(b)))
+    a, b, ta, tb, k = _packed(a, b, transpose_a, transpose_b, pa, pb, pack_operand_plain)
+    a = a[..., :k] if pa else a
+    b = b[..., :k] if pb else b
+    return mxu_matmul_plain(a, b, *ep_operands, cfg=cfg, transpose_a=ta, transpose_b=tb,
+                            epilogue=epilogue)
 
 
 DMMA_TILES = ("tma", "cp_async")
@@ -390,10 +464,13 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
             dmma_tile_=None):
     """Launch B1 / B2 on CUDA operands: :func:`mxu_route`'s kernel (the row
     softmax: :func:`row_softmax_route`'s), or ``route`` where a caller names
-    one; returns (bsz, M, N).  A call named to the tile engine that the
-    route rule does not give the engine (unaligned operands, int8 not
-    K-major, a row softmax past its bounds) raises: the engine's TMA maps
-    cannot describe it.  float64 runs :func:`dmma_tile`'s tile;
+    one; returns (bsz, M, N).  On the engine, an operand its TMA maps
+    cannot read in place (``config.packed_operands``: a base, row pitch or
+    batch stride off 16 bytes, int8 not K-major) is packed first
+    (:func:`pack_operand`); fp32 is split (:func:`tf32_operand`).  A call
+    named to the tile engine that the route rule does not give the engine
+    (fp32 into float64, a row softmax past its bounds) raises.  float64
+    runs :func:`dmma_tile`'s tile;
     ``dmma_tile_="cp_async"`` runs the cp.async tile on aligned operands
     too (a comparison in turns), and naming the TMA tile for operands it
     cannot describe raises."""
@@ -444,10 +521,14 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
                              f"runs on 'wgmma' or {old!r}, not {route!r}")
         rule = row_softmax_route(a.dtype, out_dtype, n, k, aligned)
     else:
-        rule = mxu_route(a.dtype, ta, tb, aligned, out_dtype)
+        rule = mxu_route(a.dtype, out_dtype)
     route = named_route(route, rule, what, a.dtype if not rows else None)
     # fp32 on the engine: TF32 passes on K-major workspaces (below).
     passes = tf32_passes(cfg.precision) if route == "wgmma" and a.dtype == torch.float32 else None
+    # bf16 / fp16 / int8 on the engine: each operand its maps cannot read
+    # in place is packed into a K-major workspace first (below).
+    pack_a, pack_b = packed_operands(a.dtype, ta, tb, vec_a, vec_b) \
+        if route == "wgmma" and not rows else (False, False)
     tile = None
     if route == "dmma":
         tile = dmma_tile(aligned)
@@ -466,8 +547,16 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         fn = codegen.epilogue_kernel(
             gen.fn, route, a.dtype, cfg.tacc_dtype,
             [e.dtype if e.dtype in kept else ep_dt for e in eps],
-            *((False, True) if passes else (ta, tb)), gen.name,
+            *((False, True) if passes else (ta and not pack_a, tb or pack_b)), gen.name,
             tile=f"tf32x{passes}" if passes else tile)
+    if bsz == 0:  # no block is launched and nothing is written
+        return torch.empty((0, m, n), dtype=out_dtype, device=a.device)
+    if pack_a or pack_b:
+        # Copied once into K-major workspaces (csrc/operand_pack.cu), read
+        # over K (their zeros past it never reach a sum).
+        a, b, ta, tb, k = _packed(a, b, ta, tb, pack_a, pack_b, pack_operand)
+        (lda, sa), (ldb, sb) = _strides(a), _strides(b)
+        vec_a = vec_b = 1
     if passes:
         # The fp32 route: each operand split once into a K-major TF32
         # workspace (csrc/tf32_split.cu), then the engine's K-major kernel
@@ -517,6 +606,8 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         dmma_tile_launches[tile] += 1
     if passes is not None:
         tf32_launches[passes] += 1
+    if pack_a or pack_b:
+        packed_launches[dtype_name(a.dtype)] += 1
     if rows:
         mxu_matmul_batched.row_softmax_route = route
     else:
@@ -620,6 +711,10 @@ dmma_tile_launches = collections.Counter()
 # 3: "high" / "highest"), and the split pass's launches (two a GEMM).
 tf32_launches = collections.Counter()
 tf32_operand.launches = 0
+# B1 / B2 engine launches with at least one packed operand, and the pack
+# pass's launches (one a packed operand), each by input dtype.
+packed_launches = collections.Counter()
+pack_operand.launches = collections.Counter()
 # Plain-version calls on CUDA tensors (the front door's backend="torch", or
 # a comparison): a callable epilogue on the card never falls back to it.
 mxu_matmul_plain.cuda_calls = 0

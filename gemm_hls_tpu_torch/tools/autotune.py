@@ -8,12 +8,13 @@ can choose at run time is the route and, on the tile engine, the launch
 plan, and those are the knobs this tuner turns:
 
 * dense ``plus_times`` (key ``chip/dtype/semiring/MxNxK[/layout]``): B1's
-  route, the tile engine (``wgmma``) or WMMA (``wmma``); for fp32 the
-  engine (TF32 passes) or the CUDA cores (``simt``), where a TMA map
-  describes the operands (``dmma`` for float64, ``simt`` for unaligned
-  fp32, int32, int16, the unsigned ints and every other semiring: one
-  route each, so nothing to choose; a cached winner whose route cannot run
-  the dtype is a miss).  The winner is a :class:`GemmConfig`
+  route, the tile engine (``wgmma``, which packs an operand its TMA maps
+  cannot read in place) or WMMA (``wmma``), in every layout and at every
+  alignment; for fp32 the engine (TF32 passes) or the CUDA cores
+  (``simt``) (``dmma`` for float64, ``simt`` for fp32 into float64,
+  int32, int16, the unsigned ints and every other semiring: one route
+  each, so nothing to choose; a cached winner whose route cannot run the
+  dtype is a miss).  The winner is a :class:`GemmConfig`
   whose blocks are that route's compiled tile (``config.route_tile``);
 * batched (``.../Bbx MxNxK``): B2's route, the same two kernels;
 * ``flash`` (dims (B, S_q, S_kv, D), tag ``causal`` / ``full``): the
@@ -61,7 +62,9 @@ from typing import Callable, List, Optional
 
 import torch
 
-from gemm_hls_tpu_torch.config import GemmConfig, named_route, route_tile, torch_dtype
+from gemm_hls_tpu_torch.config import (
+    GemmConfig, beside_engine, named_route, route_tile, torch_dtype,
+)
 
 DEFAULT_CACHE = os.path.expanduser("~/.cache/gemm_hls_tpu_torch/autotune.json")
 # Winners measured on the card and shipped with the package, consulted when
@@ -204,37 +207,28 @@ def _pitches_aligned(dtype: str, *pitches: int) -> bool:
     return all(p * size % 16 == 0 for p in pitches)
 
 
-def _dense_rule(dtype: str, semiring: str, layout: str, m: int, n: int,
-                k: int, aligned, out_dtype=None) -> str:
-    """The route rule's B1 / B2 kernel for these operands (``aligned``: a
-    bool, a callable giving it, or None: contiguous operands of these
-    dims) and ``out_dtype`` (None: the inputs' own)."""
+def _dense_rule(dtype: str, semiring: str, out_dtype=None) -> str:
+    """The route rule's B1 / B2 kernel for these inputs into ``out_dtype``
+    (None: the inputs' own); layout and alignment choose only what the
+    launch packs."""
     from gemm_hls_tpu_torch.ops.mxu import mxu_route
 
     if semiring != "plus_times":
         return "simt"
-    ta, tb = layout[0] == "t", layout[1] == "t"
-    if aligned is None:
-        aligned = _pitches_aligned(dtype, m if ta else k, k if tb else n)
-    elif callable(aligned):
-        aligned = aligned()
-    return mxu_route(torch_dtype(dtype), ta, tb, aligned, out_dtype)
+    return mxu_route(torch_dtype(dtype), out_dtype)
 
 
 def cached_winner(m: int, n: int, k: int, *, dtype: str,
                   semiring: str = "plus_times", layout: str = "nn",
-                  cache_path: Optional[str] = None, aligned: Optional[bool] = None,
-                  device=None, out_dtype=None):
+                  cache_path: Optional[str] = None, device=None, out_dtype=None):
     """(config, route) of the cached dense winner, or None: never measures.
 
     The user cache first, then the packaged seed.  An entry is a miss where
     its blocks are no route's compiled tile, where its route is not the one
-    those blocks name, where the route rule cannot run that route on these
-    operands (``aligned``: their 16-byte rows and bases, a bool or a
-    callable asked only once an entry is found; None: contiguous operands
-    of these dims; ``out_dtype``: the call's, where the rule reads it: fp32
-    into float64 keeps the CUDA cores), or where its tile pads the problem
-    by more than 1.3x (the reference's guard)."""
+    those blocks name, where the route rule cannot run that route
+    (``out_dtype``: the call's, where the rule reads it: fp32 into float64
+    keeps the CUDA cores), or where its tile pads the problem by more than
+    1.3x (the reference's guard)."""
     entries = _entries(lambda chip: _key(chip, dtype, semiring, m, n, k, layout),
                        cache_path, device)
     rule = None
@@ -245,7 +239,7 @@ def cached_winner(m: int, n: int, k: int, *, dtype: str,
         except (KeyError, TypeError, ValueError):
             continue
         route = e.get("route", _MXU_ROUTE[cfg.route()])
-        rule = rule or _dense_rule(dtype, semiring, layout, m, n, k, aligned, out_dtype)
+        rule = rule or _dense_rule(dtype, semiring, out_dtype)
         if _TILE_ROUTE.get(route) != cfg.route() or not _runs(route, rule, dtype):
             continue
         # Winners are keyed by power-of-two bucket: an off-bucket shape the
@@ -259,7 +253,7 @@ def cached_winner(m: int, n: int, k: int, *, dtype: str,
 
 def cached_config(m: int, n: int, k: int, *, dtype: str,
                   semiring: str = "plus_times", layout: str = "nn",
-                  cache_path: Optional[str] = None, aligned: Optional[bool] = None,
+                  cache_path: Optional[str] = None,
                   device=None) -> Optional[GemmConfig]:
     """Cached autotune winner for this problem, or None: never measures.
 
@@ -269,29 +263,19 @@ def cached_config(m: int, n: int, k: int, *, dtype: str,
     buckets; the config carries the matching transpose flags.  The guards
     are :func:`cached_winner`'s."""
     hit = cached_winner(m, n, k, dtype=dtype, semiring=semiring, layout=layout,
-                        cache_path=cache_path, aligned=aligned, device=device)
+                        cache_path=cache_path, device=device)
     return None if hit is None else hit[0]
 
 
-def _beside_engine(rule: str, dtype: str) -> List[str]:
-    """The B1 / B2 route a tuner times beside the rule's engine route: WMMA
-    for the 16-bit types and int8, the CUDA-core tile for fp32 (TF32 on
-    the engine against IEEE fp32 FMA); none beside another route."""
-    if rule != "wgmma":
-        return []
-    return ["simt"] if torch_dtype(dtype) == torch.float32 else ["wmma"]
-
-
 def candidate_configs(m: int, n: int, k: int, dtype: str, semiring: str,
-                      max_candidates: int = 6, layout: str = "nn",
-                      aligned: Optional[bool] = None) -> List[GemmConfig]:
+                      max_candidates: int = 6, layout: str = "nn") -> List[GemmConfig]:
     """The configs whose routes can run this problem: for plus_times the
-    route rule's (the tile engine where its maps describe the operands) and
-    the other kernel beside the engine (WMMA; the CUDA-core tile for fp32);
-    the CUDA-core tile for unaligned fp32, int32 and every other
+    route rule's (the tile engine, in every layout and at every alignment)
+    and the other kernel beside the engine (WMMA; the CUDA-core tile for
+    fp32); the CUDA-core tile for fp32 into float64, int32 and every other
     semiring."""
-    rule = _dense_rule(dtype, semiring, layout, m, n, k, aligned)
-    routes = [rule] + _beside_engine(rule, dtype)
+    rule = _dense_rule(dtype, semiring)
+    routes = [rule] + beside_engine(rule, dtype)
     return [GemmConfig(dtype=dtype, semiring=semiring,
                        block_m=bm, block_n=bn, block_k=bk,
                        transpose_a=layout[0] == "t", transpose_b=layout[1] == "t")
@@ -528,22 +512,21 @@ def _batched_key(chip, dtype, semiring, bsz, m, n, k, layout):
 def cached_batch_block(bsz: int, m: int, n: int, k: int, *, dtype: str,
                        semiring: str = "plus_times",
                        cache_path: Optional[str] = None, layout: str = "nn",
-                       aligned: Optional[bool] = None, device=None,
-                       out_dtype=None) -> Optional[str]:
+                       device=None, out_dtype=None) -> Optional[str]:
     """Cached B2 route for this 3-D problem ("wgmma", "wmma" or "simt"), or
     None: never measures.  Where the TPU's answer was a batch block (how
     many examples one grid step holds), the card's is the kernel that
     walks the batch, which the batched front door names to
     ``mxu_matmul_batched(..., route=)``.  The guards are
-    :func:`cached_winner`'s: a route the rule cannot run on these operands,
-    or whose tile pads (M, N, K) by more than 1.3x, is a miss."""
+    :func:`cached_winner`'s: a route the rule cannot run, or whose tile
+    pads (M, N, K) by more than 1.3x, is a miss."""
     rule = None
     for e in _entries(lambda chip: _batched_key(chip, dtype, semiring, bsz, m, n, k,
                                                 layout), cache_path, device):
         route = e.get("route")
         if route not in _TILE_ROUTE:
             continue
-        rule = rule or _dense_rule(dtype, semiring, layout, m, n, k, aligned, out_dtype)
+        rule = rule or _dense_rule(dtype, semiring, out_dtype)
         if not _runs(route, rule, dtype):
             continue
         try:
@@ -558,12 +541,11 @@ def cached_batch_block(bsz: int, m: int, n: int, k: int, *, dtype: str,
 
 
 def batch_block_candidates(bsz: int, m: int, n: int, k: int, dtype: str,
-                           semiring: str = "plus_times", layout: str = "nn",
-                           aligned: Optional[bool] = None) -> List[str]:
+                           semiring: str = "plus_times") -> List[str]:
     """The B2 routes that can run this batched problem: the route rule's
     and, beside the engine, WMMA (the CUDA-core tile for fp32)."""
-    rule = _dense_rule(dtype, semiring, layout, m, n, k, aligned)
-    return [rule] + _beside_engine(rule, dtype)
+    rule = _dense_rule(dtype, semiring)
+    return [rule] + beside_engine(rule, dtype)
 
 
 def autotune_batched(bsz: int, m: int, n: int, k: int, *,

@@ -8,6 +8,9 @@ port of ``gemm_hls_tpu/tools/print_specifications.py`` (the
 
 The blocks default to the tile of the kernel the call runs on the card
 (``config.route_config``: the tile engine's 128 x 256 for bf16 / fp16).
+A plus_times call on contiguous operands whose rows are not whole 16-byte
+units (or int8 B held (K, N)) is charged the pack pass's bytes
+(``config.pack_bytes``).
 ``--chip h100`` needs no card; without ``--chip`` the model is the local
 device's (``models.perf_model.detect_chip``: the CPU where there is no
 card).
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import argparse
 
-from gemm_hls_tpu_torch.config import route_config
+from gemm_hls_tpu_torch.config import pack_bytes, route_config
 from gemm_hls_tpu_torch.models.perf_model import (
     detect_chip, format_specifications, get_chip, specifications,
 )
@@ -44,8 +47,9 @@ def main(argv=None):
         cfg = cfg.replace(**overrides)
     chip = get_chip(args.chip) if args.chip else detect_chip()
     sr = get_semiring(args.semiring)
+    packed = pack_bytes(args.dtype, args.m, args.n, args.k) if sr.is_mxu else 0
     spec = specifications(cfg, args.m, args.n, args.k, chip=chip,
-                          semiring_is_mxu=sr.is_mxu)
+                          semiring_is_mxu=sr.is_mxu, pack_bytes=packed)
     print(format_specifications(spec))
     return spec
 

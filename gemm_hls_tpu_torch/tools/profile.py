@@ -47,7 +47,7 @@ def profile_matmul(m: int, n: int, k: int, *, dtype="float32",
     """Measure one GEMM and compare to the analytical model.  ``device``:
     where it runs (default: the card; "cpu" runs the plain versions on the
     host clock)."""
-    from gemm_hls_tpu_torch.config import route_config, torch_dtype
+    from gemm_hls_tpu_torch.config import pack_bytes, route_config, torch_dtype
     from gemm_hls_tpu_torch.models.perf_model import detect_chip, specifications
     from gemm_hls_tpu_torch.ops import mxu
     from gemm_hls_tpu_torch.ops.matmul import matmul
@@ -87,7 +87,9 @@ def profile_matmul(m: int, n: int, k: int, *, dtype="float32",
             times.append(time.perf_counter() - t0)
         secs = statistics.median(times)
     cfg = config or route_config(dtype, semiring=sr.name)
-    spec = specifications(cfg, m, n, k, chip=chip, semiring_is_mxu=sr.is_mxu)
+    packed = pack_bytes(dtype, m, n, k) if sr.is_mxu and dev.type == "cuda" else 0
+    spec = specifications(cfg, m, n, k, chip=chip, semiring_is_mxu=sr.is_mxu,
+                          pack_bytes=packed)
     gf = gflops(m, n, k, secs)
     return {
         "measured_seconds": secs,

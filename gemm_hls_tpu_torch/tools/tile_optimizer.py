@@ -21,21 +21,22 @@ import argparse
 from typing import List, Optional, Tuple
 
 from gemm_hls_tpu_torch.config import (
-    SMEM_LIMIT_BYTES, GemmConfig, call_route, dtype_name, route_tile,
+    SMEM_LIMIT_BYTES, GemmConfig, beside_engine, call_route, dtype_name, route_tile,
 )
 
 
 def tile_candidates(dtype="float32", *, max_dim: int = 2048,
-                    min_block_k: int = 1, semiring: str = "plus_times",
-                    transpose_a: bool = False,
-                    transpose_b: bool = False) -> List[Tuple[int, int, int]]:
+                    min_block_k: int = 1,
+                    semiring: str = "plus_times") -> List[Tuple[int, int, int]]:
     """The compiled (block_m, block_n, block_k) tiles of the routes that
-    run ``dtype`` in this layout (``config.call_route``, operands aligned
-    or not), within ``max_dim`` and from ``min_block_k`` (the reference's
-    filters)."""
-    routes = dict.fromkeys(call_route(dtype, semiring, transpose_a, transpose_b, aligned)
-                           for aligned in (True, False))
-    tiles = [route_tile(r, dtype) for r in routes]
+    run ``dtype``: the route rule's (``config.call_route``: the engine for
+    bf16 / fp16 / int8 / fp32 plus_times in any layout and at any
+    alignment) and, beside the engine, the tile a caller may name
+    (``config.beside_engine``: WMMA's for the 16-bit types and int8, the
+    CUDA cores' for fp32), within ``max_dim`` and from ``min_block_k`` (the
+    reference's filters)."""
+    rule = call_route(dtype, semiring)
+    tiles = [route_tile(r, dtype) for r in [rule] + beside_engine(rule, dtype)]
     return [t for t in tiles
             if max(t[0], t[1]) <= max_dim and t[2] >= min_block_k]
 
@@ -54,8 +55,7 @@ def optimal_tiles(dtype="float32", *, vmem_budget: Optional[int] = None,
     budget = SMEM_LIMIT_BYTES if vmem_budget is None else vmem_budget
     name = dtype_name(dtype)
     best, best_key = None, None
-    for bm, bn, bk in tile_candidates(name, semiring=semiring, transpose_a=transpose_a,
-                                      transpose_b=transpose_b):
+    for bm, bn, bk in tile_candidates(name, semiring=semiring):
         cfg = GemmConfig(dtype=name, block_m=bm, block_n=bn, block_k=bk,
                          semiring=semiring, transpose_a=transpose_a,
                          transpose_b=transpose_b,

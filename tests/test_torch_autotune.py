@@ -107,16 +107,18 @@ def test_cached_config_hit_and_guards(caches):
     assert cfg.transpose_a and not cfg.transpose_b and cfg.route() == "tc"
     assert at.cached_winner(1000, 1000, 1000, dtype="bfloat16", layout="tn",
                             device="cpu")[1] == "wmma"
-    # The engine reads int8 K-major only: an "nn" engine entry is a miss.
-    assert at.cached_config(1024, 1024, 1024, dtype="int8", device="cpu") is None
+    # The engine reads int8 K-major only, and the pack pass turns an "nn"
+    # call's B K-major first: an "nn" engine entry is a hit too.
+    assert at.cached_config(1024, 1024, 1024, dtype="int8", device="cpu") is not None
     assert at.cached_config(1024, 1024, 1024, dtype="int8", layout="nt",
                             device="cpu") is not None
-    # Rows that are not whole 16-byte units (K = 1000 bf16 is, 1001 is not),
-    # or operands the caller says are unaligned: the engine cannot run.
+    # Rows that are not whole 16-byte units (K = 1000 bf16 is, 1001 is not):
+    # the engine runs them after the pack pass, so its entry is a hit, and
+    # the lookup asks nothing of the operands' alignment.
     assert at.cached_config(1024, 1024, 1000, dtype="bfloat16", device="cpu")
-    assert at.cached_config(1024, 1024, 1001, dtype="bfloat16", device="cpu") is None
-    assert at.cached_config(1024, 1024, 1024, dtype="bfloat16", aligned=False,
-                            device="cpu") is None
+    assert at.cached_config(1024, 1024, 1001, dtype="bfloat16", device="cpu")
+    with pytest.raises(TypeError):
+        at.cached_config(1024, 1024, 1024, dtype="bfloat16", aligned=False, device="cpu")
     # Blocks that are no compiled tile, a route the blocks do not name.
     assert at.cached_config(1024, 1024, 1024, dtype="float16", device="cpu") is None
     assert at.cached_config(256, 256, 256, dtype="float16", device="cpu") is None
@@ -197,7 +199,7 @@ def test_cached_family_entry_guards(caches):
 
 @pytest.mark.parametrize("dtype,layout,routes", [
     ("bfloat16", "nn", ["wgmma", "wmma"]), ("float16", "tt", ["wgmma", "wmma"]),
-    ("int8", "nn", ["wmma"]), ("int8", "nt", ["wgmma", "wmma"]),
+    ("int8", "nn", ["wgmma", "wmma"]), ("int8", "nt", ["wgmma", "wmma"]),
     ("float32", "nn", ["wgmma", "simt"]), ("int32", "nn", ["simt"])])
 def test_candidate_configs_are_the_routes_that_run(dtype, layout, routes):
     cands = at.candidate_configs(1024, 1024, 1024, dtype, "plus_times", layout=layout)
@@ -205,10 +207,10 @@ def test_candidate_configs_are_the_routes_that_run(dtype, layout, routes):
     for c in cands:
         c.validate(strict_alignment=True)
         assert (c.transpose_a, c.transpose_b) == (layout[0] == "t", layout[1] == "t")
-    assert at.batch_block_candidates(8, 1024, 1024, 1024, dtype, layout=layout) == routes
-    # Unaligned rows leave the engine out.
-    assert "wgmma" not in [at._MXU_ROUTE[c.route()] for c in at.candidate_configs(
-        1024, 1024, 1001, "bfloat16", "plus_times")]
+    assert at.batch_block_candidates(8, 1024, 1024, 1024, dtype) == routes
+    # Unaligned rows keep both: the engine (after the pack pass) and WMMA.
+    assert [at._MXU_ROUTE[c.route()] for c in at.candidate_configs(
+        1024, 1024, 1001, "bfloat16", "plus_times")] == ["wgmma", "wmma"]
     sr = at.candidate_configs(512, 512, 512, "float32", "min_plus")
     assert [(c.block_m, c.block_n, c.block_k) for c in sr] == [KERNEL_TILES["simt"]]
 

@@ -21,6 +21,7 @@ from gemm_hls_tpu import GemmConfig as JaxConfig
 from gemm_hls_tpu import matmul as jax_matmul
 
 from gemm_hls_tpu_torch import GemmConfig, matmul
+from gemm_hls_tpu_torch.config import packed_operands
 from gemm_hls_tpu_torch.ops import mxu
 
 torch.set_num_threads(1)
@@ -95,11 +96,10 @@ def test_batched_bf16(out, rtol):
 @pytest.mark.parametrize("ta,tb", LAYOUTS)
 @pytest.mark.parametrize("aligned", [True, False])
 def test_batched_route_rule(dtype, ta, tb, aligned):
-    # bf16 / fp16 in every layout and int8 with both operands K-major take
-    # the engine when TMA can describe both operands (16-byte bases, row
-    # pitches and batch strides), and so does fp32 (TF32 passes); the rest
-    # of the 16-bit and int8 calls WMMA; unaligned fp32 and every int32
-    # call the CUDA cores.
+    # bf16 / fp16 / int8 / fp32 take the engine in every layout and at
+    # every alignment: an operand TMA cannot describe (a base, row pitch or
+    # batch stride off 16 bytes), or an int8 one that is not K-major, is
+    # packed K-major first (fp32 is split); every int32 call the CUDA cores.
     dt = getattr(torch, dtype)
     per = 16 // dt.itemsize
     cols = 4 * per + (0 if aligned else 1)
@@ -107,13 +107,14 @@ def test_batched_route_rule(dtype, ta, tb, aligned):
     b = torch.zeros((3, cols, 8 * per), dtype=dt)
     ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
     assert ok == aligned
-    if dtype == "int32" or (dtype == "float32" and not aligned):
-        want = "simt"
-    elif aligned and (dtype != "int8" or (ta, tb) == (False, True)):
-        want = "wgmma"
+    want = "simt" if dtype == "int32" else "wgmma"
+    assert mxu.mxu_route(dt) == want
+    packs = packed_operands(dt, ta, tb, mxu._vec_ok(a), mxu._vec_ok(b))
+    if dtype in ("float32", "int32"):
+        assert packs == (False, False)
     else:
-        want = "wmma"
-    assert mxu.mxu_route(dt, ta, tb, ok) == want
+        int8 = dtype == "int8"
+        assert packs == (not aligned or (int8 and ta), int8 and not tb)
 
 
 def test_broadcast_operand_is_read_without_a_batch_stride():

@@ -416,9 +416,11 @@ def test_callable_epilogue_matches_jax(name, lead):
 
 def test_card_tables_take_the_routes_they_name():
     # chip_smoke.py's GEN_EPILOGUE_CASES (phase 31 and the card tests): the
-    # route each case asserts is mxu_route's for its layout, pitches and
-    # batch strides; every route takes a generated epilogue; and phase 31a
-    # builds the library of every case of both tables ahead.
+    # route each case asserts is mxu_route's (the type's, in every layout
+    # and at every alignment); every route takes a generated epilogue (WMMA and the
+    # CUDA cores as each packed or unaligned-fp32 case's retired route,
+    # named); and phase 31a builds the library of every case of both
+    # tables ahead.
     import chip_smoke
     from gemm_hls_tpu_torch.ops import mxu
 
@@ -436,8 +438,15 @@ def test_card_tables_take_the_routes_they_name():
 
         aligned = (ok(*((k, m) if ta else (m, k)), bsz and bcast != "a")
                    and ok(*((n, k) if tb else (k, n)), bsz and bcast != "b"))
-        assert mxu.mxu_route(dtype, ta, tb, aligned) == route, case
+        assert mxu.mxu_route(dtype) == route, case
         seen.add(route)
+        old = chip_smoke.retired_route(dt, ta, tb, bsz, m, n, k, layout, bcast)
+        if dt == "float32":
+            # fp32 retires the CUDA cores on exactly its unaligned cases.
+            assert (old == "simt") == (route == "wgmma" and not aligned), case
+        if old:
+            assert route == "wgmma" and (old == "simt") == (dt == "float32"), case
+            seen.add(old)
     assert seen == {"wgmma", "wmma", "simt", "dmma"}
     specs = {src for src, _ in chip_smoke.phase31_specs(torch)}
     for name, dt, *_ in chip_smoke.GEN_B3_CASES:

@@ -192,9 +192,10 @@ def test_int64_plus_times_raises_in_both(batched):
 @pytest.mark.parametrize("ta,tb", chip_smoke.LAYOUTS)
 @pytest.mark.parametrize("aligned", [False, True])
 def test_plus_times_routes_of_the_new_types(dtype, ta, tb, aligned):
+    # The same route in every layout and at every alignment.
     want = "dmma" if dtype == "float64" else "simt"
-    assert call_route(dtype, "plus_times", ta, tb, aligned) == want
-    assert mxu.mxu_route(getattr(torch, dtype), ta, tb, aligned) == want
+    assert call_route(dtype, "plus_times") == want
+    assert mxu.mxu_route(getattr(torch, dtype)) == want
     assert kernel_route(dtype) == want
     cfg = default_config(dtype).validate(strict_alignment=True)
     assert cfg.route() == want and (cfg.block_m, cfg.block_n, cfg.block_k) == KERNEL_TILES[want]
@@ -237,20 +238,11 @@ def test_cached_winner_never_names_a_route_that_cannot_run_float64(tmp_path):
     assert route == "dmma" and cfg.route() == "dmma"
 
 
-def _aligned(case):
-    """Whether a phase-30 case's operands are 16-byte aligned as
-    ``chip_smoke.wide_operand`` makes them."""
-    dt, ta, tb, m, n, k, layout = case[0], case[2], case[3], *case[5:8], case[9]
-    if layout != "dense":
-        return layout == "pitched"
-    size = np.dtype(dt).itemsize
-    return all(cols * size % 16 == 0 for cols in (m if ta else k, k if tb else n))
-
-
 @pytest.mark.parametrize("case", chip_smoke.WIDE_B1_CASES, ids=str)
 def test_phase30_b1_cases_name_the_rule_route(case):
-    dt, ta, tb = case[0], case[2], case[3]
-    assert mxu.mxu_route(getattr(torch, dt), ta, tb, _aligned(case)) == case[-1]
+    # The rule reads the type alone: layout and alignment choose only what
+    # an engine launch packs first.
+    assert mxu.mxu_route(getattr(torch, case[0])) == case[-1]
 
 
 def test_phase30_b3_cases_cover_every_type_and_semiring():

@@ -581,9 +581,11 @@ def test_b1_engine_launches_repeat_bitwise(cuda):
 
 
 # B2's routes (chip_smoke.py phase 6): each case on the route it names, and
-# every engine case again on WMMA (the route override).
+# every engine case again on WMMA (the route override; fp32 on the CUDA
+# cores).
 _B2_RUNS = ([(case, None) for case in chip_smoke.B2_ROUTE_CASES]
-            + [(case, "wmma") for case in chip_smoke.B2_ROUTE_CASES if case[-1] == "wgmma"])
+            + [(case, "simt" if case[0] == "float32" else "wmma")
+               for case in chip_smoke.B2_ROUTE_CASES if case[-1] == "wgmma"])
 
 
 @pytest.mark.parametrize("case,route", _B2_RUNS, ids=str)
@@ -1132,15 +1134,21 @@ def test_engine_config_runs_on_the_engine(cuda):
     assert mxu.mxu_matmul.last_route == "wgmma"
     ref = torch.matmul(a, b)
     assert float((got.float() - ref.float()).norm() / ref.float().norm()) <= 1e-3
+    # A pitched A (rows off 16 bytes) runs on the engine too, packed first.
     pitched = torch.randn(1024, 1025, device=cuda).bfloat16()[:, :1024]
-    with pytest.raises(ValueError, match="cannot run"):
-        matmul(pitched, b, config=route_config("bfloat16"))
-    # The WMMA tile keeps the route rule: the engine for aligned operands,
-    # WMMA for the pitched ones.
+    before = mxu.pack_operand.launches["bfloat16"]
+    got = matmul(pitched, b, config=route_config("bfloat16"))
+    assert mxu.mxu_matmul.last_route == "wgmma"
+    assert mxu.pack_operand.launches["bfloat16"] == before + 1
+    # Held as the tuner holds a 16-bit output (tools.autotune.tolerance: 1e-2
+    # normwise; cuBLAS sums an unaligned K in another order).
+    ref = torch.matmul(pitched.float(), b.float())
+    assert float((got.float() - ref).norm() / ref.norm()) <= 1e-2
+    # The WMMA tile keeps the route rule: the engine for both.
     matmul(a, b, config=default_config("bfloat16"))
     assert mxu.mxu_matmul.last_route == "wgmma"
     matmul(pitched, b, config=default_config("bfloat16"))
-    assert mxu.mxu_matmul.last_route == "wmma"
+    assert mxu.mxu_matmul.last_route == "wgmma"
 
 
 def test_named_engine_route_raises_where_the_rule_refuses(cuda):
@@ -1148,10 +1156,11 @@ def test_named_engine_route_raises_where_the_rule_refuses(cuda):
     q = torch.randn(2, 128, 80, device=cuda).bfloat16()  # no engine at D 80
     with pytest.raises(ValueError, match="cannot run"):
         flash.flash_mha(q, q, q, route="wgmma")
-    a8 = torch.randint(-3, 4, (256, 256), device=cuda, dtype=torch.int8)
-    cfg = default_config("int8", out_dtype="int32")
+    # fp32 into float64: the engine stores the base types only.
+    x = torch.randn(256, 256, device=cuda)
+    cfg = default_config("float32", out_dtype="float64")
     with pytest.raises(ValueError, match="cannot run"):
-        mxu.mxu_matmul(a8, a8, cfg=cfg, route="wgmma")  # int8 B not K-major
+        mxu.mxu_matmul(x, x, cfg=cfg, route="wgmma")
 
 
 def test_tuned_batched_route_is_adopted(cuda, tmp_path, monkeypatch):
@@ -1533,6 +1542,96 @@ def test_float64_callable_epilogue_runs_on_the_tile_the_rule_picks(cuda):
 @pytest.mark.parametrize("case", chip_smoke.TF32_ROUTE_CASES, ids=str)
 def test_tf32_routes_match_plain(cuda, case):
     chip_smoke.tf32_route_case(torch, _gen(2401), case)
+
+
+# ---- slice 25: B1 / B2 on the engine at any layout and alignment ----------
+# chip_smoke.py phase 34 and the former WMMA / CUDA-core cases of phases 3a,
+# 6b, 27b, 30f, 31a and 33a: the pack pass bit for bit its plain version;
+# every case the rule now sends to the engine after a pack (or the split of
+# unaligned fp32) again on its retired route, named; an int8 B held (K, N)
+# exact; unaligned fp32 with +-inf / NaN; a cached WMMA winner adopted.
+
+@pytest.mark.parametrize("case", chip_smoke.PACK_CASES, ids=str)
+def test_pack_pass_is_its_plain_version_bit_for_bit(cuda, case):
+    chip_smoke.pack_case(torch, _gen(2501), case)
+
+
+_RETIRED_B1 = [(c, chip_smoke.retired_route(*chip_smoke.b1_case_layout(c)))
+               for c in chip_smoke.B1_ROUTE_CASES + list(chip_smoke.BIAS_GELU_ROUTE_CASES)
+               if chip_smoke.retired_route(*chip_smoke.b1_case_layout(c))]
+_RETIRED_WIDE = [(c, chip_smoke.retired_route(*chip_smoke.wide_case_layout(c)))
+                 for c in chip_smoke.WIDE_B1_CASES
+                 if chip_smoke.retired_route(*chip_smoke.wide_case_layout(c))]
+_RETIRED_GEN = [(c, chip_smoke.retired_route(c[1], c[3], c[4], c[5], *c[6:9], c[9], c[10]))
+                for c in chip_smoke.GEN_EPILOGUE_CASES
+                if chip_smoke.retired_route(c[1], c[3], c[4], c[5], *c[6:9], c[9], c[10])]
+
+
+@pytest.mark.parametrize("case", chip_smoke.BIAS_GELU_ROUTE_CASES, ids=str)
+def test_bias_gelu_cases_take_the_engine(cuda, case):
+    chip_smoke.b1_route_case(torch, _gen(2502), case)
+
+
+@pytest.mark.parametrize("case,route", _RETIRED_B1, ids=str)
+def test_former_b1_cases_on_their_retired_route(cuda, case, route):
+    chip_smoke.b1_route_case(torch, _gen(2503), case, route)
+
+
+@pytest.mark.parametrize("case,route", _RETIRED_WIDE, ids=str)
+def test_former_wide_cases_on_their_retired_route(cuda, case, route):
+    chip_smoke.wide_b1_case(torch, _gen(2504), case, route)
+
+
+@pytest.mark.parametrize("case,route", _RETIRED_GEN, ids=str)
+def test_former_generated_epilogue_cases_on_their_retired_route(cuda, case, route):
+    chip_smoke.gen_epilogue_case(torch, _gen(2505), case, route)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_int8_b_held_k_by_n_is_exact_on_the_engine(cuda, batched):
+    # The reference benchmark's layout: A (M, K), B (K, N); B packed K-major.
+    gen = _gen(2506)
+    lead = (3,) if batched else ()
+    # A's rows (1008 bytes) whole 16-byte units: only B is packed.
+    a = torch.randint(-128, 128, (*lead, 300, 1008), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (*lead, 1008, 520), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    before = mxu.pack_operand.launches["int8"]
+    got = matmul(a, b, out_dtype="int32")
+    wrapper = mxu.mxu_matmul_batched if batched else mxu.mxu_matmul
+    assert wrapper.last_route == "wgmma" and mxu.pack_operand.launches["int8"] == before + 1
+    assert torch.equal(got, matmul(a, b, out_dtype="int32", backend="torch"))
+
+
+@pytest.mark.parametrize("case", chip_smoke.UNALIGNED_TF32_CASES, ids=str)
+@pytest.mark.parametrize("route", [None, "simt"])
+def test_unaligned_tf32_cases_match_plain(cuda, case, route):
+    chip_smoke.tf32_route_case(torch, _gen(2507), case, route)
+
+
+def test_cached_wmma_winner_is_still_adopted(cuda, tmp_path, monkeypatch):
+    # A tuned "wmma" winner (the packaged seed's B2 one at 256 x 128^3) still
+    # runs where the rule gives the engine, aligned or not.
+    from gemm_hls_tpu_torch.tools import autotune
+    cache = str(tmp_path / "tuned.json")
+    chip = autotune._chip_name(cuda)
+    autotune._store(cache, {
+        autotune._key(chip, "bfloat16", "plus_times", 1000, 1030, 999): {
+            "block_m": 128, "block_n": 128, "block_k": 32, "route": "wmma"},
+        autotune._key_batched(chip, "bfloat16", "plus_times", 256, 128, 128, 128): {
+            "route": "wmma"}})
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", cache)
+    gen = _gen(2508)
+    a = chip_smoke.signed(torch, (1000, 999), torch.bfloat16, gen)
+    b = chip_smoke.signed(torch, (999, 1030), torch.bfloat16, gen)
+    got = matmul(a, b)
+    assert mxu.mxu_matmul.last_route == "wmma"
+    _close(got.float(), torch.matmul(a.float(), b.float()), 1e-2)
+    a3, b3 = (chip_smoke.signed(torch, (256, 128, 128), torch.bfloat16, gen) for _ in range(2))
+    got = matmul(a3, b3)
+    assert mxu.mxu_matmul_batched.last_route == "wmma"
+    _close(got.float(), torch.matmul(a3.float(), b3.float()), 1e-2)
 
 
 def test_tf32_engine_launches_repeat_bitwise(cuda):

@@ -20,7 +20,7 @@ import torch
 from gemm_hls_tpu import GemmConfig as JaxConfig
 from gemm_hls_tpu.ops import pallas_mxu
 
-from gemm_hls_tpu_torch.config import default_config
+from gemm_hls_tpu_torch.config import default_config, packed_operands
 from gemm_hls_tpu_torch.ops import mxu
 from gemm_hls_tpu_torch.utils import make_operands, reference_matmul, verify_matmul
 
@@ -131,9 +131,10 @@ def test_wrapper_rejects_bad_operands(bad):
 @pytest.mark.parametrize("batched", [False, True])
 def test_route_of_16_bit_inputs(dtype, ta, tb, aligned, batched):
     # Every layout reaches the engine (MN-major operands through wgmma's
-    # transpose bits) when TMA can describe both operands, 2-D (B1) and
-    # batched (B2) alike: the wrapper's alignment test on operands of that
-    # rank (a batched operand's batch stride included) decides it.
+    # transpose bits), 2-D (B1) and batched (B2) alike, at every alignment:
+    # the wrapper's alignment test on operands of that rank (a batched
+    # operand's batch stride included) decides only which operands the pack
+    # pass copies K-major first.
     dt = getattr(torch, dtype)
     lead = (3,) if batched else ()
     cols = 64 if aligned else 60  # 128- or 120-byte rows
@@ -141,26 +142,32 @@ def test_route_of_16_bit_inputs(dtype, ta, tb, aligned, batched):
     b = torch.zeros(lead + (cols, 64), dtype=dt)
     ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
     assert ok == aligned
-    assert mxu.mxu_route(dt, ta, tb, ok) == ("wgmma" if aligned else "wmma")
+    assert mxu.mxu_route(dt) == "wgmma"
+    packs = packed_operands(dt, ta, tb, mxu._vec_ok(a), mxu._vec_ok(b))
+    assert packs == (not aligned, False)
 
 
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
                                    (False, True), (True, True)])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_route_of_int8_inputs(ta, tb, aligned):
-    # int8 wgmma reads K-major operands only: A (M, K) and B held (N, K).
-    want = "wgmma" if aligned and (ta, tb) == (False, True) else "wmma"
-    assert mxu.mxu_route(torch.int8, ta, tb, aligned) == want
+    # int8 wgmma reads K-major operands only, A (M, K) and B held (N, K):
+    # every other layout, and every unaligned operand, reaches the engine
+    # after the pack pass turns it K-major.
+    assert mxu.mxu_route(torch.int8) == "wgmma"
+    assert packed_operands(torch.int8, ta, tb, aligned, aligned) == (
+        ta or not aligned, not tb or not aligned)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_route_of_cuda_core_inputs(dtype, aligned):
     # Wrapping int32 stays on the CUDA cores; fp32 takes the engine's TF32
-    # passes where a TMA map describes its operands, IEEE fp32 FMA on the
-    # CUDA cores where none does.
-    want = "wgmma" if dtype == "float32" and aligned else "simt"
-    assert mxu.mxu_route(getattr(torch, dtype), False, True, aligned) == want
+    # passes at every alignment (the split pass reads any pitch), packing
+    # nothing.
+    want = "wgmma" if dtype == "float32" else "simt"
+    assert mxu.mxu_route(getattr(torch, dtype)) == want
+    assert packed_operands(dtype, False, True, aligned, aligned) == (False, False)
 
 
 @pytest.mark.parametrize("shape,col0,dtype,aligned", [
@@ -216,7 +223,9 @@ def test_plain_calls_leave_the_route_alone():
 def test_b2_card_table_takes_the_routes_it_names():
     # chip_smoke.py's B2_ROUTE_CASES (phase 6 and the card tests): the
     # route each case asserts is mxu_route's for its layout, pitches and
-    # batch strides, and every route of every tensor-core type is covered.
+    # batch strides (the engine), and every tensor-core type has cases read
+    # in place and cases the pack pass copies first (each of those again on
+    # WMMA, named), fp32 an unaligned case (again on the CUDA cores).
     import chip_smoke
 
     seen = set()
@@ -229,18 +238,25 @@ def test_b2_card_table_takes_the_routes_it_names():
             pitch_ = (cols + per - 1) // per * per + per if pitch else cols
             return pitch_ % per == 0 and (not three_d or bsz == 1 or rows * pitch_ % per == 0)
 
-        aligned = (ok(*((k, m) if ta else (m, k)), bcast != "a")
-                   and ok(*((n, k) if tb else (k, n)), bcast != "b"))
-        assert mxu.mxu_route(dtype, ta, tb, aligned) == route, case
-        seen.add((dt, route))
-    assert {(dt, r) for dt in ("bfloat16", "int8") for r in ("wgmma", "wmma")} <= seen
-    assert {("float16", "wgmma"), ("float16", "wmma"), ("float32", "simt")} <= seen
+        al_a, al_b = ok(*((k, m) if ta else (m, k)), bcast != "a"), \
+            ok(*((n, k) if tb else (k, n)), bcast != "b")
+        assert mxu.mxu_route(dtype) == route == "wgmma", case
+        assert chip_smoke.operands_aligned(*chip_smoke.b2_case_layout(case)) == (al_a, al_b)
+        packs = packed_operands(dtype, ta, tb, al_a, al_b)
+        assert chip_smoke.case_packs(*chip_smoke.b2_case_layout(case)) == packs, case
+        old = chip_smoke.retired_route(*chip_smoke.b2_case_layout(case))
+        seen.add((dt, old or ("packed" if any(packs) else "in place")))
+    assert {(dt, r) for dt in ("bfloat16", "int8", "float16") for r in ("in place", "wmma")} \
+        <= seen
+    assert ("float32", "simt") in seen
 
 
 def test_card_tables_take_the_routes_they_name():
     # chip_smoke.py's B1 route tables (phases 3a / 6a and the card tests):
     # the route each case asserts is mxu_route's for its layout and
-    # pitches, and both routes are covered for every tensor-core type.
+    # pitches (the engine), and every tensor-core type has cases read in
+    # place and cases the pack pass copies first (each again on WMMA,
+    # named: their retired route).
     import chip_smoke
 
     seen = set()
@@ -252,17 +268,23 @@ def test_card_tables_take_the_routes_they_name():
         def row(cols):
             return (cols + per - 1) // per * per + per if pitch else cols
 
-        aligned = row(m if ta else k) % per == 0 and row(k if tb else n) % per == 0
-        assert mxu.mxu_route(dtype, ta, tb, aligned) == route, case
-        seen.add((dt, route))
+        al_a, al_b = row(m if ta else k) % per == 0, row(k if tb else n) % per == 0
+        assert mxu.mxu_route(dtype) == route == "wgmma", case
+        packs = packed_operands(dtype, ta, tb, al_a, al_b)
+        assert chip_smoke.case_packs(*chip_smoke.b1_case_layout(case)) == packs, case
+        assert chip_smoke.retired_route(*chip_smoke.b1_case_layout(case)) == (
+            "wmma" if any(packs) else None), case
+        seen.add((dt, "packed" if any(packs) else "in place"))
     assert seen == {(dt, r) for dt in ("bfloat16", "float16", "int8")
-                    for r in ("wgmma", "wmma")}
+                    for r in ("in place", "packed")}
 
 
 def test_bias_gelu_card_tables_take_the_routes_they_name():
-    # chip_smoke.py's phase 27b tables: the bias_gelu epilogue on every B1
-    # route (the engine, WMMA, the CUDA cores) and on B2's engine, each the
-    # route mxu_route gives its layout and pitches.
+    # chip_smoke.py's phase 27b tables: the bias_gelu epilogue on B1's
+    # engine (in place, after the pack pass, after the split of unaligned
+    # fp32; the packed and unaligned cases again on WMMA and the CUDA
+    # cores, named) and on B2's engine, each the route mxu_route gives its
+    # layout and pitches.
     import chip_smoke
 
     seen = set()
@@ -275,10 +297,11 @@ def test_bias_gelu_card_tables_take_the_routes_they_name():
             return (cols + per - 1) // per * per + per if pitch else cols
 
         aligned = row(m if ta else k) % per == 0 and row(k if tb else n) % per == 0
-        assert ep == "bias_gelu" and mxu.mxu_route(dtype, ta, tb, aligned) == route, case
-        seen.add(route)
+        assert ep == "bias_gelu" and mxu.mxu_route(dtype) == route, case
+        seen.add(chip_smoke.retired_route(*chip_smoke.b1_case_layout(case)) or route)
+    # The engine in place, and each retired route named again.
     assert seen == {"wgmma", "wmma", "simt"}
     for case in chip_smoke.BIAS_GELU_B2_CASES:
         dt, _, ta, tb, bsz, m, n, k, pitch, bcast, ep, route = case
         assert ep == "bias_gelu" and route == "wgmma" and pitch, case
-        assert mxu.mxu_route(getattr(torch, dt), ta, tb, True) == route, case
+        assert mxu.mxu_route(getattr(torch, dt)) == route, case

@@ -17,7 +17,7 @@ from gemm_hls_tpu.config import GemmConfig as JaxConfig
 from gemm_hls_tpu.models import perf_model as jax_pm
 
 from gemm_hls_tpu_torch.config import (
-    SMEM_LIMIT_BYTES, GemmConfig, call_route, default_config, route_config,
+    SMEM_LIMIT_BYTES, GemmConfig, call_route, default_config, pack_bytes, route_config,
 )
 from gemm_hls_tpu_torch.models import perf_model as pm
 
@@ -117,28 +117,64 @@ def test_format_specifications():
 @pytest.mark.parametrize("dtype,semiring,ta,tb,aligned,route", [
     ("bfloat16", "plus_times", False, False, True, "wgmma"),
     ("float16", "plus_times", True, True, True, "wgmma"),
-    ("bfloat16", "plus_times", False, False, False, "tc"),
+    ("bfloat16", "plus_times", False, False, False, "wgmma"),
     ("int8", "plus_times", False, True, True, "wgmma"),
-    ("int8", "plus_times", False, False, True, "tc"),
-    ("int8", "plus_times", True, True, True, "tc"),
+    ("int8", "plus_times", False, False, True, "wgmma"),
+    ("int8", "plus_times", True, True, True, "wgmma"),
     ("float32", "plus_times", False, False, True, "wgmma"),
-    ("float32", "plus_times", True, False, False, "simt"),
+    ("float32", "plus_times", True, False, False, "wgmma"),
     ("int32", "plus_times", False, False, True, "simt"),
     ("bfloat16", "min_plus", False, False, True, "simt"),
 ])
 def test_route_config_follows_mxu_route(dtype, semiring, ta, tb, aligned, route):
+    # Since the pack pass every bf16 / fp16 / int8 / fp32 plus_times call
+    # takes the engine's tile, in any layout and at any alignment: the rule
+    # and the config read neither (``aligned`` names the call each case
+    # stands for).
     from gemm_hls_tpu_torch.ops.mxu import mxu_route
 
-    assert call_route(dtype, semiring, ta, tb, aligned) == route
+    assert call_route(dtype, semiring) == route
     if semiring == "plus_times":
-        # ops/mxu.py's rule, whose "wmma" is the "tc" tile here.
-        want = mxu_route(getattr(torch, dtype), ta, tb, aligned)
-        assert {"wmma": "tc"}.get(want, want) == route
-    cfg = route_config(dtype, semiring=semiring, transpose_a=ta, transpose_b=tb,
-                       aligned=aligned)
-    assert cfg.route() == route or (route == "tc" and dtype == "int8")
+        assert mxu_route(getattr(torch, dtype)) == route
+    cfg = route_config(dtype, semiring=semiring, transpose_a=ta, transpose_b=tb)
+    assert cfg.route() == route
     cfg.validate(strict_alignment=True, route=route)
     assert cfg.smem_bytes(route) <= SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("dtype,mnk,ta,tb,want", [
+    ("bfloat16", (8192, 8192, 8190), False, False, 8192 * (8190 + 8192) * 2),  # A
+    ("bfloat16", (8192, 8192, 8192), False, False, 0),
+    ("bfloat16", (65, 100, 30), True, True, (65 + 100) * (30 + 32) * 2),  # both
+    ("int8", (8192, 8192, 8192), False, False, 8192 * 8192 * 2),  # B (K, N)
+    ("int8", (8192, 8192, 8192), False, True, 0),
+    ("int8", (300, 520, 272), True, False, (300 + 520) * 272 * 2),
+    ("float16", (7, 13, 5), False, True, (7 + 13) * (5 + 8) * 2),
+    ("float32", (8192, 8192, 8190), False, False, 0),  # its split pass is its own
+    ("int32", (100, 100, 99), False, False, 0),
+])
+def test_pack_bytes_charge_what_the_launch_packs(dtype, mnk, ta, tb, want):
+    # config.pack_bytes: each operand packed_operands names read once and
+    # written once with K rounded up to 16-byte rows, for contiguous
+    # operands of these dims; perf_model charges them at the memory rate.
+    assert pack_bytes(dtype, *mnk, ta, tb) == want
+    cfg = route_config(dtype, transpose_a=ta, transpose_b=tb)
+    base = pm.specifications(cfg, *mnk, chip=pm.H100)
+    spec = pm.specifications(cfg, *mnk, chip=pm.H100, pack_bytes=want)
+    if want:
+        assert spec["pack_bytes"] == want
+        assert spec["pack_s"] == pytest.approx(want / pm.H100.hbm_bandwidth)
+        assert spec["expected_runtime_s"] == pytest.approx(
+            base["expected_runtime_s"] + spec["pack_s"])
+        assert "Pack pass" in pm.format_specifications(spec)
+    else:
+        assert spec == base and "pack_bytes" not in spec
+
+
+def test_bf16_8192x8190_pack_bound():
+    # The pack of bf16 8192 x 8190's A at 3.35 TB/s: 0.080 ms.
+    assert pack_bytes("bfloat16", 8192, 8192, 8190) / pm.H100.hbm_bandwidth == \
+        pytest.approx(80.1e-6, rel=1e-3)
 
 
 def test_engine_shared_memory_is_the_kernels():

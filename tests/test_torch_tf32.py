@@ -44,30 +44,31 @@ JCFG = JaxConfig(block_m=32, block_n=128, block_k=128, interpret=True)
 @pytest.mark.parametrize("batched", [False, True])
 def test_fp32_route_is_the_engine_where_a_tma_map_describes_it(ta, tb, aligned, batched):
     # fp32 plus_times takes the engine in every layout, 2-D (B1) and
-    # batched (B2), where both operands' bases, row pitches and batch
-    # strides are whole 16-byte units; the CUDA cores where a pitch is not.
+    # batched (B2), whether or not both operands' bases, row pitches and
+    # batch strides are whole 16-byte units: the split pass reads any pitch
+    # and writes 16-byte rows, so since the pack pass's slice no pitch
+    # keeps fp32 on the CUDA cores.
     lead = (3,) if batched else ()
     cols = 64 if aligned else 63  # 256- or 252-byte rows
     a = torch.zeros(lead + (40, cols))
     b = torch.zeros(lead + (cols, 64))
     ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
     assert ok == aligned
-    want = "wgmma" if aligned else "simt"
-    assert mxu.mxu_route(torch.float32, ta, tb, ok) == want
-    assert call_route("float32", "plus_times", ta, tb, ok) == want
-    cfg = route_config("float32", transpose_a=ta, transpose_b=tb, aligned=ok)
+    want = "wgmma"
+    assert mxu.mxu_route(torch.float32) == want
+    assert call_route("float32", "plus_times") == want
+    cfg = route_config("float32", transpose_a=ta, transpose_b=tb)
     assert cfg.route() == want
     cfg.validate(strict_alignment=True, route=want)
-    if aligned:
-        assert (cfg.block_m, cfg.block_n, cfg.block_k) == ENGINE_TILES["float32"] == (128, 256, 32)
-        # One 128-byte swizzle row of 32 fp32 values a stage: the 16-bit
-        # types' shared memory.
-        assert cfg.smem_bytes() == route_config("bfloat16").smem_bytes()
+    assert (cfg.block_m, cfg.block_n, cfg.block_k) == ENGINE_TILES["float32"] == (128, 256, 32)
+    # One 128-byte swizzle row of 32 fp32 values a stage: the 16-bit types'
+    # shared memory.
+    assert cfg.smem_bytes() == route_config("bfloat16").smem_bytes()
 
 
 @pytest.mark.parametrize("route,rule,ok", [
     ("simt", "wgmma", True),     # the CUDA-core tile beside the engine (a winner, an A/B)
-    ("wgmma", "simt", False),    # unaligned operands: no TMA map describes them
+    ("wgmma", "simt", False),    # fp32 into float64: the engine stores the base types
     ("wmma", "wgmma", False),    # no fp32 WMMA tile
     ("wmma", "simt", False),
     ("dmma", "wgmma", False),
@@ -84,11 +85,14 @@ def test_named_routes_of_fp32(route, rule, ok):
 
 
 def test_card_table_takes_the_routes_it_names():
-    # chip_smoke.py's TF32_ROUTE_CASES (phase 33a and the card tests): the
-    # route each case asserts is mxu_route's for its layout, pitches and
-    # batch strides, and both routes and both precisions are covered.
+    # chip_smoke.py's TF32_ROUTE_CASES (phase 33a and the card tests) and
+    # UNALIGNED_TF32_CASES (phase 34c): the route each case asserts is
+    # mxu_route's for its layout, pitches and batch strides (the engine at
+    # every alignment), and both precisions are covered on aligned and
+    # unaligned operands, the unaligned cases being run again on the CUDA
+    # cores, named (their retired route).
     seen = set()
-    for case in chip_smoke.TF32_ROUTE_CASES:
+    for case in chip_smoke.TF32_ROUTE_CASES + chip_smoke.UNALIGNED_TF32_CASES:
         prec, ta, tb, bsz, m, n, k, pitch, bcast, _, specials, route = case
 
         def ok(rows, cols, three_d):
@@ -97,12 +101,16 @@ def test_card_table_takes_the_routes_it_names():
 
         aligned = (ok(*((k, m) if ta else (m, k)), bsz and bcast != "a")
                    and ok(*((n, k) if tb else (k, n)), bsz and bcast != "b"))
-        assert mxu.mxu_route(torch.float32, ta, tb, aligned) == route, case
-        seen.add((route, prec))
+        assert mxu.mxu_route(torch.float32) == route == "wgmma", case
+        old = chip_smoke.retired_route(*chip_smoke.tf32_case_layout(case))
+        assert old == (None if aligned else "simt"), case
+        seen.add((old or route, prec))
         if specials:
-            seen.add(("specials", route, prec))
+            seen.add(("specials", old or route, prec))
     assert seen == {(r, p) for r in ("wgmma", "simt") for p in ("default", "high")} | {
-        ("specials", "wgmma", p) for p in ("default", "high")} | {("specials", "simt", "high")}
+        ("specials", r, p) for r in ("wgmma", "simt") for p in ("default", "high")}
+    assert all(chip_smoke.retired_route(*chip_smoke.tf32_case_layout(c)) == "simt"
+               for c in chip_smoke.UNALIGNED_TF32_CASES)
     assert chip_smoke.TF32_REPEAT_CASES and all(
         c[-1] == "wgmma" for c in chip_smoke.TF32_REPEAT_CASES)
 
@@ -330,8 +338,10 @@ def test_tuner_offers_both_fp32_routes_and_its_ceiling_is_tf32s():
     cands = autotune.candidate_configs(1024, 1024, 1024, "float32", "plus_times")
     assert [autotune._MXU_ROUTE[c.route()] for c in cands] == ["wgmma", "simt"]
     assert autotune.batch_block_candidates(8, 512, 512, 512, "float32") == ["wgmma", "simt"]
-    assert autotune.candidate_configs(1024, 1024, 1001, "float32", "plus_times")[0].route() \
-        == "simt"
+    # An unaligned K keeps both: the engine (after the split pass, which
+    # reads any pitch) and the CUDA cores beside it.
+    cands = autotune.candidate_configs(1024, 1024, 1001, "float32", "plus_times")
+    assert [autotune._MXU_ROUTE[c.route()] for c in cands] == ["wgmma", "simt"]
     assert autotune._ceiling("cpu", "float32") == autotune._ceiling("cpu", "tfloat32")
 
 
@@ -366,10 +376,9 @@ def test_route_rule_reads_the_output_type(out, want, tmp_path):
     # CUDA cores; the tuner's rule and its cached-winner lookups read the
     # same rule, so a cached fp32 engine winner is a miss for a float64
     # output (and a CUDA-core one is taken for any output).
-    assert call_route("float32", "plus_times", False, False, True, out) == want
-    assert mxu.mxu_route(torch.float32, True, True, True, out) == want
-    assert autotune._dense_rule("float32", "plus_times", "nn", 512, 512, 512, None,
-                                out) == want
+    assert call_route("float32", "plus_times", out) == want
+    assert mxu.mxu_route(torch.float32, out) == want
+    assert autotune._dense_rule("float32", "plus_times", out) == want
     cache = tmp_path / "tune.json"
     bm, bn, bk = ENGINE_TILES["float32"]
     autotune._store(str(cache), {

@@ -50,7 +50,7 @@ def test_bf16_picks_the_engine_tile():
 @pytest.mark.parametrize("dtype,kw,tile", [
     ("float16", {}, ENGINE_TILES["float16"]),
     ("float32", {}, ENGINE_TILES["float32"]),  # TF32 passes on the engine
-    ("int8", {}, KERNEL_TILES["tc"]),
+    ("int8", {}, ENGINE_TILES["int8"]),  # B (K, N): on the engine after its pack pass
     ("int8", {"transpose_b": True}, ENGINE_TILES["int8"]),
     ("bfloat16", {"semiring": "min_plus"}, KERNEL_TILES["simt"]),
     ("bfloat16", {"vmem_budget": 100_000}, KERNEL_TILES["tc"]),
@@ -59,7 +59,7 @@ def test_result_is_a_tile_the_card_runs(dtype, kw, tile):
     cfg = optimal_tiles(dtype, **kw)
     assert (cfg.block_m, cfg.block_n, cfg.block_k) == tile
     assert (cfg.block_m, cfg.block_n, cfg.block_k) in tile_candidates(
-        dtype, **{k: v for k, v in kw.items() if k != "vmem_budget"})
+        dtype, **{k: v for k, v in kw.items() if k == "semiring"})
     cfg.validate(strict_alignment=True)
 
 
