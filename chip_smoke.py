@@ -297,8 +297,10 @@ Phases, each printed as it ends:
      tile checked each since slice 23: ``csrc/dmma_tma.cu`` where aligned,
      ``csrc/dmma_gemm.cu`` else; ragged K, every epilogue, broadcast and a
      batch past gridDim.z, +-inf / NaN; int16 and the unsigned ints on
-     ``csrc/mxu_simt_int.cu``; int8's extremes on the engine, in place and
-     packed, the packed case again on WMMA; the route checked each) and
+     the engine as byte planes since slice 26, each again on
+     ``csrc/mxu_simt_int.cu``, named; int8's extremes on the engine, in
+     place and packed, the packed case again on WMMA; the route checked
+     each) and
      WIDE_B3_CASES (every semiring of each
      type's ``csrc/semiring_<type>.cu``, the extremes, odd K and pitches,
      batched) against the plain versions; then slice 21's main path,
@@ -308,8 +310,9 @@ Phases, each printed as it ends:
      1024^3 with bias_gelu and scale_bias, the float64 gradient at 4096^3,
      B3 at 4096^3 (min_plus float16 / int8 / uint8 / int16 / float64 /
      uint16 / int64, max_min uint32) bit for bit, B1 int16 / uint8 plus_times at 4096^3
-     exact; each kernel timed beside its plain version and its bound,
-     float64 ``torch.matmul`` beside dmma.
+     exact (on the engine since slice 26); each kernel timed beside its
+     plain version and its bound, float64 ``torch.matmul`` beside dmma, the
+     CUDA-core tile named at B1 int16 / uint8.
  31. slice 22, user-defined semirings and Python-callable epilogues, each
      compiled at first use into a functor of its own
      (``gemm_hls_tpu_torch/ops/codegen.py``): (a) the phase's generated
@@ -398,6 +401,29 @@ Phases, each printed as it ends:
      cores) and the library call (``torch._addmm_activation``,
      ``torch.matmul``, ``torch._int_mm`` with B row- and column-major,
      SGEMM and cuBLAS TF32), with their bounds.
+ 35. slice 26, B1 / B2's int16, uint8, uint16, uint32 and int32
+     plus_times on the int8 tensor cores as byte planes (the split pass
+     ``csrc/int_split.cu`` cuts each operand once into K-major planes,
+     uint8 is packed as int8 is; ``csrc/mxu_wgmma_int.cu`` walks the plane
+     pairs i + j <= 3 by diagonal, one int32 accumulator shifted 8 bits
+     between diagonals): (a) INT_SPLIT_CASES, the split bit for bit its
+     plain version; INT_ROUTE_CASES (each type in the four layouts, odd
+     pitches, ragged K, batched and broadcast, K 1, epilogues to fp32,
+     values over each type's whole range so the sums wrap, uint8 all 255
+     at K 40000, int32 full range at K 8192), each equal bit for bit to the
+     plain version, to the plain walk of byte-plane products and to the
+     CUDA-core tile named; INT8_WIDE_OUT_CASES (int8 into int16 and the
+     unsigned ints on the engine's store); INT_GEN_EPILOGUE_CASES (a
+     callable epilogue on int16 on the engine, and again on the CUDA cores,
+     named); then, counts set to 0 before and read after, the main path:
+     each type at 4096^3 and B2 int16 16 x 1024^3 through the front door,
+     exact, every launch on the engine, the split and pack launches
+     counted; (b) each type at 4096^3 on CUDA events in turns: split (or
+     pack) plus engine, the engine alone on the planes, the pass alone, the
+     CUDA-core tile named and float64 ``torch.matmul`` on float64 copies,
+     beside the function's bound (``perf_model.int_gemm_bound``) and the
+     design's, the split's or pack's bytes added
+     (``perf_model.int_split_bound``).
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -664,10 +690,15 @@ def case_packs(dt, ta, tb, bsz, m, n, k, layout, bcast=None):
 
 
 def retired_route(dt, ta, tb, bsz, m, n, k, layout, bcast=None):
-    """The route the rule gave a case before the pack pass, where that was
-    not the engine: "wmma" for a bf16 / fp16 / int8 case whose operands the
-    engine packs, "simt" for fp32 on operands no TMA map describes; else
-    None.  Each such case runs again there, named."""
+    """The route the rule gave a case before the engine took it, where that
+    was not the engine: "wmma" for a bf16 / fp16 / int8 case whose operands
+    the engine packs, "simt" for fp32 on operands no TMA map describes and
+    for every int16 / uint8 / uint16 / uint32 / int32 case (the CUDA-core
+    tile until the byte planes); else None.  Each such case runs again
+    there, named."""
+    from gemm_hls_tpu_torch.config import INT_PLANES
+    if dt in INT_PLANES:
+        return "simt"
     if dt == "float32":
         return None if all(operands_aligned(dt, ta, tb, bsz, m, n, k, layout, bcast)) else "simt"
     return "wmma" if any(case_packs(dt, ta, tb, bsz, m, n, k, layout, bcast)) else None
@@ -695,11 +726,17 @@ def pack_count():
 
 def check_packs(gemm, layout, route, before, what):
     """The launch just made on ``route`` packed the operands ``case_packs``
-    names (none off the engine)."""
+    names (none off the engine), and ran the byte planes of
+    ``config.INT_PLANES`` where its inputs are such an integer on the
+    engine."""
+    from gemm_hls_tpu_torch.config import INT_PLANES
     want = sum(case_packs(*layout)) if route == "wgmma" else 0
-    if gemm.last_route != route or pack_count() - before != want:
+    planes = INT_PLANES.get(layout[0]) if route == "wgmma" else None
+    if (gemm.last_route != route or pack_count() - before != want
+            or gemm.last_int_planes != planes):
         raise AssertionError(f"{what}: route {gemm.last_route}, {pack_count() - before} "
-                             f"pack launches, want {route} and {want}")
+                             f"pack launches, planes {gemm.last_int_planes}, want {route}, "
+                             f"{want} and {planes}")
 
 
 def pitched(torch, gen, rows, cols, dtype, pitch, lead=()):
@@ -1130,7 +1167,10 @@ def counters():
             "B1 tf32 split": mxu.tf32_operand.launches,
             # B1 / B2 on the engine at any layout and alignment: the pack
             # pass, one an operand its maps cannot read in place.
-            "B1 pack": sum(mxu.pack_operand.launches.values())}
+            "B1 pack": sum(mxu.pack_operand.launches.values()),
+            # B1 / B2's integers on the engine: the byte-plane split pass,
+            # two a GEMM of int16 / uint16 / uint32 / int32.
+            "B1 int split": sum(mxu.int_split_operand.launches.values())}
 
 
 def reset_counters():
@@ -1144,6 +1184,8 @@ def reset_counters():
     mxu.tf32_operand.launches = 0
     mxu.pack_operand.launches.clear()
     mxu.packed_launches.clear()
+    mxu.int_plane_launches.clear()
+    mxu.int_split_operand.launches.clear()
     vpu.vpu_matmul.launches = 0
     vpu.vpu_matmul.dtype_launches.clear()
     vpu.vpu_matmul.generated_launches.clear()
@@ -7007,9 +7049,11 @@ EXACT_SEMIRINGS = ("min_plus", "max_plus", "max_min", "min_max", "max_times")
 # layout of memory, M, N and K off the tile, K 1 / 3 / 17, a 1 x 1 x 1
 # call, float32 output, a broadcast 2-D a / b, a batch past gridDim.z's
 # 65535, every epilogue (B1 and B2), +-inf and NaN; int16 and the unsigned
-# ints on csrc/mxu_simt_int.cu in the four layouts, odd and ragged shapes,
-# int32 and own-type outputs, an epilogue to fp32, batched; int8's
-# extremes on its tensor-core routes (the engine and WMMA).
+# ints in the four layouts, odd and ragged shapes, int32 and own-type
+# outputs, an epilogue to fp32, batched: on the engine as byte planes since
+# slice 26 (csrc/mxu_wgmma_int.cu), each again on csrc/mxu_simt_int.cu,
+# named (``retired_route``); int8's extremes on its tensor-core routes (the
+# engine and WMMA).
 WIDE_B1_CASES = (
     [("float64", "float64", ta, tb, None, 300, 520, 136, "rand", lay, None, None, "dmma")
      for ta, tb in LAYOUTS for lay in ("dense", "pitched", "odd")]
@@ -7033,15 +7077,15 @@ WIDE_B1_CASES = (
         "dmma") for ep in EPILOGUES]
     + [("float64", "float64", True, False, 3, 130, 264, 67, "rand", "odd", None, ep, "dmma")
        for ep in ("bias_gelu", "scale_bias")]
-    + [(dt, dt, ta, tb, None, 130, 200, 67, "rand", "dense", None, None, "simt")
+    + [(dt, dt, ta, tb, None, 130, 200, 67, "rand", "dense", None, None, "wgmma")
        for dt in ("int16", "uint8", "uint16", "uint32") for ta, tb in LAYOUTS]
-    + [(dt, "int32", False, True, None, 77, 90, 33, "rand", "odd", None, None, "simt")
+    + [(dt, "int32", False, True, None, 77, 90, 33, "rand", "odd", None, None, "wgmma")
        for dt in ("int16", "uint8", "uint16", "uint32")]
-    + [(dt, dt, True, False, None, 5, 3, 1, "edge", "dense", None, None, "simt")
+    + [(dt, dt, True, False, None, 5, 3, 1, "edge", "dense", None, None, "wgmma")
        for dt in ("int16", "uint8", "uint16", "uint32")]
-    + [(dt, "float32", False, False, None, 130, 200, 67, "small", "dense", None, "bias", "simt")
+    + [(dt, "float32", False, False, None, 130, 200, 67, "small", "dense", None, "bias", "wgmma")
        for dt in ("int16", "uint8")]
-    + [(dt, dt, False, True, 3, 64, 72, 17, "rand", "pitched", "b", None, "simt")
+    + [(dt, dt, False, True, 3, 64, 72, 17, "rand", "pitched", "b", None, "wgmma")
        for dt in ("int16", "uint8", "uint16", "uint32")]
     + [("int8", out, False, True, None, 300, 520, 272, "edge", "dense", None, None, "wgmma")
        for out in ("int32", "int8")]
@@ -7079,8 +7123,9 @@ WIDE_B3_CASES = (
 
 def wide_operand(torch, gen, rows, cols, dtype, values="rand", layout="dense", lead=()):
     """A (*lead, rows, cols) operand of ``dtype`` on the card (WIDE_B1_CASES'
-    values and layout), drawn in int64 / float64 and cast once, so a type
-    with few CUDA kernels (uint16, uint32) needs only the cast."""
+    values and layout; "max": every integer the type's largest), drawn in
+    int64 / float64 and cast once, so a type with few CUDA kernels (uint16,
+    uint32) needs only the cast."""
     dev = "cuda"
     if layout == "pitched":
         per = 16 // dtype.itemsize
@@ -7101,6 +7146,8 @@ def wide_operand(torch, gen, rows, cols, dtype, values="rand", layout="dense", l
         if dtype in (torch.uint16, torch.uint32) and values == "small":
             lo = 0
         x = torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int64)
+        if values == "max":
+            x.fill_(info.max)
         specials = sorted({info.min, info.max, 0, 1, info.max // 2 + 1, info.max // 2}
                           | ({-1} if info.min < 0 else set())
                           | ({2**32 + 5, -2**33 + 7, 2**31} if dtype == torch.int64 else set()))
@@ -7235,15 +7282,16 @@ def phase_slice21(torch):
     t_start = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(21)
     worst = max(wide_b1_case(torch, gen, c) for c in WIDE_B1_CASES)
-    for case in WIDE_B1_CASES:  # int8 packed on the engine: again on WMMA, named
+    for case in WIDE_B1_CASES:  # again on the retired route, named: WMMA, the CUDA cores
         if retired_route(*wide_case_layout(case)):
             worst = max(worst, wide_b1_case(torch, gen, case,
                                             retired_route(*wide_case_layout(case))))
     routes = sorted({c[-1] for c in WIDE_B1_CASES})
     log(f"phase 30f: B1 / B2 wide-type cases, {len(WIDE_B1_CASES)} (float64 on dmma in four "
         f"layouts, dense / pitched / odd pitches, K 1 / 3 / 17, float32 out, broadcast, batch "
-        f"70000, every epilogue, +-inf / NaN; int16 / uint8 / uint16 / uint32 on simt; int8 "
-        f"-128 / 127 on the engine, in place and packed, the packed one again on WMMA), "
+        f"70000, every epilogue, +-inf / NaN; int16 / uint8 / uint16 / uint32 on the engine "
+        f"as byte planes, each again on simt; int8 -128 / 127 on the engine, in place and "
+        f"packed, the packed one again on WMMA), "
         f"routes {routes} checked each: ok (worst abs "
         f"err {worst:.3e})")
     worst = max(wide_b3_case(torch, gen, c) for c in WIDE_B3_CASES)
@@ -7333,18 +7381,19 @@ def phase_slice21(torch):
         x = wide_operand(torch, gen, ni, ni, dtype)
         y = wide_operand(torch, gen, ni, ni, dtype)
         got = matmul(x, y)
-        if mxu.mxu_matmul.last_route != "simt":
+        if mxu.mxu_matmul.last_route != "wgmma":
             raise AssertionError(f"30e: {dt} on {mxu.mxu_matmul.last_route}")
         cfg = default_config(dtype)
         compare(torch, got, mxu.mxu_matmul_plain(x, y, cfg=cfg), 0.0, f"30e {dt} {ni}^3")
         b1_ops[dt] = (x, y, cfg)
         del got
     log(f"phase 30e: B1 plus_times {ni}^3 " + ", ".join(SLICE21_B1_INT)
-        + " on simt (int32 accumulator, wrapping) vs plain: exact")
+        + " on wgmma (byte planes on the int8 tensor cores, the int32 sum wrapping) vs plain: "
+          "exact")
     launches = dict(counters(), routes=dict(mxu.route_launches),
                     b3_dtypes=dict(vpu.vpu_matmul.dtype_launches))
     log(f"phase 30: main-path launches {launches}")
-    need = [("dmma", "float64")] + [("simt", dt) for dt in SLICE21_B1_INT]
+    need = [("dmma", "float64")] + [("wgmma", dt) for dt in SLICE21_B1_INT]
     if any(not mxu.route_launches[key] for key in need) or any(
             not vpu.vpu_matmul.dtype_launches[dt] for dt, _ in SLICE21_B3):
         raise AssertionError(f"phase 30: a kernel of the path was not launched: {launches}")
@@ -7372,14 +7421,21 @@ def phase_slice21(torch):
         readings[f"B3 {sr} {dt}"] = dict(
             ms=t["kernel"], plain_ms=t["plain"], library_ms=None, max_abs_err=0.0,
             bound=H100.bound(2.0 * nb3 ** 3, H100.vpu_ops_for(dt), 3 * nb3 * nb3 * isz))
+    # B1 int16 / uint8: the CUDA-core tile, named (the rule's engine route
+    # is phase 35's), beside the engine and the plain version.
+    named = mxu.route_launches.copy()
     for dt, (x, y, cfg) in b1_ops.items():
-        t = event_turns(torch, {"kernel": lambda: mxu.mxu_matmul(x, y, cfg=cfg),
+        t = event_turns(torch, {"kernel": lambda: mxu.mxu_matmul(x, y, cfg=cfg, route="simt"),
+                                "engine": lambda: mxu.mxu_matmul(x, y, cfg=cfg),
                                 "plain": lambda: mxu.mxu_matmul_plain(x, y, cfg=cfg)},
                         rounds=3, iters=2)
         isz = x.element_size()
         readings[f"B1 {dt}"] = dict(
-            ms=t["kernel"], plain_ms=t["plain"], library_ms=None, max_abs_err=0.0,
+            ms=t["kernel"], engine_ms=t["engine"], plain_ms=t["plain"], library_ms=None,
+            max_abs_err=0.0,
             bound=H100.bound(2.0 * ni ** 3, H100.peak_for(dt), 3 * ni * ni * isz))
+    launches["named_simt"] = {dt: mxu.route_launches["simt", dt] - named["simt", dt]
+                              for dt in SLICE21_B1_INT}
     for key, r in readings.items():
         bound_ms = r["bound"][0] * 1e3
         lib = f", library {r['library_ms']:.3f} ms" if r["library_ms"] else ""
@@ -7620,8 +7676,9 @@ def front(fn):
 
 
 def phase31_specs(torch):
-    """(source, entry) of every generated library phases 31 and 32 run:
+    """(source, entry) of every generated library phases 31, 32 and 35 run:
     their case tables' and main paths', as the front door derives them."""
+    from gemm_hls_tpu_torch.config import INT_PLANES
     from gemm_hls_tpu_torch.ops import codegen, mxu, vpu
     from gemm_hls_tpu_torch.ops.epilogue import get_epilogue
     b3 = {(c[0], c[1]) for c in GEN_B3_CASES} | {
@@ -7632,7 +7689,7 @@ def phase31_specs(torch):
     # on the engine the layout it reads after the pack pass; each case's
     # former route too (``retired_route``: phase 31a names it).
     eps = set()
-    for c in GEN_EPILOGUE_CASES:
+    for c in (*GEN_EPILOGUE_CASES, *INT_GEN_EPILOGUE_CASES):
         layout = (c[1], c[3], c[4], c[5], *c[6:9], c[9], c[10])
         ta, tb = c[3], c[4]
         if c[-1] == "wgmma":
@@ -7663,6 +7720,9 @@ def phase31_specs(torch):
             # fp32 on the engine reads the split pass's K-major workspaces
             # at the front door's default precision, three TF32 passes.
             ta, tb, tile = False, True, f"tf32x{mxu.tf32_passes('high')}"
+        elif route == "wgmma" and dt in INT_PLANES:
+            # The integers' byte planes, K-major (uint8 packed or in place).
+            ta, tb, tile = False, True, f"planes{INT_PLANES[dt]}"
         fn, count = user_epilogues()[name]
         acc = {torch.float64: torch.float64}.get(dtype, torch.float32
                                                  if dtype.is_floating_point else torch.int32)
@@ -8836,7 +8896,7 @@ def pack_case_operand(torch, gen, case):
     held = (k, rows) if mn else (rows, k)
     lead = () if bsz is None else (1 if bcast else bsz,)
     shape = (*lead, held[0], held[1] + pad + off)
-    bits = torch.int16 if dtype.itemsize == 2 else torch.int8
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[dtype.itemsize]
     info = torch.iinfo(bits)
     x = torch.randint(info.min, info.max + 1, shape, generator=gen, device="cuda",
                       dtype=bits).view(dtype)
@@ -9077,6 +9137,302 @@ def phase_slice25(torch, lib_log):
             "ptxas": {**ptxas_report(lib_log, "PackPut"), **ptxas_report(lib_log, "SplitPut")}}
 
 
+# ---------------------------------------------------------------------------
+# Slice 26 (phase 35): B1 / B2's integers on the int8 tensor cores as byte
+# planes (csrc/int_split.cu, csrc/mxu_wgmma_int.cu)
+# ---------------------------------------------------------------------------
+
+INT_ENGINE_DTYPES = ("int16", "uint8", "uint16", "uint32", "int32")
+# The split pass against its plain version, byte for byte (phase 35a;
+# tests/test_torch_kernels.py parametrises it too), in PACK_CASES' form:
+# each split type held (rows, K) and (K, rows), dense, at pitch K + 1 and a
+# base one element off; batched at odd strides; a broadcast batch; 1 x 1;
+# K past one 128-deep step and ragged.
+INT_SPLIT_CASES = (
+    [(dt, mn, None, 300, 517, pad, off, False) for dt in ("int16", "uint16", "uint32", "int32")
+     for mn in (False, True) for pad, off in ((0, 0), (1, 0), (1, 1))]
+    + [(dt, mn, 3, 130, 200, 3, 1, False) for dt in ("int16", "int32") for mn in (False, True)]
+    + [(dt, mn, 4, 64, 100, 1, 0, True) for dt in ("uint16", "uint32") for mn in (False, True)]
+    + [(dt, mn, None, 1, 1, 0, 0, False) for dt in ("int16", "int32") for mn in (False, True)]
+)
+# B1 / B2's integers on the engine (phase 35a; tests/test_torch_kernels.py
+# parametrises it too), in WIDE_B1_CASES' form: each type in the four
+# layouts with M, N and K off the tiles; into int32 at odd pitches (a view
+# one element into rows one element longer: base and pitch off 16 bytes,
+# so uint8 is packed) and K 300 (three K steps, the last ragged); batched,
+# pitched; batched with a broadcast 2-D b; 1 x 1 x 1 into fp32; the own
+# type at 1000 x 1030 x 1100 (several tiles and K steps); epilogues to
+# fp32 on small values; every other value over the type's whole range, so
+# the int32 sums wrap.  Then the wrap itself: uint8 all 255 at K 40000
+# (K 255^2 = 2.6e9 passes 2^31) and int32 over its full range at K 8192.
+# Each case equals its plain version, the plain walk of byte-plane
+# products and the CUDA-core tile named, bit for bit.
+INT_ROUTE_CASES = (
+    [(dt, dt, ta, tb, None, 130, 300, 67, "rand", "dense", None, None, "wgmma")
+     for dt in INT_ENGINE_DTYPES for ta, tb in LAYOUTS]
+    + [(dt, "int32", ta, tb, None, 77, 90, 300, "rand", "odd", None, None, "wgmma")
+       for dt in INT_ENGINE_DTYPES for ta, tb in ((False, False), (True, True))]
+    + [(dt, dt, False, True, 3, 200, 260, 129, "rand", "pitched", None, None, "wgmma")
+       for dt in INT_ENGINE_DTYPES]
+    + [(dt, dt, True, False, 3, 64, 72, 17, "rand", "dense", "b", None, "wgmma")
+       for dt in INT_ENGINE_DTYPES]
+    + [(dt, "float32", False, False, None, 1, 1, 1, "rand", "dense", None, None, "wgmma")
+       for dt in INT_ENGINE_DTYPES]
+    + [(dt, dt, False, True, None, 1000, 1030, 1100, "rand", "dense", None, None, "wgmma")
+       for dt in INT_ENGINE_DTYPES]
+    + [(dt, "float32", False, True, None, 130, 200, 67, "small", "dense", None, ep, "wgmma")
+       for dt in ("int16", "int32") for ep in ("bias_relu", "scale_bias")]
+    + [(dt, "float32", True, False, 3, 64, 72, 100, "small", "dense", "a", "bias", "wgmma")
+       for dt in ("uint8", "uint32")]
+    + [("uint8", "int32", False, False, None, 300, 260, 40_000, "max", "dense", None, None,
+        "wgmma"),
+       ("int32", "int32", False, False, None, 512, 520, 8192, "rand", "dense", None, None,
+        "wgmma")]
+)
+# int8 inputs into int16 and the unsigned ints (phase 35a): the engine's
+# store writes them since slice 26, each the int32 sum's wrapping cast; K
+# 272 over the extremes (sums past every 16-bit range), both operands
+# K-major and B held (K, N) (packed).
+INT8_WIDE_OUT_CASES = (
+    [("int8", out, False, True, None, 300, 520, 272, "edge", "dense", None, None, "wgmma")
+     for out in ("int16", "uint8", "uint16", "uint32")]
+    + [("int8", "uint16", False, False, 2, 130, 200, 67, "rand", "dense", None, None, "wgmma")]
+)
+# A callable epilogue on the integers' engine route (phase 35a), in
+# GEN_EPILOGUE_CASES' form: int16 relu(acc + b) into fp32, 2-D and batched
+# with a broadcast b at odd pitches; each again on the CUDA cores, named.
+INT_GEN_EPILOGUE_CASES = (
+    ("relu_bias", "int16", "float32", False, False, None, 130, 200, 67, "dense", None, "wgmma"),
+    ("relu_bias", "int16", "float32", True, True, 3, 64, 72, 100, "odd", "b", "wgmma"),
+)
+# The main path's shapes (phase 35): each type at 4096^3 (phase 30's B1 int16
+# / uint8 size), B held (K, N) as the front door's default; B2 int16 16 x
+# 1024^3.
+SLICE26 = dict(size=4096, batched=(16, 1024))
+# The race check of the integer engine: int32 at 1000 x 1030 x 1100 launched
+# INT_REPEATS times, the same bits each.
+INT_REPEATS = 20
+
+
+def split_count():
+    """Byte-plane split launches so far."""
+    from gemm_hls_tpu_torch.ops import mxu
+    return sum(mxu.int_split_operand.launches.values())
+
+
+def int_split_case(torch, gen, case):
+    """One INT_SPLIT_CASES case: the split pass's planes equal to their plain
+    version byte for byte, one launch counted."""
+    from gemm_hls_tpu_torch.ops import mxu
+    x = pack_case_operand(torch, gen, case)
+    before = split_count()
+    got = mxu.int_split_operand(x, case[1])
+    want = mxu.int_split_operand_plain(x, case[1])
+    if split_count() != before + 1:
+        raise AssertionError(f"split {case}: {split_count() - before} launches")
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"split {case}: the planes {tuple(got.shape)} differ from their "
+                             f"plain version {tuple(want.shape)}")
+
+
+def int_route_case(torch, gen, case):
+    """One INT_ROUTE_CASES case on the engine: its route, packs and planes
+    checked, the split launches counted (two, for the split types), and
+    the output equal bit for bit to the plain version, to the plain walk
+    of byte-plane products (``ops.mxu.int_planes_matmul_plain``) and to
+    the CUDA-core tile named."""
+    from gemm_hls_tpu_torch.config import INT_PLANES
+    from gemm_hls_tpu_torch.ops import mxu
+    a, b, eps, kw = wide_b1_operands(torch, gen, case[:13])
+    fn = mxu.mxu_matmul if case[4] is None else mxu.mxu_matmul_batched
+    before, splits = pack_count(), split_count()
+    got = fn(a, b, *eps, **kw)
+    check_packs(fn, wide_case_layout(case), "wgmma", before, f"B1 / B2 {case}")
+    want_splits = 2 if INT_PLANES[case[0]] > 1 else 0
+    if split_count() - splits != want_splits:
+        raise AssertionError(f"B1 / B2 {case}: {split_count() - splits} split launches, "
+                             f"want {want_splits}")
+    rtol = wide_rtol(torch, got.dtype, False)
+    err = compare(torch, got, mxu.mxu_matmul_plain(a, b, *eps, **kw), rtol,
+                  f"B1 / B2 {case} vs plain", scaled=True)[0]
+    compare(torch, got, mxu.int_planes_matmul_plain(a, b, *eps, **kw), rtol,
+            f"B1 / B2 {case} vs the plain walk", scaled=True)
+    old = fn(a, b, *eps, route="simt", **kw)
+    if fn.last_route != "simt" or not torch.equal(got, old):
+        raise AssertionError(f"B1 / B2 {case}: the engine and the CUDA-core tile differ "
+                             f"({fn.last_route})")
+    return err
+
+
+def phase_slice26(torch, lib_log):
+    """Phase 35: slice 26, B1 / B2's integers on the int8 tensor cores.
+    (a) INT_SPLIT_CASES, the split pass byte for byte its plain version;
+    INT_ROUTE_CASES on the engine, each equal bit for bit to the plain
+    version, the plain walk and the CUDA-core tile named (the wrap cases
+    among them); INT8_WIDE_OUT_CASES; INT_GEN_EPILOGUE_CASES on the engine
+    and on the CUDA cores, named; 20 same-bits launches of int32 at 1000
+    x 1030 x 1100; then, every launch count set to 0 just before and read
+    just after, the main path through the front door: each type at 4096^3
+    (B held (K, N)) and B2 int16 16 x 1024^3, each exact against its plain
+    version, every launch on the engine, 8 + 2 split launches and uint8's
+    one pack; (b) each type at 4096^3 on CUDA events in turns: the call
+    (split or pack, then the engine), the engine alone on the planes, the
+    pass alone (both operands' splits; uint8: B's pack), the CUDA-core tile
+    named, float64 ``torch.matmul`` on float64 copies (exact here for every
+    type but the 32-bit ones: K max|a| max|b| < 2^53 needs |a|, |b| <
+    2^20), and the plain version, beside ``perf_model.int_gemm_bound`` (the
+    function's) and ``perf_model.int_split_bound`` (the design's, the
+    split's or pack's bytes added).  Returns the readings for the kernels
+    line."""
+    from gemm_hls_tpu_torch import _build, matmul
+    from gemm_hls_tpu_torch.config import (
+        INT_PLANES, default_config, dtype_name, int_split_bytes, pack_bytes,
+    )
+    from gemm_hls_tpu_torch.models.perf_model import H100, int_gemm_bound, int_split_bound
+    from gemm_hls_tpu_torch.ops import mxu
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    # ---- (a) the case tables ---------------------------------------------------
+    for case in INT_SPLIT_CASES:
+        int_split_case(torch, gen, case)
+    log(f"phase 35a: INT_SPLIT_CASES {len(INT_SPLIT_CASES)} (int16 / uint16 / uint32 / int32, "
+        f"both holdings, pitch K + 1, a base one element off, batched, broadcast, 1 x 1): the "
+        f"split pass's planes byte for byte their plain version, one launch each")
+    worst = max(int_route_case(torch, gen, case) for case in INT_ROUTE_CASES)
+    log(f"phase 35a: INT_ROUTE_CASES {len(INT_ROUTE_CASES)} ({', '.join(INT_ENGINE_DTYPES)} in "
+        f"four layouts, odd pitches, ragged K, batched, broadcast, K 1, epilogues, values over "
+        f"each type's range; uint8 all 255 at K 40000 and int32 full range at K 8192, the sums "
+        f"wrapping) on wgmma, route, packs, planes and splits checked: equal bit for bit to "
+        f"the plain version, the plain walk of byte-plane products and simt named (worst abs "
+        f"err of the fp32 epilogues {worst:.3e})")
+    worst = max(wide_b1_case(torch, gen, case) for case in INT8_WIDE_OUT_CASES)
+    log(f"phase 35a: INT8_WIDE_OUT_CASES {len(INT8_WIDE_OUT_CASES)} (int8 into int16 / uint8 / "
+        f"uint16 / uint32 on the engine's store) vs plain: exact ({worst:.3e})")
+    gen_before = mxu.generated_launches["wgmma", "int16"]
+    worst = max(max(gen_epilogue_case(torch, gen, case),
+                    gen_epilogue_case(torch, gen, case, "simt"))
+                for case in INT_GEN_EPILOGUE_CASES)
+    if mxu.generated_launches["wgmma", "int16"] - gen_before != len(INT_GEN_EPILOGUE_CASES):
+        raise AssertionError("35a: the int16 callable epilogue did not run on the engine")
+    log(f"phase 35a: INT_GEN_EPILOGUE_CASES {len(INT_GEN_EPILOGUE_CASES)} (a callable relu(acc + "
+        f"b) on int16, B1 and B2 with a broadcast b at odd pitches) on wgmma and again on simt, "
+        f"named, vs plain and bias_relu: max abs err {worst:.3e}")
+    a_r = wide_operand(torch, gen, 1000, 1100, torch.int32)
+    b_r = wide_operand(torch, gen, 1030, 1100, torch.int32)
+    cfg_r = default_config(torch.int32)
+    first = mxu.mxu_matmul(a_r, b_r, cfg=cfg_r, transpose_b=True)
+    for i in range(INT_REPEATS - 1):
+        if not torch.equal(first, mxu.mxu_matmul(a_r, b_r, cfg=cfg_r, transpose_b=True)):
+            raise AssertionError(f"35a: int32 launch {i + 2} differs from the first")
+    log(f"phase 35a: {INT_REPEATS} launches of int32 1000 x 1030 x 1100 on the engine: the same "
+        f"bits")
+    del a_r, b_r, first
+
+    # ---- the main path, counts reset --------------------------------------------
+    n = SLICE26["size"]
+    ops = {dt: (wide_operand(torch, gen, n, n, getattr(torch, dt)),
+                wide_operand(torch, gen, n, n, getattr(torch, dt))) for dt in INT_ENGINE_DTYPES}
+    zb, nb = SLICE26["batched"]
+    xb = wide_operand(torch, gen, nb, nb, torch.int16, lead=(zb,))
+    yb = wide_operand(torch, gen, nb, nb, torch.int16, lead=(zb,))
+    reset_every_counter()
+    t0 = time.perf_counter()
+    main = {dt: matmul(x, y) for dt, (x, y) in ops.items()}
+    main["int16 batched"] = matmul(xb, yb)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    got = launched()
+    by_route = {f"{r} {dt}": v for (r, dt), v in sorted(mxu.route_launches.items())}
+    planes = dict(mxu.int_plane_launches)
+    splits = dict(mxu.int_split_operand.launches)
+    packs = dict(mxu.pack_operand.launches)
+    launches = dict(got, by_route=by_route, int_planes=planes, splits=splits, packs=packs)
+    want_planes = {dt: 1 + (dt == "int16") for dt in INT_ENGINE_DTYPES}
+    want_splits = {"int16": 4, "uint16": 2, "uint32": 2, "int32": 2}
+    if (any(r != "wgmma" for r, _ in mxu.route_launches) or planes != want_planes
+            or splits != want_splits or packs != {"uint8": 1}):
+        raise AssertionError(f"35: launches {launches}: every B1 / B2 launch on wgmma, planes "
+                             f"{want_planes}, splits {want_splits} and uint8's one pack expected")
+    for dt, (x, y) in ops.items():
+        cfg = default_config(getattr(torch, dt))
+        compare(torch, main[dt], mxu.mxu_matmul_plain(x, y, cfg=cfg), 0.0, f"35 {dt} {n}^3")
+    compare(torch, main["int16 batched"],
+            mxu.mxu_matmul_plain(xb, yb, cfg=default_config(torch.int16)), 0.0,
+            f"35 int16 batched {zb} x {nb}^3")
+    del main, xb, yb
+    log(f"phase 35: the main path through the front door ({', '.join(INT_ENGINE_DTYPES)} at "
+        f"{n}^3, B2 int16 {zb} x {nb}^3) vs plain: exact; launches {got}; B1 / B2 by route "
+        f"{by_route}; byte-plane launches {planes}; splits {splits}; packs {packs}; "
+        f"{main_s:.1f} s")
+
+    # ---- (b) times in turns ----------------------------------------------------
+    lib = _build.library()
+
+    def engine(wa, wb, c, k_plane, code):
+        """The engine alone on both operands' K-major planes (or uint8)."""
+        with torch.cuda.device(wa.device):
+            rc = lib.mxu_wgmma_int(wa.data_ptr(), wb.data_ptr(), c.data_ptr(), 1, c.shape[0],
+                                   c.shape[1], k_plane, wa.stride(0), wb.stride(0), 0, 0, code,
+                                   code, 0, None, None, 0,
+                                   torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "35b engine alone")
+        return c
+
+    readings = {}
+    for dt, (x, y) in ops.items():
+        dtype = getattr(torch, dt)
+        cfg = default_config(dtype)
+        code = _build.dtype_code(dtype, True)
+        c = torch.empty((n, n), dtype=dtype, device="cuda")
+        if dt == "uint8":
+            wa, wb, k_plane = x, mxu.pack_operand(y, True), n
+            pass_fn = lambda: mxu.pack_operand(y, True)  # noqa: E731
+            plain_pass = lambda: mxu.pack_operand_plain(y, True)  # noqa: E731
+            pass_bytes = pack_bytes(dtype, n, n, n)
+        else:
+            wa, wb = mxu.int_split_operand(x, False), mxu.int_split_operand(y, True)
+            k_plane = wa.shape[-1] // INT_PLANES[dtype_name(dtype)]
+            pass_fn = lambda: (mxu.int_split_operand(x, False),  # noqa: E731
+                               mxu.int_split_operand(y, True))
+            plain_pass = lambda: (mxu.int_split_operand_plain(x, False),  # noqa: E731
+                                  mxu.int_split_operand_plain(y, True))
+            pass_bytes = int_split_bytes(dtype, n, n, n)
+        xd, yd = x.double(), y.double()
+        t = event_turns(torch, {
+            "call": lambda: mxu.mxu_matmul(x, y, cfg=cfg),
+            "engine": lambda: engine(wa, wb, c, k_plane, code),
+            "pass": pass_fn,
+            "simt": lambda: mxu.mxu_matmul(x, y, cfg=cfg, route="simt"),
+            "f64 matmul": lambda: torch.matmul(xd, yd)}, rounds=3, iters=3)
+        t.update(event_turns(torch, {
+            "plain": lambda: mxu.mxu_matmul_plain(x, y, cfg=cfg),
+            "plain pass": plain_pass}, rounds=1, iters=1))
+        design = int_split_bound(H100, dtype, n, n, n,
+                                 pack_bytes=pass_bytes if dt == "uint8" else 0)
+        readings[dt] = dict(
+            ms=t, bound=int_gemm_bound(H100, dtype, n, n, n), design_bound=design[0],
+            pass_bound=H100.bound(0.0, 1.0, pass_bytes),
+            engine_bound=design[0] - pass_bytes / H100.hbm_bandwidth)
+        del wa, wb, c, xd, yd
+    del ops
+    torch.cuda.empty_cache()
+    for dt, r in readings.items():
+        b = r["bound"][0] * 1e3
+        log(f"phase 35b: {dt} {n}^3 in turns (ms): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["ms"].items())
+            + f"; bound {b:.4f} ({r['bound'][1]}), {b / r['ms']['call']:.1%} of it; the "
+              f"design's bound {r['design_bound'] * 1e3:.4f} (the engine's part "
+              f"{r['engine_bound'] * 1e3:.4f}, the pass's bytes {r['pass_bound'][0] * 1e3:.4f}), "
+              f"{r['design_bound'] / r['ms']['call'] * 1e3:.1%} of it; "
+              f"{r['ms']['simt'] / r['ms']['call']:.1f}x faster than simt, "
+              f"{r['ms']['f64 matmul'] / r['ms']['call']:.1f}x than float64 torch.matmul")
+    log(f"phase 35: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
+    return {"launches": launches, "readings": readings,
+            "ptxas": {**ptxas_report(lib_log, "mxu_wg_int_kernel"),
+                      **ptxas_report(lib_log, "PlanePut")}}
+
+
 def normwise_of(torch, got, ref):
     """|got - ref| / |ref| (Frobenius), ``ref`` in float64."""
     return float(torch.linalg.norm(got.double() - ref) / torch.linalg.norm(ref))
@@ -9160,7 +9516,13 @@ def main() -> int:
         + "".join(f"\n  {k}: {v}" for k, v in {
             **ptxas_report(lib_log, "mxu_wg_kernelIf"),
             **ptxas_report(lib_log, "SplitPut"),
-            **ptxas_report(lib_log, "PackPut")}.items()))
+            **ptxas_report(lib_log, "PackPut")}.items())
+        + "\nphase 2: B1 / B2's integers as byte planes (csrc/mxu_wgmma_int.cu, nvcc "
+          f"{nvcc_s.get('mxu_wgmma_int.cu')} s; csrc/int_split.cu, nvcc "
+          f"{nvcc_s.get('int_split.cu')} s), as ptxas reports them:"
+        + "".join(f"\n  {k}: {v}" for k, v in {
+            **ptxas_report(lib_log, "mxu_wg_int_kernel"),
+            **ptxas_report(lib_log, "PlanePut")}.items()))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -9204,6 +9566,7 @@ def main() -> int:
     log(f"phase 32: {time.perf_counter() - t0:.1f} s")
     slice24 = phase_slice24(torch, lib_log, par20, par20_times)
     slice25 = phase_slice25(torch, lib_log)
+    slice26 = phase_slice26(torch, lib_log)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -9419,12 +9782,21 @@ def main() -> int:
     kernels[-1].update({k: r21["B1 float64"][k] for k in (
         "oracle_2048_scaled_rel", "batched_max_abs_err", "grad_max_abs_err", "tile")})
     kernels[-1]["library_note"] = "library_ms is float64 torch.matmul (cuBLAS DGEMM)"
+    # B1 int16 / uint8 on the CUDA-core tile: retired from the route rule by
+    # slice 26's byte planes (phase 35's entries), named after phase 30's
+    # main path, whose launches went to the engine (engine_ms).
     for dt in SLICE21_B1_INT:
         t = r21[f"B1 {dt}"]
         kernels.append(kernel(
             f"mxu_gemm CUDA-core route (B1 {dt} plus_times, int32 accumulator, 4096^3)",
             "gemm_hls_tpu_torch/csrc/mxu_simt_int.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69",
             routes21.get(("simt", dt), 0), t, t["bound"], None))
+        kernels[-1].update(
+            retired_route=True, named_launches=l21["named_simt"][dt], engine_ms=t["engine_ms"],
+            main_path_launches_on_engine=routes21.get(("wgmma", dt), 0),
+            route_note="the route rule sends these types to the engine as byte planes since "
+                       "slice 26 (csrc/mxu_wgmma_int.cu); this tile runs where a caller names "
+                       "route=\"simt\"")
     for dt, sr in SLICE21_B3:
         t = r21[f"B3 {sr} {dt}"]
         kernels.append(kernel(
@@ -9617,6 +9989,54 @@ def main() -> int:
                                           if k.startswith(route))
             entry["route_note"] = ("the route rule sends these operands to the engine since "
                                    "the pack pass; this tile runs where a caller names it")
+    # Slice 26 (phase 35): B1 / B2's integers on the int8 tensor cores as
+    # byte planes, with launches on phase 35's main path, each type's times
+    # at 4096^3 in turns beside the CUDA-core tile and float64
+    # torch.matmul, and the split pass.
+    l26, r26 = slice26["launches"], slice26["readings"]
+    t = r26["int16"]
+    types = {dt: dict({f"{k.replace(' ', '_')}_ms": v for k, v in r["ms"].items()},
+                      bound_ms=r["bound"][0] * 1e3, bound_by=r["bound"][1],
+                      design_bound_ms=r["design_bound"] * 1e3,
+                      engine_bound_ms=r["engine_bound"] * 1e3,
+                      pass_bound_ms=r["pass_bound"][0] * 1e3)
+             for dt, r in r26.items()}
+    kernels.append(kernel(
+        "mxu_wgmma_int (B1 / B2 int16 / uint8 / uint16 / uint32 / int32 plus_times as byte-plane "
+        "products on the int8 tensor cores, one int32 accumulator shifted between diagonals; "
+        "int16 4096^3, both splits included)",
+        "gemm_hls_tpu_torch/csrc/mxu_wgmma_int.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        sum(l26["int_planes"].values()),
+        dict(ms=t["ms"]["call"], plain_ms=t["ms"]["plain"], max_abs_err=0.0), t["bound"], None))
+    kernels[-1].update(
+        kernel_route="wgmma", launches_by_dtype=l26["int_planes"], types_4096=types,
+        design_bound_ms=t["design_bound"] * 1e3, engine_alone_ms=t["ms"]["engine"],
+        simt_ms=t["ms"]["simt"],
+        f64_matmul_ms=t["ms"]["f64 matmul"],
+        ptxas={k: v for k, v in slice26["ptxas"].items() if "mxu_wg_int" in k},
+        library_note="no PyTorch GEMM takes these types (CUDA's matmul takes no integers): "
+                     "library_ms null; f64_matmul_ms is float64 torch.matmul on float64 copies "
+                     "(exact while K max|a| max|b| < 2^53: every type here but the 32-bit "
+                     "ones), simt_ms the CUDA-core tile named, both in the same turns; ms "
+                     "includes the split of both operands; bound_ms is the function's (the "
+                     "plane pairs at the int8 rate, A, B and C moved once), design_bound_ms "
+                     "adds the split's bytes")
+    t = r26["int32"]
+    kernels.append(kernel(
+        "int_split (the byte-plane split pass of B1 / B2's int16 / uint16 / uint32 / int32: each "
+        "operand cut once into K-major byte planes; int32 4096^2, A and B)",
+        "gemm_hls_tpu_torch/csrc/int_split.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69,143",
+        sum(l26["splits"].values()),
+        dict(ms=t["ms"]["pass"], plain_ms=t["ms"]["plain pass"], max_abs_err=0.0),
+        t["pass_bound"], None))
+    kernels[-1].update(
+        launches_by_dtype=l26["splits"],
+        int16_ms=r26["int16"]["ms"]["pass"], int16_bound_ms=r26["int16"]["pass_bound"][0] * 1e3,
+        ptxas={k: v for k, v in slice26["ptxas"].items() if "PlanePut" in k},
+        library_note="no one PyTorch call cuts an integer into byte planes; it replaces no TPU "
+                     "kernel: the TPU's int32 dot multiplies these types whole, Hopper's tensor "
+                     "cores take 8-bit integers only; ms and plain_ms each split both A "
+                     "and B")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

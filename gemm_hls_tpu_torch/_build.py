@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Must match ``enum DType`` in csrc/common.cuh.  The first five are the
 # types every kernel's store writes; the wide ones after them (float64,
-# int16, the unsigned ints, int64) only kernels B1 - B3 take.
+# int16, the unsigned ints, int64) only kernels B1 - B3 take (on the tile
+# engine, integer inputs and outputs but float64 and int64).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.int8: 3, torch.int32: 4, torch.float64: 5,
                 torch.int16: 6, torch.uint8: 7, torch.uint16: 8,
@@ -51,8 +52,9 @@ generated_builds = 0
 def dtype_code(d: torch.dtype, wide: bool = False) -> int:
     """The kernels' code of ``d``.  ``wide``: the caller is a tile of B1 -
     B3 that also takes float64, int16, the unsigned ints and int64 (the
-    CUDA-core tile, ``csrc/dmma_gemm.cu``); the other kernels refuse them
-    here."""
+    CUDA-core tile, ``csrc/dmma_gemm.cu``; the tile engine's integer
+    route, whose store writes them but float64 and int64: ops/mxu.py
+    refuses those first); the other kernels refuse them here."""
     code = _DTYPE_CODES.get(d)
     if code is None or (code >= _BASE_CODES and not wide):
         raise NotImplementedError(
@@ -272,6 +274,14 @@ def _declare(lib):
     # out, batch, rows, k, ld, bs, mn_major, kp, esize, stream).
     lib.operand_pack.restype = i32
     lib.operand_pack.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, vp]
+    # B1 / B2's integers on the engine as byte planes: mxu_wgmma's arguments
+    # without the transpose flags (both operands K-major), and the split
+    # pass that cuts int16 / uint16 / uint32 / int32 into planes (x, out,
+    # batch, rows, k, ld, bs, mn_major, kp, esize, stream).
+    lib.mxu_wgmma_int.restype = i32
+    lib.mxu_wgmma_int.argtypes = gemm[:11] + [i32, i32, i32, vp, vp, i32, vp]
+    lib.int_split.restype = i32
+    lib.int_split.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, vp]
     lib.mxu_gemm_row_softmax.restype = i32
     lib.mxu_gemm_row_softmax.argtypes = gemm + [i32, i32, i32, i32, vp]
     # B2's row softmax on the tile engine: (..., in_code, out_code, stream).

@@ -11,9 +11,11 @@ fixed tiles.  The front door's config names the tile of :func:`kernel_route`
 (``KERNEL_TILES``: the WMMA tile for bf16 / fp16 / int8 plus_times, the
 FP64 tensor-core tile for float64 plus_times, the CUDA-core tile for the
 rest), and ``validate`` holds it to that.  A bf16 / fp16 / int8 / fp32
-plus_times call runs on the Hopper tile engine's larger tile instead
-(``ENGINE_TILES``; ``ops/mxu.py::mxu_route`` decides at the launch, and an
-operand the engine cannot read in place is packed first), so the I/O law
+plus_times call, and one of the integers int16, uint8, uint16, uint32 and
+int32 (as byte planes on the int8 tensor cores), runs on the Hopper tile
+engine's larger tile instead (``ENGINE_TILES``; ``ops/mxu.py::mxu_route``
+decides at the launch, and an operand the engine cannot read in place is
+packed or split first), so the I/O law
 describes the kernel that runs only for the config of :func:`route_config`,
 which names the tile of the route the call takes.
 """
@@ -34,10 +36,11 @@ SMEM_LIMIT_BYTES = 232_448
 #            where a caller names its route "wmma": the route rule sends
 #            every such call to the Hopper tile engine's 128 x 256 tile,
 #            ops/mxu.py::mxu_route);
-#   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (int32 plus_times in
-#            mxu_gemm.cu, fp32 into float64 and fp32 where a caller names
-#            "simt", int16 / uint8 / uint16 / uint32 plus_times in
-#            mxu_simt_int.cu, and every semiring in semiring_gemm.cu);
+#   "simt" — csrc/simt_gemm.cuh, CUDA-core tile (fp32 into float64, the
+#            integers into float64 / int64, and fp32, int32 (mxu_gemm.cu) and
+#            int16 / uint8 / uint16 / uint32 (mxu_simt_int.cu) plus_times
+#            where a caller names "simt"; every semiring in
+#            semiring_gemm.cu);
 #   "dmma" — csrc/dmma_gemm.cu, float64 plus_times on the FP64 tensor cores
 #            (mma.sync m16n8k4 .f64), its K slices in a ring of DMMA_STAGES
 #            cp.async stages.
@@ -49,12 +52,16 @@ DMMA_STAGES = 3
 # csrc/mxu_wgmma.cuh), route "wgmma": a 128 x 256 C tile and a K step of one
 # 128-byte swizzle row of the input type (fp32: 32 TF32 values of the split
 # pass's workspace, csrc/tf32_split.cu, so a stage keeps the 16-bit types'
-# 48 KB and the ring its stages), in a ring of ENGINE_STAGES TMA stages.
+# 48 KB and the ring its stages; the other integers 128 values of one byte
+# plane, csrc/int_split.cu, or of uint8 itself), in a ring of ENGINE_STAGES
+# TMA stages.
 # ENGINE_FIXED_SMEM: the swizzle's 1024 bytes of alignment slack,
 # the stages' full / empty mbarriers and six send slots' (``WgBars``), and
 # the epilogue's two staging rows of 2 x 256 floats (``kMxuWgSmem``).
 ENGINE_TILES = {"bfloat16": (128, 256, 64), "float16": (128, 256, 64),
-                "int8": (128, 256, 128), "float32": (128, 256, 32)}
+                "int8": (128, 256, 128), "float32": (128, 256, 32),
+                **dict.fromkeys(("int16", "uint8", "uint16", "uint32", "int32"),
+                                (128, 256, 128))}
 ENGINE_STAGES = 4
 ENGINE_FIXED_SMEM = 1024 + 8 * (2 * ENGINE_STAGES + 6) + 2 * 2 * 256 * 4
 
@@ -110,6 +117,20 @@ _TC_WARPS = 8
 
 _TENSOR_CORE_DTYPES = ("bfloat16", "float16", "int8")
 
+# B1 / B2's integer plus_times on the engine besides int8: the int32 sum
+# that wraps modulo 2^32 (the reference's jacc_dtype) split exactly into
+# products of bytes on the int8 tensor cores.  Each operand is cut into
+# this many byte planes (uint8 is its own plane; csrc/int_split.cu cuts the
+# rest), lowest byte first, and the engine sums every pair of planes (i, j)
+# with i + j <= 3: 1 pair for uint8, 4 for the 16-bit types, 10 for the
+# 32-bit ones (``models/perf_model.py::slice_passes`` of the planes at 4
+# diagonals).
+INT_PLANES = {"uint8": 1, "int16": 2, "uint16": 2, "uint32": 4, "int32": 4}
+# Output types the engine's store writes for integer inputs (float64 and
+# int64 outputs stay on the CUDA-core tile, ROADMAP B coverage item 17).
+ENGINE_INT_OUTPUTS = ("float32", "bfloat16", "float16", "int8", "int16", "uint8", "uint16",
+                      "uint32", "int32")
+
 
 def torch_dtype(name) -> torch.dtype:
     """``torch.dtype`` for a dtype name ("bfloat16", "int32", ...) or dtype."""
@@ -153,9 +174,10 @@ def accumulator_for(dtype) -> str:
 def kernel_route(dtype, semiring: str = "plus_times") -> str:
     """Which compiled tile the front door's default config names for this
     (dtype, semiring): "tc" (bf16 / fp16 / int8 plus_times), "dmma"
-    (float64 plus_times) or "simt" (the rest, fp32 plus_times included).
-    A bf16 / fp16 / int8 / fp32 plus_times call runs on the engine instead
-    (:func:`call_route`)."""
+    (float64 plus_times) or "simt" (the rest, fp32 and the other integers'
+    plus_times included).  A bf16 / fp16 / int8 / fp32 plus_times call,
+    and one of int16, uint8, uint16, uint32 or int32, runs on the engine
+    instead (:func:`call_route`)."""
     if semiring == "plus_times" and dtype_name(dtype) in _TENSOR_CORE_DTYPES:
         return "tc"
     if semiring == "plus_times" and dtype_name(dtype) == "float64":
@@ -166,18 +188,24 @@ def kernel_route(dtype, semiring: str = "plus_times") -> str:
 def call_route(dtype, semiring: str = "plus_times", out_dtype=None) -> str:
     """The route a 2-D or batched call takes: ``ops/mxu.py::mxu_route``'s
     rule in this module's names.  "wgmma" (the tile engine) for bf16 /
-    fp16 / int8 plus_times and for fp32 plus_times into an fp32 / bf16 /
-    fp16 ``out_dtype`` (None: the config's own), in every layout and at
-    every alignment: an operand the engine's TMA maps cannot read in place
-    is first copied into a K-major workspace (:func:`packed_operands`, the
-    one place that reads layout and alignment; fp32 is always split into
-    TF32 workspaces); "dmma" (the FP64 tensor cores) for float64
-    plus_times; "simt" for the rest (fp32 into float64, which the engine
-    does not store, included)."""
+    fp16 / int8 plus_times, for fp32 plus_times into an fp32 / bf16 /
+    fp16 ``out_dtype`` (None: the config's own), and for int16, uint8,
+    uint16, uint32 and int32 plus_times into any ``out_dtype`` but float64
+    and int64 (``ENGINE_INT_OUTPUTS``), in every layout and at every
+    alignment: an operand the engine's TMA maps cannot read in place is
+    first copied into a K-major workspace (:func:`packed_operands`, the
+    one place that reads layout and alignment, int8's rule for uint8; fp32
+    is always split into TF32 workspaces, the other integers into byte
+    planes, ``INT_PLANES``); "dmma" (the FP64 tensor cores) for float64
+    plus_times; "simt" for the rest (fp32 into float64 and the integers
+    into float64 / int64, which the engine does not store, included)."""
     name = dtype_name(dtype)
     if semiring == "plus_times" and name == "float32":
         engine_out = out_dtype is None or dtype_name(out_dtype) in ("float32", "bfloat16",
                                                                    "float16")
+        return "wgmma" if engine_out else "simt"
+    if semiring == "plus_times" and name in INT_PLANES:
+        engine_out = out_dtype is None or dtype_name(out_dtype) in ENGINE_INT_OUTPUTS
         return "wgmma" if engine_out else "simt"
     route = kernel_route(dtype, semiring)
     return "wgmma" if route == "tc" else route
@@ -185,12 +213,19 @@ def call_route(dtype, semiring: str = "plus_times", out_dtype=None) -> str:
 
 def beside_engine(rule: str, dtype) -> list:
     """The B1 / B2 route a caller may name, and a tuner times, beside the
-    rule's engine route: WMMA for the 16-bit types and int8, the CUDA-core
-    tile for fp32 (TF32 on the engine against IEEE fp32 FMA); none beside
-    another route."""
+    rule's engine route: WMMA for the 16-bit float types and int8, the
+    CUDA-core tile for fp32 (TF32 on the engine against IEEE fp32 FMA) and
+    for the integers of ``INT_PLANES`` (byte planes on the engine against
+    the int32 multiply-add; WMMA has no tile for them); none beside another
+    route."""
     if rule != "wgmma":
         return []
-    return ["simt"] if dtype_name(dtype) == "float32" else ["wmma"]
+    return ["simt"] if _cuda_core_beside(dtype) else ["wmma"]
+
+
+def _cuda_core_beside(dtype) -> bool:
+    """The engine's input types whose other route is the CUDA-core tile."""
+    return dtype_name(dtype) == "float32" or dtype_name(dtype) in INT_PLANES
 
 
 def packed_operands(dtype, transpose_a: bool, transpose_b: bool, aligned_a: bool,
@@ -199,13 +234,14 @@ def packed_operands(dtype, transpose_a: bool, transpose_b: bool, aligned_a: bool
     K-major workspace (``ops/mxu.py::pack_operand``): a bf16 / fp16 / int8
     operand whose base, row pitch or batch stride is not a whole 16-byte
     unit (``aligned_a`` / ``aligned_b`` false: no TMA map describes it), and
-    an int8 operand that is not K-major (A held (K, M), B held (K, N):
-    int8 wgmma reads K-major operands only).  fp32 packs nothing here: its
-    split pass (``ops/mxu.py::tf32_operand``) takes every layout and
-    pitch."""
-    if dtype_name(dtype) not in _TENSOR_CORE_DTYPES:
+    an int8 or uint8 operand that is not K-major (A held (K, M), B held
+    (K, N): int8 wgmma reads K-major operands only).  fp32 packs nothing
+    here, nor do the integers cut into byte planes: their split passes
+    (``ops/mxu.py::tf32_operand``, ``int_split_operand``) take every layout
+    and pitch."""
+    if dtype_name(dtype) not in _TENSOR_CORE_DTYPES + ("uint8",):
         return False, False
-    int8 = dtype_name(dtype) == "int8"
+    int8 = dtype_name(dtype) in ("int8", "uint8")
     return (not aligned_a or (int8 and transpose_a),
             not aligned_b or (int8 and not transpose_b))
 
@@ -230,6 +266,22 @@ def pack_bytes(dtype, m: int, n: int, k: int, transpose_a: bool = False,
     return size * ((m * (k + kp) if pa else 0) + (n * (k + kp) if pb else 0))
 
 
+# The engine's K step in byte-plane values: a plane's row runs to a whole
+# number of them (csrc/int_split.cu), so no step reads the next plane.
+INT_PLANE_K = 128
+
+
+def int_split_bytes(dtype, m: int, n: int, k: int, batch: int = 1) -> int:
+    """Device-memory bytes the byte-plane split pass moves for one
+    plus_times call of an ``INT_PLANES`` type other than uint8 (which the
+    pack pass takes, :func:`pack_bytes`): each operand read once and its
+    planes, K rounded up to ``INT_PLANE_K``, written once; ``batch``
+    examples of both operands."""
+    planes = INT_PLANES[dtype_name(dtype)]
+    kp = round_up(k, INT_PLANE_K)
+    return batch * (m + n) * (itemsize(dtype) * k + planes * kp)
+
+
 def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
     """The route a launch takes: ``route`` where a caller names one (a
     tuned winner, a comparison), else ``rule``, the route rule's.  Naming
@@ -241,14 +293,15 @@ def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
     takes it) or "dmma" for another type.  So B1 / B2's bf16 / fp16 / int8
     may name "wmma" where the rule gives "wgmma", in any layout and at any
     alignment.  B1 / B2 pass the inputs' ``dtype``: fp32 runs on the engine
-    (TF32) or on the CUDA cores, so "simt" may be named where the rule
-    gives "wgmma", and no other."""
+    (TF32) or on the CUDA cores, and so do int16, uint8, uint16, uint32 and
+    int32 (byte planes, or the int32 multiply-add), so "simt" may be named
+    where the rule gives "wgmma", and no other."""
     if route is None or route == rule:
         return rule
-    fp32 = dtype is not None and dtype_name(dtype) == "float32"
-    if fp32 and route == "simt" and rule == "wgmma":
+    simt_beside = dtype is not None and _cuda_core_beside(dtype)
+    if simt_beside and route == "simt" and rule == "wgmma":
         return route
-    if (route == "wgmma" or fp32 or (route == "simt") != (rule == "simt")
+    if (route == "wgmma" or simt_beside or (route == "simt") != (rule == "simt")
             or "dmma" in (route, rule)):
         raise ValueError(f"{what}: route {route!r} cannot run this call; the route "
                          f"rule gives {rule!r}")
@@ -423,8 +476,9 @@ class GemmConfig:
         acc_b = itemsize(self.tacc_dtype)
         route = route or self.route()
         if route == "wgmma":
-            # One 128-byte row per K slab of each A and B row, a stage.
-            per_row = self.block_k * itemsize(self.dtype)
+            # One 128-byte row per K slab of each A and B row, a stage (a
+            # byte plane of the integers cut into planes).
+            per_row = self.block_k * (1 if self.dtype in INT_PLANES else itemsize(self.dtype))
             return (ENGINE_FIXED_SMEM
                     + ENGINE_STAGES * (self.block_m + self.block_n) * per_row)
         if route == "dmma":

@@ -8,9 +8,11 @@
 //     batch = 1.  The route rule sends every bf16 / fp16 / int8 / fp32 call
 //     to the Hopper tile engine instead (csrc/mxu_wgmma.cuh, after the pack
 //     pass csrc/operand_pack.cu or the TF32 split where its TMA maps cannot
-//     read an operand in place); this kernel runs them where a caller names
-//     its route ("wmma", "simt": a tuned winner, a comparison), and the
-//     integer types and fp32 into float64 by the rule.
+//     read an operand in place), and every int16 / uint8 / uint16 / uint32
+//     / int32 call too, as byte planes (csrc/mxu_wgmma_int.cu); this kernel
+//     runs them where a caller names its route ("wmma", "simt": a tuned
+//     winner, a comparison), and fp32 and the integers into float64 (and
+//     the integers into int64) by the rule.
 //   * _batched_kernel (entry mxu_matmul_batched, B2), plain and epilogue
 //     variants: (B, M, K) x (B, K, N) with whole examples per grid step.
 //     Here the batch is a grid axis (blockIdx.z, chunked past gridDim.z's
@@ -29,15 +31,18 @@
 // and its acc_ref scratch become this loop.
 //
 // Routes by input dtype (ops/mxu.py::mxu_route gives the engine to bf16,
-// fp16, int8 and fp32 into the base types; a caller may name this kernel):
+// fp16, int8 and fp32 into the base types and to the other integers into
+// all but float64 / int64; a caller may name this kernel):
 //   bf16, fp16 -> tensor cores (WMMA 16x16x16), fp32 accumulator;
 //   int8       -> tensor cores (WMMA 16x16x16), int32 accumulator;
 //   fp32, int32 -> CUDA cores, IEEE fp32 FMA / wrapping int32
 //                  (csrc/simt_gemm.cuh with the plus_times functor); this
 //                  meets the reference's "high"/"highest" precision (fp32
-//                  reaches it into float64, or named "simt");
+//                  reaches it into float64, or named "simt"; int32 into
+//                  float64 / int64, or named);
 //   int16, uint8, uint16, uint32 -> the same CUDA-core tile on an int32
-//                  accumulator (csrc/mxu_simt_int.cu);
+//                  accumulator (csrc/mxu_simt_int.cu; into float64 / int64,
+//                  or named);
 //   float64     -> csrc/dmma_gemm.cu (the FP64 tensor cores), its own entry.
 // The tensor-core tile here ran, until the pack pass, the calls that the
 // engine's TMA maps cannot read in place: int8 with an operand that is not

@@ -1,6 +1,11 @@
 // Kernels B1 and B2's CUDA-core route for int16, uint8, uint16 and uint32
 // inputs: plus_times on csrc/simt_gemm.cuh's tile, in its own translation
-// unit so csrc/mxu_gemm.cu's build does not grow.
+// unit so csrc/mxu_gemm.cu's build does not grow.  The route rule sends
+// these types to the tile engine as byte planes on the int8 tensor cores
+// (csrc/mxu_wgmma_int.cu; the times side by side: PERF.md section 6); this
+// tile runs where a caller names route "simt" (a comparison, a tuned
+// winner) and for a float64 or int64 output, which the engine does not
+// store.
 //
 // The reference accumulates every integer input in int32
 // (gemm_hls_tpu/config.py: jacc_dtype), its dot casting each operand with

@@ -1,8 +1,11 @@
 // Kernels B1 and B2 on the Hopper tile engine (csrc/wgmma_tile.cuh): the
 // dense GEMM C[z] (M, N) = epilogue(op(A[z]) . op(B[z])) for bf16 / fp16
 // inputs with fp32 sums, int8 inputs with int32 sums where both operands
-// are K-major, and fp32 inputs as TF32 on the K-major workspaces of
-// csrc/tf32_split.cu (one pass, or three passes laid along K); one example
+// are K-major, fp32 inputs as TF32 on the K-major workspaces of
+// csrc/tf32_split.cu (one pass, or three passes laid along K), and int16,
+// uint8, uint16, uint32 and int32 as byte-plane products on the int8
+// tensor cores (wgmma_tile.cuh's ByteWalk, on the planes of
+// csrc/int_split.cu, or uint8 itself; csrc/mxu_wgmma_int.cu); one example
 // (B1) or a batch of them (B2).  The
 // counterpart of gemm_hls_tpu/ops/pallas_mxu.py::_kernel and its fused
 // per-column epilogue (:69, :103), and of ::_batched_kernel (:143, called
@@ -160,7 +163,10 @@ __device__ __forceinline__ void ep_store_as(const V (&v)[128], const EpOut& o, i
   }
 }
 
-// kInt: integer outputs are possible (int8 inputs).
+// kInt: integer outputs are possible (integer inputs), stored by width:
+// the int32 sum (or a float epilogue's result through int) cut to the
+// output's low bytes, which is the wrapping cast to signed and unsigned
+// types alike.
 template <bool kInt, bool kBits, typename V>
 __device__ __forceinline__ void ep_store(const V (&v)[128], const EpOut& o, int r0, int c0, int M,
                                          int N) {
@@ -170,11 +176,22 @@ __device__ __forceinline__ void ep_store(const V (&v)[128], const EpOut& o, int 
     case kF16: ep_store_as<__half, kBits>(v, o, r0, c0, M, N); break;
     default:
       if constexpr (kInt) {
-        if (o.out_code == kI8) ep_store_as<signed char, kBits>(v, o, r0, c0, M, N);
-        else ep_store_as<int, kBits>(v, o, r0, c0, M, N);
+        if (o.out_code == kI8 || o.out_code == kU8)
+          ep_store_as<signed char, kBits>(v, o, r0, c0, M, N);
+        else if (o.out_code == kI16 || o.out_code == kU16)
+          ep_store_as<short, kBits>(v, o, r0, c0, M, N);
+        else
+          ep_store_as<int, kBits>(v, o, r0, c0, M, N);
       }
       break;
   }
+}
+
+// The output types the store above writes (floats alone for float inputs).
+constexpr bool engine_stores(int out_code, bool int_inputs) {
+  return out_code == kF32 || out_code == kBF16 || out_code == kF16 ||
+         (int_inputs && (out_code == kI8 || out_code == kI32 || out_code == kI16 ||
+                         out_code == kU8 || out_code == kU16 || out_code == kU32));
 }
 
 // A consumer warpgroup's 64 x 256 part of the tile at (row0, n0).  An int32
@@ -254,7 +271,8 @@ struct MxuWgArgs {
 
 // MnA: A is held (K, M); MnB: B is held (K, N) (the main path's layout);
 // kPromote: fp32's three TF32 passes, each stage's sum added in IEEE fp32
-// (wgmma_tile.cuh, wg_consume).
+// (wgmma_tile.cuh, wg_consume).  The integers' byte planes have a kernel
+// of their own, mxu_wg_int_kernel.
 template <typename T, bool MnA, bool MnB, bool kPromote = false>
 __global__ void __launch_bounds__(kWgThreads, 1) mxu_wg_kernel(const __grid_constant__ MxuWgArgs g) {
   extern __shared__ unsigned char dyn_smem[];
@@ -268,6 +286,33 @@ __global__ void __launch_bounds__(kWgThreads, 1) mxu_wg_kernel(const __grid_cons
                   static_cast<int>(blockIdx.x), 1, g.batch_maps};
   wg_compute<T, MnA, MnB, kPromote>(job, smem, bars, [&](int z) {
     return EpOut{static_cast<char*>(g.c) + z * g.c_step, g.ldc, g.out_code, g.ep, cols};
+  });
+}
+
+// In place of a generated functor: the integer kernel stores through the
+// built-in epilogues (MxuWgArgs::ep).
+struct NoGenEp {};
+
+// The engine on byte planes (wgmma_tile.cuh's ByteWalk W): both operands
+// K-major bytes, g.K one plane's K; at the store a generated epilogue
+// functor Ep, or the built-in ones for NoGenEp.
+template <typename W, typename Ep>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mxu_wg_int_kernel(const __grid_constant__ MxuWgArgs g, const __grid_constant__ Ep ep) {
+  extern __shared__ unsigned char dyn_smem[];
+  unsigned char* smem = wg_align(dyn_smem);
+  WgBars* bars = reinterpret_cast<WgBars*>(smem + kWgStages * kWgStage);
+  if (threadIdx.x == 0) wg_init_bars(bars);
+  __syncthreads();
+  const WgJob job{{&g.ma, &g.ma}, {&g.mb, &g.mb}, {nullptr, nullptr}, 0, 0, nullptr, nullptr,
+                  nullptr, g.spin, g.M, g.N, g.K, g.batch, static_cast<int>(gridDim.x),
+                  static_cast<int>(blockIdx.x), 1, g.batch_maps};
+  wg_compute<unsigned char, false, false, false, W>(job, smem, bars, [&](int z) {
+    char* c = static_cast<char*>(g.c) + z * g.c_step;
+    if constexpr (std::is_same<Ep, NoGenEp>::value)
+      return EpOut{c, g.ldc, g.out_code, g.ep, reinterpret_cast<float*>(bars + 1)};
+    else
+      return EpOutGen<Ep>{c, g.ldc, g.out_code, &ep};
   });
 }
 
@@ -322,19 +367,24 @@ inline bool encode_operand(CUtensorMap* map, const void* base, bool mn_major, in
   return encode_nd(map, base, 3, dims, strides, box, esize, f16);
 }
 
-constexpr int out_bytes(int code) { return code == kF32 || code == kI32 ? 4 : code == kI8 ? 1 : 2; }
+constexpr int out_bytes(int code) {
+  return code == kF32 || code == kI32 || code == kU32 ? 4 : code == kI8 || code == kU8 ? 1 : 2;
+}
 
 // The kernel's arguments for ``call`` (its tensor maps encoded) and its
 // grid: one persistent block a SM, at most one an (example, tile) pair.
-// Returns 0, a CUDA error, kUnsupported, or kTmaEncodeFailed.
+// ``planes``: the operands' rows hold that many byte planes of call.K each
+// (the maps' K extent is planes K).  Returns 0, a CUDA error,
+// kUnsupported, or kTmaEncodeFailed.
 template <typename T, bool MnA, bool MnB>
-int mxu_wg_setup(const MxuWgCall& call, MxuWgArgs& g, unsigned& blocks) {
+int mxu_wg_setup(const MxuWgCall& call, MxuWgArgs& g, unsigned& blocks, int planes = 1) {
   constexpr int esize = sizeof(T);
   constexpr bool f16 = std::is_same<T, __half>::value;
+  const int k_map = planes * call.K;
   // A batch stride of 0 is a 2-D map: no tensor map relies on a stride of 0.
-  const bool ok = encode_operand(&g.ma, call.a, MnA, call.M, call.K, call.lda, call.sa, call.batch,
+  const bool ok = encode_operand(&g.ma, call.a, MnA, call.M, k_map, call.lda, call.sa, call.batch,
                                  esize, f16, kWgBM) &&
-                  encode_operand(&g.mb, call.b, MnB, call.N, call.K, call.ldb, call.sb, call.batch,
+                  encode_operand(&g.mb, call.b, MnB, call.N, k_map, call.ldb, call.sb, call.batch,
                                  esize, f16, kWgBN);
   if (!ok) return kTmaEncodeFailed;
   g.c = call.c;
@@ -388,6 +438,29 @@ int launch_mxu_wg_ep(const MxuWgCall& call, const Ep& ep, cudaStream_t st) {
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem));
   if (attr) return attr;
   kern<<<blocks, kWgThreads, kWgSmem, st>>>(g, ep);
+  return last_error();
+}
+
+// B1 / B2's integers on byte planes (ByteWalk W): both operands K-major,
+// call.K one plane's K (a whole number of K steps where W has more than one
+// plane: csrc/int_split.cu pads each plane's rows with zeros); ep a
+// generated epilogue (its library's walk only), or NoGenEp for the
+// built-in ones, whose per-column operand takes shared memory past the
+// stages.
+template <typename W, typename Ep = NoGenEp>
+int launch_mxu_wg_int(const MxuWgCall& call, cudaStream_t st, const Ep& ep = Ep{}) {
+  if (call.ta || !call.tb || (W::kPlanes > 1 && call.K % WgType<unsigned char>::BK))
+    return kUnsupported;
+  MxuWgArgs g{};
+  unsigned blocks = 0;
+  const int rc = mxu_wg_setup<unsigned char, false, false>(call, g, blocks, W::kPlanes);
+  if (rc) return rc;
+  constexpr int smem = std::is_same<Ep, NoGenEp>::value ? kMxuWgSmem : kWgSmem;
+  auto kern = mxu_wg_int_kernel<W, Ep>;
+  static const int attr = static_cast<int>(
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (attr) return attr;
+  kern<<<blocks, kWgThreads, smem, st>>>(g, ep);
   return last_error();
 }
 

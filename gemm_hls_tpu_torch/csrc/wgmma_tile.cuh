@@ -31,7 +31,8 @@
 //     of the 128 x 256 tile: per stage, four wgmma.mma_async of m64n256 --
 //     k16 bf16 / fp16 with fp32 sums, or k32 s8 x s8 -> s32 -- on
 //     128-byte-swizzled slabs (k8 tf32 for the fp32 route, both operands
-//     K-major), one wgmma group kept in flight, a stage
+//     K-major; k32 of byte planes, .s8 or .u8 each, for the other integers:
+//     ByteWalk below), one wgmma group kept in flight, a stage
 //     released once the group that read it has retired.  The tile's sums
 //     stay in registers (128 a thread) and go out from there (TileOut,
 //     dist_tile.cuh; B1's EpOut).  ptxas reports such a kernel at 168
@@ -113,6 +114,12 @@ template <> struct WgType<__half> {
   static constexpr int BK = 64;
 };
 template <> struct WgType<signed char> {
+  using Acc = int;
+  static constexpr int BK = 128;
+};
+// A byte plane (csrc/int_split.cu), or uint8 as it is: B1 / B2's integers
+// but int8, read as .u8 or .s8 by the pair's wgmma form (ByteWalk).
+template <> struct WgType<unsigned char> {
   using Acc = int;
   static constexpr int BK = 128;
 };
@@ -371,6 +378,23 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db
       : WG_R128
       : "l"(da), "l"(db), "r"(scale_d));
 }
+// k32 of bytes, each operand read as .s8 (SA / SB) or .u8, both K-major,
+// int32 sums that wrap (no .satfinite: PTX's integer wgmma wraps modulo
+// 2^32): the byte-plane pairs of B1 / B2's integers (ByteWalk).
+#define WG_I8_ASM(TYPES)                                                                     \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n256k32.s32." TYPES " {" WG_REGS128        \
+               "}, %128, %129, p;\n}"                                                       \
+               : WG_R128                                                                    \
+               : "l"(da), "l"(db), "r"(scale_d))
+template <bool SA, bool SB>
+__device__ __forceinline__ void wgmma_i8(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (SA && SB) WG_I8_ASM("s8.s8");
+  else if constexpr (SA) WG_I8_ASM("s8.u8");
+  else if constexpr (SB) WG_I8_ASM("u8.s8");
+  else WG_I8_ASM("u8.u8");
+}
+#undef WG_I8_ASM
 // k8 of TF32 (32-bit values whose low 13 bits are 0), both operands
 // K-major (tf32 wgmma has no transpose bit), fp32 sums.
 __device__ __forceinline__ void wgmma_tf32(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
@@ -460,6 +484,8 @@ __device__ __forceinline__ Out cast_out(V v) {
   else if constexpr (std::is_same<Out, __half>::value) return __float2half(static_cast<float>(v));
   else if constexpr (std::is_same<Out, signed char>::value)
     return static_cast<signed char>(static_cast<int>(v));
+  else if constexpr (std::is_same<Out, short>::value)
+    return static_cast<short>(static_cast<int>(v));
   else return static_cast<int>(v);
 }
 
@@ -486,6 +512,10 @@ template <> struct PairOf<__half> {
 template <> struct PairOf<signed char> {
   using P = char2;
   static __device__ __forceinline__ P make(signed char x, signed char y) { return make_char2(x, y); }
+};
+template <> struct PairOf<short> {
+  using P = short2;
+  static __device__ __forceinline__ P make(short x, short y) { return make_short2(x, y); }
 };
 
 // The accumulator fragment of m64nN: thread (warp w, lane l) of the
@@ -602,6 +632,75 @@ struct WgJob {
   int batch_maps = 0;
 };
 
+// ---- B1 / B2's integers as byte planes ------------------------------------
+// An integer operand of B1 / B2 other than int8 reaches the engine as P
+// K-major byte planes, lowest byte first, side by side along each row:
+// plane i of a row at [i kp, (i + 1) kp), kp a whole number of K steps, so
+// no stage reads into the next plane (csrc/int_split.cu writes them; uint8
+// is its own plane).  The int32 sum that wraps modulo 2^32 is exact in
+// byte products: sum_k a b = sum_(i, j) 2^(8 (i + j)) sum_k a_i b_j, and
+// modulo 2^32 only the pairs with i + j <= 3 are left (1 pair for uint8,
+// 4 for the 16-bit types, 10 for the 32-bit ones).  Each tile walks them
+// by diagonal d = i + j, highest first: the producer loads plane i of A
+// and plane j of B for each pair's K steps (each plane read where it lies,
+// none copied per pair); the consumer adds a diagonal's products into its
+// one int32 accumulator, retires its wgmma group at the diagonal's end and
+// shifts the accumulator 8 bits left (Horner: C = ((P3 2^8 + P2) 2^8 + P1)
+// 2^8 + P0, every step wrapping), so the tile keeps int8's 128 registers,
+// batch steps, epilogues and store.  kSignedHi: int16, whose high byte is
+// read as .s8 (an unsigned one would be 2^16 off, which is not 0 modulo
+// 2^32); every other byte is read as .u8 (a 32-bit operand's top byte too:
+// 256 off there moves the value by 2^32).
+struct NoPlanes {
+  static constexpr int kPlanes = 0;
+};
+
+template <bool SA, bool SB> struct I8Form {
+  static __device__ __forceinline__ void run(int (&d)[128], uint64_t da, uint64_t db, int sd) {
+    wgmma_i8<SA, SB>(d, da, db, sd);
+  }
+};
+
+template <int P, bool kSignedHi>
+struct ByteWalk {
+  static_assert((P == 1 || P == 2 || P == 4) && (!kSignedHi || P == 2), "byte planes");
+  static constexpr int kPlanes = P;
+  static constexpr int kTop = P == 1 ? 0 : P == 2 ? 2 : 3;  // the highest diagonal
+  static constexpr int kPairs = P == 1 ? 1 : P == 2 ? 4 : 10;
+  static __device__ __forceinline__ int lo(int d) { return d - (P - 1) > 0 ? d - (P - 1) : 0; }
+  static __device__ __forceinline__ int hi(int d) { return d < P - 1 ? d : P - 1; }
+  // Pair p of the walk: planes (i, j) of A and B.
+  static __device__ __forceinline__ void pair(int p, int& i, int& j) {
+    for (int d = kTop; d >= 0; --d) {
+      if (p <= hi(d) - lo(d)) {
+        i = lo(d) + p;
+        j = d - i;
+        return;
+      }
+      p -= hi(d) - lo(d) + 1;
+    }
+  }
+  // The consumer's side: ``steps(form, n)`` multiplies the next n stages
+  // in one wgmma form, ``shift()`` ends a diagonal.  A diagonal's pairs are
+  // consecutive stages, ks each.
+  template <typename Steps, typename Shift>
+  static __device__ __forceinline__ void walk(Steps& steps, Shift& shift, int ks) {
+    if constexpr (kSignedHi) {  // (1, 1) | (0, 1), (1, 0) | (0, 0)
+      steps(I8Form<true, true>{}, ks);
+      shift();
+      steps(I8Form<false, true>{}, ks);
+      steps(I8Form<true, false>{}, ks);
+      shift();
+      steps(I8Form<false, false>{}, ks);
+    } else {
+      for (int d = kTop; d >= 0; --d) {
+        if (d < kTop) shift();
+        steps(I8Form<false, false>{}, (hi(d) - lo(d) + 1) * ks);
+      }
+    }
+  }
+};
+
 // A box at (c0, c1) of a 2-D map, or of example z of a 3-D one (z >= 0).
 __device__ __forceinline__ void tma_load_z(void* dst, const CUtensorMap* map, int c0, int c1, int z,
                                            uint64_t* bar) {
@@ -632,7 +731,9 @@ __device__ __forceinline__ void wg_load_stage(unsigned char* st, const CUtensorM
   }
 }
 
-template <typename T, bool MnA, bool MnB>
+// W: NoPlanes, or a ByteWalk (its pairs' planes loaded in turn, each pair
+// ksteps K steps; kp = ksteps BK).
+template <typename T, bool MnA, bool MnB, typename W = NoPlanes>
 __device__ void wg_produce(const WgJob& j, unsigned char* smem, WgBars* bars, int tiles_m,
                            int tiles_n, int ksteps) {
   const int tiles = tiles_m * tiles_n;
@@ -666,14 +767,33 @@ __device__ void wg_produce(const WgJob& j, unsigned char* smem, WgBars* bars, in
     const CUtensorMap* ma = j.map_a[s & 1];
     const CUtensorMap* mb = j.map_b[s & 1];
     const int za = j.batch_maps & 1 ? s : -1, zb = j.batch_maps & 2 ? s : -1;
-    for (int kt = 0; kt < ksteps; ++kt) {
-      mbar_wait(&bars->empty[stage], phase ^ 1, j.spin);
-      mbar_expect_tx(&bars->full[stage], kWgStage);
-      wg_load_stage<T, MnA, MnB>(smem + stage * kWgStage, ma, mb, kt, m0, n0, za, zb,
-                                 &bars->full[stage]);
-      if (++stage == kWgStages) {
-        stage = 0;
-        phase ^= 1;
+    if constexpr (W::kPlanes > 0) {
+      for (int p = 0; p < W::kPairs; ++p) {
+        int pa, pb;
+        W::pair(p, pa, pb);
+        for (int kt = 0; kt < ksteps; ++kt) {
+          mbar_wait(&bars->empty[stage], phase ^ 1, j.spin);
+          mbar_expect_tx(&bars->full[stage], kWgStage);
+          unsigned char* st = smem + stage * kWgStage;
+          constexpr int BK = WgType<T>::BK;
+          tma_load_z(st, ma, (pa * ksteps + kt) * BK, m0, za, &bars->full[stage]);
+          tma_load_z(st + kWgTileA, mb, (pb * ksteps + kt) * BK, n0, zb, &bars->full[stage]);
+          if (++stage == kWgStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else {
+      for (int kt = 0; kt < ksteps; ++kt) {
+        mbar_wait(&bars->empty[stage], phase ^ 1, j.spin);
+        mbar_expect_tx(&bars->full[stage], kWgStage);
+        wg_load_stage<T, MnA, MnB>(smem + stage * kWgStage, ma, mb, kt, m0, n0, za, zb,
+                                   &bars->full[stage]);
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
   }
@@ -706,7 +826,56 @@ __device__ __forceinline__ void tf32_add(float (&d)[128], float (&p)[32]) {
   for (int i = 0; i < 32; ++i) d[32 * Q + i] = __fadd_rn(d[32 * Q + i], p[i]);
 }
 
-template <typename T, bool MnA, bool MnB, bool kPromote, typename OutOf>
+// One tile's byte-plane walk (ByteWalk W) into d: the stages in the
+// producer's order, one wgmma group kept in flight, a stage released once
+// the group that read it has retired; at a diagonal's end the group is
+// retired and d shifted 8 bits left (the accumulator is no wgmma operand
+// then: the next stage's wgmma.fence orders the shift before its reads).
+template <typename W>
+__device__ __forceinline__ void wg_consume_planes(int (&d)[128], WgBars* bars, uint32_t base,
+                                                  int wg, int ksteps, long long spin, int& stage,
+                                                  uint32_t& phase, int& prev) {
+  bool pending = false, first = true;
+  auto steps = [&](auto form, int n) {
+    using F = decltype(form);
+    for (int s = 0; s < n; ++s) {
+      mbar_wait(&bars->full[stage], phase, spin);
+      const uint32_t st = base + stage * kWgStage;
+      const uint64_t da = wg_desc(st + wg * kWgMnBox), db = wg_desc(st + kWgTileA);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) F::run(d, da + 2 * kk, db + 2 * kk, !first || kk > 0);
+      wg_commit();
+      first = false;
+      if (pending) {
+        wg_wait<1>();  // the group that read stage prev has retired
+        mbar_arrive(&bars->empty[prev]);
+      }
+      pending = true;
+      prev = stage;
+      if (++stage == kWgStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  };
+  auto shift = [&]() {
+    wg_wait<0>();
+    mbar_arrive(&bars->empty[prev]);
+    pending = false;
+    wg_pin(d);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = static_cast<int>(static_cast<unsigned>(d[i]) << 8);
+    wg_pin(d);
+  };
+  wg_pin(d);
+  W::walk(steps, shift, ksteps);
+  wg_wait<0>();
+  mbar_arrive(&bars->empty[prev]);
+  wg_pin(d);
+}
+
+template <typename T, bool MnA, bool MnB, bool kPromote, typename OutOf, typename W = NoPlanes>
 __device__ void wg_consume(const WgJob& j, unsigned char* smem, WgBars* bars, OutOf out_of,
                            int tiles_m, int tiles_n, int ksteps) {
   using Acc = typename WgType<T>::Acc;
@@ -740,7 +909,11 @@ __device__ void wg_consume(const WgJob& j, unsigned char* smem, WgBars* bars, Ou
     }
     int m0, n0;
     tile_origin(t, tiles_m, tiles_n, kWgBM, kWgBN, m0, n0);
-    if constexpr (kPromote) {
+    if constexpr (W::kPlanes > 0) {
+      static_assert(std::is_same<T, unsigned char>::value && !MnA && !MnB && !kPromote,
+                    "byte planes are K-major bytes");
+      wg_consume_planes<W>(d, bars, base, wg, ksteps, j.spin, stage, phase, prev);
+    } else if constexpr (kPromote) {
       static_assert(std::is_same<T, float>::value && !MnA && !MnB, "promoted TF32 only");
       // Group g = 4 kt + q sums stage kt's quarter q in p[g % 2]; group g + 1
       // is issued before group g is waited for and added.
@@ -829,18 +1002,21 @@ __device__ void wg_consume(const WgJob& j, unsigned char* smem, WgBars* bars, Ou
 // The compute block: ``smem`` the aligned dynamic shared memory, the
 // barriers initialised; out_of(s) is step s's output (TileOut or EpOut).
 // MnA / MnB: the operand is MN-major (16-bit types only); kPromote: see
-// wg_consume (fp32's three TF32 passes).
-template <typename T, bool MnA = false, bool MnB = false, bool kPromote = false, typename OutOf>
+// wg_consume (fp32's three TF32 passes); W: a ByteWalk over byte planes
+// (B1 / B2's integers but int8; K then counts one plane's K, a whole
+// number of K steps where there is more than one plane).
+template <typename T, bool MnA = false, bool MnB = false, bool kPromote = false,
+          typename W = NoPlanes, typename OutOf>
 __device__ void wg_compute(const WgJob& j, unsigned char* smem, WgBars* bars, OutOf out_of) {
   static_assert(sizeof(T) == 2 || !(MnA || MnB), "int8 and tf32 wgmma read K-major operands only");
   const int tiles_m = (j.M + kWgBM - 1) / kWgBM, tiles_n = (j.N + kWgBN - 1) / kWgBN;
   const int ksteps = (j.K + WgType<T>::BK - 1) / WgType<T>::BK;
   if (threadIdx.x < 128) {
     reg_dealloc<40>();
-    if (threadIdx.x == 0) wg_produce<T, MnA, MnB>(j, smem, bars, tiles_m, tiles_n, ksteps);
+    if (threadIdx.x == 0) wg_produce<T, MnA, MnB, W>(j, smem, bars, tiles_m, tiles_n, ksteps);
   } else {
     reg_alloc<232>();
-    wg_consume<T, MnA, MnB, kPromote>(j, smem, bars, out_of, tiles_m, tiles_n, ksteps);
+    wg_consume<T, MnA, MnB, kPromote, OutOf, W>(j, smem, bars, out_of, tiles_m, tiles_n, ksteps);
   }
 }
 

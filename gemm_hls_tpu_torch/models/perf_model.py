@@ -16,7 +16,10 @@ from typing import Dict, Optional
 
 import torch
 
-from gemm_hls_tpu_torch.config import SMEM_LIMIT_BYTES, GemmConfig, itemsize
+from gemm_hls_tpu_torch.config import (
+    INT_PLANE_K, INT_PLANES, SMEM_LIMIT_BYTES, GemmConfig, dtype_name, int_split_bytes, itemsize,
+    round_up,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,10 +102,12 @@ H100 = _register(ChipSpec(
                 "uint8": 1979e12, "tfloat32": 495e12, "float32": 67e12,
                 "float64": 67e12,
                 # The tensor cores take no int16, uint16, uint32 or int32:
-                # plus_times of these runs on the CUDA cores' int32
-                # multiply-add, 64 a clock an SM (the CUDA C++ Programming
-                # Guide's throughput table, compute capability 9.0), counted
-                # as 2 ops: 132 x 64 x 2 x 1.98e9.
+                # the CUDA-core tile (route "simt", where a caller names it)
+                # runs their plus_times on the int32 multiply-add, 64 a
+                # clock an SM (the CUDA C++ Programming Guide's throughput
+                # table, compute capability 9.0), counted as 2 ops: 132 x
+                # 64 x 2 x 1.98e9.  The route rule's engine runs them as
+                # byte planes at the int8 rate: plus_times_peak.
                 **dict.fromkeys(("int32", "int16", "uint16", "uint32"),
                                 132 * 64 * 2 * 1.98e9)},
     # The fp32 67e12 counts an FMA as 2 ops: 132 SMs x 128 fp32 lanes x 2 x
@@ -196,7 +201,8 @@ def detect_chip(device=None) -> ChipSpec:
 
 def specifications(cfg: GemmConfig, m: int, n: int, k: int,
                    chip: Optional[ChipSpec] = None,
-                   semiring_is_mxu: bool = True, pack_bytes: int = 0) -> dict:
+                   semiring_is_mxu: bool = True, pack_bytes: int = 0,
+                   route: Optional[str] = None) -> dict:
     """Closed-form expectations for one (config, problem, chip) triple,
     the reference's dict key for key (``PrintSpecifications``): peak and
     expected performance, runtime, tile census, communication volume and
@@ -213,6 +219,12 @@ def specifications(cfg: GemmConfig, m: int, n: int, k: int,
     GEMM, so its time at the card's memory rate adds to the expected
     runtime, and the dict gains ``pack_bytes`` and ``pack_s``; at 0 (the
     default) the dict is the reference's, key for key.
+
+    ``route``: the route the call runs (default ``cfg.route()``), which
+    sets the peak (:func:`plus_times_peak`).  int16, uint16, uint32 and
+    int32 on the engine are first cut into byte planes: the split's bytes
+    (``config.int_split_bytes``) add to the runtime as the pack's do, and
+    the dict gains ``split_bytes`` and ``split_s``.
     """
     chip = chip or detect_chip()
     flops = cfg.flops(m, n, k)
@@ -221,7 +233,8 @@ def specifications(cfg: GemmConfig, m: int, n: int, k: int,
     io_bytes = cfg.hbm_traffic_bytes(m, n, k)
     # The reference's one VPU rate for every dtype (the dict is its, key for
     # key); kernel B3's bound by dtype is ``ChipSpec.vpu_ops_for``.
-    peak = chip.peak_for(cfg.dtype) if semiring_is_mxu else chip.vpu_ops
+    route = route or cfg.route()
+    peak = plus_times_peak(chip, cfg.dtype, route) if semiring_is_mxu else chip.vpu_ops
 
     t_compute = flops / peak
     t_memory = io_bytes / chip.hbm_bandwidth
@@ -237,11 +250,18 @@ def specifications(cfg: GemmConfig, m: int, n: int, k: int,
     t_drain = cfg.block_m * cfg.block_n * out_b / chip.hbm_bandwidth
     t_steps = gm * gn * gk * chip.grid_step_overhead_s
     t_pack = pack_bytes / chip.hbm_bandwidth
-    t_expected = max(t_compute + t_prologue + t_drain, t_memory) + t_steps + t_pack
+    split_bytes = (int_split_bytes(cfg.dtype, m, n, k)
+                   if semiring_is_mxu and route == "wgmma" and INT_PLANES.get(cfg.dtype, 1) > 1
+                   else 0)
+    t_split = split_bytes / chip.hbm_bandwidth
+    t_expected = (max(t_compute + t_prologue + t_drain, t_memory) + t_steps + t_pack
+                  + t_split)
 
     total_elems = m * k + k * n + m * n
     pack = {"pack_bytes": pack_bytes, "pack_s": t_pack} if pack_bytes else {}
-    return {**pack, 
+    if split_bytes:
+        pack.update(split_bytes=split_bytes, split_s=t_split)
+    return {**pack,
         "chip": chip.name,
         "dtype": cfg.dtype,
         "problem": (m, n, k),
@@ -297,6 +317,9 @@ def format_specifications(spec: dict) -> str:
     if spec.get("pack_bytes"):
         lines.append(f"Pack pass (operands copied K-major first): "
                      f"{spec['pack_bytes'] / 1e9:.3f} GB, {spec['pack_s'] * 1e6:.1f} us")
+    if spec.get("split_bytes"):
+        lines.append(f"Byte-plane split (operands cut into K-major byte planes first): "
+                     f"{spec['split_bytes'] / 1e9:.3f} GB, {spec['split_s'] * 1e6:.1f} us")
     return "\n".join(lines)
 
 
@@ -316,6 +339,54 @@ def slice_gemm_bound(chip: ChipSpec, m: int, n: int, k: int, n_slices: int,
     ops = slice_passes(n_slices, n_diags) * 2.0 * m * n * k
     bytes_moved = n_slices * (m * k + k * n) + 4 * n_outputs * m * n
     return chip.bound(ops, chip.peak_for("int8"), bytes_moved)
+
+
+def plus_times_peak(chip: ChipSpec, dtype, route: str) -> float:
+    """The rate, in 2 M N K operations a second, that bounds a plus_times
+    call of ``dtype`` on ``route``: for int16, uint8, uint16, uint32 and
+    int32 on the engine ("wgmma"), the int8 rate over the byte-plane pairs
+    ``slice_passes(planes, 4)`` (1 / 4 / 10; ``config.INT_PLANES``); else
+    ``chip.peak_for(dtype)`` (for those integers on "simt", the CUDA
+    cores' int32 multiply-add)."""
+    planes = INT_PLANES.get(dtype_name(dtype))
+    if planes and route == "wgmma":
+        return chip.peak_for("int8") / slice_passes(planes, 4)
+    return chip.peak_for(dtype)
+
+
+def int_gemm_bound(chip: ChipSpec, dtype, m: int, n: int, k: int, batch: int = 1,
+                   out_dtype=None):
+    """Bound of the function B1 / B2's integer plus_times computes on the
+    engine (int16, uint8, uint16, uint32, int32): the byte-plane pairs at
+    the int8 rate (:func:`plus_times_peak`), or A and B read once in their
+    own type and C (``out_dtype``, default the input's) written once at
+    the card's memory rate, whichever is longer.  The design's passes
+    before the GEMM are not in it (:func:`int_split_bound`).  Returns
+    (seconds, "operations" or "bytes")."""
+    out_b = itemsize(out_dtype if out_dtype is not None else dtype)
+    return chip.bound(2.0 * batch * m * n * k, plus_times_peak(chip, dtype, "wgmma"),
+                      batch * ((m + n) * k * itemsize(dtype) + m * n * out_b))
+
+
+def int_split_bound(chip: ChipSpec, dtype, m: int, n: int, k: int, batch: int = 1,
+                    out_dtype=None, pack_bytes: int = 0):
+    """Bound of the engine's design for B1 / B2's integer plus_times: the
+    byte-plane pairs at the int8 rate, the planes read once and C
+    (``out_dtype``, default the input's) written once, then the pass before
+    it at the card's memory rate, which runs first and so adds: the
+    split's bytes (``config.int_split_bytes``: each operand read once, its
+    planes written once) or, for uint8, ``pack_bytes``
+    (``config.pack_bytes``, 0 where both operands are read in place).
+    Above :func:`int_gemm_bound` by those passes' bytes, which the function
+    itself does not need.  Returns (seconds, what sets the GEMM's part:
+    "operations" or "bytes")."""
+    planes = INT_PLANES[dtype_name(dtype)]
+    kp = k if planes == 1 else round_up(k, INT_PLANE_K)
+    out_b = itemsize(out_dtype if out_dtype is not None else dtype)
+    t, by = chip.bound(2.0 * batch * m * n * k, plus_times_peak(chip, dtype, "wgmma"),
+                       batch * (planes * (m + n) * kp + m * n * out_b))
+    before = pack_bytes if planes == 1 else int_split_bytes(dtype, m, n, k, batch)
+    return t + before / chip.hbm_bandwidth, by
 
 
 def _esize(dtype) -> int:

@@ -43,7 +43,7 @@ import torch.fx
 import torch.nn.functional as F
 
 from gemm_hls_tpu_torch import _build
-from gemm_hls_tpu_torch.config import dtype_name
+from gemm_hls_tpu_torch.config import INT_PLANES, dtype_name
 
 ITEM = "ROADMAP B coverage item 5"
 
@@ -656,7 +656,11 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
     "cp_async" (``dmma_gemm.cuh``, also where none is named); fp32 on
     "wgmma" its TF32 passes as the tile, "tf32x1" or "tf32x3" (the
     split pass's K-major workspaces, so ``transpose_a`` False and
-    ``transpose_b`` True; three passes add each stage's sum in IEEE fp32)."""
+    ``transpose_b`` True; three passes add each stage's sum in IEEE fp32);
+    int16, uint8, uint16, uint32 and int32 on "wgmma" their byte planes,
+    "planes1" / "planes2" / "planes4" (``mxu_wgmma.cuh``'s integer kernel,
+    both operands K-major: the split pass's planes, or uint8 packed or read
+    in place)."""
     acc = prog.dtypes[0]
     act = _CTYPES[acc]
     ops = prog.dtypes[1:]
@@ -688,14 +692,22 @@ def epilogue_source(prog: Program, route: str, in_dtype, transpose_a: bool,
             f"               EpArgs{{nullptr, nullptr, 0, kEpNone}}}};")
     if route == "wgmma":
         include = "mxu_wgmma.cuh"
-        if (in_dtype == torch.float32) != (tile in ("tf32x1", "tf32x3")):
+        planes = INT_PLANES.get(dtype_name(in_dtype))
+        want = ("tf32x1", "tf32x3") if in_dtype == torch.float32 else (
+            (f"planes{planes}",) if planes else (None,))
+        if tile not in want:
             raise refuse(prog.what, f"engine tile {tile!r} for {dtype_name(in_dtype)} inputs")
-        launch = (f"if (batch < 1 || batch > INT_MAX) return kUnsupported;\n"
-                  f"  const MxuWgCall call{{a, b, c, static_cast<int>(batch), M, N, K, lda, ldb, sa,"
-                  f" sb, ta, tb,\n                       out_code, EpArgs{{nullptr, nullptr, 0, "
-                  f"kEpNone}}}};\n"
-                  f"  return launch_mxu_wg_ep<{in_ct}, {str(ta).lower()}, "
-                  f"{str(not tb).lower()}{', true' if tile == 'tf32x3' else ''}>(call, ep, s);")
+        call = (f"if (batch < 1 || batch > INT_MAX) return kUnsupported;\n"
+                f"  const MxuWgCall call{{a, b, c, static_cast<int>(batch), M, N, K, lda, ldb, sa,"
+                f" sb, ta, tb,\n                       out_code, EpArgs{{nullptr, nullptr, 0, "
+                f"kEpNone}}}};\n")
+        if planes:
+            launch = (f"{call}  return launch_mxu_wg_int<ByteWalk<{planes}, "
+                      f"{str(in_dtype == torch.int16).lower()}>>(call, s, ep);")
+        else:
+            launch = (f"{call}  return launch_mxu_wg_ep<{in_ct}, {str(ta).lower()}, "
+                      f"{str(not tb).lower()}{', true' if tile == 'tf32x3' else ''}>"
+                      f"(call, ep, s);")
     elif route == "wmma":
         include = "mxu_tc.cuh"
         b_row = in_dtype.itemsize == 2 and not tb

@@ -431,11 +431,12 @@ def matmul(
         (``config.ENGINE_TILES``; :func:`~gemm_hls_tpu_torch.config.route_config`
         of a bf16 / fp16 call) runs a plus_times call on the engine (an
         operand its TMA maps cannot read in place packed first), and raises
-        where the engine cannot run the call (fp32 into float64).  The WMMA
-        tile (``default_config``'s, which internal callers pass) and the
-        CUDA-core tile keep the route rule by shape
+        where the engine cannot run the call (fp32 or an integer into
+        float64).  The WMMA tile (``default_config``'s, which internal
+        callers pass) and the CUDA-core tile keep the route rule by shape
         (``ops/mxu.py::mxu_route``: the engine for bf16 / fp16 / int8 /
-        fp32 in every layout and at every alignment).  None: a tuned winner
+        fp32, and int16 / uint8 / uint16 / uint32 / int32 as byte planes,
+        in every layout and at every alignment).  None: a tuned winner
         for this shape bucket if one is cached
         (``tools/autotune.py``: the user cache, then the packaged H100
         seed; a plain plus_times call without an epilogue), its route named

@@ -2,7 +2,10 @@
 (``csrc/mxu_wgmma.cu`` on the tile engine, in any layout and at any
 alignment after the pack pass ``csrc/operand_pack.cu`` where its TMA maps
 cannot read an operand in place, fp32 there as TF32 after the split pass
-``csrc/tf32_split.cu``; ``csrc/mxu_gemm.cu`` where a caller names it,
+``csrc/tf32_split.cu``, int16 / uint8 / uint16 / uint32 / int32 as byte
+planes on the int8 tensor cores, ``csrc/mxu_wgmma_int.cu``, after the
+split pass ``csrc/int_split.cu`` or uint8's pack; ``csrc/mxu_gemm.cu``
+where a caller names it,
 float64 on
 ``csrc/dmma_tma.cu`` or ``csrc/dmma_gemm.cu``; B2's row softmax
 ``csrc/row_softmax_wgmma.cu`` on the engine, ``csrc/row_softmax.cu``) and
@@ -28,8 +31,8 @@ import torch
 
 from gemm_hls_tpu_torch import _build
 from gemm_hls_tpu_torch.config import (
-    ROW_SOFTMAX_MAX_N, GemmConfig, call_route, dtype_name, named_route,
-    packed_operands, round_up, row_softmax_fusable,
+    ENGINE_INT_OUTPUTS, INT_PLANE_K, INT_PLANES, ROW_SOFTMAX_MAX_N, GemmConfig, call_route,
+    dtype_name, named_route, packed_operands, round_up, row_softmax_fusable,
 )
 from gemm_hls_tpu_torch.ops import codegen
 from gemm_hls_tpu_torch.ops.epilogue import Epilogue, kernel_code
@@ -150,12 +153,18 @@ def mxu_route(dtype, out_dtype=None) -> str:
     K-major first, and the engine runs :func:`tf32_passes` passes) into an
     fp32 / bf16 / fp16 ``out_dtype`` (None: the config's); ``"dmma"``
     (IEEE float64 on the FP64 tensor cores, any layout and alignment; its
-    tile: :func:`dmma_tile`) for float64; ``"simt"`` (IEEE fp32, or an
-    int32 accumulator that wraps, on the CUDA cores) for fp32 into float64
-    (the engine stores the base types) and int32, int16, uint8, uint16 and
-    uint32.  A caller may name ``"wmma"`` (``csrc/mxu_gemm.cu``'s
-    tensor-core tile) for bf16 / fp16 / int8 and ``"simt"`` for fp32 on any
-    operands (``config.beside_engine``: a tuned winner, a comparison).
+    tile: :func:`dmma_tile`) for float64.  int16, uint8, uint16, uint32 and
+    int32 take the engine too, in every layout and at every alignment, as
+    products of byte planes on the int8 tensor cores (:func:`int_planes`:
+    uint8 is its own plane, packed as int8 is; the others are split once
+    an operand by :func:`int_split_operand`), their int32 sum wrapping as
+    the reference's does, into any ``out_dtype`` but float64 and int64.
+    ``"simt"`` (IEEE fp32, or an int32 accumulator that wraps, on the CUDA
+    cores) takes fp32 into float64 and the integers into float64 / int64
+    (the engine does not store them).  A caller may name ``"wmma"``
+    (``csrc/mxu_gemm.cu``'s tensor-core tile) for bf16 / fp16 / int8 and
+    ``"simt"`` for fp32 and these integers on any operands
+    (``config.beside_engine``: a tuned winner, a comparison).
     B2's row softmax has kernels of its own (:func:`row_softmax_route`).
     Chosen by type, never as a fallback: a kernel that fails to build or
     launch raises.  The rule itself is ``config.call_route``'s."""
@@ -290,16 +299,123 @@ def tf32_matmul_plain(a, b, passes: int, transpose_a=False, transpose_b=False):
     return torch.matmul(wa, wb.transpose(-1, -2)).to(torch.float32)
 
 
+# ---- B1 / B2's integers on the engine: byte planes ------------------------
+
+def _byte_planes(x):
+    """x's byte planes, lowest first, as int64 tensors: each byte of its
+    bit pattern unsigned, but int16's high byte signed (an unsigned one
+    would be 2^16 off, which is not 0 modulo 2^32; a 32-bit operand's top
+    byte may be read unsigned, 2^32 off).  sum_i plane_i 2^(8 i) is x
+    itself for int16 and the unsigned types, x modulo 2^32 for int32."""
+    planes = INT_PLANES[dtype_name(x.dtype)]
+    u = x.to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
+    out = [(u >> (8 * i)) & 0xFF for i in range(planes)]
+    if x.dtype == torch.int16:
+        out[1] = out[1] - ((out[1] >> 7) << 8)
+    return out
+
+
+def int_diagonals(planes: int):
+    """The engine's walk over byte-plane pairs: for each diagonal d = i + j
+    <= 3, highest first, its pairs (i, j), i rising.  The int32 sum is C =
+    ((P_3 2^8 + P_2) 2^8 + P_1) 2^8 + P_0 wrapping, P_d the diagonal's
+    products (Horner: one accumulator, shifted 8 bits between diagonals)."""
+    top = min(3, 2 * (planes - 1))
+    return [(d, [(i, d - i) for i in range(max(0, d - planes + 1), min(d, planes - 1) + 1)])
+            for d in range(top, -1, -1)]
+
+
+def _int_kp(x, mn_major):
+    """(batch, rows, K, kp, planes) of a split: kp = K rounded up to the
+    engine's K step (``config.INT_PLANE_K``)."""
+    # uint8 is one plane as it is: the pack pass takes it where the engine's
+    # maps cannot read it.
+    planes = INT_PLANES.get(dtype_name(x.dtype), 1)
+    if planes == 1:
+        raise TypeError(f"the byte-plane split takes int16, uint16, uint32 or int32, got "
+                        f"{x.dtype}")
+    bsz, rows, k = _operand_layout(x, mn_major)
+    return bsz, rows, k, round_up(k, INT_PLANE_K), planes
+
+
+def int_split_operand_plain(x, mn_major: bool):
+    """Plain version of :func:`int_split_operand`, on ``x``'s own device:
+    the bytes of x (or of its transpose, with ``mn_major``), plane i of a
+    row at [i kp, i kp + K), zeros to kp, as uint8 (int16's high plane
+    holds the signed byte's bits); a batch read with a stride of 0 (a
+    broadcast, or a batch of one) 2-D."""
+    _, _, k, kp, _ = _int_kp(x, mn_major)
+    xr = x.transpose(-1, -2) if mn_major else x
+    out = torch.cat([torch.nn.functional.pad(p & 0xFF, (0, kp - k)) for p in _byte_planes(xr)],
+                    dim=-1).to(torch.uint8)
+    if out.ndim == 3 and _strides(x)[1] == 0:
+        out = out[0]
+    return out.contiguous()
+
+
+def int_split_operand(x, mn_major: bool):
+    """The K-major byte planes the engine reads for int16 / uint16 / uint32 /
+    int32 operand ``x`` on the card (held (rows, K), or (K, rows) with
+    ``mn_major``; 2-D, or 3-D with the batch first; any base, row pitch and
+    batch stride): uint8 (rows, planes * kp), or (batch, rows, planes * kp)
+    for a batch read with a stride other than 0, plane i of a row at [i kp,
+    (i + 1) kp), kp = K rounded up to ``config.INT_PLANE_K``, every byte
+    past K zero (a broadcast batch is split once, 2-D).  Launches
+    ``csrc/int_split.cu`` (counted by dtype in
+    ``int_split_operand.launches``); only the card's engine route calls it,
+    so a tensor off the card raises."""
+    bsz, rows, k, kp, planes = _int_kp(x, mn_major)
+    if not x.is_cuda:
+        raise ValueError(f"the byte-plane split runs on the card, got a tensor on {x.device}")
+    x = _row_major(x)
+    ld, bs = _strides(x)  # bs 0: one example (a broadcast batch is split once)
+    out = torch.empty(((bsz,) if bs else ()) + (rows, planes * kp), dtype=torch.uint8,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().int_split(
+            x.data_ptr(), out.data_ptr(), bsz if bs else 1, rows, k, ld, bs, int(mn_major), kp,
+            x.element_size(), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "the byte-plane split pass")
+    int_split_operand.launches[dtype_name(x.dtype)] += 1
+    return out
+
+
+def int_planes_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
+                            transpose_b=False, epilogue: Optional[Epilogue] = None):
+    """Plain version of the engine's integer route, on the operands' device:
+    the int32 sum of every byte-plane pair's products (each exact in
+    float64: |sum| < K 2^16), combined diagonal by diagonal, highest first,
+    with 8-bit shifts that wrap modulo 2^32 (:func:`int_diagonals`); then
+    the epilogue on the sum widened to fp32 and the cast, as
+    :func:`mxu_matmul_plain`.  Equal to it, and to the reference, bit for
+    bit."""
+    _mnk(a, b, transpose_a, transpose_b)
+    a_l = a.transpose(-1, -2) if transpose_a else a
+    b_l = b.transpose(-1, -2) if transpose_b else b
+    pa, pb = _byte_planes(a_l), _byte_planes(b_l)
+    acc = None
+    for _, pairs in int_diagonals(INT_PLANES[dtype_name(a.dtype)]):
+        part = sum(torch.matmul(pa[i].double(), pb[j].double()) for i, j in pairs)
+        part = part.to(torch.int64)
+        acc = part if acc is None else (acc << 8) + part
+        acc = acc & 0xFFFFFFFF
+    out = (acc - ((acc >> 31) << 32)).to(torch.int32).to(cfg.tacc_dtype)
+    if epilogue is not None:
+        out = epilogue.fn(out, *ep_operands)
+    return out.to(cfg.tout_dtype)
+
+
 # ---- B1 / B2 on the engine at any layout and alignment: the pack pass ------
 
-PACK_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
+PACK_DTYPES = (torch.bfloat16, torch.float16, torch.int8, torch.uint8)
 
 
 def _pack_kp(x, mn_major):
     """(batch, rows, K, kp) of a pack: kp = K rounded up to whole 16-byte
     units of ``x``'s type."""
     if x.dtype not in PACK_DTYPES:
-        raise TypeError(f"the pack pass takes bfloat16, float16 or int8, got {x.dtype}")
+        raise TypeError(f"the pack pass takes bfloat16, float16 or int8 (or uint8), got "
+                        f"{x.dtype}")
     bsz, rows, k = _operand_layout(x, mn_major)
     return bsz, rows, k, round_up(k, 16 // x.element_size())
 
@@ -318,7 +434,7 @@ def pack_operand_plain(x, mn_major: bool):
 
 
 def pack_operand(x, mn_major: bool):
-    """The K-major workspace the engine reads for bf16 / fp16 / int8 operand
+    """The K-major workspace the engine reads for bf16 / fp16 / int8 / uint8 operand
     ``x`` on the card (held (rows, K), or (K, rows) with ``mn_major``; 2-D,
     or 3-D with the batch first; any base, row pitch and batch stride):
     (rows, kp), or (batch, rows, kp) for a batch read with a stride other
@@ -466,8 +582,10 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
     softmax: :func:`row_softmax_route`'s), or ``route`` where a caller names
     one; returns (bsz, M, N).  On the engine, an operand its TMA maps
     cannot read in place (``config.packed_operands``: a base, row pitch or
-    batch stride off 16 bytes, int8 not K-major) is packed first
-    (:func:`pack_operand`); fp32 is split (:func:`tf32_operand`).  A call
+    batch stride off 16 bytes, int8 / uint8 not K-major) is packed first
+    (:func:`pack_operand`); fp32 is split (:func:`tf32_operand`), and so
+    are int16, uint16, uint32 and int32, into byte planes
+    (:func:`int_split_operand`).  A call
     named to the tile engine that the route rule does not give the engine
     (fp32 into float64, a row softmax past its bounds) raises.  float64
     runs :func:`dmma_tile`'s tile;
@@ -511,6 +629,7 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
             f"at most {ROW_SOFTMAX_MAX_N} columns, got {dtype_name(a.dtype)} "
             f"N={n}; softmax the fp32 scores instead")
     a, b = _row_major(a), _row_major(b)
+    in_dtype = a.dtype  # a split operand's workspace holds bytes
     (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     vec_a, vec_b = _vec_ok(a), _vec_ok(b)
     aligned = bool(vec_a and vec_b)
@@ -525,10 +644,20 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
     route = named_route(route, rule, what, a.dtype if not rows else None)
     # fp32 on the engine: TF32 passes on K-major workspaces (below).
     passes = tf32_passes(cfg.precision) if route == "wgmma" and a.dtype == torch.float32 else None
-    # bf16 / fp16 / int8 on the engine: each operand its maps cannot read
-    # in place is packed into a K-major workspace first (below).
+    # bf16 / fp16 / int8 / uint8 on the engine: each operand its maps
+    # cannot read in place is packed into a K-major workspace first (below).
     pack_a, pack_b = packed_operands(a.dtype, ta, tb, vec_a, vec_b) \
         if route == "wgmma" and not rows else (False, False)
+    # The integers but int8 on the engine: byte planes, each pair's
+    # products on the int8 tensor cores (csrc/mxu_wgmma_int.cu); int16,
+    # uint16, uint32 and int32 split into planes first (below).
+    int_walk = route == "wgmma" and not rows and dtype_name(a.dtype) in INT_PLANES
+    planes = INT_PLANES[dtype_name(a.dtype)] if int_walk else None
+    engine_int = route == "wgmma" and not rows and not a.dtype.is_floating_point
+    if engine_int and dtype_name(out_dtype) not in ENGINE_INT_OUTPUTS:
+        raise NotImplementedError(
+            f"{what}: the tile engine stores no {dtype_name(out_dtype)} output of "
+            f"{dtype_name(a.dtype)} inputs (ROADMAP B coverage item 17)")
     tile = None
     if route == "dmma":
         tile = dmma_tile(aligned)
@@ -544,11 +673,12 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         # plain version's promotion does; lowered, and any refusal raised,
         # before its library is looked up.
         kept = _EP_DTYPES + ((torch.float64,) if route == "dmma" else ())
+        split = passes or (planes and planes > 1)
         fn = codegen.epilogue_kernel(
             gen.fn, route, a.dtype, cfg.tacc_dtype,
             [e.dtype if e.dtype in kept else ep_dt for e in eps],
-            *((False, True) if passes else (ta and not pack_a, tb or pack_b)), gen.name,
-            tile=f"tf32x{passes}" if passes else tile)
+            *((False, True) if split else (ta and not pack_a, tb or pack_b)), gen.name,
+            tile=f"tf32x{passes}" if passes else f"planes{planes}" if planes else tile)
     if bsz == 0:  # no block is launched and nothing is written
         return torch.empty((0, m, n), dtype=out_dtype, device=a.device)
     if pack_a or pack_b:
@@ -565,12 +695,20 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         b = tf32_operand(b, not tb, passes, "b")
         ta, tb, k = False, True, a.shape[-1]
         (lda, sa), (ldb, sb) = _strides(a), _strides(b)
+    if planes and planes > 1:
+        # int16 / uint16 / uint32 / int32: each operand split once into
+        # K-major byte planes (csrc/int_split.cu), each plane's rows run to
+        # kp, a whole number of the engine's K steps, zeros past K.
+        a = int_split_operand(a, ta)
+        b = int_split_operand(b, not tb)
+        ta, tb, k = False, True, a.shape[-1] // planes
+        (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     out = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
-    # The CUDA-core and float64 tiles store every type; the tensor-core
-    # tiles (the engine, WMMA) and the row softmax the base five (ROADMAP B
-    # coverage item 17).
-    wide = not rows and route in ("simt", "dmma")
-    codes = (_build.dtype_code(a.dtype, wide), _build.dtype_code(out_dtype, wide))
+    # The CUDA-core and float64 tiles store every type; the engine the base
+    # five, and for integer inputs int16 and the unsigned ints too; WMMA and
+    # the row softmax the base five (ROADMAP B coverage item 17).
+    wide = not rows and (route in ("simt", "dmma") or engine_int)
+    codes = (_build.dtype_code(in_dtype, wide), _build.dtype_code(out_dtype, wide))
     lib = _build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -587,6 +725,8 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
             rc = lib.mxu_gemm_row_softmax(*args, vec_a, vec_b, *codes, stream)
         elif passes:
             rc = lib.mxu_wgmma_tf32(*args[:11], passes, codes[1], *ep_args)
+        elif int_walk:
+            rc = lib.mxu_wgmma_int(*args[:11], *codes, *ep_args)
         elif route == "wgmma":
             rc = lib.mxu_wgmma(*args, *codes, *ep_args)
         elif route == "dmma" and tile == "tma":
@@ -599,21 +739,24 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         what += (f" (float64 TMA tile: A {tuple(a.shape)} strides {a.stride()}, B "
                  f"{tuple(b.shape)} strides {b.stride()}, ta {ta}, tb {tb})")
     _build.check(rc, what)
-    route_launches[route, dtype_name(a.dtype)] += 1
+    name = dtype_name(in_dtype)
+    route_launches[route, name] += 1
     if fn is not None:
-        generated_launches[route, dtype_name(a.dtype)] += 1
+        generated_launches[route, name] += 1
     if tile is not None:
         dmma_tile_launches[tile] += 1
     if passes is not None:
         tf32_launches[passes] += 1
+    if planes is not None:
+        int_plane_launches[name] += 1
     if pack_a or pack_b:
-        packed_launches[dtype_name(a.dtype)] += 1
+        packed_launches[name] += 1
     if rows:
         mxu_matmul_batched.row_softmax_route = route
     else:
         entry = mxu_matmul if what == "kernel B1" else mxu_matmul_batched
         entry.last_route, entry.last_dmma_tile = route, tile
-        entry.last_tf32_passes = passes
+        entry.last_tf32_passes, entry.last_int_planes = passes, planes
     return out
 
 
@@ -685,21 +828,26 @@ def mxu_matmul_batched(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
 # per-column epilogue; B2's row-softmax variant.  And the route of B1's, of
 # B2's and of B2's row softmax's last launch, the float64 tile of B1's and
 # B2's last launch, and the TF32 passes of their last fp32 engine launch
-# (None for the other types and routes).
+# (None for the other types and routes), and the byte planes of their last
+# integer engine launch (1 uint8, 2 int16 / uint16, 4 uint32 / int32).
 mxu_matmul.launches = 0
 mxu_matmul.last_route = None
 mxu_matmul.last_dmma_tile = None
 mxu_matmul.last_tf32_passes = None
+mxu_matmul.last_int_planes = None
 mxu_matmul.epilogue_launches = 0
 mxu_matmul_batched.launches = 0
 mxu_matmul_batched.last_route = None
 mxu_matmul_batched.last_dmma_tile = None
 mxu_matmul_batched.last_tf32_passes = None
+mxu_matmul_batched.last_int_planes = None
 mxu_matmul_batched.row_softmax_launches = 0
 mxu_matmul_batched.row_softmax_route = None
 # Launches of B1 and B2 together (the row softmax's too) by (route, input
-# dtype): the kernel source each reached, "dmma" csrc/dmma_gemm.cu and
-# ("simt", "int16" / "uint8" / "uint16" / "uint32") csrc/mxu_simt_int.cu.
+# dtype): the kernel source each reached, "dmma" csrc/dmma_gemm.cu,
+# ("wgmma", "int16" / "uint8" / "uint16" / "uint32" / "int32")
+# csrc/mxu_wgmma_int.cu and ("simt", the same types) csrc/mxu_simt_int.cu
+# (int32: csrc/mxu_gemm.cu).
 route_launches = collections.Counter()
 # The same for the launches with a generated epilogue (a Python callable,
 # ops/codegen.py: the route's tile in a library of its own).
@@ -715,6 +863,11 @@ tf32_operand.launches = 0
 # pass's launches (one a packed operand), each by input dtype.
 packed_launches = collections.Counter()
 pack_operand.launches = collections.Counter()
+# Integer engine launches of B1 and B2 on byte planes by input dtype, and
+# the split pass's launches (one an operand of int16 / uint16 / uint32 /
+# int32) by dtype.
+int_plane_launches = collections.Counter()
+int_split_operand.launches = collections.Counter()
 # Plain-version calls on CUDA tensors (the front door's backend="torch", or
 # a comparison): a callable epilogue on the card never falls back to it.
 mxu_matmul_plain.cuda_calls = 0

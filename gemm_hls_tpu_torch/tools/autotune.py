@@ -11,10 +11,11 @@ plan, and those are the knobs this tuner turns:
   route, the tile engine (``wgmma``, which packs an operand its TMA maps
   cannot read in place) or WMMA (``wmma``), in every layout and at every
   alignment; for fp32 the engine (TF32 passes) or the CUDA cores
-  (``simt``) (``dmma`` for float64, ``simt`` for fp32 into float64,
-  int32, int16, the unsigned ints and every other semiring: one route
-  each, so nothing to choose; a cached winner whose route cannot run the
-  dtype is a miss).  The winner is a :class:`GemmConfig`
+  (``simt``), and so for int16, uint8, uint16, uint32 and int32 (byte
+  planes on the int8 tensor cores, or the int32 multiply-add) (``dmma``
+  for float64, ``simt`` for fp32 and the integers into float64 and every
+  other semiring: one route each, so nothing to choose; a cached winner
+  whose route cannot run the dtype is a miss).  The winner is a :class:`GemmConfig`
   whose blocks are that route's compiled tile (``config.route_tile``);
 * batched (``.../Bbx MxNxK``): B2's route, the same two kernels;
 * ``flash`` (dims (B, S_q, S_kv, D), tag ``causal`` / ``full``): the
@@ -272,8 +273,8 @@ def candidate_configs(m: int, n: int, k: int, dtype: str, semiring: str,
     """The configs whose routes can run this problem: for plus_times the
     route rule's (the tile engine, in every layout and at every alignment)
     and the other kernel beside the engine (WMMA; the CUDA-core tile for
-    fp32); the CUDA-core tile for fp32 into float64, int32 and every other
-    semiring."""
+    fp32 and for int16, uint8, uint16, uint32 and int32); the CUDA-core tile
+    for every other semiring."""
     rule = _dense_rule(dtype, semiring)
     routes = [rule] + beside_engine(rule, dtype)
     return [GemmConfig(dtype=dtype, semiring=semiring,

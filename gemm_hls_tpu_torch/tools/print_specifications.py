@@ -9,8 +9,11 @@ port of ``gemm_hls_tpu/tools/print_specifications.py`` (the
 The blocks default to the tile of the kernel the call runs on the card
 (``config.route_config``: the tile engine's 128 x 256 for bf16 / fp16).
 A plus_times call on contiguous operands whose rows are not whole 16-byte
-units (or int8 B held (K, N)) is charged the pack pass's bytes
-(``config.pack_bytes``).
+units (or int8 / uint8 B held (K, N)) is charged the pack pass's bytes
+(``config.pack_bytes``).  int16, uint8, uint16, uint32 and int32 run on
+the engine as byte planes: the peak is the int8 rate over the plane pairs
+(``perf_model.plus_times_peak``), and the split's bytes are charged as the
+pack's are.
 ``--chip h100`` needs no card; without ``--chip`` the model is the local
 device's (``models.perf_model.detect_chip``: the CPU where there is no
 card).

@@ -89,7 +89,7 @@ def profile_matmul(m: int, n: int, k: int, *, dtype="float32",
     cfg = config or route_config(dtype, semiring=sr.name)
     packed = pack_bytes(dtype, m, n, k) if sr.is_mxu and dev.type == "cuda" else 0
     spec = specifications(cfg, m, n, k, chip=chip, semiring_is_mxu=sr.is_mxu,
-                          pack_bytes=packed)
+                          pack_bytes=packed, route=route)
     gf = gflops(m, n, k, secs)
     return {
         "measured_seconds": secs,

@@ -200,7 +200,7 @@ def test_cached_family_entry_guards(caches):
 @pytest.mark.parametrize("dtype,layout,routes", [
     ("bfloat16", "nn", ["wgmma", "wmma"]), ("float16", "tt", ["wgmma", "wmma"]),
     ("int8", "nn", ["wgmma", "wmma"]), ("int8", "nt", ["wgmma", "wmma"]),
-    ("float32", "nn", ["wgmma", "simt"]), ("int32", "nn", ["simt"])])
+    ("float32", "nn", ["wgmma", "simt"]), ("int32", "nn", ["wgmma", "simt"])])
 def test_candidate_configs_are_the_routes_that_run(dtype, layout, routes):
     cands = at.candidate_configs(1024, 1024, 1024, dtype, "plus_times", layout=layout)
     assert [at._MXU_ROUTE[c.route()] for c in cands] == routes

@@ -96,10 +96,11 @@ def test_batched_bf16(out, rtol):
 @pytest.mark.parametrize("ta,tb", LAYOUTS)
 @pytest.mark.parametrize("aligned", [True, False])
 def test_batched_route_rule(dtype, ta, tb, aligned):
-    # bf16 / fp16 / int8 / fp32 take the engine in every layout and at
-    # every alignment: an operand TMA cannot describe (a base, row pitch or
-    # batch stride off 16 bytes), or an int8 one that is not K-major, is
-    # packed K-major first (fp32 is split); every int32 call the CUDA cores.
+    # bf16 / fp16 / int8 / fp32 / int32 take the engine in every layout and
+    # at every alignment: an operand TMA cannot describe (a base, row pitch
+    # or batch stride off 16 bytes), or an int8 one that is not K-major, is
+    # packed K-major first (fp32 is split into TF32, int32 into byte
+    # planes: neither packs).
     dt = getattr(torch, dtype)
     per = 16 // dt.itemsize
     cols = 4 * per + (0 if aligned else 1)
@@ -107,8 +108,7 @@ def test_batched_route_rule(dtype, ta, tb, aligned):
     b = torch.zeros((3, cols, 8 * per), dtype=dt)
     ok = bool(mxu._vec_ok(a) and mxu._vec_ok(b))
     assert ok == aligned
-    want = "simt" if dtype == "int32" else "wgmma"
-    assert mxu.mxu_route(dt) == want
+    assert mxu.mxu_route(dt) == "wgmma"
     packs = packed_operands(dt, ta, tb, mxu._vec_ok(a), mxu._vec_ok(b))
     if dtype in ("float32", "int32"):
         assert packs == (False, False)

@@ -20,7 +20,7 @@ from gemm_hls_tpu.ops.semiring import get_semiring as jax_get_semiring
 
 from gemm_hls_tpu_torch import GemmConfig, default_config
 from gemm_hls_tpu_torch import _build
-from gemm_hls_tpu_torch.config import KERNEL_TILES, kernel_route
+from gemm_hls_tpu_torch.config import ENGINE_TILES, KERNEL_TILES, call_route, kernel_route
 from gemm_hls_tpu_torch.ops.semiring import available_semirings, get_semiring
 from gemm_hls_tpu_torch.utils import unaligned_sizes
 from gemm_hls_tpu_torch.utils.verify import tolerance_for
@@ -81,6 +81,10 @@ def test_tiling_law_matches_reference(blocks, dtype, out, mnk):
 def test_default_config_is_the_compiled_tile(dtype, semiring, route):
     cfg = default_config(dtype, semiring=semiring)
     assert kernel_route(dtype, semiring) == route
+    # The call itself takes the engine for every plus_times type it runs
+    # (int32 as byte planes since the integer route moved there).
+    engine = semiring == "plus_times" and dtype in ENGINE_TILES
+    assert call_route(dtype, semiring) == ("wgmma" if engine else route)
     assert (cfg.block_m, cfg.block_n, cfg.block_k) == KERNEL_TILES[route]
     cfg.validate(strict_alignment=True)
     assert cfg.smem_bytes() <= 48 * 1024  # static shared memory, no opt-in

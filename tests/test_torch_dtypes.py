@@ -31,7 +31,8 @@ from gemm_hls_tpu import GemmConfig as JaxConfig
 from gemm_hls_tpu import matmul as jax_matmul
 from gemm_hls_tpu_torch import _build, matmul
 from gemm_hls_tpu_torch.config import (
-    KERNEL_TILES, GemmConfig, call_route, default_config, kernel_route, named_route,
+    ENGINE_TILES, KERNEL_TILES, GemmConfig, call_route, default_config, kernel_route, named_route,
+    route_config,
 )
 from gemm_hls_tpu_torch.models.perf_model import H100
 from gemm_hls_tpu_torch.ops import mxu, vpu
@@ -192,13 +193,26 @@ def test_int64_plus_times_raises_in_both(batched):
 @pytest.mark.parametrize("ta,tb", chip_smoke.LAYOUTS)
 @pytest.mark.parametrize("aligned", [False, True])
 def test_plus_times_routes_of_the_new_types(dtype, ta, tb, aligned):
-    # The same route in every layout and at every alignment.
-    want = "dmma" if dtype == "float64" else "simt"
+    # The same route in every layout and at every alignment: float64 on the
+    # FP64 tensor cores, the integers on the engine as byte planes (the
+    # front door's default config names the CUDA-core tile, as fp32's does,
+    # and the launch takes the rule's route; route_config names the
+    # engine's tile).
+    want = "dmma" if dtype == "float64" else "wgmma"
+    tile = "dmma" if dtype == "float64" else "simt"
     assert call_route(dtype, "plus_times") == want
     assert mxu.mxu_route(getattr(torch, dtype)) == want
-    assert kernel_route(dtype) == want
+    assert kernel_route(dtype) == tile
     cfg = default_config(dtype).validate(strict_alignment=True)
-    assert cfg.route() == want and (cfg.block_m, cfg.block_n, cfg.block_k) == KERNEL_TILES[want]
+    assert cfg.route() == tile and (cfg.block_m, cfg.block_n, cfg.block_k) == KERNEL_TILES[tile]
+    if want == "wgmma":
+        cfg = route_config(dtype, transpose_a=ta, transpose_b=tb).validate(strict_alignment=True)
+        assert cfg.route() == "wgmma"
+        assert (cfg.block_m, cfg.block_n, cfg.block_k) == ENGINE_TILES[dtype]
+        # Into float64 / int64, which the engine does not store: the CUDA cores.
+        for out in ("float64", "int64"):
+            assert call_route(dtype, "plus_times", out) == "simt"
+            assert mxu.mxu_route(getattr(torch, dtype), getattr(torch, out)) == "simt"
 
 
 @pytest.mark.parametrize("dtype", FLOATS + INTS)

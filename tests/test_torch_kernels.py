@@ -1699,3 +1699,63 @@ def test_tuned_engine_winner_of_fp32_is_not_adopted_into_float64(cuda, tmp_path,
     got = matmul(a3, b3, out_dtype="float64")
     assert got.dtype == torch.float64 and mxu.mxu_matmul_batched.last_route == "simt"
     assert torch.allclose(got, torch.matmul(a3.double(), b3.double()), rtol=1e-4, atol=1e-3)
+
+
+# ---- slice 26: B1 / B2's integers on the int8 tensor cores -----------------
+# chip_smoke.py phase 35: the byte-plane split bit for bit its plain
+# version; each integer type on the engine, 2-D and batched, four layouts,
+# odd pitches, ragged K, the wrap past 2^31 (uint8 all 255 at K 40000, int32
+# full range), equal bit for bit to its plain version, the plain walk of
+# byte-plane products and the CUDA-core tile named; int8 into int16 and the
+# unsigned ints; a callable epilogue on int16 on the engine (and the CUDA
+# cores, named); 20 same-bits launches.
+
+@pytest.mark.parametrize("case", chip_smoke.INT_SPLIT_CASES, ids=str)
+def test_int_split_is_its_plain_version_byte_for_byte(cuda, case):
+    chip_smoke.int_split_case(torch, _gen(2601), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.INT_ROUTE_CASES, ids=str)
+def test_int_engine_equals_plain_walk_and_cuda_cores(cuda, case):
+    chip_smoke.int_route_case(torch, _gen(2602), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.INT8_WIDE_OUT_CASES, ids=str)
+def test_int8_into_wide_integer_outputs_on_the_engine(cuda, case):
+    chip_smoke.wide_b1_case(torch, _gen(2603), case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.INT_GEN_EPILOGUE_CASES, ids=str)
+@pytest.mark.parametrize("route", [None, "simt"])
+def test_int16_callable_epilogue_on_the_engine(cuda, case, route):
+    before = mxu.generated_launches["wgmma", "int16"]
+    chip_smoke.gen_epilogue_case(torch, _gen(2604), case, route)
+    assert mxu.generated_launches["wgmma", "int16"] - before == (route is None)
+
+
+def test_int_engine_launches_repeat_bitwise(cuda):
+    gen = _gen(2605)
+    a = chip_smoke.wide_operand(torch, gen, 1000, 1100, torch.int32)
+    b = chip_smoke.wide_operand(torch, gen, 1030, 1100, torch.int32)
+    cfg = default_config(torch.int32)
+    first = mxu.mxu_matmul(a, b, cfg=cfg, transpose_b=True)
+    assert mxu.mxu_matmul.last_route == "wgmma" and mxu.mxu_matmul.last_int_planes == 4
+    for _ in range(chip_smoke.INT_REPEATS - 1):
+        assert torch.equal(first, mxu.mxu_matmul(a, b, cfg=cfg, transpose_b=True))
+
+
+@pytest.mark.parametrize("dtype", chip_smoke.INT_ENGINE_DTYPES)
+def test_int_front_door_takes_the_engine(cuda, dtype):
+    # The main path's layout (B held (K, N)), 2-D and batched: the split (or
+    # uint8's pack) and one engine launch, exact.
+    gen = _gen(2606)
+    dt = getattr(torch, dtype)
+    for lead in ((), (3,)):
+        a = chip_smoke.wide_operand(torch, gen, 300, 520, dt, lead=lead)
+        b = chip_smoke.wide_operand(torch, gen, 520, 260, dt, lead=lead)
+        splits = chip_smoke.split_count()
+        got = matmul(a, b)
+        wrapper = mxu.mxu_matmul_batched if lead else mxu.mxu_matmul
+        assert wrapper.last_route == "wgmma" and got.dtype == dt
+        assert chip_smoke.split_count() - splits == (0 if dtype == "uint8" else 2)
+        assert torch.equal(got, matmul(a, b, backend="torch"))

@@ -162,11 +162,10 @@ def test_route_of_int8_inputs(ta, tb, aligned):
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_route_of_cuda_core_inputs(dtype, aligned):
-    # Wrapping int32 stays on the CUDA cores; fp32 takes the engine's TF32
-    # passes at every alignment (the split pass reads any pitch), packing
+    # fp32 takes the engine's TF32 passes and wrapping int32 its byte
+    # planes at every alignment (each split pass reads any pitch), packing
     # nothing.
-    want = "wgmma" if dtype == "float32" else "simt"
-    assert mxu.mxu_route(getattr(torch, dtype)) == want
+    assert mxu.mxu_route(getattr(torch, dtype)) == "wgmma"
     assert packed_operands(dtype, False, True, aligned, aligned) == (False, False)
 
 

@@ -123,7 +123,7 @@ def test_format_specifications():
     ("int8", "plus_times", True, True, True, "wgmma"),
     ("float32", "plus_times", False, False, True, "wgmma"),
     ("float32", "plus_times", True, False, False, "wgmma"),
-    ("int32", "plus_times", False, False, True, "simt"),
+    ("int32", "plus_times", False, False, True, "wgmma"),
     ("bfloat16", "min_plus", False, False, True, "simt"),
 ])
 def test_route_config_follows_mxu_route(dtype, semiring, ta, tb, aligned, route):
@@ -192,3 +192,59 @@ def test_default_config_stays_the_front_doors():
     assert (default_config("bfloat16").block_m, default_config("bfloat16").block_n) == (128, 128)
     with pytest.raises(ValueError, match="compiled tile"):
         route_config("bfloat16").validate(strict_alignment=True, route="tc")
+
+
+@pytest.mark.parametrize("dtype,passes", [("uint8", 1), ("int16", 4), ("uint16", 4),
+                                          ("uint32", 10), ("int32", 10)])
+def test_int_split_bound_counts_the_plane_pairs(dtype, passes):
+    # B1 / B2's integers on the engine: slice_passes(planes, 4) products of
+    # 2 M N K at the int8 rate (1 / 4 / 10), the split's bytes added (uint8:
+    # the pack's, 0 in place); the CUDA-core tile's IMAD rate stays its own.
+    from gemm_hls_tpu_torch.config import INT_PLANES, int_split_bytes
+    m, n, k = 4096, 2048, 1000
+    assert pm.slice_passes(INT_PLANES[dtype], 4) == passes
+    products = passes * 2.0 * m * n * k / pm.H100.peak_for("int8")
+    before = 0 if dtype == "uint8" else int_split_bytes(dtype, m, n, k) / pm.H100.hbm_bandwidth
+    t, by = pm.int_split_bound(pm.H100, dtype, m, n, k)
+    assert by == "operations" and t == pytest.approx(products + before, rel=1e-12)
+    # Batched: every example's products and bytes.
+    assert pm.int_split_bound(pm.H100, dtype, m, n, k, batch=3)[0] == pytest.approx(3 * t,
+                                                                                  rel=1e-12)
+    # The engine's tile and shared memory are int8's: one byte a K value.
+    assert route_config(dtype).route() == "wgmma"
+    assert route_config(dtype).smem_bytes() == route_config("int8", transpose_b=True).smem_bytes()
+    if dtype != "uint8":  # the tensor cores take uint8 at the int8 rate
+        assert pm.H100.peak_for(dtype) < pm.H100.peak_for("int8") / 10
+
+
+def test_print_specifications_prints_the_byte_plane_bound(capsys):
+    # The integers on the engine are charged the int8 rate over their plane
+    # pairs and the split's bytes, in specifications itself.
+    from gemm_hls_tpu_torch.config import int_split_bytes
+    from gemm_hls_tpu_torch.tools import print_specifications
+    spec = print_specifications.main(["4096", "4096", "4096", "--dtype", "int32",
+                                      "--chip", "h100"])
+    out = capsys.readouterr().out
+    assert spec["peak_flops"] == pytest.approx(pm.H100.peak_for("int8") / 10, rel=1e-12)
+    assert spec["ideal_runtime_s"] == pytest.approx(0.6945e-3, rel=1e-3)
+    assert spec["split_bytes"] == int_split_bytes("int32", 4096, 4096, 4096)
+    assert "Byte-plane split" in out and f"{spec['peak_flops'] / 1e9:.1f} GOp/s" in out
+    assert spec["expected_runtime_s"] >= spec["ideal_runtime_s"] + spec["split_s"]
+
+
+@pytest.mark.parametrize("dtype", ["int16", "uint8", "uint16", "uint32", "int32"])
+def test_engine_integer_share_of_peak_stays_under_100(dtype):
+    # run.py and profile.py read the peak of the route the call took: a
+    # time at the function's floor on the engine is at most 100% of it,
+    # while the CUDA-core tile named keeps the int32 multiply-add's peak.
+    from gemm_hls_tpu_torch.utils.benchmark import gflops, percent_of_peak
+    n = 4096
+    floor, by = pm.int_gemm_bound(pm.H100, dtype, n, n, n)
+    assert by == "operations"
+    for cfg, route in ((route_config(dtype), None), (default_config(dtype), "wgmma")):
+        spec = pm.specifications(cfg, n, n, n, chip=pm.H100, route=route)
+        assert spec["peak_flops"] == pm.plus_times_peak(pm.H100, dtype, "wgmma")
+        assert percent_of_peak(gflops(n, n, n, floor), spec["peak_flops"]) <= 100.0 + 1e-9
+        assert spec["percent_of_peak"] <= 100.0
+    simt = pm.specifications(default_config(dtype), n, n, n, chip=pm.H100)
+    assert simt["peak_flops"] == pm.H100.peak_for(dtype) and "split_bytes" not in simt
