@@ -424,6 +424,25 @@ Phases, each printed as it ends:
      beside the function's bound (``perf_model.int_gemm_bound``) and the
      design's, the split's or pack's bytes added
      (``perf_model.int_split_bound``).
+ 36. slice 27, B3's float16 and bfloat16 under the order semirings into
+     their own type on packed pairs (``csrc/packed_gemm.cuh``, route
+     "packed", ``ops.vpu.b3_route``): (a) the rates B3's bound counts
+     (``csrc/b3_probe.cu``'s throughput loops, ``tools/b3_ab.py``), each
+     instruction and each term's sequence in lanes a clock an SM, beside
+     ``perf_model.B3_PIPES``; (b) every pair of 16-bit values under add,
+     mul, min.NaN and max.NaN on .f16x2 and .bf16x2 against the scalar
+     tile's fp32 instruction rounded to the type, bit for bit; then
+     B3_PACKED_CASES (both types, every packed semiring, the four layouts
+     aligned and not, odd pitches, K tails, +-0 / +-inf / NaN /
+     subnormals / sums and products past the largest finite value,
+     batched and broadcast, a batch past gridDim.z), each on the packed
+     route bit for bit the scalar tile named and exact against the plain
+     version; (c) counts set to 0 before and read after, the main path:
+     each type under each packed semiring at 4096^3 through the front
+     door, the route checked, bit for bit the scalar tile and exact
+     against the plain version; then each in turns on CUDA events
+     (scalar, packed, packed, scalar) beside its bound, fp32 min_plus,
+     uint32 max_min and int32 min_plus / max_min timed as controls.
 
 Slice 3's checks: B4 equal to its plain version exactly (every int32
 diagonal is exact and the fp32 combine runs in the same order), B5's
@@ -1188,6 +1207,7 @@ def reset_counters():
     mxu.int_split_operand.launches.clear()
     vpu.vpu_matmul.launches = 0
     vpu.vpu_matmul.dtype_launches.clear()
+    vpu.vpu_matmul.route_launches.clear()
     vpu.vpu_matmul.generated_launches.clear()
     mxu.generated_launches.clear()
     slice_kernels.fused_int8_fp32.launches = 0
@@ -3097,6 +3117,7 @@ def phase_slice4(torch):
     # Padded-cache decode, 8 steps (experiments/serving_bench.py:150-161).
     kc, vc, lens = decode_cache(torch, gen)
     worst = 0.0
+    decode_before = flash.flash_mha.launches
     for step in range(8):
         qd = torch.randn((64, 1, 16, 128), generator=gen, device="cuda", dtype=bf16)
         kn, vn = (torch.randn((64, 1, 4, 128), generator=gen, device="cuda",
@@ -3114,6 +3135,7 @@ def phase_slice4(torch):
     route = main_route(flash.flash_mha, "decode", flash.flash_route(bf16, 128, 4, True))
     log(f"phase 14c: padded-cache decode, 64 sequences x 4096 slots, H_q 16, "
         f"H_kv 4, D 128, 8 steps through the 4-D decode fast path: route {route}, "
+        f"{flash.flash_mha.launches - decode_before} flash_fwd launches, "
         f"lengths now {int(lens.min())}-{int(lens.max())}, max abs err {worst:.3e}")
     del kc, vc
     # One training step's gradient through flash_attention(causal=True).
@@ -3406,6 +3428,38 @@ def phase_times4(torch):
     out["bound decode"] = bound[0] * 1e3
     log(f"phase 15: decode attention bound at mean length {mean_len:.0f}: "
         f"{bound[0] * 1e3:.4f} ms ({bound[1]})")
+    # The one PyTorch call that computes the decode step's attention: SDPA
+    # on (B, H, S, D) views of the cache, a length mask, GQA's groups (a
+    # yardstick; the port never calls it), device time in turns with the
+    # kernel's route.  SDPA multiplies the masked slots' values by zero
+    # weights, so it reads a copy of the cache whose stale slots (NaN / inf,
+    # stale_slots) are zeroed; the live slots are the kernel's.
+    import torch.nn.functional as F
+    live = torch.arange(kc.shape[1], device="cuda") < lens.long()[:, None]
+    mask = live[:, None, None, :]
+    kz, vz = (torch.where(live[:, :, None, None], x, 0) for x in (kc, vc))
+    qs, ks, vs = qd.transpose(1, 2), kz.transpose(1, 2), vz.transpose(1, 2)
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    def kernel_decode():
+        return flash_attention(qd, kc, vc, causal=True, kv_lengths=lens)
+    def plain_decode():
+        return flash.flash_fwd_plain(qd.reshape(64 * 4, 4, 128), flash._pack(kc),
+                                     flash._pack(vc), lens.repeat_interleave(4),
+                                     scale=128 ** -0.5)[0]
+    compare(torch, kernel_decode(), sdpa_decode().transpose(1, 2), BF16_RTOL,
+            "decode attention vs SDPA", scaled=True)
+    turns = time_turns(torch, {"kernel": kernel_decode, "SDPA": sdpa_decode,
+                               "plain": plain_decode})
+    out["decode kernel"], out["decode SDPA"] = turns["kernel"], turns["SDPA"]
+    out["decode plain"] = turns["plain"]
+    del kz, vz
+    log(f"phase 15: decode attention 64x4096 H16/4 device time in turns: the port "
+        f"{turns['kernel']:.4f} ms (route {flash.flash_mha.last_route}), SDPA with a length "
+        f"mask and enable_gqa=True {turns['SDPA']:.4f} ms, the plain version "
+        f"{turns['plain']:.4f} ms; bound {bound[0] * 1e3:.4f} ms")
     del kc, vc
     xs = [torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
           .requires_grad_() for _ in range(3)]
@@ -7420,7 +7474,8 @@ def phase_slice21(torch):
         isz = x.element_size()
         readings[f"B3 {sr} {dt}"] = dict(
             ms=t["kernel"], plain_ms=t["plain"], library_ms=None, max_abs_err=0.0,
-            bound=H100.bound(2.0 * nb3 ** 3, H100.vpu_ops_for(dt), 3 * nb3 * nb3 * isz))
+            bound=H100.bound(2.0 * nb3 ** 3, H100.vpu_ops_for(dt, sr, dt),
+                             3 * nb3 * nb3 * isz))
     # B1 int16 / uint8: the CUDA-core tile, named (the rule's engine route
     # is phase 35's), beside the engine and the plain version.
     named = mxu.route_launches.copy()
@@ -9433,6 +9488,236 @@ def phase_slice26(torch, lib_log):
                       **ptxas_report(lib_log, "PlanePut")}}
 
 
+# ---------------------------------------------------------------------------
+# Slice 27 (phase 36): B3's 16-bit floats on packed pairs
+# (csrc/packed_gemm.cuh, route "packed")
+# ---------------------------------------------------------------------------
+
+PACKED_DTYPES = ("float16", "bfloat16")
+PACKED_SEMIRINGS = ("min_plus", "max_plus", "max_min", "min_max", "max_times")
+# Values an "edge" operand sprinkles in (10% of its elements): +-inf, NaN,
+# +-0, the largest finite value and its negative, a value that takes it
+# past the largest one in a sum (float16 65504 + 16 = 65520 rounds to inf)
+# or a product, the least subnormal and normal magnitudes, and values whose
+# products fall among the subnormals (bfloat16: below fp32's normal range).
+PACKED_SPECIALS = {
+    "float16": (float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 65504.0, -65504.0, 16.0,
+                300.0, 2.0 ** -24, -(2.0 ** -24), 2.0 ** -14, 1e-4),
+    "bfloat16": (float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 3.3895313892515355e38,
+                 -3.3895313892515355e38, 1e38, 2.0 ** -133, -(2.0 ** -133), 2.0 ** -126,
+                 1e-20, 3e-25),
+}
+# (dtype, semiring, ta, tb, batch, M, N, K, values, layout, broadcast), in
+# wide_operand's layouts: min_plus and max_times (the add and the multiply)
+# in the four layouts with 16-byte rows (the copies and 16-byte loads) and
+# without (odd M, K, one-element reads), the other semirings in one; every
+# semiring on the edge values, both operands transposed with odd pitches
+# and a K tail, and untransposed; batched with a broadcast a or b (pitched
+# rows); a batch past gridDim.z; 1 x 1 x 1, K 1, M and N past the tile.
+B3_PACKED_CASES = (
+    [(dt, sr, ta, tb, None, m, n, k, "rand", "dense", None) for dt in PACKED_DTYPES
+     for sr in ("min_plus", "max_times") for ta, tb in LAYOUTS
+     for m, n, k in ((136, 264, 72), (130, 200, 67))]
+    + [(dt, sr, False, False, None, 136, 264, 72, "rand", "dense", None) for dt in PACKED_DTYPES
+       for sr in ("max_plus", "max_min", "min_max")]
+    + [(dt, sr, True, True, None, 77, 90, 33, "edge", "odd", None) for dt in PACKED_DTYPES
+       for sr in PACKED_SEMIRINGS]
+    + [(dt, sr, False, False, None, 136, 264, 40, "edge", "dense", None) for dt in PACKED_DTYPES
+       for sr in PACKED_SEMIRINGS]
+    + [(dt, "min_plus", ta, tb, 3, 64, 72, 17, "rand", "pitched", bc) for dt in PACKED_DTYPES
+       for (ta, tb), bc in (((False, False), "b"), ((True, True), "a"))]
+    + [("float16", "max_plus", False, True, 70_000, 3, 8, 8, "rand", "dense", None),
+       ("bfloat16", "min_max", False, False, None, 1, 1, 1, "rand", "dense", None),
+       ("float16", "max_min", True, False, None, 129, 7, 1, "edge", "odd", None),
+       ("bfloat16", "max_times", False, True, None, 257, 300, 3, "edge", "pitched", None)]
+)
+SLICE27 = dict(size=4096)
+
+
+def packed_operand(torch, gen, rows, cols, dtype, values="rand", layout="dense", lead=()):
+    """wide_operand's U(-1, 1) operand; "edge": PACKED_SPECIALS sprinkled
+    in place, the layout kept."""
+    x = wide_operand(torch, gen, rows, cols, dtype, "rand", layout, lead)
+    if values == "edge":
+        specials = torch.tensor(PACKED_SPECIALS[str(dtype).removeprefix("torch.")],
+                                dtype=torch.float64, device="cuda").to(dtype)
+        pick = torch.randint(len(specials), x.shape, generator=gen, device="cuda")
+        mask = torch.rand(x.shape, generator=gen, device="cuda") < 0.1
+        x.copy_(torch.where(mask, specials[pick], x))
+    return x
+
+
+def bits_differ(torch, got, ref):
+    """Elements whose 16-bit patterns differ."""
+    return int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+
+
+def packed_case(torch, gen, case):
+    """One B3_PACKED_CASES case: the rule's route (checked "packed") bit for
+    bit the scalar tile named, and exact against the plain version (NaN and
+    +-inf at the same places, zeros by value); returns (the abs error, the
+    outputs whose bits differ from the plain version's: a zero's sign or a
+    NaN's payload)."""
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.ops import vpu
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+    dt, sr, ta, tb, bsz, m, n, k, values, layout, bcast = case
+    dtype = getattr(torch, dt)
+    a = packed_operand(torch, gen, *((k, m) if ta else (m, k)), dtype, values, layout,
+                       () if bsz is None or bcast == "a" else (bsz,))
+    b = packed_operand(torch, gen, *((n, k) if tb else (k, n)), dtype, values, layout,
+                       () if bsz is None or bcast == "b" else (bsz,))
+    kw = dict(cfg=default_config(dtype, semiring=sr, out_dtype=dt), sr=get_semiring(sr),
+              transpose_a=ta, transpose_b=tb)
+    got = vpu.vpu_matmul(a, b, **kw)
+    if vpu.vpu_matmul.last_route != "packed":
+        raise AssertionError(f"B3 {case}: route {vpu.vpu_matmul.last_route}")
+    bad = bits_differ(torch, got, vpu.vpu_matmul(a, b, route="simt", **kw))
+    if bad:
+        raise AssertionError(f"B3 {case}: {bad} outputs' bits differ from the scalar tile's")
+    plain = vpu.vpu_matmul_plain(a, b, **kw)
+    return (compare(torch, got, plain, 0.0, f"B3 packed {case}")[0],
+            bits_differ(torch, got, plain))
+
+
+def phase_slice27(torch, lib_log):
+    """Phase 36: slice 27, B3's float16 and bfloat16 order semirings on
+    packed pairs.  (a) ``tools.b3_ab.issue_rates``: every SEQUENCES loop
+    of csrc/b3_probe.cu, in lanes (results, or terms) a clock an SM,
+    beside the pipes ``perf_model.B3_PIPES`` counts; (b)
+    ``tools.b3_ab.pair_checks``: every 16-bit pair under each packed
+    instruction against the scalar tile's fp32 instruction rounded to the
+    type, none differing (NaN payloads included); B3_PACKED_CASES; (c)
+    every launch count set to 0 just before and read just after, the main
+    path: float16 and bfloat16 under each packed semiring at 4096^3
+    through the front door (U(-1, 1), a NaN, +inf, -inf and -0 planted),
+    the route "packed", bit for bit the scalar tile named and exact
+    against the plain version; then each on CUDA events in turns (scalar,
+    packed, packed, scalar, ...) beside ``ChipSpec.vpu_ops_for``'s bound,
+    and fp32 min_plus, uint32 max_min and int32 min_plus / max_min on the
+    scalar tile as controls; the scalar tile's min_plus on the float16
+    operands and their bfloat16 and fp32 copies in one set of turns.
+    Returns the readings for the kernels line."""
+    from gemm_hls_tpu_torch import _build, matmul
+    from gemm_hls_tpu_torch.config import default_config
+    from gemm_hls_tpu_torch.models.perf_model import B3_PIPES, H100
+    from gemm_hls_tpu_torch.ops import vpu
+    from gemm_hls_tpu_torch.ops.semiring import get_semiring
+    from gemm_hls_tpu_torch.tools import b3_ab
+
+    t_start = time.perf_counter()
+    lib = _build.library()
+    rates = b3_ab.issue_rates(lib)
+    log("phase 36a: lanes a clock an SM (csrc/b3_probe.cu, median block, one 1024-thread block "
+        "an SM): " + ", ".join(f"{k} {v:.2f} {w}" for k, (v, w) in rates.items())
+        + f"; perf_model.B3_PIPES counts {B3_PIPES} (the CUDA C++ Programming Guide, cc 9.0)")
+    pairs = b3_ab.pair_checks(lib)
+    bad = {k: v for k, v in pairs.items() if v[0] or v[1]}
+    if bad:
+        raise AssertionError(f"phase 36b: packed instructions differ from the scalar tile's "
+                             f"term: {bad}")
+    log(f"phase 36b: all 2^32 pairs of {', '.join(sorted({k[0] for k in pairs}))} under "
+        f"{', '.join(sorted({k[1] for k in pairs}))} on pairs: bit for bit the fp32 instruction "
+        f"rounded to the type (NaN payloads included)")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    res = [packed_case(torch, gen, c) for c in B3_PACKED_CASES]
+    worst, plain_bits = max(r[0] for r in res), sum(r[1] for r in res)
+    log(f"phase 36b: B3_PACKED_CASES {len(B3_PACKED_CASES)} (both types, every packed semiring, "
+        f"four layouts aligned and not, odd pitches, K tails, edge values, batched and "
+        f"broadcast, batch 70000, 1 x 1 x 1): route packed, bit for bit the scalar tile, exact "
+        f"against plain (worst abs err {worst:.3e}; outputs whose bits differ from plain's, a "
+        f"zero's sign or a NaN's payload: {plain_bits})")
+
+    reset_counters()
+    t0 = time.perf_counter()
+    n = SLICE27["size"]
+    ops = {}
+    for dt in PACKED_DTYPES:
+        dtype = getattr(torch, dt)
+        x = signed(torch, (n, n), dtype, gen)
+        y = signed(torch, (n, n), dtype, gen)
+        x[5, 100], x[9, 17], y[33, 7], x[11, 0] = float("nan"), float("inf"), float("-inf"), -0.0
+        for sr in PACKED_SEMIRINGS:
+            got = matmul(x, y, semiring=sr)
+            if vpu.vpu_matmul.last_route != "packed":
+                raise AssertionError(f"36c: {dt} {sr} on {vpu.vpu_matmul.last_route}")
+            kw = dict(cfg=default_config(dtype, semiring=sr), sr=get_semiring(sr))
+            bad = bits_differ(torch, got, vpu.vpu_matmul(x, y, route="simt", **kw))
+            if bad:
+                raise AssertionError(f"36c: {dt} {sr} {n}^3: {bad} outputs differ from the "
+                                     f"scalar tile's")
+            plain = vpu.vpu_matmul_plain(x, y, **kw)
+            compare(torch, got, plain, 0.0, f"36c {dt} {sr} {n}^3")
+            plain_bits += bits_differ(torch, got, plain)
+            del got, plain
+        ops[dt] = (x, y)
+    launches = dict(counters(), routes=dict(vpu.vpu_matmul.route_launches))
+    log(f"phase 36c: float16 and bfloat16 under {', '.join(PACKED_SEMIRINGS)} at {n}^3 through "
+        f"the front door: route packed, bit for bit the scalar tile named, exact against plain "
+        f"(outputs whose bits differ from plain's, with 36b's: {plain_bits}); main-path "
+        f"launches {launches}")
+    packed = {dt: vpu.vpu_matmul.route_launches["packed", dt] for dt in PACKED_DTYPES}
+    if not all(packed.values()):
+        raise AssertionError(f"phase 36: the packed tile was not launched: {launches}")
+    main_s = time.perf_counter() - t0
+
+    readings = {}
+    for dt, (x, y) in ops.items():
+        for sr in PACKED_SEMIRINGS:
+            kw = dict(cfg=default_config(getattr(torch, dt), semiring=sr), sr=get_semiring(sr))
+            t = b3_ab.turns({"simt": lambda: vpu.vpu_matmul(x, y, route="simt", **kw),
+                             "packed": lambda: vpu.vpu_matmul(x, y, **kw)})
+            readings[f"{dt} {sr}"] = dict(t, bound=H100.bound(
+                2.0 * n ** 3, H100.vpu_ops_for(dt, sr, dt), 3 * n * n * 2))
+    plain_ms = {}
+    for dt, (x, y) in ops.items():
+        kw = dict(cfg=default_config(getattr(torch, dt), semiring="min_plus"),
+                  sr=get_semiring("min_plus"))
+        plain_ms[dt] = event_turns(torch, {"plain": lambda: vpu.vpu_matmul_plain(x, y, **kw)},
+                                   rounds=1, iters=1)["plain"]
+    # The scalar tile's min_plus on the float16 operands and their bfloat16
+    # and fp32 copies, in one set of turns (the 16-bit types' cost there).
+    xf, yf = ops["float16"][0].float(), ops["float16"][1].float()
+    scalar = {dt: (xf.to(getattr(torch, dt)), yf.to(getattr(torch, dt)),
+                   dict(cfg=default_config(getattr(torch, dt), semiring="min_plus"),
+                        sr=get_semiring("min_plus")))
+              for dt in ("float16", "bfloat16", "float32")}
+    scalar_ms = b3_ab.turns({dt: (lambda a=a, b=b, k=k: vpu.vpu_matmul(a, b, route="simt", **k))
+                             for dt, (a, b, k) in scalar.items()})
+    del ops, x, y, xf, yf, scalar
+    controls = {}
+    for dt, sr in (("float32", "min_plus"), ("uint32", "max_min"), ("int32", "min_plus"),
+                   ("int32", "max_min")):
+        x, y = b3_ab.operand(dt, gen), b3_ab.operand(dt, gen)
+        kw = dict(cfg=default_config(getattr(torch, dt), semiring=sr), sr=get_semiring(sr))
+        t = b3_ab.turns({"simt": lambda: vpu.vpu_matmul(x, y, **kw)})
+        t.update(event_turns(torch, {"plain": lambda: vpu.vpu_matmul_plain(x, y, **kw)},
+                             rounds=1, iters=1))
+        controls[f"{dt} {sr}"] = dict(t, bound=H100.bound(
+            2.0 * n ** 3, H100.vpu_ops_for(dt, sr, dt), 3 * n * n * x.element_size()))
+        del x, y
+    torch.cuda.empty_cache()
+    for key, r in {**readings, **controls}.items():
+        b = r["bound"][0] * 1e3
+        line = f"phase 36c: {key} {n}^3 in turns: simt {r['simt']:.3f} ms ({b / r['simt']:.1%})"
+        if "packed" in r:
+            line += (f", packed {r['packed']:.3f} ms ({b / r['packed']:.1%}; "
+                     f"{r['simt'] / r['packed']:.2f}x the scalar tile)")
+        if "plain" in r:
+            line += f", plain {r['plain']:.3f} ms"
+        log(line + f"; bound {b:.3f} ms ({r['bound'][1]})")
+    log(f"phase 36c: plain min_plus {n}^3 " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                                       plain_ms.items()) + "; the scalar tile's "
+        f"min_plus in one set of turns: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                                      scalar_ms.items()))
+    log(f"phase 36: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
+    return {"launches": launches, "packed_launches": packed, "readings": readings,
+            "controls": controls, "plain_ms": plain_ms, "scalar_ms": scalar_ms, "rates": rates,
+            "pairs": {f"{dt} {op}": list(v[:2]) for (dt, op), v in pairs.items()},
+            "cases": len(B3_PACKED_CASES), "worst": worst, "plain_bits": plain_bits,
+            "ptxas": ptxas_report(lib_log, "packed_gemm_kernel")}
+
+
 def normwise_of(torch, got, ref):
     """|got - ref| / |ref| (Frobenius), ``ref`` in float64."""
     return float(torch.linalg.norm(got.double() - ref) / torch.linalg.norm(ref))
@@ -9567,6 +9852,7 @@ def main() -> int:
     slice24 = phase_slice24(torch, lib_log, par20, par20_times)
     slice25 = phase_slice25(torch, lib_log)
     slice26 = phase_slice26(torch, lib_log)
+    slice27 = phase_slice27(torch, lib_log)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
 
@@ -9667,7 +9953,15 @@ def main() -> int:
             "flash_wgmma.cu" if name == "flash_fwd" else "flash_bwd_wgmma.cu"),
             kernel_route=t["route"], other_route=t["other_route"], other_ms=t["other_ms"])
         if name == "flash_fwd":
-            kernels[-1]["library_note"] = f"library_ms is {t['library']}"
+            kernels[-1]["library_note"] = (
+                f"library_ms is {t['library']}; decode_ms the padded-cache decode step's "
+                "attention (64 x 4096 slots, H_q 16 / H_kv 4, D 128; csrc/flash_fwd.cu) and "
+                "decode_library_ms F.scaled_dot_product_attention with a length mask and "
+                "enable_gqa=True, device time in turns")
+            kernels[-1].update(decode_ms=times4["decode kernel"],
+                               decode_library_ms=times4["decode SDPA"],
+                               decode_plain_ms=times4["decode plain"],
+                               decode_bound_ms=times4["bound decode"])
         elif name == "flash_bwd_dq":
             kernels[-1]["library_note"] = ("SDPA's backward yields dq, dk and dv in one "
                                            "call: its time is on flash_bwd_dkv, beside "
@@ -10037,6 +10331,37 @@ def main() -> int:
                      "kernel: the TPU's int32 dot multiplies these types whole, Hopper's tensor "
                      "cores take 8-bit integers only; ms and plain_ms each split both A "
                      "and B")
+    # Slice 27 (phase 36): B3's float16 / bfloat16 order semirings on packed
+    # pairs, with their launches on phase 36's main path, each (type,
+    # semiring) in turns beside the scalar tile, the rates and the pair
+    # checks behind the bound and the route.
+    r27 = slice27["readings"]
+    t = r27["float16 min_plus"]
+    kernels.append(kernel(
+        "semiring_gemm packed (B3 float16 / bfloat16 under min_plus, max_plus, max_min, "
+        "min_max, max_times into their own type: two terms an instruction on .f16x2 / .bf16x2 "
+        "pairs; float16 min_plus 4096^3)", "gemm_hls_tpu_torch/csrc/packed_gemm.cuh",
+        "gemm_hls_tpu/ops/pallas_vpu.py:56", sum(slice27["packed_launches"].values()),
+        dict(ms=t["packed"], plain_ms=slice27["plain_ms"]["float16"],
+             max_abs_err=slice27["worst"]),
+        t["bound"], None))
+    kernels[-1].update(
+        kernel_route="packed", other_route="simt", other_ms=t["simt"],
+        launches_by_dtype=slice27["packed_launches"],
+        semirings_4096={k: dict(packed_ms=r["packed"], simt_ms=r["simt"],
+                                bound_ms=r["bound"][0] * 1e3) for k, r in r27.items()},
+        controls_4096={k: dict(simt_ms=r["simt"], plain_ms=r["plain"],
+                               bound_ms=r["bound"][0] * 1e3)
+                       for k, r in slice27["controls"].items()},
+        plain_min_plus_4096_ms=slice27["plain_ms"],
+        scalar_min_plus_4096_ms=slice27["scalar_ms"],
+        lanes_a_clock={k: v[0] for k, v in slice27["rates"].items()},
+        pair_checks=slice27["pairs"], cases=slice27["cases"], ptxas=slice27["ptxas"],
+        plain_bits_differ=slice27["plain_bits"],
+        library_note="no PyTorch call computes a min / max semiring product: library_ms null; "
+                     "other_ms is the scalar tile (csrc/simt_gemm.cuh) named on the same "
+                     "operands in the same turns; max_abs_err is the worst of phase 36's "
+                     "checks against the plain version (exact)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

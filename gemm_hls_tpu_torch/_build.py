@@ -287,11 +287,20 @@ def _declare(lib):
     # B2's row softmax on the tile engine: (..., in_code, out_code, stream).
     lib.row_softmax_wgmma.restype = i32
     lib.row_softmax_wgmma.argtypes = gemm + [i32, i32, vp]
+    # B3: (..., in_code, out_code, op, packed, stream); packed picks the
+    # packed tile (ops/vpu.py::b3_route).
     lib.semiring_gemm.restype = i32
-    lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, vp]
+    lib.semiring_gemm.argtypes = gemm + [i32, i32, i32, i32, vp]
     # B3 float64's slice forms: (unsigned long long[2] out, reset).
     lib.semiring_f64_forms.restype = i32
     lib.semiring_f64_forms.argtypes = [vp, i32]
+    # B3's measurement kernels (csrc/b3_probe.cu): a throughput loop (seq,
+    # blocks, iters, seed, sink, clocks, stream) and an exhaustive pair
+    # check (bf16, op, out, stream).
+    lib.b3_issue_rate.restype = i32
+    lib.b3_issue_rate.argtypes = [i32, i32, i32, ctypes.c_uint, vp, vp, vp]
+    lib.b3_pair_check.restype = i32
+    lib.b3_pair_check.argtypes = [i32, i32, vp, vp]
     # (a slices, b^T slices, n_used, c, c2, ua, ub, M, N, K, lda, ldb,
     #  n_diags, flush_steps, vec, engine, stream)
     ptrs = ctypes.POINTER(vp)

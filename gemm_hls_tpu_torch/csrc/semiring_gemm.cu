@@ -12,13 +12,16 @@
 // What bounds it on an H100: the CUDA-core issue rate.  A (map, reduce)
 // pair such as min_plus costs two instructions per term (add, min); at
 // 128 lanes x 132 SMs x ~1.98 GHz that is ~16.7e12 terms/s, i.e. a ceiling
-// of 33.45 TOp/s counted as 2*M*N*K (models/perf_model.py's vpu_ops: 4.11
-// ms at 4096^3).  Shared-memory reads (16 per 64 terms a
-// thread) fit under that; device-memory traffic follows the io_volume law
-// of a 128x128 tile and is far below the bandwidth bound at 4096^3.
-// Left on the table by this simple design: no packed f16x2/bf16x2 math,
-// no double-buffered shared memory, 8x8 register tiles read with scalar
-// shared-memory loads.
+// of 33.45 TOp/s counted as 2*M*N*K (models/perf_model.py's vpu_ops_for:
+// 4.11 ms at 4096^3; each (type, semiring, output) counted by its own
+// instructions).  Shared-memory reads (16 per 64 terms a thread) fit under
+// that; device-memory traffic follows the io_volume law of a 128x128 tile
+// and is far below the bandwidth bound at 4096^3.  float16 and bfloat16
+// under the order semirings into their own type run on the packed tile
+// (csrc/packed_gemm.cuh, route "packed": two terms an instruction on
+// .f16x2 / .bf16x2, the same bits); every other call on the scalar tile
+// (route "simt"), which keeps 8x8 register tiles read with scalar
+// shared-memory loads and single-buffered shared memory.
 //
 // Each built-in semiring is a functor; ``op`` selects it and matches
 // ``op_code`` in gemm_hls_tpu_torch/ops/semiring.py.  Inputs, each type
@@ -29,7 +32,7 @@
 // reference's astype(int32) does, sums wrapping like the reference's).
 // log_plus takes the floating types only.  The accumulator is cast to the
 // output dtype at the store.
-#include "semiring_ops.cuh"
+#include "packed_gemm.cuh"
 
 namespace gemm_hls {
 
@@ -43,6 +46,8 @@ extern template int dispatch_op<unsigned char, int>(int, const Gemm&, int64_t, c
 extern template int dispatch_op<unsigned short, int>(int, const Gemm&, int64_t, cudaStream_t);
 extern template int dispatch_op<unsigned int, int>(int, const Gemm&, int64_t, cudaStream_t);
 extern template int dispatch_op<long long, int>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_packed<__half>(int, const Gemm&, int64_t, cudaStream_t);
+extern template int dispatch_packed<__nv_bfloat16>(int, const Gemm&, int64_t, cudaStream_t);
 
 }  // namespace gemm_hls
 
@@ -50,14 +55,22 @@ using namespace gemm_hls;
 
 // C (batch, M, N) row-major, written in ``out_code``'s dtype; A and B are
 // read through their row pitch and batch stride (0 broadcasts a 2-D
-// operand over the batch).  Returns 0, a CUDA error code from a launch, or
-// -1 for a (dtype, op) pair not built.
+// operand over the batch).  ``packed``: the packed tile (f16 / bf16 inputs,
+// the order semirings, an output of the input's type), else the scalar
+// one.  Returns 0, a CUDA error code from a launch, or -1 for a (dtype, op,
+// route) not built.
 extern "C" int semiring_gemm(const void* a, const void* b, void* c, int64_t batch, int M, int N,
                              int K, int64_t lda, int64_t ldb, int64_t sa, int64_t sb, int ta,
-                             int tb, int in_code, int out_code, int op, void* stream) {
+                             int tb, int in_code, int out_code, int op, int packed,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Gemm g{a, b, c, M, N, K, lda, ldb, sa, sb, ta, tb, 0, 0, out_code,
                EpArgs{nullptr, nullptr, 0, kEpNone}};
+  if (packed) {
+    if (in_code == kF16) return dispatch_packed<__half>(op, g, batch, s);
+    if (in_code == kBF16) return dispatch_packed<__nv_bfloat16>(op, g, batch, s);
+    return kUnsupported;
+  }
   if (op == kOrAndBits) {
     if (in_code == kI32) return launch_simt<int, int, OrAndBits>(g, batch, s);
     return kUnsupported;

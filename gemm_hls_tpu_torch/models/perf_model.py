@@ -30,8 +30,9 @@ class ChipSpec:
     ``peak_flops`` maps dtype name -> peak FLOP/s of the tensor cores
     for the type (float32, and the integer types the tensor cores do not
     take: the CUDA cores' FMA / multiply-add rate, one counted as 2 ops);
-    ``vpu_ops`` is the CUDA-core instruction rate that bounds the
-    generic-semiring kernel, whose (map, reduce) pair is two instructions.
+    ``vpu_ops`` is the CUDA cores' issue rate, one warp instruction a
+    scheduler a clock, that with ``B3_PIPES`` bounds the generic-semiring
+    kernel (``vpu_ops_for``).
     ``vmem_bytes``: the shared memory one thread block may use (the
     reference's VMEM, the fast memory a block's tiles live in).
     ``ici_bandwidth`` / ``ici_links``: the card-to-card links (NVLink on
@@ -42,7 +43,7 @@ class ChipSpec:
 
     name: str
     peak_flops: Dict[str, float]
-    vpu_ops: float                # CUDA-core instructions/s
+    vpu_ops: float                # CUDA-core issue slots (lanes)/s
     hbm_bandwidth: float          # device-memory bytes/s
     vmem_bytes: int = 0
     ici_bandwidth: float = 0.0
@@ -55,25 +56,22 @@ class ChipSpec:
         d = str(dtype).removeprefix("torch.")
         return self.peak_flops.get(d, self.peak_flops["float32"])
 
-    def vpu_ops_for(self, dtype, semiring=None) -> float:
-        """The generic-semiring rate (kernel B3) for ``dtype`` inputs, in
-        2*M*N*K ops a second: ``vpu_ops`` for every type but float64, half
-        of it for float64.  A term is a (map, reduce) pair: two fp32
-        instructions on 128 lanes a clock an SM (fp32, bf16 and fp16 inputs,
-        an fp32 accumulator); one instruction on 64 lanes for the int32
-        accumulator of every integer type, where sm_90's DPX fuses the add
-        with the min / max (``VIADDMNMX`` in the built min_plus kernels'
-        SASS), the same term rate; two on 64 lanes for float64 (64-bit
-        add, and compare and select: sm_90 has no float64 min / max
-        instruction).  ``semiring="plus_times"`` on a floating type is one
-        fused multiply-add a term (FFMA, DFMA), so twice that rate (the
-        integers' IMAD keeps their one instruction a term).  Lanes a clock:
-        the CUDA C++ Programming Guide's arithmetic-throughput table,
-        compute capability 9.0."""
-        d = str(dtype).removeprefix("torch.")
-        rate = self.vpu_ops / 2 if d == "float64" else self.vpu_ops
-        fused = semiring == "plus_times" and d in ("float64", "float32", "bfloat16", "float16")
-        return 2 * rate if fused else rate
+    def vpu_ops_for(self, dtype, semiring=None, out_dtype=None) -> float:
+        """The generic-semiring rate (kernel B3) for ``dtype`` inputs under
+        ``semiring`` (None: min_plus) into ``out_dtype`` (None: the input's
+        own, the front door's default), in 2*M*N*K ops a second: each term
+        costs the least instruction sequence of its tile
+        (``B3_TERMS[b3_class(...)]``), issued ``B3_ISSUE_LANES`` lanes a
+        clock an SM and no faster than its busiest pipe (``B3_PIPES``):
+        issue slots a term ``max(instructions, max over pipes of count x
+        B3_ISSUE_LANES / lanes)``, ``vpu_ops`` issue slots a second.  A
+        semiring its class does not list (a user semiring among them)
+        counts min_plus's sequence."""
+        terms = B3_TERMS[b3_class(dtype, semiring or "min_plus", out_dtype)]
+        seq = terms.get(semiring or "min_plus", terms["min_plus"])
+        slots = max(sum(seq.values()),
+                    max(n * B3_ISSUE_LANES / B3_PIPES[pipe] for pipe, n in seq.items()))
+        return 2 * self.vpu_ops / slots
 
     def bound(self, ops: float, peak: float, bytes_moved: float):
         """(seconds, "operations" | "bytes"): the least time the card could
@@ -82,6 +80,82 @@ class ChipSpec:
         once), and which of the two sets it."""
         t_ops, t_bytes = ops / peak, bytes_moved / self.hbm_bandwidth
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# Kernel B3's rate, counted by semiring and output (``ChipSpec.vpu_ops_for``).
+# The CUDA cores issue one warp instruction a scheduler a clock, 128 lanes an
+# SM, and each pipe takes its own instructions at its own rate, in lanes (32
+# a warp instruction) a clock an SM: the CUDA C++ Programming Guide's
+# arithmetic-throughput table for compute capability 9.0, and beside each
+# what chip_smoke.py's phase 36a (tools/b3_ab.py --probe: throughput loops of
+# 8 chains a thread, one 1024-thread block an SM, SM clocks) measured on an
+# H100 80GB HBM3 at 700 W.
+B3_ISSUE_LANES = 128
+B3_PIPES = {
+    # FADD, FMUL, FFMA: the guide's 128 (32-bit floating-point add,
+    # multiply, multiply-add); measured 125.0, 123.1 (FFMA).
+    "fma": 128,
+    # FMNMX, IMNMX, and sm_90's DPX VIADDMNMX (min(a + b, c)) and VIMNMX3
+    # (a three-input max): the guide's 64 (compare, minimum, maximum;
+    # 32-bit DPX); measured 63.6 each.  HMNMX2 (min / max on .f16x2 or
+    # .bf16x2) counts here too: measured 63.5 instructions (127.1 results).
+    "alu": 64,
+    # IMAD, IMUL: the guide's 64 (32-bit integer multiply, multiply-add);
+    # measured 64.1.
+    "imad": 64,
+    # HADD2, HMUL2 (.f16x2, .bf16x2), instructions: the guide's 256 results
+    # (16-bit floating-point add, multiply); measured 201.4 results.
+    "half": 128,
+    # DADD, DMUL, DFMA, DSETP: the guide's 64 (64-bit floating point).
+    "fp64": 64,
+    # MUFU.EX2, MUFU.LG2: the guide's 16 (base-2 exponential, logarithm).
+    "mufu": 16,
+}
+# A term's least sequence, instructions a pipe, by the accumulator (class)
+# and the semiring.  Sequences that run two terms count halves.
+B3_TERMS = {
+    # fp32 accumulator (fp32 inputs; bf16 / fp16 off the packed route): one
+    # FFMA; an add or multiply and a min / max; two min / max (sm_90 has no
+    # three-input float min / max); FADD with an |.| operand; FADD and FFMA;
+    # logaddexp's exponential on the MUFU (the rest of it not counted).
+    "fp32": {"plus_times": {"fma": 1}, "min_plus": {"fma": 1, "alu": 1},
+             "max_plus": {"fma": 1, "alu": 1}, "max_min": {"alu": 2}, "min_max": {"alu": 2},
+             "max_times": {"fma": 1, "alu": 1}, "plus_absdiff": {"fma": 2},
+             "plus_sqdiff": {"fma": 2}, "log_plus": {"mufu": 1}},
+    # float64: one DFMA, else two FP64 instructions (an add or multiply and
+    # a compare; log_plus's exponential and logarithm, many DFMAs, not
+    # counted beyond that).
+    "fp64": {"plus_times": {"fp64": 1}, "min_plus": {"fp64": 2}},
+    # int32 accumulator (every integer type): one IMAD; one VIADDMNMX;
+    # two IMNMX and one VIMNMX3 for two terms; IMUL and IMNMX; IADD3, IABS,
+    # IADD3 (the wrapped difference's absolute value: not measured); IADD3
+    # and IMAD.
+    "int32": {"plus_times": {"imad": 1}, "min_plus": {"alu": 1}, "max_plus": {"alu": 1},
+              "max_min": {"alu": 1.5}, "min_max": {"alu": 1.5},
+              "max_times": {"alu": 1, "imad": 1}, "plus_absdiff": {"alu": 3},
+              "plus_sqdiff": {"alu": 1, "imad": 1}},
+    # The packed tile (csrc/packed_gemm.cuh): two terms a pair, an HADD2 or
+    # HMUL2 and an HMNMX2, or two HMNMX2.
+    "packed": {"min_plus": {"half": 0.5, "alu": 0.5}, "max_plus": {"half": 0.5, "alu": 0.5},
+               "max_min": {"alu": 1}, "min_max": {"alu": 1},
+               "max_times": {"half": 0.5, "alu": 0.5}},
+}
+
+
+def b3_class(dtype, semiring: str, out_dtype=None) -> str:
+    """The key of ``B3_TERMS`` for B3 on ``dtype`` inputs under ``semiring``
+    into ``out_dtype`` (None: the input's type): "packed" where
+    ``ops/vpu.py::b3_route`` gives the packed tile, else the scalar tile's
+    accumulator, "fp32", "fp64" or "int32"."""
+    from gemm_hls_tpu_torch.ops.vpu import b3_route
+    d = str(dtype).removeprefix("torch.")
+    dt = getattr(torch, d)
+    out = dt if out_dtype is None else getattr(torch, str(out_dtype).removeprefix("torch."))
+    if b3_route(dt, semiring, out) == "packed":
+        return "packed"
+    if d == "float64":
+        return "fp64"
+    return "fp32" if dt.is_floating_point else "int32"
 
 
 _CHIPS: Dict[str, ChipSpec] = {}

@@ -1,7 +1,9 @@
 """Generic-semiring GEMM: the wrapper of kernel B3
 (``csrc/semiring_gemm.cu``; float64 on the tile of its own in
-``csrc/simt_gemm.cuh``, with the Num form's gate :func:`num_gate`) and its
-plain PyTorch version.
+``csrc/simt_gemm.cuh``, with the Num form's gate :func:`num_gate`; float16
+and bfloat16 under the order semirings into their own type on the packed
+tile ``csrc/packed_gemm.cuh``, :func:`b3_route`) and its plain PyTorch
+version.
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_vpu.py::vpu_matmul``, and of the
 ``jax.vmap`` over it that the JAX front door runs for 3-D operands.  Unlike
@@ -47,6 +49,33 @@ _KERNEL_DTYPES = {
 }
 
 
+# The semirings whose fold may run in a 16-bit input type and give the bits
+# of the reference's fp32 fold rounded at the store (csrc/packed_gemm.cuh's
+# argument): min and max commute with the monotone rounding, and a sum or
+# product of two float16 / bfloat16 values rounds once the same way as
+# through fp32 (tests/test_torch_b3_packed.py checks every pair's premise).
+PACKED_SEMIRINGS = ("min_plus", "max_plus", "max_min", "min_max", "max_times")
+_PACKED_DTYPES = (torch.float16, torch.bfloat16)
+
+
+def b3_route(dtype, semiring, out_dtype) -> str:
+    """The tile kernel B3 runs a call on: "packed" (``csrc/packed_gemm.cuh``,
+    two terms an instruction on .f16x2 / .bf16x2) for float16 or bfloat16
+    inputs under a built-in order semiring (``PACKED_SEMIRINGS``) into an
+    output of the input's own type; "simt" (``csrc/simt_gemm.cuh``: an fp32,
+    float64 or int32 accumulator) for everything else: another output type,
+    the sums (plus_times, plus_absdiff, plus_sqdiff, log_plus, whose fp32
+    sums round differently), a user semiring (``semiring`` a Semiring
+    without an ``op_code``: its generated functor) and every other input
+    type.  ``semiring`` is a name or a Semiring; pure, for the CPU tests."""
+    name = semiring
+    if isinstance(semiring, Semiring):
+        name = semiring.name if semiring.op_code is not None else None
+    packed = (dtype in _PACKED_DTYPES and out_dtype == dtype
+              and name in PACKED_SEMIRINGS)
+    return "packed" if packed else "simt"
+
+
 def _shape(a, b, transpose_a, transpose_b):
     """(batch or None for 2-D operands, M, N, K)."""
     if a.ndim == 2 and b.ndim == 2:
@@ -78,9 +107,12 @@ def vpu_matmul_plain(a, b, *, cfg: GemmConfig, sr: Semiring,
 
 
 def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
-               transpose_b=False):
+               transpose_b=False, route=None):
     """C = reduce_k map(op(A)[i,k], op(B)[k,j]) in ``cfg.out_dtype``: (M, N)
-    for 2-D operands, (B, M, N) for batched ones."""
+    for 2-D operands, (B, M, N) for batched ones.  ``route``: None for
+    :func:`b3_route`'s tile, "simt" for the scalar tile (it takes every
+    call: a comparison), "packed" only where the rule gives it; the tile
+    launched is ``vpu_matmul.last_route``."""
     bsz, m, n, k = _shape(a, b, transpose_a, transpose_b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return vpu_matmul_plain(a, b, cfg=cfg, sr=sr, transpose_a=transpose_a,
@@ -109,6 +141,11 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
     if min(m, n, k) < 1 or m > _MAX_M or max(n, k) > _INT_MAX:
         raise ValueError(f"kernel B3 takes 1 <= M <= {_MAX_M} and "
                          f"1 <= N, K < 2^31, got ({m}, {n}, {k})")
+    rule = b3_route(a.dtype, sr, out_dtype)
+    if route not in (None, rule, "simt"):
+        raise ValueError(f"kernel B3: route {route!r} cannot run this call; the "
+                         f"route rule gives {rule!r}")
+    route = route or rule
     # A user semiring's functor, lowered (and any refusal raised) before
     # anything is allocated or built.
     gen = (None if sr.op_code is not None
@@ -123,11 +160,14 @@ def vpu_matmul(a, b, *, cfg: GemmConfig, sr: Semiring, transpose_a=False,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if gen is None:
-            rc = _build.library().semiring_gemm(*args, sr.op_code, stream)
+            rc = _build.library().semiring_gemm(*args, sr.op_code,
+                                                int(route == "packed"), stream)
         else:
             rc = gen(*args, stream)
-    _build.check(rc, f"semiring_gemm[{sr.name}]")
+    _build.check(rc, f"semiring_gemm[{sr.name}, {route}]")
     vpu_matmul.launches += 1
+    vpu_matmul.last_route = route
+    vpu_matmul.route_launches[route, dtype_name(a.dtype)] += 1
     if gen is None:
         vpu_matmul.dtype_launches[dtype_name(a.dtype)] += 1
     else:
@@ -178,6 +218,10 @@ def f64_slice_forms(reset: bool = True):
 # semiring_*.cu instantiation) and the user semirings' generated functors.
 vpu_matmul.launches = 0
 vpu_matmul.dtype_launches = collections.Counter()
+# The tile of the last launch ("packed" or "simt"), and launches by (tile,
+# input dtype).
+vpu_matmul.last_route = None
+vpu_matmul.route_launches = collections.Counter()
 vpu_matmul.generated_launches = collections.Counter()
 # Plain-version calls on CUDA tensors (the front door's backend="torch", or
 # a comparison): a custom semiring on the card never falls back to it.

@@ -111,7 +111,7 @@ def run(argv=None) -> dict:
         # The route the call took sets the peak (the integers' byte planes
         # on the engine: the int8 rate over their pairs).
         peak = (plus_times_peak(chip, args.dtype, mxu.mxu_matmul.last_route) if sr.is_mxu
-                else chip.vpu_ops_for(args.dtype))
+                else chip.vpu_ops_for(args.dtype, sr.name, out.dtype))
         res.update(seconds=secs, gops=gf)
         print(f"Kernel executed in {secs:.6f} seconds, corresponding to a "
               f"performance of {gf:.1f} GOp/s ({percent_of_peak(gf, peak):.1f}% "

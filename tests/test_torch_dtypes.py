@@ -271,12 +271,21 @@ def test_bounds_of_the_new_kernels():
     # B1 float64 on the FP64 tensor cores: 67e12 FLOP/s (data sheet).
     t, by = H100.bound(2.0 * 8192 ** 3, H100.peak_for("float64"), 3 * 8192 ** 2 * 8)
     assert by == "operations" and t == pytest.approx(16.41e-3, rel=1e-3)
-    # B3: a term is two fp32 instructions on 128 lanes an SM a clock, or one
-    # fused int32 add-and-min on 64 (the same rate), or two float64 ones on
-    # 64 (half of it).
-    for dt in ("float16", "bfloat16", "float32", *INTS, "int32"):
+    # B3 min_plus: a term is an fp32 add and a min on 64 lanes an SM a clock,
+    # or one fused int32 add-and-min on 64 (the same rate), or two float64
+    # ones on 64 (half of it); float16 / bfloat16 into their own type issue
+    # one instruction a term on pairs (twice it), into fp32 the scalar one.
+    for dt in ("float16", "bfloat16"):
+        assert H100.vpu_ops_for(dt) == 2 * H100.vpu_ops
+        assert H100.vpu_ops_for(dt, "min_plus", "float32") == H100.vpu_ops
+    for dt in ("float32", *INTS, "int32"):
         assert H100.vpu_ops_for(dt) == H100.vpu_ops
     assert H100.vpu_ops_for("float64") == H100.vpu_ops / 2
+    # max_min: two min / max a term on 64 lanes (fp32), 1.5 with the int32
+    # three-input max, two on pairs of two terms (packed).
+    assert H100.vpu_ops_for("float32", "max_min") == H100.vpu_ops / 2
+    assert H100.vpu_ops_for("uint32", "max_min") == pytest.approx(H100.vpu_ops * 2 / 3)
+    assert H100.vpu_ops_for("float16", "max_min") == H100.vpu_ops
     # B1's integer CUDA-core route: the int32 multiply-add, 64 a clock an SM,
     # for the types the tensor cores do not take; uint8 is bound at the
     # tensor cores' int8 rate, which they also run uint8 at.

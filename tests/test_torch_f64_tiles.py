@@ -302,7 +302,12 @@ def test_b3_plus_times_rate_is_twice_only_where_the_term_is_one_fused_instructio
     from gemm_hls_tpu_torch.models.perf_model import H100
     fused = dtype in ("float32", "bfloat16", "float16")
     assert H100.vpu_ops_for(dtype, "plus_times") == H100.vpu_ops * (2 if fused else 1)
-    assert H100.vpu_ops_for(dtype, "min_plus") == H100.vpu_ops_for(dtype) == H100.vpu_ops
+    # min_plus: an add and a min on the scalar tile (fp32 output), and for
+    # float16 / bfloat16 into their own type two terms a pair (packed).
+    packed = dtype in ("bfloat16", "float16")
+    assert H100.vpu_ops_for(dtype, "min_plus", "float32") == H100.vpu_ops
+    assert H100.vpu_ops_for(dtype, "min_plus") == H100.vpu_ops_for(dtype) == (
+        H100.vpu_ops * (2 if packed else 1))
 
 
 @pytest.mark.parametrize("semiring", _B3_SEMIRINGS)

@@ -153,6 +153,30 @@ def test_b3_propagates_nan(cuda, name):
     assert torch.equal(got[fin], ref[fin])
 
 
+@pytest.mark.parametrize("case", chip_smoke.B3_PACKED_CASES, ids=str)
+def test_b3_packed_route_matches_the_scalar_tile_and_plain(cuda, case):
+    # float16 / bfloat16 under the order semirings into their own type: the
+    # route "packed" (csrc/packed_gemm.cuh), bit for bit the scalar tile
+    # named, exact against the plain version (chip_smoke.packed_case).
+    chip_smoke.packed_case(torch, torch.Generator(device="cuda").manual_seed(27), case)
+
+
+def test_b3_names_the_packed_route_only_where_the_rule_gives_it(cuda):
+    a, b = _operands(65, 70, 33, torch.float16, device=cuda)
+    sr = get_semiring("min_plus")
+    cfg = default_config(torch.float16, semiring="min_plus")
+    got = vpu.vpu_matmul(a, b, cfg=cfg, sr=sr, route="packed")
+    assert vpu.vpu_matmul.last_route == "packed"
+    assert torch.equal(got, vpu.vpu_matmul(a, b, cfg=cfg, sr=sr, route="simt"))
+    assert vpu.vpu_matmul.last_route == "simt"
+    for cfg_, sr_, x, y in ((cfg.replace(out_dtype="float32"), sr, a, b),
+                            (cfg, get_semiring("plus_times"), a, b),
+                            (default_config(torch.float32, semiring="min_plus"), sr, a.float(),
+                             b.float())):
+        with pytest.raises(ValueError, match="packed"):
+            vpu.vpu_matmul(x, y, cfg=cfg_, sr=sr_, route="packed")
+
+
 def test_b3_log_plus_neg_inf_row(cuda):
     a, b = _operands(40, 50, 60, torch.float32, device=cuda)
     a[7, :] = float("-inf")
