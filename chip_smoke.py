@@ -86,9 +86,14 @@ Phases, each printed as it ends:
      ids (packed, 4-D GQA), offsets (and a fully-future shard); GQA groups
      1, 4 and 8; 70000 heads (launched in chunks); lse; dq, dk, dv against
      the plain backward; fp32 gradients against float64 autograd of a
-     dense reference; refusals; then FLASH_ROUTE_CASES on both forward
-     routes (the wgmma engine and mma.sync), the route checked each, and
-     20 launches of one engine case with the same bits; then
+     dense reference; refusals; then FLASH_ROUTE_CASES on the forward's
+     routes (the wgmma engine, the split-KV decode and mma.sync), the route
+     checked each, and 20 launches of one engine case with the same bits;
+     then FLASH_DECODE_CASES on the split-KV decode (``flash_decode``,
+     csrc/flash_decode.cu: bf16 / fp16, GQA 1 / 4 / 8 / 16, S_q 1-4, D 64 /
+     128, 3-D / 4-D, lengths inside the first split, on split boundaries,
+     whole splits dead, past both ends of a shard) against
+     ``flash_decode_plain``, each launched twice with the same bits; then
      FLASH_BWD_ROUTE_CASES (dq, dk and dv; every engine case also on
      mma.sync), the routes checked, rows that see no key exactly 0, and 20
      launches of each backward kernel on one engine case with the same
@@ -101,8 +106,10 @@ Phases, each printed as it ends:
      K / V at the sequence ends, through the 4-D decode fast path; one
      training step's gradient through ``flash_attention(causal=True)`` at
      (32, 1024, 128) bf16; each forward's route printed and checked
-     against ``flash_route`` (the engine for the prefill shapes, mma.sync
-     for decode), the gradient's against ``flash_bwd_route`` (the engine),
+     against ``flash_route`` (the engine for the prefill shapes, the
+     split-KV decode for decode: 8 flash_decode launches, held to
+     ``flash_decode_plain``), the gradient's against ``flash_bwd_route``
+     (the engine),
      then a torch.profiler breakdown of that gradient;
  15. times of the three flash kernels beside their plain versions, their
      bounds, the forward's other tensor-core route and
@@ -114,7 +121,10 @@ Phases, each printed as it ends:
      on device time (``time_turns``); the forward's routes and the backward
      pair (both routes, with the delta pass, SDPA's backward) also at
      (8, 8192, 128) causal and the GQA prefill; and phase 14's end-to-end
-     calls;
+     calls; the decode step's attention in turns: the front door, the
+     split-KV decode alone, the mma.sync tile named on the same call, SDPA
+     with a length mask and ``enable_gqa=True``, the plain version, beside
+     its bound at the run's mean length;
  16. the quantized and grouped kernels against their plain versions:
      ``dequant_gemm`` (B13: int8 / int4, per-channel / group-wise, M 1, 64,
      130, ragged N), ``w8a8_gemm`` (B14 / B15: both schedules as the JAX
@@ -278,8 +288,9 @@ Phases, each printed as it ends:
      |KV shard|, backward that plus n 2 |KV shard in fp32|); (b)
      ``ring_decode_attention`` over 4 ranks of a ragged 64-sequence x 4096
      cache (GQA 16 / 4, S_q 1 and 4, window none and 1024) against the
-     single-card decode, one shard's call with lengths past both of its ends
-     against the plain version on ``mma.sync``; (c) the sharded MLP step at
+     single-card decode, every shard call on the split-KV decode, one
+     shard's call with lengths past both of its ends against its plain
+     version; (c) the sharded MLP step at
      (4096, 16384, 4096) x 8192 bf16 tokens on (dp 2, tp 4), 3 steps held to
      the unsharded ``train_step``, the tp / dp psum bytes; (d)
      ``moe_forward_ep`` on (dp 2, ep 4) and ``moe_forward_ep_a2a`` on ep 4
@@ -2481,12 +2492,15 @@ def phase_times3(torch):
 # (TPU kernels B6-B12)
 # ---------------------------------------------------------------------------
 
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_KERNELS = ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def flash_counters():
+    """flash_fwd counts every forward launch (each route); flash_decode the
+    split-KV decode's (csrc/flash_decode.cu) among them."""
     from gemm_hls_tpu_torch.ops import flash
     return {"flash_fwd": flash.flash_mha.launches,
+            "flash_decode": flash.flash_decode.launches,
             "flash_bwd_dq": flash.flash_mha_bwd_dq.launches,
             "flash_bwd_dkv": flash.flash_mha_bwd_dkv.launches}
 
@@ -2494,6 +2508,7 @@ def flash_counters():
 def reset_flash_counters():
     from gemm_hls_tpu_torch.ops import flash
     flash.flash_mha.launches = 0
+    flash.flash_decode.launches = 0
     flash.flash_mha_bwd_dq.launches = 0
     flash.flash_mha_bwd_dkv.launches = 0
 
@@ -2583,11 +2598,13 @@ FLASH_REFUSALS = ("head_dim", "interpret")
 # causal, window, the soft cap, GQA 4 and 8, kv_lengths with NaN / inf
 # stale slots inside the last live tile (both its halves) and a length of
 # 1, segment ids, offsets (one a fully-future shard: o = 0, lse = -inf).
-# mma.sync: D 40 and 96, 63 rows a head, decode's one row, rows that are
-# not whole 16-byte units; fp32 on the CUDA cores.  "out_fp32" stores o in
-# fp32 (``out_dtype=torch.float32``, ring attention's partials) on both
-# 16-bit routes: held to the plain version and, rounded to the operand
-# type, bit for bit to the 16-bit-output launch (lse too).
+# The split-KV decode: at most 16 rows a kv head (group x S_q: decode's
+# GQA group of 4 at S_q 1 and 4, the ring shard's lengths past both ends).
+# mma.sync: D 40 and 96, 63 rows a head, GQA groups of 17-63 rows, rows that
+# are not whole 16-byte units; fp32 on the CUDA cores.  "out_fp32" stores o
+# in fp32 (``out_dtype=torch.float32``, ring attention's partials) on every
+# 16-bit route: held to the plain version and, rounded to the operand type,
+# bit for bit to the 16-bit-output launch (lse too).
 FLASH_ROUTE_CASES = (
     [("3d", dt, 2, 1, 1, 200, 333, d, {}, "wgmma")
      for dt, d in (("bfloat16", 128), ("float16", 64))]
@@ -2622,11 +2639,15 @@ FLASH_ROUTE_CASES = (
     + [("3d", "bfloat16", 2, 1, 1, 200, 333, d, {}, "mma.sync") for d in (40, 96)]
     + [("3d", "bfloat16", 2, 1, 1, 63, 300, 128, {"causal": True}, "mma.sync"),
        ("4d", "bfloat16", 4, 16, 4, 1, 1000, 128,
-        {"causal": True, "kv_lengths": [1000, 1, 513, 999] * 4, "nan_pad": True}, "mma.sync"),
+        {"causal": True, "kv_lengths": [1000, 1, 513, 999] * 4, "nan_pad": True}, "splitkv"),
+       ("4d", "bfloat16", 2, 16, 4, 5, 700, 128,
+        {"causal": True, "kv_lengths": [700, 9, 300, 699] * 2, "nan_pad": True}, "mma.sync"),
+       ("3d", "float16", 2, 8, 1, 3, 500, 64, {"kv_lengths": [500, 77]}, "mma.sync"),
        ("3d", "bfloat16", 2, 1, 1, 200, 333, 128, {"pitched": True}, "mma.sync"),
        ("3d", "float32", 2, 1, 1, 200, 333, 64, {"causal": True}, "simt")]
-    # fp32 o on the engine (the ring's shapes: offsets, GQA, causal, full) and
-    # on mma.sync (decode's rows with lengths past both ends of a shard)
+    # fp32 o on the engine (the ring's shapes: offsets, GQA, causal, full), on
+    # the split-KV decode (decode's rows with lengths past both ends of a
+    # shard) and on mma.sync (20 rows a kv head, the same lengths)
     + [("3d", "bfloat16", 2, 1, 1, 333, 333, 128, {"causal": True, "out_fp32": True}, "wgmma"),
        ("3d", "float16", 2, 1, 1, 200, 333, 64, {"out_fp32": True}, "wgmma"),
        ("4d", "bfloat16", 2, 16, 4, 256, 256, 128,
@@ -2637,12 +2658,47 @@ FLASH_ROUTE_CASES = (
         "mma.sync"),
        ("4d", "bfloat16", 4, 16, 4, 4, 1000, 128,
         {"causal": True, "kv_lengths": [1000, -5, 513, 1400] * 4, "out_fp32": True},
+        "splitkv"),
+       ("4d", "bfloat16", 4, 16, 4, 5, 1000, 128,
+        {"causal": True, "kv_lengths": [1000, -5, 513, 1400] * 4, "out_fp32": True},
         "mma.sync")]
 )
 # The race check of the engine route: FLASH_REPEAT_CASE launched
 # FLASH_REPEATS times, the same bits each.
 FLASH_REPEAT_CASE = ("4d", "bfloat16", 2, 16, 4, 256, 256, 128, {"causal": True}, "wgmma")
 FLASH_REPEATS = 20
+# The split-KV decode's own table (``ops.flash.flash_decode``, route
+# "splitkv"), FLASH_ROUTE_CASES' layout, each in bf16 and fp16, which
+# tests/test_torch_kernels.py parametrises too: GQA groups 1 / 4 / 8 / 16
+# and S_q 1 / 2 / 4 within 16 rows a kv head, D 64 and 128, 3-D and 4-D;
+# lengths inside the first split, on a split boundary (S_kv 1000: splits of
+# 256, ``flash.splitkv_plan``), one slot, whole splits dead, with stale
+# NaN / inf slots; decode-anchored causal with a window; the soft cap;
+# segment ids; offsets; fp32 o; a ring shard's lengths past both ends (o =
+# 0, lse = -inf on its dead kv heads' rows).
+_DEC_LENS = [1000, 100, 256, 257, 1, 512, 999, 640]
+FLASH_DECODE_CASES = [
+    (lay, dt, nb, hq, hkv, s_q, s_kv, d, kw, "splitkv")
+    for dt in ("bfloat16", "float16")
+    for lay, nb, hq, hkv, s_q, s_kv, d, kw in (
+        ("3d", 8, 1, 1, 4, 1000, 128, {"kv_lengths": _DEC_LENS, "nan_pad": True}),
+        ("3d", 8, 1, 1, 4, 1000, 64,
+         {"kv_lengths": _DEC_LENS, "causal": True, "nan_pad": True}),
+        ("4d", 2, 16, 4, 1, 1000, 128,
+         {"kv_lengths": _DEC_LENS, "causal": True, "nan_pad": True}),
+        ("4d", 2, 16, 4, 4, 1000, 128,
+         {"kv_lengths": _DEC_LENS, "causal": True, "window": 300, "nan_pad": True}),
+        ("3d", 2, 8, 1, 2, 700, 64, {"kv_lengths": [700, 300], "causal": True,
+                                     "window": 64, "nan_pad": True}),
+        ("4d", 1, 16, 1, 1, 4096, 128, {"kv_lengths": [3001], "nan_pad": True}),
+        ("3d", 2, 4, 1, 3, 900, 128, {"logit_cap": 5.0, "scale": 0.3}),
+        ("3d", 1, 4, 1, 2, 400, 128, {"q_seg": [[0, 1]] * 4,
+                                      "kv_seg": [[0] * 150 + [1] * 250]}),
+        ("3d", 2, 4, 2, 2, 512, 64, {"causal": True, "offsets": [700, 300]}),
+        ("3d", 2, 4, 1, 2, 513, 128, {"kv_lengths": [513, 64], "out_fp32": True}),
+        ("4d", 4, 16, 4, 4, 1000, 128,
+         {"causal": True, "kv_lengths": [1000, -5, 513, 1400] * 4, "out_fp32": True}))
+]
 # The backward's routes (``ops.flash.flash_bwd_route``: dq by its S_q rows,
 # dk / dv by S_kv), phase 13's backward route table, which
 # tests/test_torch_kernels.py parametrises too; its cases are
@@ -2809,6 +2865,42 @@ def flash_route_case(torch, gen, case):
         if not (torch.equal(o.to(q.dtype), o16) and torch.equal(lse, lse16)):
             raise AssertionError(f"{what}: the fp32 o rounded differs from the "
                                  f"{q.dtype} launch")
+    return err
+
+
+def flash_decode_case(torch, gen, case):
+    """One FLASH_DECODE_CASES case: the split-KV decode on the card (the
+    route and one flash_decode launch checked) against
+    ``flash_decode_plain`` (o scaled to the operand type's tolerance, lse to
+    fp32's), a second launch equal to the first bit for bit, and every row
+    of a kv head whose length is at most 0 exactly o = 0, lse = -inf.
+    Returns the largest abs error."""
+    from gemm_hls_tpu_torch.ops import flash
+
+    q, k, v, ints, scale, kw = flash_route_operands(torch, gen, case)
+    what = f"flash decode {case}"
+    before = flash.flash_decode.launches
+    o, lse = flash_route_forward(torch, q, k, v, ints, scale, kw)
+    if flash.flash_mha.last_route != "splitkv" or flash.flash_decode.launches != before + 1:
+        raise AssertionError(f"{what}: route {flash.flash_mha.last_route}, "
+                             f"{flash.flash_decode.launches - before} flash_decode launches")
+    again = flash_route_forward(torch, q, k, v, ints, scale, kw)
+    if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"{what}: a second launch differs from the first")
+    ro, rlse = flash.flash_decode_plain(flash._pack(q), flash._pack(k), flash._pack(v), *ints,
+                                        scale=scale, **kw)
+    err = compare(torch, o, flash._unpack(ro, q), flash_rtol(torch, q.dtype), what + " o",
+                  scaled=True)[0]
+    if not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    compare(torch, lse, rlse, F32_RTOL, what + " lse", scaled=True)
+    if ints[0] is not None:
+        group = flash._heads(q) // flash._heads(k)
+        dead = (ints[0] <= 0).repeat_interleave(group)
+        if bool(dead.any()) and not (bool((flash._pack(o)[dead] == 0).all())
+                                     and bool(torch.isneginf(lse[dead]).all())):
+            raise AssertionError(f"{what}: a kv head past its length gave o != 0 or "
+                                 f"lse != -inf")
     return err
 
 
@@ -3020,9 +3112,18 @@ def phase_flash_kernels(torch):
         routes[case[-1]] = routes.get(case[-1], 0) + 1
     log(f"phase 13: flash_fwd route cases, {len(FLASH_ROUTE_CASES)} {routes} (3-D / 4-D, "
         f"D 64 / 128, GQA 1 / 4 / 8, causal, window, cap, kv_lengths with NaN / inf "
-        f"stale slots, segment ids, offsets; D 40 / 96, 63 rows, decode, unaligned rows, "
-        f"fp32), each on its route: ok (max abs err {worst:.3e}); {FLASH_REPEATS} "
-        f"launches of {FLASH_REPEAT_CASE[:8]} on the engine: same bits")
+        f"stale slots, segment ids, offsets; decode's rows on the split-KV decode; D 40 / "
+        f"96, 63 rows, GQA groups of 20-24 rows, unaligned rows, fp32), each on its route: "
+        f"ok (max abs err {worst:.3e}); {FLASH_REPEATS} launches of {FLASH_REPEAT_CASE[:8]} "
+        f"on the engine: same bits")
+    worst = max(flash_decode_case(torch, gen, case) for case in FLASH_DECODE_CASES)
+    torch.cuda.synchronize()
+    log(f"phase 13: flash_decode (csrc/flash_decode.cu) cases, {len(FLASH_DECODE_CASES)} "
+        f"(bf16 / fp16, GQA 1 / 4 / 8 / 16, S_q 1-4, D 64 / 128, 3-D / 4-D, lengths inside "
+        f"the first split, on split boundaries, whole splits dead, stale NaN / inf slots, "
+        f"anchored causal with a window, cap, segment ids, offsets, fp32 o, a ring shard's "
+        f"lengths past both ends) vs flash_decode_plain, each launched twice: ok, same bits, "
+        f"max abs err {worst:.3e}")
     worst = {}
     for case in FLASH_BWD_ROUTE_CASES:
         worst[case[-1]] = max(worst.get(case[-1], 0.0), flash_bwd_route_case(torch, gen, case))
@@ -3125,18 +3226,26 @@ def phase_slice4(torch):
         out = decode_step(torch, qd, kn, vn, kc, vc, lens)
         if out.shape != qd.shape:
             raise AssertionError(f"decode step {step}: shape {out.shape}")
-        ref = flash.flash_fwd_plain(
+        ref = flash.flash_decode_plain(
             qd.reshape(64 * 4, 4, 128), flash._pack(kc), flash._pack(vc),
             lens.repeat_interleave(4), scale=128 ** -0.5)[0]
         worst = max(worst, compare(torch, out.reshape(256, 4, 128), ref,
                                    BF16_RTOL, f"decode step {step}",
                                    scaled=True)[0])
     res["decode"] = worst
-    route = main_route(flash.flash_mha, "decode", flash.flash_route(bf16, 128, 4, True))
+    # Decode's four rows a kv head take the split-KV decode (csrc/flash_decode.cu).
+    route = main_route(flash.flash_mha, "decode", "splitkv")
+    if flash.flash_route(bf16, 128, 1, True, 4) != route:
+        raise AssertionError("decode: the route rule does not give the split-KV decode")
+    if (flash.flash_mha.launches - decode_before, flash.flash_decode.launches) != (8, 8):
+        raise AssertionError(f"decode: {flash.flash_mha.launches - decode_before} forward / "
+                             f"{flash.flash_decode.launches} flash_decode launches, want 8 / 8")
     log(f"phase 14c: padded-cache decode, 64 sequences x 4096 slots, H_q 16, "
         f"H_kv 4, D 128, 8 steps through the 4-D decode fast path: route {route}, "
-        f"{flash.flash_mha.launches - decode_before} flash_fwd launches, "
-        f"lengths now {int(lens.min())}-{int(lens.max())}, max abs err {worst:.3e}")
+        f"{flash.flash_decode.launches} flash_decode launches (plan "
+        f"{flash.splitkv_plan(256, 4096)}: splits, slots a split), "
+        f"lengths now {int(lens.min())}-{int(lens.max())}, max abs err {worst:.3e} vs "
+        f"flash_decode_plain")
     del kc, vc
     # One training step's gradient through flash_attention(causal=True).
     bh, s, d = 32, 1024, 128
@@ -3445,21 +3554,43 @@ def phase_times4(torch):
 
     def kernel_decode():
         return flash_attention(qd, kc, vc, causal=True, kv_lengths=lens)
+
+    # The route's kernel alone (the front door's packing done once, outside
+    # the timed calls), the mma.sync tile named on the same call, and the
+    # route's plain version.
+    q3, l4 = qd.reshape(64 * 4, 4, 128), lens.repeat_interleave(4)
+
+    def named_decode(route):
+        return lambda: flash._forward(q3, kc, vc, l4, None, None, None, False, None, None,
+                                      128 ** -0.5, 512, route=route)[0]
+
     def plain_decode():
-        return flash.flash_fwd_plain(qd.reshape(64 * 4, 4, 128), flash._pack(kc),
-                                     flash._pack(vc), lens.repeat_interleave(4),
-                                     scale=128 ** -0.5)[0]
-    compare(torch, kernel_decode(), sdpa_decode().transpose(1, 2), BF16_RTOL,
+        return flash.flash_decode_plain(q3, flash._pack(kc), flash._pack(vc), l4,
+                                        scale=128 ** -0.5)[0]
+    got = kernel_decode()
+    route = flash.flash_mha.last_route
+    compare(torch, got, sdpa_decode().transpose(1, 2), BF16_RTOL,
             "decode attention vs SDPA", scaled=True)
-    turns = time_turns(torch, {"kernel": kernel_decode, "SDPA": sdpa_decode,
+    err = compare(torch, named_decode(None)(), plain_decode(), BF16_RTOL,
+                  "decode attention vs its plain version", scaled=True)[0]
+    compare(torch, named_decode("mma.sync")(), named_decode(None)(), BF16_RTOL,
+            "decode attention: mma.sync vs the route", scaled=True)
+    turns = time_turns(torch, {"kernel": kernel_decode, "route": named_decode(None),
+                               "mma.sync": named_decode("mma.sync"), "SDPA": sdpa_decode,
                                "plain": plain_decode})
     out["decode kernel"], out["decode SDPA"] = turns["kernel"], turns["SDPA"]
     out["decode plain"] = turns["plain"]
+    out["decode"] = dict(ms=turns["route"], plain_ms=turns["plain"], max_abs_err=err,
+                         bound=bound, library_ms=turns["SDPA"], route=route,
+                         other_route="mma.sync", other_ms=turns["mma.sync"],
+                         front_door_ms=turns["kernel"])
     del kz, vz
-    log(f"phase 15: decode attention 64x4096 H16/4 device time in turns: the port "
-        f"{turns['kernel']:.4f} ms (route {flash.flash_mha.last_route}), SDPA with a length "
-        f"mask and enable_gqa=True {turns['SDPA']:.4f} ms, the plain version "
-        f"{turns['plain']:.4f} ms; bound {bound[0] * 1e3:.4f} ms")
+    log(f"phase 15: decode attention 64x4096 H16/4 device time in turns: the front door "
+        f"{turns['kernel']:.4f} ms (route {route}), the route's kernel alone "
+        f"{turns['route']:.4f} ms, the mma.sync tile named {turns['mma.sync']:.4f} ms, SDPA "
+        f"with a length mask and enable_gqa=True {turns['SDPA']:.4f} ms, the plain version "
+        f"{turns['plain']:.4f} ms; bound {bound[0] * 1e3:.4f} ms (the route at "
+        f"{bound[0] * 1e3 / turns['route']:.1%} of it)")
     del kc, vc
     xs = [torch.randn((32, 1024, 128), generator=gen, device="cuda", dtype=bf16)
           .requires_grad_() for _ in range(3)]
@@ -4114,8 +4245,8 @@ def phase_slice5(torch):
     b13_route = main_route(dequant.dequant_matmul, "decode B13", "wgmma")
     slots = c["dec_batch"] * c["top_k"]
     routes = (main_route(flash.flash_mha, "decode flash",
-                         flash.flash_route(torch.bfloat16, c["d_head"], c["h_q"] // c["h_kv"],
-                                           True)),
+                         flash.flash_route(torch.bfloat16, c["d_head"], 1, True,
+                                           c["h_q"] // c["h_kv"])),
               main_route(gmm.grouped_mxu, "decode MoE", gmm.grouped_route(torch.bfloat16, True)))
     log(f"phase 17b: decode {c['steps']} steps, {c['dec_batch']} sequences x "
         f"{c['slots']} slots (int4 g{c['group']} projections on B13 route {b13_route}, "
@@ -4124,7 +4255,8 @@ def phase_slice5(torch):
         f"stale slots NaN / inf: worst median token err "
         f"{worst_med:.2e}, worst {worst_flip:.1%} tokens above 2e-2; lengths now "
         f"{int(lens.min())}-{int(lens.max())}")
-    launches = dict(quant_counters(), flash_fwd=flash.flash_mha.launches)
+    launches = dict(quant_counters(), flash_fwd=flash.flash_mha.launches,
+                    flash_decode=flash.flash_decode.launches)
     log(f"phase 17: main-path launch counts {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -6697,7 +6829,9 @@ def phase_ring_decode(torch, record):
     cache (lengths leaving whole shards past the end), GQA, S_q 1 and 4, with
     and without a window, each held to the single-card flash_mha(kv_lengths,
     causal=True); then one shard's call with lengths past both ends of it
-    against the plain version on the card (the mma.sync route)."""
+    against the plain version on the card (the split-KV decode's route,
+    csrc/flash_decode.cu, which every shard call takes: 4 and 16 rows a kv
+    head)."""
     from gemm_hls_tpu_torch.ops import flash
     from gemm_hls_tpu_torch.parallel import ring_decode_attention
     from gemm_hls_tpu_torch.parallel.ring_attention import DECODE_TAG
@@ -6719,12 +6853,14 @@ def phase_ring_decode(torch, record):
                 qd, kc, vc, kvl, mesh, window=window).full())
             ref = flash.flash_mha(qd * sc, kc, vc, kv_lengths=kvl, causal=True, window=window)
             err = within(key, rel_norm(o, ref), PAR_FWD_TOL)
-            expect(f"{key} launches", record[key]["launches"], {"flash_fwd": n})
-            expect(f"{key} routes", record[key]["entries"], {"flash_fwd": n})
+            expect(f"{key} launches", record[key]["launches"],
+                   {"flash_fwd": n, "flash_decode": n})
+            expect(f"{key} routes", record[key]["entries"], {"flash_decode": n})
             rank_bytes(record, key, mesh, DECODE_TAG, (n - 1) * (b_q * s_q * d + b_q * s_q) * 4)
             record[key]["normwise"] = err
             log(f"phase 29b: {key}: normwise {err:.3e} vs single-card flash_mha, flash_fwd "
-                f"x{n} on mma.sync, {record[key]['seconds'] * 1e3:.3f} ms first call")
+                f"x{n} on the split-KV decode, {record[key]['seconds'] * 1e3:.3f} ms first "
+                f"call")
     # Both ends of a shard: shard 2's lengths re-anchored, some <= 0, some > S_loc.
     qd = signed(torch, (b_q, 4, d), torch.bfloat16, gen)
     len_eff = (kvl - 2 * s_loc).to(torch.int32)
@@ -6733,13 +6869,14 @@ def phase_ring_decode(torch, record):
     ks, vs = kc[:, 2 * s_loc:3 * s_loc], vc[:, 2 * s_loc:3 * s_loc]
     o, lse = flash.flash_mha(qd, ks, vs, kv_lengths=len_eff, causal=True, save_lse=True,
                              out_dtype=torch.float32)
-    expect("29b shard route", flash.flash_mha.last_route, "mma.sync")
-    ro, rlse = flash.flash_fwd_plain(qd, ks, vs, len_eff, causal=True, out_dtype=torch.float32)
+    expect("29b shard route", flash.flash_mha.last_route, "splitkv")
+    ro, rlse = flash.flash_decode_plain(qd, ks, vs, len_eff, causal=True,
+                                        out_dtype=torch.float32)
     err = compare(torch, o, ro, BF16_RTOL, "29b shard past both ends o", scaled=True)[0]
     compare(torch, lse[..., 0], rlse, F32_RTOL, "29b shard past both ends lse", scaled=True)
     log(f"phase 29b: one shard's call with lengths -> {int(len_eff.min())} .. "
-        f"{int(len_eff.max())} (S_loc {s_loc}) on mma.sync vs the plain version: max abs err "
-        f"{err:.3e}, lse -inf on the same {int(torch.isinf(rlse).sum())} rows")
+        f"{int(len_eff.max())} (S_loc {s_loc}) on the split-KV decode vs its plain version: "
+        f"max abs err {err:.3e}, lse -inf on the same {int(torch.isinf(rlse).sum())} rows")
 
 
 def mlp_inputs(torch):
@@ -9807,7 +9944,12 @@ def main() -> int:
           f"{nvcc_s.get('int_split.cu')} s), as ptxas reports them:"
         + "".join(f"\n  {k}: {v}" for k, v in {
             **ptxas_report(lib_log, "mxu_wg_int_kernel"),
-            **ptxas_report(lib_log, "PlanePut")}.items()))
+            **ptxas_report(lib_log, "PlanePut")}.items())
+        + "\nphase 2: the split-KV decode (csrc/flash_decode.cu, nvcc "
+          f"{nvcc_s.get('flash_decode.cu')} s: bf16 / fp16 x D 64 / 128 x 8 / 16 q rows), as "
+          f"ptxas reports it:"
+        + "".join(f"\n  {k}: {v}" for k, v in ptxas_report(lib_log,
+                                                            "flash_decode_kernel").items()))
 
     phase_b1(torch)
     phase_b3(torch)
@@ -9855,6 +9997,8 @@ def main() -> int:
     slice27 = phase_slice27(torch, lib_log)
 
     from gemm_hls_tpu_torch.models.perf_model import H100, slice_gemm_bound
+    from gemm_hls_tpu_torch.ops.flash import splitkv_plan
+    flash_plan = splitkv_plan(256, 4096)
 
     def kernel(name, source, replaces, n, t, bound, library_ms):
         return {"name": name, "route": "cuda", "source": source,
@@ -9955,7 +10099,8 @@ def main() -> int:
         if name == "flash_fwd":
             kernels[-1]["library_note"] = (
                 f"library_ms is {t['library']}; decode_ms the padded-cache decode step's "
-                "attention (64 x 4096 slots, H_q 16 / H_kv 4, D 128; csrc/flash_fwd.cu) and "
+                "attention through the front door (64 x 4096 slots, H_q 16 / H_kv 4, D 128; "
+                "the split-KV decode's route, its own entry below) and "
                 "decode_library_ms F.scaled_dot_product_attention with a length mask and "
                 "enable_gqa=True, device time in turns")
             kernels[-1].update(decode_ms=times4["decode kernel"],
@@ -9972,6 +10117,23 @@ def main() -> int:
                                            "and dv in one call, its delta inside), beside "
                                            "pair_ms = flash_bwd_dq + flash_bwd_dkv and "
                                            "pair_delta_ms, the pair with its delta pass")
+    # The split-KV decode at the serving decode step (phase 14c's path, phase
+    # 15's turns): the route's kernel alone, the mma.sync tile named on the
+    # same call, SDPA, the plain version, the bound at this run's lengths.
+    t = times4["decode"]
+    kernels.append(kernel(
+        "flash_decode (B6 decode: split-KV flash decode, 64 x 4096 slots, H_q 16 / H_kv 4, "
+        "D 128 bf16)", "gemm_hls_tpu_torch/csrc/flash_decode.cu",
+        "gemm_hls_tpu/ops/pallas_flash.py:62", launches4["flash_decode"], t, t["bound"],
+        t["library_ms"]))
+    kernels[-1].update(
+        kernel_route=t["route"], other_route=t["other_route"], other_ms=t["other_ms"],
+        front_door_ms=t["front_door_ms"], plan=list(flash_plan),
+        library_note="library_ms is F.scaled_dot_product_attention(q, k, v, attn_mask=<length "
+                     "mask>, enable_gqa=True) on copies of the cache with the stale slots "
+                     "zeroed; other_ms the mma.sync tile (csrc/flash_fwd.cu) named on the same "
+                     "call; device time in turns; bound_ms the live cache's bytes at this "
+                     "run's mean length")
     # Slice 5 at the serving shapes.
     for key, name, source, replaces in (
             ("B13 decode 64x2048x2048 int4 g128",
@@ -10051,7 +10213,8 @@ def main() -> int:
     kernels[0]["distributed_bf16_8192_ms"] = dist19["times"]
     # Slice 20's training parallelism (phase 29): each kernel's launches on
     # its runs, and each run's times in turns beside the single-card call.
-    by_kernel = {"B1": "mxu_gemm (B1", "flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+    by_kernel = {"B1": "mxu_gemm (B1", "flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
+                 "flash_bwd_dq": "flash_bwd_dq",
                  "flash_bwd_dkv": "flash_bwd_dkv", "B16": "grouped_gemm", "B17": "grouped_update"}
     for key, prefix in by_kernel.items():
         entry = next(k for k in kernels if k["name"].startswith(prefix))

@@ -314,10 +314,11 @@ def _declare(lib):
                                      i64, i64, i32, vp]
     # Flash attention: (seqs, lse, kv_len | delta, q_seg, kv_seg, offs, dims,
     # cap, scale, dtype, stream); seqs holds (pointer, heads, sb, sh, ss)
-    # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec).
+    # per sequence, dims (B, group, S_q, S_kv, D, causal, window, vec; the
+    # forward adds o_f32, the split-KV decode then splits and split_len).
     i64p, i32p, f32 = ctypes.POINTER(i64), ctypes.POINTER(i32), ctypes.c_float
     flash = [i64p, vp, vp, vp, vp, vp, i32p, f32, f32, i32, vp]
-    for name in ("flash_fwd", "flash_wgmma", "flash_bwd_dq", "flash_bwd_dkv",
+    for name in ("flash_fwd", "flash_wgmma", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = flash

@@ -287,7 +287,9 @@ def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
     tuned winner, a comparison), else ``rule``, the route rule's.  Naming
     the tile engine ("wgmma") where the rule does not give it raises (the
     engine cannot run the call: fp32 into float64, a row softmax past its
-    bounds, another family's shape), and so does a CUDA-core route
+    bounds, another family's shape), as does the flash forward's split-KV
+    decode ("splitkv": at most 16 q rows a kv head; where the rule gives
+    it, "mma.sync" may be named), and so does a CUDA-core route
     ("simt") for inputs the rule sends to the tensor cores, or the
     reverse, and any other route for float64 ("dmma", the one kernel that
     takes it) or "dmma" for another type.  So B1 / B2's bf16 / fp16 / int8
@@ -301,7 +303,7 @@ def named_route(route: Optional[str], rule: str, what: str, dtype=None) -> str:
     simt_beside = dtype is not None and _cuda_core_beside(dtype)
     if simt_beside and route == "simt" and rule == "wgmma":
         return route
-    if (route == "wgmma" or simt_beside or (route == "simt") != (rule == "simt")
+    if (route in ("wgmma", "splitkv") or simt_beside or (route == "simt") != (rule == "simt")
             or "dmma" in (route, rule)):
         raise ValueError(f"{what}: route {route!r} cannot run this call; the route "
                          f"rule gives {rule!r}")

@@ -295,16 +295,6 @@ __device__ __forceinline__ void dq_store(const DqArgs& a, const float (&acc)[kDq
 // The first scale group of step s (its scale box's first row).
 __device__ __forceinline__ int dq_group0(const DqArgs& a, int s) { return kDqStep * s / a.group; }
 
-// The cluster barrier in two halves: arrive (release: this thread's stores
-// to any rank's shared memory are visible after the wait) and wait.
-__device__ __forceinline__ void cluster_arrive(bool release) {
-  if (release) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  else asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 template <typename T, int BN>
 __global__ void __launch_bounds__(DqTile<BN>::kThreads, 1)
     dequant_wg_kernel(const __grid_constant__ DqArgs a) {

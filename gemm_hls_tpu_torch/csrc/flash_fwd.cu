@@ -20,10 +20,12 @@
 // tile is read once.  GQA: head b reads kv head b / group, never a copy.
 //
 // Which calls take it (ops/flash.py::flash_route): bf16 / fp16 with a head
-// dim other than 64 or 128, fewer than 64 query rows a head (decode's GQA
-// group of 1-4 rows) or rows that are not whole 16-byte units, and every
-// fp32 call.  bf16 / fp16 at D 64 or 128 with 64 rows or more and aligned
-// rows take the tile engine's csrc/flash_wgmma.cu.
+// dim other than 64 or 128 or with rows that are not whole 16-byte units;
+// bf16 / fp16 at D 64 or 128 with aligned rows where a head has fewer than
+// 64 query rows and its kv head more than 16 (group x S_q); every fp32
+// call.  The other bf16 / fp16 calls at D 64 or 128 with aligned rows take
+// the tile engine's csrc/flash_wgmma.cu (64 rows a head or more) or the
+// split-KV decode csrc/flash_decode.cu (16 rows a kv head or fewer).
 //
 // Routes by element type:
 //   bf16, fp16 -> tensor cores, mma.sync m16n8k16 with fp32 accumulation.
@@ -44,12 +46,14 @@
 //
 // What bounds it on an H100: at the main path's shapes (32 heads x 1024^2 x
 // 128 bf16, 17.2 GFLOP full, 8.6 causal) the tensor-core rate, 17 us at
-// 989 TFLOP/s, against 34 MB of q, k, v and o, 10 us at 3.35 TB/s; the
+// 989 TFLOP/s, against 34 MB of q, k, v and o, 10 us at 3.35 TB/s.  The
 // padded-cache decode step (64 x 4 kv heads x ~3000 cached rows, 4 q rows a
-// kv head) reads ~400 MB of cache and is bound by bytes.  Left on the table
-// for decode: a split of long kv loops across blocks (one block a kv head
-// leaves SMs idle).  Measured (H100 80GB HBM3, 700 W, chip_smoke.py phase
-// 15, where it is timed as the engine route's other tensor-core route):
+// kv head, ~400 MB of cache, bound by bytes) left it for the split-KV
+// decode (csrc/flash_decode.cu): one block a kv head here walks the whole
+// cache and leaves SMs idle (H100 80GB HBM3, 700 W, chip_smoke.py phase 15
+// in turns: 0.3198 ms against the split-KV decode's 0.1245).  Measured
+// (the same card and phase, where it is timed as the other routes'
+// mma.sync tile, named):
 // ~0.15 ms at 32 x 1024^2 x 128 bf16 full or causal, 110 TFLOP/s; see
 // PERF.md §6.
 #include "flash_common.cuh"

@@ -9,8 +9,9 @@
 // _flash_kernel_onepass (B8: the carries held for a whole q tile).  Every
 // mask option (causal, window, kv_lengths, segment ids, offsets), the soft
 // cap and GQA stay run-time arguments.  The shapes this route does not take
-// (fp32, other head dims, fewer than 64 query rows a head, rows that are
-// not whole 16-byte units) stay on flash_fwd.cu (ops/flash.py::flash_route).
+// (ops/flash.py::flash_route): up to 16 query rows a kv head (decode) go to
+// the split-KV decode csrc/flash_decode.cu; fp32, other head dims, 17-63
+// rows a head and rows that are not whole 16-byte units to flash_fwd.cu.
 //
 // What bounds it on an H100: the tensor-core rate.  At the main path's
 // shapes, 32 heads of 1024^2 x 128 bf16, 17.2 GFLOP full and 8.6 causal,

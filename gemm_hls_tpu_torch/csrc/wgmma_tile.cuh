@@ -237,6 +237,16 @@ template <int R> __device__ __forceinline__ void reg_alloc() {
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
+// The thread block cluster's barrier in two halves: arrive (release: this
+// thread's stores to any rank's shared memory are visible after the wait)
+// and wait.  Every thread of each rank's warps takes both halves.
+__device__ __forceinline__ void cluster_arrive(bool release) {
+  if (release) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  else asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
 
 // The accumulator operands of m64n256 (128 a thread) and m64n128 (64).
 #define WG_REGS128 \

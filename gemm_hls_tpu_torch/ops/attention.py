@@ -187,7 +187,8 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
         e = cached_family_entry(
             "flash", (flash._heads(q), q.shape[1], k.shape[1], q.shape[-1]),
             dtype=dtype_name(q.dtype), tag="causal" if causal else "full",
-            device=q.device, aligned=bool(flash._vec(q, k, v))) or {}
+            device=q.device, aligned=bool(flash._vec(q, k, v)),
+            group=flash._heads(q) // flash._heads(k)) or {}
         route, bwd_route = e.get("route"), e.get("bwd_route")
     block_q = block_q or 512
     if scale is None:

@@ -4,8 +4,9 @@ front ``flash_mha_diff``.
 
 Counterpart of ``gemm_hls_tpu/ops/pallas_flash.py``:
 
-* :func:`flash_mha` -> ``csrc/flash_wgmma.cu`` or ``csrc/flash_fwd.cu``
-  by shape (:func:`flash_route`; B6 ``_flash_kernel``, B7
+* :func:`flash_mha` -> ``csrc/flash_wgmma.cu``, ``csrc/flash_decode.cu``
+  (:func:`flash_decode`, the split-KV decode) or ``csrc/flash_fwd.cu`` by
+  shape (:func:`flash_route`; B6 ``_flash_kernel``, B7
   ``_flash_kernel_tri``, B8 ``_flash_kernel_onepass``): o = softmax(scale
   q k^T) v per head, optional lse;
 * :func:`flash_mha_bwd_dq` -> ``csrc/flash_bwd_wgmma.cu`` or
@@ -57,6 +58,17 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # for the forward and dq, kv rows for dk / dv.
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_MIN_ROWS = 64
+# The split-KV decode (csrc/flash_decode.cu): the most q rows a kv head
+# (group x S_q, one block's two n8 tiles), and its plan (:func:`splitkv_plan`):
+# at most 8 splits (a portable thread block cluster merges them), each a
+# whole number of 64-slot tiles and at least 256 slots (two tiles a consumer
+# warp), aiming at ~2048 blocks (several waves of three blocks a SM over the
+# H100's 132 SMs).
+SPLITKV_MAX_ROWS = 16
+SPLITKV_MAX_SPLITS = 8
+SPLITKV_MIN_SPLIT = 256
+SPLITKV_ALIGN = 64
+SPLITKV_BLOCKS = 2048
 
 
 def _heads(x) -> int:
@@ -203,6 +215,76 @@ def flash_fwd_plain(q, k, v, kv_lengths=None, q_seg=None, kv_seg=None,
     return o, lse
 
 
+def splitkv_plan(b_kv: int, s_kv: int):
+    """(splits, split_len) of the split-KV decode over ``b_kv`` kv heads of
+    ``s_kv`` cache slots: split i holds slots [i split_len, (i + 1)
+    split_len), every split non-empty.  From the shapes alone, never the
+    device lengths (reading them would synchronise the stream)."""
+    want = -(-SPLITKV_BLOCKS // max(1, b_kv))
+    splits = max(1, min(SPLITKV_MAX_SPLITS, want, -(-s_kv // SPLITKV_MIN_SPLIT)))
+    split_len = -(-(-(-s_kv // splits)) // SPLITKV_ALIGN) * SPLITKV_ALIGN
+    return -(-s_kv // split_len), split_len
+
+
+def flash_decode_plain(q, k, v, kv_lengths=None, q_seg=None, kv_seg=None,
+                       offsets=None, *, causal=False, window=None,
+                       logit_cap=None, scale=1.0, out_dtype=None,
+                       split_len=None):
+    """Plain version of ``flash_decode`` (csrc/flash_decode.cu) with its
+    split arithmetic: per split of ``split_len`` slots (default
+    :func:`splitkv_plan`'s) the scores, the split's max, p rounded to v's
+    type, a partial o in fp32 and its lse (-inf where the split sees no
+    key); then the splits merged in split order, lse = log sum exp(lse_s)
+    and o = sum exp(lse_s - lse) o_s.  Returns (o in ``out_dtype``, default
+    q's, lse (B, S_q) fp32) for 3-D q (B, S_q, D), k, v (B_kv, S_kv, D)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bsz, s_q, d = q.shape
+    b_kv, s_kv = k.shape[:2]
+    group = bsz // b_kv
+    if split_len is None:
+        split_len = splitkv_plan(b_kv, s_kv)[1]
+    qf = q.float().view(b_kv, group, s_q, d)
+    kf = k.float().view(b_kv, 1, s_kv, d)
+    vf = v.float()
+    if kv_lengths is not None:
+        # Rows past the length are zeroed: 0 * NaN would poison p v.
+        live = torch.arange(s_kv, device=v.device).view(1, s_kv, 1) \
+            < kv_lengths.view(b_kv, 1, 1)
+        vf = torch.where(live, vf, 0.0)
+    vf = vf.view(b_kv, 1, s_kv, d)
+    valid = _valid(b_kv, group, s_q, 0, s_q, s_kv, q.device, causal, window,
+                   kv_lengths, q_seg, kv_seg, offsets)
+    o_parts, lse_parts = [], []
+    for c0 in range(0, s_kv, split_len):
+        c1 = min(s_kv, c0 + split_len)
+        s = _scores(qf, kf[:, :, c0:c1], scale, logit_cap)
+        vm = None if valid is None else valid[..., c0:c1]
+        if vm is not None:
+            s = torch.where(vm, s, _MASK)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        if vm is not None:
+            p = torch.where(vm, p, 0.0)
+        l = p.sum(-1, keepdim=True)
+        pv = torch.matmul(p.to(v.dtype).float(), vf[:, :, c0:c1])
+        o_parts.append(pv / torch.where(l == 0, 1.0, l))
+        lse_parts.append(m + torch.log(l))
+    top = lse_parts[0]
+    for x in lse_parts[1:]:
+        top = torch.maximum(top, x)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    total = torch.zeros_like(top)
+    o = torch.zeros_like(o_parts[0])
+    for o_s, lse_s in zip(o_parts, lse_parts):
+        w = torch.exp(lse_s - top)
+        total = total + w
+        o = o + w * o_s
+    o = o / torch.where(total == 0, 1.0, total)
+    lse = (top + torch.log(total))[..., 0]
+    return (o.reshape(bsz, s_q, d).to(out_dtype or q.dtype),
+            lse.reshape(bsz, s_q).contiguous())
+
+
 def _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, offsets, causal,
                window, logit_cap, scale, block_q):
     """Yields (r0, r1, p, ds, q tile, dO tile) per q tile, p and ds fp32
@@ -295,21 +377,28 @@ def _vec(*xs) -> int:
     return 1
 
 
-def flash_route(dtype, d: int, s_q: int, aligned: bool) -> str:
-    """The kernel a forward launch takes: ``"wgmma"`` (``csrc/flash_wgmma.cu``:
-    TMA and warp-specialised wgmma, one persistent block a SM) for bf16 /
-    fp16 with a head dim of 64 or 128 and at least 64 query rows a head,
-    whose q, k and v are ``aligned`` (16-byte bases, every row, head and
-    batch stride whole 16-byte units: what a TMA map describes);
+def flash_route(dtype, d: int, s_q: int, aligned: bool, group: int = 1) -> str:
+    """The kernel a forward launch takes, for q heads of ``s_q`` rows,
+    ``group`` of them a kv head: ``"wgmma"`` (``csrc/flash_wgmma.cu``: TMA
+    and warp-specialised wgmma, one persistent block a SM) for bf16 / fp16
+    with a head dim of 64 or 128 and at least 64 query rows a head, whose
+    q, k and v are ``aligned`` (16-byte bases, every row, head and batch
+    stride whole 16-byte units: what a TMA map describes); ``"splitkv"``
+    (``csrc/flash_decode.cu``: the split-KV decode, one block a (kv head,
+    split) owning the group's rows, the splits merged in one launch) for
+    the same types, head dims and alignment with at most 16 rows a kv head
+    (``group`` x ``s_q``: decode's GQA group, one or a few tokens);
     ``"mma.sync"`` (``csrc/flash_fwd.cu``'s tensor-core tile) for the other
-    bf16 / fp16 calls (other head dims, decode's few rows a head, unaligned
-    rows); ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  Chosen by
-    shape, never as a fallback: a kernel that fails to build or launch
-    raises."""
+    bf16 / fp16 calls (other head dims, 17-63 rows, unaligned rows);
+    ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  Chosen by shape,
+    never as a fallback: a kernel that fails to build or launch raises."""
     if dtype == torch.float32:
         return "simt"
-    if d in WGMMA_HEAD_DIMS and s_q >= WGMMA_MIN_ROWS and aligned:
-        return "wgmma"
+    if d in WGMMA_HEAD_DIMS and aligned:
+        if s_q >= WGMMA_MIN_ROWS:
+            return "wgmma"
+        if group * s_q <= SPLITKV_MAX_ROWS:
+            return "splitkv"
     return "mma.sync"
 
 
@@ -321,9 +410,13 @@ def flash_bwd_route(dtype, d: int, rows: int, aligned: bool) -> str:
     whose q, k, v, dO and outputs are ``aligned`` (16-byte bases and
     strides); ``"mma.sync"`` (``csrc/flash_bwd_dq.cu`` /
     ``flash_bwd_dkv.cu``'s tensor-core tile) for the other bf16 / fp16
-    calls; ``"simt"`` (IEEE fp32 on the CUDA cores) for fp32.  Chosen by
-    shape, never as a fallback."""
-    return flash_route(dtype, d, rows, aligned)
+    calls (the split-KV decode has no backward); ``"simt"`` (IEEE fp32 on
+    the CUDA cores) for fp32.  Chosen by shape, never as a fallback."""
+    if dtype == torch.float32:
+        return "simt"
+    if d in WGMMA_HEAD_DIMS and rows >= WGMMA_MIN_ROWS and aligned:
+        return "wgmma"
+    return "mma.sync"
 
 
 def _kernel_ok(q, what, interpret):
@@ -385,35 +478,62 @@ def _forward(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window,
              out_dtype=None):
     """(o in q's layout and ``out_dtype`` (default q's), lse (B, S_q) fp32):
     the kernel on CUDA operands (``flash_route``'s, or ``route`` where a
-    comparison names one), the plain version on CPU ones.  q, k, v each 3-D
-    or 4-D."""
-    _check(q, k, v, kv_lengths, q_seg, kv_seg, offsets, causal, window)
+    comparison names one), the plain version on CPU ones (the split-KV
+    decode's, :func:`flash_decode_plain`, where the rule gives that route).
+    q, k, v each 3-D or 4-D."""
+    _, s_q, d, _, _, group = _check(q, k, v, kv_lengths, q_seg, kv_seg, offsets,
+                                    causal, window)
     odt = _out_dtype(q, out_dtype)
+    mask = dict(causal=causal, window=window, logit_cap=logit_cap, scale=scale,
+                out_dtype=odt)
     if q.device.type == "cpu":
+        decode = flash_route(q.dtype, d, s_q, bool(_vec(q, k, v)), group) == "splitkv"
         with torch.no_grad():
-            o, lse = flash_fwd_plain(
-                _pack(q), _pack(k), _pack(v), kv_lengths, q_seg, kv_seg,
-                offsets, causal=causal, window=window, logit_cap=logit_cap,
-                scale=scale, block_q=block_q, out_dtype=odt)
+            if decode:
+                o, lse = flash_decode_plain(_pack(q), _pack(k), _pack(v), kv_lengths, q_seg,
+                                            kv_seg, offsets, **mask)
+            else:
+                o, lse = flash_fwd_plain(_pack(q), _pack(k), _pack(v), kv_lengths, q_seg,
+                                         kv_seg, offsets, block_q=block_q, **mask)
         return _unpack(o, q), lse
     _same_device(q, k, v, kv_lengths, q_seg, kv_seg, offsets)
     _kernel_ok(q, "flash_fwd", interpret)
     q, k, v = _strided(q), _strided(k), _strided(v)
-    o = torch.empty(q.shape, dtype=odt, device=q.device)
-    lse = torch.empty((_heads(q), q.shape[1]), dtype=torch.float32,
-                      device=q.device)
     aligned = _vec(q, k, v)
-    route = named_route(route, flash_route(q.dtype, q.shape[-1], q.shape[1], bool(aligned)),
-                   "flash_fwd")
-    _launch("flash_wgmma" if route == "wgmma" else "flash_fwd",
-            _seq(q) + _seq(k) + _seq(v) + _seq(o),
-            [lse.data_ptr(), _ptr(kv_lengths), _ptr(q_seg), _ptr(kv_seg),
-             _ptr(offsets)],
-            _dims(q, k, causal, window, aligned and _vec(o))
-            + [int(odt == torch.float32)], logit_cap, scale,
-            q.dtype, q.device, "flash_fwd")
+    route = named_route(route, flash_route(q.dtype, d, s_q, bool(aligned), group), "flash_fwd")
+    if route == "splitkv":
+        o, lse = flash_decode(q, k, v, kv_lengths, q_seg, kv_seg, offsets, **mask)
+    else:
+        o = torch.empty(q.shape, dtype=odt, device=q.device)
+        lse = torch.empty((_heads(q), s_q), dtype=torch.float32, device=q.device)
+        _launch("flash_wgmma" if route == "wgmma" else "flash_fwd",
+                _seq(q) + _seq(k) + _seq(v) + _seq(o),
+                [lse.data_ptr(), _ptr(kv_lengths), _ptr(q_seg), _ptr(kv_seg),
+                 _ptr(offsets)],
+                _dims(q, k, causal, window, aligned and _vec(o))
+                + [int(odt == torch.float32)], logit_cap, scale,
+                q.dtype, q.device, "flash_fwd")
     flash_mha.launches += 1
     flash_mha.last_route = route
+    return o, lse
+
+
+def flash_decode(q, k, v, kv_lengths, q_seg, kv_seg, offsets, *, causal, window,
+                 logit_cap, scale, out_dtype):
+    """The split-KV decode (kernel ``flash_decode``, csrc/flash_decode.cu)
+    on CUDA operands the front door (:func:`flash_mha`) checked and routed
+    to ``"splitkv"`` (unit-stride rows, int arguments as int32 tensors);
+    (o in ``out_dtype``, lse (B, S_q)).  The plan is :func:`splitkv_plan`'s;
+    the plain version, :func:`flash_decode_plain`."""
+    o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    lse = torch.empty((_heads(q), q.shape[1]), dtype=torch.float32, device=q.device)
+    splits, split_len = splitkv_plan(_heads(k), k.shape[1])
+    _launch("flash_decode", _seq(q) + _seq(k) + _seq(v) + _seq(o),
+            [lse.data_ptr(), _ptr(kv_lengths), _ptr(q_seg), _ptr(kv_seg), _ptr(offsets)],
+            _dims(q, k, causal, window, 1) + [int(out_dtype == torch.float32), splits,
+                                              split_len],
+            logit_cap, scale, q.dtype, q.device, "flash_decode")
+    flash_decode.launches += 1
     return o, lse
 
 
@@ -552,8 +672,11 @@ def flash_mha_bwd_dkv(qs, k, v, do, lse, delta, q_segment_ids=None,
 
 
 # Kernel launches since the counts were last reset (plain calls not
-# counted), and the route of each wrapper's last launch.
+# counted), and the route of each wrapper's last launch.  flash_mha counts
+# every forward launch, whatever its route; flash_decode the split-KV
+# decode's alone.
 flash_mha.launches = 0
+flash_decode.launches = 0
 flash_mha.last_route = None
 flash_mha_bwd_dq.launches = 0
 flash_mha_bwd_dq.last_route = None

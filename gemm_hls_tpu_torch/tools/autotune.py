@@ -635,11 +635,11 @@ def _group_of(tag: str) -> Optional[int]:
 
 
 def _family_runs(family: str, dims, dtype: str, tag: str, e: dict, device,
-                 aligned: Optional[bool]) -> bool:
+                 aligned: Optional[bool], group: int = 1) -> bool:
     """Whether the route rule takes the entry's route (and its plan) for a
     call of these dims: the ops modules' own predicates.  ``aligned``: the
     operands' 16-byte bases (None: fresh tensors); the rows come from the
-    dims."""
+    dims; ``group``: a flash call's q heads a kv head."""
     from gemm_hls_tpu_torch.ops import dequant, flash, gmm, quant
 
     td = torch_dtype(dtype)
@@ -649,7 +649,7 @@ def _family_runs(family: str, dims, dtype: str, tag: str, e: dict, device,
         _, s_q, s_kv, d = (int(v) for v in dims)
         al = al and _pitches_aligned(dtype, d)
         bwd = e.get("bwd_route")
-        return ((route is None or _runs(route, flash.flash_route(td, d, s_q, al)))
+        return ((route is None or _runs(route, flash.flash_route(td, d, s_q, al, group)))
                 and (bwd is None or all(_runs(bwd, flash.flash_bwd_route(td, d, rows, al))
                                         for rows in (s_q, s_kv))))
     if family == "grouped":
@@ -683,7 +683,7 @@ def _family_runs(family: str, dims, dtype: str, tag: str, e: dict, device,
 
 def cached_family_entry(family: str, dims, *, dtype: str, tag: str = "",
                         cache_path: Optional[str] = None, device=None,
-                        aligned: Optional[bool] = None) -> Optional[dict]:
+                        aligned: Optional[bool] = None, group: int = 1) -> Optional[dict]:
     """Cached winner dict for a kernel family, or None: never measures.
 
     Families: ``flash`` (dims (B, S_q, S_kv, D), tag "causal" / "full";
@@ -692,13 +692,14 @@ def cached_family_entry(family: str, dims, *, dtype: str, tag: str = "",
     engine ``plan``: B13's (N tile, K splits), W8A8's N tile), ``grouped``
     (dims (M, K, N, G); ``route``).  An entry whose route or plan the route
     rule cannot run for this call (``aligned``: the operands' 16-byte bases;
-    ``device``: whose plans), or whose blocks would pad the actual shape by
+    ``device``: whose plans; ``group``: a flash call's q heads a kv head,
+    whose rows the split-KV decode counts), or whose blocks would pad the actual shape by
     more than 1.3x (the reference's guard), is a miss, and the front doors
     keep their route rules and plans."""
     for e in _entries(lambda chip: _key_family(chip, family, dtype, dims, tag),
                       cache_path, device):
         if (_family_pad_ratio(family, dims, e) <= 1.3
-                and _family_runs(family, dims, dtype, tag, e, device, aligned)):
+                and _family_runs(family, dims, dtype, tag, e, device, aligned, group)):
             return e
     return None
 
@@ -745,7 +746,8 @@ def _flash_inputs(bsz, s_q, s_kv, d, dtype, device, seed=5):
 # mma.sync tiles of B13 (csrc/dequant_gemm.cu: DBM, DBN, DBK) and W8A8
 # (csrc/w8a8_gemm.cu: WBM, WBN, WBK).  The engine tiles of B13 and W8A8
 # follow their plans (ops/dequant.py).
-_FLASH_TILES = {"wgmma": (128, 128), "mma.sync": (128, 64), "simt": (32, 32)}
+_FLASH_TILES = {"wgmma": (128, 128), "splitkv": (16, 64), "mma.sync": (128, 64),
+                "simt": (32, 32)}
 _GROUPED_TILES = {"wgmma": (128, 256, 64), "mma.sync": (64, 128, 32)}
 _MMA_TILES = {"dequant": (64, 64, 64), "w8a8": (64, 128, 64)}
 
@@ -755,9 +757,9 @@ def _blocks(tile) -> dict:
 
 
 def _route_pair(rule: str) -> List[str]:
-    """The rule's route and, beside the tile engine, the other tensor-core
-    tile."""
-    return [rule] + (["mma.sync"] if rule == "wgmma" else [])
+    """The rule's route and, beside the tile engine or the flash forward's
+    split-KV decode, the other tensor-core tile."""
+    return [rule] + (["mma.sync"] if rule in ("wgmma", "splitkv") else [])
 
 
 def autotune_flash(bsz: int, s_q: int, s_kv: int, d: int, *,

@@ -15,7 +15,10 @@ sync) and their median, the main thread's CPU us a step in the same
 windows (``time.thread_time``: the host's own cost of a step, which a
 descheduled host core does not inflate) and their median, then a
 torch.profiler breakdown of 10 steps (the device busy share of the window,
-device us a step in all and in B13's kernels, the largest kernels).  Two
+device us a step in all, in B13's kernels and in the decode attention's
+kernel, whichever route the tree's rule gives it (``flash_decode_kernel``,
+the split-KV decode, or an older tree's ``flash_fwd_tc``), named; the
+largest kernels).  Two
 kernel libraries do not mix in one process: run each tree in its own
 process, parent and change in turns (parent, change, change, parent)
 within one call on the card.  Needs the card.
@@ -80,6 +83,9 @@ def main(argv=None) -> int:
         "cpu_us_median": statistics.median(cpu), "busy": busy,
         "device_us_a_step": sum(us for _, us in kernels),
         "b13_us_a_step": sum(us for name, us in kernels if "dequant" in name),
+        "attention_us_a_step": sum(us for name, us in kernels if "flash_" in name),
+        "attention_kernels": sorted({name.split("<")[0][:48] for name, _ in kernels
+                                     if "flash_" in name}),
         "kernels_us": [[name[:48], us] for name, us in kernels[:8]]}))
     return 0
 

@@ -467,11 +467,15 @@ def test_plain_versions_any_head_dim_and_block():
 
 def test_route_rule():
     bf16, f16 = torch.bfloat16, torch.float16
-    # The main path's shapes take the engine; decode's four rows a kv head,
-    # other head dims, unaligned rows and fp32 do not.
+    # The main path's shapes take the engine; decode's four rows a kv head
+    # the split-KV decode; 17-63 rows, other head dims, unaligned rows and
+    # fp32 neither.
     assert flash.flash_route(bf16, 128, 1024, True) == "wgmma"
     assert flash.flash_route(f16, 64, 64, True) == "wgmma"
-    assert flash.flash_route(bf16, 128, 4, True) == "mma.sync"
+    assert flash.flash_route(bf16, 128, 4, True) == "splitkv"
+    assert flash.flash_route(bf16, 128, 1, True, group=4) == "splitkv"
+    assert flash.flash_route(bf16, 128, 17, True) == "mma.sync"
+    assert flash.flash_route(bf16, 128, 5, True, group=4) == "mma.sync"
     assert flash.flash_route(bf16, 128, 63, True) == "mma.sync"
     assert flash.flash_route(bf16, 96, 1024, True) == "mma.sync"
     assert flash.flash_route(bf16, 128, 1024, False) == "mma.sync"
@@ -480,20 +484,20 @@ def test_route_rule():
 
 def test_route_cases_take_the_routes_they_name():
     # chip_smoke.py's FLASH_ROUTE_CASES (phase 13 and the card tests): the
-    # route each case asserts is flash_route's for its dtype, head dim, rows
-    # and row pitch, and the table reaches every route.
+    # route each case asserts is flash_route's for its dtype, head dim, rows,
+    # GQA group and row pitch, and the table reaches every route.
     import chip_smoke
 
     seen = set()
     for case in list(chip_smoke.FLASH_ROUTE_CASES) + [chip_smoke.FLASH_REPEAT_CASE]:
-        _, dt, _, _, _, s_q, _, d, kw, route = case
+        _, dt, _, hq, hkv, s_q, _, d, kw, route = case
         dtype = getattr(torch, dt)
         width = d + 1 if kw.get("pitched") else d
         aligned = width * dtype.itemsize % 16 == 0
-        assert flash.flash_route(dtype, d, s_q, aligned) == route, case
+        assert flash.flash_route(dtype, d, s_q, aligned, hq // hkv) == route, case
         seen.add((dt, route))
-    assert {("bfloat16", "wgmma"), ("float16", "wgmma"), ("bfloat16", "mma.sync"),
-            ("float32", "simt")} <= seen
+    assert {("bfloat16", "wgmma"), ("float16", "wgmma"), ("bfloat16", "splitkv"),
+            ("bfloat16", "mma.sync"), ("float32", "simt")} <= seen
 
 
 def test_plain_calls_leave_the_route_alone():

@@ -1,8 +1,8 @@
 """Kernels B1 (with and without its epilogue), B2 (plain, epilogue and
 row-softmax variants; both tensor-core routes over ``chip_smoke.py``'s
 phase-6 route tables), B3 (2-D and batched), B4 and B5 (the integer-slice
-GEMMs), the flash kernels (B6-B12, over ``chip_smoke.py``'s phase-13
-case tables), the quantized and grouped GEMMs (B13-B16, over its
+GEMMs), the flash kernels (B6-B12 and the split-KV decode, over
+``chip_smoke.py``'s phase-13 case tables), the quantized and grouped GEMMs (B13-B16, over its
 phase-16 tables; B13 and B14 / B15 on both tensor-core routes, the W8A8
 engine bitwise equal to its mma.sync tile) and the grouped GEMM's weight gradient (B17, both
 tensor-core routes, over its phase-19 tables), the fused ring and Cannon (B18, B19, over its
@@ -877,6 +877,15 @@ def test_flash_engine_launches_repeat_bitwise(cuda):
     chip_smoke.flash_repeats(torch, _gen(32))
 
 
+# The split-KV decode (csrc/flash_decode.cu) against flash_decode_plain,
+# each case launched twice with the same bits.
+@pytest.mark.parametrize("case", chip_smoke.FLASH_DECODE_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'x'.join(map(str, c[2:8]))}-{'-'.join(sorted(c[8]))}"
+                              for c in chip_smoke.FLASH_DECODE_CASES])
+def test_flash_decode_vs_plain(cuda, case):
+    chip_smoke.flash_decode_case(torch, _gen(35), case)
+
+
 # The backward's routes: each case on the route it names, and every engine
 # case again on the mma.sync tile (the route override).
 _BWD_RUNS = ([(case, None) for case in chip_smoke.FLASH_BWD_ROUTE_CASES]
@@ -1323,7 +1332,7 @@ def test_ring_decode_on_ranks_of_the_card(cuda):
     k, v = (chip_smoke.signed(torch, (4, 1024, 128), torch.bfloat16, gen) for _ in range(2))
     lens = torch.tensor([4, 300, 700, 1024], dtype=torch.int32, device=cuda)
     o = ring_decode_attention(q, k, v, lens, mesh, window=500).full()
-    assert flash.flash_mha.last_route == "mma.sync"
+    assert flash.flash_mha.last_route == "splitkv"
     sc = torch.tensor(128 ** -0.5, dtype=torch.bfloat16, device=cuda)
     ref = flash.flash_mha(q * sc, k, v, kv_lengths=lens, causal=True, window=500)
     assert chip_smoke.rel_norm(o, ref) < chip_smoke.PAR_FWD_TOL
