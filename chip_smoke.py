@@ -372,25 +372,31 @@ Phases, each printed as it ends:
      +inf-holding operands), float64 APSP beside fp32 APSP;
  33. slice 24, fp32 B1 / B2 on the tile engine as TF32 (the split pass
      ``csrc/tf32_split.cu`` turns each operand K-major, hi and lo rounded
-     to TF32; ``csrc/mxu_wgmma_tf32.cu`` runs one pass at "default", three
-     at "high" / "highest"): TF32_ROUTE_CASES (both precisions, four
-     layouts, dense and pitched, B2 with broadcast operands, every
-     epilogue, K 1 / 3 / 5, +-inf and NaN in both operands, unaligned rows
-     on the engine too) with each launch's route and passes checked, the
-     split's workspaces bit for bit their plain version (and on +-inf,
-     NaN, subnormals and the largest finite values), the GEMM within
-     TF32_RTOL of the passes in float64, and where +-inf and NaN are
-     planted within TF32_IEEE_RTOL of IEEE fp32 with its infinities and
-     NaNs at the same places; TF32_REPEATS same-bits launches; then,
-     counts set to 0 before and read after, the main path: fp32 ``matmul``
-     at 8192^3 at both precisions, B2 at 16 x 1024^3, phase 8a's bf16
-     trainer (its backward at the reference's DEFAULT: one TF32 pass), B1's
-     launches by route and passes, beside phase 29c's and 29e's steps and
-     times read from phase 29's record; then fp32 8192^3 / 4096^3 /
-     2048^3 in turns on CUDA events beside the CUDA-core tile, fp32
-     ``torch.matmul`` without and with TF32 and the split pass alone, each
-     normwise error against float64 ``torch.matmul`` held to SGEMM's (4x,
-     "high") and cuBLAS TF32's (2x, "default").
+     to TF32, from fp32, bf16 or fp16 sources; ``csrc/mxu_wgmma_tf32.cu``
+     runs one pass at "default", three at "high" / "highest"):
+     TF32_ROUTE_CASES (both precisions, four layouts, dense and pitched, B2
+     with broadcast operands, every epilogue, K 1 / 3 / 5, +-inf and NaN
+     in both operands, unaligned rows on the engine too) with each
+     launch's route and passes checked, the split's workspaces bit for bit
+     their plain version (and on +-inf, NaN, subnormals and the largest
+     finite values), the GEMM within TF32_RTOL of the passes in float64,
+     and where +-inf and NaN are planted within TF32_IEEE_RTOL of IEEE fp32
+     with its infinities and NaNs at the same places; TF32_SPLIT_CASES (the
+     split of fp32, bf16 and fp16 sources of random bits, both holdings,
+     one and three segments, odd pitches and bases, K tails, batched and a
+     stride-0 batch) bit for bit their plain version; TF32_REPEATS
+     same-bits launches; then, counts set to 0 before and read after, the
+     main path: fp32 ``matmul`` at 8192^3 at both precisions, B2 at 16 x
+     1024^3, B1's launches by route and passes; then, counted apart, phase
+     8a's bf16 trainer (its backward on the 16-bit engine: no split, no
+     TF32 pass), beside phase 29c's and 29e's steps and times read from
+     phase 29's record; then fp32 8192^3 / 4096^3 / 2048^3 in turns on
+     CUDA events beside the CUDA-core tile, fp32 ``torch.matmul`` without
+     and with TF32 and the split pass alone, each normwise error against
+     float64 ``torch.matmul`` held to SGEMM's (4x, "high") and cuBLAS
+     TF32's (2x, "default"); then the split alone at 8192^2 for each
+     source type and holding, one and three segments, in turns beside its
+     bytes bound.
  34. slice 25, B1 / B2 on the tile engine at any layout and alignment:
      (a) PACK_CASES, the pack pass (``csrc/operand_pack.cu``: an operand
      the engine's TMA maps cannot read in place copied K-major, K padded
@@ -1212,6 +1218,7 @@ def reset_counters():
     mxu.dmma_tile_launches.clear()
     mxu.tf32_launches.clear()
     mxu.tf32_operand.launches = 0
+    mxu.tf32_operand.source_launches.clear()
     mxu.pack_operand.launches.clear()
     mxu.packed_launches.clear()
     mxu.int_plane_launches.clear()
@@ -6912,16 +6919,14 @@ def phase_mlp_sharded(torch, record, times):
         if not abs(losses[-1][0] - losses[-1][1]) <= BF16_RTOL * abs(losses[-1][1]):
             raise AssertionError(f"{key}: loss {losses[-1]}")
         # A rank's forward: two bf16 GEMMs on the engine; its backward dW0,
-        # dh and dW1 (x takes no gradient) in fp32, the cotangent's type
-        # (ops/matmul.py::_mxu_bwd, JAX's dot), at the reference's DEFAULT:
-        # one TF32 pass on the engine after two split passes.
+        # dh and dW1 (x takes no gradient) in bf16, the cotangent's type
+        # (ops/matmul.py::backward_on_16_bits): on the 16-bit engine, no
+        # split pass and no TF32 pass.
         ranks = dp * tp
-        expect(f"{key} launches", record[key]["launches"],
-               {"B1": 5 * ranks, "B1 tf32 split": 6 * ranks})
-        expect(f"{key} routes", record[key]["entries"],
-               {"mxu_wgmma": 2 * ranks, "mxu_wgmma_tf32": 3 * ranks, "tf32_split": 6 * ranks})
+        expect(f"{key} launches", record[key]["launches"], {"B1": 5 * ranks})
+        expect(f"{key} routes", record[key]["entries"], {"mxu_wgmma": 5 * ranks})
         expect(f"{key} backward route", (mxu.mxu_matmul.last_route,
-                                         mxu.mxu_matmul.last_tf32_passes), ("wgmma", 1))
+                                         mxu.mxu_matmul.last_tf32_passes), ("wgmma", None))
         partial = c["tokens"] // dp * dout * 2
         rank_bytes(record, key, mesh, "tp_psum", 2 * (tp - 1) * partial // tp)
         rank_bytes(record, key, mesh, "tp_psum_bwd", 2 * (tp - 1) * partial // tp)
@@ -6940,8 +6945,8 @@ def phase_mlp_sharded(torch, record, times):
     key = "29c step 0"
     log(f"phase 29c: sharded MLP step {c['dims']} x {c['tokens']} bf16 tokens on (dp {dp}, tp "
         f"{tp}): losses (sharded, single-card) {losses}, params normwise max {max(errs):.3e}; "
-        f"B1 x{record[key]['launches'].get('B1')} a step (the forward's on wgmma, the "
-        f"backward's fp32 one TF32 pass on wgmma); bytes a rank: tp psum "
+        f"B1 x{record[key]['launches'].get('B1')} a step (the forward's and the "
+        f"backward's bf16 on wgmma, no split); bytes a rank: tp psum "
         f"{record[key]['bytes']['tp_psum'][(0, 0)]} each way, grad psum "
         f"{record[key]['bytes']['grad_psum'][(0, 0)]}; in turns (ms): "
         + ", ".join(f"{a} {b:.3f}" for a, b in times["29c"].items()))
@@ -7122,14 +7127,13 @@ def phase_pipeline(torch, record, times):
         raise AssertionError(f"{key}: loss {float(loss)} vs {float(ref_loss)}")
     # Each stage application's two bf16 GEMMs on the engine, again in the
     # backward's recompute (remat); its backward's dW1, dW2, dh and (past
-    # stage 0, whose input takes no gradient) dx in fp32 at the reference's
-    # DEFAULT: one TF32 pass on the engine after two split passes.
+    # stage 0, whose input takes no gradient) dx in bf16, the cotangent's
+    # type (ops/matmul.py::backward_on_16_bits): on the 16-bit engine, no
+    # split pass and no TF32 pass.
     b1 = record[key]["launches"].get("B1", 0)
     bwd = m * (4 * p_ - 1)
-    expect(f"{key} launches", record[key]["launches"],
-           {"B1": 4 * p_ * m + bwd, "B1 tf32 split": 2 * bwd})
-    expect(f"{key} routes", record[key]["entries"],
-           {"mxu_wgmma": 4 * p_ * m, "mxu_wgmma_tf32": bwd, "tf32_split": 2 * bwd})
+    expect(f"{key} launches", record[key]["launches"], {"B1": 4 * p_ * m + bwd})
+    expect(f"{key} routes", record[key]["entries"], {"mxu_wgmma": 4 * p_ * m + bwd})
     rank_bytes(record, key, mesh, "pipeline", hops)
     rank_bytes(record, key, mesh, "pipeline_bwd", hops)
     record["29e"] = dict(forward_normwise=err, param_normwise=errs,
@@ -7143,7 +7147,7 @@ def phase_pipeline(torch, record, times):
         f"{c['batch']} in {m} microbatches (T {steps}): forward normwise {err:.3e} vs "
         f"stages_forward, B1 x{2 * p_ * m} on wgmma; train step loss {float(loss):.6f} vs "
         f"{float(ref_loss):.6f}, params normwise max {max(errs):.3e}, B1 x{b1} ({4 * p_ * m} "
-        f"on wgmma, {bwd} fp32 one TF32 pass on wgmma); ppermute "
+        f"on wgmma, {bwd} backward bf16 on wgmma, no split); ppermute "
         f"{hops} B a rank each way; in turns (ms): "
         + ", ".join(f"{a} {b:.3f}" for a, b in times["29e"].items()))
 
@@ -8656,8 +8660,9 @@ def phase_slice23(torch, lib_log):
 
 
 # ---------------------------------------------------------------------------
-# Slice 24 (phase 33): fp32 on the tile engine's TF32 passes, and the bf16
-# trainer's backward at the reference's DEFAULT
+# Slice 24 (phase 33): fp32 on the tile engine's TF32 passes, the split pass
+# of fp32, bf16 and fp16 sources, and the bf16 trainer's backward on the
+# 16-bit engine
 # ---------------------------------------------------------------------------
 
 # B1 / B2 fp32 on the engine (``ops/mxu.py::tf32_operand``, the split pass
@@ -8714,8 +8719,33 @@ TF32_RTOL = 1e-4
 # product); one rounds each operand to TF32 (up to 2^-10 of a product).
 TF32_IEEE_RTOL = {3: 1e-5, 1: 4e-3}
 # Phase 33's shapes: fp32 8192^3, 4096^3 and 2048^3 (timed in turns), B2 at
-# 16 x 1024^3, and the trainer of phase 8a at its width, 3 steps.
-SLICE24 = dict(sizes=(8192, 4096, 2048), batched=(16, 1024), trainer_steps=3)
+# 16 x 1024^3, the trainer of phase 8a at its width, 3 steps, and the split
+# alone at 8192^2.
+SLICE24 = dict(sizes=(8192, 4096, 2048), batched=(16, 1024), trainer_steps=3, split=8192)
+# The split pass against its plain version, bit for bit (phase 33a;
+# tests/test_torch_kernels.py parametrises it too), in PACK_CASES' form
+# with the workspace's segments: (source dtype, mn_major, batch (None:
+# 2-D), rows, K, pad, offset, broadcast, passes, side).  fp32, bf16 and
+# fp16 sources of random bits (+-inf, NaNs, subnormals among them), both
+# holdings, one and three segments (A's and B's), dense and at pitches K +
+# 1 / K + 3 (rows + 1 / + 3 held (K, rows)), a base one element off, K
+# tails off 4 and 8 values, a row group cut by the last row (300 and 130
+# rows), batched at odd strides, a batch read with a stride of 0, 1 x 1.
+TF32_SPLIT_CASES = (
+    [(dt, mn, None, 300, k, pad, off, False, passes, side)
+     for dt in ("float32", "bfloat16", "float16") for mn in (False, True)
+     for passes, side in ((1, "a"), (3, "a"), (3, "b"))
+     for k, pad, off in ((520, 0, 0), (517, 1, 0), (517, 3, 1))]
+    + [(dt, mn, 3, 130, 203, 3, 1, False, passes, "b")
+       for dt in ("float32", "bfloat16", "float16") for mn in (False, True) for passes in (1, 3)]
+    + [(dt, mn, 4, 64, 100, 1, 0, True, 3, "a")
+       for dt in ("float32", "bfloat16", "float16") for mn in (False, True)]
+    + [(dt, mn, None, 1, 1, 0, 0, False, 3, "b")
+       for dt in ("float32", "bfloat16", "float16") for mn in (False, True)]
+    + [("bfloat16", False, None, 7, 3, 0, 1, False, 1, "a"),
+       ("float16", True, None, 9, 13, 0, 0, False, 3, "a"),
+       ("float32", True, 2, 257, 36, 0, 0, False, 1, "a")]
+)
 
 
 def tf32_plant_specials(torch, x):
@@ -8779,6 +8809,19 @@ def tf32_split_equal(torch, x, mn_major, passes, side, what):
                              f"plain version ({bad} words)")
 
 
+def tf32_split_case(torch, gen, case):
+    """One TF32_SPLIT_CASES case: the split pass's workspace of its operand
+    (``pack_case_operand``'s random bits) equal to its plain version bit
+    for bit, one launch counted under its source type."""
+    from gemm_hls_tpu_torch.ops import mxu
+    x = pack_case_operand(torch, gen, case[:8])
+    before = mxu.tf32_operand.source_launches[case[0]]
+    tf32_split_equal(torch, x, case[1], case[8], case[9], f"split {case}")
+    if mxu.tf32_operand.source_launches[case[0]] != before + 1:
+        raise AssertionError(f"split {case}: {mxu.tf32_operand.source_launches[case[0]] - before} "
+                             f"launches")
+
+
 def tf32_route_case(torch, gen, case, route=None):
     """One TF32_ROUTE_CASES case on its route (or on ``route``, the
     override): its route and TF32 passes checked, the split pass's
@@ -8834,24 +8877,69 @@ def tf32_edge_operand(torch, gen, rows, cols):
     return x
 
 
+def split_bound_ms(rows, k, source_bytes, passes):
+    """The split pass's bytes bound (ms on the H100): each source value read
+    once, each workspace value (passes fp32 a value, K padded to 4) written
+    once."""
+    from gemm_hls_tpu_torch.models.perf_model import H100
+    kp = (k + 3) // 4 * 4
+    return (rows * k * source_bytes + rows * kp * 4 * passes) / H100.hbm_bandwidth * 1e3
+
+
+def split_alone(torch, gen, size):
+    """Phase 33e: the split pass alone on a size^2 operand of each source
+    type (fp32, bf16, fp16), held (K, N) (MN-major, B's usual layout) and
+    (N, K) (K-major), one and three segments (B's), on CUDA events in turns
+    beside ``split_bound_ms``; each workspace bit for bit its plain
+    version.  Returns {"<dtype> <holding> x<passes>": {ms, bound_ms,
+    share}}."""
+    from gemm_hls_tpu_torch.ops import mxu
+    xs = {dt: signed(torch, (size, size), getattr(torch, dt), gen)
+          for dt in ("float32", "bfloat16", "float16")}
+    fns = {f"{dt} {'(K, N)' if mn else '(N, K)'} x{p}":
+           (lambda x=x, mn=mn, p=p: mxu.tf32_operand(x, mn, p, "b"))
+           for dt, x in xs.items() for mn in (True, False) for p in (1, 3)}
+    for dt, x in xs.items():
+        for mn in (True, False):
+            for p in (1, 3):
+                tf32_split_equal(torch, x, mn, p, "b", f"33e {dt} mn {mn} x{p}")
+    t = event_turns(torch, fns, rounds=3, iters=10, hold=True)
+    out = {}
+    for name, ms in t.items():
+        dt, p = name.split()[0], int(name[-1])
+        bound = split_bound_ms(size, size, xs[dt].element_size(), p)
+        out[name] = dict(ms=ms, bound_ms=bound, share=bound / ms)
+    log(f"phase 33e: the split pass alone at {size}^2 on CUDA events in turns (ms, share of "
+        f"the bytes bound): " + "; ".join(f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f}, "
+                                          f"{v['share']:.1%})" for k, v in out.items()))
+    del xs
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_slice24(torch, lib_log, record29, times29):
     """Phase 33: slice 24, fp32 on the tile engine.  (a) TF32_ROUTE_CASES,
     each launch's route and passes printed, the split pass's workspaces bit
     for bit their plain version, the GEMM within TF32_RTOL of the passes in
     float64 (and, where +-inf and NaN are planted, IEEE fp32's places for
     them); the split of an operand holding +-inf, NaN, subnormals and the
-    largest finite values, bit for bit; (b) TF32_REPEATS same-bits launches;
-    then, every launch count set to 0 just before and read just after, the
-    main path: (c) fp32 ``matmul`` at 8192^3 at "high" and "default" and B2
-    at 16 x 1024^3 through the front door, phase 8a's bf16 trainer (its
-    backward at the reference's DEFAULT: one TF32 pass) against the plain
-    trainer, B1's launches by route and passes; phase 29c's and 29e's
-    steps read from phase 29's ``record29`` and ``times29``; (d) fp32
-    8192^3 / 4096^3 / 2048^3 on CUDA events in turns: both precisions, the
-    engine alone, the CUDA-core tile, fp32 ``torch.matmul`` without and
-    with TF32, and the split pass alone; each one's normwise
-    error against float64 ``torch.matmul``, held to SGEMM's and cuBLAS
-    TF32's on the same data.  Returns the readings for the kernels line."""
+    largest finite values, bit for bit; TF32_SPLIT_CASES (fp32, bf16 and
+    fp16 sources) bit for bit; (b) TF32_REPEATS same-bits launches; then,
+    every launch count set to 0 just before and read just after, the main
+    path: (c) fp32 ``matmul`` at 8192^3 at "high" and "default" and B2 at
+    16 x 1024^3 through the front door, B1's launches by route and passes;
+    then, counted apart, phase 8a's bf16 trainer against the plain trainer
+    (its backward on the 16-bit engine: every B1 launch on ("wgmma",
+    "bfloat16"), no split and no TF32 pass); phase 29c's and 29e's steps
+    read from phase 29's ``record29`` and ``times29``; (d) fp32 8192^3 /
+    4096^3 / 2048^3 on CUDA events in turns: both precisions, the engine
+    alone, the CUDA-core tile, fp32 ``torch.matmul`` without and with TF32,
+    and the split pass alone; each one's normwise error against float64
+    ``torch.matmul``, held to SGEMM's and cuBLAS TF32's on the same data;
+    (e) the split alone at 8192^2, each source type (fp32, bf16, fp16) held
+    (K, N) and (N, K), one and three segments, on CUDA events in turns
+    beside its bytes bound, each workspace bit for bit its plain version.
+    Returns the readings for the kernels line."""
     from gemm_hls_tpu_torch import _build, matmul
     from gemm_hls_tpu_torch.config import default_config
     from gemm_hls_tpu_torch.models.perf_model import H100
@@ -8879,6 +8967,15 @@ def phase_slice24(torch, lib_log, record29, times29):
             for side in ("a", "b"):
                 tf32_split_equal(torch, edge if not mn else edge.t().contiguous(), mn, passes,
                                  side, f"33a edge values mn {mn}")
+                for half in (torch.bfloat16, torch.float16):
+                    e16 = edge.to(half)
+                    tf32_split_equal(torch, e16 if not mn else e16.t().contiguous(), mn,
+                                     passes, side, f"33a {half} edge values mn {mn}")
+    for case in TF32_SPLIT_CASES:
+        tf32_split_case(torch, gen, case)
+    log(f"phase 33a: TF32_SPLIT_CASES {len(TF32_SPLIT_CASES)} cases (sources "
+        f"{sorted({c[0] for c in TF32_SPLIT_CASES})}), each workspace bit for bit its plain "
+        f"version, one launch each")
     tf32_repeats(torch, gen)
     log(f"phase 33a: TF32_ROUTE_CASES {len(TF32_ROUTE_CASES)} cases, by (route, precision) "
         f"{dict(seen)}; every engine case's split workspaces bit for bit their plain version, "
@@ -8900,11 +8997,27 @@ def phase_slice24(torch, lib_log, record29, times29):
             "default": front(lambda: matmul(a, b, precision="default")),
             "batched": front(lambda: matmul(ab, bb))}
     torch.cuda.synchronize()
+    got = launched()
+    by_route = {f"{r} {dt}": v for (r, dt), v in sorted(mxu.route_launches.items())}
+    passes = {f"x{p}": v for p, v in sorted(mxu.tf32_launches.items())}
+    sources = dict(mxu.tf32_operand.source_launches)
+    if not (got.get("B1") and got.get("B2") and got.get("B1 tf32 split") == 6
+            and sources == {"float32": 6}
+            and mxu.route_launches["wgmma", "float32"] == sum(mxu.tf32_launches.values())
+            and set(mxu.tf32_launches) == {1, 3}
+            and not any(r != "wgmma" for r, dt in mxu.route_launches if dt == "float32")):
+        raise AssertionError(f"33c: launches {got}, B1 / B2 by route {by_route}, by TF32 "
+                             f"passes {passes}, splits by source {sources}")
     ref = torch.matmul(a.double(), b.double())
     main_err = {k: normwise_of(torch, main[k], ref) for k in ("high", "default")}
     main_err["batched"] = normwise_of(torch, main["batched"],
                                       torch.matmul(ab.double(), bb.double()))
     del main, ref
+    # The bf16 trainer, counted apart: its forward and its backward on the
+    # 16-bit engine (the cotangents arrive bf16: ops/matmul.py::
+    # backward_on_16_bits), no split pass, no TF32 pass, no fp32 launch.
+    reset_every_counter()
+    t1 = time.perf_counter()
     dims, tokens = (4096, 16384, 4096), 8192
     run = run_trainer(torch, dims, tokens, torch.bfloat16, True, steps=SLICE24["trainer_steps"])
     (losses, secs, _), (p_losses, p_secs, _) = run["port"], run["plain"]
@@ -8912,30 +9025,34 @@ def phase_slice24(torch, lib_log, record29, times29):
         if not abs(l - pl) <= BF16_RTOL * abs(pl):
             raise AssertionError(f"33c trainer step {i}: loss {l} vs plain {pl}")
     torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t1
     main_s = time.perf_counter() - t0
-    got = launched()
-    by_route = {f"{r} {dt}": v for (r, dt), v in sorted(mxu.route_launches.items())}
-    passes = {f"x{p}": v for p, v in sorted(mxu.tf32_launches.items())}
-    if not (got.get("B1") and got.get("B2") and got.get("B1 tf32 split")
-            and mxu.route_launches["wgmma", "float32"] == sum(mxu.tf32_launches.values())
-            and set(mxu.tf32_launches) == {1, 3}
-            and not any(r != "wgmma" for r, dt in mxu.route_launches if dt == "float32")):
-        raise AssertionError(f"33c: launches {got}, B1 / B2 by route {by_route}, by TF32 "
-                             f"passes {passes}")
+    steps = SLICE24["trainer_steps"]
+    tr = launched()
+    tr_route = {f"{r} {dt}": v for (r, dt), v in sorted(mxu.route_launches.items())}
+    if (tr != {"B1": 3 * steps, "B1 epilogue": 2 * steps}
+            or dict(mxu.route_launches) != {("wgmma", "bfloat16"): 5 * steps}
+            or mxu.tf32_launches or mxu.tf32_operand.launches):
+        raise AssertionError(f"33c trainer: launches {tr}, by route {tr_route}, TF32 passes "
+                             f"{dict(mxu.tf32_launches)}, splits {mxu.tf32_operand.launches}")
     trainer_ms = statistics.median(secs[1:]) * 1e3
     plain_ms = statistics.median(p_secs[1:]) * 1e3
     log(f"phase 33c: fp32 matmul {n}^3 normwise vs float64: high {main_err['high']:.3e}, "
         f"default {main_err['default']:.3e}; B2 {bsz} x {nb}^3 high {main_err['batched']:.3e}; "
-        f"trainer bf16 {dims} x {tokens} fused: losses {[round(v, 4) for v in losses]} vs "
-        f"plain {[round(v, 4) for v in p_losses]}, step {trainer_ms:.1f} ms (plain "
-        f"{plain_ms:.1f} ms); launches {got}; B1 / B2 by route {by_route}; fp32 engine "
-        f"launches by TF32 passes {passes}; {main_s:.1f} s")
-    launches = dict(got, by_route=by_route, tf32_passes=passes)
+        f"launches {got}; B1 / B2 by route {by_route}; fp32 engine launches by TF32 passes "
+        f"{passes}; splits by source {sources}")
+    log(f"phase 33c: trainer bf16 {dims} x {tokens} fused, counted apart: losses "
+        f"{[round(v, 4) for v in losses]} vs plain {[round(v, 4) for v in p_losses]}, step "
+        f"{trainer_ms:.1f} ms (plain {plain_ms:.1f} ms); launches {tr} (every backward GEMM "
+        f"bf16 on the engine: no split, no TF32 pass); B1 by route {tr_route}; "
+        f"{trainer_s:.1f} s; the main path {main_s:.1f} s")
+    launches = dict(got, by_route=by_route, tf32_passes=passes, split_sources=sources,
+                    trainer=dict(tr, by_route=tr_route, splits=0))
     del a, b, ab, bb
     torch.cuda.empty_cache()
-    # Phase 29c's and 29e's steps ran this route already (their backward at
-    # the reference's DEFAULT, each call's counts set to 0 before it): their
-    # library entries by route and their times in turns, from its record.
+    # Phase 29c's and 29e's steps ran the bf16 backward already (on the
+    # 16-bit engine, each call's counts set to 0 before it): their library
+    # entries by route and their times in turns, from its record.
     steps29 = [key for key in record29
                if key.startswith(("29c step", "29e forward", "29e train"))]
     par = {key: dict(seconds=record29[key]["seconds"], entries=record29[key]["entries"])
@@ -9017,12 +9134,16 @@ def phase_slice24(torch, lib_log, record29, times29):
                                  f"'default' past 2x cuBLAS TF32's")
         del x, y, ws, c, ref
         torch.cuda.empty_cache()
+
+    # ---- (e) the split alone at 8192^2: every source type and holding -----
+    split = split_alone(torch, gen, SLICE24["split"])
     log(f"phase 33: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
-    return {"launches": launches, "readings": readings, "main_normwise": main_err,
+    return {"launches": launches, "readings": readings, "split": split,
+            "main_normwise": main_err,
             "trainer": dict(step_ms=trainer_ms, plain_ms=plain_ms, losses=losses),
             "par": par, "times29": times29,
             "ptxas": {**ptxas_report(lib_log, "mxu_wg_kernelIf"),
-                      **ptxas_report(lib_log, "SplitPut")}}
+                      **ptxas_report(lib_log, "tf32_split_")}}
 
 
 # ---------------------------------------------------------------------------
@@ -9326,7 +9447,7 @@ def phase_slice25(torch, lib_log):
                     else (("gemm", r["bound"]), ("pack", r["pack_bound"])))))
     log(f"phase 34: {time.perf_counter() - t_start:.1f} s (main path {main_s:.1f} s)")
     return {"launches": launches, "readings": readings,
-            "ptxas": {**ptxas_report(lib_log, "PackPut"), **ptxas_report(lib_log, "SplitPut")}}
+            "ptxas": {**ptxas_report(lib_log, "PackPut"), **ptxas_report(lib_log, "tf32_split_")}}
 
 
 # ---------------------------------------------------------------------------
@@ -9937,7 +10058,7 @@ def main() -> int:
           f"them:"
         + "".join(f"\n  {k}: {v}" for k, v in {
             **ptxas_report(lib_log, "mxu_wg_kernelIf"),
-            **ptxas_report(lib_log, "SplitPut"),
+            **ptxas_report(lib_log, "tf32_split_"),
             **ptxas_report(lib_log, "PackPut")}.items())
         + "\nphase 2: B1 / B2's integers as byte planes (csrc/mxu_wgmma_int.cu, nvcc "
           f"{nvcc_s.get('mxu_wgmma_int.cu')} s; csrc/int_split.cu, nvcc "
@@ -10363,19 +10484,24 @@ def main() -> int:
                      "call for \"high\"); cublas_tf32_ms the same call with TF32 (for "
                      "\"default\"); simt_ms the CUDA-core tile (csrc/mxu_gemm.cu) on the same "
                      "operands in the same turns; ms includes both split passes")
+    split = slice24["split"]
     kernels.append(kernel(
         "tf32_split (the split pass of B1 / B2's fp32 route: hi and lo rounded to TF32, "
-        "K-major; B (K, N) MN-major at 8192^2, three segments)",
+        "K-major, from fp32, bf16 or fp16 sources; fp32 B (K, N) at 8192^2, one segment)",
         "gemm_hls_tpu_torch/csrc/tf32_split.cu", "gemm_hls_tpu/ops/pallas_mxu.py:69",
         l24.get("B1 tf32 split", 0) + par24["tf32_split"],
-        dict(ms=t["ms"]["split b high"], plain_ms=t["ms"]["plain split b"],
+        dict(ms=split["float32 (K, N) x1"]["ms"], plain_ms=t["ms"]["plain split b"],
              max_abs_err=t["split_max_abs_err"]),
-        (t["bounds"]["split b high"] / 1e3, t["bound_by"]["split b high"]), None))
+        (split["float32 (K, N) x1"]["bound_ms"] / 1e3, "bytes"), None))
     kernels[-1].update(
-        default_ms=t["ms"]["split b default"],
-        ptxas={k: v for k, v in slice24["ptxas"].items() if "SplitPut" in k},
+        three_segments_ms=split["float32 (K, N) x3"]["ms"],
+        three_segments_bound_ms=split["float32 (K, N) x3"]["bound_ms"],
+        sources_8192=split, launches_by_source=l24["split_sources"],
+        trainer_splits=l24["trainer"]["splits"],
+        ptxas={k: v for k, v in slice24["ptxas"].items() if "tf32_split_" in k},
         library_note="no one PyTorch call splits into TF32; the TPU's MXU splits fp32 inside "
-                     "its dot (pallas_mxu.py's DEFAULT / HIGHEST), so no TPU kernel is its own")
+                     "its dot (pallas_mxu.py's DEFAULT / HIGHEST), so no TPU kernel is its own; "
+                     "plain_ms is the three-segment plain version's")
     # Slice 25 (phase 34): B1 / B2 on the engine at any layout and
     # alignment.  The pack pass, the engine after it and unaligned fp32 after
     # the split, each with its launches on phase 34's main path and its

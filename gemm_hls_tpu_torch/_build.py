@@ -267,9 +267,10 @@ def _declare(lib):
     lib.mxu_wgmma_tf32.restype = i32
     lib.mxu_wgmma_tf32.argtypes = gemm[:11] + [i32, i32, i32, vp, vp, i32, vp]
     # B1 / B2's fp32 route: the TF32 split pass (x, out, batch, rows, k,
-    # ld, bs, mn_major, kp, segs, lo_seg, stream).
-    lib.tf32_split.restype = i32
-    lib.tf32_split.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, i32, vp]
+    # ld, bs, mn_major, kp, segs, lo_seg, stream), one entry a source type.
+    for split in (lib.tf32_split, lib.tf32_split_bf16, lib.tf32_split_f16):
+        split.restype = i32
+        split.argtypes = [vp, vp, i64, i32, i32, i64, i64, i32, i32, i32, i32, vp]
     # B1 / B2 on the engine at any layout and alignment: the pack pass (x,
     # out, batch, rows, k, ld, bs, mn_major, kp, esize, stream).
     lib.operand_pack.restype = i32

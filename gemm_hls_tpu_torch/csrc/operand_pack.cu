@@ -20,7 +20,7 @@
 // What bounds it on an H100: bytes, one read and one write of the operand
 // at 3.35 TB/s: bf16 8192 x 8190, 134 MB read and 134 MB written, 0.080 ms;
 // int8 8192^2, 0.040 ms.  Its tile walk is csrc/operand_tile.cuh's, shared
-// with the TF32 split pass (csrc/tf32_split.cu): a block turns a square of
+// with the byte-plane split (csrc/int_split.cu): a block turns a square of
 // 128-byte sides (64 x 64 16-bit values, 128 x 128 int8) through shared
 // memory, a thread moving one 32-bit word (2 or 4 values), so a warp reads
 // and writes whole 128-byte lines.

@@ -1,8 +1,8 @@
 // The tile walk of the passes that write one B1 / B2 operand K-major for
-// the tile engine: csrc/tf32_split.cu (fp32, rounded to TF32) and
-// csrc/operand_pack.cu (bf16 / fp16 / int8, copied as they are).  Each
-// block turns a square tile of 128-byte sides through shared memory: 32 x
-// 32 fp32 values, 64 x 64 16-bit ones, 128 x 128 int8 ones.  A thread moves
+// the tile engine: csrc/operand_pack.cu (bf16 / fp16 / int8, copied as they
+// are) and csrc/int_split.cu (int16 / 32-bit integers cut into byte
+// planes).  Each block turns a square tile of 128-byte sides through shared
+// memory: 32 x 32 32-bit values, 64 x 64 16-bit ones, 128 x 128 int8 ones.  A thread moves
 // one 32-bit word, V = 4 / sizeof(T) values, at a time, so a warp reads
 // 128 contiguous bytes of the operand (along K when it is held (rows, K),
 // along the rows when it is held (K, rows)) and writes 128 contiguous

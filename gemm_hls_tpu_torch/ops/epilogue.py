@@ -47,14 +47,23 @@ class Epilogue:
     rows: bool = False
 
 
-def _output_form_bwd(dact):
+def _output_form_bwd(dact, unit: bool = False):
     """``(y, g, bias2d) -> (dacc, dbias2d)`` from an activation derivative
     written in terms of the output y (``fused_linear.py:35-45`` of the JAX
-    package).  dacc is fp32, the type the backward GEMMs contract over;
-    dbias sums every leading axis, so one function serves B1 and B2."""
+    package).  dacc is fp32, the type the backward GEMMs contract over,
+    but where the derivative is 0 or 1 (``unit``: identity, relu) and g is
+    bfloat16 / float16: g . act'(y) then holds g's values exactly, so dacc
+    keeps g's type and the backward GEMMs of a 16-bit layer run on its
+    16-bit engine (``ops/matmul.py::backward_on_16_bits``).  dbias sums
+    every leading axis in fp32, from the same values either way, so one
+    function serves B1 and B2."""
     def bwd(y, g, bias2d):
-        dacc = g.float() * dact(y.float())
-        return dacc, dacc.reshape(-1, dacc.shape[-1]).sum(0, keepdim=True)
+        if unit and g.dtype in (torch.bfloat16, torch.float16):
+            dacc = g * dact(y).to(g.dtype)
+        else:
+            dacc = g.float() * dact(y.float())
+        return dacc, dacc.reshape(-1, dacc.shape[-1]).sum(0, keepdim=True,
+                                                          dtype=torch.float32)
     return bwd
 
 
@@ -74,10 +83,10 @@ def softmax_rows(acc):
 
 _REGISTRY = {e.name: e for e in (
     Epilogue("bias", lambda acc, b: acc + b, code=1, n_operands=1,
-             bwd=_output_form_bwd(torch.ones_like)),
+             bwd=_output_form_bwd(torch.ones_like, unit=True)),
     Epilogue("bias_relu", lambda acc, b: torch.relu(acc + b), code=2,
              n_operands=1,
-             bwd=_output_form_bwd(lambda y: (y > 0).to(y.dtype))),
+             bwd=_output_form_bwd(lambda y: (y > 0).to(y.dtype), unit=True)),
     Epilogue("bias_sigmoid", lambda acc, b: torch.sigmoid(acc + b), code=3,
              n_operands=1, bwd=_output_form_bwd(lambda y: y * (1.0 - y))),
     Epilogue("bias_tanh", lambda acc, b: torch.tanh(acc + b), code=4,

@@ -8,8 +8,10 @@ Counterpart of ``gemm_hls_tpu/ops/matmul.py``.  Dispatch:
   first; fp32 as TF32 passes on the tile engine, float64
   on the FP64 tensor cores, int16 and the unsigned ints on the CUDA
   cores), differentiable through :class:`_MxuPadded` /
-  :class:`_MxuBatched`, whose backward is B1 / B2 again at the precision
-  the reference resolves for the forward (:func:`backward_precision`);
+  :class:`_MxuBatched`, whose backward is B1 / B2 again: on the 16-bit
+  engine where a bf16 / fp16 layer's cotangent arrives in its own type
+  (:func:`backward_on_16_bits`), else at the precision the reference
+  resolves for the forward (:func:`backward_precision`);
   with a fused ``epilogue``, through :class:`_MxuEpilogue` (a Python
   callable epilogue compiled at first use into a functor at the store,
   ``ops/codegen.py``).  int64 plus_times raises TypeError, as in
@@ -125,13 +127,29 @@ def backward_precision(cfg: GemmConfig) -> str:
     reference keeps the forward's config (``gemm_hls_tpu/ops/matmul.py``'s
     ``_mxu_bwd``, ``cfg.replace``), whose ``_resolve_precision``
     (``ops/pallas_mxu.py``) gives DEFAULT for any input narrower than 4
-    bytes or not floating, so a bf16 / fp16 layer's fp32 cotangent meets
-    the MXU at DEFAULT: "default" there (one TF32 pass on the card), the
-    config's own precision otherwise."""
+    bytes or not floating, so a bf16 / fp16 layer's cotangent meets the
+    MXU at DEFAULT: "default" there (its products exact in fp32: the
+    16-bit engine for a 16-bit cotangent, :func:`backward_on_16_bits`, one
+    TF32 pass for any other), the config's own precision otherwise."""
     d = torch_dtype(cfg.dtype)
     if not d.is_floating_point or d.itemsize < 4:
         return "default"
     return cfg.precision
+
+
+def backward_on_16_bits(cfg: GemmConfig, g) -> bool:
+    """Whether the backward GEMMs of a forward under ``cfg`` run on the
+    layer's own 16-bit type (B1 / B2's 16-bit engine route, an fp32
+    accumulator): a bfloat16 / float16 layer whose cotangent ``g`` arrives
+    in that type.  Every value that meets the products is then a 16-bit
+    value, so each product is exact in fp32, as at the reference's DEFAULT
+    on an fp32 cotangent holding the same values (only the order of the
+    sums differs).  Otherwise (an fp32 cotangent from a gelu / sigmoid /
+    tanh derivative or an epilogue's recomputed one, another type) the
+    pair meets as fp32 on the TF32 route, a 16-bit operand read by the
+    split pass as it is."""
+    d = torch_dtype(cfg.dtype)
+    return d in (torch.bfloat16, torch.float16) and g.dtype == d
 
 
 def _mxu_bwd(cfg: GemmConfig, res, g, need=(True, True)):
@@ -139,18 +157,24 @@ def _mxu_bwd(cfg: GemmConfig, res, g, need=(True, True)):
     gradient is wanted (no GEMM is run for it)."""
     a, b = res
     ta, tb = cfg.transpose_a, cfg.transpose_b
-    g = g.to(cfg.tacc_dtype)
+    half = backward_on_16_bits(cfg, g)
+    if not half and not (cfg.tacc_dtype == torch.float32 and g.dtype in mxu.TF32_SOURCES):
+        g = g.to(cfg.tacc_dtype)
     precision = backward_precision(cfg)
 
     def run(x, y, tx, ty, like):
-        # The cotangent is fp32 while a bf16 operand stays bf16: promote the
-        # pair, as the reference's dot does, at the precision the
-        # reference resolves for the forward's config.
-        dt = torch.promote_types(x.dtype, y.dtype)
+        # A 16-bit cotangent of a 16-bit layer: the pair in that type.  Else
+        # the pair promoted, as the reference's dot does, at the precision
+        # the reference resolves for the forward's config: an fp32 pair on
+        # the TF32 route reads a 16-bit member as it is (the split pass),
+        # any other pair is cast.
+        dt = x.dtype if half else torch.promote_types(x.dtype, y.dtype)
         c = default_config(dt).replace(
             transpose_a=tx, transpose_b=ty, out_dtype=dtype_name(like.dtype),
             precision=precision)
-        out = _plus_times(x.to(dt), y.to(dt), c)
+        if dt != torch.float32:
+            x, y = x.to(dt), y.to(dt)
+        out = _plus_times(x, y, c)
         if out.ndim > like.ndim:  # a broadcast 2-D operand: sum the batch
             out = out.sum(0)
         return out.to(like.dtype)

@@ -234,9 +234,14 @@ def _operand_layout(x, mn_major: bool):
     return (x.shape[0] if x.ndim == 3 else 1), rows, k
 
 
+# The types the split pass reads: fp32, and the 16-bit floats, each value
+# of which widened to fp32 is its own TF32 value (hi the value, lo 0).
+TF32_SOURCES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def _tf32_check(x, passes, side):
-    if x.dtype != torch.float32:
-        raise TypeError(f"the TF32 split takes float32, got {x.dtype}")
+    if x.dtype not in TF32_SOURCES:
+        raise TypeError(f"the TF32 split takes float32, bfloat16 or float16, got {x.dtype}")
     if passes not in (1, 3) or side not in TF32_LO_SEG:
         raise ValueError(f"passes 1 or 3 and side 'a' or 'b', got {passes}, {side!r}")
     return TF32_LO_SEG[side] if passes == 3 else -1
@@ -245,30 +250,37 @@ def _tf32_check(x, passes, side):
 def tf32_operand_plain(x, mn_major: bool, passes: int, side: str):
     """Plain version of :func:`tf32_operand`, on ``x``'s own device: the
     workspace built from :func:`tf32_split_plain`, the cross term's hi
-    (``TF32_LO_SEG``) 0 where x is +-inf or NaN."""
+    (``TF32_LO_SEG``) 0 where x is +-inf or NaN; a batch read with a
+    stride of 0 (a broadcast, or a batch of one) 2-D.  A bfloat16 / float16
+    ``x`` is split as its fp32 promotion (``x.float()``)."""
     lo_seg = _tf32_check(x, passes, side)
-    bsz, _, k = _operand_layout(x, mn_major)
+    once = x.ndim == 3 and _strides(_row_major(x))[1] == 0  # the kernel's reading
+    x = x.float()
+    k = _operand_layout(x, mn_major)[2]
     xr = x.transpose(-1, -2) if mn_major else x
     pad = round_up(k, 4) - k
     hi, lo = (torch.nn.functional.pad(p, (0, pad)) for p in tf32_split_plain(xr))
     cross = torch.where(torch.isfinite(hi), hi, torch.zeros_like(hi))
     out = torch.cat([lo if s == lo_seg else cross if lo_seg > 0 and s == 3 - lo_seg else hi
                      for s in range(passes)], dim=-1)
-    return out if out.ndim == 2 or bsz > 1 else out[0]
+    return out[0] if once else out
 
 
 def tf32_operand(x, mn_major: bool, passes: int, side: str):
-    """The K-major TF32 workspace the engine reads for fp32 operand ``x``
-    on the card (held (rows, K), or (K, rows) with ``mn_major``; 2-D, or
-    3-D with the batch first): (rows, passes * kp), or (batch, rows,
+    """The K-major TF32 workspace the engine reads for operand ``x`` on the
+    card: fp32, or bfloat16 / float16 read as they are (2 bytes a value;
+    the workspace is its fp32 promotion's bit for bit), held (rows, K), or
+    (K, rows) with ``mn_major``; 2-D, or 3-D with the batch first, at any
+    base, pitch and batch stride: (rows, passes * kp), or (batch, rows,
     passes * kp) for a batch of more than one, kp = K rounded up to 4
     values (16-byte rows), each row's segments one after another: hi alone
     for one pass; for three, ``side`` "a" [hi | hi | lo] or "b" [hi | lo |
     hi] (``TF32_LO_SEG``: the hi facing the other's lo 0 for +-inf and
     NaN); every value past K zero (a batch read with a stride of 0 is
     split once, 2-D).  Launches ``csrc/tf32_split.cu`` (counted in
-    ``tf32_operand.launches``); only the card's fp32 route calls it, so a
-    tensor off the card raises."""
+    ``tf32_operand.launches``, and by source type in
+    ``tf32_operand.source_launches``); only the card's fp32 route calls it,
+    so a tensor off the card raises."""
     lo_seg = _tf32_check(x, passes, side)
     if not x.is_cuda:
         raise ValueError(f"the TF32 split pass runs on the card, got a tensor on {x.device}")
@@ -278,12 +290,15 @@ def tf32_operand(x, mn_major: bool, passes: int, side: str):
     ld, bs = _strides(x)  # bs 0: one example (a broadcast batch is split once)
     out = torch.empty(((bsz,) if bs else ()) + (rows, passes * kp), dtype=torch.float32,
                       device=x.device)
+    lib = _build.library()
+    entry = {torch.float32: lib.tf32_split, torch.bfloat16: lib.tf32_split_bf16,
+             torch.float16: lib.tf32_split_f16}[x.dtype]
     with torch.cuda.device(x.device):
-        rc = _build.library().tf32_split(
-            x.data_ptr(), out.data_ptr(), bsz if bs else 1, rows, k, ld, bs, int(mn_major),
-            kp, passes, lo_seg, torch.cuda.current_stream().cuda_stream)
+        rc = entry(x.data_ptr(), out.data_ptr(), bsz if bs else 1, rows, k, ld, bs,
+                   int(mn_major), kp, passes, lo_seg, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "the TF32 split pass")
     tf32_operand.launches += 1
+    tf32_operand.source_launches[dtype_name(x.dtype)] += 1
     return out
 
 
@@ -293,10 +308,13 @@ def tf32_matmul_plain(a, b, passes: int, transpose_a=False, transpose_b=False):
     (:func:`tf32_operand_plain`'s workspaces), rounded once to fp32.  The
     kernel sums in fp32 in the tensor cores' order, so it is held to this
     at a tolerance, not bit for bit; on the CPU the port keeps IEEE fp32
-    (:func:`mxu_matmul_plain`)."""
+    (:func:`mxu_matmul_plain`).  Either operand may be bfloat16 / float16
+    (:data:`TF32_SOURCES`), split as it is."""
     wa = tf32_operand_plain(a, transpose_a, passes, "a").double()
     wb = tf32_operand_plain(b, not transpose_b, passes, "b").double()
-    return torch.matmul(wa, wb.transpose(-1, -2)).to(torch.float32)
+    out = torch.matmul(wa, wb.transpose(-1, -2)).to(torch.float32)
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    return out.expand(*lead, *out.shape[-2:])
 
 
 # ---- B1 / B2's integers on the engine: byte planes ------------------------
@@ -565,7 +583,7 @@ def mxu_matmul_plain(a, b, *ep_operands, cfg: GemmConfig, transpose_a=False,
     b_l = b.transpose(-1, -2) if transpose_b else b
     acc = cfg.tacc_dtype
     if (epilogue is None and a.dtype in (torch.bfloat16, torch.float16)
-            and cfg.tout_dtype == a.dtype):
+            and b.dtype == a.dtype and cfg.tout_dtype == a.dtype):
         out = torch.matmul(a_l, b_l)
     elif acc.is_floating_point:
         out = torch.matmul(a_l.to(acc), b_l.to(acc))
@@ -594,7 +612,11 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
     cannot describe raises."""
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if a.dtype != b.dtype:
+    # Two different float types (an fp32 cotangent against a bf16 operand in
+    # a backward, ops/matmul.py::_mxu_bwd) meet as fp32 on the engine's
+    # TF32 route, the split pass reading each in its own type.
+    dt = a.dtype if a.dtype == b.dtype else torch.float32
+    if a.dtype != b.dtype and not {a.dtype, b.dtype} <= set(TF32_SOURCES):
         raise ValueError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if a.dtype in _NO_PLUS_TIMES:
         raise TypeError(f"{what}: {dtype_name(a.dtype)} plus_times has no "
@@ -629,7 +651,7 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
             f"at most {ROW_SOFTMAX_MAX_N} columns, got {dtype_name(a.dtype)} "
             f"N={n}; softmax the fp32 scores instead")
     a, b = _row_major(a), _row_major(b)
-    in_dtype = a.dtype  # a split operand's workspace holds bytes
+    in_dtype = dt  # a split operand's workspace holds bytes
     (lda, sa), (ldb, sb) = _strides(a), _strides(b)
     vec_a, vec_b = _vec_ok(a), _vec_ok(b)
     aligned = bool(vec_a and vec_b)
@@ -640,24 +662,27 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
                              f"runs on 'wgmma' or {old!r}, not {route!r}")
         rule = row_softmax_route(a.dtype, out_dtype, n, k, aligned)
     else:
-        rule = mxu_route(a.dtype, out_dtype)
-    route = named_route(route, rule, what, a.dtype if not rows else None)
+        rule = mxu_route(dt, out_dtype)
+    route = named_route(route, rule, what, dt if not rows else None)
+    if a.dtype != b.dtype and (rows or route != "wgmma"):
+        raise ValueError(f"{what}: {a.dtype} against {b.dtype} runs on the engine's TF32 "
+                         f"route only")
     # fp32 on the engine: TF32 passes on K-major workspaces (below).
-    passes = tf32_passes(cfg.precision) if route == "wgmma" and a.dtype == torch.float32 else None
+    passes = tf32_passes(cfg.precision) if route == "wgmma" and dt == torch.float32 else None
     # bf16 / fp16 / int8 / uint8 on the engine: each operand its maps
     # cannot read in place is packed into a K-major workspace first (below).
-    pack_a, pack_b = packed_operands(a.dtype, ta, tb, vec_a, vec_b) \
+    pack_a, pack_b = packed_operands(dt, ta, tb, vec_a, vec_b) \
         if route == "wgmma" and not rows else (False, False)
     # The integers but int8 on the engine: byte planes, each pair's
     # products on the int8 tensor cores (csrc/mxu_wgmma_int.cu); int16,
     # uint16, uint32 and int32 split into planes first (below).
-    int_walk = route == "wgmma" and not rows and dtype_name(a.dtype) in INT_PLANES
-    planes = INT_PLANES[dtype_name(a.dtype)] if int_walk else None
-    engine_int = route == "wgmma" and not rows and not a.dtype.is_floating_point
+    int_walk = route == "wgmma" and not rows and dtype_name(dt) in INT_PLANES
+    planes = INT_PLANES[dtype_name(dt)] if int_walk else None
+    engine_int = route == "wgmma" and not rows and not dt.is_floating_point
     if engine_int and dtype_name(out_dtype) not in ENGINE_INT_OUTPUTS:
         raise NotImplementedError(
             f"{what}: the tile engine stores no {dtype_name(out_dtype)} output of "
-            f"{dtype_name(a.dtype)} inputs (ROADMAP B coverage item 17)")
+            f"{dtype_name(dt)} inputs (ROADMAP B coverage item 17)")
     tile = None
     if route == "dmma":
         tile = dmma_tile(aligned)
@@ -675,7 +700,7 @@ def _launch(a, b, eps, bsz, m, n, k, cfg, ta, tb, epilogue, what, route=None,
         kept = _EP_DTYPES + ((torch.float64,) if route == "dmma" else ())
         split = passes or (planes and planes > 1)
         fn = codegen.epilogue_kernel(
-            gen.fn, route, a.dtype, cfg.tacc_dtype,
+            gen.fn, route, dt, cfg.tacc_dtype,
             [e.dtype if e.dtype in kept else ep_dt for e in eps],
             *((False, True) if split else (ta and not pack_a, tb or pack_b)), gen.name,
             tile=f"tf32x{passes}" if passes else f"planes{planes}" if planes else tile)
@@ -856,9 +881,11 @@ generated_launches = collections.Counter()
 # generated epilogue's library), "cp_async" csrc/dmma_gemm.cu.
 dmma_tile_launches = collections.Counter()
 # fp32 launches of B1 and B2 on the engine by TF32 passes (1: "default",
-# 3: "high" / "highest"), and the split pass's launches (two a GEMM).
+# 3: "high" / "highest"), and the split pass's launches (two a GEMM), all
+# and by source type ("float32", or a 16-bit operand read as it is).
 tf32_launches = collections.Counter()
 tf32_operand.launches = 0
+tf32_operand.source_launches = collections.Counter()
 # B1 / B2 engine launches with at least one packed operand, and the pack
 # pass's launches (one a packed operand), each by input dtype.
 packed_launches = collections.Counter()

@@ -18,7 +18,9 @@ operands (U(-1, 1) floats, integers over their range), counts the outputs
 whose bits differ from the first library's scalar tile and times every
 (library, route) on CUDA events in turns, the order reversed every other
 round (parent, change, change, parent), beside the bound
-(``ChipSpec.vpu_ops_for``).
+(``ChipSpec.vpu_ops_for``); a plus_times case also times, in the same
+turns, the library calls that compute it: ``torch.matmul`` on the
+operands and, for a 16-bit type, on their fp32 copies.
 
 ``--probe``: the card's rates and the packed route's premise, from
 ``csrc/b3_probe.cu`` (:func:`issue_rates`, :func:`pair_checks`; phases 36a
@@ -313,6 +315,11 @@ def run(libs, cases=CASES):
             view = torch.int16 if got.element_size() == 2 else (
                 torch.int8 if got.element_size() == 1 else torch.int32)
             differing[name] = int((got.view(view) != ref.view(view)).sum())
+        if sr == "plus_times":  # the library calls of the same product, timed beside
+            variants[f"torch.matmul {dt}"] = lambda: torch.matmul(a, b)
+            if a.element_size() == 2:
+                af, bf = a.float(), b.float()
+                variants["torch.matmul float32"] = lambda: torch.matmul(af, bf)
         t = turns(variants)
         bound_s, _ = H100.bound(2.0 * N ** 3, H100.vpu_ops_for(dt, sr, dt),
                                 3 * N * N * a.element_size())

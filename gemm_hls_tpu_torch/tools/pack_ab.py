@@ -5,8 +5,8 @@
 ``PARENT_CSRC`` is the ``gemm_hls_tpu_torch/csrc`` directory of an earlier
 checkout (say one that ``git archive`` unpacked into a gitignored
 directory).  Builds ``csrc/operand_pack.cu`` and ``csrc/tf32_split.cu``
-(the two passes on ``csrc/operand_tile.cuh``'s tile walk) into two small
-libraries side by side under the gitignored
+(the pack on ``csrc/operand_tile.cuh``'s tile walk; the split's fp32 entry)
+into two small libraries side by side under the gitignored
 ``gemm_hls_tpu_torch/build/pack_ab/``, one from those sources and one from
 this checkout's.  Then, for each pass at the shapes of ``chip_smoke.py``'s
 phase 34 (an int8 B held (K, N), a bf16 A with K 8190 held either way, an

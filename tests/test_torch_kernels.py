@@ -1681,13 +1681,101 @@ def test_tf32_split_of_edge_values_is_bitwise(cuda, mn_major, passes):
 
 
 def test_tf32_backward_of_a_bf16_layer_runs_one_pass(cuda):
+    # A bf16 layer's fp32 cotangent (an fp32 output) meets the bf16 operand
+    # at the reference's DEFAULT: one TF32 pass for each backward GEMM, the
+    # bf16 operand split as it is (one split of it and one of the
+    # cotangent a GEMM).  Its bf16 cotangent runs no TF32 pass (below).
     gen = _gen(2404)
     a = chip_smoke.signed(torch, (512, 256), torch.bfloat16, gen).requires_grad_()
     b = chip_smoke.signed(torch, (256, 384), torch.bfloat16, gen).requires_grad_()
+    out = matmul(a, b, out_dtype="float32")
     mxu.tf32_launches.clear()
-    matmul(a, b).float().sum().backward()
+    mxu.tf32_operand.source_launches.clear()
+    out.sum().backward()
     assert dict(mxu.tf32_launches) == {1: 2}
+    assert dict(mxu.tf32_operand.source_launches) == {"float32": 2, "bfloat16": 2}
     assert mxu.mxu_matmul.last_route == "wgmma" and mxu.mxu_matmul.last_tf32_passes == 1
+    ga, gb = a.grad.float(), b.grad.float()
+    ones = torch.ones(512, 384, device=cuda)
+    _close(ga, ones @ b.detach().float().t(), 1e-2)
+    _close(gb, a.detach().float().t() @ ones, 1e-2)
+
+
+# The split of fp32, bf16 and fp16 sources (chip_smoke.py phase 33a's
+# TF32_SPLIT_CASES), each workspace bit for bit its plain version.
+
+@pytest.mark.parametrize("case", chip_smoke.TF32_SPLIT_CASES, ids=str)
+def test_tf32_split_of_each_source_is_bitwise(cuda, case):
+    chip_smoke.tf32_split_case(torch, _gen(2901), case)
+
+
+@pytest.mark.parametrize("half", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mn_major", [False, True])
+def test_tf32_split_of_16_bit_edge_values_is_its_promotions(cuda, half, mn_major):
+    x = chip_smoke.tf32_edge_operand(torch, _gen(2902), 70, 130).to(half)
+    x = x.t().contiguous() if mn_major else x
+    for passes, side in ((1, "a"), (3, "a"), (3, "b")):
+        got = mxu.tf32_operand(x, mn_major, passes, side)
+        want = mxu.tf32_operand(x.float(), mn_major, passes, side)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The backward of a 16-bit layer (ops/matmul.py::backward_on_16_bits): a
+# cotangent in the layer's type runs both GEMMs on the 16-bit engine, no
+# split and no TF32 pass; an expanded (stride-0) cotangent is made
+# row-major first; fused_linear's identity / relu too, its sigmoid / tanh
+# on the TF32 route with the 16-bit operand split unpromoted.
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ta,tb", LAYOUTS)
+@pytest.mark.parametrize("stride_0", [False, True])
+def test_16_bit_backward_on_the_16_bit_engine(cuda, dtype, ta, tb, stride_0):
+    gen = _gen(2903)
+    a = chip_smoke.signed(torch, (384, 512) if ta else (512, 384), dtype, gen)
+    b = chip_smoke.signed(torch, (256, 384) if tb else (384, 256), dtype, gen)
+    leaves = [t.clone().requires_grad_() for t in (a, b)]
+    out = matmul(*leaves, transpose_a=ta, transpose_b=tb)
+    g = (torch.ones((), device=cuda, dtype=dtype).expand(512, 256) if stride_0
+         else chip_smoke.signed(torch, (512, 256), dtype, gen))
+    chip_smoke.reset_counters()
+    out.backward(g)
+    assert mxu.mxu_matmul.launches == 2 and dict(mxu.route_launches) == {
+        ("wgmma", str(dtype).split(".")[1]): 2}
+    assert not mxu.tf32_launches and mxu.tf32_operand.launches == 0
+    ref = [t.float().requires_grad_() for t in (a, b)]
+    a_l = ref[0].t() if ta else ref[0]
+    b_l = ref[1].t() if tb else ref[1]
+    (a_l @ b_l).backward(g.float())
+    for got, want in zip(leaves, ref):
+        assert got.grad.dtype == dtype
+        _close(got.grad.float(), want.grad, 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("act", ["identity", "relu", "sigmoid", "tanh"])
+def test_16_bit_fused_linear_backward_routes(cuda, dtype, act):
+    gen = _gen(2904)
+    x = chip_smoke.signed(torch, (512, 384), dtype, gen)
+    w = chip_smoke.signed(torch, (384, 256), dtype, gen)
+    b = chip_smoke.signed(torch, (256,), dtype, gen)
+    g = chip_smoke.signed(torch, (512, 256), dtype, gen)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    out = fused_linear(*leaves, act)
+    chip_smoke.reset_counters()
+    out.backward(g)
+    name = str(dtype).split(".")[1]
+    if act in ("identity", "relu"):
+        assert dict(mxu.route_launches) == {("wgmma", name): 2}
+        assert mxu.tf32_operand.launches == 0
+    else:
+        assert dict(mxu.route_launches) == {("wgmma", "float32"): 2}
+        assert dict(mxu.tf32_operand.source_launches) == {"float32": 2, name: 2}
+    ref = [t.float().requires_grad_() for t in (x, w, b)]
+    acts = {"identity": lambda t: t, "relu": torch.relu, "sigmoid": torch.sigmoid,
+            "tanh": torch.tanh}
+    acts[act](ref[0] @ ref[1] + ref[2]).backward(g.float())
+    for got, want in zip(leaves, ref):
+        _close(got.grad.float(), want.grad, 1e-2)
 
 
 def test_tuned_cuda_core_winner_of_aligned_fp32_is_adopted(cuda, tmp_path, monkeypatch):

@@ -121,31 +121,45 @@ def test_card_table_takes_the_routes_it_names():
 @pytest.mark.parametrize("precision", ["default", "high", "highest"])
 def test_backward_precision_is_the_references(dtype, precision, monkeypatch):
     # The reference's backward keeps the forward's config, whose
-    # _resolve_precision gives DEFAULT for 16-bit inputs; the port builds
-    # fp32 configs for the promoted pair and must ask for the same.  Read
-    # from the configs _mxu_bwd hands to the two GEMMs.
+    # _resolve_precision gives DEFAULT for 16-bit inputs.  Read from the
+    # configs and operands _mxu_bwd hands to the two GEMMs: a 16-bit
+    # layer's cotangent arrives in its own type here (out.float()'s
+    # backward casts it back), so both GEMMs run on that type (its products
+    # exact in fp32, DEFAULT's values); fp32 and float64 layers keep the
+    # config's precision on their own type.  An fp32 cotangent of a 16-bit
+    # layer (an fp32 output) meets the 16-bit operand as fp32 at DEFAULT:
+    # one TF32 pass on the card, the 16-bit operand handed over unpromoted
+    # (the split pass reads it as it is).
     want = pallas_mxu._resolve_precision(JaxConfig(dtype=dtype, precision=precision))
     assert matmul_mod.backward_precision(GemmConfig(dtype=dtype, precision=precision)) in (
         pallas_mxu._PRECISION)
     seen, inner = [], matmul_mod._plus_times
 
     def spy(a, b, cfg, route=None):
-        seen.append(cfg)
+        seen.append((cfg, a.dtype, b.dtype))
         return inner(a, b, cfg, route)
 
     dt = getattr(torch, dtype)
     a = torch.from_numpy(make_operands(9, 6, 7, "float32")[0]).to(dt).requires_grad_()
     b = torch.from_numpy(make_operands(9, 6, 7, "float32")[1]).to(dt).requires_grad_()
     out = matmul(a, b, precision=precision)
+    out32 = matmul(a, b, precision=precision, out_dtype="float32")
     monkeypatch.setattr(matmul_mod, "_plus_times", spy)
     out.float().sum().backward()
     assert len(seen) == 2 and a.grad is not None and b.grad is not None
-    for cfg in seen:
-        assert cfg.dtype == ("float64" if dtype == "float64" else "float32")
+    for cfg, da, db in seen:
+        assert cfg.dtype == dtype and da == db == dt
+        assert pallas_mxu._PRECISION[cfg.precision] == want, (cfg.precision, want)
+    if dt.itemsize != 2:
+        return
+    seen.clear()
+    out32.sum().backward()
+    assert len(seen) == 2
+    for cfg, da, db in seen:
+        assert cfg.dtype == "float32" and {da, db} == {torch.float32, dt}
         assert pallas_mxu._PRECISION[cfg.precision] == want, (cfg.precision, want)
     # A 16-bit layer's fp32 cotangent runs one TF32 pass on the card.
-    if dt.itemsize == 2:
-        assert {mxu.tf32_passes(c.precision) for c in seen} == {1}
+    assert {mxu.tf32_passes(c.precision) for c, _, _ in seen} == {1}
 
 
 # ---- the split's plain version ---------------------------------------------
